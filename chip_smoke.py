@@ -8,32 +8,52 @@ Phases (any failure makes the script exit non-zero without the final line):
   2. build    - compiles every kernel of the port (nvcc, sm_90a, one process
                 per source, in parallel) and prints ptxas' registers/smem.
   3. kernels  - each kernel against its plain PyTorch twin on the card at the
-                sampler's shapes, with the tolerance stated; times of the
-                kernel, the twin, one library call used only as a yardstick,
-                and the least time the card could take (bound).
+                shapes of the paths below, with the tolerance stated; times
+                of the kernel, the twin, one library call used only as a
+                yardstick, and the least time the card could take (bound).
+                Also quantize_page on the card against the CPU, bit for bit.
   4. sampler  - the W4A8 sampler at full width (12 layers, 768 wide, 12 heads,
                 vocab 50257; random weights from a seed, quantized in the
                 port): B=8, S=256, 32 steps, bf16 activations, timed 5 times
                 (median), then decode_tokens. Checks finite output, token
                 range and the launch counts of every run (27 int8w_matmul +
-                12 int8w_mlp per step); then 2 steps on the same noise
-                against the plain twins on the CPU.
+                12 int8w_mlp per step), with host CPU time; the same run
+                with the model built at max_sequence_length 1024 and 4096,
+                alternating; then 2 steps on the same noise against the
+                plain twins on the CPU.
   5. long S   - 2 steps at B=2, S=1024, where attention runs through the
                 dense_attention kernel (12 launches per forward).
   6. profile  - torch.profiler over one forward at B=8, S=256: device time
                 by kernel and the device-busy share.
-  7. summary  - a JSON line of kernels, a JSON line of the sampler runs,
-                then the device line last.
+  7. cache    - PagedKVCache.attend over a salience-allocated chain of 16
+                pages at three widths: one paged_attention launch per width,
+                against the same cache on the CPU.
+  8. serving  - the paged serving batcher at full width (the same model):
+                serve_paged (S=4096, 2 slots, pages of 128, 4-bit KV,
+                salience routing, 2 GiB HBM budget: JAX's long-sequence
+                serving bench), serve_phase (S=2048, 4 slots, pages of 64,
+                the default 8 -> 4 -> 2 phase schedule, mixed step counts),
+                serve_dense (S=256, 8 slots, the dense fake-quant mode), each
+                with generated tokens/s, request latency (submit to tokens
+                on the host), peak memory, the device-busy share of one
+                fused chunk of 8 steps and its launch counts; and
+                serve_check (one step at S=512 on the card against the twins
+                on the CPU from the same noise).
+  9. summary  - a JSON line of kernels, a JSON line of the runs, then the
+                device line last.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
 import traceback
 
+import numpy as np
 import torch
 
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate
@@ -161,7 +181,7 @@ def kernels():
         dense_attention, dense_attention_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    results = {"int8w_matmul": [], "int8w_mlp": [], "dense_attention": []}
+    results = {name: [] for name in KERNELS}
     bad = []
     bf16, f32 = torch.bfloat16, torch.float32
 
@@ -273,9 +293,183 @@ def kernels():
         f"{plain_ms:.4f}, library {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
     if not ok:
         bad.append("dense_attention")
+    _paged_kernels(gen, results, bad)
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
     return results
+
+
+def _quantized_pools(gen, n_slots, H, P, D, G, bits):
+    """Pools in the JAX layout, from N(0, 1) keys and values quantized on
+    the card by the port's quantize_page, heads grouped G to a row."""
+    from diffusion_llm_rs_tpu_torch.cache.paged import quantize_page
+    HG, Pp = H // G, P // (8 // bits)
+    out = []
+    for _ in range(2):
+        x = torch.randn((n_slots * H, P, D), generator=gen, device="cuda")
+        d, sc, zp = quantize_page(x, bits)
+        d = (d.reshape(n_slots, HG, G, Pp, D).permute(0, 1, 3, 2, 4)
+             .reshape(n_slots, HG, Pp, G * D).contiguous())
+        out += [d, sc.reshape(n_slots, HG, G * P), zp.reshape(n_slots, HG, G * P)]
+    return tuple(out)
+
+
+def _dequant_sdpa(q, pt, pools, bits, G):
+    """Library yardstick: every slot's pages (all full) dequantized to bf16,
+    then scaled_dot_product_attention. q [B, H, Sq, D], pt [B, n]."""
+    from diffusion_llm_rs_tpu_torch.ops.paged_attention import unpack_levels
+    B, H, _, D = q.shape
+    n = pt.shape[1]
+    idx = pt.reshape(-1).long()
+
+    def deq(data, sc, zp):
+        HG, P = data.shape[1], sc.shape[2] // G
+        lv = unpack_levels(data.index_select(0, idx), bits).float()
+        lv = (lv.reshape(B, n, HG, P, G, D).permute(0, 2, 4, 1, 3, 5)
+              .reshape(B, H, n * P, D))
+
+        def side(a):
+            return (a.index_select(0, idx).reshape(B, n, HG, G, P)
+                    .permute(0, 2, 3, 1, 4).reshape(B, H, n * P, 1))
+        return ((lv - side(zp)) * side(sc)).to(torch.bfloat16)
+
+    kd, ks, kz, vd, vs, vz = pools
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.to(torch.bfloat16), deq(kd, ks, kz), deq(vd, vs, vz))
+
+
+def _paged_bound(B, H, Sq, D, P, bits, pages, tokens):
+    """Bytes: the packed K/V and the four f32 sidecars of the pages read, q
+    (bf16), out and lse (f32); operations: 4 per (query, key, channel) over
+    the valid keys of each slot."""
+    nbytes = (pages * (2 * H * (P // (8 // bits)) * D + 4 * H * P * 4)
+              + B * H * Sq * D * (2 + 4) + B * H * Sq * 4)
+    return bound(nbytes, 4 * H * Sq * D * tokens, PEAK_BF16_FLOPS)
+
+
+def _paged_compare(out, lse, ref, ref_lse):
+    """Relative Frobenius error of the output (<= 1e-2) and the largest lse
+    difference (<= 1e-3): sums in another order, CUDA's expf."""
+    rel = float((out - ref).norm() / ref.norm())
+    lse_err = float((lse - ref_lse).abs().max())
+    err = float((out - ref).abs().max())
+    ok = rel <= 1e-2 and lse_err <= 1e-3 and bool(torch.isfinite(out).all())
+    return err, rel, lse_err, ok
+
+
+def _paged_kernels(gen, results, bad):
+    from diffusion_llm_rs_tpu_torch.cache.paged import quantize_page
+    from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
+
+    tol = "rel Frobenius <= 1e-2, |lse| <= 1e-3"
+    # quantize_page on the card equals the CPU bit for bit (true division
+    # by a 0-d tensor, ROADMAP C2)
+    for bits in (1, 2, 4, 8):
+        x = torch.randn((24, 128, 64), generator=gen, device="cuda") * \
+            torch.rand((24, 128, 1), generator=gen, device="cuda") * 10
+        dev, cpu = quantize_page(x, bits), quantize_page(x.cpu(), bits)
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(dev, cpu))
+        log(f"  quantize_page {bits}-bit card vs CPU: "
+            f"{'bit for bit' if same else 'MISMATCH'}")
+        if not same:
+            bad.append(f"quantize_page {bits}-bit")
+
+    # batched_paged_attention at one layer of serve_paged (B=2, Sq=4096,
+    # pages of 128) and of serve_phase (B=4, Sq=2048, pages of 64); H=12,
+    # G=2, 32 pages per slot. A case is (label, bits, B, Sq, P, n_pages per
+    # slot, tokens of each slot's last page): a slot of 0 pages is empty; a
+    # slot of fewer than 32 reads the front of its table, as a bucket's
+    # compacted table in serving does. The full-table cases are timed.
+    H, G, D, n = 12, 2, 64, 32
+    full = ([n, n], [128, 128])
+    ragged = ([n, 0], [37, 128])
+    phase = ([n, 19, 0, 7], [37, 5, 64, 64])
+    cases = [("serve_paged shape 4-bit", 4, 2, 4096, 128, full, True),
+             ("serve_paged partial page + empty slot", 4, 2, 4096, 128, ragged,
+              False),
+             ("8-bit", 8, 2, 1024, 128, full, False),
+             ("2-bit", 2, 2, 1024, 128, full, False),
+             ("1-bit", 1, 2, 1024, 128, full, False),
+             ("serve_phase shape 4-bit", 4, 4, 2048, 64, ([n] * 4, [64] * 4),
+              True)]
+    cases += [(f"serve_phase compacted {bits}-bit, partial pages + empty "
+               f"slot", bits, 4, 2048, 64, phase, False) for bits in (8, 4, 2)]
+    for label, bits, B, sq, P, (npages, last), timed in cases:
+        pools = _quantized_pools(gen, B * n, H, P, D, G, bits)
+        q = torch.randn((B, H, sq, D), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        pt = torch.randperm(B * n, generator=gen, device="cuda").reshape(
+            B, n).to(torch.int32)
+        nt = torch.full((B, n), P, dtype=torch.int32, device="cuda")
+        for slot, (k, tok) in enumerate(zip(npages, last)):
+            if k:
+                nt[slot, k - 1] = tok
+        npg = torch.tensor(npages, dtype=torch.int32, device="cuda")
+        args = (q, pt, nt, npg) + pools
+        out, lse = pa.batched_paged_attention(*args, bits=bits, return_lse=True,
+                                              head_group=G)
+        ref, ref_lse = pa.batched_paged_attention_plain(
+            *args, bits=bits, return_lse=True, head_group=G)
+        err, rel, lse_err, ok = _paged_compare(out, lse, ref, ref_lse)
+        for slot in (i for i, k in enumerate(npages) if k == 0):
+            ok = ok and bool((out[slot] == 0).all()) and \
+                bool((lse[slot] == pa.NEG_INF).all())
+        row = dict(shape=f"{label}: B={B} H={H} G={G} Sq={sq} P={P} "
+                   f"pages={npages}", max_abs_err=err, rel_err=rel,
+                   lse_err=lse_err, tolerance=tol)
+        if timed:
+            row["ms"] = time_ms(lambda: pa.batched_paged_attention(
+                *args, bits=bits, head_group=G))
+            row["plain_ms"] = time_ms(lambda: pa.batched_paged_attention_plain(
+                *args, bits=bits, head_group=G), 3)
+            row["library_ms"] = time_ms(lambda: _dequant_sdpa(q, pt, pools,
+                                                              bits, G))
+            row["bound_ms"], row["bound_by"] = _paged_bound(
+                B, H, sq, D, P, bits, B * n, B * n * P)
+        results["batched_paged_attention"].append(row)
+        log(f"  batched_paged_attention {label}: rel {rel:.3g} lse "
+            f"{lse_err:.3g} {'ok' if ok else 'MISMATCH'}"
+            + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
+               f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+               f"({row['bound_by']})" if "ms" in row else ""))
+        if not ok:
+            bad.append(f"batched_paged_attention {label}")
+
+    # paged_attention (one sequence): BH=12, Sq=1024, 8 pages of 128, 4 bits;
+    # the timed case full, the checked one with a partial last page
+    BH, Sq1, n1, bits, P = 12, 1024, 8, 4, 128
+    pools = _quantized_pools(gen, 2 * n1, BH, P, D, 1, bits)
+    q = torch.randn((BH, Sq1, D), generator=gen, device="cuda").to(torch.bfloat16)
+    pt = torch.randperm(2 * n1, generator=gen, device="cuda")[:n1].to(torch.int32)
+    for label, last in (("full pages", P), ("partial last page", 50)):
+        nt = torch.full((n1,), P, dtype=torch.int32, device="cuda")
+        nt[-1] = last
+        args = (q, pt) + pools
+        out, lse = pa.paged_attention(*args, bits=bits, page_tokens=nt,
+                                      return_lse=True)
+        ref, ref_lse = pa.paged_attention_plain(*args, bits=bits,
+                                                page_tokens=nt, return_lse=True)
+        err, rel, lse_err, ok = _paged_compare(out, lse, ref, ref_lse)
+        row = dict(shape=f"{label}: BH={BH} Sq={Sq1} P={P} pages={n1} "
+                   f"{bits}-bit", max_abs_err=err, rel_err=rel,
+                   lse_err=lse_err, tolerance=tol)
+        if last == P:
+            row["ms"] = time_ms(lambda: pa.paged_attention(
+                *args, bits=bits, page_tokens=nt))
+            row["plain_ms"] = time_ms(lambda: pa.paged_attention_plain(
+                *args, bits=bits, page_tokens=nt), 5)
+            row["library_ms"] = time_ms(lambda: _dequant_sdpa(
+                q[None], pt[None], pools, bits, 1))
+            row["bound_ms"], row["bound_by"] = _paged_bound(
+                1, BH, Sq1, D, P, bits, n1, n1 * P)
+        results["paged_attention"].append(row)
+        log(f"  paged_attention {label}: rel {rel:.3g} lse {lse_err:.3g} "
+            f"{'ok' if ok else 'MISMATCH'}"
+            + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
+               f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+               f"({row['bound_by']})" if "ms" in row else ""))
+        if not ok:
+            bad.append(f"paged_attention {label}")
 
 
 def full_width_model(max_seq):
@@ -354,7 +548,7 @@ def sampler():
     from diffusion_llm_rs_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    cfg, params = full_width_model(max_seq=1024)
+    cfg, params = full_width_model(max_seq=4096)
     torch.cuda.synchronize()
     log(f"  model built and quantized in {time.perf_counter() - t0:.1f} s")
     MODEL.update(cfg=cfg, params=params)
@@ -366,14 +560,15 @@ def sampler():
     torch.cuda.reset_peak_memory_stats()
 
     expect = _expected_launches(cfg, steps, long_seq=False)
-    walls = []
+    walls, cpus = [], []
     for _ in range(REPEATS):
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.process_time()
         x = sample(model_fn, schedule, (B, S, cfg.hidden_size), gen,
                    num_steps=steps)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        cpus.append(time.process_time() - c0)
         counts = dict(_build.launch_counts)
         for name, n in expect.items():
             if counts.get(name, 0) != n:
@@ -386,12 +581,16 @@ def sampler():
     peak = torch.cuda.max_memory_allocated()
     walls.sort()
     wall = walls[len(walls) // 2]
+    cpu = statistics.median(cpus)
     log(f"  launches per run {counts}")
     log(f"  sample B={B} S={S} steps={steps}, {REPEATS} runs: median "
         f"{wall:.4f} s (min {walls[0]:.4f}, max {walls[-1]:.4f}), "
         f"{B * S / wall:.1f} generated tokens/s, "
         f"{B * S * steps / wall:.1f} denoise-step tokens/s, "
-        f"peak memory {peak / 2**20:.1f} MiB")
+        f"peak memory {peak / 2**20:.1f} MiB; host CPU time per step "
+        f"{cpu / steps * 1e3:.2f} ms (median run {cpu:.4f} s)")
+    by_max_seq = _sampler_by_max_seq(cfg, params, (B, S, cfg.hidden_size),
+                                     steps)
     if tokens.shape != (B, S) or int(tokens.min()) < 0 or \
             int(tokens.max()) >= cfg.vocab_size:
         raise AssertionError(f"token ids out of range: {tokens.shape}")
@@ -422,7 +621,39 @@ def sampler():
     if worst > 2e-2 or rel_x > 2e-2:
         raise AssertionError("sampler disagrees with its twins")
     return dict(counts=counts, runs=REPEATS, wall_s=wall, walls_s=walls,
-                tokens_per_s=B * S / wall, peak_bytes=peak, eps_rel_err=worst)
+                cpu_s=cpu, tokens_per_s=B * S / wall, peak_bytes=peak,
+                eps_rel_err=worst, by_max_seq=by_max_seq)
+
+
+def _sampler_by_max_seq(cfg, params, shape, steps, runs=3):
+    """The same sampler with the model built at max_sequence_length 1024
+    and 4096 (this script's), runs alternating, each timed by wall and host
+    CPU time: whether the position table's length moves the step."""
+    from diffusion_llm_rs_tpu_torch.models.diffusion import sample
+
+    models = {1024: full_width_model(max_seq=1024),
+              cfg.max_sequence_length: (cfg, params)}
+    fns = {m: _sampler(c, p, "cuda") for m, (c, p) in models.items()}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    times = {m: [] for m in models}
+    for _ in range(runs):
+        for m, (schedule, model_fn) in fns.items():
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.process_time()
+            sample(model_fn, schedule, shape, gen, num_steps=steps)
+            torch.cuda.synchronize()
+            times[m].append((time.perf_counter() - t0,
+                             time.process_time() - c0))
+    out = {}
+    for m, ts in times.items():
+        wall = statistics.median(t[0] for t in ts)
+        cpu = statistics.median(t[1] for t in ts)
+        out[m] = dict(wall_s=wall, cpu_s=cpu,
+                      tokens_per_s=shape[0] * shape[1] / wall)
+        log(f"  max_sequence_length {m}: median of {runs} runs {wall:.4f} s "
+            f"({shape[0] * shape[1] / wall:.1f} generated tokens/s), host "
+            f"CPU {cpu:.4f} s")
+    return out
 
 
 def long_seq():
@@ -461,12 +692,35 @@ def long_seq():
     return dict(counts=counts, wall_s=wall)
 
 
+def _device_time(fn, reps):
+    """(wall ms per call, device ms per call, [(device us, calls, kernel)])
+    of `reps` calls under torch.profiler; device-side events only, since an
+    aten op's row repeats its kernels' time."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / reps, ev.count // reps, ev.key))
+    rows.sort(reverse=True)
+    return wall_ms, sum(r[0] for r in rows) / 1e3, rows
+
+
 def profile():
     """Where one denoise step's device time goes (B=8, S=256): torch.profiler
     sums by kernel name, and the device-busy share of the step's wall time.
     Informational: a profiler that records no device time prints so."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
     from diffusion_llm_rs_tpu_torch.models import denoiser as dn
 
     cfg, params = MODEL["cfg"], MODEL["params"]
@@ -477,23 +731,8 @@ def profile():
     for _ in range(2):
         dn.denoiser_forward(params, cfg, x, t)
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            dn.denoiser_forward(params, cfg, x, t)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    rows = []  # device-side events only: an aten op's row repeats its kernels
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us / 3, ev.count // 3, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    wall_ms, busy_ms, rows = _device_time(
+        lambda: dn.denoiser_forward(params, cfg, x, t), 3)
     if not rows:
         log("  profiler recorded no device time: breakdown not measured")
         return None
@@ -506,9 +745,306 @@ def profile():
                      for us, n, key in rows[:15]])
 
 
+def cache_attend():
+    """PagedKVCache.attend on the card: a 1024-token chain of 16 pages of
+    64, widths allocated by salience (8/4/2 bits at an average of 4), one
+    paged_attention launch per width, merged by log-sum-exp; against the
+    same cache on the CPU (twins): rel <= 1e-2."""
+    from diffusion_llm_rs_tpu_torch.cache.paged import PagedKVCache
+    from diffusion_llm_rs_tpu_torch.ops import _build
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    BH, S, D = 12, 1024, 64
+    k, v, q = (torch.randn((BH, S, D), generator=gen, device="cuda")
+               for _ in range(3))
+    scores = np.random.default_rng(0).random(S).astype(np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        cache = PagedKVCache(bh=BH, head_dim=D, page_size=64,
+                             pages_per_bits={8: 16, 4: 16, 2: 16},
+                             device=device)
+        cache.append_salient("s", k.to(device), v.to(device), scores,
+                             budget_bits=4.0, bit_options=(8, 4, 2))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+        out[device] = cache.attend("s", q.to(device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = dict(_build.launch_counts)
+            widths = sorted({h.bits for h in cache.page_tables["s"]})
+    rel = float((out["cuda"].cpu() - out["cpu"]).norm() / out["cpu"].norm())
+    log(f"  launches {counts}; widths {widths}; rel err card vs CPU {rel:.3g} "
+        f"(bound 1e-2)")
+    if counts.get("paged_attention", 0) != len(widths) or len(widths) < 2:
+        raise AssertionError(f"paged_attention launches {counts}, expected "
+                             f"one per width {widths}")
+    if not rel <= 1e-2:
+        raise AssertionError("PagedKVCache.attend disagrees with the CPU")
+    return dict(counts=counts, widths=widths, rel_err=rel)
+
+
+def _serve_cfg(**quant):
+    from diffusion_llm_rs_tpu_torch.config import PhaseQuantConfig
+    return dataclasses.replace(MODEL["cfg"],
+                               quant_config=PhaseQuantConfig(**quant))
+
+
+def _busy_share(b, seq_len, steps=8):
+    """Device-busy share of serving with every slot occupied, on the path
+    the timed windows run: one `b.step()` that admits a request per slot,
+    runs them as one fused chunk of `steps` steps and launches the readout.
+    The call runs twice: timed by the wall clock alone, then under
+    torch.profiler for its kernel time (the profiler slows the host, so its
+    own wall is not the step's). Busy share = kernel time / unprofiled
+    wall."""
+    from diffusion_llm_rs_tpu_torch.serving import Request
+    from diffusion_llm_rs_tpu_torch.utils.metrics import metrics
+
+    def chunk(call):
+        for i in range(b.num_slots):
+            b.submit(Request(f"profile{i}", seq_len, num_steps=steps))
+        steps0 = metrics.get("batcher.steps")
+        torch.cuda.synchronize()
+        out = call()
+        ran = int(metrics.get("batcher.steps") - steps0)
+        done = b.run_until_drained()
+        if ran != steps or len(done) != b.num_slots:
+            raise AssertionError(f"profiled call ran {ran} steps, "
+                                 f"{len(done)} completions")
+        return out
+
+    def timed():
+        t0 = time.perf_counter()
+        b.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall_ms = chunk(timed)
+    prof_wall_ms, busy_ms, rows = chunk(lambda: _device_time(b.step, 1))
+    share = busy_ms / wall_ms if rows else None
+    log(f"  one chunk of {steps} steps: wall {wall_ms:.2f} ms (under the "
+        f"profiler {prof_wall_ms:.2f}), kernels {busy_ms:.2f} ms; per step "
+        f"{wall_ms / steps:.2f} ms wall, {busy_ms / steps:.2f} ms kernels "
+        f"({'not measured' if share is None else f'{share:.1%} busy'})")
+    for us, n, key in rows[:8]:
+        log(f"  {us / 1e3:8.4f} ms  x{n:<4d} {key[:90]}")
+    return dict(chunk_steps=steps, step_wall_ms=wall_ms / steps,
+                step_profiled_wall_ms=prof_wall_ms / steps,
+                step_device_ms=busy_ms / steps, busy_share=share,
+                top=[dict(ms=us / 1e3, calls=n, name=key[:120])
+                     for us, n, key in rows[:8]])
+
+
+def _serve(name, b, requests):
+    """Submit `requests` [(id, seq_len, steps)] at once and drain, timed from
+    the first submit to the last readout; launch counts reset just before.
+    Checks every token id, and every kept embedding's finiteness."""
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    from diffusion_llm_rs_tpu_torch.serving import Request
+    from diffusion_llm_rs_tpu_torch.utils.metrics import metrics
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps0 = metrics.get("batcher.steps")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for rid, seq_len, steps in requests:
+        b.submit(Request(rid, seq_len, steps))
+    done = b.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    steps = int(metrics.get("batcher.steps") - steps0)
+    peak = torch.cuda.max_memory_allocated()
+    if sorted(c.request_id for c in done) != sorted(r[0] for r in requests):
+        raise AssertionError(f"{name}: completions {[c.request_id for c in done]}")
+    vocab = MODEL["cfg"].vocab_size
+    for c in done:
+        if c.tokens.min() < 0 or c.tokens.max() >= vocab:
+            raise AssertionError(f"{name}: token ids out of range")
+        if c.embeddings is not None and not np.isfinite(c.embeddings).all():
+            raise AssertionError(f"{name}: {c.request_id} is not finite")
+    tokens = sum(len(c.tokens) for c in done)
+    lat = [c.latency_s for c in done]
+    p50 = statistics.median(lat)
+    out = dict(requests=len(done), tokens=tokens, steps=steps, wall_s=wall,
+               tokens_per_s=tokens / wall, latency_p50_s=p50,
+               latency_max_s=max(lat), peak_bytes=peak, counts=counts)
+    log(f"  {len(done)} requests, {steps} steps in {wall:.3f} s: "
+        f"{tokens / wall:.1f} generated tokens/s; latency p50 "
+        f"{p50:.3f} s, max {max(lat):.3f} s; peak memory "
+        f"{peak / 2**20:.1f} MiB; launches {counts}")
+    return out
+
+
+def _expect(name, counts, want):
+    for kernel, n in want.items():
+        if counts.get(kernel, 0) != n:
+            raise AssertionError(f"{name}: {kernel} {counts.get(kernel, 0)} "
+                                 f"launches, expected {n}")
+
+
+def serve_paged():
+    """JAX's long-sequence serving bench at full width: S=4096, 2 slots,
+    pages of 128, 4-bit KV in both phases, salience routing, 2 GiB HBM
+    budget. One warm request of 8 steps, then 4 requests of 8 steps."""
+    from diffusion_llm_rs_tpu_torch.serving import PagedContinuousBatcher
+
+    cfg = _serve_cfg(prefill_bits=4, decode_bits=4,
+                     progressive_precision=False)
+    b = PagedContinuousBatcher(
+        MODEL["params"], cfg, num_slots=2, seq_len=4096, page_size=128,
+        attend_mode="auto", salience_routing=True, hbm_budget_bytes=2 << 30,
+        keep_embeddings=False, seed=41)
+    if b.attend_mode != "paged" or b.buckets != (4,):
+        raise AssertionError(f"mode {b.attend_mode}, buckets {b.buckets}")
+    _serve("serve_paged warm", b, [("warm", 4096, 8)])
+    run = _serve("serve_paged", b, [(f"r{i}", 4096, 8) for i in range(4)])
+    L, steps = cfg.num_layers, run["steps"]
+    _expect("serve_paged", run["counts"], {
+        "batched_paged_attention": L * steps, "int8w_matmul": (3 + 2 * L) * steps,
+        "int8w_mlp": L * steps, "dense_attention": 0})
+    run.update(_busy_share(b, 4096), pool_bytes=b.cache_memory_bytes())
+    return run
+
+
+def serve_phase():
+    """The default phase schedule (8 bits, then 4 falling to 2: buckets 2,
+    4 and 8) at S=2048 with pages of 64, the page Engine.sample picks; 8
+    requests alternating 16 and 6 steps over 4 slots, so admissions land
+    mid-run, slots cross the phase boundary and partials merge across
+    buckets."""
+    from diffusion_llm_rs_tpu_torch.serving import PagedContinuousBatcher
+
+    cfg = _serve_cfg()
+    b = PagedContinuousBatcher(MODEL["params"], cfg, num_slots=4,
+                               seq_len=2048, page_size=64, attend_mode="auto",
+                               keep_embeddings=True, seed=43)
+    if b.attend_mode != "paged" or b.buckets != (2, 4, 8):
+        raise AssertionError(f"mode {b.attend_mode}, buckets {b.buckets}")
+    chunks = []
+    pick = b._used_buckets_chunk
+    b._used_buckets_chunk = lambda *a: chunks.append(pick(*a)) or chunks[-1]
+    run = _serve("serve_phase", b, [(f"p{i}", 2048, 16 if i % 2 == 0 else 6)
+                                    for i in range(8)])
+    del b._used_buckets_chunk
+    L, steps = cfg.num_layers, run["steps"]
+    n = run["counts"].get("batched_paged_attention", 0)
+    multi = sum(len(u) > 1 for u in chunks)
+    log(f"  {len(chunks)} chunks, {multi} of them over more than one bucket: "
+        f"{chunks}")
+    if not L * steps <= n <= 3 * L * steps:
+        raise AssertionError(f"serve_phase: {n} paged launches for {steps} "
+                             f"steps, expected {L * steps}..{3 * L * steps}")
+    _expect("serve_phase", run["counts"], {
+        "int8w_matmul": (3 + 2 * L) * steps, "int8w_mlp": L * steps})
+    run.update(_busy_share(b, 2048), chunks=len(chunks),
+               multi_bucket_chunks=multi, pool_bytes=b.cache_memory_bytes())
+    return run
+
+
+def serve_dense():
+    """Short-S serving as JAX's serving bench runs it: S=256, 8 slots,
+    pages of 128, auto (the dense fake-quant mode, no pools, no paged
+    kernel); 48 requests of 12 steps."""
+    from diffusion_llm_rs_tpu_torch.serving import PagedContinuousBatcher
+
+    cfg = _serve_cfg()
+    b = PagedContinuousBatcher(MODEL["params"], cfg, num_slots=8, seq_len=256,
+                               page_size=128, attend_mode="auto",
+                               keep_embeddings=False, seed=47)
+    if b.attend_mode != "dense" or b.pools:
+        raise AssertionError(f"mode {b.attend_mode}")
+    _serve("serve_dense warm", b, [("warm", 256, 2)])
+    run = _serve("serve_dense", b, [(f"d{i}", 256, 12) for i in range(48)])
+    L, steps = cfg.num_layers, run["steps"]
+    _expect("serve_dense", run["counts"], {
+        "batched_paged_attention": 0, "int8w_matmul": (3 + 2 * L) * steps,
+        "int8w_mlp": L * steps})
+    run.update(_busy_share(b, 256))
+    return run
+
+
+class _Recorded:
+    """Noise source that keeps a CPU copy of every draw of another."""
+
+    def __init__(self, inner):
+        self.inner, self.draws = inner, []
+
+    def admission(self, shape):
+        x = self.inner.admission(shape)
+        self.draws.append(x.cpu())
+        return x
+
+    step = admission
+
+
+class _Replay:
+    def __init__(self, draws):
+        self.draws = list(draws)
+
+    def admission(self, shape):
+        return self.draws.pop(0)
+
+    step = admission
+
+
+def serve_check():
+    """One serving step (max_chunk=1, paged, default phase config) at full
+    width, S=512, 2 slots (the second 333 tokens: a partial page), pages of
+    128, t=999 (8-bit prefill): kernels on the card against the twins on the
+    CPU from the same noise. x within 2e-2 relative, and the step's update
+    without its noise term (the eps part, beta_t / sqrt(1 - abar_t) /
+    sqrt(alpha_t) * eps) within 2e-2, the sampler's eps bound: bf16 rounds
+    at other points on the two sides and can move an act-quant or KV level."""
+    from diffusion_llm_rs_tpu_torch.models.diffusion import DiffusionSchedule
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    from diffusion_llm_rs_tpu_torch.serving import (GeneratorNoise,
+                                                    PagedContinuousBatcher,
+                                                    Request)
+
+    cfg = _serve_cfg()
+    xs = {}
+    rec = _Recorded(GeneratorNoise(53, "cuda"))
+    for device, params, noise in (("cuda", MODEL["params"], rec),
+                                  ("cpu", None, None)):
+        if device == "cpu":
+            params, noise = _to(MODEL["params"], "cpu"), _Replay(rec.draws)
+        b = PagedContinuousBatcher(params, cfg, num_slots=2, seq_len=512,
+                                   page_size=128, max_chunk=1,
+                                   attend_mode="paged", keep_embeddings=False,
+                                   device=device, noise=noise)
+        b.submit(Request("c0", 512, 1000))
+        b.submit(Request("c1", 333, 1000))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        b.step()
+        xs[device] = b.x.cpu()
+        log(f"  one step on {device}: {time.perf_counter() - t0:.1f} s")
+        if device == "cuda":
+            counts = dict(_build.launch_counts)
+    _expect("serve_check", counts, {"batched_paged_attention": 12})
+    sched = DiffusionSchedule.create(cfg.num_timesteps, device="cpu")
+    t = 999
+    base = (rec.draws[0] * torch.rsqrt(sched.alphas[t])
+            + torch.sqrt(sched.posterior_variance[t]) * rec.draws[1])
+    e_k, e_c = xs["cuda"] - base, xs["cpu"] - base
+    rel_x = float((xs["cuda"] - xs["cpu"]).norm() / xs["cpu"].norm())
+    rel_e = float((e_k - e_c).norm() / e_c.norm())
+    log(f"  x rel err card vs CPU {rel_x:.3g} (bound 2e-2); eps part "
+        f"{rel_e:.3g} (bound 2e-2); launches {counts}")
+    if not (rel_x <= 2e-2 and rel_e <= 2e-2):
+        raise AssertionError("serving step disagrees with its twins")
+    return dict(x_rel_err=rel_x, eps_part_rel_err=rel_e, counts=counts)
+
+
 # name: (source, TPU kernel it replaces, the path whose run `launches` reads:
-# the 32-step sampler for the GEMMs, the S=1024 run for attention, which the
-# sampler at S=256 does not reach)
+# the 32-step sampler for the GEMMs, the S=1024 run for dense attention,
+# which the sampler at S=256 does not reach, serve_paged for the batched
+# paged kernel and the PagedKVCache run for the single-sequence one)
 KERNELS = {
     "int8w_matmul": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",
                      "diffusion_llm_rs_tpu/ops/pallas_matmul.py:322",
@@ -518,6 +1054,13 @@ KERNELS = {
     "dense_attention": ("diffusion_llm_rs_tpu_torch/csrc/dense_attention.cu",
                         "diffusion_llm_rs_tpu/ops/pallas_attention.py:213",
                         "long_seq"),
+    "batched_paged_attention": (
+        "diffusion_llm_rs_tpu_torch/csrc/paged_attention.cu",
+        "diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:288",
+        "serve_paged"),
+    "paged_attention": ("diffusion_llm_rs_tpu_torch/csrc/paged_attention.cu",
+                        "diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:34",
+                        "cache_attend"),
 }
 
 
@@ -529,19 +1072,22 @@ def main() -> int:
     if failures:
         return 1
     measured = phase(kernels)
-    main_run = phase(sampler)
-    long_run = phase(long_seq) if main_run is not None else None
-    breakdown = phase(profile) if main_run is not None else None
+    runs = {"sampler": phase(sampler)}
+    if runs["sampler"] is not None:
+        for fn in (long_seq, profile, cache_attend, serve_paged, serve_phase,
+                   serve_dense, serve_check):
+            runs[fn.__name__] = phase(fn)
     if failures:
         log(f"FAILED phases: {failures}")
         return 1
     entries = []
-    paths = {"sampler": main_run["counts"], "long_seq": long_run["counts"]}
+    paths = {p: r["counts"] for p, r in runs.items()
+             if r is not None and "counts" in r}
     for name, (source, replaces, path) in KERNELS.items():
-        # times at the first (largest) shape; the error is the worst of all.
-        # Each path's counts were reset just before that path ran.
+        # times at the first shape that was timed; the errors are the worst
+        # of all. Each path's counts were reset just before that path ran.
         rows = measured[name]
-        first = rows[0]
+        first = next(r for r in rows if "ms" in r)
         entries.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paths[path].get(name, 0), launches_path=path,
@@ -550,9 +1096,11 @@ def main() -> int:
             plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],
             shapes=rows))
+        if entries[-1]["launches"] == 0:
+            log(f"{name} was not launched on its path {path}")
+            return 1
     log(json.dumps({"kernels": entries}))
-    log(json.dumps({"sampler": main_run, "long_seq": long_run,
-                    "profile": breakdown}))
+    log(json.dumps(runs))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,402 @@
+// Flash attention over paged, quantized KV pools, for Hopper (sm_90a).
+//
+// Replaces two TPU kernels of diffusion_llm_rs_tpu/ops/
+// pallas_paged_attention.py:
+//   - `_batched_kernel` (bf16 path, behind `batched_paged_attention`): B
+//     slots, each with its own page table and page count, over one pool;
+//   - `_kernel` (behind `paged_attention`): one sequence's page chain.
+// Both walk a page table, unpack each page's packed K/V levels and run an
+// online softmax; they differ only in where the V scale folds in, so one
+// template serves both (kSingle).
+//
+// Pools keep the JAX layout: data uint8 [n_slots, H/G, P/vpb, G*D], token-
+// block packed (byte (r, d) holds the levels of tokens r + p*P/vpb in bit
+// field p); sidecars f32 [n_slots, H/G, G*P]; head h reads lanes (h%G)*D..
+// and sidecar columns (h%G)*P.. of group h/G. The single-sequence call is the
+// batched one with B = 1, G = 1 and every slot reading all its pages.
+//
+// One block per (64-query tile, head, slot); 4 warps own 16 query rows each.
+// The block walks its slot's page table up to n_pages[b], so an empty slot
+// costs one block that writes zeros. Per page: the packed K and V bytes of
+// this head are unpacked into bf16 levels in shared memory (levels 0..255 are
+// exact in bf16), the four sidecars of the page land beside them, QK^T and
+// PV run on mma.sync m16n8k16 bf16 with f32 sums, and the running max, sum
+// and accumulator stay in registers. The TPU kernels' rounding points:
+//   batched: qsum = sum_d bf16(q) in f32; ks' = ks * sm
+//            logits = raw * ks' - (ks' * kz) * qsum, tokens >= page_tokens
+//            masked; v_sc = bf16(v_lv * vs) (the page, in shared memory)
+//            acc = acc * alpha + bf16(p) . v_sc - sum_t p * (vs * vz)
+//            out = acc * (1/l); l = 0 (no page) -> out 0, lse -1e30
+//   single:  logits = (raw * ks - qsum * (ks * kz)) * sm
+//            acc = acc * alpha + bf16(p * vs) . v_lv - sum_t (p * vs) * vz
+//            out = acc / l, lse = m + log(l)
+// The products of both dots are exact (bf16 x bf16 in f32); sums run in
+// another order than the TPU's and the twins', and expf is CUDA's.
+//
+// What bounds it on an H100: at the serving shape (B = 2, H = 12, Sq = Skv
+// = 4096, D = 64, 4-bit pages of 128) the dots are 4*B*H*Sq*Skv*D = 103
+// GFLOP over ~30 MB of packed pages, so the bf16 tensor cores bound it
+// (0.10 ms). This first version re-reads and re-unpacks each page once per
+// 64-query tile (from L2), on one shared-memory stage, with mma.sync;
+// keeping unpacked pages resident across q tiles, wgmma and a TMA ring of
+// pages are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kD = 64, kBQ = 64, kThreads = 128, kStride = kD + 8;
+constexpr float kNegInf = -1e30f;
+
+struct Args {
+  const __nv_bfloat16* q;  // [B, H, Sq, D]
+  const int* page_tables;  // [B, n_max]
+  const int* page_tokens;  // [B, n_max]
+  const int* n_pages;      // [B]; null: every slot reads n_max pages
+  const uint8_t* k_data;   // [n_slots, H/G, P/vpb, G*D]
+  const float* k_scale;    // [n_slots, H/G, G*P]
+  const float* k_zp;
+  const uint8_t* v_data;
+  const float* v_scale;
+  const float* v_zp;
+  float* out;              // [B, H, Sq, D]
+  float* lse;              // [B, H, Sq]
+  int H, Sq, n_max, n_slots, G;
+  float sm;
+};
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int BITS, int P, bool kSingle>
+__global__ void __launch_bounds__(kThreads)
+    paged_attention_kernel(const Args a) {
+  constexpr int kVpb = 8 / BITS, kPp = P / kVpb, kMask = (1 << BITS) - 1;
+  __shared__ __align__(16) __nv_bfloat16 Qs[kBQ * kStride];
+  __shared__ __align__(16) __nv_bfloat16 Ks[P * kStride];
+  __shared__ __align__(16) __nv_bfloat16 Vs[P * kStride];
+  // per token of the page: logit scale and offset, V scale, V correction
+  __shared__ float s_ka[P], s_kb[P], s_vs[P], s_vc[P];
+  __shared__ float s_qsum[kBQ];
+
+  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int H = a.H, Sq = a.Sq, G = a.G, HG = H / G;
+  const int hg = h / G, hl = h % G, GD = G * kD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t bh = (size_t)b * H + h;
+
+  // q tile (rows past Sq are zero) and each row's channel sum in f32
+  const __nv_bfloat16* qb = a.q + bh * Sq * kD;
+  for (int c = threadIdx.x; c < kBQ * (kD / 8); c += kThreads) {
+    int r = c / (kD / 8), col = (c % (kD / 8)) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (q0 + r < Sq)
+      v = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * kD + col);
+    *reinterpret_cast<uint4*>(Qs + r * kStride + col) = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kBQ) {
+    float s = 0.f;
+    for (int d = 0; d < kD; ++d)
+      s += __bfloat162float(Qs[threadIdx.x * kStride + d]);
+    s_qsum[threadIdx.x] = s;
+  }
+  uint32_t qf[kD / 16][4];
+#pragma unroll
+  for (int d = 0; d < kD / 16; ++d) {
+    const __nv_bfloat16* base = Qs + (warp * 16 + g) * kStride + d * 16 + t * 2;
+    qf[d][0] = *reinterpret_cast<const uint32_t*>(base);
+    qf[d][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride);
+    qf[d][2] = *reinterpret_cast<const uint32_t*>(base + 8);
+    qf[d][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride + 8);
+  }
+  __syncthreads();
+  const float qs[2] = {s_qsum[warp * 16 + g], s_qsum[warp * 16 + g + 8]};
+
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float o[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  const int count = a.n_pages ? a.n_pages[b] : a.n_max;
+  const int* pt = a.page_tables + (size_t)b * a.n_max;
+  const int* nt = a.page_tokens + (size_t)b * a.n_max;
+  for (int j = 0; j < count; ++j) {
+    const int slot = pt[j], valid = nt[j];
+    if (slot < 0 || slot >= a.n_slots) __trap();
+    const size_t side = ((size_t)slot * HG + hg) * G * P + (size_t)hl * P;
+    const size_t base = ((size_t)slot * HG + hg) * kPp * GD + (size_t)hl * kD;
+    __syncthreads();  // every warp is done with the previous page
+    for (int i = threadIdx.x; i < P; i += kThreads) {
+      const float ks = a.k_scale[side + i], kz = a.k_zp[side + i];
+      const float vs = a.v_scale[side + i], vz = a.v_zp[side + i];
+      const float ka = kSingle ? ks : __fmul_rn(ks, a.sm);
+      s_ka[i] = ka;
+      s_kb[i] = __fmul_rn(ka, kz);
+      s_vs[i] = vs;
+      s_vc[i] = kSingle ? vz : __fmul_rn(vs, vz);
+    }
+    // 16 packed bytes of one row -> 16 levels of kVpb token rows each
+    for (int c = threadIdx.x; c < kPp * (kD / 16); c += kThreads) {
+      const int r = c / (kD / 16), col = (c % (kD / 16)) * 16;
+      const size_t off = base + (size_t)r * GD + col;
+      const uint4 kw = *reinterpret_cast<const uint4*>(a.k_data + off);
+      const uint4 vw = *reinterpret_cast<const uint4*>(a.v_data + off);
+      const uint8_t* kb = reinterpret_cast<const uint8_t*>(&kw);
+      const uint8_t* vb = reinterpret_cast<const uint8_t*>(&vw);
+#pragma unroll
+      for (int p = 0; p < kVpb; ++p) {
+        const int tok = r + p * kPp;
+        const float vsc = kSingle ? 1.f : a.v_scale[side + tok];
+        uint32_t kk[8], vv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float k0 = (float)((kb[2 * i] >> (p * BITS)) & kMask);
+          const float k1 = (float)((kb[2 * i + 1] >> (p * BITS)) & kMask);
+          float v0 = (float)((vb[2 * i] >> (p * BITS)) & kMask);
+          float v1 = (float)((vb[2 * i + 1] >> (p * BITS)) & kMask);
+          if (!kSingle) {
+            v0 = __fmul_rn(v0, vsc);
+            v1 = __fmul_rn(v1, vsc);
+          }
+          kk[i] = pack_bf16(k0, k1);
+          vv[i] = pack_bf16(v0, v1);
+        }
+        uint4* kdst = reinterpret_cast<uint4*>(Ks + tok * kStride + col);
+        uint4* vdst = reinterpret_cast<uint4*>(Vs + tok * kStride + col);
+        kdst[0] = make_uint4(kk[0], kk[1], kk[2], kk[3]);
+        kdst[1] = make_uint4(kk[4], kk[5], kk[6], kk[7]);
+        vdst[0] = make_uint4(vv[0], vv[1], vv[2], vv[3]);
+        vdst[1] = make_uint4(vv[4], vv[5], vv[6], vv[7]);
+      }
+    }
+    __syncthreads();
+
+    // raw = q . k_lv for 16 rows x P tokens
+    float s[P / 8][4];
+#pragma unroll
+    for (int n = 0; n < P / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int d = 0; d < kD / 16; ++d) {
+        const __nv_bfloat16* kp = Ks + (n * 8 + g) * kStride + d * 16 + t * 2;
+        mma_bf16(s[n], qf[d], *reinterpret_cast<const uint32_t*>(kp),
+                 *reinterpret_cast<const uint32_t*>(kp + 8));
+      }
+    }
+
+    // logits and online softmax; thread holds rows g (e = 0, 1) and g + 8
+    // (e = 2, 3), columns n*8 + t*2 + {0, 1}
+    float m_new[2], alpha[2], rsum[2] = {0.f, 0.f}, csum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m_run[r];
+#pragma unroll
+      for (int n = 0; n < P / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n * 8 + t * 2 + e;
+          const float raw = s[n][r * 2 + e];
+          float x;
+          if (kSingle)
+            x = __fmul_rn(__fsub_rn(__fmul_rn(raw, s_ka[col]),
+                                    __fmul_rn(qs[r], s_kb[col])),
+                          a.sm);
+          else
+            x = __fsub_rn(__fmul_rn(raw, s_ka[col]), __fmul_rn(s_kb[col], qs[r]));
+          x = col < valid ? x : kNegInf;
+          s[n][r * 2 + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      m_new[r] = mx;
+      alpha[r] = expf(m_run[r] - mx);
+    }
+    uint32_t pf[P / 16][4];  // P (times vs, single) as bf16 A fragments
+#pragma unroll
+    for (int n = 0; n < P / 8; ++n) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int col = n * 8 + t * 2;
+        const float p0 = expf(s[n][r * 2] - m_new[r]);
+        const float p1 = expf(s[n][r * 2 + 1] - m_new[r]);
+        rsum[r] += p0 + p1;
+        if (kSingle) {
+          const float w0 = __fmul_rn(p0, s_vs[col]);
+          const float w1 = __fmul_rn(p1, s_vs[col + 1]);
+          csum[r] += __fmul_rn(w0, s_vc[col]) + __fmul_rn(w1, s_vc[col + 1]);
+          pf[n >> 1][(n & 1) * 2 + r] = pack_bf16(w0, w1);
+        } else {
+          csum[r] += __fmul_rn(p0, s_vc[col]) + __fmul_rn(p1, s_vc[col + 1]);
+          pf[n >> 1][(n & 1) * 2 + r] = pack_bf16(p0, p1);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+      csum[r] += __shfl_xor_sync(0xffffffffu, csum[r], 1);
+      csum[r] += __shfl_xor_sync(0xffffffffu, csum[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + rsum[r];
+      m_run[r] = m_new[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      o[j][0] = __fsub_rn(__fmul_rn(o[j][0], alpha[0]), csum[0]);
+      o[j][1] = __fsub_rn(__fmul_rn(o[j][1], alpha[0]), csum[0]);
+      o[j][2] = __fsub_rn(__fmul_rn(o[j][2], alpha[1]), csum[1]);
+      o[j][3] = __fsub_rn(__fmul_rn(o[j][3], alpha[1]), csum[1]);
+    }
+
+    // o += P . V: k = token (16 per step), n = d (8 per tile); V^T fragments
+    // via ldmatrix.trans from the [token][d] tile, two d-tiles per x4 load
+#pragma unroll
+    for (int kk = 0; kk < P / 16; ++kk) {
+#pragma unroll
+      for (int dj = 0; dj < kD / 16; ++dj) {
+        const int mi = lane >> 3, rr = lane & 7;
+        const __nv_bfloat16* addr =
+            Vs + (kk * 16 + rr + (mi & 1) * 8) * kStride + dj * 16 + (mi >> 1) * 8;
+        const uint32_t saddr =
+            static_cast<uint32_t>(__cvta_generic_to_shared(addr));
+        uint32_t b0, b1, b2, b3;
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+            : "r"(saddr)
+            : "memory");
+        mma_bf16(o[dj * 2], pf[kk], b0, b1);
+        mma_bf16(o[dj * 2 + 1], pf[kk], b2, b3);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + r * 8;
+    if (row >= Sq) continue;
+    const float l = l_run[r];
+    float* orow = a.out + (bh * Sq + row) * kD;
+    float lse;
+    if (kSingle) {
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j)
+        *reinterpret_cast<float2*>(orow + j * 8 + t * 2) =
+            make_float2(__fdiv_rn(o[j][r * 2], l), __fdiv_rn(o[j][r * 2 + 1], l));
+      lse = m_run[r] + logf(l);
+    } else {
+      const float inv = __frcp_rn(l > 0.f ? l : 1.f);
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j)
+        *reinterpret_cast<float2*>(orow + j * 8 + t * 2) =
+            make_float2(__fmul_rn(o[j][r * 2], inv), __fmul_rn(o[j][r * 2 + 1], inv));
+      lse = l > 0.f ? m_run[r] + logf(l) : kNegInf;
+    }
+    if (t == 0) a.lse[bh * Sq + row] = lse;
+  }
+}
+
+template <bool kSingle>
+int launch(const Args& a, int B, int P, int bits, cudaStream_t stream) {
+  if (a.Sq <= 0 || B <= 0 || a.H <= 0) return 0;
+  dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, B);
+#define DLM_PAGED_CASE(BITS_, P_)                                             \
+  if (bits == BITS_ && P == P_) {                                             \
+    paged_attention_kernel<BITS_, P_, kSingle><<<grid, kThreads, 0, stream>>>( \
+        a);                                                                   \
+    return (int)cudaGetLastError();                                           \
+  }
+  DLM_PAGED_CASE(1, 64)
+  DLM_PAGED_CASE(2, 64)
+  DLM_PAGED_CASE(4, 64)
+  DLM_PAGED_CASE(8, 64)
+  DLM_PAGED_CASE(1, 128)
+  DLM_PAGED_CASE(2, 128)
+  DLM_PAGED_CASE(4, 128)
+  DLM_PAGED_CASE(8, 128)
+#undef DLM_PAGED_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// B slots over one pool: q [B, H, Sq, 64] bf16; page_tables, page_tokens
+// int32 [B, n_max]; n_pages int32 [B]; pools as above with head groups G of
+// 1 or 2, pages of 64 or 128 tokens at 1/2/4/8 bits. Writes out f32
+// [B, H, Sq, 64] and lse f32 [B, H, Sq]. Returns cudaErrorInvalidValue for a
+// shape it was not built for.
+int dlm_batched_paged_attention(
+    const void* q, const void* page_tables, const void* page_tokens,
+    const void* n_pages, const void* k_data, const void* k_scale,
+    const void* k_zp, const void* v_data, const void* v_scale,
+    const void* v_zp, void* out, void* lse, int B, int H, int Sq, int D,
+    int n_max, int n_slots, int G, int P, int bits, float sm_scale,
+    void* stream) {
+  if (D != kD || (G != 1 && G != 2) || H % G != 0)
+    return (int)cudaErrorInvalidValue;
+  Args a{static_cast<const __nv_bfloat16*>(q),
+         static_cast<const int*>(page_tables),
+         static_cast<const int*>(page_tokens),
+         static_cast<const int*>(n_pages),
+         static_cast<const uint8_t*>(k_data),
+         static_cast<const float*>(k_scale),
+         static_cast<const float*>(k_zp),
+         static_cast<const uint8_t*>(v_data),
+         static_cast<const float*>(v_scale),
+         static_cast<const float*>(v_zp),
+         static_cast<float*>(out),
+         static_cast<float*>(lse),
+         H, Sq, n_max, n_slots, G, sm_scale};
+  return launch<false>(a, B, P, bits, static_cast<cudaStream_t>(stream));
+}
+
+// One sequence: q [BH, Sq, 64] bf16; page_table, page_tokens int32
+// [n_pages] (n_pages >= 1); pools [n_slots, BH, P/vpb, 64] and
+// [n_slots, BH, P]. Writes out f32 [BH, Sq, 64] and lse f32 [BH, Sq].
+int dlm_paged_attention(const void* q, const void* page_table,
+                        const void* page_tokens, const void* k_data,
+                        const void* k_scale, const void* k_zp,
+                        const void* v_data, const void* v_scale,
+                        const void* v_zp, void* out, void* lse, int BH,
+                        int Sq, int D, int n_pages, int n_slots, int P,
+                        int bits, float sm_scale, void* stream) {
+  if (D != kD || n_pages <= 0) return (int)cudaErrorInvalidValue;
+  Args a{static_cast<const __nv_bfloat16*>(q),
+         static_cast<const int*>(page_table),
+         static_cast<const int*>(page_tokens),
+         nullptr,
+         static_cast<const uint8_t*>(k_data),
+         static_cast<const float*>(k_scale),
+         static_cast<const float*>(k_zp),
+         static_cast<const uint8_t*>(v_data),
+         static_cast<const float*>(v_scale),
+         static_cast<const float*>(v_zp),
+         static_cast<float*>(out),
+         static_cast<float*>(lse),
+         BH, Sq, n_pages, n_slots, 1, sm_scale};
+  return launch<true>(a, 1, P, bits, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -10,11 +10,11 @@ Parameters are a plain nested dict of tensors (same keys as the JAX tree).
 Weights may be plain tensors or `Int8Weight`s (the W4A8 decoded path): every
 linear goes through `ops.matmul.linear`, an MLP block over two `Int8Weight`s
 through the `int8w_mlp` kernel, and unmasked attention at Skv >= 1024
-through the `dense_attention` kernel.
+through the `dense_attention` kernel. A caller that owns attention (the
+paged serving step) passes `attend_fn`.
 
-Not ported yet: the cached-KV, quantized-KV, caller-owned attention and
-calibration-tap arguments of `denoiser_forward`; passing any of them raises
-NotImplementedError.
+Not ported yet: the cached-KV, quantized-KV and calibration-tap arguments of
+`denoiser_forward`; passing any of them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -144,9 +144,11 @@ def denoiser_forward(
 ):
     """Predict noise eps [B, S, D] in x's dtype; with `return_kv` also this
     step's K/V stacked as [L, B, S, H, Hd], with `return_hidden` the final
-    hidden state."""
+    hidden state. `attend_fn(layer_idx, q, k, v, mask) -> [B, S, H, Hd]`
+    takes the place of attention in every layer; its result is cast to the
+    working dtype."""
     for name, val in (("cached_kv", cached_kv), ("cached_qkv", cached_qkv),
-                      ("attend_fn", attend_fn), ("tap", tap)):
+                      ("tap", tap)):
         if val is not None:
             raise NotImplementedError(f"denoiser_forward: {name} is not ported")
     B, S, D = x.shape
@@ -168,7 +170,7 @@ def denoiser_forward(
         mask = (1.0 - attn_mask[:, None, None, :].to(torch.float32)) * -1e9
 
     new_ks, new_vs = [], []
-    for blk in params["blocks"]:
+    for li, blk in enumerate(params["blocks"]):
         hn = layer_norm(h, blk["ln1"])
         a = blk["attn"]
         qkv = linear(hn, a["wqkv"])  # [B, S, 3D]
@@ -178,7 +180,12 @@ def denoiser_forward(
         if return_kv:
             new_ks.append(k)
             new_vs.append(v)
-        attn_out = attention(q, k, v, mask, flash=flash_attn)
+        if attend_fn is not None:
+            # the caller owns attention (paged serving: write this step's
+            # K/V into the pages, then attend over them)
+            attn_out = attend_fn(li, q, k, v, mask).to(dtype)
+        else:
+            attn_out = attention(q, k, v, mask, flash=flash_attn)
         h = linear(attn_out.reshape(B, S, D), a["wo"], residual=h)
 
         hn = layer_norm(h, blk["ln2"])

@@ -2,8 +2,10 @@
 
 `from_jax_params(tree, device)` takes the JAX denoiser parameter tree with
 its leaves already turned into numpy arrays: a plain array, or a dict
-`{"data", "col_scale"}` for a decoded `Int8Weight`. The caller does that
-flattening, so this package never sees a JAX type.
+`{"data", "col_scale"}` for a decoded `Int8Weight`. `from_jax_pools(pools,
+device)` takes a serving batcher's page pools as `{bits: {name: array}}`;
+the pools' layout is the same in both packages, so it is a plain copy. The
+caller does the conversion to numpy, so this package never sees a JAX type.
 """
 
 from __future__ import annotations
@@ -27,3 +29,11 @@ def from_jax_params(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return [from_jax_params(v, device) for v in tree]
     return torch.from_numpy(np.array(tree)).to(device)
+
+
+def from_jax_pools(pools, device="cuda"):
+    """`{bits: {name: np.ndarray}}` page pools -> the same dict of tensors on
+    `device` (uint8 packed pages, f32 sidecars)."""
+    return {int(bits): {name: torch.from_numpy(np.array(arr)).to(device)
+                        for name, arr in pool.items()}
+            for bits, pool in pools.items()}

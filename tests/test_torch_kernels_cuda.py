@@ -12,6 +12,7 @@ import torch
 
 from diffusion_llm_rs_tpu_torch.ops import _build
 from diffusion_llm_rs_tpu_torch.ops import int8_matmul as im
+from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
 from diffusion_llm_rs_tpu_torch.ops.attention import (
     dense_attention,
     dense_attention_plain,
@@ -110,3 +111,86 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="residual must be bf16"):
         im.int8w_matmul(x[:, :16], _w(16, 8, gen),
                         torch.ones(1, 8, device="cuda"), residual=r)
+
+
+def _pools(gen, n_slots, HG, P, GD, bits):
+    """Random pools in the JAX layout: any byte is a valid packed page;
+    zero-points near the middle of the level range and scales that span
+    about +-3, as quantized N(0, 1) keys and values have."""
+    Pp = P // (8 // bits)
+    qmax = (1 << bits) - 1
+    data = [torch.randint(0, 256, (n_slots, HG, Pp, GD), generator=gen,
+                          device="cuda", dtype=torch.uint8) for _ in range(2)]
+    side = [torch.rand((n_slots, HG, GD // 64 * P), generator=gen,
+                       device="cuda") * s + o
+            for s, o in ((3.0 / qmax, 1.5 / qmax), (0.2 * qmax, 0.4 * qmax),
+                         (3.0 / qmax, 1.5 / qmax), (0.2 * qmax, 0.4 * qmax))]
+    return data[0], side[0], side[1], data[1], side[2], side[3]
+
+
+def _close(out, lse, ref, ref_lse):
+    """Relative Frobenius error <= 1e-2 on the output, lse within 1e-3:
+    the kernel's sums run in another order and with CUDA's expf, which can
+    move a bf16 rounding of P."""
+    rel = float((out - ref).norm() / ref.norm())
+    assert rel <= 1e-2, rel
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("P", [64, 128])
+@pytest.mark.parametrize("G", [1, 2])
+def test_batched_paged_attention_kernel_matches_twin(gen, bits, P, G):
+    """Three slots: three scattered pages with a partial last one, an empty
+    slot, and one page; 100 query rows (a ragged q tile)."""
+    B, H, Sq, D = 3, 4, 100, 64
+    pools = _pools(gen, 7, H // G, P, G * D, bits)
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
+    pt = torch.tensor([[5, 0, 3], [0, 0, 0], [6, 0, 0]], device="cuda",
+                      dtype=torch.int32)
+    nt = torch.tensor([[P, P, P // 2 + 3], [0, 0, 0], [P, 0, 0]],
+                      device="cuda", dtype=torch.int32)
+    npg = torch.tensor([3, 0, 1], device="cuda", dtype=torch.int32)
+    _build.reset_launch_counts()
+    out, lse = pa.batched_paged_attention(q, pt, nt, npg, *pools, bits=bits,
+                                          return_lse=True, head_group=G)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["batched_paged_attention"] == 1
+    ref, ref_lse = pa.batched_paged_attention_plain(
+        q, pt, nt, npg, *pools, bits=bits, return_lse=True, head_group=G)
+    assert torch.all(out[1] == 0) and torch.all(lse[1] == pa.NEG_INF)
+    _close(out, lse, ref, ref_lse)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("P", [64, 128])
+def test_paged_attention_kernel_matches_twin(gen, bits, P):
+    BH, Sq, D = 4, 70, 64
+    pools = _pools(gen, 5, BH, P, D, bits)
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    pt = torch.tensor([4, 1, 2], device="cuda", dtype=torch.int32)
+    nt = torch.tensor([P, P, 17], device="cuda", dtype=torch.int32)
+    _build.reset_launch_counts()
+    out, lse = pa.paged_attention(q, pt, *pools, bits=bits, page_tokens=nt,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["paged_attention"] == 1
+    ref, ref_lse = pa.paged_attention_plain(q, pt, *pools, bits=bits,
+                                            page_tokens=nt, return_lse=True)
+    _close(out, lse, ref, ref_lse)
+
+
+def test_paged_kernels_refuse_what_they_do_not_take(gen):
+    q = torch.randn((1, 2, 8, 64), device="cuda")
+    pt = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    npg = torch.ones((1,), dtype=torch.int32, device="cuda")
+    pools = _pools(gen, 2, 2, 32, 64, 4)       # pages of 32 tokens
+    with pytest.raises(ValueError, match="page size"):
+        pa.batched_paged_attention(q, pt, pt, npg, *pools, bits=4)
+    pools = _pools(gen, 2, 2, 64, 64, 4)
+    with pytest.raises(NotImplementedError, match="act_bits=8"):
+        pa.batched_paged_attention(q, pt, pt, npg, *pools, bits=4, act_bits=8)
+    with pytest.raises(ValueError, match="head dim"):
+        pa.batched_paged_attention(q[..., :32], pt, pt, npg, *pools, bits=4)
+    with pytest.raises(ValueError, match="empty page table"):
+        pa.paged_attention(q[0], pt[0, :0], *pools, bits=4)

@@ -1,0 +1,232 @@
+"""Port parity: the paged-attention twins and `merge_partials` against the
+JAX package.
+
+JAX runs as its own tests run it on the CPU: its Pallas kernels in interpret
+mode where its wrappers take the kernel (pages of 128 tokens, G*D = 128),
+its exact XLA fallbacks elsewhere. The port's twins repeat the TPU kernels'
+arithmetic (bf16 q, bf16 P, the same folded affine terms), so against the
+kernel path they differ only by f32 summation order and the frameworks'
+`exp`; against the fallbacks, which compute in f32 over dequantized K/V,
+they differ by those bf16 roundings. Each test prints the errors it
+measured (`pytest -rP` shows them).
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffusion_llm_rs_tpu.cache.paged import quantize_page as jquantize_page
+from diffusion_llm_rs_tpu.ops import pallas_paged_attention as jppa
+from diffusion_llm_rs_tpu_torch.ops import paged_attention as tpa
+
+
+def _grouped_pools(rng, H, S, D, P, G, bits):
+    """K/V [H, S, D] ~ N(0, 1) quantized by JAX into grouped pools
+    [S/P, H/G, P/vpb, G*D] (numpy), one pool slot per page."""
+    nps, HG = S // P, H // G
+    Pp = P // (8 // bits)
+    out = []
+    for _ in range(2):
+        x = rng.normal(size=(H, S, D)).astype(np.float32)
+        d, s, z = jquantize_page(
+            jnp.asarray(x.reshape(H, nps, P, D).transpose(1, 0, 2, 3)
+                        .reshape(nps * H, P, D)), bits)
+        d = (np.asarray(d).reshape(nps, HG, G, Pp, D).transpose(0, 1, 3, 2, 4)
+             .reshape(nps, HG, Pp, G * D))
+        out += [d, np.asarray(s).reshape(nps, HG, G * P),
+                np.asarray(z).reshape(nps, HG, G * P)]
+    kd, ks, kz, vd, vs, vz = out
+    return kd, ks, kz, vd, vs, vz
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _lse_err(t, j):
+    return float(np.abs(t.numpy() - np.asarray(j)).max())
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+# slot 0 reads both pages, the last one partial; slot 1 is inactive
+PT = np.array([[0, 1], [0, 0]], np.int32)
+NT = np.array([[128, 77], [0, 0]], np.int32)
+NPG = np.array([2, 0], np.int32)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_batched_twin_matches_jax_kernel(bits):
+    """B=2, H=2, D=64, G=2, P=128 (the JAX kernel path, interpret mode):
+    output within 1e-3 relative, lse within 1e-4; the inactive slot is 0
+    with lse -1e30 on both sides."""
+    B, H, Sq, D, P, G = 2, 2, 16, 64, 128, 2
+    rng = np.random.default_rng(bits)
+    pools = _grouped_pools(rng, H, 2 * P, D, P, G, bits)
+    q = rng.normal(size=(B, H, Sq, D)).astype(np.float32)
+    jout, jlse = jppa.batched_paged_attention(
+        *_j(q, PT, NT, NPG, *pools), bits=bits, return_lse=True, head_group=G)
+    tout, tlse = tpa.batched_paged_attention(
+        *_t(q, PT, NT, NPG, *pools), bits=bits, return_lse=True, head_group=G)
+    rel, lse = _rel(tout[0], jout[0]), _lse_err(tlse, jlse)
+    print(f"batched twin vs JAX kernel, {bits}-bit: rel {rel:.3g}, "
+          f"lse {lse:.3g}")
+    assert rel < 1e-3
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=1e-4)
+    assert np.all(tout[1].numpy() == 0) and np.all(np.asarray(jout[1]) == 0)
+    assert np.all(tlse[1].numpy() == tpa.NEG_INF)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_single_twin_matches_jax_kernel(bits):
+    """One sequence over three scattered pages (partial last page) at
+    D=128, P=128, the shapes the JAX kernel takes: output 1e-3 relative,
+    lse 1e-4."""
+    BH, Sq, D, P = 2, 16, 128, 128
+    rng = np.random.default_rng(10 + bits)
+    kd, ks, kz, vd, vs, vz = _grouped_pools(rng, BH, 4 * P, D, P, 1, bits)
+    q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
+    pt = np.array([3, 0, 2], np.int32)
+    nt = np.array([P, P, 45], np.int32)
+    pools = (kd, ks, kz, vd, vs, vz)
+    jout, jlse = jppa.paged_attention(*_j(q, pt, *pools), bits=bits,
+                                      page_tokens=jnp.asarray(nt),
+                                      return_lse=True)
+    tout, tlse = tpa.paged_attention(*_t(q, pt, *pools), bits=bits,
+                                     page_tokens=torch.from_numpy(nt),
+                                     return_lse=True)
+    rel, lse = _rel(tout, jout), _lse_err(tlse, jlse)
+    print(f"single twin vs JAX kernel, {bits}-bit: rel {rel:.3g}, "
+          f"lse {lse:.3g}")
+    assert rel < 1e-3
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2])
+def test_batched_twin_matches_jax_fallback(bits, G):
+    """Pages of 64 tokens (the page `Engine.sample` picks), where JAX runs
+    its exact f32 `_batched_fallback`: within JAX's own kernel-vs-fallback
+    bounds (tests/test_paged_attention.py), 2e-2 relative on the output and
+    1e-3 absolute plus 1e-3 relative on the lse. bf16 q moves a logit by up
+    to 2^-9 of its size, and at 1 bit the dequantized keys are large."""
+    B, H, Sq, D, P = 3, 4, 24, 64, 64
+    rng = np.random.default_rng(20 + bits)
+    pools = _grouped_pools(rng, H, 4 * P, D, P, G, bits)
+    q = rng.normal(size=(B, H, Sq, D)).astype(np.float32)
+    pt = np.array([[2, 0, 3], [0, 0, 0], [1, 0, 0]], np.int32)
+    nt = np.array([[P, P, 30], [0, 0, 0], [P, 0, 0]], np.int32)
+    npg = np.array([3, 0, 1], np.int32)
+    kd, ks, kz, vd, vs, vz = _j(*pools)
+    jout, jlse = jppa._batched_fallback(
+        *_j(q, pt, nt, npg), jppa.degroup_pool(kd, G),
+        jppa.degroup_sidecar(ks, G), jppa.degroup_sidecar(kz, G),
+        jppa.degroup_pool(vd, G), jppa.degroup_sidecar(vs, G),
+        jppa.degroup_sidecar(vz, G), bits, 1.0 / math.sqrt(D),
+        return_lse=True)
+    tout, tlse = tpa.batched_paged_attention(
+        *_t(q, pt, nt, npg, *pools), bits=bits, return_lse=True, head_group=G)
+    print(f"batched twin vs JAX fallback, {bits}-bit G={G}: rel "
+          f"{_rel(tout, jout):.3g}, lse {_lse_err(tlse, jlse):.3g}")
+    assert _rel(tout, jout) < 2e-2
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=1e-3,
+                               atol=1e-3)
+    assert np.all(tout[1].numpy() == 0)
+    assert np.all(tlse[1].numpy() == tpa.NEG_INF)
+
+
+@pytest.mark.parametrize("bits", [2, 8])
+def test_single_twin_matches_jax_fallback(bits):
+    BH, Sq, D, P = 3, 10, 64, 64
+    rng = np.random.default_rng(30 + bits)
+    pools = _grouped_pools(rng, BH, 3 * P, D, P, 1, bits)
+    q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
+    pt = np.array([2, 1], np.int32)
+    nt = np.array([P, 9], np.int32)
+    jout, jlse = jppa._fallback(*_j(q, pt, *pools), bits, 1.0 / math.sqrt(D),
+                                jnp.asarray(nt), return_lse=True)
+    tout, tlse = tpa.paged_attention(*_t(q, pt, *pools), bits=bits,
+                                     page_tokens=torch.from_numpy(nt),
+                                     return_lse=True)
+    print(f"single twin vs JAX fallback, {bits}-bit: rel "
+          f"{_rel(tout, jout):.3g}, lse {_lse_err(tlse, jlse):.3g}")
+    assert _rel(tout, jout) < 2e-2
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_degroup_matches_jax():
+    rng = np.random.default_rng(3)
+    data = rng.integers(0, 256, size=(3, 2, 16, 128)).astype(np.uint8)
+    side = rng.normal(size=(3, 2, 256)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tpa.degroup_pool(torch.from_numpy(data), 2).numpy(),
+        np.asarray(jppa.degroup_pool(jnp.asarray(data), 2)))
+    np.testing.assert_array_equal(
+        tpa.degroup_sidecar(torch.from_numpy(side), 2).numpy(),
+        np.asarray(jppa.degroup_sidecar(jnp.asarray(side), 2)))
+
+
+def test_merge_partials_matches_jax():
+    """Bit for bit where the merge weights are exact (one part; a row whose
+    keys are all in one part; a row empty in every part, which stays 0).
+    Elsewhere XLA's f32 `exp` and torch's differ by up to one ulp, and the
+    merge by up to 2 ulp of the largest part (measured over 20 seeds):
+    bound 4 ulp."""
+    rng = np.random.default_rng(4)
+    outs = [rng.normal(size=(2, 3, 5, 8)).astype(np.float32) for _ in range(3)]
+    lses = [rng.normal(size=(2, 3, 5)).astype(np.float32) * 3
+            for _ in range(3)]
+    for i in range(3):  # slot 1: no keys in any part
+        outs[i][1] = 0.0
+        lses[i][1] = tpa.NEG_INF
+    lses[1][0, 0] = tpa.NEG_INF   # head 0 of slot 0: keys only in parts 0, 2
+    outs[1][0, 0] = 0.0
+    jparts = [(jnp.asarray(o), jnp.asarray(l)) for o, l in zip(outs, lses)]
+    tparts = [(torch.from_numpy(o), torch.from_numpy(l))
+              for o, l in zip(outs, lses)]
+    one = tpa.merge_partials(tparts[:1]).numpy()
+    np.testing.assert_array_equal(one, np.asarray(jppa.merge_partials(jparts[:1])))
+    merged = tpa.merge_partials(tparts).numpy()
+    jmerged = np.asarray(jppa.merge_partials(jparts))
+    np.testing.assert_array_equal(merged[1], 0.0)
+    np.testing.assert_array_equal(merged[1], jmerged[1])
+    ulp = np.spacing(np.abs(np.stack(outs)).max(axis=0))
+    print(f"merge_partials vs JAX: {(np.abs(merged - jmerged) / ulp).max()} "
+          f"ulp of the largest part")
+    assert np.all(np.abs(merged - jmerged) <= 4 * ulp)
+    # exact weights: part 0 holds the keys, part 1 none
+    solo = [tparts[0], (torch.zeros_like(tparts[1][0]),
+                        torch.full_like(tparts[1][1], tpa.NEG_INF))]
+    jsolo = [(jnp.asarray(o.numpy()), jnp.asarray(l.numpy())) for o, l in solo]
+    np.testing.assert_array_equal(tpa.merge_partials(solo).numpy(),
+                                  np.asarray(jppa.merge_partials(jsolo)))
+
+
+def test_wrappers_refuse_the_int8_path_and_empty_tables():
+    q = torch.zeros((1, 2, 8, 64))
+    pt = torch.zeros((1, 1), dtype=torch.int32)
+    npg = torch.ones((1,), dtype=torch.int32)
+    pools = (torch.zeros((1, 1, 32, 128), dtype=torch.uint8),) + tuple(
+        torch.ones((1, 1, 128)) for _ in range(2))
+    pools = pools + pools
+    with pytest.raises(NotImplementedError, match="act_bits=8"):
+        tpa.batched_paged_attention(q, pt, pt, npg, *pools, bits=4,
+                                    head_group=2, act_bits=8)
+    with pytest.raises(ValueError, match="empty page table"):
+        tpa.paged_attention(q[0], pt[0, :0], *pools, bits=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tpa.batched_paged_attention(q.to("meta"), pt, pt, npg, *pools, bits=4,
+                                    head_group=2)
