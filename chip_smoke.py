@@ -39,7 +39,22 @@ Phases (any failure makes the script exit non-zero without the final line):
                 fused chunk of 8 steps and its launch counts; and
                 serve_check (one step at S=512 on the card against the twins
                 on the CPU from the same noise).
-  9. summary  - a JSON line of kernels, a JSON line of the runs, then the
+  9. engine   - the `Engine` facade over packed weights, on a second model of
+                the same full width built by `Engine(config=...)` from a seed
+                and packed by `quantize_weights(4)`: engine_packed (bf16
+                activations into the `matmul` kernel: sample B=8, S=256, 32
+                steps through the paged batcher, timed, with peak memory and
+                the device-busy share of a chunk; 4 steps in paged mode; a
+                greedy `generate`; one `denoising_perplexity`; exact launch
+                counts, 51 a forward), engine_packed_a8 (the same with
+                `weight_quant.act_bits=8`, the `matmul_a8` kernel),
+                engine_anchor (`Engine.from_pretrained()` on the shipped
+                trained checkpoint: fp32 `generate` on the card equal to the
+                CPU token for token, perplexity of a fixed text under a tenth
+                of the vocabulary before and after int4) and engine_check
+                (one packed forward on the card against the plain versions on
+                the CPU, act16 and a8).
+ 10. summary  - a JSON line of kernels, a JSON line of the runs, then the
                 device line last.
 """
 
@@ -294,6 +309,16 @@ def kernels():
     if not ok:
         bad.append("dense_attention")
     _paged_kernels(gen, results, bad)
+    _packed_kernels(gen, results, bad)
+    # the library yardsticks leave a cuBLAS workspace behind for every side
+    # stream they were captured on: return them, or they count in the peak
+    # memory of every later phase (a private call: skipped where torch lacks it)
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    log(f"  memory held after the kernel phase: "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB")
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
     return results
@@ -470,6 +495,137 @@ def _paged_kernels(gen, results, bad):
                f"({row['bound_by']})" if "ms" in row else ""))
         if not ok:
             bad.append(f"paged_attention {label}")
+
+
+def _packed_weight(K, N, bits, gran, act_bits, gen):
+    """A [K, N] N(0, 0.02) weight quantized and packed in the port: int
+    `bits`, symmetric groups of 128 along K or per output channel."""
+    from diffusion_llm_rs_tpu_torch.ops.packed_matmul import prepare
+    from diffusion_llm_rs_tpu_torch.quant.core import quantize
+    w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+    if gran == "group":
+        qt = quantize(w, bits, symmetric=True, granularity="group",
+                      group_size=128, axis=0)
+    else:
+        qt = quantize(w, bits, granularity="channel", axis=1)
+    return prepare(qt, act_bits=act_bits)
+
+
+def _packed_kernels(gen, results, bad):
+    """`matmul` (bf16 activations) and `matmul_a8` (int8 activations) over
+    packed weights, at the engine path's shapes with int4 g128, bf16 in and
+    out: M = 2048 (B=8 x S=256) for the four linears of a block, M = 8 (the
+    time-MLP), M = 256 (one sequence), a ragged M = 5 with f32 in and out (a
+    `generate` prompt), and once each at 1, 2 and 8 bits and per-channel.
+
+    matmul against matmul_plain (an f32 product of the same bf16 operands,
+    summed in another order): |d| <= 2e-5 + 2^-7 |ref| (one bf16 ulp), in
+    f32 2e-5 + 2e-5 |ref|. matmul_a8 against a8_matmul_reference: integer
+    products are exact, so bit for bit without gelu, one bf16 ulp with it;
+    without gelu it must also equal int8w_matmul on decode_to_int8(w).
+    Library yardsticks: the weight dequantized (or decoded to int8) once
+    outside the timed window, then torch.matmul in bf16 (or torch._int_mm)
+    and the epilogue in torch ops."""
+    from diffusion_llm_rs_tpu_torch.ops import int8_matmul as im
+    from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
+    from diffusion_llm_rs_tpu_torch.ops.matmul import decode_to_int8
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # label, M, K, N, bits, granularity, bias, gelu, dtype, timed
+        ("qkv", 2048, 768, 2304, 4, "group", False, False, bf16, True),
+        ("wo/head", 2048, 768, 768, 4, "group", False, False, bf16, True),
+        ("mlp.w1", 2048, 768, 3072, 4, "group", True, True, bf16, True),
+        ("mlp.w2", 2048, 3072, 768, 4, "group", True, False, bf16, True),
+        ("time_mlp.w1", 8, 768, 3072, 4, "group", True, True, bf16, True),
+        ("qkv one sequence", 256, 768, 2304, 4, "group", False, False, bf16,
+         True),
+        ("ragged M, f32", 5, 768, 768, 4, "group", True, False, f32, False),
+        ("1-bit", 2048, 768, 768, 1, "group", True, False, bf16, True),
+        ("2-bit", 2048, 768, 768, 2, "group", True, True, bf16, True),
+        ("8-bit", 2048, 768, 768, 8, "group", True, False, bf16, True),
+        ("per-channel", 2048, 768, 2304, 4, "channel", True, False, bf16,
+         True),
+    ]
+    for label, M, K, N, bits, gran, bias, gelu, dtype, timed in cases:
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+        b = (torch.randn((N,), generator=gen, device="cuda") * 0.02
+             if bias else None)
+        act = "gelu" if gelu else None
+        side = 2 * (1 if gran == "channel" else K // 128) * N * 4
+        nbytes = (M * K * 2 + K * bits // 8 * N + side + (N * 4 if bias else 0)
+                  + M * N * 2)
+        shape = f"{label}: M={M} K={K} N={N} {bits}-bit {gran}"
+        for name, act_bits in (("matmul", 16), ("matmul_a8", 8)):
+            w = _packed_weight(K, N, bits, gran, act_bits, gen)
+            out = pm.matmul(x, w, dtype, b, act)
+            if act_bits == 16:
+                ref = pm.matmul_plain(x, w, b, act, dtype)
+                rtol = 2.0 ** -7 if dtype == bf16 else 2e-5
+                tol = f"|d| <= 2e-5 + {rtol:.3g} |ref|"
+                err, rel, ok = _compare(out, ref, 2e-5, rtol)
+            else:
+                ref = pm.a8_matmul_reference(x, w, b, act, dtype)
+                if gelu:
+                    tol = "|d| <= 1e-6 + 2^-7 |ref|"
+                    err, rel, ok = _compare(out, ref, 1e-6, 2.0 ** -7)
+                else:
+                    tol = "bit for bit, and equal to int8w_matmul on the " \
+                          "decoded weight"
+                    err, rel, ok = _compare(out, ref, 0.0, 0.0)
+                    if dtype == bf16:  # int8w_matmul quantizes bf16 rows
+                        d = decode_to_int8(w)
+                        ok = ok and torch.equal(out, im.int8w_matmul(
+                            x, d.data, d.col_scale, b, None, None, dtype))
+            row = dict(shape=shape, max_abs_err=err, rel_err=rel,
+                       tolerance=tol)
+            if timed:
+                row["ms"] = time_ms(lambda: pm.matmul(x, w, dtype, b, act))
+                lib_ms = None
+                if act_bits == 16:
+                    row["plain_ms"] = time_ms(
+                        lambda: pm.matmul_plain(x, w, b, act, dtype), 5)
+                    wd = w.dequantize(bf16)
+
+                    def lib():
+                        y = torch.matmul(x, wd).float()
+                        if b is not None:
+                            y = y + b
+                        return (im.gelu_tanh(y) if gelu else y).to(dtype)
+                    lib_ms = time_ms(lib)
+                    peak = PEAK_BF16_FLOPS
+                else:
+                    row["plain_ms"] = time_ms(
+                        lambda: pm.a8_matmul_reference(x, w, b, act, dtype), 5)
+                    if M > 16:  # torch._int_mm takes M > 16 only
+                        xi, sx = pm.quantize_act_i8(x)
+                        d = decode_to_int8(w)
+                        lib_ms = time_ms(lambda: _int_mm_epilogue(
+                            xi, sx, d.data, d.col_scale, b, gelu, None, dtype))
+                    peak = PEAK_INT8_OPS
+                row["library_ms"] = lib_ms
+                row["bound_ms"], row["bound_by"] = bound(
+                    nbytes + (N * 4 if act_bits == 8 else 0), 2 * M * K * N,
+                    peak)
+            results[name].append(row)
+            log(f"  {name} {shape}: max_abs_err {err:.3g} rel {rel:.3g} "
+                f"({tol}) {'ok' if ok else 'MISMATCH'}"
+                + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+                   f"library {row['library_ms']}, bound {row['bound_ms']:.4f} "
+                   f"({row['bound_by']})" if timed else ""))
+            if not ok:
+                bad.append(f"{name} {label}")
+
+    # quantize_fp8 on the card equals the CPU bit for bit
+    from diffusion_llm_rs_tpu_torch.quant.core import quantize_fp8
+    x = torch.randn((512, 257), generator=gen, device="cuda") * 3
+    dev, cpu = quantize_fp8(x), quantize_fp8(x.cpu())
+    same = torch.equal(dev.data.view(torch.uint8).cpu(),
+                       cpu.data.view(torch.uint8)) and \
+        torch.equal(dev.scale.cpu(), cpu.scale)
+    log(f"  quantize_fp8 card vs CPU: {'bit for bit' if same else 'MISMATCH'}")
+    if not same:
+        bad.append("quantize_fp8")
 
 
 def full_width_model(max_seq):
@@ -1041,10 +1197,228 @@ def serve_check():
     return dict(x_rel_err=rel_x, eps_part_rel_err=rel_e, counts=counts)
 
 
+# --------------------------------------------------------------- engine ---
+
+ENGINE_TEXT = "the quick brown fox jumps over the lazy dog"
+
+
+def _matmuls_per_forward(num_layers):
+    """Linears of one denoiser forward: 2 time-MLP, 4 a block, 1 head."""
+    return 2 + 4 * num_layers + 1
+
+
+def _full_width_engine(act_bits):
+    """`Engine` over a 12-layer, 768-wide, 12-head, vocab-50257 model with
+    random weights from a seed, packed to int4 (symmetric, groups of 128) by
+    `quantize_weights(4)`."""
+    from diffusion_llm_rs_tpu_torch.config import (DiffusionConfig,
+                                                   WeightQuantConfig)
+    from diffusion_llm_rs_tpu_torch.engine import Engine
+    from diffusion_llm_rs_tpu_torch.ops.matmul import MatmulWeight
+    from diffusion_llm_rs_tpu_torch.quant.core import QuantizedTensor
+
+    cfg = DiffusionConfig(num_timesteps=1000, hidden_size=768, num_layers=12,
+                          num_attention_heads=12, vocab_size=50257,
+                          max_sequence_length=1024, dtype="bfloat16",
+                          weight_quant=WeightQuantConfig(act_bits=act_bits))
+    eng = Engine(config=cfg, seed=0)
+    eng.quantize_weights(4)
+    p = eng.params
+    # 50257 rows do not pack: the embedding stays a QuantizedTensor
+    if not isinstance(p["tok_embed"], QuantizedTensor):
+        raise AssertionError(f"tok_embed is {type(p['tok_embed']).__name__}")
+    blk = p["blocks"][0]
+    kinds = {"time_mlp.w1": p["time_mlp"]["w1"], "time_mlp.w2": p["time_mlp"]["w2"],
+             "wqkv": blk["attn"]["wqkv"], "wo": blk["attn"]["wo"],
+             "mlp.w1": blk["mlp"]["w1"], "mlp.w2": blk["mlp"]["w2"],
+             "head.w": p["head"]["w"]}
+    for name, w in kinds.items():
+        if not (isinstance(w, MatmulWeight) and w.bits == 4
+                and w.act_bits == act_bits and w.group_size == 128):
+            raise AssertionError(f"{name} is not a packed int4 MatmulWeight")
+    if eng.stats()["weight_bits"] != 4:
+        raise AssertionError(f"stats {eng.stats()}")
+    return eng
+
+
+def _engine_packed(act_bits):
+    from diffusion_llm_rs_tpu_torch.ops import _build
+
+    kernel = "matmul_a8" if act_bits == 8 else "matmul"
+    t0 = time.perf_counter()
+    eng = _full_width_engine(act_bits)
+    torch.cuda.synchronize()
+    log(f"  engine built and packed in {time.perf_counter() - t0:.1f} s")
+    cfg = eng.config
+    per_fwd = _matmuls_per_forward(cfg.num_layers)
+    B, S, steps = 8, 256, 32
+    eng.sample(batch_size=B, seq_len=S, num_steps=2, return_text=False)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = eng.sample(batch_size=B, seq_len=S, num_steps=steps, seed=3,
+                        return_text=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    b = eng._samplers[(B, S, False, "auto")]
+    if b.attend_mode != "dense" or b.page_size != 64:
+        raise AssertionError(f"mode {b.attend_mode}, page {b.page_size}")
+    _expect("sample", counts, {kernel: per_fwd * steps, "int8w_matmul": 0,
+                               "int8w_mlp": 0, "batched_paged_attention": 0})
+    if tuple(tokens.shape) != (B, S) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"token ids out of range: {tuple(tokens.shape)}")
+    log(f"  sample B={B} S={S} steps={steps}: {wall:.4f} s, "
+        f"{B * S / wall:.1f} generated tokens/s, peak memory "
+        f"{peak / 2**20:.1f} MiB; launches {counts}")
+    out = dict(counts=counts, wall_s=wall, tokens_per_s=B * S / wall,
+               peak_bytes=peak)
+    out.update(_busy_share(b, S))
+
+    # the same facade in paged mode: pools, the batched paged kernel, packed
+    # weights; 4 steps from t = 3 (the decode phase: bucket 2, maybe 4)
+    _build.reset_launch_counts()
+    tokens = eng.sample(batch_size=B, seq_len=S, num_steps=4, seed=4,
+                        return_text=False, attend_mode="paged")
+    torch.cuda.synchronize()
+    paged = dict(_build.launch_counts)
+    L = cfg.num_layers
+    n = paged.get("batched_paged_attention", 0)
+    if not L * 4 <= n <= 3 * L * 4 or paged.get(kernel, 0) != per_fwd * 4:
+        raise AssertionError(f"paged mode launches {paged}")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError("paged mode: token ids out of range")
+    log(f"  sample attend_mode=paged, 4 steps: launches {paged}")
+
+    # greedy generate: one forward (f32 activations, ragged M) per new token
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    text = eng.generate("the quick", max_length=4)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    forwards = len(eng._ntp_cache)
+    gen_counts = dict(_build.launch_counts)
+    _expect("generate", gen_counts, {kernel: per_fwd * forwards,
+                                     "int8w_matmul": 0})
+    if not 1 <= forwards <= 4 or not isinstance(text, str):
+        raise AssertionError(f"generate ran {forwards} forwards")
+    again = eng.generate("the quick", max_length=4)
+    if again != text or eng.generate_cache_hits != forwards:
+        raise AssertionError("the next-token memo did not serve the repeat")
+    _build.reset_launch_counts()
+    ppl = eng.denoising_perplexity(ENGINE_TEXT, t=10)
+    _expect("denoising_perplexity", dict(_build.launch_counts),
+            {kernel: per_fwd})
+    if not np.isfinite(ppl):
+        raise AssertionError(f"perplexity {ppl}")
+    log(f"  generate: {forwards} forwards in {gen_s:.3f} s, launches "
+        f"{gen_counts}, {text!r}; denoising perplexity of a random model "
+        f"{ppl:.1f} (finite)")
+    out.update(paged_counts=paged, generate_forwards=forwards,
+               generate_s=gen_s, perplexity=ppl)
+    MODEL[f"engine{act_bits}"] = eng
+    return out
+
+
+def engine_packed():
+    return _engine_packed(16)
+
+
+def engine_packed_a8():
+    return _engine_packed(8)
+
+
+def engine_anchor():
+    """The shipped trained checkpoint (6 layers, width 256, vocab 463, f32
+    activations) through `Engine.from_pretrained()`, on the card and on the
+    CPU: fp32 greedy continuations equal token for token; perplexity of a
+    fixed text (noise from one CPU generator, given to both) under a tenth
+    of the vocabulary, fp32 and after int4 packing; `sample` in range."""
+    from diffusion_llm_rs_tpu_torch.engine import Engine
+    from diffusion_llm_rs_tpu_torch.ops import _build
+
+    card, cpu = Engine.from_pretrained(), Engine.from_pretrained(device="cpu")
+    text = "the forest maybe river the stone quick"
+    n = len(card.tokenizer.encode(text))
+    noise = torch.randn((1, n, card.config.hidden_size),
+                        generator=torch.Generator().manual_seed(0))
+    limit = card.tokenizer.vocab_size / 10
+    out = {}
+    for label in ("fp32", "int4"):
+        if label == "int4":
+            card.quantize_weights(4)
+            cpu.quantize_weights(4)
+        _build.reset_launch_counts()
+        prompts = ("the quick", "a large house", "forest")
+        got = [card.generate(p, max_length=8) for p in prompts]
+        want = [cpu.generate(p, max_length=8) for p in prompts]
+        ppl = card.denoising_perplexity(text, t=10, noise=noise)
+        ppl_cpu = cpu.denoising_perplexity(text, t=10, noise=noise)
+        tokens = card.sample(batch_size=4, seq_len=32, num_steps=8,
+                             return_text=False)
+        counts = dict(_build.launch_counts)
+        log(f"  {label}: generate {got} (CPU {'equal' if got == want else want}); "
+            f"perplexity {ppl:.3f} (CPU {ppl_cpu:.3f}, limit {limit:.1f}); "
+            f"launches {counts}")
+        if label == "fp32" and got != want:
+            raise AssertionError("fp32 generate on the card differs from the CPU")
+        if not all(isinstance(g, str) and g for g in got):
+            raise AssertionError("generate returned nothing")
+        if not (ppl < limit and abs(ppl - ppl_cpu) <= 2e-2 * ppl_cpu):
+            raise AssertionError(f"{label} perplexity {ppl} vs CPU {ppl_cpu}")
+        if int(tokens.min()) < 0 or int(tokens.max()) >= card.config.vocab_size:
+            raise AssertionError("sample: token ids out of range")
+        if (counts.get("matmul", 0) > 0) != (label == "int4"):
+            raise AssertionError(f"{label}: matmul launches {counts}")
+        out[label] = dict(generate=got, equal_to_cpu=got == want,
+                          perplexity=ppl, perplexity_cpu=ppl_cpu, counts=counts)
+    return out
+
+
+def engine_check():
+    """One full-width packed forward (B=2, S=256, bf16 activations, t=500)
+    on the card against the plain versions on the CPU, from the same input,
+    for act16 and a8: eps within 2e-2 relative, the sampler's bound (bf16
+    rounds at other points on the two sides; on the a8 side a moved
+    rounding can also move an act-quant level)."""
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+    from diffusion_llm_rs_tpu_torch.ops import _build
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    out = {}
+    for act_bits in (16, 8):
+        eng = MODEL[f"engine{act_bits}"]
+        cfg = eng.config
+        x = torch.randn((2, 256, cfg.hidden_size), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        t = torch.full((2,), 500, device="cuda")
+        _build.reset_launch_counts()
+        e_card = dn.denoiser_forward(eng.params, cfg, x, t).float().cpu()
+        counts = dict(_build.launch_counts)
+        t0 = time.perf_counter()
+        e_cpu = dn.denoiser_forward(_to(eng.params, "cpu"), cfg, x.cpu(),
+                                    t.cpu()).float()
+        rel = float((e_card - e_cpu).norm() / e_cpu.norm())
+        log(f"  act{act_bits}: eps rel err card vs CPU {rel:.3g} (bound 2e-2); "
+            f"CPU forward {time.perf_counter() - t0:.1f} s; launches {counts}")
+        _expect(f"engine_check act{act_bits}", counts, {
+            "matmul_a8" if act_bits == 8 else "matmul":
+                _matmuls_per_forward(cfg.num_layers)})
+        if not rel <= 2e-2:
+            raise AssertionError(f"act{act_bits}: packed forward disagrees "
+                                 "with the plain versions")
+        out[f"act{act_bits}"] = dict(eps_rel_err=rel, counts=counts)
+    return out
+
+
 # name: (source, TPU kernel it replaces, the path whose run `launches` reads:
 # the 32-step sampler for the GEMMs, the S=1024 run for dense attention,
 # which the sampler at S=256 does not reach, serve_paged for the batched
-# paged kernel and the PagedKVCache run for the single-sequence one)
+# paged kernel, the PagedKVCache run for the single-sequence one, and the
+# engine's 32-step sample for the two packed-weight kernels)
 KERNELS = {
     "int8w_matmul": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",
                      "diffusion_llm_rs_tpu/ops/pallas_matmul.py:322",
@@ -1061,6 +1435,12 @@ KERNELS = {
     "paged_attention": ("diffusion_llm_rs_tpu_torch/csrc/paged_attention.cu",
                         "diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:34",
                         "cache_attend"),
+    "matmul": ("diffusion_llm_rs_tpu_torch/csrc/packed_gemm.cu",
+               "diffusion_llm_rs_tpu/ops/pallas_matmul.py:203",
+               "engine_packed"),
+    "matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/packed_gemm.cu",
+                  "diffusion_llm_rs_tpu/ops/pallas_matmul.py:293",
+                  "engine_packed_a8"),
 }
 
 
@@ -1077,6 +1457,12 @@ def main() -> int:
         for fn in (long_seq, profile, cache_attend, serve_paged, serve_phase,
                    serve_dense, serve_check):
             runs[fn.__name__] = phase(fn)
+    MODEL.clear()  # the engine phases build their own models
+    torch.cuda.empty_cache()
+    for fn in (engine_packed, engine_packed_a8, engine_anchor):
+        runs[fn.__name__] = phase(fn)
+    if "engine16" in MODEL and "engine8" in MODEL:
+        runs["engine_check"] = phase(engine_check)
     if failures:
         log(f"FAILED phases: {failures}")
         return 1

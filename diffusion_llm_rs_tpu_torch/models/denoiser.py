@@ -7,10 +7,12 @@ MLP added to every position, learned positional embeddings, fused QKV
 projection, GELU MLP, eps-prediction head, weight-tied logits readout.
 
 Parameters are a plain nested dict of tensors (same keys as the JAX tree).
-Weights may be plain tensors or `Int8Weight`s (the W4A8 decoded path): every
-linear goes through `ops.matmul.linear`, an MLP block over two `Int8Weight`s
-through the `int8w_mlp` kernel, and unmasked attention at Skv >= 1024
-through the `dense_attention` kernel. A caller that owns attention (the
+Weights may be plain tensors, `Int8Weight`s (the W4A8 decoded path), packed
+`MatmulWeight`s, `QuantizedTensor`s or `Fp8Tensor`s: every linear goes
+through `ops.matmul.linear`, an MLP block over two `Int8Weight`s through the
+`int8w_mlp` kernel (any other pair through two linears), and unmasked
+attention at Skv >= 1024 through the `dense_attention` kernel. The
+embedding table may be quantized too; it is dequantized where it is read. A caller that owns attention (the
 paged serving step) passes `attend_fn`.
 
 Not ported yet: the cached-KV, quantized-KV and calibration-tap arguments of

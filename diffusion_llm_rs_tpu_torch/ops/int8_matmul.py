@@ -59,6 +59,13 @@ class MatmulWeight:
     def ndim(self):
         return 2
 
+    def to(self, device) -> "MatmulWeight":
+        return dataclasses.replace(
+            self, data=self.data.to(device), scale=self.scale.to(device),
+            zero_point=self.zero_point.to(device),
+            col_scale=(None if self.col_scale is None
+                       else self.col_scale.to(device)))
+
     def levels(self) -> torch.Tensor:
         """Unsigned levels [K, N] in natural K order."""
         mask = (1 << self.bits) - 1

@@ -1,10 +1,14 @@
-"""Linear-layer dispatch over plain and decoded-int8 weights.
+"""Linear-layer dispatch over plain, packed and decoded-int8 weights.
 
 Counterpart of `diffusion_llm_rs_tpu/ops/matmul.py` (`Int8Weight`,
-`decode_to_int8`, `int8_linear`, `int8_mlp`, `linear`). `linear(x, w, b)` is
-the entry point the models use: `w` is a plain tensor (f32/bf16 matmul with
-f32 accumulation) or an `Int8Weight` (the W4A8 "decoded" path through the
-`int8w_matmul` kernel).
+`decode_to_int8`, `int8_linear`, `int8_mlp`, `quantized_matmul`, `linear`).
+`linear(x, w, b)` is the entry point the models use; `w` is
+  - a plain tensor: f32/bf16 matmul with f32 accumulation,
+  - an `Int8Weight`: the W4A8 "decoded" path through the `int8w_matmul` kernel,
+  - a `MatmulWeight`: the packed layout through the `packed_matmul.matmul`
+    kernel (bias and gelu in its epilogue, the residual added after it),
+  - a `QuantizedTensor`: dequantized, then a plain matmul,
+  - an `Fp8Tensor`: upcast in the matmul, scaled after it.
 
 The JAX package quantizes activations from f32 on its non-TPU fallback but
 from bf16 inside its TPU kernel; this port always follows the kernel.
@@ -24,7 +28,12 @@ from diffusion_llm_rs_tpu_torch.ops.int8_matmul import (
     int8w_mlp,
     prepare,
 )
-from diffusion_llm_rs_tpu_torch.quant.core import QuantizedTensor, true_div
+from diffusion_llm_rs_tpu_torch.ops import packed_matmul
+from diffusion_llm_rs_tpu_torch.quant.core import (
+    Fp8Tensor,
+    QuantizedTensor,
+    true_div,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,15 +73,8 @@ def decode_to_int8(w) -> Int8Weight:
             col_scale=torch.clamp_min(true_div(
                 w.dequantize(torch.float32).abs().amax(dim=0, keepdim=True),
                 127.0), 1e-12))
-    lv = w.levels().to(torch.float32)                         # [K, N]
-    G = w.K // w.scale.shape[0]
-    lv = lv.reshape(-1, G, w.N)
-    inv_cs = 1.0 / w.col_scale
-    val = (lv - w.zero_point[:, None, :]) * (w.scale[:, None, :] *
-                                             inv_cs[:, None, :])
-    data = (torch.round(val).clamp(-127.0, 127.0)
-            .to(torch.int32).to(torch.int8).reshape(w.K, w.N))
-    return Int8Weight(data=data.contiguous(), col_scale=w.col_scale.contiguous())
+    return Int8Weight(data=packed_matmul.regrid_int8(w).contiguous(),
+                      col_scale=w.col_scale.contiguous())
 
 
 def int8_linear(x: torch.Tensor, w: Int8Weight,
@@ -95,6 +97,20 @@ def int8_mlp(x: torch.Tensor, w1: Int8Weight, b1: torch.Tensor,
                      residual=residual, out_dtype=out_dtype or x.dtype)
 
 
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with f32 accumulation, as the JAX package's dot."""
+    return x.to(torch.float32) @ w.to(torch.float32)
+
+
+def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
+                     preferred_dtype=torch.float32) -> torch.Tensor:
+    """x @ dequant(qt) for a 2-D weight [K, N]: dequantized to x's dtype,
+    then a plain matmul (no kernel of the JAX package takes this layout)."""
+    if qt.ndim != 2:
+        raise ValueError(f"quantized_matmul expects 2-D weights, got {qt.shape}")
+    return _dot(x, qt.dequantize(x.dtype)).to(preferred_dtype)
+
+
 def linear(
     x: torch.Tensor,
     w,
@@ -106,17 +122,27 @@ def linear(
 ) -> torch.Tensor:
     """Dense layer y = act(x @ w + b) (+ residual).
 
-    `w` is a plain tensor or an `Int8Weight`; `activation` is "gelu" or None.
+    `w` is a plain tensor, an `Int8Weight`, a `MatmulWeight`, a
+    `QuantizedTensor` or an `Fp8Tensor`; `activation` is "gelu" or None.
     """
     out_dtype = preferred_dtype or x.dtype
     if activation not in (None, "gelu"):
         raise ValueError(f"unknown activation {activation!r}")
     if isinstance(w, Int8Weight):
         return int8_linear(x, w, b, activation, residual, out_dtype)
-    if not isinstance(w, torch.Tensor):
+    if isinstance(w, MatmulWeight):
+        # the kernel rounds once to out_dtype; the residual is added to that
+        y = packed_matmul.matmul(x, w, out_dtype=out_dtype, bias=b,
+                                 activation=activation)
+        return y if residual is None else y + residual.to(y.dtype)
+    if isinstance(w, QuantizedTensor):
+        y = quantized_matmul(x, w).to(out_dtype)
+    elif isinstance(w, Fp8Tensor):
+        y = (_dot(x, w.data.to(x.dtype)) * w.scale).to(out_dtype)
+    elif isinstance(w, torch.Tensor):
+        y = _dot(x, w.to(x.dtype)).to(out_dtype)
+    else:
         raise TypeError(f"linear: unsupported weight type {type(w).__name__}")
-    # x @ w.astype(x.dtype) with f32 accumulation, as the JAX package's dot
-    y = (x.to(torch.float32) @ w.to(x.dtype).to(torch.float32)).to(out_dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     if activation == "gelu":

@@ -9,12 +9,14 @@ zero-points match it bit for bit. Scheme:
 Sub-byte widths are bit-packed little-endian into a uint8 carrier along the
 last axis. Scales and zero-points are float32 tensors at per-tensor,
 per-channel or per-group granularity. `torch.round`, like `jnp.round`,
-rounds half to even. FP8 storage is not ported yet.
+rounds half to even. `Fp8Tensor` / `quantize_fp8` store float8_e4m3fn with
+a per-tensor scale; the bytes equal the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Literal, Optional, Sequence, Tuple
 
 import torch
@@ -96,6 +98,15 @@ class QuantizedTensor:
     @property
     def ndim(self) -> int:
         return len(self.shape)
+
+    def num_elements(self) -> int:
+        return math.prod(self.shape) if self.shape else 1
+
+    def packed_nbytes(self) -> int:
+        return (self.num_elements() * self.bits + 7) // 8
+
+    def sidecar_nbytes(self) -> int:
+        return max(self.scale.numel(), 1) * 4 * 2
 
     def to(self, device) -> "QuantizedTensor":
         return dataclasses.replace(self, data=self.data.to(device),
@@ -214,6 +225,69 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     return out.to(dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class Fp8Tensor:
+    """Per-tensor-scaled float8_e4m3fn storage."""
+
+    data: torch.Tensor   # float8_e4m3fn
+    scale: torch.Tensor  # f32 scalar
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+    def to(self, device) -> "Fp8Tensor":
+        return Fp8Tensor(self.data.to(device), self.scale.to(device))
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        return self.data.to(dtype) * self.scale.to(dtype)
+
+
+FP8_MAX = 448.0  # float8_e4m3fn finite max
+
+
+def quantize_fp8(x: torch.Tensor) -> Fp8Tensor:
+    """x -> float8_e4m3fn(x / scale), scale = max|x| / 448 (1.0 where 0). The
+    quotient is rounded once, from f32, half to even."""
+    x = torch.as_tensor(x).to(torch.float32)
+    amax = x.abs().amax()
+    scale = torch.where(amax > 0, true_div(amax, FP8_MAX), 1.0).to(torch.float32)
+    return Fp8Tensor(data=(x / scale).to(torch.float8_e4m3fn), scale=scale)
+
+
+def map_leaves(fn, tree, path=()):
+    """Apply fn(path, leaf) to every leaf of a nested dict/list; a quantized
+    leaf (a dataclass) is one leaf, and `path` is its tuple of keys."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_leaves(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list in the JAX package's flatten order:
+    dict keys sorted, lists in order, None skipped; a quantized leaf is one
+    leaf."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [l for v in tree for l in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def dequantize_tree(params, dtype=torch.float32):
+    """Every quantized leaf (QuantizedTensor, Fp8Tensor, MatmulWeight,
+    Int8Weight: any non-tensor with `dequantize`) back to a plain tensor."""
+    def _d(_, leaf):
+        if not isinstance(leaf, torch.Tensor) and hasattr(leaf, "dequantize"):
+            return leaf.dequantize(dtype)
+        return leaf
+    return map_leaves(_d, params)
+
+
 def quantize_tree(params, bits: int, *, min_size: int = 1024,
                   symmetric: bool = False, granularity: Granularity = "group",
                   group_size: int = 128, axis: int = 0,
@@ -228,11 +302,6 @@ def quantize_tree(params, bits: int, *, min_size: int = 1024,
     """
 
     def _q(path, leaf):
-        if isinstance(leaf, dict):
-            return {k: _q(path + (str(k),), v) for k, v in leaf.items()}
-        if isinstance(leaf, (list, tuple)):
-            return type(leaf)(_q(path + (str(i),), v)
-                              for i, v in enumerate(leaf))
         if not isinstance(leaf, torch.Tensor):
             return leaf  # already quantized, or not an array
         if any(e in "/".join(path) for e in exclude):
@@ -246,4 +315,4 @@ def quantize_tree(params, bits: int, *, min_size: int = 1024,
         return quantize(leaf, bits, symmetric=symmetric, granularity=granularity,
                         group_size=group_size, axis=axis)
 
-    return _q((), params)
+    return map_leaves(_q, params)

@@ -194,3 +194,113 @@ def test_paged_kernels_refuse_what_they_do_not_take(gen):
         pa.batched_paged_attention(q[..., :32], pt, pt, npg, *pools, bits=4)
     with pytest.raises(ValueError, match="empty page table"):
         pa.paged_attention(q[0], pt[0, :0], *pools, bits=4)
+
+
+# ------------------------------------------------ packed-weight matmul ---
+
+def _packed_weight(K, N, bits, gran, act_bits, gen, group=128):
+    from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
+    from diffusion_llm_rs_tpu_torch.quant.core import quantize
+    w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+    if gran == "group":
+        qt = quantize(w, bits, symmetric=True, granularity="group",
+                      group_size=group, axis=0)
+    elif gran == "channel":
+        qt = quantize(w, bits, granularity="channel", axis=1)
+    else:
+        qt = quantize(w, bits, granularity="tensor")
+    return pm.prepare(qt, act_bits=act_bits)
+
+
+PACKED_SHAPES = [
+    # (M, K, N, bits, granularity, group, bias, gelu)
+    (2048, 768, 2304, 4, "group", 128, False, False),
+    (2048, 768, 768, 4, "group", 128, False, False),
+    (2048, 768, 3072, 4, "group", 128, True, True),
+    (2048, 3072, 768, 4, "group", 128, True, False),
+    (8, 768, 3072, 4, "group", 128, True, True),
+    (256, 768, 2304, 4, "group", 128, False, False),
+    (5, 768, 768, 4, "group", 128, True, False),
+    (130, 768, 768, 1, "group", 128, True, False),
+    (130, 768, 768, 2, "group", 128, False, True),
+    (130, 768, 768, 8, "group", 128, True, False),
+    (130, 768, 2304, 4, "channel", 0, True, False),
+    (37, 256, 1024, 4, "tensor", 0, False, False),
+    (37, 512, 132, 2, "group", 32, True, False),   # ragged N, groups inside a step
+    (1, 128, 4, 4, "group", 64, False, False),
+    (9, 192, 8, 2, "group", 6, True, False),    # groups end inside a B-tile word
+    (9, 96, 8, 4, "group", 6, False, True),
+]
+
+
+@pytest.mark.parametrize("M,K,N,bits,gran,group,bias,gelu", PACKED_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_packed_matmul_kernel_matches_plain(gen, M, K, N, bits, gran, group,
+                                            bias, gelu, out_dtype):
+    """act_bits=16: the same bf16 operands on both sides, products summed in
+    f32 in another order (K <= 3072 terms): |d| <= 2e-5 + 2e-5 |ref| in f32,
+    one bf16 ulp more in bf16."""
+    from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
+    w = _packed_weight(K, N, bits, gran, 16, gen, group)
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    b = torch.randn((N,), generator=gen, device="cuda") * 0.02 if bias else None
+    act = "gelu" if gelu else None
+    _build.reset_launch_counts()
+    out = pm.matmul(x, w, out_dtype, b, act)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["matmul"] == 1
+    ref = pm.matmul_plain(x, w, b, act, out_dtype)
+    rtol = 2e-5 if out_dtype == torch.float32 else 2.0 ** -7
+    assert out.dtype == out_dtype and out.shape == (M, N)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=2e-5)
+
+
+@pytest.mark.parametrize("M,K,N,bits,gran,group,bias,gelu", PACKED_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_packed_matmul_a8_kernel_matches_plain(gen, M, K, N, bits, gran,
+                                               group, bias, gelu, x_dtype):
+    """act_bits=8: integer products are exact and the epilogue runs the same
+    f32 operations: bit for bit without gelu, one bf16 ulp with it. Without
+    gelu and bias the kernel also equals `int8w_matmul` on the decoded
+    weight, from bf16 activations."""
+    from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
+    from diffusion_llm_rs_tpu_torch.ops.matmul import decode_to_int8
+    if (K * bits // 8) % 16:
+        pytest.skip("act_bits=8 takes K * bits / 8 in multiples of 16")
+    w = _packed_weight(K, N, bits, gran, 8, gen, group)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
+    b = torch.randn((N,), generator=gen, device="cuda") * 0.02 if bias else None
+    act = "gelu" if gelu else None
+    _build.reset_launch_counts()
+    out = pm.matmul(x, w, torch.bfloat16, b, act)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["matmul_a8"] == 1
+    ref = pm.a8_matmul_reference(x, w, b, act, torch.bfloat16)
+    if gelu:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                                   atol=1e-6)
+        return
+    assert torch.equal(out, ref)
+    if x_dtype == torch.bfloat16:
+        d = decode_to_int8(w)
+        assert torch.equal(pm.regrid_int8(w), d.data)
+        assert torch.equal(out, im.int8w_matmul(x, d.data, d.col_scale, b,
+                                                None, None, torch.bfloat16))
+
+
+def test_packed_matmul_refuses_what_the_kernel_does_not_take(gen):
+    from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
+    w = _packed_weight(24, 8, 4, "tensor", 16, gen)   # Kp = 12
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pm.matmul(torch.zeros((2, 24), device="cuda"), w)
+    w = _packed_weight(128, 8, 4, "tensor", 16, gen)
+    with pytest.raises(ValueError, match="contraction mismatch"):
+        pm.matmul(torch.zeros((2, 64), device="cuda"), w)
+
+
+def test_quantize_fp8_card_equals_cpu(gen):
+    from diffusion_llm_rs_tpu_torch.quant.core import quantize_fp8
+    x = torch.randn((300, 257), generator=gen, device="cuda") * 3
+    a, b = quantize_fp8(x), quantize_fp8(x.cpu())
+    assert torch.equal(a.data.view(torch.uint8).cpu(), b.data.view(torch.uint8))
+    assert torch.equal(a.scale.cpu(), b.scale)

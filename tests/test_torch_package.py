@@ -39,7 +39,35 @@ def test_port_imports_no_jax(path):
 def test_port_sources_are_walked():
     names = {p.name for p in PORT_SOURCES}
     assert {"int8_matmul.py", "attention.py", "denoiser.py", "diffusion.py",
-            "core.py", "config.py", "weights.py", "chip_smoke.py"} <= names
+            "core.py", "config.py", "weights.py", "chip_smoke.py",
+            "packed_matmul.py", "matmul.py", "engine.py", "serialization.py",
+            "bpe.py", "kv_cache.py", "serving.py"} <= names
+
+
+def test_new_modules_import_without_jax_loaded():
+    """The engine and everything under it import in a process where
+    neither JAX nor the JAX package can be imported at all."""
+    import subprocess
+    import sys
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', "
+        "'diffusion_llm_rs_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import diffusion_llm_rs_tpu_torch.engine as e\n"
+        "import diffusion_llm_rs_tpu_torch.ops.packed_matmul\n"
+        "import diffusion_llm_rs_tpu_torch.utils.serialization\n"
+        "import diffusion_llm_rs_tpu_torch.tokenizer.bpe\n"
+        "import diffusion_llm_rs_tpu_torch.cache.kv_cache\n"
+        "eng = e.Engine.from_pretrained(device='cpu')\n"
+        "print(repr(eng.generate('the quick', max_length=2)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().startswith("'")
 
 
 @pytest.mark.parametrize("cfg_kw", [
