@@ -11,7 +11,8 @@ Phases (any failure makes the script exit non-zero without the final line):
                 shapes of the paths below, with the tolerance stated; times
                 of the kernel, the twin, one library call used only as a
                 yardstick, and the least time the card could take (bound).
-                Also quantize_page on the card against the CPU, bit for bit.
+                Also quantize_page and quantize_kv on the card against the
+                CPU, bit for bit.
   4. sampler  - the W4A8 sampler at full width (12 layers, 768 wide, 12 heads,
                 vocab 50257; random weights from a seed, quantized in the
                 port): B=8, S=256, 32 steps, bf16 activations, timed 5 times
@@ -23,7 +24,16 @@ Phases (any failure makes the script exit non-zero without the final line):
                 plain twins on the CPU.
   5. long S   - 2 steps at B=2, S=1024, where attention runs through the
                 dense_attention kernel (12 launches per forward).
-  6. profile  - torch.profiler over one forward at B=8, S=256: device time
+  6. scan     - the phase-aware cached sampler (`phase_aware_sample`) on the
+                same W4A8 model: scan_sampler (B=8, S=256, 32 steps over the
+                default 8 -> 4 -> 2 bit schedule, the packed KV carry read by
+                the quant_attention kernel: timed 5 times, host CPU time, peak
+                memory, busy share of an 8-step run, exact launch counts, 12
+                quant_attention a step after the bootstrap; 2 steps at B=2,
+                S=1024; 4 steps with the dequantized carry) and scan_check (3
+                steps across both segment boundaries on the card against the
+                plain versions on the CPU from the same draws).
+     profile  - torch.profiler over one forward at B=8, S=256: device time
                 by kernel and the device-busy share.
   7. cache    - PagedKVCache.attend over a salience-allocated chain of 16
                 pages at three widths: one paged_attention launch per width,
@@ -38,7 +48,11 @@ Phases (any failure makes the script exit non-zero without the final line):
                 on the host), peak memory, the device-busy share of one
                 fused chunk of 8 steps and its launch counts; and
                 serve_check (one step at S=512 on the card against the twins
-                on the CPU from the same noise).
+                on the CPU from the same noise); serve_paged_a8 (serve_paged
+                with attn_act_bits=8: the int8 paged kernel, 12 launches a
+                step and none of the bf16 kernel, one step against the CPU,
+                and a chunk over 8-, 2- and 1-bit buckets, where only the
+                1-bit bucket may show the bf16 kernel).
   9. engine   - the `Engine` facade over packed weights, on a second model of
                 the same full width built by `Engine(config=...)` from a seed
                 and packed by `quantize_weights(4)`: engine_packed (bf16
@@ -46,7 +60,9 @@ Phases (any failure makes the script exit non-zero without the final line):
                 steps through the paged batcher, timed, with peak memory and
                 the device-busy share of a chunk; 4 steps in paged mode; a
                 greedy `generate`; one `denoising_perplexity`; exact launch
-                counts, 51 a forward), engine_packed_a8 (the same with
+                counts, 51 a forward; `sample(use_paged=False)` and
+                `sample(seq_len=100)`, which no page divides, through the
+                scan sampler), engine_packed_a8 (the same with
                 `weight_quant.act_bits=8`, the `matmul_a8` kernel),
                 engine_anchor (`Engine.from_pretrained()` on the shipped
                 trained checkpoint: fp32 `generate` on the card equal to the
@@ -309,6 +325,7 @@ def kernels():
     if not ok:
         bad.append("dense_attention")
     _paged_kernels(gen, results, bad)
+    _quant_attention_kernels(gen, results, bad)
     _packed_kernels(gen, results, bad)
     # the library yardsticks leave a cuBLAS workspace behind for every side
     # stream they were captured on: return them, or they count in the peak
@@ -363,13 +380,14 @@ def _dequant_sdpa(q, pt, pools, bits, G):
         q.to(torch.bfloat16), deq(kd, ks, kz), deq(vd, vs, vz))
 
 
-def _paged_bound(B, H, Sq, D, P, bits, pages, tokens):
+def _paged_bound(B, H, Sq, D, P, bits, pages, tokens, peak=PEAK_BF16_FLOPS):
     """Bytes: the packed K/V and the four f32 sidecars of the pages read, q
     (bf16), out and lse (f32); operations: 4 per (query, key, channel) over
-    the valid keys of each slot."""
+    the valid keys of each slot, at the bf16 rate or, for the int8 path, the
+    int8 rate."""
     nbytes = (pages * (2 * H * (P // (8 // bits)) * D + 4 * H * P * 4)
               + B * H * Sq * D * (2 + 4) + B * H * Sq * 4)
-    return bound(nbytes, 4 * H * Sq * D * tokens, PEAK_BF16_FLOPS)
+    return bound(nbytes, 4 * H * Sq * D * tokens, peak)
 
 
 def _paged_compare(out, lse, ref, ref_lse):
@@ -459,6 +477,50 @@ def _paged_kernels(gen, results, bad):
                f"({row['bound_by']})" if "ms" in row else ""))
         if not ok:
             bad.append(f"batched_paged_attention {label}")
+        if bits == 1:  # 1-bit pages keep the bf16 kernel under act_bits=8
+            continue
+        # the int8 path on the same pools and tables. Both integer dots are
+        # exact, so against its plain version only expf's last bit moves an
+        # int8 level of the folded weights now and then: rel Frobenius <=
+        # 5e-3, |lse| <= 1e-3. Against the bf16 kernel: the JAX package's
+        # own a8-vs-exact bounds, 3.5e-2 and 2e-2 on the lse.
+        out8, lse8 = pa.batched_paged_attention(
+            *args, bits=bits, return_lse=True, head_group=G, act_bits=8)
+        ref8, ref_lse8 = pa.batched_paged_attention_a8_plain(
+            *args, bits=bits, return_lse=True, head_group=G)
+        live = [i for i, k in enumerate(npages) if k]
+        rel8 = float((out8 - ref8).norm() / ref8.norm())
+        lse_err8 = float((lse8 - ref_lse8).abs().max())
+        rel16 = float((out8 - out).norm() / out.norm())
+        lse16 = float((lse8[live] - lse[live]).abs().max())
+        ok8 = (rel8 <= 5e-3 and lse_err8 <= 1e-3 and rel16 <= 3.5e-2
+               and lse16 <= 2e-2 and bool(torch.isfinite(out8).all()))
+        for slot in (i for i, k in enumerate(npages) if k == 0):
+            ok8 = ok8 and bool((out8[slot] == 0).all()) and \
+                bool((lse8[slot] == pa.NEG_INF).all())
+        row8 = dict(shape=row["shape"], max_abs_err=float(
+            (out8 - ref8).abs().max()), rel_err=rel8, lse_err=lse_err8,
+            rel_to_bf16_kernel=rel16, lse_to_bf16_kernel=lse16,
+            tolerance="rel Frobenius <= 5e-3, |lse| <= 1e-3; of the bf16 "
+            "kernel <= 3.5e-2, |lse| <= 2e-2")
+        if timed:
+            row8["ms"] = time_ms(lambda: pa.batched_paged_attention(
+                *args, bits=bits, head_group=G, act_bits=8))
+            row8["plain_ms"] = time_ms(
+                lambda: pa.batched_paged_attention_a8_plain(
+                    *args, bits=bits, head_group=G), 3)
+            row8["library_ms"] = row["library_ms"]
+            row8["bound_ms"], row8["bound_by"] = _paged_bound(
+                B, H, sq, D, P, bits, B * n, B * n * P, PEAK_INT8_OPS)
+        results["batched_paged_attention_a8"].append(row8)
+        log(f"  batched_paged_attention_a8 {label}: rel {rel8:.3g} lse "
+            f"{lse_err8:.3g}; of the bf16 kernel rel {rel16:.3g} lse "
+            f"{lse16:.3g} {'ok' if ok8 else 'MISMATCH'}"
+            + (f"; {row8['ms']:.4f} ms, plain {row8['plain_ms']:.4f}, library "
+               f"{row8['library_ms']:.4f}, bound {row8['bound_ms']:.4f} "
+               f"({row8['bound_by']})" if "ms" in row8 else ""))
+        if not ok8:
+            bad.append(f"batched_paged_attention_a8 {label}")
 
     # paged_attention (one sequence): BH=12, Sq=1024, 8 pages of 128, 4 bits;
     # the timed case full, the checked one with a partial last page
@@ -495,6 +557,78 @@ def _paged_kernels(gen, results, bad):
                f"({row['bound_by']})" if "ms" in row else ""))
         if not ok:
             bad.append(f"paged_attention {label}")
+
+
+def _quant_attention_kernels(gen, results, bad):
+    """`attention` over `QuantKV` against `attention_plain` at the kernel's
+    KV tile, at the scan sampler's shapes: BH=96 (B=8 x 12 heads), Sq=Skv=256
+    at 4, 8 and 2 bits; BH=24, S=1024 (the long-sequence run) at 4 bits; and
+    a ragged Sq=Skv=100 (`Engine.sample(seq_len=100)`). Sums in another order
+    and CUDA's expf, which can move a bf16 rounding of p * vs: rel Frobenius
+    <= 2e-3. Library yardstick: K and V dequantized to bf16, then
+    scaled_dot_product_attention. Also quantize_kv on the card against the
+    CPU, bit for bit, with the IEEE division and with the reciprocal."""
+    from diffusion_llm_rs_tpu_torch.ops import attention as qa
+
+    for bits in (1, 2, 4, 8):
+        x = torch.randn((24, 100, 64), generator=gen, device="cuda") * \
+            torch.rand((24, 100, 1), generator=gen, device="cuda") * 10
+        same = True
+        for recip in (False, True):
+            dev, cpu = qa.quantize_kv(x, bits, recip), \
+                qa.quantize_kv(x.cpu(), bits, recip)
+            same = same and all(torch.equal(a.cpu(), b) for a, b in (
+                (dev.data, cpu.data), (dev.scale, cpu.scale),
+                (dev.zero_point, cpu.zero_point)))
+        log(f"  quantize_kv {bits}-bit card vs CPU: "
+            f"{'bit for bit' if same else 'MISMATCH'}")
+        if not same:
+            bad.append(f"quantize_kv {bits}-bit")
+
+    tol = "rel Frobenius <= 2e-3"
+    D = 64
+    for label, BH, Sq, Skv, bits, timed in (
+            ("scan_sampler shape 4-bit", 96, 256, 256, 4, True),
+            ("8-bit", 96, 256, 256, 8, True),
+            ("2-bit", 96, 256, 256, 2, True),
+            ("S=1024 4-bit", 24, 1024, 1024, 4, True),
+            ("ragged 4-bit", 96, 100, 100, 4, False),
+            ("ragged 1-bit", 16, 100, 100, 1, False)):
+        q = torch.randn((BH, Sq, D), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k = qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen,
+                                       device="cuda"), bits)
+        v = qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen,
+                                       device="cuda"), bits)
+        out = qa.attention(q, k, v)
+        ref = qa.attention_plain(q, k, v, tile=qa.KERNEL_KV_TILE)
+        err, rel, _ = _compare(out, ref, 0.0, 0.0)
+        ok = rel <= 2e-3 and bool(torch.isfinite(out).all())
+        row = dict(shape=f"{label}: BH={BH} Sq={Sq} Skv={Skv} D={D} "
+                   f"{bits}-bit", max_abs_err=err, rel_err=rel, tolerance=tol)
+        if timed:
+            row["ms"] = time_ms(lambda: qa.attention(q, k, v))
+            row["plain_ms"] = time_ms(lambda: qa.attention_plain(
+                q, k, v, tile=qa.KERNEL_KV_TILE), 5)
+
+            def lib():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q[None], k.dequantize(torch.bfloat16)[None],
+                    v.dequantize(torch.bfloat16)[None])
+            row["library_ms"] = time_ms(lib)
+            # q bf16, packed K and V, four f32 sidecars, f32 out
+            nbytes = (BH * Sq * D * 2 + 2 * BH * Skv * (D * bits // 8)
+                      + 4 * BH * Skv * 4 + BH * Sq * D * 4)
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes, 4 * BH * Sq * Skv * D, PEAK_BF16_FLOPS)
+        results["quant_attention"].append(row)
+        log(f"  quant_attention {label}: max_abs_err {err:.3g} rel {rel:.3g} "
+            f"({tol}) {'ok' if ok else 'MISMATCH'}"
+            + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
+               f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+               f"({row['bound_by']})" if timed else ""))
+        if not ok:
+            bad.append(f"quant_attention {label}")
 
 
 def _packed_weight(K, N, bits, gran, act_bits, gen):
@@ -873,6 +1007,169 @@ def _device_time(fn, reps):
     return wall_ms, sum(r[0] for r in rows) / 1e3, rows
 
 
+def _bf16_forward(eps_log=None):
+    """`forward_fn` of the scan sampler with bf16 activations, as the other
+    paths run this model: x cast to bf16, eps back to f32."""
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+
+    def fwd(params, cfg, x, t, **kw):
+        out = dn.denoiser_forward(params, cfg, x.to(torch.bfloat16), t, **kw)
+        eps, rest = (out[0], out[1:]) if isinstance(out, tuple) else (out, ())
+        if eps_log is not None:
+            eps_log.append(eps.float().cpu())
+        eps = eps.to(torch.float32)
+        return (eps,) + tuple(rest) if rest else eps
+    return fwd
+
+
+def scan_sampler():
+    """`phase_aware_sample` on the W4A8 model, B=8, S=256, 32 steps over the
+    default phase schedule (8 bits for t > 16, 4 at t = 16, then 2), the
+    packed `QuantKV` carry read by the quant_attention kernel: 5 timed runs,
+    exact launch counts (per step 27 int8w_matmul and 12 int8w_mlp; 12
+    quant_attention after the bootstrap step, which has no cache); the busy
+    share of an 8-step run; then 2 steps at B=2, S=1024 (bootstrap through
+    dense_attention, one cached step through quant_attention) and 4 steps at
+    S=256 with the dequantized carry (no quant_attention launch)."""
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+    from diffusion_llm_rs_tpu_torch.models.diffusion import DiffusionSchedule
+    from diffusion_llm_rs_tpu_torch.models.sampler import (phase_aware_sample,
+                                                           plan_segments)
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    from diffusion_llm_rs_tpu_torch.serving import GeneratorNoise
+
+    cfg, params = MODEL["cfg"], MODEL["params"]
+    schedule = DiffusionSchedule.create(cfg.num_timesteps, device="cuda")
+    noise = GeneratorNoise(61, "cuda")
+    fwd = _bf16_forward()
+    B, S, steps, L = 8, 256, 32, cfg.num_layers
+    segments = plan_segments(steps, cfg)
+    if [b for b, _, _ in segments] != [8, 4, 2]:
+        raise AssertionError(f"segments {segments}")
+
+    def run(shape, n, **kw):
+        return phase_aware_sample(params, cfg, schedule, shape, noise, n,
+                                  forward_fn=fwd, **kw)
+
+    run((B, S), 2)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    expect = dict(_expected_launches(cfg, steps, long_seq=False),
+                  quant_attention=L * (steps - 1), dense_attention=0)
+    walls, cpus = [], []
+    for _ in range(REPEATS):
+        _build.reset_launch_counts()
+        t0, c0 = time.perf_counter(), time.process_time()
+        x = run((B, S), steps)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        cpus.append(time.process_time() - c0)
+        counts = dict(_build.launch_counts)
+        _expect("scan_sampler", counts, expect)
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError("scan sampler output is not finite")
+    tokens = dn.decode_tokens(params, x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(tokens.shape) != (B, S) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"token ids out of range: {tuple(tokens.shape)}")
+    walls.sort()
+    wall, cpu = walls[len(walls) // 2], statistics.median(cpus)
+    log(f"  segments {segments}; launches per run {counts}")
+    log(f"  phase_aware_sample B={B} S={S} steps={steps}, {REPEATS} runs: "
+        f"median {wall:.4f} s (min {walls[0]:.4f}, max {walls[-1]:.4f}), "
+        f"{B * S / wall:.1f} generated tokens/s, peak memory "
+        f"{peak / 2**20:.1f} MiB; host CPU time per step "
+        f"{cpu / steps * 1e3:.2f} ms")
+
+    # busy share: an 8-step run by the wall clock, then under the profiler
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run((B, S), 8)
+    torch.cuda.synchronize()
+    wall8 = (time.perf_counter() - t0) * 1e3
+    _, busy_ms, rows = _device_time(lambda: run((B, S), 8), 1)
+    share = busy_ms / wall8 if rows else None
+    log(f"  8 steps: wall {wall8:.2f} ms, kernels {busy_ms:.2f} ms "
+        f"({'not measured' if share is None else f'{share:.1%} busy'})")
+    for us, n, key in rows[:8]:
+        log(f"  {us / 1e3:8.4f} ms  x{n:<4d} {key[:90]}")
+
+    _build.reset_launch_counts()
+    x = run((2, 1024), 2)
+    torch.cuda.synchronize()
+    long_counts = dict(_build.launch_counts)
+    _expect("scan_sampler S=1024", long_counts, dict(
+        _expected_launches(cfg, 2, long_seq=False), quant_attention=L,
+        dense_attention=L))
+    _build.reset_launch_counts()
+    xf = run((B, S), 4, kernel_cache=False)
+    torch.cuda.synchronize()
+    deq_counts = dict(_build.launch_counts)
+    _expect("scan_sampler kernel_cache=False", deq_counts, dict(
+        _expected_launches(cfg, 4, long_seq=False), quant_attention=0))
+    if not (bool(torch.isfinite(x).all()) and bool(torch.isfinite(xf).all())):
+        raise AssertionError("scan sampler output is not finite")
+    log(f"  2 steps at B=2 S=1024: launches {long_counts}; 4 steps with the "
+        f"dequantized carry: launches {deq_counts}")
+    return dict(counts=counts, runs=REPEATS, wall_s=wall, walls_s=walls,
+                cpu_s=cpu, tokens_per_s=B * S / wall, peak_bytes=peak,
+                step_wall_ms=wall8 / 8, step_device_ms=busy_ms / 8,
+                busy_share=share, long_counts=long_counts,
+                dequantized_counts=deq_counts,
+                top=[dict(ms=us / 1e3, calls=n, name=key[:120])
+                     for us, n, key in rows[:8]])
+
+
+def scan_check():
+    """3 steps of `phase_aware_sample` at B=2, S=256 (t = 2 at 8 bits, t = 1
+    at 4, t = 0 at 2: the carry is requantized at both segment boundaries) on
+    the card against the plain versions on the CPU from the same draws. eps
+    of each step within 3e-2 relative and x within 2e-2: beside the bf16
+    rounding points of the sampler's check, the carried K/V differ by a
+    quantization level here and there, and the CPU's plain attention steps
+    its softmax 256 tokens at a time where the kernel steps 64."""
+    from diffusion_llm_rs_tpu_torch.models.diffusion import DiffusionSchedule
+    from diffusion_llm_rs_tpu_torch.models.sampler import (phase_aware_sample,
+                                                           plan_segments)
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    from diffusion_llm_rs_tpu_torch.serving import GeneratorNoise
+
+    cfg = MODEL["cfg"]
+    if [b for b, _, _ in plan_segments(3, cfg)] != [8, 4, 2]:
+        raise AssertionError(f"segments {plan_segments(3, cfg)}")
+    rec = _Recorded(GeneratorNoise(67, "cuda"))
+    xs, eps = {}, {"cuda": [], "cpu": []}
+    for device in ("cuda", "cpu"):
+        params = MODEL["params"] if device == "cuda" else \
+            _to(MODEL["params"], "cpu")
+        noise = rec if device == "cuda" else _Replay(rec.draws)
+        schedule = DiffusionSchedule.create(cfg.num_timesteps, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        xs[device] = phase_aware_sample(
+            params, cfg, schedule, (2, 256), noise, 3,
+            forward_fn=_bf16_forward(eps[device])).cpu()
+        log(f"  3 steps on {device}: {time.perf_counter() - t0:.1f} s")
+        if device == "cuda":
+            counts = dict(_build.launch_counts)
+    _expect("scan_check", counts, {"quant_attention": 2 * cfg.num_layers})
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(eps["cuda"], eps["cpu"])):
+        rel = float((a - b).norm() / b.norm())
+        worst = max(worst, rel)
+        log(f"  step {i}: eps rel err card vs CPU {rel:.3g}")
+    rel_x = float((xs["cuda"] - xs["cpu"]).norm() / xs["cpu"].norm())
+    log(f"  x after 3 steps rel err {rel_x:.3g} (bound 2e-2); worst eps "
+        f"{worst:.3g} (bound 3e-2); launches {counts}")
+    if not (worst <= 3e-2 and rel_x <= 2e-2):
+        raise AssertionError("scan sampler disagrees with the plain versions")
+    return dict(x_rel_err=rel_x, eps_rel_err=worst, counts=counts)
+
+
 def profile():
     """Where one denoise step's device time goes (B=8, S=256): torch.profiler
     sums by kernel name, and the device-busy share of the step's wall time.
@@ -1065,6 +1362,56 @@ def serve_paged():
     return run
 
 
+def serve_paged_a8():
+    """serve_paged with attn_act_bits=8: every layer of every step attends
+    through the int8 paged kernel (12 launches a step, none of the bf16
+    kernel). Then one a8 step against the CPU, and a chunk of 4 steps at
+    S=512 whose slots walk 8 -> 2 -> 1 -> 1 bits: the 1-bit bucket, and only
+    it, keeps the bf16 kernel."""
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    from diffusion_llm_rs_tpu_torch.serving import PagedContinuousBatcher
+
+    cfg = _serve_cfg(prefill_bits=4, decode_bits=4,
+                     progressive_precision=False)
+    b = PagedContinuousBatcher(
+        MODEL["params"], cfg, num_slots=2, seq_len=4096, page_size=128,
+        attend_mode="auto", salience_routing=True, hbm_budget_bytes=2 << 30,
+        keep_embeddings=False, attn_act_bits=8, seed=41)
+    if b.attend_mode != "paged" or b.buckets != (4,):
+        raise AssertionError(f"mode {b.attend_mode}, buckets {b.buckets}")
+    _serve("serve_paged_a8 warm", b, [("warm", 4096, 8)])
+    run = _serve("serve_paged_a8", b, [(f"r{i}", 4096, 8) for i in range(4)])
+    L, steps = cfg.num_layers, run["steps"]
+    _expect("serve_paged_a8", run["counts"], {
+        "batched_paged_attention_a8": L * steps, "batched_paged_attention": 0,
+        "int8w_matmul": (3 + 2 * L) * steps, "int8w_mlp": L * steps})
+    run.update(_busy_share(b, 4096), pool_bytes=b.cache_memory_bytes())
+    del b
+    run["step_check"] = _step_vs_cpu(8, "batched_paged_attention_a8")
+
+    cfg = _serve_cfg(prefill_bits=8, decode_bits=2, min_decode_bits=1)
+    b = PagedContinuousBatcher(MODEL["params"], cfg, num_slots=2, seq_len=512,
+                               page_size=64, attend_mode="paged",
+                               keep_embeddings=False, attn_act_bits=8, seed=45)
+    chunks = []
+    pick = b._used_buckets_chunk
+    b._used_buckets_chunk = lambda *a: chunks.append(pick(*a)) or chunks[-1]
+    mixed = _serve("serve_paged_a8 mixed widths", b,
+                   [("m0", 512, 4), ("m1", 512, 4)])
+    del b._used_buckets_chunk
+    want16 = sum(L * 4 for u in chunks if 1 in u)
+    want8 = sum(L * 4 * len([w for w in u if w != 1]) for u in chunks)
+    log(f"  mixed widths: chunks {chunks}; launches {mixed['counts']}")
+    if len(chunks) != 1 or not {8, 2, 1} <= set(chunks[0]):
+        raise AssertionError(f"mixed widths: chunks {chunks}")
+    _expect("serve_paged_a8 mixed widths", mixed["counts"], {
+        "batched_paged_attention": want16,
+        "batched_paged_attention_a8": want8})
+    run["mixed_counts"] = mixed["counts"]
+    run["mixed_buckets"] = [list(u) for u in chunks]
+    return run
+
+
 def serve_phase():
     """The default phase schedule (8 bits, then 4 falling to 2: buckets 2,
     4 and 8) at S=2048 with pages of 64, the page Engine.sample picks; 8
@@ -1147,13 +1494,18 @@ class _Replay:
 
 
 def serve_check():
+    return _step_vs_cpu(16, "batched_paged_attention")
+
+
+def _step_vs_cpu(act_bits, kernel):
     """One serving step (max_chunk=1, paged, default phase config) at full
     width, S=512, 2 slots (the second 333 tokens: a partial page), pages of
     128, t=999 (8-bit prefill): kernels on the card against the twins on the
     CPU from the same noise. x within 2e-2 relative, and the step's update
     without its noise term (the eps part, beta_t / sqrt(1 - abar_t) /
     sqrt(alpha_t) * eps) within 2e-2, the sampler's eps bound: bf16 rounds
-    at other points on the two sides and can move an act-quant or KV level."""
+    at other points on the two sides and can move an act-quant or KV level.
+    With `act_bits` 8 the step attends through the int8 paged kernel."""
     from diffusion_llm_rs_tpu_torch.models.diffusion import DiffusionSchedule
     from diffusion_llm_rs_tpu_torch.ops import _build
     from diffusion_llm_rs_tpu_torch.serving import (GeneratorNoise,
@@ -1170,7 +1522,8 @@ def serve_check():
         b = PagedContinuousBatcher(params, cfg, num_slots=2, seq_len=512,
                                    page_size=128, max_chunk=1,
                                    attend_mode="paged", keep_embeddings=False,
-                                   device=device, noise=noise)
+                                   attn_act_bits=act_bits, device=device,
+                                   noise=noise)
         b.submit(Request("c0", 512, 1000))
         b.submit(Request("c1", 333, 1000))
         if device == "cuda":
@@ -1182,7 +1535,9 @@ def serve_check():
         log(f"  one step on {device}: {time.perf_counter() - t0:.1f} s")
         if device == "cuda":
             counts = dict(_build.launch_counts)
-    _expect("serve_check", counts, {"batched_paged_attention": 12})
+    _expect("serve_check", counts, {
+        name: 12 if name == kernel else 0 for name in (
+            "batched_paged_attention", "batched_paged_attention_a8")})
     sched = DiffusionSchedule.create(cfg.num_timesteps, device="cpu")
     t = 999
     base = (rec.draws[0] * torch.rsqrt(sched.alphas[t])
@@ -1292,6 +1647,31 @@ def _engine_packed(act_bits):
     if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
         raise AssertionError("paged mode: token ids out of range")
     log(f"  sample attend_mode=paged, 4 steps: launches {paged}")
+
+    # the scan sampler behind the facade: asked for, and taken because no
+    # page divides the length; f32 activations into the packed kernel, the
+    # packed KV carry into quant_attention (none in the bootstrap step)
+    scan = {}
+    for label, kw, n in (
+            ("use_paged=False", dict(batch_size=B, seq_len=S, use_paged=False),
+             8),
+            ("seq_len=100", dict(batch_size=2, seq_len=100), 4)):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens = eng.sample(num_steps=n, seed=6, return_text=False, **kw)
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t0
+        scan[label] = dict(_build.launch_counts)
+        _expect(f"sample({label})", scan[label], {
+            kernel: per_fwd * n, "quant_attention": L * (n - 1),
+            "batched_paged_attention": 0, "batched_paged_attention_a8": 0,
+            "int8w_matmul": 0})
+        if tuple(tokens.shape) != (kw["batch_size"], kw["seq_len"]) or \
+                int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+            raise AssertionError(f"sample({label}): token ids out of range")
+        log(f"  sample({label}), {n} steps: {scan_s:.3f} s, launches "
+            f"{scan[label]}")
+    out["scan_counts"] = scan
 
     # greedy generate: one forward (f32 activations, ragged M) per new token
     _build.reset_launch_counts()
@@ -1417,8 +1797,10 @@ def engine_check():
 # name: (source, TPU kernel it replaces, the path whose run `launches` reads:
 # the 32-step sampler for the GEMMs, the S=1024 run for dense attention,
 # which the sampler at S=256 does not reach, serve_paged for the batched
-# paged kernel, the PagedKVCache run for the single-sequence one, and the
-# engine's 32-step sample for the two packed-weight kernels)
+# paged kernel, the PagedKVCache run for the single-sequence one, the
+# engine's 32-step sample for the two packed-weight kernels, the 32-step scan
+# sampler for quantized-KV attention, and serve_paged with int8 attention
+# activations for the int8 paged kernel)
 KERNELS = {
     "int8w_matmul": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",
                      "diffusion_llm_rs_tpu/ops/pallas_matmul.py:322",
@@ -1435,6 +1817,13 @@ KERNELS = {
     "paged_attention": ("diffusion_llm_rs_tpu_torch/csrc/paged_attention.cu",
                         "diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:34",
                         "cache_attend"),
+    "quant_attention": ("diffusion_llm_rs_tpu_torch/csrc/quant_attention.cu",
+                        "diffusion_llm_rs_tpu/ops/pallas_attention.py:99",
+                        "scan_sampler"),
+    "batched_paged_attention_a8": (
+        "diffusion_llm_rs_tpu_torch/csrc/paged_attention_a8.cu",
+        "diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:520",
+        "serve_paged_a8"),
     "matmul": ("diffusion_llm_rs_tpu_torch/csrc/packed_gemm.cu",
                "diffusion_llm_rs_tpu/ops/pallas_matmul.py:203",
                "engine_packed"),
@@ -1454,8 +1843,9 @@ def main() -> int:
     measured = phase(kernels)
     runs = {"sampler": phase(sampler)}
     if runs["sampler"] is not None:
-        for fn in (long_seq, profile, cache_attend, serve_paged, serve_phase,
-                   serve_dense, serve_check):
+        for fn in (long_seq, scan_sampler, scan_check, profile, cache_attend,
+                   serve_paged, serve_paged_a8, serve_phase, serve_dense,
+                   serve_check):
             runs[fn.__name__] = phase(fn)
     MODEL.clear()  # the engine phases build their own models
     torch.cuda.empty_cache()

@@ -9,8 +9,8 @@ the JAX function bit for bit (packed bytes, scale, zero-point).
 The pools are tensors allocated once on the cache's device (the card by
 default) and written in place, where the JAX package rebuilds its arrays.
 Pages spill to a `MemoryManager`'s host tier and come back on demand.
-`gather_packed` hands pages to the quantized-KV attention of the phase-aware
-sampler, which is not ported yet; it raises NotImplementedError.
+`gather_packed` hands a uniform-width chain to the quantized-KV attention of
+the phase-aware sampler (`ops.attention.attention`) without requantizing.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from diffusion_llm_rs_tpu_torch.cache.salience import allocate_bits
+from diffusion_llm_rs_tpu_torch.ops.attention import QuantKV
 from diffusion_llm_rs_tpu_torch.ops.paged_attention import (
     batched_paged_attention, merge_partials, paged_attention, unpack_levels)
 from diffusion_llm_rs_tpu_torch.quant.core import true_div
@@ -198,10 +199,44 @@ class PagedKVCache:
             vs.append(vd[:, :h.tokens])
         return torch.cat(ks, dim=1), torch.cat(vs, dim=1)
 
-    def gather_packed(self, seq_id: str):
-        raise NotImplementedError(
-            "gather_packed: the quantized-KV layout it returns (QuantKV) is "
-            "not ported yet")
+    def gather_packed(self, seq_id: str) -> Tuple[QuantKV, QuantKV]:
+        """A sequence's K/V as contiguous D-packed `QuantKV`s for
+        `ops.attention.attention`: the pools' token-block-packed levels
+        repacked along D, exactly (nothing is requantized). Needs a
+        uniform-width chain whose pages before the last are full."""
+        handles = self._chain(seq_id)
+        bits = handles[0].bits
+        if any(h.bits != bits for h in handles):
+            raise ValueError("mixed-precision chain: use gather()")
+        # the flatten-and-slice below is dense only if every page before the
+        # last is full
+        if any(h.tokens != self.page_size for h in handles[:-1]):
+            raise ValueError("interior partial page: use gather()")
+        pool = self._pools[bits]
+        slots = torch.tensor([h.slot for h in handles], dtype=torch.int64,
+                             device=self.device)
+        vpb = 8 // bits
+        D = self.head_dim
+        total = sum(h.tokens for h in handles)
+
+        def repacked(arr):  # [n, BH, P/vpb, D] -> [BH, total, D/vpb]
+            lv = unpack_levels(arr.index_select(0, slots), bits)
+            lv = lv.transpose(0, 1).reshape(self.bh, -1, D)[:, :total]
+            Dp = D // vpb
+            acc = lv[..., 0:Dp]
+            for p in range(1, vpb):
+                acc = acc | (lv[..., p * Dp:(p + 1) * Dp] << (p * bits))
+            return acc.to(torch.uint8)
+
+        def side(arr):      # [n, BH, P] -> [BH, total]
+            return (arr.index_select(0, slots).transpose(0, 1)
+                    .reshape(self.bh, -1)[:, :total].contiguous())
+
+        qk = QuantKV(data=repacked(pool.k_data), scale=side(pool.k_scale),
+                     zero_point=side(pool.k_zp), bits=bits, D=D)
+        qv = QuantKV(data=repacked(pool.v_data), scale=side(pool.v_scale),
+                     zero_point=side(pool.v_zp), bits=bits, D=D)
+        return qk, qv
 
     def attend(self, seq_id: str, q: torch.Tensor,
                sm_scale: Optional[float] = None) -> torch.Tensor:

@@ -6,16 +6,17 @@ ported: construction (random or given parameters), `from_pretrained` (a
 checkpoint with its config and tokenizer), `quantize_weights` (1/2/4/8-bit
 integers, by default repacked into the `MatmulWeight` layout the packed
 matmul kernel reads; or fp8), greedy `generate` with its exact-prefix
-next-token memo, `sample` through `serving.PagedContinuousBatcher`,
-`denoising_perplexity`, the KV-cache manager's accounting, and the
-model-side keys of `stats`.
+next-token memo, `sample` through `serving.PagedContinuousBatcher` or, with
+`use_paged=False` and for sequence lengths no page size divides, through the
+phase-aware sampler over a carried quantized KV cache
+(`models.sampler.phase_aware_sample`), `denoising_perplexity`, the KV-cache
+manager's accounting, and the model-side keys of `stats`.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: `quantize_weights(method="gptq")` (A10); `sample(use_paged=False)` and
-sequence lengths no page size divides, which the JAX package hands to its
-scan sampler (A7); `prefill`, `process_model`, `tokenize_model`,
-`get_cached_vectors`, the attention-mask cache and the dedup / index /
-router keys of `stats` (A11). Only the ported subsystems are constructed.
+item: `quantize_weights(method="gptq")` (A10); `prefill`, `process_model`,
+`tokenize_model`, `get_cached_vectors`, the attention-mask cache and the
+dedup / index / router keys of `stats` (A11). Only the ported subsystems are
+constructed.
 
 Everything runs on `device`: the card unless the caller asks for the CPU.
 Where the JAX package draws from a PRNG key, this one draws from a seeded
@@ -36,6 +37,7 @@ from diffusion_llm_rs_tpu_torch.config import DiffusionConfig
 from diffusion_llm_rs_tpu_torch.models import denoiser as dn
 from diffusion_llm_rs_tpu_torch.models.diffusion import (DiffusionSchedule,
                                                          add_noise)
+from diffusion_llm_rs_tpu_torch.models.sampler import phase_aware_sample
 from diffusion_llm_rs_tpu_torch.ops.matmul import Int8Weight, MatmulWeight
 from diffusion_llm_rs_tpu_torch.ops.packed_matmul import prepare
 from diffusion_llm_rs_tpu_torch.quant.core import (Fp8Tensor, QuantizedTensor,
@@ -286,29 +288,37 @@ class Engine:
                return_text: bool = True, use_paged: bool = True,
                salience_routing: bool = False, attend_mode: str = "auto",
                noise=None):
-        """Phase-aware quantized reverse-diffusion sampling -> text, through
-        the paged serving batcher (`serving.PagedContinuousBatcher`: per-page
-        bit buckets, the batched paged kernel, optional salience routing).
+        """Phase-aware quantized reverse-diffusion sampling -> text.
+
+        use_paged (default): through the paged serving batcher
+        (`serving.PagedContinuousBatcher`: per-page bit buckets, the batched
+        paged kernel, optional salience routing). use_paged=False: the
+        phase-aware sampler over a carried quantized KV cache
+        (`phase_aware_sample`), one loop for a fixed batch; a `seq_len` that
+        no page of at most 64 tokens (a multiple of 8) divides takes it too.
 
         Returns the decoded strings, or with return_text=False the token ids
         [batch_size, seq_len] (int64, on the host). `noise` is a noise
-        source for the batcher (see `serving`); by default a generator
-        seeded with `seed` on the engine's device."""
+        source (see `serving`); by default a generator seeded with `seed` on
+        the engine's device."""
         from diffusion_llm_rs_tpu_torch.serving import (GeneratorNoise,
                                                         PagedContinuousBatcher,
                                                         Request)
-        if not use_paged:
-            raise _deferred("sample(use_paged=False), the scan sampler over "
-                            "the phase-aware KV cache", "A7")
         seq_len = seq_len or min(32, self.config.max_sequence_length)
         T = num_steps or self.config.num_timesteps
-        # largest page <= 64 dividing seq_len and packable at 1 bit
+        if noise is None:
+            noise = GeneratorNoise(seed, self.device)
+        # largest page <= 64 dividing seq_len and packable at 1 bit; without
+        # one (seq_len=10) the paged pools cannot be built
         page = next((p for p in range(min(seq_len, 64), 0, -1)
                      if seq_len % p == 0 and p % 8 == 0), None)
-        if page is None:
-            raise _deferred(f"sample(seq_len={seq_len}): no page size divides "
-                            "it, and the scan sampler that takes such lengths",
-                            "A7")
+        if not use_paged or page is None:
+            x = phase_aware_sample(self.params, self.config, self.schedule,
+                                   (batch_size, seq_len), noise, num_steps)
+            token_ids = dn.decode_tokens(self.params, x).cpu()
+            if not return_text:
+                return token_ids
+            return [self.tokenizer.decode(row.tolist()) for row in token_ids]
         skey = (batch_size, seq_len, salience_routing, attend_mode)
         b = self._samplers.get(skey)
         if b is None:
@@ -326,8 +336,7 @@ class Engine:
         # token readout (the two must decode with the same weights)
         b.params = self.params
         b.readout_params = self.params
-        b.noise = noise if noise is not None else GeneratorNoise(
-            seed, self.device)
+        b.noise = noise
         for i in range(batch_size):
             b.submit(Request(f"sample:{seed}:{i}", seq_len=seq_len,
                              num_steps=T))

@@ -12,11 +12,17 @@ Weights may be plain tensors, `Int8Weight`s (the W4A8 decoded path), packed
 through `ops.matmul.linear`, an MLP block over two `Int8Weight`s through the
 `int8w_mlp` kernel (any other pair through two linears), and unmasked
 attention at Skv >= 1024 through the `dense_attention` kernel. The
-embedding table may be quantized too; it is dequantized where it is read. A caller that owns attention (the
-paged serving step) passes `attend_fn`.
+embedding table may be quantized too; it is dequantized where it is read.
+Attention reads this step's K/V, or the previous step's: dequantized
+(`cached_kv`) through the ordinary attention, or packed (`cached_qkv`, one
+`QuantKV` pair per layer) through the quantized-KV kernel. A caller that owns
+attention (the paged serving step) passes `attend_fn`.
 
-Not ported yet: the cached-KV, quantized-KV and calibration-tap arguments of
-`denoiser_forward`; passing any of them raises NotImplementedError.
+`init_simple_denoiser` and `simple_denoiser_forward` are the one-matrix model
+of the examples and tests.
+
+Not ported yet: the calibration tap of `denoiser_forward` (ROADMAP.md item
+A10); passing it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,10 +33,31 @@ from typing import Any, Dict, Optional
 import torch
 
 from diffusion_llm_rs_tpu_torch.config import DiffusionConfig
-from diffusion_llm_rs_tpu_torch.ops.attention import dense_attention
+from diffusion_llm_rs_tpu_torch.ops.attention import (attention as
+                                                      quant_attention,
+                                                      dense_attention)
 from diffusion_llm_rs_tpu_torch.ops.matmul import Int8Weight, int8_mlp, linear
 
 Params = Dict[str, Any]
+
+
+def init_simple_denoiser(generator: torch.Generator, input_dim: int,
+                         output_dim: Optional[int] = None) -> Params:
+    """One [input_dim, output_dim] matrix of N(0, 0.02) draws and a zero
+    bias, on the generator's device."""
+    output_dim = output_dim or input_dim
+    w = torch.randn((input_dim, output_dim), generator=generator,
+                    dtype=torch.float32, device=generator.device) * 0.02
+    return {"w": w, "b": torch.zeros((output_dim,), dtype=torch.float32,
+                                     device=generator.device)}
+
+
+def simple_denoiser_forward(params: Params, x: torch.Tensor,
+                            t: torch.Tensor) -> torch.Tensor:
+    """y = x @ W + b; the timestep is ignored."""
+    del t
+    return linear(x, params["w"], params["b"])
+
 
 def timestep_embedding(t: torch.Tensor, dim: int,
                        max_period: float = 10000.0) -> torch.Tensor:
@@ -146,13 +173,15 @@ def denoiser_forward(
 ):
     """Predict noise eps [B, S, D] in x's dtype; with `return_kv` also this
     step's K/V stacked as [L, B, S, H, Hd], with `return_hidden` the final
-    hidden state. `attend_fn(layer_idx, q, k, v, mask) -> [B, S, H, Hd]`
-    takes the place of attention in every layer; its result is cast to the
-    working dtype."""
-    for name, val in (("cached_kv", cached_kv), ("cached_qkv", cached_qkv),
-                      ("tap", tap)):
-        if val is not None:
-            raise NotImplementedError(f"denoiser_forward: {name} is not ported")
+    hidden state. With `cached_kv` ([L, B, Skv, H, Hd] keys and values) the
+    attention of every layer reads the cache in place of this step's K/V;
+    with `cached_qkv` (one packed `QuantKV` pair [B*H, Skv, Hd] per layer) it
+    reads it through the quantized-KV kernel, which takes no mask.
+    `attend_fn(layer_idx, q, k, v, mask) -> [B, S, H, Hd]` takes the place of
+    attention in every layer; its result is cast to the working dtype."""
+    if tap is not None:
+        raise NotImplementedError("denoiser_forward: the calibration tap is "
+                                  "not ported yet (ROADMAP.md item A10)")
     B, S, D = x.shape
     if S > cfg.max_sequence_length:
         raise ValueError(
@@ -186,7 +215,22 @@ def denoiser_forward(
             # the caller owns attention (paged serving: write this step's
             # K/V into the pages, then attend over them)
             attn_out = attend_fn(li, q, k, v, mask).to(dtype)
+        elif cached_qkv is not None:
+            if mask is not None:
+                # the quantized-KV kernel has no mask input; attending over
+                # padding would be wrong
+                raise ValueError(
+                    "attn_mask is not supported with cached_qkv — use the "
+                    "einsum path (cached_kv) or attend_fn")
+            qk, qv = cached_qkv[li]
+            q_r = q.transpose(1, 2).reshape(B * H, S, D // H)
+            attn_out = quant_attention(q_r, qk, qv)
+            attn_out = attn_out.reshape(B, H, S, D // H).transpose(1, 2)
+            attn_out = attn_out.to(dtype)
         else:
+            if cached_kv is not None:
+                k = cached_kv[0][li].to(dtype)
+                v = cached_kv[1][li].to(dtype)
             attn_out = attention(q, k, v, mask, flash=flash_attn)
         h = linear(attn_out.reshape(B, S, D), a["wo"], residual=h)
 

@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("int8_gemm", "dense_attention", "paged_attention", "packed_gemm")
+SOURCES = ("int8_gemm", "dense_attention", "paged_attention", "packed_gemm",
+           "quant_attention", "paged_attention_a8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +41,9 @@ SIGNATURES = {
     "dlm_batched_paged_attention": ("paged_attention",
                                     (_P,) * 12 + (_I,) * 9 + (_F, _P)),
     "dlm_paged_attention": ("paged_attention", (_P,) * 11 + (_I,) * 7 + (_F, _P)),
+    "dlm_batched_paged_attention_a8": ("paged_attention_a8",
+                                       (_P,) * 12 + (_I,) * 9 + (_F, _P)),
+    "dlm_quant_attention": ("quant_attention", (_P,) * 8 + (_I,) * 5 + (_F, _P)),
     "dlm_packed_gemm": ("packed_gemm", (_P,) * 7 + (_I, _P) + (_I,) * 7 + (_P,)),
 }
 

@@ -1,24 +1,35 @@
-"""Dense bf16 flash attention.
+"""Attention kernels of the denoiser: dense bf16 flash attention, and flash
+attention that reads per-token-quantized K/V without dequantizing it.
 
-Counterpart of the dense half of `diffusion_llm_rs_tpu/ops/pallas_attention.py`
-(`dense_attention`, TPU kernel `_dense_kernel`): q/k/v [BH, S, D] -> [BH, Sq,
-D], online softmax over KV tiles, bf16 operands, P rounded to bf16 before
-P.V, f32 accumulation. On a CUDA tensor `dense_attention` launches the
-kernel of `csrc/dense_attention.cu`; on a CPU tensor it runs the plain twin
-`dense_attention_plain`, which repeats the TPU kernel's tile loop.
+Counterpart of `diffusion_llm_rs_tpu/ops/pallas_attention.py`:
+  - `dense_attention` (TPU kernel `_dense_kernel`): q/k/v [BH, S, D] -> [BH,
+    Sq, D], online softmax over KV tiles, bf16 operands, P rounded to bf16
+    before P.V, f32 accumulation. Kernel: `csrc/dense_attention.cu`.
+  - `QuantKV`, `quantize_kv` and `attention` (TPU kernel `_attn_kernel`): K
+    and V [BH, S, D] quantized per token at 8/4/2/1 bits, block-packed along
+    D; the affine terms fold into row corrections, so both products run on
+    the integer levels. Kernel: `csrc/quant_attention.cu`. The phase-aware
+    sampler carries its KV cache between steps in this form.
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it runs its plain version (`*_plain`), which repeats the TPU kernel's tile
+loop at the same rounding points.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from diffusion_llm_rs_tpu_torch.ops import _build
+from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 64  # the sampler's 768 / 12; the only width built
+KERNEL_KV_TILE = 64   # tokens per online-softmax step of `csrc/quant_attention.cu`
+KERNEL_BITS = (1, 2, 4, 8)
 
 
 def dense_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,4 +95,163 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         BH, Sq, Skv, D, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream), "dense_attention")
     _build.launch_counts["dense_attention"] += 1
+    return out
+
+
+# ------------------------------------------------------- quantized K/V
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantKV:
+    """Block-packed per-token-quantized K or V tensor [BH, S, D]: byte
+    (s, c) of `data` holds the level of channel c + p*(D/vpb) in bit field p
+    (vpb = 8 / bits)."""
+
+    data: torch.Tensor        # uint8 [BH, S, D/vpb]
+    scale: torch.Tensor       # f32 [BH, S]
+    zero_point: torch.Tensor  # f32 [BH, S]
+    bits: int
+    D: int
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return (self.data.shape[0], self.data.shape[1], self.D)
+
+    def levels(self) -> torch.Tensor:
+        """Unpacked levels, int32 [BH, S, D]."""
+        vpb = 8 // self.bits
+        mask = (1 << self.bits) - 1
+        d32 = self.data.to(torch.int32)
+        return torch.cat([(d32 >> (p * self.bits)) & mask for p in range(vpb)],
+                         dim=-1)
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        out = ((self.levels().to(torch.float32) - self.zero_point[..., None])
+               * self.scale[..., None])
+        return out.to(dtype)
+
+
+def quantize_kv(x: torch.Tensor, bits: int,
+                reciprocal: bool = False) -> QuantKV:
+    """Quantize [BH, S, D] per token into the kernel's block-packed layout.
+    Bytes, scales and zero-points equal the JAX function's bit for bit: called
+    eagerly by default, and with `reciprocal` as compiled inside `jax.jit` or
+    `lax.scan`, where XLA divides the range by the constant qmax through its
+    f32 reciprocal (`quant.core.div_const`)."""
+    BH, S, D = x.shape
+    vpb = 8 // bits
+    if D % vpb != 0:
+        raise ValueError(f"D={D} not divisible by {vpb}")
+    x = x.to(torch.float32)
+    qmax = float((1 << bits) - 1)
+    mn = x.amin(dim=-1)
+    rng = x.amax(dim=-1) - mn
+    scale = torch.where(rng > 0, div_const(rng, qmax, reciprocal),
+                        torch.ones_like(rng))
+    zp = -mn / scale
+    lv = torch.clamp(torch.round(x / scale[..., None] + zp[..., None]),
+                     0.0, qmax).to(torch.uint8)
+    if bits == 8:
+        packed = lv
+    else:
+        Dp = D // vpb
+        acc = lv[..., 0:Dp].to(torch.int32)
+        for p in range(1, vpb):
+            acc = acc | (lv[..., p * Dp:(p + 1) * Dp].to(torch.int32)
+                         << (p * bits))
+        packed = acc.to(torch.uint8)
+    return QuantKV(data=packed, scale=scale, zero_point=zp, bits=bits, D=D)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def attention_plain(q: torch.Tensor, k: QuantKV, v: QuantKV,
+                    sm_scale: Optional[float] = None,
+                    tile: Optional[int] = None) -> torch.Tensor:
+    """Plain version of `attention`, the TPU `_attn_kernel`'s arithmetic:
+    bf16 q with its f32 channel sum qsum; logits = (q.lv_k * ks - qsum *
+    (ks*kz)) * sm_scale; the V scale folds into P (bf16(p * vs) times the raw
+    levels) with the zero-point as a row correction sum(p * vs * vz); out =
+    acc / l, f32. `tile` is the online softmax's step in tokens: by default
+    the TPU kernel's (the first of 512, 256, 128 that divides Skv), else the
+    CUDA kernel's 64; a ragged last tile is simply shorter."""
+    BH, Sq, D = q.shape
+    Skv = k.shape[1]
+    sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    if tile is None:
+        tile = next((t for t in (512, 256, 128) if Skv % t == 0),
+                    KERNEL_KV_TILE)
+    qb = _bf16(q)
+    qsum = qb.sum(dim=-1, keepdim=True)                       # [BH, Sq, 1]
+    k_lv, v_lv = k.levels().float(), v.levels().float()
+    m = torch.full((BH, Sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((BH, Sq, D), dtype=torch.float32, device=q.device)
+    for j in range(0, Skv, tile):
+        ks, kz, vs, vz = (a[:, None, j:j + tile] for a in (
+            k.scale, k.zero_point, v.scale, v.zero_point))
+        raw = qb @ k_lv[:, j:j + tile].transpose(1, 2)        # [BH, Sq, TK]
+        logits = (raw * ks - qsum * (ks * kz)) * sm
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = _bf16(p * vs) @ v_lv[:, j:j + tile]
+        corr = (p * vs * vz).sum(dim=-1, keepdim=True)
+        acc = acc * alpha + pv - corr
+        m = m_new
+    return acc / l
+
+
+def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
+              sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention over quantized KV: q [BH, Sq, D] (batch and heads
+    folded outside) -> f32 [BH, Sq, D].
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel, which
+    serves every Sq and Skv >= 1 at D = 64 and 1/2/4/8 bits (the TPU wrapper
+    hands shapes off its tiling to an XLA path with other roundings)."""
+    if k.bits != v.bits or k.shape != v.shape:
+        raise ValueError(f"attention: K {k.shape} at {k.bits} bits, "
+                         f"V {v.shape} at {v.bits} bits")
+    BH, Sq, D = q.shape
+    Skv = k.shape[1]
+    if k.shape != (BH, Skv, D) or Skv == 0:
+        raise ValueError(f"attention: q {tuple(q.shape)} over K/V {k.shape}")
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention: unsupported device {q.device}")
+    if D != KERNEL_HEAD_DIM:
+        raise ValueError(f"attention: head dim {D}, the kernel takes "
+                         f"{KERNEL_HEAD_DIM}")
+    if k.bits not in KERNEL_BITS:
+        raise ValueError(f"attention: bits {k.bits}, the kernel takes "
+                         f"{KERNEL_BITS}")
+    Dp = D // (8 // k.bits)
+    sides = (k.scale, k.zero_point, v.scale, v.zero_point)
+    if any(t.dtype != torch.uint8 or t.shape != (BH, Skv, Dp)
+           for t in (k.data, v.data)):
+        raise ValueError(f"attention: packed K/V must be uint8 {(BH, Skv, Dp)}")
+    if any(t.dtype != torch.float32 or t.shape != (BH, Skv) for t in sides):
+        raise ValueError(f"attention: scales and zero-points must be f32 "
+                         f"{(BH, Skv)}")
+    if any(t.device != q.device for t in (k.data, v.data) + sides):
+        raise ValueError("attention: inputs on different devices")
+    sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    qb = q.to(torch.bfloat16).contiguous()
+    kd, ks, kz, vd, vs, vz = (t.contiguous() for t in (
+        k.data, k.scale, k.zero_point, v.data, v.scale, v.zero_point))
+    if qb.data_ptr() % 16 or kd.data_ptr() % 8 or vd.data_ptr() % 8:
+        raise ValueError("attention: q must be 16-byte and the packed K/V "
+                         "8-byte aligned")
+    out = torch.empty((BH, Sq, D), dtype=torch.float32, device=q.device)
+    _build.check(_build.function("dlm_quant_attention")(
+        qb.data_ptr(), kd.data_ptr(), ks.data_ptr(), kz.data_ptr(),
+        vd.data_ptr(), vs.data_ptr(), vz.data_ptr(), out.data_ptr(),
+        BH, Sq, Skv, D, k.bits, float(sm),
+        torch.cuda.current_stream(q.device).cuda_stream), "quant_attention")
+    _build.launch_counts["quant_attention"] += 1
     return out

@@ -3,12 +3,14 @@
 Counterpart of `diffusion_llm_rs_tpu/ops/pallas_paged_attention.py`:
 `paged_attention` (one sequence, TPU kernel `_kernel`) and
 `batched_paged_attention` (B slots over one pool, TPU kernel
-`_batched_kernel`, its bf16 path), `merge_partials`, `degroup_pool` and
+`_batched_kernel`: its bf16 path, and with `act_bits=8` its int8 path, where
+q, the centered K/V levels and the softmax weights folded with the V scale
+all go through the int8 tensor cores), `merge_partials`, `degroup_pool` and
 `degroup_sidecar`. On a CUDA tensor each wrapper launches its kernel of
-`csrc/paged_attention.cu` (head dim 64, pages of 64 or 128 tokens, 1/2/4/8
-bits, head groups of 1 or 2) and raises on anything else; on a CPU tensor it
-runs its plain twin (`*_plain`), which repeats the TPU kernel's arithmetic
-page by page at the same rounding points.
+`csrc/paged_attention.cu` or `csrc/paged_attention_a8.cu` (head dim 64, pages
+of 64 or 128 tokens, 1/2/4/8 bits, head groups of 1 or 2) and raises on
+anything else; on a CPU tensor it runs its plain twin (`*_plain`), which
+repeats the TPU kernel's arithmetic page by page at the same rounding points.
 
 The pools keep the JAX layout, so arrays cross between the packages as they
 are:
@@ -18,9 +20,6 @@ are:
   - head h reads lanes (h % G)*D.. and sidecar columns (h % G)*P.. of
     group h // G.
 The single-sequence function takes G = 1 pools, [n_slots, BH, P/vpb, D].
-
-The int8 attention path of the TPU kernel (`act_bits=8`) is not ported; it
-raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from typing import Sequence, Tuple
 import torch
 
 from diffusion_llm_rs_tpu_torch.ops import _build
+from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 64
@@ -222,6 +222,86 @@ def batched_paged_attention_plain(q, page_tables, page_tokens, n_pages,
     return out
 
 
+def batched_paged_attention_a8_plain(q, page_tables, page_tokens, n_pages,
+                                     k_data, k_scale, k_zp, v_data, v_scale,
+                                     v_zp, bits: int, sm_scale=None,
+                                     return_lse: bool = False,
+                                     head_group: int = 1,
+                                     reciprocal: bool = False):
+    """Plain twin of `batched_paged_attention(act_bits=8)`, the int8 path of
+    the TPU `_batched_kernel` (one page per step). With off = 2^(bits-1):
+    levels centered to lv - off (int8) and kz, vz reduced by off; bf16 q
+    quantized per (head, row): sq = amax / 127 (1 where 0), qi = round(q /
+    sq), qsum = sum(qi) * sq; logits = (qi.k_lv * sq) * ks' - (ks' * kz) *
+    qsum with ks' = ks * sm; per page w = p * vs (0 on invalid tokens), sw =
+    max_t w / 127 (1 where 0), wi = round(w / sw); acc = acc * alpha +
+    (wi.v_lv) * sw - sum(w * vz); out = acc * (1/l), and 0 with lse -1e30
+    where a slot had no page. Both integer dots are exact in f32. The two
+    divisions by 127 are IEEE divisions, as in the CUDA kernel; `reciprocal`
+    multiplies by the f32 reciprocal of 127 instead, as XLA compiles the
+    interpreted JAX kernel on the CPU (`quant.core.div_const`)."""
+    B, H, Sq, D = q.shape
+    G = head_group
+    n_max = page_tables.shape[1]
+    P = k_data.shape[2] * (8 // bits)
+    sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    off = float(1 << (bits - 1))
+    dev = q.device
+    qb = _bf16(q)
+    amax = qb.abs().amax(dim=-1, keepdim=True)               # [B, H, Sq, 1]
+    sq = torch.where(amax > 0, div_const(amax, 127.0, reciprocal),
+                     torch.ones_like(amax))
+    qi = torch.round(qb / sq)
+    qsum = qi.sum(dim=-1, keepdim=True) * sq
+    tok = torch.arange(P, device=dev)
+    m = torch.full((B, H, Sq, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
+
+    def pages(arr, slots):  # [B, H/G, Pp, G*D] -> centered levels [B, H, P, D]
+        lv = unpack_levels(arr.index_select(0, slots), bits).float() - off
+        return lv.reshape(B, H // G, P, G, D).transpose(2, 3).reshape(
+            B, H, P, D)
+
+    def side(arr, slots):   # [B, H/G, G*P] -> [B, H, 1, P]
+        return arr.index_select(0, slots).reshape(B, H, 1, P)
+
+    for j in range(n_max):
+        slots = page_tables[:, j].to(torch.int64)
+        live = (j < n_pages).reshape(B, 1, 1, 1)
+        k_lv, v_lv = pages(k_data, slots), pages(v_data, slots)
+        ks, kz, vs, vz = (side(a, slots)
+                          for a in (k_scale, k_zp, v_scale, v_zp))
+        ks = ks * sm
+        kz = kz - off
+        vz = vz - off
+        raw = (qi @ k_lv.transpose(2, 3)) * sq               # [B, H, Sq, P]
+        logits = raw * ks - (ks * kz) * qsum
+        valid = (tok[None, :] < page_tokens[:, j:j + 1]).reshape(B, 1, 1, P)
+        logits = torch.where(valid, logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        alpha = torch.exp(m - m_new)
+        l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+        w = torch.where(valid, p * vs, 0.0)
+        wmax = w.amax(dim=-1, keepdim=True)
+        sw = torch.where(wmax > 0, div_const(wmax, 127.0, reciprocal),
+                         torch.ones_like(wmax))
+        wi = torch.round(w / sw)
+        pv = (wi @ v_lv) * sw
+        corr = (w * vz).sum(dim=-1, keepdim=True)
+        acc = torch.where(live, acc * alpha + pv - corr, acc)
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l_new, l)
+    has = l > 0
+    safe_l = torch.where(has, l, torch.ones_like(l))
+    out = acc * (1.0 / safe_l)
+    if return_lse:
+        lse = torch.where(has, m + torch.log(safe_l), NEG_INF)[..., 0]
+        return out, lse
+    return out
+
+
 def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
                             k_scale, k_zp, v_data, v_scale, v_zp, bits: int,
                             sm_scale=None, return_lse: bool = False,
@@ -231,21 +311,24 @@ def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
     q [B, H, Sq, D]; `page_tables`, `page_tokens` int [B, n_max] (slot and
     valid tokens of each slot's pages); `n_pages` int [B], the pages each
     slot reads (0 = inactive: zeros and lse -1e30). Output f32
-    [B, H, Sq, D], with `return_lse` also the lse [B, H, Sq]."""
-    if act_bits == 8:
-        raise NotImplementedError(
-            "batched_paged_attention: the int8 attention path (act_bits=8) "
-            "is not ported")
-    if act_bits != 16:
+    [B, H, Sq, D], with `return_lse` also the lse [B, H, Sq].
+
+    act_bits=8 runs both products in int8 (q per row, the folded softmax
+    weights per page and query); 1-bit pages keep the bf16 path, as in the
+    JAX package."""
+    if act_bits not in (8, 16):
         raise ValueError(f"act_bits must be 8 or 16, got {act_bits}")
+    a8 = act_bits == 8 and bits != 1
     if q.device.type == "cpu":
-        return batched_paged_attention_plain(
-            q, page_tables, page_tokens, n_pages, k_data, k_scale, k_zp,
-            v_data, v_scale, v_zp, bits, sm_scale, return_lse, head_group)
-    out, lse = _launch("batched_paged_attention",
-                       "dlm_batched_paged_attention", q, page_tables,
-                       page_tokens, n_pages, k_data, k_scale, k_zp, v_data,
-                       v_scale, v_zp, bits, sm_scale, head_group)
+        plain = (batched_paged_attention_a8_plain if a8
+                 else batched_paged_attention_plain)
+        return plain(q, page_tables, page_tokens, n_pages, k_data, k_scale,
+                     k_zp, v_data, v_scale, v_zp, bits, sm_scale, return_lse,
+                     head_group)
+    name = "batched_paged_attention_a8" if a8 else "batched_paged_attention"
+    out, lse = _launch(name, f"dlm_{name}", q, page_tables, page_tokens,
+                       n_pages, k_data, k_scale, k_zp, v_data, v_scale, v_zp,
+                       bits, sm_scale, head_group)
     return (out, lse) if return_lse else out
 
 

@@ -39,6 +39,17 @@ def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
+def div_const(a: torch.Tensor, b: float, reciprocal: bool = False) -> torch.Tensor:
+    """a / b for a constant b. With `reciprocal`, a * (1 / b) with the
+    reciprocal rounded to f32 first: what XLA makes of a division by a
+    constant inside a compiled program (a `jax.jit` or `lax.scan` body),
+    which can differ from the division in the last bit."""
+    if not reciprocal:
+        return true_div(a, b)
+    one = torch.ones((), dtype=a.dtype, device=a.device)
+    return a * (one / torch.full((), b, dtype=a.dtype, device=a.device))
+
+
 def pack_bits(q: torch.Tensor, bits: int) -> torch.Tensor:
     """Pack unsigned levels (values in [0, 2^bits-1]) into a uint8 carrier.
 
@@ -125,12 +136,13 @@ def compute_qparams(
     granularity: Granularity = "tensor",
     group_size: int = 128,
     axis: int = -1,
+    reciprocal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compute (scale, zero_point) float32 tensors for the given granularity.
 
     Asymmetric: scale = (max - min) / (2^bits - 1) (1.0 where the range is 0),
     zp = -min / scale, unclamped. Symmetric: scale = max|x| / 2^(bits-1)
-    (1.0 where 0), zp = 2^(bits-1).
+    (1.0 where 0), zp = 2^(bits-1). `reciprocal`: see `div_const`.
     """
     if bits not in SUPPORTED_BITS:
         raise ValueError(f"bits must be one of {SUPPORTED_BITS}, got {bits}")
@@ -138,13 +150,14 @@ def compute_qparams(
     qmax = float(qmax_for_bits(bits))
 
     if granularity == "tensor":
-        return _params_from_minmax(x.amin(), x.amax(), qmax, symmetric)
+        return _params_from_minmax(x.amin(), x.amax(), qmax, symmetric,
+                                   reciprocal)
     if granularity == "channel":
         ax = axis % x.ndim
         dims = tuple(i for i in range(x.ndim) if i != ax)
         return _params_from_minmax(x.amin(dim=dims, keepdim=True),
                                    x.amax(dim=dims, keepdim=True),
-                                   qmax, symmetric)
+                                   qmax, symmetric, reciprocal)
     if granularity == "group":
         ax = axis % x.ndim
         if x.shape[ax] % group_size != 0:
@@ -153,11 +166,11 @@ def compute_qparams(
         xg = x.reshape(x.shape[:ax] + (x.shape[ax] // group_size, group_size)
                        + x.shape[ax + 1:])
         return _params_from_minmax(xg.amin(dim=ax + 1), xg.amax(dim=ax + 1),
-                                   qmax, symmetric)
+                                   qmax, symmetric, reciprocal)
     raise ValueError(f"unknown granularity {granularity!r}")
 
 
-def _params_from_minmax(mn, mx, qmax, symmetric):
+def _params_from_minmax(mn, mx, qmax, symmetric, reciprocal=False):
     if symmetric:
         amax = torch.maximum(mn.abs(), mx.abs())
         half = (qmax + 1.0) / 2.0  # 2^(bits-1)
@@ -165,7 +178,7 @@ def _params_from_minmax(mn, mx, qmax, symmetric):
         zp = torch.full_like(scale, half)
     else:
         rng = mx - mn
-        scale = torch.where(rng > 0, true_div(rng, qmax), 1.0)
+        scale = torch.where(rng > 0, div_const(rng, qmax, reciprocal), 1.0)
         zp = -mn / scale
     return scale.to(torch.float32), zp.to(torch.float32)
 
@@ -180,16 +193,18 @@ def quantize(
     axis: int = -1,
     scale: Optional[torch.Tensor] = None,
     zero_point: Optional[torch.Tensor] = None,
+    reciprocal: bool = False,
 ) -> QuantizedTensor:
     """Quantize `x` to `bits` with the given granularity; returns QuantizedTensor.
 
     Pass precomputed (scale, zero_point) to skip the min/max pass.
+    `reciprocal`: see `div_const`.
     """
     x = torch.as_tensor(x).to(torch.float32)
     if scale is None or zero_point is None:
         scale, zero_point = compute_qparams(
             x, bits, symmetric=symmetric, granularity=granularity,
-            group_size=group_size, axis=axis)
+            group_size=group_size, axis=axis, reciprocal=reciprocal)
     qmax = float(qmax_for_bits(bits))
     ax = axis % max(x.ndim, 1) if x.ndim else 0
 

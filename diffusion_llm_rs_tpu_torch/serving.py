@@ -79,11 +79,17 @@ class Completion:
 
 
 class GeneratorNoise:
-    """Standard normals from a seeded `torch.Generator` on `device`."""
+    """Standard normals from a `torch.Generator`: one seeded here on
+    `device`, or one the caller owns (`seed` is then the generator, and its
+    device is used)."""
 
-    def __init__(self, seed: int, device="cuda"):
-        self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+    def __init__(self, seed, device="cuda"):
+        if isinstance(seed, torch.Generator):
+            self.device, self.generator = seed.device, seed
+        else:
+            self.device = torch.device(device)
+            self.generator = torch.Generator(
+                device=self.device).manual_seed(seed)
 
     def _draw(self, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self.generator,
@@ -566,8 +572,9 @@ class PagedContinuousBatcher(ContinuousBatcher):
 
     attend_mode "paged" streams the pools through the paged kernel; "dense"
     attends once over the same quantize/dequantize reconstruction and holds
-    no pools; "auto" takes paged at seq_len >= 2048. The int8 attention
-    path (attn_act_bits=8) is not ported.
+    no pools; "auto" takes paged at seq_len >= 2048. attn_act_bits=8 runs
+    the paged kernel's products in int8 (1-bit buckets keep bf16); the dense
+    mode ignores it.
     """
 
     def __init__(self, params, cfg: DiffusionConfig,
@@ -593,9 +600,6 @@ class PagedContinuousBatcher(ContinuousBatcher):
             raise ValueError(f"unknown attend_mode {attend_mode!r}")
         if attend_mode == "auto":
             attend_mode = "paged" if seq_len >= 2048 else "dense"
-        if attn_act_bits == 8 and attend_mode == "paged":
-            raise NotImplementedError(
-                "attn_act_bits=8: the int8 paged attention path is not ported")
         self.attn_act_bits = attn_act_bits
         self.attend_mode = attend_mode
         self.page_size = page_size or min(seq_len, 64)

@@ -24,11 +24,13 @@ from diffusion_llm_rs_tpu import config as jcfg_mod
 from diffusion_llm_rs_tpu.models import denoiser as jdn
 from diffusion_llm_rs_tpu.models import diffusion as jd
 from diffusion_llm_rs_tpu.ops import matmul as jmm
+from diffusion_llm_rs_tpu.ops import pallas_attention as jpa
 from diffusion_llm_rs_tpu.ops import pallas_matmul as jpm
 from diffusion_llm_rs_tpu.quant import core as jq
 from diffusion_llm_rs_tpu_torch import config as tcfg_mod
 from diffusion_llm_rs_tpu_torch.models import denoiser as tdn
 from diffusion_llm_rs_tpu_torch.models import diffusion as td
+from diffusion_llm_rs_tpu_torch.ops import attention as tat
 from diffusion_llm_rs_tpu_torch.ops import int8_matmul as tim
 from diffusion_llm_rs_tpu_torch.ops import matmul as tmm
 from diffusion_llm_rs_tpu_torch.quant import core as tq
@@ -160,9 +162,13 @@ def test_forward_fp32_matches(models):
                               attn_mask=torch.from_numpy(keep))
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-4,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="cached_kv"):
+    # the cache replaces this step's K/V: its own K/V give the same eps
+    tc = tdn.denoiser_forward(tparams, models["tcfg"], torch.from_numpy(x),
+                              torch.from_numpy(t), cached_kv=(tk, tv))
+    assert torch.equal(tc, teps)
+    with pytest.raises(NotImplementedError, match="A10"):
         tdn.denoiser_forward(tparams, models["tcfg"], torch.from_numpy(x),
-                             torch.from_numpy(t), cached_kv=(tk, tv))
+                             torch.from_numpy(t), tap=lambda name, val: None)
 
 
 def test_forward_w4a8_matches_pallas_kernels(models, pallas_on):
@@ -235,3 +241,112 @@ def test_sample_and_decode_match_w4a8(models, pallas_on):
     # x is mostly the replayed noise; eps enters scaled by beta/sqrt(1-abar)
     _check_sample(models, "w4a8", 1e-3)
     assert pallas_on and all(pallas_on)
+
+
+# ------------------------------------------------- cached K/V branches
+#
+# Heads of 64 and S = 128, the shapes at which JAX's quantized-KV attention
+# takes its Pallas kernel (interpret mode) and not its XLA fall-back.
+
+S64 = 128
+
+
+@pytest.fixture(scope="module")
+def models64():
+    jcfg = jcfg_mod.DiffusionConfig.tiny(hidden_size=128, num_attention_heads=2,
+                                         max_sequence_length=S64)
+    tcfg = tcfg_mod.diffusion_config_from_json(jcfg_mod.to_json(jcfg))
+    jparams = jdn.init_denoiser_params(jax.random.PRNGKey(1), jcfg)
+    for blk in jparams["blocks"]:  # logits of O(1): the cache must matter
+        blk["attn"]["wqkv"] = blk["attn"]["wqkv"] * 10.0
+    tparams = from_jax_params(_to_numpy(jparams), device="cpu")
+    return dict(jcfg=jcfg, tcfg=tcfg, fp32=(jparams, tparams),
+                w4a8=(_j_w4a8(jparams), _t_w4a8(tparams)))
+
+
+def _cache_inputs(seed, cfg_layers=2):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, S64, 128)).astype(np.float32)
+    t = rng.integers(0, 50, size=(2,)).astype(np.int32)
+    kv = tuple(rng.normal(size=(cfg_layers, 2, S64, 2, 64)).astype(np.float32)
+               for _ in range(2))
+    return x, t, kv
+
+
+@pytest.mark.parametrize("mode", ["fp32", "w4a8"])
+def test_forward_with_cached_kv_matches(models64, mode, pallas_on):
+    """Attention over a given cache [L, B, Skv, H, Hd] in place of the step's
+    K/V; the fresh K/V still come back. fp32 within 1e-4; W4A8 within 1e-2
+    (the act-quant amplification of the uncached forward, 4e-3 measured
+    with this model's sharpened attention)."""
+    jparams, tparams = models64[mode]
+    x, t, kv = _cache_inputs(3)
+    jeps, (jk, _) = jdn.denoiser_forward(
+        jparams, models64["jcfg"], jnp.asarray(x), jnp.asarray(t),
+        cached_kv=tuple(jnp.asarray(a) for a in kv), return_kv=True)
+    teps, (tk, _) = tdn.denoiser_forward(
+        tparams, models64["tcfg"], torch.from_numpy(x), torch.from_numpy(t),
+        cached_kv=tuple(torch.from_numpy(a) for a in kv), return_kv=True)
+    plain = tdn.denoiser_forward(tparams, models64["tcfg"],
+                                 torch.from_numpy(x), torch.from_numpy(t))
+    print(f"cached_kv {mode}: eps rel {_rel(teps.numpy(), jeps):.3g}; the "
+          f"cache moves eps by {_rel(teps.numpy(), plain.numpy()):.3g}")
+    assert _rel(teps.numpy(), jeps) < (1e-4 if mode == "fp32" else 1e-2)
+    assert _rel(tk.numpy(), jk) < (1e-5 if mode == "fp32" else 1e-2)
+    assert _rel(teps.numpy(), plain.numpy()) > 0.05
+
+
+@pytest.mark.parametrize("mode", ["fp32", "w4a8"])
+@pytest.mark.parametrize("bits", [8, 2])
+def test_forward_with_cached_qkv_matches(models64, mode, bits, pallas_on):
+    """Attention over packed `QuantKV` pairs through the quantized-KV kernel
+    (JAX: interpreted Pallas; the port: its plain version). fp32 within 2e-4
+    (bf16 q and weights round at the same points; an `exp` bit can move one
+    bf16 rounding); W4A8 within 1e-2 (4e-3 measured)."""
+    jparams, tparams = models64[mode]
+    x, t, kv = _cache_inputs(4 + bits)
+    fold = lambda a: a.transpose(0, 2, 1, 3).reshape(4, S64, 64)  # noqa: E731
+    jq_, tq_ = [], []
+    for li in range(2):
+        pair = [jpa.quantize_kv(jnp.asarray(fold(a[li])), bits) for a in kv]
+        jq_.append(tuple(pair))
+        tq_.append(tuple(tat.QuantKV(
+            torch.from_numpy(np.array(p.data)),
+            torch.from_numpy(np.array(p.scale)),
+            torch.from_numpy(np.array(p.zero_point)), bits, 64) for p in pair))
+    jeps = jdn.denoiser_forward(jparams, models64["jcfg"], jnp.asarray(x),
+                                jnp.asarray(t), cached_qkv=tuple(jq_))
+    teps = tdn.denoiser_forward(tparams, models64["tcfg"], torch.from_numpy(x),
+                                torch.from_numpy(t), cached_qkv=tuple(tq_))
+    deq = tuple(torch.stack([tq_[li][i].dequantize().reshape(2, 2, S64, 64)
+                             .transpose(1, 2) for li in range(2)])
+                for i in range(2))
+    tdeq = tdn.denoiser_forward(tparams, models64["tcfg"], torch.from_numpy(x),
+                                torch.from_numpy(t), cached_kv=deq)
+    print(f"cached_qkv {mode} {bits}-bit: eps rel {_rel(teps.numpy(), jeps):.3g}"
+          f"; packed vs dequantized cache {_rel(teps.numpy(), tdeq.numpy()):.3g}")
+    assert _rel(teps.numpy(), jeps) < (2e-4 if mode == "fp32" else 1e-2)
+    # the same cache read both ways: only the attention's roundings differ
+    assert _rel(teps.numpy(), tdeq.numpy()) < 2e-2
+    if mode == "fp32":
+        keep = torch.ones((2, S64))
+        with pytest.raises(ValueError, match="attn_mask is not supported"):
+            tdn.denoiser_forward(tparams, models64["tcfg"], torch.from_numpy(x),
+                                 torch.from_numpy(t), cached_qkv=tuple(tq_),
+                                 attn_mask=keep)
+
+
+def test_simple_denoiser_matches():
+    """y = x @ W + b from JAX's weights; the port's initialiser gives the
+    same shapes and scale from its own generator."""
+    jp = jdn.init_simple_denoiser(jax.random.PRNGKey(0), 24, 40)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    x = np.random.default_rng(0).normal(size=(3, 5, 24)).astype(np.float32)
+    t = np.zeros((3,), np.int32)
+    jy = jdn.simple_denoiser_forward(jp, jnp.asarray(x), jnp.asarray(t))
+    ty = tdn.simple_denoiser_forward(tp, torch.from_numpy(x),
+                                     torch.from_numpy(t))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-6)
+    own = tdn.init_simple_denoiser(torch.Generator().manual_seed(0), 24)
+    assert tuple(own["w"].shape) == (24, 24) and tuple(own["b"].shape) == (24,)
+    assert 0.015 < float(own["w"].std()) < 0.025 and not own["b"].any()

@@ -175,6 +175,51 @@ def test_sample_through_paged_batcher_matches_jax(case):
                                     seed=2, return_text=False))
 
 
+class JaxKeyChain:
+    """Replays the scan sampler's draws from PRNGKey(seed): one split for
+    the initial x, then one per step."""
+
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+
+    def admission(self, shape):
+        self.key, sub = jax.random.split(self.key)
+        return torch.from_numpy(np.array(
+            jax.random.normal(sub, shape, jnp.float32)))
+
+    step = admission
+
+
+@pytest.mark.parametrize("case", ["fp32", "int4"])
+@pytest.mark.parametrize("seq_len,use_paged", [(16, False), (10, True)],
+                         ids=["use_paged=False", "seq_len=10"])
+def test_sample_through_the_scan_sampler_matches_jax(case, seq_len, use_paged):
+    """Engine.sample on the phase-aware sampler over the packed KV carry:
+    asked for (use_paged=False), and taken because no page divides
+    seq_len=10. B=2, 6 steps (8 -> 4 -> 2 bits), JAX's draws replayed. At
+    these lengths JAX's attention takes its XLA fall-back (dequantized K/V
+    rounded to bf16) and the port the kernel's arithmetic, which moves each
+    attention output by about 5e-3; the tokens, an argmax over 463 logits,
+    must still be the same at every position."""
+    kw, _ = CASES[case]
+    je, te = _pair(**kw)
+    args = dict(batch_size=2, seq_len=seq_len, num_steps=6, seed=5,
+                return_text=False, use_paged=use_paged)
+    tj = np.asarray(je.sample(**args))
+    tt = te.sample(**args, noise=JaxKeyChain(5))
+    agree = float((tj == tt.numpy()).mean())
+    print(f"{case} seq_len={seq_len} use_paged={use_paged}: token agreement "
+          f"{agree:.3f}")
+    assert tt.shape == (2, seq_len) and tt.dtype == torch.int64
+    assert not te._samplers          # no batcher was built
+    np.testing.assert_array_equal(tt.numpy(), tj)
+    texts = te.sample(**{**args, "return_text": True}, noise=JaxKeyChain(5))
+    assert texts == [te.tokenizer.decode(r.tolist()) for r in tt]
+    # the port's own generator: same seed, same tokens
+    args.pop("seed")
+    assert torch.equal(te.sample(**args, seed=2), te.sample(**args, seed=2))
+
+
 def test_sample_paged_mode_runs_with_packed_params():
     """attend_mode="paged" at a short length: pools, the paged attention's
     plain version and packed weights in one step."""
@@ -270,8 +315,10 @@ def test_infer_weight_bits_over_given_params():
 
 @pytest.mark.parametrize("call,item", [
     (lambda e: e.quantize_weights(4, method="gptq"), "A10"),
-    (lambda e: e.sample(batch_size=1, seq_len=16, use_paged=False), "A7"),
-    (lambda e: e.sample(batch_size=1, seq_len=10, num_steps=2), "A7"),
+    (lambda e: e.sample(batch_size=1, seq_len=16, num_steps=2,
+                        use_paged=False, return_text=False), None),
+    (lambda e: e.sample(batch_size=1, seq_len=10, num_steps=2,
+                        return_text=False), None),
     (lambda e: e.prefill("the quick"), "A11"),
     (lambda e: e.process_model("the quick"), "A11"),
     (lambda e: e.tokenize_model("the quick"), "A11"),
@@ -285,6 +332,11 @@ def test_infer_weight_bits_over_given_params():
         "apply_attention_masks", "system_config"])
 def test_deferred_parts_raise_and_name_their_roadmap_item(call, item):
     e = _tiny()
+    if item is None:  # ported since: the scan sampler answers with token ids
+        ids = call(e)
+        assert ids.shape[0] == 1 and ids.dtype == torch.int64
+        assert 0 <= int(ids.min()) and int(ids.max()) < e.config.vocab_size
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         call(e)
     # a refused gptq call leaves the memos and the parameters alone

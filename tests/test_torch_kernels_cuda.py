@@ -13,6 +13,7 @@ import torch
 from diffusion_llm_rs_tpu_torch.ops import _build
 from diffusion_llm_rs_tpu_torch.ops import int8_matmul as im
 from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
+from diffusion_llm_rs_tpu_torch.ops import attention as qa
 from diffusion_llm_rs_tpu_torch.ops.attention import (
     dense_attention,
     dense_attention_plain,
@@ -188,12 +189,117 @@ def test_paged_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="page size"):
         pa.batched_paged_attention(q, pt, pt, npg, *pools, bits=4)
     pools = _pools(gen, 2, 2, 64, 64, 4)
-    with pytest.raises(NotImplementedError, match="act_bits=8"):
-        pa.batched_paged_attention(q, pt, pt, npg, *pools, bits=4, act_bits=8)
+    with pytest.raises(ValueError, match="act_bits"):
+        pa.batched_paged_attention(q, pt, pt, npg, *pools, bits=4, act_bits=4)
+    with pytest.raises(ValueError, match="page size"):
+        pa.batched_paged_attention(q, pt, pt, npg, *_pools(gen, 2, 2, 32, 64, 4),
+                                   bits=4, act_bits=8)
     with pytest.raises(ValueError, match="head dim"):
         pa.batched_paged_attention(q[..., :32], pt, pt, npg, *pools, bits=4)
     with pytest.raises(ValueError, match="empty page table"):
         pa.paged_attention(q[0], pt[0, :0], *pools, bits=4)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("P", [64, 128])
+@pytest.mark.parametrize("G", [1, 2])
+def test_batched_paged_attention_a8_kernel_matches_twin(gen, bits, P, G):
+    """The int8 path at the bf16 test's tables (scattered pages, a partial
+    one, an empty slot, a ragged q tile). Both integer dots are exact, so
+    the kernel differs from its twin only where expf's last bit moves an
+    int8 level of the folded weights: 5e-3 relative, lse 1e-3; and it stays
+    within the JAX package's a8-vs-bf16 bounds of the bf16 kernel."""
+    B, H, Sq, D = 3, 4, 100, 64
+    pools = _pools(gen, 7, H // G, P, G * D, bits)
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
+    pt = torch.tensor([[5, 0, 3], [0, 0, 0], [6, 0, 0]], device="cuda",
+                      dtype=torch.int32)
+    nt = torch.tensor([[P, P, P // 2 + 3], [0, 0, 0], [P, 0, 0]],
+                      device="cuda", dtype=torch.int32)
+    npg = torch.tensor([3, 0, 1], device="cuda", dtype=torch.int32)
+    _build.reset_launch_counts()
+    out, lse = pa.batched_paged_attention(q, pt, nt, npg, *pools, bits=bits,
+                                          return_lse=True, head_group=G,
+                                          act_bits=8)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["batched_paged_attention_a8"] == 1
+    assert _build.launch_counts["batched_paged_attention"] == 0
+    ref, ref_lse = pa.batched_paged_attention_a8_plain(
+        q, pt, nt, npg, *pools, bits=bits, return_lse=True, head_group=G)
+    assert torch.all(out[1] == 0) and torch.all(lse[1] == pa.NEG_INF)
+    rel = float((out - ref).norm() / ref.norm())
+    assert rel <= 5e-3, rel
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    o16, l16 = pa.batched_paged_attention(q, pt, nt, npg, *pools, bits=bits,
+                                          return_lse=True, head_group=G)
+    assert float((out - o16).norm() / o16.norm()) <= 3.5e-2
+    torch.testing.assert_close(lse, l16, rtol=2e-2, atol=2e-2)
+
+
+def test_batched_paged_attention_a8_one_bit_runs_the_bf16_kernel(gen):
+    B, H, Sq, D, P, G = 1, 2, 16, 64, 64, 2
+    pools = _pools(gen, 2, H // G, P, G * D, 1)
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
+    pt = torch.tensor([[1, 0]], device="cuda", dtype=torch.int32)
+    nt = torch.full((1, 2), P, device="cuda", dtype=torch.int32)
+    npg = torch.tensor([2], device="cuda", dtype=torch.int32)
+    _build.reset_launch_counts()
+    out = pa.batched_paged_attention(q, pt, nt, npg, *pools, bits=1,
+                                     head_group=G, act_bits=8)
+    assert _build.launch_counts["batched_paged_attention"] == 1
+    assert _build.launch_counts["batched_paged_attention_a8"] == 0
+    assert torch.equal(out, pa.batched_paged_attention(
+        q, pt, nt, npg, *pools, bits=1, head_group=G))
+
+
+# ------------------------------------------------ quantized-KV attention ---
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("Sq,Skv", [(64, 64), (256, 256), (100, 100), (10, 10),
+                                    (1, 1), (70, 1000)])
+def test_quant_attention_kernel_matches_plain(gen, bits, Sq, Skv):
+    """Every Sq and Skv runs the kernel (ragged q and KV tiles masked).
+    Against the plain version at the kernel's KV tile: sums in another order
+    and CUDA's expf, which can move a bf16 rounding of p * vs: 2e-3
+    relative."""
+    BH, D = 6, 64
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    k = qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen, device="cuda"),
+                       bits)
+    v = qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen, device="cuda")
+                       * 3 + 1, bits)
+    _build.reset_launch_counts()
+    out = qa.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["quant_attention"] == 1
+    assert out.dtype == torch.float32 and out.shape == (BH, Sq, D)
+    ref = qa.attention_plain(q, k, v, tile=qa.KERNEL_KV_TILE)
+    rel = float((out - ref).norm() / ref.norm())
+    assert rel <= 2e-3 and bool(torch.isfinite(out).all()), rel
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_quantize_kv_card_equals_cpu(gen, bits):
+    x = torch.randn((24, 100, 64), generator=gen, device="cuda") * \
+        torch.rand((24, 100, 1), generator=gen, device="cuda") * 10
+    for reciprocal in (False, True):
+        dev = qa.quantize_kv(x, bits, reciprocal)
+        cpu = qa.quantize_kv(x.cpu(), bits, reciprocal)
+        assert torch.equal(dev.data.cpu(), cpu.data)
+        assert torch.equal(dev.scale.cpu(), cpu.scale)
+        assert torch.equal(dev.zero_point.cpu(), cpu.zero_point)
+
+
+def test_quant_attention_refuses_what_the_kernel_does_not_take(gen):
+    q = torch.randn((2, 8, 32), generator=gen, device="cuda")
+    k = qa.quantize_kv(torch.randn((2, 16, 32), generator=gen, device="cuda"), 4)
+    with pytest.raises(ValueError, match="head dim"):
+        qa.attention(q, k, k)
+    q = torch.randn((2, 8, 64), generator=gen, device="cuda")
+    k = qa.quantize_kv(torch.randn((2, 16, 64), generator=gen, device="cuda"), 4)
+    with pytest.raises(ValueError, match="different devices"):
+        qa.attention(q, qa.QuantKV(k.data.cpu(), k.scale.cpu(),
+                                   k.zero_point.cpu(), 4, 64), k)
 
 
 # ------------------------------------------------ packed-weight matmul ---

@@ -2,8 +2,9 @@
 JAX package.
 
 JAX runs as its own tests run it on the CPU: its Pallas kernels in interpret
-mode where its wrappers take the kernel (pages of 128 tokens, G*D = 128),
-its exact XLA fallbacks elsewhere. The port's twins repeat the TPU kernels'
+mode where its wrappers take the kernel (pages of 128 tokens, G*D = 128; the
+bf16 path and, with act_bits=8, the int8 path), its exact XLA fallbacks
+elsewhere. The port's twins repeat the TPU kernels'
 arithmetic (bf16 q, bf16 P, the same folded affine terms), so against the
 kernel path they differ only by f32 summation order and the frameworks'
 `exp`; against the fallbacks, which compute in f32 over dequantized K/V,
@@ -216,17 +217,150 @@ def test_merge_partials_matches_jax():
 
 
 def test_wrappers_refuse_the_int8_path_and_empty_tables():
+    """The int8 path is served now (act_bits=8 runs, on the CPU through its
+    plain version); an act_bits that is neither 8 nor 16, an empty page
+    table and an unknown device are refused."""
     q = torch.zeros((1, 2, 8, 64))
     pt = torch.zeros((1, 1), dtype=torch.int32)
     npg = torch.ones((1,), dtype=torch.int32)
+    nt = torch.full((1, 1), 128, dtype=torch.int32)
     pools = (torch.zeros((1, 1, 32, 128), dtype=torch.uint8),) + tuple(
         torch.ones((1, 1, 128)) for _ in range(2))
     pools = pools + pools
-    with pytest.raises(NotImplementedError, match="act_bits=8"):
-        tpa.batched_paged_attention(q, pt, pt, npg, *pools, bits=4,
-                                    head_group=2, act_bits=8)
+    out = tpa.batched_paged_attention(q, pt, nt, npg, *pools, bits=4,
+                                      head_group=2, act_bits=8)
+    assert tuple(out.shape) == (1, 2, 8, 64) and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="act_bits"):
+        tpa.batched_paged_attention(q, pt, nt, npg, *pools, bits=4,
+                                    head_group=2, act_bits=4)
     with pytest.raises(ValueError, match="empty page table"):
         tpa.paged_attention(q[0], pt[0, :0], *pools, bits=4)
     with pytest.raises(ValueError, match="unsupported device"):
         tpa.batched_paged_attention(q.to("meta"), pt, pt, npg, *pools, bits=4,
                                     head_group=2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tpa.batched_paged_attention(q.to("meta"), pt, pt, npg, *pools, bits=4,
+                                    head_group=2, act_bits=8)
+
+
+# ------------------------------------------------- int8 activations (a8)
+
+
+def _a8_case(seed, bits, B, H, Sq, D, P, G, S):
+    rng = np.random.default_rng(seed)
+    pools = _grouped_pools(rng, H, S, D, P, G, bits)
+    q = rng.normal(size=(B, H, Sq, D)).astype(np.float32)
+    return q, pools
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_batched_a8_twin_matches_jax_kernel(bits):
+    """JAX's own a8 test shape (B=2, H=2, Sq=64, D=64, P=128, G=2, three full
+    pages; the interpreted Pallas kernel, one page per group). The int32 dots
+    are exact on both sides. Compiled for the CPU, JAX's kernel divides by
+    127 through the f32 reciprocal: with `reciprocal` the twin does too, and
+    only `exp`'s last bit separates them, which moves an occasional int8
+    level of the folded weights (1/127 of the page's largest): output within
+    5e-4 relative, lse within 1e-5. With IEEE divisions (the default, the
+    CUDA kernel's) a scale differs in its last bit and one level of q in a
+    few hundred rows rounds the other way: 2e-3 and lse 2e-3. Against the
+    bf16 twin the a8 twin stays within JAX's a8 bounds (3.5e-2, lse 2e-2)."""
+    B, H, Sq, D, P, G, S = 2, 2, 64, 64, 128, 2, 384
+    q, pools = _a8_case(11, bits, B, H, Sq, D, P, G, S)
+    nps = S // P
+    pt = np.tile(np.arange(nps, dtype=np.int32)[None], (B, 1))
+    nt = np.full((B, nps), P, np.int32)
+    npg = np.full((B,), nps, np.int32)
+    jout, jlse = jppa.batched_paged_attention(
+        *_j(q, pt, nt, npg, *pools), bits=bits, return_lse=True, head_group=G,
+        act_bits=8)
+    tout, tlse = tpa.batched_paged_attention(
+        *_t(q, pt, nt, npg, *pools), bits=bits, return_lse=True, head_group=G,
+        act_bits=8)
+    trec, tlse_rec = tpa.batched_paged_attention_a8_plain(
+        *_t(q, pt, nt, npg, *pools), bits=bits, return_lse=True, head_group=G,
+        reciprocal=True)
+    t16, tlse16 = tpa.batched_paged_attention(
+        *_t(q, pt, nt, npg, *pools), bits=bits, return_lse=True, head_group=G)
+    print(f"a8 twin vs JAX a8 kernel, {bits}-bit: reciprocal rel "
+          f"{_rel(trec, jout):.3g}, lse {_lse_err(tlse_rec, jlse):.3g}; IEEE "
+          f"division rel {_rel(tout, jout):.3g}, lse "
+          f"{_lse_err(tlse, jlse):.3g}; a8 twin vs bf16 twin: rel "
+          f"{_rel(tout, t16):.3g}, lse "
+          f"{float((tlse - tlse16).abs().max()):.3g}")
+    assert _rel(trec, jout) < 5e-4
+    np.testing.assert_allclose(tlse_rec.numpy(), np.asarray(jlse), rtol=0,
+                               atol=1e-5)
+    assert _rel(tout, jout) < 2e-3
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=2e-3)
+    assert _rel(tout, t16) < 3.5e-2
+    np.testing.assert_allclose(tlse.numpy(), tlse16.numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_batched_a8_twin_varied_lengths_and_inactive():
+    """A partial page, a one-page slot and an inactive slot (JAX's
+    `test_batched_a8_varied_lengths_and_inactive` shape), 4 bits."""
+    B, H, Sq, D, P, G, S = 3, 2, 16, 64, 128, 2, 256
+    q, pools = _a8_case(12, 4, B, H, Sq, D, P, G, S)
+    pt = np.array([[0, 1], [0, 0], [1, 0]], np.int32)
+    nt = np.array([[P, P // 2], [0, 0], [P, 0]], np.int32)
+    npg = np.array([2, 0, 1], np.int32)
+    jout, jlse = jppa.batched_paged_attention(
+        *_j(q, pt, nt, npg, *pools), bits=4, return_lse=True, head_group=G,
+        act_bits=8)
+    tout, tlse = tpa.batched_paged_attention_a8_plain(
+        *_t(q, pt, nt, npg, *pools), bits=4, return_lse=True, head_group=G,
+        reciprocal=True)
+    for b in (0, 2):
+        print(f"a8 twin vs JAX a8 kernel, slot {b}: rel "
+              f"{_rel(tout[b], jout[b]):.3g}")
+        assert _rel(tout[b], jout[b]) < 5e-4
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=1e-5)
+    assert np.all(tout[1].numpy() == 0) and np.all(np.asarray(jout[1]) == 0)
+    assert np.all(tlse[1].numpy() == tpa.NEG_INF)
+
+
+def test_batched_a8_twin_one_bit_takes_the_bf16_path():
+    """1-bit pages keep the bf16 arithmetic under act_bits=8, as in JAX."""
+    B, H, Sq, D, P, G, S = 1, 1, 8, 128, 128, 1, 128
+    q, pools = _a8_case(13, 1, B, H, Sq, D, P, G, S)
+    pt = np.zeros((B, 1), np.int32)
+    nt = np.full((B, 1), P, np.int32)
+    npg = np.ones((B,), np.int32)
+    t8 = tpa.batched_paged_attention(*_t(q, pt, nt, npg, *pools), bits=1,
+                                     act_bits=8)
+    t16 = tpa.batched_paged_attention(*_t(q, pt, nt, npg, *pools), bits=1)
+    j8 = jppa.batched_paged_attention(*_j(q, pt, nt, npg, *pools), bits=1,
+                                      act_bits=8)
+    assert torch.equal(t8, t16)
+    assert _rel(t8, j8) < 1e-3
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("G", [1, 2])
+def test_batched_a8_twin_at_pages_of_64(bits, G):
+    """Pages of 64 tokens: JAX's wrapper takes its exact f32 fall-back there
+    whatever act_bits says, while the port's a8 kernel (and twin) serves
+    them in int8. The difference stays within JAX's own a8-vs-exact bounds:
+    3.5e-2 relative, lse within 2e-2."""
+    B, H, Sq, D, P = 3, 4, 24, 64, 64
+    q, pools = _a8_case(40 + bits, bits, B, H, Sq, D, P, G, 4 * P)
+    pt = np.array([[2, 0, 3], [0, 0, 0], [1, 0, 0]], np.int32)
+    nt = np.array([[P, P, 30], [0, 0, 0], [P, 0, 0]], np.int32)
+    npg = np.array([3, 0, 1], np.int32)
+    jout, jlse = jppa.batched_paged_attention(
+        *_j(q, pt, nt, npg, *pools), bits=bits, return_lse=True, head_group=G,
+        act_bits=8)
+    tout, tlse = tpa.batched_paged_attention(
+        *_t(q, pt, nt, npg, *pools), bits=bits, return_lse=True, head_group=G,
+        act_bits=8)
+    print(f"a8 twin vs JAX (exact fall-back) at P=64, {bits}-bit G={G}: rel "
+          f"{_rel(tout, jout):.3g}, lse {_lse_err(tlse, jlse):.3g}")
+    assert _rel(tout, jout) < 3.5e-2
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=2e-2,
+                               atol=2e-2)
+    assert np.all(tout[1].numpy() == 0)
+    assert np.all(tlse[1].numpy() == tpa.NEG_INF)

@@ -87,8 +87,8 @@ def test_append_gather_free_match_jax():
     _same_pools(j, t)
     with pytest.raises(KeyError):
         t.gather("a")
-    with pytest.raises(NotImplementedError, match="QuantKV"):
-        t.gather_packed("b")
+    qk, qv = t.gather_packed("b")   # a uniform chain repacks along D
+    assert qk.shape == qv.shape == (2, 64, 64) and qk.bits == 8
 
 
 def test_mixed_precision_attend_and_batched_attend():
@@ -176,3 +176,55 @@ def test_memory_manager_tiers_match_jax(tmp_path):
     assert t.usage() == 0 and t.keys() == []
     with pytest.raises(tmm.NotFoundError):
         t.get("a")
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+def test_gather_packed_equal_to_jax(bits):
+    """A uniform chain of 3 pages, the last 22 tokens, repacked from the
+    pools' token packing into the contiguous D-packed `QuantKV`: bytes,
+    scales and zero-points equal JAX's, nothing is requantized (the
+    dequantized values equal `gather`'s), and the quantized-KV attention
+    over them equals paged attention over the pages to the twins' bound."""
+    from diffusion_llm_rs_tpu_torch.ops import attention as tat
+    rng = np.random.default_rng(40 + bits)
+    j, t = _caches(pages={bits: 8})
+    k, v = _kv(rng, 2, 150, 64)
+    for cache, conv in ((j, jnp.asarray), (t, torch.from_numpy)):
+        cache.append("a", conv(k), conv(v), bits=bits)
+    _same_pools(j, t)
+    for tq, jq in zip(t.gather_packed("a"), j.gather_packed("a")):
+        assert (tq.bits, tq.D, tq.shape) == (jq.bits, jq.D, jq.shape)
+        assert tq.shape == (2, 150, 64)
+        np.testing.assert_array_equal(tq.data.numpy(), np.asarray(jq.data))
+        np.testing.assert_array_equal(tq.scale.numpy(), np.asarray(jq.scale))
+        np.testing.assert_array_equal(tq.zero_point.numpy(),
+                                      np.asarray(jq.zero_point))
+    for tq, dense in zip(t.gather_packed("a"), t.gather("a")):
+        np.testing.assert_array_equal(tq.dequantize().numpy(), dense.numpy())
+    q = torch.from_numpy(rng.normal(size=(2, 9, 64)).astype(np.float32))
+    rel = _rel(tat.attention(q, *t.gather_packed("a")), t.attend("a", q))
+    print(f"attention over gather_packed vs attend, {bits}-bit: rel {rel:.3g}")
+    assert rel < 5e-3
+
+
+def test_gather_packed_refuses_what_it_cannot_repack():
+    rng = np.random.default_rng(50)
+    _, t = _caches(with_mm=True)
+    k, v = (torch.from_numpy(a) for a in _kv(rng, 2, 100, 64))
+    with pytest.raises(KeyError):
+        t.gather_packed("nobody")
+    t.append("mixed", k[:, :64], v[:, :64], bits=4)
+    t.append("mixed", k[:, 64:], v[:, 64:], bits=8)
+    with pytest.raises(ValueError, match="mixed-precision"):
+        t.gather_packed("mixed")
+    t.append("holes", k[:, :30], v[:, :30], bits=4)   # a partial page ...
+    t.append("holes", k[:, 30:94], v[:, 30:94], bits=4)  # ... then a full one
+    with pytest.raises(ValueError, match="interior partial page"):
+        t.gather_packed("holes")
+    # a spilled page comes back before it is repacked
+    t.append("s", k, v, bits=2)
+    want = [a.data.clone() for a in t.gather_packed("s")]
+    t.spill_page("s", 0)
+    assert t.page_tables["s"][0].slot == -1
+    for a, b in zip(t.gather_packed("s"), want):
+        assert torch.equal(a.data, b)

@@ -1,0 +1,189 @@
+"""Port parity: `QuantKV`, `quantize_kv` and the quantized-KV attention's
+plain version against the JAX package.
+
+`quantize_kv` is XLA code on both sides of the TPU kernel, so its packed
+bytes, scales and zero-points must equal JAX's bit for bit, eagerly and under
+`jax.jit` (the sampler runs it inside `lax.scan`). The attention runs in JAX
+as its own tests run it on the CPU: the Pallas kernel in interpret mode where
+the wrapper takes it (Sq % 8 == 0, Skv % 128 == 0), the XLA fall-back
+elsewhere. The port's plain version repeats the kernel's arithmetic (bf16 q,
+bf16(p * vs), the folded affine terms) at the kernel's KV tile, so against
+the kernel it differs by f32 summation order and the frameworks' `exp`;
+against the fall-back, which rounds the *dequantized* K and V to bf16, by
+those roundings. Each test prints what it measured (`pytest -rP`).
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffusion_llm_rs_tpu.ops import pallas_attention as jpa
+from diffusion_llm_rs_tpu_torch.ops import attention as tat
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _kv(rng, BH, S, D):
+    """K/V-like rows: N(0, 1) times a per-row spread, one constant row (range
+    0 -> scale 1) and one row of a single repeated pair."""
+    x = (rng.normal(size=(BH, S, D)) *
+         rng.uniform(0.05, 20.0, size=(BH, S, 1))).astype(np.float32)
+    x[0, 0] = 0.37
+    x[-1, -1, ::2] = -1.5
+    x[-1, -1, 1::2] = 2.25
+    return x
+
+
+def _assert_same(t: tat.QuantKV, j: jpa.QuantKV):
+    np.testing.assert_array_equal(t.data.numpy(), np.asarray(j.data))
+    np.testing.assert_array_equal(t.scale.numpy(), np.asarray(j.scale))
+    np.testing.assert_array_equal(t.zero_point.numpy(),
+                                  np.asarray(j.zero_point))
+    assert (t.bits, t.D, t.shape) == (j.bits, j.D, j.shape)
+
+
+def _to_torch(j: jpa.QuantKV) -> tat.QuantKV:
+    return tat.QuantKV(torch.from_numpy(np.array(j.data)),
+                       torch.from_numpy(np.array(j.scale)),
+                       torch.from_numpy(np.array(j.zero_point)), j.bits, j.D)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+def test_quantize_kv_bit_equal_to_jax(bits):
+    rng = np.random.default_rng(bits)
+    x = _kv(rng, 6, 40, 64)
+    t = tat.quantize_kv(torch.from_numpy(x), bits)
+    _assert_same(t, jpa.quantize_kv(jnp.asarray(x), bits))
+    assert t.data.dtype == torch.uint8 and t.scale.dtype == torch.float32
+    assert t.data.shape == (6, 40, 64 * bits // 8)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+def test_quantize_kv_bit_equal_to_jitted_jax(bits):
+    """The sampler quantizes inside a compiled scan: XLA may turn a division
+    by the constant qmax into a multiplication by its reciprocal there."""
+    rng = np.random.default_rng(10 + bits)
+    x = _kv(rng, 4, 128, 64)
+    jitted = jax.jit(jpa.quantize_kv, static_argnums=1)(jnp.asarray(x), bits)
+    eager = jpa.quantize_kv(jnp.asarray(x), bits)
+    same = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in (
+        (jitted.data, eager.data), (jitted.scale, eager.scale),
+        (jitted.zero_point, eager.zero_point)))
+    print(f"quantize_kv {bits}-bit: jax.jit equals eager JAX: {same}")
+    _assert_same(tat.quantize_kv(torch.from_numpy(x), bits, reciprocal=True),
+                 jitted)
+
+
+def test_quantize_kv_refuses_an_unpackable_width():
+    with pytest.raises(ValueError, match="not divisible"):
+        tat.quantize_kv(torch.zeros((1, 2, 6)), 2)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+def test_dequantize_equal_to_jax(bits):
+    rng = np.random.default_rng(20 + bits)
+    j = jpa.quantize_kv(jnp.asarray(_kv(rng, 3, 17, 64)), bits)
+    t = _to_torch(j)
+    np.testing.assert_array_equal(t.dequantize().numpy(),
+                                  np.asarray(j.dequantize()))
+    np.testing.assert_array_equal(
+        t.dequantize(torch.bfloat16).float().numpy(),
+        np.asarray(j.dequantize(jnp.bfloat16).astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("Skv", [128, 256])
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+def test_plain_matches_jax_kernel(bits, Skv):
+    """BH=4, Sq=16, D=64 (the interpreted Pallas kernel; one KV tile of Skv):
+    within 1e-4 relative. f32 sums run in another order, and where the two
+    frameworks' `exp` differ in the last bit an occasional bf16(p * vs)
+    rounds the other way (5e-7 to 3.6e-5 measured)."""
+    rng = np.random.default_rng(30 + bits + Skv)
+    BH, Sq, D = 4, 16, 64
+    q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
+    jk = jpa.quantize_kv(jnp.asarray(rng.normal(size=(BH, Skv, D))
+                                     .astype(np.float32)), bits)
+    jv = jpa.quantize_kv(jnp.asarray(rng.normal(size=(BH, Skv, D))
+                                     .astype(np.float32)), bits)
+    jout = jpa.attention(jnp.asarray(q), jk, jv)
+    tout = tat.attention(torch.from_numpy(q), _to_torch(jk), _to_torch(jv))
+    rel = _rel(tout, jout)
+    print(f"attention_plain vs interpreted Pallas, {bits}-bit Skv={Skv}: "
+          f"rel {rel:.3g}")
+    assert tout.dtype == torch.float32 and tuple(tout.shape) == (BH, Sq, D)
+    assert rel < 1e-4
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_plain_tile_of_the_cuda_kernel(bits):
+    """The CUDA kernel steps the online softmax 64 tokens at a time, the TPU
+    kernel 256 here: p is relative to another running max, so every
+    bf16(p * vs) rounds afresh (2^-9 relative each), and the output, a mean
+    of N(0, 1) values that mostly cancel, carries 2.6e-3 to 3.3e-3 of it:
+    within 5e-3 relative of the TPU's tile, and of JAX's kernel."""
+    rng = np.random.default_rng(40 + bits)
+    BH, S, D = 4, 256, 64
+    q = rng.normal(size=(BH, 24, D)).astype(np.float32)
+    jk = jpa.quantize_kv(jnp.asarray(rng.normal(size=(BH, S, D))
+                                     .astype(np.float32)), bits)
+    jv = jpa.quantize_kv(jnp.asarray(rng.normal(size=(BH, S, D))
+                                     .astype(np.float32)), bits)
+    k, v = _to_torch(jk), _to_torch(jv)
+    t256 = tat.attention_plain(torch.from_numpy(q), k, v)
+    t64 = tat.attention_plain(torch.from_numpy(q), k, v,
+                              tile=tat.KERNEL_KV_TILE)
+    jout = jpa.attention(jnp.asarray(q), jk, jv)
+    print(f"tile 64 vs tile 256, {bits}-bit: rel {_rel(t64, t256):.3g}; "
+          f"tile 64 vs JAX kernel: rel {_rel(t64, jout):.3g}")
+    assert _rel(t64, t256) < 5e-3 and _rel(t64, jout) < 5e-3
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+def test_plain_matches_jax_fallback_at_an_odd_shape(bits):
+    """Skv = 10, Sq = 10 (no tile divides them: JAX takes `_attention_fallback`,
+    which rounds the dequantized K, V and the normalized P to bf16): within
+    2e-2 relative, JAX's own kernel-vs-reference bound."""
+    rng = np.random.default_rng(50 + bits)
+    BH, S, D = 4, 10, 64
+    q = rng.normal(size=(BH, S, D)).astype(np.float32)
+    jk = jpa.quantize_kv(jnp.asarray(rng.normal(size=(BH, S, D))
+                                     .astype(np.float32)), bits)
+    jv = jpa.quantize_kv(jnp.asarray(rng.normal(size=(BH, S, D))
+                                     .astype(np.float32)), bits)
+    jout = jpa.attention(jnp.asarray(q), jk, jv)
+    jfb = jpa._attention_fallback(jnp.asarray(q), jk, jv, 1.0 / math.sqrt(D))
+    np.testing.assert_array_equal(np.asarray(jout), np.asarray(jfb))
+    tout = tat.attention(torch.from_numpy(q), _to_torch(jk), _to_torch(jv))
+    exact = torch.softmax(
+        torch.from_numpy(q) @ _to_torch(jk).dequantize().transpose(1, 2)
+        / math.sqrt(D), dim=-1) @ _to_torch(jv).dequantize()
+    print(f"attention_plain vs JAX fall-back, {bits}-bit Skv=10: rel "
+          f"{_rel(tout, jout):.3g}; vs f32 attention over the dequantized "
+          f"K/V: plain {_rel(tout, exact):.3g}, fall-back "
+          f"{_rel(jout, exact):.3g}")
+    assert _rel(tout, jout) < 2e-2
+
+
+def test_attention_sm_scale_and_checks():
+    rng = np.random.default_rng(60)
+    q = torch.from_numpy(rng.normal(size=(2, 8, 64)).astype(np.float32))
+    x = rng.normal(size=(2, 128, 64)).astype(np.float32)
+    jk, jv = (jpa.quantize_kv(jnp.asarray(x), 4),
+              jpa.quantize_kv(jnp.asarray(x[:, ::-1].copy()), 4))
+    k, v = _to_torch(jk), _to_torch(jv)
+    jout = jpa.attention(jnp.asarray(q.numpy()), jk, jv, sm_scale=0.05)
+    assert _rel(tat.attention(q, k, v, sm_scale=0.05), jout) < 1e-4
+    k2 = tat.quantize_kv(torch.from_numpy(x), 2)
+    with pytest.raises(ValueError, match="bits"):
+        tat.attention(q, k2, v)
+    with pytest.raises(ValueError, match="over K/V"):
+        tat.attention(q[:1], k, v)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tat.attention(q.to("meta"), k, v)

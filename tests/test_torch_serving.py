@@ -47,10 +47,15 @@ class JaxNoise:
             lambda k: jax.random.normal(k, shape[1:], jnp.float32))(keys)))
 
 
-def _models(**cfg_kw):
+def _models(sharpen=1.0, **cfg_kw):
+    """`sharpen` scales the QKV projections: a random initialisation attends
+    almost uniformly, which hides any error of the attention."""
     jcfg = jcfg_mod.DiffusionConfig.tiny(vocab_size=128, **cfg_kw)
     tcfg = tcfg_mod.diffusion_config_from_json(jcfg_mod.to_json(jcfg))
     jparams = jdn.init_denoiser_params(jax.random.PRNGKey(0), jcfg)
+    if sharpen != 1.0:
+        for blk in jparams["blocks"]:
+            blk["attn"]["wqkv"] = blk["attn"]["wqkv"] * sharpen
     tparams = from_jax_params(jax.tree_util.tree_map(np.array, jparams),
                               device="cpu")
     return jcfg, tcfg, jparams, tparams
@@ -247,6 +252,57 @@ def test_one_paged_step_matches_jax():
             assert arr.shape == jb.pools[bits][name].shape
 
 
+def test_one_paged_step_a8_matches_jax():
+    """The same step with attn_act_bits=8 (JAX's `test_paged_step_a8_close_
+    to_exact` shape; its interpreted int8 kernel at pages of 128), on a model
+    with sharpened attention: x within 2e-3 of JAX's a8 step. x is mostly
+    the replayed noise, so the int8 path's own effect, x(a8) - x(bf16), is
+    compared too: the port's within 20% of JAX's (6% measured: JAX's compiled
+    kernel divides by 127 through a reciprocal, which moves a few int8
+    levels), and both within JAX's 5e-2 of the bf16 step."""
+    kw = dict(num_slots=2, seq_len=128, page_size=128, max_chunk=1,
+              attend_mode="paged")
+    cfg = dict(hidden_size=128, num_attention_heads=2,
+               max_sequence_length=128, sharpen=10.0)
+    j8, t8 = _batchers(11, dict(kw, attn_act_bits=8), **cfg)
+    j16, t16 = _batchers(11, kw, **cfg)
+    for b, mod in ((j8, jsv), (t8, tsv), (j16, jsv), (t16, tsv)):
+        b.submit(mod.Request("r", seq_len=128, num_steps=2))
+        b.step()
+    tx8, tx16 = t8.x[0].numpy(), t16.x[0].numpy()
+    jx8, jx16 = np.asarray(j8.x[0]), np.asarray(j16.x[0])
+    effect = _rel(tx8 - tx16, jx8 - jx16)
+    print(f"one a8 step vs JAX's: x rel {_rel(tx8, jx8):.3g}; a8 vs bf16 step "
+          f"rel {_rel(tx8, tx16):.3g} (JAX {_rel(jx8, jx16):.3g}); the int8 "
+          f"path's effect on x, port vs JAX: rel {effect:.3g}")
+    np.testing.assert_allclose(t8.x.numpy(), np.asarray(j8.x), rtol=2e-3,
+                               atol=2e-3)
+    assert 0 < _rel(tx8, tx16) < 5e-2
+    assert effect < 0.2
+    assert np.all(t8.x[1].numpy() == 0)
+
+
+def test_drained_run_a8_stays_near_the_bf16_run():
+    """A drained run with attn_act_bits=8 (mixed lengths, a mid-run
+    admission, the 8 -> 4 -> 2 schedule, pages of 8 in fused chunks)
+    completes every request with finite embeddings near the bf16 run's.
+    JAX takes its exact fall-back at such pages, so it is the bf16 run that
+    the int8 one is held to: embeddings within 5e-2 relative."""
+    kw = dict(num_slots=2, seq_len=8, page_size=8, attend_mode="paged",
+              max_chunk=16)
+    _, t8 = _batchers(3, dict(kw, attn_act_bits=8))
+    jb, t16 = _batchers(3, kw)
+    d8, d16, dj = _drain(t8, tsv), _drain(t16, tsv), _drain(jb, jsv)
+    assert sorted(d8) == sorted(d16) == ["a", "b", "c"]
+    for rid in d16:
+        rel = _rel(d8[rid].embeddings, d16[rid].embeddings)
+        print(f"drained a8 run, request {rid}: embeddings rel {rel:.3g} of the "
+              f"bf16 run, {_rel(d8[rid].embeddings, dj[rid].embeddings):.3g} "
+              f"of JAX's")
+        assert np.isfinite(d8[rid].embeddings).all() and 0 < rel < 5e-2
+        assert d8[rid].steps == d16[rid].steps
+
+
 def _drain(b, mod):
     for rid, n, steps in (("a", 8, 30), ("b", 4, 5), ("c", 8, 7)):
         b.submit(mod.Request(rid, seq_len=n, num_steps=steps))
@@ -338,7 +394,7 @@ def test_hbm_budget_spills_bit_exactly():
 
 def test_batcher_contract():
     """Validation, auto mode, pool-free dense mode, untouched inactive
-    slots, and the int8 attention path refused."""
+    slots, and the int8 attention path accepted."""
     _, tcfg, _, tparams = _models()
 
     def make(**kw):
@@ -350,8 +406,10 @@ def test_batcher_contract():
         make(page_size=3)
     with pytest.raises(ValueError, match="max_chunk"):
         make(max_chunk=0)
-    with pytest.raises(NotImplementedError, match="int8"):
-        make(attend_mode="paged", attn_act_bits=8)
+    with pytest.raises(ValueError, match="attn_act_bits"):
+        make(attend_mode="paged", attn_act_bits=4)
+    assert make(attend_mode="paged", attn_act_bits=8).attn_act_bits == 8
+    assert make(attend_mode="dense", attn_act_bits=8).pools == {}
     b = make(attend_mode="auto")
     assert b.attend_mode == "dense" and b.pools == {}
     assert b.cache_memory_bytes() == 0
