@@ -11,14 +11,16 @@ Phases (any failure makes the script exit non-zero without the final line):
                 shapes of the paths below, with the tolerance stated; times
                 of the kernel, the twin, one library call used only as a
                 yardstick, and the least time the card could take (bound).
-                Also quantize_page and quantize_kv on the card against the
-                CPU, bit for bit.
+                The fused MLP also bit for bit against the chained kernels,
+                with their time. Also quantize_page and quantize_kv on the
+                card against the CPU, bit for bit.
   4. sampler  - the W4A8 sampler at full width (12 layers, 768 wide, 12 heads,
                 vocab 50257; random weights from a seed, quantized in the
                 port): B=8, S=256, 32 steps, bf16 activations, timed 5 times
                 (median), then decode_tokens. Checks finite output, token
                 range and the launch counts of every run (27 int8w_matmul +
-                12 int8w_mlp per step), with host CPU time; the same run
+                12 fused int8w_mlp per step, no chained MLP), with host CPU
+                time; the same run
                 with the model built at max_sequence_length 1024 and 4096,
                 alternating; then 2 steps on the same noise against the
                 plain twins on the CPU.
@@ -35,6 +37,10 @@ Phases (any failure makes the script exit non-zero without the final line):
                 plain versions on the CPU from the same draws).
      profile  - torch.profiler over one forward at B=8, S=256: device time
                 by kernel and the device-busy share.
+     fused_qkv - one forward at B=8, S=256, t=500 with attend_fn running
+                fused_qkv_attention on each layer's [B, S, 3D] projection:
+                12 launches, eps against the einsum forward and against the
+                plain versions on the CPU.
   7. cache    - PagedKVCache.attend over a salience-allocated chain of 16
                 pages at three widths: one paged_attention launch per width,
                 against the same cache on the CPU.
@@ -69,7 +75,12 @@ Phases (any failure makes the script exit non-zero without the final line):
                 CPU token for token, perplexity of a fixed text under a tenth
                 of the vocabulary before and after int4) and engine_check
                 (one packed forward on the card against the plain versions on
-                the CPU, act16 and a8).
+                the CPU, act16 and a8); engine_gptq (the anchor quantized by
+                GPTQ on the card and on the CPU from the same draws: grids
+                bit for bit, levels that differ counted, perplexity on both,
+                `generate` on the card); cli (`python -m
+                diffusion_llm_rs_tpu_torch` sample, quantize --quant-method
+                gptq --out, ppl --checkpoint, each its own process).
  10. summary  - a JSON line of kernels, a JSON line of the runs, then the
                 device line last.
 """
@@ -262,8 +273,10 @@ def kernels():
         if not ok:
             bad.append(f"int8w_matmul {label}")
 
-    # int8w_mlp: relative Frobenius error <= 1e-3 -- a last-bit difference in
-    # the f32 gelu can move one requantization level of the inner activation
+    # int8w_mlp, the fused kernel: relative Frobenius error <= 1e-3 against
+    # the plain version -- a last-bit difference in the f32 gelu can move one
+    # requantization level of the inner activation -- and bit for bit equal
+    # to the chained kernels, which round every step alike
     M, D, F = 2048, 768, 3072
     x = torch.randn((M, D), generator=gen, device="cuda").to(bf16)
     w1, w2 = _rand_int8(D, F, gen), _rand_int8(F, D, gen)
@@ -273,11 +286,16 @@ def kernels():
     b2 = torch.randn((D,), generator=gen, device="cuda") * 0.02
     r = torch.randn((M, D), generator=gen, device="cuda").to(bf16)
     args = (x, w1, cs1, b1, w2, cs2, b2, r, bf16)
+    if not im.mlp_fits(D, F):
+        raise AssertionError(f"the fused MLP kernel does not take {D} -> {F}")
     out = im.int8w_mlp(*args)
     ref = im.int8w_mlp_plain(*args)
+    chained = im.int8w_mlp_chained(*args)
     err, rel, _ = _compare(out, ref, 0.0, 0.0)
-    ok = rel <= 1e-3 and bool(torch.isfinite(out.float()).all())
+    same = bool(torch.equal(out, chained))
+    ok = rel <= 1e-3 and same and bool(torch.isfinite(out.float()).all())
     ms = time_ms(lambda: im.int8w_mlp(*args))
+    chained_ms = time_ms(lambda: im.int8w_mlp_chained(*args))
     plain_ms = time_ms(lambda: im.int8w_mlp_plain(*args), 5)
 
     def lib_mlp():
@@ -290,11 +308,15 @@ def kernels():
     b_ms, b_by = bound(nbytes, 2 * M * D * F * 2, PEAK_INT8_OPS)
     results["int8w_mlp"].append(dict(
         shape=f"mlp M={M} D={D} F={F} +residual", max_abs_err=err,
-        rel_err=rel, tolerance="rel Frobenius <= 1e-3", ms=ms,
-        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-    log(f"  int8w_mlp: max_abs_err {err:.3g} rel {rel:.3g} "
-        f"{'ok' if ok else 'MISMATCH'}; {ms:.4f} ms, plain "
-        f"{plain_ms:.4f}, library {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+        rel_err=rel, equal_to_chained=same,
+        tolerance="rel Frobenius <= 1e-3; bit for bit the chained kernels",
+        ms=ms, chained_ms=chained_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=b_ms, bound_by=b_by))
+    log(f"  int8w_mlp (fused): max_abs_err {err:.3g} rel {rel:.3g}, chained "
+        f"{'bit for bit' if same else 'DIFFERENT'} "
+        f"{'ok' if ok else 'MISMATCH'}; {ms:.4f} ms, chained {chained_ms:.4f},"
+        f" plain {plain_ms:.4f}, library {lib_ms:.4f}, bound {b_ms:.4f} "
+        f"({b_by})")
     if not ok:
         bad.append("int8w_mlp")
 
@@ -327,6 +349,7 @@ def kernels():
     _paged_kernels(gen, results, bad)
     _quant_attention_kernels(gen, results, bad)
     _packed_kernels(gen, results, bad)
+    _fused_qkv_kernels(gen, results, bad)
     # the library yardsticks leave a cuBLAS workspace behind for every side
     # stream they were captured on: return them, or they count in the peak
     # memory of every later phase (a private call: skipped where torch lacks it)
@@ -339,6 +362,54 @@ def kernels():
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
     return results
+
+
+def _fused_qkv_kernels(gen, results, bad):
+    """fused_qkv_attention at the sampler's shape (B=8, S=256, 768 wide, 12
+    heads) and at the largest S JAX's predicate admits at that width (864),
+    bf16 out, against the plain version: relative Frobenius error <= 5e-3
+    (the kernel's sums and CUDA's expf can move a bf16 rounding of P, and
+    then of the output). Yardsticks: split + SDPA (library_ms), and the
+    einsum attention of `denoiser.attention` (einsum_ms)."""
+    from diffusion_llm_rs_tpu_torch.models.denoiser import attention as einsum
+    from diffusion_llm_rs_tpu_torch.ops import attention as at
+
+    bf16 = torch.bfloat16
+    for B, S, D, H in ((8, 256, 768, 12), (8, 864, 768, 12)):
+        if not at.fused_qkv_fits((B, S, 3 * D), H) or (
+                S > 256 and at.fused_qkv_fits((B, S + 8, 3 * D), H)):
+            raise AssertionError(f"JAX's predicate: S={S} at D={D}")
+        Hd = D // H
+        qkv = torch.randn((B, S, 3 * D), generator=gen, device="cuda").to(bf16)
+        out = at.fused_qkv_attention(qkv, H)
+        ref = at.fused_qkv_attention_plain(qkv, H)
+        err, rel, _ = _compare(out, ref, 0.0, 0.0)
+        ok = rel <= 5e-3 and bool(torch.isfinite(out.float()).all())
+        ms = time_ms(lambda: at.fused_qkv_attention(qkv, H))
+        plain_ms = time_ms(lambda: at.fused_qkv_attention_plain(qkv, H), 5)
+
+        def heads(i):
+            return qkv[..., i * D:(i + 1) * D].reshape(B, S, H, Hd)
+
+        def sdpa():
+            q, k, v = (heads(i).transpose(1, 2) for i in range(3))
+            o = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+            return o.transpose(1, 2).reshape(B, S, D)
+        lib_ms = time_ms(sdpa)
+        einsum_ms = time_ms(lambda: einsum(heads(0), heads(1), heads(2)))
+        nbytes = B * S * 3 * D * 2 + B * S * D * 2
+        b_ms, b_by = bound(nbytes, 4 * B * H * S * S * Hd, PEAK_BF16_FLOPS)
+        results["fused_qkv_attention"].append(dict(
+            shape=f"B={B} S={S} D={D} H={H}", max_abs_err=err, rel_err=rel,
+            tolerance="rel Frobenius <= 5e-3", ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, einsum_ms=einsum_ms, bound_ms=b_ms,
+            bound_by=b_by))
+        log(f"  fused_qkv_attention B={B} S={S}: max_abs_err {err:.3g} rel "
+            f"{rel:.3g} {'ok' if ok else 'MISMATCH'}; {ms:.4f} ms, plain "
+            f"{plain_ms:.4f}, SDPA {lib_ms:.4f}, einsum {einsum_ms:.4f}, "
+            f"bound {b_ms:.4f} ({b_by})")
+        if not ok:
+            bad.append(f"fused_qkv_attention S={S}")
 
 
 def _quantized_pools(gen, n_slots, H, P, D, G, bits):
@@ -824,9 +895,11 @@ REPEATS = 5  # timed 32-step sampler runs (median reported)
 
 def _expected_launches(cfg, steps, long_seq):
     """Per forward: 2 time-MLP + L qkv + L wo + 1 head int8w_matmul (27 at
-    L = 12), L int8w_mlp, and L dense_attention at Skv >= 1024."""
+    L = 12), L fused int8w_mlp and no chained one, and L dense_attention at
+    Skv >= 1024."""
     L = cfg.num_layers
-    out = {"int8w_matmul": (3 + 2 * L) * steps, "int8w_mlp": L * steps}
+    out = {"int8w_matmul": (3 + 2 * L) * steps, "int8w_mlp": L * steps,
+           "int8w_mlp_chained": 0}
     if long_seq:
         out["dense_attention"] = L * steps
     return out
@@ -1196,6 +1269,70 @@ def profile():
     return dict(forward_wall_ms=wall_ms, device_busy_ms=busy_ms,
                 top=[dict(ms=us / 1e3, calls=n, name=key[:120])
                      for us, n, key in rows[:15]])
+
+
+def fused_qkv():
+    """One full-width forward of the sampler's model (B=8, S=256, t=500)
+    with `attend_fn` running fused_qkv_attention on the layer's [B, S, 3D]
+    projection: exactly one launch a layer; eps against the same forward
+    through the default einsum attention (the same math: rel <= 2e-2, the
+    sampler's bound, since bf16 rounds at other points); and the card
+    against the plain versions on the CPU from the same input (rel <=
+    2e-2)."""
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    from diffusion_llm_rs_tpu_torch.ops.attention import fused_qkv_attention
+
+    cfg, params = MODEL["cfg"], MODEL["params"]
+    H = cfg.num_attention_heads
+
+    def attend(li, q, k, v, mask):
+        if mask is not None:
+            raise AssertionError("fused_qkv_attention takes no mask")
+        B, S, _, Hd = q.shape
+        qkv = torch.cat([q, k, v], dim=2).reshape(B, S, 3 * H * Hd)
+        out = fused_qkv_attention(qkv, H, out_dtype=q.dtype)
+        if out is None:
+            raise AssertionError(f"fused_qkv_attention refused S={S}")
+        return out.reshape(B, S, H, Hd)
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    B, S = 8, 256
+    x = torch.randn((B, S, cfg.hidden_size), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.full((B,), 500, device="cuda")
+    dn.denoiser_forward(params, cfg, x, t, attend_fn=attend)  # warm
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    e_fused = dn.denoiser_forward(params, cfg, x, t, attend_fn=attend).float()
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    _expect("fused_qkv", counts, {"fused_qkv_attention": cfg.num_layers,
+                                  "int8w_mlp": cfg.num_layers,
+                                  "dense_attention": 0})
+    walls = {}
+    for label, kw in (("fused", dict(attend_fn=attend)), ("einsum", {}),
+                      ("fused", dict(attend_fn=attend)), ("einsum", {})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dn.denoiser_forward(params, cfg, x, t, **kw)
+        torch.cuda.synchronize()
+        walls.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+    e_einsum = dn.denoiser_forward(params, cfg, x, t).float()
+    rel_einsum = float((e_fused - e_einsum).norm() / e_einsum.norm())
+    t0 = time.perf_counter()
+    e_cpu = dn.denoiser_forward(_to(params, "cpu"), cfg, x.cpu(), t.cpu(),
+                                attend_fn=attend).float()
+    cpu_s = time.perf_counter() - t0
+    rel_cpu = float((e_fused.cpu() - e_cpu).norm() / e_cpu.norm())
+    log(f"  launches {counts}; eps vs the einsum forward rel {rel_einsum:.3g}"
+        f", vs the plain versions on the CPU rel {rel_cpu:.3g} (bounds 2e-2; "
+        f"CPU forward {cpu_s:.1f} s); forward wall ms fused "
+        f"{walls['fused']}, einsum {walls['einsum']}")
+    if not (rel_einsum <= 2e-2 and rel_cpu <= 2e-2):
+        raise AssertionError("the fused-QKV forward disagrees")
+    return dict(counts=counts, eps_rel_err_einsum=rel_einsum,
+                eps_rel_err_cpu=rel_cpu, forward_wall_ms=walls)
 
 
 def cache_attend():
@@ -1758,6 +1895,108 @@ def engine_anchor():
     return out
 
 
+def engine_gptq():
+    """`quantize_weights(4, method="gptq")` on the shipped anchor, on the
+    card and on the CPU from the same calibration draws (a CPU generator
+    seeded with 0 on both sides): scales and zero points bit for bit (static
+    groups of the original weights); the packed bytes that differ counted
+    (float64 sums in another order move near-ties, and true_sequential
+    carries each into the later stages: ROADMAP C26); denoising perplexity
+    of a fixed text on both within 2% and under a tenth of the vocabulary;
+    then `generate` on the card through the packed kernel."""
+    from diffusion_llm_rs_tpu_torch.engine import Engine
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    from diffusion_llm_rs_tpu_torch.ops.matmul import MatmulWeight
+    from diffusion_llm_rs_tpu_torch.quant.core import tree_leaves
+
+    engines, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        eng = Engine.from_pretrained(device=device)
+        t0 = time.perf_counter()
+        eng.quantize_weights(4, method="gptq",
+                             noise=torch.Generator().manual_seed(0))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs[device] = time.perf_counter() - t0
+        engines[device] = eng
+    card, cpu = engines["cuda"], engines["cpu"]
+    a = [l for l in tree_leaves(card.params) if isinstance(l, MatmulWeight)]
+    b = [l for l in tree_leaves(cpu.params) if isinstance(l, MatmulWeight)]
+    if len(a) != len(b) or len(a) != _matmuls_per_forward(
+            card.config.num_layers):
+        raise AssertionError(f"{len(a)} / {len(b)} packed weights")
+    sides_equal = all(
+        torch.equal(x.scale.cpu(), y.scale) and
+        torch.equal(x.zero_point.cpu(), y.zero_point) for x, y in zip(a, b))
+    moved = sum(int((x.data.cpu() != y.data).sum()) for x, y in zip(a, b))
+    total = sum(y.data.numel() for y in b)
+    text = "the forest maybe river the stone quick"
+    n = len(card.tokenizer.encode(text))
+    noise = torch.randn((1, n, card.config.hidden_size),
+                        generator=torch.Generator().manual_seed(0))
+    ppl = card.denoising_perplexity(text, t=10, noise=noise)
+    ppl_cpu = cpu.denoising_perplexity(text, t=10, noise=noise)
+    _build.reset_launch_counts()
+    got = card.generate("the quick", max_length=8)
+    counts = dict(_build.launch_counts)
+    limit = card.tokenizer.vocab_size / 10
+    log(f"  GPTQ {secs['cuda']:.2f} s on the card, {secs['cpu']:.2f} s on the "
+        f"CPU; scales and zero points {'bit for bit' if sides_equal else 'DIFFER'}"
+        f"; {moved} of {total} packed bytes differ; perplexity {ppl:.4f} (CPU "
+        f"{ppl_cpu:.4f}, limit {limit:.1f}); generate {got!r}, launches "
+        f"{counts}")
+    if not sides_equal:
+        raise AssertionError("GPTQ grids differ between the card and the CPU")
+    if not (ppl < limit and abs(ppl - ppl_cpu) <= 2e-2 * ppl_cpu):
+        raise AssertionError(f"perplexity {ppl} vs CPU {ppl_cpu}")
+    if not (isinstance(got, str) and got and counts.get("matmul", 0) > 0):
+        raise AssertionError(f"generate {got!r}, launches {counts}")
+    return dict(gptq_s=secs, packed_bytes_differ=moved, packed_bytes=total,
+                perplexity=ppl, perplexity_cpu=ppl_cpu, generate=got,
+                counts=counts)
+
+
+def cli():
+    """The command line on the card, each command its own process: `sample
+    --bits 4 --batch 2 --seq-len 32` (two lines of text), `quantize --bits
+    4 --quant-method gptq --out <stem>` (one JSON line, the checkpoint
+    written), then `ppl --checkpoint <stem>` loading it (one JSON line)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    stem = os.path.join(root, "build", "cli_smoke", "anchor-gptq4")
+
+    def run(*argv):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "diffusion_llm_rs_tpu_torch", *argv],
+            cwd=root, capture_output=True, text=True, timeout=300)
+        dt = time.perf_counter() - t0
+        log(f"  {' '.join(argv[:1])}: exit {out.returncode} in {dt:.1f} s; "
+            f"stdout {out.stdout.strip()[:300]!r}")
+        if out.returncode != 0:
+            raise AssertionError(f"{argv[0]} failed:\n{out.stderr[-3000:]}")
+        return out.stdout.strip().splitlines(), dt
+
+    lines, t_sample = run("sample", "--bits", "4", "--batch", "2",
+                          "--seq-len", "32")
+    if len(lines) != 2 or not all(lines):
+        raise AssertionError(f"sample printed {lines}")
+    lines, t_quant = run("quantize", "--bits", "4", "--quant-method", "gptq",
+                         "--out", stem)
+    rec = json.loads(lines[-1])
+    if rec["method"] != "gptq" or rec["bits"] != 4 or \
+            not os.path.exists(stem + ".npz"):
+        raise AssertionError(f"quantize printed {rec}")
+    lines, t_ppl = run("ppl", "--checkpoint", stem, "--text",
+                       "cat runs near the river")
+    ppl = json.loads(lines[-1])
+    if not (ppl["perplexity"] > 0 and ppl["bits"] == 4):
+        raise AssertionError(f"ppl printed {ppl}")
+    return dict(sample_s=t_sample, quantize=rec, quantize_s=t_quant,
+                ppl=ppl, ppl_s=t_ppl)
+
+
 def engine_check():
     """One full-width packed forward (B=2, S=256, bf16 activations, t=500)
     on the card against the plain versions on the CPU, from the same input,
@@ -1799,13 +2038,14 @@ def engine_check():
 # which the sampler at S=256 does not reach, serve_paged for the batched
 # paged kernel, the PagedKVCache run for the single-sequence one, the
 # engine's 32-step sample for the two packed-weight kernels, the 32-step scan
-# sampler for quantized-KV attention, and serve_paged with int8 attention
-# activations for the int8 paged kernel)
+# sampler for quantized-KV attention, serve_paged with int8 attention
+# activations for the int8 paged kernel, and the full-width forward of
+# phase fused_qkv for fused-QKV attention)
 KERNELS = {
     "int8w_matmul": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",
                      "diffusion_llm_rs_tpu/ops/pallas_matmul.py:322",
                      "sampler"),
-    "int8w_mlp": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",
+    "int8w_mlp": ("diffusion_llm_rs_tpu_torch/csrc/int8_mlp.cu",
                   "diffusion_llm_rs_tpu/ops/pallas_matmul.py:399", "sampler"),
     "dense_attention": ("diffusion_llm_rs_tpu_torch/csrc/dense_attention.cu",
                         "diffusion_llm_rs_tpu/ops/pallas_attention.py:213",
@@ -1830,6 +2070,9 @@ KERNELS = {
     "matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/packed_gemm.cu",
                   "diffusion_llm_rs_tpu/ops/pallas_matmul.py:293",
                   "engine_packed_a8"),
+    "fused_qkv_attention": (
+        "diffusion_llm_rs_tpu_torch/csrc/fused_qkv_attention.cu",
+        "diffusion_llm_rs_tpu/ops/pallas_attention.py:293", "fused_qkv"),
 }
 
 
@@ -1843,13 +2086,14 @@ def main() -> int:
     measured = phase(kernels)
     runs = {"sampler": phase(sampler)}
     if runs["sampler"] is not None:
-        for fn in (long_seq, scan_sampler, scan_check, profile, cache_attend,
-                   serve_paged, serve_paged_a8, serve_phase, serve_dense,
-                   serve_check):
+        for fn in (long_seq, scan_sampler, scan_check, profile, fused_qkv,
+                   cache_attend, serve_paged, serve_paged_a8, serve_phase,
+                   serve_dense, serve_check):
             runs[fn.__name__] = phase(fn)
     MODEL.clear()  # the engine phases build their own models
     torch.cuda.empty_cache()
-    for fn in (engine_packed, engine_packed_a8, engine_anchor):
+    for fn in (engine_packed, engine_packed_a8, engine_anchor, engine_gptq,
+               cli):
         runs[fn.__name__] = phase(fn)
     if "engine16" in MODEL and "engine8" in MODEL:
         runs["engine_check"] = phase(engine_check)

@@ -2,15 +2,17 @@
 // quantization and an int8 x int8 -> int32 tensor-core GEMM with a fused
 // f32 epilogue.
 //
-// Replaces the TPU kernels `_kernel_i8w` (diffusion_llm_rs_tpu/ops/
-// pallas_matmul.py, behind `int8w_matmul`) and `_kernel_i8_mlp` (same file,
-// behind `int8w_mlp`). The Python wrappers in
+// Replaces the TPU kernel `_kernel_i8w` (diffusion_llm_rs_tpu/ops/
+// pallas_matmul.py, behind `int8w_matmul`). The Python wrappers in
 // diffusion_llm_rs_tpu_torch/ops/int8_matmul.py chain the two kernels below:
-//   int8w_matmul = quant_rows(x) -> gemm(w, epilogue: *sx*cs + b, gelu, +r)
-//   int8w_mlp    = quant_rows(x) -> gemm(w1, +b1, gelu, f32 out)
-//                  -> quant_rows(inner) -> gemm(w2, +b2, +r)
-// which is the arithmetic of the TPU kernels step for step; only the [M, 4D]
-// f32 inner activation of the MLP makes a round trip through device memory.
+//   int8w_matmul       = quant_rows(x) -> gemm(w, epilogue: *sx*cs + b,
+//                        gelu, +r)
+//   int8w_mlp_chained  = quant_rows(x) -> gemm(w1, +b1, gelu, f32 out)
+//                        -> quant_rows(inner) -> gemm(w2, +b2, +r)
+// which is the arithmetic of the TPU kernels step for step. The chained MLP
+// serves only an inner row too wide for the fused kernel of int8_mlp.cu
+// (`_kernel_i8_mlp`), which keeps the [16, 4D] inner tile on chip and equals
+// this chain bit for bit: both take their arithmetic from int8_common.cuh.
 //
 // What bounds it on an H100: at the sampler's M = 2048 (B=8 x S=256) the
 // MLP pair is int8 tensor-core bound (19.3 GOP over ~14 MB); the single
@@ -20,7 +22,8 @@
 // 8 warps of 64x32, K staged 64 at a time through shared memory, the next
 // tile's global loads in registers while the current one is multiplied.
 // The weight tile is transposed 4x4 bytes at a time with byte permutes on
-// its way into shared memory, so B fragments are single 32-bit loads.
+// its way into shared memory, so B fragments are single 32-bit loads, its
+// words swizzled so neither the stores nor the loads meet in a bank.
 // wgmma, TMA and a deeper pipeline are later work.
 //
 // Arithmetic contract (mirrors the TPU kernels and the plain twins):
@@ -30,22 +33,13 @@
 //   y    = ((float)acc * sx[m]) * cs[n] (+ b[n]) (gelu_tanh) (+ r[m, n])
 // every step rounded on its own (no fused multiply-add), as in f32 XLA.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "int8_common.cuh"
 
 namespace {
 
-constexpr int kQuantThreads = 256;
+using namespace dlm_int8;
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kQuantThreads = 256;
 
 // One block per row: amax over the whole row, then the int8 levels.
 template <typename T>
@@ -70,11 +64,11 @@ __global__ void quant_rows_kernel(const T* __restrict__ x, int K,
   }
   __syncthreads();
   amax = red[0];
-  const float s = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+  const float s = row_scale(amax);
   if (threadIdx.x == 0) sx[row] = s;
   int8_t* out = xi + (size_t)row * K;
   for (int k = threadIdx.x; k < K; k += kQuantThreads)
-    out[k] = (int8_t)(int)rintf(__fdiv_rn(to_f32(xr[k]), s));
+    out[k] = quant_level(to_f32(xr[k]), s);
 }
 
 // ---------------------------------------------------------------- GEMM ---
@@ -83,25 +77,6 @@ constexpr int BM = 128, BN = 128, BK = 64;
 constexpr int kGemmThreads = 256;  // 8 warps: 2 along M x 4 along N
 constexpr int kRowBytes = BK + 16;  // padded smem row: conflict-free frags
 constexpr int kRowWords = kRowBytes / 4;
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float gelu_tanh(float y) {
-  // jax.nn.gelu(approximate=True):
-  //   y * (0.5 * (1 + tanh(sqrt(2/pi) * (y + 0.044715 * y^3))))
-  const float c = 0.7978845608028654f;
-  float y3 = __fmul_rn(__fmul_rn(y, y), y);
-  float inner = __fmul_rn(c, __fadd_rn(y, __fmul_rn(0.044715f, y3)));
-  float cdf = __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner)));
-  return __fmul_rn(y, cdf);
-}
 
 struct Epilogue {
   const float* sx;        // [M]
@@ -163,16 +138,8 @@ __device__ __forceinline__ void store_tile(const TileRegs& r,
   for (int i = 0; i < 2; ++i) {
     int blk = tid + i * kGemmThreads;
     int kb = blk >> 5, nb = blk & 31;
-    // rows r0..r3 hold bytes n..n+3 of k..k+3; out_j holds k..k+3 of n+j
-    uint32_t lo01 = __byte_perm(r.b[i][0], r.b[i][1], 0x5140);
-    uint32_t hi01 = __byte_perm(r.b[i][0], r.b[i][1], 0x7362);
-    uint32_t lo23 = __byte_perm(r.b[i][2], r.b[i][3], 0x5140);
-    uint32_t hi23 = __byte_perm(r.b[i][2], r.b[i][3], 0x7362);
-    uint32_t* col = Bs + (nb * 4) * kRowWords + kb;
-    col[0 * kRowWords] = __byte_perm(lo01, lo23, 0x5410);
-    col[1 * kRowWords] = __byte_perm(lo01, lo23, 0x7632);
-    col[2 * kRowWords] = __byte_perm(hi01, hi23, 0x5410);
-    col[3 * kRowWords] = __byte_perm(hi01, hi23, 0x7632);
+    store_transposed(r.b[i], Bs + (nb * 4) * kRowWords + (kb ^ swizzle(nb * 4)),
+                     kRowWords);
   }
 }
 
@@ -216,8 +183,10 @@ __global__ void __launch_bounds__(kGemmThreads)
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const uint32_t* base = Bs + (wn + j * 8 + g) * kRowWords + ks + t;
-        uint32_t b0 = base[0], b1 = base[4];
+        const int n = wn + j * 8 + g;
+        const uint32_t* base = Bs + n * kRowWords;
+        uint32_t b0 = base[(ks + t) ^ swizzle(n)];
+        uint32_t b1 = base[(ks + t + 4) ^ swizzle(n)];
 #pragma unroll
         for (int i = 0; i < 4; ++i) mma_s8(acc[i][j], a[i], b0, b1);
       }
@@ -237,10 +206,8 @@ __global__ void __launch_bounds__(kGemmThreads)
         for (int e = 0; e < 2; ++e) {
           const int n = n0 + wn + j * 8 + t * 2 + e;
           if (n >= N) continue;
-          float y = __fmul_rn(__fmul_rn((float)acc[i][j][half * 2 + e], s_m),
-                              ep.cs[n]);
-          if (ep.bias) y = __fadd_rn(y, ep.bias[n]);
-          if (ep.gelu) y = gelu_tanh(y);
+          float y = epilogue(acc[i][j][half * 2 + e], s_m, ep.cs[n], ep.bias,
+                             n, ep.gelu);
           const size_t o = (size_t)m * N + n;
           if (ep.residual) y = __fadd_rn(y, __bfloat162float(ep.residual[o]));
           if (ep.out_bf16)

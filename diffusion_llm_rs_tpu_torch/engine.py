@@ -4,8 +4,9 @@ the paged serving batcher.
 Counterpart of `diffusion_llm_rs_tpu/engine.py`, for the part of it that is
 ported: construction (random or given parameters), `from_pretrained` (a
 checkpoint with its config and tokenizer), `quantize_weights` (1/2/4/8-bit
-integers, by default repacked into the `MatmulWeight` layout the packed
-matmul kernel reads; or fp8), greedy `generate` with its exact-prefix
+integers by round to nearest or by GPTQ, by default repacked into the
+`MatmulWeight` layout the packed matmul kernel reads; or fp8), greedy
+`generate` with its exact-prefix
 next-token memo, `sample` through `serving.PagedContinuousBatcher` or, with
 `use_paged=False` and for sequence lengths no page size divides, through the
 phase-aware sampler over a carried quantized KV cache
@@ -13,10 +14,9 @@ phase-aware sampler over a carried quantized KV cache
 manager's accounting, and the model-side keys of `stats`.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: `quantize_weights(method="gptq")` (A10); `prefill`, `process_model`,
-`tokenize_model`, `get_cached_vectors`, the attention-mask cache and the
-dedup / index / router keys of `stats` (A11). Only the ported subsystems are
-constructed.
+item: `prefill`, `process_model`, `tokenize_model`, `get_cached_vectors`,
+the attention-mask cache and the dedup / index / router keys of `stats`
+(A11). Only the ported subsystems are constructed.
 
 Everything runs on `device`: the card unless the caller asks for the CPU.
 Where the JAX package draws from a PRNG key, this one draws from a seeded
@@ -43,9 +43,19 @@ from diffusion_llm_rs_tpu_torch.ops.packed_matmul import prepare
 from diffusion_llm_rs_tpu_torch.quant.core import (Fp8Tensor, QuantizedTensor,
                                                    map_leaves, quantize_fp8,
                                                    quantize_tree, tree_leaves)
+from diffusion_llm_rs_tpu_torch.quant.gptq import (gptq_quantize_tree,
+                                                   make_calib_batches)
 from diffusion_llm_rs_tpu_torch.tokenizer.bpe import BPETokenizer
 from diffusion_llm_rs_tpu_torch.utils.serialization import (get_metadata,
                                                             load_checkpoint)
+
+
+# GPTQ's calibration texts when the caller gives none
+GPTQ_SEED_TEXTS = (
+    "the quick brown fox jumps over the lazy dog",
+    "diffusion language models denoise token embeddings",
+    "quantized key value caches keep memory small",
+)
 
 
 def _default_tokenizer(vocab_size: int) -> BPETokenizer:
@@ -120,20 +130,23 @@ class Engine:
 
     def quantize_weights(self, bits: int, kernel_layout: bool = True,
                          method: str = "int",
-                         calib_texts: Optional[Sequence[str]] = None) -> None:
+                         calib_texts: Optional[Sequence[str]] = None,
+                         noise=None) -> None:
         """Weight-only quantization of all large matrices, in groups along
         the contraction axis.
 
         method="int" packs 1/2/4/8-bit integers (round to nearest);
+        method="gptq" runs GPTQ (`quant.gptq`) on the matmul weights,
+        calibrated on `calib_texts` (three built-in texts if omitted) noised
+        by the forward process with draws from `noise` (a noise source or a
+        `torch.Generator`; by default a generator seeded with 0 on the
+        device), then rounds the embedding to nearest;
         method="fp8" stores float8_e4m3fn with a per-tensor scale. With
         kernel_layout (default), 2-D int-quantized weights are repacked once
         into the packed matmul kernel's layout (`ops.packed_matmul.prepare`,
         at the config's `weight_quant.act_bits`); a matrix the layout cannot
-        hold (an odd vocabulary) stays a `QuantizedTensor`. `calib_texts`
-        calibrate GPTQ only.
+        hold (an odd vocabulary) stays a `QuantizedTensor`.
         """
-        if method == "gptq":
-            raise _deferred('quantize_weights(method="gptq")', "A10")
         # every memo derived from the old parameters would report their
         # behaviour: drop them all
         self._invalidate_param_memos()
@@ -151,6 +164,20 @@ class Engine:
             self._weight_bits = 8
             return
 
+        if method == "gptq":
+            texts = list(calib_texts) if calib_texts else list(GPTQ_SEED_TEXTS)
+            # at most max_sequence_length tokens a text, the window
+            # `denoising_perplexity` reads (JAX's engine feeds the whole text
+            # and fails on the anchor, whose texts run past its 32)
+            token_batches = [
+                self.tokenizer.encode(s)[: self.config.max_sequence_length]
+                for s in texts]
+            token_batches = [b for b in token_batches if len(b) >= 2]
+            batches = make_calib_batches(self.params, self.config,
+                                         self.schedule, token_batches, noise)
+            self.params = gptq_quantize_tree(self.params, self.config,
+                                             batches, bits=bits)
+        # the lookup tables GPTQ leaves (tok_embed) round to nearest
         self.params = quantize_tree(
             self.params, bits, symmetric=self.config.weight_quant.sym,
             group_size=self.config.weight_quant.group_size)

@@ -21,8 +21,10 @@ attention (the paged serving step) passes `attend_fn`.
 `init_simple_denoiser` and `simple_denoiser_forward` are the one-matrix model
 of the examples and tests.
 
-Not ported yet: the calibration tap of `denoiser_forward` (ROADMAP.md item
-A10); passing it raises NotImplementedError.
+`tap(name, input)` sees the input of every linear before it runs, named by
+its weight's path ("blocks/0/mlp/w1"): GPTQ collects its Hessians through
+it. With a tap the MLP takes its two linears, so the inner activation is
+seen too.
 """
 
 from __future__ import annotations
@@ -178,10 +180,13 @@ def denoiser_forward(
     with `cached_qkv` (one packed `QuantKV` pair [B*H, Skv, Hd] per layer) it
     reads it through the quantized-KV kernel, which takes no mask.
     `attend_fn(layer_idx, q, k, v, mask) -> [B, S, H, Hd]` takes the place of
-    attention in every layer; its result is cast to the working dtype."""
-    if tap is not None:
-        raise NotImplementedError("denoiser_forward: the calibration tap is "
-                                  "not ported yet (ROADMAP.md item A10)")
+    attention in every layer; its result is cast to the working dtype.
+    `tap(name, input)` is called with each linear's input, in JAX's order and
+    with JAX's names."""
+    has_tap = tap is not None
+    if tap is None:
+        def tap(name, value):
+            del name, value
     B, S, D = x.shape
     if S > cfg.max_sequence_length:
         raise ValueError(
@@ -192,7 +197,9 @@ def denoiser_forward(
 
     temb = timestep_embedding(t, D)
     tm = params["time_mlp"]
+    tap("time_mlp/w1", temb)
     t_in = linear(temb.to(dtype), tm["w1"], tm["b1"], activation="gelu")
+    tap("time_mlp/w2", t_in)
     temb = linear(t_in, tm["w2"], tm["b2"])
     h = x + params["pos_embed"][:S].to(dtype)[None] + temb[:, None, :]
 
@@ -204,6 +211,7 @@ def denoiser_forward(
     for li, blk in enumerate(params["blocks"]):
         hn = layer_norm(h, blk["ln1"])
         a = blk["attn"]
+        tap(f"blocks/{li}/attn/wqkv", hn)
         qkv = linear(hn, a["wqkv"])  # [B, S, 3D]
         q = _split_heads(qkv[..., :D], H)
         k = _split_heads(qkv[..., D:2 * D], H)
@@ -232,17 +240,23 @@ def denoiser_forward(
                 k = cached_kv[0][li].to(dtype)
                 v = cached_kv[1][li].to(dtype)
             attn_out = attention(q, k, v, mask, flash=flash_attn)
-        h = linear(attn_out.reshape(B, S, D), a["wo"], residual=h)
+        ao = attn_out.reshape(B, S, D)
+        tap(f"blocks/{li}/attn/wo", ao)
+        h = linear(ao, a["wo"], residual=h)
 
         hn = layer_norm(h, blk["ln2"])
         m = blk["mlp"]
-        if isinstance(m["w1"], Int8Weight) and isinstance(m["w2"], Int8Weight):
+        tap(f"blocks/{li}/mlp/w1", hn)
+        if (isinstance(m["w1"], Int8Weight) and isinstance(m["w2"], Int8Weight)
+                and not has_tap):
             h = int8_mlp(hn, m["w1"], m["b1"], m["w2"], m["b2"], residual=h)
         else:
             inner = linear(hn, m["w1"], m["b1"], activation="gelu")
+            tap(f"blocks/{li}/mlp/w2", inner)
             h = linear(inner, m["w2"], m["b2"], residual=h)
 
     h = layer_norm(h, params["ln_f"])
+    tap("head/w", h)
     eps = linear(h, params["head"]["w"])
 
     outs = [eps]

@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared library
 with a plain C interface, `build/kernels/<name>-<hash>.so` at the root of the
-checkout, on first use; the hash of the source names the file, so an edited
-source builds anew. The libraries are loaded with `ctypes`: every pointer and
-the stream pass as `c_void_p`, every C function returns a `cudaError_t`, and
-`check` raises when it is not 0.
+checkout, on first use; the hash of the source and of the shared headers
+(`csrc/*.cuh`) names the file, so an edited source builds anew. The
+libraries are loaded with `ctypes`: every pointer and the stream pass as
+`c_void_p`, every int as `c_int`, every C function returns an int (a
+`cudaError_t`, or a size), and `check` raises when an error is not 0.
 
 The launch counts live here too: each kernel wrapper adds one to its entry of
 `launch_counts` where it launches its kernel, and nowhere else.
@@ -25,8 +26,9 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("int8_gemm", "dense_attention", "paged_attention", "packed_gemm",
-           "quant_attention", "paged_attention_a8")
+SOURCES = ("int8_gemm", "int8_mlp", "dense_attention", "paged_attention",
+           "packed_gemm", "quant_attention", "paged_attention_a8",
+           "fused_qkv_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +38,8 @@ SIGNATURES = {
     "dlm_quant_rows": ("int8_gemm", (_P, _I, _P, _P, _I, _I, _P)),
     "dlm_int8_gemm": ("int8_gemm", (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
                                     _I, _I, _P)),
+    "dlm_int8_mlp_smem": ("int8_mlp", (_I, _I)),
+    "dlm_int8_mlp": ("int8_mlp", (_P,) * 9 + (_I,) * 5 + (_P,)),
     "dlm_dense_attention": ("dense_attention", (_P, _P, _P, _P, _I, _I, _I, _I,
                                                 _F, _P)),
     "dlm_batched_paged_attention": ("paged_attention",
@@ -45,6 +49,8 @@ SIGNATURES = {
                                        (_P,) * 12 + (_I,) * 9 + (_F, _P)),
     "dlm_quant_attention": ("quant_attention", (_P,) * 8 + (_I,) * 5 + (_F, _P)),
     "dlm_packed_gemm": ("packed_gemm", (_P,) * 7 + (_I, _P) + (_I,) * 7 + (_P,)),
+    "dlm_fused_qkv_attention": ("fused_qkv_attention",
+                                (_P, _P) + (_I,) * 5 + (_F, _P)),
 }
 
 launch_counts: collections.Counter = collections.Counter()
@@ -70,7 +76,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's hash
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

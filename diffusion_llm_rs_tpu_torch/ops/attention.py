@@ -10,6 +10,11 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_attention.py`:
     D; the affine terms fold into row corrections, so both products run on
     the integer levels. Kernel: `csrc/quant_attention.cu`. The phase-aware
     sampler carries its KV cache between steps in this form.
+  - `fused_qkv_attention` (TPU kernel `_qkv_kernel`): every head straight
+    from the fused [B, S, 3D] projection -> [B, S, D], the full softmax row
+    normalised before P is rounded to bf16. Kernel:
+    `csrc/fused_qkv_attention.cu`. Like JAX's, the denoiser does not call
+    it; a caller reaches it through `denoiser_forward(attend_fn=...)`.
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version (`*_plain`), which repeats the TPU kernel's tile
 loop at the same rounding points.
@@ -254,4 +259,80 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
         BH, Sq, Skv, D, k.bits, float(sm),
         torch.cuda.current_stream(q.device).cuda_stream), "quant_attention")
     _build.launch_counts["quant_attention"] += 1
+    return out
+
+
+# ------------------------------------------------------- fused-QKV attention
+
+FUSED_QKV_VMEM = 8 * 1024 * 1024  # the TPU kernel's whole-row budget
+
+
+def fused_qkv_fits(qkv_shape, num_heads: int) -> bool:
+    """Where JAX's `fused_qkv_attention` runs its kernel (it returns None
+    elsewhere): 3D splits into heads of a multiple of 8, S % 8 == 0, and
+    the whole [S, 3D] row, the [S, S] f32 logits and the output within
+    8 MiB."""
+    _, S, threeD = qkv_shape
+    D = threeD // 3
+    if threeD % 3 or D % num_heads or (D // num_heads) % 8:
+        return False
+    return not (S % 8 or S * threeD * 2 + S * S * 4 + S * D * 2 > FUSED_QKV_VMEM)
+
+
+def fused_qkv_attention_plain(qkv: torch.Tensor, num_heads: int,
+                              sm_scale: Optional[float] = None,
+                              out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of `fused_qkv_attention`, in the TPU kernel's order:
+    bf16 operands, f32 logits times sm_scale, the row max over all keys,
+    exp, division by the row sum, bf16(p) @ v with f32 accumulation."""
+    B, S, threeD = qkv.shape
+    D = threeD // 3
+    Hd = D // num_heads
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(Hd)
+    x = qkv.to(torch.bfloat16).to(torch.float32)
+    q, k, v = (x[..., i * D:(i + 1) * D].reshape(B, S, num_heads, Hd)
+               .transpose(1, 2) for i in range(3))
+    logits = (q @ k.transpose(-1, -2)) * sm_scale
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = _bf16(p) @ v
+    return out.transpose(1, 2).reshape(B, S, D).to(out_dtype)
+
+
+def fused_qkv_attention(qkv: torch.Tensor, num_heads: int,
+                        sm_scale: Optional[float] = None,
+                        out_dtype=torch.bfloat16) -> Optional[torch.Tensor]:
+    """Full-sequence bidirectional attention off the fused projection:
+    qkv [B, S, 3D] -> [B, S, D] (heads concatenated), or None where JAX's
+    wrapper returns None (`fused_qkv_fits`).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel
+    (bf16 or f32 out), which serves every shape the predicate admits."""
+    if qkv.ndim != 3:
+        raise ValueError(f"fused_qkv_attention: qkv must be [B, S, 3D], got "
+                         f"{tuple(qkv.shape)}")
+    if not fused_qkv_fits(qkv.shape, num_heads):
+        return None
+    if qkv.device.type == "cpu":
+        return fused_qkv_attention_plain(qkv, num_heads, sm_scale, out_dtype)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_qkv_attention: unsupported device {qkv.device}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_qkv_attention: out_dtype {out_dtype}, the "
+                         "kernel writes bf16 or f32")
+    B, S, threeD = qkv.shape
+    D = threeD // 3
+    Hd = D // num_heads
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(Hd)
+    xb = qkv.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        raise ValueError("fused_qkv_attention: qkv must be 16-byte aligned "
+                         "(the kernel reads rows 16 bytes at a time)")
+    out = torch.empty((B, S, D), dtype=out_dtype, device=qkv.device)
+    _build.check(_build.function("dlm_fused_qkv_attention")(
+        xb.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
+        B, S, num_heads, Hd, float(sm_scale),
+        torch.cuda.current_stream(qkv.device).cuda_stream),
+        "fused_qkv_attention")
+    _build.launch_counts["fused_qkv_attention"] += 1
     return out

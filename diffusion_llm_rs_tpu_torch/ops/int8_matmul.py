@@ -8,10 +8,15 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_matmul.py`:
   - `int8w_matmul` (TPU kernel `_kernel_i8w`) and `int8w_mlp`
     (`_kernel_i8_mlp`): per-row int8 activation quantization, int8 x int8
     -> int32 dot, f32 epilogue `*sx[m]*col_scale[n] + bias -> gelu ->
-    +residual`. On a CUDA tensor they launch the kernels of
-    `csrc/int8_gemm.cu`; on a CPU tensor they run their plain twins
-    `int8w_matmul_plain` / `int8w_mlp_plain`, which repeat the kernels'
-    arithmetic in the same order.
+    +residual`. On a CUDA tensor `int8w_matmul` launches the kernels of
+    `csrc/int8_gemm.cu`, and `int8w_mlp` the fused kernel of
+    `csrc/int8_mlp.cu`, which keeps the inner activation of 16 rows in
+    shared memory; an inner row too wide for it (`mlp_fits`) takes
+    `int8w_mlp_chained`, the same arithmetic as four launches of
+    `csrc/int8_gemm.cu`, counted and logged under its own name. On a CPU
+    tensor they run their plain twins `int8w_matmul_plain` /
+    `int8w_mlp_plain`, which repeat the kernels' arithmetic in the same
+    order.
 
 The integer product of the twins is taken in float64, which is exact here
 (|sum| <= K * 127^2 < 2^53): torch has no integer matmul on CUDA, and on the
@@ -21,6 +26,8 @@ CPU an int8 matmul returns int8 and overflows.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import logging
 import math
 from typing import Optional
 
@@ -35,6 +42,8 @@ from diffusion_llm_rs_tpu_torch.quant.core import (
 
 # jax.nn.gelu(approximate=True) takes sqrt(2/pi) in the input's dtype
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+_log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,14 +307,62 @@ def int8w_matmul(x: torch.Tensor, data: torch.Tensor, col_scale: torch.Tensor,
     return out.reshape(*lead, N)
 
 
+@functools.lru_cache(maxsize=None)
+def mlp_fits(K: int, F: int) -> bool:
+    """Whether the fused MLP kernel holds a 16-row inner tile of width F
+    (with the x tile of width K) in one block's shared memory: F <= 3072
+    at K = 768, the sampler's widths."""
+    return _build.function("dlm_int8_mlp_smem")(K, F) > 0
+
+
+def _mlp_args(name, x, w1_data, cs1, b1, w2_data, cs2, b2, residual,
+              out_dtype):
+    """Checked, contiguous kernel operands of an MLP call on the card."""
+    K = x.shape[-1]
+    N1, N2 = w1_data.shape[1], w2_data.shape[1]
+    _check_weight(name, w1_data, cs1, K)
+    _check_weight(name, w2_data, cs2, N1)
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"{name}: out_dtype {out_dtype} not f32/bf16")
+    x2 = x.reshape(-1, K).to(torch.bfloat16).contiguous()
+    M = x2.shape[0]
+    b1 = _epilogue_vec(b1, N1, name)
+    b2 = _epilogue_vec(b2, N2, name)
+    residual = _residual(residual, M, N2, name)
+    _check_cuda(name, x2.device, w1_data=w1_data, cs1=cs1, b1=b1,
+                w2_data=w2_data, cs2=cs2, b2=b2, residual=residual)
+    return x2, b1, b2, residual
+
+
+def int8w_mlp_chained(x: torch.Tensor, w1_data: torch.Tensor,
+                      cs1: torch.Tensor, b1: torch.Tensor,
+                      w2_data: torch.Tensor, cs2: torch.Tensor,
+                      b2: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """`int8w_mlp` as four kernels on the card (quantize, GEMM with an f32
+    inner output, quantize, GEMM): JAX's two-linear fall-back, for inner
+    rows too wide for the fused kernel. Bit for bit the fused result."""
+    if x.device.type != "cuda":
+        raise ValueError(f"int8w_mlp_chained: unsupported device {x.device}")
+    N2 = w2_data.shape[1]
+    x2, b1, b2, residual = _mlp_args("int8w_mlp_chained", x, w1_data, cs1, b1,
+                                     w2_data, cs2, b2, residual, out_dtype)
+    xi, sx = _quant_rows(x2)
+    inner = _gemm(xi, sx, w1_data, cs1, b1, None, True, torch.float32)
+    yi, sy = _quant_rows(inner)
+    out = _gemm(yi, sy, w2_data, cs2, b2, residual, False, out_dtype)
+    _build.launch_counts["int8w_mlp_chained"] += 1
+    return out.reshape(*x.shape[:-1], N2)
+
+
 def int8w_mlp(x: torch.Tensor, w1_data: torch.Tensor, cs1: torch.Tensor,
               b1: torch.Tensor, w2_data: torch.Tensor, cs2: torch.Tensor,
               b2: torch.Tensor, residual: Optional[torch.Tensor] = None,
               out_dtype=torch.bfloat16) -> torch.Tensor:
     """MLP block x @ w1 -> +b1, gelu -> @ w2 -> +b2 (+ residual) over decoded
     int8 weights; the inner activation is requantized from f32, as in the TPU
-    kernel. CPU tensors take the plain twin; CUDA tensors launch the kernels
-    (quantize, GEMM, quantize, GEMM)."""
+    kernel. CPU tensors take the plain twin; CUDA tensors launch the fused
+    kernel, or, for an inner row too wide for it, `int8w_mlp_chained`."""
     if x.device.type == "cpu":
         return int8w_mlp_plain(x, w1_data, cs1, b1, w2_data, cs2, b2,
                                residual, out_dtype)
@@ -313,21 +370,24 @@ def int8w_mlp(x: torch.Tensor, w1_data: torch.Tensor, cs1: torch.Tensor,
         raise ValueError(f"int8w_mlp: unsupported device {x.device}")
     K = x.shape[-1]
     N1, N2 = w1_data.shape[1], w2_data.shape[1]
-    _check_weight("int8w_mlp", w1_data, cs1, K)
-    _check_weight("int8w_mlp", w2_data, cs2, N1)
-    if out_dtype not in _OUT_DTYPES:
-        raise ValueError(f"int8w_mlp: out_dtype {out_dtype} not f32/bf16")
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, K).to(torch.bfloat16).contiguous()
+    if not mlp_fits(K, N1):
+        if (K, N1) not in _chained_shapes:
+            _chained_shapes.add((K, N1))
+            _log.warning("int8w_mlp: inner row %d -> %d does not fit the fused "
+                         "kernel; running int8w_mlp_chained", K, N1)
+        return int8w_mlp_chained(x, w1_data, cs1, b1, w2_data, cs2, b2,
+                                 residual, out_dtype)
+    x2, b1, b2, residual = _mlp_args("int8w_mlp", x, w1_data, cs1, b1,
+                                     w2_data, cs2, b2, residual, out_dtype)
     M = x2.shape[0]
-    b1 = _epilogue_vec(b1, N1, "int8w_mlp")
-    b2 = _epilogue_vec(b2, N2, "int8w_mlp")
-    residual = _residual(residual, M, N2, "int8w_mlp")
-    _check_cuda("int8w_mlp", x2.device, w1_data=w1_data, cs1=cs1, b1=b1,
-                w2_data=w2_data, cs2=cs2, b2=b2, residual=residual)
-    xi, sx = _quant_rows(x2)
-    inner = _gemm(xi, sx, w1_data, cs1, b1, None, True, torch.float32)
-    yi, sy = _quant_rows(inner)
-    out = _gemm(yi, sy, w2_data, cs2, b2, residual, False, out_dtype)
+    out = torch.empty((M, N2), dtype=out_dtype, device=x2.device)
+    _build.check(_build.function("dlm_int8_mlp")(
+        x2.data_ptr(), w1_data.data_ptr(), cs1.data_ptr(), _ptr(b1),
+        w2_data.data_ptr(), cs2.data_ptr(), _ptr(b2), _ptr(residual),
+        out.data_ptr(), int(out_dtype == torch.bfloat16), M, K, N1, N2,
+        _stream(x2.device)), "int8_mlp")
     _build.launch_counts["int8w_mlp"] += 1
-    return out.reshape(*lead, N2)
+    return out.reshape(*x.shape[:-1], N2)
+
+
+_chained_shapes: set = set()  # (K, F) already logged by int8w_mlp

@@ -166,9 +166,10 @@ def test_forward_fp32_matches(models):
     tc = tdn.denoiser_forward(tparams, models["tcfg"], torch.from_numpy(x),
                               torch.from_numpy(t), cached_kv=(tk, tv))
     assert torch.equal(tc, teps)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tdn.denoiser_forward(tparams, models["tcfg"], torch.from_numpy(x),
-                             torch.from_numpy(t), tap=lambda name, val: None)
+    # a tap only watches: the same eps with one
+    tt = tdn.denoiser_forward(tparams, models["tcfg"], torch.from_numpy(x),
+                              torch.from_numpy(t), tap=lambda name, val: None)
+    assert torch.equal(tt, teps)
 
 
 def test_forward_w4a8_matches_pallas_kernels(models, pallas_on):
@@ -185,6 +186,41 @@ def test_forward_w4a8_matches_pallas_kernels(models, pallas_on):
     # each act-quant rounds such a difference to a whole level now and then,
     # which puts ~1e-3 on eps: bound 5e-3
     assert _rel(teps.numpy(), jeps) < 5e-3
+
+
+def _tapped(forward, params, cfg, x, t):
+    seen = []
+    forward(params, cfg, x, t, tap=lambda name, v: seen.append(
+        (name, np.array(v, dtype=np.float32))))
+    return seen
+
+
+@pytest.mark.parametrize("mode", ["fp32", "w4a8"])
+def test_tap_sees_jax_names_and_inputs(models, pallas_on, mode, monkeypatch):
+    """The calibration tap: the input of every linear, under JAX's name, in
+    JAX's order (time MLP, then per block wqkv, wo, mlp/w1, mlp/w2, then the
+    head), with JAX's values. With a tap the W4A8 MLP takes its two
+    linears, as JAX's does, so the inner activation is seen: the fused MLP
+    must not run. fp32 within 1e-4 relative; W4A8 within 5e-3 (the act-quant
+    amplification of test_forward_w4a8_matches_pallas_kernels)."""
+    jp, tp = models[mode]
+    x, t = _inputs(3)
+    want = _tapped(jdn.denoiser_forward, jp, models["jcfg"], jnp.asarray(x),
+                   jnp.asarray(t))
+
+    def no_fused_mlp(*a, **k):
+        raise AssertionError("the fused MLP ran under a tap")
+    monkeypatch.setattr(tdn, "int8_mlp", no_fused_mlp)
+    got = _tapped(tdn.denoiser_forward, tp, models["tcfg"],
+                  torch.from_numpy(x), torch.from_numpy(t))
+    L = models["tcfg"].num_layers
+    assert [n for n, _ in got] == [n for n, _ in want]
+    assert len(got) == 2 + 4 * L + 1
+    assert got[-1][0] == "head/w" and got[2][0] == "blocks/0/attn/wqkv"
+    bound = 1e-4 if mode == "fp32" else 5e-3
+    for (name, a), (_, b) in zip(got, want):
+        assert a.shape == b.shape, name
+        assert _rel(a, b) < bound, (name, _rel(a, b))
 
 
 def test_forward_w4a8_near_jax_cpu_fallback(models):

@@ -62,8 +62,7 @@ def test_int8w_matmul_kernel_matches_twin(gen, M, K, N, gelu, out_dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-6)
 
 
-def test_int8w_mlp_kernel_matches_twin(gen):
-    M, D, F = 100, 128, 512
+def _mlp_args(gen, M, D, F, out_dtype=torch.float32):
     x = torch.randn((M, D), generator=gen, device="cuda").to(torch.bfloat16)
     w1, w2 = _w(D, F, gen), _w(F, D, gen)
     cs1 = torch.rand((1, F), generator=gen, device="cuda") * 1e-3
@@ -71,11 +70,84 @@ def test_int8w_mlp_kernel_matches_twin(gen):
     b1 = torch.randn((F,), generator=gen, device="cuda")
     b2 = torch.randn((D,), generator=gen, device="cuda")
     r = torch.randn((M, D), generator=gen, device="cuda").to(torch.bfloat16)
-    args = (x, w1, cs1, b1, w2, cs2, b2, r, torch.float32)
+    return (x, w1, cs1, b1, w2, cs2, b2, r, out_dtype)
+
+
+def test_int8w_mlp_kernel_matches_twin(gen):
+    args = _mlp_args(gen, 100, 128, 512)
     out = im.int8w_mlp(*args)
     ref = im.int8w_mlp_plain(*args)
     rel = float((out - ref).norm() / ref.norm())
     assert rel <= 1e-3, rel  # one requant level of the f32 inner may move
+
+
+# the sampler's widths (M = 2048, 768 -> 3072 -> 768), the anchor's
+# (256 -> 1024 -> 256) and a ragged one: M % 16, K and F not multiples of 64
+MLP_SHAPES = [(2048, 768, 3072), (37, 256, 1024), (130, 80, 208)]
+
+
+@pytest.mark.parametrize("M,D,F", MLP_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8w_mlp_fused_equals_chained(gen, M, D, F, out_dtype):
+    """The fused kernel keeps the inner tile on chip but rounds every step as
+    the chained kernels do: bit for bit equal; within 1e-3 of the plain
+    version (tanh's last bit may move one requant level)."""
+    args = _mlp_args(gen, M, D, F, out_dtype)
+    assert im.mlp_fits(D, F)
+    _build.reset_launch_counts()
+    out = im.int8w_mlp(*args)
+    chained = im.int8w_mlp_chained(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["int8w_mlp"] == 1
+    assert _build.launch_counts["int8w_mlp_chained"] == 1
+    assert torch.equal(out, chained)
+    ref = im.int8w_mlp_plain(*args)
+    rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+    assert rel <= 1e-3, rel
+
+
+def test_int8w_mlp_too_wide_runs_chained(gen):
+    """An inner row of 4096 does not fit one block's shared memory: the
+    chained kernels run, counted under their own name."""
+    args = _mlp_args(gen, 40, 256, 4096)
+    assert not im.mlp_fits(256, 4096)
+    _build.reset_launch_counts()
+    out = im.int8w_mlp(*args)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"int8w_mlp_chained": 1}
+    ref = im.int8w_mlp_plain(*args)
+    assert float((out - ref).norm() / ref.norm()) <= 1e-3
+
+
+# the sampler's shape, JAX's largest S at that width (864), a ragged S with
+# heads of 32, and heads of 8 (a partial 64-wide head-dimension chunk)
+QKV_SHAPES = [(8, 256, 768, 12), (1, 864, 768, 12), (2, 200, 128, 4),
+              (2, 72, 64, 8)]
+
+
+@pytest.mark.parametrize("B,S,D,H", QKV_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_fused_qkv_attention_kernel_matches_plain(gen, B, S, D, H, out_dtype):
+    """The kernel's QK^T sums in another order and uses CUDA's expf, which
+    can move a bf16 rounding of P: relative Frobenius error <= 1e-3 with f32
+    out, 5e-3 with bf16 out (the output's own rounding may move too)."""
+    qkv = torch.randn((B, S, 3 * D), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    _build.reset_launch_counts()
+    out = qa.fused_qkv_attention(qkv, H, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_qkv_attention"] == 1
+    assert out.shape == (B, S, D) and out.dtype == out_dtype
+    ref = qa.fused_qkv_attention_plain(qkv, H, out_dtype=out_dtype)
+    rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+    assert rel <= (1e-3 if out_dtype == torch.float32 else 5e-3), rel
+
+
+def test_fused_qkv_attention_returns_none_where_jax_does(gen):
+    for shape, H in (((1, 872, 3 * 768), 12), ((1, 20, 3 * 64), 2),
+                     ((1, 64, 3 * 96), 8)):
+        qkv = torch.zeros(shape, device="cuda", dtype=torch.bfloat16)
+        assert qa.fused_qkv_attention(qkv, H) is None
 
 
 @pytest.mark.parametrize("BH,Sq,Skv", [(3, 64, 64), (2, 100, 1000),

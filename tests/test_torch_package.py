@@ -12,7 +12,8 @@ from diffusion_llm_rs_tpu import config as jcfg
 from diffusion_llm_rs_tpu_torch import config as tcfg
 from diffusion_llm_rs_tpu_torch.ops import _build
 from diffusion_llm_rs_tpu_torch.ops import int8_matmul as tim
-from diffusion_llm_rs_tpu_torch.ops.attention import dense_attention
+from diffusion_llm_rs_tpu_torch.ops.attention import (dense_attention,
+                                                  fused_qkv_attention)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "diffusion_llm_rs_tpu_torch").rglob("*.py")) + [
@@ -41,7 +42,8 @@ def test_port_sources_are_walked():
     assert {"int8_matmul.py", "attention.py", "denoiser.py", "diffusion.py",
             "core.py", "config.py", "weights.py", "chip_smoke.py",
             "packed_matmul.py", "matmul.py", "engine.py", "serialization.py",
-            "bpe.py", "kv_cache.py", "serving.py"} <= names
+            "bpe.py", "kv_cache.py", "serving.py", "gptq.py",
+            "calibrate.py", "__main__.py"} <= names
 
 
 def test_new_modules_import_without_jax_loaded():
@@ -62,6 +64,8 @@ def test_new_modules_import_without_jax_loaded():
         "import diffusion_llm_rs_tpu_torch.utils.serialization\n"
         "import diffusion_llm_rs_tpu_torch.tokenizer.bpe\n"
         "import diffusion_llm_rs_tpu_torch.cache.kv_cache\n"
+        "import diffusion_llm_rs_tpu_torch.quant.calibrate\n"
+        "import diffusion_llm_rs_tpu_torch.__main__\n"
         "eng = e.Engine.from_pretrained(device='cpu')\n"
         "print(repr(eng.generate('the quick', max_length=2)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -107,7 +111,11 @@ def test_wrappers_refuse_other_devices_and_bad_args():
     with pytest.raises(ValueError, match="unsupported device"):
         tim.int8w_mlp(x, w, cs, cs, w, cs, cs)
     with pytest.raises(ValueError, match="unsupported device"):
+        tim.int8w_mlp_chained(x, w, cs, cs, w, cs, cs)
+    with pytest.raises(ValueError, match="unsupported device"):
         dense_attention(x[None], x[None], x[None])
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_qkv_attention(torch.zeros(1, 8, 48, device="meta"), 2)
     with pytest.raises(ValueError, match="unknown activation"):
         tim.int8w_matmul(torch.zeros(4, 32), torch.zeros(32, 16, dtype=torch.int8),
                          torch.ones(1, 16), activation="relu")
