@@ -11,9 +11,15 @@ Phases (any failure makes the script exit non-zero without the final line):
                 shapes of the paths below, with the tolerance stated; times
                 of the kernel, the twin, one library call used only as a
                 yardstick, and the least time the card could take (bound).
-                The fused MLP also bit for bit against the chained kernels,
-                with their time. Also quantize_page and quantize_kv on the
-                card against the CPU, bit for bit.
+                The attention kernels also at the other head widths the
+                port serves (32 and 128; the anchor's 8 heads of 32 in paged
+                pools of 4 heads a row and pages of 8 and 32; dense
+                attention timed at all three widths and with f32 out). The
+                fused MLP also bit for bit against the chained kernels,
+                with their time. torch._int_mm takes more than 16 rows, so
+                its yardstick at M = 8 pads the rows to 32 (noted). Also
+                quantize_page and quantize_kv on the card against the CPU,
+                bit for bit.
   4. sampler  - the W4A8 sampler at full width (12 layers, 768 wide, 12 heads,
                 vocab 50257; random weights from a seed, quantized in the
                 port): B=8, S=256, 32 steps, bf16 activations, timed 5 times
@@ -71,9 +77,16 @@ Phases (any failure makes the script exit non-zero without the final line):
                 scan sampler), engine_packed_a8 (the same with
                 `weight_quant.act_bits=8`, the `matmul_a8` kernel),
                 engine_anchor (`Engine.from_pretrained()` on the shipped
-                trained checkpoint: fp32 `generate` on the card equal to the
-                CPU token for token, perplexity of a fixed text under a tenth
-                of the vocabulary before and after int4) and engine_check
+                trained checkpoint, 8 heads of 32: fp32 `generate` on the
+                card equal to the CPU token for token, perplexity of a fixed
+                text under a tenth of the vocabulary before and after int4,
+                `sample(seq_len=10)` through the scan sampler and
+                quant_attention, `sample(attend_mode="paged")` through the
+                paged kernel; launch counts > 0, tokens in range),
+                train_grad (one `p_losses` gradient at S=1024 on a 2-layer
+                f32 model of the anchor's widths: dense_attention with f32
+                out at heads of 32 and JAX's VJP, nonzero wq/wk/wv gradients
+                within 1e-2 of the einsum path's) and engine_check
                 (one packed forward on the card against the plain versions on
                 the CPU, act16 and a8); engine_gptq (the anchor quantized by
                 GPTQ on the card and on the CPU from the same draws: grids
@@ -208,6 +221,17 @@ def _int_mm_epilogue(xi, sx, w, cs, bias, gelu, residual, out_dtype):
     return y.to(out_dtype)
 
 
+def _int_mm_rows(xi, sx):
+    """torch._int_mm takes more than 16 rows: fewer are padded with zero
+    rows to 32 (the note says so beside the time)."""
+    M = xi.shape[0]
+    if M > 16:
+        return xi, sx, None
+    xi = torch.cat([xi, xi.new_zeros((32 - M, xi.shape[1]))])
+    sx = torch.cat([sx, sx.new_ones((32 - M, 1))])
+    return xi, sx, f"torch._int_mm at M={M} padded to 32 rows"
+
+
 def _compare(out, ref, atol, rtol):
     out, ref = out.float(), ref.float()
     err = (out - ref).abs()
@@ -255,18 +279,16 @@ def kernels():
         ms = time_ms(lambda: im.int8w_matmul(x, w, cs, b, act, r, out_dtype=bf16))
         plain_ms = time_ms(
             lambda: im.int8w_matmul_plain(x, w, cs, b, act, r, out_dtype=bf16), 5)
-        lib_ms = None
-        if M > 16:  # torch._int_mm takes M > 16 only
-            xi, sx = im.quant_rows_plain(x.float())
-            lib_ms = time_ms(lambda: _int_mm_epilogue(
-                xi, sx, w, cs, b, gelu, r, bf16))
+        xi, sx, lib_note = _int_mm_rows(*im.quant_rows_plain(x.float()))
+        lib_ms = time_ms(lambda: _int_mm_epilogue(
+            xi, sx, w, cs, b, gelu, r, bf16))
         nbytes = M * K * 2 + K * N + N * 4 + (N * 4 if bias else 0) \
             + (M * N * 2 if resid else 0) + M * N * 2
         b_ms, b_by = bound(nbytes, 2 * M * K * N, PEAK_INT8_OPS)
         results["int8w_matmul"].append(dict(
             shape=f"{label} M={M} K={K} N={N}", max_abs_err=err, rel_err=rel,
             tolerance=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by))
+            library_note=lib_note, bound_ms=b_ms, bound_by=b_by))
         log(f"  int8w_matmul {label}: max_abs_err {err:.3g} rel {rel:.3g} "
             f"({tol}) {'ok' if ok else 'MISMATCH'}; {ms:.4f} ms, plain "
             f"{plain_ms:.4f}, library {lib_ms}, bound {b_ms:.4f} ({b_by})")
@@ -320,32 +342,40 @@ def kernels():
     if not ok:
         bad.append("int8w_mlp")
 
-    # dense_attention: bf16 P and bf16 output; the kernel's 64-wide KV tiles
-    # rescale at other points than the twin's 512-wide ones, so bf16(p) may
-    # round differently: |d| <= 1e-2 and rel Frobenius <= 1e-2
-    BH, S, Dh = 96, 1024, 64
-    q, k, v = (torch.randn((BH, S, Dh), generator=gen, device="cuda").to(bf16)
-               for _ in range(3))
-    out = dense_attention(q, k, v)
-    ref = dense_attention_plain(q, k, v)
-    err, rel, ok = _compare(out, ref, 1e-2, 0.0)
-    ok = ok and rel <= 1e-2
-    ms = time_ms(lambda: dense_attention(q, k, v))
-    plain_ms = time_ms(lambda: dense_attention_plain(q, k, v), 5)
-    q4, k4, v4 = (t.view(8, BH // 8, S, Dh) for t in (q, k, v))
-    lib_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4))
-    nbytes = BH * (S * Dh * 2 * 4)
-    b_ms, b_by = bound(nbytes, 4 * BH * S * S * Dh, PEAK_BF16_FLOPS)
-    results["dense_attention"].append(dict(
-        shape=f"BH={BH} S={S} D={Dh}", max_abs_err=err, rel_err=rel,
-        tolerance="|d| <= 1e-2, rel Frobenius <= 1e-2", ms=ms,
-        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-    log(f"  dense_attention: max_abs_err {err:.3g} rel {rel:.3g} "
-        f"{'ok' if ok else 'MISMATCH'}; {ms:.4f} ms, plain "
-        f"{plain_ms:.4f}, library {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
-    if not ok:
-        bad.append("dense_attention")
+    # dense_attention at S=1024: the sampler's heads of 64 (BH = 8 x 12), and
+    # the same work at heads of 32 and 128, bf16 out, timed; the 2-layer
+    # anchor-width training step's f32 out at heads of 32 (phase train_grad).
+    # bf16 P: the kernel's 128-wide KV tiles rescale at other points than the
+    # twin's 512-wide ones, so bf16(p) may round differently: |d| <= 1e-2 and
+    # rel Frobenius <= 1e-2
+    S = 1024
+    for BH, Dh, dtype, timed in ((96, 64, bf16, True), (192, 32, bf16, True),
+                                 (48, 128, bf16, True), (16, 32, f32, False)):
+        q, k, v = (torch.randn((BH, S, Dh), generator=gen, device="cuda")
+                   .to(bf16) for _ in range(3))
+        out = dense_attention(q, k, v, out_dtype=dtype)
+        ref = dense_attention_plain(q, k, v, out_dtype=dtype)
+        err, rel, ok = _compare(out, ref, 1e-2, 0.0)
+        ok = ok and rel <= 1e-2 and out.dtype == dtype
+        row = dict(shape=f"BH={BH} S={S} D={Dh} {str(dtype)[6:]} out",
+                   max_abs_err=err, rel_err=rel,
+                   tolerance="|d| <= 1e-2, rel Frobenius <= 1e-2")
+        if timed:
+            row["ms"] = time_ms(lambda: dense_attention(q, k, v))
+            row["plain_ms"] = time_ms(lambda: dense_attention_plain(q, k, v), 5)
+            q4, k4, v4 = (t.view(8, BH // 8, S, Dh) for t in (q, k, v))
+            row["library_ms"] = time_ms(lambda: torch.nn.functional
+                                        .scaled_dot_product_attention(q4, k4, v4))
+            row["bound_ms"], row["bound_by"] = bound(
+                BH * (S * Dh * 2 * 4), 4 * BH * S * S * Dh, PEAK_BF16_FLOPS)
+        results["dense_attention"].append(row)
+        log(f"  dense_attention {row['shape']}: max_abs_err {err:.3g} rel "
+            f"{rel:.3g} {'ok' if ok else 'MISMATCH'}"
+            + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
+               f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+               f"({row['bound_by']})" if timed else ""))
+        if not ok:
+            bad.append(f"dense_attention {row['shape']}")
     _paged_kernels(gen, results, bad)
     _quant_attention_kernels(gen, results, bad)
     _packed_kernels(gen, results, bad)
@@ -494,21 +524,34 @@ def _paged_kernels(gen, results, bad):
     # slot, tokens of each slot's last page): a slot of 0 pages is empty; a
     # slot of fewer than 32 reads the front of its table, as a bucket's
     # compacted table in serving does. The full-table cases are timed.
-    H, G, D, n = 12, 2, 64, 32
+    # Then the pools `_choose_head_group` builds for other head widths: the
+    # shipped anchor's 8 heads of 32 in groups of 4 (rows of 128) at pages of
+    # 32 (its `sample(attend_mode="paged")`) and of 8, and heads of 128 at
+    # pages of 72.
+    n = 32
     full = ([n, n], [128, 128])
     ragged = ([n, 0], [37, 128])
     phase = ([n, 19, 0, 7], [37, 5, 64, 64])
-    cases = [("serve_paged shape 4-bit", 4, 2, 4096, 128, full, True),
+    g64 = (12, 2, 64)  # H, G, D
+    cases = [("serve_paged shape 4-bit", 4, 2, 4096, 128, full, True, g64),
              ("serve_paged partial page + empty slot", 4, 2, 4096, 128, ragged,
-              False),
-             ("8-bit", 8, 2, 1024, 128, full, False),
-             ("2-bit", 2, 2, 1024, 128, full, False),
-             ("1-bit", 1, 2, 1024, 128, full, False),
+              False, g64),
+             ("8-bit", 8, 2, 1024, 128, full, False, g64),
+             ("2-bit", 2, 2, 1024, 128, full, False, g64),
+             ("1-bit", 1, 2, 1024, 128, full, False, g64),
              ("serve_phase shape 4-bit", 4, 4, 2048, 64, ([n] * 4, [64] * 4),
-              True)]
+              True, g64)]
     cases += [(f"serve_phase compacted {bits}-bit, partial pages + empty "
-               f"slot", bits, 4, 2048, 64, phase, False) for bits in (8, 4, 2)]
-    for label, bits, B, sq, P, (npages, last), timed in cases:
+               f"slot", bits, 4, 2048, 64, phase, False, g64)
+              for bits in (8, 4, 2)]
+    cases += [(f"anchor pages of 32 {bits}-bit", bits, 4, 32, 32,
+               ([1] * 4, [32, 32, 20, 32]), False, (8, 4, 32))
+              for bits in (8, 4, 2, 1)]
+    cases += [("anchor pages of 8 2-bit, partial page + empty slot", 2, 2, 64,
+               8, ([8, 0], [3, 8]), False, (8, 4, 32)),
+              ("heads of 128, pages of 72, 4-bit", 4, 2, 300, 72,
+               ([5, 2], [40, 72]), False, (4, 1, 128))]
+    for label, bits, B, sq, P, (npages, last), timed, (H, G, D) in cases:
         pools = _quantized_pools(gen, B * n, H, P, D, G, bits)
         q = torch.randn((B, H, sq, D), generator=gen, device="cuda").to(
             torch.bfloat16)
@@ -528,7 +571,7 @@ def _paged_kernels(gen, results, bad):
         for slot in (i for i, k in enumerate(npages) if k == 0):
             ok = ok and bool((out[slot] == 0).all()) and \
                 bool((lse[slot] == pa.NEG_INF).all())
-        row = dict(shape=f"{label}: B={B} H={H} G={G} Sq={sq} P={P} "
+        row = dict(shape=f"{label}: B={B} H={H} D={D} G={G} Sq={sq} P={P} "
                    f"pages={npages}", max_abs_err=err, rel_err=rel,
                    lse_err=lse_err, tolerance=tol)
         if timed:
@@ -595,7 +638,7 @@ def _paged_kernels(gen, results, bad):
 
     # paged_attention (one sequence): BH=12, Sq=1024, 8 pages of 128, 4 bits;
     # the timed case full, the checked one with a partial last page
-    BH, Sq1, n1, bits, P = 12, 1024, 8, 4, 128
+    BH, Sq1, n1, bits, P, D = 12, 1024, 8, 4, 128, 64
     pools = _quantized_pools(gen, 2 * n1, BH, P, D, 1, bits)
     q = torch.randn((BH, Sq1, D), generator=gen, device="cuda").to(torch.bfloat16)
     pt = torch.randperm(2 * n1, generator=gen, device="cuda")[:n1].to(torch.int32)
@@ -657,14 +700,17 @@ def _quant_attention_kernels(gen, results, bad):
             bad.append(f"quantize_kv {bits}-bit")
 
     tol = "rel Frobenius <= 2e-3"
-    D = 64
-    for label, BH, Sq, Skv, bits, timed in (
-            ("scan_sampler shape 4-bit", 96, 256, 256, 4, True),
-            ("8-bit", 96, 256, 256, 8, True),
-            ("2-bit", 96, 256, 256, 2, True),
-            ("S=1024 4-bit", 24, 1024, 1024, 4, True),
-            ("ragged 4-bit", 96, 100, 100, 4, False),
-            ("ragged 1-bit", 16, 100, 100, 1, False)):
+    for label, BH, Sq, Skv, bits, timed, D in (
+            ("scan_sampler shape 4-bit", 96, 256, 256, 4, True, 64),
+            ("8-bit", 96, 256, 256, 8, True, 64),
+            ("2-bit", 96, 256, 256, 2, True, 64),
+            ("S=1024 4-bit", 24, 1024, 1024, 4, True, 64),
+            ("ragged 4-bit", 96, 100, 100, 4, False, 64),
+            ("ragged 1-bit", 16, 100, 100, 1, False, 64),
+            # the anchor's `sample(seq_len=10)`: B=4 x 8 heads of 32
+            ("anchor seq_len=10, 8-bit", 32, 10, 10, 8, False, 32),
+            ("heads of 32, 1-bit", 32, 100, 100, 1, False, 32),
+            ("heads of 128, 4-bit", 48, 256, 256, 4, False, 128)):
         q = torch.randn((BH, Sq, D), generator=gen, device="cuda").to(
             torch.bfloat16)
         k = qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen,
@@ -802,11 +848,11 @@ def _packed_kernels(gen, results, bad):
                 else:
                     row["plain_ms"] = time_ms(
                         lambda: pm.a8_matmul_reference(x, w, b, act, dtype), 5)
-                    if M > 16:  # torch._int_mm takes M > 16 only
-                        xi, sx = pm.quantize_act_i8(x)
-                        d = decode_to_int8(w)
-                        lib_ms = time_ms(lambda: _int_mm_epilogue(
-                            xi, sx, d.data, d.col_scale, b, gelu, None, dtype))
+                    xi, sx, row["library_note"] = _int_mm_rows(
+                        *pm.quantize_act_i8(x))
+                    d = decode_to_int8(w)
+                    lib_ms = time_ms(lambda: _int_mm_epilogue(
+                        xi, sx, d.data, d.col_scale, b, gelu, None, dtype))
                     peak = PEAK_INT8_OPS
                 row["library_ms"] = lib_ms
                 row["bound_ms"], row["bound_by"] = bound(
@@ -1849,11 +1895,15 @@ def engine_packed_a8():
 
 
 def engine_anchor():
-    """The shipped trained checkpoint (6 layers, width 256, vocab 463, f32
-    activations) through `Engine.from_pretrained()`, on the card and on the
-    CPU: fp32 greedy continuations equal token for token; perplexity of a
-    fixed text (noise from one CPU generator, given to both) under a tenth
-    of the vocabulary, fp32 and after int4 packing; `sample` in range."""
+    """The shipped trained checkpoint (6 layers, width 256, 8 heads of 32,
+    vocab 463, f32 activations) through `Engine.from_pretrained()`, on the
+    card and on the CPU: fp32 greedy continuations equal token for token;
+    perplexity of a fixed text (noise from one CPU generator, given to both)
+    under a tenth of the vocabulary, fp32 and after int4 packing; `sample`
+    in range, at S=32 through the batcher's dense mode, at S=10 (which no
+    page divides) through the scan sampler and `quant_attention` at heads of
+    32, and at S=32 in paged mode through `batched_paged_attention` over
+    pools of 4 heads a row and pages of 32."""
     from diffusion_llm_rs_tpu_torch.engine import Engine
     from diffusion_llm_rs_tpu_torch.ops import _build
 
@@ -1892,7 +1942,85 @@ def engine_anchor():
             raise AssertionError(f"{label}: matmul launches {counts}")
         out[label] = dict(generate=got, equal_to_cpu=got == want,
                           perplexity=ppl, perplexity_cpu=ppl_cpu, counts=counts)
+        for name, kwargs, kernel in (
+                ("seq_len=10", dict(seq_len=10), "quant_attention"),
+                ("paged", dict(seq_len=32, attend_mode="paged"),
+                 "batched_paged_attention")):
+            _build.reset_launch_counts()
+            tokens = card.sample(batch_size=4, num_steps=8, return_text=False,
+                                 **kwargs)
+            counts = dict(_build.launch_counts)
+            log(f"  {label} sample({name}): tokens {tuple(tokens.shape)} in "
+                f"[{int(tokens.min())}, {int(tokens.max())}]; launches {counts}")
+            if int(tokens.min()) < 0 or \
+                    int(tokens.max()) >= card.config.vocab_size:
+                raise AssertionError(f"sample({name}): token ids out of range")
+            if counts.get(kernel, 0) == 0:
+                raise AssertionError(f"sample({name}) launched no {kernel}")
+            out[label][name] = dict(shape=list(tokens.shape), counts=counts)
     return out
+
+
+def train_grad():
+    """One training gradient at S=1024 on a 2-layer f32 model of the
+    anchor's widths (256 wide, 8 heads of 32; random weights from a seed):
+    `p_losses(...).mean().backward()` with attention through `flash_fold`
+    (the dense_attention kernel with f32 out at heads of 32, then JAX's f32
+    VJP) and again through the einsum path (`flash_attn=False`). Every
+    layer's q, k and v projections (the column blocks of wqkv) get a nonzero
+    gradient, within 1e-2 relative of the einsum path's, the kernel's own
+    bound on its output: its forward rounds q, k, v and P to bf16, which
+    moves every later activation and so every gradient (the plain twin on
+    the CPU: 4.1e-5)."""
+    from diffusion_llm_rs_tpu_torch.config import DiffusionConfig
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+    from diffusion_llm_rs_tpu_torch.models.diffusion import (
+        DiffusionSchedule, p_losses)
+    from diffusion_llm_rs_tpu_torch.ops import _build
+
+    cfg = DiffusionConfig(num_timesteps=1000, hidden_size=256, num_layers=2,
+                          num_attention_heads=8, vocab_size=463,
+                          max_sequence_length=1024, dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    params = dn.init_denoiser_params(g, cfg)
+    wqkv = [blk["attn"]["wqkv"].requires_grad_() for blk in params["blocks"]]
+    schedule = DiffusionSchedule.create(cfg.num_timesteps, device="cuda")
+    x0 = torch.randn((2, 1024, cfg.hidden_size), generator=g, device="cuda")
+    noise = torch.randn(x0.shape, generator=g, device="cuda")
+    t = torch.tensor([100, 700], device="cuda")
+    grads, counts, loss = {}, {}, {}
+    for flash in (True, False):
+        _build.reset_launch_counts()
+        loss[flash] = p_losses(
+            lambda x, tt: dn.denoiser_forward(params, cfg, x, tt,
+                                              flash_attn=flash),
+            schedule, x0, t, noise).mean()
+        grads[flash] = torch.autograd.grad(loss[flash], wqkv)
+        torch.cuda.synchronize()
+        counts[flash] = dict(_build.launch_counts)
+    D = cfg.hidden_size
+    rows = []
+    for li in range(cfg.num_layers):
+        for j, name in enumerate("qkv"):
+            a = grads[True][li][:, j * D:(j + 1) * D]
+            b = grads[False][li][:, j * D:(j + 1) * D]
+            rows.append(dict(layer=li, proj=f"w{name}", norm=float(a.norm()),
+                             rel=float((a - b).norm() / b.norm())))
+    worst = max(r["rel"] for r in rows)
+    loss = {k: float(v.detach()) for k, v in loss.items()}
+    log(f"  loss {loss[True]:.6f} (einsum {loss[False]:.6f}); "
+        f"launches {counts[True]} / {counts[False]}; wq/wk/wv gradient norms "
+        f"{[round(r['norm'], 6) for r in rows]}; worst rel to einsum "
+        f"{worst:.3g} (bound 1e-2)")
+    if counts[True].get("dense_attention", 0) != cfg.num_layers or \
+            counts[False].get("dense_attention", 0) != 0:
+        raise AssertionError(f"dense_attention launches {counts}")
+    if not all(r["norm"] > 0 and np.isfinite(r["norm"]) for r in rows):
+        raise AssertionError(f"an attention projection got no gradient: {rows}")
+    if worst > 1e-2:
+        raise AssertionError(f"gradients differ from the einsum path: {rows}")
+    return dict(loss=loss[True], loss_einsum=loss[False],
+                grads=rows, counts=counts[True])
 
 
 def engine_gptq():
@@ -2092,8 +2220,8 @@ def main() -> int:
             runs[fn.__name__] = phase(fn)
     MODEL.clear()  # the engine phases build their own models
     torch.cuda.empty_cache()
-    for fn in (engine_packed, engine_packed_a8, engine_anchor, engine_gptq,
-               cli):
+    for fn in (engine_packed, engine_packed_a8, engine_anchor, train_grad,
+               engine_gptq, cli):
         runs[fn.__name__] = phase(fn)
     if "engine16" in MODEL and "engine8" in MODEL:
         runs["engine_check"] = phase(engine_check)

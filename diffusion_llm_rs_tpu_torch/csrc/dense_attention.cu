@@ -1,227 +1,311 @@
 // Dense bf16 flash attention (forward) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_dense_kernel` (diffusion_llm_rs_tpu/ops/
-// pallas_attention.py, behind `dense_attention`). q/k/v [BH, S, 64] bf16 ->
-// out [BH, Sq, 64] bf16: the head width (768 / 12) and output type of the
-// sampler, the only ones built until a slice needs others. One block per (64-query tile, bh); 4 warps own 16 query
-// rows each. KV tiles of 64 rows are staged in shared memory; the running
-// max, sum and accumulator stay in registers in f32 (online softmax), so the
-// [Sq, Skv] logits never reach device memory. As in the TPU kernel:
+// pallas_attention.py, behind `dense_attention`): q/k/v [BH, S, D] bf16 ->
+// out [BH, Sq, D] in bf16 or f32, for head widths D = 32, 64 and 128 (template
+// parameters, as is the output type). As in the TPU kernel:
 //   logits = (q . k) * sm_scale                   f32
 //   m' = max(m, rowmax(logits)); p = exp(logits - m'); a = exp(m - m')
 //   l  = l * a + rowsum(p)                         f32, p before rounding
 //   acc = acc * a + bf16(p) . v                    bf16 operands, f32 sum
 //   out = acc / l
 // KV rows past Skv get logits of -1e30 (p = 0); query rows past Sq are not
-// written.
+// written. The KV tile is 128 keys where the TPU's is 128 to 512: the running
+// max under bf16(p) differs, the math does not.
 //
-// What bounds it on an H100: at the long-sequence shape of the sampler
-// (BH = 96, S = 1024, D = 64) attention does 4*BH*S^2*D = 25.8 GFLOP over
-// ~50 MB, so it is bf16 tensor-core bound. This first version uses
-// mma.sync m16n8k16 (QK^T with B fragments read straight from the [kv][d]
-// tile, P.V with ldmatrix.trans on the V tile) and one shared-memory stage;
-// wgmma, TMA and a ring of KV stages are later work.
+// What bounds it on an H100: at the long-sequence shape of the sampler (BH =
+// 96, S = 1024, D = 64) attention does 4*BH*S^2*D = 25.8 GFLOP over ~50 MB,
+// so it is bf16 tensor-core bound (0.026 ms at 989 TFLOP/s). The design is
+// FlashAttention-3 in outline:
+//   - one block per (128-query tile, bh): warpgroup 0 is the producer (one
+//     thread issues TMA loads, its registers handed to the consumers with
+//     setmaxnreg), warpgroups 1 and 2 each own 64 query rows;
+//   - Q is loaded once, K/V tiles of 128 keys stream through a ring of three
+//     stages guarded by full/empty mbarriers, so the next tiles' copies
+//     overlap this tile's math, and one warpgroup's softmax overlaps the
+//     other's products;
+//   - S = Q K^T is a wgmma with both operands in shared memory (K-major,
+//     128- or 64-byte swizzle as TMA writes it); the online softmax runs on
+//     the accumulator registers; P is rounded to bf16 in registers and is the
+//     A operand of the P.V wgmma, whose V operand is read MN-major;
+//   - within a warpgroup, S of the next tile and P.V of this one run under
+//     this tile's and the next tile's softmax (two logit register sets).
+// exp(x - m) is taken as 2^(x log2(e) - m log2(e)) on the fast exp2 unit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64, kBK = 64, kThreads = 128;
+using namespace hopper;
+
+constexpr int kBQ = 128, kBK = 128, kStages = 3, kThreads = 384;
 constexpr float kNegInf = -1e30f;
+// one block an SM: the consumers take the producer's registers (setmaxnreg),
+// which a second resident block would hold
+constexpr int kMinSmem = 120 * 1024;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [r0, r0 + 64) of a [rows, D] bf16 matrix into a padded smem
-// tile; rows past `rows` are zero.
-template <int D>
-__device__ __forceinline__ void load_rows(const __nv_bfloat16* __restrict__ src,
-                                          int rows, int r0,
-                                          __nv_bfloat16* tile) {
-  constexpr int kStride = D + 8;
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < 64 * kChunks; c += kThreads) {
-    int r = c / kChunks, col = (c % kChunks) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < rows)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + col);
-    *reinterpret_cast<uint4*>(tile + r * kStride + col) = v;
-  }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    dense_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* out, int Sq, int Skv,
-                           float sm_scale) {
-  constexpr int kStride = D + 8;  // padded rows: conflict-free fragments
-  __shared__ __align__(16) __nv_bfloat16 Qs[kBQ * kStride];
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBK * kStride];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBK * kStride];
+struct Shape {
+  static constexpr int kSw = D >= 64 ? 128 : 64;  // swizzle span, bytes
+  static constexpr int kEpr = kSw / 2;            // elements per chunk row
+  static constexpr int kChunks = D / kEpr;        // column chunks of a row
+  static constexpr int kLayout = kSw == 128 ? 1 : 2;
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kKvBytes = kBK * D * 2;    // one K (or V) tile
+  static constexpr int kSmem = 1024 + kQBytes + kStages * 2 * kKvBytes + 64;
+  static constexpr int kAlloc = kSmem > kMinSmem ? kSmem : kMinSmem;
+};
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = q + (size_t)bh * Sq * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * Skv * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * Skv * D;
+template <int D, bool OUT_BF16>
+__global__ void __launch_bounds__(kThreads, 1)
+    dense_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, void* out,
+                           int Sq, int Skv, float sm_scale) {
+  using S = Shape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = smem;
+  uint8_t* KV = smem + S::kQBytes;  // stage s: K at 2s, V at 2s + 1
+  uint64_t* bars = reinterpret_cast<uint64_t*>(KV + kStages * 2 * S::kKvBytes);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
 
-  load_rows<D>(qb, Sq, q0, Qs);
-  __syncthreads();
-  // A fragments of this warp's 16 query rows, for every 16-wide d step
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int d = 0; d < D / 16; ++d) {
-    const __nv_bfloat16* base = Qs + (warp * 16 + g) * kStride + d * 16 + t * 2;
-    qf[d][0] = *reinterpret_cast<const uint32_t*>(base);
-    qf[d][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride);
-    qf[d][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    qf[d][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride + 8);
-  }
+  const int q0 = blockIdx.x * kBQ, bh = blockIdx.y;
+  const int tiles = (Skv + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += kBK) {
-    __syncthreads();
-    load_rows<D>(kb, Skv, kv0, Ks);
-    load_rows<D>(vb, Skv, kv0, Vs);
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 kv columns (8 n-tiles)
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int d = 0; d < D / 16; ++d) {
-        const __nv_bfloat16* base = Ks + (j * 8 + g) * kStride + d * 16 + t * 2;
-        mma_bf16(s[j], qf[d], *reinterpret_cast<const uint32_t*>(base),
-                 *reinterpret_cast<const uint32_t*>(base + 8));
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    // online softmax; thread holds rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    float m_new[2], alpha[2], rsum[2] = {0.f, 0.f};
+  if (wg == 0) {  // ------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      mbar_expect_tx(q_full, S::kQBytes);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = m_run[h];
+      for (int c = 0; c < S::kChunks; ++c)
+        tma_load_3d(Qs + c * kBQ * S::kSw, &tq, q_full, c * S::kEpr, q0, bh);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % kStages;
+        mbar_wait(empty + s, ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * S::kKvBytes);
+        uint8_t* Ks = KV + (2 * s) * S::kKvBytes;
+        uint8_t* Vs = Ks + S::kKvBytes;
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          int col = kv0 + j * 8 + t * 2 + e;
-          float x = col < Skv ? __fmul_rn(s[j][h * 2 + e], sm_scale) : kNegInf;
-          s[j][h * 2 + e] = x;
-          mx = fmaxf(mx, x);
+        for (int c = 0; c < S::kChunks; ++c) {
+          tma_load_3d(Ks + c * kBK * S::kSw, &tk, full + s, c * S::kEpr,
+                      t * kBK, bh);
+          tma_load_3d(Vs + c * kBK * S::kSw, &tv, full + s, c * S::kEpr,
+                      t * kBK, bh);
         }
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      m_new[h] = mx;
-      alpha[h] = expf(m_run[h] - mx);
     }
-    uint32_t pf[kBK / 16][4];  // P as bf16 A fragments
+  } else {  // ----------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int c = wg - 1;  // rows 64c .. 64c + 63 of the query tile
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+    const uint32_t q_addr = smem_u32(Qs) + c * 64 * S::kSw;
+
+    float o[D / 2];
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // running max in log2 units (logits times log2(e)), running sum
+    float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+    const float sl2 = sm_scale * 1.4426950408889634f;
+
+    // S = Q K^T of tile t into sc: 64 rows x 128 keys, D / 16 steps of 16
+    auto issue_s = [&](float(&sc)[kBK / 2], int t) {
+      const int s = t % kStages;
+      mbar_wait(full + s, (t / kStages) & 1);
+      const uint32_t k_addr = smem_u32(KV + (2 * s) * S::kKvBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int chunk = kk * 16 / S::kEpr;
+        const uint32_t in = (kk * 16 % S::kEpr) * 2;
+        const uint64_t da = gmma_desc(q_addr + chunk * kBQ * S::kSw + in, 16,
+                                      8 * S::kSw, S::kLayout);
+        const uint64_t db = gmma_desc(k_addr + chunk * kBK * S::kSw + in, 16,
+                                      8 * S::kSw, S::kLayout);
+        wgmma_ss_n128(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+    };
+
+    // Tile t, whose logits are in cur: S of tile t + 1 into nxt goes out
+    // first, so it runs under this tile's softmax; P.V of tile t - 1 is
+    // waited for only before o is rescaled, and P.V of tile t runs under the
+    // next tile's softmax.
+    auto step = [&](float(&cur)[kBK / 2], float(&nxt)[kBK / 2], int t) {
+      const bool more = t + 1 < tiles;
+      if (more) issue_s(nxt, t + 1);
+
+      // online softmax; this thread holds rows g (e < 2) and g + 8 of its
+      // warp's 16, keys 8j + 2q + (e & 1). exp(x - m) is taken as
+      // 2^(x log2(e) - m log2(e)).
+      const int kv0 = t * kBK;
+      float mx[2] = {kNegInf, kNegInf};
+      if (kv0 + kBK > Skv) {
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i)
+          if (kv0 + (i >> 2) * 8 + q4 * 2 + (i & 1) >= Skv) cur[i] = kNegInf;
+      }
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], cur[i]);
+      float alpha[2], rsum[2] = {0.f, 0.f};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float p0 = expf(s[j][h * 2] - m_new[h]);
-        float p1 = expf(s[j][h * 2 + 1] - m_new[h]);
-        rsum[h] += p0 + p1;
-        pf[j >> 1][(j & 1) * 2 + h] = pack_bf16(p0, p1);
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_run[h], mx[h] * sl2);
+        alpha[h] = ex2(m_run[h] - m_new);
+        m_run[h] = m_new;
       }
+      uint32_t pf[kBK / 16][4];
+#pragma unroll
+      for (int i = 0; i < kBK / 2; i += 2) {
+        const int h = (i >> 1) & 1;
+        const float p0 = ex2(fmaf(cur[i], sl2, -m_run[h]));
+        const float p1 = ex2(fmaf(cur[i + 1], sl2, -m_run[h]));
+        rsum[h] += p0 + p1;
+        // keys of n-block j = i / 4 -> A register (j & 1) * 2 + h of step j/2
+        pf[i >> 3][((i >> 2) & 1) * 2 + h] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
+        rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
+        l_run[h] = l_run[h] * alpha[h] + rsum[h];
+      }
+
+      if (t > 0) {  // P.V of tile t - 1 is done: o is ours, its stage free
+        if (more)
+          wgmma_wait<1>();
+        else
+          wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(empty + (t - 1) % kStages);
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: 16 keys a step; V is the MN-major B operand
+      const uint32_t v_addr =
+          smem_u32(KV + (2 * (t % kStages) + 1) * S::kKvBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t db = gmma_desc(v_addr + kk * 16 * S::kSw,
+                                      kBK * S::kSw, 8 * S::kSw, S::kLayout);
+        wgmma_rs<D, 1>(o, pf[kk], db, 1);
+      }
+      wgmma_commit();
+      if (more) {  // S of tile t + 1 is done
+        wgmma_wait<1>();
+        fence_regs(nxt);
+      }
+    };
+
+    float sa[kBK / 2], sb[kBK / 2];
+    mbar_wait(q_full, 0);
+    issue_s(sa, 0);
+    wgmma_wait<0>();
+    fence_regs(sa);
+#pragma unroll 1
+    for (int t = 0; t < tiles; t += 2) {
+      step(sa, sb, t);
+      if (t + 1 < tiles) step(sb, sa, t + 1);
     }
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(empty + (tiles - 1) % kStages);
+
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
-      rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
-      l_run[h] = l_run[h] * alpha[h] + rsum[h];
-      m_run[h] = m_new[h];
-    }
+      const int row = q0 + c * 64 + warp * 16 + g + h * 8;
+      if (row >= Sq) continue;
+      const size_t base = ((size_t)bh * Sq + row) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-
-    // O += P V: k = kv (16 per step), n = d (8 per tile); V^T fragments via
-    // ldmatrix.trans from the [kv][d] tile, two d-tiles per x4 load
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-#pragma unroll
-      for (int dj = 0; dj < D / 16; ++dj) {
-        int mi = lane >> 3, r = lane & 7;
-        const __nv_bfloat16* addr =
-            Vs + (kk * 16 + r + (mi & 1) * 8) * kStride + dj * 16 + (mi >> 1) * 8;
-        uint32_t saddr = static_cast<uint32_t>(__cvta_generic_to_shared(addr));
-        uint32_t b0, b1, b2, b3;
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"(saddr)
-            : "memory");
-        mma_bf16(o[dj * 2], pf[kk], b0, b1);
-        mma_bf16(o[dj * 2 + 1], pf[kk], b2, b3);
+      for (int j = 0; j < D / 8; ++j) {
+        const float y0 = __fdiv_rn(o[4 * j + 2 * h], l_run[h]);
+        const float y1 = __fdiv_rn(o[4 * j + 2 * h + 1], l_run[h]);
+        const size_t at = base + j * 8 + q4 * 2;
+        if (OUT_BF16)
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) +
+                                             at) = __floats2bfloat162_rn(y0, y1);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
+              make_float2(y0, y1);
       }
     }
   }
+}
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + warp * 16 + g + h * 8;
-    if (row >= Sq) continue;
-    __nv_bfloat16* orow = out + ((size_t)bh * Sq + row) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      float y0 = __fdiv_rn(o[j][h * 2], l_run[h]);
-      float y1 = __fdiv_rn(o[j][h * 2 + 1], l_run[h]);
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + t * 2) =
-          __floats2bfloat162_rn(y0, y1);
-    }
+template <int D, bool OUT_BF16>
+int launch(const void* q, const void* k, const void* v, void* out, int BH,
+           int Sq, int Skv, float sm_scale, cudaStream_t stream) {
+  using S = Shape<D>;
+  auto kernel = dense_attention_kernel<D, OUT_BF16>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kAlloc);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t rows = i == 0 ? Sq : Skv;
+    const uint64_t dims[3] = {(uint64_t)D, rows, (uint64_t)BH};
+    const uint64_t strides[2] = {(uint64_t)D * 2, rows * D * 2};
+    const uint32_t box[3] = {(uint32_t)S::kEpr, (uint32_t)(i == 0 ? kBQ : kBK),
+                             1};
+    if (!make_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptrs[i], dims,
+                  strides, box,
+                  S::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CU_TENSOR_MAP_SWIZZLE_64B))
+      return (int)cudaErrorInvalidValue;
   }
+  dim3 grid((Sq + kBQ - 1) / kBQ, BH);
+  kernel<<<grid, kThreads, S::kAlloc, stream>>>(maps[0], maps[1], maps[2], out,
+                                                Sq, Skv, sm_scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// q [BH, Sq, D], k/v [BH, Skv, D] bf16 -> out [BH, Sq, D] bf16; D = 64
-// only (returns cudaErrorInvalidValue for any other D).
+// q [BH, Sq, D], k/v [BH, Skv, D] bf16 (16-byte aligned) -> out [BH, Sq, D]
+// in bf16 (out_bf16 = 1) or f32; D = 32, 64 or 128 (returns
+// cudaErrorInvalidValue for any other D).
 int dlm_dense_attention(const void* q, const void* k, const void* v, void* out,
-                        int BH, int Sq, int Skv, int D, float sm_scale,
-                        void* stream) {
+                        int out_bf16, int BH, int Sq, int Skv, int D,
+                        float sm_scale, void* stream) {
   if (BH <= 0 || Sq <= 0) return 0;
-  if (D != 64) return (int)cudaErrorInvalidValue;
-  dim3 grid((Sq + kBQ - 1) / kBQ, BH);
-  dense_attention_kernel<64><<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq,
-      Skv, sm_scale);
-  return (int)cudaGetLastError();
+  if (Skv <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DLM_DENSE_CASE(D_)                                                   \
+  if (D == D_)                                                               \
+    return out_bf16 ? launch<D_, true>(q, k, v, out, BH, Sq, Skv, sm_scale, st) \
+                    : launch<D_, false>(q, k, v, out, BH, Sq, Skv, sm_scale, st);
+  DLM_DENSE_CASE(32)
+  DLM_DENSE_CASE(64)
+  DLM_DENSE_CASE(128)
+#undef DLM_DENSE_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -13,7 +13,13 @@
 // block packed (byte (r, d) holds the levels of tokens r + p*P/vpb in bit
 // field p); sidecars f32 [n_slots, H/G, G*P]; head h reads lanes (h%G)*D..
 // and sidecar columns (h%G)*P.. of group h/G. The single-sequence call is the
-// batched one with B = 1, G = 1 and every slot reading all its pages.
+// batched one with B = 1, G = 1 and every slot reading all its pages. Head
+// widths D = 32, 64 and 128 are template parameters, and so is the tile's
+// capacity of 32, 64 or 128 tokens; the page size P (any multiple of 8 up to
+// 128) and the head group G are not: the smallest tile that holds the page
+// runs, and its 8-token blocks past P are skipped. A page that fills its
+// tile (32, 64, 128) runs an instance whose loop bounds are all constant, as
+// the fixed-page kernels before it did: the runtime bounds cost 7-12%.
 //
 // One block per (64-query tile, head, slot); 4 warps own 16 query rows each.
 // The block walks its slot's page table up to n_pages[b], so an empty slot
@@ -47,7 +53,7 @@
 
 namespace {
 
-constexpr int kD = 64, kBQ = 64, kThreads = 128, kStride = kD + 8;
+constexpr int kBQ = 64, kThreads = 128, kPmax = 128;
 constexpr float kNegInf = -1e30f;
 
 struct Args {
@@ -63,7 +69,7 @@ struct Args {
   const float* v_zp;
   float* out;              // [B, H, Sq, D]
   float* lse;              // [B, H, Sq]
-  int H, Sq, n_max, n_slots, G;
+  int H, Sq, n_max, n_slots, G, P;
   float sm;
 };
 
@@ -81,19 +87,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int BITS, int P, bool kSingle>
+// D: head width; PT: tokens the tiles hold (32, 64 or 128), the page size
+// rounded up
+template <int D, int PT>
+struct PagedShape {
+  static constexpr int kStride = D + 8;  // padded rows: conflict-free frags
+  static constexpr int kQ = kBQ * kStride * 2, kKv = PT * kStride * 2;
+  // Q, K and V tiles; per token of the page: logit scale and offset, V scale,
+  // V correction; per query row: the channel sum
+  static constexpr int kSmem = kQ + 2 * kKv + (4 * PT + kBQ) * 4;
+};
+
+template <int BITS, int D, int PT, bool kFull, bool kSingle>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const Args a) {
-  constexpr int kVpb = 8 / BITS, kPp = P / kVpb, kMask = (1 << BITS) - 1;
-  __shared__ __align__(16) __nv_bfloat16 Qs[kBQ * kStride];
-  __shared__ __align__(16) __nv_bfloat16 Ks[P * kStride];
-  __shared__ __align__(16) __nv_bfloat16 Vs[P * kStride];
-  // per token of the page: logit scale and offset, V scale, V correction
-  __shared__ float s_ka[P], s_kb[P], s_vs[P], s_vc[P];
-  __shared__ float s_qsum[kBQ];
+  using Sh = PagedShape<D, PT>;
+  constexpr int kD = D, kStride = Sh::kStride;
+  constexpr int kVpb = 8 / BITS, kMask = (1 << BITS) - 1;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + Sh::kQ);
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + Sh::kQ + Sh::kKv);
+  float* s_ka = reinterpret_cast<float*>(smem + Sh::kQ + 2 * Sh::kKv);
+  float* s_kb = s_ka + PT;
+  float* s_vs = s_kb + PT;
+  float* s_vc = s_vs + PT;
+  float* s_qsum = s_vc + PT;
 
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int H = a.H, Sq = a.Sq, G = a.G, HG = H / G;
+  // kFull: the page fills the tile, and every loop bound below is constant
+  const int H = a.H, Sq = a.Sq, G = a.G, HG = H / G, P = kFull ? PT : a.P;
+  const int kPp = P / kVpb, P16 = (P + 15) & ~15;
   const int hg = h / G, hl = h % G, GD = G * kD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -107,6 +131,13 @@ __global__ void __launch_bounds__(kThreads)
     if (q0 + r < Sq)
       v = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * kD + col);
     *reinterpret_cast<uint4*>(Qs + r * kStride + col) = v;
+  }
+  // token rows [P, P16) of the K and V tiles are read by the last 16-token
+  // step: zero them once (pages never write there)
+  for (int c = threadIdx.x; c < (P16 - P) * (kD / 8); c += kThreads) {
+    const int r = P + c / (kD / 8), col = (c % (kD / 8)) * 8;
+    *reinterpret_cast<uint4*>(Ks + r * kStride + col) = make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(Vs + r * kStride + col) = make_uint4(0, 0, 0, 0);
   }
   __syncthreads();
   if (threadIdx.x < kBQ) {
@@ -143,10 +174,16 @@ __global__ void __launch_bounds__(kThreads)
     const size_t side = ((size_t)slot * HG + hg) * G * P + (size_t)hl * P;
     const size_t base = ((size_t)slot * HG + hg) * kPp * GD + (size_t)hl * kD;
     __syncthreads();  // every warp is done with the previous page
-    for (int i = threadIdx.x; i < P; i += kThreads) {
-      const float ks = a.k_scale[side + i], kz = a.k_zp[side + i];
-      const float vs = a.v_scale[side + i], vz = a.v_zp[side + i];
-      const float ka = kSingle ? ks : __fmul_rn(ks, a.sm);
+    // sidecars past P are 0: a masked token's p = 0 then adds 0, not NaN
+    for (int i = threadIdx.x; i < PT; i += kThreads) {
+      float ka = 0.f, kz = 0.f, vs = 0.f, vz = 0.f;
+      if (i < P) {
+        ka = a.k_scale[side + i];
+        kz = a.k_zp[side + i];
+        vs = a.v_scale[side + i];
+        vz = a.v_zp[side + i];
+      }
+      if (!kSingle) ka = __fmul_rn(ka, a.sm);
       s_ka[i] = ka;
       s_kb[i] = __fmul_rn(ka, kz);
       s_vs[i] = vs;
@@ -188,28 +225,31 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // raw = q . k_lv for 16 rows x P tokens
-    float s[P / 8][4];
+    // raw = q . k_lv for 16 rows x the page's 8-token blocks
+    float s[PT / 8][4];
 #pragma unroll
-    for (int n = 0; n < P / 8; ++n) {
+    for (int n = 0; n < PT / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      if (n * 8 < P) {
 #pragma unroll
-      for (int d = 0; d < kD / 16; ++d) {
-        const __nv_bfloat16* kp = Ks + (n * 8 + g) * kStride + d * 16 + t * 2;
-        mma_bf16(s[n], qf[d], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+        for (int d = 0; d < kD / 16; ++d) {
+          const __nv_bfloat16* kp = Ks + (n * 8 + g) * kStride + d * 16 + t * 2;
+          mma_bf16(s[n], qf[d], *reinterpret_cast<const uint32_t*>(kp),
+                   *reinterpret_cast<const uint32_t*>(kp + 8));
+        }
       }
     }
 
     // logits and online softmax; thread holds rows g (e = 0, 1) and g + 8
-    // (e = 2, 3), columns n*8 + t*2 + {0, 1}
+    // (e = 2, 3), columns n*8 + t*2 + {0, 1}; tokens past `valid` (and past
+    // the page) get -1e30
     float m_new[2], alpha[2], rsum[2] = {0.f, 0.f}, csum[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = m_run[r];
 #pragma unroll
-      for (int n = 0; n < P / 8; ++n) {
+      for (int n = 0; n < PT / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = n * 8 + t * 2 + e;
@@ -231,9 +271,9 @@ __global__ void __launch_bounds__(kThreads)
       m_new[r] = mx;
       alpha[r] = expf(m_run[r] - mx);
     }
-    uint32_t pf[P / 16][4];  // P (times vs, single) as bf16 A fragments
+    // s becomes the P.V weights: p, or p * vs (single)
 #pragma unroll
-    for (int n = 0; n < P / 8; ++n) {
+    for (int n = 0; n < PT / 8; ++n) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int col = n * 8 + t * 2;
@@ -244,10 +284,12 @@ __global__ void __launch_bounds__(kThreads)
           const float w0 = __fmul_rn(p0, s_vs[col]);
           const float w1 = __fmul_rn(p1, s_vs[col + 1]);
           csum[r] += __fmul_rn(w0, s_vc[col]) + __fmul_rn(w1, s_vc[col + 1]);
-          pf[n >> 1][(n & 1) * 2 + r] = pack_bf16(w0, w1);
+          s[n][r * 2] = w0;
+          s[n][r * 2 + 1] = w1;
         } else {
           csum[r] += __fmul_rn(p0, s_vc[col]) + __fmul_rn(p1, s_vc[col + 1]);
-          pf[n >> 1][(n & 1) * 2 + r] = pack_bf16(p0, p1);
+          s[n][r * 2] = p0;
+          s[n][r * 2 + 1] = p1;
         }
       }
     }
@@ -271,7 +313,12 @@ __global__ void __launch_bounds__(kThreads)
     // o += P . V: k = token (16 per step), n = d (8 per tile); V^T fragments
     // via ldmatrix.trans from the [token][d] tile, two d-tiles per x4 load
 #pragma unroll
-    for (int kk = 0; kk < P / 16; ++kk) {
+    for (int kk = 0; kk < PT / 16; ++kk) {
+      if (kk * 16 >= P16) break;
+      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int dj = 0; dj < kD / 16; ++dj) {
         const int mi = lane >> 3, rr = lane & 7;
@@ -285,8 +332,8 @@ __global__ void __launch_bounds__(kThreads)
             : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
             : "r"(saddr)
             : "memory");
-        mma_bf16(o[dj * 2], pf[kk], b0, b1);
-        mma_bf16(o[dj * 2 + 1], pf[kk], b2, b3);
+        mma_bf16(o[dj * 2], pf, b0, b1);
+        mma_bf16(o[dj * 2 + 1], pf, b2, b3);
       }
     }
   }
@@ -316,37 +363,68 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kSingle>
-int launch(const Args& a, int B, int P, int bits, cudaStream_t stream) {
-  if (a.Sq <= 0 || B <= 0 || a.H <= 0) return 0;
+template <int BITS, int D, int PT, bool kFull, bool kSingle>
+int launch_one(const Args& a, int B, cudaStream_t stream) {
+  using Sh = PagedShape<D, PT>;
+  auto kernel = paged_attention_kernel<BITS, D, PT, kFull, kSingle>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, B);
-#define DLM_PAGED_CASE(BITS_, P_)                                             \
-  if (bits == BITS_ && P == P_) {                                             \
-    paged_attention_kernel<BITS_, P_, kSingle><<<grid, kThreads, 0, stream>>>( \
-        a);                                                                   \
-    return (int)cudaGetLastError();                                           \
+  kernel<<<grid, kThreads, Sh::kSmem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS, int D, int PT, bool kSingle>
+int launch_fill(const Args& a, int B, cudaStream_t stream) {
+  return a.P == PT ? launch_one<BITS, D, PT, true, kSingle>(a, B, stream)
+                   : launch_one<BITS, D, PT, false, kSingle>(a, B, stream);
+}
+
+// the smallest tile of 32, 64 or 128 tokens that holds the page
+template <int BITS, int D, bool kSingle>
+int launch_pt(const Args& a, int B, cudaStream_t stream) {
+  if (a.P <= 32) return launch_fill<BITS, D, 32, kSingle>(a, B, stream);
+  if (a.P <= 64) return launch_fill<BITS, D, 64, kSingle>(a, B, stream);
+  return launch_fill<BITS, D, 128, kSingle>(a, B, stream);
+}
+
+template <int D, bool kSingle>
+int launch_bits(const Args& a, int B, int bits, cudaStream_t stream) {
+  switch (bits) {
+    case 1: return launch_pt<1, D, kSingle>(a, B, stream);
+    case 2: return launch_pt<2, D, kSingle>(a, B, stream);
+    case 4: return launch_pt<4, D, kSingle>(a, B, stream);
+    case 8: return launch_pt<8, D, kSingle>(a, B, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
-  DLM_PAGED_CASE(1, 64)
-  DLM_PAGED_CASE(2, 64)
-  DLM_PAGED_CASE(4, 64)
-  DLM_PAGED_CASE(8, 64)
-  DLM_PAGED_CASE(1, 128)
-  DLM_PAGED_CASE(2, 128)
-  DLM_PAGED_CASE(4, 128)
-  DLM_PAGED_CASE(8, 128)
-#undef DLM_PAGED_CASE
-  return (int)cudaErrorInvalidValue;
+}
+
+// D = 32, 64 or 128; pages of a multiple of 8 tokens up to 128 whose packed
+// rows are whole (P / vpb >= 1)
+template <bool kSingle>
+int launch(const Args& a, int B, int D, int bits, cudaStream_t stream) {
+  if (a.Sq <= 0 || B <= 0 || a.H <= 0) return 0;
+  if (a.P < 8 || a.P > kPmax || a.P % 8 || bits < 1 || bits > 8 ||
+      a.G < 1 || a.H % a.G)
+    return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return launch_bits<32, kSingle>(a, B, bits, stream);
+    case 64: return launch_bits<64, kSingle>(a, B, bits, stream);
+    case 128: return launch_bits<128, kSingle>(a, B, bits, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// B slots over one pool: q [B, H, Sq, 64] bf16; page_tables, page_tokens
-// int32 [B, n_max]; n_pages int32 [B]; pools as above with head groups G of
-// 1 or 2, pages of 64 or 128 tokens at 1/2/4/8 bits. Writes out f32
-// [B, H, Sq, 64] and lse f32 [B, H, Sq]. Returns cudaErrorInvalidValue for a
-// shape it was not built for.
+// B slots over one pool: q [B, H, Sq, D] bf16; page_tables, page_tokens
+// int32 [B, n_max]; n_pages int32 [B]; pools as above with any head group G
+// dividing H, D = 32, 64 or 128, pages of P = 8, 16, ..., 128 tokens at
+// 1/2/4/8 bits. Writes out f32 [B, H, Sq, D] and lse f32 [B, H, Sq]. Returns
+// cudaErrorInvalidValue for a shape it was not built for.
 int dlm_batched_paged_attention(
     const void* q, const void* page_tables, const void* page_tokens,
     const void* n_pages, const void* k_data, const void* k_scale,
@@ -354,8 +432,6 @@ int dlm_batched_paged_attention(
     const void* v_zp, void* out, void* lse, int B, int H, int Sq, int D,
     int n_max, int n_slots, int G, int P, int bits, float sm_scale,
     void* stream) {
-  if (D != kD || (G != 1 && G != 2) || H % G != 0)
-    return (int)cudaErrorInvalidValue;
   Args a{static_cast<const __nv_bfloat16*>(q),
          static_cast<const int*>(page_tables),
          static_cast<const int*>(page_tokens),
@@ -368,13 +444,13 @@ int dlm_batched_paged_attention(
          static_cast<const float*>(v_zp),
          static_cast<float*>(out),
          static_cast<float*>(lse),
-         H, Sq, n_max, n_slots, G, sm_scale};
-  return launch<false>(a, B, P, bits, static_cast<cudaStream_t>(stream));
+         H, Sq, n_max, n_slots, G, P, sm_scale};
+  return launch<false>(a, B, D, bits, static_cast<cudaStream_t>(stream));
 }
 
-// One sequence: q [BH, Sq, 64] bf16; page_table, page_tokens int32
-// [n_pages] (n_pages >= 1); pools [n_slots, BH, P/vpb, 64] and
-// [n_slots, BH, P]. Writes out f32 [BH, Sq, 64] and lse f32 [BH, Sq].
+// One sequence: q [BH, Sq, D] bf16; page_table, page_tokens int32
+// [n_pages] (n_pages >= 1); pools [n_slots, BH, P/vpb, D] and
+// [n_slots, BH, P]. Writes out f32 [BH, Sq, D] and lse f32 [BH, Sq].
 int dlm_paged_attention(const void* q, const void* page_table,
                         const void* page_tokens, const void* k_data,
                         const void* k_scale, const void* k_zp,
@@ -382,7 +458,7 @@ int dlm_paged_attention(const void* q, const void* page_table,
                         const void* v_zp, void* out, void* lse, int BH,
                         int Sq, int D, int n_pages, int n_slots, int P,
                         int bits, float sm_scale, void* stream) {
-  if (D != kD || n_pages <= 0) return (int)cudaErrorInvalidValue;
+  if (n_pages <= 0) return (int)cudaErrorInvalidValue;
   Args a{static_cast<const __nv_bfloat16*>(q),
          static_cast<const int*>(page_table),
          static_cast<const int*>(page_tokens),
@@ -395,8 +471,8 @@ int dlm_paged_attention(const void* q, const void* page_table,
          static_cast<const float*>(v_zp),
          static_cast<float*>(out),
          static_cast<float*>(lse),
-         BH, Sq, n_pages, n_slots, 1, sm_scale};
-  return launch<true>(a, 1, P, bits, static_cast<cudaStream_t>(stream));
+         BH, Sq, n_pages, n_slots, 1, P, sm_scale};
+  return launch<true>(a, 1, D, bits, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -11,6 +11,11 @@
 // Pools keep the JAX layout (see paged_attention.cu): data uint8 [n_slots,
 // H/G, P/vpb, G*D], token-block packed (byte (r, d) holds the levels of
 // tokens r + p*P/vpb in bit field p); sidecars f32 [n_slots, H/G, G*P].
+// Head widths D = 32, 64 and 128 are template parameters, and so is the
+// tile's capacity of 32, 64 or 128 tokens (the smallest that holds the
+// page); the page size P (a multiple of 8 up to 128) and the head group G
+// are not. A page that fills its tile runs an instance whose loop bounds are
+// all constant: the runtime bounds cost up to 26%.
 //
 // One block per (64-query tile, head, slot); 4 warps own 16 query rows each,
 // so a query row's tokens of a page sit in 4 lanes of one warp and the
@@ -50,9 +55,7 @@
 
 namespace {
 
-constexpr int kD = 64, kBQ = 64, kThreads = 128;
-constexpr int kQStride = kD + 8;    // bf16 q tile, in elements
-constexpr int kRowBytes = kD + 16;  // int8 rows of 64 d: conflict-free frags
+constexpr int kBQ = 64, kThreads = 128, kPmax = 128;
 constexpr float kNegInf = -1e30f;
 
 struct Args {
@@ -68,7 +71,7 @@ struct Args {
   const float* v_zp;
   float* out;              // [B, H, Sq, D]
   float* lse;              // [B, H, Sq]
-  int H, Sq, n_max, n_slots, G;
+  int H, Sq, n_max, n_slots, G, P;
   float sm;
 };
 
@@ -98,24 +101,46 @@ __device__ __forceinline__ uint32_t pack_s8(float x0, float x1, float x2,
          ((uint32_t)(uint8_t)(int8_t)(int)x3 << 24);
 }
 
-template <int BITS, int P>
+// D: head width; PT: tokens the tiles hold (32, 64 or 128), the page size
+// rounded up
+template <int D, int PT>
+struct A8Shape {
+  static constexpr int kQStride = D + 8;    // bf16 q tile, in elements
+  static constexpr int kRowBytes = D + 16;  // int8 rows of D: conflict-free
+  static constexpr int kVtBytes = PT + 16;  // V^T rows of PT tokens
+  static constexpr int kQ = kBQ * kQStride * 2, kQi = kBQ * kRowBytes;
+  static constexpr int kK = PT * kRowBytes, kVt = D * kVtBytes;
+  // bf16 q, int8 q, K [token][d], V^T [d][token]; per token of the page:
+  // logit scale and offset, V scale, V zero-point; per query row: sq, qsum
+  static constexpr int kSmem = kQ + kQi + kK + kVt + (4 * PT + 2 * kBQ) * 4;
+};
+
+template <int BITS, int D, int PT, bool kFull>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_a8_kernel(const Args a) {
-  constexpr int kVpb = 8 / BITS, kPp = P / kVpb;
+  using Sh = A8Shape<D, PT>;
+  constexpr int kD = D, kQStride = Sh::kQStride, kRowBytes = Sh::kRowBytes;
+  constexpr int kVtBytes = Sh::kVtBytes;
+  constexpr int kVpb = 8 / BITS;
   constexpr uint32_t kMask4 = 0x01010101u * ((1u << BITS) - 1u);
   constexpr uint32_t kOff4 = 0x01010101u * (1u << (BITS - 1));
   constexpr float kOff = (float)(1 << (BITS - 1));
-  constexpr int kVtBytes = P + 16;  // V^T rows of P tokens
-  __shared__ __align__(16) __nv_bfloat16 Qs[kBQ * kQStride];
-  __shared__ __align__(16) uint8_t Qi[kBQ * kRowBytes];
-  __shared__ __align__(16) uint8_t Ks[P * kRowBytes];
-  __shared__ __align__(16) uint8_t Vt[kD * kVtBytes];
-  // per token of the page: logit scale and offset, V scale, V zero-point
-  __shared__ float s_ka[P], s_kb[P], s_vs[P], s_vz[P];
-  __shared__ float s_sq[kBQ], s_qsum[kBQ];
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  uint8_t* Qi = smem + Sh::kQ;
+  uint8_t* Ks = Qi + Sh::kQi;
+  uint8_t* Vt = Ks + Sh::kK;
+  float* s_ka = reinterpret_cast<float*>(Vt + Sh::kVt);
+  float* s_kb = s_ka + PT;
+  float* s_vs = s_kb + PT;
+  float* s_vz = s_vs + PT;
+  float* s_sq = s_vz + PT;
+  float* s_qsum = s_sq + kBQ;
 
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int H = a.H, Sq = a.Sq, G = a.G, HG = H / G;
+  // kFull: the page fills the tile, and every loop bound below is constant
+  const int H = a.H, Sq = a.Sq, G = a.G, HG = H / G, P = kFull ? PT : a.P;
+  const int kPp = P / kVpb;  // packed rows of a page: even (P % 8 == 0)
   const int hg = h / G, hl = h % G, GD = G * kD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -140,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
     float sum = 0.f;
     for (int d = 0; d < kD; ++d) {
       const float lv = rintf(__fdiv_rn(__bfloat162float(row[d]), sq));
-      sum += lv;  // integers up to 64 * 127: exact
+      sum += lv;  // integers up to 128 * 127: exact
       Qi[threadIdx.x * kRowBytes + d] = (uint8_t)(int8_t)(int)lv;
     }
     s_sq[threadIdx.x] = sq;
@@ -175,23 +200,30 @@ __global__ void __launch_bounds__(kThreads)
     const size_t side = ((size_t)slot * HG + hg) * G * P + (size_t)hl * P;
     const size_t base = ((size_t)slot * HG + hg) * kPp * GD + (size_t)hl * kD;
     __syncthreads();  // every warp is done with the previous page
-    for (int i = threadIdx.x; i < P; i += kThreads) {
-      const float ka = __fmul_rn(a.k_scale[side + i], a.sm);
+    // sidecars past P are 0: a masked token's weight 0 then adds 0, not NaN
+    for (int i = threadIdx.x; i < PT; i += kThreads) {
+      const bool in = i < P;
+      const float ka = in ? __fmul_rn(a.k_scale[side + i], a.sm) : 0.f;
       s_ka[i] = ka;
-      s_kb[i] = __fmul_rn(ka, __fsub_rn(a.k_zp[side + i], kOff));
-      s_vs[i] = a.v_scale[side + i];
-      s_vz[i] = __fsub_rn(a.v_zp[side + i], kOff);
+      s_kb[i] = in ? __fmul_rn(ka, __fsub_rn(a.k_zp[side + i], kOff)) : 0.f;
+      s_vs[i] = in ? a.v_scale[side + i] : 0.f;
+      s_vz[i] = in ? __fsub_rn(a.v_zp[side + i], kOff) : 0.f;
     }
-    // 4 packed rows x 4 d at a time: centered levels of 4 tokens x 4 d per
-    // bit field; K keeps [token][d], V is transposed to [d][token]
-    for (int c = threadIdx.x; c < (kPp / 4) * (kD / 4); c += kThreads) {
+    // up to 4 packed rows x 4 d at a time: centered levels of 4 tokens x 4 d
+    // per bit field; K keeps [token][d], V is transposed to [d][token]. A
+    // group of rows may end after 2 (kPp is even)
+    for (int c = threadIdx.x; c < ((kPp + 3) / 4) * (kD / 4); c += kThreads) {
       const int r = (c / (kD / 4)) * 4, col = (c % (kD / 4)) * 4;
+      const bool four = kPp % 4 == 0 || r + 2 < kPp;
       uint32_t kw[4], vw[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const size_t off = base + (size_t)(r + i) * GD + col;
-        kw[i] = *reinterpret_cast<const uint32_t*>(a.k_data + off);
-        vw[i] = *reinterpret_cast<const uint32_t*>(a.v_data + off);
+        kw[i] = vw[i] = 0u;
+        if (i < 2 || four) {
+          const size_t off = base + (size_t)(r + i) * GD + col;
+          kw[i] = *reinterpret_cast<const uint32_t*>(a.k_data + off);
+          vw[i] = *reinterpret_cast<const uint32_t*>(a.v_data + off);
+        }
       }
 #pragma unroll
       for (int p = 0; p < kVpb; ++p) {
@@ -199,54 +231,60 @@ __global__ void __launch_bounds__(kThreads)
         uint32_t vc[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          *reinterpret_cast<uint32_t*>(Ks + (tok + i) * kRowBytes + col) =
-              __vsub4((kw[i] >> (p * BITS)) & kMask4, kOff4);
+          const uint32_t kc = __vsub4((kw[i] >> (p * BITS)) & kMask4, kOff4);
+          if (i < 2 || four)
+            *reinterpret_cast<uint32_t*>(Ks + (tok + i) * kRowBytes + col) = kc;
           vc[i] = __vsub4((vw[i] >> (p * BITS)) & kMask4, kOff4);
         }
         // vc[i] holds d col..col+3 of token tok+i; row d takes tokens
         // tok..tok+3 as two halfwords (tok, tok+1) and (tok+2, tok+3)
         const uint32_t lo01 = __byte_perm(vc[0], vc[1], 0x5140);  // d0 d1
         const uint32_t hi01 = __byte_perm(vc[0], vc[1], 0x7362);  // d2 d3
-        const uint32_t lo23 = __byte_perm(vc[2], vc[3], 0x5140);
-        const uint32_t hi23 = __byte_perm(vc[2], vc[3], 0x7362);
-        const int c0 = vt_col(tok), c2 = vt_col(tok + 2);
+        const int c0 = vt_col(tok);
         uint8_t* vrow = Vt + col * kVtBytes;
         *reinterpret_cast<uint16_t*>(vrow + c0) = (uint16_t)(lo01 & 0xffffu);
-        *reinterpret_cast<uint16_t*>(vrow + c2) = (uint16_t)(lo23 & 0xffffu);
         *reinterpret_cast<uint16_t*>(vrow + kVtBytes + c0) = (uint16_t)(lo01 >> 16);
-        *reinterpret_cast<uint16_t*>(vrow + kVtBytes + c2) = (uint16_t)(lo23 >> 16);
         *reinterpret_cast<uint16_t*>(vrow + 2 * kVtBytes + c0) = (uint16_t)(hi01 & 0xffffu);
-        *reinterpret_cast<uint16_t*>(vrow + 2 * kVtBytes + c2) = (uint16_t)(hi23 & 0xffffu);
         *reinterpret_cast<uint16_t*>(vrow + 3 * kVtBytes + c0) = (uint16_t)(hi01 >> 16);
-        *reinterpret_cast<uint16_t*>(vrow + 3 * kVtBytes + c2) = (uint16_t)(hi23 >> 16);
+        if (four) {
+          const uint32_t lo23 = __byte_perm(vc[2], vc[3], 0x5140);
+          const uint32_t hi23 = __byte_perm(vc[2], vc[3], 0x7362);
+          const int c2 = vt_col(tok + 2);
+          *reinterpret_cast<uint16_t*>(vrow + c2) = (uint16_t)(lo23 & 0xffffu);
+          *reinterpret_cast<uint16_t*>(vrow + kVtBytes + c2) = (uint16_t)(lo23 >> 16);
+          *reinterpret_cast<uint16_t*>(vrow + 2 * kVtBytes + c2) = (uint16_t)(hi23 & 0xffffu);
+          *reinterpret_cast<uint16_t*>(vrow + 3 * kVtBytes + c2) = (uint16_t)(hi23 >> 16);
+        }
       }
     }
     __syncthreads();
 
-    // raw_i = qi . k_lv for 16 rows x P tokens, int32
-    float s[P / 8][4];
+    // raw_i = qi . k_lv for 16 rows x the page's 8-token blocks, int32
+    float s[PT / 8][4];
 #pragma unroll
-    for (int n = 0; n < P / 8; ++n) {
+    for (int n = 0; n < PT / 8; ++n) {
       int acc[4] = {0, 0, 0, 0};
+      if (n * 8 < P) {
 #pragma unroll
-      for (int d = 0; d < kD / 32; ++d) {
-        const uint8_t* kp = Ks + (n * 8 + g) * kRowBytes + d * 32 + t * 4;
-        mma_s8(acc, qf[d], *reinterpret_cast<const uint32_t*>(kp),
-               *reinterpret_cast<const uint32_t*>(kp + 16));
+        for (int d = 0; d < kD / 32; ++d) {
+          const uint8_t* kp = Ks + (n * 8 + g) * kRowBytes + d * 32 + t * 4;
+          mma_s8(acc, qf[d], *reinterpret_cast<const uint32_t*>(kp),
+                 *reinterpret_cast<const uint32_t*>(kp + 16));
+        }
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = (float)acc[e];
     }
 
     // logits and online softmax; thread holds rows g (e = 0, 1) and g + 8
-    // (e = 2, 3), tokens n*8 + t*2 + {0, 1}
+    // (e = 2, 3), tokens n*8 + t*2 + {0, 1}; tokens past `valid` get -1e30
     float m_new[2], alpha[2], rsum[2] = {0.f, 0.f}, csum[2] = {0.f, 0.f};
     float wmax[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = m_run[r];
 #pragma unroll
-      for (int n = 0; n < P / 8; ++n) {
+      for (int n = 0; n < PT / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = n * 8 + t * 2 + e;
@@ -265,7 +303,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     // s becomes w = p * vs (0 on invalid tokens)
 #pragma unroll
-    for (int n = 0; n < P / 8; ++n) {
+    for (int n = 0; n < PT / 8; ++n) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
 #pragma unroll
@@ -294,14 +332,16 @@ __global__ void __launch_bounds__(kThreads)
       m_run[r] = m_new[r];
     }
 
-    // pv_i = wi . v_lv: k = token (32 per step, in vt_col order), n = d
+    // pv_i = wi . v_lv: k = token (32 per step, in vt_col order), n = d;
+    // tokens past P in the last step have wi = 0
     int oi[kD / 8][4];
 #pragma unroll
     for (int dj = 0; dj < kD / 8; ++dj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) oi[dj][e] = 0;
 #pragma unroll
-    for (int kk = 0; kk < P / 32; ++kk) {
+    for (int kk = 0; kk < PT / 32; ++kk) {
+      if (kk * 32 >= P) break;
       uint32_t wf[4];
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {    // tiles (0, 1) then (2, 3)
@@ -351,16 +391,52 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int BITS, int D, int PT, bool kFull>
+int launch_one(const Args& a, int B, cudaStream_t st) {
+  using Sh = A8Shape<D, PT>;
+  auto kernel = paged_attention_a8_kernel<BITS, D, PT, kFull>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, B);
+  kernel<<<grid, kThreads, Sh::kSmem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS, int D, int PT>
+int launch_fill(const Args& a, int B, cudaStream_t st) {
+  return a.P == PT ? launch_one<BITS, D, PT, true>(a, B, st)
+                   : launch_one<BITS, D, PT, false>(a, B, st);
+}
+
+// the smallest tile of 32, 64 or 128 tokens that holds the page
+template <int BITS, int D>
+int launch_pt(const Args& a, int B, cudaStream_t st) {
+  if (a.P <= 32) return launch_fill<BITS, D, 32>(a, B, st);
+  if (a.P <= 64) return launch_fill<BITS, D, 64>(a, B, st);
+  return launch_fill<BITS, D, 128>(a, B, st);
+}
+
+template <int D>
+int launch_bits(const Args& a, int B, int bits, cudaStream_t st) {
+  switch (bits) {
+    case 2: return launch_pt<2, D>(a, B, st);
+    case 4: return launch_pt<4, D>(a, B, st);
+    case 8: return launch_pt<8, D>(a, B, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// B slots over one pool with int8 activations: q [B, H, Sq, 64] bf16;
+// B slots over one pool with int8 activations: q [B, H, Sq, D] bf16;
 // page_tables, page_tokens int32 [B, n_max]; n_pages int32 [B]; pools as
-// above with head groups G of 1 or 2, pages of 64 or 128 tokens at 2/4/8 bits
-// (1-bit pages take the bf16 kernel). Writes out f32 [B, H, Sq, 64] and lse
-// f32 [B, H, Sq]. Returns cudaErrorInvalidValue for a shape it was not built
-// for.
+// above with any head group G dividing H, D = 32, 64 or 128, pages of P = 8,
+// 16, ..., 128 tokens at 2/4/8 bits (1-bit pages take the bf16 kernel).
+// Writes out f32 [B, H, Sq, D] and lse f32 [B, H, Sq]. Returns
+// cudaErrorInvalidValue for a shape it was not built for.
 int dlm_batched_paged_attention_a8(
     const void* q, const void* page_tables, const void* page_tokens,
     const void* n_pages, const void* k_data, const void* k_scale,
@@ -368,7 +444,7 @@ int dlm_batched_paged_attention_a8(
     const void* v_zp, void* out, void* lse, int B, int H, int Sq, int D,
     int n_max, int n_slots, int G, int P, int bits, float sm_scale,
     void* stream) {
-  if (D != kD || (G != 1 && G != 2) || H % G != 0)
+  if (G < 1 || H % G != 0 || P < 8 || P > kPmax || P % 8)
     return (int)cudaErrorInvalidValue;
   if (Sq <= 0 || B <= 0 || H <= 0) return 0;
   Args a{static_cast<const __nv_bfloat16*>(q),
@@ -383,22 +459,14 @@ int dlm_batched_paged_attention_a8(
          static_cast<const float*>(v_zp),
          static_cast<float*>(out),
          static_cast<float*>(lse),
-         H, Sq, n_max, n_slots, G, sm_scale};
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+         H, Sq, n_max, n_slots, G, P, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DLM_A8_CASE(BITS_, P_)                                              \
-  if (bits == BITS_ && P == P_) {                                           \
-    paged_attention_a8_kernel<BITS_, P_><<<grid, kThreads, 0, st>>>(a);     \
-    return (int)cudaGetLastError();                                         \
+  switch (D) {
+    case 32: return launch_bits<32>(a, B, bits, st);
+    case 64: return launch_bits<64>(a, B, bits, st);
+    case 128: return launch_bits<128>(a, B, bits, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  DLM_A8_CASE(2, 64)
-  DLM_A8_CASE(4, 64)
-  DLM_A8_CASE(8, 64)
-  DLM_A8_CASE(2, 128)
-  DLM_A8_CASE(4, 128)
-  DLM_A8_CASE(8, 128)
-#undef DLM_A8_CASE
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -3,17 +3,19 @@
 //
 // Replaces the TPU kernel `_attn_kernel` (diffusion_llm_rs_tpu/ops/
 // pallas_attention.py, behind `attention`), the kernel of the phase-aware
-// cached sampler: q [BH, Sq, 64] bf16 attends over K and V stored as packed
+// cached sampler: q [BH, Sq, D] bf16 attends over K and V stored as packed
 // 8/4/2/1-bit levels with one f32 scale and zero-point per (bh, token), and
-// the packed bytes are never dequantized into device memory.
+// the packed bytes are never dequantized into device memory. Head widths D =
+// 32, 64 and 128 are template parameters.
 //
 // Layout (`QuantKV`): data uint8 [BH, Skv, D/vpb], block-packed along D: byte
 // (s, c) holds the level of channel c + p*(D/vpb) in bit field p (vpb = 8 /
 // bits); scale and zero-point f32 [BH, Skv].
 //
 // One block per (64-query tile, bh); 4 warps own 16 query rows each. KV tiles
-// of 64 tokens: each thread reads 8 packed bytes of a row and writes their
-// vpb groups of 8 levels as bf16 (levels 0..255 are exact in bf16) into the
+// of 64 tokens: each thread reads 8 packed bytes of a row (4 where a packed
+// row is 4 bytes: D = 32 at 1 bit) and writes their vpb groups of levels as
+// bf16 (levels 0..255 are exact in bf16) into the
 // [token][d] tiles in shared memory, QK^T and PV run on mma.sync m16n8k16
 // bf16 with f32 sums, and the running max, sum and accumulator stay in
 // registers. The affine terms never touch the levels; as in the TPU kernel
@@ -42,7 +44,7 @@
 
 namespace {
 
-constexpr int kD = 64, kBQ = 64, kBK = 64, kThreads = 128, kStride = kD + 8;
+constexpr int kBQ = 64, kBK = 64, kThreads = 128;
 constexpr float kNegInf = -1e30f;
 
 struct Args {
@@ -74,40 +76,64 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Unpack tokens [kv0, kv0 + 64) of one bh's packed rows into a [token][d]
 // bf16 tile of levels; tokens past Skv are zero.
-template <int BITS>
+template <int BITS, int D>
 __device__ __forceinline__ void unpack_tile(const uint8_t* __restrict__ data,
                                             int Skv, int kv0,
                                             __nv_bfloat16* tile) {
-  constexpr int kVpb = 8 / BITS, kDp = kD / kVpb, kMask = (1 << BITS) - 1;
-  constexpr int kChunks = kDp / 8;  // 8-byte chunks per packed row
+  constexpr int kVpb = 8 / BITS, kDp = D / kVpb, kMask = (1 << BITS) - 1;
+  constexpr int kStride = D + 8;
+  constexpr int kCb = kDp >= 8 ? 8 : kDp;  // bytes a thread reads: 8 or 4
+  constexpr int kChunks = kDp / kCb;       // chunks per packed row
   for (int c = threadIdx.x; c < kBK * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const int r = c / kChunks, col = (c % kChunks) * kCb;
     uint2 w = make_uint2(0, 0);
-    if (kv0 + r < Skv)
-      w = *reinterpret_cast<const uint2*>(data + (size_t)(kv0 + r) * kDp + col);
+    if (kv0 + r < Skv) {
+      const uint8_t* src = data + (size_t)(kv0 + r) * kDp + col;
+      if (kCb == 8)
+        w = *reinterpret_cast<const uint2*>(src);
+      else
+        w.x = *reinterpret_cast<const uint32_t*>(src);
+    }
     const uint8_t* b = reinterpret_cast<const uint8_t*>(&w);
 #pragma unroll
     for (int p = 0; p < kVpb; ++p) {
       uint32_t lv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kCb / 2; ++i)
         lv[i] = pack_bf16((float)((b[2 * i] >> (p * BITS)) & kMask),
                           (float)((b[2 * i + 1] >> (p * BITS)) & kMask));
-      *reinterpret_cast<uint4*>(tile + r * kStride + p * kDp + col) =
-          make_uint4(lv[0], lv[1], lv[2], lv[3]);
+      __nv_bfloat16* dst = tile + r * kStride + p * kDp + col;
+      if (kCb == 8)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(lv[0], lv[1], lv[2], lv[3]);
+      else
+        *reinterpret_cast<uint2*>(dst) = make_uint2(lv[0], lv[1]);
     }
   }
 }
 
-template <int BITS>
+template <int D>
+struct QaShape {
+  static constexpr int kStride = D + 8;  // padded rows: conflict-free frags
+  static constexpr int kTile = kBQ * kStride * 2;  // bytes of one bf16 tile
+  // Q, K and V tiles, then per token of the KV tile: logit scale and offset,
+  // V scale, V zero-point; per query row: the channel sum
+  static constexpr int kSmem = 3 * kTile + (4 * kBK + kBQ) * 4;
+};
+
+template <int BITS, int D>
 __global__ void __launch_bounds__(kThreads)
     quant_attention_kernel(const Args a) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[kBQ * kStride];
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBK * kStride];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBK * kStride];
-  // per token of the tile: logit scale and offset, V scale, V zero-point
-  __shared__ float s_ka[kBK], s_kb[kBK], s_vs[kBK], s_vz[kBK];
-  __shared__ float s_qsum[kBQ];
+  using Sh = QaShape<D>;
+  constexpr int kD = D, kStride = Sh::kStride;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + Sh::kTile);
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + 2 * Sh::kTile);
+  float* s_ka = reinterpret_cast<float*>(smem + 3 * Sh::kTile);
+  float* s_kb = s_ka + kBK;
+  float* s_vs = s_kb + kBK;
+  float* s_vz = s_vs + kBK;
+  float* s_qsum = s_vz + kBK;
   constexpr int kDp = kD / (8 / BITS);
 
   const int q0 = blockIdx.x * kBQ, bh = blockIdx.y;
@@ -164,8 +190,8 @@ __global__ void __launch_bounds__(kThreads)
       s_vs[i] = ok ? a.v_scale[side + kv0 + i] : 0.f;
       s_vz[i] = ok ? a.v_zp[side + kv0 + i] : 0.f;
     }
-    unpack_tile<BITS>(kd, Skv, kv0, Ks);
-    unpack_tile<BITS>(vd, Skv, kv0, Vs);
+    unpack_tile<BITS, D>(kd, Skv, kv0, Ks);
+    unpack_tile<BITS, D>(vd, Skv, kv0, Vs);
     __syncthreads();
 
     // raw = q . k_lv for 16 rows x 64 tokens
@@ -275,20 +301,42 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int BITS, int D>
+int launch(const Args& a, int BH, cudaStream_t st) {
+  auto kernel = quant_attention_kernel<BITS, D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, QaShape<D>::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((a.Sq + kBQ - 1) / kBQ, BH);
+  kernel<<<grid, kThreads, QaShape<D>::kSmem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bits(const Args& a, int BH, int bits, cudaStream_t st) {
+  switch (bits) {
+    case 8: return launch<8, D>(a, BH, st);
+    case 4: return launch<4, D>(a, BH, st);
+    case 2: return launch<2, D>(a, BH, st);
+    case 1: return launch<1, D>(a, BH, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// q [BH, Sq, 64] bf16; k_data, v_data uint8 [BH, Skv, 64 * bits / 8];
-// k_scale, k_zp, v_scale, v_zp f32 [BH, Skv]; bits 1, 2, 4 or 8; Sq, Skv >=
-// 1. Writes out f32 [BH, Sq, 64]. Returns cudaErrorInvalidValue for a shape
-// it was not built for.
+// q [BH, Sq, D] bf16; k_data, v_data uint8 [BH, Skv, D * bits / 8];
+// k_scale, k_zp, v_scale, v_zp f32 [BH, Skv]; D = 32, 64 or 128; bits 1, 2,
+// 4 or 8; Sq, Skv >= 1. Writes out f32 [BH, Sq, D]. Returns
+// cudaErrorInvalidValue for a shape it was not built for.
 int dlm_quant_attention(const void* q, const void* k_data, const void* k_scale,
                         const void* k_zp, const void* v_data,
                         const void* v_scale, const void* v_zp, void* out,
                         int BH, int Sq, int Skv, int D, int bits,
                         float sm_scale, void* stream) {
-  if (D != kD || Skv <= 0) return (int)cudaErrorInvalidValue;
+  if (Skv <= 0) return (int)cudaErrorInvalidValue;
   if (BH <= 0 || Sq <= 0) return 0;
   Args a{static_cast<const __nv_bfloat16*>(q),
          static_cast<const uint8_t*>(k_data),
@@ -299,16 +347,13 @@ int dlm_quant_attention(const void* q, const void* k_data, const void* k_scale,
          static_cast<const float*>(v_zp),
          static_cast<float*>(out),
          Sq, Skv, sm_scale};
-  dim3 grid((Sq + kBQ - 1) / kBQ, BH);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (bits) {
-    case 8: quant_attention_kernel<8><<<grid, kThreads, 0, st>>>(a); break;
-    case 4: quant_attention_kernel<4><<<grid, kThreads, 0, st>>>(a); break;
-    case 2: quant_attention_kernel<2><<<grid, kThreads, 0, st>>>(a); break;
-    case 1: quant_attention_kernel<1><<<grid, kThreads, 0, st>>>(a); break;
+  switch (D) {
+    case 32: return launch_bits<32>(a, BH, bits, st);
+    case 64: return launch_bits<64>(a, BH, bits, st);
+    case 128: return launch_bits<128>(a, BH, bits, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -37,7 +37,7 @@ import torch
 from diffusion_llm_rs_tpu_torch.config import DiffusionConfig
 from diffusion_llm_rs_tpu_torch.ops.attention import (attention as
                                                       quant_attention,
-                                                      dense_attention)
+                                                      flash_fold)
 from diffusion_llm_rs_tpu_torch.ops.matmul import Int8Weight, int8_mlp, linear
 
 Params = Dict[str, Any]
@@ -137,16 +137,15 @@ def attention(
     flash: bool = True,
 ) -> torch.Tensor:
     """Bidirectional attention. Unmasked at Skv >= 1024: the `dense_attention`
-    kernel over heads folded into the batch. Otherwise: f32 logits from the
-    working-dtype operands, f32 softmax, probabilities cast back to the
-    working dtype, f32 accumulation."""
+    kernel over heads folded into the batch (`flash_fold`, differentiable).
+    Otherwise: f32 logits from the working-dtype operands, f32 softmax,
+    probabilities cast back to the working dtype, f32 accumulation."""
     B, S, H, Hd = q.shape
     if flash and mask is None and k.shape[1] >= 1024:
         def fold(x):  # [B, S, H, Hd] -> [B*H, S, Hd]
             return x.transpose(1, 2).reshape(B * H, -1, Hd)
 
-        out = dense_attention(fold(q), fold(k), fold(v),
-                              sm_scale=1.0 / math.sqrt(Hd), out_dtype=q.dtype)
+        out = flash_fold(fold(q), fold(k), fold(v), 1.0 / math.sqrt(Hd))
         return out.reshape(B, H, S, Hd).transpose(1, 2)
     logits = torch.einsum("bshd,bthd->bhst", q.to(torch.float32),
                           k.to(torch.float32))

@@ -41,14 +41,16 @@ SIGNATURES = {
     "dlm_int8_mlp_smem": ("int8_mlp", (_I, _I)),
     "dlm_int8_mlp": ("int8_mlp", (_P,) * 9 + (_I,) * 5 + (_P,)),
     "dlm_dense_attention": ("dense_attention", (_P, _P, _P, _P, _I, _I, _I, _I,
-                                                _F, _P)),
+                                                _I, _F, _P)),
     "dlm_batched_paged_attention": ("paged_attention",
                                     (_P,) * 12 + (_I,) * 9 + (_F, _P)),
     "dlm_paged_attention": ("paged_attention", (_P,) * 11 + (_I,) * 7 + (_F, _P)),
     "dlm_batched_paged_attention_a8": ("paged_attention_a8",
                                        (_P,) * 12 + (_I,) * 9 + (_F, _P)),
     "dlm_quant_attention": ("quant_attention", (_P,) * 8 + (_I,) * 5 + (_F, _P)),
-    "dlm_packed_gemm": ("packed_gemm", (_P,) * 7 + (_I, _P) + (_I,) * 7 + (_P,)),
+    "dlm_packed_gemm_splits": ("packed_gemm", (_I,) * 4),
+    "dlm_packed_gemm": ("packed_gemm", (_P,) * 7 + (_I, _P) + (_I,) * 7
+                        + (_P, _I, _P)),
     "dlm_fused_qkv_attention": ("fused_qkv_attention",
                                 (_P, _P) + (_I,) * 5 + (_F, _P)),
 }

@@ -5,6 +5,8 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_attention.py`:
   - `dense_attention` (TPU kernel `_dense_kernel`): q/k/v [BH, S, D] -> [BH,
     Sq, D], online softmax over KV tiles, bf16 operands, P rounded to bf16
     before P.V, f32 accumulation. Kernel: `csrc/dense_attention.cu`.
+    `flash_fold` wraps it in `DenseAttention`, an autograd Function whose
+    backward is JAX's `_flash_fold` VJP (f32 softmax-attention gradients).
   - `QuantKV`, `quantize_kv` and `attention` (TPU kernel `_attn_kernel`): K
     and V [BH, S, D] quantized per token at 8/4/2/1 bits, block-packed along
     D; the affine terms fold into row corrections, so both products run on
@@ -32,7 +34,7 @@ from diffusion_llm_rs_tpu_torch.ops import _build
 from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIM = 64  # the sampler's 768 / 12; the only width built
+KERNEL_HEAD_DIMS = (32, 64, 128)  # the widths the attention kernels are built for
 KERNEL_KV_TILE = 64   # tokens per online-softmax step of `csrc/quant_attention.cu`
 KERNEL_BITS = (1, 2, 4, 8)
 
@@ -71,7 +73,8 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense flash attention: q [BH, Sq, D], k/v [BH, Skv, D] -> [BH, Sq, D].
 
     Inputs are cast to bf16, as on the TPU. CPU tensors take the plain twin;
-    CUDA tensors launch the kernel (D = 64, bf16 out)."""
+    CUDA tensors launch the kernel (D = 32, 64 or 128; bf16 or f32 out). No
+    gradient flows through the kernel: `flash_fold` gives one."""
     if q.device.type == "cpu":
         return dense_attention_plain(q, k, v, sm_scale, out_dtype)
     if q.device.type != "cuda":
@@ -81,26 +84,68 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (BH, Skv, D) or v.shape != k.shape or Skv == 0:
         raise ValueError(f"dense_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"dense_attention: head dim {D}, the kernel takes "
-                         f"{KERNEL_HEAD_DIM}")
-    if out_dtype != torch.bfloat16:
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"dense_attention: head dim {D}, the kernel is built "
+                         f"for {KERNEL_HEAD_DIMS}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"dense_attention: out_dtype {out_dtype}, the kernel "
-                         "writes bf16")
+                         "writes bf16 or f32")
     if k.device != q.device or v.device != q.device:
         raise ValueError("dense_attention: q, k, v on different devices")
     sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     qb, kb, vb = (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (qb, kb, vb)):
         raise ValueError("dense_attention: q, k, v must be 16-byte aligned "
-                         "(the kernel reads rows 16 bytes at a time)")
+                         "(the kernel reads them by TMA)")
     out = torch.empty((BH, Sq, D), dtype=out_dtype, device=q.device)
     _build.check(_build.function("dlm_dense_attention")(
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
-        BH, Sq, Skv, D, float(sm_scale),
+        int(out_dtype == torch.bfloat16), BH, Sq, Skv, D, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream), "dense_attention")
     _build.launch_counts["dense_attention"] += 1
     return out
+
+
+def dense_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, sm_scale: float):
+    """JAX's `_flash_fold_bwd`: standard softmax-attention gradients in f32
+    from q, k, v [BH, S, D] and the output's gradient g, each cast back to its
+    input's dtype. It materializes the [BH, Sq, Skv] probabilities, as JAX
+    does; the forward stays flash."""
+    q32, k32, v32, g32 = (t.to(torch.float32) for t in (q, k, v, g))
+    logits = torch.einsum("bsd,btd->bst", q32, k32) * sm_scale
+    p = torch.softmax(logits, dim=-1)
+    dv = torch.einsum("bst,bsd->btd", p, g32)
+    dp = torch.einsum("bsd,btd->bst", g32, v32)
+    dl = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bst,btd->bsd", dl, k32) * sm_scale
+    dk = torch.einsum("bst,bsd->btd", dl, q32) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class DenseAttention(torch.autograd.Function):
+    """`dense_attention` with JAX's `_flash_fold` VJP: the forward launches
+    the kernel (the plain twin on the CPU), the backward recomputes the
+    softmax in f32 (`dense_attention_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, out_dtype):
+        ctx.save_for_backward(q, k, v)
+        ctx.sm_scale = sm_scale
+        return dense_attention(q, k, v, sm_scale, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = dense_attention_bwd(q, k, v, g, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_fold(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               sm_scale: float) -> torch.Tensor:
+    """JAX's `_flash_fold`: folded [BH, S, Hd] flash attention in q's dtype,
+    differentiable with respect to q, k and v."""
+    return DenseAttention.apply(q, k, v, sm_scale, q.dtype)
 
 
 # ------------------------------------------------------- quantized K/V
@@ -216,8 +261,9 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     folded outside) -> f32 [BH, Sq, D].
 
     CPU tensors take the plain version. CUDA tensors launch the kernel, which
-    serves every Sq and Skv >= 1 at D = 64 and 1/2/4/8 bits (the TPU wrapper
-    hands shapes off its tiling to an XLA path with other roundings)."""
+    serves every Sq and Skv >= 1 at D = 32, 64 and 128 and 1/2/4/8 bits (the
+    TPU wrapper hands shapes off its tiling to an XLA path with other
+    roundings)."""
     if k.bits != v.bits or k.shape != v.shape:
         raise ValueError(f"attention: K {k.shape} at {k.bits} bits, "
                          f"V {v.shape} at {v.bits} bits")
@@ -229,9 +275,9 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
         return attention_plain(q, k, v, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"attention: head dim {D}, the kernel takes "
-                         f"{KERNEL_HEAD_DIM}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"attention: head dim {D}, the kernel is built for "
+                         f"{KERNEL_HEAD_DIMS}")
     if k.bits not in KERNEL_BITS:
         raise ValueError(f"attention: bits {k.bits}, the kernel takes "
                          f"{KERNEL_BITS}")
@@ -249,9 +295,10 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     qb = q.to(torch.bfloat16).contiguous()
     kd, ks, kz, vd, vs, vz = (t.contiguous() for t in (
         k.data, k.scale, k.zero_point, v.data, v.scale, v.zero_point))
-    if qb.data_ptr() % 16 or kd.data_ptr() % 8 or vd.data_ptr() % 8:
-        raise ValueError("attention: q must be 16-byte and the packed K/V "
-                         "8-byte aligned")
+    row = min(Dp, 8)  # bytes the kernel reads from a packed row at once
+    if qb.data_ptr() % 16 or kd.data_ptr() % row or vd.data_ptr() % row:
+        raise ValueError(f"attention: q must be 16-byte and the packed K/V "
+                         f"{row}-byte aligned")
     out = torch.empty((BH, Sq, D), dtype=torch.float32, device=q.device)
     _build.check(_build.function("dlm_quant_attention")(
         qb.data_ptr(), kd.data_ptr(), ks.data_ptr(), kz.data_ptr(),

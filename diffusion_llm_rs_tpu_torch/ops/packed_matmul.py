@@ -12,8 +12,10 @@ Counterpart of the packed half of `diffusion_llm_rs_tpu/ops/pallas_matmul.py`:
     its per-column int8 grid `clip(round((lv - zp) * (scale * (1 / cs))),
     +-127)`, int8 x int8 -> int32, then `* sx[m] * cs[n] + bias -> gelu`.
 
-On a CUDA tensor both launch the kernel of `csrc/packed_gemm.cu` (the weight
-stays packed in device memory and is unpacked tile by tile in the K loop); on
+On a CUDA tensor both launch a kernel of `csrc/packed_gemm.cu` (the weight
+stays packed in device memory and is unpacked tile by tile in the K loop:
+act_bits 16 by a wgmma kernel whose A operand is the weight dequantized in
+registers, act_bits 8 by an mma.sync s8 kernel); on
 a CPU tensor they run the plain versions `matmul_plain` /
 `a8_matmul_reference`, which repeat the kernel's roundings in its order. The
 kernel serves any M (the ragged edge is masked); it takes N % 4 == 0 and
@@ -132,12 +134,18 @@ def _launch(x2, sx, w: MatmulWeight, bias, gelu: bool, out_dtype, name: str):
     for arg, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+    # act_bits=16 splits the K loop over blocks where the output tiles alone
+    # do not fill the card; a second kernel sums the f32 partials in order
+    splits = 1 if w.act_bits == 8 else _build.function(
+        "dlm_packed_gemm_splits")(M, w.N, w.K, w.bits)
+    ws = (torch.empty((splits, M, w.N), dtype=torch.float32, device=x2.device)
+          if splits > 1 else None)
     _build.check(_build.function("dlm_packed_gemm")(
         x2.data_ptr(), _ptr(sx), w.data.data_ptr(), w.scale.data_ptr(),
         w.zero_point.data_ptr(), _ptr(w.col_scale), _ptr(bias), int(gelu),
         out.data_ptr(), int(out_dtype == torch.bfloat16),
-        int(w.act_bits == 8), M, w.N, w.K, w.bits, w.group_size,
-        _stream(x2.device)), name)
+        int(w.act_bits == 8), M, w.N, w.K, w.bits, w.group_size, _ptr(ws),
+        splits, _stream(x2.device)), name)
     _build.launch_counts[name] += 1
     return out
 

@@ -7,10 +7,11 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_paged_attention.py`:
 q, the centered K/V levels and the softmax weights folded with the V scale
 all go through the int8 tensor cores), `merge_partials`, `degroup_pool` and
 `degroup_sidecar`. On a CUDA tensor each wrapper launches its kernel of
-`csrc/paged_attention.cu` or `csrc/paged_attention_a8.cu` (head dim 64, pages
-of 64 or 128 tokens, 1/2/4/8 bits, head groups of 1 or 2) and raises on
-anything else; on a CPU tensor it runs its plain twin (`*_plain`), which
-repeats the TPU kernel's arithmetic page by page at the same rounding points.
+`csrc/paged_attention.cu` or `csrc/paged_attention_a8.cu` (head dims 32, 64
+and 128, pages of any multiple of 8 tokens up to 128, 1/2/4/8 bits, any head
+group dividing the heads) and raises on anything else; on a CPU tensor it
+runs its plain twin (`*_plain`), which repeats the TPU kernel's arithmetic
+page by page at the same rounding points.
 
 The pools keep the JAX layout, so arrays cross between the packages as they
 are:
@@ -33,9 +34,8 @@ from diffusion_llm_rs_tpu_torch.ops import _build
 from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIM = 64
-KERNEL_PAGE_SIZES = (64, 128)
-KERNEL_HEAD_GROUPS = (1, 2)
+KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_PAGE_SIZES = tuple(range(8, 129, 8))
 KERNEL_BITS = (1, 2, 4, 8)
 
 
@@ -339,19 +339,18 @@ def _launch(name, fn, q, page_tables, page_tokens, n_pages, k_data, k_scale,
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     B, H, Sq, D = q.shape
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {D}, the kernel takes "
-                         f"{KERNEL_HEAD_DIM}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D}, the kernel is built for "
+                         f"{KERNEL_HEAD_DIMS}")
     if bits not in KERNEL_BITS:
         raise ValueError(f"{name}: bits {bits}, the kernel takes {KERNEL_BITS}")
-    if G not in KERNEL_HEAD_GROUPS or H % G:
-        raise ValueError(f"{name}: head group {G} for {H} heads, the kernel "
-                         f"takes groups of {KERNEL_HEAD_GROUPS}")
+    if G < 1 or H % G:
+        raise ValueError(f"{name}: head group {G} does not divide {H} heads")
     n_slots, HG, Pp, GD = k_data.shape
     P = Pp * (8 // bits)
     if P not in KERNEL_PAGE_SIZES:
-        raise ValueError(f"{name}: page size {P}, the kernel takes "
-                         f"{KERNEL_PAGE_SIZES}")
+        raise ValueError(f"{name}: page size {P}, the kernel takes multiples "
+                         "of 8 tokens up to 128")
     if HG != H // G or GD != G * D:
         raise ValueError(f"{name}: pool {tuple(k_data.shape)} does not hold "
                          f"{H} heads of {D} in groups of {G}")

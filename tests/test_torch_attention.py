@@ -90,3 +90,30 @@ def test_attention_long_sequence_takes_dense_attention():
     np.testing.assert_array_equal(
         flash.numpy(), folded.reshape(B, H, S, Hd).transpose(1, 2).numpy())
     np.testing.assert_allclose(flash.numpy(), einsum.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+def test_dense_attention_plain_matches_pallas_at_other_widths(D, out):
+    """Head widths 32 (the shipped anchor's) and 128, bf16 and f32 output,
+    against the interpreted kernel: P rounds to bf16 on both sides, so the
+    difference is f32 summation order and the frameworks' `exp` moving an
+    occasional bf16(p): 1e-2 absolute in bf16 (as above), 2e-3 relative
+    Frobenius in f32."""
+    BH, S = 2, 128
+    rng = np.random.default_rng(D)
+    q, k, v = (rng.normal(size=(BH, S, D)).astype(np.float32) for _ in range(3))
+    ref = jpa.dense_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              out_dtype=getattr(jnp, out))
+    assert ref is not None
+    got = dense_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                out_dtype=getattr(torch, out))
+    assert got.dtype == getattr(torch, out) and got.shape == (BH, S, D)
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = got.float().numpy()
+    rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    print(f"dense_attention_plain vs interpreted Pallas, D={D} {out}: "
+          f"max {np.abs(got - ref).max():.3g}, rel {rel:.3g}")
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+    if out == "float32":
+        assert rel < 2e-3

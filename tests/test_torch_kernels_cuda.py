@@ -152,19 +152,21 @@ def test_fused_qkv_attention_returns_none_where_jax_does(gen):
 
 @pytest.mark.parametrize("BH,Sq,Skv", [(3, 64, 64), (2, 100, 1000),
                                        (4, 128, 256), (2, 70, 130)])
-def test_dense_attention_kernel_matches_twin(gen, BH, Sq, Skv):
-    """bf16 P rounds at other tile boundaries than the twin's (64-wide KV
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_dense_attention_kernel_matches_twin(gen, BH, Sq, Skv, D, out_dtype):
+    """bf16 P rounds at other tile boundaries than the twin's (128-wide KV
     tiles against up to 512): |d| <= 1e-2 and relative Frobenius <= 1e-2,
     the second bounding the error against the output's typical size."""
-    D = 64
     q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
     k, v = (torch.randn((BH, Skv, D), generator=gen, device="cuda")
             for _ in range(2))
     _build.reset_launch_counts()
-    out = dense_attention(q, k, v)
+    out = dense_attention(q, k, v, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert _build.launch_counts["dense_attention"] == 1
-    ref = dense_attention_plain(q, k, v)
+    assert out.dtype == out_dtype and out.shape == (BH, Sq, D)
+    ref = dense_attention_plain(q, k, v, out_dtype=out_dtype)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
     rel = float((out.float() - ref.float()).norm() / ref.float().norm())
     assert rel <= 1e-2, rel
@@ -178,23 +180,25 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="head dim"):
         dense_attention(q, q, q)
     q = torch.randn((1, 8, 64), device="cuda")
-    with pytest.raises(ValueError, match="writes bf16"):
-        dense_attention(q, q, q, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="writes bf16 or f32"):
+        dense_attention(q, q, q, out_dtype=torch.float16)
     r = torch.randn((4, 8), device="cuda")
     with pytest.raises(ValueError, match="residual must be bf16"):
         im.int8w_matmul(x[:, :16], _w(16, 8, gen),
                         torch.ones(1, 8, device="cuda"), residual=r)
 
 
-def _pools(gen, n_slots, HG, P, GD, bits):
+def _pools(gen, n_slots, HG, P, GD, bits, G=None):
     """Random pools in the JAX layout: any byte is a valid packed page;
     zero-points near the middle of the level range and scales that span
-    about +-3, as quantized N(0, 1) keys and values have."""
+    about +-3, as quantized N(0, 1) keys and values have. G defaults to
+    GD / 64 (heads of 64)."""
     Pp = P // (8 // bits)
     qmax = (1 << bits) - 1
+    G = GD // 64 if G is None else G
     data = [torch.randint(0, 256, (n_slots, HG, Pp, GD), generator=gen,
                           device="cuda", dtype=torch.uint8) for _ in range(2)]
-    side = [torch.rand((n_slots, HG, GD // 64 * P), generator=gen,
+    side = [torch.rand((n_slots, HG, G * P), generator=gen,
                        device="cuda") * s + o
             for s, o in ((3.0 / qmax, 1.5 / qmax), (0.2 * qmax, 0.4 * qmax),
                          (3.0 / qmax, 1.5 / qmax), (0.2 * qmax, 0.4 * qmax))]
@@ -210,14 +214,20 @@ def _close(out, lse, ref, ref_lse):
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
 
 
+# (head dim, head group): the pool rows of 128 that `_choose_head_group`
+# builds for heads of 32, 64 and 128, and heads of 64 ungrouped
+DG = [(32, 4), (64, 1), (64, 2), (128, 1)]
+PAGES = [8, 16, 24, 32, 64, 72, 128]
+
+
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
-@pytest.mark.parametrize("P", [64, 128])
-@pytest.mark.parametrize("G", [1, 2])
-def test_batched_paged_attention_kernel_matches_twin(gen, bits, P, G):
+@pytest.mark.parametrize("P", PAGES)
+@pytest.mark.parametrize("D,G", DG)
+def test_batched_paged_attention_kernel_matches_twin(gen, bits, P, D, G):
     """Three slots: three scattered pages with a partial last one, an empty
     slot, and one page; 100 query rows (a ragged q tile)."""
-    B, H, Sq, D = 3, 4, 100, 64
-    pools = _pools(gen, 7, H // G, P, G * D, bits)
+    B, H, Sq = 3, 4, 100
+    pools = _pools(gen, 7, H // G, P, G * D, bits, G)
     q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
     pt = torch.tensor([[5, 0, 3], [0, 0, 0], [6, 0, 0]], device="cuda",
                       dtype=torch.int32)
@@ -236,13 +246,14 @@ def test_batched_paged_attention_kernel_matches_twin(gen, bits, P, G):
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
-@pytest.mark.parametrize("P", [64, 128])
-def test_paged_attention_kernel_matches_twin(gen, bits, P):
-    BH, Sq, D = 4, 70, 64
-    pools = _pools(gen, 5, BH, P, D, bits)
+@pytest.mark.parametrize("P", PAGES)
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_paged_attention_kernel_matches_twin(gen, bits, P, D):
+    BH, Sq = 4, 70
+    pools = _pools(gen, 5, BH, P, D, bits, 1)
     q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
     pt = torch.tensor([4, 1, 2], device="cuda", dtype=torch.int32)
-    nt = torch.tensor([P, P, 17], device="cuda", dtype=torch.int32)
+    nt = torch.tensor([P, P, min(17, P - 1)], device="cuda", dtype=torch.int32)
     _build.reset_launch_counts()
     out, lse = pa.paged_attention(q, pt, *pools, bits=bits, page_tokens=nt,
                                   return_lse=True)
@@ -257,32 +268,36 @@ def test_paged_kernels_refuse_what_they_do_not_take(gen):
     q = torch.randn((1, 2, 8, 64), device="cuda")
     pt = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
     npg = torch.ones((1,), dtype=torch.int32, device="cuda")
-    pools = _pools(gen, 2, 2, 32, 64, 4)       # pages of 32 tokens
+    pools = _pools(gen, 2, 2, 136, 64, 4)      # pages of 136 tokens
     with pytest.raises(ValueError, match="page size"):
         pa.batched_paged_attention(q, pt, pt, npg, *pools, bits=4)
+    with pytest.raises(ValueError, match="page size"):
+        pa.batched_paged_attention(q, pt, pt, npg, *pools, bits=4, act_bits=8)
     pools = _pools(gen, 2, 2, 64, 64, 4)
     with pytest.raises(ValueError, match="act_bits"):
         pa.batched_paged_attention(q, pt, pt, npg, *pools, bits=4, act_bits=4)
-    with pytest.raises(ValueError, match="page size"):
-        pa.batched_paged_attention(q, pt, pt, npg, *_pools(gen, 2, 2, 32, 64, 4),
-                                   bits=4, act_bits=8)
+    with pytest.raises(ValueError, match="head group"):
+        pa.batched_paged_attention(q, pt, pt, npg, *pools, bits=4,
+                                   head_group=3)
+    q48 = torch.randn((1, 2, 8, 48), device="cuda")
+    pools48 = _pools(gen, 2, 2, 64, 48, 4, 1)
     with pytest.raises(ValueError, match="head dim"):
-        pa.batched_paged_attention(q[..., :32], pt, pt, npg, *pools, bits=4)
+        pa.batched_paged_attention(q48, pt, pt, npg, *pools48, bits=4)
     with pytest.raises(ValueError, match="empty page table"):
         pa.paged_attention(q[0], pt[0, :0], *pools, bits=4)
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("P", [64, 128])
-@pytest.mark.parametrize("G", [1, 2])
-def test_batched_paged_attention_a8_kernel_matches_twin(gen, bits, P, G):
+@pytest.mark.parametrize("P", PAGES)
+@pytest.mark.parametrize("D,G", DG)
+def test_batched_paged_attention_a8_kernel_matches_twin(gen, bits, P, D, G):
     """The int8 path at the bf16 test's tables (scattered pages, a partial
     one, an empty slot, a ragged q tile). Both integer dots are exact, so
     the kernel differs from its twin only where expf's last bit moves an
     int8 level of the folded weights: 5e-3 relative, lse 1e-3; and it stays
     within the JAX package's a8-vs-bf16 bounds of the bf16 kernel."""
-    B, H, Sq, D = 3, 4, 100, 64
-    pools = _pools(gen, 7, H // G, P, G * D, bits)
+    B, H, Sq = 3, 4, 100
+    pools = _pools(gen, 7, H // G, P, G * D, bits, G)
     q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
     pt = torch.tensor([[5, 0, 3], [0, 0, 0], [6, 0, 0]], device="cuda",
                       dtype=torch.int32)
@@ -329,12 +344,13 @@ def test_batched_paged_attention_a8_one_bit_runs_the_bf16_kernel(gen):
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("Sq,Skv", [(64, 64), (256, 256), (100, 100), (10, 10),
                                     (1, 1), (70, 1000)])
-def test_quant_attention_kernel_matches_plain(gen, bits, Sq, Skv):
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_quant_attention_kernel_matches_plain(gen, bits, Sq, Skv, D):
     """Every Sq and Skv runs the kernel (ragged q and KV tiles masked).
     Against the plain version at the kernel's KV tile: sums in another order
     and CUDA's expf, which can move a bf16 rounding of p * vs: 2e-3
     relative."""
-    BH, D = 6, 64
+    BH = 6
     q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
     k = qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen, device="cuda"),
                        bits)
@@ -363,8 +379,8 @@ def test_quantize_kv_card_equals_cpu(gen, bits):
 
 
 def test_quant_attention_refuses_what_the_kernel_does_not_take(gen):
-    q = torch.randn((2, 8, 32), generator=gen, device="cuda")
-    k = qa.quantize_kv(torch.randn((2, 16, 32), generator=gen, device="cuda"), 4)
+    q = torch.randn((2, 8, 48), generator=gen, device="cuda")
+    k = qa.quantize_kv(torch.randn((2, 16, 48), generator=gen, device="cuda"), 4)
     with pytest.raises(ValueError, match="head dim"):
         qa.attention(q, k, k)
     q = torch.randn((2, 8, 64), generator=gen, device="cuda")
@@ -431,6 +447,61 @@ def test_packed_matmul_kernel_matches_plain(gen, M, K, N, bits, gran, group,
     rtol = 2e-5 if out_dtype == torch.float32 else 2.0 ** -7
     assert out.dtype == out_dtype and out.shape == (M, N)
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=2e-5)
+
+
+# the engine's linears at 12 layers and width 768 (qkv, wo and the head, mlp
+# w1 with gelu, mlp w2), at the token counts the act_bits=16 kernel treats
+# apart: one tile of 8 (M = 1, 5), 32 (17), 128 with and without split K
+# (2048, 8192)
+ENGINE_NK = [(2304, 768, False), (768, 768, False), (3072, 768, True),
+             (768, 3072, False)]
+
+
+@pytest.mark.parametrize("M", [1, 5, 17, 2048, 8192])
+@pytest.mark.parametrize("N,K,mlp", ENGINE_NK)
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_packed_matmul_kernel_at_engine_shapes(gen, M, N, K, mlp, bits):
+    """The tolerance of `test_packed_matmul_kernel_matches_plain` with bf16
+    out: one bf16 ulp (the f32 sums run in another order, split-K
+    partials included)."""
+    from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
+    w = _packed_weight(K, N, bits, "group", 16, gen)
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    b = torch.randn((N,), generator=gen, device="cuda") * 0.02 if mlp else None
+    act = "gelu" if mlp else None
+    _build.reset_launch_counts()
+    out = pm.matmul(x, w, torch.bfloat16, b, act)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["matmul"] == 1
+    ref = pm.matmul_plain(x, w, b, act, torch.bfloat16)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                               atol=2e-5)
+    again = pm.matmul(x, w, torch.bfloat16, b, act)
+    assert torch.equal(out, again)  # no atomics: the same bits every call
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_flash_fold_gradient_matches_the_einsum_path(gen, D):
+    """`flash_fold` (the kernel forward, JAX's f32 VJP) against autograd
+    through the einsum path at S = 1024, both in f32: the forward differs by
+    the kernel's bf16 operands (relative 1e-2); the backward recomputes the
+    softmax from the f32 inputs, so the gradients differ only in the order
+    of f32 sums (relative 1e-4); every input gets one."""
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+    B, S, H = 1, 1024, 4
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda",
+                           requires_grad=True) for _ in range(3))
+    w = torch.randn((B, S, H, D), generator=gen, device="cuda")
+    _build.reset_launch_counts()
+    flash = dn.attention(q, k, v)
+    assert _build.launch_counts["dense_attention"] == 1
+    gf = torch.autograd.grad((flash * w).sum(), (q, k, v))
+    ref = dn.attention(q, k, v, flash=False)
+    ge = torch.autograd.grad((ref * w).sum(), (q, k, v))
+    assert float((flash - ref).norm() / ref.norm()) <= 1e-2
+    for a, b in zip(gf, ge):
+        assert float(a.norm()) > 0
+        assert float((a - b).norm() / b.norm()) <= 1e-4
 
 
 @pytest.mark.parametrize("M,K,N,bits,gran,group,bias,gelu", PACKED_SHAPES)

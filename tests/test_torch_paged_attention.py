@@ -148,6 +148,40 @@ def test_batched_twin_matches_jax_fallback(bits, G):
     assert np.all(tlse[1].numpy() == tpa.NEG_INF)
 
 
+@pytest.mark.parametrize("P", [8, 16, 32])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("act_bits", [16, 8])
+def test_batched_twins_at_heads_of_32(P, bits, act_bits):
+    """The shipped anchor's pools (8 heads of 32 in groups of G = 4, rows
+    of 128) at the pages `Engine.sample` picks for short sequences, where
+    JAX runs its exact f32 fall-back: the bf16 twin within the 2e-2 of
+    `test_batched_twin_matches_jax_fallback`, the int8 twin within JAX's a8
+    bound of 3.5e-2; 1-bit pages take the bf16 path at either act_bits. The
+    lse: bf16 q moves a logit by up to 2^-9 of |q||k| / sqrt(D), and at heads
+    of 32 the logits are twice as large as at 64, so both twins are held to
+    JAX's a8 lse bound, 2e-2 (measured up to 1.3e-2)."""
+    B, H, Sq, D, G = 2, 8, 24, 32, 4
+    rng = np.random.default_rng(100 + P + bits + act_bits)
+    pools = _grouped_pools(rng, H, 4 * P, D, P, G, bits)
+    q = rng.normal(size=(B, H, Sq, D)).astype(np.float32)
+    pt = np.array([[2, 0, 3], [1, 0, 0]], np.int32)
+    nt = np.array([[P, P, P // 2 + 1], [P, 0, 0]], np.int32)
+    npg = np.array([3, 1], np.int32)
+    jout, jlse = jppa.batched_paged_attention(
+        *_j(q, pt, nt, npg, *pools), bits=bits, return_lse=True,
+        head_group=G, act_bits=act_bits)
+    tout, tlse = tpa.batched_paged_attention(
+        *_t(q, pt, nt, npg, *pools), bits=bits, return_lse=True,
+        head_group=G, act_bits=act_bits)
+    a8 = act_bits == 8 and bits != 1
+    rel = _rel(tout, jout)
+    print(f"batched {'a8' if a8 else 'bf16'} twin vs JAX fall-back, P={P} "
+          f"{bits}-bit: rel {rel:.3g}, lse {_lse_err(tlse, jlse):.3g}")
+    assert rel < (3.5e-2 if a8 else 2e-2)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=2e-2,
+                               atol=2e-2)
+
+
 @pytest.mark.parametrize("bits", [2, 8])
 def test_single_twin_matches_jax_fallback(bits):
     BH, Sq, D, P = 3, 10, 64, 64

@@ -121,6 +121,30 @@ def test_plain_matches_jax_kernel(bits, Skv):
     assert rel < 1e-4
 
 
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+def test_plain_matches_jax_at_other_head_widths(bits, D):
+    """Heads of 32 (the shipped anchor's) and 128, BH=4, Sq=16, Skv=128.
+    JAX runs its interpreted kernel where a packed row splits into whole
+    8-channel blocks (D % (8 * vpb) == 0): within 1e-4 relative, as at D=64.
+    At D=32 and 1 bit it takes `_attention_fallback`: within its 2e-2."""
+    rng = np.random.default_rng(90 + bits + D)
+    BH, Sq, Skv = 4, 16, 128
+    q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
+    jk = jpa.quantize_kv(jnp.asarray(rng.normal(size=(BH, Skv, D))
+                                     .astype(np.float32)), bits)
+    jv = jpa.quantize_kv(jnp.asarray(rng.normal(size=(BH, Skv, D))
+                                     .astype(np.float32)), bits)
+    jout = jpa.attention(jnp.asarray(q), jk, jv)
+    tout = tat.attention(torch.from_numpy(q), _to_torch(jk), _to_torch(jv))
+    kernel = D % (8 * (8 // bits)) == 0
+    rel = _rel(tout, jout)
+    print(f"attention_plain vs JAX {'kernel' if kernel else 'fall-back'}, "
+          f"{bits}-bit D={D}: rel {rel:.3g}")
+    assert tout.dtype == torch.float32 and tuple(tout.shape) == (BH, Sq, D)
+    assert rel < (1e-4 if kernel else 2e-2)
+
+
 @pytest.mark.parametrize("bits", [8, 4, 2])
 def test_plain_tile_of_the_cuda_kernel(bits):
     """The CUDA kernel steps the online softmax 64 tokens at a time, the TPU
