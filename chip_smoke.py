@@ -19,7 +19,9 @@ Phases (any failure makes the script exit non-zero without the final line):
                 with their time. torch._int_mm takes more than 16 rows, so
                 its yardstick at M = 8 pads the rows to 32 (noted). Also
                 quantize_page and quantize_kv on the card against the CPU,
-                bit for bit.
+                bit for bit. The batched paged attention's unpack pass
+                (paged_unpack) bit for bit against its twin in both layouts,
+                timed at the two timed shapes, with its scratch bytes.
   4. sampler  - the W4A8 sampler at full width (12 layers, 768 wide, 12 heads,
                 vocab 50257; random weights from a seed, quantized in the
                 port): B=8, S=256, 32 steps, bf16 activations, timed 5 times
@@ -96,6 +98,13 @@ Phases (any failure makes the script exit non-zero without the final line):
                 gptq --out, ppl --checkpoint, each its own process).
  10. summary  - a JSON line of kernels, a JSON line of the runs, then the
                 device line last.
+
+    python3 chip_smoke.py --parent DIR
+
+also times the paged-attention kernels of the checkout unpacked in DIR (the
+commit before a redesign of them, `git archive`) with that checkout's own
+`_paged_kernels`, once before the kernels phase and once after it, in a
+process of its own; the runs line carries them as `parent_paged_kernels`.
 """
 
 from __future__ import annotations
@@ -198,6 +207,7 @@ def build():
         if report is None:
             log(f"  {name}: already built at {targets[name]}")
             continue
+        log(f"  {name}.cu built in {_build.build_seconds[name]:.1f} s")
         for ln in report.splitlines():
             if "Compiling entry" in ln or "Used" in ln or "spill" in ln:
                 log(f"  {name}: {ln.strip()}")
@@ -501,6 +511,53 @@ def _paged_compare(out, lse, ref, ref_lse):
     return err, rel, lse_err, ok
 
 
+def _unpack_case(pa, label, shape, args, npages, bits, G, timed, results,
+                 bad):
+    """paged_unpack, in the bf16 and (bits > 1) the int8 layout, bit for bit
+    against its plain twin on every live page; timed where `timed`. Bound:
+    the live pages' packed K/V bytes and sidecars read, the scratch's live
+    pages written."""
+    q, pt, _, npg = args[:4]
+    pools = args[4:]
+    H, D = q.shape[1], q.shape[3]
+    P = pools[0].shape[2] * (8 // bits)
+    PT = pa.tile_tokens(P)
+    live = sum(npages)
+    for a8 in (False, True) if bits > 1 else (False,):
+        got = pa.paged_unpack(pt, npg, *pools, bits=bits, head_group=G, a8=a8)
+        want = pa.paged_unpack_plain(pt, npg, *pools, bits=bits, head_group=G,
+                                     a8=a8)
+        err = max(float((x[b, :, :k].float() - y[b, :, :k].float()).abs()
+                        .max()) for x, y in zip(got, want)
+                  for b, k in enumerate(npages) if k)
+        same = all(torch.equal(x[b, :, :k], y[b, :, :k])
+                   for x, y in zip(got, want) for b, k in enumerate(npages))
+        mode = "int8" if a8 else "bf16"
+        scratch = sum(t.numel() * t.element_size() for t in got)
+        urow = dict(shape=f"{shape} {mode} layout", max_abs_err=err,
+                    tolerance="bit for bit on every live page",
+                    scratch_bytes=scratch)
+        if timed:
+            urow["ms"] = time_ms(lambda: pa.paged_unpack(
+                pt, npg, *pools, bits=bits, head_group=G, a8=a8))
+            urow["plain_ms"] = time_ms(lambda: pa.paged_unpack_plain(
+                pt, npg, *pools, bits=bits, head_group=G, a8=a8), 3)
+            urow["library_ms"] = None
+            side = 4 if a8 else 3
+            nbytes = live * H * (2 * (P // (8 // bits)) * D + 4 * P * 4) + \
+                live * H * PT * (2 * D * (1 if a8 else 2) + side * 4)
+            urow["bound_ms"], urow["bound_by"] = bound(nbytes, 0,
+                                                       PEAK_BF16_FLOPS)
+        results["paged_unpack"].append(urow)
+        log(f"  paged_unpack {label} ({mode}): "
+            f"{'bit for bit' if same else f'MISMATCH {err:.3g}'}; scratch "
+            f"{scratch / 2**20:.2f} MiB"
+            + (f"; {urow['ms']:.4f} ms, plain {urow['plain_ms']:.4f}, bound "
+               f"{urow['bound_ms']:.4f} ({urow['bound_by']})" if timed else ""))
+        if not same:
+            bad.append(f"paged_unpack {label} {mode}")
+
+
 def _paged_kernels(gen, results, bad):
     from diffusion_llm_rs_tpu_torch.cache.paged import quantize_page
     from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
@@ -591,6 +648,8 @@ def _paged_kernels(gen, results, bad):
                f"({row['bound_by']})" if "ms" in row else ""))
         if not ok:
             bad.append(f"batched_paged_attention {label}")
+        _unpack_case(pa, label, row["shape"], args, npages, bits, G, timed,
+                     results, bad)
         if bits == 1:  # 1-bit pages keep the bf16 kernel under act_bits=8
             continue
         # the int8 path on the same pools and tables. Both integer dots are
@@ -1459,6 +1518,12 @@ def _busy_share(b, seq_len, steps=8):
     wall_ms = chunk(timed)
     prof_wall_ms, busy_ms, rows = chunk(lambda: _device_time(b.step, 1))
     share = busy_ms / wall_ms if rows else None
+    # the paged attention's two kernels (csrc/paged_unpack.cu, the attention
+    # of csrc/paged_flash.cuh) a step
+    unpack_ms = sum(us for us, _, key in rows if "paged_unpack_kernel" in key)
+    flash_ms = sum(us for us, _, key in rows if "paged_flash_kernel" in key)
+    log(f"  paged attention a step: {flash_ms / 1e3 / steps:.4f} ms attention "
+        f"+ {unpack_ms / 1e3 / steps:.4f} ms unpack")
     log(f"  one chunk of {steps} steps: wall {wall_ms:.2f} ms (under the "
         f"profiler {prof_wall_ms:.2f}), kernels {busy_ms:.2f} ms; per step "
         f"{wall_ms / steps:.2f} ms wall, {busy_ms / steps:.2f} ms kernels "
@@ -1468,6 +1533,8 @@ def _busy_share(b, seq_len, steps=8):
     return dict(chunk_steps=steps, step_wall_ms=wall_ms / steps,
                 step_profiled_wall_ms=prof_wall_ms / steps,
                 step_device_ms=busy_ms / steps, busy_share=share,
+                step_paged_attention_ms=flash_ms / 1e3 / steps,
+                step_paged_unpack_ms=unpack_ms / 1e3 / steps,
                 top=[dict(ms=us / 1e3, calls=n, name=key[:120])
                      for us, n, key in rows[:8]])
 
@@ -1539,7 +1606,8 @@ def serve_paged():
     run = _serve("serve_paged", b, [(f"r{i}", 4096, 8) for i in range(4)])
     L, steps = cfg.num_layers, run["steps"]
     _expect("serve_paged", run["counts"], {
-        "batched_paged_attention": L * steps, "int8w_matmul": (3 + 2 * L) * steps,
+        "batched_paged_attention": L * steps, "paged_unpack": L * steps,
+        "int8w_matmul": (3 + 2 * L) * steps,
         "int8w_mlp": L * steps, "dense_attention": 0})
     run.update(_busy_share(b, 4096), pool_bytes=b.cache_memory_bytes())
     return run
@@ -1567,7 +1635,8 @@ def serve_paged_a8():
     L, steps = cfg.num_layers, run["steps"]
     _expect("serve_paged_a8", run["counts"], {
         "batched_paged_attention_a8": L * steps, "batched_paged_attention": 0,
-        "int8w_matmul": (3 + 2 * L) * steps, "int8w_mlp": L * steps})
+        "paged_unpack": L * steps, "int8w_matmul": (3 + 2 * L) * steps,
+        "int8w_mlp": L * steps})
     run.update(_busy_share(b, 4096), pool_bytes=b.cache_memory_bytes())
     del b
     run["step_check"] = _step_vs_cpu(8, "batched_paged_attention_a8")
@@ -1589,7 +1658,7 @@ def serve_paged_a8():
         raise AssertionError(f"mixed widths: chunks {chunks}")
     _expect("serve_paged_a8 mixed widths", mixed["counts"], {
         "batched_paged_attention": want16,
-        "batched_paged_attention_a8": want8})
+        "batched_paged_attention_a8": want8, "paged_unpack": want16 + want8})
     run["mixed_counts"] = mixed["counts"]
     run["mixed_buckets"] = [list(u) for u in chunks]
     return run
@@ -1624,7 +1693,8 @@ def serve_phase():
         raise AssertionError(f"serve_phase: {n} paged launches for {steps} "
                              f"steps, expected {L * steps}..{3 * L * steps}")
     _expect("serve_phase", run["counts"], {
-        "int8w_matmul": (3 + 2 * L) * steps, "int8w_mlp": L * steps})
+        "paged_unpack": n, "int8w_matmul": (3 + 2 * L) * steps,
+        "int8w_mlp": L * steps})
     run.update(_busy_share(b, 2048), chunks=len(chunks),
                multi_bucket_chunks=multi, pool_bytes=b.cache_memory_bytes())
     return run
@@ -1646,8 +1716,8 @@ def serve_dense():
     run = _serve("serve_dense", b, [(f"d{i}", 256, 12) for i in range(48)])
     L, steps = cfg.num_layers, run["steps"]
     _expect("serve_dense", run["counts"], {
-        "batched_paged_attention": 0, "int8w_matmul": (3 + 2 * L) * steps,
-        "int8w_mlp": L * steps})
+        "batched_paged_attention": 0, "paged_unpack": 0,
+        "int8w_matmul": (3 + 2 * L) * steps, "int8w_mlp": L * steps})
     run.update(_busy_share(b, 256))
     return run
 
@@ -1718,9 +1788,10 @@ def _step_vs_cpu(act_bits, kernel):
         log(f"  one step on {device}: {time.perf_counter() - t0:.1f} s")
         if device == "cuda":
             counts = dict(_build.launch_counts)
-    _expect("serve_check", counts, {
+    _expect("serve_check", counts, dict({
         name: 12 if name == kernel else 0 for name in (
-            "batched_paged_attention", "batched_paged_attention_a8")})
+            "batched_paged_attention", "batched_paged_attention_a8")},
+        paged_unpack=12))
     sched = DiffusionSchedule.create(cfg.num_timesteps, device="cpu")
     t = 999
     base = (rec.draws[0] * torch.rsqrt(sched.alphas[t])
@@ -1805,7 +1876,8 @@ def _engine_packed(act_bits):
     if b.attend_mode != "dense" or b.page_size != 64:
         raise AssertionError(f"mode {b.attend_mode}, page {b.page_size}")
     _expect("sample", counts, {kernel: per_fwd * steps, "int8w_matmul": 0,
-                               "int8w_mlp": 0, "batched_paged_attention": 0})
+                               "int8w_mlp": 0, "batched_paged_attention": 0,
+                               "paged_unpack": 0})
     if tuple(tokens.shape) != (B, S) or int(tokens.min()) < 0 or \
             int(tokens.max()) >= cfg.vocab_size:
         raise AssertionError(f"token ids out of range: {tuple(tokens.shape)}")
@@ -1825,7 +1897,8 @@ def _engine_packed(act_bits):
     paged = dict(_build.launch_counts)
     L = cfg.num_layers
     n = paged.get("batched_paged_attention", 0)
-    if not L * 4 <= n <= 3 * L * 4 or paged.get(kernel, 0) != per_fwd * 4:
+    if not L * 4 <= n <= 3 * L * 4 or paged.get(kernel, 0) != per_fwd * 4 \
+            or paged.get("paged_unpack", 0) != n:
         raise AssertionError(f"paged mode launches {paged}")
     if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
         raise AssertionError("paged mode: token ids out of range")
@@ -1848,7 +1921,7 @@ def _engine_packed(act_bits):
         _expect(f"sample({label})", scan[label], {
             kernel: per_fwd * n, "quant_attention": L * (n - 1),
             "batched_paged_attention": 0, "batched_paged_attention_a8": 0,
-            "int8w_matmul": 0})
+            "paged_unpack": 0, "int8w_matmul": 0})
         if tuple(tokens.shape) != (kw["batch_size"], kw["seq_len"]) or \
                 int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
             raise AssertionError(f"sample({label}): token ids out of range")
@@ -1957,6 +2030,9 @@ def engine_anchor():
                 raise AssertionError(f"sample({name}): token ids out of range")
             if counts.get(kernel, 0) == 0:
                 raise AssertionError(f"sample({name}) launched no {kernel}")
+            if kernel == "batched_paged_attention" and \
+                    counts.get("paged_unpack", 0) != counts[kernel]:
+                raise AssertionError(f"sample({name}): {counts}")
             out[label][name] = dict(shape=list(tokens.shape), counts=counts)
     return out
 
@@ -2179,9 +2255,12 @@ KERNELS = {
                         "diffusion_llm_rs_tpu/ops/pallas_attention.py:213",
                         "long_seq"),
     "batched_paged_attention": (
-        "diffusion_llm_rs_tpu_torch/csrc/paged_attention.cu",
+        "diffusion_llm_rs_tpu_torch/csrc/batched_paged_attention.cu",
         "diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:288",
         "serve_paged"),
+    "paged_unpack": ("diffusion_llm_rs_tpu_torch/csrc/paged_unpack.cu",
+                     "diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:391",
+                     "serve_paged"),
     "paged_attention": ("diffusion_llm_rs_tpu_torch/csrc/paged_attention.cu",
                         "diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:34",
                         "cache_attend"),
@@ -2204,14 +2283,57 @@ KERNELS = {
 }
 
 
+def _parent_paged(parent):
+    """Start the paged-attention kernels of another checkout (the commit
+    before a redesign, unpacked into `parent`) timed by that checkout's own
+    chip_smoke.py `_paged_kernels`, in a process of its own; returns the
+    process. `_parent_times` reads its result."""
+    code = ("import json, torch, chip_smoke as c\n"
+            "from diffusion_llm_rs_tpu_torch.ops import _build\n"
+            "c.device()\n"
+            "_build.build(('paged_attention', 'paged_attention_a8'))\n"
+            "gen = torch.Generator(device='cuda').manual_seed(1234)\n"
+            "res = {k: [] for k in c.KERNELS}\n"
+            "c._paged_kernels(gen, res, [])\n"
+            "print(json.dumps({k: [r for r in v if 'ms' in r]\n"
+            "                  for k, v in res.items() if v}))\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _parent_times(proc, label):
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"parent kernels ({label}) failed:\n{out[-4000:]}")
+    timed = json.loads(out.strip().splitlines()[-1])
+    for name, rows in timed.items():
+        for r in rows:
+            log(f"  parent ({label}) {name} {r['shape']}: {r['ms']:.4f} ms")
+    return timed
+
+
 def main() -> int:
+    """`--parent DIR`: also time the paged-attention kernels of the checkout
+    in DIR (the commit before a redesign) by its own chip_smoke.py, before
+    the kernels phase (built beside this checkout's kernels) and after it."""
+    parent = sys.argv[sys.argv.index("--parent") + 1] \
+        if "--parent" in sys.argv else None
     phase(device)
     if failures:
         return 1
+    before = _parent_paged(parent) if parent else None
     phase(build)
     if failures:
         return 1
+    parent_runs = {}
+    if before is not None:
+        log("== parent kernels, before")
+        parent_runs["before"] = _parent_times(before, "before")
     measured = phase(kernels)
+    if parent:
+        log("== parent kernels, after")
+        parent_runs["after"] = _parent_times(_parent_paged(parent), "after")
     runs = {"sampler": phase(sampler)}
     if runs["sampler"] is not None:
         for fn in (long_seq, scan_sampler, scan_check, profile, fused_qkv,
@@ -2248,6 +2370,8 @@ def main() -> int:
             log(f"{name} was not launched on its path {path}")
             return 1
     log(json.dumps({"kernels": entries}))
+    if parent_runs:
+        runs["parent_paged_kernels"] = parent_runs
     log(json.dumps(runs))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,51 +1,38 @@
-// Flash attention over paged, quantized KV pools, for Hopper (sm_90a).
+// Flash attention over one paged, quantized KV sequence, for Hopper
+// (sm_90a).
 //
-// Replaces two TPU kernels of diffusion_llm_rs_tpu/ops/
-// pallas_paged_attention.py:
-//   - `_batched_kernel` (bf16 path, behind `batched_paged_attention`): B
-//     slots, each with its own page table and page count, over one pool;
-//   - `_kernel` (behind `paged_attention`): one sequence's page chain.
-// Both walk a page table, unpack each page's packed K/V levels and run an
-// online softmax; they differ only in where the V scale folds in, so one
-// template serves both (kSingle).
+// Replaces the TPU kernel `_kernel` of diffusion_llm_rs_tpu/ops/
+// pallas_paged_attention.py (:34, behind `paged_attention`, :140): one
+// sequence's page chain, walked page by page, each page's packed K/V levels
+// unpacked and an online softmax run over them. (The batched kernels are
+// csrc/paged_unpack.cu and csrc/paged_flash.cuh.)
 //
-// Pools keep the JAX layout: data uint8 [n_slots, H/G, P/vpb, G*D], token-
-// block packed (byte (r, d) holds the levels of tokens r + p*P/vpb in bit
-// field p); sidecars f32 [n_slots, H/G, G*P]; head h reads lanes (h%G)*D..
-// and sidecar columns (h%G)*P.. of group h/G. The single-sequence call is the
-// batched one with B = 1, G = 1 and every slot reading all its pages. Head
-// widths D = 32, 64 and 128 are template parameters, and so is the tile's
-// capacity of 32, 64 or 128 tokens; the page size P (any multiple of 8 up to
-// 128) and the head group G are not: the smallest tile that holds the page
-// runs, and its 8-token blocks past P are skipped. A page that fills its
-// tile (32, 64, 128) runs an instance whose loop bounds are all constant, as
-// the fixed-page kernels before it did: the runtime bounds cost 7-12%.
+// Pools keep the JAX layout with head groups of one: data uint8 [n_slots,
+// BH, P/vpb, D], token-block packed (byte (r, d) holds the levels of tokens
+// r + p*P/vpb in bit field p); sidecars f32 [n_slots, BH, P]. Head widths D
+// = 32, 64 and 128 are template parameters, and so is the tile's capacity of
+// 32, 64 or 128 tokens; the page size P (any multiple of 8 up to 128) is not:
+// the smallest tile that holds the page runs, and its 8-token blocks past P
+// are skipped. A page that fills its tile (32, 64, 128) runs an instance
+// whose loop bounds are all constant: the runtime bounds cost 7-12%.
 //
-// One block per (64-query tile, head, slot); 4 warps own 16 query rows each.
-// The block walks its slot's page table up to n_pages[b], so an empty slot
-// costs one block that writes zeros. Per page: the packed K and V bytes of
-// this head are unpacked into bf16 levels in shared memory (levels 0..255 are
-// exact in bf16), the four sidecars of the page land beside them, QK^T and
-// PV run on mma.sync m16n8k16 bf16 with f32 sums, and the running max, sum
-// and accumulator stay in registers. The TPU kernels' rounding points:
-//   batched: qsum = sum_d bf16(q) in f32; ks' = ks * sm
-//            logits = raw * ks' - (ks' * kz) * qsum, tokens >= page_tokens
-//            masked; v_sc = bf16(v_lv * vs) (the page, in shared memory)
-//            acc = acc * alpha + bf16(p) . v_sc - sum_t p * (vs * vz)
-//            out = acc * (1/l); l = 0 (no page) -> out 0, lse -1e30
-//   single:  logits = (raw * ks - qsum * (ks * kz)) * sm
-//            acc = acc * alpha + bf16(p * vs) . v_lv - sum_t (p * vs) * vz
-//            out = acc / l, lse = m + log(l)
+// One block per (64-query tile, head); 4 warps own 16 query rows each. Per
+// page: the packed K and V bytes of this head are unpacked into bf16 levels
+// in shared memory (levels 0..255 are exact in bf16), the four sidecars of the
+// page land beside them, QK^T and PV run on mma.sync m16n8k16 bf16 with f32
+// sums, and the running max, sum and accumulator stay in registers. The TPU
+// kernel's rounding points:
+//   logits = (raw * ks - qsum * (ks * kz)) * sm, tokens >= page_tokens masked
+//   acc = acc * alpha + bf16(p * vs) . v_lv - sum_t (p * vs) * vz
+//   out = acc / l, lse = m + log(l)
 // The products of both dots are exact (bf16 x bf16 in f32); sums run in
-// another order than the TPU's and the twins', and expf is CUDA's.
+// another order than the TPU's and the twin's, and expf is CUDA's.
 //
-// What bounds it on an H100: at the serving shape (B = 2, H = 12, Sq = Skv
-// = 4096, D = 64, 4-bit pages of 128) the dots are 4*B*H*Sq*Skv*D = 103
-// GFLOP over ~30 MB of packed pages, so the bf16 tensor cores bound it
-// (0.10 ms). This first version re-reads and re-unpacks each page once per
-// 64-query tile (from L2), on one shared-memory stage, with mma.sync;
-// keeping unpacked pages resident across q tiles, wgmma and a TMA ring of
-// pages are later work.
+// What bounds it on an H100: at the PagedKVCache shape (BH = 12, Sq = 1024,
+// 8 pages of 128, D = 64) the dots are 4*BH*Sq*Skv*D = 3.2 GFLOP, so the bf16
+// tensor cores bound it (0.003 ms); it re-reads and re-unpacks each page once
+// per 64-query tile (from L2), on one shared-memory stage, with mma.sync: one
+// `attend` call is a few tens of microseconds, off every serving path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,19 +44,18 @@ constexpr int kBQ = 64, kThreads = 128, kPmax = 128;
 constexpr float kNegInf = -1e30f;
 
 struct Args {
-  const __nv_bfloat16* q;  // [B, H, Sq, D]
-  const int* page_tables;  // [B, n_max]
-  const int* page_tokens;  // [B, n_max]
-  const int* n_pages;      // [B]; null: every slot reads n_max pages
-  const uint8_t* k_data;   // [n_slots, H/G, P/vpb, G*D]
-  const float* k_scale;    // [n_slots, H/G, G*P]
+  const __nv_bfloat16* q;  // [BH, Sq, D]
+  const int* page_table;   // [n_pages]
+  const int* page_tokens;  // [n_pages]
+  const uint8_t* k_data;   // [n_slots, BH, P/vpb, D]
+  const float* k_scale;    // [n_slots, BH, P]
   const float* k_zp;
   const uint8_t* v_data;
   const float* v_scale;
   const float* v_zp;
-  float* out;              // [B, H, Sq, D]
-  float* lse;              // [B, H, Sq]
-  int H, Sq, n_max, n_slots, G, P;
+  float* out;              // [BH, Sq, D]
+  float* lse;              // [BH, Sq]
+  int Sq, n_pages, n_slots, P;
   float sm;
 };
 
@@ -98,7 +84,7 @@ struct PagedShape {
   static constexpr int kSmem = kQ + 2 * kKv + (4 * PT + kBQ) * 4;
 };
 
-template <int BITS, int D, int PT, bool kFull, bool kSingle>
+template <int BITS, int D, int PT, bool kFull>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const Args a) {
   using Sh = PagedShape<D, PT>;
@@ -114,14 +100,13 @@ __global__ void __launch_bounds__(kThreads)
   float* s_vc = s_vs + PT;
   float* s_qsum = s_vc + PT;
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kBQ;
+  const size_t bh = blockIdx.y, BH = gridDim.y;
   // kFull: the page fills the tile, and every loop bound below is constant
-  const int H = a.H, Sq = a.Sq, G = a.G, HG = H / G, P = kFull ? PT : a.P;
+  const int Sq = a.Sq, P = kFull ? PT : a.P;
   const int kPp = P / kVpb, P16 = (P + 15) & ~15;
-  const int hg = h / G, hl = h % G, GD = G * kD;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const size_t bh = (size_t)b * H + h;
 
   // q tile (rows past Sq are zero) and each row's channel sum in f32
   const __nv_bfloat16* qb = a.q + bh * Sq * kD;
@@ -165,14 +150,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 
-  const int count = a.n_pages ? a.n_pages[b] : a.n_max;
-  const int* pt = a.page_tables + (size_t)b * a.n_max;
-  const int* nt = a.page_tokens + (size_t)b * a.n_max;
-  for (int j = 0; j < count; ++j) {
-    const int slot = pt[j], valid = nt[j];
+  for (int j = 0; j < a.n_pages; ++j) {
+    const int slot = a.page_table[j], valid = a.page_tokens[j];
     if (slot < 0 || slot >= a.n_slots) __trap();
-    const size_t side = ((size_t)slot * HG + hg) * G * P + (size_t)hl * P;
-    const size_t base = ((size_t)slot * HG + hg) * kPp * GD + (size_t)hl * kD;
+    const size_t side = ((size_t)slot * BH + bh) * P;
+    const size_t base = ((size_t)slot * BH + bh) * kPp * kD;
     __syncthreads();  // every warp is done with the previous page
     // sidecars past P are 0: a masked token's p = 0 then adds 0, not NaN
     for (int i = threadIdx.x; i < PT; i += kThreads) {
@@ -183,16 +165,15 @@ __global__ void __launch_bounds__(kThreads)
         vs = a.v_scale[side + i];
         vz = a.v_zp[side + i];
       }
-      if (!kSingle) ka = __fmul_rn(ka, a.sm);
       s_ka[i] = ka;
       s_kb[i] = __fmul_rn(ka, kz);
       s_vs[i] = vs;
-      s_vc[i] = kSingle ? vz : __fmul_rn(vs, vz);
+      s_vc[i] = vz;
     }
     // 16 packed bytes of one row -> 16 levels of kVpb token rows each
     for (int c = threadIdx.x; c < kPp * (kD / 16); c += kThreads) {
       const int r = c / (kD / 16), col = (c % (kD / 16)) * 16;
-      const size_t off = base + (size_t)r * GD + col;
+      const size_t off = base + (size_t)r * kD + col;
       const uint4 kw = *reinterpret_cast<const uint4*>(a.k_data + off);
       const uint4 vw = *reinterpret_cast<const uint4*>(a.v_data + off);
       const uint8_t* kb = reinterpret_cast<const uint8_t*>(&kw);
@@ -200,18 +181,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int p = 0; p < kVpb; ++p) {
         const int tok = r + p * kPp;
-        const float vsc = kSingle ? 1.f : a.v_scale[side + tok];
         uint32_t kk[8], vv[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const float k0 = (float)((kb[2 * i] >> (p * BITS)) & kMask);
           const float k1 = (float)((kb[2 * i + 1] >> (p * BITS)) & kMask);
-          float v0 = (float)((vb[2 * i] >> (p * BITS)) & kMask);
-          float v1 = (float)((vb[2 * i + 1] >> (p * BITS)) & kMask);
-          if (!kSingle) {
-            v0 = __fmul_rn(v0, vsc);
-            v1 = __fmul_rn(v1, vsc);
-          }
+          const float v0 = (float)((vb[2 * i] >> (p * BITS)) & kMask);
+          const float v1 = (float)((vb[2 * i + 1] >> (p * BITS)) & kMask);
           kk[i] = pack_bf16(k0, k1);
           vv[i] = pack_bf16(v0, v1);
         }
@@ -254,13 +230,9 @@ __global__ void __launch_bounds__(kThreads)
         for (int e = 0; e < 2; ++e) {
           const int col = n * 8 + t * 2 + e;
           const float raw = s[n][r * 2 + e];
-          float x;
-          if (kSingle)
-            x = __fmul_rn(__fsub_rn(__fmul_rn(raw, s_ka[col]),
-                                    __fmul_rn(qs[r], s_kb[col])),
-                          a.sm);
-          else
-            x = __fsub_rn(__fmul_rn(raw, s_ka[col]), __fmul_rn(s_kb[col], qs[r]));
+          float x = __fmul_rn(__fsub_rn(__fmul_rn(raw, s_ka[col]),
+                                        __fmul_rn(qs[r], s_kb[col])),
+                              a.sm);
           x = col < valid ? x : kNegInf;
           s[n][r * 2 + e] = x;
           mx = fmaxf(mx, x);
@@ -271,7 +243,7 @@ __global__ void __launch_bounds__(kThreads)
       m_new[r] = mx;
       alpha[r] = expf(m_run[r] - mx);
     }
-    // s becomes the P.V weights: p, or p * vs (single)
+    // s becomes the P.V weights p * vs
 #pragma unroll
     for (int n = 0; n < PT / 8; ++n) {
 #pragma unroll
@@ -280,17 +252,11 @@ __global__ void __launch_bounds__(kThreads)
         const float p0 = expf(s[n][r * 2] - m_new[r]);
         const float p1 = expf(s[n][r * 2 + 1] - m_new[r]);
         rsum[r] += p0 + p1;
-        if (kSingle) {
-          const float w0 = __fmul_rn(p0, s_vs[col]);
-          const float w1 = __fmul_rn(p1, s_vs[col + 1]);
-          csum[r] += __fmul_rn(w0, s_vc[col]) + __fmul_rn(w1, s_vc[col + 1]);
-          s[n][r * 2] = w0;
-          s[n][r * 2 + 1] = w1;
-        } else {
-          csum[r] += __fmul_rn(p0, s_vc[col]) + __fmul_rn(p1, s_vc[col + 1]);
-          s[n][r * 2] = p0;
-          s[n][r * 2 + 1] = p1;
-        }
+        const float w0 = __fmul_rn(p0, s_vs[col]);
+        const float w1 = __fmul_rn(p1, s_vs[col + 1]);
+        csum[r] += __fmul_rn(w0, s_vc[col]) + __fmul_rn(w1, s_vc[col + 1]);
+        s[n][r * 2] = w0;
+        s[n][r * 2 + 1] = w1;
       }
     }
 #pragma unroll
@@ -344,74 +310,47 @@ __global__ void __launch_bounds__(kThreads)
     if (row >= Sq) continue;
     const float l = l_run[r];
     float* orow = a.out + (bh * Sq + row) * kD;
-    float lse;
-    if (kSingle) {
 #pragma unroll
-      for (int j = 0; j < kD / 8; ++j)
-        *reinterpret_cast<float2*>(orow + j * 8 + t * 2) =
-            make_float2(__fdiv_rn(o[j][r * 2], l), __fdiv_rn(o[j][r * 2 + 1], l));
-      lse = m_run[r] + logf(l);
-    } else {
-      const float inv = __frcp_rn(l > 0.f ? l : 1.f);
-#pragma unroll
-      for (int j = 0; j < kD / 8; ++j)
-        *reinterpret_cast<float2*>(orow + j * 8 + t * 2) =
-            make_float2(__fmul_rn(o[j][r * 2], inv), __fmul_rn(o[j][r * 2 + 1], inv));
-      lse = l > 0.f ? m_run[r] + logf(l) : kNegInf;
-    }
-    if (t == 0) a.lse[bh * Sq + row] = lse;
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<float2*>(orow + j * 8 + t * 2) =
+          make_float2(__fdiv_rn(o[j][r * 2], l), __fdiv_rn(o[j][r * 2 + 1], l));
+    if (t == 0) a.lse[bh * Sq + row] = m_run[r] + logf(l);
   }
 }
 
-template <int BITS, int D, int PT, bool kFull, bool kSingle>
-int launch_one(const Args& a, int B, cudaStream_t stream) {
+template <int BITS, int D, int PT, bool kFull>
+int launch_one(const Args& a, int BH, cudaStream_t stream) {
   using Sh = PagedShape<D, PT>;
-  auto kernel = paged_attention_kernel<BITS, D, PT, kFull, kSingle>;
+  auto kernel = paged_attention_kernel<BITS, D, PT, kFull>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, B);
+  dim3 grid((a.Sq + kBQ - 1) / kBQ, BH);
   kernel<<<grid, kThreads, Sh::kSmem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int BITS, int D, int PT, bool kSingle>
-int launch_fill(const Args& a, int B, cudaStream_t stream) {
-  return a.P == PT ? launch_one<BITS, D, PT, true, kSingle>(a, B, stream)
-                   : launch_one<BITS, D, PT, false, kSingle>(a, B, stream);
+template <int BITS, int D, int PT>
+int launch_fill(const Args& a, int BH, cudaStream_t stream) {
+  return a.P == PT ? launch_one<BITS, D, PT, true>(a, BH, stream)
+                   : launch_one<BITS, D, PT, false>(a, BH, stream);
 }
 
 // the smallest tile of 32, 64 or 128 tokens that holds the page
-template <int BITS, int D, bool kSingle>
-int launch_pt(const Args& a, int B, cudaStream_t stream) {
-  if (a.P <= 32) return launch_fill<BITS, D, 32, kSingle>(a, B, stream);
-  if (a.P <= 64) return launch_fill<BITS, D, 64, kSingle>(a, B, stream);
-  return launch_fill<BITS, D, 128, kSingle>(a, B, stream);
+template <int BITS, int D>
+int launch_pt(const Args& a, int BH, cudaStream_t stream) {
+  if (a.P <= 32) return launch_fill<BITS, D, 32>(a, BH, stream);
+  if (a.P <= 64) return launch_fill<BITS, D, 64>(a, BH, stream);
+  return launch_fill<BITS, D, 128>(a, BH, stream);
 }
 
-template <int D, bool kSingle>
-int launch_bits(const Args& a, int B, int bits, cudaStream_t stream) {
+template <int D>
+int launch_bits(const Args& a, int BH, int bits, cudaStream_t stream) {
   switch (bits) {
-    case 1: return launch_pt<1, D, kSingle>(a, B, stream);
-    case 2: return launch_pt<2, D, kSingle>(a, B, stream);
-    case 4: return launch_pt<4, D, kSingle>(a, B, stream);
-    case 8: return launch_pt<8, D, kSingle>(a, B, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// D = 32, 64 or 128; pages of a multiple of 8 tokens up to 128 whose packed
-// rows are whole (P / vpb >= 1)
-template <bool kSingle>
-int launch(const Args& a, int B, int D, int bits, cudaStream_t stream) {
-  if (a.Sq <= 0 || B <= 0 || a.H <= 0) return 0;
-  if (a.P < 8 || a.P > kPmax || a.P % 8 || bits < 1 || bits > 8 ||
-      a.G < 1 || a.H % a.G)
-    return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 32: return launch_bits<32, kSingle>(a, B, bits, stream);
-    case 64: return launch_bits<64, kSingle>(a, B, bits, stream);
-    case 128: return launch_bits<128, kSingle>(a, B, bits, stream);
+    case 1: return launch_pt<1, D>(a, BH, stream);
+    case 2: return launch_pt<2, D>(a, BH, stream);
+    case 4: return launch_pt<4, D>(a, BH, stream);
+    case 8: return launch_pt<8, D>(a, BH, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -420,37 +359,11 @@ int launch(const Args& a, int B, int D, int bits, cudaStream_t stream) {
 
 extern "C" {
 
-// B slots over one pool: q [B, H, Sq, D] bf16; page_tables, page_tokens
-// int32 [B, n_max]; n_pages int32 [B]; pools as above with any head group G
-// dividing H, D = 32, 64 or 128, pages of P = 8, 16, ..., 128 tokens at
-// 1/2/4/8 bits. Writes out f32 [B, H, Sq, D] and lse f32 [B, H, Sq]. Returns
-// cudaErrorInvalidValue for a shape it was not built for.
-int dlm_batched_paged_attention(
-    const void* q, const void* page_tables, const void* page_tokens,
-    const void* n_pages, const void* k_data, const void* k_scale,
-    const void* k_zp, const void* v_data, const void* v_scale,
-    const void* v_zp, void* out, void* lse, int B, int H, int Sq, int D,
-    int n_max, int n_slots, int G, int P, int bits, float sm_scale,
-    void* stream) {
-  Args a{static_cast<const __nv_bfloat16*>(q),
-         static_cast<const int*>(page_tables),
-         static_cast<const int*>(page_tokens),
-         static_cast<const int*>(n_pages),
-         static_cast<const uint8_t*>(k_data),
-         static_cast<const float*>(k_scale),
-         static_cast<const float*>(k_zp),
-         static_cast<const uint8_t*>(v_data),
-         static_cast<const float*>(v_scale),
-         static_cast<const float*>(v_zp),
-         static_cast<float*>(out),
-         static_cast<float*>(lse),
-         H, Sq, n_max, n_slots, G, P, sm_scale};
-  return launch<false>(a, B, D, bits, static_cast<cudaStream_t>(stream));
-}
-
 // One sequence: q [BH, Sq, D] bf16; page_table, page_tokens int32
 // [n_pages] (n_pages >= 1); pools [n_slots, BH, P/vpb, D] and
-// [n_slots, BH, P]. Writes out f32 [BH, Sq, D] and lse f32 [BH, Sq].
+// [n_slots, BH, P] with D = 32, 64 or 128 and pages of P = 8, 16, ..., 128
+// tokens at 1/2/4/8 bits. Writes out f32 [BH, Sq, D] and lse f32 [BH, Sq].
+// Returns cudaErrorInvalidValue for a shape it was not built for.
 int dlm_paged_attention(const void* q, const void* page_table,
                         const void* page_tokens, const void* k_data,
                         const void* k_scale, const void* k_zp,
@@ -458,11 +371,12 @@ int dlm_paged_attention(const void* q, const void* page_table,
                         const void* v_zp, void* out, void* lse, int BH,
                         int Sq, int D, int n_pages, int n_slots, int P,
                         int bits, float sm_scale, void* stream) {
-  if (n_pages <= 0) return (int)cudaErrorInvalidValue;
+  if (Sq <= 0 || BH <= 0) return 0;
+  if (n_pages <= 0 || P < 8 || P > kPmax || P % 8)
+    return (int)cudaErrorInvalidValue;
   Args a{static_cast<const __nv_bfloat16*>(q),
          static_cast<const int*>(page_table),
          static_cast<const int*>(page_tokens),
-         nullptr,
          static_cast<const uint8_t*>(k_data),
          static_cast<const float*>(k_scale),
          static_cast<const float*>(k_zp),
@@ -471,8 +385,14 @@ int dlm_paged_attention(const void* q, const void* page_table,
          static_cast<const float*>(v_zp),
          static_cast<float*>(out),
          static_cast<float*>(lse),
-         BH, Sq, n_pages, n_slots, 1, P, sm_scale};
-  return launch<true>(a, 1, D, bits, static_cast<cudaStream_t>(stream));
+         Sq, n_pages, n_slots, P, sm_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_bits<32>(a, BH, bits, st);
+    case 64: return launch_bits<64>(a, BH, bits, st);
+    case 128: return launch_bits<128>(a, BH, bits, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -21,13 +21,15 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("int8_gemm", "int8_mlp", "dense_attention", "paged_attention",
-           "packed_gemm", "quant_attention", "paged_attention_a8",
+           "packed_gemm", "quant_attention", "paged_unpack",
+           "batched_paged_attention", "paged_attention_a8",
            "fused_qkv_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,11 +44,12 @@ SIGNATURES = {
     "dlm_int8_mlp": ("int8_mlp", (_P,) * 9 + (_I,) * 5 + (_P,)),
     "dlm_dense_attention": ("dense_attention", (_P, _P, _P, _P, _I, _I, _I, _I,
                                                 _I, _F, _P)),
-    "dlm_batched_paged_attention": ("paged_attention",
-                                    (_P,) * 12 + (_I,) * 9 + (_F, _P)),
+    "dlm_paged_unpack": ("paged_unpack", (_P,) * 11 + (_I,) * 10 + (_F, _P)),
+    "dlm_batched_paged_attention": ("batched_paged_attention",
+                                    (_P,) * 8 + (_I,) * 6 + (_P,)),
     "dlm_paged_attention": ("paged_attention", (_P,) * 11 + (_I,) * 7 + (_F, _P)),
     "dlm_batched_paged_attention_a8": ("paged_attention_a8",
-                                       (_P,) * 12 + (_I,) * 9 + (_F, _P)),
+                                       (_P,) * 8 + (_I,) * 6 + (_P,)),
     "dlm_quant_attention": ("quant_attention", (_P,) * 8 + (_I,) * 5 + (_F, _P)),
     "dlm_packed_gemm_splits": ("packed_gemm", (_I,) * 4),
     "dlm_packed_gemm": ("packed_gemm", (_P,) * 7 + (_I, _P) + (_I,) * 7
@@ -59,8 +62,10 @@ launch_counts: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, shared memory, spills) of each build in this process
+# ptxas report (registers, shared memory, spills) and wall seconds of each
+# build in this process
 build_logs: Dict[str, str] = {}
+build_seconds: Dict[str, float] = {}
 
 
 def reset_launch_counts() -> None:
@@ -96,19 +101,26 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = {}
+        t0 = time.perf_counter()
         for n in todo:
             tmp = targets[n].with_suffix(f".{os.getpid()}.tmp")
-            procs[n] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            log = tmp.with_suffix(".log")
+            with open(log, "w") as f:
+                procs[n] = (tmp, log, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+                    stdout=f, stderr=subprocess.STDOUT))
         failed = []
-        for n, (tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            build_logs[n] = out
-            if proc.returncode != 0:
-                failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{out}")
-            else:
-                os.replace(tmp, targets[n])
+        while procs:
+            for n in [n for n, (_, _, p) in procs.items() if p.poll() is not None]:
+                tmp, log, proc = procs.pop(n)
+                build_seconds[n] = time.perf_counter() - t0
+                build_logs[n] = out = log.read_text()
+                log.unlink()
+                if proc.returncode != 0:
+                    failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{out}")
+                else:
+                    os.replace(tmp, targets[n])
+            time.sleep(0.1)
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return targets

@@ -6,12 +6,19 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_paged_attention.py`:
 `_batched_kernel`: its bf16 path, and with `act_bits=8` its int8 path, where
 q, the centered K/V levels and the softmax weights folded with the V scale
 all go through the int8 tensor cores), `merge_partials`, `degroup_pool` and
-`degroup_sidecar`. On a CUDA tensor each wrapper launches its kernel of
-`csrc/paged_attention.cu` or `csrc/paged_attention_a8.cu` (head dims 32, 64
-and 128, pages of any multiple of 8 tokens up to 128, 1/2/4/8 bits, any head
-group dividing the heads) and raises on anything else; on a CPU tensor it
-runs its plain twin (`*_plain`), which repeats the TPU kernel's arithmetic
-page by page at the same rounding points.
+`degroup_sidecar`. On a CUDA tensor each wrapper launches its kernels (head
+dims 32, 64 and 128, pages of any multiple of 8 tokens up to 128, 1/2/4/8
+bits, any head group dividing the heads) and raises on anything else; on a
+CPU tensor it runs its plain twin (`*_plain`), which repeats the TPU
+kernel's arithmetic page by page at the same rounding points.
+
+`paged_attention` launches `csrc/paged_attention.cu`. `batched_paged_attention`
+launches two kernels a call: `paged_unpack` (`csrc/paged_unpack.cu`) unpacks
+each live page of each (slot, head) once into a scratch of the operands the
+attention kernel reads, then `csrc/batched_paged_attention.cu` (bf16) or
+`csrc/paged_attention_a8.cu` (int8) attends over it by TMA and wgmma (the
+design is in `csrc/paged_flash.cuh`). Its twin is the same two stages,
+`paged_unpack_plain` and `batched_paged_attention_unpacked_plain`.
 
 The pools keep the JAX layout, so arrays cross between the packages as they
 are:
@@ -37,6 +44,22 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_PAGE_SIZES = tuple(range(8, 129, 8))
 KERNEL_BITS = (1, 2, 4, 8)
+KERNEL_TILES = (32, 64, 128)
+
+
+def tile_tokens(P: int) -> int:
+    """The tile of 32, 64 or 128 tokens a page of P tokens runs in."""
+    return next(t for t in KERNEL_TILES if P <= t)
+
+
+def vt_columns(PT: int, device=None) -> torch.Tensor:
+    """Column of each token in a row of the int8 path's V^T tile of PT
+    tokens: within each 32 tokens, token i2*8 + t*2 + e moves to (i2 // 2)*16
+    + t*4 + (i2 % 2)*2 + e, the order in which a thread of the int8 P.V
+    product holds its softmax weights in the register A operand."""
+    tok = torch.arange(PT, device=device)
+    i2, t, e = (tok >> 3) & 3, (tok >> 1) & 3, tok & 1
+    return (tok & ~31) + (i2 >> 1) * 16 + t * 4 + (i2 & 1) * 2 + e
 
 
 def unpack_levels(data: torch.Tensor, bits: int) -> torch.Tensor:
@@ -147,69 +170,168 @@ def paged_attention(q, page_table, k_data, k_scale, k_zp, v_data, v_scale,
         return paged_attention_plain(q, page_table, k_data, k_scale, k_zp,
                                      v_data, v_scale, v_zp, bits, sm_scale,
                                      page_tokens, return_lse)
+    name = "paged_attention"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
     if page_tokens is None:
         page_tokens = torch.full(page_table.shape,
                                  k_data.shape[2] * (8 // bits),
                                  dtype=torch.int32, device=q.device)
-    out, lse = _launch("paged_attention", "dlm_paged_attention", q[None],
-                       page_table[None], page_tokens[None], None, k_data,
-                       k_scale, k_zp, v_data, v_scale, v_zp, bits, sm_scale, 1)
-    out, lse = out[0], lse[0]
+    BH, Sq, D = q.shape
+    n_slots, n_pages = k_data.shape[0], page_table.shape[0]
+    if page_tokens.shape != page_table.shape:
+        raise ValueError(f"{name}: page table {tuple(page_table.shape)}, "
+                         f"tokens {tuple(page_tokens.shape)}")
+    Dp, P, pools = _check_pools(name, (page_table, page_tokens), k_data,
+                                k_scale, k_zp, v_data, v_scale, v_zp, bits, 1)
+    if k_data.shape[1] != BH or Dp != D:
+        raise ValueError(f"{name}: pool {tuple(k_data.shape)} does not hold "
+                         f"{BH} heads of {D}")
+    if q.device != k_data.device:
+        raise ValueError(f"{name}: inputs on different devices")
+    sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    qb = q.to(torch.bfloat16).contiguous()
+    if qb.data_ptr() % 16:
+        raise ValueError(f"{name}: q must be 16-byte aligned")
+    pt, nt = (t.to(torch.int32).contiguous() for t in (page_table, page_tokens))
+    out = torch.empty((BH, Sq, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+    err = _build.function("dlm_paged_attention")(
+        qb.data_ptr(), pt.data_ptr(), nt.data_ptr(),
+        *(t.data_ptr() for t in pools), out.data_ptr(), lse.data_ptr(), BH,
+        Sq, D, n_pages, n_slots, P, bits, float(sm),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, name)
+    _build.launch_counts[name] += 1
     return (out, lse) if return_lse else out
 
 
 # ----------------------------------------------------------------- batched
 
 
-def batched_paged_attention_plain(q, page_tables, page_tokens, n_pages,
-                                  k_data, k_scale, k_zp, v_data, v_scale,
-                                  v_zp, bits: int, sm_scale=None,
-                                  return_lse: bool = False,
-                                  head_group: int = 1):
-    """Plain twin of `batched_paged_attention`, the bf16 path of the TPU
-    `_batched_kernel`: bf16 q and its f32 channel sum qsum; ks' = ks * sm;
-    logits = raw * ks' - (ks' * kz) * qsum; v_sc = bf16(v_lv * vs) per page;
-    acc = acc * alpha + bf16(p) . v_sc - sum(p * vs * vz); out = acc * (1/l),
-    and 0 with lse -1e30 where a slot had no page."""
-    B, H, Sq, D = q.shape
+def paged_unpack_plain(page_tables, n_pages, k_data, k_scale, k_zp, v_data,
+                       v_scale, v_zp, bits: int, sm_scale=None,
+                       head_group: int = 1, a8: bool = False):
+    """Plain twin of `paged_unpack`: the first n_pages[b] pages of each
+    slot's table, every head, as the operands of the attention stage, each
+    page padded to its tile of PT = `tile_tokens(P)` tokens with zeros.
+
+    bf16 (a8 False): K bf16 [B, H, n_max, PT, D] levels; V bf16 [B, H,
+    n_max, PT, D] = bf16(v_lv * vs); side f32 [B, H, n_max, 3, PT] = (ka' =
+    ks * sm, ka' * kz, vs * vz). int8 (a8 True), with off = 2^(bits-1): K
+    int8 [B, H, n_max, PT, D] = lv - off; V^T int8 [B, H, n_max, D, PT] =
+    lv - off with its columns in `vt_columns` order; side f32 [B, H, n_max,
+    4, PT] = (ka', ka' * (kz - off), vs, vz - off). Pages past n_pages[b] are
+    0 (the kernel leaves them unwritten)."""
+    B, n_max = page_tables.shape
+    n_slots, HG, Pp, GD = k_data.shape
     G = head_group
-    n_max = page_tables.shape[1]
-    P = k_data.shape[2] * (8 // bits)
+    H, D, P = HG * G, GD // G, Pp * (8 // bits)
+    PT = tile_tokens(P)
     sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    dev = k_data.device
+    live = torch.arange(n_max, device=dev)[None, :] < n_pages[:, None]
+    slots = torch.where(live, page_tables, 0).reshape(-1).to(torch.int64)
+
+    def levels(data):  # [B, H, n_max, P, D] int32
+        lv = unpack_levels(data.index_select(0, slots), bits)
+        return (lv.reshape(B, n_max, HG, P, G, D).permute(0, 2, 4, 1, 3, 5)
+                .reshape(B, H, n_max, P, D))
+
+    def side(arr):     # [B, H, n_max, P]
+        return (arr.index_select(0, slots).reshape(B, n_max, HG, G, P)
+                .permute(0, 2, 3, 1, 4).reshape(B, H, n_max, P))
+
+    ks, kz, vs, vz = (side(a) for a in (k_scale, k_zp, v_scale, v_zp))
+    ka = ks * sm
+    k = torch.zeros((B, H, n_max, PT, D), dtype=torch.int8 if a8 else
+                    torch.bfloat16, device=dev)
+    if a8:
+        off = 1 << (bits - 1)
+        k[..., :P, :] = (levels(k_data) - off).to(torch.int8)
+        v = torch.zeros((B, H, n_max, D, PT), dtype=torch.int8, device=dev)
+        v[..., vt_columns(PT, dev)[:P]] = (levels(v_data) - off).to(
+            torch.int8).transpose(3, 4)
+        sides = (ka, ka * (kz - float(off)), vs, vz - float(off))
+    else:
+        k[..., :P, :] = levels(k_data).to(torch.bfloat16)
+        v = torch.zeros_like(k)
+        v[..., :P, :] = (levels(v_data).float() * vs[..., None]).to(
+            torch.bfloat16)
+        sides = (ka, ka * kz, vs * vz)
+    sd = torch.zeros((B, H, n_max, len(sides), PT), dtype=torch.float32,
+                     device=dev)
+    sd[..., :P] = torch.stack(sides, dim=3)
+    dead = ~live[:, None, :, None, None]
+    return (k.masked_fill(dead, 0), v.masked_fill(dead, 0),
+            sd.masked_fill(dead, 0.0))
+
+
+def batched_paged_attention_unpacked_plain(q, page_tokens, n_pages, k, v,
+                                           side, page_size: int,
+                                           return_lse: bool = False,
+                                           reciprocal: bool = False):
+    """Plain twin of the attention stage of `batched_paged_attention`, over
+    `paged_unpack_plain`'s operands of pages of `page_size` tokens (int8 K
+    means the int8 path). The TPU `_batched_kernel`'s arithmetic:
+
+    bf16: bf16 q and its f32 channel sum qsum; logits = raw * ka' - kb *
+    qsum; acc = acc * alpha + bf16(p) . v_sc - sum(p * vc).
+    int8: q quantized per (head, row): sq = amax / 127 (1 where 0), qi =
+    round(q / sq), qsum = sum(qi) * sq; logits = (qi.k_lv * sq) * ka' - kb' *
+    qsum; per page w = p * vs (0 on invalid tokens), sw = max_t w / 127 (1
+    where 0), wi = round(w / sw); acc = acc * alpha + (wi.v_lv) * sw -
+    sum(w * vz'). Both integer dots are exact in f32. The two divisions by
+    127 are IEEE divisions, as in the CUDA kernel; `reciprocal` multiplies by
+    the f32 reciprocal of 127 instead, as XLA compiles the interpreted JAX
+    kernel on the CPU (`quant.core.div_const`).
+
+    Tokens past page_tokens get logits of -1e30; out = acc * (1/l), and 0
+    with lse -1e30 where a slot had no page."""
+    B, H, Sq, D = q.shape
+    n_max = k.shape[2]
+    P = page_size
+    a8 = k.dtype == torch.int8
     dev = q.device
     qb = _bf16(q)
-    qsum = qb.sum(dim=-1, keepdim=True)                      # [B, H, Sq, 1]
+    if a8:
+        amax = qb.abs().amax(dim=-1, keepdim=True)           # [B, H, Sq, 1]
+        sq = torch.where(amax > 0, div_const(amax, 127.0, reciprocal),
+                         torch.ones_like(amax))
+        qb = torch.round(qb / sq)
+        qsum = qb.sum(dim=-1, keepdim=True) * sq
+        cols = vt_columns(v.shape[-1], dev)[:P]
+    else:
+        qsum = qb.sum(dim=-1, keepdim=True)                  # [B, H, Sq, 1]
     tok = torch.arange(P, device=dev)
     m = torch.full((B, H, Sq, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros_like(m)
     acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
-
-    def pages(arr, slots):  # [B, H/G, Pp, G*D] -> levels [B, H, P, D]
-        lv = unpack_levels(arr.index_select(0, slots), bits).float()
-        return lv.reshape(B, H // G, P, G, D).transpose(2, 3).reshape(
-            B, H, P, D)
-
-    def side(arr, slots):   # [B, H/G, G*P] -> [B, H, 1, P]
-        return arr.index_select(0, slots).reshape(B, H, 1, P)
-
     for j in range(n_max):
-        slots = page_tables[:, j].to(torch.int64)
         live = (j < n_pages).reshape(B, 1, 1, 1)
-        k_lv, v_lv = pages(k_data, slots), pages(v_data, slots)
-        ks, kz, vs, vz = (side(a, slots)
-                          for a in (k_scale, k_zp, v_scale, v_zp))
-        ks = ks * sm
+        ka, kb, s2 = (side[:, :, j, i, None, :P] for i in range(3))
+        k_lv = k[:, :, j, :P].float().contiguous()           # [B, H, P, D]
         raw = qb @ k_lv.transpose(2, 3)                      # [B, H, Sq, P]
-        logits = raw * ks - (ks * kz) * qsum
+        if a8:
+            raw = raw * sq
+        logits = raw * ka - kb * qsum
         valid = (tok[None, :] < page_tokens[:, j:j + 1]).reshape(B, 1, 1, P)
         logits = torch.where(valid, logits, NEG_INF)
         m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
         p = torch.exp(logits - m_new)
         alpha = torch.exp(m - m_new)
         l_new = l * alpha + p.sum(dim=-1, keepdim=True)
-        v_sc = _bf16(v_lv * vs.transpose(2, 3))              # [B, H, P, D]
-        pv = _bf16(p) @ v_sc
-        corr = (p * (vs * vz)).sum(dim=-1, keepdim=True)
+        if a8:
+            w = torch.where(valid, p * s2, 0.0)
+            wmax = w.amax(dim=-1, keepdim=True)
+            sw = torch.where(wmax > 0, div_const(wmax, 127.0, reciprocal),
+                             torch.ones_like(wmax))
+            v_lv = v[:, :, j][..., cols].float().transpose(2, 3).contiguous()
+            pv = (torch.round(w / sw) @ v_lv) * sw
+            corr = (w * side[:, :, j, 3, None, :P]).sum(dim=-1, keepdim=True)
+        else:
+            pv = _bf16(p) @ v[:, :, j, :P].float().contiguous()
+            corr = (p * s2).sum(dim=-1, keepdim=True)
         acc = torch.where(live, acc * alpha + pv - corr, acc)
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
@@ -220,6 +342,23 @@ def batched_paged_attention_plain(q, page_tables, page_tokens, n_pages,
         lse = torch.where(has, m + torch.log(safe_l), NEG_INF)[..., 0]
         return out, lse
     return out
+
+
+def batched_paged_attention_plain(q, page_tables, page_tokens, n_pages,
+                                  k_data, k_scale, k_zp, v_data, v_scale,
+                                  v_zp, bits: int, sm_scale=None,
+                                  return_lse: bool = False,
+                                  head_group: int = 1):
+    """Plain twin of `batched_paged_attention`, the bf16 path of the TPU
+    `_batched_kernel`: `paged_unpack_plain`, then
+    `batched_paged_attention_unpacked_plain` (whose docstring holds the
+    arithmetic)."""
+    P = k_data.shape[2] * (8 // bits)
+    k, v, side = paged_unpack_plain(page_tables, n_pages, k_data, k_scale,
+                                    k_zp, v_data, v_scale, v_zp, bits,
+                                    sm_scale, head_group)
+    return batched_paged_attention_unpacked_plain(
+        q, page_tokens, n_pages, k, v, side, P, return_lse)
 
 
 def batched_paged_attention_a8_plain(q, page_tables, page_tokens, n_pages,
@@ -229,77 +368,57 @@ def batched_paged_attention_a8_plain(q, page_tables, page_tokens, n_pages,
                                      head_group: int = 1,
                                      reciprocal: bool = False):
     """Plain twin of `batched_paged_attention(act_bits=8)`, the int8 path of
-    the TPU `_batched_kernel` (one page per step). With off = 2^(bits-1):
-    levels centered to lv - off (int8) and kz, vz reduced by off; bf16 q
-    quantized per (head, row): sq = amax / 127 (1 where 0), qi = round(q /
-    sq), qsum = sum(qi) * sq; logits = (qi.k_lv * sq) * ks' - (ks' * kz) *
-    qsum with ks' = ks * sm; per page w = p * vs (0 on invalid tokens), sw =
-    max_t w / 127 (1 where 0), wi = round(w / sw); acc = acc * alpha +
-    (wi.v_lv) * sw - sum(w * vz); out = acc * (1/l), and 0 with lse -1e30
-    where a slot had no page. Both integer dots are exact in f32. The two
-    divisions by 127 are IEEE divisions, as in the CUDA kernel; `reciprocal`
-    multiplies by the f32 reciprocal of 127 instead, as XLA compiles the
-    interpreted JAX kernel on the CPU (`quant.core.div_const`)."""
-    B, H, Sq, D = q.shape
-    G = head_group
-    n_max = page_tables.shape[1]
+    the TPU `_batched_kernel` (one page per step): `paged_unpack_plain(a8=
+    True)`, then `batched_paged_attention_unpacked_plain`."""
     P = k_data.shape[2] * (8 // bits)
+    k, v, side = paged_unpack_plain(page_tables, n_pages, k_data, k_scale,
+                                    k_zp, v_data, v_scale, v_zp, bits,
+                                    sm_scale, head_group, a8=True)
+    return batched_paged_attention_unpacked_plain(
+        q, page_tokens, n_pages, k, v, side, P, return_lse, reciprocal)
+
+
+def paged_unpack(page_tables, n_pages, k_data, k_scale, k_zp, v_data,
+                 v_scale, v_zp, bits: int, sm_scale=None, head_group: int = 1,
+                 a8: bool = False):
+    """The unpack stage of `batched_paged_attention`: (K, V or V^T, side) as
+    `paged_unpack_plain` lays them out, pages past n_pages[b] left
+    unwritten. On a CUDA tensor one launch of `csrc/paged_unpack.cu` (counted
+    as `paged_unpack`); on a CPU tensor its plain twin."""
+    if page_tables.device.type == "cpu":
+        return paged_unpack_plain(page_tables, n_pages, k_data, k_scale, k_zp,
+                                  v_data, v_scale, v_zp, bits, sm_scale,
+                                  head_group, a8)
+    name = "paged_unpack"
+    if page_tables.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {page_tables.device}")
+    B, n_max = page_tables.shape
+    n_slots, HG = k_data.shape[:2]
+    if n_pages.shape != (B,):
+        raise ValueError(f"{name}: n_pages {tuple(n_pages.shape)} for the "
+                         f"tables {tuple(page_tables.shape)}")
+    D, P, pools = _check_pools(name, (page_tables, n_pages), k_data, k_scale,
+                               k_zp, v_data, v_scale, v_zp, bits, head_group)
+    H, PT = HG * head_group, tile_tokens(P)
+    if a8 and bits == 1:
+        raise ValueError(f"{name}: 1-bit pages take the bf16 path")
     sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    off = float(1 << (bits - 1))
-    dev = q.device
-    qb = _bf16(q)
-    amax = qb.abs().amax(dim=-1, keepdim=True)               # [B, H, Sq, 1]
-    sq = torch.where(amax > 0, div_const(amax, 127.0, reciprocal),
-                     torch.ones_like(amax))
-    qi = torch.round(qb / sq)
-    qsum = qi.sum(dim=-1, keepdim=True) * sq
-    tok = torch.arange(P, device=dev)
-    m = torch.full((B, H, Sq, 1), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
-
-    def pages(arr, slots):  # [B, H/G, Pp, G*D] -> centered levels [B, H, P, D]
-        lv = unpack_levels(arr.index_select(0, slots), bits).float() - off
-        return lv.reshape(B, H // G, P, G, D).transpose(2, 3).reshape(
-            B, H, P, D)
-
-    def side(arr, slots):   # [B, H/G, G*P] -> [B, H, 1, P]
-        return arr.index_select(0, slots).reshape(B, H, 1, P)
-
-    for j in range(n_max):
-        slots = page_tables[:, j].to(torch.int64)
-        live = (j < n_pages).reshape(B, 1, 1, 1)
-        k_lv, v_lv = pages(k_data, slots), pages(v_data, slots)
-        ks, kz, vs, vz = (side(a, slots)
-                          for a in (k_scale, k_zp, v_scale, v_zp))
-        ks = ks * sm
-        kz = kz - off
-        vz = vz - off
-        raw = (qi @ k_lv.transpose(2, 3)) * sq               # [B, H, Sq, P]
-        logits = raw * ks - (ks * kz) * qsum
-        valid = (tok[None, :] < page_tokens[:, j:j + 1]).reshape(B, 1, 1, P)
-        logits = torch.where(valid, logits, NEG_INF)
-        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
-        p = torch.exp(logits - m_new)
-        alpha = torch.exp(m - m_new)
-        l_new = l * alpha + p.sum(dim=-1, keepdim=True)
-        w = torch.where(valid, p * vs, 0.0)
-        wmax = w.amax(dim=-1, keepdim=True)
-        sw = torch.where(wmax > 0, div_const(wmax, 127.0, reciprocal),
-                         torch.ones_like(wmax))
-        wi = torch.round(w / sw)
-        pv = (wi @ v_lv) * sw
-        corr = (w * vz).sum(dim=-1, keepdim=True)
-        acc = torch.where(live, acc * alpha + pv - corr, acc)
-        m = torch.where(live, m_new, m)
-        l = torch.where(live, l_new, l)
-    has = l > 0
-    safe_l = torch.where(has, l, torch.ones_like(l))
-    out = acc * (1.0 / safe_l)
-    if return_lse:
-        lse = torch.where(has, m + torch.log(safe_l), NEG_INF)[..., 0]
-        return out, lse
-    return out
+    dev = k_data.device
+    dtype = torch.int8 if a8 else torch.bfloat16
+    k = torch.empty((B, H, n_max, PT, D), dtype=dtype, device=dev)
+    v = torch.empty((B, H, n_max, D, PT) if a8 else (B, H, n_max, PT, D),
+                    dtype=dtype, device=dev)
+    side = torch.empty((B, H, n_max, 4 if a8 else 3, PT), dtype=torch.float32,
+                       device=dev)
+    pt, npg = (t.to(torch.int32).contiguous() for t in (page_tables, n_pages))
+    err = _build.function("dlm_paged_unpack")(
+        pt.data_ptr(), npg.data_ptr(), *(t.data_ptr() for t in pools),
+        k.data_ptr(), v.data_ptr(), side.data_ptr(), B, H, D, n_max, n_slots,
+        head_group, P, PT, bits, int(a8), float(sm),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, name)
+    _build.launch_counts[name] += 1
+    return k, v, side
 
 
 def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
@@ -315,7 +434,9 @@ def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
 
     act_bits=8 runs both products in int8 (q per row, the folded softmax
     weights per page and query); 1-bit pages keep the bf16 path, as in the
-    JAX package."""
+    JAX package. On a CUDA tensor: `paged_unpack`, then one launch of the
+    attention kernel (counted as `batched_paged_attention` or
+    `batched_paged_attention_a8`)."""
     if act_bits not in (8, 16):
         raise ValueError(f"act_bits must be 8 or 16, got {act_bits}")
     a8 = act_bits == 8 and bits != 1
@@ -326,39 +447,57 @@ def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
                      k_zp, v_data, v_scale, v_zp, bits, sm_scale, return_lse,
                      head_group)
     name = "batched_paged_attention_a8" if a8 else "batched_paged_attention"
-    out, lse = _launch(name, f"dlm_{name}", q, page_tables, page_tokens,
-                       n_pages, k_data, k_scale, k_zp, v_data, v_scale, v_zp,
-                       bits, sm_scale, head_group)
-    return (out, lse) if return_lse else out
-
-
-def _launch(name, fn, q, page_tables, page_tokens, n_pages, k_data, k_scale,
-            k_zp, v_data, v_scale, v_zp, bits, sm_scale, G):
-    """Check what the kernel takes and launch it: q [B, H, Sq, D], tables
-    [B, n_max], `n_pages` [B] or None (one sequence over all n_max pages)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     B, H, Sq, D = q.shape
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D}, the kernel is built for "
-                         f"{KERNEL_HEAD_DIMS}")
-    if bits not in KERNEL_BITS:
-        raise ValueError(f"{name}: bits {bits}, the kernel takes {KERNEL_BITS}")
+    G = head_group
     if G < 1 or H % G:
         raise ValueError(f"{name}: head group {G} does not divide {H} heads")
-    n_slots, HG, Pp, GD = k_data.shape
-    P = Pp * (8 // bits)
-    if P not in KERNEL_PAGE_SIZES:
-        raise ValueError(f"{name}: page size {P}, the kernel takes multiples "
-                         "of 8 tokens up to 128")
-    if HG != H // G or GD != G * D:
+    if k_data.dim() != 4 or k_data.shape[1] != H // G or \
+            k_data.shape[3] != G * D:
         raise ValueError(f"{name}: pool {tuple(k_data.shape)} does not hold "
                          f"{H} heads of {D} in groups of {G}")
     n_max = page_tables.shape[1]
     if page_tables.shape != (B, n_max) or page_tokens.shape != (B, n_max) \
-            or (n_pages is not None and n_pages.shape != (B,)):
+            or n_pages.shape != (B,):
         raise ValueError(f"{name}: page tables {tuple(page_tables.shape)}, "
                          f"tokens {tuple(page_tokens.shape)} for batch {B}")
+    if any(t.device != q.device for t in (page_tables, page_tokens, n_pages,
+                                          k_data)):
+        raise ValueError(f"{name}: inputs on different devices")
+    k, v, side = paged_unpack(page_tables, n_pages, k_data, k_scale, k_zp,
+                              v_data, v_scale, v_zp, bits, sm_scale, G, a8)
+    qb = q.to(torch.bfloat16).contiguous()
+    if qb.data_ptr() % 16:
+        raise ValueError(f"{name}: q must be 16-byte aligned")
+    nt, npg = (t.to(torch.int32).contiguous() for t in (page_tokens, n_pages))
+    out = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = _build.function(f"dlm_{name}")(
+        qb.data_ptr(), nt.data_ptr(), npg.data_ptr(), k.data_ptr(),
+        v.data_ptr(), side.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H,
+        Sq, D, n_max, k.shape[3], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, name)
+    _build.launch_counts[name] += 1
+    return (out, lse) if return_lse else out
+
+
+def _check_pools(name, tables, k_data, k_scale, k_zp, v_data, v_scale, v_zp,
+                 bits, G):
+    """Check the pools a kernel takes, and that they lie beside the int
+    `tables`; return (D, P, the pools contiguous)."""
+    n_slots, HG, Pp, GD = k_data.shape
+    if bits not in KERNEL_BITS:
+        raise ValueError(f"{name}: bits {bits}, the kernel takes {KERNEL_BITS}")
+    if G < 1 or GD % G:
+        raise ValueError(f"{name}: head group {G} does not divide rows of {GD}")
+    D, P = GD // G, Pp * (8 // bits)
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D}, the kernel is built for "
+                         f"{KERNEL_HEAD_DIMS}")
+    if P not in KERNEL_PAGE_SIZES:
+        raise ValueError(f"{name}: page size {P}, the kernel takes multiples "
+                         "of 8 tokens up to 128")
     for arr in (k_data, v_data):
         if arr.dtype != torch.uint8 or arr.shape != k_data.shape:
             raise ValueError(f"{name}: pages must be uint8 "
@@ -367,31 +506,10 @@ def _launch(name, fn, q, page_tables, page_tokens, n_pages, k_data, k_scale,
         if arr.dtype != torch.float32 or arr.shape != (n_slots, HG, G * P):
             raise ValueError(f"{name}: sidecars must be f32 "
                              f"{(n_slots, HG, G * P)}")
-    tensors = [q, page_tables, page_tokens, k_data, k_scale, k_zp, v_data,
-               v_scale, v_zp] + ([] if n_pages is None else [n_pages])
-    if any(t.device != q.device for t in tensors):
-        raise ValueError(f"{name}: inputs on different devices")
-    sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    qb = q.to(torch.bfloat16).contiguous()
-    pt, nt = (t.to(torch.int32).contiguous() for t in (page_tables, page_tokens))
     pools = [t.contiguous() for t in (k_data, k_scale, k_zp, v_data, v_scale,
                                       v_zp)]
-    if any(t.data_ptr() % 16 for t in [qb] + pools):
-        raise ValueError(f"{name}: q and the pools must be 16-byte aligned")
-    out = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if n_pages is None:
-        err = _build.function(fn)(
-            qb.data_ptr(), pt.data_ptr(), nt.data_ptr(),
-            *(t.data_ptr() for t in pools), out.data_ptr(), lse.data_ptr(),
-            H, Sq, D, n_max, n_slots, P, bits, float(sm), stream)
-    else:
-        npg = n_pages.to(torch.int32).contiguous()
-        err = _build.function(fn)(
-            qb.data_ptr(), pt.data_ptr(), nt.data_ptr(), npg.data_ptr(),
-            *(t.data_ptr() for t in pools), out.data_ptr(), lse.data_ptr(),
-            B, H, Sq, D, n_max, n_slots, G, P, bits, float(sm), stream)
-    _build.check(err, name)
-    _build.launch_counts[name] += 1
-    return out, lse
+    if any(t.device != k_data.device for t in list(tables) + pools):
+        raise ValueError(f"{name}: inputs on different devices")
+    if any(t.data_ptr() % 16 for t in pools):
+        raise ValueError(f"{name}: the pools must be 16-byte aligned")
+    return D, P, pools

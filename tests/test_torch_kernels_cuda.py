@@ -239,10 +239,71 @@ def test_batched_paged_attention_kernel_matches_twin(gen, bits, P, D, G):
                                           return_lse=True, head_group=G)
     torch.cuda.synchronize()
     assert _build.launch_counts["batched_paged_attention"] == 1
+    assert _build.launch_counts["paged_unpack"] == 1
     ref, ref_lse = pa.batched_paged_attention_plain(
         q, pt, nt, npg, *pools, bits=bits, return_lse=True, head_group=G)
     assert torch.all(out[1] == 0) and torch.all(lse[1] == pa.NEG_INF)
     _close(out, lse, ref, ref_lse)
+
+
+@pytest.mark.parametrize("a8,bits", [(False, 1), (False, 2), (False, 4),
+                                     (False, 8), (True, 2), (True, 4),
+                                     (True, 8)])
+@pytest.mark.parametrize("P", PAGES)
+@pytest.mark.parametrize("D,G", DG)
+def test_paged_unpack_kernel_equals_twin(gen, a8, bits, P, D, G):
+    """The unpack pass bit for bit against its plain twin on every live page
+    (pages past a slot's count are left unwritten): scattered slots, a table
+    that reads another slot's pages, an empty slot, a compacted table. (1-bit
+    pages take the bf16 path at either act_bits.)"""
+    B, H = 3, 4
+    pools = _pools(gen, 7, H // G, P, G * D, bits, G)
+    pt = torch.tensor([[5, 0, 3, 6], [0, 0, 0, 0], [6, 5, 0, 0]],
+                      device="cuda", dtype=torch.int32)
+    npg = torch.tensor([4, 0, 2], device="cuda", dtype=torch.int32)
+    _build.reset_launch_counts()
+    got = pa.paged_unpack(pt, npg, *pools, bits=bits, head_group=G, a8=a8)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["paged_unpack"] == 1
+    want = pa.paged_unpack_plain(pt, npg, *pools, bits=bits, head_group=G,
+                                 a8=a8)
+    for b, n in enumerate(npg.tolist()):
+        for x, y in zip(got, want):
+            assert torch.equal(x[b, :, :n], y[b, :, :n])
+
+
+@pytest.mark.parametrize("act_bits", [16, 8])
+@pytest.mark.parametrize("P", [64, 72, 128])
+@pytest.mark.parametrize("D,G", DG)
+def test_batched_paged_attention_long_tables(gen, act_bits, P, D, G):
+    """Nine pages, more than the kernels' ring of three stages holds, with a
+    partial last page, next to a slot that reads the first five entries of
+    its table; 300 query rows (three tiles of 128, the last ragged)."""
+    B, H, Sq, n = 2, 4, 300, 9
+    pools = _pools(gen, 12, H // G, P, G * D, 4, G)
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
+    pt = torch.stack([torch.randperm(12, generator=gen, device="cuda")[:n]
+                      for _ in range(B)]).to(torch.int32)
+    nt = torch.full((B, n), P, device="cuda", dtype=torch.int32)
+    nt[0, n - 1] = P // 2 + 1
+    nt[1, 4] = 9
+    npg = torch.tensor([n, 5], device="cuda", dtype=torch.int32)
+    name = "batched_paged_attention" + ("_a8" if act_bits == 8 else "")
+    _build.reset_launch_counts()
+    out, lse = pa.batched_paged_attention(q, pt, nt, npg, *pools, bits=4,
+                                          return_lse=True, head_group=G,
+                                          act_bits=act_bits)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {name: 1, "paged_unpack": 1}
+    plain = (pa.batched_paged_attention_a8_plain if act_bits == 8
+             else pa.batched_paged_attention_plain)
+    ref, ref_lse = plain(q, pt, nt, npg, *pools, bits=4, return_lse=True,
+                         head_group=G)
+    if act_bits == 8:  # the tolerance of the int8 path against its twin
+        assert float((out - ref).norm() / ref.norm()) <= 5e-3
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    else:
+        _close(out, lse, ref, ref_lse)
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
@@ -311,6 +372,7 @@ def test_batched_paged_attention_a8_kernel_matches_twin(gen, bits, P, D, G):
     torch.cuda.synchronize()
     assert _build.launch_counts["batched_paged_attention_a8"] == 1
     assert _build.launch_counts["batched_paged_attention"] == 0
+    assert _build.launch_counts["paged_unpack"] == 1
     ref, ref_lse = pa.batched_paged_attention_a8_plain(
         q, pt, nt, npg, *pools, bits=bits, return_lse=True, head_group=G)
     assert torch.all(out[1] == 0) and torch.all(lse[1] == pa.NEG_INF)
@@ -335,6 +397,7 @@ def test_batched_paged_attention_a8_one_bit_runs_the_bf16_kernel(gen):
                                      head_group=G, act_bits=8)
     assert _build.launch_counts["batched_paged_attention"] == 1
     assert _build.launch_counts["batched_paged_attention_a8"] == 0
+    assert _build.launch_counts["paged_unpack"] == 1
     assert torch.equal(out, pa.batched_paged_attention(
         q, pt, nt, npg, *pools, bits=1, head_group=G))
 
