@@ -15,9 +15,11 @@ Phases (any failure makes the script exit non-zero without the final line):
                 port serves (32 and 128; the anchor's 8 heads of 32 in paged
                 pools of 4 heads a row and pages of 8 and 32; dense
                 attention timed at all three widths and with f32 out). The
-                fused MLP also bit for bit against the chained kernels,
-                with their time. torch._int_mm takes more than 16 rows, so
-                its yardstick at M = 8 pads the rows to 32 (noted). Also
+                fused MLP at the sampler's M = 2048 and serving's M = 8192,
+                also bit for bit against the chained kernels, with their
+                time and the clusters the card runs at once. torch._int_mm
+                takes more than 16 rows, so its yardstick at M = 8 pads the
+                rows to 32 (noted). Also
                 quantize_page and quantize_kv on the card against the CPU,
                 bit for bit. The batched paged attention's unpack pass
                 (paged_unpack) bit for bit against its twin in both layouts,
@@ -101,10 +103,11 @@ Phases (any failure makes the script exit non-zero without the final line):
 
     python3 chip_smoke.py --parent DIR
 
-also times the paged-attention kernels of the checkout unpacked in DIR (the
-commit before a redesign of them, `git archive`) with that checkout's own
-`_paged_kernels`, once before the kernels phase and once after it, in a
-process of its own; the runs line carries them as `parent_paged_kernels`.
+also times the fused MLP (M = 2048 and 8192) and fused-QKV attention (its
+two timed shapes) of the checkout unpacked in DIR (the commit before a
+redesign of them, `git archive`) with that checkout's own helpers, once
+before the kernels phase and once after it, in a process of its own; the
+runs line carries them as `parent_kernels`.
 """
 
 from __future__ import annotations
@@ -305,52 +308,13 @@ def kernels():
         if not ok:
             bad.append(f"int8w_matmul {label}")
 
-    # int8w_mlp, the fused kernel: relative Frobenius error <= 1e-3 against
-    # the plain version -- a last-bit difference in the f32 gelu can move one
-    # requantization level of the inner activation -- and bit for bit equal
-    # to the chained kernels, which round every step alike
-    M, D, F = 2048, 768, 3072
-    x = torch.randn((M, D), generator=gen, device="cuda").to(bf16)
-    w1, w2 = _rand_int8(D, F, gen), _rand_int8(F, D, gen)
-    cs1 = torch.rand((1, F), generator=gen, device="cuda") * 2e-4 + 1e-5
-    cs2 = torch.rand((1, D), generator=gen, device="cuda") * 2e-4 + 1e-5
-    b1 = torch.randn((F,), generator=gen, device="cuda") * 0.02
-    b2 = torch.randn((D,), generator=gen, device="cuda") * 0.02
-    r = torch.randn((M, D), generator=gen, device="cuda").to(bf16)
-    args = (x, w1, cs1, b1, w2, cs2, b2, r, bf16)
-    if not im.mlp_fits(D, F):
-        raise AssertionError(f"the fused MLP kernel does not take {D} -> {F}")
-    out = im.int8w_mlp(*args)
-    ref = im.int8w_mlp_plain(*args)
-    chained = im.int8w_mlp_chained(*args)
-    err, rel, _ = _compare(out, ref, 0.0, 0.0)
-    same = bool(torch.equal(out, chained))
-    ok = rel <= 1e-3 and same and bool(torch.isfinite(out.float()).all())
-    ms = time_ms(lambda: im.int8w_mlp(*args))
-    chained_ms = time_ms(lambda: im.int8w_mlp_chained(*args))
-    plain_ms = time_ms(lambda: im.int8w_mlp_plain(*args), 5)
-
-    def lib_mlp():
-        xi, sx = im.quant_rows_plain(x.float())
-        y1 = _int_mm_epilogue(xi, sx, w1, cs1, b1, True, None, f32)
-        yi, sy = im.quant_rows_plain(y1)
-        return _int_mm_epilogue(yi, sy, w2, cs2, b2, False, r, bf16)
-    lib_ms = time_ms(lib_mlp)
-    nbytes = M * D * 2 + D * F + F * D + (F + D) * 8 + M * D * 2 * 2
-    b_ms, b_by = bound(nbytes, 2 * M * D * F * 2, PEAK_INT8_OPS)
-    results["int8w_mlp"].append(dict(
-        shape=f"mlp M={M} D={D} F={F} +residual", max_abs_err=err,
-        rel_err=rel, equal_to_chained=same,
-        tolerance="rel Frobenius <= 1e-3; bit for bit the chained kernels",
-        ms=ms, chained_ms=chained_ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=b_ms, bound_by=b_by))
-    log(f"  int8w_mlp (fused): max_abs_err {err:.3g} rel {rel:.3g}, chained "
-        f"{'bit for bit' if same else 'DIFFERENT'} "
-        f"{'ok' if ok else 'MISMATCH'}; {ms:.4f} ms, chained {chained_ms:.4f},"
-        f" plain {plain_ms:.4f}, library {lib_ms:.4f}, bound {b_ms:.4f} "
-        f"({b_by})")
-    if not ok:
-        bad.append("int8w_mlp")
+    # int8w_mlp, the fused kernel, at the sampler's rows (M = 2048, B=8 x
+    # S=256) and serve_paged's and serve_phase's (M = 8192): relative
+    # Frobenius error <= 1e-3 against the plain version -- a last-bit
+    # difference in the f32 gelu can move one requantization level of the
+    # inner activation -- and bit for bit equal to the chained kernels, which
+    # round every step alike
+    _mlp_kernels(gen, results, bad)
 
     # dense_attention at S=1024: the sampler's heads of 64 (BH = 8 x 12), and
     # the same work at heads of 32 and 128, bf16 out, timed; the 2-layer
@@ -402,6 +366,65 @@ def kernels():
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
     return results
+
+
+def _mlp_kernels(gen, results, bad):
+    """int8w_mlp at 768 -> 3072 -> 768 with both biases and a residual, bf16
+    out, at M = 2048 and 8192: the fused kernel, the chained kernels (its
+    reference, bit for bit), torch._int_mm twice with the epilogues in torch
+    ops (library_ms) and the bound. Also how many clusters of the fused
+    kernel the card runs at once (its waves)."""
+    from diffusion_llm_rs_tpu_torch.ops import int8_matmul as im
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    D, F = 768, 3072
+    if not im.mlp_fits(D, F):
+        raise AssertionError(f"the fused MLP kernel does not take {D} -> {F}")
+    clusters = im._active_clusters(D, D)
+    log(f"  int8w_mlp: clusters the card runs at once, by size: {clusters}")
+    w1, w2 = _rand_int8(D, F, gen), _rand_int8(F, D, gen)
+    cs1 = torch.rand((1, F), generator=gen, device="cuda") * 2e-4 + 1e-5
+    cs2 = torch.rand((1, D), generator=gen, device="cuda") * 2e-4 + 1e-5
+    b1 = torch.randn((F,), generator=gen, device="cuda") * 0.02
+    b2 = torch.randn((D,), generator=gen, device="cuda") * 0.02
+    for M in (2048, 8192):
+        x = torch.randn((M, D), generator=gen, device="cuda").to(bf16)
+        r = torch.randn((M, D), generator=gen, device="cuda").to(bf16)
+        args = (x, w1, cs1, b1, w2, cs2, b2, r, bf16)
+        out = im.int8w_mlp(*args)
+        ref = im.int8w_mlp_plain(*args)
+        chained = im.int8w_mlp_chained(*args)
+        err, rel, _ = _compare(out, ref, 0.0, 0.0)
+        same = bool(torch.equal(out, chained))
+        ok = rel <= 1e-3 and same and bool(torch.isfinite(out.float()).all())
+        ms = time_ms(lambda: im.int8w_mlp(*args))
+        chained_ms = time_ms(lambda: im.int8w_mlp_chained(*args))
+        plain_ms = time_ms(lambda: im.int8w_mlp_plain(*args), 5)
+
+        def lib_mlp():
+            xi, sx = im.quant_rows_plain(x.float())
+            y1 = _int_mm_epilogue(xi, sx, w1, cs1, b1, True, None, f32)
+            yi, sy = im.quant_rows_plain(y1)
+            return _int_mm_epilogue(yi, sy, w2, cs2, b2, False, r, bf16)
+        lib_ms = time_ms(lib_mlp)
+        nbytes = M * D * 2 + D * F + F * D + (F + D) * 8 + M * D * 2 * 2
+        b_ms, b_by = bound(nbytes, 2 * M * D * F * 2, PEAK_INT8_OPS)
+        cluster = im.mlp_plan(M, D, F, D, clusters)["cluster"]
+        results["int8w_mlp"].append(dict(
+            shape=f"mlp M={M} D={D} F={F} +residual", max_abs_err=err,
+            rel_err=rel, equal_to_chained=same,
+            tolerance="rel Frobenius <= 1e-3; bit for bit the chained kernels",
+            ms=ms, chained_ms=chained_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, cluster=cluster,
+            active_clusters=clusters))
+        log(f"  int8w_mlp (fused, clusters of {cluster}) M={M}: max_abs_err "
+            f"{err:.3g} rel {rel:.3g}, "
+            f"chained {'bit for bit' if same else 'DIFFERENT'} "
+            f"{'ok' if ok else 'MISMATCH'}; {ms:.4f} ms, chained "
+            f"{chained_ms:.4f}, plain {plain_ms:.4f}, library {lib_ms:.4f}, "
+            f"bound {b_ms:.4f} ({b_by})")
+        if not ok:
+            bad.append(f"int8w_mlp M={M}")
 
 
 def _fused_qkv_kernels(gen, results, bad):
@@ -2283,21 +2306,40 @@ KERNELS = {
 }
 
 
-def _parent_paged(parent):
-    """Start the paged-attention kernels of another checkout (the commit
-    before a redesign, unpacked into `parent`) timed by that checkout's own
-    chip_smoke.py `_paged_kernels`, in a process of its own; returns the
+# Run in a checkout of an earlier commit (cwd): that checkout's fused MLP at
+# the two timed M and its fused-QKV attention at its two timed shapes,
+# timed by its own chip_smoke.py helpers; prints one JSON line.
+PARENT_CODE = """
+import json, torch, chip_smoke as c
+from diffusion_llm_rs_tpu_torch.ops import _build, int8_matmul as im
+c.device()
+_build.build(("int8_gemm", "int8_mlp", "fused_qkv_attention"))
+gen = torch.Generator(device="cuda").manual_seed(1234)
+res = {k: [] for k in c.KERNELS}
+c._fused_qkv_kernels(gen, res, [])
+bf16, D, F = torch.bfloat16, 768, 3072
+w1, w2 = c._rand_int8(D, F, gen), c._rand_int8(F, D, gen)
+cs1 = torch.rand((1, F), generator=gen, device="cuda") * 2e-4 + 1e-5
+cs2 = torch.rand((1, D), generator=gen, device="cuda") * 2e-4 + 1e-5
+b1 = torch.randn((F,), generator=gen, device="cuda") * 0.02
+b2 = torch.randn((D,), generator=gen, device="cuda") * 0.02
+for M in (2048, 8192):
+    x = torch.randn((M, D), generator=gen, device="cuda").to(bf16)
+    r = torch.randn((M, D), generator=gen, device="cuda").to(bf16)
+    args = (x, w1, cs1, b1, w2, cs2, b2, r, bf16)
+    res["int8w_mlp"].append(dict(shape=f"mlp M={M} D={D} F={F} +residual",
+                                 ms=c.time_ms(lambda: im.int8w_mlp(*args))))
+print(json.dumps({k: [dict(shape=r["shape"], ms=r["ms"]) for r in v if "ms" in r]
+                  for k, v in res.items() if v}))
+"""
+
+
+def _parent_kernels(parent):
+    """Start the fused MLP and fused-QKV kernels of another checkout (the
+    commit before a redesign, unpacked into `parent`), timed by that
+    checkout's own chip_smoke.py, in a process of its own; returns the
     process. `_parent_times` reads its result."""
-    code = ("import json, torch, chip_smoke as c\n"
-            "from diffusion_llm_rs_tpu_torch.ops import _build\n"
-            "c.device()\n"
-            "_build.build(('paged_attention', 'paged_attention_a8'))\n"
-            "gen = torch.Generator(device='cuda').manual_seed(1234)\n"
-            "res = {k: [] for k in c.KERNELS}\n"
-            "c._paged_kernels(gen, res, [])\n"
-            "print(json.dumps({k: [r for r in v if 'ms' in r]\n"
-            "                  for k, v in res.items() if v}))\n")
-    return subprocess.Popen([sys.executable, "-c", code], cwd=parent,
+    return subprocess.Popen([sys.executable, "-c", PARENT_CODE], cwd=parent,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
 
@@ -2314,15 +2356,16 @@ def _parent_times(proc, label):
 
 
 def main() -> int:
-    """`--parent DIR`: also time the paged-attention kernels of the checkout
-    in DIR (the commit before a redesign) by its own chip_smoke.py, before
-    the kernels phase (built beside this checkout's kernels) and after it."""
+    """`--parent DIR`: also time the fused MLP and fused-QKV kernels of the
+    checkout in DIR (the commit before a redesign) by its own chip_smoke.py,
+    before the kernels phase (built beside this checkout's kernels) and
+    after it."""
     parent = sys.argv[sys.argv.index("--parent") + 1] \
         if "--parent" in sys.argv else None
     phase(device)
     if failures:
         return 1
-    before = _parent_paged(parent) if parent else None
+    before = _parent_kernels(parent) if parent else None
     phase(build)
     if failures:
         return 1
@@ -2333,7 +2376,7 @@ def main() -> int:
     measured = phase(kernels)
     if parent:
         log("== parent kernels, after")
-        parent_runs["after"] = _parent_times(_parent_paged(parent), "after")
+        parent_runs["after"] = _parent_times(_parent_kernels(parent), "after")
     runs = {"sampler": phase(sampler)}
     if runs["sampler"] is not None:
         for fn in (long_seq, scan_sampler, scan_check, profile, fused_qkv,
@@ -2371,7 +2414,7 @@ def main() -> int:
             return 1
     log(json.dumps({"kernels": entries}))
     if parent_runs:
-        runs["parent_paged_kernels"] = parent_runs
+        runs["parent_kernels"] = parent_runs
     log(json.dumps(runs))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -143,6 +143,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // cp.async of 16 (or 4) bytes; bytes past `src_bytes` are filled with 0.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -177,6 +188,76 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    smem_u32(bar))
                : "memory");
+}
+
+// ------------------------------------------------------------- clusters
+// A block of a thread-block cluster reaches the shared memory of the others
+// through 32-bit shared::cluster addresses (`cluster_addr`).
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address of `p` (this block's shared memory) in block `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One arrival on an mbarrier of any block of the cluster, releasing this
+// thread's earlier writes at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t cluster_bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          cluster_bar)
+      : "memory");
+}
+
+// mbar_wait, acquiring at cluster scope what the arrivals released.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void st_cluster_f32(uint32_t cluster_addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(cluster_addr), "f"(v)
+               : "memory");
+}
+
+// A bulk copy of `bytes` (a multiple of 16) from this block's shared memory
+// into another block's, completing on that block's mbarrier (both addresses
+// from cluster_addr).
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, const void* src,
+                                                  uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // Make this thread's writes to shared memory visible to the async proxy
@@ -343,6 +424,22 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TB), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,

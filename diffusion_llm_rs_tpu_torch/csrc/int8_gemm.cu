@@ -10,9 +10,10 @@
 //   int8w_mlp_chained  = quant_rows(x) -> gemm(w1, +b1, gelu, f32 out)
 //                        -> quant_rows(inner) -> gemm(w2, +b2, +r)
 // which is the arithmetic of the TPU kernels step for step. The chained MLP
-// serves only an inner row too wide for the fused kernel of int8_mlp.cu
-// (`_kernel_i8_mlp`), which keeps the [16, 4D] inner tile on chip and equals
-// this chain bit for bit: both take their arithmetic from int8_common.cuh.
+// serves only widths the fused kernel of int8_mlp.cu (`_kernel_i8_mlp`)
+// does not take; that kernel keeps the inner activation of 64 rows on the
+// SMs of a thread-block cluster and equals this chain bit for bit: both
+// take their arithmetic from int8_common.cuh.
 //
 // What bounds it on an H100: at the sampler's M = 2048 (B=8 x S=256) the
 // MLP pair is int8 tensor-core bound (19.3 GOP over ~14 MB); the single

@@ -40,8 +40,8 @@ SIGNATURES = {
     "dlm_quant_rows": ("int8_gemm", (_P, _I, _P, _P, _I, _I, _P)),
     "dlm_int8_gemm": ("int8_gemm", (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
                                     _I, _I, _P)),
-    "dlm_int8_mlp_smem": ("int8_mlp", (_I, _I)),
-    "dlm_int8_mlp": ("int8_mlp", (_P,) * 9 + (_I,) * 5 + (_P,)),
+    "dlm_int8_mlp": ("int8_mlp", (_P,) * 9 + (_I,) * 6 + (_P,)),
+    "dlm_int8_mlp_active_clusters": ("int8_mlp", (_I, _I, _I)),
     "dlm_dense_attention": ("dense_attention", (_P, _P, _P, _P, _I, _I, _I, _I,
                                                 _I, _F, _P)),
     "dlm_paged_unpack": ("paged_unpack", (_P,) * 11 + (_I,) * 10 + (_F, _P)),

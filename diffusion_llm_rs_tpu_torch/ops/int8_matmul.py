@@ -10,8 +10,10 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_matmul.py`:
     -> int32 dot, f32 epilogue `*sx[m]*col_scale[n] + bias -> gelu ->
     +residual`. On a CUDA tensor `int8w_matmul` launches the kernels of
     `csrc/int8_gemm.cu`, and `int8w_mlp` the fused kernel of
-    `csrc/int8_mlp.cu`, which keeps the inner activation of 16 rows in
-    shared memory; an inner row too wide for it (`mlp_fits`) takes
+    `csrc/int8_mlp.cu`, which keeps the inner activation of 64 rows in the
+    shared memory of a cluster of 3 or 4 blocks (`mlp_plan`; over K-major
+    copies of the two weights, `_k_major`); widths too large for it
+    (`mlp_fits`) take
     `int8w_mlp_chained`, the same arithmetic as four launches of
     `csrc/int8_gemm.cu`, counted and logged under its own name. On a CPU
     tensor they run their plain twins `int8w_matmul_plain` /
@@ -29,6 +31,7 @@ import dataclasses
 import functools
 import logging
 import math
+import weakref
 from typing import Optional
 
 import torch
@@ -307,12 +310,91 @@ def int8w_matmul(x: torch.Tensor, data: torch.Tensor, col_scale: torch.Tensor,
     return out.reshape(*lead, N)
 
 
+# The fused MLP kernel's plan (csrc/int8_mlp.cu): a cluster of 3 or 4 blocks
+# owns 64 rows; each block keeps the rows' int8 x tile (K padded to 128
+# bytes), a ring of 4 weight stages of 16 KB and two round buffers of 4 x 8
+# KB in shared memory, and up to 4 output tiles of 64 columns in registers.
+MLP_CLUSTERS = (4, 3)
+MLP_ROWS = 64
+MLP_CHUNK = 128              # inner columns a block a round
+MLP_MAX_INNER = 3072
+MLP_MAX_K = 1536
+MLP_MAX_OUT_TILES = 4
+SMEM_LIMIT = 232448          # dynamic shared memory of one sm_90 block
+
+
+def _mlp_takes(K: int, F: int, N: int, cluster: int) -> Optional[int]:
+    """The fused kernel's shared memory at these widths and cluster size,
+    or None where it does not take them (as `dlm_int8_mlp_smem`)."""
+    if min(K, F, N) <= 0 or F > MLP_MAX_INNER or K > MLP_MAX_K:
+        return None
+    if -(-(-(-N // 64)) // cluster) > MLP_MAX_OUT_TILES:
+        return None
+    smem = (1024 + MLP_ROWS * (-(-K // 128) * 128) + 4 * 16384
+            + 2 * 4 * 8192 + 2 * 4 * MLP_ROWS * 4 + MLP_ROWS * 4 + 16 * 8)
+    return smem if smem <= SMEM_LIMIT else None
+
+
+def mlp_plan(M: int, K: int, F: int, N: int,
+             active: Optional[dict] = None) -> Optional[dict]:
+    """How the fused MLP kernel runs x [M, K] -> [M, F] -> [M, N], or None
+    where it does not take the widths.
+
+    `active` maps a cluster size (3, 4) to the clusters of it the card runs
+    at once (`dlm_int8_mlp_active_clusters`; without it, clusters of 4).
+    The plan takes the size whose waves of row tiles cost least, a block of
+    a 3-cluster doing 4/3 of the work of one of a 4-cluster. It gives the
+    cluster size, the grid (cluster blocks along x, 64-row tiles along y),
+    the rounds of 128 * cluster inner columns, each block's 64-column output
+    tiles and its shared memory in bytes."""
+    tiles = -(-M // MLP_ROWS)
+    active = {4: 1} if active is None else active
+    best = None
+    for cl in MLP_CLUSTERS:
+        smem = _mlp_takes(K, F, N, cl)
+        if smem is None or active.get(cl, 0) <= 0:
+            continue
+        cost = -(-tiles // active[cl]) * 4 / cl
+        if best is None or cost < best[0]:
+            best = (cost, dict(cluster=cl, grid=(cl, tiles),
+                               rounds=-(-F // (MLP_CHUNK * cl)),
+                               out_tiles=-(-(-(-N // 64)) // cl), smem=smem))
+    return None if best is None else best[1]
+
+
+def mlp_fits(K: int, F: int, N: Optional[int] = None) -> bool:
+    """Whether the fused MLP kernel takes widths K -> F -> N (N defaults to
+    K): inner rows up to 3072, x rows up to 1408, output rows up to 1024.
+    Wider ones run `int8w_mlp_chained`."""
+    return _mlp_takes(K, F, K if N is None else N, 4) is not None
+
+
 @functools.lru_cache(maxsize=None)
-def mlp_fits(K: int, F: int) -> bool:
-    """Whether the fused MLP kernel holds a 16-row inner tile of width F
-    (with the x tile of width K) in one block's shared memory: F <= 3072
-    at K = 768, the sampler's widths."""
-    return _build.function("dlm_int8_mlp_smem")(K, F) > 0
+def _active_clusters(K: int, N: int) -> dict:
+    """Clusters of 3 and of 4 blocks of the fused kernel the card runs at
+    once at widths K -> N (asked of the CUDA runtime once a shape)."""
+    fn = _build.function("dlm_int8_mlp_active_clusters")
+    return {cl: fn(K, N, cl) for cl in MLP_CLUSTERS}
+
+
+# K-major copies of the MLP weights, made once per weight tensor: the s8
+# tensor-core products read both operands K-major, and the weights keep
+# JAX's [K, N] layout. id(weight) -> (weakref, version, copy).
+_k_major_copies: dict = {}
+
+
+def _k_major(w: torch.Tensor) -> torch.Tensor:
+    """w^T, contiguous, from a cache that drops the copy with the weight and
+    remakes it after an in-place change."""
+    key = id(w)
+    hit = _k_major_copies.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    wt = w.t().contiguous()
+    _k_major_copies[key] = (
+        weakref.ref(w, lambda _, k=key: _k_major_copies.pop(k, None)),
+        w._version, wt)
+    return wt
 
 
 def _mlp_args(name, x, w1_data, cs1, b1, w2_data, cs2, b2, residual,
@@ -340,8 +422,8 @@ def int8w_mlp_chained(x: torch.Tensor, w1_data: torch.Tensor,
                       b2: torch.Tensor, residual: Optional[torch.Tensor] = None,
                       out_dtype=torch.bfloat16) -> torch.Tensor:
     """`int8w_mlp` as four kernels on the card (quantize, GEMM with an f32
-    inner output, quantize, GEMM): JAX's two-linear fall-back, for inner
-    rows too wide for the fused kernel. Bit for bit the fused result."""
+    inner output, quantize, GEMM): JAX's two-linear fall-back, for widths
+    the fused kernel does not take. Bit for bit the fused result."""
     if x.device.type != "cuda":
         raise ValueError(f"int8w_mlp_chained: unsupported device {x.device}")
     N2 = w2_data.shape[1]
@@ -362,7 +444,8 @@ def int8w_mlp(x: torch.Tensor, w1_data: torch.Tensor, cs1: torch.Tensor,
     """MLP block x @ w1 -> +b1, gelu -> @ w2 -> +b2 (+ residual) over decoded
     int8 weights; the inner activation is requantized from f32, as in the TPU
     kernel. CPU tensors take the plain twin; CUDA tensors launch the fused
-    kernel, or, for an inner row too wide for it, `int8w_mlp_chained`."""
+    kernel, or, for widths it does not take (`mlp_fits`),
+    `int8w_mlp_chained`."""
     if x.device.type == "cpu":
         return int8w_mlp_plain(x, w1_data, cs1, b1, w2_data, cs2, b2,
                                residual, out_dtype)
@@ -370,24 +453,29 @@ def int8w_mlp(x: torch.Tensor, w1_data: torch.Tensor, cs1: torch.Tensor,
         raise ValueError(f"int8w_mlp: unsupported device {x.device}")
     K = x.shape[-1]
     N1, N2 = w1_data.shape[1], w2_data.shape[1]
-    if not mlp_fits(K, N1):
-        if (K, N1) not in _chained_shapes:
-            _chained_shapes.add((K, N1))
-            _log.warning("int8w_mlp: inner row %d -> %d does not fit the fused "
-                         "kernel; running int8w_mlp_chained", K, N1)
+    if not mlp_fits(K, N1, N2):
+        if (K, N1, N2) not in _chained_shapes:
+            _chained_shapes.add((K, N1, N2))
+            _log.warning("int8w_mlp: widths %d -> %d -> %d do not fit the "
+                         "fused kernel; running int8w_mlp_chained", K, N1, N2)
         return int8w_mlp_chained(x, w1_data, cs1, b1, w2_data, cs2, b2,
                                  residual, out_dtype)
     x2, b1, b2, residual = _mlp_args("int8w_mlp", x, w1_data, cs1, b1,
                                      w2_data, cs2, b2, residual, out_dtype)
     M = x2.shape[0]
+    plan = mlp_plan(M, K, N1, N2, _active_clusters(K, N2))
+    if plan is None:
+        raise RuntimeError(f"int8w_mlp: the card runs no cluster of the fused "
+                           f"kernel at {K} -> {N1} -> {N2}")
+    w1t, w2t = _k_major(w1_data), _k_major(w2_data)
     out = torch.empty((M, N2), dtype=out_dtype, device=x2.device)
     _build.check(_build.function("dlm_int8_mlp")(
-        x2.data_ptr(), w1_data.data_ptr(), cs1.data_ptr(), _ptr(b1),
-        w2_data.data_ptr(), cs2.data_ptr(), _ptr(b2), _ptr(residual),
+        x2.data_ptr(), w1t.data_ptr(), cs1.data_ptr(), _ptr(b1),
+        w2t.data_ptr(), cs2.data_ptr(), _ptr(b2), _ptr(residual),
         out.data_ptr(), int(out_dtype == torch.bfloat16), M, K, N1, N2,
-        _stream(x2.device)), "int8_mlp")
+        plan["cluster"], _stream(x2.device)), "int8_mlp")
     _build.launch_counts["int8w_mlp"] += 1
     return out.reshape(*x.shape[:-1], N2)
 
 
-_chained_shapes: set = set()  # (K, F) already logged by int8w_mlp
+_chained_shapes: set = set()  # (K, F, N) already logged by int8w_mlp

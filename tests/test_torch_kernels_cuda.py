@@ -106,9 +106,50 @@ def test_int8w_mlp_fused_equals_chained(gen, M, D, F, out_dtype):
     assert rel <= 1e-3, rel
 
 
+# the fused kernel's edges: a row tile of 1 and of 100 rows, 2048 + 37 rows
+# (the last tile ragged); K of 128 and 768; F of 512, 1024 and 3072 (one,
+# two and six rounds); N = 80, where two of a cluster's four blocks own no
+# output tile; N = 1024, four tiles a block
+MLP_EDGES = [(128, 512, 128), (128, 1024, 80), (768, 512, 768),
+             (768, 1024, 768), (768, 3072, 768), (128, 3072, 1024)]
+
+
+@pytest.mark.parametrize("M", [1, 100, 2048 + 37])
+@pytest.mark.parametrize("K,F,N", MLP_EDGES)
+@pytest.mark.parametrize("extras", [True, False])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8w_mlp_fused_edges_equal_chained(gen, M, K, F, N, extras,
+                                             out_dtype):
+    """With and without both biases and the residual: bit for bit the
+    chained kernels, within 1e-3 of the plain version."""
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w1, w2 = _w(K, F, gen), _w(F, N, gen)
+    cs1 = torch.rand((1, F), generator=gen, device="cuda") * 1e-3
+    cs2 = torch.rand((1, N), generator=gen, device="cuda") * 1e-3
+    b1 = torch.randn((F,), generator=gen, device="cuda") if extras else None
+    b2 = torch.randn((N,), generator=gen, device="cuda") if extras else None
+    r = (torch.randn((M, N), generator=gen, device="cuda").to(torch.bfloat16)
+         if extras else None)
+    args = (x, w1, cs1, b1, w2, cs2, b2, r, out_dtype)
+    assert im.mlp_fits(K, F, N)
+    _build.reset_launch_counts()
+    out = im.int8w_mlp(*args)
+    chained = im.int8w_mlp_chained(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["int8w_mlp"] == 1
+    assert out.dtype == out_dtype and out.shape == (M, N)
+    assert torch.equal(out, chained)
+    ref = im.int8w_mlp_plain(
+        x, w1, cs1, torch.zeros((F,), device="cuda") if b1 is None else b1,
+        w2, cs2, torch.zeros((N,), device="cuda") if b2 is None else b2, r,
+        out_dtype)
+    rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+    assert rel <= 1e-3, rel
+
+
 def test_int8w_mlp_too_wide_runs_chained(gen):
-    """An inner row of 4096 does not fit one block's shared memory: the
-    chained kernels run, counted under their own name."""
+    """The fused kernel takes inner rows up to 3072: at 4096 the chained
+    kernels run, counted under their own name."""
     args = _mlp_args(gen, 40, 256, 4096)
     assert not im.mlp_fits(256, 4096)
     _build.reset_launch_counts()
@@ -122,7 +163,12 @@ def test_int8w_mlp_too_wide_runs_chained(gen):
 # the sampler's shape, JAX's largest S at that width (864), a ragged S with
 # heads of 32, and heads of 8 (a partial 64-wide head-dimension chunk)
 QKV_SHAPES = [(8, 256, 768, 12), (1, 864, 768, 12), (2, 200, 128, 4),
-              (2, 72, 64, 8)]
+              (2, 72, 64, 8),
+              # ragged S at heads of 32 and 128; heads of 128 at S = 864;
+              # heads of 24 (padded to 32) and of 256 (wider than the
+              # wgmma kernel takes)
+              (2, 328, 256, 8), (2, 136, 512, 4), (1, 864, 768, 6),
+              (2, 72, 120, 5), (1, 64, 768, 3)]
 
 
 @pytest.mark.parametrize("B,S,D,H", QKV_SHAPES)
