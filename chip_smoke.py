@@ -17,7 +17,12 @@ Phases (any failure makes the script exit non-zero without the final line):
                 attention timed at all three widths and with f32 out). The
                 fused MLP at the sampler's M = 2048 and serving's M = 8192,
                 also bit for bit against the chained kernels, with their
-                time and the clusters the card runs at once. torch._int_mm
+                time and the clusters the card runs at once. The two int8
+                GEMMs (one s8 wgmma core) with the plan each shape ran,
+                int8w_matmul also at serving's M = 8192; their yardsticks
+                are torch._int_mm with the epilogue in torch ops over the
+                weight row-major and column-major (the transposed view of
+                the K-major copy), and that product alone. torch._int_mm
                 takes more than 16 rows, so its yardstick at M = 8 pads the
                 rows to 32 (noted). Also
                 quantize_page and quantize_kv on the card against the CPU,
@@ -30,7 +35,7 @@ Phases (any failure makes the script exit non-zero without the final line):
                 (median), then decode_tokens. Checks finite output, token
                 range and the launch counts of every run (27 int8w_matmul +
                 12 fused int8w_mlp per step, no chained MLP), with host CPU
-                time; the same run
+                time and the bytes of the K-major weight copies; the same run
                 with the model built at max_sequence_length 1024 and 4096,
                 alternating; then 2 steps on the same noise against the
                 plain twins on the CPU.
@@ -62,7 +67,8 @@ Phases (any failure makes the script exit non-zero without the final line):
                 serve_dense (S=256, 8 slots, the dense fake-quant mode), each
                 with generated tokens/s, request latency (submit to tokens
                 on the host), peak memory, the device-busy share of one
-                fused chunk of 8 steps and its launch counts; and
+                fused chunk of 8 steps (with the int8 GEMMs' and the fused
+                MLP's device ms a step) and its launch counts; and
                 serve_check (one step at S=512 on the card against the twins
                 on the CPU from the same noise); serve_paged_a8 (serve_paged
                 with attn_act_bits=8: the int8 paged kernel, 12 launches a
@@ -103,11 +109,12 @@ Phases (any failure makes the script exit non-zero without the final line):
 
     python3 chip_smoke.py --parent DIR
 
-also times the fused MLP (M = 2048 and 8192) and fused-QKV attention (its
-two timed shapes) of the checkout unpacked in DIR (the commit before a
-redesign of them, `git archive`) with that checkout's own helpers, once
-before the kernels phase and once after it, in a process of its own; the
-runs line carries them as `parent_kernels`.
+also times int8w_matmul (its seven timed shapes), matmul_a8 (its timed
+shapes), the fused MLP (M = 2048 and 8192) and fused-QKV attention (its two
+timed shapes) of the checkout unpacked in DIR (the commit before a redesign
+of them, `git archive`) with that checkout's own helpers, once before the
+kernels phase and once after it, in a process of its own; the runs line
+carries them as `parent_kernels`.
 """
 
 from __future__ import annotations
@@ -245,6 +252,33 @@ def _int_mm_rows(xi, sx):
     return xi, sx, f"torch._int_mm at M={M} padded to 32 rows"
 
 
+def _library_times(xi, sx, w_rows, w_cols, cs, bias, gelu, residual):
+    """The yardsticks of an int8 GEMM: torch._int_mm with the epilogue in
+    torch ops, over the [K, N] weight row-major (library_ms) and over the
+    transposed view of its K-major copy, column-major B as cuBLASLt's int8
+    kernels take it (library_colmajor_ms), and that product alone
+    (library_colmajor_mm_ms). Both layouts are made outside the timed
+    window."""
+    bf16 = torch.bfloat16
+    return dict(
+        library_ms=time_ms(lambda: _int_mm_epilogue(
+            xi, sx, w_rows, cs, bias, gelu, residual, bf16)),
+        library_colmajor_ms=time_ms(lambda: _int_mm_epilogue(
+            xi, sx, w_cols, cs, bias, gelu, residual, bf16)),
+        library_colmajor_mm_ms=time_ms(lambda: torch._int_mm(xi, w_cols)))
+
+
+def _library_label(lib):
+    return (f"{lib['library_ms']:.4f} (column-major B "
+            f"{lib['library_colmajor_ms']:.4f}, its product alone "
+            f"{lib['library_colmajor_mm_ms']:.4f})")
+
+
+def _plan_label(plan):
+    side = "tokens on wgmma N" if plan["swap"] else "tokens on wgmma M"
+    return f"{side}, tile {plan['tile']}, {plan['splits']} split(s)"
+
+
 def _compare(out, ref, atol, rtol):
     out, ref = out.float(), ref.float()
     err = (out - ref).abs()
@@ -252,6 +286,40 @@ def _compare(out, ref, atol, rtol):
         bool(torch.isfinite(out).all())
     rel = float((out - ref).norm() / ref.norm().clamp_min(1e-30))
     return float(err.max()), rel, ok
+
+
+# int8w_matmul's timed shapes: the sampler's linears at M = 2048 (B=8 x
+# S=256), the time-MLP's two linears at M = 8 (the second with K split over
+# blocks), and serving's qkv and wo (with its residual) at M = 8192
+# (serve_paged: B=2 x S=4096)
+I8W_CASES = (
+    # label, M, K, N, gelu, bias, residual
+    ("qkv", 2048, 768, 2304, False, False, False),
+    ("wo", 2048, 768, 768, False, False, True),
+    ("head", 2048, 768, 768, False, False, False),
+    ("time_mlp", 8, 768, 3072, True, True, False),
+    ("time_mlp.w2", 8, 3072, 768, False, True, False),
+    ("qkv", 8192, 768, 2304, False, False, False),
+    ("wo", 8192, 768, 768, False, False, True),
+)
+
+# the packed-weight GEMMs' shapes (`_packed_kernels`)
+PACKED_CASES = (
+    # label, M, K, N, bits, granularity, bias, gelu, dtype, timed
+    ("qkv", 2048, 768, 2304, 4, "group", False, False, "bf16", True),
+    ("wo/head", 2048, 768, 768, 4, "group", False, False, "bf16", True),
+    ("mlp.w1", 2048, 768, 3072, 4, "group", True, True, "bf16", True),
+    ("mlp.w2", 2048, 3072, 768, 4, "group", True, False, "bf16", True),
+    ("time_mlp.w1", 8, 768, 3072, 4, "group", True, True, "bf16", True),
+    ("qkv one sequence", 256, 768, 2304, 4, "group", False, False, "bf16",
+     True),
+    ("ragged M, f32", 5, 768, 768, 4, "group", True, False, "f32", False),
+    ("1-bit", 2048, 768, 768, 1, "group", True, False, "bf16", True),
+    ("2-bit", 2048, 768, 768, 2, "group", True, True, "bf16", True),
+    ("8-bit", 2048, 768, 768, 8, "group", True, False, "bf16", True),
+    ("per-channel", 2048, 768, 2304, 4, "channel", True, False, "bf16",
+     True),
+)
 
 
 def kernels():
@@ -264,16 +332,13 @@ def kernels():
     bad = []
     bf16, f32 = torch.bfloat16, torch.float32
 
-    # int8w_matmul at the sampler's linears, bf16 out. The int32 products
-    # are exact on both sides and the epilogue runs the same f32 operations,
-    # each rounded on its own: without gelu the kernel must equal its twin
-    # bit for bit; with gelu a last-bit difference in tanh may move one bf16
-    # rounding, so one bf16 ulp (2^-7 relative).
-    for label, M, K, N, gelu, bias, resid in (
-            ("qkv", 2048, 768, 2304, False, False, False),
-            ("wo", 2048, 768, 768, False, False, True),
-            ("head", 2048, 768, 768, False, False, False),
-            ("time_mlp", 8, 768, 3072, True, True, False)):
+    # int8w_matmul at I8W_CASES, bf16 out. The int32 products are exact on
+    # both sides and the epilogue runs the same f32 operations, each rounded
+    # on its own: without gelu the kernel must equal its twin bit for bit;
+    # with gelu a last-bit difference in tanh may move one bf16 rounding, so
+    # one bf16 ulp (2^-7 relative).
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, M, K, N, gelu, bias, resid in I8W_CASES:
         x = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
         w = _rand_int8(K, N, gen)
         cs = torch.rand((1, N), generator=gen, device="cuda") * 2e-4 + 1e-5
@@ -293,18 +358,20 @@ def kernels():
         plain_ms = time_ms(
             lambda: im.int8w_matmul_plain(x, w, cs, b, act, r, out_dtype=bf16), 5)
         xi, sx, lib_note = _int_mm_rows(*im.quant_rows_plain(x.float()))
-        lib_ms = time_ms(lambda: _int_mm_epilogue(
-            xi, sx, w, cs, b, gelu, r, bf16))
+        lib = _library_times(xi, sx, w, im._k_major(w).t(), cs, b, gelu, r)
         nbytes = M * K * 2 + K * N + N * 4 + (N * 4 if bias else 0) \
             + (M * N * 2 if resid else 0) + M * N * 2
         b_ms, b_by = bound(nbytes, 2 * M * K * N, PEAK_INT8_OPS)
+        plan = im.gemm_plan(M, N, K, sms)
         results["int8w_matmul"].append(dict(
             shape=f"{label} M={M} K={K} N={N}", max_abs_err=err, rel_err=rel,
-            tolerance=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            library_note=lib_note, bound_ms=b_ms, bound_by=b_by))
+            tolerance=tol, ms=ms, plain_ms=plain_ms, **lib,
+            library_note=lib_note, bound_ms=b_ms, bound_by=b_by,
+            plan=_plan_label(plan)))
         log(f"  int8w_matmul {label}: max_abs_err {err:.3g} rel {rel:.3g} "
-            f"({tol}) {'ok' if ok else 'MISMATCH'}; {ms:.4f} ms, plain "
-            f"{plain_ms:.4f}, library {lib_ms}, bound {b_ms:.4f} ({b_by})")
+            f"({tol}) {'ok' if ok else 'MISMATCH'}; {ms:.4f} ms "
+            f"({_plan_label(plan)}), plain {plain_ms:.4f}, library "
+            f"{_library_label(lib)}, bound {b_ms:.4f} ({b_by})")
         if not ok:
             bad.append(f"int8w_matmul {label}")
 
@@ -864,23 +931,9 @@ def _packed_kernels(gen, results, bad):
     from diffusion_llm_rs_tpu_torch.ops.matmul import decode_to_int8
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [
-        # label, M, K, N, bits, granularity, bias, gelu, dtype, timed
-        ("qkv", 2048, 768, 2304, 4, "group", False, False, bf16, True),
-        ("wo/head", 2048, 768, 768, 4, "group", False, False, bf16, True),
-        ("mlp.w1", 2048, 768, 3072, 4, "group", True, True, bf16, True),
-        ("mlp.w2", 2048, 3072, 768, 4, "group", True, False, bf16, True),
-        ("time_mlp.w1", 8, 768, 3072, 4, "group", True, True, bf16, True),
-        ("qkv one sequence", 256, 768, 2304, 4, "group", False, False, bf16,
-         True),
-        ("ragged M, f32", 5, 768, 768, 4, "group", True, False, f32, False),
-        ("1-bit", 2048, 768, 768, 1, "group", True, False, bf16, True),
-        ("2-bit", 2048, 768, 768, 2, "group", True, True, bf16, True),
-        ("8-bit", 2048, 768, 768, 8, "group", True, False, bf16, True),
-        ("per-channel", 2048, 768, 2304, 4, "channel", True, False, bf16,
-         True),
-    ]
-    for label, M, K, N, bits, gran, bias, gelu, dtype, timed in cases:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, M, K, N, bits, gran, bias, gelu, dname, timed in PACKED_CASES:
+        dtype = bf16 if dname == "bf16" else f32
         x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
         b = (torch.randn((N,), generator=gen, device="cuda") * 0.02
              if bias else None)
@@ -933,19 +986,26 @@ def _packed_kernels(gen, results, bad):
                     xi, sx, row["library_note"] = _int_mm_rows(
                         *pm.quantize_act_i8(x))
                     d = decode_to_int8(w)
-                    lib_ms = time_ms(lambda: _int_mm_epilogue(
-                        xi, sx, d.data, d.col_scale, b, gelu, None, dtype))
+                    row.update(_library_times(
+                        xi, sx, d.data, d.data.t().contiguous().t(),
+                        d.col_scale, b, gelu, None))
+                    lib_ms = row["library_ms"]
+                    row["plan"] = _plan_label(im.gemm_plan(M, N, K, sms))
                     peak = PEAK_INT8_OPS
                 row["library_ms"] = lib_ms
                 row["bound_ms"], row["bound_by"] = bound(
                     nbytes + (N * 4 if act_bits == 8 else 0), 2 * M * K * N,
                     peak)
             results[name].append(row)
+            lib_text = (_library_label(row) if "library_colmajor_ms" in row
+                        else f"{row.get('library_ms')}")
             log(f"  {name} {shape}: max_abs_err {err:.3g} rel {rel:.3g} "
                 f"({tol}) {'ok' if ok else 'MISMATCH'}"
-                + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
-                   f"library {row['library_ms']}, bound {row['bound_ms']:.4f} "
-                   f"({row['bound_by']})" if timed else ""))
+                + (f"; {row['ms']:.4f} ms"
+                   + (f" ({row['plan']})" if "plan" in row else "")
+                   + f", plain {row['plain_ms']:.4f}, library {lib_text}, "
+                   f"bound {row['bound_ms']:.4f} ({row['bound_by']})"
+                   if timed else ""))
             if not ok:
                 bad.append(f"{name} {label}")
 
@@ -1033,6 +1093,28 @@ def _expected_launches(cfg, steps, long_seq):
     return out
 
 
+def _k_major_bytes(params):
+    """Bytes of the K-major copies (`_k_major`) the int8 kernels keep of the
+    model's decoded int8 weights: the fused MLPs' and the other linears'."""
+    from diffusion_llm_rs_tpu_torch.ops import int8_matmul as im
+    from diffusion_llm_rs_tpu_torch.ops.matmul import Int8Weight
+    out = {"mlp": 0, "linears": 0}
+
+    def walk(t, mlp):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, mlp or k == "mlp")
+        elif isinstance(t, list):
+            for v in t:
+                walk(v, mlp)
+        elif isinstance(t, Int8Weight):
+            hit = im._k_major_copies.get(id(t.data))
+            if hit is not None and hit[0]() is t.data:
+                out["mlp" if mlp else "linears"] += hit[2].numel()
+    walk(params, False)
+    return out
+
+
 def sampler():
     from diffusion_llm_rs_tpu_torch.models import denoiser as dn
     from diffusion_llm_rs_tpu_torch.models.diffusion import sample
@@ -1049,6 +1131,9 @@ def sampler():
     sample(model_fn, schedule, (B, S, cfg.hidden_size), gen, num_steps=2)  # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    k_major = _k_major_bytes(params)
+    log(f"  K-major int8 weight copies: {k_major['mlp'] / 1e6:.1f} MB for the "
+        f"MLPs, {k_major['linears'] / 1e6:.1f} MB for the other linears")
 
     expect = _expected_launches(cfg, steps, long_seq=False)
     walls, cpus = [], []
@@ -1113,7 +1198,8 @@ def sampler():
         raise AssertionError("sampler disagrees with its twins")
     return dict(counts=counts, runs=REPEATS, wall_s=wall, walls_s=walls,
                 cpu_s=cpu, tokens_per_s=B * S / wall, peak_bytes=peak,
-                eps_rel_err=worst, by_max_seq=by_max_seq)
+                eps_rel_err=worst, by_max_seq=by_max_seq,
+                k_major_bytes=k_major)
 
 
 def _sampler_by_max_seq(cfg, params, shape, steps, runs=3):
@@ -1208,6 +1294,22 @@ def _device_time(fn, reps):
     return wall_ms, sum(r[0] for r in rows) / 1e3, rows
 
 
+# kernel families whose device time a step the profiled runs report: the
+# int8 GEMMs (csrc/int8_gemm.cu's row quantization, product and split-K
+# sum, csrc/packed_gemm.cu's act_bits=8 unpack) and the fused MLP
+FAMILIES = {"int8_gemm": ("int8_gemm_kernel", "int8_gemm_reduce",
+                          "quant_rows_kernel", "unpack_i8_kernel"),
+            "int8_mlp": ("int8_mlp_kernel",)}
+
+
+def _family_ms(rows, steps):
+    """Device ms a step of each kernel family in a profiled run, logged."""
+    out = {f: sum(us for us, _, key in rows if any(k in key for k in names))
+           / 1e3 / steps for f, names in FAMILIES.items()}
+    log("  a step: " + ", ".join(f"{f} {ms:.4f} ms" for f, ms in out.items()))
+    return out
+
+
 def _bf16_forward(eps_log=None):
     """`forward_fn` of the scan sampler with bf16 activations, as the other
     paths run this model: x cast to bf16, eps back to f32."""
@@ -1296,6 +1398,7 @@ def scan_sampler():
         f"({'not measured' if share is None else f'{share:.1%} busy'})")
     for us, n, key in rows[:8]:
         log(f"  {us / 1e3:8.4f} ms  x{n:<4d} {key[:90]}")
+    families = _family_ms(rows, 8)
 
     _build.reset_launch_counts()
     x = run((2, 1024), 2)
@@ -1318,7 +1421,7 @@ def scan_sampler():
                 cpu_s=cpu, tokens_per_s=B * S / wall, peak_bytes=peak,
                 step_wall_ms=wall8 / 8, step_device_ms=busy_ms / 8,
                 busy_share=share, long_counts=long_counts,
-                dequantized_counts=deq_counts,
+                dequantized_counts=deq_counts, step_family_ms=families,
                 top=[dict(ms=us / 1e3, calls=n, name=key[:120])
                      for us, n, key in rows[:8]])
 
@@ -1553,11 +1656,13 @@ def _busy_share(b, seq_len, steps=8):
         f"({'not measured' if share is None else f'{share:.1%} busy'})")
     for us, n, key in rows[:8]:
         log(f"  {us / 1e3:8.4f} ms  x{n:<4d} {key[:90]}")
+    families = _family_ms(rows, steps)
     return dict(chunk_steps=steps, step_wall_ms=wall_ms / steps,
                 step_profiled_wall_ms=prof_wall_ms / steps,
                 step_device_ms=busy_ms / steps, busy_share=share,
                 step_paged_attention_ms=flash_ms / 1e3 / steps,
                 step_paged_unpack_ms=unpack_ms / 1e3 / steps,
+                step_family_ms=families,
                 top=[dict(ms=us / 1e3, calls=n, name=key[:120])
                      for us, n, key in rows[:8]])
 
@@ -2306,18 +2411,42 @@ KERNELS = {
 }
 
 
-# Run in a checkout of an earlier commit (cwd): that checkout's fused MLP at
-# the two timed M and its fused-QKV attention at its two timed shapes,
-# timed by its own chip_smoke.py helpers; prints one JSON line.
+# kernels whose wrapper also launches kernels of another source: matmul_a8
+# unpacks in packed_gemm.cu, then quantizes and multiplies in int8_gemm.cu
+ALSO_BUILT_FROM = {"matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",)}
+
+
+# Run in a checkout of an earlier commit (cwd): that checkout's
+# int8w_matmul at I8W_CASES, its matmul_a8 at the timed PACKED_CASES, its
+# fused MLP at the two timed M and its fused-QKV attention at its two timed
+# shapes, timed by its own chip_smoke.py helpers; prints one JSON line.
 PARENT_CODE = """
 import json, torch, chip_smoke as c
 from diffusion_llm_rs_tpu_torch.ops import _build, int8_matmul as im
+from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
 c.device()
-_build.build(("int8_gemm", "int8_mlp", "fused_qkv_attention"))
+_build.build(("int8_gemm", "packed_gemm", "int8_mlp", "fused_qkv_attention"))
 gen = torch.Generator(device="cuda").manual_seed(1234)
 res = {k: [] for k in c.KERNELS}
-c._fused_qkv_kernels(gen, res, [])
 bf16, D, F = torch.bfloat16, 768, 3072
+for label, M, K, N, gelu, bias, resid in json.loads('@I8W@'):
+    x = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
+    w = c._rand_int8(K, N, gen)
+    cs = torch.rand((1, N), generator=gen, device="cuda") * 2e-4 + 1e-5
+    b = torch.randn((N,), generator=gen, device="cuda") * 0.02 if bias else None
+    r = torch.randn((M, N), generator=gen, device="cuda").to(bf16) if resid else None
+    act = "gelu" if gelu else None
+    res["int8w_matmul"].append(dict(shape=f"{label} M={M} K={K} N={N}", ms=c.time_ms(
+        lambda: im.int8w_matmul(x, w, cs, b, act, r, out_dtype=bf16))))
+for label, M, K, N, bits, gran, bias, gelu in json.loads('@PACKED@'):
+    x = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
+    b = torch.randn((N,), generator=gen, device="cuda") * 0.02 if bias else None
+    act = "gelu" if gelu else None
+    w = c._packed_weight(K, N, bits, gran, 8, gen)
+    res["matmul_a8"].append(dict(
+        shape=f"{label}: M={M} K={K} N={N} {bits}-bit {gran}",
+        ms=c.time_ms(lambda: pm.matmul(x, w, bf16, b, act))))
+c._fused_qkv_kernels(gen, res, [])
 w1, w2 = c._rand_int8(D, F, gen), c._rand_int8(F, D, gen)
 cs1 = torch.rand((1, F), generator=gen, device="cuda") * 2e-4 + 1e-5
 cs2 = torch.rand((1, D), generator=gen, device="cuda") * 2e-4 + 1e-5
@@ -2331,14 +2460,15 @@ for M in (2048, 8192):
                                  ms=c.time_ms(lambda: im.int8w_mlp(*args))))
 print(json.dumps({k: [dict(shape=r["shape"], ms=r["ms"]) for r in v if "ms" in r]
                   for k, v in res.items() if v}))
-"""
+""".replace("@I8W@", json.dumps(I8W_CASES)).replace(
+    "@PACKED@", json.dumps([c[:8] for c in PACKED_CASES if c[-1]]))
 
 
 def _parent_kernels(parent):
-    """Start the fused MLP and fused-QKV kernels of another checkout (the
-    commit before a redesign, unpacked into `parent`), timed by that
-    checkout's own chip_smoke.py, in a process of its own; returns the
-    process. `_parent_times` reads its result."""
+    """Start the two int8 GEMMs, the fused MLP and fused-QKV attention of
+    another checkout (the commit before a redesign, unpacked into `parent`),
+    timed by that checkout's own chip_smoke.py, in a process of its own;
+    returns the process. `_parent_times` reads its result."""
     return subprocess.Popen([sys.executable, "-c", PARENT_CODE], cwd=parent,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
@@ -2356,10 +2486,10 @@ def _parent_times(proc, label):
 
 
 def main() -> int:
-    """`--parent DIR`: also time the fused MLP and fused-QKV kernels of the
-    checkout in DIR (the commit before a redesign) by its own chip_smoke.py,
-    before the kernels phase (built beside this checkout's kernels) and
-    after it."""
+    """`--parent DIR`: also time the int8 GEMMs, the fused MLP and fused-QKV
+    attention of the checkout in DIR (the commit before a redesign) by its
+    own chip_smoke.py, before the kernels phase (built beside this
+    checkout's kernels) and after it."""
     parent = sys.argv[sys.argv.index("--parent") + 1] \
         if "--parent" in sys.argv else None
     phase(device)
@@ -2402,12 +2532,16 @@ def main() -> int:
         rows = measured[name]
         first = next(r for r in rows if "ms" in r)
         entries.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name, route="cuda", source=source,
+            sources=[source] + list(ALSO_BUILT_FROM.get(name, ())),
+            replaces=replaces,
             launches=paths[path].get(name, 0), launches_path=path,
             launches_by_path={p: c.get(name, 0) for p, c in paths.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=first["ms"],
             plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],
+            **{k: first[k] for k in ("library_colmajor_ms",
+                                     "library_colmajor_mm_ms") if k in first},
             shapes=rows))
         if entries[-1]["launches"] == 0:
             log(f"{name} was not launched on its path {path}")

@@ -530,6 +530,30 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], const uint32_t (&a)[
 }
 
 // The same with A from shared memory, K-major.
+__device__ __forceinline__ void wgmma_s8_ss_n8(int (&d)[4], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{"
+      "%0,%1,%2,%3"
+      "}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_ss_n16(int (&d)[8], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{"
+      "%0,%1,%2,%3,%4,%5,%6,%7"
+      "}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_s8_ss_n32(int (&d)[16], uint64_t desc_a,
                                                 uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -559,6 +583,25 @@ __device__ __forceinline__ void wgmma_s8_ss_n64(int (&d)[32], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_s8_ss_n96(int (&d)[48], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+      "{"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47"
+      "}, %48, %49, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_s8_ss_n128(int (&d)[64], uint64_t desc_a,
                                                 uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -584,8 +627,11 @@ __device__ __forceinline__ void wgmma_s8_ss_n128(int (&d)[64], uint64_t desc_a,
 template <int N>
 __device__ __forceinline__ void wgmma_s8_ss(int (&d)[N / 2], uint64_t desc_a,
                                             uint64_t desc_b, int scale_d) {
-  if constexpr (N == 32) wgmma_s8_ss_n32(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 8) wgmma_s8_ss_n8(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 16) wgmma_s8_ss_n16(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 32) wgmma_s8_ss_n32(d, desc_a, desc_b, scale_d);
   else if constexpr (N == 64) wgmma_s8_ss_n64(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 96) wgmma_s8_ss_n96(d, desc_a, desc_b, scale_d);
   else wgmma_s8_ss_n128(d, desc_a, desc_b, scale_d);
 }
 

@@ -1,16 +1,21 @@
-// Packed-weight linear layer for Hopper (sm_90a): x @ dequant(W) with W kept
-// at 1/2/4/8 bits in device memory and unpacked inside the K loop.
+// Packed-weight linear layers for Hopper (sm_90a): x @ dequant(W) with W kept
+// at 1/2/4/8 bits in device memory.
 //
 // Replaces the TPU kernels of diffusion_llm_rs_tpu/ops/pallas_matmul.py behind
 // `matmul`:
 //   act_bits = 16: `_kernel_full`, `_kernel`, `_kernel_bias` (helper
-//                  `_dequant_column`): bf16 x bf16 -> f32,
+//                  `_dequant_column`): bf16 x bf16 -> f32, unpacked inside
+//                  the K loop (`packed_gemm16_kernel`),
 //   act_bits = 8:  `_kernel_i8` (helper `_fill_w_i8`): int8 x int8 -> int32
-//                  over activations quantized per token beforehand.
-// Those keep a whole dequantized weight (or a column of it) in on-chip
-// scratch, filled at the first grid step and reused by the steps after it. A
-// Hopper block has 227 KB and blocks run in no order, so here every block
-// unpacks the weight tile it is about to multiply.
+//                  over activations quantized per token beforehand. As the
+//                  TPU kernel fills its int8 scratch at the first grid step
+//                  and every later step reuses it, `unpack_i8_kernel` here
+//                  turns the packed weight into its int8 column grid once a
+//                  call, K-major ([N, K], what s8 wgmma reads), into a
+//                  scratch of K * N bytes the wrapper allocates per call (not
+//                  cached: the packed layout exists to save weight memory);
+//                  the s8 wgmma core of int8_gemm.cu then multiplies, the
+//                  core `int8w_matmul` runs on.
 //
 // Layout (`MatmulWeight`): byte (kp, n) of the packed [Kp, N] matrix holds, in
 // bit-field s, the level of W[s*Kp + kp, n] (Kp = K / vpb, vpb = 8 / bits).
@@ -25,6 +30,10 @@
 //          w8  = clamp(rint((lv - zp) * (scale * inv)), -127, 127)
 //          y   = ((float)acc * sx[m]) * cs[n] (+ b[n]) (gelu_tanh)
 // every f32 step rounded on its own (no fused multiply-add).
+//
+// act_bits = 8, what bounds the unpack: its bytes (the packed levels and
+// sidecars read once, K * N int8 written once, which the GEMM then reads
+// from L2); chip_smoke.py times it inside matmul_a8.
 //
 // act_bits = 16 (`packed_gemm16_kernel`). What bounds it on an H100: at M =
 // 2048 the bf16 products (989 TFLOP/s), at M <= 256 the packed weight's
@@ -59,253 +68,76 @@
 //     a fixed order and applies the epilogue, so the result is repeatable
 //     (no atomics).
 //
-// act_bits = 8 (`packed_gemm_kernel`) keeps its first design: a plain
-// mma.sync s8 tile loop (BM x 128 output tiles, 8 warps, 64 bytes of K per
-// row and step staged through shared memory, every block repeating the unpack
-// of the weight tiles it needs).
 
 #include "hopper.cuh"
+#include "int8_common.cuh"
 
 namespace {
 
 using namespace hopper;
+using dlm_int8::gelu_tanh;
 
 // ------------------------------------------------------------- act_bits = 8
 
-constexpr int BN = 128;
-constexpr int kThreads = 256;       // 8 warps: 2 along M x 4 along N
-constexpr int kRowBytes = 64 + 16;  // padded smem row: conflict-free frags
-constexpr int kRowWords = kRowBytes / 4;
+constexpr int kUK = 64;  // packed rows a block
+constexpr int kUN = 64;  // columns a block
+constexpr int kUThreads = 256;
 
-struct Args {
-  const void* x;       // [M, K] int8
-  const float* sx;     // [M] activation scales
-  const uint8_t* w;    // [Kp, N] packed levels
-  const float* scale;  // [K/G, N]
-  const float* zp;     // [K/G, N]
-  const float* cs;     // [N] column grid
-  const float* bias;   // [N] or null
-  void* out;           // [M, N]
-  int out_bf16;        // out dtype: 1 = bf16, 0 = f32
-  int gelu;
-  int M, N, K, Kp, G, bits;
-};
-
-__device__ __forceinline__ void mma_tile(int (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float gelu_tanh(float y) {
-  // jax.nn.gelu(approximate=True):
-  //   y * (0.5 * (1 + tanh(sqrt(2/pi) * (y + 0.044715 * y^3))))
-  const float c = 0.7978845608028654f;
-  float y3 = __fmul_rn(__fmul_rn(y, y), y);
-  float inner = __fmul_rn(c, __fadd_rn(y, __fmul_rn(0.044715f, y3)));
-  float cdf = __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner)));
-  return __fmul_rn(y, cdf);
-}
-
-// A step puts 64 int8 values of K per row into shared memory, two mma
-// k-steps. The B tile is n-major ([n][k], the .col operand): one 32-bit word
-// holds 4 consecutive k of one column.
-template <int BM>
-__global__ void __launch_bounds__(kThreads) packed_gemm_kernel(Args p) {
-  constexpr int RPW = 4;             // k rows per word of the B tile
-  constexpr int BKR = 16 * RPW;      // k rows per step
-  constexpr int ESZ = 1;             // bytes per activation
-  constexpr int MI = BM / 32;        // m16 tiles per warp (warp tile BM/2 x 32)
-  constexpr int A_IT = BM * 4 / kThreads;  // 16-byte chunks of x per thread
-  using Acc = int;
-
-  __shared__ __align__(16) uint32_t As[BM * kRowWords];
-  __shared__ __align__(16) uint32_t Bs[BN * kRowWords];
-
-  const int M = p.M, N = p.N, K = p.K, Kp = p.Kp, G = p.G, bits = p.bits;
-  const int vpb = 8 / bits;
+// wt[n, s*Kp + kp] = the int8 grid value of bit-field s of packed byte (kp,
+// n). A block reads a [64 x 64] tile of packed bytes (coalesced along n,
+// rows padded a word against bank conflicts); then a thread owns one column
+// and 16 consecutive packed rows: per bit-field it writes 16 bytes of the
+// column's K-major row (4 threads: 64 contiguous bytes), with the column's
+// reciprocal taken once and the sidecars loaded again only where a group
+// ends. Needs Kp % 16 == 0, N % 4 == 0.
+__global__ void __launch_bounds__(kUThreads)
+    unpack_i8_kernel(const uint8_t* __restrict__ w,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ zp,
+                     const float* __restrict__ cs, int8_t* __restrict__ wt,
+                     int N, int Kp, int G, int bits) {
+  __shared__ uint32_t tile[kUK][kUN / 4 + 1];
+  const int kp0 = blockIdx.y * kUK, n0 = blockIdx.x * kUN;
+  const int vpb = 8 / bits, K = Kp * vpb;
   const uint32_t mask = (1u << bits) - 1u;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 2) * (BM / 2), wn = (warp & 3) * 32;
-  const int g = lane >> 2, t = lane & 3;
-  // unpack mapping: this thread owns word `rq` (RPW k rows) of the columns
-  // 4*cw .. 4*cw+3 for cw = cw0 and cw0 + 2; a warp's stores then fall into
-  // 32 different banks
-  const int rq = lane & 15;
-  const int cw0 = warp * 4 + (lane >> 4);
-  const char* xb = static_cast<const char*>(p.x);
-
-  Acc acc[MI][4][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  // per-thread sidecar cache: the thread's columns never change
-  int cur_grow[2] = {-1, -1};
-  float sc[2][4], zpv[2][4], inv_cs[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      sc[i][c] = 0.f;
-      zpv[i][c] = 0.f;
-      inv_cs[i][c] = 0.f;
-      int n = n0 + (cw0 + 2 * i) * 4 + c;
-      if (n < N) inv_cs[i][c] = __fdiv_rn(1.f, p.cs[n]);
-    }
-
-  uint4 areg[A_IT];
-  uint32_t raw[2][RPW];
-
-  auto load_x = [&](int s, int kp0) {
-#pragma unroll
-    for (int i = 0; i < A_IT; ++i) {
-      int c = tid + i * kThreads;
-      int row = c >> 2, ke = (c & 3) * (16 / ESZ);
-      int m = m0 + row, kp = kp0 + ke;
-      areg[i] = (m < M && kp < Kp)
-                    ? *reinterpret_cast<const uint4*>(
-                          xb + ((size_t)m * K + (size_t)s * Kp + kp) * ESZ)
-                    : make_uint4(0, 0, 0, 0);
-    }
-  };
-  auto load_w = [&](int kp0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int n = n0 + (cw0 + 2 * i) * 4;
-#pragma unroll
-      for (int j = 0; j < RPW; ++j) {
-        int kp = kp0 + rq * RPW + j;
-        raw[i][j] = (kp < Kp && n < N)
-                        ? *reinterpret_cast<const uint32_t*>(
-                              p.w + (size_t)kp * N + n)
-                        : 0u;
-      }
-    }
-  };
-
-  const int tiles = (Kp + BKR - 1) / BKR;
-  const int total = tiles * vpb;
-  load_w(0);
-  load_x(0, 0);
-  for (int it = 0; it < total; ++it) {
-    const int kp0 = (it / vpb) * BKR, s = it % vpb;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < A_IT; ++i) {
-      int c = tid + i * kThreads;
-      int row = c >> 2, kc = (c & 3) * 16;
-      *reinterpret_cast<uint4*>(reinterpret_cast<char*>(As) +
-                                row * kRowBytes + kc) = areg[i];
-    }
-    // unpack bit-field s of the packed tile into the B tile
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int cw = cw0 + 2 * i;
-      const int n = n0 + cw * 4;
-      const int kpa = kp0 + rq * RPW;      // first packed row of this word
-      const int r0 = s * Kp + kpa;         // its logical row
-      int grow = r0 / G, rem = r0 - grow * G;
-      float v[RPW][4];
-#pragma unroll
-      for (int j = 0; j < RPW; ++j) {
-        if (rem >= G) {  // next group (G >= 1)
-          grow += rem / G;
-          rem = rem % G;
-        }
-        const bool valid = (kpa + j < Kp) && (n < N);
-        if (valid && grow != cur_grow[i]) {
-          const float4 s4 = *reinterpret_cast<const float4*>(
-              p.scale + (size_t)grow * N + n);
-          const float4 z4 = *reinterpret_cast<const float4*>(
-              p.zp + (size_t)grow * N + n);
-          zpv[i][0] = z4.x; zpv[i][1] = z4.y; zpv[i][2] = z4.z; zpv[i][3] = z4.w;
-          sc[i][0] = __fmul_rn(s4.x, inv_cs[i][0]);
-          sc[i][1] = __fmul_rn(s4.y, inv_cs[i][1]);
-          sc[i][2] = __fmul_rn(s4.z, inv_cs[i][2]);
-          sc[i][3] = __fmul_rn(s4.w, inv_cs[i][3]);
-          cur_grow[i] = grow;
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float lv = (float)((raw[i][j] >> (8 * c + s * bits)) & mask);
-          float val = __fmul_rn(__fsub_rn(lv, zpv[i][c]), sc[i][c]);
-          val = fminf(fmaxf(rintf(val), -127.f), 127.f);
-          v[j][c] = valid ? val : 0.f;
-        }
-        ++rem;
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        Bs[(cw * 4 + c) * kRowWords + rq] =
-            ((uint32_t)(int)v[0][c] & 0xffu) |
-            (((uint32_t)(int)v[1][c] & 0xffu) << 8) |
-            (((uint32_t)(int)v[2][c] & 0xffu) << 16) |
-            (((uint32_t)(int)v[3][c] & 0xffu) << 24);
-      }
-    }
-    __syncthreads();
-    if (it + 1 < total) {
-      const int kp1 = ((it + 1) / vpb) * BKR, s1 = (it + 1) % vpb;
-      if (s1 == 0) load_w(kp1);  // this tile's bit-fields are all unpacked
-      load_x(s1, kp1);
-    }
-#pragma unroll
-    for (int ks = 0; ks < 16; ks += 8) {  // two mma k-steps, in words
-      uint32_t a[MI][4];
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const uint32_t* base = As + (wm + i * 16 + g) * kRowWords + ks + t;
-        a[i][0] = base[0];
-        a[i][1] = base[8 * kRowWords];
-        a[i][2] = base[4];
-        a[i][3] = base[8 * kRowWords + 4];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t* base = Bs + (wn + j * 8 + g) * kRowWords + ks + t;
-        uint32_t b0 = base[0], b1 = base[4];
-#pragma unroll
-        for (int i = 0; i < MI; ++i) mma_tile(acc[i][j], a[i], b0, b1);
-      }
-    }
+  for (int i = threadIdx.x; i < kUK * kUN / 4; i += kUThreads) {
+    const int r = i / (kUN / 4), cw = i % (kUN / 4);
+    const int kp = kp0 + r, n = n0 + cw * 4;
+    tile[r][cw] = kp < Kp && n < N
+                      ? *reinterpret_cast<const uint32_t*>(w + (size_t)kp * N + n)
+                      : 0u;
   }
-
+  __syncthreads();
+  const int nl = threadIdx.x >> 2, kq = threadIdx.x & 3;
+  const int n = n0 + nl, kp = kp0 + 16 * kq;
+  if (n >= N || kp >= Kp) return;  // Kp % 16 == 0: all 16 rows valid
+  const float inv = __fdiv_rn(1.f, cs[n]);
+  for (int s = 0; s < vpb; ++s) {
+    const int r0 = s * Kp + kp;  // logical row of the first value
+    const int grp = r0 / G;
+    int next = (grp + 1) * G - r0;
+    size_t side = (size_t)grp * N + n;
+    float sc = __fmul_rn(scale[side], inv), z = zp[side];
+    uint32_t word[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int i = 0; i < MI; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + i * 16 + g + half * 8;
-      if (m >= M) continue;
-      const float s_m = p.sx[m];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn + j * 8 + t * 2 + e;
-          if (n >= N) continue;
-          float y = (float)acc[i][j][half * 2 + e];
-          y = __fmul_rn(__fmul_rn(y, s_m), p.cs[n]);
-          if (p.bias) y = __fadd_rn(y, p.bias[n]);
-          if (p.gelu) y = gelu_tanh(y);
-          const size_t o = (size_t)m * N + n;
-          if (p.out_bf16)
-            static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16_rn(y);
-          else
-            static_cast<float*>(p.out)[o] = y;
-        }
+    for (int j = 0; j < 16; ++j) {
+      if (j == next) {  // the next group starts at row r0 + j
+        next += G;
+        side += N;
+        sc = __fmul_rn(scale[side], inv);
+        z = zp[side];
       }
+      const uint32_t byte =
+          (tile[16 * kq + j][nl >> 2] >> (8 * (nl & 3))) & 0xffu;
+      const float lv = (float)((byte >> (s * bits)) & mask);
+      float v = __fmul_rn(__fsub_rn(lv, z), sc);
+      v = fminf(fmaxf(rintf(v), -127.f), 127.f);
+      word[j / 4] |= ((uint32_t)(int)v & 0xffu) << (8 * (j % 4));
     }
+    *reinterpret_cast<uint4*>(wt + (size_t)n * K + r0) =
+        make_uint4(word[0], word[1], word[2], word[3]);
   }
 }
-
 
 // ------------------------------------------------------------ act_bits = 16
 
@@ -655,18 +487,6 @@ int launch16(const void* x, const uint8_t* w, const float* scale,
 #undef DLM_GEMM16_CASE
 }
 
-cudaError_t launch8(const Args& p, cudaStream_t stream) {
-  // small M: 64-row tiles put more blocks on the card
-  if (p.M <= 256) {
-    dim3 grid((p.N + BN - 1) / BN, (p.M + 63) / 64);
-    packed_gemm_kernel<64><<<grid, kThreads, 0, stream>>>(p);
-  } else {
-    dim3 grid((p.N + BN - 1) / BN, (p.M + 127) / 128);
-    packed_gemm_kernel<128><<<grid, kThreads, 0, stream>>>(p);
-  }
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -677,42 +497,38 @@ int dlm_packed_gemm_splits(int M, int N, int K, int bits) {
   return plan(M, N, K, bits).splits;
 }
 
-// out[M, N] = epilogue(x[M, K] @ dequant(w)). a8 = 0: x is bf16, sx and cs
-// are unused; with `splits` > 1 (from dlm_packed_gemm_splits) ws holds the
-// splits' f32 partials [splits, M, N]; a8 = 1: x is int8 with per-row
-// scales sx[M] and the column grid cs[N]. Needs N % 4 == 0 and Kp = K * bits
-// / 8 a multiple of 8 (a8 = 0) or 16 (a8 = 1); all pointers 16-byte aligned.
-int dlm_packed_gemm(const void* x, const void* sx, const void* w,
-                    const void* scale, const void* zp, const void* cs,
-                    const void* bias, int gelu, void* out, int out_bf16,
-                    int a8, int M, int N, int K, int bits, int group_size,
-                    void* ws, int splits, void* stream) {
+// out[M, N] = epilogue(x[M, K] @ dequant(w)), x bf16; with `splits` > 1
+// (from dlm_packed_gemm_splits) ws holds the splits' f32 partials
+// [splits, M, N]. Needs N % 4 == 0 and Kp = K * bits / 8 a multiple of 8;
+// all pointers 16-byte aligned.
+int dlm_packed_gemm(const void* x, const void* w, const void* scale,
+                    const void* zp, const void* bias, int gelu, void* out,
+                    int out_bf16, int M, int N, int K, int bits,
+                    int group_size, void* ws, int splits, void* stream) {
   if (M <= 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (!a8)
-    return launch16(x, static_cast<const uint8_t*>(w),
-                    static_cast<const float*>(scale),
-                    static_cast<const float*>(zp),
-                    static_cast<const float*>(bias), gelu, out, out_bf16,
-                    static_cast<float*>(ws), splits, M, N, K, bits,
-                    group_size, s);
-  Args p{x,
-         static_cast<const float*>(sx),
-         static_cast<const uint8_t*>(w),
-         static_cast<const float*>(scale),
-         static_cast<const float*>(zp),
-         static_cast<const float*>(cs),
-         static_cast<const float*>(bias),
-         out,
-         out_bf16,
-         gelu,
-         M,
-         N,
-         K,
-         K * bits / 8,
-         group_size,
-         bits};
-  return (int)launch8(p, s);
+  return launch16(x, static_cast<const uint8_t*>(w),
+                  static_cast<const float*>(scale),
+                  static_cast<const float*>(zp),
+                  static_cast<const float*>(bias), gelu, out, out_bf16,
+                  static_cast<float*>(ws), splits, M, N, K, bits, group_size,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The packed weight [Kp, N] (act_bits = 8) on its int8 column grid cs[N],
+// K-major: wt[N, K] int8 (the operand of int8_gemm.cu's core). Needs
+// Kp = K * bits / 8 a multiple of 16, N % 4 == 0, w 4-byte aligned.
+int dlm_packed_unpack_i8(const void* w, const void* scale, const void* zp,
+                         const void* cs, void* wt, int N, int K, int bits,
+                         int group_size, void* stream) {
+  const int Kp = K * bits / 8;
+  if (N <= 0 || K <= 0) return 0;
+  if (N % 4 || Kp % 16) return (int)cudaErrorInvalidValue;
+  dim3 grid((N + kUN - 1) / kUN, (Kp + kUK - 1) / kUK);
+  unpack_i8_kernel<<<grid, kUThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
+      static_cast<const float*>(zp), static_cast<const float*>(cs),
+      static_cast<int8_t*>(wt), N, Kp, group_size, bits);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

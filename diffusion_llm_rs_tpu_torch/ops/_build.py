@@ -38,8 +38,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: name -> (library, argtypes)
 SIGNATURES = {
     "dlm_quant_rows": ("int8_gemm", (_P, _I, _P, _P, _I, _I, _P)),
-    "dlm_int8_gemm": ("int8_gemm", (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
-                                    _I, _I, _P)),
+    "dlm_int8_gemm": ("int8_gemm", (_P,) * 6 + (_I, _P) + (_I,) * 7
+                      + (_P, _P)),
+    "dlm_int8_gemm_plan": ("int8_gemm", (_I,) * 4),
     "dlm_int8_mlp": ("int8_mlp", (_P,) * 9 + (_I,) * 6 + (_P,)),
     "dlm_int8_mlp_active_clusters": ("int8_mlp", (_I, _I, _I)),
     "dlm_dense_attention": ("dense_attention", (_P, _P, _P, _P, _I, _I, _I, _I,
@@ -52,8 +53,9 @@ SIGNATURES = {
                                        (_P,) * 8 + (_I,) * 6 + (_P,)),
     "dlm_quant_attention": ("quant_attention", (_P,) * 8 + (_I,) * 5 + (_F, _P)),
     "dlm_packed_gemm_splits": ("packed_gemm", (_I,) * 4),
-    "dlm_packed_gemm": ("packed_gemm", (_P,) * 7 + (_I, _P) + (_I,) * 7
+    "dlm_packed_gemm": ("packed_gemm", (_P,) * 5 + (_I, _P) + (_I,) * 6
                         + (_P, _I, _P)),
+    "dlm_packed_unpack_i8": ("packed_gemm", (_P,) * 5 + (_I,) * 4 + (_P,)),
     "dlm_fused_qkv_attention": ("fused_qkv_attention",
                                 (_P, _P) + (_I,) * 5 + (_F, _P)),
 }

@@ -9,11 +9,12 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_matmul.py`:
     (`_kernel_i8_mlp`): per-row int8 activation quantization, int8 x int8
     -> int32 dot, f32 epilogue `*sx[m]*col_scale[n] + bias -> gelu ->
     +residual`. On a CUDA tensor `int8w_matmul` launches the kernels of
-    `csrc/int8_gemm.cu`, and `int8w_mlp` the fused kernel of
+    `csrc/int8_gemm.cu` (the row quantization, then an s8 `wgmma` core over
+    a K-major copy of the weight, `_k_major`, made once a weight, run as
+    `gemm_plan` says), and `int8w_mlp` the fused kernel of
     `csrc/int8_mlp.cu`, which keeps the inner activation of 64 rows in the
-    shared memory of a cluster of 3 or 4 blocks (`mlp_plan`; over K-major
-    copies of the two weights, `_k_major`); widths too large for it
-    (`mlp_fits`) take
+    shared memory of a cluster of 3 or 4 blocks (`mlp_plan`; over the same
+    K-major copies); widths too large for it (`mlp_fits`) take
     `int8w_mlp_chained`, the same arithmetic as four launches of
     `csrc/int8_gemm.cu`, counted and logged under its own name. On a CPU
     tensor they run their plain twins `int8w_matmul_plain` /
@@ -230,16 +231,98 @@ def _quant_rows(x2: torch.Tensor):
     return xi, sx
 
 
-def _gemm(xi, sx, w, cs, bias, residual, gelu: bool, out_dtype):
-    """Kernel: out = epilogue(xi @ w) (see csrc/int8_gemm.cu)."""
+# The s8 wgmma core's plan (csrc/int8_gemm.cu: gemm_plan, the same
+# arithmetic): a block owns 128 rows of the A operand (two consumer
+# warpgroups) and `tile` rows of the B operand, over K in steps of 128 bytes
+# through a ring of TMA stages. Tokens on the wgmma M side (swap False) make
+# tiles of 128 tokens x 64/96/128 weight columns; on its N side (swap True,
+# up to 32 tokens) 128 weight columns x 8/16/32 tokens. Where the tiles do
+# not fill the card the K steps split over up to 16 blocks, whose int32
+# partials a second kernel sums. Cost, fitted to the kernel's times on an
+# H100 over 44 shapes (M = 1-8192, N and K of the model's linears): waves of
+# two blocks an SM, each wave its blocks' k steps (a share of a 128 x 128
+# step: `GEMM_NORMAL_TILES`, `GEMM_SWAP_STEP`) plus 1.5 for the ring's fill
+# and the epilogue; a split adds 3 for its second launch and its partials'
+# bytes at 1 MB a unit.
+GEMM_A_ROWS = 128
+GEMM_K_BYTES = 128
+GEMM_NORMAL_TILES = ((128, 1.0), (96, 0.7), (64, 0.65))  # (tile, step cost)
+GEMM_SWAP_TILES = (8, 16, 32)
+GEMM_SWAP_STEP = 0.4
+GEMM_SPLIT_COST = 3.0
+GEMM_MAX_SPLITS = 16
+GEMM_RING = 96 * 1024        # ring bytes a block: two blocks an SM
+GEMM_MAX_STAGES = 6
+
+
+def gemm_smem(swap: bool, tile: int):
+    """(ring stages, dynamic shared memory in bytes) of the core's instance:
+    the ring, or where that is larger the epilogue's int32 tile with the
+    tile's row scales, column scales and biases; 1024 bytes of alignment
+    and the stages' two mbarriers."""
+    stage = (GEMM_A_ROWS + tile) * GEMM_K_BYTES
+    stages = min(GEMM_MAX_STAGES, GEMM_RING // stage)
+    tm, tn = (tile, GEMM_A_ROWS) if swap else (GEMM_A_ROWS, tile)
+    epilogue = tm * (tn + (4 if swap else 8)) * 4 + (tm + 2 * tn) * 4
+    return stages, 1024 + max(stages * stage, epilogue) + 2 * stages * 8
+
+
+def gemm_plan(M: int, N: int, K: int, sms: int = 132) -> dict:
+    """How the s8 wgmma core runs xi [M, K] @ wt [N, K]^T on a card of `sms`
+    SMs: the orientation (`swap`: tokens on the wgmma N side), the B rows a
+    block (`tile`), the blocks along K (`splits`), the grid (A tiles, B
+    tiles, splits), the ring's stages and the shared memory."""
+    ksteps = -(-K // GEMM_K_BYTES)
+    slots = 2 * sms
+    cands = []
+    if M <= GEMM_SWAP_TILES[-1]:
+        bt = next(t for t in GEMM_SWAP_TILES if t >= M)
+        cands.append((True, bt, -(-N // GEMM_A_ROWS) * -(-M // bt),
+                      GEMM_SWAP_STEP))
+    for bn, step in GEMM_NORMAL_TILES:
+        cands.append((False, bn, -(-M // GEMM_A_ROWS) * -(-N // bn), step))
+    best = None
+    for swap, tile, tiles, step in cands:
+        s = 1
+        while s <= GEMM_MAX_SPLITS and s <= ksteps:
+            waves = -(-tiles * s // slots)
+            cost = waves * (-(-ksteps // s) * step + 1.5)
+            if s > 1:
+                cost += GEMM_SPLIT_COST + M * N * 4 * (s + 1) / 1e6
+            if best is None or cost < best[0]:
+                best = (cost, swap, tile, s)
+            s *= 2
+    _, swap, tile, splits = best
+    rows_a, rows_b = (N, M) if swap else (M, N)
+    stages, smem = gemm_smem(swap, tile)
+    return dict(swap=swap, tile=tile, splits=splits,
+                grid=(-(-rows_a // GEMM_A_ROWS), -(-rows_b // tile), splits),
+                stages=stages, smem=smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _gemm(xi, sx, wt, cs, bias, residual, gelu: bool, out_dtype, plan=None):
+    """Kernel: out = epilogue(xi @ wt^T) over the K-major weight wt [N, K]
+    (see csrc/int8_gemm.cu), run as `plan` says (default: `gemm_plan`)."""
     M, K = xi.shape
-    N = w.shape[1]
+    N = wt.shape[0]
+    if plan is None:
+        plan = gemm_plan(M, N, K, _sm_count(xi.device.index or 0))
+    if residual is not None and residual.data_ptr() % 8:
+        residual = residual.clone()  # the epilogue reads 4 values at a time
     out = torch.empty((M, N), dtype=out_dtype, device=xi.device)
+    splits = plan["splits"]
+    ws = (torch.empty((splits, M, N), dtype=torch.int32, device=xi.device)
+          if splits > 1 else None)
     _build.check(_build.function("dlm_int8_gemm")(
-        xi.data_ptr(), w.data_ptr(), sx.data_ptr(), cs.data_ptr(), _ptr(bias),
-        _ptr(residual), int(gelu), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), M, N, K, _stream(xi.device)),
-        "int8_gemm")
+        xi.data_ptr(), wt.data_ptr(), sx.data_ptr(), cs.data_ptr(),
+        _ptr(bias), _ptr(residual), int(gelu), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), M, N, K, int(plan["swap"]),
+        plan["tile"], splits, _ptr(ws), _stream(xi.device)), "int8_gemm")
     return out
 
 
@@ -253,8 +336,7 @@ def _check_weight(name, data, col_scale, K):
     if col_scale.dtype != torch.float32 or col_scale.numel() != data.shape[1]:
         raise ValueError(f"{name}: col_scale must be f32 with N entries")
     if data.data_ptr() % 4:
-        raise ValueError(f"{name}: weight must be 4-byte aligned "
-                         "(the kernel reads it 4 bytes at a time)")
+        raise ValueError(f"{name}: weight must be 4-byte aligned")
 
 
 def _epilogue_vec(v, N, name):
@@ -304,8 +386,8 @@ def int8w_matmul(x: torch.Tensor, data: torch.Tensor, col_scale: torch.Tensor,
     _check_cuda("int8w_matmul", x2.device, data=data, col_scale=col_scale,
                 bias=bias, residual=residual)
     xi, sx = _quant_rows(x2)
-    out = _gemm(xi, sx, data, col_scale, bias, residual, activation == "gelu",
-                out_dtype)
+    out = _gemm(xi, sx, _k_major(data), col_scale, bias, residual,
+                activation == "gelu", out_dtype)
     _build.launch_counts["int8w_matmul"] += 1
     return out.reshape(*lead, N)
 
@@ -377,9 +459,9 @@ def _active_clusters(K: int, N: int) -> dict:
     return {cl: fn(K, N, cl) for cl in MLP_CLUSTERS}
 
 
-# K-major copies of the MLP weights, made once per weight tensor: the s8
-# tensor-core products read both operands K-major, and the weights keep
-# JAX's [K, N] layout. id(weight) -> (weakref, version, copy).
+# K-major copies of the decoded int8 weights, made once per weight tensor:
+# the s8 tensor-core products read both operands K-major, and the weights
+# keep JAX's [K, N] layout. id(weight) -> (weakref, version, copy).
 _k_major_copies: dict = {}
 
 
@@ -430,9 +512,11 @@ def int8w_mlp_chained(x: torch.Tensor, w1_data: torch.Tensor,
     x2, b1, b2, residual = _mlp_args("int8w_mlp_chained", x, w1_data, cs1, b1,
                                      w2_data, cs2, b2, residual, out_dtype)
     xi, sx = _quant_rows(x2)
-    inner = _gemm(xi, sx, w1_data, cs1, b1, None, True, torch.float32)
+    inner = _gemm(xi, sx, _k_major(w1_data), cs1, b1, None, True,
+                  torch.float32)
     yi, sy = _quant_rows(inner)
-    out = _gemm(yi, sy, w2_data, cs2, b2, residual, False, out_dtype)
+    out = _gemm(yi, sy, _k_major(w2_data), cs2, b2, residual, False,
+                out_dtype)
     _build.launch_counts["int8w_mlp_chained"] += 1
     return out.reshape(*x.shape[:-1], N2)
 

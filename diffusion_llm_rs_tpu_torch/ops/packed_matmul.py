@@ -12,16 +12,19 @@ Counterpart of the packed half of `diffusion_llm_rs_tpu/ops/pallas_matmul.py`:
     its per-column int8 grid `clip(round((lv - zp) * (scale * (1 / cs))),
     +-127)`, int8 x int8 -> int32, then `* sx[m] * cs[n] + bias -> gelu`.
 
-On a CUDA tensor both launch a kernel of `csrc/packed_gemm.cu` (the weight
-stays packed in device memory and is unpacked tile by tile in the K loop:
-act_bits 16 by a wgmma kernel whose A operand is the weight dequantized in
-registers, act_bits 8 by an mma.sync s8 kernel); on
-a CPU tensor they run the plain versions `matmul_plain` /
-`a8_matmul_reference`, which repeat the kernel's roundings in its order. The
-kernel serves any M (the ragged edge is masked); it takes N % 4 == 0 and
-K * bits / 8 a multiple of 8 (act_bits 16) or 16 (act_bits 8), and the
-wrapper raises on anything else. The residual of a layer is not part of
-these functions: `ops.matmul.linear` adds it afterwards, in `out_dtype`.
+On a CUDA tensor the weight stays packed in device memory. act_bits 16
+launches the wgmma kernel of `csrc/packed_gemm.cu`, whose A operand is the
+weight dequantized in registers tile by tile in the K loop. act_bits 8
+launches three kernels, as the TPU kernel fills its int8 scratch once a
+call: the row quantization, `unpack_i8` (the packed weight onto its int8
+column grid, K-major, into a per-call scratch of K * N bytes) and the s8
+`wgmma` core of `csrc/int8_gemm.cu` that `int8w_matmul` runs on. On a CPU
+tensor they run the plain versions `matmul_plain` / `a8_matmul_reference`,
+which repeat the kernels' roundings in their order. The kernels serve any M
+(the ragged edge is masked); they take N % 4 == 0 and K * bits / 8 a
+multiple of 8 (act_bits 16) or 16 (act_bits 8), and the wrapper raises on
+anything else. The residual of a layer is not part of these functions:
+`ops.matmul.linear` adds it afterwards, in `out_dtype`.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from diffusion_llm_rs_tpu_torch.ops.int8_matmul import (  # noqa: F401
     MatmulWeight,
     _check_cuda,
     _epilogue_vec,
+    _gemm,
     _int_dot,
     _OUT_DTYPES,
     _ptr,
@@ -70,6 +74,21 @@ def regrid_int8(w: MatmulWeight) -> torch.Tensor:
                                              inv_cs[:, None, :])
     return (torch.round(val).clamp(-127.0, 127.0)
             .to(torch.int32).to(torch.int8).reshape(w.K, w.N))
+
+
+def unpack_i8(w: MatmulWeight) -> torch.Tensor:
+    """`regrid_int8(w)` K-major: the int8 [N, K] operand of the act_bits=8
+    product. On the card the `dlm_packed_unpack_i8` kernel writes it into a
+    fresh scratch (a launch of `matmul_a8`, not counted apart); on the CPU
+    its plain version."""
+    if w.data.device.type != "cuda":
+        return regrid_int8(w).t().contiguous()
+    wt = torch.empty((w.N, w.K), dtype=torch.int8, device=w.data.device)
+    _build.check(_build.function("dlm_packed_unpack_i8")(
+        w.data.data_ptr(), w.scale.data_ptr(), w.zero_point.data_ptr(),
+        w.col_scale.data_ptr(), wt.data_ptr(), w.N, w.K, w.bits,
+        w.group_size, _stream(w.data.device)), "packed_unpack_i8")
+    return wt
 
 
 def _epilogue(y, N, bias, activation, out_dtype):
@@ -125,28 +144,39 @@ def _check_weight(w: MatmulWeight) -> None:
                          "with N entries")
 
 
-def _launch(x2, sx, w: MatmulWeight, bias, gelu: bool, out_dtype, name: str):
-    M = x2.shape[0]
-    out = torch.empty((M, w.N), dtype=out_dtype, device=x2.device)
-    tensors = dict(x=x2, sx=sx, data=w.data, scale=w.scale,
-                   zero_point=w.zero_point, col_scale=w.col_scale, bias=bias)
-    _check_cuda(name, x2.device, **tensors)
+def _check_operands(name, device, w: MatmulWeight, bias, **x):
+    tensors = dict(x, data=w.data, scale=w.scale, zero_point=w.zero_point,
+                   col_scale=w.col_scale, bias=bias)
+    _check_cuda(name, device, **tensors)
     for arg, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
-    # act_bits=16 splits the K loop over blocks where the output tiles alone
-    # do not fill the card; a second kernel sums the f32 partials in order
-    splits = 1 if w.act_bits == 8 else _build.function(
-        "dlm_packed_gemm_splits")(M, w.N, w.K, w.bits)
+
+
+def _launch16(x2, w: MatmulWeight, bias, gelu: bool, out_dtype):
+    M = x2.shape[0]
+    out = torch.empty((M, w.N), dtype=out_dtype, device=x2.device)
+    _check_operands("matmul", x2.device, w, bias, x=x2)
+    # the K loop splits over blocks where the output tiles alone do not fill
+    # the card; a second kernel sums the f32 partials in order
+    splits = _build.function("dlm_packed_gemm_splits")(M, w.N, w.K, w.bits)
     ws = (torch.empty((splits, M, w.N), dtype=torch.float32, device=x2.device)
           if splits > 1 else None)
     _build.check(_build.function("dlm_packed_gemm")(
-        x2.data_ptr(), _ptr(sx), w.data.data_ptr(), w.scale.data_ptr(),
-        w.zero_point.data_ptr(), _ptr(w.col_scale), _ptr(bias), int(gelu),
-        out.data_ptr(), int(out_dtype == torch.bfloat16),
-        int(w.act_bits == 8), M, w.N, w.K, w.bits, w.group_size, _ptr(ws),
-        splits, _stream(x2.device)), name)
-    _build.launch_counts[name] += 1
+        x2.data_ptr(), w.data.data_ptr(), w.scale.data_ptr(),
+        w.zero_point.data_ptr(), _ptr(bias), int(gelu), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), M, w.N, w.K, w.bits, w.group_size,
+        _ptr(ws), splits, _stream(x2.device)), "matmul")
+    _build.launch_counts["matmul"] += 1
+    return out
+
+
+def _launch8(x2, w: MatmulWeight, bias, gelu: bool, out_dtype):
+    _check_operands("matmul_a8", x2.device, w, bias)
+    xi, sx = quantize_act_i8(x2)  # x unchecked: this reads a contiguous copy
+    out = _gemm(xi, sx.reshape(-1), unpack_i8(w), w.col_scale, bias, None,
+                gelu, out_dtype)
+    _build.launch_counts["matmul_a8"] += 1
     return out
 
 
@@ -176,10 +206,8 @@ def matmul(x: torch.Tensor, w: MatmulWeight, out_dtype=torch.float32,
     bias = _epilogue_vec(bias, w.N, "packed matmul")
     gelu = activation == "gelu"
     if w.act_bits == 8:
-        xi, sx = quantize_act_i8(x2)
-        out = _launch(xi, sx.reshape(-1), w, bias, gelu, out_dtype,
-                      "matmul_a8")
+        out = _launch8(x2, w, bias, gelu, out_dtype)
     else:
-        out = _launch(x2.to(torch.bfloat16).contiguous(), None, w, bias, gelu,
-                      out_dtype, "matmul")
+        out = _launch16(x2.to(torch.bfloat16).contiguous(), w, bias, gelu,
+                        out_dtype)
     return out.reshape(*lead, w.N)

@@ -62,6 +62,88 @@ def test_int8w_matmul_kernel_matches_twin(gen, M, K, N, gelu, out_dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-6)
 
 
+# the s8 wgmma core's edges: one token, one token tile of 8, ragged 17 and
+# 200 rows, the sampler's 2048; 8 and 24 weight columns (one ragged tile),
+# 768 and 2304; K of one 16-byte row, a ragged 48, 768 and 3072 (24 steps)
+EDGE_M = [1, 8, 17, 200, 2048]
+EDGE_N = [8, 24, 768, 2304]
+
+
+@pytest.mark.parametrize("M", EDGE_M)
+@pytest.mark.parametrize("N", EDGE_N)
+@pytest.mark.parametrize("K", [16, 48, 768, 3072])
+@pytest.mark.parametrize("gelu,extras", [(False, False), (False, True),
+                                         (True, True)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8w_matmul_edges_match_twin(gen, M, N, K, gelu, extras,
+                                       out_dtype):
+    """The tolerance of `test_int8w_matmul_kernel_matches_twin`, with and
+    without bias and residual, under whatever plan `gemm_plan` picks."""
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w = _w(K, N, gen)
+    cs = torch.rand((1, N), generator=gen, device="cuda") * 1e-3
+    b = torch.randn((N,), generator=gen, device="cuda") if extras else None
+    r = (torch.randn((M, N), generator=gen, device="cuda").to(torch.bfloat16)
+         if extras else None)
+    act = "gelu" if gelu else None
+    _build.reset_launch_counts()
+    out = im.int8w_matmul(x, w, cs, b, act, r, out_dtype)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["int8w_matmul"] == 1
+    assert out.dtype == out_dtype and out.shape == (M, N)
+    ref = im.int8w_matmul_plain(x, w, cs, b, act, r, out_dtype)
+    if not gelu:
+        assert torch.equal(out, ref)
+        return
+    rtol = 1e-5 if out_dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-6)
+
+
+GEMM_INSTANCES = [(False, t) for t, _ in im.GEMM_NORMAL_TILES] + \
+    [(True, t) for t in im.GEMM_SWAP_TILES]
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 3072, 768), (200, 768, 2304),
+                                   (17, 48, 24), (70, 1024, 136)])
+@pytest.mark.parametrize("swap,tile", GEMM_INSTANCES)
+def test_int8_gemm_every_plan_gives_the_same_bits(gen, M, K, N, swap, tile):
+    """Every instance of the core, in either orientation, with K split over
+    1, 2, up to 16 blocks: the int32 sums are exact, so the result is the
+    plain version bit for bit, and the same again on a second call."""
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w = _w(K, N, gen)
+    cs = torch.rand((1, N), generator=gen, device="cuda") * 1e-3
+    b = torch.randn((N,), generator=gen, device="cuda")
+    r = torch.randn((M, N), generator=gen, device="cuda").to(torch.bfloat16)
+    xi, sx = im._quant_rows(x)
+    wt = im._k_major(w)
+    ref = im.int8w_matmul_plain(x, w, cs, b, None, r, torch.bfloat16)
+    ksteps = -(-K // 128)
+    for splits in sorted({1, 2, 3, 16, ksteps}):
+        if splits > min(16, ksteps):
+            continue
+        plan = dict(swap=swap, tile=tile, splits=splits)
+        out = im._gemm(xi, sx, wt, cs, b, r, False, torch.bfloat16, plan)
+        again = im._gemm(xi, sx, wt, cs, b, r, False, torch.bfloat16, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), plan
+        assert torch.equal(again, out), plan
+
+
+def test_gemm_plan_is_the_same_in_cpp_and_python(gen):
+    """csrc/int8_gemm.cu: gemm_plan and ops/int8_matmul.py: gemm_plan agree
+    (the wrapper passes Python's plan to the kernel)."""
+    fn = _build.function("dlm_int8_gemm_plan")
+    for sms in (132, 114, 78):
+        for M in (1, 5, 8, 17, 33, 64, 65, 130, 256, 2048, 8192):
+            for N in (8, 24, 768, 2304, 3072):
+                for K in (16, 48, 768, 3072):
+                    p = im.gemm_plan(M, N, K, sms)
+                    want = int(p["swap"]) * 10000 + p["tile"] * 100 + \
+                        p["splits"]
+                    assert fn(M, N, K, sms) == want, (M, N, K, sms)
+
+
 def _mlp_args(gen, M, D, F, out_dtype=torch.float32):
     x = torch.randn((M, D), generator=gen, device="cuda").to(torch.bfloat16)
     w1, w2 = _w(D, F, gen), _w(F, D, gen)
@@ -644,6 +726,50 @@ def test_packed_matmul_a8_kernel_matches_plain(gen, M, K, N, bits, gran,
         assert torch.equal(pm.regrid_int8(w), d.data)
         assert torch.equal(out, im.int8w_matmul(x, d.data, d.col_scale, b,
                                                 None, None, torch.bfloat16))
+
+
+@pytest.mark.parametrize("M", EDGE_M)
+@pytest.mark.parametrize("N", EDGE_N)
+@pytest.mark.parametrize("K", [768, 3072])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("gran", ["group", "channel"])
+def test_matmul_a8_edges_match_plain(gen, M, N, K, bits, gran):
+    """matmul_a8 under every plan the core takes at the edges of
+    `test_int8w_matmul_edges_match_twin`, per-column and grouped scales,
+    bias with grouped scales, gelu at 2 and 8 bits: bit for bit without
+    gelu, one bf16 ulp with it."""
+    from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
+    w = _packed_weight(K, N, bits, gran, 8, gen)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    b = (torch.randn((N,), generator=gen, device="cuda") * 0.02
+         if gran == "group" else None)
+    act = "gelu" if bits in (2, 8) else None
+    _build.reset_launch_counts()
+    out = pm.matmul(x, w, torch.bfloat16, b, act)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["matmul_a8"] == 1
+    ref = pm.a8_matmul_reference(x, w, b, act, torch.bfloat16)
+    if act:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                                   atol=1e-6)
+    else:
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("gran,group", [("group", 128), ("group", 32),
+                                        ("group", 6), ("channel", 0),
+                                        ("tensor", 0)])
+@pytest.mark.parametrize("K,N", [(768, 2304), (3072, 768), (384, 132)])
+def test_unpack_i8_kernel_equals_plain(gen, bits, gran, group, K, N):
+    """The act_bits=8 unpack on the card against its plain version on the
+    CPU: the int8 [N, K] grid bit for bit."""
+    from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
+    w = _packed_weight(K, N, bits, gran, 8, gen, group)
+    wt = pm.unpack_i8(w)
+    torch.cuda.synchronize()
+    assert wt.shape == (N, K) and wt.dtype == torch.int8
+    assert torch.equal(wt.cpu(), pm.unpack_i8(w.to("cpu")))
 
 
 def test_packed_matmul_refuses_what_the_kernel_does_not_take(gen):
