@@ -109,12 +109,12 @@ Phases (any failure makes the script exit non-zero without the final line):
 
     python3 chip_smoke.py --parent DIR
 
-also times int8w_matmul (its seven timed shapes), matmul_a8 (its timed
-shapes), the fused MLP (M = 2048 and 8192) and fused-QKV attention (its two
-timed shapes) of the checkout unpacked in DIR (the commit before a redesign
-of them, `git archive`) with that checkout's own helpers, once before the
-kernels phase and once after it, in a process of its own; the runs line
-carries them as `parent_kernels`.
+also times quantized-KV attention (`attention` over `QuantKV`, its four
+timed shapes) and the single-sequence `paged_attention` (its timed shape) of
+the checkout unpacked in DIR (the commit before a redesign of them, `git
+archive`) with that checkout's own helpers, once before the kernels phase
+and once after it, in a process of its own; the runs line carries them as
+`parent_kernels`.
 """
 
 from __future__ import annotations
@@ -785,9 +785,9 @@ def _paged_kernels(gen, results, bad):
         if not ok8:
             bad.append(f"batched_paged_attention_a8 {label}")
 
-    # paged_attention (one sequence): BH=12, Sq=1024, 8 pages of 128, 4 bits;
-    # the timed case full, the checked one with a partial last page
-    BH, Sq1, n1, bits, P, D = 12, 1024, 8, 4, 128, 64
+    # paged_attention (one sequence): PAGED_CASE, the timed case full, the
+    # checked one with a partial last page
+    BH, Sq1, n1, bits, P, D = PAGED_CASE
     pools = _quantized_pools(gen, 2 * n1, BH, P, D, 1, bits)
     q = torch.randn((BH, Sq1, D), generator=gen, device="cuda").to(torch.bfloat16)
     pt = torch.randperm(2 * n1, generator=gen, device="cuda")[:n1].to(torch.int32)
@@ -800,9 +800,8 @@ def _paged_kernels(gen, results, bad):
         ref, ref_lse = pa.paged_attention_plain(*args, bits=bits,
                                                 page_tokens=nt, return_lse=True)
         err, rel, lse_err, ok = _paged_compare(out, lse, ref, ref_lse)
-        row = dict(shape=f"{label}: BH={BH} Sq={Sq1} P={P} pages={n1} "
-                   f"{bits}-bit", max_abs_err=err, rel_err=rel,
-                   lse_err=lse_err, tolerance=tol)
+        row = dict(shape=_paged_label(label, *PAGED_CASE), max_abs_err=err,
+                   rel_err=rel, lse_err=lse_err, tolerance=tol)
         if last == P:
             row["ms"] = time_ms(lambda: pa.paged_attention(
                 *args, bits=bits, page_tokens=nt))
@@ -820,6 +819,33 @@ def _paged_kernels(gen, results, bad):
                f"({row['bound_by']})" if "ms" in row else ""))
         if not ok:
             bad.append(f"paged_attention {label}")
+
+
+# the single-sequence paged_attention's shape (BH, Sq, pages, bits, P, D):
+# one layer of `PagedKVCache.attend` at the sampler's widths
+PAGED_CASE = (12, 1024, 8, 4, 128, 64)
+
+
+def _paged_label(label, BH, Sq, n, bits, P, D):
+    return f"{label}: BH={BH} Sq={Sq} P={P} pages={n} {bits}-bit"
+
+
+# quantized-KV attention's shapes: (label, BH, Sq, Skv, bits, timed, D)
+QA_CASES = (
+    ("scan_sampler shape 4-bit", 96, 256, 256, 4, True, 64),
+    ("8-bit", 96, 256, 256, 8, True, 64),
+    ("2-bit", 96, 256, 256, 2, True, 64),
+    ("S=1024 4-bit", 24, 1024, 1024, 4, True, 64),
+    ("ragged 4-bit", 96, 100, 100, 4, False, 64),
+    ("ragged 1-bit", 16, 100, 100, 1, False, 64),
+    # the anchor's `sample(seq_len=10)`: B=4 x 8 heads of 32
+    ("anchor seq_len=10, 8-bit", 32, 10, 10, 8, False, 32),
+    ("heads of 32, 1-bit", 32, 100, 100, 1, False, 32),
+    ("heads of 128, 4-bit", 48, 256, 256, 4, False, 128))
+
+
+def _qa_label(label, BH, Sq, Skv, bits, D):
+    return f"{label}: BH={BH} Sq={Sq} Skv={Skv} D={D} {bits}-bit"
 
 
 def _quant_attention_kernels(gen, results, bad):
@@ -849,17 +875,7 @@ def _quant_attention_kernels(gen, results, bad):
             bad.append(f"quantize_kv {bits}-bit")
 
     tol = "rel Frobenius <= 2e-3"
-    for label, BH, Sq, Skv, bits, timed, D in (
-            ("scan_sampler shape 4-bit", 96, 256, 256, 4, True, 64),
-            ("8-bit", 96, 256, 256, 8, True, 64),
-            ("2-bit", 96, 256, 256, 2, True, 64),
-            ("S=1024 4-bit", 24, 1024, 1024, 4, True, 64),
-            ("ragged 4-bit", 96, 100, 100, 4, False, 64),
-            ("ragged 1-bit", 16, 100, 100, 1, False, 64),
-            # the anchor's `sample(seq_len=10)`: B=4 x 8 heads of 32
-            ("anchor seq_len=10, 8-bit", 32, 10, 10, 8, False, 32),
-            ("heads of 32, 1-bit", 32, 100, 100, 1, False, 32),
-            ("heads of 128, 4-bit", 48, 256, 256, 4, False, 128)):
+    for label, BH, Sq, Skv, bits, timed, D in QA_CASES:
         q = torch.randn((BH, Sq, D), generator=gen, device="cuda").to(
             torch.bfloat16)
         k = qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen,
@@ -870,8 +886,8 @@ def _quant_attention_kernels(gen, results, bad):
         ref = qa.attention_plain(q, k, v, tile=qa.KERNEL_KV_TILE)
         err, rel, _ = _compare(out, ref, 0.0, 0.0)
         ok = rel <= 2e-3 and bool(torch.isfinite(out).all())
-        row = dict(shape=f"{label}: BH={BH} Sq={Sq} Skv={Skv} D={D} "
-                   f"{bits}-bit", max_abs_err=err, rel_err=rel, tolerance=tol)
+        row = dict(shape=_qa_label(label, BH, Sq, Skv, bits, D),
+                   max_abs_err=err, rel_err=rel, tolerance=tol)
         if timed:
             row["ms"] = time_ms(lambda: qa.attention(q, k, v))
             row["plain_ms"] = time_ms(lambda: qa.attention_plain(
@@ -882,6 +898,8 @@ def _quant_attention_kernels(gen, results, bad):
                     q[None], k.dequantize(torch.bfloat16)[None],
                     v.dequantize(torch.bfloat16)[None])
             row["library_ms"] = time_ms(lib)
+            if bits == 4:
+                row["two_launch_ms"] = _two_launch_ms(gen, BH, Sq, Skv, D)
             # q bf16, packed K and V, four f32 sidecars, f32 out
             nbytes = (BH * Sq * D * 2 + 2 * BH * Skv * (D * bits // 8)
                       + 4 * BH * Skv * 4 + BH * Sq * D * 4)
@@ -892,9 +910,31 @@ def _quant_attention_kernels(gen, results, bad):
             f"({tol}) {'ok' if ok else 'MISMATCH'}"
             + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
                f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
-               f"({row['bound_by']})" if timed else ""))
+               f"({row['bound_by']})" if timed else "")
+            + (f"; two launches {row['two_launch_ms']:.4f}"
+               if "two_launch_ms" in row else ""))
         if not ok:
             bad.append(f"quant_attention {label}")
+
+
+def _two_launch_ms(gen, BH, Sq, Skv, D):
+    """What the two-launch alternative to the quantized-KV kernel would cost
+    at this shape: `paged_unpack` writing every KV tile once as bf16, then
+    the batched paged kernel over it, timed as `batched_paged_attention`
+    over the same tokens in 4-bit pages of 128 (B = BH / 12 slots of 12
+    heads). Folding vs into P instead of V would change its arithmetic, not
+    its launches or its bytes."""
+    from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
+    B, H, P = BH // 12, 12, 128
+    n = Skv // P
+    pools = _quantized_pools(gen, B * n, H, P, D, 1, 4)
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    pt = torch.arange(B * n, device="cuda", dtype=torch.int32).reshape(B, n)
+    nt = torch.full((B, n), P, dtype=torch.int32, device="cuda")
+    npg = torch.full((B,), n, dtype=torch.int32, device="cuda")
+    return time_ms(lambda: pa.batched_paged_attention(q, pt, nt, npg, *pools,
+                                                      bits=4))
 
 
 def _packed_weight(K, N, bits, gran, act_bits, gen):
@@ -2389,10 +2429,10 @@ KERNELS = {
     "paged_unpack": ("diffusion_llm_rs_tpu_torch/csrc/paged_unpack.cu",
                      "diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:391",
                      "serve_paged"),
-    "paged_attention": ("diffusion_llm_rs_tpu_torch/csrc/paged_attention.cu",
+    "paged_attention": ("diffusion_llm_rs_tpu_torch/csrc/quant_flash_paged.cu",
                         "diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:34",
                         "cache_attend"),
-    "quant_attention": ("diffusion_llm_rs_tpu_torch/csrc/quant_attention.cu",
+    "quant_attention": ("diffusion_llm_rs_tpu_torch/csrc/quant_flash_contig.cu",
                         "diffusion_llm_rs_tpu/ops/pallas_attention.py:99",
                         "scan_sampler"),
     "batched_paged_attention_a8": (
@@ -2416,59 +2456,46 @@ KERNELS = {
 ALSO_BUILT_FROM = {"matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",)}
 
 
-# Run in a checkout of an earlier commit (cwd): that checkout's
-# int8w_matmul at I8W_CASES, its matmul_a8 at the timed PACKED_CASES, its
-# fused MLP at the two timed M and its fused-QKV attention at its two timed
-# shapes, timed by its own chip_smoke.py helpers; prints one JSON line.
+# Run in a checkout of an earlier commit (cwd): that checkout's quantized-KV
+# attention at the timed QA_CASES and its single-sequence paged_attention at
+# PAGED_CASE (full pages), timed by its own chip_smoke.py helpers on inputs
+# made as the kernels phase makes them; prints one JSON line.
 PARENT_CODE = """
 import json, torch, chip_smoke as c
-from diffusion_llm_rs_tpu_torch.ops import _build, int8_matmul as im
-from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
+from diffusion_llm_rs_tpu_torch.ops import _build, attention as qa
+from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
 c.device()
-_build.build(("int8_gemm", "packed_gemm", "int8_mlp", "fused_qkv_attention"))
+_build.build(("quant_attention", "paged_attention"))
 gen = torch.Generator(device="cuda").manual_seed(1234)
-res = {k: [] for k in c.KERNELS}
-bf16, D, F = torch.bfloat16, 768, 3072
-for label, M, K, N, gelu, bias, resid in json.loads('@I8W@'):
-    x = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
-    w = c._rand_int8(K, N, gen)
-    cs = torch.rand((1, N), generator=gen, device="cuda") * 2e-4 + 1e-5
-    b = torch.randn((N,), generator=gen, device="cuda") * 0.02 if bias else None
-    r = torch.randn((M, N), generator=gen, device="cuda").to(bf16) if resid else None
-    act = "gelu" if gelu else None
-    res["int8w_matmul"].append(dict(shape=f"{label} M={M} K={K} N={N}", ms=c.time_ms(
-        lambda: im.int8w_matmul(x, w, cs, b, act, r, out_dtype=bf16))))
-for label, M, K, N, bits, gran, bias, gelu in json.loads('@PACKED@'):
-    x = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
-    b = torch.randn((N,), generator=gen, device="cuda") * 0.02 if bias else None
-    act = "gelu" if gelu else None
-    w = c._packed_weight(K, N, bits, gran, 8, gen)
-    res["matmul_a8"].append(dict(
-        shape=f"{label}: M={M} K={K} N={N} {bits}-bit {gran}",
-        ms=c.time_ms(lambda: pm.matmul(x, w, bf16, b, act))))
-c._fused_qkv_kernels(gen, res, [])
-w1, w2 = c._rand_int8(D, F, gen), c._rand_int8(F, D, gen)
-cs1 = torch.rand((1, F), generator=gen, device="cuda") * 2e-4 + 1e-5
-cs2 = torch.rand((1, D), generator=gen, device="cuda") * 2e-4 + 1e-5
-b1 = torch.randn((F,), generator=gen, device="cuda") * 0.02
-b2 = torch.randn((D,), generator=gen, device="cuda") * 0.02
-for M in (2048, 8192):
-    x = torch.randn((M, D), generator=gen, device="cuda").to(bf16)
-    r = torch.randn((M, D), generator=gen, device="cuda").to(bf16)
-    args = (x, w1, cs1, b1, w2, cs2, b2, r, bf16)
-    res["int8w_mlp"].append(dict(shape=f"mlp M={M} D={D} F={F} +residual",
-                                 ms=c.time_ms(lambda: im.int8w_mlp(*args))))
-print(json.dumps({k: [dict(shape=r["shape"], ms=r["ms"]) for r in v if "ms" in r]
-                  for k, v in res.items() if v}))
-""".replace("@I8W@", json.dumps(I8W_CASES)).replace(
-    "@PACKED@", json.dumps([c[:8] for c in PACKED_CASES if c[-1]]))
+res = {"quant_attention": [], "paged_attention": []}
+for label, BH, Sq, Skv, bits, D in json.loads('@QA@'):
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen,
+                                       device="cuda"), bits) for _ in range(2))
+    res["quant_attention"].append(dict(shape='@QALABEL@'.format(
+        label=label, BH=BH, Sq=Sq, Skv=Skv, D=D, bits=bits),
+        ms=c.time_ms(lambda: qa.attention(q, k, v))))
+BH, Sq, n, bits, P, D = json.loads('@PAGED@')
+pools = c._quantized_pools(gen, 2 * n, BH, P, D, 1, bits)
+q = torch.randn((BH, Sq, D), generator=gen, device="cuda").to(torch.bfloat16)
+pt = torch.randperm(2 * n, generator=gen, device="cuda")[:n].to(torch.int32)
+nt = torch.full((n,), P, dtype=torch.int32, device="cuda")
+res["paged_attention"].append(dict(shape='@PAGEDLABEL@', ms=c.time_ms(
+    lambda: pa.paged_attention(q, pt, *pools, bits=bits, page_tokens=nt))))
+print(json.dumps(res))
+""".replace("@QA@", json.dumps([(c[0],) + c[1:5] + c[6:] for c in QA_CASES
+                                 if c[5]])).replace(
+    "@QALABEL@", _qa_label("{label}", "{BH}", "{Sq}", "{Skv}", "{bits}",
+                           "{D}")).replace(
+    "@PAGED@", json.dumps(PAGED_CASE)).replace(
+    "@PAGEDLABEL@", _paged_label("full pages", *PAGED_CASE))
 
 
 def _parent_kernels(parent):
-    """Start the two int8 GEMMs, the fused MLP and fused-QKV attention of
-    another checkout (the commit before a redesign, unpacked into `parent`),
-    timed by that checkout's own chip_smoke.py, in a process of its own;
-    returns the process. `_parent_times` reads its result."""
+    """Start quantized-KV attention and the single-sequence paged attention
+    of another checkout (the commit before a redesign, unpacked into
+    `parent`), timed by that checkout's own chip_smoke.py, in a process of
+    its own; returns the process. `_parent_times` reads its result."""
     return subprocess.Popen([sys.executable, "-c", PARENT_CODE], cwd=parent,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
@@ -2486,10 +2513,10 @@ def _parent_times(proc, label):
 
 
 def main() -> int:
-    """`--parent DIR`: also time the int8 GEMMs, the fused MLP and fused-QKV
-    attention of the checkout in DIR (the commit before a redesign) by its
-    own chip_smoke.py, before the kernels phase (built beside this
-    checkout's kernels) and after it."""
+    """`--parent DIR`: also time quantized-KV attention and the
+    single-sequence paged attention of the checkout in DIR (the commit
+    before a redesign) by its own chip_smoke.py, before the kernels phase
+    (built beside this checkout's kernels) and after it."""
     parent = sys.argv[sys.argv.index("--parent") + 1] \
         if "--parent" in sys.argv else None
     phase(device)

@@ -426,6 +426,19 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TB), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
                                               uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -464,6 +477,14 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// m64nNk16 with both operands K-major in shared memory, N = 32, 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64(d, desc_a, desc_b, scale_d);
+  else wgmma_ss_n128(d, desc_a, desc_b, scale_d);
+}
 
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],

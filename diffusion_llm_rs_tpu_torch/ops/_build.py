@@ -27,8 +27,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("int8_gemm", "int8_mlp", "dense_attention", "paged_attention",
-           "packed_gemm", "quant_attention", "paged_unpack",
+SOURCES = ("int8_gemm", "int8_mlp", "dense_attention", "quant_flash_paged",
+           "packed_gemm", "quant_flash_contig", "paged_unpack",
            "batched_paged_attention", "paged_attention_a8",
            "fused_qkv_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,10 +48,12 @@ SIGNATURES = {
     "dlm_paged_unpack": ("paged_unpack", (_P,) * 11 + (_I,) * 10 + (_F, _P)),
     "dlm_batched_paged_attention": ("batched_paged_attention",
                                     (_P,) * 8 + (_I,) * 6 + (_P,)),
-    "dlm_paged_attention": ("paged_attention", (_P,) * 11 + (_I,) * 7 + (_F, _P)),
+    "dlm_paged_attention": ("quant_flash_paged",
+                            (_P,) * 11 + (_I,) * 7 + (_F, _P)),
     "dlm_batched_paged_attention_a8": ("paged_attention_a8",
                                        (_P,) * 8 + (_I,) * 6 + (_P,)),
-    "dlm_quant_attention": ("quant_attention", (_P,) * 8 + (_I,) * 5 + (_F, _P)),
+    "dlm_quant_attention": ("quant_flash_contig",
+                            (_P,) * 8 + (_I,) * 5 + (_F, _P)),
     "dlm_packed_gemm_splits": ("packed_gemm", (_I,) * 4),
     "dlm_packed_gemm": ("packed_gemm", (_P,) * 5 + (_I, _P) + (_I,) * 6
                         + (_P, _I, _P)),

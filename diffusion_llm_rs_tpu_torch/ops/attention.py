@@ -10,8 +10,10 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_attention.py`:
   - `QuantKV`, `quantize_kv` and `attention` (TPU kernel `_attn_kernel`): K
     and V [BH, S, D] quantized per token at 8/4/2/1 bits, block-packed along
     D; the affine terms fold into row corrections, so both products run on
-    the integer levels. Kernel: `csrc/quant_attention.cu`. The phase-aware
-    sampler carries its KV cache between steps in this form.
+    the integer levels. Kernel: `csrc/quant_flash_contig.cu` (the design
+    is `csrc/quant_flash.cuh`, shared with the single-sequence paged
+    kernel). The phase-aware sampler carries its KV cache between steps in
+    this form.
   - `fused_qkv_attention` (TPU kernel `_qkv_kernel`): every head straight
     from the fused [B, S, 3D] projection -> [B, S, D], the full softmax row
     normalised before P is rounded to bf16. Kernel:
@@ -35,7 +37,7 @@ from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64, 128)  # the widths the attention kernels are built for
-KERNEL_KV_TILE = 64   # tokens per online-softmax step of `csrc/quant_attention.cu`
+KERNEL_KV_TILE = 64   # tokens per online-softmax step of `csrc/quant_flash_contig.cu`
 KERNEL_BITS = (1, 2, 4, 8)
 
 
@@ -295,7 +297,7 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     qb = q.to(torch.bfloat16).contiguous()
     kd, ks, kz, vd, vs, vz = (t.contiguous() for t in (
         k.data, k.scale, k.zero_point, v.data, v.scale, v.zero_point))
-    row = min(Dp, 8)  # bytes the kernel reads from a packed row at once
+    row = min(Dp, 8)  # bytes the kernel's loader reads from a packed row at once
     if qb.data_ptr() % 16 or kd.data_ptr() % row or vd.data_ptr() % row:
         raise ValueError(f"attention: q must be 16-byte and the packed K/V "
                          f"{row}-byte aligned")

@@ -12,7 +12,9 @@ bits, any head group dividing the heads) and raises on anything else; on a
 CPU tensor it runs its plain twin (`*_plain`), which repeats the TPU
 kernel's arithmetic page by page at the same rounding points.
 
-`paged_attention` launches `csrc/paged_attention.cu`. `batched_paged_attention`
+`paged_attention` launches `csrc/quant_flash_paged.cu` (the design is
+`csrc/quant_flash.cuh`, shared with `ops/attention.py: attention`: each page
+unpacked once a 128-query block, S and P.V on wgmma). `batched_paged_attention`
 launches two kernels a call: `paged_unpack` (`csrc/paged_unpack.cu`) unpacks
 each live page of each (slot, head) once into a scratch of the operands the
 attention kernel reads, then `csrc/batched_paged_attention.cu` (bf16) or

@@ -453,6 +453,28 @@ def test_paged_attention_kernel_matches_twin(gen, bits, P, D):
     _close(out, lse, ref, ref_lse)
 
 
+@pytest.mark.parametrize("P", PAGES)
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_paged_attention_kernel_masked_pages(gen, P, D):
+    """Pages with no valid token (the first, and one in the middle), a
+    partial page and slots in mixed order; and a chain whose every page is
+    empty, where every key weighs exp(0) = 1 as in the plain version."""
+    BH, Sq, bits = 3, 130, 4
+    pools = _pools(gen, 6, BH, P, D, bits, 1)
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    pt = torch.tensor([5, 0, 3, 2, 4], device="cuda", dtype=torch.int32)
+    for tokens in ([0, P, 0, max(1, P // 3), P], [0] * 5):
+        nt = torch.tensor(tokens, device="cuda", dtype=torch.int32)
+        _build.reset_launch_counts()
+        out, lse = pa.paged_attention(q, pt, *pools, bits=bits, page_tokens=nt,
+                                      return_lse=True)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["paged_attention"] == 1
+        ref, ref_lse = pa.paged_attention_plain(q, pt, *pools, bits=bits,
+                                                page_tokens=nt, return_lse=True)
+        _close(out, lse, ref, ref_lse)
+
+
 def test_paged_kernels_refuse_what_they_do_not_take(gen):
     q = torch.randn((1, 2, 8, 64), device="cuda")
     pt = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
@@ -552,6 +574,25 @@ def test_quant_attention_kernel_matches_plain(gen, bits, Sq, Skv, D):
     torch.cuda.synchronize()
     assert _build.launch_counts["quant_attention"] == 1
     assert out.dtype == torch.float32 and out.shape == (BH, Sq, D)
+    ref = qa.attention_plain(q, k, v, tile=qa.KERNEL_KV_TILE)
+    rel = float((out - ref).norm() / ref.norm())
+    assert rel <= 2e-3 and bool(torch.isfinite(out).all()), rel
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("BH,S", [(96, 256), (24, 1024)])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_quant_attention_kernel_at_sampler_shapes(gen, bits, BH, S, D):
+    """The scan sampler's shapes (B=8 x 12 heads at S=256, B=2 x 12 at
+    S=1024) at every head width and bit width, against the plain version at
+    the kernel's KV tile: 2e-3 relative, as above."""
+    q = torch.randn((BH, S, D), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (qa.quantize_kv(torch.randn((BH, S, D), generator=gen,
+                                       device="cuda"), bits) for _ in range(2))
+    _build.reset_launch_counts()
+    out = qa.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["quant_attention"] == 1
     ref = qa.attention_plain(q, k, v, tile=qa.KERNEL_KV_TILE)
     rel = float((out - ref).norm() / ref.norm())
     assert rel <= 2e-3 and bool(torch.isfinite(out).all()), rel

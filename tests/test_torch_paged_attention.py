@@ -116,6 +116,31 @@ def test_single_twin_matches_jax_kernel(bits):
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_single_twin_mixed_slots_and_partial_pages(bits):
+    """Four pages in mixed slot order, two of them partial (one in the
+    middle of the chain), at the JAX kernel's D=128, P=128: output within
+    1e-3 relative, lse within 1e-4, as above."""
+    BH, Sq, D, P = 2, 16, 128, 128
+    rng = np.random.default_rng(40 + bits)
+    pools = _grouped_pools(rng, BH, 5 * P, D, P, 1, bits)
+    q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
+    pt = np.array([4, 1, 3, 0], np.int32)
+    nt = np.array([P, 9, P, 100], np.int32)
+    jout, jlse = jppa.paged_attention(*_j(q, pt, *pools), bits=bits,
+                                      page_tokens=jnp.asarray(nt),
+                                      return_lse=True)
+    tout, tlse = tpa.paged_attention(*_t(q, pt, *pools), bits=bits,
+                                     page_tokens=torch.from_numpy(nt),
+                                     return_lse=True)
+    rel, lse = _rel(tout, jout), _lse_err(tlse, jlse)
+    print(f"single twin vs JAX kernel, mixed slots, {bits}-bit: rel "
+          f"{rel:.3g}, lse {lse:.3g}")
+    assert rel < 1e-3
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("G", [1, 2])
 def test_batched_twin_matches_jax_fallback(bits, G):
     """Pages of 64 tokens (the page `Engine.sample` picks), where JAX runs

@@ -169,6 +169,52 @@ def test_plain_tile_of_the_cuda_kernel(bits):
     assert _rel(t64, t256) < 5e-3 and _rel(t64, jout) < 5e-3
 
 
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+def test_plain_at_the_kernel_tile_matches_jax(bits, D):
+    """`attention_plain` at the CUDA kernel's KV tile (64 tokens) against
+    JAX, BH=2, Sq=16, Skv=256: JAX's interpreted kernel steps 256 tokens at
+    a time, so the tiles differ (ROADMAP C19): within 5e-3 relative. Where
+    a packed row does not split into whole 8-channel blocks (D=32, 1 bit)
+    JAX takes `_attention_fallback`: within its 2e-2."""
+    rng = np.random.default_rng(70 + bits + D)
+    BH, Sq, Skv = 2, 16, 256
+    q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
+    jk, jv = (jpa.quantize_kv(jnp.asarray(rng.normal(size=(BH, Skv, D))
+                                          .astype(np.float32)), bits)
+              for _ in range(2))
+    jout = jpa.attention(jnp.asarray(q), jk, jv)
+    tout = tat.attention_plain(torch.from_numpy(q), _to_torch(jk),
+                               _to_torch(jv), tile=tat.KERNEL_KV_TILE)
+    kernel = D % (8 * (8 // bits)) == 0
+    rel = _rel(tout, jout)
+    print(f"attention_plain at tile {tat.KERNEL_KV_TILE} vs JAX "
+          f"{'kernel' if kernel else 'fall-back'}, {bits}-bit D={D}: "
+          f"rel {rel:.3g}")
+    assert tout.dtype == torch.float32 and tuple(tout.shape) == (BH, Sq, D)
+    assert rel < (5e-3 if kernel else 2e-2)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+def test_plain_at_the_kernel_tile_at_a_ragged_skv(bits):
+    """Skv = 200, a ragged last tile of 8 tokens at the kernel's tile; JAX
+    takes `_attention_fallback` (no tile of 128 divides 200): within its
+    2e-2 relative (ROADMAP C18)."""
+    rng = np.random.default_rng(80 + bits)
+    BH, Sq, Skv, D = 2, 16, 200, 64
+    q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
+    jk, jv = (jpa.quantize_kv(jnp.asarray(rng.normal(size=(BH, Skv, D))
+                                          .astype(np.float32)), bits)
+              for _ in range(2))
+    jout = jpa.attention(jnp.asarray(q), jk, jv)
+    tout = tat.attention_plain(torch.from_numpy(q), _to_torch(jk),
+                               _to_torch(jv), tile=tat.KERNEL_KV_TILE)
+    rel = _rel(tout, jout)
+    print(f"attention_plain at tile {tat.KERNEL_KV_TILE}, Skv={Skv}, vs JAX "
+          f"fall-back, {bits}-bit: rel {rel:.3g}")
+    assert rel < 2e-2
+
+
 @pytest.mark.parametrize("bits", [8, 4, 2, 1])
 def test_plain_matches_jax_fallback_at_an_odd_shape(bits):
     """Skv = 10, Sq = 10 (no tile divides them: JAX takes `_attention_fallback`,
