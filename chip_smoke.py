@@ -35,7 +35,8 @@ Phases (any failure makes the script exit non-zero without the final line):
                 (median), then decode_tokens. Checks finite output, token
                 range and the launch counts of every run (27 int8w_matmul +
                 12 fused int8w_mlp per step, no chained MLP), with host CPU
-                time and the bytes of the K-major weight copies; the same run
+                time; after a W4A8 forward no int8 weight has a K-major copy
+                (each is held K-major once, ROADMAP C32); the same run
                 with the model built at max_sequence_length 1024 and 4096,
                 alternating; then 2 steps on the same noise against the
                 plain twins on the CPU.
@@ -101,20 +102,26 @@ Phases (any failure makes the script exit non-zero without the final line):
                 the CPU, act16 and a8); engine_gptq (the anchor quantized by
                 GPTQ on the card and on the CPU from the same draws: grids
                 bit for bit, levels that differ counted, perplexity on both,
-                `generate` on the card); cli (`python -m
+                `generate` on the card); engine_ingest (the host-side stack
+                at full width, random weights: `process_model` on about 512
+                tokens of repeated phrases, `prefill` of the text, again and
+                prefix-extended, on the card and on a CPU engine over the
+                same parameters: compressed rows, index top-k ids, router,
+                prefill vectors and stats equal, the store read back, the
+                prompt cache's hits; seconds by part); cli (`python -m
                 diffusion_llm_rs_tpu_torch` sample, quantize --quant-method
-                gptq --out, ppl --checkpoint, each its own process).
+                gptq --out, ppl --checkpoint, ingest --file, each its own
+                process).
  10. summary  - a JSON line of kernels, a JSON line of the runs, then the
                 device line last.
 
     python3 chip_smoke.py --parent DIR
 
-also times quantized-KV attention (`attention` over `QuantKV`, its four
-timed shapes) and the single-sequence `paged_attention` (its timed shape) of
-the checkout unpacked in DIR (the commit before a redesign of them, `git
-archive`) with that checkout's own helpers, once before the kernels phase
-and once after it, in a process of its own; the runs line carries them as
-`parent_kernels`.
+also runs the full-width W4A8 sampler (B=8, S=256, 32 steps, then
+decode_tokens) of the checkout unpacked in DIR (the parent commit, `git
+archive`) and of this one, each built by its own chip_smoke.py in a process
+of its own (parent, this, this, parent), and logs the device memory each
+holds and its peak; the runs line carries them as `parent_memory`.
 """
 
 from __future__ import annotations
@@ -1135,10 +1142,11 @@ def _expected_launches(cfg, steps, long_seq):
 
 def _k_major_bytes(params):
     """Bytes of the K-major copies (`_k_major`) the int8 kernels keep of the
-    model's decoded int8 weights: the fused MLPs' and the other linears'."""
+    model's decoded int8 weights, the fused MLPs' and the other linears';
+    and the bytes of the weights held K-major already, which need none."""
     from diffusion_llm_rs_tpu_torch.ops import int8_matmul as im
     from diffusion_llm_rs_tpu_torch.ops.matmul import Int8Weight
-    out = {"mlp": 0, "linears": 0}
+    out = {"mlp": 0, "linears": 0, "held_k_major": 0}
 
     def walk(t, mlp):
         if isinstance(t, dict):
@@ -1151,6 +1159,8 @@ def _k_major_bytes(params):
             hit = im._k_major_copies.get(id(t.data))
             if hit is not None and hit[0]() is t.data:
                 out["mlp" if mlp else "linears"] += hit[2].numel()
+            if t.data.t().is_contiguous():
+                out["held_k_major"] += t.data.numel()
     walk(params, False)
     return out
 
@@ -1172,8 +1182,12 @@ def sampler():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k_major = _k_major_bytes(params)
-    log(f"  K-major int8 weight copies: {k_major['mlp'] / 1e6:.1f} MB for the "
-        f"MLPs, {k_major['linears'] / 1e6:.1f} MB for the other linears")
+    log(f"  K-major int8 weight copies after a W4A8 forward: {k_major['mlp']} "
+        f"bytes for the MLPs, {k_major['linears']} bytes for the other "
+        f"linears; {k_major['held_k_major'] / 1e6:.1f} MB of int8 weights "
+        f"held K-major once (ROADMAP C32)")
+    if k_major["mlp"] or k_major["linears"] or not k_major["held_k_major"]:
+        raise AssertionError(f"int8 weights copied K-major: {k_major}")
 
     expect = _expected_launches(cfg, steps, long_seq=False)
     walls, cpus = [], []
@@ -2328,21 +2342,187 @@ def engine_gptq():
                 counts=counts)
 
 
+# phrases of the ingested text: repeated, so the dedup store and the index
+# see identical rows (a repeated word embeds identically)
+INGEST_PHRASES = (
+    "the quick brown fox jumps over the lazy dog",
+    "diffusion language models denoise token embeddings step by step",
+    "quantized key value caches keep memory small and inference fast",
+    "the lazy dog sleeps while the quick brown fox runs",
+)
+
+
+def _ingest_text(tokenizer, tokens=512):
+    """About `tokens` tokens of INGEST_PHRASES, cycled and joined."""
+    words, i = [], 0
+    while len(tokenizer.encode(" ".join(words))) < tokens:
+        words += INGEST_PHRASES[i % len(INGEST_PHRASES)].split()
+        i += 1
+    while len(tokenizer.encode(" ".join(words))) > tokens:
+        words.pop()
+    return " ".join(words)
+
+
+def _timed(obj, name, secs, sync):
+    """Wrap obj.name to add its wall seconds (after a device sync) to
+    secs[name]."""
+    fn = getattr(obj, name)
+
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return out
+    setattr(obj, name, run)
+
+
+def engine_ingest():
+    """The host-side stack at full width: `Engine` (12 layers, 768 wide, 12
+    heads, vocab 50257, random weights from a seed) on the card, with its
+    store under build/, and a second engine over the same parameters on the
+    CPU. `process_model` on about 512 tokens of repeated phrases, then
+    `prefill` of the text, again, and prefix-extended. Card against CPU:
+    compressed rows bit for bit, the index's top 16 ids for 8 queries equal
+    and their similarities within 1e-5, the router's shards and edges, the
+    prefill vectors and `stats` equal, every stored vector read back, the
+    prompt cache's hits as JAX's tests expect; seconds by part on each."""
+    import os
+    import shutil
+
+    from diffusion_llm_rs_tpu_torch.config import (DiffusionConfig,
+                                                   SystemConfig)
+    from diffusion_llm_rs_tpu_torch.engine import Engine
+    from diffusion_llm_rs_tpu_torch.index.anns import compress_rows
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    from diffusion_llm_rs_tpu_torch.storage import native
+
+    store = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "ingest_smoke")
+    shutil.rmtree(store, ignore_errors=True)
+    cfg = DiffusionConfig(num_timesteps=1000, hidden_size=768, num_layers=12,
+                          num_attention_heads=12, vocab_size=50257,
+                          max_sequence_length=1024, dtype="bfloat16")
+    card = Engine(config=cfg, seed=0, device="cuda", system_config=SystemConfig(
+        ssd_path=os.path.join(store, "card.bin")))
+    cpu = Engine(config=cfg, params=_to(card.params, "cpu"),
+                 tokenizer=card.tokenizer, device="cpu",
+                 system_config=SystemConfig(
+                     ssd_path=os.path.join(store, "cpu.bin")))
+    text = _ingest_text(card.tokenizer)
+    n_tok = len(card.tokenizer.encode(text))
+    secs = {}
+    for side, eng in (("cuda", card), ("cpu", cpu)):
+        sync = torch.cuda.synchronize if side == "cuda" else (lambda: None)
+        s = secs[side] = {}
+        for obj, name in ((eng, "process_model"), (eng, "prefill"),
+                          (eng.dedup, "store_vectors"),
+                          (eng.router, "update_routing"),
+                          (eng.anns, "index_compressed")):
+            _timed(obj, name, s, sync)
+    _build.reset_launch_counts()
+    out = {}
+    for side, eng in (("cuda", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        r = eng.process_model(text)
+        n1 = eng.prefill(text)
+        n2 = eng.prefill(text)
+        hits = eng.prefill_prefix_hits
+        ext = text + " and the quick brown fox"
+        n3 = eng.prefill(ext)
+        out[side] = dict(process=r, new=(n1, n2, n3), hits=hits,
+                         total=len(eng.tokenizer.encode(ext)),
+                         wall_s=time.perf_counter() - t0)
+        if side == "cuda":
+            counts = dict(_build.launch_counts)
+    c, p = out["cuda"], out["cpu"]
+    log(f"  text of {n_tok} tokens; native runtime "
+        f"{'built' if native.NATIVE_AVAILABLE else 'MISSING'}; card "
+        f"{c['process']} new {c['new']}, CPU {p['process']} new {p['new']}; "
+        f"kernel launches {counts}")
+    for side in secs:
+        log(f"  {side}: whole {out[side]['wall_s']:.2f} s; " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in secs[side].items()))
+    bad = []
+    if c["process"] != p["process"] or c["new"] != p["new"] or \
+            c["hits"] != p["hits"]:
+        bad.append("process_model / prefill counts differ")
+    n1, n2, n3 = c["new"]
+    if not (c["process"]["tokens"] == n_tok == n1 and n2 == 0 and
+            c["hits"] == n1 and n3 == c["total"] - n1 and
+            c["process"]["dedup_hits"] > 0):
+        bad.append(f"prompt cache: new {c['new']}, hits {c['hits']}")
+    # compressed rows: the engine's own embedding and bit widths
+    ids = [f"model:{i}" for i in range(n_tok)]
+    emb_c = card._embed(card.tokenizer.encode(text))
+    t0 = time.perf_counter()
+    rows_c = compress_rows(emb_c, card.system_config.quantization_bits, ids,
+                           device="cuda")
+    t_c = time.perf_counter() - t0
+    rows_p = compress_rows(emb_c.cpu(), cpu.system_config.quantization_bits,
+                           ids, device="cpu")
+    pairs = list(zip(rows_c, rows_p)) + [
+        (card._prefill_store[k], cpu._prefill_store[k])
+        for k in sorted(cpu._prefill_store)]
+    if sorted(card._prefill_store) != sorted(cpu._prefill_store) or any(
+            not (np.array_equal(a.data, b.data) and a.bits == b.bits and
+                 a.quant_scale == b.quant_scale and
+                 a.quant_zero_point == b.quant_zero_point)
+            for a, b in pairs):
+        bad.append("compressed rows differ")
+    # the index: queries of token rows (repeated words: tied rows)
+    worst, tied = 0.0, 0
+    for q in emb_c[: 8 * 37: 37].cpu().numpy():
+        a, b = card.anns.search(q, 16), cpu.anns.search(q, 16)
+        tied += len({s for _, s in a}) < len(a)
+        worst = max([worst] + [abs(x[1] - y[1]) for x, y in zip(a, b)])
+        if [i for i, _ in a] != [i for i, _ in b]:
+            bad.append(f"top-16 ids differ: {a[:4]} vs {b[:4]}")
+    if worst > 1e-5 or tied == 0:
+        bad.append(f"similarities {worst}, {tied} queries with ties")
+    if card.router.shard_sizes() != cpu.router.shard_sizes() or \
+            card.router.edges != cpu.router.edges:
+        bad.append("router shards or edges differ")
+    keys = sorted(cpu._prefill_store) + ["missing"]
+    if any(not np.array_equal(x, y) for x, y in zip(
+            card.get_cached_vectors(keys), cpu.get_cached_vectors(keys))):
+        bad.append("get_cached_vectors differ")
+    if card.stats() != cpu.stats():
+        bad.append(f"stats {card.stats()} vs {cpu.stats()}")
+    want = {v.id: np.asarray(v.data, np.uint8).tobytes() for v in rows_c}
+    got = dict(zip(ids, card.dedup.read_vectors(ids)))
+    if got != want:
+        bad.append("the store does not read every vector back")
+    log(f"  rows, prefill vectors, router, stats and store checked; index "
+        f"worst |sim| difference {worst:.3g} (bound 1e-5), {tied} of 8 "
+        f"queries with tied rows; compress_rows on the card {t_c:.3f} s; "
+        f"stats {card.stats()}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return dict(tokens=n_tok, card=c, cpu=p, seconds=secs, counts=counts,
+                index_sim_worst=worst, stats=card.stats())
+
+
 def cli():
     """The command line on the card, each command its own process: `sample
     --bits 4 --batch 2 --seq-len 32` (two lines of text), `quantize --bits
     4 --quant-method gptq --out <stem>` (one JSON line, the checkpoint
-    written), then `ppl --checkpoint <stem>` loading it (one JSON line)."""
+    written), `ppl --checkpoint <stem>` loading it (one JSON line), then
+    `ingest --file <text>` (one JSON line, JAX's keys, sorted)."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
     stem = os.path.join(root, "build", "cli_smoke", "anchor-gptq4")
 
+    # the default store of `ingest` goes to the temporary directory: this one
+    env = dict(os.environ, TMPDIR=os.path.dirname(stem))
+    os.makedirs(os.path.dirname(stem), exist_ok=True)
+
     def run(*argv):
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, "-m", "diffusion_llm_rs_tpu_torch", *argv],
-            cwd=root, capture_output=True, text=True, timeout=300)
+            cwd=root, capture_output=True, text=True, timeout=300, env=env)
         dt = time.perf_counter() - t0
         log(f"  {' '.join(argv[:1])}: exit {out.returncode} in {dt:.1f} s; "
             f"stdout {out.stdout.strip()[:300]!r}")
@@ -2365,8 +2545,21 @@ def cli():
     ppl = json.loads(lines[-1])
     if not (ppl["perplexity"] > 0 and ppl["bits"] == 4):
         raise AssertionError(f"ppl printed {ppl}")
+    corpus = os.path.join(os.path.dirname(stem), "corpus.txt")
+    with open(corpus, "w") as f:
+        f.write("bird hunts near the forest then sleeps near the forest")
+    lines, t_ingest = run("ingest", "--file", corpus)
+    ing = json.loads(lines[-1])
+    keys = {"dedup_hits", "indexed_vectors", "kv_cache_bytes",
+            "kv_cache_entries", "prefill_vectors", "read_amplification",
+            "router_nodes", "stored", "tokens", "unique_bytes", "vectors",
+            "weight_bits"}
+    if set(ing) != keys or list(ing) != sorted(ing) or not (
+            ing["tokens"] > 0 and ing["stored"] > 0 and
+            ing["indexed_vectors"] == ing["router_nodes"] == ing["tokens"]):
+        raise AssertionError(f"ingest printed {ing}")
     return dict(sample_s=t_sample, quantize=rec, quantize_s=t_quant,
-                ppl=ppl, ppl_s=t_ppl)
+                ppl=ppl, ppl_s=t_ppl, ingest=ing, ingest_s=t_ingest)
 
 
 def engine_check():
@@ -2456,84 +2649,84 @@ KERNELS = {
 ALSO_BUILT_FROM = {"matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",)}
 
 
-# Run in a checkout of an earlier commit (cwd): that checkout's quantized-KV
-# attention at the timed QA_CASES and its single-sequence paged_attention at
-# PAGED_CASE (full pages), timed by its own chip_smoke.py helpers on inputs
-# made as the kernels phase makes them; prints one JSON line.
-PARENT_CODE = """
+# Run in a checkout (cwd), this one or an earlier commit's: the full-width
+# W4A8 sampler of `sampler` (B=8, S=256, 32 steps, then decode_tokens) built
+# by that checkout's own chip_smoke.py in a fresh process, with the device
+# memory it holds and its peak; prints one JSON line.
+MEMORY_CODE = """
 import json, torch, chip_smoke as c
-from diffusion_llm_rs_tpu_torch.ops import _build, attention as qa
-from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
+from diffusion_llm_rs_tpu_torch.models.diffusion import sample
+from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+from diffusion_llm_rs_tpu_torch.ops import _build
 c.device()
-_build.build(("quant_attention", "paged_attention"))
-gen = torch.Generator(device="cuda").manual_seed(1234)
-res = {"quant_attention": [], "paged_attention": []}
-for label, BH, Sq, Skv, bits, D in json.loads('@QA@'):
-    q = torch.randn((BH, Sq, D), generator=gen, device="cuda").to(torch.bfloat16)
-    k, v = (qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen,
-                                       device="cuda"), bits) for _ in range(2))
-    res["quant_attention"].append(dict(shape='@QALABEL@'.format(
-        label=label, BH=BH, Sq=Sq, Skv=Skv, D=D, bits=bits),
-        ms=c.time_ms(lambda: qa.attention(q, k, v))))
-BH, Sq, n, bits, P, D = json.loads('@PAGED@')
-pools = c._quantized_pools(gen, 2 * n, BH, P, D, 1, bits)
-q = torch.randn((BH, Sq, D), generator=gen, device="cuda").to(torch.bfloat16)
-pt = torch.randperm(2 * n, generator=gen, device="cuda")[:n].to(torch.int32)
-nt = torch.full((n,), P, dtype=torch.int32, device="cuda")
-res["paged_attention"].append(dict(shape='@PAGEDLABEL@', ms=c.time_ms(
-    lambda: pa.paged_attention(q, pt, *pools, bits=bits, page_tokens=nt))))
-print(json.dumps(res))
-""".replace("@QA@", json.dumps([(c[0],) + c[1:5] + c[6:] for c in QA_CASES
-                                 if c[5]])).replace(
-    "@QALABEL@", _qa_label("{label}", "{BH}", "{Sq}", "{Skv}", "{bits}",
-                           "{D}")).replace(
-    "@PAGED@", json.dumps(PAGED_CASE)).replace(
-    "@PAGEDLABEL@", _paged_label("full pages", *PAGED_CASE))
+_build.build(("int8_gemm", "int8_mlp"))
+cfg, params = c.full_width_model(max_seq=4096)
+schedule, model_fn = c._sampler(cfg, params, "cuda")
+gen = torch.Generator(device="cuda").manual_seed(7)
+shape = (8, 256, cfg.hidden_size)
+sample(model_fn, schedule, shape, gen, num_steps=2)
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+held = torch.cuda.memory_allocated()
+x = sample(model_fn, schedule, shape, gen, num_steps=32)
+tokens = dn.decode_tokens(params, x)
+torch.cuda.synchronize()
+k = c._k_major_bytes(params)
+print(json.dumps(dict(held_bytes=held,
+                      peak_bytes=torch.cuda.max_memory_allocated(),
+                      k_major_copy_bytes=k["mlp"] + k["linears"])))
+"""
 
 
-def _parent_kernels(parent):
-    """Start quantized-KV attention and the single-sequence paged attention
-    of another checkout (the commit before a redesign, unpacked into
-    `parent`), timed by that checkout's own chip_smoke.py, in a process of
-    its own; returns the process. `_parent_times` reads its result."""
-    return subprocess.Popen([sys.executable, "-c", PARENT_CODE], cwd=parent,
+def _memory_run(checkout):
+    """Start MEMORY_CODE in `checkout`, a process of its own; `_memory_read`
+    reads its result."""
+    return subprocess.Popen([sys.executable, "-c", MEMORY_CODE], cwd=checkout,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
 
 
-def _parent_times(proc, label):
+def _memory_read(proc, label):
     out, _ = proc.communicate(timeout=900)
     if proc.returncode != 0:
-        raise RuntimeError(f"parent kernels ({label}) failed:\n{out[-4000:]}")
-    timed = json.loads(out.strip().splitlines()[-1])
-    for name, rows in timed.items():
-        for r in rows:
-            log(f"  parent ({label}) {name} {r['shape']}: {r['ms']:.4f} ms")
-    return timed
+        raise RuntimeError(f"sampler memory ({label}) failed:\n{out[-4000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    log(f"  {label}: sampler holds {rec['held_bytes'] / 2**20:.1f} MiB, peak "
+        f"{rec['peak_bytes'] / 2**20:.1f} MiB, K-major copies "
+        f"{rec['k_major_copy_bytes'] / 1e6:.1f} MB")
+    return rec
 
 
 def main() -> int:
-    """`--parent DIR`: also time quantized-KV attention and the
-    single-sequence paged attention of the checkout in DIR (the commit
-    before a redesign) by its own chip_smoke.py, before the kernels phase
-    (built beside this checkout's kernels) and after it."""
+    """`--parent DIR`: also run the full-width sampler of the checkout in
+    DIR (the parent commit) and of this one, each built by its own
+    chip_smoke.py in a process of its own, and log the device memory each
+    holds and its peak: parent (beside this checkout's build), this
+    checkout, this checkout, parent."""
+    import os
     parent = sys.argv[sys.argv.index("--parent") + 1] \
         if "--parent" in sys.argv else None
+    root = os.path.dirname(os.path.abspath(__file__))
     phase(device)
     if failures:
         return 1
-    before = _parent_kernels(parent) if parent else None
+    before = _memory_run(parent) if parent else None
     phase(build)
     if failures:
         return 1
     parent_runs = {}
     if before is not None:
-        log("== parent kernels, before")
-        parent_runs["before"] = _parent_times(before, "before")
+        log("== sampler memory: parent, this checkout, this checkout, parent")
+        parent_runs["parent_before"] = _memory_read(before, "parent")
+        for label in ("this_1", "this_2"):
+            parent_runs[label] = _memory_read(_memory_run(root), label)
+        parent_runs["parent_after"] = _memory_read(_memory_run(parent),
+                                                   "parent")
+        saved = (parent_runs["parent_after"]["held_bytes"]
+                 - parent_runs["this_2"]["held_bytes"])
+        log(f"  held by the parent minus held by this checkout: "
+            f"{saved / 1e6:.1f} MB")
     measured = phase(kernels)
-    if parent:
-        log("== parent kernels, after")
-        parent_runs["after"] = _parent_times(_parent_kernels(parent), "after")
     runs = {"sampler": phase(sampler)}
     if runs["sampler"] is not None:
         for fn in (long_seq, scan_sampler, scan_check, profile, fused_qkv,
@@ -2543,7 +2736,7 @@ def main() -> int:
     MODEL.clear()  # the engine phases build their own models
     torch.cuda.empty_cache()
     for fn in (engine_packed, engine_packed_a8, engine_anchor, train_grad,
-               engine_gptq, cli):
+               engine_gptq, engine_ingest, cli):
         runs[fn.__name__] = phase(fn)
     if "engine16" in MODEL and "engine8" in MODEL:
         runs["engine_check"] = phase(engine_check)
@@ -2575,7 +2768,7 @@ def main() -> int:
             return 1
     log(json.dumps({"kernels": entries}))
     if parent_runs:
-        runs["parent_kernels"] = parent_runs
+        runs["parent_memory"] = parent_runs
     log(json.dumps(runs))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

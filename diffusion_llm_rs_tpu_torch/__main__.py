@@ -9,8 +9,8 @@ subcommands, flags and outputs:
   serve      continuous-batching throughput demo (one JSON line)
   quantize   weight quantization, optionally saved as a checkpoint that
              both packages load (one JSON line)
-  ingest     needs `Engine.process_model`, not ported yet (ROADMAP.md item
-             A11): exits non-zero saying so
+  ingest     the `process_model` pipeline on a text, then the engine's
+             stats (one JSON line, keys sorted)
 
 All commands default to the shipped pretrained anchor
 (`Engine.from_pretrained()`); `--random-init` builds a random model.
@@ -94,8 +94,11 @@ def cmd_ppl(args):
 
 
 def cmd_ingest(args):
-    raise SystemExit("ingest needs Engine.process_model, which is not ported "
-                     "yet (ROADMAP.md item A11)")
+    eng = _build_engine(args)
+    text = open(args.file).read() if args.file else sys.stdin.read()
+    stats = eng.process_model(text, model_id=args.model_id)
+    stats.update(eng.stats())
+    print(json.dumps({k: v for k, v in sorted(stats.items())}, default=float))
 
 
 def cmd_serve(args):
@@ -176,8 +179,7 @@ def main(argv=None):
     p.add_argument("--t", type=int, default=10)
     p.set_defaults(fn=cmd_ppl)
 
-    p = sub.add_parser("ingest", help="process_model pipeline on a text "
-                                      "(not ported yet: ROADMAP.md item A11)")
+    p = sub.add_parser("ingest", help="process_model pipeline on a text")
     _add_engine_args(p)
     p.add_argument("--file", default=None, help="default: read stdin")
     p.add_argument("--model-id", default="model")

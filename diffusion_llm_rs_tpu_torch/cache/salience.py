@@ -1,20 +1,156 @@
-"""Salience-driven per-page bit allocation under an average-bits budget.
+"""Salience engine: access-pattern scoring, cache decisions and per-page
+bit allocation under an average-bits budget.
 
-Counterpart of the part of `diffusion_llm_rs_tpu/cache/salience.py` that
-serving calls: `allocate_bits` (numpy, copied verbatim) and
+Counterpart of `diffusion_llm_rs_tpu/cache/salience.py`: `AccessPattern`,
+`ImportanceScorer`, `CacheOptimizer`, `PrefillPredictor` and
+`SalienceEngine` (host Python, copied; the methods that read the clock also
+take an explicit `now`), `allocate_bits` (numpy, copied verbatim) and
 `allocate_bits_torch`, the twin of `allocate_bits_jnp` batched over slots,
-which the fused serving chunk runs on the device. Both are the same greedy
-with the same f32 budget arithmetic and the same visiting order (stable
-descending sort, invalid pages last), so their assignments are identical.
-`SalienceEngine` and the scorers above it are not ported yet.
+which the fused serving chunk runs on the device. The two allocators are the
+same greedy with the same f32 budget arithmetic and the same visiting order
+(stable descending sort, invalid pages last), so their assignments are
+identical.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+import time
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class AccessPattern:
+    """How often and how recently a vector was accessed."""
+
+    frequency: int = 0
+    recency: float = 0.0  # unix timestamp of last access
+    importance_score: float = 0.0
+
+
+class ImportanceScorer:
+    """Access-pattern scorer: frequency times an exponential decay of the
+    time since the last access (half-life `half_life_s`)."""
+
+    def __init__(self, half_life_s: float = 300.0):
+        self.half_life_s = half_life_s
+        self.access_patterns: Dict[str, AccessPattern] = {}
+        self.weights: Dict[str, float] = {}
+
+    def update(self, vector_id: str, now: Optional[float] = None) -> None:
+        now = time.time() if now is None else now
+        pat = self.access_patterns.setdefault(vector_id, AccessPattern())
+        pat.frequency += 1
+        pat.recency = now
+        pat.importance_score = self.score(vector_id, now)
+
+    def score(self, vector_id: str, now: Optional[float] = None) -> float:
+        pat = self.access_patterns.get(vector_id)
+        if pat is None:
+            return 0.0
+        now = time.time() if now is None else now
+        age = max(now - pat.recency, 0.0)
+        decay = 0.5 ** (age / self.half_life_s)
+        return float(pat.frequency) * decay
+
+
+class CacheOptimizer:
+    """Eviction-order selection: the `cache_size` most salient ids."""
+
+    def __init__(self, cache_size: int, eviction_policy: str = "salience"):
+        self.cache_size = cache_size
+        self.eviction_policy = eviction_policy
+
+    def optimize(self, ids: Sequence[str], scorer: ImportanceScorer,
+                 now: Optional[float] = None) -> List[str]:
+        ranked = sorted(ids, key=lambda i: -scorer.score(i, now))
+        return ranked[: self.cache_size]
+
+
+class PrefillPredictor:
+    """Linear reuse-probability predictor over (frequency, importance)."""
+
+    def __init__(self, feature_dim: int = 2):
+        self.weights = np.zeros((feature_dim,), np.float32)
+        self.bias = 0.0
+        self.accuracy = 0.0
+
+    def predict(self, pattern: Optional[AccessPattern]) -> float:
+        if pattern is None:
+            return 0.0
+        feats = np.array([pattern.frequency,
+                          pattern.importance_score], np.float32)
+        return float(feats[: self.weights.size] @ self.weights + self.bias)
+
+
+class SalienceEngine:
+    """The scorer, the eviction order and the predictor behind one facade,
+    plus a word-frequency scorer over prompts with a bounded cache. The
+    methods that read the clock take an optional `now` (seconds since the
+    epoch; default `time.time()`)."""
+
+    def __init__(self, cache_size: int = 1 << 20, half_life_s: float = 300.0):
+        self.scorer = ImportanceScorer(half_life_s=half_life_s)
+        self.cache_optimizer = CacheOptimizer(cache_size)
+        self.prefill_predictor = PrefillPredictor()
+        self.cache_size = cache_size
+        self._word_cache: "OrderedDict[str, float]" = OrderedDict()
+
+    # -- vector-id interface (standalone variant) ---------------------------
+
+    def update(self, vector_id: str, now: Optional[float] = None) -> None:
+        self.scorer.update(vector_id, now)
+
+    def optimize(self, ids: Sequence[str],
+                 now: Optional[float] = None) -> List[str]:
+        return self.cache_optimizer.optimize(ids, self.scorer, now)
+
+    def predict(self, vector_id: str) -> float:
+        return self.prefill_predictor.predict(
+            self.scorer.access_patterns.get(vector_id))
+
+    def score(self, vector_id: str, now: Optional[float] = None) -> float:
+        """0.7 * base + 0.3 * predicted."""
+        return (0.7 * self.scorer.score(vector_id, now)
+                + 0.3 * self.predict(vector_id))
+
+    # -- text interface -----------------------------------------------------
+
+    def calculate(self, text: str) -> Dict[str, float]:
+        """Word-frequency salience with a bounded FIFO cache."""
+        scores: Dict[str, float] = {}
+        for word in text.split():
+            w = word.lower()
+            scores[w] = scores.get(w, 0.0) + 1.0
+        for word, score in scores.items():
+            self._word_cache[word] = score
+            self._word_cache.move_to_end(word)
+            while len(self._word_cache) > self.cache_size:
+                self._word_cache.popitem(last=False)
+        return scores
+
+    def get_cached_score(self, word: str) -> Optional[float]:
+        return self._word_cache.get(word.lower())
+
+    # -- salience-driven per-block bit allocation --------------------------
+
+    def allocate_bits(
+        self,
+        scores: np.ndarray,
+        budget_bits: float,
+        bit_options: Sequence[int] = (8, 4, 2, 1),
+    ) -> np.ndarray:
+        """Assign a bit-width per block so mean(bits) <= budget_bits, giving
+        the most salient blocks the highest precision.
+
+        Greedy: start everything at the lowest width, then upgrade blocks in
+        descending-salience order while the budget allows.
+        """
+        return allocate_bits(scores, budget_bits, bit_options)
 
 
 def allocate_bits(scores, budget_bits: float,

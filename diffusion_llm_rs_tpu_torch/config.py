@@ -1,10 +1,14 @@
 """Configuration dataclasses, JSON round-trip compatible with the JAX package.
 
 Counterpart of `diffusion_llm_rs_tpu/config.py` (`PhaseQuantConfig`,
-`WeightQuantConfig`, `DiffusionConfig`, `to_json`,
-`diffusion_config_from_json`). The JAX module imports its `BetaSchedule`
-from a JAX module, so this package keeps its own copy of the enum: the same
-JSON text loads into both packages.
+`WeightQuantConfig`, `DiffusionConfig`, `PrefillConfig`, `SystemConfig`,
+`to_json`, `diffusion_config_from_json`). The JAX module imports its
+`BetaSchedule` from a JAX module, so this package keeps its own copy of the
+enum: the same JSON text loads into both packages. `SystemConfig.ssd_path`
+defaults to a store file of this package's own name in the temporary
+directory, so the two packages' engines never append to one file.
+`mesh_shape` and `mesh_axis_names` are kept for the JSON; nothing in this
+package reads them yet.
 """
 
 from __future__ import annotations
@@ -12,6 +16,9 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
+import os
+import tempfile
+from typing import Tuple
 
 
 class BetaSchedule(str, enum.Enum):
@@ -83,6 +90,39 @@ class DiffusionConfig:
                         dtype="float32")  # tests compare at f32 tolerances
         defaults.update(kw)
         return cls(**defaults)
+
+
+@dataclasses.dataclass
+class PrefillConfig:
+    """Prefill / prompt-cache settings."""
+
+    cache_size: int = 1024 * 1024 * 1024  # 1 GiB
+    embedding_dim: int = 768
+    num_quantizers: int = 4
+    quant_bits: Tuple[int, ...] = (4, 8)
+    max_sequence_length: int = 2048
+    page_size: int = 64  # tokens per KV page
+
+
+def _default_ssd_path() -> str:
+    return os.path.join(tempfile.gettempdir(),
+                        "diffusion_llm_rs_tpu_torch_store.bin")
+
+
+@dataclasses.dataclass
+class SystemConfig:
+    """Top-level coordinator settings: the widths `process_model` cycles
+    over, the dedup store, the memory budget."""
+
+    quantization_bits: Tuple[int, ...] = (1, 2, 4, 8)
+    ssd_path: str = dataclasses.field(default_factory=_default_ssd_path)
+    hbm_size_gb: int = 16
+    batch_size: int = 32
+    num_blocks: int = 64
+    enable_direct_io: bool = False
+    dedup_buffer_size_mb: int = 256
+    mesh_shape: Tuple[int, ...] = (1, 1)   # (data, model)
+    mesh_axis_names: Tuple[str, ...] = ("data", "model")
 
 
 def _to_jsonable(obj):

@@ -1,8 +1,10 @@
 """Engine: the end-user facade over the denoiser, its quantized weights and
 the paged serving batcher.
 
-Counterpart of `diffusion_llm_rs_tpu/engine.py`, for the part of it that is
-ported: construction (random or given parameters), `from_pretrained` (a
+Counterpart of `diffusion_llm_rs_tpu/engine.py`: construction (random or
+given parameters, with the prefill and system settings, building the
+salience engine, the ANN index, the router, the dedup store and the memory
+manager), `from_pretrained` (a
 checkpoint with its config and tokenizer), `quantize_weights` (1/2/4/8-bit
 integers by round to nearest or by GPTQ, by default repacked into the
 `MatmulWeight` layout the packed matmul kernel reads; or fp8), greedy
@@ -11,14 +13,16 @@ next-token memo, `sample` through `serving.PagedContinuousBatcher` or, with
 `use_paged=False` and for sequence lengths no page size divides, through the
 phase-aware sampler over a carried quantized KV cache
 (`models.sampler.phase_aware_sample`), `denoising_perplexity`, the KV-cache
-manager's accounting, and the model-side keys of `stats`.
-
-Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: `prefill`, `process_model`, `tokenize_model`, `get_cached_vectors`,
-the attention-mask cache and the dedup / index / router keys of `stats`
-(A11). Only the ported subsystems are constructed.
+manager's accounting, the host-side ingestion stack (`tokenize_model`, the
+attention-mask cache, `process_model`: tokenize, embed, compress, store with
+dedup, route, index; `prefill` with its suffix-automaton prompt cache;
+`get_cached_vectors`) and `stats` with the dedup, index and router keys.
 
 Everything runs on `device`: the card unless the caller asks for the CPU.
+Embeddings are taken on the device, compressed there a bit width at a time
+(`index.anns.compress_rows`) and copied to the host once; the ANN index
+keeps its quantized matrix on the device; the store, the router and the
+prompt cache are host code, as in the JAX package.
 Where the JAX package draws from a PRNG key, this one draws from a seeded
 `torch.Generator` on the device, or takes the noise from the caller.
 """
@@ -27,17 +31,24 @@ from __future__ import annotations
 
 import os
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from diffusion_llm_rs_tpu_torch.cache.kv_cache import KVCacheManager
-from diffusion_llm_rs_tpu_torch.config import DiffusionConfig
+from diffusion_llm_rs_tpu_torch.cache.memory_manager import MemoryManager
+from diffusion_llm_rs_tpu_torch.cache.salience import SalienceEngine
+from diffusion_llm_rs_tpu_torch.cache.suffix_tree import SuffixTree
+from diffusion_llm_rs_tpu_torch.config import (DiffusionConfig, PrefillConfig,
+                                               SystemConfig)
+from diffusion_llm_rs_tpu_torch.index.anns import (CompressedVector,
+                                                   FusionANNS, compress_rows)
 from diffusion_llm_rs_tpu_torch.models import denoiser as dn
 from diffusion_llm_rs_tpu_torch.models.diffusion import (DiffusionSchedule,
                                                          add_noise)
 from diffusion_llm_rs_tpu_torch.models.sampler import phase_aware_sample
+from diffusion_llm_rs_tpu_torch.models.types import TokenizedVector
 from diffusion_llm_rs_tpu_torch.ops.matmul import Int8Weight, MatmulWeight
 from diffusion_llm_rs_tpu_torch.ops.packed_matmul import prepare
 from diffusion_llm_rs_tpu_torch.quant.core import (Fp8Tensor, QuantizedTensor,
@@ -45,6 +56,8 @@ from diffusion_llm_rs_tpu_torch.quant.core import (Fp8Tensor, QuantizedTensor,
                                                    quantize_tree, tree_leaves)
 from diffusion_llm_rs_tpu_torch.quant.gptq import (gptq_quantize_tree,
                                                    make_calib_batches)
+from diffusion_llm_rs_tpu_torch.router.router import NSRouter
+from diffusion_llm_rs_tpu_torch.storage.dedup import IODedupEngine
 from diffusion_llm_rs_tpu_torch.tokenizer.bpe import BPETokenizer
 from diffusion_llm_rs_tpu_torch.utils.serialization import (get_metadata,
                                                             load_checkpoint)
@@ -68,29 +81,24 @@ def _default_tokenizer(vocab_size: int) -> BPETokenizer:
     return BPETokenizer.train(seed_corpus, min(vocab_size, 320))
 
 
-def _deferred(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md item {item})")
-
-
 class Engine:
     """End-to-end quantized diffusion-LM inference engine."""
 
     def __init__(
         self,
         config: Optional[DiffusionConfig] = None,
-        prefill_config=None,
-        system_config=None,
+        prefill_config: Optional[PrefillConfig] = None,
+        system_config: Optional[SystemConfig] = None,
         tokenizer: Optional[BPETokenizer] = None,
         params=None,
         seed: int = 0,
         device="cuda",
     ):
-        if prefill_config is not None or system_config is not None:
-            raise _deferred("the prefill store and the storage / index / "
-                            "router subsystems these configure", "A11")
         self.device = torch.device(device)
         self.config = config or DiffusionConfig()
+        self.prefill_config = prefill_config or PrefillConfig(
+            embedding_dim=self.config.hidden_size)
+        self.system_config = system_config or SystemConfig()
         self.tokenizer = tokenizer or _default_tokenizer(self.config.vocab_size)
         if self.tokenizer.vocab_size > self.config.vocab_size:
             raise ValueError(
@@ -112,6 +120,26 @@ class Engine:
             prefill_bits=self.config.quant_config.prefill_bits,
             decode_bits=self.config.quant_config.decode_bits,
             device=self.device)
+        # the host-side stack: salience, ANN index, router, dedup store,
+        # memory manager
+        self.salience = SalienceEngine(cache_size=self.prefill_config.cache_size)
+        self.anns = FusionANNS(embedding_dim=self.config.hidden_size,
+                               device=self.device)
+        self.router = NSRouter()
+        sc = self.system_config
+        self.dedup = IODedupEngine(path=sc.ssd_path,
+                                   enable_direct_io=sc.enable_direct_io,
+                                   batch_size=sc.batch_size,
+                                   dedup_buffer_size_mb=sc.dedup_buffer_size_mb)
+        self.memory = MemoryManager(hbm_budget=sc.hbm_size_gb << 30,
+                                    device=self.device)
+        self._prefill_store: Dict[str, CompressedVector] = {}
+        self._attention_masks: Dict[str, np.ndarray] = {}
+        # prompt cache: per cache id, a suffix automaton over the prefilled
+        # text and the token ids it indexed, so a repeated or extended
+        # prompt skips embedding and quantizing the matched prefix
+        self._prefix_index: Dict[str, Tuple[SuffixTree, List[int]]] = {}
+        self.prefill_prefix_hits = 0
         self._weight_bits: Optional[int] = None
         # next-token memo for the greedy generate loop: the denoiser is
         # bidirectional, so the valid reuse is an exact-prefix memo. LRU-capped
@@ -220,6 +248,8 @@ class Engine:
     def _invalidate_param_memos(self) -> None:
         """Drop every cache keyed on (or derived from) self.params."""
         self._ntp_cache.clear()
+        self._prefill_store.clear()
+        self._prefix_index.clear()
         self._samplers.clear()
         # KV entries hold K/V computed from the old parameters
         self.kv_cache.clear()
@@ -235,26 +265,106 @@ class Engine:
         return self.kv_cache.memory_usage()
 
     # ------------------------------------------------------------------
-    # not ported yet
+    # tokenization + attention-mask cache
     # ------------------------------------------------------------------
 
+    def _embed(self, token_ids: Sequence[int]) -> torch.Tensor:
+        """Embedding rows [n, D] (f32, on the device) of token ids."""
+        ids = torch.tensor([list(token_ids)], dtype=torch.int64,
+                           device=self.device)
+        return dn.embed_tokens(self.params, ids)[0]
+
     def tokenize_model(self, text: str, model_id: str = "model"):
-        raise _deferred("Engine.tokenize_model", "A11")
+        """Tokenize into one TokenizedVector with the embedding rows (host
+        numpy, f32)."""
+        token_ids = self.tokenizer.encode(text)
+        return [TokenizedVector(id=model_id, tokens=token_ids,
+                                embeddings=self._embed(token_ids).cpu().numpy())]
 
     def set_attention_mask(self, vector_id: str, mask) -> None:
-        raise _deferred("the attention-mask cache", "A11")
+        """Cache an attention mask for a vector id."""
+        self._attention_masks[vector_id] = np.asarray(mask, np.float32)
 
     def apply_attention_masks(self, tokens, offsets) -> None:
-        raise _deferred("the attention-mask cache", "A11")
+        """Apply the cached masks to TokenizedVectors at their offsets."""
+        for tv, offset in zip(tokens, offsets):
+            mask = self._attention_masks.get(tv.id)
+            if mask is not None:
+                tv.apply_mask(mask, offset)
 
-    def process_model(self, text: str, model_id: str = "model"):
-        raise _deferred("Engine.process_model", "A11")
+    # ------------------------------------------------------------------
+    # process_model: the ingestion pipeline
+    # ------------------------------------------------------------------
+
+    def process_model(self, text: str, model_id: str = "model") -> Dict[str, int]:
+        """Tokenize -> embed -> compress (bit widths cycling over
+        `system_config.quantization_bits`) -> dedup-store -> route -> index."""
+        token_ids = self.tokenizer.encode(text)
+        ids = [f"{model_id}:{i}" for i in range(len(token_ids))]
+        compressed = compress_rows(self._embed(token_ids),
+                                   self.system_config.quantization_bits, ids,
+                                   device=self.device)
+        written = self.dedup.store_vectors(compressed)
+        self.router.update_routing(compressed)
+        self.anns.index_compressed(compressed)
+        return {"tokens": len(token_ids), "stored": written,
+                "dedup_hits": self.dedup.dedup_hits}
+
+    # ------------------------------------------------------------------
+    # prefill with the prompt cache
+    # ------------------------------------------------------------------
 
     def prefill(self, text: str, cache_id: str = "default") -> int:
-        raise _deferred("Engine.prefill", "A11")
+        """Tokenize -> embed -> quantize -> cache -> salience -> route.
 
-    def get_cached_vectors(self, ids: Sequence[str]):
-        raise _deferred("Engine.get_cached_vectors", "A11")
+        Repeated or prefix-extended prompts reuse the prompt cache: the
+        suffix automaton over the previously prefilled text proposes a
+        match, position-aligned token comparison confirms it, and only the
+        unmatched suffix is embedded, quantized and stored. Returns the
+        number of new tokens processed."""
+        token_ids = self.tokenizer.encode(text)
+        if not token_ids:
+            return 0
+        reuse = 0
+        indexed = self._prefix_index.get(cache_id)
+        if indexed is not None:
+            tree, old_ids = indexed
+            # the automaton's longest prefix of `text` in the indexed text;
+            # comparing tokens pins the match to position 0
+            if tree.longest_match(text) > 0:
+                max_tok = min(len(token_ids), len(old_ids))
+                while reuse < max_tok and token_ids[reuse] == old_ids[reuse]:
+                    reuse += 1
+        new_ids = token_ids[reuse:]
+        self.prefill_prefix_hits += reuse
+        # a shorter or diverged prompt: drop the old tail entries, or
+        # get_cached_vectors would serve the old prompt's embeddings
+        if indexed is not None:
+            for i in range(len(token_ids), len(indexed[1])):
+                self._prefill_store.pop(f"{cache_id}:{i}", None)
+        for i in range(reuse):   # matched prefix: refresh salience only
+            self.salience.update(f"{cache_id}:{i}")
+        if new_ids:
+            ids = [f"{cache_id}:{i}" for i in range(reuse, len(token_ids))]
+            compressed = compress_rows(self._embed(new_ids),
+                                       self.prefill_config.quant_bits, ids,
+                                       device=self.device)
+            for vec in compressed:
+                self._prefill_store[vec.id] = vec
+                self.salience.update(vec.id)
+            self.router.update_routing(compressed)
+        self.salience.calculate(text)
+        self._prefix_index[cache_id] = (SuffixTree(text), token_ids)
+        return len(new_ids)
+
+    def get_cached_vectors(self, ids: Sequence[str]) -> List[np.ndarray]:
+        """Dequantized prefill vectors (host f32); a zero vector on a miss."""
+        out = []
+        for vid in ids:
+            vec = self._prefill_store.get(vid)
+            out.append(vec.dequantize() if vec is not None
+                       else np.zeros((self.config.hidden_size,), np.float32))
+        return out
 
     # ------------------------------------------------------------------
     # generate
@@ -413,13 +523,18 @@ class Engine:
     # ------------------------------------------------------------------
 
     def stats(self) -> Dict[str, float]:
-        """The model-side metrics (the storage, index and router keys come
-        with those subsystems)."""
-        return {
+        """The dedup store's metrics, then the KV cache's, the prefill
+        store's, the index's and the router's sizes and the weight width."""
+        s = dict(self.dedup.stats())
+        s.update({
             "kv_cache_bytes": self.kv_cache.memory_usage(),
             "kv_cache_entries": len(self.kv_cache),
+            "prefill_vectors": len(self._prefill_store),
+            "indexed_vectors": len(self.anns),
+            "router_nodes": len(self.router.nodes),
             "weight_bits": self._weight_bits or self._infer_weight_bits(),
-        }
+        })
+        return s
 
     def _infer_weight_bits(self) -> int:
         """Stored weight width when the parameters came quantized (a

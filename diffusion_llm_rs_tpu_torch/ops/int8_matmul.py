@@ -10,11 +10,10 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_matmul.py`:
     -> int32 dot, f32 epilogue `*sx[m]*col_scale[n] + bias -> gelu ->
     +residual`. On a CUDA tensor `int8w_matmul` launches the kernels of
     `csrc/int8_gemm.cu` (the row quantization, then an s8 `wgmma` core over
-    a K-major copy of the weight, `_k_major`, made once a weight, run as
-    `gemm_plan` says), and `int8w_mlp` the fused kernel of
-    `csrc/int8_mlp.cu`, which keeps the inner activation of 64 rows in the
-    shared memory of a cluster of 3 or 4 blocks (`mlp_plan`; over the same
-    K-major copies); widths too large for it (`mlp_fits`) take
+    the weight read K-major, `_k_major`, run as `gemm_plan` says), and
+    `int8w_mlp` the fused kernel of `csrc/int8_mlp.cu`, which keeps the
+    inner activation of 64 rows in the shared memory of a cluster of 3 or 4
+    blocks (`mlp_plan`; over the same K-major weights); widths too large for it (`mlp_fits`) take
     `int8w_mlp_chained`, the same arithmetic as four launches of
     `csrc/int8_gemm.cu`, counted and logged under its own name. On a CPU
     tensor they run their plain twins `int8w_matmul_plain` /
@@ -383,11 +382,12 @@ def int8w_matmul(x: torch.Tensor, data: torch.Tensor, col_scale: torch.Tensor,
     M = x2.shape[0]
     bias = _epilogue_vec(bias, N, "int8w_matmul")
     residual = _residual(residual, M, N, "int8w_matmul")
-    _check_cuda("int8w_matmul", x2.device, data=data, col_scale=col_scale,
+    wt = _k_major(data)
+    _check_cuda("int8w_matmul", x2.device, data=wt, col_scale=col_scale,
                 bias=bias, residual=residual)
     xi, sx = _quant_rows(x2)
-    out = _gemm(xi, sx, _k_major(data), col_scale, bias, residual,
-                activation == "gelu", out_dtype)
+    out = _gemm(xi, sx, wt, col_scale, bias, residual, activation == "gelu",
+                out_dtype)
     _build.launch_counts["int8w_matmul"] += 1
     return out.reshape(*lead, N)
 
@@ -459,15 +459,19 @@ def _active_clusters(K: int, N: int) -> dict:
     return {cl: fn(K, N, cl) for cl in MLP_CLUSTERS}
 
 
-# K-major copies of the decoded int8 weights, made once per weight tensor:
-# the s8 tensor-core products read both operands K-major, and the weights
-# keep JAX's [K, N] layout. id(weight) -> (weakref, version, copy).
+# K-major copies of int8 weights that are not held K-major already, made
+# once per weight tensor: the s8 tensor-core products read both operands
+# K-major. A card `Int8Weight` holds its one copy K-major (`ops/matmul.py`),
+# so it never lands here. id(weight) -> (weakref, version, copy).
 _k_major_copies: dict = {}
 
 
 def _k_major(w: torch.Tensor) -> torch.Tensor:
-    """w^T, contiguous, from a cache that drops the copy with the weight and
-    remakes it after an in-place change."""
+    """w^T [N, K], contiguous: the view itself where w is the transposed
+    view of a K-major tensor, else a copy from a cache that drops the copy
+    with the weight and remakes it after an in-place change."""
+    if w.t().is_contiguous():
+        return w.t()
     key = id(w)
     hit = _k_major_copies.get(key)
     if hit is not None and hit[0]() is w and hit[1] == w._version:
@@ -481,7 +485,8 @@ def _k_major(w: torch.Tensor) -> torch.Tensor:
 
 def _mlp_args(name, x, w1_data, cs1, b1, w2_data, cs2, b2, residual,
               out_dtype):
-    """Checked, contiguous kernel operands of an MLP call on the card."""
+    """Checked, contiguous kernel operands of an MLP call on the card, the
+    weights K-major."""
     K = x.shape[-1]
     N1, N2 = w1_data.shape[1], w2_data.shape[1]
     _check_weight(name, w1_data, cs1, K)
@@ -493,9 +498,10 @@ def _mlp_args(name, x, w1_data, cs1, b1, w2_data, cs2, b2, residual,
     b1 = _epilogue_vec(b1, N1, name)
     b2 = _epilogue_vec(b2, N2, name)
     residual = _residual(residual, M, N2, name)
-    _check_cuda(name, x2.device, w1_data=w1_data, cs1=cs1, b1=b1,
-                w2_data=w2_data, cs2=cs2, b2=b2, residual=residual)
-    return x2, b1, b2, residual
+    w1t, w2t = _k_major(w1_data), _k_major(w2_data)
+    _check_cuda(name, x2.device, w1_data=w1t, cs1=cs1, b1=b1, w2_data=w2t,
+                cs2=cs2, b2=b2, residual=residual)
+    return x2, w1t, w2t, b1, b2, residual
 
 
 def int8w_mlp_chained(x: torch.Tensor, w1_data: torch.Tensor,
@@ -509,14 +515,13 @@ def int8w_mlp_chained(x: torch.Tensor, w1_data: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"int8w_mlp_chained: unsupported device {x.device}")
     N2 = w2_data.shape[1]
-    x2, b1, b2, residual = _mlp_args("int8w_mlp_chained", x, w1_data, cs1, b1,
-                                     w2_data, cs2, b2, residual, out_dtype)
+    x2, w1t, w2t, b1, b2, residual = _mlp_args(
+        "int8w_mlp_chained", x, w1_data, cs1, b1, w2_data, cs2, b2, residual,
+        out_dtype)
     xi, sx = _quant_rows(x2)
-    inner = _gemm(xi, sx, _k_major(w1_data), cs1, b1, None, True,
-                  torch.float32)
+    inner = _gemm(xi, sx, w1t, cs1, b1, None, True, torch.float32)
     yi, sy = _quant_rows(inner)
-    out = _gemm(yi, sy, _k_major(w2_data), cs2, b2, residual, False,
-                out_dtype)
+    out = _gemm(yi, sy, w2t, cs2, b2, residual, False, out_dtype)
     _build.launch_counts["int8w_mlp_chained"] += 1
     return out.reshape(*x.shape[:-1], N2)
 
@@ -544,14 +549,14 @@ def int8w_mlp(x: torch.Tensor, w1_data: torch.Tensor, cs1: torch.Tensor,
                          "fused kernel; running int8w_mlp_chained", K, N1, N2)
         return int8w_mlp_chained(x, w1_data, cs1, b1, w2_data, cs2, b2,
                                  residual, out_dtype)
-    x2, b1, b2, residual = _mlp_args("int8w_mlp", x, w1_data, cs1, b1,
-                                     w2_data, cs2, b2, residual, out_dtype)
+    x2, w1t, w2t, b1, b2, residual = _mlp_args(
+        "int8w_mlp", x, w1_data, cs1, b1, w2_data, cs2, b2, residual,
+        out_dtype)
     M = x2.shape[0]
     plan = mlp_plan(M, K, N1, N2, _active_clusters(K, N2))
     if plan is None:
         raise RuntimeError(f"int8w_mlp: the card runs no cluster of the fused "
                            f"kernel at {K} -> {N1} -> {N2}")
-    w1t, w2t = _k_major(w1_data), _k_major(w2_data)
     out = torch.empty((M, N2), dtype=out_dtype, device=x2.device)
     _build.check(_build.function("dlm_int8_mlp")(
         x2.data_ptr(), w1t.data_ptr(), cs1.data_ptr(), _ptr(b1),

@@ -36,13 +36,34 @@ from diffusion_llm_rs_tpu_torch.quant.core import (
 )
 
 
+def held_layout(data: torch.Tensor, device=None) -> torch.Tensor:
+    """The one copy of an int8 [K, N] weight an `Int8Weight` holds on
+    `device` (default: where `data` is). On the card it is K-major, [N, K]
+    contiguous, and `data` its transposed view [K, N]: the layout the s8
+    kernels read (`int8_matmul._k_major` returns it without a copy). On the
+    CPU it is [K, N] contiguous, JAX's layout, which the plain versions
+    read. A tensor already in the layout is returned as it is."""
+    device = data.device if device is None else torch.device(device)
+    if device.type == "cuda":
+        if data.t().is_contiguous():
+            return data.to(device)  # a dense view keeps its strides
+        return data.t().contiguous().to(device).t()
+    return data.to(device).contiguous()
+
+
 @dataclasses.dataclass(frozen=True)
 class Int8Weight:
     """Decoded int8 weight: the packed sub-byte weight re-gridded once, at load
-    time, onto its per-column signed-int8 grid."""
+    time, onto its per-column signed-int8 grid. `data` is [K, N] whatever the
+    device; on the card it is the view of a K-major copy (`held_layout`),
+    which every constructor and `to` make, so the card holds each weight
+    once."""
 
     data: torch.Tensor        # int8 [K, N]
     col_scale: torch.Tensor   # f32 [1, N]
+
+    def __post_init__(self):
+        object.__setattr__(self, "data", held_layout(self.data))
 
     @property
     def shape(self):
@@ -53,7 +74,8 @@ class Int8Weight:
         return 2
 
     def to(self, device) -> "Int8Weight":
-        return Int8Weight(self.data.to(device), self.col_scale.to(device))
+        return Int8Weight(held_layout(self.data, device),
+                          self.col_scale.to(device))
 
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         return (self.data.to(torch.float32) * self.col_scale).to(dtype)
@@ -73,7 +95,7 @@ def decode_to_int8(w) -> Int8Weight:
             col_scale=torch.clamp_min(true_div(
                 w.dequantize(torch.float32).abs().amax(dim=0, keepdim=True),
                 127.0), 1e-12))
-    return Int8Weight(data=packed_matmul.regrid_int8(w).contiguous(),
+    return Int8Weight(data=packed_matmul.regrid_int8(w),
                       col_scale=w.col_scale.contiguous())
 
 

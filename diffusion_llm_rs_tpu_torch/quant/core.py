@@ -50,6 +50,12 @@ def div_const(a: torch.Tensor, b: float, reciprocal: bool = False) -> torch.Tens
     return a * (one / torch.full((), b, dtype=a.dtype, device=a.device))
 
 
+def packed_last_dim(last: int, bits: int) -> int:
+    """Carrier bytes of `last` values packed at `bits`."""
+    vpb = 8 // bits
+    return -(-last // vpb)  # ceil
+
+
 def pack_bits(q: torch.Tensor, bits: int) -> torch.Tensor:
     """Pack unsigned levels (values in [0, 2^bits-1]) into a uint8 carrier.
 
@@ -118,6 +124,15 @@ class QuantizedTensor:
 
     def sidecar_nbytes(self) -> int:
         return max(self.scale.numel(), 1) * 4 * 2
+
+    def compression_ratio(self, include_sidecar: bool = False) -> float:
+        """Original f32 bytes / compressed bytes: the packed data only, or
+        with include_sidecar=True the scales and zero points too."""
+        original = self.num_elements() * 4
+        compressed = self.packed_nbytes()
+        if include_sidecar:
+            compressed += self.sidecar_nbytes()
+        return original / max(compressed, 1)
 
     def to(self, device) -> "QuantizedTensor":
         return dataclasses.replace(self, data=self.data.to(device),

@@ -1,13 +1,16 @@
-"""Runtime sanitizers for the serving scheduler: a reentrancy guard and the
-slot state machine's invariants.
+"""Runtime sanitizers: a reentrancy guard and the slot state machine's
+invariants for the serving scheduler, and a NaN guard.
 
 Counterpart of `diffusion_llm_rs_tpu/utils/sanitize.py` (`SanitizerError`,
-`ReentrancyGuard`, `sanitize_enabled`, `check_scheduler_invariants`). The
+`ReentrancyGuard`, `sanitize_enabled`, `check_scheduler_invariants`,
+`nan_guard`). The
 batcher's host loop is single-threaded by design: the guard turns a second
 thread entering `step()` into a loud error, and the invariants (t >= 0 iff a
 slot is occupied, timesteps bounded by the request, pool buckets resident or
 spilled but never both) are checked between steps when `sanitize` is on (or
-`DLM_SANITIZE=1`). JAX's debug-NaN switch `nan_guard` has no counterpart yet.
+`DLM_SANITIZE=1`). `nan_guard` is the counterpart of JAX's scoped
+`jax_debug_nans`: within it, an operation whose floating-point output holds
+a NaN raises.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ import os
 import threading
 
 import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 
 class SanitizerError(AssertionError):
@@ -84,3 +90,24 @@ def check_scheduler_invariants(batcher) -> None:
         elif batcher.pools:
             raise SanitizerError(
                 f"attend_mode={batcher.attend_mode!r} must hold no pools")
+
+
+class _NanCheck(TorchDispatchMode):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                    and t.device.type != "meta" and bool(torch.isnan(t).any())):
+                raise FloatingPointError(f"NaN in the output of {func}")
+        return out
+
+
+@contextlib.contextmanager
+def nan_guard():
+    """Scoped numeric sanitizer: any operation under this context whose
+    floating-point output holds a NaN raises FloatingPointError; the mode is
+    removed on exit. Each operation's output is checked on its device and
+    the answer read back, so it syncs once per operation: use it around a
+    suspect step, not in production loops."""
+    with _NanCheck():
+        yield

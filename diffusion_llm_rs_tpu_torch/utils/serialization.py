@@ -5,8 +5,10 @@ files: `<path>.npz` of flat arrays keyed `"{i}:data"`, `"{i}:scale"`,
 `"{i}:zp"`, `"{i}:col_scale"` and `<path>.json` with one manifest entry per
 leaf, so a checkpoint written by either package loads in the other. Leaf i
 is the i-th leaf in the JAX package's flatten order: dict keys sorted, lists
-in order; a `QuantizedTensor`, `MatmulWeight` or `Fp8Tensor` is one leaf.
-The JAX package also stores its serialized tree structure; this package
+in order; a `QuantizedTensor`, `MatmulWeight` or `Fp8Tensor` is one leaf,
+and an `Int8Weight` two plain arrays, its data [K, N] and its col_scale, as
+JAX flattens it (a card weight held K-major is written in JAX's [K, N]
+layout). The JAX package also stores its serialized tree structure; this package
 writes null there, and neither reads it back.
 """
 
@@ -20,8 +22,18 @@ import numpy as np
 import torch
 
 from diffusion_llm_rs_tpu_torch.ops.int8_matmul import MatmulWeight
+from diffusion_llm_rs_tpu_torch.ops.matmul import Int8Weight
 from diffusion_llm_rs_tpu_torch.quant.core import (Fp8Tensor, QuantizedTensor,
                                                    tree_leaves)
+
+
+def _leaves(tree) -> list:
+    """`tree_leaves`, with each `Int8Weight` as its two arrays."""
+    out = []
+    for leaf in tree_leaves(tree):
+        out += ([leaf.data, leaf.col_scale] if isinstance(leaf, Int8Weight)
+                else [leaf])
+    return out
 
 
 def _unflatten(like, leaves):
@@ -32,16 +44,20 @@ def _unflatten(like, leaves):
         return {k: new[k] for k in like}
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(v, leaves) for v in like)
+    if isinstance(like, Int8Weight):
+        return Int8Weight(next(leaves), next(leaves))
     return None if like is None else next(leaves)
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """The host array in C order (a K-major card weight comes back as a
+    transposed view)."""
+    return t.detach().cpu().contiguous().numpy()
 
 
 def save_checkpoint(path: str, params: Any, metadata: Dict = None) -> None:
     """Write `<path>.npz` + `<path>.json`."""
-    leaves = tree_leaves(params)
+    leaves = _leaves(params)
     arrays: Dict[str, np.ndarray] = {}
     manifest: List[Dict] = []
     for i, leaf in enumerate(leaves):
@@ -118,7 +134,7 @@ def load_checkpoint(path: str, like: Any, device="cuda") -> Any:
                 .to(device))
         else:
             leaves.append(tensor(f"{i}:data"))
-    expected = len(tree_leaves(like))
+    expected = len(_leaves(like))
     if expected != len(leaves):
         raise ValueError(f"checkpoint has {len(leaves)} leaves, `like` has "
                          f"{expected}")

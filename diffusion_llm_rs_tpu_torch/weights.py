@@ -19,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from diffusion_llm_rs_tpu_torch.ops.matmul import Int8Weight, MatmulWeight
+from diffusion_llm_rs_tpu_torch.ops.matmul import (Int8Weight, MatmulWeight,
+                                                   held_layout)
 from diffusion_llm_rs_tpu_torch.quant.core import Fp8Tensor, QuantizedTensor
 
 _QUANTIZED_KEYS = {"data", "scale", "zero_point", "bits", "shape",
@@ -38,7 +39,9 @@ def from_jax_params(tree, device="cuda"):
     if isinstance(tree, dict):
         keys = set(tree)
         if keys == {"data", "col_scale"}:
-            return Int8Weight(data=_tensor(tree["data"], np.int8, device),
+            # laid out on the host, so the card gets its one K-major copy
+            return Int8Weight(data=held_layout(_tensor(tree["data"], np.int8,
+                                                       "cpu"), device),
                               col_scale=_tensor(tree["col_scale"], np.float32,
                                                 device))
         if keys == {"data", "scale"}:

@@ -57,10 +57,26 @@ def test_ppl_quantized_is_finite(capsys):
     assert rec["perplexity"] > 0 and rec["bits"] == 8
 
 
-def test_ingest_exits_naming_its_roadmap_item(capsys):
-    with pytest.raises(SystemExit) as exc:
-        main(["ingest", *CPU])
-    assert exc.value.code != 0 and "A11" in str(exc.value.code)
+def test_ingest_exits_naming_its_roadmap_item(tmp_path, capsys, monkeypatch):
+    """`ingest` is ported since: it prints JAX's line, keys and counts.
+    Each package's default store goes to the test's directory."""
+    import functools
+    import tempfile
+
+    import diffusion_llm_rs_tpu.engine as jengine
+    f = tmp_path / "corpus.txt"
+    f.write_text("bird hunts near the forest then sleeps near the forest")
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    monkeypatch.setattr(jengine, "SystemConfig", functools.partial(
+        jcfg_mod.SystemConfig, ssd_path=str(tmp_path / "jax_store.bin")))
+    out = run(capsys, "ingest", "--file", str(f), *CPU)
+    want = run(capsys, "ingest", "--file", str(f), cli=jmain)
+    rec = json.loads(out)
+    assert out == want and list(rec) == sorted(rec)
+    assert rec["tokens"] > 0 and rec["stored"] > 0
+    assert rec["indexed_vectors"] == rec["router_nodes"] == rec["tokens"]
+    assert (tmp_path / "diffusion_llm_rs_tpu_torch_store.bin").read_bytes() \
+        == (tmp_path / "jax_store.bin").read_bytes()
 
 
 def test_serve(capsys):

@@ -829,3 +829,62 @@ def test_quantize_fp8_card_equals_cpu(gen):
     a, b = quantize_fp8(x), quantize_fp8(x.cpu())
     assert torch.equal(a.data.view(torch.uint8).cpu(), b.data.view(torch.uint8))
     assert torch.equal(a.scale.cpu(), b.scale)
+
+
+def test_int8_weights_are_held_once_and_forward_is_unchanged(gen):
+    """ROADMAP C32: a card `Int8Weight` holds its one copy K-major, so
+    after a W4A8 forward `_k_major` returns storage the weight owns and the
+    copy cache holds none of the model's weights; the forward is bit for bit
+    the one over [K, N] weights read through cached K-major copies (the
+    layout before the weights were held K-major)."""
+    import dataclasses
+
+    from diffusion_llm_rs_tpu_torch.config import DiffusionConfig
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+    from diffusion_llm_rs_tpu_torch.ops.matmul import (Int8Weight,
+                                                       decode_to_int8)
+    from diffusion_llm_rs_tpu_torch.quant.core import (QuantizedTensor,
+                                                       map_leaves,
+                                                       quantize_tree,
+                                                       tree_leaves)
+    cfg = DiffusionConfig(num_timesteps=100, hidden_size=256, num_layers=2,
+                          num_attention_heads=4, vocab_size=500,
+                          max_sequence_length=64, dtype="bfloat16")
+    params = quantize_tree(dn.init_denoiser_params(gen, cfg), 4,
+                           symmetric=True, group_size=128, axis=0)
+
+    def decode(_, leaf):
+        if isinstance(leaf, QuantizedTensor) and leaf.ndim == 2:
+            try:
+                return decode_to_int8(im.prepare(leaf, act_bits=8))
+            except ValueError:
+                return leaf
+        if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.float32:
+            return leaf.to(torch.bfloat16)
+        return leaf
+    params = map_leaves(decode, params)
+    weights = [l for l in tree_leaves(params) if isinstance(l, Int8Weight)]
+    linears = 2 + 4 * cfg.num_layers + 1   # the kernels' weights
+    assert len(weights) == linears + 1     # and the embedding table
+    x = torch.randn((2, 64, 256), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    t = torch.full((2,), 50, device="cuda")
+    im._k_major_copies.clear()
+    out = dn.denoiser_forward(params, cfg, x, t)
+    torch.cuda.synchronize()
+    for w in weights:
+        assert w.data.t().is_contiguous()
+        assert im._k_major(w.data).data_ptr() == w.data.data_ptr()
+    assert not im._k_major_copies
+
+    def row_major(_, leaf):
+        if isinstance(leaf, Int8Weight):
+            w = dataclasses.replace(leaf)
+            object.__setattr__(w, "data", leaf.data.contiguous())
+            return w
+        return leaf
+    before = map_leaves(row_major, params)
+    ref = dn.denoiser_forward(before, cfg, x, t)
+    torch.cuda.synchronize()
+    assert len(im._k_major_copies) == linears
+    assert torch.equal(out, ref)

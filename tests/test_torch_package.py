@@ -5,6 +5,7 @@ import json
 import pathlib
 
 import jax  # noqa: F401  (both packages load in one process)
+import numpy as np
 import pytest
 import torch
 
@@ -43,7 +44,9 @@ def test_port_sources_are_walked():
             "core.py", "config.py", "weights.py", "chip_smoke.py",
             "packed_matmul.py", "matmul.py", "engine.py", "serialization.py",
             "bpe.py", "kv_cache.py", "serving.py", "gptq.py",
-            "calibrate.py", "__main__.py"} <= names
+            "calibrate.py", "__main__.py", "anns.py", "router.py",
+            "dedup.py", "native.py", "types.py", "suffix_tree.py",
+            "salience.py", "profiling.py", "sanitize.py"} <= names
 
 
 def test_new_modules_import_without_jax_loaded():
@@ -66,6 +69,11 @@ def test_new_modules_import_without_jax_loaded():
         "import diffusion_llm_rs_tpu_torch.cache.kv_cache\n"
         "import diffusion_llm_rs_tpu_torch.quant.calibrate\n"
         "import diffusion_llm_rs_tpu_torch.__main__\n"
+        "import diffusion_llm_rs_tpu_torch.models.types\n"
+        "import diffusion_llm_rs_tpu_torch.utils.profiling\n"
+        "import diffusion_llm_rs_tpu_torch.utils.sanitize\n"
+        "import diffusion_llm_rs_tpu_torch as pkg\n"
+        "assert pkg.Engine is e.Engine and pkg.index and pkg.storage\n"
         "eng = e.Engine.from_pretrained(device='cpu')\n"
         "print(repr(eng.generate('the quick', max_length=2)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -119,3 +127,57 @@ def test_wrappers_refuse_other_devices_and_bad_args():
     with pytest.raises(ValueError, match="unknown activation"):
         tim.int8w_matmul(torch.zeros(4, 32), torch.zeros(32, 16, dtype=torch.int8),
                          torch.ones(1, 16), activation="relu")
+
+
+def test_package_surface_matches_jax():
+    """The top-level names, the lazy subpackages and `quant`'s re-exports
+    of the JAX package, in the port."""
+    import diffusion_llm_rs_tpu as jpkg
+    import diffusion_llm_rs_tpu_torch as tpkg
+    from diffusion_llm_rs_tpu import quant as jq
+    assert tpkg.__all__ == jpkg.__all__
+    for name in jpkg.__all__:
+        assert getattr(tpkg, name).__name__.split(".")[-1] == \
+            getattr(jpkg, name).__name__.split(".")[-1]
+    for sub in ("models", "cache", "index", "router", "storage",
+                "tokenizer", "ops", "utils"):
+        assert getattr(tpkg, sub).__name__ == f"diffusion_llm_rs_tpu_torch.{sub}"
+    with pytest.raises(AttributeError):
+        tpkg.no_such_name
+    assert tpkg.quant.__all__ == jq.__all__
+    for name in jq.__all__:
+        assert getattr(tpkg.quant, name) is not None
+
+
+def test_examples_imports_resolve_in_the_port():
+    """What `examples/quantization_basic.py:19-21` and
+    `hello_workspace.py:20-21` import from the JAX package."""
+    from diffusion_llm_rs_tpu_torch import (DiffusionConfig, SystemConfig,
+                                            quant)
+    from diffusion_llm_rs_tpu_torch.cache.salience import SalienceEngine
+    from diffusion_llm_rs_tpu_torch.engine import Engine
+    from diffusion_llm_rs_tpu_torch.index.anns import FusionANNS
+    x = torch.from_numpy(
+        np.random.default_rng(0).normal(size=(64, 128)).astype(np.float32))
+    qt = quant.quantize(x, 4, granularity="group", group_size=32)
+    assert qt.compression_ratio() == 8.0
+    assert SalienceEngine().calculate("a b a")["a"] == 2.0
+    ann = FusionANNS(embedding_dim=128, device="cpu")
+    ann.index_vectors([f"r{i}" for i in range(64)], x.numpy())
+    assert ann.search(x[3].numpy(), 1)[0][0] == "r3"
+    assert DiffusionConfig.tiny().hidden_size == 64
+    assert SystemConfig().quantization_bits == (1, 2, 4, 8)
+    assert Engine.__module__ == "diffusion_llm_rs_tpu_torch.engine"
+
+
+@pytest.mark.parametrize("name", ["PrefillConfig", "SystemConfig"])
+def test_prefill_and_system_config_json_match_jax(name):
+    j, t = getattr(jcfg, name)(), getattr(tcfg, name)()
+    jd, td = json.loads(jcfg.to_json(j)), json.loads(tcfg.to_json(t))
+    if name == "SystemConfig":   # each package's own store file
+        assert td.pop("ssd_path").endswith(
+            "diffusion_llm_rs_tpu_torch_store.bin")
+        jd.pop("ssd_path")
+    assert td == jd
+    back = getattr(tcfg, name)(**json.loads(jcfg.to_json(j)))
+    assert json.loads(tcfg.to_json(back)) == json.loads(jcfg.to_json(j))

@@ -167,3 +167,44 @@ def test_port_round_trip_and_leaf_count_guard(tmp_path):
     with pytest.raises(ValueError, match="leaves"):
         tser.load_checkpoint(path, like={"only": torch.zeros(1)},
                              device="cpu")
+
+
+def test_card_layout_int8_weight_saves_and_dequantizes_as_jax(tmp_path):
+    """An `Int8Weight` held K-major (its data the transposed view of an
+    [N, K] tensor, as on the card) and brought back to the CPU saves, loads
+    in JAX and dequantizes to JAX's [K, N] arrays bit for bit."""
+    from diffusion_llm_rs_tpu.ops import matmul as jmm
+    from diffusion_llm_rs_tpu_torch.ops import matmul as tmm
+    rng = np.random.default_rng(5)
+    data = rng.integers(-127, 128, size=(48, 20)).astype(np.int8)
+    cs = (rng.random((1, 20)) * 1e-2).astype(np.float32)
+    kmajor = torch.from_numpy(data).t().contiguous().t()   # the card layout
+    assert not kmajor.is_contiguous() and kmajor.t().is_contiguous()
+    assert tmm.held_layout(kmajor, "cpu").is_contiguous()
+    w = tmm.Int8Weight(kmajor, torch.from_numpy(cs))
+    assert w.data.is_contiguous() and torch.equal(w.data, kmajor)
+    # a weight whose data came back from the card as the view, unchanged
+    back = tmm.Int8Weight(torch.from_numpy(data), torch.from_numpy(cs))
+    object.__setattr__(back, "data", kmajor)
+    jw = jmm.Int8Weight(jnp.asarray(data), jnp.asarray(cs))
+    assert np.array_equal(back.dequantize().numpy(),
+                          np.asarray(jw.dequantize()))
+    assert back.to("cpu").data.is_contiguous()
+    tree_t = {"w": back, "b": torch.from_numpy(cs[0])}
+    tree_j = {"w": jw, "b": jnp.asarray(cs[0])}
+    tser.save_checkpoint(str(tmp_path / "t"), tree_t)
+    # JAX cannot serialize the tree structure of an Int8Weight; it writes
+    # the same arrays for its two leaves in flatten order
+    jser.save_checkpoint(str(tmp_path / "j"), {
+        "w": [jw.data, jw.col_scale], "b": jnp.asarray(cs[0])})
+    zt, zj = np.load(str(tmp_path / "t.npz")), np.load(str(tmp_path / "j.npz"))
+    assert sorted(zt.files) == sorted(zj.files)
+    for k in zj.files:
+        assert zt[k].dtype == zj[k].dtype and np.array_equal(zt[k], zj[k])
+    loaded = jser.load_checkpoint(str(tmp_path / "t"), like=tree_j)
+    assert np.array_equal(np.asarray(loaded["w"].data), data)
+    mine = tser.load_checkpoint(str(tmp_path / "j"), like=tree_t,
+                                device="cpu")
+    assert isinstance(mine["w"], tmm.Int8Weight)
+    assert torch.equal(mine["w"].data, torch.from_numpy(data))
+    assert torch.equal(mine["w"].col_scale, torch.from_numpy(cs))
