@@ -112,7 +112,21 @@ Phases (any failure makes the script exit non-zero without the final line):
                 diffusion_llm_rs_tpu_torch` sample, quantize --quant-method
                 gptq --out, ppl --checkpoint, ingest --file, each its own
                 process).
- 10. summary  - a JSON line of kernels, a JSON line of the runs, then the
+ 10. parallel - the parallel stack, each path on an NCCL group of one (one
+                card cannot hold two ranks) at full width: serve_sharded
+                (`ShardedPagedBatcher` on a (1, 1) mesh over int4 g128
+                `MatmulWeight`s, S=2048, 4 slots, pages of 64, 4 requests
+                of 8 steps: tokens, tokens/s, latency and peak memory, token
+                for token and launch for launch against
+                `PagedContinuousBatcher`), tp_forward (`make_tp_forward`
+                against `denoiser_forward` at act 16 and 8, B=8, S=256 and
+                1024: bit for bit), moe_forward (8 experts, decoded-int8
+                projections, f32 banks; dense against sorted dispatch and
+                EP on an expert mesh of one against the unsharded forward,
+                bit for bit; a 2-layer cut card vs CPU) and pp_sp_forward
+                (a pipeline stage of one and a ring of one against
+                `denoiser_forward`), each forward timed after a warm call.
+ 11. summary  - a JSON line of kernels, a JSON line of the runs, then the
                 device line last.
 
     python3 chip_smoke.py --parent DIR
@@ -1721,7 +1735,7 @@ def _busy_share(b, seq_len, steps=8):
                      for us, n, key in rows[:8]])
 
 
-def _serve(name, b, requests):
+def _serve(name, b, requests, kept=None):
     """Submit `requests` [(id, seq_len, steps)] at once and drain, timed from
     the first submit to the last readout; launch counts reset just before.
     Checks every token id, and every kept embedding's finiteness."""
@@ -1744,12 +1758,14 @@ def _serve(name, b, requests):
     peak = torch.cuda.max_memory_allocated()
     if sorted(c.request_id for c in done) != sorted(r[0] for r in requests):
         raise AssertionError(f"{name}: completions {[c.request_id for c in done]}")
-    vocab = MODEL["cfg"].vocab_size
+    vocab = b.cfg.vocab_size
     for c in done:
         if c.tokens.min() < 0 or c.tokens.max() >= vocab:
             raise AssertionError(f"{name}: token ids out of range")
         if c.embeddings is not None and not np.isfinite(c.embeddings).all():
             raise AssertionError(f"{name}: {c.request_id} is not finite")
+    if kept is not None:
+        kept.extend(done)
     tokens = sum(len(c.tokens) for c in done)
     lat = [c.latency_s for c in done]
     p50 = statistics.median(lat)
@@ -2598,6 +2614,328 @@ def engine_check():
     return out
 
 
+# ------------------------------------------------------------- parallel ---
+# Each phase joins an NCCL group of one (a FileStore under build/dist), runs
+# its path through the mesh at full width on the card, and leaves the group.
+# Collectives across ranks need a second card; here every collective runs on
+# a group of one.
+
+def _nccl_group(name):
+    import contextlib
+    import os
+
+    from diffusion_llm_rs_tpu_torch.parallel import mesh as pm
+
+    @contextlib.contextmanager
+    def group():
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "dist", f"{name}-{os.getpid()}")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if os.path.exists(path):
+            os.unlink(path)
+        pm.initialize_distributed("nccl", f"file://{path}", 1, 0)
+        try:
+            if torch.distributed.get_backend() != "nccl":
+                raise AssertionError("the group is not NCCL")
+            yield
+        finally:
+            torch.distributed.destroy_process_group()
+    return group()
+
+
+def _packed_full_width(max_seq, act_bits):
+    """The full-width model (12 layers, 768 wide, 12 heads, vocab 50257;
+    random weights from seed 0) with its linears packed to int4 (symmetric,
+    groups of 128) `MatmulWeight`s at `act_bits`, the embedding table whole
+    (shard_tp_params refuses a raw QuantizedTensor, and 50257 rows do not
+    pack), the other f32 leaves in bf16."""
+    from diffusion_llm_rs_tpu_torch.config import DiffusionConfig
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+    from diffusion_llm_rs_tpu_torch.ops.int8_matmul import prepare
+    from diffusion_llm_rs_tpu_torch.quant.core import (QuantizedTensor,
+                                                       map_leaves,
+                                                       quantize_tree)
+
+    cfg = DiffusionConfig(num_timesteps=1000, hidden_size=768, num_layers=12,
+                          num_attention_heads=12, vocab_size=50257,
+                          max_sequence_length=max_seq, dtype="bfloat16")
+    params = dn.init_denoiser_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    qparams = quantize_tree(params, 4, symmetric=True, granularity="group",
+                            group_size=128, axis=0,
+                            exclude=("pos_embed", "tok_embed"))
+
+    def prep(_, t):
+        if isinstance(t, QuantizedTensor):
+            return prepare(t, act_bits=act_bits)
+        if isinstance(t, torch.Tensor) and t.dtype == torch.float32:
+            return t.to(torch.bfloat16)
+        return t
+    return cfg, map_leaves(prep, qparams)
+
+
+def _timed_call(name, call):
+    """(result, launch counts, wall and peak memory) of `call()` after one
+    warm call (the first collective of a group sets NCCL up)."""
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {name}: {wall * 1e3:.2f} ms (after a warm call), peak memory "
+        f"{peak / 2**20:.1f} MiB")
+    counts = dict(_build.launch_counts)
+    return out, counts, dict(wall_s=wall, peak_bytes=peak)
+
+
+def serve_sharded():
+    """`ShardedPagedBatcher` on a (1, 1) mesh over an NCCL group of one, at
+    full width over int4 g128 `MatmulWeight`s (act 16): S=2048, 4 slots,
+    pages of 64, the default 8 -> 4 -> 2 phase schedule, 4 requests of 8
+    steps, one warm request before. Token for token against
+    `PagedContinuousBatcher` on the same parameters and seed (JAX's own
+    assertion at tp = 1: the TP forward on a group of one is the single
+    forward, bit for bit); the same launch counts on both: 51 `matmul` a
+    step and the paged kernels 12 a bucket a step."""
+    from diffusion_llm_rs_tpu_torch.config import PhaseQuantConfig
+    from diffusion_llm_rs_tpu_torch.parallel.mesh import make_mesh
+    from diffusion_llm_rs_tpu_torch.parallel.serving import ShardedPagedBatcher
+    from diffusion_llm_rs_tpu_torch.serving import PagedContinuousBatcher
+
+    cfg, params = _packed_full_width(2048, 16)
+    cfg = dataclasses.replace(cfg, quant_config=PhaseQuantConfig())
+    kw = dict(num_slots=4, seq_len=2048, page_size=64, attend_mode="paged",
+              keep_embeddings=False, seed=61)
+    reqs = [(f"s{i}", 2048, 8) for i in range(4)]
+    runs, done, groups = {}, {}, {}
+    with _nccl_group("serve_sharded"):
+        mesh = make_mesh((1, 1))
+        for name, make in (
+                ("single", lambda: PagedContinuousBatcher(params, cfg, **kw)),
+                ("sharded",
+                 lambda: ShardedPagedBatcher(params, cfg, mesh, **kw))):
+            b = make()
+            _serve(f"serve_sharded {name} warm", b, [("warm", 2048, 2)])
+            kept = []
+            runs[name] = _serve(f"serve_sharded {name}", b, reqs, kept)
+            done[name] = {c.request_id: c.tokens for c in kept}
+            groups[name] = (b.buckets, b.head_group)
+            runs[name]["pool_bytes"] = b.cache_memory_bytes()
+            del b
+    if groups["sharded"] != groups["single"] or \
+            groups["single"][0] != (2, 4, 8):
+        raise AssertionError(f"buckets and head groups {groups}")
+    L, steps = cfg.num_layers, runs["sharded"]["steps"]
+    counts = runs["sharded"]["counts"]
+    same = all(np.array_equal(done["sharded"][r], done["single"][r])
+               for r in done["single"])
+    n = counts.get("batched_paged_attention", 0)
+    log(f"  tokens equal to PagedContinuousBatcher's: {same}; launches "
+        f"{counts} (single {runs['single']['counts']})")
+    if not same or sorted(done["sharded"]) != sorted(done["single"]):
+        raise AssertionError("the sharded batcher's tokens differ")
+    if counts != runs["single"]["counts"]:
+        raise AssertionError("the sharded batcher launched other kernels")
+    if n == 0 or n % (L * steps):
+        raise AssertionError(f"{n} paged launches over {steps} steps")
+    _expect("serve_sharded", counts, {"matmul": (4 * L + 3) * steps,
+                                      "paged_unpack": n})
+    return dict(runs["sharded"], single=runs["single"], tokens_equal=same)
+
+
+def tp_forward():
+    """`make_tp_forward` on a (1, 1) mesh over an NCCL group of one against
+    `denoiser_forward`, full width over int4 g128 `MatmulWeight`s at act 16
+    (`matmul`) and act 8 (`matmul_a8`), B=8 at S=256 and S=1024 (12
+    `dense_attention` launches). Bound: bit for bit (a row-split layer's
+    bias rides in model rank 0's epilogue, so a group of one runs the
+    single forward's operations in its order)."""
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+    from diffusion_llm_rs_tpu_torch.parallel import tp
+    from diffusion_llm_rs_tpu_torch.parallel.mesh import make_mesh
+
+    g = torch.Generator(device="cuda").manual_seed(71)
+    out, total = {}, {}
+    with _nccl_group("tp_forward"):
+        mesh = make_mesh((1, 1))
+        for act_bits in (16, 8):
+            cfg, params = _packed_full_width(1024, act_bits)
+            local = tp.place_tp_params(params, mesh)
+            fwd = tp.make_tp_forward(cfg, mesh)
+            L = cfg.num_layers
+            for S in (256, 1024):
+                x = torch.randn((8, S, cfg.hidden_size), generator=g,
+                                device="cuda").to(torch.bfloat16)
+                t = torch.randint(0, 1000, (8,), generator=g, device="cuda")
+                eps, counts, rec = _timed_call(
+                    f"act{act_bits} S={S} TP forward",
+                    lambda: fwd(local, x, t))
+                with torch.no_grad():
+                    ref = dn.denoiser_forward(params, cfg, x, t)
+                diff = float((eps.float() - ref.float()).abs().max())
+                log(f"  act{act_bits} S={S}: max abs vs denoiser_forward "
+                    f"{diff:.3g} (bound: 0, bit for bit); launches {counts}")
+                _expect(f"tp_forward act{act_bits} S={S}", counts, {
+                    "matmul_a8" if act_bits == 8 else "matmul": 4 * L + 3,
+                    "dense_attention": L if S >= 1024 else 0})
+                if not torch.equal(eps, ref):
+                    raise AssertionError("the TP forward on a group of one is "
+                                         "not the single forward")
+                out[f"act{act_bits}_s{S}"] = dict(rec, max_abs=diff,
+                                                  counts=counts)
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+            del local, params
+    return dict(out, counts=total)
+
+
+def moe_forward():
+    """The MoE denoiser at full width with 8 experts: decoded-int8
+    projections (int4 g128 -> act 8 -> `decode_to_int8`; `int8w_matmul`),
+    f32 expert banks (about 1.8 GB), `exclude=("pos_embed", "moe")`. B=8 at
+    S=256 and S=1024 (`dense_attention`): the dense dispatch against the
+    sorted one (the same copies into the same slots: bit for bit), and
+    the EP forward on an expert mesh of one (NCCL) against the unsharded
+    forward (bit for bit); then a 2-layer cut of the same model on the card
+    against the CPU (2e-2 relative, the card-vs-CPU bound of the int8
+    paths)."""
+    from diffusion_llm_rs_tpu_torch.config import DiffusionConfig
+    from diffusion_llm_rs_tpu_torch.models import moe
+    from diffusion_llm_rs_tpu_torch.ops.int8_matmul import prepare
+    from diffusion_llm_rs_tpu_torch.ops.matmul import decode_to_int8
+    from diffusion_llm_rs_tpu_torch.quant.core import (QuantizedTensor,
+                                                       map_leaves,
+                                                       quantize_tree)
+
+    cfg = DiffusionConfig(num_timesteps=1000, hidden_size=768, num_layers=12,
+                          num_attention_heads=12, vocab_size=50257,
+                          max_sequence_length=1024, dtype="bfloat16")
+    params = moe.init_moe_denoiser_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, 8)
+    q = quantize_tree(params, 4, symmetric=True, granularity="group",
+                      group_size=128, axis=0, exclude=("pos_embed", "moe"))
+
+    def prep(path, t):
+        if isinstance(t, QuantizedTensor):
+            try:
+                return decode_to_int8(prepare(t, act_bits=8))
+            except ValueError:  # vocab-sized embedding: K not packable
+                return t
+        if "moe" not in path and isinstance(t, torch.Tensor) \
+                and t.dtype == torch.float32:
+            return t.to(torch.bfloat16)
+        return t
+    params = map_leaves(prep, q)
+    bank_bytes = sum(v.numel() * v.element_size() for blk in params["blocks"]
+                     for v in blk["moe"].values())
+    log(f"  expert banks {bank_bytes / 1e9:.2f} GB (f32)")
+    g = torch.Generator(device="cuda").manual_seed(73)
+    L = cfg.num_layers
+    out, total = dict(bank_bytes=bank_bytes), {}
+    with _nccl_group("moe_forward"):
+        mesh = moe.make_expert_mesh(1)
+        ep = moe.place_ep_params(params, mesh)
+        run = moe.make_ep_forward(cfg, mesh)
+        for S in (256, 1024):
+            x = torch.randn((8, S, cfg.hidden_size), generator=g,
+                            device="cuda").to(torch.bfloat16)
+            t = torch.randint(0, 1000, (8,), generator=g, device="cuda")
+            res = {}
+            with torch.no_grad():
+                for dispatch in ("dense", "sorted"):
+                    res[dispatch] = moe.moe_denoiser_forward(
+                        params, cfg, x, t, dispatch=dispatch)
+            eps, counts, rec = _timed_call(f"S={S} EP forward",
+                                           lambda: run(ep, x, t))
+            d_sort = float((res["sorted"].float()
+                            - res["dense"].float()).abs().max())
+            C = -(-5 * S // 4)    # ceil(1.25 * T / E), T = 8 * S tokens
+            auto = "sorted" if 8 * C > 8 * cfg.hidden_size else "dense"
+            d_ep = float((eps.float() - res[auto].float()).abs().max())
+            log(f"  S={S}: sorted vs dense dispatch max abs {d_sort:.3g}, EP "
+                f"({auto}) vs unsharded {d_ep:.3g} (bounds: 0); launches "
+                f"{counts}")
+            _expect(f"moe_forward S={S}", counts, {
+                "int8w_matmul": 2 * L + 3, "int8w_mlp": 0,
+                "dense_attention": L if S >= 1024 else 0})
+            if not (torch.equal(res["sorted"], res["dense"])
+                    and torch.equal(eps, res[auto])):
+                raise AssertionError("MoE dispatches or EP disagree")
+            if not bool(torch.isfinite(eps).all()):
+                raise AssertionError("MoE output is not finite")
+            out[f"s{S}"] = dict(rec, sorted_vs_dense=d_sort,
+                                ep_vs_unsharded=d_ep, counts=counts)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    cut = dataclasses.replace(cfg, num_layers=2)
+    small = dict(params, blocks=params["blocks"][:2])
+    x = torch.randn((8, 256, cfg.hidden_size), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.full((8,), 500, device="cuda")
+    with torch.no_grad():
+        e_card = moe.moe_denoiser_forward(small, cut, x, t).float().cpu()
+        e_cpu = moe.moe_denoiser_forward(_to(small, "cpu"), cut, x.cpu(),
+                                         t.cpu()).float()
+    rel = float((e_card - e_cpu).norm() / e_cpu.norm())
+    log(f"  2-layer cut, card vs CPU: rel {rel:.3g} (bound 2e-2)")
+    if not rel <= 2e-2:
+        raise AssertionError("the MoE forward on the card disagrees with the "
+                             "CPU")
+    return dict(out, card_vs_cpu_rel=rel, counts=total)
+
+
+def pp_sp_forward():
+    """A pipeline of one stage (2 microbatches) and a ring of one, each on an
+    NCCL group of one, against `denoiser_forward` on the full-width W4A8
+    decoded model: B=8, S=256, and the pipeline also at B=2, S=1024
+    (`dense_attention`). Both run the MLP as two `int8w_matmul`s (no fused
+    MLP; the pipeline's blocks once a microbatch) where `denoiser_forward`
+    fuses it and the wo residual: 2e-2 relative, the sampler's eps
+    bound."""
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+    from diffusion_llm_rs_tpu_torch.parallel import pp, sp
+
+    cfg, params = full_width_model(max_seq=1024)
+    g = torch.Generator(device="cuda").manual_seed(79)
+    L = cfg.num_layers
+    out, total = {}, {}
+    for name, B, S in (("pp", 8, 256), ("pp", 2, 1024), ("sp", 8, 256)):
+        x = torch.randn((B, S, cfg.hidden_size), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        t = torch.randint(0, 1000, (B,), generator=g, device="cuda")
+        with _nccl_group(f"{name}_forward"):
+            if name == "pp":
+                mesh = pp.make_stage_mesh(1)
+                stage = pp.place_stage_params(pp.stack_stage_params(params, 1),
+                                              mesh)
+                fwd = pp.make_pp_forward(cfg, mesh, n_micro=2)
+                call = lambda: fwd(params, stage, x, t)  # noqa: E731
+            else:
+                fwd = sp.make_sp_forward(cfg, sp.make_seq_mesh(1))
+                call = lambda: fwd(params, x, t)  # noqa: E731
+            eps, counts, rec = _timed_call(f"{name} B={B} S={S}", call)
+        with torch.no_grad():
+            ref = dn.denoiser_forward(params, cfg, x, t).float()
+        rel = float((eps.float() - ref).norm() / ref.norm())
+        log(f"  {name} B={B} S={S}: rel vs denoiser_forward {rel:.3g} (bound "
+            f"2e-2); launches {counts}")
+        blocks = 2 if name == "pp" else 1   # the pipeline's microbatches
+        _expect(f"{name} S={S}", counts, {
+            "int8w_matmul": 4 * L * blocks + 3, "int8w_mlp": 0,
+            "dense_attention": L * blocks if S >= 1024 else 0})
+        if not rel <= 2e-2:
+            raise AssertionError(f"{name} forward disagrees")
+        out[f"{name}_b{B}_s{S}"] = dict(rec, rel=rel, counts=counts)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return dict(out, counts=total)
+
+
 # name: (source, TPU kernel it replaces, the path whose run `launches` reads:
 # the 32-step sampler for the GEMMs, the S=1024 run for dense attention,
 # which the sampler at S=256 does not reach, serve_paged for the batched
@@ -2740,6 +3078,10 @@ def main() -> int:
         runs[fn.__name__] = phase(fn)
     if "engine16" in MODEL and "engine8" in MODEL:
         runs["engine_check"] = phase(engine_check)
+    MODEL.clear()
+    torch.cuda.empty_cache()
+    for fn in (serve_sharded, tp_forward, moe_forward, pp_sp_forward):
+        runs[fn.__name__] = phase(fn)
     if failures:
         log(f"FAILED phases: {failures}")
         return 1

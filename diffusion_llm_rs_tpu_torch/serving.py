@@ -1,7 +1,7 @@
 """Continuous batching of denoising steps, with the paged quantized KV cache.
 
-Counterpart of `diffusion_llm_rs_tpu/serving.py` without its sharded
-subclass: `Request`, `Completion`, `ContinuousBatcher`,
+Counterpart of `diffusion_llm_rs_tpu/serving.py` (its sharded subclass is
+`parallel/serving.py`): `Request`, `Completion`, `ContinuousBatcher`,
 `PagedContinuousBatcher`, the bit routers (`make_slot_bits_router`,
 `make_slot_budget_router`, `slot_phase_bits_np`), `_quantize_pages`,
 `_page_mass_proxy` and the two attention callbacks
@@ -131,7 +131,8 @@ class ContinuousBatcher:
         # denoiser compute dtype; slot state and posterior stay f32
         self._model_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                              else torch.float32)
-        self.x = torch.zeros((B, S, D), dtype=torch.float32, device=self.device)
+        self.x = torch.zeros((self._local_slots, S, D), dtype=torch.float32,
+                             device=self.device)
         # per-slot timestep; -1 = inactive
         self.t = np.full((B,), -1, np.int64)
         self.slot_request: List[Optional[Request]] = [None] * B
@@ -150,15 +151,35 @@ class ContinuousBatcher:
     def _dev(self, arr, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), dtype=dtype, device=self.device)
 
+    # -- what this process holds (the sharded batcher holds a 'data' shard) --
+
+    @property
+    def _local_slots(self) -> int:
+        """Slots whose state this process holds and steps: all of them."""
+        return self.num_slots
+
+    def _local(self, a: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a per-slot tensor [num_slots, ...]."""
+        return a
+
+    def _forward(self, x, t, attend_fn=None) -> torch.Tensor:
+        """The denoiser forward of a step."""
+        return dn.denoiser_forward(self.params, self.cfg, x, t,
+                                   attend_fn=attend_fn)
+
+    def _to_host(self, arr: torch.Tensor) -> np.ndarray:
+        """Device -> host copy of a per-slot readout (tokens, embeddings,
+        page scores); the sharded batcher gathers every process's rows."""
+        return arr.cpu().numpy()
+
     # -- one batched denoise step --------------------------------------------
 
     def _denoise(self, x, t, active, noise, attend_fn=None) -> torch.Tensor:
         """One reverse step for every slot at its own timestep; inactive
         slots keep their state."""
         t_clamped = torch.clamp(t, min=0)
-        eps = dn.denoiser_forward(self.params, self.cfg,
-                                  x.to(self._model_dtype), t_clamped,
-                                  attend_fn=attend_fn).to(torch.float32)
+        eps = self._forward(x.to(self._model_dtype), t_clamped,
+                            attend_fn).to(torch.float32)
         x_next = p_sample(self.schedule, x, t_clamped, eps, noise=noise)
         return torch.where(active[:, None, None], x_next, x)
 
@@ -194,11 +215,13 @@ class ContinuousBatcher:
             self.slot_request[slot] = req
             metrics.inc("batcher.admitted")
         if fresh:
-            noise = self.noise.admission(self._shape).to(self.device)
+            noise = self._local(self.noise.admission(self._shape).to(
+                self.device))
             mask = np.zeros((self.num_slots,), bool)
             mask[fresh] = True
-            self.x = torch.where(self._dev(mask, torch.bool)[:, None, None],
-                                 noise, self.x)
+            self.x = torch.where(
+                self._local(self._dev(mask, torch.bool))[:, None, None],
+                noise, self.x)
 
     def _invoke_step(self, active_mask: np.ndarray,
                      noise: torch.Tensor) -> None:
@@ -254,8 +277,8 @@ class ContinuousBatcher:
         """Copy launched readouts to the host as Completions, stamped
         when the copy returns."""
         for tokens_dev, x_dev, entries in self._pending_retires:
-            tokens_all = tokens_dev.cpu().numpy()             # [B, S]
-            x_host = x_dev.cpu().numpy() if x_dev is not None else None
+            tokens_all = self._to_host(tokens_dev)            # [B, S]
+            x_host = self._to_host(x_dev) if x_dev is not None else None
             t_done = time.time()
             for slot, req in entries:
                 self.completions.append(Completion(
@@ -651,8 +674,8 @@ class PagedContinuousBatcher(ContinuousBatcher):
         page axis."""
         vpb = 8 // bits
         cfg = self.cfg
-        n = cfg.num_layers * self.num_slots * self.num_pages_per_slot
-        H, Hd, P = cfg.num_attention_heads, cfg.head_dim, self.page_size
+        n = cfg.num_layers * self._local_slots * self.num_pages_per_slot
+        H, Hd, P = self._local_heads, cfg.head_dim, self.page_size
         G = self.head_group
         HG = H // G
         d = (n, HG, P // vpb, G * Hd)
@@ -667,10 +690,16 @@ class PagedContinuousBatcher(ContinuousBatcher):
             "v_zp": torch.zeros(s, device=dev),
         }
 
+    @property
+    def _local_heads(self) -> int:
+        """Heads whose pages this process holds and attends: all of them."""
+        return self.cfg.num_attention_heads
+
     def _page_table_const(self) -> torch.Tensor:
         """Slot-major page id (slot b, layer li, page j) -> (b*L + li)*nps
-        + j, as [L, B, nps] int32."""
-        B, L, nps = self.num_slots, self.cfg.num_layers, self.num_pages_per_slot
+        + j, as [L, B, nps] int32 over the process's slots."""
+        B, L = self._local_slots, self.cfg.num_layers
+        nps = self.num_pages_per_slot
         return self._dev((np.arange(B)[None, :, None] * L +
                           np.arange(L)[:, None, None]) * nps +
                          np.arange(nps)[None, None, :], torch.int32)
@@ -679,15 +708,15 @@ class PagedContinuousBatcher(ContinuousBatcher):
         cfg = self.cfg
         if self.attend_mode == "dense":
             return _dense_attend_factory(
-                cfg=cfg, B=self.num_slots, S=self.seq_len,
+                cfg=cfg, B=self._local_slots, S=self.seq_len,
                 Pg=self.page_size, nps=self.num_pages_per_slot,
-                H=cfg.num_attention_heads, buckets=self.buckets,
+                H=self._local_heads, buckets=self.buckets,
                 page_bits=page_bits, seq_lens=seq_lens,
                 scores_acc=scores_acc, used=used)
         return _paged_attend_factory(
-            cfg=cfg, B=self.num_slots, S=self.seq_len,
+            cfg=cfg, B=self._local_slots, S=self.seq_len,
             Pg=self.page_size, nps=self.num_pages_per_slot,
-            L=cfg.num_layers, H=cfg.num_attention_heads,
+            L=cfg.num_layers, H=self._local_heads,
             G=self.head_group, buckets=self.buckets, pt=self._page_table,
             pools=self.pools, page_bits=page_bits, active=active,
             seq_lens=seq_lens, scores_acc=scores_acc, used=used,
@@ -797,17 +826,19 @@ class PagedContinuousBatcher(ContinuousBatcher):
                    seq_lens: torch.Tensor, used: Tuple[int, ...]):
         """c denoise steps on the device with no host round trip: the bit
         routing (and, with salience, the score EMA and the per-page
-        allocation) advance on the device each step."""
-        B, nps = self.num_slots, self.num_pages_per_slot
+        allocation) advance on the device each step. Per-slot inputs are
+        the whole batch's; the process steps its own rows."""
+        nps = self.num_pages_per_slot
         ema = self.salience_ema
         x = self.x
-        t = self._dev(self.t, torch.int64)
-        scores = self._dev(self.page_scores, torch.float32)
+        t = self._local(self._dev(self.t, torch.int64))
+        scores = self._local(self._dev(self.page_scores, torch.float32))
+        totals, seq_lens = self._local(totals), self._local(seq_lens)
         _, _, page_valid = _page_geometry(seq_lens, nps, self.page_size)
         budget_fn = make_slot_budget_router(self.cfg)
         opts = tuple(b for b in self.buckets if b >= 2) or self.buckets
         for _ in range(c):
-            noise = self.noise.step(self._shape).to(self.device)
+            noise = self._local(self.noise.step(self._shape).to(self.device))
             active = t >= 0
             t_clamped = torch.clamp(t, min=0)
             if self.salience_routing:
@@ -815,7 +846,7 @@ class PagedContinuousBatcher(ContinuousBatcher):
                     scores, budget_fn(t_clamped, totals), page_valid, opts)
             else:
                 bits = self._slot_bits(t_clamped, totals)
-                page_bits = bits[:, None].expand(B, nps)
+                page_bits = bits[:, None].expand(-1, nps)
             x, step_scores = self._paged_step(x, t, active, seq_lens,
                                               page_bits, noise, used)
             t = torch.where(active, t - 1, t)
@@ -842,7 +873,7 @@ class PagedContinuousBatcher(ContinuousBatcher):
         self.x, scores = self._run_chunk(
             c, self._dev(totals, torch.int64), self._seq_lens(), used)
         if self.salience_routing:
-            self.page_scores = scores.cpu().numpy()
+            self.page_scores = self._to_host(scores)
         # the previous wave's retires: copy now, behind the chunk just launched
         self._flush_retires()
         new_t = np.where(active_mask, self.t - c, self.t)
@@ -874,14 +905,18 @@ class PagedContinuousBatcher(ContinuousBatcher):
         self._spilled.add(bits)
         metrics.inc("batcher.pool_spills")
 
+    def _place_pool(self, pool: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """Device placement of a pool restored from the host tier."""
+        return {name: arr.to(self.device) for name, arr in pool.items()}
+
     def _restore_bucket(self, bits: int) -> None:
         pool = {}
         for name in POOL_FIELDS:
             key = self._pool_key(bits, name)
-            pool[name] = torch.from_numpy(
-                np.asarray(self.memory.get(key))).to(self.device)
+            pool[name] = torch.from_numpy(np.asarray(self.memory.get(key)))
             self.memory.deallocate(key)
-        self.pools[bits] = pool
+        self.pools[bits] = self._place_pool(pool)
         self._spilled.discard(bits)
         metrics.inc("batcher.pool_restores")
 

@@ -888,3 +888,111 @@ def test_int8_weights_are_held_once_and_forward_is_unchanged(gen):
     torch.cuda.synchronize()
     assert len(im._k_major_copies) == linears
     assert torch.equal(out, ref)
+
+
+# ------------------------------- per-rank shapes of tensor parallelism ---
+# The full-width model (12 layers, width 768, 12 heads of 64) split over
+# 'model' at tp = 2 and 4 (`parallel/tp.py`): each rank's packed GEMMs and
+# paged attention run the same kernels at these shapes.
+
+TP_LAYERS = {"qkv": (768, 2304, "wqkv"), "mlp.w1": (768, 3072, 1),
+             "wo": (768, 768, 0), "mlp.w2": (3072, 768, 0)}
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("layer", list(TP_LAYERS))
+@pytest.mark.parametrize("act_bits", [16, 8])
+def test_packed_matmul_at_tp_shard_shapes(gen, tp, layer, act_bits):
+    """Every rank's shard of an int4 g128 weight at M = 2048 (B=8, S=256):
+    qkv's column shards ([768, 1152] / [768, 576], each third split),
+    mlp.w1's ([768, 1536] / [768, 768], with bias and gelu), wo's row
+    shards ([384, 768]; [192, 768] requantized at group 64) and mlp.w2's
+    ([1536, 768] / [768, 768]). Against the plain versions at the
+    tolerances of the unsplit tests: act 16 one bf16 ulp; act 8 bit for bit
+    (one bf16 ulp with gelu)."""
+    from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
+    from diffusion_llm_rs_tpu_torch.parallel import tp as ttp
+    K, N, axis = TP_LAYERS[layer]
+    w = _packed_weight(K, N, 4, "group", act_bits, gen)
+    name = "matmul_a8" if act_bits == 8 else "matmul"
+    gelu = layer == "mlp.w1"
+    for idx in range(tp):
+        s = (ttp._split_wqkv(w, tp, idx) if axis == "wqkv"
+             else ttp._split_weight(w, axis, tp, idx))
+        want_kn = ((K, N // tp) if axis in ("wqkv", 1) else (K // tp, N))
+        assert (s.K, s.N) == want_kn and s.act_bits == act_bits
+        if layer == "wo" and tp == 4:
+            assert s.group_size == 64
+        x = torch.randn((2048, s.K), generator=gen, device="cuda")
+        b = (torch.randn((s.N,), generator=gen, device="cuda") * 0.02
+             if gelu else None)
+        act = "gelu" if gelu else None
+        _build.reset_launch_counts()
+        out = pm.matmul(x, s, torch.bfloat16, b, act)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[name] == 1
+        if act_bits == 8:
+            ref = pm.a8_matmul_reference(x, s, b, act, torch.bfloat16)
+            if not gelu:
+                assert torch.equal(out, ref)
+                continue
+        else:
+            ref = pm.matmul_plain(x, s, b, act, torch.bfloat16)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                                   atol=2e-5 if act_bits == 16 else 1e-6)
+
+
+def _tp_head_group(tp):
+    """The head group `ShardedPagedBatcher._choose_head_group` gives the
+    full-width model at `tp` (no process group needed)."""
+    from diffusion_llm_rs_tpu_torch.config import DiffusionConfig
+    from diffusion_llm_rs_tpu_torch.parallel.serving import ShardedPagedBatcher
+    b = object.__new__(ShardedPagedBatcher)
+    b.cfg = DiffusionConfig(hidden_size=768, num_layers=12,
+                            num_attention_heads=12, vocab_size=50257)
+    b.tp, b.dp = tp, 1
+    return b._local_heads, b._choose_head_group()
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("act_bits", [16, 8])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_paged_attention_at_tp_local_heads(gen, tp, act_bits, bits):
+    """A rank's paged attention at tp = 2 (6 local heads of 64, groups of 2)
+    and tp = 4 (3 local heads, groups of 1): 2 slots of S=2048 in pages of
+    64 (32 pages, the second slot 21 and a half), the whole pool's pages of
+    12 layers; `paged_unpack` bit for bit against its twin on every live
+    page, the attention at the tolerances of the unsplit tests."""
+    H, G = _tp_head_group(tp)
+    assert (H, G) == ((6, 2) if tp == 2 else (3, 1))
+    B, Sq, D, P, n = 2, 2048, 64, 64, 32
+    pools = _pools(gen, 12 * B * n, H // G, P, G * D, bits, G)
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
+    pt = (torch.arange(B, device="cuda")[:, None] * 12 * n + 5 * n
+          + torch.arange(n, device="cuda")[None, :]).to(torch.int32)
+    nt = torch.full((B, n), P, device="cuda", dtype=torch.int32)
+    nt[1, 21], nt[1, 22:] = P // 2, 0
+    npg = torch.tensor([n, 22], device="cuda", dtype=torch.int32)
+    name = "batched_paged_attention" + ("_a8" if act_bits == 8 else "")
+    _build.reset_launch_counts()
+    got = pa.paged_unpack(pt, npg, *pools, bits=bits, head_group=G,
+                          a8=act_bits == 8)
+    out, lse = pa.batched_paged_attention(q, pt, nt, npg, *pools, bits=bits,
+                                          return_lse=True, head_group=G,
+                                          act_bits=act_bits)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {name: 1, "paged_unpack": 2}
+    want = pa.paged_unpack_plain(pt, npg, *pools, bits=bits, head_group=G,
+                                 a8=act_bits == 8)
+    for b, k in enumerate(npg.tolist()):
+        for x, y in zip(got, want):
+            assert torch.equal(x[b, :, :k], y[b, :, :k])
+    plain = (pa.batched_paged_attention_a8_plain if act_bits == 8
+             else pa.batched_paged_attention_plain)
+    ref, ref_lse = plain(q, pt, nt, npg, *pools, bits=bits, return_lse=True,
+                         head_group=G)
+    if act_bits == 8:
+        assert float((out - ref).norm() / ref.norm()) <= 5e-3
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    else:
+        _close(out, lse, ref, ref_lse)
