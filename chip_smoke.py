@@ -3,6 +3,12 @@
 
     python3 chip_smoke.py
 
+The samplers' and batchers' steps replay captured CUDA graphs by default
+(`diffusion_llm_rs_tpu_torch/utils/graphs.py`); the card-against-CPU
+checks and any step that copies to the host run under
+`graphs.disabled()`, eagerly. Each phase logs the graphs it captured and
+replayed.
+
 Phases (any failure makes the script exit non-zero without the final line):
   1. device   - needs torch.cuda; prints `nvidia-smi` name and power limit.
   2. build    - compiles every kernel of the port (nvcc, sm_90a, one process
@@ -76,6 +82,15 @@ Phases (any failure makes the script exit non-zero without the final line):
                 step and none of the bf16 kernel, one step against the CPU,
                 and a chunk over 8-, 2- and 1-bit buckets, where only the
                 1-bit bucket may show the bf16 kernel).
+     graphs   - (run after the engine phases) every path below that
+                replays CUDA graphs by default (all but the sharded
+                batcher, which stays eager), against itself under
+                `utils.graphs.disabled()` from the same draws: the one-shot
+                and scan samplers, serve_paged, serve_paged_a8,
+                serve_phase, serve_dense and engine_packed; outputs bit for
+                bit, launch counts equal, ms a step, busy share, captures
+                and seconds a capture, peak memory, both ways; and a spill
+                and restore under an HBM budget that must capture again.
   9. engine   - the `Engine` facade over packed weights, on a second model of
                 the same full width built by `Engine(config=...)` from a seed
                 and packed by `quantize_weights(4)`: engine_packed (bf16
@@ -140,7 +155,9 @@ holds and its peak; the runs line carries them as `parent_memory`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -163,18 +180,40 @@ def log(*a):
 
 
 def phase(fn):
-    """Run one phase; record (and print) its failure instead of raising."""
+    """Run one phase; record (and print) its failure instead of raising.
+    Logs the CUDA graphs the phase captured and replayed."""
     log(f"== {fn.__name__}")
     t0 = time.perf_counter()
+    before = _graph_counters()
     try:
         out = fn()
     except Exception:  # a failed phase is reported and fails the run
         traceback.print_exc()
         failures.append(fn.__name__)
         out = None
+    moved = _graph_counters(before)
+    if moved.get("captures") or moved.get("replays"):
+        log(f"  graphs: {moved['captures']:.0f} captured "
+            f"({moved['recaptures']:.0f} again) in "
+            f"{moved['capture_s']:.3f} s, {moved['replays']:.0f} replays")
     log(f"== {fn.__name__}: {'FAILED' if fn.__name__ in failures else 'ok'} "
         f"in {time.perf_counter() - t0:.1f} s")
     return out
+
+
+GRAPH_COUNTERS = ("captures", "recaptures", "replays", "capture_s")
+
+
+def _graph_counters(since=None):
+    """The port's `graphs.*` counters (`utils/graphs.py`), or their change
+    since `since`; empty where the package does not import."""
+    try:
+        from diffusion_llm_rs_tpu_torch.utils.metrics import metrics
+    except ImportError:
+        return {}
+    now = {k: metrics.get(f"graphs.{k}") for k in GRAPH_COUNTERS}
+    return now if since is None else {k: v - since.get(k, 0.0)
+                                      for k, v in now.items()}
 
 
 def time_ms(fn, iters=20):
@@ -1116,6 +1155,13 @@ def full_width_model(max_seq):
     return cfg, prep(qparams)
 
 
+def graphs_disabled():
+    """`utils.graphs.disabled()`: the port's steps run eagerly inside (no
+    CUDA graph is captured or replayed)."""
+    from diffusion_llm_rs_tpu_torch.utils import graphs
+    return graphs.disabled()
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -1248,7 +1294,9 @@ def sampler():
     noises = [torch.randn_like(x0) for _ in range(2)]
     eps_k, eps_p = [], []
     _, fn_k = _sampler(cfg, params, "cuda", eps_k)
-    xk = sample(fn_k, schedule, x0.shape, num_steps=2, x=x0, noises=noises)
+    with graphs_disabled():  # the eps log copies to the host each step
+        xk = sample(fn_k, schedule, x0.shape, num_steps=2, x=x0,
+                    noises=noises)
     cpu_params = _to(params, "cpu")
     sched_p, fn_p = _sampler(cfg, cpu_params, "cpu", eps_p)
     t0 = time.perf_counter()
@@ -1522,9 +1570,10 @@ def scan_check():
             torch.cuda.synchronize()
             _build.reset_launch_counts()
         t0 = time.perf_counter()
-        xs[device] = phase_aware_sample(
-            params, cfg, schedule, (2, 256), noise, 3,
-            forward_fn=_bf16_forward(eps[device])).cpu()
+        with graphs_disabled():  # the eps log copies to the host each step
+            xs[device] = phase_aware_sample(
+                params, cfg, schedule, (2, 256), noise, 3,
+                forward_fn=_bf16_forward(eps[device])).cpu()
         log(f"  3 steps on {device}: {time.perf_counter() - t0:.1f} s")
         if device == "cuda":
             counts = dict(_build.launch_counts)
@@ -1686,7 +1735,8 @@ def _busy_share(b, seq_len, steps=8):
     The call runs twice: timed by the wall clock alone, then under
     torch.profiler for its kernel time (the profiler slows the host, so its
     own wall is not the step's). Busy share = kernel time / unprofiled
-    wall."""
+    wall. One untimed chunk first, so a replayed path's step graph is
+    captured before the timed ones."""
     from diffusion_llm_rs_tpu_torch.serving import Request
     from diffusion_llm_rs_tpu_torch.utils.metrics import metrics
 
@@ -1709,6 +1759,7 @@ def _busy_share(b, seq_len, steps=8):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
+    chunk(b.step)
     wall_ms = chunk(timed)
     prof_wall_ms, busy_ms, rows = chunk(lambda: _device_time(b.step, 1))
     share = busy_ms / wall_ms if rows else None
@@ -1746,6 +1797,7 @@ def _serve(name, b, requests, kept=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps0 = metrics.get("batcher.steps")
+    graphs0 = _graph_counters()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     for rid, seq_len, steps in requests:
@@ -1753,6 +1805,7 @@ def _serve(name, b, requests, kept=None):
     done = b.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    moved = _graph_counters(graphs0)
     counts = dict(_build.launch_counts)
     steps = int(metrics.get("batcher.steps") - steps0)
     peak = torch.cuda.max_memory_allocated()
@@ -1771,7 +1824,9 @@ def _serve(name, b, requests, kept=None):
     p50 = statistics.median(lat)
     out = dict(requests=len(done), tokens=tokens, steps=steps, wall_s=wall,
                tokens_per_s=tokens / wall, latency_p50_s=p50,
-               latency_max_s=max(lat), peak_bytes=peak, counts=counts)
+               latency_max_s=max(lat), peak_bytes=peak, counts=counts,
+               graph_replays=moved["replays"],
+               graph_captures=moved["captures"])
     log(f"  {len(done)} requests, {steps} steps in {wall:.3f} s: "
         f"{tokens / wall:.1f} generated tokens/s; latency p50 "
         f"{p50:.3f} s, max {max(lat):.3f} s; peak memory "
@@ -1981,7 +2036,8 @@ def _step_vs_cpu(act_bits, kernel):
             torch.cuda.synchronize()
             _build.reset_launch_counts()
         t0 = time.perf_counter()
-        b.step()
+        with graphs_disabled():  # card against CPU: both eager
+            b.step()
         xs[device] = b.x.cpu()
         log(f"  one step on {device}: {time.perf_counter() - t0:.1f} s")
         if device == "cuda":
@@ -2620,6 +2676,263 @@ def engine_check():
 # Collectives across ranks need a second card; here every collective runs on
 # a group of one.
 
+# ----------------------------------------------------------- CUDA graphs ---
+
+def _drain(b, requests):
+    """Submit `requests` [(id, seq_len, steps)] and drain: {id: Completion}."""
+    from diffusion_llm_rs_tpu_torch.serving import Request
+    for rid, seq_len, steps in requests:
+        b.submit(Request(rid, seq_len, steps))
+    return {c.request_id: c for c in b.run_until_drained()}
+
+
+def _timed_part(fn):
+    """(result, wall seconds, launch counts) of `fn()`, counts from 0."""
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(_build.launch_counts)
+
+
+def _run_busy(call, steps):
+    """Busy share of an unbatched run of `steps` steps: kernel time under
+    torch.profiler over the unprofiled wall of the same call."""
+    _, wall, _ = _timed_part(call)
+    _, busy_ms, rows = _device_time(call, 1)
+    return dict(step_wall_ms=wall * 1e3 / steps, step_device_ms=busy_ms / steps,
+                busy_share=busy_ms / (wall * 1e3) if rows else None)
+
+
+def _graph_paths(cfg, params):
+    """The paths the `graphs` phase runs both ways: name -> run(), where
+    run() builds the path afresh, warms it with the same work as the timed
+    part (a replayed path captures its keys there), then times it; returns
+    (outputs on the host, steps timed, wall s, launch counts, busy)."""
+    from diffusion_llm_rs_tpu_torch.models.diffusion import (
+        DiffusionSchedule, sample)
+    from diffusion_llm_rs_tpu_torch.models.sampler import phase_aware_sample
+    from diffusion_llm_rs_tpu_torch.serving import (GeneratorNoise,
+                                                    PagedContinuousBatcher)
+    from diffusion_llm_rs_tpu_torch.utils.metrics import metrics
+
+    schedule = DiffusionSchedule.create(cfg.num_timesteps, device="cuda")
+    B, S, D = 8, 256, cfg.hidden_size
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def one_shot():
+        _, model_fn = _sampler(cfg, params, "cuda")
+        sample(model_fn, schedule, (B, S, D), gen(7), num_steps=32)
+        x, wall, counts = _timed_part(lambda: sample(
+            model_fn, schedule, (B, S, D), gen(8), num_steps=32))
+        busy = _run_busy(lambda: sample(model_fn, schedule, (B, S, D), gen(9),
+                                        num_steps=8), 8)
+        return dict(x=x.cpu()), 32, wall, counts, busy
+
+    def scan():
+        fwd = _bf16_forward()
+
+        def run(seed, n=32):
+            return phase_aware_sample(params, cfg, schedule, (B, S),
+                                      GeneratorNoise(seed, "cuda"), n,
+                                      forward_fn=fwd)
+        run(61)
+        x, wall, counts = _timed_part(lambda: run(62))
+        busy = _run_busy(lambda: run(63, 8), 8)
+        return dict(x=x.cpu()), 32, wall, counts, busy
+
+    def serve(make, warm, reqs, seq_len):
+        def run():
+            b = make()
+            _drain(b, warm)
+            steps0 = metrics.get("batcher.steps")
+            done, wall, counts = _timed_part(lambda: _drain(b, reqs))
+            steps = int(metrics.get("batcher.steps") - steps0)
+            out = {f"tokens {r}": c.tokens for r, c in done.items()}
+            out.update({f"embeddings {r}": c.embeddings
+                        for r, c in done.items() if c.embeddings is not None})
+            out["x"], out["page_scores"] = b.x.cpu(), b.page_scores.copy()
+            for bits, pool in b.pools.items():
+                out.update({f"pool {bits} {n}": a.cpu()
+                            for n, a in pool.items()})
+            return out, steps, wall, counts, _busy_share(b, seq_len)
+        return run
+
+    def paged(**kw):
+        base = dict(num_slots=2, seq_len=4096, page_size=128,
+                    attend_mode="auto", salience_routing=True,
+                    hbm_budget_bytes=2 << 30, keep_embeddings=False, seed=41)
+        base.update(kw)
+        c4 = _serve_cfg(prefill_bits=4, decode_bits=4,
+                        progressive_precision=False)
+        reqs = [(f"r{i}", 4096, 8) for i in range(4)]
+        return serve(lambda: PagedContinuousBatcher(params, c4, **base),
+                     [("warm", 4096, 8)], reqs, 4096)
+
+    phase_reqs = [(f"p{i}", 2048, 16 if i % 2 == 0 else 6) for i in range(8)]
+    return {
+        "sampler": one_shot,
+        "scan_sampler": scan,
+        "serve_paged": paged(),
+        "serve_paged_a8": paged(attn_act_bits=8),
+        "serve_phase": serve(lambda: PagedContinuousBatcher(
+            params, _serve_cfg(), num_slots=4, seq_len=2048, page_size=64,
+            attend_mode="auto", keep_embeddings=True, seed=43),
+            phase_reqs, phase_reqs, 2048),
+        "serve_dense": serve(lambda: PagedContinuousBatcher(
+            params, _serve_cfg(), num_slots=8, seq_len=256, page_size=128,
+            attend_mode="auto", keep_embeddings=False, seed=47),
+            [(f"w{i}", 256, 12) for i in range(8)],
+            [(f"d{i}", 256, 12) for i in range(48)], 256),
+    }
+
+
+def _engine_path(eng):
+    """engine_packed both ways: `Engine.sample(8, 256, 32 steps)` through a
+    new batcher (the engine's are dropped first), warmed by the same call
+    from another seed."""
+    B, S = 8, 256
+
+    def run():
+        eng._samplers.clear()
+        eng.sample(batch_size=B, seq_len=S, num_steps=32, seed=5,
+                   return_text=False)
+        tokens, wall, counts = _timed_part(lambda: eng.sample(
+            batch_size=B, seq_len=S, num_steps=32, seed=3,
+            return_text=False))
+        b = eng._samplers[(B, S, False, "auto")]
+        return dict(tokens=tokens), 32, wall, counts, _busy_share(b, S)
+    return run
+
+
+def _eager_vs_replayed(name, run):
+    """`run()` under `utils.graphs.disabled()`, then replayed (the default),
+    each with its peak memory and the graphs it captured; the outputs must
+    be equal bit for bit and the timed part's launch counts equal."""
+    res = {}
+    for mode, ctx in (("eager", graphs_disabled),
+                      ("replayed", contextlib.nullcontext)):
+        gc.collect()  # a cycle can hold a model's f32 leaves until then
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = _graph_counters()
+        with ctx():
+            out, steps, wall, counts, busy = run()
+        torch.cuda.synchronize()
+        moved = _graph_counters(before)
+        res[mode] = dict(out=out, steps=steps, step_wall_ms=wall * 1e3 / steps,
+                         peak_bytes=torch.cuda.max_memory_allocated(),
+                         peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+                         counts=counts, busy_share=busy.get("busy_share"),
+                         busy_step_wall_ms=busy.get("step_wall_ms"),
+                         step_device_ms=busy.get("step_device_ms"), **moved)
+    e, r = res["eager"], res["replayed"]
+    differ = [k for k in e["out"] if not np.array_equal(
+        np.asarray(e["out"][k]), np.asarray(r["out"][k]))]
+    if sorted(e["out"]) != sorted(r["out"]) or differ:
+        raise AssertionError(f"{name}: replayed differs from eager in "
+                             f"{differ[:6]}")
+    if e["counts"] != r["counts"] or not sum(r["counts"].values()):
+        raise AssertionError(f"{name}: launches eager {e['counts']}, "
+                             f"replayed {r['counts']}")
+    if e["replays"] or not r["replays"] or not r["captures"]:
+        raise AssertionError(f"{name}: replays eager {e['replays']}, "
+                             f"replayed {r['replays']} ({r['captures']} "
+                             f"captures)")
+    per_capture = r["capture_s"] / r["captures"]
+
+    def share(m):
+        if m["busy_share"] is None:
+            return "busy not measured"
+        return (f"{m['busy_share']:.1%} busy (kernels "
+                f"{m['step_device_ms']:.2f} ms a step)")
+    log(f"  {name}: bit for bit ({len(e['out'])} outputs), launches equal "
+        f"({sum(r['counts'].values())}); ms a step eager "
+        f"{e['step_wall_ms']:.2f}, replayed {r['step_wall_ms']:.2f}; "
+        f"eager {share(e)}, replayed {share(r)}; "
+        f"{r['captures']:.0f} captures ({r['recaptures']:.0f} again), "
+        f"{per_capture:.3f} s each, {r['replays']:.0f} replays; peak memory "
+        f"allocated eager {e['peak_bytes'] / 2**20:.1f} MiB, replayed "
+        f"{r['peak_bytes'] / 2**20:.1f} MiB; reserved eager "
+        f"{e['peak_reserved_bytes'] / 2**20:.1f} MiB, replayed "
+        f"{r['peak_reserved_bytes'] / 2**20:.1f} MiB")
+    for m in res.values():
+        del m["out"]
+    return dict(res, capture_s_each=per_capture)
+
+
+def _spill_case(cfg, params):
+    """A budget of about one pool over the 8/4/2-bit buckets at S=512 spills
+    and restores buckets mid-run. A restored bucket is made to land on new
+    storage (the pool it replaced is held while the bucket is out), so the
+    graphs that read it must be captured again; bit for bit against eager."""
+    from diffusion_llm_rs_tpu_torch.cache.memory_manager import MemoryManager
+    from diffusion_llm_rs_tpu_torch.serving import PagedContinuousBatcher
+    from diffusion_llm_rs_tpu_torch.utils.metrics import metrics
+
+    held = {}
+
+    class Holding(PagedContinuousBatcher):
+        def _spill_bucket(self, bits):
+            held[bits] = list(self.pools[bits].values())
+            super()._spill_bucket(bits)
+
+        def _restore_bucket(self, bits):
+            super()._restore_bucket(bits)
+            held.pop(bits, None)
+
+    def run():
+        b = Holding(params, _serve_cfg(), num_slots=2, seq_len=512,
+                    page_size=64, attend_mode="paged", max_chunk=4, seed=49,
+                    keep_embeddings=False)
+        b.hbm_budget = b.cache_memory_bytes() // len(b.buckets) + 1
+        b.memory = MemoryManager(device=b.device)
+        restores0 = metrics.get("batcher.pool_restores")
+        done, wall, counts = _timed_part(lambda: _drain(
+            b, [("a", 512, 24), ("b", 512, 10)]))
+        restores = int(metrics.get("batcher.pool_restores") - restores0)
+        out = {f"tokens {r}": c.tokens for r, c in done.items()}
+        out["x"] = b.x.cpu()
+        return out, 24, wall, counts, dict(restores=restores)
+
+    res = _eager_vs_replayed("spill and restore", run)
+    if not res["replayed"]["recaptures"]:
+        raise AssertionError("a restored pool did not make a recapture")
+    return res
+
+
+def graphs():
+    """Every path that replays CUDA graphs by default, against itself under
+    `utils.graphs.disabled()` on the same draws: the one-shot sampler and
+    the scan sampler (B=8, S=256, 32 steps), serve_paged, serve_paged_a8,
+    serve_phase, serve_dense (their phases' configurations and requests)
+    and engine_packed (`Engine.sample` 8 x 256, 32 steps); and a spill and
+    restore under an HBM budget. Each path is warmed by the same work,
+    then timed: outputs (x, tokens, embeddings, scores, pools) bit for bit,
+    the timed part's launch counts equal, ms a step both ways, the busy
+    share of 8 steps both ways (`_busy_share`; for the samplers an 8-step
+    run), captures, recaptures and seconds a capture, and peak memory both
+    ways. The W4A8 model is built again (the engine phases freed it)."""
+    t0 = time.perf_counter()
+    cfg, params = full_width_model(max_seq=4096)
+    MODEL.update(cfg=cfg, params=params)
+    log(f"  model built in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name, run in _graph_paths(cfg, params).items():
+        out[name] = _eager_vs_replayed(name, run)
+    if "engine16" not in MODEL:
+        raise AssertionError("engine_packed built no engine")
+    out["engine_packed"] = _eager_vs_replayed("engine_packed",
+                                              _engine_path(MODEL["engine16"]))
+    out["spill"] = _spill_case(cfg, params)
+    return out
+
+
 def _nccl_group(name):
     import contextlib
     import os
@@ -2741,6 +3054,12 @@ def serve_sharded():
         raise AssertionError("the sharded batcher's tokens differ")
     if counts != runs["single"]["counts"]:
         raise AssertionError("the sharded batcher launched other kernels")
+    replays = {k: r["graph_replays"] for k, r in runs.items()}
+    log(f"  graph replays: sharded {replays['sharded']:.0f} (eager), single "
+        f"{replays['single']:.0f}")
+    if replays["sharded"] or not replays["single"]:
+        raise AssertionError(f"graph replays {replays}: the sharded chunk "
+                             "runs eagerly, the single batcher's replays")
     if n == 0 or n % (L * steps):
         raise AssertionError(f"{n} paged launches over {steps} steps")
     _expect("serve_sharded", counts, {"matmul": (4 * L + 3) * steps,
@@ -3078,6 +3397,7 @@ def main() -> int:
         runs[fn.__name__] = phase(fn)
     if "engine16" in MODEL and "engine8" in MODEL:
         runs["engine_check"] = phase(engine_check)
+    runs["graphs"] = phase(graphs)
     MODEL.clear()
     torch.cuda.empty_cache()
     for fn in (serve_sharded, tp_forward, moe_forward, pp_sp_forward):

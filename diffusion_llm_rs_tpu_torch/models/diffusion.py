@@ -7,9 +7,10 @@ Counterpart of `diffusion_llm_rs_tpu/models/diffusion.py`
     mean = (x_t - beta_t / sqrt(1 - alpha_bar_t) * eps_hat) / sqrt(alpha_t)
     var  = beta_t * (1 - alpha_bar_{t-1}) / (1 - alpha_bar_t)
 
-The JAX sampler is a `lax.scan`; here it is a Python loop over the same
-precomputed tables. Randomness comes from an explicit `torch.Generator`, or
-is passed in (`x`, `noises`) so a test can replay the JAX draws.
+The JAX sampler is a `lax.scan`; here it is a loop over the same precomputed
+tables whose step, on the card, is a replayed CUDA graph (`utils.graphs`).
+Randomness comes from an explicit `torch.Generator`, or is passed in (`x`,
+`noises`) so a test can replay the JAX draws.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from diffusion_llm_rs_tpu_torch.config import BetaSchedule
+from diffusion_llm_rs_tpu_torch.utils import graphs
 
 
 def create_beta_schedule(
@@ -217,7 +219,15 @@ def sample(
 
     The initial `x` [shape] and the noise of each step come from `generator`
     (on the device the run uses) unless given; passing both replays another
-    run's draws. `callback(t, x)` observes each step."""
+    run's draws. `callback(t, x)` observes each step, between steps.
+
+    On the card one step is a CUDA graph replayed at every timestep (JAX's
+    scan; `utils.graphs`), cached per (`model_fn`, shape) while `model_fn`
+    lives: x, t and the step's noise are static buffers, the noise drawn
+    outside the graph in the eager order (x, then one draw a step), so
+    `model_fn` must draw nothing, read no host value and keep its tensors
+    where they are. One that does host work fails to capture and raises;
+    it runs under `utils.graphs.disabled()`."""
     T = schedule.num_timesteps
     ts = respaced_timesteps(T, num_steps or T)
     if noises is not None and len(noises) != len(ts):
@@ -228,13 +238,26 @@ def sample(
             raise ValueError("provide `x` or a torch.Generator")
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
-    x = x.to(device=device, dtype=torch.float32)
+    cache = graphs.cache_for(model_fn, (tuple(shape), device), "sample",
+                             device)
+
+    def buf(name, dtype, size):
+        return cache.buffer(name, lambda: torch.empty(size, dtype=dtype,
+                                                      device=device))
+    xs = buf("x", torch.float32, shape)
+    t_vec = buf("t", torch.int64, (shape[0],))
+    zs = buf("noise", torch.float32, shape)
+    xs.copy_(x)
+
+    def step():
+        eps = model_fn(xs, t_vec)
+        xs.copy_(p_sample(schedule, xs, t_vec, eps, noise=zs))
+
+    held = graphs.pointers(schedule)
     for i, t_scalar in enumerate(ts):
-        t_vec = torch.full((shape[0],), t_scalar, dtype=torch.int64,
-                           device=device)
-        eps = model_fn(x, t_vec)
-        noise = None if noises is None else noises[i].to(device)
-        x = p_sample(schedule, x, t_vec, eps, generator, noise)
+        zs.copy_(_randn_like(xs, generator) if noises is None else noises[i])
+        t_vec.fill_(t_scalar)
+        cache.run("step", step, held)
         if callback is not None:
-            callback(t_scalar, x)
-    return x
+            callback(t_scalar, xs.clone())
+    return xs.clone()

@@ -13,8 +13,12 @@ is dequantized and requantized at the new width. With `kernel_cache` the
 carry is one `QuantKV` pair per layer, read packed by the quantized-KV
 attention kernel (`ops.attention.attention`); without it a `QuantizedTensor`
 pair that is dequantized in front of the ordinary attention. Where the JAX
-package scans each segment inside one compiled program, this port runs the
-same steps eagerly in a Python loop.
+package scans each segment inside one compiled program, this port replays
+one captured step a segment on the card (`utils.graphs`; a graph per branch
+and bit-width, cached per (forward_fn, shape) while forward_fn lives), with
+x, t, the noise and the carry as static buffers the step writes in place.
+The bootstrap step and each boundary's requantization run eagerly, as in
+JAX.
 
 Randomness comes from a noise source as in `serving` (`admission(shape)` for
 the initial x, `step(shape)` once per denoise step, in execution order), or
@@ -33,6 +37,7 @@ from diffusion_llm_rs_tpu_torch.models.diffusion import (DiffusionSchedule,
                                                          p_sample)
 from diffusion_llm_rs_tpu_torch.ops.attention import QuantKV, quantize_kv
 from diffusion_llm_rs_tpu_torch.quant.core import dequantize, quantize
+from diffusion_llm_rs_tpu_torch.utils import graphs
 
 SUPPORTED = (8, 4, 2, 1)
 
@@ -109,27 +114,24 @@ def _split_layers(q: QuantKV, L: int) -> List[QuantKV]:
             for li in range(L)]
 
 
-def _quantize_kv_packed(kv, bits: int, reciprocal: bool = False):
-    """Quantize stacked K/V [L, B, S, H, Hd] into per-layer packed `QuantKV`
-    pairs ([B*H, S, Hd] layout) for the quantized-KV attention kernel. All
-    layers go through one `quantize_kv` call on [L*B*H, S, Hd]: rows are
-    independent, so the result equals a per-layer loop, in two launches of
-    each op instead of 2 L."""
+def _quantize_kv_stacked(kv, bits: int, reciprocal: bool = False):
+    """Quantize stacked K/V [L, B, S, H, Hd] into one packed `QuantKV` pair
+    over [L*B*H, S, Hd] (the carry of the packed branch; `_split_layers`
+    views it per layer). Rows are independent, so the result equals a
+    per-layer loop, in two launches of each op instead of 2 L."""
     L, B, S, H, Hd = kv[0].shape
 
     def fold(arr):
         return arr.permute(0, 1, 3, 2, 4).reshape(L * B * H, S, Hd)
 
-    ks = _split_layers(quantize_kv(fold(kv[0]), bits, reciprocal), L)
-    vs = _split_layers(quantize_kv(fold(kv[1]), bits, reciprocal), L)
-    return tuple(zip(ks, vs))
+    return (quantize_kv(fold(kv[0]), bits, reciprocal),
+            quantize_kv(fold(kv[1]), bits, reciprocal))
 
 
-def _requantize_packed(qkv, bits: int):
-    """Segment boundary: the packed carry dequantized and quantized again at
-    the new width."""
-    return tuple((quantize_kv(k.dequantize(), bits),
-                  quantize_kv(v.dequantize(), bits)) for k, v in qkv)
+def _requantize_stacked(qkv, bits: int):
+    """Segment boundary: the stacked packed carry dequantized and quantized
+    again at the new width (row by row, as JAX's per-layer loop)."""
+    return tuple(quantize_kv(q.dequantize(), bits) for q in qkv)
 
 
 def phase_aware_sample(
@@ -152,7 +154,9 @@ def phase_aware_sample(
     `forward_fn(params, cfg, x, t, cached_kv=..., cached_qkv=...,
     return_kv=...)` defaults to the transformer denoiser. Returns the
     denoised embeddings; token decode is a separate readout
-    (`models.denoiser.decode_tokens`)."""
+    (`models.denoiser.decode_tokens`). On the card the steps replay
+    captured graphs: `forward_fn` must draw nothing and do no host work
+    (or run under `utils.graphs.disabled()`)."""
     if isinstance(noise, torch.Generator):
         from diffusion_llm_rs_tpu_torch.serving import GeneratorNoise
         noise = GeneratorNoise(noise)
@@ -161,31 +165,44 @@ def phase_aware_sample(
     fwd = forward_fn or dn.denoiser_forward
     device = schedule.betas.device
     xshape = (batch, seq_len, cfg.hidden_size)
+    L = cfg.num_layers
+    # the steps' Python reads the config, so their graphs are keyed by it
+    cache = graphs.cache_for(fwd, (xshape, device, repr(cfg)),
+                             "phase_aware_sample", device)
+    xs = cache.buffer("x", lambda: torch.empty(xshape, dtype=torch.float32,
+                                                 device=device))
+    t_vec = cache.buffer("t", lambda: torch.empty(
+        (batch,), dtype=torch.int64, device=device))
+    zs = cache.buffer("noise", lambda: torch.empty(
+        xshape, dtype=torch.float32, device=device))
+    held = graphs.pointers(params, schedule)
+    xs.copy_(noise.admission(xshape))
 
-    def t_vec(t_scalar: int) -> torch.Tensor:
-        return torch.full((batch,), t_scalar, dtype=torch.int64, device=device)
+    def inputs(t: int) -> None:
+        zs.copy_(noise.step(xshape))
+        t_vec.fill_(t)
 
-    def step_noise() -> torch.Tensor:
-        return noise.step(xshape).to(device)
-
-    x = noise.admission(xshape).to(device=device, dtype=torch.float32)
+    def advance(eps) -> None:
+        xs.copy_(p_sample(schedule, xs, t_vec, eps, noise=zs))
 
     if not use_cache or not cfg.use_kv_cache:
+        def plain_step():
+            advance(fwd(params, cfg, xs, t_vec))
         for t in range(T - 1, -1, -1):
-            z = step_noise()
-            eps = fwd(params, cfg, x, t_vec(t))
-            x = p_sample(schedule, x, t_vec(t), eps, noise=z)
-        return x
+            inputs(t)
+            cache.run("no_cache", plain_step, held)
+        return xs.clone()
 
     segments = plan_segments(T, cfg)
 
-    # Bootstrap step (t = T-1): no cache yet, so the first step attends over
-    # its own fresh K/V, quantized afterwards at the first segment's bits.
-    z = step_noise()
-    eps, kv = fwd(params, cfg, x, t_vec(T - 1), return_kv=True)
-    x = p_sample(schedule, x, t_vec(T - 1), eps, noise=z)
+    # Bootstrap step (t = T-1), eagerly: no cache yet, so the first step
+    # attends over its own fresh K/V, quantized afterwards at the first
+    # segment's bits.
+    inputs(T - 1)
+    eps, kv = fwd(params, cfg, xs, t_vec, return_kv=True)
+    advance(eps)
     carry_bits = segments[0][0]
-    requantize = _quantize_kv_packed if kernel_cache else _quantize_kv_pair
+    requantize = _quantize_kv_stacked if kernel_cache else _quantize_kv_pair
     qkv = requantize(kv, carry_bits)
 
     # the first segment already consumed one step (t = T-1)
@@ -195,23 +212,36 @@ def phase_aware_sample(
         if hi < lo:
             continue
         if carry_bits != bits:
-            # segment boundary: requantize the carry at the new width
+            # segment boundary, eagerly as in JAX: requantize the carry at
+            # the new width
             if kernel_cache:
-                qkv = _requantize_packed(qkv, bits)
+                qkv = _requantize_stacked(qkv, bits)
             else:
                 qkv = _quantize_kv_pair(_dequantize_kv_pair(qkv), bits)
             carry_bits = bits
+        # the segment's carry is a static buffer its step graph writes in
+        # place, JAX's scan carry
+        key = ("packed" if kernel_cache else "dequantized", bits)
+        carry = cache.buffer(key, lambda: graphs.clone(qkv))
+        graphs.copy_into(carry, qkv)
+        if kernel_cache:
+            layers = tuple(zip(_split_layers(carry[0], L),
+                               _split_layers(carry[1], L)))
+
+            def step(carry=carry, layers=layers, bits=bits):
+                eps, kv = fwd(params, cfg, xs, t_vec, cached_qkv=layers,
+                              return_kv=True)
+                graphs.copy_into(carry, requantize(kv, bits, reciprocal=True))
+                advance(eps)
+        else:
+            def step(carry=carry, bits=bits):
+                eps, kv = fwd(params, cfg, xs, t_vec,
+                              cached_kv=_dequantize_kv_pair(carry),
+                              return_kv=True)
+                graphs.copy_into(carry, requantize(kv, bits, reciprocal=True))
+                advance(eps)
         for t in range(hi, lo - 1, -1):
-            z = step_noise()
-            if kernel_cache:
-                eps, kv = fwd(params, cfg, x, t_vec(t), cached_qkv=qkv,
-                              return_kv=True)
-            else:
-                eps, kv = fwd(params, cfg, x, t_vec(t),
-                              cached_kv=_dequantize_kv_pair(qkv),
-                              return_kv=True)
-            # in the JAX package this requantization is compiled into the
-            # segment's scan (the bootstrap's and the boundary's run eagerly)
-            qkv = requantize(kv, bits, reciprocal=True)
-            x = p_sample(schedule, x, t_vec(t), eps, noise=z)
-    return x
+            inputs(t)
+            cache.run(key, step, held)
+        qkv = carry
+    return xs.clone()

@@ -9,12 +9,16 @@ libraries are loaded with `ctypes`: every pointer and the stream pass as
 `cudaError_t`, or a size), and `check` raises when an error is not 0.
 
 The launch counts live here too: each kernel wrapper adds one to its entry of
-`launch_counts` where it launches its kernel, and nowhere else.
+`launch_counts` where it launches its kernel, and nowhere else. A CUDA
+graph's capture adds nothing; each of its replays adds the counts recorded
+at its capture (`recording_launches`), so the counts are those of the
+kernels that ran, replayed or not.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -74,6 +78,22 @@ build_seconds: Dict[str, float] = {}
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Take the launches counted inside out of `launch_counts` again and
+    yield them as a Counter: a CUDA graph's capture runs the wrappers'
+    Python but launches nothing, and each replay adds the recorded counts,
+    so the counts stay those of the kernels that ran."""
+    before = launch_counts.copy()
+    recorded: collections.Counter = collections.Counter()
+    try:
+        yield recorded
+    finally:
+        recorded.update(launch_counts - before)
+        launch_counts.clear()
+        launch_counts.update(before)
 
 
 def _nvcc() -> str:

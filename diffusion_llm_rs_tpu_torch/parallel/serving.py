@@ -42,6 +42,12 @@ class ShardedPagedBatcher(PagedContinuousBatcher):
     over 'model'; one rank of it runs in each process of the mesh, all fed
     the same requests."""
 
+    # The chunk stays eager: a step of a 'model' axis wider than one runs
+    # collectives (the TP forward's all-reduces, the salience scores'), and
+    # a gloo collective cannot be captured in a CUDA graph. Capturing the
+    # step over NCCL is ROADMAP A15b.
+    capture_steps = False
+
     def __init__(self, params, cfg: DiffusionConfig, mesh: Mesh,
                  schedule: Optional[DiffusionSchedule] = None,
                  num_slots: int = 8, seq_len: int = 64, seed: int = 0,

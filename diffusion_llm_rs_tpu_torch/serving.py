@@ -14,10 +14,12 @@ t = 0. The paged batcher quantizes each layer's fresh K/V into per-(slot,
 layer) page ranges of one pool per bit-width, then attends over them with
 `batched_paged_attention`; each slot reads the bucket its phase (or, with
 salience routing, each page's salience) routes it to. Where the JAX package
-jits a step and scans a chunk of steps, this port runs the same steps
-eagerly: a chunk is a Python loop of up to `max_chunk` steps on the device,
-with the bit routing computed on the device as in the JAX chunk. Pools are
-tensors written in place.
+jits a step and scans a chunk of steps, this port captures one step as a
+CUDA graph on the card and replays it (`utils.graphs`; one cache a
+batcher): a chunk is up to `max_chunk` replays, with the bit routing
+computed on the device as in the JAX chunk. The slot state (x, t, the
+scores) and the step's inputs are static buffers written in place, as the
+pools are.
 
 Randomness comes from a noise source with two methods, `admission(shape)`
 (one [B, S, D] draw per admission wave, the admitted slots take their rows)
@@ -52,6 +54,7 @@ from diffusion_llm_rs_tpu_torch.models.sampler import (SUPPORTED, bucket_bits,
 from diffusion_llm_rs_tpu_torch.ops.paged_attention import (
     batched_paged_attention, merge_partials)
 from diffusion_llm_rs_tpu_torch.quant.core import true_div
+from diffusion_llm_rs_tpu_torch.utils import graphs
 from diffusion_llm_rs_tpu_torch.utils.metrics import metrics
 from diffusion_llm_rs_tpu_torch.utils.sanitize import (
     ReentrancyGuard, check_scheduler_invariants, sanitize_enabled)
@@ -103,7 +106,14 @@ class GeneratorNoise:
 
 
 class ContinuousBatcher:
-    """Fixed-slot continuous batching over the diffusion denoise loop."""
+    """Fixed-slot continuous batching over the diffusion denoise loop.
+
+    On the card each step replays a captured graph (JAX's jitted step) from
+    static buffers: x, written in place, and t, the active mask and the
+    noise, copied in before each replay."""
+
+    # whether the steps are captured as CUDA graphs on the card
+    capture_steps = True
 
     def __init__(self, params, cfg: DiffusionConfig,
                  schedule: Optional[DiffusionSchedule] = None,
@@ -143,6 +153,9 @@ class ContinuousBatcher:
         self._pending_retires: List[tuple] = []
         self.sanitize = sanitize_enabled() if sanitize is None else sanitize
         self._guard = ReentrancyGuard("batcher.step")
+        # the step graphs and their static inputs; freed with the batcher
+        self._graphs = graphs.GraphCache(type(self).__name__, self.device,
+                                         capture=self.capture_steps)
 
     @property
     def _shape(self) -> Tuple[int, int, int]:
@@ -150,6 +163,26 @@ class ContinuousBatcher:
 
     def _dev(self, arr, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), dtype=dtype, device=self.device)
+
+    def _static(self, name: str, arr, dtype) -> torch.Tensor:
+        """Static input `name` of the step graphs, set to this process's
+        rows of the per-slot host array `arr` (or tensor)."""
+        src = self._local(torch.as_tensor(np.asarray(arr), dtype=dtype))
+        buf = self._graphs.buffer(name, lambda: torch.empty(
+            src.shape, dtype=dtype, device=self.device))
+        return buf.copy_(src)
+
+    def _step_noise(self) -> torch.Tensor:
+        """The step's noise draw, copied into its static buffer."""
+        z = self._local(self.noise.step(self._shape))
+        buf = self._graphs.buffer("noise", lambda: torch.empty(
+            z.shape, dtype=torch.float32, device=self.device))
+        return buf.copy_(z)
+
+    def _held(self, *trees) -> tuple:
+        """Pointers of what a step graph reads in place: the weights, the
+        schedule tables and `trees`."""
+        return graphs.pointers(self.params, self.schedule, *trees)
 
     # -- what this process holds (the sharded batcher holds a 'data' shard) --
 
@@ -219,15 +252,19 @@ class ContinuousBatcher:
                 self.device))
             mask = np.zeros((self.num_slots,), bool)
             mask[fresh] = True
-            self.x = torch.where(
+            self.x.copy_(torch.where(
                 self._local(self._dev(mask, torch.bool))[:, None, None],
-                noise, self.x)
+                noise, self.x))
 
-    def _invoke_step(self, active_mask: np.ndarray,
-                     noise: torch.Tensor) -> None:
-        """Run one denoise step, updating self.x (and any cache state)."""
-        self.x = self._denoise(self.x, self._dev(self.t, torch.int64),
-                               self._dev(active_mask, torch.bool), noise)
+    def _invoke_step(self, active_mask: np.ndarray) -> None:
+        """Run one denoise step, updating self.x in place."""
+        t = self._static("t", self.t, torch.int64)
+        active = self._static("active", active_mask, torch.bool)
+        noise = self._step_noise()
+
+        def step():
+            self.x.copy_(self._denoise(self.x, t, active, noise))
+        self._graphs.run("step", step, self._held())
 
     def step(self) -> int:
         """Admit, run denoise step(s), retire finished slots. Returns the
@@ -246,8 +283,7 @@ class ContinuousBatcher:
         if n_active == 0:
             self._flush_retires()
             return 0
-        self._invoke_step(active_mask, self.noise.step(self._shape).to(
-            self.device))
+        self._invoke_step(active_mask)
         # the previous wave's retires: copy now, behind the step just launched
         self._flush_retires()
         finished = active_mask & (self.t == 0)
@@ -259,12 +295,14 @@ class ContinuousBatcher:
 
     def _retire(self, finished: np.ndarray) -> None:
         """Launch the readout of all slots and free the finished ones; the
-        copy to the host waits for `_flush_retires`. self.x is replaced,
-        never written in place, so the tensors kept here stay valid."""
+        copy to the host waits for `_flush_retires`. self.x is the step's
+        static buffer, which the next step writes in place: the readout is
+        launched now, ahead of that step, and the kept embeddings are a
+        copy taken now."""
         if not finished.any():
             return
         tokens_dev = dn.decode_tokens(self.readout_params, self.x)
-        x_dev = self.x if self.keep_embeddings else None
+        x_dev = self.x.clone() if self.keep_embeddings else None
         entries = []
         for slot in np.nonzero(finished)[0]:
             entries.append((int(slot), self.slot_request[slot]))
@@ -591,7 +629,11 @@ class PagedContinuousBatcher(ContinuousBatcher):
     attention-mass EMA (`allocate_bits_torch`).
 
     Every step runs in a chunk of up to `max_chunk` steps (`_run_chunk`),
-    its routing on the device; max_chunk=1 steps one at a time.
+    its routing on the device; max_chunk=1 steps one at a time. On the card
+    a chunk replays one captured step graph per (buckets written, routing)
+    (JAX's `_build_chunk`, whose scan length becomes the replay count); a
+    pool that moved (a spill and a restore under an HBM budget) makes the
+    graphs that read it be captured again.
 
     attend_mode "paged" streams the pools through the paged kernel; "dense"
     attends once over the same quantize/dequantize reconstruction and holds
@@ -733,9 +775,9 @@ class PagedContinuousBatcher(ContinuousBatcher):
                   if scores_acc is not None else None)
         return x, scores
 
-    def _seq_lens(self) -> torch.Tensor:
-        return self._dev([r.seq_len if r is not None else 0
-                          for r in self.slot_request], torch.int32)
+    def _seq_lens(self) -> np.ndarray:
+        return np.asarray([r.seq_len if r is not None else 0
+                           for r in self.slot_request], np.int32)
 
     def _totals(self) -> np.ndarray:
         return np.asarray([r.num_steps if r is not None else 1
@@ -822,23 +864,39 @@ class PagedContinuousBatcher(ContinuousBatcher):
         return tuple(lv for lv in opts
                      if lv == floor or (lv - floor) <= max_extra)
 
-    def _run_chunk(self, c: int, totals: torch.Tensor,
-                   seq_lens: torch.Tensor, used: Tuple[int, ...]):
+    def _run_chunk(self, c: int, totals: np.ndarray, seq_lens: np.ndarray,
+                   used: Tuple[int, ...]) -> torch.Tensor:
         """c denoise steps on the device with no host round trip: the bit
         routing (and, with salience, the score EMA and the per-page
-        allocation) advance on the device each step. Per-slot inputs are
-        the whole batch's; the process steps its own rows."""
+        allocation) advance on the device each step, in place. The
+        per-slot inputs are copied into static buffers once a chunk (the
+        process's rows), the noise once a step, drawn in the eager order.
+        Returns the scores' static buffer."""
+        self._static("t", self.t, torch.int64)
+        self._static("scores", self.page_scores, torch.float32)
+        self._static("totals", totals, torch.int64)
+        self._static("seq_lens", seq_lens, torch.int32)
+        held = self._held([self.pools[b] for b in used if b in self.pools])
+        step = self._chunk_step(used)
+        for _ in range(c):
+            self._step_noise()
+            self._graphs.run(("chunk_step", used, self.salience_routing),
+                             step, held)
+        return self._graphs.static["scores"]
+
+    def _chunk_step(self, used: Tuple[int, ...]):
+        """One step of a chunk over the static buffers: x, t and the scores
+        advance in place (JAX's scan carry)."""
+        st = self._graphs.static
         nps = self.num_pages_per_slot
         ema = self.salience_ema
-        x = self.x
-        t = self._local(self._dev(self.t, torch.int64))
-        scores = self._local(self._dev(self.page_scores, torch.float32))
-        totals, seq_lens = self._local(totals), self._local(seq_lens)
-        _, _, page_valid = _page_geometry(seq_lens, nps, self.page_size)
         budget_fn = make_slot_budget_router(self.cfg)
         opts = tuple(b for b in self.buckets if b >= 2) or self.buckets
-        for _ in range(c):
-            noise = self._local(self.noise.step(self._shape).to(self.device))
+
+        def step():
+            t, scores, totals = st["t"], st["scores"], st["totals"]
+            _, _, page_valid = _page_geometry(st["seq_lens"], nps,
+                                              self.page_size)
             active = t >= 0
             t_clamped = torch.clamp(t, min=0)
             if self.salience_routing:
@@ -847,12 +905,14 @@ class PagedContinuousBatcher(ContinuousBatcher):
             else:
                 bits = self._slot_bits(t_clamped, totals)
                 page_bits = bits[:, None].expand(-1, nps)
-            x, step_scores = self._paged_step(x, t, active, seq_lens,
-                                              page_bits, noise, used)
-            t = torch.where(active, t - 1, t)
+            x, step_scores = self._paged_step(
+                self.x, t, active, st["seq_lens"], page_bits, st["noise"],
+                used)
+            self.x.copy_(x)
+            t.copy_(torch.where(active, t - 1, t))
             if self.salience_routing:
-                scores = ema * scores + (1.0 - ema) * step_scores
-        return x, scores
+                scores.copy_(ema * scores + (1.0 - ema) * step_scores)
+        return step
 
     def _step_impl(self) -> int:
         """Admit, then run a chunk of fused denoise steps. Returns the
@@ -870,10 +930,10 @@ class PagedContinuousBatcher(ContinuousBatcher):
         else:
             used = self._used_buckets_chunk(active_mask, totals, c)
         self._ensure_pools(used)
-        self.x, scores = self._run_chunk(
-            c, self._dev(totals, torch.int64), self._seq_lens(), used)
+        scores = self._run_chunk(c, totals, self._seq_lens(), used)
         if self.salience_routing:
-            self.page_scores = self._to_host(scores)
+            # a copy: on the CPU the host view would share the static buffer
+            self.page_scores = self._to_host(scores).copy()
         # the previous wave's retires: copy now, behind the chunk just launched
         self._flush_retires()
         new_t = np.where(active_mask, self.t - c, self.t)

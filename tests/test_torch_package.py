@@ -46,7 +46,7 @@ def test_port_sources_are_walked():
             "bpe.py", "kv_cache.py", "serving.py", "gptq.py",
             "calibrate.py", "__main__.py", "anns.py", "router.py",
             "dedup.py", "native.py", "types.py", "suffix_tree.py",
-            "salience.py", "profiling.py", "sanitize.py"} <= names
+            "salience.py", "profiling.py", "sanitize.py", "graphs.py"} <= names
 
 
 def test_new_modules_import_without_jax_loaded():
@@ -72,6 +72,7 @@ def test_new_modules_import_without_jax_loaded():
         "import diffusion_llm_rs_tpu_torch.models.types\n"
         "import diffusion_llm_rs_tpu_torch.utils.profiling\n"
         "import diffusion_llm_rs_tpu_torch.utils.sanitize\n"
+        "import diffusion_llm_rs_tpu_torch.utils.graphs\n"
         "import diffusion_llm_rs_tpu_torch as pkg\n"
         "assert pkg.Engine is e.Engine and pkg.index and pkg.storage\n"
         "eng = e.Engine.from_pretrained(device='cpu')\n"

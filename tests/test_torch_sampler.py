@@ -137,16 +137,18 @@ def test_plan_segments_default_schedule():
 
 @pytest.mark.parametrize("bits", [8, 4, 2, 1])
 def test_kv_carry_quantizers_equal_jax(bits):
-    """`_quantize_kv_packed` (all layers in one call here, a per-layer loop in
-    JAX) and `_quantize_kv_pair`: bytes, scales and zero-points bit for bit,
-    and the dequantized pair equal."""
+    """`_quantize_kv_stacked` (all layers in one call here, viewed per layer
+    by `_split_layers`; a per-layer loop in JAX's `_quantize_kv_packed`) and
+    `_quantize_kv_pair`: bytes, scales and zero-points bit for bit, and the
+    dequantized pair equal."""
     rng = np.random.default_rng(bits)
     kv = tuple(rng.normal(size=(2, 2, 24, 2, 64)).astype(np.float32) * 3
                for _ in range(2))
     jkv = tuple(jnp.asarray(a) for a in kv)
     tkv = tuple(torch.from_numpy(a) for a in kv)
     jpacked = jsp._quantize_kv_packed(jkv, bits)
-    tpacked = tsp._quantize_kv_packed(tkv, bits)
+    tpacked = tuple(zip(*(tsp._split_layers(q, 2)
+                          for q in tsp._quantize_kv_stacked(tkv, bits))))
     assert len(tpacked) == len(jpacked) == 2
     for jpair, tpair in zip(jpacked, tpacked):
         for j, t in zip(jpair, tpair):
