@@ -34,7 +34,10 @@ Phases (any failure makes the script exit non-zero without the final line):
                 quantize_page and quantize_kv on the card against the CPU,
                 bit for bit. The batched paged attention's unpack pass
                 (paged_unpack) bit for bit against its twin in both layouts,
-                timed at the two timed shapes, with its scratch bytes.
+                timed at the two timed shapes, with its scratch bytes. The
+                batched paged kernels also at the serving example's heads of
+                16 (2 slots, S=16, pages of 8, 8/4/2 bits, act 16 and 8;
+                the 4-bit case timed).
   4. sampler  - the W4A8 sampler at full width (12 layers, 768 wide, 12 heads,
                 vocab 50257; random weights from a seed, quantized in the
                 port): B=8, S=256, 32 steps, bf16 activations, timed 5 times
@@ -83,8 +86,7 @@ Phases (any failure makes the script exit non-zero without the final line):
                 and a chunk over 8-, 2- and 1-bit buckets, where only the
                 1-bit bucket may show the bf16 kernel).
      graphs   - (run after the engine phases) every path below that
-                replays CUDA graphs by default (all but the sharded
-                batcher, which stays eager), against itself under
+                replays CUDA graphs by default, against itself under
                 `utils.graphs.disabled()` from the same draws: the one-shot
                 and scan samplers, serve_paged, serve_paged_a8,
                 serve_phase, serve_dense and engine_packed; outputs bit for
@@ -117,7 +119,14 @@ Phases (any failure makes the script exit non-zero without the final line):
                 the CPU, act16 and a8); engine_gptq (the anchor quantized by
                 GPTQ on the card and on the CPU from the same draws: grids
                 bit for bit, levels that differ counted, perplexity on both,
-                `generate` on the card); engine_ingest (the host-side stack
+                `generate` on the card); engine_gptq_shipped (the six
+                shipped GPTQ checkpoints, `benchmarks/quality_anchor{,_real}
+                .gptq{1,2,4}g128`, loaded on the card and the CPU with the
+                anchor's parameters as `like`, every 2-D leaf prepared at act
+                16 and 8 as `benchmarks/bench_quality.py` does: one `matmul`
+                or `matmul_a8` launch a prepared leaf in a forward (27),
+                perplexity of a fixed text card vs CPU within 2e-3 at act 16
+                and 5e-3 at act 8); engine_ingest (the host-side stack
                 at full width, random weights: `process_model` on about 512
                 tokens of repeated phrases, `prefill` of the text, again and
                 prefix-extended, on the card and on a CPU engine over the
@@ -133,7 +142,10 @@ Phases (any failure makes the script exit non-zero without the final line):
                 `MatmulWeight`s, S=2048, 4 slots, pages of 64, 4 requests
                 of 8 steps: tokens, tokens/s, latency and peak memory, token
                 for token and launch for launch against
-                `PagedContinuousBatcher`), tp_forward (`make_tp_forward`
+                `PagedContinuousBatcher`; its chunk replayed over NCCL bit
+                for bit against itself under `graphs.disabled()`, with ms a
+                step, busy share, captures and the NCCL kernels the profiler
+                sees in a replayed chunk), tp_forward (`make_tp_forward`
                 against `denoiser_forward` at act 16 and 8, B=8, S=256 and
                 1024: bit for bit), moe_forward (8 experts, decoded-int8
                 projections, f32 banks; dense against sorted dispatch and
@@ -141,7 +153,10 @@ Phases (any failure makes the script exit non-zero without the final line):
                 bit for bit; a 2-layer cut card vs CPU) and pp_sp_forward
                 (a pipeline stage of one and a ring of one against
                 `denoiser_forward`), each forward timed after a warm call.
- 11. summary  - a JSON line of kernels, a JSON line of the runs, then the
+ 11. examples - the four torch examples (`examples/torch_*.py`) through
+                their `main(device="cuda")`; the serving example's paged
+                launches counted at heads of 16.
+ 12. summary  - a JSON line of kernels, a JSON line of the runs, then the
                 device line last.
 
     python3 chip_smoke.py --parent DIR
@@ -758,6 +773,10 @@ def _paged_kernels(gen, results, bad):
                8, ([8, 0], [3, 8]), False, (8, 4, 32)),
               ("heads of 128, pages of 72, 4-bit", 4, 2, 300, 72,
                ([5, 2], [40, 72]), False, (4, 1, 128))]
+    # the serving example's model (`DiffusionConfig.tiny()`: 4 heads of 16,
+    # G = 1): 2 slots of S = 16 in pages of 8
+    cases += [(f"serving example, heads of 16, {bits}-bit", bits, 2, 16, 8,
+               ([2, 2], [8, 8]), bits == 4, (4, 1, 16)) for bits in (8, 4, 2)]
     for label, bits, B, sq, P, (npages, last), timed, (H, G, D) in cases:
         pools = _quantized_pools(gen, B * n, H, P, D, G, bits)
         q = torch.randn((B, H, sq, D), generator=gen, device="cuda").to(
@@ -781,15 +800,19 @@ def _paged_kernels(gen, results, bad):
         row = dict(shape=f"{label}: B={B} H={H} D={D} G={G} Sq={sq} P={P} "
                    f"pages={npages}", max_abs_err=err, rel_err=rel,
                    lse_err=lse_err, tolerance=tol)
+        # the pages read and the keys attended (timed cases: whole pages,
+        # as many a slot)
+        n_live = sum(npages)
+        keys = sum((k - 1) * P + tok for k, tok in zip(npages, last) if k)
         if timed:
             row["ms"] = time_ms(lambda: pa.batched_paged_attention(
                 *args, bits=bits, head_group=G))
             row["plain_ms"] = time_ms(lambda: pa.batched_paged_attention_plain(
                 *args, bits=bits, head_group=G), 3)
-            row["library_ms"] = time_ms(lambda: _dequant_sdpa(q, pt, pools,
-                                                              bits, G))
+            row["library_ms"] = time_ms(lambda: _dequant_sdpa(
+                q, pt[:, :npages[0]], pools, bits, G))
             row["bound_ms"], row["bound_by"] = _paged_bound(
-                B, H, sq, D, P, bits, B * n, B * n * P)
+                B, H, sq, D, P, bits, n_live, keys)
         results["batched_paged_attention"].append(row)
         log(f"  batched_paged_attention {label}: rel {rel:.3g} lse "
             f"{lse_err:.3g} {'ok' if ok else 'MISMATCH'}"
@@ -834,7 +857,7 @@ def _paged_kernels(gen, results, bad):
                     *args, bits=bits, head_group=G), 3)
             row8["library_ms"] = row["library_ms"]
             row8["bound_ms"], row8["bound_by"] = _paged_bound(
-                B, H, sq, D, P, bits, B * n, B * n * P, PEAK_INT8_OPS)
+                B, H, sq, D, P, bits, n_live, keys, PEAK_INT8_OPS)
         results["batched_paged_attention_a8"].append(row8)
         log(f"  batched_paged_attention_a8 {label}: rel {rel8:.3g} lse "
             f"{lse_err8:.3g}; of the bf16 kernel rel {rel16:.3g} lse "
@@ -1776,7 +1799,10 @@ def _busy_share(b, seq_len, steps=8):
     for us, n, key in rows[:8]:
         log(f"  {us / 1e3:8.4f} ms  x{n:<4d} {key[:90]}")
     families = _family_ms(rows, steps)
-    return dict(chunk_steps=steps, step_wall_ms=wall_ms / steps,
+    # NCCL's kernels (the sharded batcher's collectives)
+    nccl = [dict(ms=us / 1e3, calls=n, name=key[:120])
+            for us, n, key in rows if "nccl" in key.lower()]
+    return dict(chunk_steps=steps, step_wall_ms=wall_ms / steps, nccl=nccl,
                 step_profiled_wall_ms=prof_wall_ms / steps,
                 step_device_ms=busy_ms / steps, busy_share=share,
                 step_paged_attention_ms=flash_ms / 1e3 / steps,
@@ -2414,6 +2440,124 @@ def engine_gptq():
                 counts=counts)
 
 
+def engine_gptq_shipped():
+    """The six shipped GPTQ checkpoints on the card and on the CPU: each
+    loaded with `load_checkpoint(path, like=<the anchor's parameters>)`, every
+    2-D leaf prepared at act 16 and at act 8 (`bench_quality.py:298-306`: a
+    leaf whose `prepare` raises stays unprepared; none does), an `Engine`
+    over the prepared tree; one `denoising_perplexity` of a fixed text from
+    one CPU draw of noise: exactly one `matmul` (act 16) or `matmul_a8` (act
+    8) launch a prepared leaf in the forward (27: the 4 linears of 6 layers,
+    the time MLP's two and the head), and the card's perplexity within 2e-3
+    (act 16: one bf16 rounding of the activations can move, ROADMAP C14) or
+    5e-3 (act 8: an int8 level, C1, C7) of the CPU's, the bounds of
+    tests/test_torch_gptq_checkpoints.py against JAX. The checkpoints are
+    `benchmarks/bench_quality.py:262`'s raw QuantizedTensor trees of the two
+    trained anchors."""
+    import os
+
+    from diffusion_llm_rs_tpu_torch.engine import Engine
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    from diffusion_llm_rs_tpu_torch.ops.int8_matmul import prepare
+    from diffusion_llm_rs_tpu_torch.quant.core import (QuantizedTensor,
+                                                       map_leaves, tree_leaves)
+    from diffusion_llm_rs_tpu_torch.utils.serialization import load_checkpoint
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "benchmarks")
+    text = "the forest maybe river the stone quick"
+    out, bad = {}, []
+    for anchor in ("quality_anchor", "quality_anchor_real"):
+        base = {d: Engine.from_pretrained(os.path.join(root, anchor),
+                                          device=d) for d in ("cuda", "cpu")}
+        n = len(base["cpu"].tokenizer.encode(text))
+        noise = torch.randn((1, n, base["cpu"].config.hidden_size),
+                            generator=torch.Generator().manual_seed(0))
+        for bits in (1, 2, 4):
+            path = os.path.join(root, f"{anchor}.gptq{bits}g128")
+            raw = {d: load_checkpoint(path, like=e.params, device=d)
+                   for d, e in base.items()}
+            for act in (16, 8):
+                kernel = "matmul" if act == 16 else "matmul_a8"
+                ppl, prepared = {}, {}
+                for d, e in base.items():
+                    kept = []
+
+                    def prep(path_, leaf):
+                        if isinstance(leaf, QuantizedTensor) and leaf.ndim == 2:
+                            try:
+                                return prepare(leaf, act_bits=act)
+                            except ValueError:
+                                kept.append(path_)
+                        return leaf
+                    eng = Engine(config=e.config, tokenizer=e.tokenizer,
+                                 params=map_leaves(prep, raw[d]), device=d)
+                    prepared[d] = (sum(isinstance(l, QuantizedTensor) and
+                                       l.ndim == 2 for l in
+                                       tree_leaves(raw[d])) - len(kept), kept)
+                    _build.reset_launch_counts()
+                    ppl[d] = eng.denoising_perplexity(text, t=10, noise=noise)
+                    if d == "cuda":
+                        torch.cuda.synchronize()
+                        counts = dict(_build.launch_counts)
+                rel = abs(ppl["cuda"] - ppl["cpu"]) / ppl["cpu"]
+                label = f"{anchor}.gptq{bits}g128 act {act}"
+                ok = (prepared["cuda"] == prepared["cpu"] and
+                      counts == {kernel: prepared["cuda"][0]} and
+                      np.isfinite(ppl["cuda"]) and
+                      rel <= {16: 2e-3, 8: 5e-3}[act])
+                log(f"  {label}: {prepared['cuda'][0]} leaves prepared "
+                    f"({len(prepared['cuda'][1])} left); perplexity on the "
+                    f"card {ppl['cuda']:.6g} (CPU {ppl['cpu']:.6g}, rel "
+                    f"{rel:.3g}); launches {counts} {'ok' if ok else 'BAD'}")
+                if not ok:
+                    bad.append(label)
+                out[label] = dict(perplexity=ppl["cuda"],
+                                  perplexity_cpu=ppl["cpu"], rel=rel,
+                                  prepared=prepared["cuda"][0], counts=counts)
+    if bad:
+        raise AssertionError(f"shipped GPTQ checkpoints: {bad}")
+    total = {}
+    for r in out.values():
+        for k, v in r["counts"].items():
+            total[k] = total.get(k, 0) + v
+    return dict(checkpoints=out, counts=total)
+
+
+def examples():
+    """The four torch examples through `main(device="cuda")`, each timed
+    with its launch counts; the serving example (JAX's tiny model, 4 heads
+    of 16) must launch the batched paged kernels, one `paged_unpack` each,
+    and serve every request of its three tiers."""
+    import importlib
+    import os
+
+    from diffusion_llm_rs_tpu_torch.ops import _build
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "examples"))
+    out = {}
+    for name in ("torch_serving_example", "torch_diffusion_example",
+                 "torch_quantization_basic", "torch_hello_workspace"):
+        mod = importlib.import_module(name)
+        res, wall, counts = _timed_part(lambda: mod.main(device="cuda"))
+        log(f"  {name}: {wall:.2f} s, launches {counts}")
+        out[name] = dict(wall_s=wall, counts=counts)
+        if name == "torch_serving_example":
+            n = counts.get("batched_paged_attention", 0)
+            served = {k: len(res[k]) for k in ("phase", "salient", "sharded")}
+            log(f"  serving example: {n} batched paged launches at heads of "
+                f"16, completions {served}")
+            if n == 0 or counts.get("paged_unpack", 0) != n or \
+                    set(served.values()) != {4}:
+                raise AssertionError(f"serving example: {counts}, {served}")
+        if name == "torch_diffusion_example" and \
+                not bool(torch.isfinite(res).all()):
+            raise AssertionError("diffusion example: samples not finite")
+    out["counts"] = out["torch_serving_example"]["counts"]
+    return out
+
+
 # phrases of the ingested text: repeated, so the dedup store and the index
 # see identical rows (a repeated word embeds identically)
 INGEST_PHRASES = (
@@ -3010,61 +3154,88 @@ def serve_sharded():
     """`ShardedPagedBatcher` on a (1, 1) mesh over an NCCL group of one, at
     full width over int4 g128 `MatmulWeight`s (act 16): S=2048, 4 slots,
     pages of 64, the default 8 -> 4 -> 2 phase schedule, 4 requests of 8
-    steps, one warm request before. Token for token against
-    `PagedContinuousBatcher` on the same parameters and seed (JAX's own
-    assertion at tp = 1: the TP forward on a group of one is the single
-    forward, bit for bit); the same launch counts on both: 51 `matmul` a
-    step and the paged kernels 12 a bucket a step."""
+    steps, one warm request before. On NCCL its chunk's step is captured and
+    replayed (`parallel/serving.py: nccl_only`): run under
+    `graphs.disabled()` and replayed, bit for bit (tokens, x, pools), with
+    equal launch counts, ms a step, busy share, captures and the NCCL kernels
+    the profiler sees in a replayed chunk (a group of one may launch none).
+    Token for token against `PagedContinuousBatcher` on the same parameters
+    and seed (JAX's own assertion at tp = 1: the TP forward on a group of one
+    is the single forward, bit for bit), with the same launch counts: 51
+    `matmul` a step and the paged kernels 12 a bucket a step."""
     from diffusion_llm_rs_tpu_torch.config import PhaseQuantConfig
     from diffusion_llm_rs_tpu_torch.parallel.mesh import make_mesh
     from diffusion_llm_rs_tpu_torch.parallel.serving import ShardedPagedBatcher
     from diffusion_llm_rs_tpu_torch.serving import PagedContinuousBatcher
+    from diffusion_llm_rs_tpu_torch.utils import graphs as g
+    from diffusion_llm_rs_tpu_torch.utils.metrics import metrics
 
     cfg, params = _packed_full_width(2048, 16)
     cfg = dataclasses.replace(cfg, quant_config=PhaseQuantConfig())
     kw = dict(num_slots=4, seq_len=2048, page_size=64, attend_mode="paged",
               keep_embeddings=False, seed=61)
-    reqs = [(f"s{i}", 2048, 8) for i in range(4)]
-    runs, done, groups = {}, {}, {}
+    warm, reqs = [("warm", 2048, 2)], [(f"s{i}", 2048, 8) for i in range(4)]
+    seen = {}
     with _nccl_group("serve_sharded"):
         mesh = make_mesh((1, 1))
-        for name, make in (
-                ("single", lambda: PagedContinuousBatcher(params, cfg, **kw)),
-                ("sharded",
-                 lambda: ShardedPagedBatcher(params, cfg, mesh, **kw))):
-            b = make()
-            _serve(f"serve_sharded {name} warm", b, [("warm", 2048, 2)])
-            kept = []
-            runs[name] = _serve(f"serve_sharded {name}", b, reqs, kept)
-            done[name] = {c.request_id: c.tokens for c in kept}
-            groups[name] = (b.buckets, b.head_group)
-            runs[name]["pool_bytes"] = b.cache_memory_bytes()
-            del b
-    if groups["sharded"] != groups["single"] or \
-            groups["single"][0] != (2, 4, 8):
-        raise AssertionError(f"buckets and head groups {groups}")
-    L, steps = cfg.num_layers, runs["sharded"]["steps"]
-    counts = runs["sharded"]["counts"]
-    same = all(np.array_equal(done["sharded"][r], done["single"][r])
-               for r in done["single"])
-    n = counts.get("batched_paged_attention", 0)
+        b = PagedContinuousBatcher(params, cfg, **kw)
+        _serve("serve_sharded single warm", b, warm)
+        kept = []
+        single = _serve("serve_sharded single", b, reqs, kept)
+        single_tokens = {c.request_id: c.tokens for c in kept}
+        single_groups = (b.buckets, b.head_group)
+        del b
+
+        def run():
+            b = ShardedPagedBatcher(params, cfg, mesh, **kw)
+            mode = "eager" if g.is_disabled() else "replayed"
+            seen[mode] = dict(capture=b._graphs.capture,
+                              groups=(b.buckets, b.head_group),
+                              pool_bytes=b.cache_memory_bytes())
+            _drain(b, warm)
+            steps0 = metrics.get("batcher.steps")
+            done, wall, counts = _timed_part(lambda: _drain(b, reqs))
+            steps = int(metrics.get("batcher.steps") - steps0)
+            out = {f"tokens {r}": c.tokens for r, c in done.items()}
+            out["x"] = b.x.cpu()
+            for bits, pool in b.pools.items():
+                out.update({f"pool {bits} {n}": a.cpu()
+                            for n, a in pool.items()})
+            busy = _busy_share(b, 2048)
+            seen[mode].update(tokens={r: c.tokens for r, c in done.items()},
+                              counts=counts, nccl=busy["nccl"])
+            return out, steps, wall, counts, busy
+        both = _eager_vs_replayed("serve_sharded", run)
+    e, r = seen["eager"], seen["replayed"]
+    if not r["capture"] or not e["capture"]:
+        raise AssertionError("the sharded batcher does not capture on NCCL")
+    if r["groups"] != single_groups or single_groups[0] != (2, 4, 8):
+        raise AssertionError(f"buckets and head groups {r['groups']}, single "
+                             f"{single_groups}")
+    same = sorted(r["tokens"]) == sorted(single_tokens) and all(
+        np.array_equal(r["tokens"][k], single_tokens[k]) for k in single_tokens)
     log(f"  tokens equal to PagedContinuousBatcher's: {same}; launches "
-        f"{counts} (single {runs['single']['counts']})")
-    if not same or sorted(done["sharded"]) != sorted(done["single"]):
+        f"{r['counts']} (single {single['counts']})")
+    if not same:
         raise AssertionError("the sharded batcher's tokens differ")
-    if counts != runs["single"]["counts"]:
+    if r["counts"] != single["counts"]:
         raise AssertionError("the sharded batcher launched other kernels")
-    replays = {k: r["graph_replays"] for k, r in runs.items()}
-    log(f"  graph replays: sharded {replays['sharded']:.0f} (eager), single "
-        f"{replays['single']:.0f}")
-    if replays["sharded"] or not replays["single"]:
-        raise AssertionError(f"graph replays {replays}: the sharded chunk "
-                             "runs eagerly, the single batcher's replays")
+    calls = sum(k["calls"] for k in r["nccl"])
+    log(f"  NCCL kernels in one replayed chunk of 8 steps: "
+        + (", ".join(f"{k['name']} x{k['calls']} {k['ms']:.4f} ms"
+                     for k in r["nccl"]) if r["nccl"] else
+           "none (NCCL launches no kernel on a group of one)")
+        + f"; eager {sum(k['calls'] for k in e['nccl'])}")
+    L, steps = cfg.num_layers, both["replayed"]["steps"]
+    n = r["counts"].get("batched_paged_attention", 0)
     if n == 0 or n % (L * steps):
         raise AssertionError(f"{n} paged launches over {steps} steps")
-    _expect("serve_sharded", counts, {"matmul": (4 * L + 3) * steps,
-                                      "paged_unpack": n})
-    return dict(runs["sharded"], single=runs["single"], tokens_equal=same)
+    _expect("serve_sharded", r["counts"], {"matmul": (4 * L + 3) * steps,
+                                           "paged_unpack": n})
+    return dict(both["replayed"], eager=both["eager"], single=single,
+                tokens_equal=same, pool_bytes=r["pool_bytes"],
+                nccl_kernels=r["nccl"], nccl_calls=calls,
+                capture_s_each=both["capture_s_each"])
 
 
 def tp_forward():
@@ -3393,14 +3564,15 @@ def main() -> int:
     MODEL.clear()  # the engine phases build their own models
     torch.cuda.empty_cache()
     for fn in (engine_packed, engine_packed_a8, engine_anchor, train_grad,
-               engine_gptq, engine_ingest, cli):
+               engine_gptq, engine_gptq_shipped, engine_ingest, cli):
         runs[fn.__name__] = phase(fn)
     if "engine16" in MODEL and "engine8" in MODEL:
         runs["engine_check"] = phase(engine_check)
     runs["graphs"] = phase(graphs)
     MODEL.clear()
     torch.cuda.empty_cache()
-    for fn in (serve_sharded, tp_forward, moe_forward, pp_sp_forward):
+    for fn in (serve_sharded, tp_forward, moe_forward, pp_sp_forward,
+               examples):
         runs[fn.__name__] = phase(fn)
     if failures:
         log(f"FAILED phases: {failures}")

@@ -499,6 +499,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 
 // m64nNk32, s32 += s8 x s8, A from registers, B K-major in shared memory.
 // scale_d = 0 ignores the accumulator's contents.
+__device__ __forceinline__ void wgmma_s8_n16(int (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{"
+      "%0,%1,%2,%3,%4,%5,%6,%7"
+      "}, {%8,%9,%10,%11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_s8_n32(int (&d)[16], const uint32_t (&a)[4],
                                              uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -659,7 +671,8 @@ __device__ __forceinline__ void wgmma_s8_ss(int (&d)[N / 2], uint64_t desc_a,
 template <int N>
 __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  if constexpr (N == 32) wgmma_s8_n32(d, a, desc_b, scale_d);
+  if constexpr (N == 16) wgmma_s8_n16(d, a, desc_b, scale_d);
+  else if constexpr (N == 32) wgmma_s8_n32(d, a, desc_b, scale_d);
   else if constexpr (N == 64) wgmma_s8_n64(d, a, desc_b, scale_d);
   else wgmma_s8_n128(d, a, desc_b, scale_d);
 }

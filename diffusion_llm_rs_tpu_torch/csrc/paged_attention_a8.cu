@@ -32,9 +32,9 @@ extern "C" {
 
 // q [B, H, Sq, D] bf16; page_tokens int32 [B, n_max]; n_pages int32 [B]; k,
 // vt, side: the int8-mode scratch of dlm_paged_unpack with tiles of PT = 32,
-// 64 or 128 tokens; D = 32, 64 or 128. Writes out f32 [B, H, Sq, D] and lse
-// f32 [B, H, Sq]. Returns cudaErrorInvalidValue for a shape it was not built
-// for.
+// 64 or 128 tokens; D = 16, 32, 64 or 128. Writes out f32 [B, H, Sq, D]
+// and lse f32 [B, H, Sq]. Returns cudaErrorInvalidValue for a shape it
+// was not built for.
 int dlm_batched_paged_attention_a8(const void* q, const void* page_tokens,
                                    const void* n_pages, const void* k,
                                    const void* vt, const void* side, void* out,

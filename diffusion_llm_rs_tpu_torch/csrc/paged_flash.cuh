@@ -16,7 +16,7 @@
 //                                                    vs, vz' = vz - off
 // with off = 2^(bits-1), PT the tile (32, 64 or 128 tokens, the page size P
 // rounded up) and every row, column and sidecar past P zero. So this kernel
-// knows nothing of bits or of the pools' packing.
+// knows nothing of bits or of the pools' packing. D = 16, 32, 64 or 128.
 //
 // Design (FlashAttention-3 in outline, after csrc/dense_attention.cu): one
 // block per (query tile, head, slot), the query tile fastest, so the tiles of
@@ -31,7 +31,10 @@
 //   bf16: q goes straight into the register A operand of S = q K^T; P.V of
 //         page t runs under the S of page t + 1.
 //   int8: q is quantized into a shared-memory tile swizzled as TMA swizzles
-//         K, and S reads both operands from shared memory. (With q in
+//         K, and S reads both operands from shared memory. An s8 product
+//         takes 32 bytes of k a step, so at D = 16 the q tile and the K
+//         tile are 32 bytes wide and zero past d = 16 (the TMA box runs
+//         past the scratch's rows of 16 and reads zeros there). (With q in
 //         registers, ptxas gave the P.V product's register operand q's
 //         registers whenever the two products had one shape, D = PT, and S
 //         went wrong from the second page on: measured on the card.) P.V of
@@ -91,12 +94,16 @@ __host__ __device__ constexpr int layout_of(int sw) {
 template <bool A8, int D, int PT>
 struct Tile {
   static constexpr int kEb = A8 ? 1 : 2;          // bytes an element
-  static constexpr int kKSw = swizzle_of(D * kEb);  // K rows: D elements
+  // the width of q and K in S = q K^T: D, or 32 int8 (one s8 k-step) at D = 16
+  static constexpr int kDS = A8 && D < 32 ? 32 : D;
+  static constexpr int kKSw = swizzle_of(kDS * kEb);  // K rows: kDS elements
   static constexpr int kKEpr = kKSw / kEb;        // elements a chunk row
-  static constexpr int kKChunks = D / kKEpr;
+  static constexpr int kKChunks = kDS / kKEpr;
   // bf16 V [PT][D] is laid out as K; int8 V^T [D][PT] has rows of PT bytes
   static constexpr int kVSw = A8 ? swizzle_of(PT) : kKSw;
-  static constexpr int kTileBytes = PT * D * kEb;  // a K or V tile
+  static constexpr int kKBytes = PT * kDS * kEb;   // a K tile
+  static constexpr int kVBytes = PT * D * kEb;     // a V (V^T) tile
+  static constexpr int kTileBytes = kKBytes;       // a tile's slot
   // int8: each consumer warpgroup's quantized q, 64 rows laid out as K
   // consumer warpgroups of 64 query rows: three where heads and tiles of up
   // to 64 fit their registers in 160 a thread, else two (232)
@@ -104,7 +111,7 @@ struct Tile {
   static constexpr int kBQ = 64 * kWG, kThreads = 128 * (kWG + 1);
   static constexpr int kProdRegs = kWG == 3 ? 24 : 40;
   static constexpr int kConsRegs = kWG == 3 ? 160 : 232;
-  static constexpr int kQBytes = A8 ? kWG * 64 * D : 0;
+  static constexpr int kQBytes = A8 ? kWG * 64 * kDS : 0;
   static constexpr int kSide = A8 ? 4 : 3;
   static constexpr int kSideFloats = kSide * PT;
   static constexpr int kSmem = 1024 + kStages * 2 * kTileBytes + kQBytes +
@@ -233,7 +240,7 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
       for (int t = 0; t < count; ++t) {
         const int s = t % kStages;
         mbar_wait(empty + s, ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(full + s, 2 * T::kTileBytes + T::kSideFloats * 4);
+        mbar_expect_tx(full + s, T::kKBytes + T::kVBytes + T::kSideFloats * 4);
         uint8_t* Ks = tiles + 2 * s * T::kTileBytes;
         uint8_t* Vs = Ks + T::kTileBytes;
 #pragma unroll
@@ -360,53 +367,49 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
     fence_regs(o);
   } else {
     // q rows g, g + 8 of this warp quantized to int8 into the warpgroup's q
-    // tile (rows of D bytes, swizzled as TMA swizzles K), read by S = q K^T
-    // from shared memory: columns kk*32 + half*16 + 4*q4 .. + 3 a word
-    uint8_t* qt = q_tiles + c * 64 * D;
+    // tile (rows of kDS bytes, swizzled as TMA swizzles K), read by S = q
+    // K^T from shared memory: columns ch*16 + 4*q4 .. + 3 a word
+    uint8_t* qt = q_tiles + c * 64 * T::kDS;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r, lr = warp * 16 + g + 8 * r;
       const __nv_bfloat16* qr = qg + (size_t)row * D;
-      float v[D / 32][2][4];
+      // columns ch*16 + 4*q4 .. + 3 of chunk ch (0 past D)
+      float v[T::kDS / 16][4];
       float amax = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk)
+      for (int ch = 0; ch < T::kDS / 16; ++ch) {
+        uint2 w = make_uint2(0u, 0u);
+        if (ch < D / 16 && row < a.Sq)
+          w = *reinterpret_cast<const uint2*>(qr + ch * 16 + q4 * 4);
+        const __nv_bfloat162 lo = *reinterpret_cast<__nv_bfloat162*>(&w.x);
+        const __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&w.y);
+        v[ch][0] = __bfloat162float(lo.x);
+        v[ch][1] = __bfloat162float(lo.y);
+        v[ch][2] = __bfloat162float(hi.x);
+        v[ch][3] = __bfloat162float(hi.y);
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          uint2 w = make_uint2(0u, 0u);
-          if (row < a.Sq)
-            w = *reinterpret_cast<const uint2*>(qr + kk * 32 + half * 16 +
-                                                q4 * 4);
-          const __nv_bfloat162 lo = *reinterpret_cast<__nv_bfloat162*>(&w.x);
-          const __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&w.y);
-          v[kk][half][0] = __bfloat162float(lo.x);
-          v[kk][half][1] = __bfloat162float(lo.y);
-          v[kk][half][2] = __bfloat162float(hi.x);
-          v[kk][half][3] = __bfloat162float(hi.y);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(v[kk][half][e]));
-        }
+        for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(v[ch][e]));
+      }
       amax = quad_max(amax);
       const float scale = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
       const int swz = T::kKSw == 128 ? lr & 7 : T::kKSw == 64 ? (lr >> 1) & 3
                                                               : (lr >> 2) & 1;
       float sum = 0.f;  // integers up to 128 * 127: exact in any order
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk)
+      for (int ch = 0; ch < T::kDS / 16; ++ch) {
+        int lv[4];
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          int lv[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float y = rintf(__fdiv_rn(v[kk][half][e], scale));
-            sum += y;
-            lv[e] = (int)y;
-          }
-          const int col = kk * 32 + half * 16 + q4 * 4;
-          *reinterpret_cast<uint32_t*>(
-              qt + lr * T::kKSw + ((((col >> 4) ^ swz) << 4) | (col & 15))) =
-              pack_s8(lv[0], lv[1], lv[2], lv[3]);
+        for (int e = 0; e < 4; ++e) {
+          const float y = rintf(__fdiv_rn(v[ch][e], scale));
+          sum += y;
+          lv[e] = (int)y;
         }
+        const int col = ch * 16 + q4 * 4;
+        *reinterpret_cast<uint32_t*>(
+            qt + lr * T::kKSw + ((((col >> 4) ^ swz) << 4) | (col & 15))) =
+            pack_s8(lv[0], lv[1], lv[2], lv[3]);
+      }
       sq[r] = scale;
       qs[r] = __fmul_rn(quad_sum(sum), scale);
     }
@@ -421,7 +424,7 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
       mbar_wait(full + s, (t / kStages) & 1);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk)
+      for (int kk = 0; kk < T::kDS / 32; ++kk)
         wgmma_s8_ss<PT>(sc, gmma_desc(q_addr + kk * 32, 16, 8 * T::kKSw,
                                       layout_of(T::kKSw)),
                         k_desc(s, kk), kk > 0);
@@ -550,7 +553,8 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
 
 // The scratch's K (and bf16 V) as [B*H, n_max*PT, D] and int8 V^T as
 // [B*H, n_max*D, PT], each TMA box one page's tile (a chunk of 128 bytes
-// of its rows at a time), swizzled as the wgmma descriptors read it.
+// of its rows at a time), swizzled as the wgmma descriptors read it. The
+// int8 K box at D = 16 is 32 bytes wide: its second half reads zeros.
 template <bool A8, int D, int PT>
 int launch(const Args& a, int B, const void* k, const void* v,
            cudaStream_t stream) {
@@ -600,7 +604,7 @@ int launch_pt(const Args& a, int B, int PT, const void* k, const void* v,
   }
 }
 
-// D = 32, 64 or 128; PT = 32, 64 or 128
+// D = 16, 32, 64 or 128; PT = 32, 64 or 128
 template <bool A8>
 int run(const void* q, const void* page_tokens, const void* n_pages,
         const void* k, const void* v, const void* side, void* out, void* lse,
@@ -616,6 +620,7 @@ int run(const void* q, const void* page_tokens, const void* n_pages,
          H, Sq, n_max};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch_pt<A8, 16>(a, B, PT, k, v, st);
     case 32: return launch_pt<A8, 32>(a, B, PT, k, v, st);
     case 64: return launch_pt<A8, 64>(a, B, PT, k, v, st);
     case 128: return launch_pt<A8, 128>(a, B, PT, k, v, st);

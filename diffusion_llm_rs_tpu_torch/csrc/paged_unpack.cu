@@ -190,9 +190,9 @@ extern "C" {
 
 // Unpack the first n_pages[b] pages of each slot's table, for every head,
 // into k_out, v_out, side_out (the layouts above; a8 = 1: int8 mode). D =
-// 32, 64 or 128; P a multiple of 8 up to 128 with whole packed rows; PT =
-// 32, 64 or 128, at least P; 1/2/4/8 bits (2/4/8 in int8 mode). Returns
-// cudaErrorInvalidValue for anything else.
+// 16, 32, 64 or 128; P a multiple of 8 up to 128 with whole packed rows;
+// PT = 32, 64 or 128, at least P; 1/2/4/8 bits (2/4/8 in int8 mode).
+// Returns cudaErrorInvalidValue for anything else.
 int dlm_paged_unpack(const void* page_tables, const void* n_pages,
                      const void* k_data, const void* k_scale, const void* k_zp,
                      const void* v_data, const void* v_scale, const void* v_zp,
@@ -200,8 +200,8 @@ int dlm_paged_unpack(const void* page_tables, const void* n_pages,
                      int D, int n_max, int n_slots, int G, int P, int PT,
                      int bits, int a8, float sm_scale, void* stream) {
   if (B <= 0 || H <= 0 || n_max <= 0) return 0;
-  if ((D != 32 && D != 64 && D != 128) || P < 8 || P > kPmax || P % 8 ||
-      PT < P || (PT != 32 && PT != 64 && PT != 128) || G < 1 || H % G ||
+  if ((D != 16 && D != 32 && D != 64 && D != 128) || P < 8 || P > kPmax ||
+      P % 8 || PT < P || (PT != 32 && PT != 64 && PT != 128) || G < 1 || H % G ||
       (a8 && bits == 1))
     return (int)cudaErrorInvalidValue;
   Args a{static_cast<const int*>(page_tables), static_cast<const int*>(n_pages),

@@ -20,6 +20,12 @@ holds alike. The readouts it reads back (tokens, embeddings, salience
 scores) are gathered over 'data' (`_to_host`), and the salience scores are
 averaged over 'model' first, so every rank sees the whole model's
 attention mass.
+
+On the card a chunk's step replays a captured CUDA graph, as the base
+class's does, when every group the step's collectives run over is NCCL's
+(JAX's jitted `shard_map` step): NCCL collectives can be captured, gloo's
+cannot, so a gloo mesh steps eagerly. The readouts' all-gather over 'data'
+stays outside the graph.
 """
 
 from __future__ import annotations
@@ -37,16 +43,25 @@ from diffusion_llm_rs_tpu_torch.parallel.tp import (place_tp_params,
 from diffusion_llm_rs_tpu_torch.serving import PagedContinuousBatcher
 
 
+def nccl_only(groups) -> bool:
+    """Whether every process group of `groups` (None: no collective) is
+    NCCL's, whose collectives a CUDA graph can hold."""
+    return all(g is None or dist.get_backend(g) == "nccl" for g in groups)
+
+
 class ShardedPagedBatcher(PagedContinuousBatcher):
     """`PagedContinuousBatcher` with slots and pools over 'data' and weights
     over 'model'; one rank of it runs in each process of the mesh, all fed
-    the same requests."""
+    the same requests.
 
-    # The chunk stays eager: a step of a 'model' axis wider than one runs
-    # collectives (the TP forward's all-reduces, the salience scores'), and
-    # a gloo collective cannot be captured in a CUDA graph. Capturing the
-    # step over NCCL is ROADMAP A15b.
-    capture_steps = False
+    A chunk's step runs collectives over 'model' (the TP forward's
+    all-reduces, the salience scores'); it is captured and replayed when
+    that group is NCCL's, and runs eagerly over gloo. Every rank runs each
+    step's collectives once, eagerly or by replay: the graph keys (buckets
+    written, routing) come from the lockstep scheduler, so the ranks warm
+    up, capture and replay together. A rank that captures a key again on
+    its own (its pools moved) is harmless: a capture records the
+    collectives and launches no communication."""
 
     def __init__(self, params, cfg: DiffusionConfig, mesh: Mesh,
                  schedule: Optional[DiffusionSchedule] = None,
@@ -69,6 +84,7 @@ class ShardedPagedBatcher(PagedContinuousBatcher):
             raise ValueError(f"heads {cfg.num_attention_heads} not divisible "
                              f"by model axis {self.tp}")
         self._row0 = mesh.index("data") * (num_slots // self.dp)
+        self.capture_steps = nccl_only([mesh.group("model")])
         super().__init__(params, cfg, schedule, num_slots, seq_len, seed,
                          page_size, salience_routing=salience_routing,
                          salience_ema=salience_ema, max_chunk=max_chunk,

@@ -155,13 +155,18 @@ class CudaGraph:
         self.graph = torch.cuda.CUDAGraph()
 
     def capture(self, fn: Callable[[], None], pool) -> None:
+        """Capture `fn()`, in CUDA's thread-local capture mode: only an
+        unsafe call from this thread voids it (ProcessGroupNCCL's watchdog
+        thread queries events while a step with NCCL collectives is
+        captured)."""
         device = torch.cuda.current_device()
         stream = _capture_streams.get(device)
         if stream is None:
             stream = _capture_streams[device] = torch.cuda.Stream()
         torch.cuda.synchronize()
         with torch.cuda.stream(stream):
-            self.graph.capture_begin(pool=pool)
+            self.graph.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
             try:
                 fn()
             except BaseException:

@@ -381,10 +381,42 @@ def test_engine_lru_frees_an_evicted_batchers_graphs(cpu_replay, tmp_path):
     assert len(eng._samplers) == eng._samplers_cap and cache() is None
 
 
-def test_sharded_batcher_keeps_its_chunk_eager():
-    from diffusion_llm_rs_tpu_torch.parallel.serving import ShardedPagedBatcher
+class _StubDeviceMesh:
+    """A `DeviceMesh` of one process whose groups are stand-ins (no
+    collective is run)."""
+
+    def get_group(self, axis):
+        return f"{axis} group"
+
+    def get_local_rank(self, axis):
+        return 0
+
+
+@pytest.mark.parametrize("backend,captures", [("gloo", False),
+                                              ("nccl", True)])
+def test_sharded_batcher_keeps_its_chunk_eager(cpu_replay, monkeypatch,
+                                               backend, captures):
+    """The sharded batcher captures its chunk's step only when the 'model'
+    group its collectives run over is NCCL's: a gloo mesh keeps it eager.
+    Decided once, in `__init__`, from `dist.get_backend`. With no process
+    group there is no collective, and the step is captured. (On the CPU
+    `cpu_replay` stands in for the card.)"""
+    import torch.distributed as dist
+    from diffusion_llm_rs_tpu_torch.parallel import serving as psv
+    from diffusion_llm_rs_tpu_torch.parallel.mesh import Mesh
+    asked = []
+    monkeypatch.setattr(dist, "get_backend",
+                        lambda group=None: asked.append(group) or backend)
+    cfg, params = _tiny(vocab_size=64)
+    mesh = Mesh(("data", "model"), (1, 1), torch.device("cpu"),
+                _StubDeviceMesh())
+    b = psv.ShardedPagedBatcher(params, cfg, mesh, num_slots=2, seq_len=8,
+                                page_size=8, attend_mode="paged")
+    assert asked == ["model group"]
+    assert b.capture_steps is captures and b._graphs.capture is captures
+    assert b._graphs.capturing() is captures
     assert tsv.PagedContinuousBatcher.capture_steps
-    assert not ShardedPagedBatcher.capture_steps
+    assert psv.nccl_only([None]) and psv.nccl_only([])
 
 
 # ----------------------------------------------------------- card tests ---
@@ -560,6 +592,40 @@ def test_card_paged_batcher_replays_bit_for_bit(card, mode):
         params, cfg, num_slots=2, seq_len=512, page_size=64, seed=7,
         **PAGED_MODES[mode]),
         [("a", 512, 20), ("b", 300, 9), ("c", 512, 12)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("salience", [False, True])
+def test_card_sharded_batcher_replays_over_nccl(card, tmp_path, salience):
+    """`ShardedPagedBatcher` on a (1, 1) mesh over an NCCL group of one
+    captures its chunk's step (the TP forward's all-reduces and, with
+    salience routing, the scores') and replays it bit for bit against its
+    eager run, with equal launch counts; its tokens are the single
+    `PagedContinuousBatcher`'s."""
+    import torch.distributed as dist
+    from diffusion_llm_rs_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh)
+    from diffusion_llm_rs_tpu_torch.parallel.serving import (
+        ShardedPagedBatcher)
+    cfg, params = card
+    kw = dict(num_slots=2, seq_len=512, page_size=64, seed=11,
+              attend_mode="paged", salience_routing=salience)
+    reqs = [("a", 512, 12), ("b", 300, 5), ("c", 512, 9)]
+    initialize_distributed("nccl", f"file://{tmp_path}/rendezvous", 1, 0)
+    try:
+        mesh = make_mesh((1, 1))
+        assert dist.get_backend(mesh.group("model")) == "nccl"
+        _, b_r = _serve_both(
+            lambda: ShardedPagedBatcher(params, cfg, mesh, **kw), reqs)
+        assert b_r._graphs.capture
+    finally:
+        dist.destroy_process_group()
+    single = tsv.PagedContinuousBatcher(params, cfg, **kw)
+    for rid, n, steps in reqs:
+        single.submit(tsv.Request(rid, n, steps))
+    want = {c.request_id: c.tokens for c in single.run_until_drained()}
+    for rid, tokens in want.items():
+        np.testing.assert_array_equal(b_r.done[rid].tokens, tokens)
 
 
 @pytest.mark.cuda

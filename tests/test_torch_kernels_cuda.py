@@ -343,8 +343,9 @@ def _close(out, lse, ref, ref_lse):
 
 
 # (head dim, head group): the pool rows of 128 that `_choose_head_group`
-# builds for heads of 32, 64 and 128, and heads of 64 ungrouped
-DG = [(32, 4), (64, 1), (64, 2), (128, 1)]
+# builds for heads of 32, 64 and 128, heads of 64 ungrouped, and the 4 heads
+# of 16 of `DiffusionConfig.tiny()` (G = 1: 8 heads of 16 do not divide 4)
+DG = [(16, 1), (32, 4), (64, 1), (64, 2), (128, 1)]
 PAGES = [8, 16, 24, 32, 64, 72, 128]
 
 
@@ -496,6 +497,12 @@ def test_paged_kernels_refuse_what_they_do_not_take(gen):
         pa.batched_paged_attention(q48, pt, pt, npg, *pools48, bits=4)
     with pytest.raises(ValueError, match="empty page table"):
         pa.paged_attention(q[0], pt[0, :0], *pools, bits=4)
+    # heads of 16: the batched kernels only; the single-sequence kernel of
+    # the quantized-KV design refuses them (ROADMAP C38)
+    pools16 = _pools(gen, 2, 2, 64, 16, 4, 1)
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_attention(torch.randn((2, 8, 16), device="cuda"), pt[0],
+                           *pools16, bits=4)
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -531,6 +538,42 @@ def test_batched_paged_attention_a8_kernel_matches_twin(gen, bits, P, D, G):
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
     o16, l16 = pa.batched_paged_attention(q, pt, nt, npg, *pools, bits=bits,
                                           return_lse=True, head_group=G)
+    assert float((out - o16).norm() / o16.norm()) <= 3.5e-2
+    torch.testing.assert_close(lse, l16, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("act_bits", [16, 8])
+@pytest.mark.parametrize("bits", [8, 4, 2])
+def test_batched_paged_attention_heads_of_16(gen, act_bits, bits):
+    """The shapes of the serving example (`DiffusionConfig.tiny()`, 4 heads
+    of 16, G = 1): 2 slots, S = 16, pages of 8, two pages a slot, the
+    second slot's last page partial. Against the plain versions at the
+    bounds of the other head widths; the int8 path also within the JAX
+    package's a8-vs-bf16 bounds of the bf16 kernel."""
+    B, H, Sq, D, P = 2, 4, 16, 16, 8
+    pools = _pools(gen, 4, H, P, D, bits, 1)
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
+    pt = torch.tensor([[2, 0], [1, 3]], device="cuda", dtype=torch.int32)
+    nt = torch.tensor([[P, P], [P, 5]], device="cuda", dtype=torch.int32)
+    npg = torch.tensor([2, 2], device="cuda", dtype=torch.int32)
+    name = "batched_paged_attention" + ("_a8" if act_bits == 8 else "")
+    _build.reset_launch_counts()
+    out, lse = pa.batched_paged_attention(q, pt, nt, npg, *pools, bits=bits,
+                                          return_lse=True, act_bits=act_bits)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {name: 1, "paged_unpack": 1}
+    plain = (pa.batched_paged_attention_a8_plain if act_bits == 8
+             else pa.batched_paged_attention_plain)
+    ref, ref_lse = plain(q, pt, nt, npg, *pools, bits=bits, return_lse=True)
+    print(f"heads of 16, {bits}-bit, act {act_bits}: max abs "
+          f"{float((out - ref).abs().max()):.3g}")
+    if act_bits == 16:
+        _close(out, lse, ref, ref_lse)
+        return
+    assert float((out - ref).norm() / ref.norm()) <= 5e-3
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    o16, l16 = pa.batched_paged_attention(q, pt, nt, npg, *pools, bits=bits,
+                                          return_lse=True)
     assert float((out - o16).norm() / o16.norm()) <= 3.5e-2
     torch.testing.assert_close(lse, l16, rtol=2e-2, atol=2e-2)
 

@@ -18,7 +18,7 @@ from diffusion_llm_rs_tpu_torch.ops.attention import (dense_attention,
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "diffusion_llm_rs_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(path):
@@ -46,7 +46,9 @@ def test_port_sources_are_walked():
             "bpe.py", "kv_cache.py", "serving.py", "gptq.py",
             "calibrate.py", "__main__.py", "anns.py", "router.py",
             "dedup.py", "native.py", "types.py", "suffix_tree.py",
-            "salience.py", "profiling.py", "sanitize.py", "graphs.py"} <= names
+            "salience.py", "profiling.py", "sanitize.py", "graphs.py",
+            "torch_serving_example.py", "torch_diffusion_example.py",
+            "torch_quantization_basic.py", "torch_hello_workspace.py"} <= names
 
 
 def test_new_modules_import_without_jax_loaded():

@@ -17,11 +17,14 @@ import torch
 
 from _torch_dist import Recorded, Replay, export, spawn
 from diffusion_llm_rs_tpu_torch import config as tcfg_mod
+from diffusion_llm_rs_tpu_torch.parallel import serving as psv
 from diffusion_llm_rs_tpu_torch.parallel.mesh import Mesh, make_mesh
 from diffusion_llm_rs_tpu_torch.parallel.serving import ShardedPagedBatcher
 from diffusion_llm_rs_tpu_torch.serving import PagedContinuousBatcher, Request
+from diffusion_llm_rs_tpu_torch.utils import graphs
 from diffusion_llm_rs_tpu_torch.utils.metrics import metrics
 from diffusion_llm_rs_tpu_torch.weights import from_jax_params
+from test_torch_graphs import CpuGraph
 
 REQS = [("a", 8, 6), ("b", 4, 3), ("c", 8, 9)]
 KW = dict(num_slots=4, seq_len=8, page_size=4, seed=5, attend_mode="paged")
@@ -78,6 +81,27 @@ def _drive(b, reqs, first_step=None):
             for c in b.run_until_drained()}
 
 
+def _replayed(fn):
+    """(`fn()`, graph replays) with the sharded batchers made inside
+    replaying their chunk's step as on an NCCL group: every `GraphCache`
+    captures on the CPU with `CpuGraph` (a replay runs the captured step
+    again, gloo collectives included) and the 'model' group counts as
+    NCCL's. The card's warm-up, capture, static buffers, pointer checks
+    and per-rank rows run as they do there."""
+    saved = (graphs.GraphCache.graph_type, graphs.GraphCache.capturing,
+             psv.nccl_only)
+    graphs.GraphCache.graph_type = CpuGraph
+    graphs.GraphCache.capturing = (
+        lambda self: self.capture and not graphs.is_disabled())
+    psv.nccl_only = lambda groups: True
+    r0 = metrics.get("graphs.replays")
+    try:
+        return fn(), metrics.get("graphs.replays") - r0
+    finally:
+        (graphs.GraphCache.graph_type, graphs.GraphCache.capturing,
+         psv.nccl_only) = saved
+
+
 def _serving_worker(rank, world, payload):
     cfg = tcfg_mod.diffusion_config_from_json(payload["cfg"]["base"])
     params = from_jax_params(payload["params"]["base"], device="cpu")
@@ -91,6 +115,9 @@ def _serving_worker(rank, world, payload):
         out[("state", shape)] = dict(
             x=tuple(b.x.shape), pool=tuple(pool["k_data"].shape),
             scale=tuple(pool["k_scale"].shape), group=b.head_group)
+        out[("replayed", shape)] = _replayed(lambda: _drive(
+            ShardedPagedBatcher(params, cfg, mesh,
+                                noise=Replay(payload["draws"]), **KW), REQS))
     if world != 4:
         return out
     for name, model, kw, reqs, shape in CASES:
@@ -104,6 +131,14 @@ def _serving_worker(rank, world, payload):
         out[(name, "first")] = first[0]
         out[(name, "group")] = b.head_group
         out[(name, "scores")] = b.page_scores
+        if name == "salience":   # the scores' all-reduce inside the step
+            out[("replayed", name)] = _replayed(lambda: _drive(
+                ShardedPagedBatcher(
+                    from_jax_params(payload["params"][model], device="cpu"),
+                    tcfg_mod.diffusion_config_from_json(
+                        payload["cfg"][model]), mesh,
+                    noise=Replay(payload["case_draws"][name]), **kw),
+                reqs))
     # an HBM budget of one byte: every idle bucket spills to the host tier
     # and comes back through `_place_pool` when the router needs it
     mesh = make_mesh((2, 2), device="cpu")
@@ -236,6 +271,33 @@ def test_sharded_matches_jax(case, ranks, shape):
         np.testing.assert_allclose(got[rid][1], want[rid][1], rtol=1e-4,
                                    atol=1e-4)
         np.testing.assert_array_equal(got[rid][0], want[rid][0])
+
+
+@pytest.mark.parametrize("shape", MESHES[4] + MESHES[2] + ["salience"],
+                         ids=str)
+def test_sharded_replayed_equals_eager(case, ranks, shape):
+    """The chunk's step captured and replayed (`_replayed`: NCCL's path,
+    with the CPU's stand-in graphs over gloo) gives its eager run's
+    completions bit for bit on every rank, so the single batcher's and
+    JAX's as above; salience routing at (2, 2) runs the scores' all-reduce
+    inside the replayed step."""
+    world = 2 if shape in MESHES[2] else 4
+    key = "salience" if shape == "salience" else ("main", shape)
+    for r in ranks[world]:
+        got, replays = r[("replayed", shape)]
+        want = r[key]
+        assert replays > 0 and sorted(got) == sorted(want)
+        for rid in want:
+            np.testing.assert_array_equal(got[rid][0], want[rid][0])
+            np.testing.assert_array_equal(got[rid][1], want[rid][1])
+            assert got[rid][2] == want[rid][2]
+    if shape == "salience":
+        return
+    jax_done = case["jax"][shape]
+    for rid in jax_done:
+        np.testing.assert_allclose(got[rid][1], jax_done[rid][1], rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_array_equal(got[rid][0], jax_done[rid][0])
 
 
 def test_sharded_state_is_local(ranks):
