@@ -37,7 +37,14 @@ Phases (any failure makes the script exit non-zero without the final line):
                 timed at the two timed shapes, with its scratch bytes. The
                 batched paged kernels also at the serving example's heads of
                 16 (2 slots, S=16, pages of 8, 8/4/2 bits, act 16 and 8;
-                the 4-bit case timed).
+                the 4-bit case timed); quant_attention, dense_attention and
+                paged_attention at heads of 16 (`DiffusionConfig.tiny()`'s
+                shapes and BH=128 or Sq=1024 at S=1024, timed; each timed
+                attention row's log line also notes the floor of a design
+                that takes every exp on the MUFU ex2 unit, one exp a logit
+                at 16 a clock an SM and `nvidia-smi clocks.max.sm`: a floor
+                of these kernels, not of the card, and not in the kernels
+                line).
   4. sampler  - the W4A8 sampler at full width (12 layers, 768 wide, 12 heads,
                 vocab 50257; random weights from a seed, quantized in the
                 port): B=8, S=256, 32 steps, bf16 activations, timed 5 times
@@ -114,9 +121,17 @@ Phases (any failure makes the script exit non-zero without the final line):
                 train_grad (one `p_losses` gradient at S=1024 on a 2-layer
                 f32 model of the anchor's widths: dense_attention with f32
                 out at heads of 32 and JAX's VJP, nonzero wq/wk/wv gradients
-                within 1e-2 of the einsum path's) and engine_check
-                (one packed forward on the card against the plain versions on
-                the CPU, act16 and a8); engine_gptq (the anchor quantized by
+                within 1e-2 of the einsum path's),
+                heads16 (every path of `DiffusionConfig.tiny()`, 4 heads
+                of 16, on the card: `Engine.sample(seq_len=10)` and
+                `sample(seq_len=32, use_paged=False)` through the scan
+                sampler and quant_attention, `PagedKVCache.attend` through
+                paged_attention, the S=1024 one-shot sampler and a
+                `p_losses` gradient through dense_attention; exact launch
+                counts; scan_check, cache_attend, long_seq and train_grad
+                themselves, run at tiny's widths with their bounds)
+                and engine_check (one packed forward on the card against
+                the plain versions on the CPU, act16 and a8); engine_gptq (the anchor quantized by
                 GPTQ on the card and on the CPU from the same draws: grids
                 bit for bit, levels that differ counted, perplexity on both,
                 `generate` on the card); engine_gptq_shipped (the six
@@ -161,11 +176,12 @@ Phases (any failure makes the script exit non-zero without the final line):
 
     python3 chip_smoke.py --parent DIR
 
-also runs the full-width W4A8 sampler (B=8, S=256, 32 steps, then
-decode_tokens) of the checkout unpacked in DIR (the parent commit, `git
-archive`) and of this one, each built by its own chip_smoke.py in a process
-of its own (parent, this, this, parent), and logs the device memory each
-holds and its peak; the runs line carries them as `parent_memory`.
+also times the attention kernels (`quant_attention`, `dense_attention`,
+`paged_attention` at the head widths 32, 64 and 128, `PARENT_SHAPES`) of
+the checkout unpacked in DIR (the parent commit, `git archive`) and of this
+one, each built and timed by its own chip_smoke.py in a process of its own
+(parent, this, this, parent); the runs line carries them as
+`parent_kernels`.
 """
 
 from __future__ import annotations
@@ -186,6 +202,9 @@ import torch
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bytes/s
+EX2_PER_SM_CLOCK = 16     # ex2 (MUFU) results a Hopper SM gives a clock
+# the card's SMs and its highest SM clock (Hz), read by the device phase
+CARD = {}
 
 failures: list = []
 
@@ -262,21 +281,35 @@ def bound(bytes_moved, ops, peak_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def mufu_floor_ms(logits):
+    """The least time the card's MUFU ex2 units take for one exp a logit,
+    16 a clock on each SM at its highest SM clock (`nvidia-smi
+    clocks.max.sm`). A floor of the port's attention kernels, which take
+    every exp there, not of the card: exp2 can also run as a polynomial on
+    the FMA pipes. Logged beside a row's `bound_ms`, never in the row."""
+    return logits / (CARD["sms"] * EX2_PER_SM_CLOCK * CARD["sm_hz"]) * 1e3
+
+
 # ------------------------------------------------------------------ phases --
 
 def device():
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: no GPU")
+    # "name, power.limit, clocks.max.sm": the first two fields are the line
+    # `--query-gpu=name,power.limit` gives
     smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    line = smi.stdout.strip()
-    if smi.returncode != 0 or not line:
+    if smi.returncode != 0 or smi.stdout.count(",") < 2:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    line, clock = smi.stdout.strip().rsplit(", ", 1)
     log(line)
+    CARD.update(sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                sm_hz=float(clock.split()[0]) * 1e6)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count "
-        f"{torch.cuda.device_count()}")
+        f"{torch.cuda.device_count()}; {CARD['sms']} SMs, max SM clock "
+        f"{CARD['sm_hz'] / 1e6:.0f} MHz")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 references
     torch.backends.cudnn.allow_tf32 = False
     return line
@@ -461,12 +494,17 @@ def kernels():
     # dense_attention at S=1024: the sampler's heads of 64 (BH = 8 x 12), and
     # the same work at heads of 32 and 128, bf16 out, timed; the 2-layer
     # anchor-width training step's f32 out at heads of 32 (phase train_grad).
+    # Heads of 16 (`DiffusionConfig.tiny()`, phase heads16): its S=1024
+    # sampler's f32 out at B=2 x 4 heads, S=32 at the same BH, and BH=128
+    # at S=1024, which fills the card, timed.
     # bf16 P: the kernel's 128-wide KV tiles rescale at other points than the
     # twin's 512-wide ones, so bf16(p) may round differently: |d| <= 1e-2 and
     # rel Frobenius <= 1e-2
-    S = 1024
-    for BH, Dh, dtype, timed in ((96, 64, bf16, True), (192, 32, bf16, True),
-                                 (48, 128, bf16, True), (16, 32, f32, False)):
+    for BH, S, Dh, dtype, timed in (
+            (96, 1024, 64, bf16, True), (192, 1024, 32, bf16, True),
+            (48, 1024, 128, bf16, True), (16, 1024, 32, f32, False),
+            (8, 1024, 16, f32, True), (8, 32, 16, bf16, True),
+            (128, 1024, 16, bf16, True)):
         q, k, v = (torch.randn((BH, S, Dh), generator=gen, device="cuda")
                    .to(bf16) for _ in range(3))
         out = dense_attention(q, k, v, out_dtype=dtype)
@@ -477,19 +515,25 @@ def kernels():
                    max_abs_err=err, rel_err=rel,
                    tolerance="|d| <= 1e-2, rel Frobenius <= 1e-2")
         if timed:
-            row["ms"] = time_ms(lambda: dense_attention(q, k, v))
-            row["plain_ms"] = time_ms(lambda: dense_attention_plain(q, k, v), 5)
+            row["ms"] = time_ms(lambda: dense_attention(q, k, v,
+                                                        out_dtype=dtype))
+            row["plain_ms"] = time_ms(lambda: dense_attention_plain(
+                q, k, v, out_dtype=dtype), 5)
             q4, k4, v4 = (t.view(8, BH // 8, S, Dh) for t in (q, k, v))
             row["library_ms"] = time_ms(lambda: torch.nn.functional
                                         .scaled_dot_product_attention(q4, k4, v4))
+            out_bytes = BH * S * Dh * (2 if dtype == bf16 else 4)
             row["bound_ms"], row["bound_by"] = bound(
-                BH * (S * Dh * 2 * 4), 4 * BH * S * S * Dh, PEAK_BF16_FLOPS)
+                BH * (S * Dh * 2 * 3) + out_bytes, 4 * BH * S * S * Dh,
+                PEAK_BF16_FLOPS)
+            mufu = mufu_floor_ms(BH * S * S)
         results["dense_attention"].append(row)
         log(f"  dense_attention {row['shape']}: max_abs_err {err:.3g} rel "
             f"{rel:.3g} {'ok' if ok else 'MISMATCH'}"
             + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
                f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
-               f"({row['bound_by']})" if timed else ""))
+               f"({row['bound_by']}); MUFU ex2 floor {mufu:.4f}"
+               if timed else ""))
         if not ok:
             bad.append(f"dense_attention {row['shape']}")
     _paged_kernels(gen, results, bad)
@@ -868,49 +912,59 @@ def _paged_kernels(gen, results, bad):
         if not ok8:
             bad.append(f"batched_paged_attention_a8 {label}")
 
-    # paged_attention (one sequence): PAGED_CASE, the timed case full, the
-    # checked one with a partial last page
-    BH, Sq1, n1, bits, P, D = PAGED_CASE
-    pools = _quantized_pools(gen, 2 * n1, BH, P, D, 1, bits)
-    q = torch.randn((BH, Sq1, D), generator=gen, device="cuda").to(torch.bfloat16)
-    pt = torch.randperm(2 * n1, generator=gen, device="cuda")[:n1].to(torch.int32)
-    for label, last in (("full pages", P), ("partial last page", 50)):
-        nt = torch.full((n1,), P, dtype=torch.int32, device="cuda")
-        nt[-1] = last
-        args = (q, pt) + pools
-        out, lse = pa.paged_attention(*args, bits=bits, page_tokens=nt,
-                                      return_lse=True)
-        ref, ref_lse = pa.paged_attention_plain(*args, bits=bits,
-                                                page_tokens=nt, return_lse=True)
-        err, rel, lse_err, ok = _paged_compare(out, lse, ref, ref_lse)
-        row = dict(shape=_paged_label(label, *PAGED_CASE), max_abs_err=err,
-                   rel_err=rel, lse_err=lse_err, tolerance=tol)
-        if last == P:
-            row["ms"] = time_ms(lambda: pa.paged_attention(
-                *args, bits=bits, page_tokens=nt))
-            row["plain_ms"] = time_ms(lambda: pa.paged_attention_plain(
-                *args, bits=bits, page_tokens=nt), 5)
-            row["library_ms"] = time_ms(lambda: _dequant_sdpa(
-                q[None], pt[None], pools, bits, 1))
-            row["bound_ms"], row["bound_by"] = _paged_bound(
-                1, BH, Sq1, D, P, bits, n1, n1 * P)
-        results["paged_attention"].append(row)
-        log(f"  paged_attention {label}: rel {rel:.3g} lse {lse_err:.3g} "
-            f"{'ok' if ok else 'MISMATCH'}"
-            + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
-               f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
-               f"({row['bound_by']})" if "ms" in row else ""))
-        if not ok:
-            bad.append(f"paged_attention {label}")
+    # paged_attention (one sequence): PAGED_CASES, each timed with full
+    # pages and checked with a partial last page
+    for case in PAGED_CASES:
+        BH, Sq1, n1, bits, P, D = case
+        pools = _quantized_pools(gen, 2 * n1, BH, P, D, 1, bits)
+        q = torch.randn((BH, Sq1, D), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        pt = torch.randperm(2 * n1, generator=gen, device="cuda")[:n1].to(
+            torch.int32)
+        for label, last in (("full pages", P),
+                            ("partial last page", min(50, P - 3))):
+            nt = torch.full((n1,), P, dtype=torch.int32, device="cuda")
+            nt[-1] = last
+            args = (q, pt) + pools
+            out, lse = pa.paged_attention(*args, bits=bits, page_tokens=nt,
+                                          return_lse=True)
+            ref, ref_lse = pa.paged_attention_plain(
+                *args, bits=bits, page_tokens=nt, return_lse=True)
+            err, rel, lse_err, ok = _paged_compare(out, lse, ref, ref_lse)
+            row = dict(shape=_paged_label(label, *case), max_abs_err=err,
+                       rel_err=rel, lse_err=lse_err, tolerance=tol)
+            if last == P:
+                row["ms"] = time_ms(lambda: pa.paged_attention(
+                    *args, bits=bits, page_tokens=nt))
+                row["plain_ms"] = time_ms(lambda: pa.paged_attention_plain(
+                    *args, bits=bits, page_tokens=nt), 5)
+                row["library_ms"] = time_ms(lambda: _dequant_sdpa(
+                    q[None], pt[None], pools, bits, 1))
+                row["bound_ms"], row["bound_by"] = _paged_bound(
+                    1, BH, Sq1, D, P, bits, n1, n1 * P)
+                mufu = mufu_floor_ms(BH * Sq1 * n1 * P)
+            results["paged_attention"].append(row)
+            log(f"  paged_attention {row['shape']}: rel {rel:.3g} lse "
+                f"{lse_err:.3g} {'ok' if ok else 'MISMATCH'}"
+                + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+                   f"library {row['library_ms']:.4f}, bound "
+                   f"{row['bound_ms']:.4f} ({row['bound_by']}); MUFU ex2 "
+                   f"floor {mufu:.4f}" if "ms" in row else ""))
+            if not ok:
+                bad.append(f"paged_attention {row['shape']}")
 
 
-# the single-sequence paged_attention's shape (BH, Sq, pages, bits, P, D):
-# one layer of `PagedKVCache.attend` at the sampler's widths
-PAGED_CASE = (12, 1024, 8, 4, 128, 64)
+# the single-sequence paged_attention's shapes (BH, Sq, pages, bits, P, D):
+# one layer of `PagedKVCache.attend` at the sampler's widths (timed first:
+# the kernels line's times); `DiffusionConfig.tiny()`'s 2 layers x 4 heads
+# of 16, Sq=64 over 8 pages of 8 (phase heads16's `cache_attend`, there at
+# three widths); and heads of 16 at Sq=1024 over 8 pages of 128
+PAGED_CASES = ((12, 1024, 8, 4, 128, 64), (8, 64, 8, 4, 8, 16),
+               (4, 1024, 8, 4, 128, 16))
 
 
 def _paged_label(label, BH, Sq, n, bits, P, D):
-    return f"{label}: BH={BH} Sq={Sq} P={P} pages={n} {bits}-bit"
+    return f"{label}: BH={BH} Sq={Sq} D={D} P={P} pages={n} {bits}-bit"
 
 
 # quantized-KV attention's shapes: (label, BH, Sq, Skv, bits, timed, D)
@@ -924,7 +978,15 @@ QA_CASES = (
     # the anchor's `sample(seq_len=10)`: B=4 x 8 heads of 32
     ("anchor seq_len=10, 8-bit", 32, 10, 10, 8, False, 32),
     ("heads of 32, 1-bit", 32, 100, 100, 1, False, 32),
-    ("heads of 128, 4-bit", 48, 256, 256, 4, False, 128))
+    ("heads of 128, 4-bit", 48, 256, 256, 4, False, 128),
+    # `DiffusionConfig.tiny()`'s 4 heads of 16 (phase heads16):
+    # `sample(seq_len=10)` at B=1, `sample(seq_len=32, use_paged=False)` at
+    # B=2, then BH=128 at S=1024, which fills the card; every bit width
+    ("tiny seq_len=10, heads of 16, 8-bit", 4, 10, 10, 8, True, 16),
+    ("tiny seq_len=32, heads of 16, 4-bit", 8, 32, 32, 4, True, 16),
+    ("heads of 16, S=1024 4-bit", 128, 1024, 1024, 4, True, 16),
+    ("heads of 16, 2-bit", 8, 32, 32, 2, False, 16),
+    ("heads of 16, ragged 1-bit", 8, 100, 100, 1, False, 16))
 
 
 def _qa_label(label, BH, Sq, Skv, bits, D):
@@ -981,19 +1043,21 @@ def _quant_attention_kernels(gen, results, bad):
                     q[None], k.dequantize(torch.bfloat16)[None],
                     v.dequantize(torch.bfloat16)[None])
             row["library_ms"] = time_ms(lib)
-            if bits == 4:
+            if bits == 4 and BH % 12 == 0 and Skv % 128 == 0:
                 row["two_launch_ms"] = _two_launch_ms(gen, BH, Sq, Skv, D)
             # q bf16, packed K and V, four f32 sidecars, f32 out
             nbytes = (BH * Sq * D * 2 + 2 * BH * Skv * (D * bits // 8)
                       + 4 * BH * Skv * 4 + BH * Sq * D * 4)
             row["bound_ms"], row["bound_by"] = bound(
                 nbytes, 4 * BH * Sq * Skv * D, PEAK_BF16_FLOPS)
+            mufu = mufu_floor_ms(BH * Sq * Skv)
         results["quant_attention"].append(row)
         log(f"  quant_attention {label}: max_abs_err {err:.3g} rel {rel:.3g} "
             f"({tol}) {'ok' if ok else 'MISMATCH'}"
             + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
                f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
-               f"({row['bound_by']})" if timed else "")
+               f"({row['bound_by']}); MUFU ex2 floor {mufu:.4f}"
+               if timed else "")
             + (f"; two launches {row['two_launch_ms']:.4f}"
                if "two_launch_ms" in row else ""))
         if not ok:
@@ -1194,13 +1258,16 @@ def _to(tree, device):
 
 
 def _sampler(cfg, params, device, eps_log=None):
+    """The one-shot sampler's schedule and model_fn: x cast to the model's
+    dtype (bf16 at full width), eps back to f32."""
     from diffusion_llm_rs_tpu_torch.models import denoiser as dn
     from diffusion_llm_rs_tpu_torch.models.diffusion import DiffusionSchedule
 
     schedule = DiffusionSchedule.create(cfg.num_timesteps, device=device)
 
     def model_fn(x, t):
-        eps = dn.denoiser_forward(params, cfg, x.to(torch.bfloat16), t)
+        eps = dn.denoiser_forward(params, cfg, x.to(getattr(torch, cfg.dtype)),
+                                  t)
         if eps_log is not None:
             eps_log.append(eps.float().cpu())
         return eps.to(torch.float32)
@@ -1372,15 +1439,21 @@ def _sampler_by_max_seq(cfg, params, shape, steps, runs=3):
     return out
 
 
-def long_seq():
+def long_seq(cfg=None, params=None, expect=None, seed=5):
+    """2 steps of the one-shot sampler at B=2, S=1024 (attention through
+    dense_attention), by default on the W4A8 model, with `expect` its launch
+    counts (default `_expected_launches`); then eps of one forward through
+    flash_fold against the einsum path's: rel <= 2e-2."""
     from diffusion_llm_rs_tpu_torch.models import denoiser as dn
     from diffusion_llm_rs_tpu_torch.models.diffusion import sample
     from diffusion_llm_rs_tpu_torch.ops import _build
 
-    cfg, params = MODEL["cfg"], MODEL["params"]
+    cfg = cfg or MODEL["cfg"]
+    params = MODEL["params"] if params is None else params
     B, S, steps = 2, 1024, 2
+    expect = expect or _expected_launches(cfg, steps, long_seq=True)
     schedule, model_fn = _sampler(cfg, params, "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1391,21 +1464,17 @@ def long_seq():
     log(f"  launches {counts}; {steps} steps at B={B} S={S}: {wall:.4f} s")
     if not bool(torch.isfinite(x).all()):
         raise AssertionError("long-S output is not finite")
-    expect = _expected_launches(cfg, steps, long_seq=True)
-    for name, n in expect.items():
-        if counts.get(name, 0) != n:
-            raise AssertionError(f"{name}: {counts.get(name, 0)} launches, "
-                                 f"expected {n}")
+    _expect("long_seq", counts, expect)
     # the flash path against the einsum path of the same forward
-    xb = x.to(torch.bfloat16)
-    t = torch.full((B,), 500, device="cuda")
+    xb = x.to(getattr(torch, cfg.dtype))
+    t = torch.full((B,), cfg.num_timesteps // 2, device="cuda")
     e_flash = dn.denoiser_forward(params, cfg, xb, t).float()
     e_einsum = dn.denoiser_forward(params, cfg, xb, t, flash_attn=False).float()
     rel = float((e_flash - e_einsum).norm() / e_einsum.norm())
     log(f"  eps flash vs einsum attention: rel err {rel:.3g} (bound 2e-2)")
     if rel > 2e-2:
         raise AssertionError("flash attention path disagrees with einsum path")
-    return dict(counts=counts, wall_s=wall)
+    return dict(counts=counts, wall_s=wall, eps_rel_err=rel)
 
 
 def _device_time(fn, reps):
@@ -1449,13 +1518,15 @@ def _family_ms(rows, steps):
     return out
 
 
-def _bf16_forward(eps_log=None):
-    """`forward_fn` of the scan sampler with bf16 activations, as the other
-    paths run this model: x cast to bf16, eps back to f32."""
+def _logged_forward(eps_log=None):
+    """`forward_fn` of the scan sampler with activations in the model's
+    dtype, as the other paths run it: x cast to it (bf16 at full width),
+    eps back to f32 and, given `eps_log`, appended to it on the host."""
     from diffusion_llm_rs_tpu_torch.models import denoiser as dn
 
     def fwd(params, cfg, x, t, **kw):
-        out = dn.denoiser_forward(params, cfg, x.to(torch.bfloat16), t, **kw)
+        out = dn.denoiser_forward(params, cfg, x.to(getattr(torch, cfg.dtype)),
+                                  t, **kw)
         eps, rest = (out[0], out[1:]) if isinstance(out, tuple) else (out, ())
         if eps_log is not None:
             eps_log.append(eps.float().cpu())
@@ -1483,7 +1554,7 @@ def scan_sampler():
     cfg, params = MODEL["cfg"], MODEL["params"]
     schedule = DiffusionSchedule.create(cfg.num_timesteps, device="cuda")
     noise = GeneratorNoise(61, "cuda")
-    fwd = _bf16_forward()
+    fwd = _logged_forward()
     B, S, steps, L = 8, 256, 32, cfg.num_layers
     segments = plan_segments(steps, cfg)
     if [b for b, _, _ in segments] != [8, 4, 2]:
@@ -1565,28 +1636,29 @@ def scan_sampler():
                      for us, n, key in rows[:8]])
 
 
-def scan_check():
-    """3 steps of `phase_aware_sample` at B=2, S=256 (t = 2 at 8 bits, t = 1
-    at 4, t = 0 at 2: the carry is requantized at both segment boundaries) on
-    the card against the plain versions on the CPU from the same draws. eps
-    of each step within 3e-2 relative and x within 2e-2: beside the bf16
-    rounding points of the sampler's check, the carried K/V differ by a
-    quantization level here and there, and the CPU's plain attention steps
-    its softmax 256 tokens at a time where the kernel steps 64."""
+def scan_check(cfg=None, params=None, shape=(2, 256), seed=67):
+    """3 steps of `phase_aware_sample` at `shape` (t = 2 at 8 bits, t = 1
+    at 4, t = 0 at 2: the carry is requantized at both segment boundaries),
+    by default on the W4A8 model at B=2, S=256, on the card against the
+    plain versions on the CPU from the same draws. eps of each step within
+    3e-2 relative and x within 2e-2: beside the bf16 rounding points of the
+    sampler's check, the carried K/V differ by a quantization level here and
+    there, and the CPU's plain attention steps its softmax 256 tokens at a
+    time where the kernel steps 64."""
     from diffusion_llm_rs_tpu_torch.models.diffusion import DiffusionSchedule
     from diffusion_llm_rs_tpu_torch.models.sampler import (phase_aware_sample,
                                                            plan_segments)
     from diffusion_llm_rs_tpu_torch.ops import _build
     from diffusion_llm_rs_tpu_torch.serving import GeneratorNoise
 
-    cfg = MODEL["cfg"]
+    cfg = cfg or MODEL["cfg"]
+    params = MODEL["params"] if params is None else params
     if [b for b, _, _ in plan_segments(3, cfg)] != [8, 4, 2]:
         raise AssertionError(f"segments {plan_segments(3, cfg)}")
-    rec = _Recorded(GeneratorNoise(67, "cuda"))
+    rec = _Recorded(GeneratorNoise(seed, "cuda"))
     xs, eps = {}, {"cuda": [], "cpu": []}
     for device in ("cuda", "cpu"):
-        params = MODEL["params"] if device == "cuda" else \
-            _to(MODEL["params"], "cpu")
+        on = params if device == "cuda" else _to(params, "cpu")
         noise = rec if device == "cuda" else _Replay(rec.draws)
         schedule = DiffusionSchedule.create(cfg.num_timesteps, device=device)
         if device == "cuda":
@@ -1595,8 +1667,8 @@ def scan_check():
         t0 = time.perf_counter()
         with graphs_disabled():  # the eps log copies to the host each step
             xs[device] = phase_aware_sample(
-                params, cfg, schedule, (2, 256), noise, 3,
-                forward_fn=_bf16_forward(eps[device])).cpu()
+                on, cfg, schedule, shape, noise, 3,
+                forward_fn=_logged_forward(eps[device])).cpu()
         log(f"  3 steps on {device}: {time.perf_counter() - t0:.1f} s")
         if device == "cuda":
             counts = dict(_build.launch_counts)
@@ -1706,23 +1778,23 @@ def fused_qkv():
                 eps_rel_err_cpu=rel_cpu, forward_wall_ms=walls)
 
 
-def cache_attend():
-    """PagedKVCache.attend on the card: a 1024-token chain of 16 pages of
-    64, widths allocated by salience (8/4/2 bits at an average of 4), one
+def cache_attend(BH=12, S=1024, D=64, page=64, seed=31):
+    """PagedKVCache.attend on the card: a chain of S tokens in pages of
+    `page` (by default 1024 tokens, 16 pages of 64, at BH=12 heads of 64),
+    widths allocated by salience (8/4/2 bits at an average of 4), one
     paged_attention launch per width, merged by log-sum-exp; against the
     same cache on the CPU (twins): rel <= 1e-2."""
     from diffusion_llm_rs_tpu_torch.cache.paged import PagedKVCache
     from diffusion_llm_rs_tpu_torch.ops import _build
 
-    gen = torch.Generator(device="cuda").manual_seed(31)
-    BH, S, D = 12, 1024, 64
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     k, v, q = (torch.randn((BH, S, D), generator=gen, device="cuda")
                for _ in range(3))
     scores = np.random.default_rng(0).random(S).astype(np.float32)
     out = {}
     for device in ("cuda", "cpu"):
-        cache = PagedKVCache(bh=BH, head_dim=D, page_size=64,
-                             pages_per_bits={8: 16, 4: 16, 2: 16},
+        cache = PagedKVCache(bh=BH, head_dim=D, page_size=page,
+                             pages_per_bits={b: S // page for b in (8, 4, 2)},
                              device=device)
         cache.append_salient("s", k.to(device), v.to(device), scores,
                              budget_bits=4.0, bit_options=(8, 4, 2))
@@ -1743,6 +1815,74 @@ def cache_attend():
     if not rel <= 1e-2:
         raise AssertionError("PagedKVCache.attend disagrees with the CPU")
     return dict(counts=counts, widths=widths, rel_err=rel)
+
+
+def heads16():
+    """Every path of `DiffusionConfig.tiny()` (width 64, 2 layers, 4 heads of
+    16, vocab 256, f32; random weights from a seed) on the card, through the
+    entry points a user calls, each call's launch counts reset just before
+    it, read just after it and checked exactly:
+      - `Engine(config=tiny(vocab_size=512), device="cuda").sample(
+        batch_size=1, seq_len=10, num_steps=2)` (no page divides 10: the
+        scan sampler) and `sample(batch_size=2, seq_len=32, num_steps=4,
+        use_paged=False)`: `phase_aware_sample`, L quant_attention launches
+        a step after the bootstrap, token ids in range (the engine's
+        default tokenizer has 259 ids, more than tiny's 256, in both
+        packages; the port's engine tests take vocab 512 too);
+      - the checks of the wider phases at tiny's widths, with their bounds:
+        `scan_check` on that engine's model at B=1, S=10; `cache_attend`
+        over 2 layers x 4 heads of 16, 8 pages of 8 tokens; `long_seq` and
+        `train_grad` on `tiny(max_sequence_length=1024)`, B=2, S=1024 (L
+        dense_attention launches a step, L for the gradient)."""
+    from diffusion_llm_rs_tpu_torch.config import DiffusionConfig
+    from diffusion_llm_rs_tpu_torch.engine import Engine
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+    from diffusion_llm_rs_tpu_torch.ops import _build
+
+    cfg = DiffusionConfig.tiny(vocab_size=512)
+    L, H = cfg.num_layers, cfg.num_attention_heads
+    if cfg.hidden_size // H != 16:
+        raise AssertionError(f"tiny config's heads: {cfg}")
+    eng = Engine(config=cfg, device="cuda")
+    out = {}
+    for name, kw, steps in (
+            ("sample(seq_len=10)", dict(batch_size=1, seq_len=10), 2),
+            ("sample(seq_len=32, use_paged=False)",
+             dict(batch_size=2, seq_len=32, use_paged=False), 4)):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens = eng.sample(num_steps=steps, return_text=False, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+        log(f"  {name}: {wall:.3f} s, launches {counts}")
+        _expect(f"heads16 {name}", counts, {
+            "quant_attention": L * (steps - 1), "dense_attention": 0,
+            "paged_attention": 0, "batched_paged_attention": 0})
+        if tuple(tokens.shape) != (kw["batch_size"], kw["seq_len"]) or \
+                int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{name}: token ids {tuple(tokens.shape)} "
+                                 f"out of range")
+        out[name] = dict(wall_s=wall, counts=counts)
+    log("  scan_check at heads of 16")
+    out["scan_check"] = scan_check(cfg, eng.params, (1, 10), seed=71)
+    log("  cache_attend at heads of 16")
+    out["cache_attend"] = cache_attend(BH=L * H, S=64, D=16, page=8, seed=37)
+    lcfg = DiffusionConfig.tiny(max_sequence_length=1024)
+    params = dn.init_denoiser_params(
+        torch.Generator(device="cuda").manual_seed(41), lcfg)
+    log("  long_seq at heads of 16")
+    out["long_seq"] = long_seq(lcfg, params, {"dense_attention": 2 * L},
+                               seed=41)
+    log("  train_grad at heads of 16")
+    out["train_grad"] = train_grad(lcfg, seed=41)
+    total = {}
+    for run in out.values():
+        for k, n in run["counts"].items():
+            total[k] = total.get(k, 0) + n
+    out["counts"] = total
+    return out
 
 
 def _serve_cfg(**quant):
@@ -2317,12 +2457,13 @@ def engine_anchor():
     return out
 
 
-def train_grad():
-    """One training gradient at S=1024 on a 2-layer f32 model of the
-    anchor's widths (256 wide, 8 heads of 32; random weights from a seed):
+def train_grad(cfg=None, seed=5):
+    """One training gradient at S=1024 on `cfg`, by default a 2-layer f32
+    model of the anchor's widths (256 wide, 8 heads of 32; random weights
+    from a seed):
     `p_losses(...).mean().backward()` with attention through `flash_fold`
-    (the dense_attention kernel with f32 out at heads of 32, then JAX's f32
-    VJP) and again through the einsum path (`flash_attn=False`). Every
+    (the dense_attention kernel with f32 out at the model's head width, then
+    JAX's f32 VJP) and again through the einsum path (`flash_attn=False`). Every
     layer's q, k and v projections (the column blocks of wqkv) get a nonzero
     gradient, within 1e-2 relative of the einsum path's, the kernel's own
     bound on its output: its forward rounds q, k, v and P to bf16, which
@@ -2334,16 +2475,18 @@ def train_grad():
         DiffusionSchedule, p_losses)
     from diffusion_llm_rs_tpu_torch.ops import _build
 
-    cfg = DiffusionConfig(num_timesteps=1000, hidden_size=256, num_layers=2,
-                          num_attention_heads=8, vocab_size=463,
-                          max_sequence_length=1024, dtype="float32")
-    g = torch.Generator(device="cuda").manual_seed(5)
+    cfg = cfg or DiffusionConfig(
+        num_timesteps=1000, hidden_size=256, num_layers=2,
+        num_attention_heads=8, vocab_size=463, max_sequence_length=1024,
+        dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(seed)
     params = dn.init_denoiser_params(g, cfg)
     wqkv = [blk["attn"]["wqkv"].requires_grad_() for blk in params["blocks"]]
     schedule = DiffusionSchedule.create(cfg.num_timesteps, device="cuda")
     x0 = torch.randn((2, 1024, cfg.hidden_size), generator=g, device="cuda")
     noise = torch.randn(x0.shape, generator=g, device="cuda")
-    t = torch.tensor([100, 700], device="cuda")
+    T = cfg.num_timesteps
+    t = torch.tensor([T // 10, 7 * T // 10], device="cuda")
     grads, counts, loss = {}, {}, {}
     for flash in (True, False):
         _build.reset_launch_counts()
@@ -2878,7 +3021,7 @@ def _graph_paths(cfg, params):
         return dict(x=x.cpu()), 32, wall, counts, busy
 
     def scan():
-        fwd = _bf16_forward()
+        fwd = _logged_forward()
 
         def run(seed, n=32):
             return phase_aware_sample(params, cfg, schedule, (B, S),
@@ -3477,60 +3620,71 @@ KERNELS = {
 ALSO_BUILT_FROM = {"matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",)}
 
 
-# Run in a checkout (cwd), this one or an earlier commit's: the full-width
-# W4A8 sampler of `sampler` (B=8, S=256, 32 steps, then decode_tokens) built
-# by that checkout's own chip_smoke.py in a fresh process, with the device
-# memory it holds and its peak; prints one JSON line.
-MEMORY_CODE = """
+# Run in a checkout (cwd), this one or an earlier commit's: the attention
+# kernels of the quantized-KV design (`quant_attention`, `paged_attention`)
+# and `dense_attention`, built by that checkout and timed by its own
+# chip_smoke.py at the head widths the parent served (PARENT_SHAPES);
+# prints one JSON line of {kernel shape: ms}.
+PARENT_SHAPES = dict(
+    quant_attention=[(96, 256, 64, 4), (96, 256, 64, 8), (96, 256, 64, 2),
+                     (24, 1024, 64, 4), (192, 256, 32, 4), (48, 256, 128, 4)],
+    dense_attention=[(96, 1024, 64), (192, 1024, 32), (48, 1024, 128)],
+    paged_attention=[(12, 1024, 64), (24, 1024, 32), (6, 1024, 128)])
+PARENT_CODE = """
 import json, torch, chip_smoke as c
-from diffusion_llm_rs_tpu_torch.models.diffusion import sample
-from diffusion_llm_rs_tpu_torch.models import denoiser as dn
 from diffusion_llm_rs_tpu_torch.ops import _build
+from diffusion_llm_rs_tpu_torch.ops import attention as qa
+from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
 c.device()
-_build.build(("int8_gemm", "int8_mlp"))
-cfg, params = c.full_width_model(max_seq=4096)
-schedule, model_fn = c._sampler(cfg, params, "cuda")
-gen = torch.Generator(device="cuda").manual_seed(7)
-shape = (8, 256, cfg.hidden_size)
-sample(model_fn, schedule, shape, gen, num_steps=2)
-torch.cuda.synchronize()
-torch.cuda.reset_peak_memory_stats()
-held = torch.cuda.memory_allocated()
-x = sample(model_fn, schedule, shape, gen, num_steps=32)
-tokens = dn.decode_tokens(params, x)
-torch.cuda.synchronize()
-k = c._k_major_bytes(params)
-print(json.dumps(dict(held_bytes=held,
-                      peak_bytes=torch.cuda.max_memory_allocated(),
-                      k_major_copy_bytes=k["mlp"] + k["linears"])))
+_build.build(("dense_attention", "quant_flash_contig", "quant_flash_paged"))
+gen = torch.Generator(device="cuda").manual_seed(99)
+ms = {}
+for BH, S, D, bits in SHAPES["quant_attention"]:
+    q = torch.randn((BH, S, D), generator=gen, device="cuda").bfloat16()
+    k, v = (qa.quantize_kv(torch.randn((BH, S, D), generator=gen,
+                                       device="cuda"), bits) for _ in "kv")
+    ms[f"quant_attention BH={BH} S={S} D={D} {bits}-bit"] = c.time_ms(
+        lambda: qa.attention(q, k, v))
+for BH, S, D in SHAPES["dense_attention"]:
+    q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda")
+               .bfloat16() for _ in "qkv")
+    ms[f"dense_attention BH={BH} S={S} D={D}"] = c.time_ms(
+        lambda: qa.dense_attention(q, k, v))
+for BH, Sq, D in SHAPES["paged_attention"]:
+    pools = c._quantized_pools(gen, 16, BH, 128, D, 1, 4)
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda").bfloat16()
+    pt = torch.randperm(16, generator=gen, device="cuda")[:8].int()
+    ms[f"paged_attention BH={BH} Sq={Sq} D={D} 8 pages of 128 4-bit"] = \
+        c.time_ms(lambda: pa.paged_attention(q, pt, *pools, bits=4))
+print(json.dumps(ms))
 """
 
 
-def _memory_run(checkout):
-    """Start MEMORY_CODE in `checkout`, a process of its own; `_memory_read`
-    reads its result."""
-    return subprocess.Popen([sys.executable, "-c", MEMORY_CODE], cwd=checkout,
+def _parent_run(checkout):
+    """Start PARENT_CODE in `checkout`, a process of its own;
+    `_parent_read` reads its result."""
+    code = f"SHAPES = {PARENT_SHAPES!r}\n" + PARENT_CODE
+    return subprocess.Popen([sys.executable, "-c", code], cwd=checkout,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
 
 
-def _memory_read(proc, label):
+def _parent_read(proc, label):
     out, _ = proc.communicate(timeout=900)
     if proc.returncode != 0:
-        raise RuntimeError(f"sampler memory ({label}) failed:\n{out[-4000:]}")
+        raise RuntimeError(f"attention times ({label}) failed:\n"
+                           f"{out[-4000:]}")
     rec = json.loads(out.strip().splitlines()[-1])
-    log(f"  {label}: sampler holds {rec['held_bytes'] / 2**20:.1f} MiB, peak "
-        f"{rec['peak_bytes'] / 2**20:.1f} MiB, K-major copies "
-        f"{rec['k_major_copy_bytes'] / 1e6:.1f} MB")
+    log(f"  {label}: " + "; ".join(f"{k} {v:.4f}" for k, v in rec.items()))
     return rec
 
 
 def main() -> int:
-    """`--parent DIR`: also run the full-width sampler of the checkout in
-    DIR (the parent commit) and of this one, each built by its own
-    chip_smoke.py in a process of its own, and log the device memory each
-    holds and its peak: parent (beside this checkout's build), this
-    checkout, this checkout, parent."""
+    """`--parent DIR`: also time the attention kernels of the checkout in
+    DIR (the parent commit) and of this one at the head widths the parent
+    served, each built and timed by its own chip_smoke.py in a process of
+    its own: parent (beside this checkout's build), this checkout, this
+    checkout, parent."""
     import os
     parent = sys.argv[sys.argv.index("--parent") + 1] \
         if "--parent" in sys.argv else None
@@ -3538,22 +3692,23 @@ def main() -> int:
     phase(device)
     if failures:
         return 1
-    before = _memory_run(parent) if parent else None
+    before = _parent_run(parent) if parent else None
     phase(build)
     if failures:
         return 1
     parent_runs = {}
     if before is not None:
-        log("== sampler memory: parent, this checkout, this checkout, parent")
-        parent_runs["parent_before"] = _memory_read(before, "parent")
+        log("== attention kernels, ms: parent, this checkout, this checkout, "
+            "parent")
+        parent_runs["parent_before"] = _parent_read(before, "parent")
         for label in ("this_1", "this_2"):
-            parent_runs[label] = _memory_read(_memory_run(root), label)
-        parent_runs["parent_after"] = _memory_read(_memory_run(parent),
+            parent_runs[label] = _parent_read(_parent_run(root), label)
+        parent_runs["parent_after"] = _parent_read(_parent_run(parent),
                                                    "parent")
-        saved = (parent_runs["parent_after"]["held_bytes"]
-                 - parent_runs["this_2"]["held_bytes"])
-        log(f"  held by the parent minus held by this checkout: "
-            f"{saved / 1e6:.1f} MB")
+        for key in parent_runs["this_1"]:
+            was = [parent_runs[f"parent_{w}"][key] for w in ("before", "after")]
+            now = [parent_runs[f"this_{i}"][key] for i in (1, 2)]
+            log(f"  {key}: this / parent {min(now) / min(was):.3f}")
     measured = phase(kernels)
     runs = {"sampler": phase(sampler)}
     if runs["sampler"] is not None:
@@ -3564,7 +3719,7 @@ def main() -> int:
     MODEL.clear()  # the engine phases build their own models
     torch.cuda.empty_cache()
     for fn in (engine_packed, engine_packed_a8, engine_anchor, train_grad,
-               engine_gptq, engine_gptq_shipped, engine_ingest, cli):
+               heads16, engine_gptq, engine_gptq_shipped, engine_ingest, cli):
         runs[fn.__name__] = phase(fn)
     if "engine16" in MODEL and "engine8" in MODEL:
         runs["engine_check"] = phase(engine_check)
@@ -3602,7 +3757,7 @@ def main() -> int:
             return 1
     log(json.dumps({"kernels": entries}))
     if parent_runs:
-        runs["parent_memory"] = parent_runs
+        runs["parent_kernels"] = parent_runs
     log(json.dumps(runs))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

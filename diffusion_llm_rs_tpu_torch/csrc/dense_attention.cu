@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel `_dense_kernel` (diffusion_llm_rs_tpu/ops/
 // pallas_attention.py, behind `dense_attention`): q/k/v [BH, S, D] bf16 ->
-// out [BH, Sq, D] in bf16 or f32, for head widths D = 32, 64 and 128 (template
-// parameters, as is the output type). As in the TPU kernel:
+// out [BH, Sq, D] in bf16 or f32, for head widths D = 16, 32, 64 and 128
+// (template parameters, as is the output type). As in the TPU kernel:
 //   logits = (q . k) * sm_scale                   f32
 //   m' = max(m, rowmax(logits)); p = exp(logits - m'); a = exp(m - m')
 //   l  = l * a + rowsum(p)                         f32, p before rounding
@@ -15,8 +15,11 @@
 //
 // What bounds it on an H100: at the long-sequence shape of the sampler (BH =
 // 96, S = 1024, D = 64) attention does 4*BH*S^2*D = 25.8 GFLOP over ~50 MB,
-// so it is bf16 tensor-core bound (0.026 ms at 989 TFLOP/s). The design is
-// FlashAttention-3 in outline:
+// so it is bf16 tensor-core bound (0.026 ms at 989 TFLOP/s); at heads of 16
+// (BH = 128) this design's exps weigh more: one a logit on the MUFU ex2
+// unit, 16 a clock an SM, 0.032 ms against the tensor cores' 0.0087, a floor
+// of this design and not of the card (exp2 can also run as a polynomial on
+// the FMA pipes). The design is FlashAttention-3 in outline:
 //   - one block per (128-query tile, bh): warpgroup 0 is the producer (one
 //     thread issues TMA loads, its registers handed to the consumers with
 //     setmaxnreg), warpgroups 1 and 2 each own 64 query rows;
@@ -25,9 +28,10 @@
 //     overlap this tile's math, and one warpgroup's softmax overlaps the
 //     other's products;
 //   - S = Q K^T is a wgmma with both operands in shared memory (K-major,
-//     128- or 64-byte swizzle as TMA writes it); the online softmax runs on
-//     the accumulator registers; P is rounded to bf16 in registers and is the
-//     A operand of the P.V wgmma, whose V operand is read MN-major;
+//     128-, 64- or 32-byte swizzle as TMA writes it); the online softmax
+//     runs on the accumulator registers; P is rounded to bf16 in registers
+//     and is the A operand of the P.V wgmma, whose V operand is read
+//     MN-major;
 //   - within a warpgroup, S of the next tile and P.V of this one run under
 //     this tile's and the next tile's softmax (two logit register sets).
 // exp(x - m) is taken as 2^(x log2(e) - m log2(e)) on the fast exp2 unit.
@@ -52,10 +56,10 @@ __device__ __forceinline__ float ex2(float x) {
 
 template <int D>
 struct Shape {
-  static constexpr int kSw = D >= 64 ? 128 : 64;  // swizzle span, bytes
+  static constexpr int kSw = swizzle_of(D * 2);   // swizzle span, bytes
   static constexpr int kEpr = kSw / 2;            // elements per chunk row
   static constexpr int kChunks = D / kEpr;        // column chunks of a row
-  static constexpr int kLayout = kSw == 128 ? 1 : 2;
+  static constexpr int kLayout = layout_of(kSw);
   static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kKvBytes = kBK * D * 2;    // one K (or V) tile
   static constexpr int kSmem = 1024 + kQBytes + kStages * 2 * kKvBytes + 64;
@@ -273,9 +277,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH,
     const uint32_t box[3] = {(uint32_t)S::kEpr, (uint32_t)(i == 0 ? kBQ : kBK),
                              1};
     if (!make_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptrs[i], dims,
-                  strides, box,
-                  S::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : CU_TENSOR_MAP_SWIZZLE_64B))
+                  strides, box, tma_swizzle(S::kSw)))
       return (int)cudaErrorInvalidValue;
   }
   dim3 grid((Sq + kBQ - 1) / kBQ, BH);
@@ -289,7 +291,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH,
 extern "C" {
 
 // q [BH, Sq, D], k/v [BH, Skv, D] bf16 (16-byte aligned) -> out [BH, Sq, D]
-// in bf16 (out_bf16 = 1) or f32; D = 32, 64 or 128 (returns
+// in bf16 (out_bf16 = 1) or f32; D = 16, 32, 64 or 128 (returns
 // cudaErrorInvalidValue for any other D).
 int dlm_dense_attention(const void* q, const void* k, const void* v, void* out,
                         int out_bf16, int BH, int Sq, int Skv, int D,
@@ -301,6 +303,7 @@ int dlm_dense_attention(const void* q, const void* k, const void* v, void* out,
   if (D == D_)                                                               \
     return out_bf16 ? launch<D_, true>(q, k, v, out, BH, Sq, Skv, sm_scale, st) \
                     : launch<D_, false>(q, k, v, out, BH, Sq, Skv, sm_scale, st);
+  DLM_DENSE_CASE(16)
   DLM_DENSE_CASE(32)
   DLM_DENSE_CASE(64)
   DLM_DENSE_CASE(128)

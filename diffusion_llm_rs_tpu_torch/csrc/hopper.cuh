@@ -80,6 +80,25 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The swizzle span of a tile whose rows are `row_bytes` long: 128 bytes, or
+// the whole row of 64 or 32 bytes; the span's wgmma descriptor layout (see
+// gmma_desc), TMA's name for it, and what the 16-byte units of row r are
+// XORed with (the pattern above).
+__host__ __device__ constexpr int swizzle_of(int row_bytes) {
+  return row_bytes >= 128 ? 128 : row_bytes;
+}
+__host__ __device__ constexpr int layout_of(int sw) {
+  return sw == 128 ? 1 : sw == 64 ? 2 : 3;
+}
+inline CUtensorMapSwizzle tma_swizzle(int sw) {
+  return sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+__host__ __device__ constexpr int swizzle_xor(int r, int sw) {
+  return sw == 128 ? r & 7 : sw == 64 ? (r >> 1) & 3 : (r >> 2) & 1;
+}
+
 // ---------------------------------------------------------------- device
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

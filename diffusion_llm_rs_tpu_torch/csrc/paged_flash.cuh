@@ -84,13 +84,6 @@ struct Args {
   int H, Sq, n_max;
 };
 
-__host__ __device__ constexpr int swizzle_of(int row_bytes) {
-  return row_bytes >= 128 ? 128 : row_bytes;
-}
-__host__ __device__ constexpr int layout_of(int sw) {
-  return sw == 128 ? 1 : sw == 64 ? 2 : 3;
-}
-
 template <bool A8, int D, int PT>
 struct Tile {
   static constexpr int kEb = A8 ? 1 : 2;          // bytes an element
@@ -393,8 +386,7 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
       }
       amax = quad_max(amax);
       const float scale = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
-      const int swz = T::kKSw == 128 ? lr & 7 : T::kKSw == 64 ? (lr >> 1) & 3
-                                                              : (lr >> 2) & 1;
+      const int swz = swizzle_xor(lr, T::kKSw);
       float sum = 0.f;  // integers up to 128 * 127: exact in any order
 #pragma unroll
       for (int ch = 0; ch < T::kDS / 16; ++ch) {
@@ -565,27 +557,24 @@ int launch(const Args& a, int B, const void* k, const void* v,
   if (attr != cudaSuccess) return (int)attr;
   const CUtensorMapDataType type =
       A8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  auto swz = [](int sw) {
-    return sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                     : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                : CU_TENSOR_MAP_SWIZZLE_32B;
-  };
   const uint64_t BH = (uint64_t)B * a.H, n = (uint64_t)a.n_max;
   CUtensorMap maps[2];
   {
     const uint64_t dims[3] = {(uint64_t)D, n * PT, BH};
     const uint64_t strides[2] = {(uint64_t)D * T::kEb, n * PT * D * T::kEb};
     const uint32_t box[3] = {(uint32_t)T::kKEpr, (uint32_t)PT, 1};
-    if (!make_map(&maps[0], type, 3, k, dims, strides, box, swz(T::kKSw)) ||
+    if (!make_map(&maps[0], type, 3, k, dims, strides, box,
+                  tma_swizzle(T::kKSw)) ||
         (!A8 && !make_map(&maps[1], type, 3, v, dims, strides, box,
-                          swz(T::kKSw))))
+                          tma_swizzle(T::kKSw))))
       return (int)cudaErrorInvalidValue;
   }
   if (A8) {
     const uint64_t dims[3] = {(uint64_t)PT, n * D, BH};
     const uint64_t strides[2] = {(uint64_t)PT, n * D * PT};
     const uint32_t box[3] = {(uint32_t)PT, (uint32_t)D, 1};
-    if (!make_map(&maps[1], type, 3, v, dims, strides, box, swz(T::kVSw)))
+    if (!make_map(&maps[1], type, 3, v, dims, strides, box,
+                  tma_swizzle(T::kVSw)))
       return (int)cudaErrorInvalidValue;
   }
   dim3 grid((a.Sq + T::kBQ - 1) / T::kBQ, a.H, B);

@@ -43,8 +43,9 @@
 // tiles of one bh adjacent so that they find its K/V in L2. Warpgroup 2 is
 // the producer: each KV tile's packed bytes are read once a block (at most
 // twice a call at the sampler's S = 256) and unpacked straight into a ring
-// of two stages in shared memory, bf16 K and V level tiles in the 128- or
-// 64-byte swizzled layout that wgmma reads, with the tile's sidecar rows
+// of two stages in shared memory, bf16 K and V level tiles in the 128-, 64-
+// or 32-byte swizzled layout that wgmma reads (rows of D = 16 are 32 bytes:
+// S is one k-step, P.V an m64n16k16), with the tile's sidecar rows
 // (ka', kb, vs, vz) beside them; full and empty mbarriers guard each stage.
 // Warpgroups 0 and 1 are the consumers, 64 query rows each: q is loaded once
 // into a swizzled shared-memory tile, S = q K^T is a wgmma with both
@@ -80,13 +81,13 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The shared-memory layout of an instance: heads of D, tiles of TK tokens.
-// A [rows][D] bf16 tile is stored in chunks of kEpr columns (64, or 32 at
-// D = 32), each chunk [rows][kSw bytes] swizzled as TMA would write it.
+// A [rows][D] bf16 tile is stored in chunks of kEpr columns (64, or all D
+// below 64), each chunk [rows][kSw bytes] swizzled as TMA would write it.
 template <int D, int TK>
 struct Tile {
-  static constexpr int kSw = D >= 64 ? 128 : 64;  // bytes of a chunk row
+  static constexpr int kSw = swizzle_of(D * 2);   // bytes of a chunk row
   static constexpr int kEpr = kSw / 2;            // columns of a chunk
-  static constexpr int kLayout = kSw == 128 ? 1 : 2;
+  static constexpr int kLayout = layout_of(kSw);
   static constexpr int kTileBytes = TK * D * 2;   // a K or V tile
   static constexpr int kQBytes = 64 * D * 2;      // a warpgroup's q
   static constexpr int kSideFloats = 4 * TK;      // ka', kb, vs, vz
@@ -105,9 +106,9 @@ struct Tile {
 // swizzled [ROWS][D] tile.
 template <int D, int ROWS>
 __device__ __forceinline__ int unit_at(int r, int u) {
-  constexpr int kSw = D >= 64 ? 128 : 64, kUnits = kSw / 16;
-  const int swz = kSw == 128 ? r & 7 : (r >> 1) & 3;
-  return (u / kUnits) * ROWS * kSw + r * kSw + (((u % kUnits) ^ swz) << 4);
+  constexpr int kSw = swizzle_of(D * 2), kUnits = kSw / 16;
+  return (u / kUnits) * ROWS * kSw + r * kSw +
+         (((u % kUnits) ^ swizzle_xor(r, kSw)) << 4);
 }
 
 // Bit field p of 4 packed bytes: one level a byte.
@@ -143,6 +144,9 @@ __device__ __forceinline__ uint2 bf16_levels(uint32_t x) {
   }
 }
 
+__device__ __forceinline__ void st_shared(uint8_t* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
 __device__ __forceinline__ void st_shared(uint8_t* p, uint2 v) {
   *reinterpret_cast<uint2*>(p) = v;
 }
@@ -202,12 +206,14 @@ struct PagedArgs {
 // count (valid) and the tokens that hold data (present, >= valid); load()
 // is run by the 128 threads of the producer warpgroup and fills one stage.
 
-// Contiguous rows [BH, Skv, D/vpb], packed along D; tiles of 64 tokens.
+// Contiguous rows [BH, Skv, D/vpb], packed along D; tiles of 64 tokens. A
+// thread reads kCb bytes of a row at once: 8, or the whole row of 4 or 2
+// (D = 32 at 1 bit; D = 16 at 2 and 1 bits), as aligned as the row.
 template <int BITS, int D>
 struct Contig {
   static constexpr int TK = 64;
   static constexpr int kDp = D * BITS / 8;          // bytes a packed row
-  static constexpr int kCb = kDp >= 8 ? 8 : 4;      // bytes a thread reads
+  static constexpr int kCb = kDp >= 8 ? 8 : kDp;    // bytes a thread reads
   static constexpr int kNc = kDp / kCb;             // reads a row
   static constexpr int kReads = TK * kNc;           // reads a tile (of K)
   static constexpr int kPer = (kReads + 127) / 128; // reads a thread
@@ -261,9 +267,12 @@ struct Contig {
           if (kCb == 8) {
             kw[i] = *reinterpret_cast<const uint2*>(kd + at);
             vw[i] = *reinterpret_cast<const uint2*>(vd + at);
-          } else {
+          } else if (kCb == 4) {
             kw[i].x = *reinterpret_cast<const uint32_t*>(kd + at);
             vw[i].x = *reinterpret_cast<const uint32_t*>(vd + at);
+          } else {
+            kw[i].x = *reinterpret_cast<const uint16_t*>(kd + at);
+            vw[i].x = *reinterpret_cast<const uint16_t*>(vd + at);
           }
         }
       }
@@ -274,15 +283,18 @@ struct Contig {
 #pragma unroll
         for (int p = 0; p < 8 / BITS; ++p) {
           const int ch = p * kDp + col;  // the first of kCb channels
-          const int at = unit_at<D, TK>(r, ch >> 3) + ((ch & 4) ? 8 : 0);
+          const int at = unit_at<D, TK>(r, ch >> 3) + (ch & 7) * 2;
           if (kCb == 8) {
             st_shared(Ks + at, bf16_levels<BITS>(field<BITS>(kw[i].x, p)),
                       bf16_levels<BITS>(field<BITS>(kw[i].y, p)));
             st_shared(Vs + at, bf16_levels<BITS>(field<BITS>(vw[i].x, p)),
                       bf16_levels<BITS>(field<BITS>(vw[i].y, p)));
-          } else {
+          } else if (kCb == 4) {
             st_shared(Ks + at, bf16_levels<BITS>(field<BITS>(kw[i].x, p)));
             st_shared(Vs + at, bf16_levels<BITS>(field<BITS>(vw[i].x, p)));
+          } else {
+            st_shared(Ks + at, bf16_levels<BITS>(field<BITS>(kw[i].x, p)).x);
+            st_shared(Vs + at, bf16_levels<BITS>(field<BITS>(vw[i].x, p)).x);
           }
         }
       }
@@ -498,7 +510,8 @@ __global__ void __launch_bounds__(kThreads, Tile<D, L::TK>::kMinBlocks)
   uint8_t* qt = q_tiles + wg * T::kQBytes;
 
   // q rows row0, row0 + 8 (0 past Sq) into the warpgroup's swizzled tile,
-  // each lane of the quad 16 bytes of every fourth unit, and their sums
+  // each lane of the quad 16 bytes of every fourth unit (at D = 16, the two
+  // units of a row go to lanes 0 and 1), and their sums
   float qs[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -506,8 +519,9 @@ __global__ void __launch_bounds__(kThreads, Tile<D, L::TK>::kMinBlocks)
     const __nv_bfloat16* qr = oa.q + ((size_t)bh * Sq + row) * D;
     float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) {
+    for (int i = 0; i < (D / 8 + 3) / 4; ++i) {
       const int u = q4 + 4 * i;
+      if (D % 32 && u >= D / 8) break;
       uint4 w = make_uint4(0u, 0u, 0u, 0u);
       if (row < Sq) w = *reinterpret_cast<const uint4*>(qr + 8 * u);
       const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);

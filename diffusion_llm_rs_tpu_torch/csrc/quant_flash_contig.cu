@@ -7,9 +7,9 @@
 // packed along D, with one f32 scale and zero-point per (bh, token); the
 // packed bytes are never dequantized into device memory. The kernel, its
 // design and its arithmetic are `quant_flash_kernel<Contig<BITS, D>, D>`
-// in csrc/quant_flash.cuh; heads of D = 32, 64 and 128 at 1/2/4/8 bits are
-// its twelve instances. Every Sq >= 1 and Skv >= 1 runs it (the TPU wrapper
-// leaves ragged shapes to XLA).
+// in csrc/quant_flash.cuh; heads of D = 16, 32, 64 and 128 at 1/2/4/8 bits
+// are its sixteen instances. Every Sq >= 1 and Skv >= 1 runs it (the TPU
+// wrapper leaves ragged shapes to XLA).
 //
 // What bounds it on an H100: at the scan sampler's shape (BH = 96, Sq = Skv
 // = 256, D = 64, 4 bits) the call moves about 11 MB (q, packed K and V, four
@@ -18,7 +18,11 @@
 // what a block spends outside its tile loop (launch, q, the first tile's
 // load and unpack, the epilogue), so the design unpacks each KV tile once a
 // 128-query block, not once per 64 queries, and keeps two blocks on an SM
-// at D <= 64: the 192 blocks of both sampler shapes run in one wave.
+// at D <= 64: the 192 blocks of both sampler shapes run in one wave. At
+// heads of 16 this design still takes each logit's exp on the MUFU ex2 unit
+// (16 a clock an SM): at BH = 128, S = 1024 that is 0.032 ms, above the
+// tensor cores' 0.0087 ms, a floor of this design and not of the card (exp2
+// can also run as a polynomial on the FMA pipes).
 
 #include "quant_flash.cuh"
 
@@ -43,10 +47,10 @@ int launch_bits(const ContigArgs& la, const Out& oa, int BH, int bits,
 extern "C" {
 
 // q [BH, Sq, D] bf16 (16-byte aligned); k_data, v_data uint8 [BH, Skv,
-// D * bits / 8] (aligned to 8 bytes, or 4 where a row is 4 bytes); k_scale,
-// k_zp, v_scale, v_zp f32 [BH, Skv]; D = 32, 64 or 128; bits 1, 2, 4 or 8;
-// Sq, Skv >= 1. Writes out f32 [BH, Sq, D]. Returns cudaErrorInvalidValue
-// for a shape it was not built for.
+// D * bits / 8] (aligned to 8 bytes, or to the row where a row is 4 or 2
+// bytes); k_scale, k_zp, v_scale, v_zp f32 [BH, Skv]; D = 16, 32, 64 or 128;
+// bits 1, 2, 4 or 8; Sq, Skv >= 1. Writes out f32 [BH, Sq, D]. Returns
+// cudaErrorInvalidValue for a shape it was not built for.
 int dlm_quant_attention(const void* q, const void* k_data, const void* k_scale,
                         const void* k_zp, const void* v_data,
                         const void* v_scale, const void* v_zp, void* out,
@@ -64,6 +68,7 @@ int dlm_quant_attention(const void* q, const void* k_data, const void* k_scale,
                nullptr, Sq, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch_bits<16>(la, oa, BH, bits, st);
     case 32: return launch_bits<32>(la, oa, BH, bits, st);
     case 64: return launch_bits<64>(la, oa, BH, bits, st);
     case 128: return launch_bits<128>(la, oa, BH, bits, st);

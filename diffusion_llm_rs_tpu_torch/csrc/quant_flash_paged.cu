@@ -51,9 +51,9 @@ extern "C" {
 
 // One sequence: q [BH, Sq, D] bf16 (16-byte aligned); page_table,
 // page_tokens int32 [n_pages] (n_pages >= 1); pools [n_slots, BH, P/vpb, D]
-// and [n_slots, BH, P] (16-byte aligned) with D = 32, 64 or 128 and pages of
-// P = 8, 16, ..., 128 tokens at 1/2/4/8 bits. Writes out f32 [BH, Sq, D] and
-// lse f32 [BH, Sq]. A slot outside the pool traps. Returns
+// and [n_slots, BH, P] (16-byte aligned) with D = 16, 32, 64 or 128 and
+// pages of P = 8, 16, ..., 128 tokens at 1/2/4/8 bits. Writes out f32
+// [BH, Sq, D] and lse f32 [BH, Sq]. A slot outside the pool traps. Returns
 // cudaErrorInvalidValue for a shape it was not built for.
 int dlm_paged_attention(const void* q, const void* page_table,
                         const void* page_tokens, const void* k_data,
@@ -78,6 +78,7 @@ int dlm_paged_attention(const void* q, const void* page_table,
                static_cast<float*>(lse), Sq, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch_bits<16>(la, oa, BH, bits, st);
     case 32: return launch_bits<32>(la, oa, BH, bits, st);
     case 64: return launch_bits<64>(la, oa, BH, bits, st);
     case 128: return launch_bits<128>(la, oa, BH, bits, st);

@@ -36,7 +36,8 @@ from diffusion_llm_rs_tpu_torch.ops import _build
 from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (32, 64, 128)  # the widths the attention kernels are built for
+# the head widths every attention kernel of the port is built for
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_KV_TILE = 64   # tokens per online-softmax step of `csrc/quant_flash_contig.cu`
 KERNEL_BITS = (1, 2, 4, 8)
 
@@ -75,7 +76,7 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense flash attention: q [BH, Sq, D], k/v [BH, Skv, D] -> [BH, Sq, D].
 
     Inputs are cast to bf16, as on the TPU. CPU tensors take the plain twin;
-    CUDA tensors launch the kernel (D = 32, 64 or 128; bf16 or f32 out). No
+    CUDA tensors launch the kernel (D = 16, 32, 64 or 128; bf16 or f32 out). No
     gradient flows through the kernel: `flash_fold` gives one."""
     if q.device.type == "cpu":
         return dense_attention_plain(q, k, v, sm_scale, out_dtype)
@@ -263,8 +264,8 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     folded outside) -> f32 [BH, Sq, D].
 
     CPU tensors take the plain version. CUDA tensors launch the kernel, which
-    serves every Sq and Skv >= 1 at D = 32, 64 and 128 and 1/2/4/8 bits (the
-    TPU wrapper hands shapes off its tiling to an XLA path with other
+    serves every Sq and Skv >= 1 at D = 16, 32, 64 and 128 and 1/2/4/8 bits
+    (the TPU wrapper hands shapes off its tiling to an XLA path with other
     roundings)."""
     if k.bits != v.bits or k.shape != v.shape:
         raise ValueError(f"attention: K {k.shape} at {k.bits} bits, "

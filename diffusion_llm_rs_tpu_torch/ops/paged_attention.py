@@ -7,7 +7,7 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_paged_attention.py`:
 q, the centered K/V levels and the softmax weights folded with the V scale
 all go through the int8 tensor cores), `merge_partials`, `degroup_pool` and
 `degroup_sidecar`. On a CUDA tensor each wrapper launches its kernels (head
-dims 32, 64 and 128, and 16 in the batched ones; pages of any multiple of 8
+dims 16, 32, 64 and 128, `KERNEL_HEAD_DIMS`; pages of any multiple of 8
 tokens up to 128, 1/2/4/8 bits, any head group dividing the heads) and
 raises on anything else; on a CPU tensor it runs its plain twin
 (`*_plain`), which repeats the TPU kernel's arithmetic page by page at the
@@ -21,9 +21,7 @@ each live page of each (slot, head) once into a scratch of the operands the
 attention kernel reads, then `csrc/batched_paged_attention.cu` (bf16) or
 `csrc/paged_attention_a8.cu` (int8) attends over it by TMA and wgmma (the
 design is in `csrc/paged_flash.cuh`). Its twin is the same two stages,
-`paged_unpack_plain` and `batched_paged_attention_unpacked_plain`. The
-batched kernels also take heads of 16 (`KERNEL_HEAD_DIMS`); the
-single-sequence kernel takes 32, 64 and 128 (`SINGLE_HEAD_DIMS`).
+`paged_unpack_plain` and `batched_paged_attention_unpacked_plain`.
 
 The pools keep the JAX layout, so arrays cross between the packages as they
 are:
@@ -43,11 +41,10 @@ from typing import Sequence, Tuple
 import torch
 
 from diffusion_llm_rs_tpu_torch.ops import _build
+from diffusion_llm_rs_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
 from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)    # the batched kernels
-SINGLE_HEAD_DIMS = (32, 64, 128)        # the single-sequence kernel
 KERNEL_PAGE_SIZES = tuple(range(8, 129, 8))
 KERNEL_BITS = (1, 2, 4, 8)
 KERNEL_TILES = (32, 64, 128)
@@ -189,8 +186,7 @@ def paged_attention(q, page_table, k_data, k_scale, k_zp, v_data, v_scale,
         raise ValueError(f"{name}: page table {tuple(page_table.shape)}, "
                          f"tokens {tuple(page_tokens.shape)}")
     Dp, P, pools = _check_pools(name, (page_table, page_tokens), k_data,
-                                k_scale, k_zp, v_data, v_scale, v_zp, bits, 1,
-                                SINGLE_HEAD_DIMS)
+                                k_scale, k_zp, v_data, v_scale, v_zp, bits, 1)
     if k_data.shape[1] != BH or Dp != D:
         raise ValueError(f"{name}: pool {tuple(k_data.shape)} does not hold "
                          f"{BH} heads of {D}")
@@ -490,18 +486,18 @@ def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
 
 
 def _check_pools(name, tables, k_data, k_scale, k_zp, v_data, v_scale, v_zp,
-                 bits, G, head_dims=KERNEL_HEAD_DIMS):
-    """Check the pools a kernel built for `head_dims` takes, and that they
-    lie beside the int `tables`; return (D, P, the pools contiguous)."""
+                 bits, G):
+    """Check the pools the kernels take, and that they lie beside the int
+    `tables`; return (D, P, the pools contiguous)."""
     n_slots, HG, Pp, GD = k_data.shape
     if bits not in KERNEL_BITS:
         raise ValueError(f"{name}: bits {bits}, the kernel takes {KERNEL_BITS}")
     if G < 1 or GD % G:
         raise ValueError(f"{name}: head group {G} does not divide rows of {GD}")
     D, P = GD // G, Pp * (8 // bits)
-    if D not in head_dims:
+    if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D}, the kernel is built for "
-                         f"{head_dims}")
+                         f"{KERNEL_HEAD_DIMS}")
     if P not in KERNEL_PAGE_SIZES:
         raise ValueError(f"{name}: page size {P}, the kernel takes multiples "
                          "of 8 tokens up to 128")

@@ -235,22 +235,22 @@ def test_forward_w4a8_near_jax_cpu_fallback(models):
     assert _rel(teps.numpy(), jeps) < 2e-2
 
 
-def _replayed_sample(jparams, tparams, jcfg, tcfg):
+def _replayed_sample(jparams, tparams, jcfg, tcfg, shape=None, steps=STEPS):
     key = jax.random.PRNGKey(4)
-    shape = (B, S, jcfg.hidden_size)
+    shape = shape or (B, S, jcfg.hidden_size)
     jsched = jd.DiffusionSchedule.create(jcfg.num_timesteps)
     jx = jd.sample(lambda x, t: jdn.denoiser_forward(jparams, jcfg, x, t),
-                   jsched, shape, key, num_steps=STEPS)
+                   jsched, shape, key, num_steps=steps)
     key, init_key = jax.random.split(key)
     x0 = np.array(jax.random.normal(init_key, shape, jnp.float32))
     noises = []
-    for _ in range(STEPS):
+    for _ in range(steps):
         key, sub = jax.random.split(key)
         noises.append(torch.from_numpy(np.array(
             jax.random.normal(sub, shape, jnp.float32))))
     tsched = td.DiffusionSchedule.create(tcfg.num_timesteps, device="cpu")
     tx = td.sample(lambda x, t: tdn.denoiser_forward(tparams, tcfg, x, t),
-                   tsched, shape, num_steps=STEPS, x=torch.from_numpy(x0),
+                   tsched, shape, num_steps=steps, x=torch.from_numpy(x0),
                    noises=noises)
     jtok = np.asarray(jdn.decode_tokens(jparams, jx))
     ttok = tdn.decode_tokens(tparams, tx).numpy()
@@ -277,6 +277,43 @@ def test_sample_and_decode_match_w4a8(models, pallas_on):
     # x is mostly the replayed noise; eps enters scaled by beta/sqrt(1-abar)
     _check_sample(models, "w4a8", 1e-3)
     assert pallas_on and all(pallas_on)
+
+
+def test_long_sample_at_heads_of_16_matches_fp32(monkeypatch):
+    """The slice at `DiffusionConfig.tiny(max_sequence_length=1024)` (width
+    64, 4 heads of 16), B=1, S=1024, 2 steps, fp32: every layer's attention
+    goes through `flash_fold` in both packages, JAX's interpreted
+    `dense_attention` kernel (`use_pallas` patched to True, as on the TPU)
+    and the port's plain version, both over bf16 operands in KV tiles of
+    512. Within the fp32 sampler's 1e-5, tokens equal."""
+    jcfg = jcfg_mod.DiffusionConfig.tiny(max_sequence_length=1024)
+    tcfg = tcfg_mod.diffusion_config_from_json(jcfg_mod.to_json(jcfg))
+    jparams = jdn.init_denoiser_params(jax.random.PRNGKey(2), jcfg)
+    tparams = from_jax_params(_to_numpy(jparams), device="cpu")
+    took, calls = [], []
+    jdense, tdense = jpa.dense_attention, tat.dense_attention_plain
+
+    def jrec(*a, **k):
+        out = jdense(*a, **k)
+        took.append(out is not None and a[0].shape[-1] == 16)
+        return out
+
+    def trec(*a, **k):
+        calls.append(a[0].shape)
+        return tdense(*a, **k)
+    monkeypatch.setattr(jmm, "use_pallas", lambda: True)
+    monkeypatch.setattr(jpa, "dense_attention", jrec)
+    monkeypatch.setattr(tat, "dense_attention_plain", trec)
+    shape = (1, 1024, jcfg.hidden_size)
+    jx, tx, jtok, ttok = _replayed_sample(jparams, tparams, jcfg, tcfg,
+                                          shape, steps=2)
+    assert took and all(took)
+    assert calls == [(4, 1024, 16)] * (2 * jcfg.num_layers)
+    assert np.isfinite(tx).all()
+    rel = _rel(tx, jx)
+    print(f"S=1024 sampler at heads of 16, fp32: x rel {rel:.3g}")
+    assert rel < 1e-5
+    assert ttok.shape == (1, 1024) and (ttok == jtok).mean() >= 0.99
 
 
 # ------------------------------------------------- cached K/V branches

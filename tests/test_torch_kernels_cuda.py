@@ -280,7 +280,7 @@ def test_fused_qkv_attention_returns_none_where_jax_does(gen):
 
 @pytest.mark.parametrize("BH,Sq,Skv", [(3, 64, 64), (2, 100, 1000),
                                        (4, 128, 256), (2, 70, 130)])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_dense_attention_kernel_matches_twin(gen, BH, Sq, Skv, D, out_dtype):
     """bf16 P rounds at other tile boundaries than the twin's (128-wide KV
@@ -437,7 +437,7 @@ def test_batched_paged_attention_long_tables(gen, act_bits, P, D, G):
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("P", PAGES)
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_paged_attention_kernel_matches_twin(gen, bits, P, D):
     BH, Sq = 4, 70
     pools = _pools(gen, 5, BH, P, D, bits, 1)
@@ -455,7 +455,7 @@ def test_paged_attention_kernel_matches_twin(gen, bits, P, D):
 
 
 @pytest.mark.parametrize("P", PAGES)
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_paged_attention_kernel_masked_pages(gen, P, D):
     """Pages with no valid token (the first, and one in the middle), a
     partial page and slots in mixed order; and a chain whose every page is
@@ -497,12 +497,10 @@ def test_paged_kernels_refuse_what_they_do_not_take(gen):
         pa.batched_paged_attention(q48, pt, pt, npg, *pools48, bits=4)
     with pytest.raises(ValueError, match="empty page table"):
         pa.paged_attention(q[0], pt[0, :0], *pools, bits=4)
-    # heads of 16: the batched kernels only; the single-sequence kernel of
-    # the quantized-KV design refuses them (ROADMAP C38)
-    pools16 = _pools(gen, 2, 2, 64, 16, 4, 1)
+    # heads of 48: no attention kernel is built for them (ROADMAP C39)
     with pytest.raises(ValueError, match="head dim"):
-        pa.paged_attention(torch.randn((2, 8, 16), device="cuda"), pt[0],
-                           *pools16, bits=4)
+        pa.paged_attention(torch.randn((2, 8, 48), device="cuda"), pt[0],
+                           *pools48, bits=4)
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -600,7 +598,7 @@ def test_batched_paged_attention_a8_one_bit_runs_the_bf16_kernel(gen):
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("Sq,Skv", [(64, 64), (256, 256), (100, 100), (10, 10),
                                     (1, 1), (70, 1000)])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_quant_attention_kernel_matches_plain(gen, bits, Sq, Skv, D):
     """Every Sq and Skv runs the kernel (ragged q and KV tiles masked).
     Against the plain version at the kernel's KV tile: sums in another order
@@ -624,7 +622,7 @@ def test_quant_attention_kernel_matches_plain(gen, bits, Sq, Skv, D):
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("BH,S", [(96, 256), (24, 1024)])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_quant_attention_kernel_at_sampler_shapes(gen, bits, BH, S, D):
     """The scan sampler's shapes (B=8 x 12 heads at S=256, B=2 x 12 at
     S=1024) at every head width and bit width, against the plain version at
@@ -755,7 +753,7 @@ def test_packed_matmul_kernel_at_engine_shapes(gen, M, N, K, mlp, bits):
     assert torch.equal(out, again)  # no atomics: the same bits every call
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [16, 32, 64])
 def test_flash_fold_gradient_matches_the_einsum_path(gen, D):
     """`flash_fold` (the kernel forward, JAX's f32 VJP) against autograd
     through the einsum path at S = 1024, both in f32: the forward differs by

@@ -227,6 +227,34 @@ def test_single_twin_matches_jax_fallback(bits):
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_single_twin_at_heads_of_16_matches_jax(bits):
+    """`DiffusionConfig.tiny()`'s heads of 16 over pages of 8 (scattered,
+    the last one partial): JAX's `paged_attention` takes its fall-back there
+    (D % 128 != 0), which rounds the dequantized K and V to bf16 where the
+    twin keeps bf16 q over exact levels (ROADMAP C9). Within C9's 2e-2
+    relative, and the lse within 2e-2, as at heads of 32 (measured: output
+    3.3e-3 to 4.2e-3, lse 2.9e-3 to 5.5e-3)."""
+    BH, Sq, D, P = 4, 10, 16, 8
+    rng = np.random.default_rng(40 + bits)
+    pools = _grouped_pools(rng, BH, 4 * P, D, P, 1, bits)
+    q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
+    pt = np.array([3, 0, 2], np.int32)
+    nt = np.array([P, P, 5], np.int32)
+    jout, jlse = jppa.paged_attention(*_j(q, pt, *pools), bits=bits,
+                                      page_tokens=jnp.asarray(nt),
+                                      return_lse=True)
+    tout, tlse = tpa.paged_attention(*_t(q, pt, *pools), bits=bits,
+                                     page_tokens=torch.from_numpy(nt),
+                                     return_lse=True)
+    print(f"single twin vs JAX at heads of 16, {bits}-bit: rel "
+          f"{_rel(tout, jout):.3g}, lse {_lse_err(tlse, jlse):.3g}")
+    assert tout.shape == (BH, Sq, D)
+    assert _rel(tout, jout) < 2e-2
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=2e-2,
+                               atol=2e-2)
+
+
 def test_degroup_matches_jax():
     rng = np.random.default_rng(3)
     data = rng.integers(0, 256, size=(3, 2, 16, 128)).astype(np.uint8)

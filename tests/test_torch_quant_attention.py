@@ -121,13 +121,14 @@ def test_plain_matches_jax_kernel(bits, Skv):
     assert rel < 1e-4
 
 
-@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("D", [16, 32, 128])
 @pytest.mark.parametrize("bits", [8, 4, 2, 1])
 def test_plain_matches_jax_at_other_head_widths(bits, D):
-    """Heads of 32 (the shipped anchor's) and 128, BH=4, Sq=16, Skv=128.
-    JAX runs its interpreted kernel where a packed row splits into whole
-    8-channel blocks (D % (8 * vpb) == 0): within 1e-4 relative, as at D=64.
-    At D=32 and 1 bit it takes `_attention_fallback`: within its 2e-2."""
+    """Heads of 16 (`DiffusionConfig.tiny()`'s), 32 (the shipped anchor's)
+    and 128, BH=4, Sq=16, Skv=128. JAX runs its interpreted kernel where a
+    packed row splits into whole 8-channel blocks (D % (8 * vpb) == 0):
+    within 1e-4 relative, as at D=64. At D=32 and 1 bit, and at D=16 and 2
+    or 1 bits, it takes `_attention_fallback`: within its 2e-2."""
     rng = np.random.default_rng(90 + bits + D)
     BH, Sq, Skv = 4, 16, 128
     q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
@@ -169,14 +170,15 @@ def test_plain_tile_of_the_cuda_kernel(bits):
     assert _rel(t64, t256) < 5e-3 and _rel(t64, jout) < 5e-3
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("bits", [8, 4, 2, 1])
 def test_plain_at_the_kernel_tile_matches_jax(bits, D):
     """`attention_plain` at the CUDA kernel's KV tile (64 tokens) against
     JAX, BH=2, Sq=16, Skv=256: JAX's interpreted kernel steps 256 tokens at
     a time, so the tiles differ (ROADMAP C19): within 5e-3 relative. Where
-    a packed row does not split into whole 8-channel blocks (D=32, 1 bit)
-    JAX takes `_attention_fallback`: within its 2e-2."""
+    a packed row does not split into whole 8-channel blocks (D=32 at 1 bit,
+    D=16 at 2 and 1 bits) JAX takes `_attention_fallback`: within its
+    2e-2."""
     rng = np.random.default_rng(70 + bits + D)
     BH, Sq, Skv = 2, 16, 256
     q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
