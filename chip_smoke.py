@@ -44,7 +44,15 @@ Phases (any failure makes the script exit non-zero without the final line):
                 that takes every exp on the MUFU ex2 unit, one exp a logit
                 at 16 a clock an SM and `nvidia-smi clocks.max.sm`: a floor
                 of these kernels, not of the card, and not in the kernels
-                line).
+                line). The attention kernels also at the widths of phase
+                heads_wide, timed: dense attention at heads of 48 and 96
+                (BH=48, beside 128) and 256 (BH=24), S=1024;
+                quant_attention at heads of 48 and 96 (BH=48, beside 128)
+                and 256 (BH=24), S=256; paged_attention at heads of 48
+                (BH=12), 96 and 128 (BH=6) and 256 (BH=3); both batched
+                paged kernels at heads_wide's serving shape (B=2, Sq=2048,
+                16 pages of 128, 4-bit) with 16 heads of 48 in groups of 8,
+                8 of 96, 8 of 128 and 3 of 256.
   4. sampler  - the W4A8 sampler at full width (12 layers, 768 wide, 12 heads,
                 vocab 50257; random weights from a seed, quantized in the
                 port): B=8, S=256, 32 steps, bf16 activations, timed 5 times
@@ -129,7 +137,14 @@ Phases (any failure makes the script exit non-zero without the final line):
                 paged_attention, the S=1024 one-shot sampler and a
                 `p_losses` gradient through dense_attention; exact launch
                 counts; scan_check, cache_attend, long_seq and train_grad
-                themselves, run at tiny's widths with their bounds)
+                themselves, run at tiny's widths with their bounds),
+                heads_wide (every attention path at full width, W4A8, with
+                8 heads of 96 and with 3 heads of 256: the S=1024 sampler,
+                `Engine.sample(use_paged=False)` over the engine's packed
+                model of the config, the paged batcher at S=2048 with bf16
+                and int8 attention, `PagedKVCache.attend`; exact launch
+                counts, token ranges, card vs CPU within heads16's bounds,
+                each replaying path against eager bit for bit)
                 and engine_check (one packed forward on the card against
                 the plain versions on the CPU, act16 and a8); engine_gptq (the anchor quantized by
                 GPTQ on the card and on the CPU from the same draws: grids
@@ -177,11 +192,12 @@ Phases (any failure makes the script exit non-zero without the final line):
     python3 chip_smoke.py --parent DIR
 
 also times the attention kernels (`quant_attention`, `dense_attention`,
-`paged_attention` at the head widths 32, 64 and 128, `PARENT_SHAPES`) of
-the checkout unpacked in DIR (the parent commit, `git archive`) and of this
-one, each built and timed by its own chip_smoke.py in a process of its own
-(parent, this, this, parent); the runs line carries them as
-`parent_kernels`.
+`paged_attention` at the head widths 16, 32, 64 and 128; `paged_unpack` in
+both layouts and each batched paged kernel alone at serve_paged's pools,
+heads of 16 to 128; `PARENT_SHAPES`) of the checkout unpacked in DIR (the
+parent commit, `git archive`) and of this one, each built and timed by its
+own chip_smoke.py in a process of its own (parent, this, this, parent);
+the runs line carries them as `parent_kernels`.
 """
 
 from __future__ import annotations
@@ -496,7 +512,10 @@ def kernels():
     # anchor-width training step's f32 out at heads of 32 (phase train_grad).
     # Heads of 16 (`DiffusionConfig.tiny()`, phase heads16): its S=1024
     # sampler's f32 out at B=2 x 4 heads, S=32 at the same BH, and BH=128
-    # at S=1024, which fills the card, timed.
+    # at S=1024, which fills the card, timed. The widths between and past
+    # the instances of 16-128 (`heads_wide`): heads of 48 and 96 at the work
+    # of heads of 128 (BH=48), run padded in the instances of 64 and 128,
+    # and heads of 256 at BH=24, timed.
     # bf16 P: the kernel's 128-wide KV tiles rescale at other points than the
     # twin's 512-wide ones, so bf16(p) may round differently: |d| <= 1e-2 and
     # rel Frobenius <= 1e-2
@@ -504,7 +523,8 @@ def kernels():
             (96, 1024, 64, bf16, True), (192, 1024, 32, bf16, True),
             (48, 1024, 128, bf16, True), (16, 1024, 32, f32, False),
             (8, 1024, 16, f32, True), (8, 32, 16, bf16, True),
-            (128, 1024, 16, bf16, True)):
+            (128, 1024, 16, bf16, True), (48, 1024, 48, bf16, True),
+            (48, 1024, 96, bf16, True), (24, 1024, 256, bf16, True)):
         q, k, v = (torch.randn((BH, S, Dh), generator=gen, device="cuda")
                    .to(bf16) for _ in range(3))
         out = dense_attention(q, k, v, out_dtype=dtype)
@@ -821,6 +841,14 @@ def _paged_kernels(gen, results, bad):
     # G = 1): 2 slots of S = 16 in pages of 8
     cases += [(f"serving example, heads of 16, {bits}-bit", bits, 2, 16, 8,
                ([2, 2], [8, 8]), bits == 4, (4, 1, 16)) for bits in (8, 4, 2)]
+    # the serving shape of `heads_wide` (B=2, Sq=2048, 16 pages of 128 a
+    # slot, 4-bit): heads of 96 and of 128 (8 heads, the same instance),
+    # heads of 256 (its 3 heads), and the 16 heads of 48 of width 768 in
+    # groups of 8 (rows of 384 lanes, where JAX's kernel runs), timed
+    cases += [(f"heads of {D} in groups of {G}, S=2048 4-bit", 4, 2, 2048,
+               128, ([16, 16], [128, 128]), True, (H, G, D))
+              for H, G, D in ((16, 8, 48), (8, 1, 96), (8, 1, 128),
+                              (3, 1, 256))]
     for label, bits, B, sq, P, (npages, last), timed, (H, G, D) in cases:
         pools = _quantized_pools(gen, B * n, H, P, D, G, bits)
         q = torch.randn((B, H, sq, D), generator=gen, device="cuda").to(
@@ -862,7 +890,8 @@ def _paged_kernels(gen, results, bad):
             f"{lse_err:.3g} {'ok' if ok else 'MISMATCH'}"
             + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
                f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
-               f"({row['bound_by']})" if "ms" in row else ""))
+               f"({row['bound_by']}); MUFU ex2 floor "
+               f"{mufu_floor_ms(H * sq * keys):.4f}" if "ms" in row else ""))
         if not ok:
             bad.append(f"batched_paged_attention {label}")
         _unpack_case(pa, label, row["shape"], args, npages, bits, G, timed,
@@ -908,7 +937,8 @@ def _paged_kernels(gen, results, bad):
             f"{lse16:.3g} {'ok' if ok8 else 'MISMATCH'}"
             + (f"; {row8['ms']:.4f} ms, plain {row8['plain_ms']:.4f}, library "
                f"{row8['library_ms']:.4f}, bound {row8['bound_ms']:.4f} "
-               f"({row8['bound_by']})" if "ms" in row8 else ""))
+               f"({row8['bound_by']}); MUFU ex2 floor "
+               f"{mufu_floor_ms(H * sq * keys):.4f}" if "ms" in row8 else ""))
         if not ok8:
             bad.append(f"batched_paged_attention_a8 {label}")
 
@@ -958,9 +988,13 @@ def _paged_kernels(gen, results, bad):
 # one layer of `PagedKVCache.attend` at the sampler's widths (timed first:
 # the kernels line's times); `DiffusionConfig.tiny()`'s 2 layers x 4 heads
 # of 16, Sq=64 over 8 pages of 8 (phase heads16's `cache_attend`, there at
-# three widths); and heads of 16 at Sq=1024 over 8 pages of 128
+# three widths); heads of 16 at Sq=1024 over 8 pages of 128; and the
+# widths of `heads_wide`: heads of 48 at the sampler's work (BH=12),
+# heads of 96 beside heads of 128 at BH=6, heads of 256 at BH=3
 PAGED_CASES = ((12, 1024, 8, 4, 128, 64), (8, 64, 8, 4, 8, 16),
-               (4, 1024, 8, 4, 128, 16))
+               (4, 1024, 8, 4, 128, 16), (12, 1024, 8, 4, 128, 48),
+               (6, 1024, 8, 4, 128, 96), (6, 1024, 8, 4, 128, 128),
+               (3, 1024, 8, 4, 128, 256))
 
 
 def _paged_label(label, BH, Sq, n, bits, P, D):
@@ -978,7 +1012,7 @@ QA_CASES = (
     # the anchor's `sample(seq_len=10)`: B=4 x 8 heads of 32
     ("anchor seq_len=10, 8-bit", 32, 10, 10, 8, False, 32),
     ("heads of 32, 1-bit", 32, 100, 100, 1, False, 32),
-    ("heads of 128, 4-bit", 48, 256, 256, 4, False, 128),
+    ("heads of 128, 4-bit", 48, 256, 256, 4, True, 128),
     # `DiffusionConfig.tiny()`'s 4 heads of 16 (phase heads16):
     # `sample(seq_len=10)` at B=1, `sample(seq_len=32, use_paged=False)` at
     # B=2, then BH=128 at S=1024, which fills the card; every bit width
@@ -986,7 +1020,17 @@ QA_CASES = (
     ("tiny seq_len=32, heads of 16, 4-bit", 8, 32, 32, 4, True, 16),
     ("heads of 16, S=1024 4-bit", 128, 1024, 1024, 4, True, 16),
     ("heads of 16, 2-bit", 8, 32, 32, 2, False, 16),
-    ("heads of 16, ragged 1-bit", 8, 100, 100, 1, False, 16))
+    ("heads of 16, ragged 1-bit", 8, 100, 100, 1, False, 16),
+    # the widths of `heads_wide`: heads of 48 and 96 at the work of heads of
+    # 128 above (BH=48), run padded in the instances of 64 and 128; heads of
+    # 256 at its model's scan-sampler shape (B=8 x 3 heads); ragged and the
+    # other bit widths untimed
+    ("heads of 48, 4-bit", 48, 256, 256, 4, True, 48),
+    ("heads of 96, 4-bit", 48, 256, 256, 4, True, 96),
+    ("heads of 256, 4-bit", 24, 256, 256, 4, True, 256),
+    ("heads of 96, ragged 1-bit", 16, 100, 100, 1, False, 96),
+    ("heads of 96, 8-bit", 64, 256, 256, 8, False, 96),
+    ("heads of 256, ragged 2-bit", 6, 100, 100, 2, False, 256))
 
 
 def _qa_label(label, BH, Sq, Skv, bits, D):
@@ -1208,10 +1252,11 @@ def _packed_kernels(gen, results, bad):
         bad.append("quantize_fp8")
 
 
-def full_width_model(max_seq):
-    """12L/768d/12-head/vocab-50257 model from a seeded generator, quantized
-    in the port: int4 symmetric g128 -> prepare(act_bits=8) -> decode_to_int8;
-    remaining f32 leaves (biases, norms, positions) in bf16."""
+def full_width_model(max_seq, heads=12):
+    """12L/768d/vocab-50257 model of `heads` heads (12 of 64 by default) from
+    a seeded generator, quantized in the port: int4 symmetric g128 ->
+    prepare(act_bits=8) -> decode_to_int8; remaining f32 leaves (biases,
+    norms, positions) in bf16."""
     from diffusion_llm_rs_tpu_torch.config import DiffusionConfig
     from diffusion_llm_rs_tpu_torch.models import denoiser as dn
     from diffusion_llm_rs_tpu_torch.ops.int8_matmul import prepare
@@ -1219,7 +1264,7 @@ def full_width_model(max_seq):
     from diffusion_llm_rs_tpu_torch.quant.core import QuantizedTensor, quantize_tree
 
     cfg = DiffusionConfig(num_timesteps=1000, hidden_size=768, num_layers=12,
-                          num_attention_heads=12, vocab_size=50257,
+                          num_attention_heads=heads, vocab_size=50257,
                           max_sequence_length=max_seq, dtype="bfloat16")
     params = dn.init_denoiser_params(
         torch.Generator(device="cuda").manual_seed(0), cfg)
@@ -1881,6 +1926,166 @@ def heads16():
     for run in out.values():
         for k, n in run["counts"].items():
             total[k] = total.get(k, 0) + n
+    out["counts"] = total
+    return out
+
+
+WIDE_HEADS = (8, 3)  # heads of 96 and of 256 at width 768
+
+
+def heads_wide():
+    """Every attention path at the repo's headline width (12 layers, width
+    768, vocab 50257, W4A8 decoded weights from seed 0, as `sampler` builds
+    them) with heads between and at the widest of the kernels' instances:
+    `DiffusionConfig(num_attention_heads=8)`, 8 heads of 96 (run in the
+    instances of 128, zero past 96), and `num_attention_heads=3`, 3 heads of
+    256 (where JAX runs a Pallas kernel at every call site). On each model,
+    through the entry points a user calls, each call's launch counts reset
+    just before it and checked exactly after it:
+      - `sample` at B=2, S=1024, 2 steps: dense_attention, L a step;
+      - `Engine(config=...)`, `quantize_weights(4)`, `sample(batch_size=8,
+        seq_len=256, num_steps=8, use_paged=False)`: the scan sampler over
+        the engine's packed model of the same config, quant_attention at 8,
+        4 and 2 bits, L a step after the bootstrap;
+      - `PagedContinuousBatcher` at S=2048, pages of 128, 4-bit KV, 2 slots,
+        4 requests of 2 steps, with bf16 and with int8 attention
+        (`attn_act_bits=8`): paged_unpack and the batched paged kernel, L a
+        step;
+      - `PagedKVCache.attend` (`cache_attend`, 1024 tokens in pages of 64
+        at 8/4/2 bits): paged_attention, one a width;
+    token ids in range; card against the plain versions on the CPU within
+    heads16's bounds (one forward at B=1, S=1024 through the dense kernel,
+    eps within 2e-2; `scan_check` at B=1, S=128; `_step_vs_cpu` for both
+    paged kernels; `cache_attend`'s 1e-2); and each replaying path, run
+    again with its draws, replayed against eager bit for bit
+    (`_eager_vs_replayed` over `_graph_paths` at this phase's sizes, each
+    warmed by the same work before it is timed: the one-shot and the scan
+    sampler at B=2 x 1024, 8 steps each; serve_paged and serve_paged_a8, 4
+    requests of S=2048 and 4 steps after one alike)."""
+    from diffusion_llm_rs_tpu_torch.engine import Engine
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+    from diffusion_llm_rs_tpu_torch.models.diffusion import (
+        DiffusionSchedule, sample)
+    from diffusion_llm_rs_tpu_torch.serving import PagedContinuousBatcher
+
+    out, total = {}, {}
+    for heads in WIDE_HEADS:
+        t0 = time.perf_counter()
+        cfg, params = full_width_model(max_seq=2048, heads=heads)
+        L, hd = cfg.num_layers, cfg.hidden_size // heads
+        MODEL.update(cfg=cfg, params=params)  # `_serve_cfg`, `_step_vs_cpu`
+        log(f"  {heads} heads of {hd}: model built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        schedule = DiffusionSchedule.create(cfg.num_timesteps, device="cuda")
+        runs = {}
+
+        def call(name, fn, want):
+            res, wall, counts = _timed_part(fn)
+            _expect(f"heads_wide {hd} {name}", counts, want)
+            log(f"  heads of {hd}, {name}: {wall:.3f} s, launches {counts}")
+            runs[name] = dict(wall_s=wall, counts=counts)
+            return res
+
+        def in_range(name, tokens, shape):
+            if tuple(tokens.shape) != shape or int(tokens.min()) < 0 or \
+                    int(tokens.max()) >= cfg.vocab_size:
+                raise AssertionError(f"heads of {hd}, {name}: token ids "
+                                     f"{tuple(tokens.shape)} out of range")
+
+        # the one-shot sampler at S = 1024: dense_attention
+        _, model_fn = _sampler(cfg, params, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = call("sample B=2 S=1024", lambda: sample(
+            model_fn, schedule, (2, 1024, cfg.hidden_size), gen, num_steps=2),
+            _expected_launches(cfg, 2, long_seq=True))
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"heads of {hd}: sample is not finite")
+        in_range("sample", dn.decode_tokens(params, x), (2, 1024))
+        xb = torch.randn((1, 1024, cfg.hidden_size), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        t = torch.full((1,), 500, device="cuda")
+        e_card = call("forward B=1 S=1024", lambda: dn.denoiser_forward(
+            params, cfg, xb, t), {"dense_attention": L}).float().cpu()
+        c0 = time.perf_counter()
+        e_cpu = dn.denoiser_forward(_to(params, "cpu"), cfg, xb.cpu(),
+                                    t.cpu()).float()
+        rel = float((e_card - e_cpu).norm() / e_cpu.norm())
+        log(f"  heads of {hd}: eps card vs CPU at S=1024 rel {rel:.3g} "
+            f"(bound 2e-2; CPU {time.perf_counter() - c0:.1f} s)")
+        if not rel <= 2e-2:
+            raise AssertionError(f"heads of {hd}: the S=1024 forward "
+                                 f"disagrees with the CPU")
+        runs["eps_rel_err_s1024"] = rel
+
+        # the scan sampler through the engine, over the engine's own model of
+        # this config packed by `quantize_weights(4)` as a user packs it (its
+        # f32 activations would reach the W4A8 kernels with an f32 residual,
+        # which they refuse: ROADMAP C42): quant_attention
+        eng = Engine(config=cfg, seed=0, device="cuda")
+        eng.quantize_weights(4)
+        tokens = call("Engine.sample(use_paged=False) B=8 S=256", lambda:
+                      eng.sample(batch_size=8, seq_len=256, num_steps=8,
+                                 use_paged=False, return_text=False),
+                      {"matmul": _matmuls_per_forward(L) * 8,
+                       "quant_attention": L * 7, "dense_attention": 0,
+                       "int8w_matmul": 0})
+        in_range("Engine.sample", tokens, (8, 256))
+        del eng
+        runs["scan_check"] = scan_check(cfg, params, (1, 128), seed=73)
+
+        # paged serving, bf16 and int8 attention
+        c4 = _serve_cfg(prefill_bits=4, decode_bits=4,
+                        progressive_precision=False)
+
+        def batcher(act_bits):
+            b = PagedContinuousBatcher(
+                params, c4, num_slots=2, seq_len=2048, page_size=128,
+                attend_mode="auto", keep_embeddings=False,
+                attn_act_bits=act_bits, seed=41)
+            if b.attend_mode != "paged" or b.buckets != (4,):
+                raise AssertionError(f"mode {b.attend_mode}, buckets "
+                                     f"{b.buckets}")
+            return b
+
+        for act_bits, kernel in ((16, "batched_paged_attention"),
+                                 (8, "batched_paged_attention_a8")):
+            name = f"serve S=2048 act {act_bits}"
+            run = _serve(f"heads_wide {hd} {name}", batcher(act_bits),
+                         [(f"r{i}", 2048, 2) for i in range(4)])
+            other = ({"batched_paged_attention", "batched_paged_attention_a8"}
+                     - {kernel}).pop()
+            _expect(f"heads_wide {hd} {name}", run["counts"], {
+                kernel: L * run["steps"], other: 0,
+                "paged_unpack": L * run["steps"], "dense_attention": 0})
+            runs[name] = run
+            runs[f"step_check act {act_bits}"] = _step_vs_cpu(act_bits, kernel)
+
+        # PagedKVCache.attend: paged_attention
+        runs["cache_attend"] = cache_attend(BH=heads, S=1024, D=hd, page=64,
+                                            seed=39)
+
+        # each replaying path again, eager and replayed, bit for bit, as
+        # the `graphs` phase runs them (warmed, then timed)
+        paths = _graph_paths(cfg, params, shape=(2, 1024), steps=8,
+                             serve_len=2048, serve_steps=4)
+        for name, path in (("sample", "sampler"),
+                           ("scan_sampler", "scan_sampler"),
+                           ("serve act 16", "serve_paged"),
+                           ("serve act 8", "serve_paged_a8")):
+            runs[f"replayed {name}"] = _eager_vs_replayed(
+                f"heads of {hd} {name}", paths[path])
+        for name, r in runs.items():
+            if name.startswith("replayed"):
+                continue  # the same calls again
+            for k, n in ((r.get("counts") or {}) if isinstance(r, dict)
+                         else {}).items():
+                total[k] = total.get(k, 0) + n
+        out[f"heads of {hd}"] = runs
+        MODEL.pop("cfg")
+        MODEL.pop("params")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     out["counts"] = total
     return out
 
@@ -2993,11 +3198,15 @@ def _run_busy(call, steps):
                 busy_share=busy_ms / (wall * 1e3) if rows else None)
 
 
-def _graph_paths(cfg, params):
+def _graph_paths(cfg, params, shape=(8, 256), steps=32, serve_len=4096,
+                 serve_steps=8):
     """The paths the `graphs` phase runs both ways: name -> run(), where
     run() builds the path afresh, warms it with the same work as the timed
     part (a replayed path captures its keys there), then times it; returns
-    (outputs on the host, steps timed, wall s, launch counts, busy)."""
+    (outputs on the host, steps timed, wall s, launch counts, busy). The
+    samplers run `steps` steps at `shape` (B, S); serve_paged(_a8) 4
+    requests of `serve_len` tokens and `serve_steps` steps (`heads_wide`
+    runs them at its own sizes)."""
     from diffusion_llm_rs_tpu_torch.models.diffusion import (
         DiffusionSchedule, sample)
     from diffusion_llm_rs_tpu_torch.models.sampler import phase_aware_sample
@@ -3006,31 +3215,31 @@ def _graph_paths(cfg, params):
     from diffusion_llm_rs_tpu_torch.utils.metrics import metrics
 
     schedule = DiffusionSchedule.create(cfg.num_timesteps, device="cuda")
-    B, S, D = 8, 256, cfg.hidden_size
+    (B, S), D = shape, cfg.hidden_size
 
     def gen(seed):
         return torch.Generator(device="cuda").manual_seed(seed)
 
     def one_shot():
         _, model_fn = _sampler(cfg, params, "cuda")
-        sample(model_fn, schedule, (B, S, D), gen(7), num_steps=32)
+        sample(model_fn, schedule, (B, S, D), gen(7), num_steps=steps)
         x, wall, counts = _timed_part(lambda: sample(
-            model_fn, schedule, (B, S, D), gen(8), num_steps=32))
+            model_fn, schedule, (B, S, D), gen(8), num_steps=steps))
         busy = _run_busy(lambda: sample(model_fn, schedule, (B, S, D), gen(9),
                                         num_steps=8), 8)
-        return dict(x=x.cpu()), 32, wall, counts, busy
+        return dict(x=x.cpu()), steps, wall, counts, busy
 
     def scan():
         fwd = _logged_forward()
 
-        def run(seed, n=32):
+        def run(seed, n=steps):
             return phase_aware_sample(params, cfg, schedule, (B, S),
                                       GeneratorNoise(seed, "cuda"), n,
                                       forward_fn=fwd)
         run(61)
         x, wall, counts = _timed_part(lambda: run(62))
         busy = _run_busy(lambda: run(63, 8), 8)
-        return dict(x=x.cpu()), 32, wall, counts, busy
+        return dict(x=x.cpu()), steps, wall, counts, busy
 
     def serve(make, warm, reqs, seq_len):
         def run():
@@ -3050,15 +3259,15 @@ def _graph_paths(cfg, params):
         return run
 
     def paged(**kw):
-        base = dict(num_slots=2, seq_len=4096, page_size=128,
+        base = dict(num_slots=2, seq_len=serve_len, page_size=128,
                     attend_mode="auto", salience_routing=True,
                     hbm_budget_bytes=2 << 30, keep_embeddings=False, seed=41)
         base.update(kw)
         c4 = _serve_cfg(prefill_bits=4, decode_bits=4,
                         progressive_precision=False)
-        reqs = [(f"r{i}", 4096, 8) for i in range(4)]
+        reqs = [(f"r{i}", serve_len, serve_steps) for i in range(4)]
         return serve(lambda: PagedContinuousBatcher(params, c4, **base),
-                     [("warm", 4096, 8)], reqs, 4096)
+                     [("warm", serve_len, serve_steps)], reqs, serve_len)
 
     phase_reqs = [(f"p{i}", 2048, 16 if i % 2 == 0 else 6) for i in range(8)]
     return {
@@ -3616,27 +3825,45 @@ KERNELS = {
 
 
 # kernels whose wrapper also launches kernels of another source: matmul_a8
-# unpacks in packed_gemm.cu, then quantizes and multiplies in int8_gemm.cu
-ALSO_BUILT_FROM = {"matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",)}
+# unpacks in packed_gemm.cu, then quantizes and multiplies in int8_gemm.cu;
+# quant_attention and paged_attention run heads of widths between their
+# instances' from a padded source
+ALSO_BUILT_FROM = {
+    "matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",),
+    # the heads between the instances' widths, from sources of their own
+    "quant_attention": (
+        "diffusion_llm_rs_tpu_torch/csrc/quant_flash_contig_padded.cu",),
+    "paged_attention": (
+        "diffusion_llm_rs_tpu_torch/csrc/quant_flash_paged_padded.cu",)}
 
 
 # Run in a checkout (cwd), this one or an earlier commit's: the attention
-# kernels of the quantized-KV design (`quant_attention`, `paged_attention`)
-# and `dense_attention`, built by that checkout and timed by its own
-# chip_smoke.py at the head widths the parent served (PARENT_SHAPES);
+# kernels of the quantized-KV design (`quant_attention`, `paged_attention`),
+# `dense_attention`, and the batched paged design (`paged_unpack` in both
+# layouts, then the bf16 and the int8 attention kernel alone on that
+# scratch), built by that checkout and timed by its own chip_smoke.py at the
+# head widths the parent served (PARENT_SHAPES: 16, 32, 64 and 128, at the
+# full-width model's heads, the batched kernels at serve_paged's pools);
 # prints one JSON line of {kernel shape: ms}.
 PARENT_SHAPES = dict(
     quant_attention=[(96, 256, 64, 4), (96, 256, 64, 8), (96, 256, 64, 2),
-                     (24, 1024, 64, 4), (192, 256, 32, 4), (48, 256, 128, 4)],
-    dense_attention=[(96, 1024, 64), (192, 1024, 32), (48, 1024, 128)],
-    paged_attention=[(12, 1024, 64), (24, 1024, 32), (6, 1024, 128)])
+                     (24, 1024, 64, 4), (192, 256, 32, 4), (48, 256, 128, 4),
+                     (384, 256, 16, 4)],
+    dense_attention=[(96, 1024, 64), (192, 1024, 32), (48, 1024, 128),
+                     (384, 1024, 16)],
+    paged_attention=[(12, 1024, 64), (24, 1024, 32), (6, 1024, 128),
+                     (48, 1024, 16)],
+    # B, H, G, D: 32 pages of 128 a slot, 4-bit, Sq = 4096
+    batched=[(2, 12, 2, 64), (2, 24, 4, 32), (2, 6, 1, 128), (2, 48, 8, 16)])
 PARENT_CODE = """
 import json, torch, chip_smoke as c
 from diffusion_llm_rs_tpu_torch.ops import _build
 from diffusion_llm_rs_tpu_torch.ops import attention as qa
 from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
 c.device()
-_build.build(("dense_attention", "quant_flash_contig", "quant_flash_paged"))
+_build.build(("dense_attention", "quant_flash_contig", "quant_flash_paged",
+              "paged_unpack", "batched_paged_attention",
+              "paged_attention_a8"))
 gen = torch.Generator(device="cuda").manual_seed(99)
 ms = {}
 for BH, S, D, bits in SHAPES["quant_attention"]:
@@ -3654,8 +3881,32 @@ for BH, Sq, D in SHAPES["paged_attention"]:
     pools = c._quantized_pools(gen, 16, BH, 128, D, 1, 4)
     q = torch.randn((BH, Sq, D), generator=gen, device="cuda").bfloat16()
     pt = torch.randperm(16, generator=gen, device="cuda")[:8].int()
-    ms[f"paged_attention BH={BH} Sq={Sq} D={D} 8 pages of 128 4-bit"] = \
+    ms[f"paged_attention BH={BH} Sq={Sq} D={D} 8 pages of 128 4-bit"] = \\
         c.time_ms(lambda: pa.paged_attention(q, pt, *pools, bits=4))
+for B, H, G, D in SHAPES["batched"]:
+    n, Sq = 32, 4096
+    pools = c._quantized_pools(gen, B * n, H, 128, D, G, 4)
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda").bfloat16()
+    pt = torch.randperm(B * n, generator=gen, device="cuda").reshape(
+        B, n).int()
+    nt = torch.full((B, n), 128, dtype=torch.int32, device="cuda")
+    npg = torch.full((B,), n, dtype=torch.int32, device="cuda")
+    out = torch.empty((B, H, Sq, D), dtype=torch.float32, device="cuda")
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+    tag = f"B={B} H={H} G={G} D={D} Sq={Sq} {n} pages of 128 4-bit"
+    for a8 in (False, True):
+        ms[f"paged_unpack {tag} {'int8' if a8 else 'bf16'} layout"] = \\
+            c.time_ms(lambda: pa.paged_unpack(pt, npg, *pools, bits=4,
+                                              head_group=G, a8=a8))
+        k, v, side = pa.paged_unpack(pt, npg, *pools, bits=4, head_group=G,
+                                     a8=a8)
+        name = "batched_paged_attention" + ("_a8" if a8 else "")
+        fn = _build.function("dlm_" + name)
+        ms[f"{name} (alone) {tag}"] = c.time_ms(lambda: _build.check(fn(
+            q.data_ptr(), nt.data_ptr(), npg.data_ptr(), k.data_ptr(),
+            v.data_ptr(), side.data_ptr(), out.data_ptr(), lse.data_ptr(), B,
+            H, Sq, D, n, k.shape[3],
+            torch.cuda.current_stream().cuda_stream), name))
 print(json.dumps(ms))
 """
 
@@ -3719,7 +3970,8 @@ def main() -> int:
     MODEL.clear()  # the engine phases build their own models
     torch.cuda.empty_cache()
     for fn in (engine_packed, engine_packed_a8, engine_anchor, train_grad,
-               heads16, engine_gptq, engine_gptq_shipped, engine_ingest, cli):
+               heads16, heads_wide, engine_gptq, engine_gptq_shipped,
+               engine_ingest, cli):
         runs[fn.__name__] = phase(fn)
     if "engine16" in MODEL and "engine8" in MODEL:
         runs["engine_check"] = phase(engine_check)

@@ -2,16 +2,22 @@
 //
 // Replaces the TPU kernel `_dense_kernel` (diffusion_llm_rs_tpu/ops/
 // pallas_attention.py, behind `dense_attention`): q/k/v [BH, S, D] bf16 ->
-// out [BH, Sq, D] in bf16 or f32, for head widths D = 16, 32, 64 and 128
-// (template parameters, as is the output type). As in the TPU kernel:
+// out [BH, Sq, D] in bf16 or f32, for every head width D that is a multiple
+// of 8 up to 256, as the TPU wrapper takes D % 8 == 0. An instance is built
+// for each width DK of 16, 32, 64, 128, 192 and 256 (a template parameter,
+// as is the output type); a head of D runs in the smallest DK >= D, whose
+// columns past D read as zeros: TMA fills a box that runs past a row of D
+// with zeros, so q . k over them adds nothing and the output columns past D
+// are never stored. sm_scale is the caller's (1/sqrt(D) of the true D). As
+// in the TPU kernel:
 //   logits = (q . k) * sm_scale                   f32
 //   m' = max(m, rowmax(logits)); p = exp(logits - m'); a = exp(m - m')
 //   l  = l * a + rowsum(p)                         f32, p before rounding
 //   acc = acc * a + bf16(p) . v                    bf16 operands, f32 sum
 //   out = acc / l
 // KV rows past Skv get logits of -1e30 (p = 0); query rows past Sq are not
-// written. The KV tile is 128 keys where the TPU's is 128 to 512: the running
-// max under bf16(p) differs, the math does not.
+// written. The KV tile is 128 keys (64 at DK >= 192) where the TPU's is 128
+// to 512: the running max under bf16(p) differs, the math does not.
 //
 // What bounds it on an H100: at the long-sequence shape of the sampler (BH =
 // 96, S = 1024, D = 64) attention does 4*BH*S^2*D = 25.8 GFLOP over ~50 MB,
@@ -34,6 +40,12 @@
 //     MN-major;
 //   - within a warpgroup, S of the next tile and P.V of this one run under
 //     this tile's and the next tile's softmax (two logit register sets).
+// Heads of DK = 192 and 256: a consumer thread holds 96 or 128 f32 of o, so
+// the KV tile is 64 keys and the consumers take 240 registers (the
+// producer 24). At DK = 256 q's tile (64 KiB) and a stage of K and V (64
+// KiB) leave room for two stages, not three; issuing S of tile t + 1 before
+// the stage of tile t - 1 is released would then wait on itself, so there
+// S of tile t + 1 goes out after P.V of tile t and the release.
 // exp(x - m) is taken as 2^(x log2(e) - m log2(e)) on the fast exp2 unit.
 
 #include "hopper.cuh"
@@ -42,7 +54,7 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kBQ = 128, kBK = 128, kStages = 3, kThreads = 384;
+constexpr int kBQ = 128, kThreads = 384;
 constexpr float kNegInf = -1e30f;
 // one block an SM: the consumers take the producer's registers (setmaxnreg),
 // which a second resident block would hold
@@ -54,25 +66,33 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int D>
+// An instance's shape: heads of DK (D <= DK in use), tiles of kBK keys.
+template <int DK>
 struct Shape {
-  static constexpr int kSw = swizzle_of(D * 2);   // swizzle span, bytes
+  static constexpr int kBK = DK >= 192 ? 64 : 128;  // keys a tile
+  static constexpr int kStages = DK == 256 ? 2 : 3;
+  // S of tile t + 1 issued before P.V of tile t - 1 is waited for
+  static constexpr bool kOverlap = kStages == 3;
+  static constexpr int kProdRegs = DK >= 192 ? 24 : 40;
+  static constexpr int kConsRegs = DK >= 192 ? 240 : 232;
+  static constexpr int kSw = swizzle_of(DK * 2);  // swizzle span, bytes
   static constexpr int kEpr = kSw / 2;            // elements per chunk row
-  static constexpr int kChunks = D / kEpr;        // column chunks of a row
+  static constexpr int kChunks = DK / kEpr;       // column chunks of a row
   static constexpr int kLayout = layout_of(kSw);
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKvBytes = kBK * D * 2;    // one K (or V) tile
+  static constexpr int kQBytes = kBQ * DK * 2;
+  static constexpr int kKvBytes = kBK * DK * 2;   // one K (or V) tile
   static constexpr int kSmem = 1024 + kQBytes + kStages * 2 * kKvBytes + 64;
   static constexpr int kAlloc = kSmem > kMinSmem ? kSmem : kMinSmem;
 };
 
-template <int D, bool OUT_BF16>
+template <int DK, bool OUT_BF16>
 __global__ void __launch_bounds__(kThreads, 1)
     dense_attention_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv, void* out,
-                           int Sq, int Skv, float sm_scale) {
-  using S = Shape<D>;
+                           int Sq, int Skv, int D, float sm_scale) {
+  using S = Shape<DK>;
+  constexpr int kBK = S::kBK, kStages = S::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* Qs = smem;
@@ -97,7 +117,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   if (wg == 0) {  // ------------------------------------------- producer
-    setmaxnreg_dec<40>();
+    setmaxnreg_dec<S::kProdRegs>();
     if (tid == 0) {
       mbar_expect_tx(q_full, S::kQBytes);
 #pragma unroll
@@ -119,33 +139,33 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else {  // ----------------------------------------------- consumers
-    setmaxnreg_inc<232>();
+    setmaxnreg_inc<S::kConsRegs>();
     const int c = wg - 1;  // rows 64c .. 64c + 63 of the query tile
     const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
     const uint32_t q_addr = smem_u32(Qs) + c * 64 * S::kSw;
 
-    float o[D / 2];
+    float o[DK / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DK / 2; ++i) o[i] = 0.f;
     // running max in log2 units (logits times log2(e)), running sum
     float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
     const float sl2 = sm_scale * 1.4426950408889634f;
 
-    // S = Q K^T of tile t into sc: 64 rows x 128 keys, D / 16 steps of 16
+    // S = Q K^T of tile t into sc: 64 rows x kBK keys, DK / 16 steps of 16
     auto issue_s = [&](float(&sc)[kBK / 2], int t) {
       const int s = t % kStages;
       mbar_wait(full + s, (t / kStages) & 1);
       const uint32_t k_addr = smem_u32(KV + (2 * s) * S::kKvBytes);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
         const int chunk = kk * 16 / S::kEpr;
         const uint32_t in = (kk * 16 % S::kEpr) * 2;
         const uint64_t da = gmma_desc(q_addr + chunk * kBQ * S::kSw + in, 16,
                                       8 * S::kSw, S::kLayout);
         const uint64_t db = gmma_desc(k_addr + chunk * kBK * S::kSw + in, 16,
                                       8 * S::kSw, S::kLayout);
-        wgmma_ss_n128(sc, da, db, kk > 0);
+        wgmma_ss<kBK>(sc, da, db, kk > 0);
       }
       wgmma_commit();
     };
@@ -153,10 +173,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     // Tile t, whose logits are in cur: S of tile t + 1 into nxt goes out
     // first, so it runs under this tile's softmax; P.V of tile t - 1 is
     // waited for only before o is rescaled, and P.V of tile t runs under the
-    // next tile's softmax.
+    // next tile's softmax. Without kOverlap, P.V of tile t - 1 is done when
+    // tile t starts, and S of tile t + 1 goes out beside P.V of tile t.
     auto step = [&](float(&cur)[kBK / 2], float(&nxt)[kBK / 2], int t) {
       const bool more = t + 1 < tiles;
-      if (more) issue_s(nxt, t + 1);
+      if (S::kOverlap && more) issue_s(nxt, t + 1);
 
       // online softmax; this thread holds rows g (e < 2) and g + 8 of its
       // warp's 16, keys 8j + 2q + (e & 1). exp(x - m) is taken as
@@ -198,15 +219,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
 
       if (t > 0) {  // P.V of tile t - 1 is done: o is ours, its stage free
-        if (more)
-          wgmma_wait<1>();
-        else
-          wgmma_wait<0>();
-        fence_regs(o);
+        if (S::kOverlap) {
+          if (more)
+            wgmma_wait<1>();
+          else
+            wgmma_wait<0>();
+          fence_regs(o);
+        }
         mbar_arrive(empty + (t - 1) % kStages);
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < DK / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
       // O += P V: 16 keys a step; V is the MN-major B operand
       const uint32_t v_addr =
@@ -216,12 +239,19 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int kk = 0; kk < kBK / 16; ++kk) {
         const uint64_t db = gmma_desc(v_addr + kk * 16 * S::kSw,
                                       kBK * S::kSw, 8 * S::kSw, S::kLayout);
-        wgmma_rs<D, 1>(o, pf[kk], db, 1);
+        wgmma_rs<DK, 1>(o, pf[kk], db, 1);
       }
       wgmma_commit();
-      if (more) {  // S of tile t + 1 is done
-        wgmma_wait<1>();
-        fence_regs(nxt);
+      if (S::kOverlap) {
+        if (more) {  // S of tile t + 1 is done
+          wgmma_wait<1>();
+          fence_regs(nxt);
+        }
+      } else {
+        if (more) issue_s(nxt, t + 1);
+        wgmma_wait<0>();
+        fence_regs(o);
+        if (more) fence_regs(nxt);
       }
     };
 
@@ -245,7 +275,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (row >= Sq) continue;
       const size_t base = ((size_t)bh * Sq + row) * D;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DK / 8; ++j) {
+        if (j * 8 >= D) break;  // columns past D are not stored
         const float y0 = __fdiv_rn(o[4 * j + 2 * h], l_run[h]);
         const float y1 = __fdiv_rn(o[4 * j + 2 * h + 1], l_run[h]);
         const size_t at = base + j * 8 + q4 * 2;
@@ -260,11 +291,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D, bool OUT_BF16>
+template <int DK, bool OUT_BF16>
 int launch(const void* q, const void* k, const void* v, void* out, int BH,
-           int Sq, int Skv, float sm_scale, cudaStream_t stream) {
-  using S = Shape<D>;
-  auto kernel = dense_attention_kernel<D, OUT_BF16>;
+           int Sq, int Skv, int D, float sm_scale, cudaStream_t stream) {
+  using S = Shape<DK>;
+  auto kernel = dense_attention_kernel<DK, OUT_BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kAlloc);
   if (attr != cudaSuccess) return (int)attr;
@@ -274,15 +305,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH,
     const uint64_t rows = i == 0 ? Sq : Skv;
     const uint64_t dims[3] = {(uint64_t)D, rows, (uint64_t)BH};
     const uint64_t strides[2] = {(uint64_t)D * 2, rows * D * 2};
-    const uint32_t box[3] = {(uint32_t)S::kEpr, (uint32_t)(i == 0 ? kBQ : kBK),
-                             1};
+    const uint32_t box[3] = {(uint32_t)S::kEpr,
+                             (uint32_t)(i == 0 ? kBQ : S::kBK), 1};
     if (!make_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptrs[i], dims,
                   strides, box, tma_swizzle(S::kSw)))
       return (int)cudaErrorInvalidValue;
   }
   dim3 grid((Sq + kBQ - 1) / kBQ, BH);
   kernel<<<grid, kThreads, S::kAlloc, stream>>>(maps[0], maps[1], maps[2], out,
-                                                Sq, Skv, sm_scale);
+                                                Sq, Skv, D, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -291,22 +322,26 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH,
 extern "C" {
 
 // q [BH, Sq, D], k/v [BH, Skv, D] bf16 (16-byte aligned) -> out [BH, Sq, D]
-// in bf16 (out_bf16 = 1) or f32; D = 16, 32, 64 or 128 (returns
+// in bf16 (out_bf16 = 1) or f32; D a multiple of 8 from 8 to 256 (returns
 // cudaErrorInvalidValue for any other D).
 int dlm_dense_attention(const void* q, const void* k, const void* v, void* out,
                         int out_bf16, int BH, int Sq, int Skv, int D,
                         float sm_scale, void* stream) {
   if (BH <= 0 || Sq <= 0) return 0;
   if (Skv <= 0) return (int)cudaErrorInvalidValue;
+  if (D < 8 || D > 256 || D % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DLM_DENSE_CASE(D_)                                                   \
-  if (D == D_)                                                               \
-    return out_bf16 ? launch<D_, true>(q, k, v, out, BH, Sq, Skv, sm_scale, st) \
-                    : launch<D_, false>(q, k, v, out, BH, Sq, Skv, sm_scale, st);
+#define DLM_DENSE_CASE(DK)                                                   \
+  if (D <= DK)                                                               \
+    return out_bf16                                                          \
+               ? launch<DK, true>(q, k, v, out, BH, Sq, Skv, D, sm_scale, st) \
+               : launch<DK, false>(q, k, v, out, BH, Sq, Skv, D, sm_scale, st);
   DLM_DENSE_CASE(16)
   DLM_DENSE_CASE(32)
   DLM_DENSE_CASE(64)
   DLM_DENSE_CASE(128)
+  DLM_DENSE_CASE(192)
+  DLM_DENSE_CASE(256)
 #undef DLM_DENSE_CASE
   return (int)cudaErrorInvalidValue;
 }

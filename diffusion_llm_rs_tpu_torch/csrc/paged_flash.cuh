@@ -4,19 +4,32 @@
 // csrc/paged_unpack.cu, has already turned each live page of each (slot,
 // head) into the operands below, once per call, in a scratch laid out in slot
 // order, page-aligned and padded to the tile:
-//   bf16 (A8 = false): K  bf16 [B, H, n_max, PT, D]  levels 0..255 (exact)
-//                      V  bf16 [B, H, n_max, PT, D]  bf16(v_lv * vs)
+//   bf16 (A8 = false): K  bf16 [B, H, n_max, PT, DK] levels 0..255 (exact)
+//                      V  bf16 [B, H, n_max, PT, DK] bf16(v_lv * vs)
 //                      side f32 [B, H, n_max, 3, PT] ka' = ks * sm,
 //                                                    kb = ka' * kz, vc = vs * vz
-//   int8 (A8 = true):  K  int8 [B, H, n_max, PT, D]  lv - off
-//                      Vt int8 [B, H, n_max, D, PT]  lv - off, columns in
+//   int8 (A8 = true):  K  int8 [B, H, n_max, PT, DK] lv - off
+//                      Vt int8 [B, H, n_max, DK, PT] lv - off, columns in
 //                                                    `vt_col` order
 //                      side f32 [B, H, n_max, 4, PT] ka' = ks * sm,
 //                                                    kb' = ka' * (kz - off),
 //                                                    vs, vz' = vz - off
 // with off = 2^(bits-1), PT the tile (32, 64 or 128 tokens, the page size P
 // rounded up) and every row, column and sidecar past P zero. So this kernel
-// knows nothing of bits or of the pools' packing. D = 16, 32, 64 or 128.
+// knows nothing of bits or of the pools' packing. A head of D, any multiple
+// of 8 up to 256, runs in the instance of the smallest DK of 16, 32, 64,
+// 128, 192 and 256 that holds it: the scratch's rows are DK wide and zero
+// past D, q's columns past D are zero, and the output's are not stored.
+//
+// Heads of DK = 192 and 256 (o alone is 96 or 128 f32 registers a thread):
+//   bf16: q goes to a shared-memory tile and S reads it from there, a page
+//         of more than 64 tokens runs as two tiles of 64 (its sidecar rows
+//         halved by three bulk copies), the consumers take 240 registers,
+//         and at DK = 256 the ring has two stages;
+//   int8: two blocks share each query tile, each computes S and the
+//         softmax in full and P.V for half the columns (DK / 2), so o and
+//         the P.V sum fit; q's and K's rows at DK = 192 are two 128-byte
+//         chunks wide, zero past 192.
 //
 // Design (FlashAttention-3 in outline, after csrc/dense_attention.cu): one
 // block per (query tile, head, slot), the query tile fastest, so the tiles of
@@ -70,7 +83,6 @@ namespace paged_flash {
 
 using namespace hopper;
 
-constexpr int kStages = 3;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -81,33 +93,53 @@ struct Args {
   const float* side;       // [B, H, n_max, kSide, PT]
   float* out;              // [B, H, Sq, D]
   float* lse;              // [B, H, Sq]
-  int H, Sq, n_max;
+  int H, Sq, n_max, D;     // D <= the instance's width DK
 };
 
-template <bool A8, int D, int PT>
+template <bool A8, int DK, int PT>
 struct Tile {
   static constexpr int kEb = A8 ? 1 : 2;          // bytes an element
-  // the width of q and K in S = q K^T: D, or 32 int8 (one s8 k-step) at D = 16
-  static constexpr int kDS = A8 && D < 32 ? 32 : D;
+  // the width of q and K in S = q K^T: DK, or, int8, whole s8 k-steps of 32
+  // bytes in whole 128-byte swizzle chunks: 32 at DK = 16 and 256 at DK =
+  // 192 (the TMA box runs past the scratch's rows and reads zeros)
+  static constexpr int kDS = A8 ? (DK < 32 ? 32 : DK == 192 ? 256 : DK) : DK;
+  // int8 at DK >= 192: o and the P.V sum would take 2 x DK / 2 registers a
+  // thread, so two blocks share a query tile, each computing S and the
+  // softmax and kDV = DK / 2 of the output's columns
+  static constexpr int kNV = A8 && DK >= 192 ? 2 : 1;
+  static constexpr int kDV = DK / kNV;
+  // tokens a tile: a page, or, bf16 at DK >= 192, half a page of 128 (the
+  // int8 path quantizes P.V's weights per page, so its tile is the page)
+  static constexpr int kTK = !A8 && DK >= 192 && PT > 64 ? 64 : PT;
+  static constexpr int kSplit = PT / kTK;         // tiles a page
+  // q in shared memory: always in int8; in bf16 at DK >= 192, where its
+  // register A operand would take DK / 2 registers a thread
+  static constexpr bool kQSmem = A8 || DK >= 192;
+  // the ring: at DK = 256 (bf16) q's tile and two stages fill the block's
+  // shared memory
+  static constexpr int kStages = !A8 && DK == 256 ? 2 : 3;
   static constexpr int kKSw = swizzle_of(kDS * kEb);  // K rows: kDS elements
   static constexpr int kKEpr = kKSw / kEb;        // elements a chunk row
   static constexpr int kKChunks = kDS / kKEpr;
-  // bf16 V [PT][D] is laid out as K; int8 V^T [D][PT] has rows of PT bytes
+  // bf16 V [kTK][DK] is laid out as K; int8 V^T [kDV][PT] has rows of PT
+  // bytes
   static constexpr int kVSw = A8 ? swizzle_of(PT) : kKSw;
-  static constexpr int kKBytes = PT * kDS * kEb;   // a K tile
-  static constexpr int kVBytes = PT * D * kEb;     // a V (V^T) tile
-  static constexpr int kTileBytes = kKBytes;       // a tile's slot
-  // int8: each consumer warpgroup's quantized q, 64 rows laid out as K
+  static constexpr int kKBytes = kTK * kDS * kEb;  // a K tile
+  static constexpr int kVBytes = A8 ? kDV * PT : kTK * DK * 2;  // a V (V^T) tile
+  static constexpr int kVSlot = kNV == 1 ? kKBytes : kVBytes;
+  static constexpr int kStageBytes = kKBytes + kVSlot;
   // consumer warpgroups of 64 query rows: three where heads and tiles of up
-  // to 64 fit their registers in 160 a thread, else two (232)
-  static constexpr int kWG = D <= 64 && PT <= 64 ? 3 : 2;
+  // to 64 fit their registers in 160 a thread, else two (232; 240 at DK >=
+  // 192, the producer's single thread then keeping 24)
+  static constexpr int kWG = DK <= 64 && PT <= 64 ? 3 : 2;
   static constexpr int kBQ = 64 * kWG, kThreads = 128 * (kWG + 1);
-  static constexpr int kProdRegs = kWG == 3 ? 24 : 40;
-  static constexpr int kConsRegs = kWG == 3 ? 160 : 232;
-  static constexpr int kQBytes = A8 ? kWG * 64 * kDS : 0;
+  static constexpr int kProdRegs = kWG == 3 || DK >= 192 ? 24 : 40;
+  static constexpr int kConsRegs = kWG == 3 ? 160 : DK >= 192 ? 240 : 232;
+  // each consumer warpgroup's q, 64 rows laid out as K
+  static constexpr int kQBytes = kQSmem ? kWG * 64 * kDS * kEb : 0;
   static constexpr int kSide = A8 ? 4 : 3;
-  static constexpr int kSideFloats = kSide * PT;
-  static constexpr int kSmem = 1024 + kStages * 2 * kTileBytes + kQBytes +
+  static constexpr int kSideFloats = kSide * kTK;
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + kQBytes +
                                kStages * kSideFloats * 4 + 2 * kStages * 8;
   // one block an SM: the consumers take the producer's registers
   static constexpr int kAlloc = kSmem > 120 * 1024 ? kSmem : 120 * 1024;
@@ -199,22 +231,25 @@ __device__ __forceinline__ void logits(const Acc (&sc)[PT / 2],
   }
 }
 
-template <bool A8, int D, int PT>
-__global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
+template <bool A8, int DK, int PT>
+__global__ void __launch_bounds__(Tile<A8, DK, PT>::kThreads, 1)
     paged_flash_kernel(const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, const Args a) {
-  using T = Tile<A8, D, PT>;
+  using T = Tile<A8, DK, PT>;
+  constexpr int kStages = T::kStages, TK = T::kTK, DV = T::kDV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* tiles = smem;  // stage s: K at 2s, V at 2s + 1
-  uint8_t* q_tiles = tiles + kStages * 2 * T::kTileBytes;
+  uint8_t* tiles = smem;  // stage s: K, then V
+  uint8_t* q_tiles = tiles + kStages * T::kStageBytes;
   float* sides = reinterpret_cast<float*>(q_tiles + T::kQBytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(sides + kStages * T::kSideFloats);
   uint64_t* empty = full + kStages;
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int bh = b * a.H + h;
-  const int count = a.n_pages[b];
+  // query tile, and the first of this block's kDV output columns
+  const int qtile = blockIdx.x / T::kNV, v0 = (blockIdx.x % T::kNV) * DV;
+  const int count = a.n_pages[b] * T::kSplit;  // tiles
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
@@ -229,24 +264,33 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
   if (wg == 0) {  // ------------------------------------------- producer
     setmaxnreg_dec<T::kProdRegs>();
     if (tid == 0) {
-      const float* side = a.side + (size_t)bh * a.n_max * T::kSideFloats;
+      const float* side = a.side + (size_t)bh * a.n_max * T::kSide * PT;
       for (int t = 0; t < count; ++t) {
         const int s = t % kStages;
         mbar_wait(empty + s, ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(full + s, T::kKBytes + T::kVBytes + T::kSideFloats * 4);
-        uint8_t* Ks = tiles + 2 * s * T::kTileBytes;
-        uint8_t* Vs = Ks + T::kTileBytes;
+        uint8_t* Ks = tiles + s * T::kStageBytes;
+        uint8_t* Vs = Ks + T::kKBytes;
+        // tile t's rows of the scratch: t * TK (a page's tiles are adjacent)
 #pragma unroll
         for (int c = 0; c < T::kKChunks; ++c) {
-          tma_load_3d(Ks + c * PT * T::kKSw, &tk, full + s, c * T::kKEpr,
-                      t * PT, bh);
+          tma_load_3d(Ks + c * TK * T::kKSw, &tk, full + s, c * T::kKEpr,
+                      t * TK, bh);
           if (!A8)
-            tma_load_3d(Vs + c * PT * T::kKSw, &tv, full + s, c * T::kKEpr,
-                        t * PT, bh);
+            tma_load_3d(Vs + c * TK * T::kKSw, &tv, full + s, c * T::kKEpr,
+                        t * TK, bh);
         }
-        if (A8) tma_load_3d(Vs, &tv, full + s, 0, t * D, bh);
-        bulk_load(sides + s * T::kSideFloats, side + (size_t)t * T::kSideFloats,
-                  T::kSideFloats * 4, full + s);
+        if (A8) tma_load_3d(Vs, &tv, full + s, 0, t * DK + v0, bh);
+        float* sd = sides + s * T::kSideFloats;
+        if (T::kSplit == 1) {
+          bulk_load(sd, side + (size_t)t * T::kSideFloats, T::kSideFloats * 4,
+                    full + s);
+        } else {  // each sidecar row's half: kTK of the page's PT floats
+          const float* from = side + (size_t)(t / T::kSplit) * T::kSide * PT +
+                              (t % T::kSplit) * TK;
+          for (int i = 0; i < T::kSide; ++i)
+            bulk_load(sd + i * TK, from + i * PT, TK * 4, full + s);
+        }
       }
     }
     return;
@@ -255,76 +299,116 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
   setmaxnreg_inc<T::kConsRegs>();
   const int c = wg - 1;  // rows 64c .. 64c + 63 of the query tile
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
-  const int row0 = blockIdx.x * T::kBQ + c * 64 + warp * 16 + g;  // and + 8
-  const __nv_bfloat16* qg = a.q + (size_t)bh * a.Sq * D;
+  const int row0 = qtile * T::kBQ + c * 64 + warp * 16 + g;  // and + 8
+  const __nv_bfloat16* qg = a.q + (size_t)bh * a.Sq * a.D;
   const int* ntb = a.page_tokens + (size_t)b * a.n_max;
-  float o[D / 2];
+  // the tokens of tile t whose logits count
+  auto valid_of = [&](int t) {
+    if (T::kSplit == 1) return ntb[t];
+    const int h0 = (t % T::kSplit) * TK;
+    return min(max(ntb[t / T::kSplit] - h0, 0), TK);
+  };
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
   float qs[2], sq[2] = {1.f, 1.f};
   auto k_desc = [&](int s, int kk) {  // K of stage s, 32 bytes of d a step
     const int chunk = kk * 32 / T::kKSw, in = kk * 32 % T::kKSw;
-    return gmma_desc(smem_u32(tiles + 2 * s * T::kTileBytes) + chunk * PT * T::kKSw
+    return gmma_desc(smem_u32(tiles + s * T::kStageBytes) + chunk * TK * T::kKSw
                          + in, 16, 8 * T::kKSw, layout_of(T::kKSw));
   };
 
   if constexpr (!A8) {
-    // q rows g, g + 8 of this warp into the register A operand (rows past
-    // Sq are 0), and their channel sums
-    uint32_t qf[D / 16][4];
+    // q rows g, g + 8 of this warp (rows past Sq and columns past D are 0),
+    // and their channel sums: into the register A operand of S, or at DK >=
+    // 192 into the warpgroup's shared-memory tile, laid out as K
+    constexpr int kQRegs = T::kQSmem ? 1 : DK / 16;
+    uint32_t qf[kQRegs][4];
+    uint8_t* qt = q_tiles + c * 64 * DK * 2;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
-      const __nv_bfloat16* qr = qg + (size_t)row * D;
+      const __nv_bfloat16* qr = qg + (size_t)row * a.D;
       float sum = 0.f;
+      if constexpr (T::kQSmem) {
+        // each lane of the quad 16 bytes of every fourth unit
+        const int lr = warp * 16 + g + 8 * r;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+        for (int i = 0; i < DK / 32; ++i) {
+          const int u = q4 + 4 * i;
+          uint4 w = make_uint4(0u, 0u, 0u, 0u);
+          if (row < a.Sq && u < a.D / 8)
+            w = *reinterpret_cast<const uint4*>(qr + 8 * u);
+          const __nv_bfloat162* hw = reinterpret_cast<const __nv_bfloat162*>(&w);
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          uint32_t w = 0u;
-          if (row < a.Sq)
-            w = *reinterpret_cast<const uint32_t*>(qr + kk * 16 + half * 8 +
-                                                   q4 * 2);
-          qf[kk][half * 2 + r] = w;
-          const __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&w);
-          sum += __bfloat162float(v.x) + __bfloat162float(v.y);
+          for (int e = 0; e < 4; ++e)
+            sum += __bfloat162float(hw[e].x) + __bfloat162float(hw[e].y);
+          *reinterpret_cast<uint4*>(qt + unit_offset<DK * 2, 64>(lr, u)) = w;
         }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < DK / 16; ++kk)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            uint32_t w = 0u;
+            if (row < a.Sq && kk * 16 + half * 8 < a.D)
+              w = *reinterpret_cast<const uint32_t*>(qr + kk * 16 + half * 8 +
+                                                     q4 * 2);
+            qf[kk][half * 2 + r] = w;
+            const __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&w);
+            sum += __bfloat162float(v.x) + __bfloat162float(v.y);
+          }
+      }
       qs[r] = quad_sum(sum);
     }
+    if constexpr (T::kQSmem) {
+      fence_proxy_async();
+      named_barrier(1 + c, 128);
+    }
+    const uint32_t q_addr = smem_u32(qt);
 
 #pragma unroll 1
     for (int t = 0; t < count; ++t) {
       const int s = t % kStages;
-      const int valid = ntb[t];
+      const int valid = valid_of(t);
       mbar_wait(full + s, (t / kStages) & 1);
       const float* sd = sides + s * T::kSideFloats;
-      // S = q K^T: 64 rows x PT tokens
-      float sc[PT / 2];
+      // S = q K^T: 64 rows x TK tokens
+      float sc[TK / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_rs<PT, 0>(sc, qf[kk], k_desc(s, kk), kk > 0);
+      for (int kk = 0; kk < DK / 16; ++kk) {
+        if constexpr (T::kQSmem) {
+          const int chunk = kk * 32 / T::kKSw, in = kk * 32 % T::kKSw;
+          wgmma_ss<TK>(sc,
+                       gmma_desc(q_addr + chunk * 64 * T::kKSw + in, 16,
+                                 8 * T::kKSw, layout_of(T::kKSw)),
+                       k_desc(s, kk), kk > 0);
+        } else {
+          wgmma_rs<TK, 0>(sc, qf[kk], k_desc(s, kk), kk > 0);
+        }
+      }
       wgmma_commit();
-      wgmma_wait<0>();  // and the P.V of the page before
+      wgmma_wait<0>();  // and the P.V of the tile before
       fence_regs(sc);
       if (t > 0) {
         fence_regs(o);
         mbar_arrive(empty + (t - 1) % kStages);
       }
-      float x[PT / 2], alpha[2], msc[2];
-      if (valid < PT)
-        logits<false, true, PT>(sc, x, sd, sq, qs, q4, valid, m_run, alpha, msc);
+      float x[TK / 2], alpha[2], msc[2];
+      if (valid < TK)
+        logits<false, true, TK>(sc, x, sd, sq, qs, q4, valid, m_run, alpha, msc);
       else
-        logits<false, false, PT>(sc, x, sd, sq, qs, q4, valid, m_run, alpha,
+        logits<false, false, TK>(sc, x, sd, sq, qs, q4, valid, m_run, alpha,
                                  msc);
       // p, its row sum, sum_t p * vc, and the P.V A operand: the tokens of
       // n-block j go to register (j & 1) * 2 + r of step j / 2
       float rsum[2] = {0.f, 0.f}, csum[2] = {0.f, 0.f};
-      uint32_t pf[PT / 16][4];
+      uint32_t pf[TK / 16][4];
 #pragma unroll
-      for (int j = 0; j < PT / 8; ++j) {
-        const float2 vc = *reinterpret_cast<const float2*>(sd + 2 * PT + 8 * j +
+      for (int j = 0; j < TK / 8; ++j) {
+        const float2 vc = *reinterpret_cast<const float2*>(sd + 2 * TK + 8 * j +
                                                            2 * q4);
         float p[4];
 #pragma unroll
@@ -343,17 +427,17 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
         csum[r] = quad_sum(csum[r]);
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i)
+      for (int i = 0; i < DV / 2; ++i)
         o[i] = o[i] * alpha[(i >> 1) & 1] - csum[(i >> 1) & 1];
       // o += P V: 16 tokens a step; V is the MN-major B operand
-      const uint32_t v_addr = smem_u32(tiles + (2 * s + 1) * T::kTileBytes);
+      const uint32_t v_addr = smem_u32(tiles + s * T::kStageBytes + T::kKBytes);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < PT / 16; ++kk)
-        wgmma_rs<D, 1>(o, pf[kk],
-                       gmma_desc(v_addr + kk * 16 * T::kVSw, PT * T::kVSw,
-                                 8 * T::kVSw, layout_of(T::kVSw)),
-                       1);
+      for (int kk = 0; kk < TK / 16; ++kk)
+        wgmma_rs<DK, 1>(o, pf[kk],
+                        gmma_desc(v_addr + kk * 16 * T::kVSw, TK * T::kVSw,
+                                  8 * T::kVSw, layout_of(T::kVSw)),
+                        1);
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -366,14 +450,14 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r, lr = warp * 16 + g + 8 * r;
-      const __nv_bfloat16* qr = qg + (size_t)row * D;
+      const __nv_bfloat16* qr = qg + (size_t)row * a.D;
       // columns ch*16 + 4*q4 .. + 3 of chunk ch (0 past D)
       float v[T::kDS / 16][4];
       float amax = 0.f;
 #pragma unroll
       for (int ch = 0; ch < T::kDS / 16; ++ch) {
         uint2 w = make_uint2(0u, 0u);
-        if (ch < D / 16 && row < a.Sq)
+        if (ch * 16 + q4 * 4 < a.D && row < a.Sq)
           w = *reinterpret_cast<const uint2*>(qr + ch * 16 + q4 * 4);
         const __nv_bfloat162 lo = *reinterpret_cast<__nv_bfloat162*>(&w.x);
         const __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&w.y);
@@ -386,8 +470,7 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
       }
       amax = quad_max(amax);
       const float scale = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
-      const int swz = swizzle_xor(lr, T::kKSw);
-      float sum = 0.f;  // integers up to 128 * 127: exact in any order
+      float sum = 0.f;  // integers up to 256 * 127: exact in any order
 #pragma unroll
       for (int ch = 0; ch < T::kDS / 16; ++ch) {
         int lv[4];
@@ -399,7 +482,7 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
         }
         const int col = ch * 16 + q4 * 4;
         *reinterpret_cast<uint32_t*>(
-            qt + lr * T::kKSw + ((((col >> 4) ^ swz) << 4) | (col & 15))) =
+            qt + unit_offset<T::kDS, 64>(lr, col >> 4) + (col & 15)) =
             pack_s8(lv[0], lv[1], lv[2], lv[3]);
       }
       sq[r] = scale;
@@ -416,20 +499,22 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
       mbar_wait(full + s, (t / kStages) & 1);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < T::kDS / 32; ++kk)
-        wgmma_s8_ss<PT>(sc, gmma_desc(q_addr + kk * 32, 16, 8 * T::kKSw,
-                                      layout_of(T::kKSw)),
+      for (int kk = 0; kk < T::kDS / 32; ++kk) {
+        const int chunk = kk * 32 / T::kKSw, in = kk * 32 % T::kKSw;
+        wgmma_s8_ss<PT>(sc, gmma_desc(q_addr + chunk * 64 * T::kKSw + in, 16,
+                                      8 * T::kKSw, layout_of(T::kKSw)),
                         k_desc(s, kk), kk > 0);
+      }
       wgmma_commit();
     };
     // Page t: its softmax runs while nothing of this warpgroup is in flight;
     // then its P.V product and the next page's S go out together, and page
     // t's int32 P.V sum folds into o once both are back.
-    int oi[D / 2];
+    int oi[DV / 2];
     float f_alpha[2], f_sw[2], f_csum[2];  // the fold of the page before
     auto fold = [&]() {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) {
+      for (int i = 0; i < DV / 2; ++i) {
         const int r = (i >> 1) & 1;
         o[i] = __fsub_rn(
             __fmaf_rn(i2f(oi[i]), f_sw[r], __fmul_rn(o[i], f_alpha[r])),
@@ -440,7 +525,7 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
 #pragma unroll 1
     for (int t = 0; t < count; ++t) {
       const int s = t % kStages;
-      const int valid = ntb[t];
+      const int valid = ntb[t];  // the int8 tile is the page
       const float* sd = sides + s * T::kSideFloats;
       wgmma_wait<0>();  // S of page t, P.V of page t - 1
       fence_regs(sc);
@@ -509,11 +594,11 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
             pf[kk][hf * 2 + r] = pack_s8(wi[0], wi[1], wi[2], wi[3]);
           }
       // pv_i = wi . v_lv, 32 tokens a step, restarted every page
-      const uint32_t v_addr = smem_u32(tiles + (2 * s + 1) * T::kTileBytes);
+      const uint32_t v_addr = smem_u32(tiles + s * T::kStageBytes + T::kKBytes);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < PT / 32; ++kk)
-        wgmma_s8<D>(oi, pf[kk],
+        wgmma_s8<DV>(oi, pf[kk],
                     gmma_desc(v_addr + kk * 32, 16, 8 * T::kVSw,
                               layout_of(T::kVSw)),
                     kk > 0);
@@ -533,25 +618,29 @@ __global__ void __launch_bounds__(Tile<A8, D, PT>::kThreads, 1)
     if (row >= a.Sq) continue;
     const float l = l_run[r];
     const float inv = __frcp_rn(l > 0.f ? l : 1.f);
-    float* orow = a.out + ((size_t)bh * a.Sq + row) * D;
+    float* orow = a.out + ((size_t)bh * a.Sq + row) * a.D + v0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j) {
+      if (v0 + 8 * j >= a.D) break;  // columns past D are not stored
       *reinterpret_cast<float2*>(orow + 8 * j + 2 * q4) = make_float2(
           __fmul_rn(o[4 * j + 2 * r], inv), __fmul_rn(o[4 * j + 2 * r + 1], inv));
-    if (q4 == 0)
+    }
+    if (q4 == 0 && v0 == 0)
       a.lse[(size_t)bh * a.Sq + row] = l > 0.f ? m_run[r] + logf(l) : kNegInf;
   }
 }
 
-// The scratch's K (and bf16 V) as [B*H, n_max*PT, D] and int8 V^T as
-// [B*H, n_max*D, PT], each TMA box one page's tile (a chunk of 128 bytes
-// of its rows at a time), swizzled as the wgmma descriptors read it. The
-// int8 K box at D = 16 is 32 bytes wide: its second half reads zeros.
-template <bool A8, int D, int PT>
+// The scratch's K (and bf16 V) as [B*H, n_max*PT, DK] and int8 V^T as
+// [B*H, n_max*DK, PT], each TMA box one tile (a chunk of 128 bytes of its
+// rows at a time; int8 V^T the kDV rows of this block's columns), swizzled
+// as the wgmma descriptors read it. The int8 K box at DK = 16 is 32 bytes
+// wide and at DK = 192 two chunks of 128: past the scratch's rows it reads
+// zeros.
+template <bool A8, int DK, int PT>
 int launch(const Args& a, int B, const void* k, const void* v,
            cudaStream_t stream) {
-  using T = Tile<A8, D, PT>;
-  auto kernel = paged_flash_kernel<A8, D, PT>;
+  using T = Tile<A8, DK, PT>;
+  auto kernel = paged_flash_kernel<A8, DK, PT>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kAlloc);
   if (attr != cudaSuccess) return (int)attr;
@@ -560,9 +649,9 @@ int launch(const Args& a, int B, const void* k, const void* v,
   const uint64_t BH = (uint64_t)B * a.H, n = (uint64_t)a.n_max;
   CUtensorMap maps[2];
   {
-    const uint64_t dims[3] = {(uint64_t)D, n * PT, BH};
-    const uint64_t strides[2] = {(uint64_t)D * T::kEb, n * PT * D * T::kEb};
-    const uint32_t box[3] = {(uint32_t)T::kKEpr, (uint32_t)PT, 1};
+    const uint64_t dims[3] = {(uint64_t)DK, n * PT, BH};
+    const uint64_t strides[2] = {(uint64_t)DK * T::kEb, n * PT * DK * T::kEb};
+    const uint32_t box[3] = {(uint32_t)T::kKEpr, (uint32_t)T::kTK, 1};
     if (!make_map(&maps[0], type, 3, k, dims, strides, box,
                   tma_swizzle(T::kKSw)) ||
         (!A8 && !make_map(&maps[1], type, 3, v, dims, strides, box,
@@ -570,30 +659,31 @@ int launch(const Args& a, int B, const void* k, const void* v,
       return (int)cudaErrorInvalidValue;
   }
   if (A8) {
-    const uint64_t dims[3] = {(uint64_t)PT, n * D, BH};
-    const uint64_t strides[2] = {(uint64_t)PT, n * D * PT};
-    const uint32_t box[3] = {(uint32_t)PT, (uint32_t)D, 1};
+    const uint64_t dims[3] = {(uint64_t)PT, n * DK, BH};
+    const uint64_t strides[2] = {(uint64_t)PT, n * DK * PT};
+    const uint32_t box[3] = {(uint32_t)PT, (uint32_t)T::kDV, 1};
     if (!make_map(&maps[1], type, 3, v, dims, strides, box,
                   tma_swizzle(T::kVSw)))
       return (int)cudaErrorInvalidValue;
   }
-  dim3 grid((a.Sq + T::kBQ - 1) / T::kBQ, a.H, B);
+  dim3 grid((a.Sq + T::kBQ - 1) / T::kBQ * T::kNV, a.H, B);
   kernel<<<grid, T::kThreads, T::kAlloc, stream>>>(maps[0], maps[1], a);
   return (int)cudaGetLastError();
 }
 
-template <bool A8, int D>
+template <bool A8, int DK>
 int launch_pt(const Args& a, int B, int PT, const void* k, const void* v,
               cudaStream_t stream) {
   switch (PT) {
-    case 32: return launch<A8, D, 32>(a, B, k, v, stream);
-    case 64: return launch<A8, D, 64>(a, B, k, v, stream);
-    case 128: return launch<A8, D, 128>(a, B, k, v, stream);
+    case 32: return launch<A8, DK, 32>(a, B, k, v, stream);
+    case 64: return launch<A8, DK, 64>(a, B, k, v, stream);
+    case 128: return launch<A8, DK, 128>(a, B, k, v, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// D = 16, 32, 64 or 128; PT = 32, 64 or 128
+// D a multiple of 8 up to 256, over a scratch of rows of DK = 16, 32, 64,
+// 128, 192 or 256 (the smallest that holds D); PT = 32, 64 or 128
 template <bool A8>
 int run(const void* q, const void* page_tokens, const void* n_pages,
         const void* k, const void* v, const void* side, void* out, void* lse,
@@ -606,15 +696,15 @@ int run(const void* q, const void* page_tokens, const void* n_pages,
          static_cast<const float*>(side),
          static_cast<float*>(out),
          static_cast<float*>(lse),
-         H, Sq, n_max};
+         H, Sq, n_max, D};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_pt<A8, 16>(a, B, PT, k, v, st);
-    case 32: return launch_pt<A8, 32>(a, B, PT, k, v, st);
-    case 64: return launch_pt<A8, 64>(a, B, PT, k, v, st);
-    case 128: return launch_pt<A8, 128>(a, B, PT, k, v, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D < 8 || D > 256 || D % 8) return (int)cudaErrorInvalidValue;
+  if (D <= 16) return launch_pt<A8, 16>(a, B, PT, k, v, st);
+  if (D <= 32) return launch_pt<A8, 32>(a, B, PT, k, v, st);
+  if (D <= 64) return launch_pt<A8, 64>(a, B, PT, k, v, st);
+  if (D <= 128) return launch_pt<A8, 128>(a, B, PT, k, v, st);
+  if (D <= 192) return launch_pt<A8, 192>(a, B, PT, k, v, st);
+  return launch_pt<A8, 256>(a, B, PT, k, v, st);
 }
 
 }  // namespace paged_flash

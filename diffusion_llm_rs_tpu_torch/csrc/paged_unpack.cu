@@ -20,7 +20,11 @@
 // int8 mode writes lv - off as int8 (K [token][d], V^T [d][token] with the
 // columns of each 32 tokens in `vt_col` order), and ka' = ks * sm, kb' = ka'
 // * (kz - off), vs, vz - off. Rows, columns and sidecars past P are 0; pages
-// past n_pages[b] are not written. A slot id outside the pool traps.
+// past n_pages[b] are not written. A slot id outside the pool traps. Heads
+// of D (a multiple of 8 up to 256) are written as rows of DK, the smallest
+// of 16, 32, 64, 128, 192 and 256 that holds D (the width of the attention
+// kernel's instance), zero past D; a pool row of D bytes is read 16 bytes
+// at a time, or 8 where D % 16 != 0.
 //
 // One block of 128 threads per (page, head, slot). What bounds it: bytes. At
 // serve_paged (B = 2, H = 12, 32 pages of 128 tokens, D = 64, 4 bits) it
@@ -32,6 +36,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -46,11 +52,13 @@ struct Args {
   const uint8_t* v_data;
   const float* v_scale;
   const float* v_zp;
-  void* k_out;             // [B, H, n_max, PT, D]
-  void* v_out;             // bf16 [B, H, n_max, PT, D]; int8 [.., D, PT]
+  void* k_out;             // [B, H, n_max, PT, DK]
+  void* v_out;             // bf16 [B, H, n_max, PT, DK]; int8 [.., DK, PT]
   float* side_out;         // [B, H, n_max, 3 or 4, PT]
   int H, D, n_max, n_slots, G, P, PT;
   float sm;
+  int DK;                  // last: the exact instances' parameters keep
+                           // their offsets (and code) from before padding
 };
 
 // Column of token `tok` in a V^T row: within each group of 32 tokens, token
@@ -67,20 +75,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int BITS, bool A8>
+// CW: bytes of a pool row read at once (16, or 8 where D % 16 != 0). PAD:
+// D < DK, so the columns past D are zeroed; without it D = DK and the
+// kernel is the one that served the kernel widths alone.
+template <int BITS, bool A8, int CW, bool PAD>
 __global__ void __launch_bounds__(kThreads) paged_unpack_kernel(const Args a) {
   constexpr int kVpb = 8 / BITS, kMask = (1 << BITS) - 1;
   constexpr uint32_t kMask4 = 0x01010101u * kMask;
   constexpr uint32_t kOff4 = 0x01010101u * (1u << (BITS - 1));
   constexpr float kOff = (float)(1 << (BITS - 1));
-  extern __shared__ __align__(16) uint8_t smem[];  // int8: V^T [D][PT]
+  extern __shared__ __align__(16) uint8_t smem[];  // int8: V^T [DK][PT]
   __shared__ float s_vs[kPmax];                    // bf16: V scales
 
   const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   if (j >= a.n_pages[b]) return;
   const int slot = a.page_tables[(size_t)b * a.n_max + j];
   if (slot < 0 || slot >= a.n_slots) __trap();
-  const int D = a.D, P = a.P, PT = a.PT, G = a.G, HG = a.H / G;
+  const int D = a.D, DK = PAD ? a.DK : a.D, P = a.P, PT = a.PT, G = a.G, HG = a.H / G;
   const int hg = h / G, hl = h % G, GD = G * D, Pp = P / kVpb;
   const size_t side_in = ((size_t)slot * HG + hg) * G * P + (size_t)hl * P;
   const size_t base_in = ((size_t)slot * HG + hg) * Pp * GD + (size_t)hl * D;
@@ -106,45 +117,51 @@ __global__ void __launch_bounds__(kThreads) paged_unpack_kernel(const Args a) {
     }
   }
   uint8_t* vt = smem;
-  if (A8) {  // V^T starts as zeros: the columns of tokens past P stay so
-    for (int c = threadIdx.x; c < D * PT / 16; c += kThreads)
+  if (A8) {  // V^T starts as zeros: the columns of tokens past P, and the
+             // rows past D, stay so
+    for (int c = threadIdx.x; c < DK * PT / 16; c += kThreads)
       reinterpret_cast<uint4*>(vt)[c] = make_uint4(0, 0, 0, 0);
   }
   __syncthreads();
 
-  // 16 packed bytes of one row -> 16 levels of kVpb token rows each
+  // CW packed bytes of one row -> CW levels of kVpb token rows each
   const int eb = A8 ? 1 : 2;  // bytes an output element
-  uint8_t* k_out = static_cast<uint8_t*>(a.k_out) + page * PT * D * eb;
-  uint8_t* v_out = static_cast<uint8_t*>(a.v_out) + page * PT * D * eb;
-  for (int c = threadIdx.x; c < Pp * (D / 16); c += kThreads) {
-    const int r = c / (D / 16), col = (c % (D / 16)) * 16;
+  uint8_t* k_out = static_cast<uint8_t*>(a.k_out) + page * PT * DK * eb;
+  uint8_t* v_out = static_cast<uint8_t*>(a.v_out) + page * PT * DK * eb;
+  using W = typename std::conditional<CW == 16, uint4, uint2>::type;
+  constexpr int kWords = CW / 4;
+  for (int c = threadIdx.x; c < Pp * (D / CW); c += kThreads) {
+    const int r = c / (D / CW), col = (c % (D / CW)) * CW;
     const size_t off = base_in + (size_t)r * GD + col;
-    const uint4 kw = *reinterpret_cast<const uint4*>(a.k_data + off);
-    const uint4 vw = *reinterpret_cast<const uint4*>(a.v_data + off);
+    const W kw = *reinterpret_cast<const W*>(a.k_data + off);
+    const W vw = *reinterpret_cast<const W*>(a.v_data + off);
 #pragma unroll
     for (int p = 0; p < kVpb; ++p) {
       const int tok = r + p * Pp;
       if (A8) {
         const uint32_t* kx = reinterpret_cast<const uint32_t*>(&kw);
         const uint32_t* vx = reinterpret_cast<const uint32_t*>(&vw);
-        uint32_t kc[4];
+        uint32_t kc[kWords];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kWords; ++i) {
           kc[i] = __vsub4((kx[i] >> (p * BITS)) & kMask4, kOff4);
           const uint32_t vc = __vsub4((vx[i] >> (p * BITS)) & kMask4, kOff4);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             vt[(col + 4 * i + e) * PT + vt_col(tok)] = (uint8_t)(vc >> (8 * e));
         }
-        *reinterpret_cast<uint4*>(k_out + (size_t)tok * D + col) =
-            make_uint4(kc[0], kc[1], kc[2], kc[3]);
+        W* kd = reinterpret_cast<W*>(k_out + (size_t)tok * DK + col);
+        if constexpr (CW == 16)
+          *kd = make_uint4(kc[0], kc[1], kc[2], kc[3]);
+        else
+          *kd = make_uint2(kc[0], kc[1]);
       } else {
         const uint8_t* kb = reinterpret_cast<const uint8_t*>(&kw);
         const uint8_t* vb = reinterpret_cast<const uint8_t*>(&vw);
         const float vsc = s_vs[tok];
-        uint32_t kk[8], vv[8];
+        uint32_t kk[CW / 2], vv[CW / 2];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < CW / 2; ++i) {
           const float k0 = (float)((kb[2 * i] >> (p * BITS)) & kMask);
           const float k1 = (float)((kb[2 * i + 1] >> (p * BITS)) & kMask);
           const float v0 = (float)((vb[2 * i] >> (p * BITS)) & kMask);
@@ -152,17 +169,31 @@ __global__ void __launch_bounds__(kThreads) paged_unpack_kernel(const Args a) {
           kk[i] = pack_bf16(k0, k1);
           vv[i] = pack_bf16(__fmul_rn(v0, vsc), __fmul_rn(v1, vsc));
         }
-        uint4* kd = reinterpret_cast<uint4*>(k_out + ((size_t)tok * D + col) * 2);
-        uint4* vd = reinterpret_cast<uint4*>(v_out + ((size_t)tok * D + col) * 2);
-        kd[0] = make_uint4(kk[0], kk[1], kk[2], kk[3]);
-        kd[1] = make_uint4(kk[4], kk[5], kk[6], kk[7]);
-        vd[0] = make_uint4(vv[0], vv[1], vv[2], vv[3]);
-        vd[1] = make_uint4(vv[4], vv[5], vv[6], vv[7]);
+        uint4* kd = reinterpret_cast<uint4*>(k_out + ((size_t)tok * DK + col) * 2);
+        uint4* vd = reinterpret_cast<uint4*>(v_out + ((size_t)tok * DK + col) * 2);
+#pragma unroll
+        for (int i = 0; i < CW / 8; ++i)
+          kd[i] = make_uint4(kk[4 * i], kk[4 * i + 1], kk[4 * i + 2],
+                             kk[4 * i + 3]);
+#pragma unroll
+        for (int i = 0; i < CW / 8; ++i)
+          vd[i] = make_uint4(vv[4 * i], vv[4 * i + 1], vv[4 * i + 2],
+                             vv[4 * i + 3]);
       }
     }
   }
+  // columns [D, DK) of token rows [0, P) of K (and of bf16 V) are 0, in
+  // units of 8 bytes
+  if constexpr (PAD) {
+    const int units = (DK - D) * eb / 8;
+    for (int c = threadIdx.x; c < P * units; c += kThreads) {
+      const size_t at = ((size_t)(c / units) * DK + D) * eb + (c % units) * 8;
+      *reinterpret_cast<uint2*>(k_out + at) = make_uint2(0, 0);
+      if (!A8) *reinterpret_cast<uint2*>(v_out + at) = make_uint2(0, 0);
+    }
+  }
   // token rows [P, PT) of K (and of bf16 V) are 0
-  const int row16 = D * eb / 16;
+  const int row16 = DK * eb / 16;
   for (int c = threadIdx.x; c < (PT - P) * row16; c += kThreads) {
     const size_t at = ((size_t)P * row16 + c) * 16;
     *reinterpret_cast<uint4*>(k_out + at) = make_uint4(0, 0, 0, 0);
@@ -170,15 +201,17 @@ __global__ void __launch_bounds__(kThreads) paged_unpack_kernel(const Args a) {
   }
   if (A8) {
     __syncthreads();
-    for (int c = threadIdx.x; c < D * PT / 16; c += kThreads)
+    for (int c = threadIdx.x; c < DK * PT / 16; c += kThreads)
       reinterpret_cast<uint4*>(v_out)[c] = reinterpret_cast<const uint4*>(vt)[c];
   }
 }
 
 template <int BITS, bool A8>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  auto kernel = paged_unpack_kernel<BITS, A8>;
-  const int smem = A8 ? a.D * a.PT : 0;
+  auto kernel = a.D % 16    ? paged_unpack_kernel<BITS, A8, 8, true>
+                : a.D < a.DK ? paged_unpack_kernel<BITS, A8, 16, true>
+                             : paged_unpack_kernel<BITS, A8, 16, false>;
+  const int smem = A8 ? a.DK * a.PT : 0;
   dim3 grid(a.n_max, a.H, B);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
@@ -189,8 +222,9 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 extern "C" {
 
 // Unpack the first n_pages[b] pages of each slot's table, for every head,
-// into k_out, v_out, side_out (the layouts above; a8 = 1: int8 mode). D =
-// 16, 32, 64 or 128; P a multiple of 8 up to 128 with whole packed rows;
+// into k_out, v_out, side_out (the layouts above; a8 = 1: int8 mode). D a
+// multiple of 8 up to 256, written as rows of DK (16, 32, 64, 128, 192 or
+// 256, the smallest >= D); P a multiple of 8 up to 128 with whole packed rows;
 // PT = 32, 64 or 128, at least P; 1/2/4/8 bits (2/4/8 in int8 mode).
 // Returns cudaErrorInvalidValue for anything else.
 int dlm_paged_unpack(const void* page_tables, const void* n_pages,
@@ -200,7 +234,9 @@ int dlm_paged_unpack(const void* page_tables, const void* n_pages,
                      int D, int n_max, int n_slots, int G, int P, int PT,
                      int bits, int a8, float sm_scale, void* stream) {
   if (B <= 0 || H <= 0 || n_max <= 0) return 0;
-  if ((D != 16 && D != 32 && D != 64 && D != 128) || P < 8 || P > kPmax ||
+  const int DK = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128
+                 : D <= 192 ? 192 : 256;
+  if (D < 8 || D > 256 || D % 8 || P < 8 || P > kPmax ||
       P % 8 || PT < P || (PT != 32 && PT != 64 && PT != 128) || G < 1 || H % G ||
       (a8 && bits == 1))
     return (int)cudaErrorInvalidValue;
@@ -209,7 +245,7 @@ int dlm_paged_unpack(const void* page_tables, const void* n_pages,
          static_cast<const float*>(k_zp), static_cast<const uint8_t*>(v_data),
          static_cast<const float*>(v_scale), static_cast<const float*>(v_zp),
          k_out, v_out, static_cast<float*>(side_out),
-         H, D, n_max, n_slots, G, P, PT, sm_scale};
+         H, D, n_max, n_slots, G, P, PT, sm_scale, DK};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (bits * 2 + (a8 ? 1 : 0)) {
     case 2: return launch<1, false>(a, B, st);

@@ -56,6 +56,23 @@
 // of up to 64 with tiles of up to 64 run two blocks an SM (a consumer thread
 // 96 registers, the producer's 40); the rest one (232 and 40).
 //
+// Head widths. An instance is built for each DK of 16, 32, 64, 128, 192
+// and 256; a head of D, any multiple of 8 up to 256 (the widths at which
+// the TPU wrappers take D % 8 == 0), runs in the smallest DK >= D. Its
+// tiles keep DK's layout, zero in the columns past D: the producer zeroes
+// the ring once and writes columns below D only, the q loader writes zeros
+// past D, so q . k over them adds nothing, and the output columns past D
+// are not stored. The loaders then read rows of the true D: a contiguous
+// packed row is D/vpb bytes (12 at D = 48 and 4 bits, 1 at D = 8 and 1
+// bit: the largest power of two up to 8 that divides it is the read), and
+// block packing puts channel c + p * D/vpb in field p of byte c; a paged
+// row is D bytes, read 8 at a time. Those loaders (`PAD`) are instances of
+// their own, in sources of their own (csrc/*_padded.cu); at D = DK the
+// loaders keep their compile-time sizes. At DK = 192 and 256 a consumer
+// thread holds 96 or 128
+// f32 of o, so those run one block an SM, and pages of more than 64 tokens
+// run as two tiles of 64 (two stages of 128-token tiles do not fit).
+//
 // Where the time goes (PERF.md): the sampler's two shapes run the same 192
 // blocks, two an SM, over 4 and 16 tiles, so their times split into about
 // 2 us a tile (the consumers' chain of S, softmax and P.V, four warps a
@@ -66,6 +83,8 @@
 // no faster, so the design keeps none of them.
 
 #pragma once
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -80,7 +99,8 @@ constexpr int kStages = 2;                 // the ring of unpacked tiles
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The shared-memory layout of an instance: heads of D, tiles of TK tokens.
+// The shared-memory layout of an instance: heads of D (the instance's
+// width; a call's heads may be narrower), tiles of TK tokens.
 // A [rows][D] bf16 tile is stored in chunks of kEpr columns (64, or all D
 // below 64), each chunk [rows][kSw bytes] swizzled as TMA would write it.
 template <int D, int TK>
@@ -106,9 +126,7 @@ struct Tile {
 // swizzled [ROWS][D] tile.
 template <int D, int ROWS>
 __device__ __forceinline__ int unit_at(int r, int u) {
-  constexpr int kSw = swizzle_of(D * 2), kUnits = kSw / 16;
-  return (u / kUnits) * ROWS * kSw + r * kSw +
-         (((u % kUnits) ^ swizzle_xor(r, kSw)) << 4);
+  return unit_offset<D * 2, ROWS>(r, u);
 }
 
 // Bit field p of 4 packed bytes: one level a byte.
@@ -144,6 +162,9 @@ __device__ __forceinline__ uint2 bf16_levels(uint32_t x) {
   }
 }
 
+__device__ __forceinline__ void st_shared(uint8_t* p, uint16_t v) {
+  *reinterpret_cast<uint16_t*>(p) = v;
+}
 __device__ __forceinline__ void st_shared(uint8_t* p, uint32_t v) {
   *reinterpret_cast<uint32_t*>(p) = v;
 }
@@ -174,7 +195,7 @@ struct Out {
   const __nv_bfloat16* q;  // [BH, Sq, D]
   float* out;              // [BH, Sq, D]
   float* lse;              // [BH, Sq], or null
-  int Sq;
+  int Sq, D;               // D <= the instance's width DK
   float sm;
 };
 
@@ -187,7 +208,7 @@ struct ContigArgs {
   const uint8_t* v_data;
   const float* v_scale;
   const float* v_zp;
-  int Skv;
+  int Skv, D;
 };
 
 struct PagedArgs {
@@ -199,35 +220,52 @@ struct PagedArgs {
   const uint8_t* v_data;
   const float* v_scale;
   const float* v_zp;
-  int n_pages, n_slots, BH, P;
+  int n_pages, n_slots, BH, P, D;
 };
+
+// Zero every K and V tile of the ring: where D < DK, load() writes columns
+// below D only, so those past D stay 0 (q . k adds nothing over them, and
+// the output columns they give are not stored).
+template <int DK, int TK>
+__device__ __forceinline__ void clear_tiles(uint8_t* tiles, int tid) {
+  constexpr int kUnits = 2 * kStages * TK * DK * 2 / 16;
+  for (int c = tid; c < kUnits; c += 128)
+    reinterpret_cast<uint4*>(tiles)[c] = make_uint4(0, 0, 0, 0);
+}
 
 // A loader serves one bh: tiles(), and for tile t the tokens whose logits
 // count (valid) and the tokens that hold data (present, >= valid); load()
 // is run by the 128 threads of the producer warpgroup and fills one stage.
+// The instance's width is DK. A loader with PAD serves heads of D < DK (the
+// pools' and the packed rows' true width, a runtime value); without, D =
+// DK and every size is known at compile time. The two are separate
+// instances, built from separate sources (csrc/*_padded.cu), so that the
+// exact widths' code is what it was before padding existed.
 
 // Contiguous rows [BH, Skv, D/vpb], packed along D; tiles of 64 tokens. A
-// thread reads kCb bytes of a row at once: 8, or the whole row of 4 or 2
-// (D = 32 at 1 bit; D = 16 at 2 and 1 bits), as aligned as the row.
-template <int BITS, int D>
+// thread reads CB bytes of a row at once: the largest power of two up to 8
+// that divides the row of D/vpb bytes (at D = DK: 8, or the whole row of 4
+// or 2 at D = 32 at 1 bit and D = 16 at 2 and 1 bits), as aligned as the
+// row.
+template <int BITS, int DK, bool PAD>
 struct Contig {
   static constexpr int TK = 64;
-  static constexpr int kDp = D * BITS / 8;          // bytes a packed row
+  static constexpr bool kPad = PAD;
+  static constexpr int kDp = DK * BITS / 8;         // bytes a packed row
   static constexpr int kCb = kDp >= 8 ? 8 : kDp;    // bytes a thread reads
-  static constexpr int kNc = kDp / kCb;             // reads a row
-  static constexpr int kReads = TK * kNc;           // reads a tile (of K)
-  static constexpr int kPer = (kReads + 127) / 128; // reads a thread
+  static constexpr int kPer = (TK * (kDp / kCb) + 127) / 128;  // reads a thread
   static constexpr int kBatch = kPer < 4 ? kPer : 4;
   using Args = ContigArgs;
   const uint8_t* kd;
   const uint8_t* vd;
   const float* side[4];
-  int Skv;
+  int Skv, Dp;
 
-  __device__ Contig(const Args& a, int bh) : Skv(a.Skv) {
+  __device__ Contig(const Args& a, int bh)
+      : Skv(a.Skv), Dp(PAD ? a.D * BITS / 8 : kDp) {
     const size_t s = (size_t)bh * a.Skv;
-    kd = a.k_data + s * kDp;
-    vd = a.v_data + s * kDp;
+    kd = a.k_data + s * (PAD ? Dp : kDp);
+    vd = a.v_data + s * (PAD ? Dp : kDp);
     side[0] = a.k_scale + s;
     side[1] = a.k_zp + s;
     side[2] = a.v_scale + s;
@@ -236,8 +274,73 @@ struct Contig {
   __device__ int tiles() const { return (Skv + TK - 1) / TK; }
   __device__ int valid(int t) const { return min(TK, Skv - t * TK); }
   __device__ int present(int t) const { return valid(t); }
-  // the rows of a tile past Skv are written as zeros by load()
-  __device__ void clear(uint8_t*, int) const {}
+  // the rows of a tile past Skv are written as zeros by load(); the columns
+  // past D (D < DK) never are
+  __device__ void clear(uint8_t* tiles, int tid) const {
+    if constexpr (PAD) clear_tiles<DK, TK>(tiles, tid);
+  }
+
+  // The packed rows of tile t, dp bytes each, CB bytes a read, BATCH reads
+  // in flight a thread, unpacked into the swizzled K and V tiles; rows past
+  // Skv as zeros.
+  template <int CB, int BATCH>
+  __device__ __forceinline__ void rows(int t, uint8_t* Ks, uint8_t* Vs,
+                                       int tid, int dp) const {
+    const int t0 = t * TK, n = valid(t);
+    const int nc = dp / CB, reads = TK * nc, per = (reads + 127) / 128;
+#pragma unroll 1
+    for (int b = 0; b < per; b += BATCH) {
+      uint2 kw[BATCH], vw[BATCH];
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const int c = tid + 128 * (b + i), r = c / nc;
+        const size_t at = (size_t)(t0 + r) * dp + (c % nc) * CB;
+        kw[i] = vw[i] = make_uint2(0u, 0u);
+        if (c < reads && r < n) {
+          if (CB == 8) {
+            kw[i] = *reinterpret_cast<const uint2*>(kd + at);
+            vw[i] = *reinterpret_cast<const uint2*>(vd + at);
+          } else if (CB == 4) {
+            kw[i].x = *reinterpret_cast<const uint32_t*>(kd + at);
+            vw[i].x = *reinterpret_cast<const uint32_t*>(vd + at);
+          } else if (CB == 2) {
+            kw[i].x = *reinterpret_cast<const uint16_t*>(kd + at);
+            vw[i].x = *reinterpret_cast<const uint16_t*>(vd + at);
+          } else {
+            kw[i].x = kd[at];
+            vw[i].x = vd[at];
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const int c = tid + 128 * (b + i), r = c / nc, col = (c % nc) * CB;
+        if ((reads % 128 || per % BATCH) && c >= reads) break;
+#pragma unroll
+        for (int p = 0; p < 8 / BITS; ++p) {
+          const int ch = p * dp + col;  // the first of CB channels
+          const int at = unit_at<DK, TK>(r, ch >> 3) + (ch & 7) * 2;
+          if (CB == 8) {
+            st_shared(Ks + at, bf16_levels<BITS>(field<BITS>(kw[i].x, p)),
+                      bf16_levels<BITS>(field<BITS>(kw[i].y, p)));
+            st_shared(Vs + at, bf16_levels<BITS>(field<BITS>(vw[i].x, p)),
+                      bf16_levels<BITS>(field<BITS>(vw[i].y, p)));
+          } else if (CB == 4) {
+            st_shared(Ks + at, bf16_levels<BITS>(field<BITS>(kw[i].x, p)));
+            st_shared(Vs + at, bf16_levels<BITS>(field<BITS>(vw[i].x, p)));
+          } else if (CB == 2) {
+            st_shared(Ks + at, bf16_levels<BITS>(field<BITS>(kw[i].x, p)).x);
+            st_shared(Vs + at, bf16_levels<BITS>(field<BITS>(vw[i].x, p)).x);
+          } else {
+            st_shared(Ks + at, (uint16_t)bf16_levels<BITS>(
+                                   field<BITS>(kw[i].x, p)).x);
+            st_shared(Vs + at, (uint16_t)bf16_levels<BITS>(
+                                   field<BITS>(vw[i].x, p)).x);
+          }
+        }
+      }
+    }
+  }
 
   __device__ void load(int t, uint8_t* Ks, uint8_t* Vs, float* sd, float sm,
                        int tid) const {
@@ -255,58 +358,32 @@ struct Contig {
       sd[2 * TK + tid] = vs;
       sd[3 * TK + tid] = vz;
     }
-#pragma unroll 1
-    for (int b = 0; b < kPer; b += kBatch) {
-      uint2 kw[kBatch], vw[kBatch];
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
-        const int c = tid + 128 * (b + i), r = c / kNc;
-        const size_t at = (size_t)(t0 + r) * kDp + (c % kNc) * kCb;
-        kw[i] = vw[i] = make_uint2(0u, 0u);
-        if (c < kReads && r < n) {
-          if (kCb == 8) {
-            kw[i] = *reinterpret_cast<const uint2*>(kd + at);
-            vw[i] = *reinterpret_cast<const uint2*>(vd + at);
-          } else if (kCb == 4) {
-            kw[i].x = *reinterpret_cast<const uint32_t*>(kd + at);
-            vw[i].x = *reinterpret_cast<const uint32_t*>(vd + at);
-          } else {
-            kw[i].x = *reinterpret_cast<const uint16_t*>(kd + at);
-            vw[i].x = *reinterpret_cast<const uint16_t*>(vd + at);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
-        const int c = tid + 128 * (b + i), r = c / kNc, col = (c % kNc) * kCb;
-        if (kReads % 128 && c >= kReads) break;
-#pragma unroll
-        for (int p = 0; p < 8 / BITS; ++p) {
-          const int ch = p * kDp + col;  // the first of kCb channels
-          const int at = unit_at<D, TK>(r, ch >> 3) + (ch & 7) * 2;
-          if (kCb == 8) {
-            st_shared(Ks + at, bf16_levels<BITS>(field<BITS>(kw[i].x, p)),
-                      bf16_levels<BITS>(field<BITS>(kw[i].y, p)));
-            st_shared(Vs + at, bf16_levels<BITS>(field<BITS>(vw[i].x, p)),
-                      bf16_levels<BITS>(field<BITS>(vw[i].y, p)));
-          } else if (kCb == 4) {
-            st_shared(Ks + at, bf16_levels<BITS>(field<BITS>(kw[i].x, p)));
-            st_shared(Vs + at, bf16_levels<BITS>(field<BITS>(vw[i].x, p)));
-          } else {
-            st_shared(Ks + at, bf16_levels<BITS>(field<BITS>(kw[i].x, p)).x);
-            st_shared(Vs + at, bf16_levels<BITS>(field<BITS>(vw[i].x, p)).x);
-          }
-        }
+    if constexpr (!PAD) {  // D = DK: every size known here
+      rows<kCb, kBatch>(t, Ks, Vs, tid, kDp);
+    } else if (Dp % 8 == 0) {
+      rows<8, 4>(t, Ks, Vs, tid, Dp);
+    } else if constexpr (BITS <= 4) {  // D % 8 == 0: Dp % (8 / vpb) == 0
+      if (Dp % 4 == 0) {
+        rows<4, 4>(t, Ks, Vs, tid, Dp);
+      } else if constexpr (BITS <= 2) {
+        if (Dp % 2 == 0)
+          rows<2, 4>(t, Ks, Vs, tid, Dp);
+        else if constexpr (BITS == 1)
+          rows<1, 4>(t, Ks, Vs, tid, Dp);
       }
     }
   }
 };
 
 // One sequence's pages over pools [n_slots, BH, P/vpb, D], packed along
-// tokens; a tile of TK = PT tokens holds one page of P <= PT.
-template <int BITS, int D, int PT>
+// tokens; a tile of TK tokens holds one page of P <= PT, or at DK >= 192
+// and pages over 64 tokens half a page (TK = 64, kSplit = 2 tiles a page:
+// two stages of 128-token tiles of heads of 192 or 256 do not fit).
+template <int BITS, int DK, int PT, bool PAD>
 struct Paged {
-  static constexpr int TK = PT;
+  static constexpr int TK = DK >= 192 && PT > 64 ? 64 : PT;
+  static constexpr bool kPad = PAD;
+  static constexpr int kSplit = PT / TK;  // tiles a page
   static constexpr int kVpb = 8 / BITS;
   static constexpr int kBatch = 2;
   using Args = PagedArgs;
@@ -314,80 +391,106 @@ struct Paged {
   int bh;
 
   __device__ Paged(const Args& args, int bh_) : a(args), bh(bh_) {}
-  __device__ int tiles() const { return a.n_pages; }
+  __device__ int tiles() const { return a.n_pages * kSplit; }
   __device__ int valid(int t) const {
-    return min(max(a.page_tokens[t], 0), a.P);
+    if (kSplit == 1) return min(max(a.page_tokens[t], 0), a.P);
+    const int h0 = (t % kSplit) * TK;
+    return min(max(min(a.page_tokens[t / kSplit], a.P) - h0, 0), TK);
   }
-  __device__ int present(int t) const { return a.P; }
+  __device__ int present(int t) const {
+    if (kSplit == 1) return a.P;
+    return min(max(a.P - (t % kSplit) * TK, 0), TK);
+  }
 
   // rows [P, TK) of both stages' K and V tiles are read by the products and
-  // never written by load(): zero them once
+  // never written by load(): zero them once; with D < DK or half pages,
+  // zero the whole tiles (columns past D; rows a half page leaves)
   __device__ void clear(uint8_t* tiles, int tid) const {
-    constexpr int kRow = D * 2 / 16;  // units a row
+    if (PAD || kSplit > 1) {
+      clear_tiles<DK, TK>(tiles, tid);
+      return;
+    }
+    constexpr int kRow = DK * 2 / 16;  // units a row
     for (int s = 0; s < 2 * kStages; ++s)
       for (int c = tid; c < (TK - a.P) * kRow; c += 128)
         *reinterpret_cast<uint4*>(
-            tiles + s * TK * D * 2 +
-            unit_at<D, TK>(a.P + c / kRow, c % kRow)) = make_uint4(0, 0, 0, 0);
+            tiles + s * TK * DK * 2 +
+            unit_at<DK, TK>(a.P + c / kRow, c % kRow)) = make_uint4(0, 0, 0, 0);
   }
 
-  __device__ void load(int t, uint8_t* Ks, uint8_t* Vs, float* sd, float sm,
-                       int tid) const {
-    const int slot = a.page_table[t], P = a.P, Pp = P / kVpb;
-    if (slot < 0 || slot >= a.n_slots) __trap();
-    const size_t pg = (size_t)slot * a.BH + bh;
-    if (tid < TK) {
-      float ka = 0.f, kz = 0.f, vs = 0.f, vz = 0.f;
-      if (tid < P) {
-        ka = __fmul_rn(a.k_scale[pg * P + tid], sm);
-        kz = a.k_zp[pg * P + tid];
-        vs = a.v_scale[pg * P + tid];
-        vz = a.v_zp[pg * P + tid];
-      }
-      sd[tid] = ka;
-      sd[TK + tid] = __fmul_rn(ka, kz);
-      sd[2 * TK + tid] = vs;
-      sd[3 * TK + tid] = vz;
-    }
-    // 16 packed bytes of row r, columns d0.. -> 16 columns of kVpb tokens
-    const uint8_t* kd = a.k_data + pg * Pp * D;
-    const uint8_t* vd = a.v_data + pg * Pp * D;
-    const int chunks = Pp * (D / 16);
+  // The page's packed rows of d bytes, CB (16 or 8) bytes a read -> CB
+  // columns of kVpb tokens each, the tokens of this tile (from h0) stored.
+  template <int CB>
+  __device__ __forceinline__ void rows(size_t pg, int h0, uint8_t* Ks,
+                                       uint8_t* Vs, int tid, int d) const {
+    using W = typename std::conditional<CB == 16, uint4, uint2>::type;
+    const int Pp = a.P / kVpb, upr = d / CB, chunks = Pp * upr;
+    const uint8_t* kd = a.k_data + pg * Pp * d;
+    const uint8_t* vd = a.v_data + pg * Pp * d;
 #pragma unroll 1
     for (int c0 = tid; c0 < chunks; c0 += 128 * kBatch) {
-      uint4 kw[kBatch], vw[kBatch];
+      W kw[kBatch], vw[kBatch];
 #pragma unroll
       for (int i = 0; i < kBatch; ++i) {
         const int c = c0 + 128 * i;
-        kw[i] = vw[i] = make_uint4(0u, 0u, 0u, 0u);
+        kw[i] = vw[i] = W{};
         if (c < chunks) {
-          kw[i] = *reinterpret_cast<const uint4*>(kd + (size_t)c * 16);
-          vw[i] = *reinterpret_cast<const uint4*>(vd + (size_t)c * 16);
+          kw[i] = *reinterpret_cast<const W*>(kd + (size_t)c * CB);
+          vw[i] = *reinterpret_cast<const W*>(vd + (size_t)c * CB);
         }
       }
 #pragma unroll
       for (int i = 0; i < kBatch; ++i) {
         const int c = c0 + 128 * i;
         if (c >= chunks) break;
-        const int r = c / (D / 16), u = (c % (D / 16)) * 2;
+        const int r = c / upr, u = (c % upr) * (CB / 8);
 #pragma unroll
         for (int p = 0; p < kVpb; ++p) {
-          const int tok = r + p * Pp;
-          st_shared(Ks + unit_at<D, TK>(tok, u),
+          const int tok = r + p * Pp - h0;
+          if (kSplit > 1 && (tok < 0 || tok >= TK)) continue;
+          st_shared(Ks + unit_at<DK, TK>(tok, u),
                     bf16_levels<BITS>(field<BITS>(kw[i].x, p)),
                     bf16_levels<BITS>(field<BITS>(kw[i].y, p)));
-          st_shared(Ks + unit_at<D, TK>(tok, u + 1),
-                    bf16_levels<BITS>(field<BITS>(kw[i].z, p)),
-                    bf16_levels<BITS>(field<BITS>(kw[i].w, p)));
-          st_shared(Vs + unit_at<D, TK>(tok, u),
+          if constexpr (CB == 16)
+            st_shared(Ks + unit_at<DK, TK>(tok, u + 1),
+                      bf16_levels<BITS>(field<BITS>(kw[i].z, p)),
+                      bf16_levels<BITS>(field<BITS>(kw[i].w, p)));
+          st_shared(Vs + unit_at<DK, TK>(tok, u),
                     bf16_levels<BITS>(field<BITS>(vw[i].x, p)),
                     bf16_levels<BITS>(field<BITS>(vw[i].y, p)));
-          st_shared(Vs + unit_at<D, TK>(tok, u + 1),
-                    bf16_levels<BITS>(field<BITS>(vw[i].z, p)),
-                    bf16_levels<BITS>(field<BITS>(vw[i].w, p)));
+          if constexpr (CB == 16)
+            st_shared(Vs + unit_at<DK, TK>(tok, u + 1),
+                      bf16_levels<BITS>(field<BITS>(vw[i].z, p)),
+                      bf16_levels<BITS>(field<BITS>(vw[i].w, p)));
         }
       }
     }
+  }
+
+  __device__ void load(int t, uint8_t* Ks, uint8_t* Vs, float* sd, float sm,
+                       int tid) const {
+    const int page = t / kSplit, h0 = (t % kSplit) * TK;
+    const int slot = a.page_table[page], P = a.P;
+    if (slot < 0 || slot >= a.n_slots) __trap();
+    const size_t pg = (size_t)slot * a.BH + bh;
+    if (tid < TK) {
+      const int tok = h0 + tid;
+      float ka = 0.f, kz = 0.f, vs = 0.f, vz = 0.f;
+      if (tok < P) {
+        ka = __fmul_rn(a.k_scale[pg * P + tok], sm);
+        kz = a.k_zp[pg * P + tok];
+        vs = a.v_scale[pg * P + tok];
+        vz = a.v_zp[pg * P + tok];
+      }
+      sd[tid] = ka;
+      sd[TK + tid] = __fmul_rn(ka, kz);
+      sd[2 * TK + tid] = vs;
+      sd[3 * TK + tid] = vz;
+    }
+    if constexpr (!PAD)
+      rows<16>(pg, h0, Ks, Vs, tid, DK);
+    else  // rows of D bytes: whole 8-byte reads (D % 8 == 0)
+      rows<8>(pg, h0, Ks, Vs, tid, a.D);
   }
 };
 
@@ -509,21 +612,23 @@ __global__ void __launch_bounds__(kThreads, Tile<D, L::TK>::kMinBlocks)
   const int row0 = q0 + wg * 64 + warp * 16 + g;  // and row0 + 8
   uint8_t* qt = q_tiles + wg * T::kQBytes;
 
-  // q rows row0, row0 + 8 (0 past Sq) into the warpgroup's swizzled tile,
-  // each lane of the quad 16 bytes of every fourth unit (at D = 16, the two
-  // units of a row go to lanes 0 and 1), and their sums
+  // q rows row0, row0 + 8 (0 past Sq, and past oa.D) into the warpgroup's
+  // swizzled tile, each lane of the quad 16 bytes of every fourth unit (at
+  // D = 16, the two units of a row go to lanes 0 and 1), and their sums
   float qs[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r, lr = warp * 16 + g + 8 * r;
-    const __nv_bfloat16* qr = oa.q + ((size_t)bh * Sq + row) * D;
+    const int dq = L::kPad ? oa.D : D;  // q's and out's rows
+    const __nv_bfloat16* qr = oa.q + ((size_t)bh * Sq + row) * dq;
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < (D / 8 + 3) / 4; ++i) {
       const int u = q4 + 4 * i;
       if (D % 32 && u >= D / 8) break;
       uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (row < Sq) w = *reinterpret_cast<const uint4*>(qr + 8 * u);
+      if (row < Sq && (!L::kPad || u < dq / 8))
+        w = *reinterpret_cast<const uint4*>(qr + 8 * u);
       const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
@@ -612,12 +717,15 @@ __global__ void __launch_bounds__(kThreads, Tile<D, L::TK>::kMinBlocks)
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
     const float l = l_run[r], inv = __frcp_rn(l);
-    float* orow = oa.out + ((size_t)bh * Sq + row) * D;
+    const int dq = L::kPad ? oa.D : D;
+    float* orow = oa.out + ((size_t)bh * Sq + row) * dq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < D / 8; ++j) {
+      if (L::kPad && 8 * j >= dq) break;  // columns past D are not stored
       *reinterpret_cast<float2*>(orow + 8 * j + 2 * q4) =
           make_float2(__fmul_rn(o[4 * j + 2 * r], inv),
                       __fmul_rn(o[4 * j + 2 * r + 1], inv));
+    }
     if (oa.lse != nullptr && q4 == 0)
       oa.lse[(size_t)bh * Sq + row] = m_run[r] + logf(l);
   }
@@ -640,6 +748,102 @@ int launch(const typename L::Args& la, const Out& oa, int BH,
   dim3 grid((oa.Sq + kBQ - 1) / kBQ, BH);
   kernel<<<grid, kThreads, T::kSmem, stream>>>(la, oa);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ entry points
+
+// A head of D (a multiple of 8 up to 256) runs in the instance of the
+// smallest DK of 16, 32, 64, 128, 192 and 256 that holds it: f(DK) as an
+// integral constant. Without PAD only D = DK is taken.
+template <bool PAD, class F>
+int by_width(int D, F&& f) {
+  if (D < 8 || D > 256 || D % 8) return (int)cudaErrorInvalidValue;
+  const int dk = D <= 16    ? 16
+                 : D <= 32  ? 32
+                 : D <= 64  ? 64
+                 : D <= 128 ? 128
+                 : D <= 192 ? 192
+                            : 256;
+  if (!PAD && D != dk) return (int)cudaErrorInvalidValue;
+  switch (dk) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 192: return f(std::integral_constant<int, 192>{});
+    default: return f(std::integral_constant<int, 256>{});
+  }
+}
+
+// dlm_quant_attention(_padded): see csrc/quant_flash_contig.cu
+template <bool PAD>
+int quant_attention(const void* q, const void* k_data, const void* k_scale,
+                    const void* k_zp, const void* v_data, const void* v_scale,
+                    const void* v_zp, void* out, int BH, int Sq, int Skv,
+                    int D, int bits, float sm_scale, void* stream) {
+  if (Skv <= 0) return (int)cudaErrorInvalidValue;
+  if (BH <= 0 || Sq <= 0) return 0;
+  const ContigArgs la{static_cast<const uint8_t*>(k_data),
+                      static_cast<const float*>(k_scale),
+                      static_cast<const float*>(k_zp),
+                      static_cast<const uint8_t*>(v_data),
+                      static_cast<const float*>(v_scale),
+                      static_cast<const float*>(v_zp), Skv, D};
+  const Out oa{static_cast<const __nv_bfloat16*>(q), static_cast<float*>(out),
+               nullptr, Sq, D, sm_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_width<PAD>(D, [&](auto dk) {
+    constexpr int DK = decltype(dk)::value;
+    switch (bits) {
+      case 1: return launch<Contig<1, DK, PAD>, DK>(la, oa, BH, st);
+      case 2: return launch<Contig<2, DK, PAD>, DK>(la, oa, BH, st);
+      case 4: return launch<Contig<4, DK, PAD>, DK>(la, oa, BH, st);
+      case 8: return launch<Contig<8, DK, PAD>, DK>(la, oa, BH, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  });
+}
+
+template <int BITS, int DK, bool PAD>
+int paged_pt(const PagedArgs& la, const Out& oa, int BH, cudaStream_t st) {
+  if (la.P <= 32) return launch<Paged<BITS, DK, 32, PAD>, DK>(la, oa, BH, st);
+  if (la.P <= 64) return launch<Paged<BITS, DK, 64, PAD>, DK>(la, oa, BH, st);
+  return launch<Paged<BITS, DK, 128, PAD>, DK>(la, oa, BH, st);
+}
+
+// dlm_paged_attention(_padded): see csrc/quant_flash_paged.cu
+template <bool PAD>
+int paged_attention(const void* q, const void* page_table,
+                    const void* page_tokens, const void* k_data,
+                    const void* k_scale, const void* k_zp, const void* v_data,
+                    const void* v_scale, const void* v_zp, void* out,
+                    void* lse, int BH, int Sq, int D, int n_pages, int n_slots,
+                    int P, int bits, float sm_scale, void* stream) {
+  if (Sq <= 0 || BH <= 0) return 0;
+  if (n_pages <= 0 || P < 8 || P > 128 || P % 8)
+    return (int)cudaErrorInvalidValue;
+  const PagedArgs la{static_cast<const int*>(page_table),
+                     static_cast<const int*>(page_tokens),
+                     static_cast<const uint8_t*>(k_data),
+                     static_cast<const float*>(k_scale),
+                     static_cast<const float*>(k_zp),
+                     static_cast<const uint8_t*>(v_data),
+                     static_cast<const float*>(v_scale),
+                     static_cast<const float*>(v_zp),
+                     n_pages, n_slots, BH, P, D};
+  const Out oa{static_cast<const __nv_bfloat16*>(q), static_cast<float*>(out),
+               static_cast<float*>(lse), Sq, D, sm_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_width<PAD>(D, [&](auto dk) {
+    constexpr int DK = decltype(dk)::value;
+    switch (bits) {
+      case 1: return paged_pt<1, DK, PAD>(la, oa, BH, st);
+      case 2: return paged_pt<2, DK, PAD>(la, oa, BH, st);
+      case 4: return paged_pt<4, DK, PAD>(la, oa, BH, st);
+      case 8: return paged_pt<8, DK, PAD>(la, oa, BH, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  });
 }
 
 }  // namespace quant_flash

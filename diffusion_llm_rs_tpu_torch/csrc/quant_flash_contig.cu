@@ -7,9 +7,11 @@
 // packed along D, with one f32 scale and zero-point per (bh, token); the
 // packed bytes are never dequantized into device memory. The kernel, its
 // design and its arithmetic are `quant_flash_kernel<Contig<BITS, D>, D>`
-// in csrc/quant_flash.cuh; heads of D = 16, 32, 64 and 128 at 1/2/4/8 bits
-// are its sixteen instances. Every Sq >= 1 and Skv >= 1 runs it (the TPU
-// wrapper leaves ragged shapes to XLA).
+// in csrc/quant_flash.cuh; heads of D = 16, 32, 64, 128, 192 and 256 at
+// 1/2/4/8 bits are its 24 instances (the other multiples of 8 up to 256
+// run padded to those widths, csrc/quant_flash_contig_padded.cu). Every
+// Sq >= 1 and Skv >= 1 runs it (the TPU wrapper leaves ragged shapes to
+// XLA).
 //
 // What bounds it on an H100: at the scan sampler's shape (BH = 96, Sq = Skv
 // = 256, D = 64, 4 bits) the call moves about 11 MB (q, packed K and V, four
@@ -26,54 +28,23 @@
 
 #include "quant_flash.cuh"
 
-namespace {
-
-using namespace quant_flash;
-
-template <int D>
-int launch_bits(const ContigArgs& la, const Out& oa, int BH, int bits,
-                cudaStream_t st) {
-  switch (bits) {
-    case 1: return launch<Contig<1, D>, D>(la, oa, BH, st);
-    case 2: return launch<Contig<2, D>, D>(la, oa, BH, st);
-    case 4: return launch<Contig<4, D>, D>(la, oa, BH, st);
-    case 8: return launch<Contig<8, D>, D>(la, oa, BH, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
 extern "C" {
 
 // q [BH, Sq, D] bf16 (16-byte aligned); k_data, v_data uint8 [BH, Skv,
 // D * bits / 8] (aligned to 8 bytes, or to the row where a row is 4 or 2
-// bytes); k_scale, k_zp, v_scale, v_zp f32 [BH, Skv]; D = 16, 32, 64 or 128;
-// bits 1, 2, 4 or 8; Sq, Skv >= 1. Writes out f32 [BH, Sq, D]. Returns
-// cudaErrorInvalidValue for a shape it was not built for.
+// bytes); k_scale, k_zp, v_scale, v_zp f32 [BH, Skv]; D = 16, 32, 64, 128,
+// 192 or 256 (other multiples of 8 up to 256:
+// csrc/quant_flash_contig_padded.cu); bits 1, 2, 4 or 8; Sq, Skv >= 1.
+// Writes out f32 [BH, Sq, D]. Returns cudaErrorInvalidValue for a shape it
+// was not built for.
 int dlm_quant_attention(const void* q, const void* k_data, const void* k_scale,
                         const void* k_zp, const void* v_data,
                         const void* v_scale, const void* v_zp, void* out,
                         int BH, int Sq, int Skv, int D, int bits,
                         float sm_scale, void* stream) {
-  if (Skv <= 0) return (int)cudaErrorInvalidValue;
-  if (BH <= 0 || Sq <= 0) return 0;
-  const ContigArgs la{static_cast<const uint8_t*>(k_data),
-                      static_cast<const float*>(k_scale),
-                      static_cast<const float*>(k_zp),
-                      static_cast<const uint8_t*>(v_data),
-                      static_cast<const float*>(v_scale),
-                      static_cast<const float*>(v_zp), Skv};
-  const Out oa{static_cast<const __nv_bfloat16*>(q), static_cast<float*>(out),
-               nullptr, Sq, sm_scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_bits<16>(la, oa, BH, bits, st);
-    case 32: return launch_bits<32>(la, oa, BH, bits, st);
-    case 64: return launch_bits<64>(la, oa, BH, bits, st);
-    case 128: return launch_bits<128>(la, oa, BH, bits, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return quant_flash::quant_attention<false>(q, k_data, k_scale, k_zp, v_data,
+                                             v_scale, v_zp, out, BH, Sq, Skv,
+                                             D, bits, sm_scale, stream);
 }
 
 }  // extern "C"

@@ -32,7 +32,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("int8_gemm", "int8_mlp", "dense_attention", "quant_flash_paged",
-           "packed_gemm", "quant_flash_contig", "paged_unpack",
+           "quant_flash_paged_padded", "packed_gemm", "quant_flash_contig",
+           "quant_flash_contig_padded", "paged_unpack",
            "batched_paged_attention", "paged_attention_a8",
            "fused_qkv_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,10 +55,14 @@ SIGNATURES = {
                                     (_P,) * 8 + (_I,) * 6 + (_P,)),
     "dlm_paged_attention": ("quant_flash_paged",
                             (_P,) * 11 + (_I,) * 7 + (_F, _P)),
+    "dlm_paged_attention_padded": ("quant_flash_paged_padded",
+                                   (_P,) * 11 + (_I,) * 7 + (_F, _P)),
     "dlm_batched_paged_attention_a8": ("paged_attention_a8",
                                        (_P,) * 8 + (_I,) * 6 + (_P,)),
     "dlm_quant_attention": ("quant_flash_contig",
                             (_P,) * 8 + (_I,) * 5 + (_F, _P)),
+    "dlm_quant_attention_padded": ("quant_flash_contig_padded",
+                                   (_P,) * 8 + (_I,) * 5 + (_F, _P)),
     "dlm_packed_gemm_splits": ("packed_gemm", (_I,) * 4),
     "dlm_packed_gemm": ("packed_gemm", (_P,) * 5 + (_I, _P) + (_I,) * 6
                         + (_P, _I, _P)),

@@ -21,7 +21,15 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_attention.py`:
     it; a caller reaches it through `denoiser_forward(attend_fn=...)`.
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version (`*_plain`), which repeats the TPU kernel's tile
-loop at the same rounding points.
+loop at the same rounding points. The kernels take every head width D that is
+a multiple of 8 up to 256 (`head_dim_fits`); a head of D runs in the
+instance of the smallest `KERNEL_WIDTHS` entry that holds it, zero past D.
+Where D % 8 != 0 the JAX package runs no Pallas kernel but XLA, and so does
+the port, on either device: `flash_fold` takes `dense_attention_einsum` (the
+einsum branch of JAX's `_flash_fold`), `attention` takes
+`attention_fallback` (JAX's `_attention_fallback`). Heads wider than 256,
+where JAX still runs its kernels while VMEM allows, are refused (ROADMAP
+C41).
 """
 
 from __future__ import annotations
@@ -36,8 +44,9 @@ from diffusion_llm_rs_tpu_torch.ops import _build
 from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
 NEG_INF = -1e30
-# the head widths every attention kernel of the port is built for
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# the head widths the attention kernels are instantiated at; a head of D runs
+# in the smallest that holds it
+KERNEL_WIDTHS = (16, 32, 64, 128, 192, 256)
 KERNEL_KV_TILE = 64   # tokens per online-softmax step of `csrc/quant_flash_contig.cu`
 KERNEL_BITS = (1, 2, 4, 8)
 
@@ -76,7 +85,7 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense flash attention: q [BH, Sq, D], k/v [BH, Skv, D] -> [BH, Sq, D].
 
     Inputs are cast to bf16, as on the TPU. CPU tensors take the plain twin;
-    CUDA tensors launch the kernel (D = 16, 32, 64 or 128; bf16 or f32 out). No
+    CUDA tensors launch the kernel (`head_dim_fits`; bf16 or f32 out). No
     gradient flows through the kernel: `flash_fold` gives one."""
     if q.device.type == "cpu":
         return dense_attention_plain(q, k, v, sm_scale, out_dtype)
@@ -87,9 +96,8 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (BH, Skv, D) or v.shape != k.shape or Skv == 0:
         raise ValueError(f"dense_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"dense_attention: head dim {D}, the kernel is built "
-                         f"for {KERNEL_HEAD_DIMS}")
+    if not head_dim_fits(D):
+        raise _head_dim_error("dense_attention", D)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"dense_attention: out_dtype {out_dtype}, the kernel "
                          "writes bf16 or f32")
@@ -126,15 +134,32 @@ def dense_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def dense_attention_einsum(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           sm_scale: float) -> torch.Tensor:
+    """The einsum branch of JAX's `_flash_fold`, taken where its
+    `dense_attention` returns None: f32 logits from the operands, f32
+    softmax, probabilities cast to v's dtype, f32 accumulation, out in q's
+    dtype."""
+    logits = torch.einsum("bsd,btd->bst", q.to(torch.float32),
+                          k.to(torch.float32)) * sm_scale
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bst,btd->bsd", p.to(torch.float32),
+                        v.to(torch.float32)).to(q.dtype)
+
+
 class DenseAttention(torch.autograd.Function):
     """`dense_attention` with JAX's `_flash_fold` VJP: the forward launches
-    the kernel (the plain twin on the CPU), the backward recomputes the
+    the kernel (the plain twin on the CPU), or where the head width is not a
+    multiple of 8, on which JAX's `dense_attention` returns None, runs JAX's
+    einsum branch (`dense_attention_einsum`); the backward recomputes the
     softmax in f32 (`dense_attention_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, out_dtype):
         ctx.save_for_backward(q, k, v)
         ctx.sm_scale = sm_scale
+        if q.shape[-1] % 8:
+            return dense_attention_einsum(q, k, v, sm_scale).to(out_dtype)
         return dense_attention(q, k, v, sm_scale, out_dtype)
 
     @staticmethod
@@ -258,14 +283,28 @@ def attention_plain(q: torch.Tensor, k: QuantKV, v: QuantKV,
     return acc / l
 
 
+def attention_fallback(q: torch.Tensor, k: QuantKV, v: QuantKV,
+                       sm_scale: float) -> torch.Tensor:
+    """JAX's `_attention_fallback`, the XLA path of its `attention`: K and V
+    dequantized to bf16, bf16 q, f32 logits and softmax, P rounded to bf16,
+    f32 out."""
+    kd = k.dequantize(torch.bfloat16).to(torch.float32)
+    vd = v.dequantize(torch.bfloat16).to(torch.float32)
+    logits = torch.einsum("bqd,bkd->bqk", _bf16(q), kd) * sm_scale
+    p = _bf16(torch.softmax(logits, dim=-1))
+    return torch.einsum("bqk,bkd->bqd", p, vd)
+
+
 def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
               sm_scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention over quantized KV: q [BH, Sq, D] (batch and heads
     folded outside) -> f32 [BH, Sq, D].
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel, which
-    serves every Sq and Skv >= 1 at D = 16, 32, 64 and 128 and 1/2/4/8 bits
-    (the TPU wrapper hands shapes off its tiling to an XLA path with other
+    Where D % 8 != 0, JAX's wrapper takes its XLA path, and so does this one
+    on either device (`attention_fallback`). Else CPU tensors take the plain
+    version, and CUDA tensors launch the kernel, which serves every Sq and
+    Skv >= 1 at 1/2/4/8 bits and heads up to 256 (`head_dim_fits`; the TPU
+    wrapper hands shapes off its tiling to an XLA path with other
     roundings)."""
     if k.bits != v.bits or k.shape != v.shape:
         raise ValueError(f"attention: K {k.shape} at {k.bits} bits, "
@@ -274,13 +313,15 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     Skv = k.shape[1]
     if k.shape != (BH, Skv, D) or Skv == 0:
         raise ValueError(f"attention: q {tuple(q.shape)} over K/V {k.shape}")
+    if D % 8:
+        sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+        return attention_fallback(q, k, v, sm)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attention: head dim {D}, the kernel is built for "
-                         f"{KERNEL_HEAD_DIMS}")
+    if not head_dim_fits(D):
+        raise _head_dim_error("attention", D)
     if k.bits not in KERNEL_BITS:
         raise ValueError(f"attention: bits {k.bits}, the kernel takes "
                          f"{KERNEL_BITS}")
@@ -298,12 +339,14 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     qb = q.to(torch.bfloat16).contiguous()
     kd, ks, kz, vd, vs, vz = (t.contiguous() for t in (
         k.data, k.scale, k.zero_point, v.data, v.scale, v.zero_point))
-    row = min(Dp, 8)  # bytes the kernel's loader reads from a packed row at once
+    row = math.gcd(Dp, 8)  # bytes the kernel's loader reads from a packed row at once
     if qb.data_ptr() % 16 or kd.data_ptr() % row or vd.data_ptr() % row:
         raise ValueError(f"attention: q must be 16-byte and the packed K/V "
                          f"{row}-byte aligned")
     out = torch.empty((BH, Sq, D), dtype=torch.float32, device=q.device)
-    _build.check(_build.function("dlm_quant_attention")(
+    # heads between the kernel's widths run padded, from a source of their own
+    padded = "" if D == kernel_width(D) else "_padded"
+    _build.check(_build.function(f"dlm_quant_attention{padded}")(
         qb.data_ptr(), kd.data_ptr(), ks.data_ptr(), kz.data_ptr(),
         vd.data_ptr(), vs.data_ptr(), vz.data_ptr(), out.data_ptr(),
         BH, Sq, Skv, D, k.bits, float(sm),
@@ -312,7 +355,25 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     return out
 
 
-# ------------------------------------------------------- fused-QKV attention
+# ------------------------------- the head widths the kernels take; fused-QKV
+
+def head_dim_fits(D: int) -> bool:
+    """Whether the attention kernels take heads of D: a multiple of 8 (JAX's
+    own condition for its dense kernel, and TMA's 16-byte row stride) from 8
+    to 256 (`KERNEL_WIDTHS`)."""
+    return D % 8 == 0 and 8 <= D <= KERNEL_WIDTHS[-1]
+
+
+def kernel_width(D: int) -> int:
+    """The instance a head of D runs in: the smallest `KERNEL_WIDTHS` entry
+    that holds it (D itself past them, where only the plain versions run)."""
+    return next((w for w in KERNEL_WIDTHS if D <= w), D)
+
+
+def _head_dim_error(name: str, D: int) -> ValueError:
+    return ValueError(f"{name}: head dim {D}, the kernels take multiples of 8 "
+                      f"from 8 to {KERNEL_WIDTHS[-1]}")
+
 
 FUSED_QKV_VMEM = 8 * 1024 * 1024  # the TPU kernel's whole-row budget
 

@@ -7,11 +7,16 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_paged_attention.py`:
 q, the centered K/V levels and the softmax weights folded with the V scale
 all go through the int8 tensor cores), `merge_partials`, `degroup_pool` and
 `degroup_sidecar`. On a CUDA tensor each wrapper launches its kernels (head
-dims 16, 32, 64 and 128, `KERNEL_HEAD_DIMS`; pages of any multiple of 8
-tokens up to 128, 1/2/4/8 bits, any head group dividing the heads) and
-raises on anything else; on a CPU tensor it runs its plain twin
+dims that are multiples of 8 up to 256, `head_dim_fits`; pages of any
+multiple of 8 tokens up to 128, 1/2/4/8 bits, any head group dividing the
+heads) and raises on anything else; on a CPU tensor it runs its plain twin
 (`*_plain`), which repeats the TPU kernel's arithmetic page by page at the
-same rounding points.
+same rounding points. A head of D runs in the kernels' instance of the
+smallest `KERNEL_WIDTHS` entry that holds it, and the batched path's scratch
+rows are that wide, zero past D. Where D % 8 != 0 no kernel of either
+package serves the pools (JAX's need rows of 128 lanes) and both wrappers
+take JAX's XLA paths on either device: `paged_attention_fallback` (JAX's
+`_fallback`) and `batched_paged_attention_fallback` (`_batched_fallback`).
 
 `paged_attention` launches `csrc/quant_flash_paged.cu` (the design is
 `csrc/quant_flash.cuh`, shared with `ops/attention.py: attention`: each page
@@ -41,7 +46,9 @@ from typing import Sequence, Tuple
 import torch
 
 from diffusion_llm_rs_tpu_torch.ops import _build
-from diffusion_llm_rs_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
+from diffusion_llm_rs_tpu_torch.ops.attention import (_head_dim_error,
+                                                      head_dim_fits,
+                                                      kernel_width)
 from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
 NEG_INF = -1e30
@@ -157,6 +164,40 @@ def paged_attention_plain(q, page_table, k_data, k_scale, k_zp, v_data,
     return out
 
 
+def _dequant_pages(data, scale, zp, bits, slots):
+    """The pages `slots` of a pool [n_slots, X, P/vpb, D], dequantized in f32
+    in token order: [n, X, P, D]."""
+    lv = unpack_levels(data.index_select(0, slots), bits).to(torch.float32)
+    sc, z = (a.index_select(0, slots)[..., None] for a in (scale, zp))
+    return (lv - z) * sc
+
+
+def paged_attention_fallback(q, page_table, k_data, k_scale, k_zp, v_data,
+                             v_scale, v_zp, bits: int, sm: float, page_tokens,
+                             return_lse: bool = False):
+    """JAX's `_fallback`, the XLA path of its `paged_attention`: the chain's
+    pages gathered and dequantized in f32, f32 logits, tokens past
+    page_tokens at -1e30, softmax, f32 out; the lse is the logits'
+    log-sum-exp."""
+    slots = page_table.to(torch.int64)
+    n, BH = page_table.shape[0], q.shape[0]
+
+    def chain(data, scale, zp):  # [BH, n * P, D]
+        full = _dequant_pages(data, scale, zp, bits, slots)
+        return full.transpose(0, 1).reshape(BH, -1, full.shape[-1])
+
+    kd, vd = chain(k_data, k_scale, k_zp), chain(v_data, v_scale, v_zp)
+    P = kd.shape[1] // n
+    valid = (torch.arange(P, device=q.device)[None, :]
+             < page_tokens.to(q.device)[:, None]).reshape(-1)
+    logits = torch.einsum("bqd,bkd->bqk", q.to(torch.float32), kd) * sm
+    logits = torch.where(valid, logits, NEG_INF)
+    out = torch.einsum("bqk,bkd->bqd", torch.softmax(logits, dim=-1), vd)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
+
+
 def paged_attention(q, page_table, k_data, k_scale, k_zp, v_data, v_scale,
                     v_zp, bits: int, sm_scale=None, page_tokens=None,
                     return_lse: bool = False):
@@ -166,9 +207,20 @@ def paged_attention(q, page_table, k_data, k_scale, k_zp, v_data, v_scale,
     `page_tokens[j]` the valid tokens of page j (all full by default). The
     output is f32 [BH, Sq, D]; with `return_lse` also the log-sum-exp
     [BH, Sq], so partials over disjoint pages merge exactly
-    (`merge_partials`)."""
+    (`merge_partials`). Where D % 8 != 0, JAX's XLA path on either device
+    (`paged_attention_fallback`)."""
     if page_table.shape[0] == 0:
         raise ValueError("paged_attention: empty page table")
+    D = q.shape[-1]
+    if D % 8:  # JAX's XLA path, on either device
+        if page_tokens is None:
+            page_tokens = torch.full(page_table.shape,
+                                     k_data.shape[2] * (8 // bits),
+                                     dtype=torch.int32, device=q.device)
+        return paged_attention_fallback(
+            q, page_table, k_data, k_scale, k_zp, v_data, v_scale, v_zp, bits,
+            sm_scale if sm_scale is not None else 1.0 / math.sqrt(D),
+            page_tokens, return_lse)
     if q.device.type == "cpu":
         return paged_attention_plain(q, page_table, k_data, k_scale, k_zp,
                                      v_data, v_scale, v_zp, bits, sm_scale,
@@ -199,7 +251,8 @@ def paged_attention(q, page_table, k_data, k_scale, k_zp, v_data, v_scale,
     pt, nt = (t.to(torch.int32).contiguous() for t in (page_table, page_tokens))
     out = torch.empty((BH, Sq, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
-    err = _build.function("dlm_paged_attention")(
+    padded = "" if D == kernel_width(D) else "_padded"
+    err = _build.function(f"dlm_paged_attention{padded}")(
         qb.data_ptr(), pt.data_ptr(), nt.data_ptr(),
         *(t.data_ptr() for t in pools), out.data_ptr(), lse.data_ptr(), BH,
         Sq, D, n_pages, n_slots, P, bits, float(sm),
@@ -217,12 +270,13 @@ def paged_unpack_plain(page_tables, n_pages, k_data, k_scale, k_zp, v_data,
                        head_group: int = 1, a8: bool = False):
     """Plain twin of `paged_unpack`: the first n_pages[b] pages of each
     slot's table, every head, as the operands of the attention stage, each
-    page padded to its tile of PT = `tile_tokens(P)` tokens with zeros.
+    page padded to its tile of PT = `tile_tokens(P)` tokens with zeros, and
+    each head's rows to DK = `kernel_width(D)` with zeros.
 
-    bf16 (a8 False): K bf16 [B, H, n_max, PT, D] levels; V bf16 [B, H,
-    n_max, PT, D] = bf16(v_lv * vs); side f32 [B, H, n_max, 3, PT] = (ka' =
+    bf16 (a8 False): K bf16 [B, H, n_max, PT, DK] levels; V bf16 [B, H,
+    n_max, PT, DK] = bf16(v_lv * vs); side f32 [B, H, n_max, 3, PT] = (ka' =
     ks * sm, ka' * kz, vs * vz). int8 (a8 True), with off = 2^(bits-1): K
-    int8 [B, H, n_max, PT, D] = lv - off; V^T int8 [B, H, n_max, D, PT] =
+    int8 [B, H, n_max, PT, DK] = lv - off; V^T int8 [B, H, n_max, DK, PT] =
     lv - off with its columns in `vt_columns` order; side f32 [B, H, n_max,
     4, PT] = (ka', ka' * (kz - off), vs, vz - off). Pages past n_pages[b] are
     0 (the kernel leaves them unwritten)."""
@@ -230,7 +284,7 @@ def paged_unpack_plain(page_tables, n_pages, k_data, k_scale, k_zp, v_data,
     n_slots, HG, Pp, GD = k_data.shape
     G = head_group
     H, D, P = HG * G, GD // G, Pp * (8 // bits)
-    PT = tile_tokens(P)
+    PT, DK = tile_tokens(P), kernel_width(D)
     sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     dev = k_data.device
     live = torch.arange(n_max, device=dev)[None, :] < n_pages[:, None]
@@ -247,19 +301,19 @@ def paged_unpack_plain(page_tables, n_pages, k_data, k_scale, k_zp, v_data,
 
     ks, kz, vs, vz = (side(a) for a in (k_scale, k_zp, v_scale, v_zp))
     ka = ks * sm
-    k = torch.zeros((B, H, n_max, PT, D), dtype=torch.int8 if a8 else
+    k = torch.zeros((B, H, n_max, PT, DK), dtype=torch.int8 if a8 else
                     torch.bfloat16, device=dev)
     if a8:
         off = 1 << (bits - 1)
-        k[..., :P, :] = (levels(k_data) - off).to(torch.int8)
-        v = torch.zeros((B, H, n_max, D, PT), dtype=torch.int8, device=dev)
-        v[..., vt_columns(PT, dev)[:P]] = (levels(v_data) - off).to(
+        k[..., :P, :D] = (levels(k_data) - off).to(torch.int8)
+        v = torch.zeros((B, H, n_max, DK, PT), dtype=torch.int8, device=dev)
+        v[..., :D, vt_columns(PT, dev)[:P]] = (levels(v_data) - off).to(
             torch.int8).transpose(3, 4)
         sides = (ka, ka * (kz - float(off)), vs, vz - float(off))
     else:
-        k[..., :P, :] = levels(k_data).to(torch.bfloat16)
+        k[..., :P, :D] = levels(k_data).to(torch.bfloat16)
         v = torch.zeros_like(k)
-        v[..., :P, :] = (levels(v_data).float() * vs[..., None]).to(
+        v[..., :P, :D] = (levels(v_data).float() * vs[..., None]).to(
             torch.bfloat16)
         sides = (ka, ka * kz, vs * vz)
     sd = torch.zeros((B, H, n_max, len(sides), PT), dtype=torch.float32,
@@ -290,11 +344,15 @@ def batched_paged_attention_unpacked_plain(q, page_tokens, n_pages, k, v,
     kernel on the CPU (`quant.core.div_const`).
 
     Tokens past page_tokens get logits of -1e30; out = acc * (1/l), and 0
-    with lse -1e30 where a slot had no page."""
+    with lse -1e30 where a slot had no page. The operands' rows past q's D
+    (zeros) are left out. (At kernel widths of 192 and 256 the bf16 kernel
+    steps its softmax half a page of 128 at a time, this version a page.)"""
     B, H, Sq, D = q.shape
     n_max = k.shape[2]
     P = page_size
     a8 = k.dtype == torch.int8
+    k = k[..., :D]
+    v = v[..., :D, :] if a8 else v[..., :D]
     dev = q.device
     qb = _bf16(q)
     if a8:
@@ -343,6 +401,46 @@ def batched_paged_attention_unpacked_plain(q, page_tokens, n_pages, k, v,
     out = acc * (1.0 / safe_l)
     if return_lse:
         lse = torch.where(has, m + torch.log(safe_l), NEG_INF)[..., 0]
+        return out, lse
+    return out
+
+
+def batched_paged_attention_fallback(q, page_tables, page_tokens, n_pages,
+                                     k_data, k_scale, k_zp, v_data, v_scale,
+                                     v_zp, bits: int, sm: float,
+                                     return_lse: bool = False,
+                                     head_group: int = 1):
+    """JAX's `_batched_fallback`, the XLA path of `batched_paged_attention`
+    (after `degroup_pool` where head_group > 1): every slot's chain gathered
+    and dequantized in f32, tokens past page_tokens and pages past n_pages
+    at -1e30, f32 softmax and out, whatever act_bits; a slot with no valid
+    token gives 0 and lse -1e30. Table entries past n_pages read slot 0."""
+    if head_group > 1:
+        k_data, v_data = (degroup_pool(a, head_group) for a in (k_data, v_data))
+        k_scale, k_zp, v_scale, v_zp = (degroup_sidecar(a, head_group) for a in
+                                        (k_scale, k_zp, v_scale, v_zp))
+    B, H, Sq, D = q.shape
+    n_max = page_tables.shape[1]
+    P = k_data.shape[2] * (8 // bits)
+    dev = q.device
+    page_ok = torch.arange(n_max, device=dev)[None, :] < n_pages[:, None]
+    slots = torch.where(page_ok, page_tables, 0).reshape(-1).to(torch.int64)
+
+    def chain(data, scale, zp):  # [B, H, n_max * P, D]
+        full = _dequant_pages(data, scale, zp, bits, slots)
+        return (full.reshape(B, n_max, H, P, D).transpose(1, 2)
+                .reshape(B, H, n_max * P, D))
+
+    kd, vd = chain(k_data, k_scale, k_zp), chain(v_data, v_scale, v_zp)
+    tok_ok = torch.arange(P, device=dev)[None, None, :] < page_tokens[:, :, None]
+    valid = (page_ok[:, :, None] & tok_ok).reshape(B, 1, 1, -1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kd) * sm
+    logits = torch.where(valid, logits, NEG_INF)
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), vd)
+    any_valid = valid.any(dim=-1)                            # [B, 1, 1]
+    out = torch.where(any_valid[..., None], out, 0.0)
+    if return_lse:
+        lse = torch.where(any_valid, torch.logsumexp(logits, dim=-1), NEG_INF)
         return out, lse
     return out
 
@@ -402,14 +500,14 @@ def paged_unpack(page_tables, n_pages, k_data, k_scale, k_zp, v_data,
                          f"tables {tuple(page_tables.shape)}")
     D, P, pools = _check_pools(name, (page_tables, n_pages), k_data, k_scale,
                                k_zp, v_data, v_scale, v_zp, bits, head_group)
-    H, PT = HG * head_group, tile_tokens(P)
+    H, PT, DK = HG * head_group, tile_tokens(P), kernel_width(D)
     if a8 and bits == 1:
         raise ValueError(f"{name}: 1-bit pages take the bf16 path")
     sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     dev = k_data.device
     dtype = torch.int8 if a8 else torch.bfloat16
-    k = torch.empty((B, H, n_max, PT, D), dtype=dtype, device=dev)
-    v = torch.empty((B, H, n_max, D, PT) if a8 else (B, H, n_max, PT, D),
+    k = torch.empty((B, H, n_max, PT, DK), dtype=dtype, device=dev)
+    v = torch.empty((B, H, n_max, DK, PT) if a8 else (B, H, n_max, PT, DK),
                     dtype=dtype, device=dev)
     side = torch.empty((B, H, n_max, 4 if a8 else 3, PT), dtype=torch.float32,
                        device=dev)
@@ -439,10 +537,19 @@ def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
     weights per page and query); 1-bit pages keep the bf16 path, as in the
     JAX package. On a CUDA tensor: `paged_unpack`, then one launch of the
     attention kernel (counted as `batched_paged_attention` or
-    `batched_paged_attention_a8`)."""
+    `batched_paged_attention_a8`). Where D % 8 != 0, JAX's XLA path on
+    either device (`batched_paged_attention_fallback`, exact math at any
+    act_bits)."""
     if act_bits not in (8, 16):
         raise ValueError(f"act_bits must be 8 or 16, got {act_bits}")
     a8 = act_bits == 8 and bits != 1
+    D = q.shape[-1]
+    if D % 8:  # JAX's XLA path, on either device
+        return batched_paged_attention_fallback(
+            q, page_tables, page_tokens, n_pages, k_data, k_scale, k_zp,
+            v_data, v_scale, v_zp, bits,
+            sm_scale if sm_scale is not None else 1.0 / math.sqrt(D),
+            return_lse, head_group)
     if q.device.type == "cpu":
         plain = (batched_paged_attention_a8_plain if a8
                  else batched_paged_attention_plain)
@@ -495,9 +602,8 @@ def _check_pools(name, tables, k_data, k_scale, k_zp, v_data, v_scale, v_zp,
     if G < 1 or GD % G:
         raise ValueError(f"{name}: head group {G} does not divide rows of {GD}")
     D, P = GD // G, Pp * (8 // bits)
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D}, the kernel is built for "
-                         f"{KERNEL_HEAD_DIMS}")
+    if not head_dim_fits(D):
+        raise _head_dim_error(name, D)
     if P not in KERNEL_PAGE_SIZES:
         raise ValueError(f"{name}: page size {P}, the kernel takes multiples "
                          "of 8 tokens up to 128")

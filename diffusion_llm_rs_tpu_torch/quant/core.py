@@ -116,6 +116,11 @@ class QuantizedTensor:
     def ndim(self) -> int:
         return len(self.shape)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype `dequantize` gives by default, as JAX's `dtype`."""
+        return torch.float32
+
     def num_elements(self) -> int:
         return math.prod(self.shape) if self.shape else 1
 

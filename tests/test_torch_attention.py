@@ -92,11 +92,13 @@ def test_attention_long_sequence_takes_dense_attention():
     np.testing.assert_allclose(flash.numpy(), einsum.numpy(), atol=ATOL)
 
 
-@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("D", [32, 128, 8, 24, 48, 80, 96, 256])
 @pytest.mark.parametrize("out", ["bfloat16", "float32"])
 def test_dense_attention_plain_matches_pallas_at_other_widths(D, out):
-    """Head widths 32 (the shipped anchor's) and 128, bf16 and f32 output,
-    against the interpreted kernel: P rounds to bf16 on both sides, so the
+    """Head widths 32 (the shipped anchor's) and 128, and every other width
+    JAX's kernel takes that the CUDA kernel runs padded (8 to 96: inside the
+    instances of 16, 32, 64 and 128) or at its widest (256), bf16 and f32
+    output, against the interpreted kernel: P rounds to bf16 on both sides, so the
     difference is f32 summation order and the frameworks' `exp` moving an
     occasional bf16(p): 1e-2 absolute in bf16 (as above), 2e-3 relative
     Frobenius in f32."""
@@ -117,3 +119,36 @@ def test_dense_attention_plain_matches_pallas_at_other_widths(D, out):
     np.testing.assert_allclose(got, ref, atol=ATOL)
     if out == "float32":
         assert rel < 2e-3
+
+
+@pytest.mark.parametrize("D", [12, 20])
+def test_flash_fold_takes_jax_einsum_branch_where_no_kernel_runs(D):
+    """Heads of no multiple of 8: JAX's `dense_attention` returns None and
+    `_flash_fold` runs its einsum; so does the port's `flash_fold`
+    (`dense_attention_einsum`), on either device, and launches nothing.
+    f32 on both sides, sums in another order: within 1e-5 relative, and the
+    gradients (JAX's VJP on both sides) within 1e-5."""
+    import jax
+    BH, S = 2, 1024
+    rng = np.random.default_rng(D)
+    q, k, v = (rng.normal(size=(BH, S, D)).astype(np.float32) for _ in range(3))
+    g = rng.normal(size=(BH, S, D)).astype(np.float32)
+    sm = 1.0 / math.sqrt(D)
+    assert jpa.dense_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v)) is None
+    jout, vjp = jax.vjp(lambda a, b, c: jdn._flash_fold(a, b, c, sm),
+                        *(jnp.asarray(a) for a in (q, k, v)))
+    jgrads = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    _build.reset_launch_counts()
+    tout = tdn.flash_fold(tq, tk, tv, sm)
+    assert sum(_build.launch_counts.values()) == 0
+    tgrads = torch.autograd.grad(tout, (tq, tk, tv), torch.from_numpy(g))
+    jout = np.asarray(jout)
+    rel = float(np.linalg.norm(tout.detach().numpy() - jout)
+                / np.linalg.norm(jout))
+    print(f"flash_fold einsum branch vs JAX, D={D}: rel {rel:.3g}")
+    assert rel < 1e-5
+    for a, b in zip(tgrads, jgrads):
+        b = np.asarray(b)
+        assert float(np.linalg.norm(a.numpy() - b) / np.linalg.norm(b)) < 1e-5

@@ -279,23 +279,25 @@ def test_sample_and_decode_match_w4a8(models, pallas_on):
     assert pallas_on and all(pallas_on)
 
 
-def test_long_sample_at_heads_of_16_matches_fp32(monkeypatch):
-    """The slice at `DiffusionConfig.tiny(max_sequence_length=1024)` (width
-    64, 4 heads of 16), B=1, S=1024, 2 steps, fp32: every layer's attention
-    goes through `flash_fold` in both packages, JAX's interpreted
-    `dense_attention` kernel (`use_pallas` patched to True, as on the TPU)
-    and the port's plain version, both over bf16 operands in KV tiles of
-    512. Within the fp32 sampler's 1e-5, tokens equal."""
-    jcfg = jcfg_mod.DiffusionConfig.tiny(max_sequence_length=1024)
+def _long_sample(monkeypatch, hidden, heads, seed):
+    """B=1, S=1024, 2 steps, fp32 of `tiny(hidden_size=hidden,
+    num_attention_heads=heads, max_sequence_length=1024)` in both packages,
+    JAX's `use_pallas` patched to True (as on the TPU): (JAX x, port x, JAX
+    tokens, port tokens, JAX's `dense_attention` results that were not None
+    at this head width, the port's `dense_attention_plain` shapes)."""
+    jcfg = jcfg_mod.DiffusionConfig.tiny(hidden_size=hidden,
+                                         num_attention_heads=heads,
+                                         max_sequence_length=1024)
     tcfg = tcfg_mod.diffusion_config_from_json(jcfg_mod.to_json(jcfg))
-    jparams = jdn.init_denoiser_params(jax.random.PRNGKey(2), jcfg)
+    jparams = jdn.init_denoiser_params(jax.random.PRNGKey(seed), jcfg)
     tparams = from_jax_params(_to_numpy(jparams), device="cpu")
     took, calls = [], []
     jdense, tdense = jpa.dense_attention, tat.dense_attention_plain
+    hd = hidden // heads
 
     def jrec(*a, **k):
         out = jdense(*a, **k)
-        took.append(out is not None and a[0].shape[-1] == 16)
+        took.append(out is not None and a[0].shape[-1] == hd)
         return out
 
     def trec(*a, **k):
@@ -307,12 +309,56 @@ def test_long_sample_at_heads_of_16_matches_fp32(monkeypatch):
     shape = (1, 1024, jcfg.hidden_size)
     jx, tx, jtok, ttok = _replayed_sample(jparams, tparams, jcfg, tcfg,
                                           shape, steps=2)
+    # and one forward's eps at t = 500, where eps is the whole output
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    jeps = np.asarray(jdn.denoiser_forward(jparams, jcfg, jnp.asarray(x),
+                                           jnp.array([500])))
+    teps = tdn.denoiser_forward(tparams, tcfg, torch.from_numpy(x),
+                                torch.tensor([500])).numpy()
+    return (jx, tx, jtok, ttok, took, calls, jcfg.num_layers,
+            _rel(teps, jeps))
+
+
+def test_long_sample_at_heads_of_16_matches_fp32(monkeypatch):
+    """The slice at `DiffusionConfig.tiny(max_sequence_length=1024)` (width
+    64, 4 heads of 16), B=1, S=1024, 2 steps, fp32: every layer's attention
+    goes through `flash_fold` in both packages, JAX's interpreted
+    `dense_attention` kernel (`use_pallas` patched to True, as on the TPU)
+    and the port's plain version, both over bf16 operands in KV tiles of
+    512. Within the fp32 sampler's 1e-5, tokens equal."""
+    jx, tx, jtok, ttok, took, calls, L, _ = _long_sample(monkeypatch, 64, 4,
+                                                         2)
     assert took and all(took)
-    assert calls == [(4, 1024, 16)] * (2 * jcfg.num_layers)
+    assert calls == [(4, 1024, 16)] * (3 * L)
     assert np.isfinite(tx).all()
     rel = _rel(tx, jx)
     print(f"S=1024 sampler at heads of 16, fp32: x rel {rel:.3g}")
     assert rel < 1e-5
+    assert ttok.shape == (1, 1024) and (ttok == jtok).mean() >= 0.99
+
+
+@pytest.mark.parametrize("heads,kernel", [(2, True), (8, False)])
+def test_long_sample_at_heads_of_48_and_12_matches_fp32(monkeypatch, heads,
+                                                        kernel):
+    """`tiny(hidden_size=96, num_attention_heads=2,
+    max_sequence_length=1024)`, heads of 48 (the CUDA kernel runs them
+    padded to 64): both packages' `flash_fold` take their dense kernels (JAX
+    interpreted, the port's plain version), as at heads of 16. With 8 heads
+    of 12 no kernel runs: JAX's `dense_attention` returns None and both
+    packages take `_flash_fold`'s einsum. B=1, S=1024, 2 steps, fp32:
+    within the fp32 sampler's 1e-5, tokens equal; and one forward's eps at
+    t = 500 within 1e-3 relative (the dense kernels round q, k, v and P to
+    bf16 on both sides and sum in another order; the einsum is f32)."""
+    jx, tx, jtok, ttok, took, calls, L, eps_rel = _long_sample(
+        monkeypatch, 96, heads, 3)
+    hd = 96 // heads
+    assert took and all(t == kernel for t in took)  # JAX traces once
+    assert calls == ([(heads, 1024, hd)] * (3 * L) if kernel else [])
+    assert np.isfinite(tx).all()
+    rel = _rel(tx, jx)
+    print(f"S=1024 sampler at heads of {hd}, fp32: x rel {rel:.3g}, one "
+          f"forward's eps rel {eps_rel:.3g}")
+    assert rel < 1e-5 and eps_rel < 1e-3
     assert ttok.shape == (1, 1024) and (ttok == jtok).mean() >= 0.99
 
 

@@ -21,6 +21,13 @@ from diffusion_llm_rs_tpu_torch.ops.attention import (
 
 pytestmark = pytest.mark.cuda
 
+# the head widths the attention kernels take besides 16, 32, 64 and 128
+# (multiples of 8 up to 256, each in the smallest instance of 16, 32, 64,
+# 128, 192 and 256 that holds it, zero past D): every new instance, at its
+# own width and padded
+WIDE = [8, 24, 48, 80, 96, 136, 192, 200, 256]
+HEAD_DIMS = [16, 32, 64, 128] + [pytest.param(d, id=f"D{d}") for d in WIDE]
+
 
 @pytest.fixture
 def gen():
@@ -280,7 +287,7 @@ def test_fused_qkv_attention_returns_none_where_jax_does(gen):
 
 @pytest.mark.parametrize("BH,Sq,Skv", [(3, 64, 64), (2, 100, 1000),
                                        (4, 128, 256), (2, 70, 130)])
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_dense_attention_kernel_matches_twin(gen, BH, Sq, Skv, D, out_dtype):
     """bf16 P rounds at other tile boundaries than the twin's (128-wide KV
@@ -301,12 +308,25 @@ def test_dense_attention_kernel_matches_twin(gen, BH, Sq, Skv, D, out_dtype):
 
 
 def test_kernels_refuse_what_they_do_not_take(gen):
+    """Heads of 48, which this test refused until the kernels took every
+    multiple of 8, now match the twin; heads wider than 256 (ROADMAP C41)
+    and of no multiple of 8 (JAX returns None, and `flash_fold` takes the
+    einsum) are refused."""
     x = torch.randn((4, 24), device="cuda")
     with pytest.raises(ValueError, match="K % 16"):
         im.int8w_matmul(x, _w(24, 8, gen), torch.ones(1, 8, device="cuda"))
     q = torch.randn((1, 8, 48), device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
-        dense_attention(q, q, q)
+    _build.reset_launch_counts()
+    out = dense_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["dense_attention"] == 1
+    ref = dense_attention_plain(q, q, q)
+    assert float((out.float() - ref.float()).norm() / ref.float().norm()) \
+        <= 1e-2
+    for D in (264, 12):
+        q = torch.randn((1, 8, D), device="cuda")
+        with pytest.raises(ValueError, match="head dim"):
+            dense_attention(q, q, q)
     q = torch.randn((1, 8, 64), device="cuda")
     with pytest.raises(ValueError, match="writes bf16 or f32"):
         dense_attention(q, q, q, out_dtype=torch.float16)
@@ -345,7 +365,13 @@ def _close(out, lse, ref, ref_lse):
 # (head dim, head group): the pool rows of 128 that `_choose_head_group`
 # builds for heads of 32, 64 and 128, heads of 64 ungrouped, and the 4 heads
 # of 16 of `DiffusionConfig.tiny()` (G = 1: 8 heads of 16 do not divide 4)
-DG = [(16, 1), (32, 4), (64, 1), (64, 2), (128, 1)]
+DG = [(16, 1), (32, 4), (64, 1), (64, 2), (128, 1)] + [
+    pytest.param(d, g, id=f"D{d}G{g}") for d, g in (
+        # every new width ungrouped, as `_choose_head_group` leaves 96 and
+        # 256; heads of 48 in groups of 8 (rows of 384), where JAX's kernel
+        # runs, and of 24 in groups of 2 (8-byte reads of the pool)
+        (8, 1), (24, 2), (48, 1), (48, 8), (80, 1), (96, 1), (136, 1),
+        (192, 1), (200, 1), (256, 1))]
 PAGES = [8, 16, 24, 32, 64, 72, 128]
 
 
@@ -354,8 +380,9 @@ PAGES = [8, 16, 24, 32, 64, 72, 128]
 @pytest.mark.parametrize("D,G", DG)
 def test_batched_paged_attention_kernel_matches_twin(gen, bits, P, D, G):
     """Three slots: three scattered pages with a partial last one, an empty
-    slot, and one page; 100 query rows (a ragged q tile)."""
-    B, H, Sq = 3, 4, 100
+    slot, and one page; 100 query rows (a ragged q tile); 4 heads, or one
+    group of G."""
+    B, H, Sq = 3, max(4, G), 100
     pools = _pools(gen, 7, H // G, P, G * D, bits, G)
     q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
     pt = torch.tensor([[5, 0, 3], [0, 0, 0], [6, 0, 0]], device="cuda",
@@ -385,7 +412,7 @@ def test_paged_unpack_kernel_equals_twin(gen, a8, bits, P, D, G):
     (pages past a slot's count are left unwritten): scattered slots, a table
     that reads another slot's pages, an empty slot, a compacted table. (1-bit
     pages take the bf16 path at either act_bits.)"""
-    B, H = 3, 4
+    B, H = 3, max(4, G)
     pools = _pools(gen, 7, H // G, P, G * D, bits, G)
     pt = torch.tensor([[5, 0, 3, 6], [0, 0, 0, 0], [6, 5, 0, 0]],
                       device="cuda", dtype=torch.int32)
@@ -408,7 +435,7 @@ def test_batched_paged_attention_long_tables(gen, act_bits, P, D, G):
     """Nine pages, more than the kernels' ring of three stages holds, with a
     partial last page, next to a slot that reads the first five entries of
     its table; 300 query rows (three tiles of 128, the last ragged)."""
-    B, H, Sq, n = 2, 4, 300, 9
+    B, H, Sq, n = 2, max(4, G), 300, 9
     pools = _pools(gen, 12, H // G, P, G * D, 4, G)
     q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
     pt = torch.stack([torch.randperm(12, generator=gen, device="cuda")[:n]
@@ -437,7 +464,7 @@ def test_batched_paged_attention_long_tables(gen, act_bits, P, D, G):
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("P", PAGES)
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 def test_paged_attention_kernel_matches_twin(gen, bits, P, D):
     BH, Sq = 4, 70
     pools = _pools(gen, 5, BH, P, D, bits, 1)
@@ -455,7 +482,7 @@ def test_paged_attention_kernel_matches_twin(gen, bits, P, D):
 
 
 @pytest.mark.parametrize("P", PAGES)
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 def test_paged_attention_kernel_masked_pages(gen, P, D):
     """Pages with no valid token (the first, and one in the middle), a
     partial page and slots in mixed order; and a chain whose every page is
@@ -491,16 +518,33 @@ def test_paged_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="head group"):
         pa.batched_paged_attention(q, pt, pt, npg, *pools, bits=4,
                                    head_group=3)
-    q48 = torch.randn((1, 2, 8, 48), device="cuda")
-    pools48 = _pools(gen, 2, 2, 64, 48, 4, 1)
-    with pytest.raises(ValueError, match="head dim"):
-        pa.batched_paged_attention(q48, pt, pt, npg, *pools48, bits=4)
     with pytest.raises(ValueError, match="empty page table"):
         pa.paged_attention(q[0], pt[0, :0], *pools, bits=4)
-    # heads of 48: no attention kernel is built for them (ROADMAP C39)
+    # heads of 48, refused here until the kernels took every multiple of 8,
+    # now match the twins; heads wider than 256 are refused (ROADMAP C41)
+    q48 = torch.randn((1, 2, 8, 48), device="cuda")
+    pools48 = _pools(gen, 2, 2, 64, 48, 4, 1)
+    nt = torch.full((1, 1), 64, dtype=torch.int32, device="cuda")
+    _build.reset_launch_counts()
+    out, lse = pa.batched_paged_attention(q48, pt, nt, npg, *pools48, bits=4,
+                                          return_lse=True)
+    out1, lse1 = pa.paged_attention(q48[0], pt[0], *pools48, bits=4,
+                                    return_lse=True)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {
+        "batched_paged_attention": 1, "paged_unpack": 1, "paged_attention": 1}
+    _close(out, lse, *pa.batched_paged_attention_plain(
+        q48, pt, nt, npg, *pools48, bits=4, return_lse=True))
+    _close(out1, lse1, *pa.paged_attention_plain(
+        q48[0], pt[0], *pools48, bits=4, return_lse=True))
+    q264 = torch.randn((1, 2, 8, 264), device="cuda")
+    pools264 = _pools(gen, 2, 2, 64, 264, 4, 1)
+    for act_bits in (16, 8):
+        with pytest.raises(ValueError, match="head dim"):
+            pa.batched_paged_attention(q264, pt, nt, npg, *pools264, bits=4,
+                                       act_bits=act_bits)
     with pytest.raises(ValueError, match="head dim"):
-        pa.paged_attention(torch.randn((2, 8, 48), device="cuda"), pt[0],
-                           *pools48, bits=4)
+        pa.paged_attention(q264[0], pt[0], *pools264, bits=4)
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -512,7 +556,7 @@ def test_batched_paged_attention_a8_kernel_matches_twin(gen, bits, P, D, G):
     the kernel differs from its twin only where expf's last bit moves an
     int8 level of the folded weights: 5e-3 relative, lse 1e-3; and it stays
     within the JAX package's a8-vs-bf16 bounds of the bf16 kernel."""
-    B, H, Sq = 3, 4, 100
+    B, H, Sq = 3, max(4, G), 100
     pools = _pools(gen, 7, H // G, P, G * D, bits, G)
     q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
     pt = torch.tensor([[5, 0, 3], [0, 0, 0], [6, 0, 0]], device="cuda",
@@ -598,7 +642,7 @@ def test_batched_paged_attention_a8_one_bit_runs_the_bf16_kernel(gen):
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("Sq,Skv", [(64, 64), (256, 256), (100, 100), (10, 10),
                                     (1, 1), (70, 1000)])
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 def test_quant_attention_kernel_matches_plain(gen, bits, Sq, Skv, D):
     """Every Sq and Skv runs the kernel (ragged q and KV tiles masked).
     Against the plain version at the kernel's KV tile: sums in another order
@@ -622,7 +666,7 @@ def test_quant_attention_kernel_matches_plain(gen, bits, Sq, Skv, D):
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("BH,S", [(96, 256), (24, 1024)])
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", HEAD_DIMS)
 def test_quant_attention_kernel_at_sampler_shapes(gen, bits, BH, S, D):
     """The scan sampler's shapes (B=8 x 12 heads at S=256, B=2 x 12 at
     S=1024) at every head width and bit width, against the plain version at
@@ -652,8 +696,20 @@ def test_quantize_kv_card_equals_cpu(gen, bits):
 
 
 def test_quant_attention_refuses_what_the_kernel_does_not_take(gen):
+    """Heads of 48, refused here until the kernel took every multiple of 8,
+    now match the plain version; heads wider than 256 are refused (ROADMAP
+    C41)."""
     q = torch.randn((2, 8, 48), generator=gen, device="cuda")
     k = qa.quantize_kv(torch.randn((2, 16, 48), generator=gen, device="cuda"), 4)
+    _build.reset_launch_counts()
+    out = qa.attention(q, k, k)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["quant_attention"] == 1
+    ref = qa.attention_plain(q, k, k, tile=qa.KERNEL_KV_TILE)
+    assert float((out - ref).norm() / ref.norm()) <= 2e-3
+    q = torch.randn((2, 8, 264), generator=gen, device="cuda")
+    k = qa.quantize_kv(torch.randn((2, 16, 264), generator=gen,
+                                   device="cuda"), 4)
     with pytest.raises(ValueError, match="head dim"):
         qa.attention(q, k, k)
     q = torch.randn((2, 8, 64), generator=gen, device="cuda")
@@ -753,7 +809,8 @@ def test_packed_matmul_kernel_at_engine_shapes(gen, M, N, K, mlp, bits):
     assert torch.equal(out, again)  # no atomics: the same bits every call
 
 
-@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("D", [16, 32, 64] + [
+    pytest.param(d, id=f"D{d}") for d in (48, 96, 256)])
 def test_flash_fold_gradient_matches_the_einsum_path(gen, D):
     """`flash_fold` (the kernel forward, JAX's f32 VJP) against autograd
     through the einsum path at S = 1024, both in f32: the forward differs by

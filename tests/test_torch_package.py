@@ -1,8 +1,12 @@
 """The PyTorch port stands apart from JAX: import rules, config JSON, build."""
 
 import ast
+import dataclasses
+import importlib
+import inspect
 import json
 import pathlib
+import pkgutil
 
 import jax  # noqa: F401  (both packages load in one process)
 import numpy as np
@@ -150,6 +154,45 @@ def test_package_surface_matches_jax():
     assert tpkg.quant.__all__ == jq.__all__
     for name in jq.__all__:
         assert getattr(tpkg.quant, name) is not None
+    # every public class of every JAX module has its public members (and
+    # dataclass fields) in the port's counterpart, but for JAX's pytree hooks
+    # (`tree_flatten`, `tree_unflatten`), which have none by design (as the
+    # module-level `use_pallas` has none)
+    missing = {}
+    for info in pkgutil.walk_packages(jpkg.__path__, "diffusion_llm_rs_tpu."):
+        rel = info.name.split(".", 1)[1]
+        if rel in NO_PORT_MODULE:
+            continue
+        jmod = importlib.import_module(info.name)
+        tmod = importlib.import_module(
+            "diffusion_llm_rs_tpu_torch." + PORT_MODULE.get(rel, rel))
+        for cname, cls in vars(jmod).items():
+            if cname.startswith("_") or not inspect.isclass(cls) or \
+                    cls.__module__ != info.name:
+                continue
+            tcls = getattr(tmod, cname, None)
+            if tcls is None:
+                missing[f"{rel}.{cname}"] = "class"
+                continue
+            gap = _members(cls) - _members(tcls) - PYTREE_HOOKS
+            if gap:
+                missing[f"{rel}.{cname}"] = sorted(gap)
+    assert not missing, missing
+
+
+# JAX modules whose counterpart has another name, and the one with none
+PORT_MODULE = {"ops.pallas_attention": "ops.attention",
+               "ops.pallas_matmul": "ops.int8_matmul",
+               "ops.pallas_paged_attention": "ops.paged_attention"}
+NO_PORT_MODULE = {"utils.platform"}  # every port entry point takes device=
+PYTREE_HOOKS = {"tree_flatten", "tree_unflatten"}
+
+
+def _members(cls):
+    names = {n for n in dir(cls) if not n.startswith("_")}
+    if dataclasses.is_dataclass(cls):
+        names |= {f.name for f in dataclasses.fields(cls)}
+    return names
 
 
 def test_examples_imports_resolve_in_the_port():

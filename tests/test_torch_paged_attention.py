@@ -451,3 +451,121 @@ def test_batched_a8_twin_at_pages_of_64(bits, G):
                                atol=2e-2)
     assert np.all(tout[1].numpy() == 0)
     assert np.all(tlse[1].numpy() == tpa.NEG_INF)
+
+
+# the head widths the CUDA kernels run padded (8 to 96) or at their widest
+# (256), and the head group each batched case takes: JAX's batched kernel
+# runs where a pool row is whole 128-lane blocks (heads of 48 in groups of 8,
+# of 96 in groups of 4, of 256 alone), its fall-back elsewhere
+WIDE = [(8, 1), (24, 1), (48, 8), (80, 1), (96, 4), (256, 1)]
+
+
+@pytest.mark.parametrize("D,G", WIDE)
+@pytest.mark.parametrize("act_bits", [16, 8])
+def test_batched_twins_at_wide_and_padded_heads_match_jax(D, G, act_bits):
+    """4-bit pages of 128, slot 0 over both pages (the last partial), slot 1
+    inactive; G heads (at least 2). Where JAX runs its interpreted kernel
+    (G*D % 128 == 0): the bf16 twin within 1e-3 relative and lse 1e-4, as
+    at heads of 64; the int8 twin within the 2e-3 (lse 2e-3) of its IEEE
+    divisions. Where JAX runs its exact f32 fall-back: the bf16 twin within
+    2e-2 and the int8 twin within JAX's a8 bound 3.5e-2, the lse within 2e-2
+    (bf16 q moves a logit by 2^-9 of its size), as at heads of 32."""
+    B, H, Sq, P, bits = 2, max(2, G), 16, 128, 4
+    rng = np.random.default_rng(D + G + act_bits)
+    pools = _grouped_pools(rng, H, 2 * P, D, P, G, bits)
+    q = rng.normal(size=(B, H, Sq, D)).astype(np.float32)
+    jout, jlse = jppa.batched_paged_attention(
+        *_j(q, PT, NT, NPG, *pools), bits=bits, return_lse=True,
+        head_group=G, act_bits=act_bits)
+    tout, tlse = tpa.batched_paged_attention(
+        *_t(q, PT, NT, NPG, *pools), bits=bits, return_lse=True,
+        head_group=G, act_bits=act_bits)
+    kernel, a8 = G * D % 128 == 0, act_bits == 8
+    rel, lse = _rel(tout[0], jout[0]), _lse_err(tlse, jlse)
+    print(f"batched {'a8' if a8 else 'bf16'} twin vs JAX "
+          f"{'kernel' if kernel else 'fall-back'}, D={D} G={G}: rel "
+          f"{rel:.3g}, lse {lse:.3g}")
+    assert tout.shape == (B, H, Sq, D)
+    if kernel:
+        assert rel < (2e-3 if a8 else 1e-3) and lse < (2e-3 if a8 else 1e-4)
+    else:
+        assert rel < (3.5e-2 if a8 else 2e-2)
+        np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=2e-2,
+                                   atol=2e-2)
+    assert np.all(tout[1].numpy() == 0)
+    assert np.all(tlse[1].numpy() == tpa.NEG_INF)
+
+
+@pytest.mark.parametrize("D", [8, 24, 48, 80, 96, 256])
+def test_single_twin_at_wide_and_padded_heads_matches_jax(D):
+    """One sequence over three scattered 4-bit pages of 128, the last one
+    partial. JAX runs its interpreted kernel at D=256 (D % 128 == 0): within
+    1e-3 relative and lse 1e-4, as at D=128; its fall-back elsewhere: within
+    ROADMAP C9's 2e-2, lse 2e-2, as at heads of 16."""
+    BH, Sq, P, bits = 2, 16, 128, 4
+    rng = np.random.default_rng(300 + D)
+    pools = _grouped_pools(rng, BH, 4 * P, D, P, 1, bits)
+    q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
+    pt = np.array([3, 0, 2], np.int32)
+    nt = np.array([P, P, 45], np.int32)
+    jout, jlse = jppa.paged_attention(*_j(q, pt, *pools), bits=bits,
+                                      page_tokens=jnp.asarray(nt),
+                                      return_lse=True)
+    tout, tlse = tpa.paged_attention(*_t(q, pt, *pools), bits=bits,
+                                     page_tokens=torch.from_numpy(nt),
+                                     return_lse=True)
+    kernel = D % 128 == 0
+    rel, lse = _rel(tout, jout), _lse_err(tlse, jlse)
+    print(f"single twin vs JAX {'kernel' if kernel else 'fall-back'}, D={D}: "
+          f"rel {rel:.3g}, lse {lse:.3g}")
+    assert tout.shape == (BH, Sq, D)
+    if kernel:
+        assert rel < 1e-3 and lse < 1e-4
+    else:
+        assert rel < 2e-2
+        np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("D,G", [(12, 1), (12, 2), (20, 1)])
+def test_fallback_ports_match_jax_where_no_kernel_runs(bits, D, G):
+    """Heads of no multiple of 8: JAX's wrappers run `_fallback` and
+    `_batched_fallback`, and so do the port's (`paged_attention_fallback`,
+    `batched_paged_attention_fallback`, at either act_bits), launching
+    nothing; the same f32 math in another order: outputs within 1e-5
+    relative, lse within 1e-5; the inactive slot 0 with lse -1e30."""
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    B, H, Sq, P = 2, 4, 10, 64
+    rng = np.random.default_rng(500 + bits + D + G)
+    pools = _grouped_pools(rng, H, 3 * P, D, P, G, bits)
+    q = rng.normal(size=(B, H, Sq, D)).astype(np.float32)
+    pt = np.array([[2, 0], [0, 0]], np.int32)
+    nt = np.array([[P, 33], [0, 0]], np.int32)
+    npg = np.array([2, 0], np.int32)
+    _build.reset_launch_counts()
+    for act_bits in (16, 8):
+        jout, jlse = jppa.batched_paged_attention(
+            *_j(q, pt, nt, npg, *pools), bits=bits, return_lse=True,
+            head_group=G, act_bits=act_bits)
+        tout, tlse = tpa.batched_paged_attention(
+            *_t(q, pt, nt, npg, *pools), bits=bits, return_lse=True,
+            head_group=G, act_bits=act_bits)
+        rel = _rel(tout[0], jout[0])
+        print(f"batched fall-back vs JAX, {bits}-bit D={D} G={G} act "
+              f"{act_bits}: rel {rel:.3g}, lse {_lse_err(tlse, jlse):.3g}")
+        assert rel < 1e-5 and _lse_err(tlse, jlse) < 1e-5
+        assert np.all(tout[1].numpy() == 0)
+        assert np.all(tlse[1].numpy() == tpa.NEG_INF)
+    if G == 1:
+        pools1 = _grouped_pools(rng, H, 3 * P, D, P, 1, bits)
+        jout, jlse = jppa.paged_attention(
+            *_j(q[0], pt[0], *pools1), bits=bits, page_tokens=jnp.asarray(nt[0]),
+            return_lse=True)
+        tout, tlse = tpa.paged_attention(
+            *_t(q[0], pt[0], *pools1), bits=bits,
+            page_tokens=torch.from_numpy(nt[0]), return_lse=True)
+        print(f"single fall-back vs JAX, {bits}-bit D={D}: rel "
+              f"{_rel(tout, jout):.3g}, lse {_lse_err(tlse, jlse):.3g}")
+        assert _rel(tout, jout) < 1e-5 and _lse_err(tlse, jlse) < 1e-5
+    assert sum(_build.launch_counts.values()) == 0

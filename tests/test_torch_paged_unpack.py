@@ -196,7 +196,13 @@ NPG = torch.tensor([3, 0, 1], dtype=torch.int32)
 # (pages of 64, G = 1 and 2) and the anchor's pools (heads of 32 in fours,
 # pages of 8, 16, 32)
 GRID = [(64, 2, 128), (64, 1, 64), (64, 2, 64), (32, 4, 8), (32, 4, 16),
-        (32, 4, 32)]
+        (32, 4, 32)] + [
+    # heads the CUDA kernels run padded (scratch rows of the next instance's
+    # width, zero past D) and at their widest: heads of 48 in groups of 8
+    # (rows of 384 lanes, JAX's kernel shape), of 24 in pairs (8-byte reads
+    # of a pool row in the kernel), of 8, 80, 96 and 256
+    (8, 1, 8), (24, 2, 72), (48, 8, 128), (80, 1, 64), (96, 1, 128),
+    (256, 1, 128)]
 
 
 @pytest.mark.parametrize("D,G,P", GRID)
@@ -251,11 +257,14 @@ def _jax_deq(data, scale, zp, page_tables, bits):
 
 @pytest.mark.parametrize("P", [8, 32, 64, 72, 128])
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
-@pytest.mark.parametrize("D,G", [(64, 1), (64, 2), (32, 4)])
+@pytest.mark.parametrize("D,G", [(64, 1), (64, 2), (32, 4), (8, 1), (24, 2),
+                                 (48, 8), (96, 1), (256, 1)])
 def test_unpacked_levels_match_jax_dequantization(P, bits, D, G):
     """K levels of both layouts and the int8 layout's V levels (centered,
     column-permuted), recombined as (lv - zp) * scale in f32, equal JAX's
-    dequantized pages bit for bit. Slot 1's table reads slot 0's pages."""
+    dequantized pages bit for bit; the scratch's rows past D (heads run
+    padded to the kernels' next width) are zero. Slot 1's table reads slot
+    0's pages."""
     q, pools = _case(7 * bits + P + D + G, bits, P, D, G)
     kd, ks, kz, vd, vs, vz = pools
     B, H = 2, q.shape[1]
@@ -277,16 +286,18 @@ def test_unpacked_levels_match_jax_dequantization(P, bits, D, G):
                       jppa.degroup_sidecar(jnp.asarray(kz.numpy()), G),
                       jpt, bits)
     k, _, _ = tpa.paged_unpack_plain(pt, npg, *pools, bits=bits, head_group=G)
+    assert k.shape[-1] == tpa.kernel_width(D) and not k[..., D:].any()
     np.testing.assert_array_equal(
-        recombine(k[..., :P, :].float(), ks, kz), want_k)
+        recombine(k[..., :P, :D].float(), ks, kz), want_k)
     if bits == 1:  # 1-bit pages have no int8 layout
         return
     off = float(1 << (bits - 1))
     k8, vt, _ = tpa.paged_unpack_plain(pt, npg, *pools, bits=bits,
                                        head_group=G, a8=True)
     np.testing.assert_array_equal(
-        recombine(k8[..., :P, :].float() + off, ks, kz), want_k)
-    v_lv = vt[..., tpa.vt_columns(PT)[:P]].transpose(3, 4).float() + off
+        recombine(k8[..., :P, :D].float() + off, ks, kz), want_k)
+    assert not k8[..., D:].any() and not vt[..., D:, :].any()
+    v_lv = vt[..., :D, tpa.vt_columns(PT)[:P]].transpose(3, 4).float() + off
     want_v = _jax_deq(jppa.degroup_pool(jnp.asarray(vd.numpy()), G),
                       jppa.degroup_sidecar(jnp.asarray(vs.numpy()), G),
                       jppa.degroup_sidecar(jnp.asarray(vz.numpy()), G),

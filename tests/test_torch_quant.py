@@ -122,3 +122,16 @@ def test_quantize_tree_matches_jax():
     for key in ("pos_embed", "small"):
         assert isinstance(tt[key], torch.Tensor)
     assert isinstance(tt["blocks"][0]["b"], torch.Tensor)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_quantized_tensor_dtype_matches_jax(bits):
+    """`QuantizedTensor.dtype` is the dtype `dequantize` gives by default:
+    float32 in both packages."""
+    w = _weights(64, 64, bits)
+    jt = jq.quantize(jnp.asarray(w), bits)
+    tt = tq.quantize(torch.from_numpy(w), bits)
+    assert np.dtype(jt.dtype) == np.float32
+    assert tt.dtype == torch.float32
+    assert tt.dequantize().dtype == tt.dtype
+    assert np.dtype(jq.dequantize(jt).dtype) == np.dtype(jt.dtype)

@@ -121,14 +121,16 @@ def test_plain_matches_jax_kernel(bits, Skv):
     assert rel < 1e-4
 
 
-@pytest.mark.parametrize("D", [16, 32, 128])
+@pytest.mark.parametrize("D", [16, 32, 128, 8, 24, 48, 80, 96, 256])
 @pytest.mark.parametrize("bits", [8, 4, 2, 1])
 def test_plain_matches_jax_at_other_head_widths(bits, D):
     """Heads of 16 (`DiffusionConfig.tiny()`'s), 32 (the shipped anchor's)
-    and 128, BH=4, Sq=16, Skv=128. JAX runs its interpreted kernel where a
-    packed row splits into whole 8-channel blocks (D % (8 * vpb) == 0):
-    within 1e-4 relative, as at D=64. At D=32 and 1 bit, and at D=16 and 2
-    or 1 bits, it takes `_attention_fallback`: within its 2e-2."""
+    and 128, and the widths the CUDA kernel runs padded (8 to 96) or at its
+    widest (256), BH=4, Sq=16, Skv=128. JAX runs its interpreted kernel where
+    a packed row splits into whole 8-channel blocks (D % (8 * vpb) == 0):
+    within 1e-4 relative, as at D=64. Elsewhere (D=32 at 1 bit, D=16 at 2 or
+    1 bits, D=8 and 24 at 4 bits and below, ...) it takes
+    `_attention_fallback`: within its 2e-2."""
     rng = np.random.default_rng(90 + bits + D)
     BH, Sq, Skv = 4, 16, 128
     q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
@@ -170,7 +172,7 @@ def test_plain_tile_of_the_cuda_kernel(bits):
     assert _rel(t64, t256) < 5e-3 and _rel(t64, jout) < 5e-3
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 8, 24, 48, 80, 96, 256])
 @pytest.mark.parametrize("bits", [8, 4, 2, 1])
 def test_plain_at_the_kernel_tile_matches_jax(bits, D):
     """`attention_plain` at the CUDA kernel's KV tile (64 tokens) against
@@ -259,3 +261,29 @@ def test_attention_sm_scale_and_checks():
         tat.attention(q[:1], k, v)
     with pytest.raises(ValueError, match="unsupported device"):
         tat.attention(q.to("meta"), k, v)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("D", [12, 20])
+def test_attention_takes_jax_fallback_where_no_kernel_runs(bits, D):
+    """Heads of no multiple of 8 (12 and 20, packable at 8, 4 and 2 bits):
+    JAX's `attention` runs `_attention_fallback`, and so does the port's, on
+    either device (`attention_fallback`), launching nothing. The same bf16
+    roundings on both sides; f32 sums in another order can flip a bf16(p):
+    within 1e-4 relative (measured 6.7e-8 to 1.3e-5 at D=12)."""
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    rng = np.random.default_rng(60 + bits + D)
+    BH, Sq, Skv = 4, 16, 128
+    q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
+    jk, jv = (jpa.quantize_kv(jnp.asarray(_kv(rng, BH, Skv, D)), bits)
+              for _ in range(2))
+    jout = jpa.attention(jnp.asarray(q), jk, jv)
+    jfb = jpa._attention_fallback(jnp.asarray(q), jk, jv, 1.0 / math.sqrt(D))
+    np.testing.assert_array_equal(np.asarray(jout), np.asarray(jfb))
+    _build.reset_launch_counts()
+    tout = tat.attention(torch.from_numpy(q), _to_torch(jk), _to_torch(jv))
+    assert sum(_build.launch_counts.values()) == 0
+    rel = _rel(tout, jout)
+    print(f"attention_fallback vs JAX, {bits}-bit D={D}: rel {rel:.3g}")
+    assert tout.dtype == torch.float32 and tuple(tout.shape) == (BH, Sq, D)
+    assert rel < 1e-4
