@@ -52,7 +52,18 @@ Phases (any failure makes the script exit non-zero without the final line):
                 (BH=12), 96 and 128 (BH=6) and 256 (BH=3); both batched
                 paged kernels at heads_wide's serving shape (B=2, Sq=2048,
                 16 pages of 128, 4-bit) with 16 heads of 48 in groups of 8,
-                8 of 96, 8 of 128 and 3 of 256.
+                8 of 96, 8 of 128 and 3 of 256. The wide instances (heads
+                past 256, csrc/wide_flash.cuh), timed at the work of heads
+                of 128: dense attention at heads of 384 (BH=16) and 768
+                (BH=8), S=1024; quant_attention at 384 (BH=16) and 768
+                (BH=8), S=256; paged_attention at 384 (BH=2) and 768 (BH=1);
+                both batched paged kernels and paged_unpack at heads_wide's
+                serving shape with 2 heads of 384 and one of 768; and
+                untimed at heads of 264 (a ragged column block, packed rows
+                of 33 bytes at 1 bit) and 2048. The kernels line gives each
+                design's wide instance as `wide_instance` (its first timed
+                row, and its launches on heads_wide's heads of 384 and
+                768).
   4. sampler  - the W4A8 sampler at full width (12 layers, 768 wide, 12 heads,
                 vocab 50257; random weights from a seed, quantized in the
                 port): B=8, S=256, 32 steps, bf16 activations, timed 5 times
@@ -139,9 +150,11 @@ Phases (any failure makes the script exit non-zero without the final line):
                 counts; scan_check, cache_attend, long_seq and train_grad
                 themselves, run at tiny's widths with their bounds),
                 heads_wide (every attention path at full width, W4A8, with
-                8 heads of 96 and with 3 heads of 256: the S=1024 sampler,
-                `Engine.sample(use_paged=False)` over the engine's packed
-                model of the config, the paged batcher at S=2048 with bf16
+                8 heads of 96, 3 of 256, 2 of 384 and one of 768, the last
+                two in the wide instances: the S=1024 sampler,
+                `Engine(config, params=...).sample(use_paged=False)` over
+                the decoded W4A8 weights (f32 residuals into the W4A8
+                kernels), the paged batcher at S=2048 with bf16
                 and int8 attention, `PagedKVCache.attend`; exact launch
                 counts, token ranges, card vs CPU within heads16's bounds,
                 each replaying path against eager bit for bit)
@@ -192,9 +205,11 @@ Phases (any failure makes the script exit non-zero without the final line):
     python3 chip_smoke.py --parent DIR
 
 also times the attention kernels (`quant_attention`, `dense_attention`,
-`paged_attention` at the head widths 16, 32, 64 and 128; `paged_unpack` in
-both layouts and each batched paged kernel alone at serve_paged's pools,
-heads of 16 to 128; `PARENT_SHAPES`) of the checkout unpacked in DIR (the
+`paged_attention` at the head widths 16, 32, 64, 96, 128, 192 and 256;
+`paged_unpack` in both layouts and each batched paged kernel alone at
+serve_paged's pools, heads of 16 to 256; `PARENT_SHAPES`; the wide
+instances at heads of 384 and 768 as new rows, which a parent without them
+does not time) of the checkout unpacked in DIR (the
 parent commit, `git archive`) and of this one, each built and timed by its
 own chip_smoke.py in a process of its own (parent, this, this, parent);
 the runs line carries them as `parent_kernels`.
@@ -219,6 +234,7 @@ PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core rate
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bytes/s
 EX2_PER_SM_CLOCK = 16     # ex2 (MUFU) results a Hopper SM gives a clock
+WIDE_FROM = 256           # heads wider run the attention kernels' wide instance
 # the card's SMs and its highest SM clock (Hz), read by the device phase
 CARD = {}
 
@@ -515,7 +531,9 @@ def kernels():
     # at S=1024, which fills the card, timed. The widths between and past
     # the instances of 16-128 (`heads_wide`): heads of 48 and 96 at the work
     # of heads of 128 (BH=48), run padded in the instances of 64 and 128,
-    # and heads of 256 at BH=24, timed.
+    # and heads of 256 at BH=24, timed. The wide instance (heads past 256):
+    # heads of 384 and 768 at the work of heads of 128 (BH=16 and 8), timed;
+    # heads of 264 (a ragged column block) and of 2048 with f32 out.
     # bf16 P: the kernel's 128-wide KV tiles rescale at other points than the
     # twin's 512-wide ones, so bf16(p) may round differently: |d| <= 1e-2 and
     # rel Frobenius <= 1e-2
@@ -524,7 +542,9 @@ def kernels():
             (48, 1024, 128, bf16, True), (16, 1024, 32, f32, False),
             (8, 1024, 16, f32, True), (8, 32, 16, bf16, True),
             (128, 1024, 16, bf16, True), (48, 1024, 48, bf16, True),
-            (48, 1024, 96, bf16, True), (24, 1024, 256, bf16, True)):
+            (48, 1024, 96, bf16, True), (24, 1024, 256, bf16, True),
+            (16, 1024, 384, bf16, True), (8, 1024, 768, bf16, True),
+            (8, 300, 264, bf16, False), (8, 256, 2048, f32, False)):
         q, k, v = (torch.randn((BH, S, Dh), generator=gen, device="cuda")
                    .to(bf16) for _ in range(3))
         out = dense_attention(q, k, v, out_dtype=dtype)
@@ -533,7 +553,8 @@ def kernels():
         ok = ok and rel <= 1e-2 and out.dtype == dtype
         row = dict(shape=f"BH={BH} S={S} D={Dh} {str(dtype)[6:]} out",
                    max_abs_err=err, rel_err=rel,
-                   tolerance="|d| <= 1e-2, rel Frobenius <= 1e-2")
+                   tolerance="|d| <= 1e-2, rel Frobenius <= 1e-2",
+                   wide=Dh > WIDE_FROM)
         if timed:
             row["ms"] = time_ms(lambda: dense_attention(q, k, v,
                                                         out_dtype=dtype))
@@ -765,7 +786,7 @@ def _unpack_case(pa, label, shape, args, npages, bits, G, timed, results,
         scratch = sum(t.numel() * t.element_size() for t in got)
         urow = dict(shape=f"{shape} {mode} layout", max_abs_err=err,
                     tolerance="bit for bit on every live page",
-                    scratch_bytes=scratch)
+                    scratch_bytes=scratch, wide=D > WIDE_FROM)
         if timed:
             urow["ms"] = time_ms(lambda: pa.paged_unpack(
                 pt, npg, *pools, bits=bits, head_group=G, a8=a8))
@@ -845,10 +866,15 @@ def _paged_kernels(gen, results, bad):
     # slot, 4-bit): heads of 96 and of 128 (8 heads, the same instance),
     # heads of 256 (its 3 heads), and the 16 heads of 48 of width 768 in
     # groups of 8 (rows of 384 lanes, where JAX's kernel runs), timed
+    # and past 256, the wide instance: the 2 heads of 384 and the head of
+    # 768 of width 768, timed; heads of 264 (a ragged column block), partial
+    # pages of 72 and an empty slot
     cases += [(f"heads of {D} in groups of {G}, S=2048 4-bit", 4, 2, 2048,
                128, ([16, 16], [128, 128]), True, (H, G, D))
               for H, G, D in ((16, 8, 48), (8, 1, 96), (8, 1, 128),
-                              (3, 1, 256))]
+                              (3, 1, 256), (2, 1, 384), (1, 1, 768))]
+    cases += [("heads of 264, pages of 72, partial page + empty slot", 4, 2,
+               300, 72, ([5, 0], [40, 72]), False, (2, 1, 264))]
     for label, bits, B, sq, P, (npages, last), timed, (H, G, D) in cases:
         pools = _quantized_pools(gen, B * n, H, P, D, G, bits)
         q = torch.randn((B, H, sq, D), generator=gen, device="cuda").to(
@@ -871,7 +897,7 @@ def _paged_kernels(gen, results, bad):
                 bool((lse[slot] == pa.NEG_INF).all())
         row = dict(shape=f"{label}: B={B} H={H} D={D} G={G} Sq={sq} P={P} "
                    f"pages={npages}", max_abs_err=err, rel_err=rel,
-                   lse_err=lse_err, tolerance=tol)
+                   lse_err=lse_err, tolerance=tol, wide=D > WIDE_FROM)
         # the pages read and the keys attended (timed cases: whole pages,
         # as many a slot)
         n_live = sum(npages)
@@ -921,7 +947,7 @@ def _paged_kernels(gen, results, bad):
             (out8 - ref8).abs().max()), rel_err=rel8, lse_err=lse_err8,
             rel_to_bf16_kernel=rel16, lse_to_bf16_kernel=lse16,
             tolerance="rel Frobenius <= 5e-3, |lse| <= 1e-3; of the bf16 "
-            "kernel <= 3.5e-2, |lse| <= 2e-2")
+            "kernel <= 3.5e-2, |lse| <= 2e-2", wide=D > WIDE_FROM)
         if timed:
             row8["ms"] = time_ms(lambda: pa.batched_paged_attention(
                 *args, bits=bits, head_group=G, act_bits=8))
@@ -962,7 +988,8 @@ def _paged_kernels(gen, results, bad):
                 *args, bits=bits, page_tokens=nt, return_lse=True)
             err, rel, lse_err, ok = _paged_compare(out, lse, ref, ref_lse)
             row = dict(shape=_paged_label(label, *case), max_abs_err=err,
-                       rel_err=rel, lse_err=lse_err, tolerance=tol)
+                       rel_err=rel, lse_err=lse_err, tolerance=tol,
+                       wide=D > WIDE_FROM)
             if last == P:
                 row["ms"] = time_ms(lambda: pa.paged_attention(
                     *args, bits=bits, page_tokens=nt))
@@ -990,11 +1017,14 @@ def _paged_kernels(gen, results, bad):
 # of 16, Sq=64 over 8 pages of 8 (phase heads16's `cache_attend`, there at
 # three widths); heads of 16 at Sq=1024 over 8 pages of 128; and the
 # widths of `heads_wide`: heads of 48 at the sampler's work (BH=12),
-# heads of 96 beside heads of 128 at BH=6, heads of 256 at BH=3
+# heads of 96 beside heads of 128 at BH=6, heads of 256 at BH=3, and the
+# wide instance's heads of 384 and 768 at the work of heads of 128 (BH=2
+# and 1); heads of 264 at 1 bit in pages of 64 (rows of 33 bytes)
 PAGED_CASES = ((12, 1024, 8, 4, 128, 64), (8, 64, 8, 4, 8, 16),
                (4, 1024, 8, 4, 128, 16), (12, 1024, 8, 4, 128, 48),
                (6, 1024, 8, 4, 128, 96), (6, 1024, 8, 4, 128, 128),
-               (3, 1024, 8, 4, 128, 256))
+               (3, 1024, 8, 4, 128, 256), (2, 1024, 8, 4, 128, 384),
+               (1, 1024, 8, 4, 128, 768), (3, 200, 4, 1, 64, 264))
 
 
 def _paged_label(label, BH, Sq, n, bits, P, D):
@@ -1030,7 +1060,15 @@ QA_CASES = (
     ("heads of 256, 4-bit", 24, 256, 256, 4, True, 256),
     ("heads of 96, ragged 1-bit", 16, 100, 100, 1, False, 96),
     ("heads of 96, 8-bit", 64, 256, 256, 8, False, 96),
-    ("heads of 256, ragged 2-bit", 6, 100, 100, 2, False, 256))
+    ("heads of 256, ragged 2-bit", 6, 100, 100, 2, False, 256),
+    # the wide instance: heads of 384 and 768 at the work of heads of 128
+    # above (BH=16 and 8), timed; heads of 264 at 1 bit (packed rows of 33
+    # bytes), ragged; heads of 768 at 8 and 2 bits
+    ("heads of 384, 4-bit", 16, 256, 256, 4, True, 384),
+    ("heads of 768, 4-bit", 8, 256, 256, 4, True, 768),
+    ("heads of 264, ragged 1-bit", 6, 100, 100, 1, False, 264),
+    ("heads of 768, 8-bit", 8, 256, 256, 8, False, 768),
+    ("heads of 768, ragged 2-bit", 4, 100, 130, 2, False, 768))
 
 
 def _qa_label(label, BH, Sq, Skv, bits, D):
@@ -1076,7 +1114,8 @@ def _quant_attention_kernels(gen, results, bad):
         err, rel, _ = _compare(out, ref, 0.0, 0.0)
         ok = rel <= 2e-3 and bool(torch.isfinite(out).all())
         row = dict(shape=_qa_label(label, BH, Sq, Skv, bits, D),
-                   max_abs_err=err, rel_err=rel, tolerance=tol)
+                   max_abs_err=err, rel_err=rel, tolerance=tol,
+                   wide=D > WIDE_FROM)
         if timed:
             row["ms"] = time_ms(lambda: qa.attention(q, k, v))
             row["plain_ms"] = time_ms(lambda: qa.attention_plain(
@@ -1930,23 +1969,28 @@ def heads16():
     return out
 
 
-WIDE_HEADS = (8, 3)  # heads of 96 and of 256 at width 768
+# heads of 96 and 256 (the fixed instances) and of 384 and 768 (the wide
+# instances, csrc/wide_flash.cuh) at width 768
+WIDE_HEADS = (8, 3, 2, 1)
 
 
 def heads_wide():
     """Every attention path at the repo's headline width (12 layers, width
     768, vocab 50257, W4A8 decoded weights from seed 0, as `sampler` builds
-    them) with heads between and at the widest of the kernels' instances:
-    `DiffusionConfig(num_attention_heads=8)`, 8 heads of 96 (run in the
-    instances of 128, zero past 96), and `num_attention_heads=3`, 3 heads of
-    256 (where JAX runs a Pallas kernel at every call site). On each model,
-    through the entry points a user calls, each call's launch counts reset
-    just before it and checked exactly after it:
+    them) with heads between, at and past the widest of the kernels' fixed
+    instances: `DiffusionConfig(num_attention_heads=8)`, 8 heads of 96 (run
+    in the instances of 128, zero past 96), `num_attention_heads=3`, 3 heads
+    of 256, and `num_attention_heads=2` and `1`, 2 heads of 384 and one of
+    768 (the wide instance of each design; JAX runs a Pallas kernel at every
+    call site of all four). On each model, through the entry points a user
+    calls, each call's launch counts reset just before it and checked
+    exactly after it:
       - `sample` at B=2, S=1024, 2 steps: dense_attention, L a step;
-      - `Engine(config=...)`, `quantize_weights(4)`, `sample(batch_size=8,
-        seq_len=256, num_steps=8, use_paged=False)`: the scan sampler over
-        the engine's packed model of the same config, quant_attention at 8,
-        4 and 2 bits, L a step after the bootstrap;
+      - `Engine(config, params=<the decoded W4A8 weights>)`,
+        `sample(batch_size=8, seq_len=256, num_steps=8, use_paged=False)`:
+        the scan sampler, whose f32 activations meet the W4A8 kernels with
+        an f32 residual (ROADMAP C42), quant_attention at 8, 4 and 2 bits, L
+        a step after the bootstrap;
       - `PagedContinuousBatcher` at S=2048, pages of 128, 4-bit KV, 2 slots,
         4 requests of 2 steps, with bf16 and with int8 attention
         (`attn_act_bits=8`): paged_unpack and the batched paged kernel, L a
@@ -1968,7 +2012,7 @@ def heads_wide():
         DiffusionSchedule, sample)
     from diffusion_llm_rs_tpu_torch.serving import PagedContinuousBatcher
 
-    out, total = {}, {}
+    out, total, wide = {}, {}, {}
     for heads in WIDE_HEADS:
         t0 = time.perf_counter()
         cfg, params = full_width_model(max_seq=2048, heads=heads)
@@ -2017,18 +2061,15 @@ def heads_wide():
                                  f"disagrees with the CPU")
         runs["eps_rel_err_s1024"] = rel
 
-        # the scan sampler through the engine, over the engine's own model of
-        # this config packed by `quantize_weights(4)` as a user packs it (its
-        # f32 activations would reach the W4A8 kernels with an f32 residual,
-        # which they refuse: ROADMAP C42): quant_attention
-        eng = Engine(config=cfg, seed=0, device="cuda")
-        eng.quantize_weights(4)
+        # the scan sampler through the engine over this model's decoded W4A8
+        # weights: its f32 activations reach the W4A8 kernels with an f32
+        # residual; quant_attention
+        eng = Engine(config=cfg, params=params, device="cuda")
         tokens = call("Engine.sample(use_paged=False) B=8 S=256", lambda:
                       eng.sample(batch_size=8, seq_len=256, num_steps=8,
                                  use_paged=False, return_text=False),
-                      {"matmul": _matmuls_per_forward(L) * 8,
-                       "quant_attention": L * 7, "dense_attention": 0,
-                       "int8w_matmul": 0})
+                      {**_expected_launches(cfg, 8, long_seq=False),
+                       "quant_attention": L * 7, "dense_attention": 0})
         in_range("Engine.sample", tokens, (8, 256))
         del eng
         runs["scan_check"] = scan_check(cfg, params, (1, 128), seed=73)
@@ -2080,6 +2121,8 @@ def heads_wide():
             for k, n in ((r.get("counts") or {}) if isinstance(r, dict)
                          else {}).items():
                 total[k] = total.get(k, 0) + n
+                if hd > WIDE_FROM:
+                    wide[k] = wide.get(k, 0) + n
         out[f"heads of {hd}"] = runs
         MODEL.pop("cfg")
         MODEL.pop("params")
@@ -2087,6 +2130,7 @@ def heads_wide():
         gc.collect()
         torch.cuda.empty_cache()
     out["counts"] = total
+    out["counts_wide"] = wide  # the launches at heads past 256
     return out
 
 
@@ -3828,13 +3872,31 @@ KERNELS = {
 # unpacks in packed_gemm.cu, then quantizes and multiplies in int8_gemm.cu;
 # quant_attention and paged_attention run heads of widths between their
 # instances' from a padded source
+# the wide instance of each attention design (heads past 256), a source of
+# its own over csrc/wide_flash.cuh
+WIDE_SOURCES = {
+    "dense_attention": "diffusion_llm_rs_tpu_torch/csrc/dense_attention_wide.cu",
+    "quant_attention":
+        "diffusion_llm_rs_tpu_torch/csrc/quant_flash_contig_wide.cu",
+    "paged_attention":
+        "diffusion_llm_rs_tpu_torch/csrc/quant_flash_paged_wide.cu",
+    "batched_paged_attention":
+        "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu",
+    "batched_paged_attention_a8":
+        "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu"}
 ALSO_BUILT_FROM = {
     "matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",),
     # the heads between the instances' widths, from sources of their own
     "quant_attention": (
-        "diffusion_llm_rs_tpu_torch/csrc/quant_flash_contig_padded.cu",),
+        "diffusion_llm_rs_tpu_torch/csrc/quant_flash_contig_padded.cu",
+        WIDE_SOURCES["quant_attention"]),
     "paged_attention": (
-        "diffusion_llm_rs_tpu_torch/csrc/quant_flash_paged_padded.cu",)}
+        "diffusion_llm_rs_tpu_torch/csrc/quant_flash_paged_padded.cu",
+        WIDE_SOURCES["paged_attention"]),
+    "dense_attention": (WIDE_SOURCES["dense_attention"],),
+    "batched_paged_attention": (WIDE_SOURCES["batched_paged_attention"],),
+    "batched_paged_attention_a8": (
+        WIDE_SOURCES["batched_paged_attention_a8"],)}
 
 
 # Run in a checkout (cwd), this one or an earlier commit's: the attention
@@ -3842,48 +3904,71 @@ ALSO_BUILT_FROM = {
 # `dense_attention`, and the batched paged design (`paged_unpack` in both
 # layouts, then the bf16 and the int8 attention kernel alone on that
 # scratch), built by that checkout and timed by its own chip_smoke.py at the
-# head widths the parent served (PARENT_SHAPES: 16, 32, 64 and 128, at the
-# full-width model's heads, the batched kernels at serve_paged's pools);
-# prints one JSON line of {kernel shape: ms}.
+# head widths the parent served (PARENT_SHAPES: 16, 32, 64, 128, 192 and
+# 256, and 96 run padded in 128, at the full-width model's heads, the
+# batched kernels at serve_paged's pools), and at the wide instances' heads
+# of 384 and 768 where the checkout has them; prints one JSON line of
+# {kernel shape: ms}.
 PARENT_SHAPES = dict(
     quant_attention=[(96, 256, 64, 4), (96, 256, 64, 8), (96, 256, 64, 2),
                      (24, 1024, 64, 4), (192, 256, 32, 4), (48, 256, 128, 4),
-                     (384, 256, 16, 4)],
+                     (384, 256, 16, 4), (32, 256, 192, 4), (24, 256, 256, 4),
+                     (64, 256, 96, 4)],
     dense_attention=[(96, 1024, 64), (192, 1024, 32), (48, 1024, 128),
-                     (384, 1024, 16)],
+                     (384, 1024, 16), (32, 1024, 192), (24, 1024, 256),
+                     (64, 1024, 96)],
     paged_attention=[(12, 1024, 64), (24, 1024, 32), (6, 1024, 128),
-                     (48, 1024, 16)],
+                     (48, 1024, 16), (4, 1024, 192), (3, 1024, 256),
+                     (8, 1024, 96)],
     # B, H, G, D: 32 pages of 128 a slot, 4-bit, Sq = 4096
-    batched=[(2, 12, 2, 64), (2, 24, 4, 32), (2, 6, 1, 128), (2, 48, 8, 16)])
+    batched=[(2, 12, 2, 64), (2, 24, 4, 32), (2, 6, 1, 128), (2, 48, 8, 16),
+             (2, 4, 1, 192), (2, 3, 1, 256), (2, 8, 1, 96)],
+    # the wide instances (heads past 256), which a parent without them
+    # refuses: new rows, timed in this checkout only
+    wide_quant=[(16, 256, 384, 4), (8, 256, 768, 4)],
+    wide_dense=[(16, 1024, 384), (8, 1024, 768)],
+    wide_paged=[(2, 1024, 384), (1, 1024, 768)],
+    wide_batched=[(2, 2, 1, 384), (2, 1, 1, 768)],
+    # the W4A8 kernels, whose epilogues took an f32 residual: the sampler's
+    # qkv and wo (+ bf16 residual) at M = 2048, its MLP (M, K, F)
+    int8w_matmul=[(2048, 768, 2304, False), (2048, 768, 768, True)],
+    int8w_mlp=[(2048, 768, 3072)])
 PARENT_CODE = """
 import json, torch, chip_smoke as c
 from diffusion_llm_rs_tpu_torch.ops import _build
 from diffusion_llm_rs_tpu_torch.ops import attention as qa
+from diffusion_llm_rs_tpu_torch.ops import int8_matmul as im
 from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
 c.device()
+wide = "dense_attention_wide" in _build.SOURCES
 _build.build(("dense_attention", "quant_flash_contig", "quant_flash_paged",
-              "paged_unpack", "batched_paged_attention",
-              "paged_attention_a8"))
+              "paged_unpack", "batched_paged_attention", "paged_attention_a8",
+              "int8_gemm", "int8_mlp") + (
+    ("dense_attention_wide", "quant_flash_contig_wide",
+     "quant_flash_paged_wide", "paged_flash_wide") if wide else ()))
+if not wide:  # a checkout without the wide instances: their rows are new
+    for key in [k for k in SHAPES if k.startswith("wide_")]:
+        SHAPES[key] = []
 gen = torch.Generator(device="cuda").manual_seed(99)
 ms = {}
-for BH, S, D, bits in SHAPES["quant_attention"]:
+for BH, S, D, bits in SHAPES["quant_attention"] + SHAPES["wide_quant"]:
     q = torch.randn((BH, S, D), generator=gen, device="cuda").bfloat16()
     k, v = (qa.quantize_kv(torch.randn((BH, S, D), generator=gen,
                                        device="cuda"), bits) for _ in "kv")
     ms[f"quant_attention BH={BH} S={S} D={D} {bits}-bit"] = c.time_ms(
         lambda: qa.attention(q, k, v))
-for BH, S, D in SHAPES["dense_attention"]:
+for BH, S, D in SHAPES["dense_attention"] + SHAPES["wide_dense"]:
     q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda")
                .bfloat16() for _ in "qkv")
     ms[f"dense_attention BH={BH} S={S} D={D}"] = c.time_ms(
         lambda: qa.dense_attention(q, k, v))
-for BH, Sq, D in SHAPES["paged_attention"]:
+for BH, Sq, D in SHAPES["paged_attention"] + SHAPES["wide_paged"]:
     pools = c._quantized_pools(gen, 16, BH, 128, D, 1, 4)
     q = torch.randn((BH, Sq, D), generator=gen, device="cuda").bfloat16()
     pt = torch.randperm(16, generator=gen, device="cuda")[:8].int()
     ms[f"paged_attention BH={BH} Sq={Sq} D={D} 8 pages of 128 4-bit"] = \\
         c.time_ms(lambda: pa.paged_attention(q, pt, *pools, bits=4))
-for B, H, G, D in SHAPES["batched"]:
+for B, H, G, D in SHAPES["batched"] + SHAPES["wide_batched"]:
     n, Sq = 32, 4096
     pools = c._quantized_pools(gen, B * n, H, 128, D, G, 4)
     q = torch.randn((B, H, Sq, D), generator=gen, device="cuda").bfloat16()
@@ -3901,12 +3986,33 @@ for B, H, G, D in SHAPES["batched"]:
         k, v, side = pa.paged_unpack(pt, npg, *pools, bits=4, head_group=G,
                                      a8=a8)
         name = "batched_paged_attention" + ("_a8" if a8 else "")
-        fn = _build.function("dlm_" + name)
+        extra = (k.shape[4], 128) if D > 256 else ()  # the wide instance's
+        fn = _build.function("dlm_" + name + ("_wide" if extra else ""))
         ms[f"{name} (alone) {tag}"] = c.time_ms(lambda: _build.check(fn(
             q.data_ptr(), nt.data_ptr(), npg.data_ptr(), k.data_ptr(),
             v.data_ptr(), side.data_ptr(), out.data_ptr(), lse.data_ptr(), B,
-            H, Sq, D, n, k.shape[3],
+            H, Sq, D, n, k.shape[3], *extra,
             torch.cuda.current_stream().cuda_stream), name))
+for M, K, N, resid in SHAPES["int8w_matmul"]:
+    x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    cs = torch.rand((1, N), generator=gen, device="cuda") * 1e-3
+    r = (torch.randn((M, N), generator=gen, device="cuda").bfloat16()
+         if resid else None)
+    ms[f"int8w_matmul M={M} K={K} N={N}" + (" +residual" if resid else "")] \
+        = c.time_ms(lambda: im.int8w_matmul(x, w, cs, None, None, r,
+                                            torch.bfloat16))
+for M, K, F in SHAPES["int8w_mlp"]:
+    x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    w1, w2 = (torch.randint(-127, 128, s, generator=gen, device="cuda",
+                            dtype=torch.int8) for s in ((K, F), (F, K)))
+    cs1, cs2 = (torch.rand((1, n), generator=gen, device="cuda") * 1e-3
+                for n in (F, K))
+    b1, b2 = (torch.randn((n,), generator=gen, device="cuda") for n in (F, K))
+    r = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    ms[f"int8w_mlp M={M} {K}->{F}->{K} +residual"] = c.time_ms(
+        lambda: im.int8w_mlp(x, w1, cs1, b1, w2, cs2, b2, r, torch.bfloat16))
 print(json.dumps(ms))
 """
 
@@ -3957,8 +4063,11 @@ def main() -> int:
         parent_runs["parent_after"] = _parent_read(_parent_run(parent),
                                                    "parent")
         for key in parent_runs["this_1"]:
-            was = [parent_runs[f"parent_{w}"][key] for w in ("before", "after")]
             now = [parent_runs[f"this_{i}"][key] for i in (1, 2)]
+            if key not in parent_runs["parent_before"]:  # new in this one
+                log(f"  {key}: this {min(now):.4f} (new)")
+                continue
+            was = [parent_runs[f"parent_{w}"][key] for w in ("before", "after")]
             log(f"  {key}: this / parent {min(now) / min(was):.3f}")
     measured = phase(kernels)
     runs = {"sampler": phase(sampler)}
@@ -4007,6 +4116,21 @@ def main() -> int:
         if entries[-1]["launches"] == 0:
             log(f"{name} was not launched on its path {path}")
             return 1
+        # the wide instance (heads past 256): its first timed row, and its
+        # launches on heads_wide's models of heads of 384 and 768
+        wide = next((r for r in rows if r.get("wide") and "ms" in r), None)
+        if name in WIDE_SOURCES or (name == "paged_unpack" and wide):
+            n_wide = (runs.get("heads_wide") or {}).get("counts_wide", {}).get(
+                name, 0)
+            entries[-1]["wide_instance"] = dict(
+                source=WIDE_SOURCES.get(name, source), launches=n_wide,
+                launches_path="heads_wide", shape=wide["shape"],
+                ms=wide["ms"], plain_ms=wide["plain_ms"],
+                bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
+                library_ms=wide["library_ms"])
+            if n_wide == 0:
+                log(f"{name}'s wide instance was not launched on heads_wide")
+                return 1
     log(json.dumps({"kernels": entries}))
     if parent_runs:
         runs["parent_kernels"] = parent_runs

@@ -143,10 +143,11 @@ struct Gemm {
   const float* sx;                // [M]
   const float* cs;                // [N]
   const float* bias;              // [N] or null
-  const __nv_bfloat16* residual;  // [M, N] bf16 or null
+  const __nv_bfloat16* residual;  // [M, N] bf16 (f32 where residual_f32) or null
   void* out;                      // [M, N] bf16 (out_bf16) or f32
   int* ws;                        // [splits, M, N] int32 partials
   int gelu, out_bf16, M, N, K, ksteps, splits;
+  int residual_f32;               // the residual is f32, read in finish4
 };
 
 // kSwap: tokens on the wgmma N side (A = wt, B = xi); BN: B rows a block
@@ -170,7 +171,7 @@ struct Tile {
 
 // y for 4 adjacent columns of one row (o: the first one's offset in out),
 // from their sums, the row scale, the column scales and biases, and the
-// row's bf16 residual (raw, 4 values), stored
+// row's bf16 residual (raw, 4 values; an f32 residual is read here), stored
 __device__ __forceinline__ void finish4(const Gemm& p, size_t o, int4 acc,
                                         float s_m, const float* cs,
                                         const float* b, uint2 res) {
@@ -180,10 +181,16 @@ __device__ __forceinline__ void finish4(const Gemm& p, size_t o, int4 acc,
   for (int e = 0; e < 4; ++e)
     y[e] = epilogue_v(a[e], s_m, cs[e], p.bias != nullptr, b[e], p.gelu);
   if (p.residual) {
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&res.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&res.y));
+    float2 lo, hi;
+    if (p.residual_f32) {
+      const float4 r = *reinterpret_cast<const float4*>(
+          reinterpret_cast<const float*>(p.residual) + o);
+      lo = make_float2(r.x, r.y);
+      hi = make_float2(r.z, r.w);
+    } else {
+      lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&res.x));
+      hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&res.y));
+    }
     y[0] = __fadd_rn(y[0], lo.x);
     y[1] = __fadd_rn(y[1], lo.y);
     y[2] = __fadd_rn(y[2], hi.x);
@@ -202,8 +209,9 @@ __device__ __forceinline__ void finish4(const Gemm& p, size_t o, int4 acc,
 }
 
 __device__ __forceinline__ uint2 residual4(const Gemm& p, size_t o) {
-  return p.residual ? *reinterpret_cast<const uint2*>(p.residual + o)
-                    : make_uint2(0u, 0u);
+  return p.residual && !p.residual_f32
+             ? *reinterpret_cast<const uint2*>(p.residual + o)
+             : make_uint2(0u, 0u);
 }
 
 // Block (x, y, z): A rows 128 x .., B rows BN y .., K steps of split z.
@@ -467,13 +475,14 @@ int dlm_int8_gemm_plan(int M, int N, int K, int sms) {
 
 // out[M, N] = epilogue(xi[M, K] @ wt[N, K]^T) under the plan (swap, tile,
 // splits); K % 16 == 0, N % 4 == 0, xi and wt 16-byte aligned, out and the
-// bf16 residual 16- and 8-byte aligned; with splits > 1, ws holds the
-// int32 partials [splits, M, N]. out is bf16 (out_bf16 = 1) or f32 (the
-// MLP's inner activation).
+// residual 16-byte aligned (a bf16 residual 8); with splits > 1, ws holds
+// the int32 partials [splits, M, N]. out is bf16 (out_bf16 = 1) or f32 (the
+// MLP's inner activation); the residual bf16, or f32 where residual_f32.
 int dlm_int8_gemm(const void* xi, const void* wt, const void* sx,
                   const void* cs, const void* bias, const void* residual,
                   int gelu, void* out, int out_bf16, int M, int N, int K,
-                  int swap, int tile, int splits, void* ws, void* stream) {
+                  int swap, int tile, int splits, void* ws, void* stream,
+                  int residual_f32) {
   if (M <= 0) return 0;
   const int ksteps = (K + kKBytes - 1) / kKBytes;
   if (K <= 0 || K % 16 || N <= 0 || N % 4 || splits < 1 ||
@@ -491,7 +500,8 @@ int dlm_int8_gemm(const void* xi, const void* wt, const void* sx,
          N,
          K,
          ksteps,
-         splits};
+         splits,
+         residual_f32};
   auto st = static_cast<cudaStream_t>(stream);
   switch (swap * 1000 + tile) {
     case 128: return launch<false, 128>(xi, wt, p, st);

@@ -116,9 +116,10 @@ struct Params {
   const float* b1;
   const float* cs2;
   const float* b2;
-  const __nv_bfloat16* residual;
+  const __nv_bfloat16* residual;  // bf16, or f32 where residual_f32
   void* out;
   int out_bf16, M, K, F, N;
+  int residual_f32;
 };
 
 // NT: 64-column output tiles a block; CL: blocks a cluster (3 or 4)
@@ -498,8 +499,13 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(kThreads, 1)
                                  : make_float2(0.f, 0.f);
           float2 res = make_float2(0.f, 0.f);
           if (p.residual)
-            res = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                p.residual + (size_t)m * p.N + n));
+            res = p.residual_f32
+                      ? *reinterpret_cast<const float2*>(
+                            reinterpret_cast<const float*>(p.residual) +
+                            (size_t)m * p.N + n)
+                      : __bfloat1622float2(
+                            *reinterpret_cast<const __nv_bfloat162*>(
+                                p.residual + (size_t)m * p.N + n));
           float y[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -599,15 +605,17 @@ int dlm_int8_mlp_active_clusters(int K, int N, int cl) {
 }
 
 // out[M, N] = MLP(x[M, K]) over the K-major int8 weights w1t [F, K] and
-// w2t [N, F] (the transposes of the [K, F] and [F, N] matrices), bf16 x and
-// residual, f32 column scales and biases (either bias may be null), in
+// w2t [N, F] (the transposes of the [K, F] and [F, N] matrices), bf16 x, a
+// bf16 residual (f32 where residual_f32, 8-byte aligned), f32 column scales
+// and biases (either bias may be null), in
 // clusters of cl blocks; out is bf16 (out_bf16 = 1) or f32. K % 16 == 0,
 // F % 16 == 0, N % 4 == 0, the weights 16-byte aligned, and
 // dlm_int8_mlp_smem(K, F, N, cl) > 0 (else cudaErrorInvalidValue).
 int dlm_int8_mlp(const void* x, const void* w1t, const void* cs1,
                  const void* b1, const void* w2t, const void* cs2,
                  const void* b2, const void* residual, void* out, int out_bf16,
-                 int M, int K, int F, int N, int cl, void* stream) {
+                 int M, int K, int F, int N, int cl, void* stream,
+                 int residual_f32) {
   if (M <= 0) return 0;
   if (dlm_int8_mlp_smem(K, F, N, cl) == 0 || K % 16 || F % 16 || N % 4)
     return (int)cudaErrorInvalidValue;
@@ -627,7 +635,7 @@ int dlm_int8_mlp(const void* x, const void* w1t, const void* cs1,
                  static_cast<const float*>(cs2),
                  static_cast<const float*>(b2),
                  static_cast<const __nv_bfloat16*>(residual),
-                 out, out_bf16, M, K, F, N};
+                 out, out_bf16, M, K, F, N, residual_f32};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return cl == 3 ? launch_cl<3>(maps[0], maps[1], p, st)
                  : launch_cl<4>(maps[0], maps[1], p, st);

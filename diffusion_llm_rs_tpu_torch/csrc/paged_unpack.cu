@@ -21,10 +21,11 @@
 // columns of each 32 tokens in `vt_col` order), and ka' = ks * sm, kb' = ka'
 // * (kz - off), vs, vz - off. Rows, columns and sidecars past P are 0; pages
 // past n_pages[b] are not written. A slot id outside the pool traps. Heads
-// of D (a multiple of 8 up to 256) are written as rows of DK, the smallest
-// of 16, 32, 64, 128, 192 and 256 that holds D (the width of the attention
-// kernel's instance), zero past D; a pool row of D bytes is read 16 bytes
-// at a time, or 8 where D % 16 != 0.
+// of D (any multiple of 8) are written as rows of DK, the smallest of 16,
+// 32, 64, 128, 192 and 256 that holds D (the width of the attention
+// kernel's instance), or past 256 D rounded up to 64 (the chunk of the wide
+// instance, csrc/wide_flash.cuh), zero past D; a pool row of D bytes is
+// read 16 bytes at a time, or 8 where D % 16 != 0.
 //
 // One block of 128 threads per (page, head, slot). What bounds it: bytes. At
 // serve_paged (B = 2, H = 12, 32 pages of 128 tokens, D = 64, 4 bits) it
@@ -206,13 +207,103 @@ __global__ void __launch_bounds__(kThreads) paged_unpack_kernel(const Args a) {
   }
 }
 
+// The int8 layout at rows wider than 256 (the wide attention instances'
+// scratch): V^T [DK][PT] would outgrow shared memory, so it goes through it
+// 64 rows at a time; otherwise as paged_unpack_kernel<BITS, true, CW, true>.
+template <int BITS, int CW>
+__global__ void __launch_bounds__(kThreads) paged_unpack_a8_wide(const Args a) {
+  constexpr int kVpb = 8 / BITS;
+  constexpr uint32_t kMask4 = 0x01010101u * ((1 << BITS) - 1);
+  constexpr uint32_t kOff4 = 0x01010101u * (1u << (BITS - 1));
+  constexpr float kOff = (float)(1 << (BITS - 1));
+  constexpr int kRows = 64;                        // V^T rows a pass
+  extern __shared__ __align__(16) uint8_t vt[];    // [kRows][PT]
+
+  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  if (j >= a.n_pages[b]) return;
+  const int slot = a.page_tables[(size_t)b * a.n_max + j];
+  if (slot < 0 || slot >= a.n_slots) __trap();
+  const int D = a.D, DK = a.DK, P = a.P, PT = a.PT, G = a.G, HG = a.H / G;
+  const int hg = h / G, hl = h % G, GD = G * D, Pp = P / kVpb;
+  const size_t side_in = ((size_t)slot * HG + hg) * G * P + (size_t)hl * P;
+  const size_t base_in = ((size_t)slot * HG + hg) * Pp * GD + (size_t)hl * D;
+  const size_t page = ((size_t)b * a.H + h) * a.n_max + j;
+  float* side = a.side_out + page * 4 * PT;
+  for (int i = threadIdx.x; i < PT; i += kThreads) {
+    const bool in = i < P;
+    const float ka = in ? __fmul_rn(a.k_scale[side_in + i], a.sm) : 0.f;
+    const float kz = in ? a.k_zp[side_in + i] : 0.f;
+    side[i] = ka;
+    side[PT + i] = in ? __fmul_rn(ka, __fsub_rn(kz, kOff)) : 0.f;
+    side[2 * PT + i] = in ? a.v_scale[side_in + i] : 0.f;
+    side[3 * PT + i] = in ? __fsub_rn(a.v_zp[side_in + i], kOff) : 0.f;
+  }
+  uint8_t* k_out = static_cast<uint8_t*>(a.k_out) + page * PT * DK;
+  uint8_t* v_out = static_cast<uint8_t*>(a.v_out) + page * PT * DK;
+  using W = typename std::conditional<CW == 16, uint4, uint2>::type;
+  constexpr int kWords = CW / 4;
+  for (int d0 = 0; d0 < DK; d0 += kRows) {
+    for (int c = threadIdx.x; c < kRows * PT / 16; c += kThreads)
+      reinterpret_cast<uint4*>(vt)[c] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    const int units = max(0, min(kRows, D - d0)) / CW;
+    for (int c = threadIdx.x; c < Pp * units; c += kThreads) {
+      const int r = c / units, col = d0 + (c % units) * CW;
+      const size_t off = base_in + (size_t)r * GD + col;
+      const W kw = *reinterpret_cast<const W*>(a.k_data + off);
+      const W vw = *reinterpret_cast<const W*>(a.v_data + off);
+      const uint32_t* kx = reinterpret_cast<const uint32_t*>(&kw);
+      const uint32_t* vx = reinterpret_cast<const uint32_t*>(&vw);
+#pragma unroll
+      for (int p = 0; p < kVpb; ++p) {
+        const int tok = r + p * Pp;
+        uint32_t kc[kWords];
+#pragma unroll
+        for (int i = 0; i < kWords; ++i) {
+          kc[i] = __vsub4((kx[i] >> (p * BITS)) & kMask4, kOff4);
+          const uint32_t vc = __vsub4((vx[i] >> (p * BITS)) & kMask4, kOff4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            vt[(col - d0 + 4 * i + e) * PT + vt_col(tok)] = (uint8_t)(vc >> (8 * e));
+        }
+        W* kd = reinterpret_cast<W*>(k_out + (size_t)tok * DK + col);
+        if constexpr (CW == 16)
+          *kd = make_uint4(kc[0], kc[1], kc[2], kc[3]);
+        else
+          *kd = make_uint2(kc[0], kc[1]);
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < kRows * PT / 16; c += kThreads)
+      reinterpret_cast<uint4*>(v_out + (size_t)d0 * PT)[c] =
+          reinterpret_cast<const uint4*>(vt)[c];
+    __syncthreads();
+  }
+  // columns [D, DK) of token rows [0, P) of K, and its rows [P, PT), are 0
+  const int units = (DK - D) / 8;
+  for (int c = threadIdx.x; c < P * units; c += kThreads)
+    *reinterpret_cast<uint2*>(k_out + (size_t)(c / units) * DK + D +
+                              (c % units) * 8) = make_uint2(0, 0);
+  const int row16 = DK / 16;
+  for (int c = threadIdx.x; c < (PT - P) * row16; c += kThreads)
+    reinterpret_cast<uint4*>(k_out + (size_t)P * DK)[c] = make_uint4(0, 0, 0, 0);
+}
+
 template <int BITS, bool A8>
 int launch(const Args& a, int B, cudaStream_t stream) {
+  dim3 grid(a.n_max, a.H, B);
+  if constexpr (A8) {
+    if (a.DK > 256) {
+      auto kernel = a.D % 16 ? paged_unpack_a8_wide<BITS, 8>
+                             : paged_unpack_a8_wide<BITS, 16>;
+      kernel<<<grid, kThreads, 64 * a.PT, stream>>>(a);
+      return (int)cudaGetLastError();
+    }
+  }
   auto kernel = a.D % 16    ? paged_unpack_kernel<BITS, A8, 8, true>
                 : a.D < a.DK ? paged_unpack_kernel<BITS, A8, 16, true>
                              : paged_unpack_kernel<BITS, A8, 16, false>;
   const int smem = A8 ? a.DK * a.PT : 0;
-  dim3 grid(a.n_max, a.H, B);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -223,8 +314,9 @@ extern "C" {
 
 // Unpack the first n_pages[b] pages of each slot's table, for every head,
 // into k_out, v_out, side_out (the layouts above; a8 = 1: int8 mode). D a
-// multiple of 8 up to 256, written as rows of DK (16, 32, 64, 128, 192 or
-// 256, the smallest >= D); P a multiple of 8 up to 128 with whole packed rows;
+// multiple of 8, written as rows of DK (16, 32, 64, 128, 192 or 256, the
+// smallest >= D; past 256, D rounded up to 64); P a multiple of 8 up to 128
+// with whole packed rows;
 // PT = 32, 64 or 128, at least P; 1/2/4/8 bits (2/4/8 in int8 mode).
 // Returns cudaErrorInvalidValue for anything else.
 int dlm_paged_unpack(const void* page_tables, const void* n_pages,
@@ -235,8 +327,8 @@ int dlm_paged_unpack(const void* page_tables, const void* n_pages,
                      int bits, int a8, float sm_scale, void* stream) {
   if (B <= 0 || H <= 0 || n_max <= 0) return 0;
   const int DK = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128
-                 : D <= 192 ? 192 : 256;
-  if (D < 8 || D > 256 || D % 8 || P < 8 || P > kPmax ||
+                 : D <= 192 ? 192 : D <= 256 ? 256 : (D + 63) / 64 * 64;
+  if (D < 8 || D % 8 || P < 8 || P > kPmax ||
       P % 8 || PT < P || (PT != 32 && PT != 64 && PT != 128) || G < 1 || H % G ||
       (a8 && bits == 1))
     return (int)cudaErrorInvalidValue;

@@ -35,7 +35,9 @@ SOURCES = ("int8_gemm", "int8_mlp", "dense_attention", "quant_flash_paged",
            "quant_flash_paged_padded", "packed_gemm", "quant_flash_contig",
            "quant_flash_contig_padded", "paged_unpack",
            "batched_paged_attention", "paged_attention_a8",
-           "fused_qkv_attention")
+           "fused_qkv_attention", "dense_attention_wide",
+           "quant_flash_contig_wide", "quant_flash_paged_wide",
+           "paged_flash_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,12 +46,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "dlm_quant_rows": ("int8_gemm", (_P, _I, _P, _P, _I, _I, _P)),
     "dlm_int8_gemm": ("int8_gemm", (_P,) * 6 + (_I, _P) + (_I,) * 7
-                      + (_P, _P)),
+                      + (_P, _P, _I)),
     "dlm_int8_gemm_plan": ("int8_gemm", (_I,) * 4),
-    "dlm_int8_mlp": ("int8_mlp", (_P,) * 9 + (_I,) * 6 + (_P,)),
+    "dlm_int8_mlp": ("int8_mlp", (_P,) * 9 + (_I,) * 6 + (_P, _I)),
     "dlm_int8_mlp_active_clusters": ("int8_mlp", (_I, _I, _I)),
     "dlm_dense_attention": ("dense_attention", (_P, _P, _P, _P, _I, _I, _I, _I,
                                                 _I, _F, _P)),
+    "dlm_dense_attention_wide": ("dense_attention_wide",
+                                 (_P, _P, _P, _P) + (_I,) * 5 + (_F, _P)),
     "dlm_paged_unpack": ("paged_unpack", (_P,) * 11 + (_I,) * 10 + (_F, _P)),
     "dlm_batched_paged_attention": ("batched_paged_attention",
                                     (_P,) * 8 + (_I,) * 6 + (_P,)),
@@ -59,6 +63,14 @@ SIGNATURES = {
                                    (_P,) * 11 + (_I,) * 7 + (_F, _P)),
     "dlm_batched_paged_attention_a8": ("paged_attention_a8",
                                        (_P,) * 8 + (_I,) * 6 + (_P,)),
+    "dlm_paged_attention_wide": ("quant_flash_paged_wide",
+                                 (_P,) * 11 + (_I,) * 7 + (_F, _P)),
+    "dlm_batched_paged_attention_wide": ("paged_flash_wide",
+                                         (_P,) * 8 + (_I,) * 8 + (_P,)),
+    "dlm_batched_paged_attention_a8_wide": ("paged_flash_wide",
+                                            (_P,) * 8 + (_I,) * 8 + (_P,)),
+    "dlm_quant_attention_wide": ("quant_flash_contig_wide",
+                                 (_P,) * 8 + (_I,) * 5 + (_F, _P)),
     "dlm_quant_attention": ("quant_flash_contig",
                             (_P,) * 8 + (_I,) * 5 + (_F, _P)),
     "dlm_quant_attention_padded": ("quant_flash_contig_padded",

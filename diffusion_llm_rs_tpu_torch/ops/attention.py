@@ -22,14 +22,15 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_attention.py`:
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version (`*_plain`), which repeats the TPU kernel's tile
 loop at the same rounding points. The kernels take every head width D that is
-a multiple of 8 up to 256 (`head_dim_fits`); a head of D runs in the
-instance of the smallest `KERNEL_WIDTHS` entry that holds it, zero past D.
-Where D % 8 != 0 the JAX package runs no Pallas kernel but XLA, and so does
-the port, on either device: `flash_fold` takes `dense_attention_einsum` (the
-einsum branch of JAX's `_flash_fold`), `attention` takes
-`attention_fallback` (JAX's `_attention_fallback`). Heads wider than 256,
-where JAX still runs its kernels while VMEM allows, are refused (ROADMAP
-C41).
+a multiple of 8, with no upper limit (`head_dim_fits`), as JAX's take every
+such width its VMEM holds. Up to 256 a head of D runs in the instance of the
+smallest `KERNEL_WIDTHS` entry that holds it, zero past D; past 256 it runs
+in the wide instance of its design (`csrc/wide_flash.cuh`: D a runtime
+argument, the output columns split over blocks of 128, S summed over chunks
+of 64 head columns). Where D % 8 != 0 the JAX package runs no Pallas kernel
+but XLA, and so does the port, on either device: `flash_fold` takes
+`dense_attention_einsum` (the einsum branch of JAX's `_flash_fold`),
+`attention` takes `attention_fallback` (JAX's `_attention_fallback`).
 """
 
 from __future__ import annotations
@@ -45,8 +46,9 @@ from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
 NEG_INF = -1e30
 # the head widths the attention kernels are instantiated at; a head of D runs
-# in the smallest that holds it
+# in the smallest that holds it, or past them in the wide instance
 KERNEL_WIDTHS = (16, 32, 64, 128, 192, 256)
+WIDE_CHUNK = 64       # head columns a chunk of the wide instance's S
 KERNEL_KV_TILE = 64   # tokens per online-softmax step of `csrc/quant_flash_contig.cu`
 KERNEL_BITS = (1, 2, 4, 8)
 
@@ -85,8 +87,9 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense flash attention: q [BH, Sq, D], k/v [BH, Skv, D] -> [BH, Sq, D].
 
     Inputs are cast to bf16, as on the TPU. CPU tensors take the plain twin;
-    CUDA tensors launch the kernel (`head_dim_fits`; bf16 or f32 out). No
-    gradient flows through the kernel: `flash_fold` gives one."""
+    CUDA tensors launch the kernel (`head_dim_fits`; past 256 its wide
+    instance; bf16 or f32 out). No gradient flows through the kernel:
+    `flash_fold` gives one."""
     if q.device.type == "cpu":
         return dense_attention_plain(q, k, v, sm_scale, out_dtype)
     if q.device.type != "cuda":
@@ -109,7 +112,8 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("dense_attention: q, k, v must be 16-byte aligned "
                          "(the kernel reads them by TMA)")
     out = torch.empty((BH, Sq, D), dtype=out_dtype, device=q.device)
-    _build.check(_build.function("dlm_dense_attention")(
+    wide = "_wide" if D > KERNEL_WIDTHS[-1] else ""
+    _build.check(_build.function(f"dlm_dense_attention{wide}")(
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.bfloat16), BH, Sq, Skv, D, float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream), "dense_attention")
@@ -303,7 +307,7 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     Where D % 8 != 0, JAX's wrapper takes its XLA path, and so does this one
     on either device (`attention_fallback`). Else CPU tensors take the plain
     version, and CUDA tensors launch the kernel, which serves every Sq and
-    Skv >= 1 at 1/2/4/8 bits and heads up to 256 (`head_dim_fits`; the TPU
+    Skv >= 1 at 1/2/4/8 bits and every head width (`head_dim_fits`; the TPU
     wrapper hands shapes off its tiling to an XLA path with other
     roundings)."""
     if k.bits != v.bits or k.shape != v.shape:
@@ -339,14 +343,14 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     qb = q.to(torch.bfloat16).contiguous()
     kd, ks, kz, vd, vs, vz = (t.contiguous() for t in (
         k.data, k.scale, k.zero_point, v.data, v.scale, v.zero_point))
-    row = math.gcd(Dp, 8)  # bytes the kernel's loader reads from a packed row at once
+    # bytes the kernel's loader reads from a packed row at once (the wide
+    # instance reads a byte at a time)
+    row = 1 if D > KERNEL_WIDTHS[-1] else math.gcd(Dp, 8)
     if qb.data_ptr() % 16 or kd.data_ptr() % row or vd.data_ptr() % row:
         raise ValueError(f"attention: q must be 16-byte and the packed K/V "
                          f"{row}-byte aligned")
     out = torch.empty((BH, Sq, D), dtype=torch.float32, device=q.device)
-    # heads between the kernel's widths run padded, from a source of their own
-    padded = "" if D == kernel_width(D) else "_padded"
-    _build.check(_build.function(f"dlm_quant_attention{padded}")(
+    _build.check(_build.function(f"dlm_quant_attention{instance(D)}")(
         qb.data_ptr(), kd.data_ptr(), ks.data_ptr(), kz.data_ptr(),
         vd.data_ptr(), vs.data_ptr(), vz.data_ptr(), out.data_ptr(),
         BH, Sq, Skv, D, k.bits, float(sm),
@@ -359,20 +363,31 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
 
 def head_dim_fits(D: int) -> bool:
     """Whether the attention kernels take heads of D: a multiple of 8 (JAX's
-    own condition for its dense kernel, and TMA's 16-byte row stride) from 8
-    to 256 (`KERNEL_WIDTHS`)."""
-    return D % 8 == 0 and 8 <= D <= KERNEL_WIDTHS[-1]
+    own condition for its dense kernel, and TMA's 16-byte row stride), with
+    no upper limit."""
+    return D % 8 == 0 and D >= 8
 
 
 def kernel_width(D: int) -> int:
-    """The instance a head of D runs in: the smallest `KERNEL_WIDTHS` entry
-    that holds it (D itself past them, where only the plain versions run)."""
-    return next((w for w in KERNEL_WIDTHS if D <= w), D)
+    """The width a head of D runs at: the smallest `KERNEL_WIDTHS` entry that
+    holds it; past them, D rounded up to the wide instance's chunk of
+    `WIDE_CHUNK` columns (the rows of the batched paged path's scratch)."""
+    return next((w for w in KERNEL_WIDTHS if D <= w),
+                -(-D // WIDE_CHUNK) * WIDE_CHUNK)
+
+
+def instance(D: int) -> str:
+    """The suffix of the C entry point a head of D launches: "" at a
+    `KERNEL_WIDTHS` entry, "_padded" between them (a source of its own), and
+    "_wide" past them (`csrc/wide_flash.cuh`)."""
+    if D > KERNEL_WIDTHS[-1]:
+        return "_wide"
+    return "" if D == kernel_width(D) else "_padded"
 
 
 def _head_dim_error(name: str, D: int) -> ValueError:
-    return ValueError(f"{name}: head dim {D}, the kernels take multiples of 8 "
-                      f"from 8 to {KERNEL_WIDTHS[-1]}")
+    return ValueError(f"{name}: head dim {D}, the kernels take multiples of "
+                      "8")
 
 
 FUSED_QKV_VMEM = 8 * 1024 * 1024  # the TPU kernel's whole-row budget

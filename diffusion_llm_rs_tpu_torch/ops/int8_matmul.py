@@ -18,7 +18,13 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_matmul.py`:
     `csrc/int8_gemm.cu`, counted and logged under its own name. On a CPU
     tensor they run their plain twins `int8w_matmul_plain` /
     `int8w_mlp_plain`, which repeat the kernels' arithmetic in the same
-    order.
+    order. As in JAX, the residual may be bf16 or f32, added in f32 before
+    the output's rounding. The kernels read K in 16-byte rows and write N 4
+    columns at a time; at other widths the wrappers pad x's K with zeros a
+    call and hold a zero-padded K-major copy of the weight (`_padded`),
+    where JAX's wrappers answer through XLA: zero rows add exact zeros to
+    the int32 sums and leave every row's amax alone, so the result is the
+    plain version's bit for bit.
 
 The integer product of the twins is taken in float64, which is exact here
 (|sum| <= K * 127^2 < 2^53): torch has no integer matmul on CUDA, and on the
@@ -311,7 +317,8 @@ def _gemm(xi, sx, wt, cs, bias, residual, gelu: bool, out_dtype, plan=None):
     N = wt.shape[0]
     if plan is None:
         plan = gemm_plan(M, N, K, _sm_count(xi.device.index or 0))
-    if residual is not None and residual.data_ptr() % 8:
+    if residual is not None and residual.data_ptr() % (
+            16 if residual.dtype == torch.float32 else 8):
         residual = residual.clone()  # the epilogue reads 4 values at a time
     out = torch.empty((M, N), dtype=out_dtype, device=xi.device)
     splits = plan["splits"]
@@ -321,17 +328,26 @@ def _gemm(xi, sx, wt, cs, bias, residual, gelu: bool, out_dtype, plan=None):
         xi.data_ptr(), wt.data_ptr(), sx.data_ptr(), cs.data_ptr(),
         _ptr(bias), _ptr(residual), int(gelu), out.data_ptr(),
         int(out_dtype == torch.bfloat16), M, N, K, int(plan["swap"]),
-        plan["tile"], splits, _ptr(ws), _stream(xi.device)), "int8_gemm")
+        plan["tile"], splits, _ptr(ws), _stream(xi.device),
+        int(residual is not None and residual.dtype == torch.float32)),
+        "int8_gemm")
     return out
+
+
+# The kernels read K in 16-byte rows and write N 4 columns at a time; other
+# widths run padded with zeros (`_padded`), which add exact zeros to the
+# int32 sums and leave every row's amax as it is.
+K_ALIGN, N_ALIGN = 16, 4
+
+
+def _round_up(n: int, step: int) -> int:
+    return -(-n // step) * step
 
 
 def _check_weight(name, data, col_scale, K):
     if data.dtype != torch.int8 or data.ndim != 2 or data.shape[0] != K:
         raise ValueError(f"{name}: weight must be int8 [{K}, N], got "
                          f"{data.dtype} {tuple(data.shape)}")
-    if K % 16 or data.shape[1] % 4:
-        raise ValueError(f"{name}: needs K % 16 == 0 and N % 4 == 0, got "
-                         f"{tuple(data.shape)}")
     if col_scale.dtype != torch.float32 or col_scale.numel() != data.shape[1]:
         raise ValueError(f"{name}: col_scale must be f32 with N entries")
     if data.data_ptr() % 4:
@@ -347,13 +363,21 @@ def _epilogue_vec(v, N, name):
 
 
 def _residual(r, M, N, name):
-    """The kernel adds a bf16 residual: the sampler's activations."""
+    """The kernels add a bf16 residual (the sampler's activations) or an f32
+    one (the phase-aware sampler's), in f32 before the output's rounding."""
     if r is None:
         return None
-    if r.dtype != torch.bfloat16 or r.numel() != M * N:
-        raise ValueError(f"{name}: residual must be bf16 with {M}x{N} "
+    if r.dtype not in (torch.bfloat16, torch.float32) or r.numel() != M * N:
+        raise ValueError(f"{name}: residual must be bf16 or f32 with {M}x{N} "
                          f"entries, got {r.dtype} {tuple(r.shape)}")
     return r.reshape(M, N).contiguous()
+
+
+def _pad_cols(t: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+    """t [..., N] with zero columns up to n (t itself where N == n)."""
+    if t is None or t.shape[-1] == n:
+        return t
+    return torch.nn.functional.pad(t, (0, n - t.shape[-1])).contiguous()
 
 
 def int8w_matmul(x: torch.Tensor, data: torch.Tensor, col_scale: torch.Tensor,
@@ -364,7 +388,9 @@ def int8w_matmul(x: torch.Tensor, data: torch.Tensor, col_scale: torch.Tensor,
     """x [..., K] @ decoded int8 weight [K, N] with the fused epilogue.
 
     x is rounded to bf16 before its per-row quantization, as on the TPU.
-    CPU tensors take the plain twin; CUDA tensors launch the kernels."""
+    CPU tensors take the plain twin; CUDA tensors launch the kernels, at
+    any K and N (padded to the kernels' alignment) and with a bf16 or f32
+    residual."""
     if activation not in (None, "gelu"):
         raise ValueError(f"unknown activation {activation!r}")
     if x.device.type == "cpu":
@@ -378,18 +404,20 @@ def int8w_matmul(x: torch.Tensor, data: torch.Tensor, col_scale: torch.Tensor,
     if out_dtype not in _OUT_DTYPES:
         raise ValueError(f"int8w_matmul: out_dtype {out_dtype} not f32/bf16")
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, K).to(torch.bfloat16).contiguous()
+    Kp, Np = _round_up(K, K_ALIGN), _round_up(N, N_ALIGN)
+    x2 = _pad_cols(x.reshape(-1, K).to(torch.bfloat16).contiguous(), Kp)
     M = x2.shape[0]
-    bias = _epilogue_vec(bias, N, "int8w_matmul")
-    residual = _residual(residual, M, N, "int8w_matmul")
-    wt = _k_major(data)
-    _check_cuda("int8w_matmul", x2.device, data=wt, col_scale=col_scale,
+    bias = _pad_cols(_epilogue_vec(bias, N, "int8w_matmul"), Np)
+    residual = _pad_cols(_residual(residual, M, N, "int8w_matmul"), Np)
+    cs = _pad_cols(col_scale.reshape(1, N), Np)
+    wt = _k_major(data) if (Kp, Np) == (K, N) else _padded(data, Kp, Np)
+    _check_cuda("int8w_matmul", x2.device, data=wt, col_scale=cs,
                 bias=bias, residual=residual)
     xi, sx = _quant_rows(x2)
-    out = _gemm(xi, sx, wt, col_scale, bias, residual, activation == "gelu",
+    out = _gemm(xi, sx, wt, cs, bias, residual, activation == "gelu",
                 out_dtype)
     _build.launch_counts["int8w_matmul"] += 1
-    return out.reshape(*lead, N)
+    return _unpad(out, N, lead)
 
 
 # The fused MLP kernel's plan (csrc/int8_mlp.cu): a cluster of 3 or 4 blocks
@@ -483,25 +511,64 @@ def _k_major(w: torch.Tensor) -> torch.Tensor:
     return wt
 
 
+# Zero-padded K-major copies of int8 weights whose K or N is off the
+# kernels' alignment, made once per weight tensor and width, as
+# `_k_major_copies`: (id(weight), K, N) -> (weakref, version, copy).
+_padded_copies: dict = {}
+
+
+def _padded(w: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """w^T [N, K] with zeros past w's [N0, K0]: the K-major operand of a
+    weight off the kernels' alignment, padded to it."""
+    key = (id(w), K, N)
+    hit = _padded_copies.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    wt = torch.zeros((N, K), dtype=w.dtype, device=w.device)
+    wt[:w.shape[1], :w.shape[0]] = w.t()
+    _padded_copies[key] = (
+        weakref.ref(w, lambda _, k=key: _padded_copies.pop(k, None)),
+        w._version, wt)
+    return wt
+
+
 def _mlp_args(name, x, w1_data, cs1, b1, w2_data, cs2, b2, residual,
               out_dtype):
     """Checked, contiguous kernel operands of an MLP call on the card, the
-    weights K-major."""
+    weights K-major; widths off the kernels' alignment padded with zeros
+    (x's K, the inner F, the output's N; the inner columns past F come out
+    gelu(0) = 0). Returns them with the unpadded N."""
     K = x.shape[-1]
     N1, N2 = w1_data.shape[1], w2_data.shape[1]
     _check_weight(name, w1_data, cs1, K)
     _check_weight(name, w2_data, cs2, N1)
     if out_dtype not in _OUT_DTYPES:
         raise ValueError(f"{name}: out_dtype {out_dtype} not f32/bf16")
-    x2 = x.reshape(-1, K).to(torch.bfloat16).contiguous()
+    Kp, Fp, Np = (_round_up(K, K_ALIGN), _round_up(N1, K_ALIGN),
+                  _round_up(N2, N_ALIGN))
+    x2 = _pad_cols(x.reshape(-1, K).to(torch.bfloat16).contiguous(), Kp)
     M = x2.shape[0]
-    b1 = _epilogue_vec(b1, N1, name)
-    b2 = _epilogue_vec(b2, N2, name)
-    residual = _residual(residual, M, N2, name)
-    w1t, w2t = _k_major(w1_data), _k_major(w2_data)
+    b1 = _pad_cols(_epilogue_vec(b1, N1, name), Fp)
+    b2 = _pad_cols(_epilogue_vec(b2, N2, name), Np)
+    cs1 = _pad_cols(cs1.reshape(1, N1), Fp)
+    cs2 = _pad_cols(cs2.reshape(1, N2), Np)
+    residual = _pad_cols(_residual(residual, M, N2, name), Np)
+    if residual is not None and residual.data_ptr() % 8:
+        residual = residual.clone()  # read 2 values at a time
+    w1t = _k_major(w1_data) if (Kp, Fp) == (K, N1) else \
+        _padded(w1_data, Kp, Fp)
+    w2t = _k_major(w2_data) if (Fp, Np) == (N1, N2) else \
+        _padded(w2_data, Fp, Np)
     _check_cuda(name, x2.device, w1_data=w1t, cs1=cs1, b1=b1, w2_data=w2t,
                 cs2=cs2, b2=b2, residual=residual)
-    return x2, w1t, w2t, b1, b2, residual
+    return x2, w1t, w2t, cs1, b1, cs2, b2, residual, N2
+
+
+def _unpad(out: torch.Tensor, N: int, lead) -> torch.Tensor:
+    """A kernel's output [M, Np] sliced back to N columns, as [*lead, N]."""
+    if out.shape[1] != N:
+        out = out[:, :N].contiguous()
+    return out.reshape(*lead, N)
 
 
 def int8w_mlp_chained(x: torch.Tensor, w1_data: torch.Tensor,
@@ -514,8 +581,7 @@ def int8w_mlp_chained(x: torch.Tensor, w1_data: torch.Tensor,
     the fused kernel does not take. Bit for bit the fused result."""
     if x.device.type != "cuda":
         raise ValueError(f"int8w_mlp_chained: unsupported device {x.device}")
-    N2 = w2_data.shape[1]
-    x2, w1t, w2t, b1, b2, residual = _mlp_args(
+    x2, w1t, w2t, cs1, b1, cs2, b2, residual, N2 = _mlp_args(
         "int8w_mlp_chained", x, w1_data, cs1, b1, w2_data, cs2, b2, residual,
         out_dtype)
     xi, sx = _quant_rows(x2)
@@ -523,7 +589,7 @@ def int8w_mlp_chained(x: torch.Tensor, w1_data: torch.Tensor,
     yi, sy = _quant_rows(inner)
     out = _gemm(yi, sy, w2t, cs2, b2, residual, False, out_dtype)
     _build.launch_counts["int8w_mlp_chained"] += 1
-    return out.reshape(*x.shape[:-1], N2)
+    return _unpad(out, N2, x.shape[:-1])
 
 
 def int8w_mlp(x: torch.Tensor, w1_data: torch.Tensor, cs1: torch.Tensor,
@@ -542,29 +608,32 @@ def int8w_mlp(x: torch.Tensor, w1_data: torch.Tensor, cs1: torch.Tensor,
         raise ValueError(f"int8w_mlp: unsupported device {x.device}")
     K = x.shape[-1]
     N1, N2 = w1_data.shape[1], w2_data.shape[1]
-    if not mlp_fits(K, N1, N2):
+    if not mlp_fits(_round_up(K, K_ALIGN), _round_up(N1, K_ALIGN),
+                    _round_up(N2, N_ALIGN)):
         if (K, N1, N2) not in _chained_shapes:
             _chained_shapes.add((K, N1, N2))
             _log.warning("int8w_mlp: widths %d -> %d -> %d do not fit the "
                          "fused kernel; running int8w_mlp_chained", K, N1, N2)
         return int8w_mlp_chained(x, w1_data, cs1, b1, w2_data, cs2, b2,
                                  residual, out_dtype)
-    x2, w1t, w2t, b1, b2, residual = _mlp_args(
+    x2, w1t, w2t, cs1, b1, cs2, b2, residual, N2 = _mlp_args(
         "int8w_mlp", x, w1_data, cs1, b1, w2_data, cs2, b2, residual,
         out_dtype)
-    M = x2.shape[0]
-    plan = mlp_plan(M, K, N1, N2, _active_clusters(K, N2))
+    (M, K), F, N = x2.shape, w1t.shape[0], w2t.shape[0]
+    plan = mlp_plan(M, K, F, N, _active_clusters(K, N))
     if plan is None:
         raise RuntimeError(f"int8w_mlp: the card runs no cluster of the fused "
-                           f"kernel at {K} -> {N1} -> {N2}")
-    out = torch.empty((M, N2), dtype=out_dtype, device=x2.device)
+                           f"kernel at {K} -> {F} -> {N}")
+    out = torch.empty((M, N), dtype=out_dtype, device=x2.device)
     _build.check(_build.function("dlm_int8_mlp")(
         x2.data_ptr(), w1t.data_ptr(), cs1.data_ptr(), _ptr(b1),
         w2t.data_ptr(), cs2.data_ptr(), _ptr(b2), _ptr(residual),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), M, K, N1, N2,
-        plan["cluster"], _stream(x2.device)), "int8_mlp")
+        out.data_ptr(), int(out_dtype == torch.bfloat16), M, K, F, N,
+        plan["cluster"], _stream(x2.device),
+        int(residual is not None and residual.dtype == torch.float32)),
+        "int8_mlp")
     _build.launch_counts["int8w_mlp"] += 1
-    return out.reshape(*x.shape[:-1], N2)
+    return _unpad(out, N2, x.shape[:-1])
 
 
 _chained_shapes: set = set()  # (K, F, N) already logged by int8w_mlp

@@ -22,13 +22,20 @@ column grid, K-major, into a per-call scratch of K * N bytes) and the s8
 tensor they run the plain versions `matmul_plain` / `a8_matmul_reference`,
 which repeat the kernels' roundings in their order. The kernels serve any M
 (the ragged edge is masked); they take N % 4 == 0 and K * bits / 8 a
-multiple of 8 (act_bits 16) or 16 (act_bits 8), and the wrapper raises on
-anything else. The residual of a layer is not part of these functions:
-`ops.matmul.linear` adds it afterwards, in `out_dtype`.
+multiple of 8 (act_bits 16) or 16 (act_bits 8). A weight off that alignment
+runs padded, as JAX's wrapper answers at every K and N: `_aligned` holds,
+once a weight, a copy with zero levels in the rows and columns past it (a
+new group of scale 1 where K's groups need one), and x's K is padded with
+zeros per call; zeros in x meet the padded rows, so the sums are those of
+the weight itself, and the output is sliced back to N. The residual of a
+layer is not part of these functions: `ops.matmul.linear` adds it
+afterwards, in `out_dtype`.
 """
 
 from __future__ import annotations
 
+import math
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -122,12 +129,6 @@ def matmul_plain(x2: torch.Tensor, w: MatmulWeight,
 
 def _check_weight(w: MatmulWeight) -> None:
     Kp = w.K * w.bits // 8
-    need = 16 if w.act_bits == 8 else 8
-    if w.N % 4 or Kp % need:
-        raise ValueError(
-            f"packed matmul (act_bits={w.act_bits}): needs N % 4 == 0 and "
-            f"K * bits / 8 a multiple of {need}, got K={w.K} N={w.N} "
-            f"bits={w.bits}")
     rows = w.K // w.group_size
     if (w.K % w.group_size or w.data.dtype != torch.uint8
             or tuple(w.data.shape) != (Kp, w.N)
@@ -142,6 +143,58 @@ def _check_weight(w: MatmulWeight) -> None:
                             or w.col_scale.numel() != w.N):
         raise ValueError("packed matmul: act_bits=8 needs an f32 col_scale "
                          "with N entries")
+
+
+def _alignment(w: MatmulWeight) -> Tuple[int, int]:
+    """(K, N) of the kernels' layout that holds w: N a multiple of 4; K a
+    multiple of the values that fill 8 bytes of a packed column (16 at
+    act_bits 8) and, where K is split into groups, of the group size."""
+    step = (16 if w.act_bits == 8 else 8) * (8 // w.bits)
+    if w.group_size < w.K:
+        step = step * w.group_size // math.gcd(step, w.group_size)
+    return -(-w.K // step) * step, -(-w.N // 4) * 4
+
+
+# Padded copies of weights off the kernels' alignment, made once a weight:
+# id(w.data) -> (weakref, version, padded MatmulWeight).
+_aligned_copies: dict = {}
+
+
+def _aligned(w: MatmulWeight) -> MatmulWeight:
+    """w in the kernels' layout (`_alignment`): w itself where it fits, else
+    a copy with zero levels in the rows and columns past it, scale 1 and
+    zero point 0 in the scale rows and columns past it (and col_scale 1),
+    block-packed along the padded K."""
+    K, N = _alignment(w)
+    if (K, N) == (w.K, w.N):
+        return w
+    key = id(w.data)
+    hit = _aligned_copies.get(key)
+    if hit is not None and hit[0]() is w.data and hit[1] == w.data._version:
+        return hit[2]
+    dev, vpb = w.data.device, 8 // w.bits
+    G = w.group_size if w.group_size < w.K else K
+    lv = torch.zeros((K, N), dtype=torch.uint8, device=dev)
+    lv[:w.K, :w.N] = w.levels()
+    scale = torch.ones((K // G, N), dtype=torch.float32, device=dev)
+    zp = torch.zeros_like(scale)
+    scale[:w.scale.shape[0], :w.N] = w.scale
+    zp[:w.scale.shape[0], :w.N] = w.zero_point
+    blocks = lv.reshape(vpb, K // vpb, N)
+    packed = blocks[0].clone()
+    for b in range(1, vpb):
+        packed |= blocks[b] << (b * w.bits)
+    col_scale = None
+    if w.col_scale is not None:
+        col_scale = torch.ones((1, N), dtype=torch.float32, device=dev)
+        col_scale[:, :w.N] = w.col_scale.reshape(1, w.N)
+    out = MatmulWeight(data=packed, scale=scale, zero_point=zp, bits=w.bits,
+                       K=K, N=N, group_size=G, act_bits=w.act_bits,
+                       col_scale=col_scale)
+    _aligned_copies[key] = (
+        weakref.ref(w.data, lambda _, k=key: _aligned_copies.pop(k, None)),
+        w.data._version, out)
+    return out
 
 
 def _check_operands(name, device, w: MatmulWeight, bias, **x):
@@ -205,9 +258,17 @@ def matmul(x: torch.Tensor, w: MatmulWeight, out_dtype=torch.float32,
     _check_weight(w)
     bias = _epilogue_vec(bias, w.N, "packed matmul")
     gelu = activation == "gelu"
+    N = w.N
+    w = _aligned(w)
+    if w.N != N and bias is not None:
+        bias = torch.nn.functional.pad(bias, (0, w.N - N))
+    if w.K != K:
+        x2 = torch.nn.functional.pad(x2, (0, w.K - K))
     if w.act_bits == 8:
         out = _launch8(x2, w, bias, gelu, out_dtype)
     else:
         out = _launch16(x2.to(torch.bfloat16).contiguous(), w, bias, gelu,
                         out_dtype)
-    return out.reshape(*lead, w.N)
+    if w.N != N:
+        out = out[:, :N].contiguous()
+    return out.reshape(*lead, N)

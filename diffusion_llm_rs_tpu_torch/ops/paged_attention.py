@@ -7,13 +7,15 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_paged_attention.py`:
 q, the centered K/V levels and the softmax weights folded with the V scale
 all go through the int8 tensor cores), `merge_partials`, `degroup_pool` and
 `degroup_sidecar`. On a CUDA tensor each wrapper launches its kernels (head
-dims that are multiples of 8 up to 256, `head_dim_fits`; pages of any
-multiple of 8 tokens up to 128, 1/2/4/8 bits, any head group dividing the
-heads) and raises on anything else; on a CPU tensor it runs its plain twin
-(`*_plain`), which repeats the TPU kernel's arithmetic page by page at the
-same rounding points. A head of D runs in the kernels' instance of the
-smallest `KERNEL_WIDTHS` entry that holds it, and the batched path's scratch
-rows are that wide, zero past D. Where D % 8 != 0 no kernel of either
+dims that are multiples of 8, with no upper limit, `head_dim_fits`; pages of
+any multiple of 8 tokens up to 128, 1/2/4/8 bits, any head group dividing
+the heads) and raises on anything else; on a CPU tensor it runs its plain
+twin (`*_plain`), which repeats the TPU kernel's arithmetic page by page at
+the same rounding points. A head of D up to 256 runs in the kernels'
+instance of the smallest `KERNEL_WIDTHS` entry that holds it, past 256 in
+the wide instance of each design (`csrc/wide_flash.cuh`), and the batched
+path's scratch rows are `kernel_width(D)` wide (past 256, D rounded up to
+64), zero past D. Where D % 8 != 0 no kernel of either
 package serves the pools (JAX's need rows of 128 lanes) and both wrappers
 take JAX's XLA paths on either device: `paged_attention_fallback` (JAX's
 `_fallback`) and `batched_paged_attention_fallback` (`_batched_fallback`).
@@ -47,7 +49,7 @@ import torch
 
 from diffusion_llm_rs_tpu_torch.ops import _build
 from diffusion_llm_rs_tpu_torch.ops.attention import (_head_dim_error,
-                                                      head_dim_fits,
+                                                      head_dim_fits, instance,
                                                       kernel_width)
 from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
@@ -251,8 +253,7 @@ def paged_attention(q, page_table, k_data, k_scale, k_zp, v_data, v_scale,
     pt, nt = (t.to(torch.int32).contiguous() for t in (page_table, page_tokens))
     out = torch.empty((BH, Sq, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
-    padded = "" if D == kernel_width(D) else "_padded"
-    err = _build.function(f"dlm_paged_attention{padded}")(
+    err = _build.function(f"dlm_paged_attention{instance(D)}")(
         qb.data_ptr(), pt.data_ptr(), nt.data_ptr(),
         *(t.data_ptr() for t in pools), out.data_ptr(), lse.data_ptr(), BH,
         Sq, D, n_pages, n_slots, P, bits, float(sm),
@@ -583,10 +584,15 @@ def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
     nt, npg = (t.to(torch.int32).contiguous() for t in (page_tokens, n_pages))
     out = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    err = _build.function(f"dlm_{name}")(
+    # past 256 the wide instance, which also takes the scratch's rows and
+    # the page's tokens
+    wide = instance(D) == "_wide"
+    extra = (k.shape[4], k_data.shape[2] * (8 // bits)) if wide else ()
+    err = _build.function(f"dlm_{name}{'_wide' if wide else ''}")(
         qb.data_ptr(), nt.data_ptr(), npg.data_ptr(), k.data_ptr(),
         v.data_ptr(), side.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H,
-        Sq, D, n_max, k.shape[3], torch.cuda.current_stream(q.device).cuda_stream)
+        Sq, D, n_max, k.shape[3], *extra,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, name)
     _build.launch_counts[name] += 1
     return (out, lse) if return_lse else out

@@ -92,12 +92,15 @@ def test_attention_long_sequence_takes_dense_attention():
     np.testing.assert_allclose(flash.numpy(), einsum.numpy(), atol=ATOL)
 
 
-@pytest.mark.parametrize("D", [32, 128, 8, 24, 48, 80, 96, 256])
+@pytest.mark.parametrize("D", [32, 128, 8, 24, 48, 80, 96, 256, 264, 384,
+                               768])
 @pytest.mark.parametrize("out", ["bfloat16", "float32"])
 def test_dense_attention_plain_matches_pallas_at_other_widths(D, out):
     """Head widths 32 (the shipped anchor's) and 128, and every other width
     JAX's kernel takes that the CUDA kernel runs padded (8 to 96: inside the
-    instances of 16, 32, 64 and 128) or at its widest (256), bf16 and f32
+    instances of 16, 32, 64 and 128), at its widest instance (256) or in its
+    wide instance (264, and the heads of 384 and 768 of width 768 at 2 and 1
+    heads), bf16 and f32
     output, against the interpreted kernel: P rounds to bf16 on both sides, so the
     difference is f32 summation order and the frameworks' `exp` moving an
     occasional bf16(p): 1e-2 absolute in bf16 (as above), 2e-3 relative

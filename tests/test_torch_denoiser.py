@@ -362,6 +362,27 @@ def test_long_sample_at_heads_of_48_and_12_matches_fp32(monkeypatch, heads,
     assert ttok.shape == (1, 1024) and (ttok == jtok).mean() >= 0.99
 
 
+def test_long_sample_at_one_head_of_384_matches_fp32(monkeypatch):
+    """`tiny(hidden_size=384, num_attention_heads=1,
+    max_sequence_length=1024)`: 2 layers with one head of 384, wider than
+    the CUDA kernels' fixed instances (the card runs `dense_attention`'s wide
+    instance). Both packages' `flash_fold` take their dense kernels (JAX
+    interpreted at D = 384, where its VMEM budget holds K and V; the port's
+    plain version). B=1, S=1024, 2 steps, fp32: within the fp32 sampler's
+    1e-5, tokens equal; one forward's eps at t = 500 within 1e-3 relative, as
+    at heads of 48."""
+    jx, tx, jtok, ttok, took, calls, L, eps_rel = _long_sample(
+        monkeypatch, 384, 1, 4)
+    assert took and all(took)
+    assert calls == [(1, 1024, 384)] * (3 * L)
+    assert np.isfinite(tx).all()
+    rel = _rel(tx, jx)
+    print(f"S=1024 sampler at one head of 384, fp32: x rel {rel:.3g}, one "
+          f"forward's eps rel {eps_rel:.3g}")
+    assert rel < 1e-5 and eps_rel < 1e-3
+    assert ttok.shape == (1, 1024) and (ttok == jtok).mean() >= 0.99
+
+
 # ------------------------------------------------- cached K/V branches
 #
 # Heads of 64 and S = 128, the shapes at which JAX's quantized-KV attention

@@ -192,3 +192,66 @@ def test_k_major_copy_is_made_once_and_follows_the_weight():
     del w, a, b
     gc.collect()
     assert key not in im._k_major_copies
+
+
+# ROADMAP C43: widths off the kernels' alignment (K % 16, N % 4) run padded
+# with zeros; the padding is checked here on the plain versions, which the
+# card's kernels equal bit for bit (tests/test_torch_kernels_cuda.py)
+
+@pytest.mark.parametrize("K,N", [(24, 8), (48, 6), (100, 30), (8, 1)])
+@pytest.mark.parametrize("act", [None, "gelu"])
+@pytest.mark.parametrize("res_dtype", [torch.bfloat16, torch.float32])
+def test_padded_weight_gives_the_plain_bits(K, N, act, res_dtype):
+    """`_padded(w, Kp, Np)` is w^T with zeros past it, made once; x, the
+    scales, bias and residual padded with zeros and the output sliced back
+    give `int8w_matmul_plain`'s bits: zero columns add exact zeros to the
+    int32 sums and leave each row's amax alone."""
+    rng = np.random.default_rng(K + N)
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    x = torch.from_numpy(rng.normal(size=(5, K)).astype(np.float32))
+    cs = torch.from_numpy(rng.random((1, N)).astype(np.float32)) * 1e-3
+    b = torch.from_numpy(rng.normal(size=(N,)).astype(np.float32))
+    r = torch.from_numpy(rng.normal(size=(5, N)).astype(np.float32)).to(
+        res_dtype)
+    Kp, Np = im._round_up(K, im.K_ALIGN), im._round_up(N, im.N_ALIGN)
+    wt = im._padded(w, Kp, Np)
+    assert wt.shape == (Np, Kp) and im._padded(w, Kp, Np) is wt
+    assert torch.equal(wt[:N, :K], w.t())
+    assert not wt[N:].any() and not wt[:, K:].any()
+    got = im.int8w_matmul_plain(im._pad_cols(x, Kp), wt.t(),
+                                im._pad_cols(cs, Np), im._pad_cols(b, Np),
+                                act, im._pad_cols(r, Np), torch.bfloat16)
+    want = im.int8w_matmul_plain(x, w, cs, b, act, r, torch.bfloat16)
+    assert torch.equal(got[:, :N], want)
+    key = (id(w), Kp, Np)
+    del w, wt
+    gc.collect()
+    assert key not in im._padded_copies
+
+
+@pytest.mark.parametrize("K,F,N", [(24, 40, 6), (100, 200, 30), (16, 8, 4)])
+@pytest.mark.parametrize("res_dtype", [torch.bfloat16, torch.float32])
+def test_padded_mlp_gives_the_plain_bits(K, F, N, res_dtype):
+    """The MLP padded at K, F and N: the inner columns past F come out
+    gelu(0 * s + 0) = 0 and requantize to 0 without moving the row's
+    amax, so `int8w_mlp_plain` over the padded operands, sliced, gives its
+    bits over the unpadded ones (f32 and bf16 residual)."""
+    rng = np.random.default_rng(K + F + N)
+    w1 = torch.from_numpy(rng.integers(-127, 128, (K, F)).astype(np.int8))
+    w2 = torch.from_numpy(rng.integers(-127, 128, (F, N)).astype(np.int8))
+    x = torch.from_numpy(rng.normal(size=(7, K)).astype(np.float32))
+    cs1, cs2 = (torch.from_numpy(rng.random((1, n)).astype(np.float32)) * 1e-2
+                for n in (F, N))
+    b1, b2 = (torch.from_numpy(rng.normal(size=(n,)).astype(np.float32))
+              for n in (F, N))
+    r = torch.from_numpy(rng.normal(size=(7, N)).astype(np.float32)).to(
+        res_dtype)
+    Kp, Fp = im._round_up(K, im.K_ALIGN), im._round_up(F, im.K_ALIGN)
+    Np = im._round_up(N, im.N_ALIGN)
+    pc = im._pad_cols
+    got = im.int8w_mlp_plain(pc(x, Kp), im._padded(w1, Kp, Fp).t(),
+                             pc(cs1, Fp), pc(b1, Fp),
+                             im._padded(w2, Fp, Np).t(), pc(cs2, Np),
+                             pc(b2, Np), pc(r, Np), torch.float32)
+    want = im.int8w_mlp_plain(x, w1, cs1, b1, w2, cs2, b2, r, torch.float32)
+    assert torch.equal(got[:, :N], want)

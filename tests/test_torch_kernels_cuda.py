@@ -26,7 +26,12 @@ pytestmark = pytest.mark.cuda
 # 128, 192 and 256 that holds it, zero past D): every new instance, at its
 # own width and padded
 WIDE = [8, 24, 48, 80, 96, 136, 192, 200, 256]
-HEAD_DIMS = [16, 32, 64, 128] + [pytest.param(d, id=f"D{d}") for d in WIDE]
+# past 256, the wide instance of each design (csrc/wide_flash.cuh): a ragged
+# last column block (264), the heads of width 768 at 2 and 1 heads (384,
+# 768), and whole column blocks up to 16 of them (512, 1024, 2048)
+WIDER = [264, 384, 512, 768, 1024, 2048]
+HEAD_DIMS = [16, 32, 64, 128] + [pytest.param(d, id=f"D{d}") for d in WIDE] \
+    + [pytest.param(d, id=f"W{d}") for d in WIDER]
 
 
 @pytest.fixture
@@ -309,31 +314,109 @@ def test_dense_attention_kernel_matches_twin(gen, BH, Sq, Skv, D, out_dtype):
 
 def test_kernels_refuse_what_they_do_not_take(gen):
     """Heads of 48, which this test refused until the kernels took every
-    multiple of 8, now match the twin; heads wider than 256 (ROADMAP C41)
-    and of no multiple of 8 (JAX returns None, and `flash_fold` takes the
-    einsum) are refused."""
+    multiple of 8, match the twin; so do heads wider than 256 (refused
+    until the wide instance, ROADMAP C41) and `int8w_matmul` at K = 24
+    (refused until the wrapper padded K to 16, C43), bit for bit. Heads of
+    no multiple of 8 (JAX returns None, and `flash_fold` takes the einsum),
+    float16 out and a float16 residual are refused."""
     x = torch.randn((4, 24), device="cuda")
-    with pytest.raises(ValueError, match="K % 16"):
-        im.int8w_matmul(x, _w(24, 8, gen), torch.ones(1, 8, device="cuda"))
-    q = torch.randn((1, 8, 48), device="cuda")
+    w, cs = _w(24, 8, gen), torch.rand(1, 8, device="cuda") * 1e-3
     _build.reset_launch_counts()
-    out = dense_attention(q, q, q)
+    out = im.int8w_matmul(x, w, cs)
     torch.cuda.synchronize()
-    assert _build.launch_counts["dense_attention"] == 1
-    ref = dense_attention_plain(q, q, q)
-    assert float((out.float() - ref.float()).norm() / ref.float().norm()) \
-        <= 1e-2
-    for D in (264, 12):
+    assert _build.launch_counts["int8w_matmul"] == 1
+    assert torch.equal(out, im.int8w_matmul_plain(x, w, cs))
+    for D in (48, 264):
         q = torch.randn((1, 8, D), device="cuda")
-        with pytest.raises(ValueError, match="head dim"):
-            dense_attention(q, q, q)
-    q = torch.randn((1, 8, 64), device="cuda")
-    with pytest.raises(ValueError, match="writes bf16 or f32"):
-        dense_attention(q, q, q, out_dtype=torch.float16)
-    r = torch.randn((4, 8), device="cuda")
-    with pytest.raises(ValueError, match="residual must be bf16"):
+        _build.reset_launch_counts()
+        out = dense_attention(q, q, q)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["dense_attention"] == 1
+        ref = dense_attention_plain(q, q, q)
+        assert float((out.float() - ref.float()).norm()
+                     / ref.float().norm()) <= 1e-2
+    q = torch.randn((1, 8, 12), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        dense_attention(q, q, q)
+    for D in (64, 264):
+        q = torch.randn((1, 8, D), device="cuda")
+        with pytest.raises(ValueError, match="writes bf16 or f32"):
+            dense_attention(q, q, q, out_dtype=torch.float16)
+    r = torch.randn((4, 8), device="cuda").half()
+    with pytest.raises(ValueError, match="residual must be bf16 or f32"):
         im.int8w_matmul(x[:, :16], _w(16, 8, gen),
                         torch.ones(1, 8, device="cuda"), residual=r)
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 24, 8), (37, 48, 6), (8, 100, 30),
+                                   (130, 776, 2302), (1, 8, 1)])
+@pytest.mark.parametrize("res_dtype", [None, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8w_matmul_off_alignment_and_f32_residual(gen, M, K, N, res_dtype,
+                                                     gelu, out_dtype):
+    """K off 16 and N off 4 run padded with zeros (ROADMAP C43), and the
+    residual may be f32 (C42, added in f32 before the output's rounding, as
+    JAX's `_kernel_i8w` adds r.astype(f32)): the tolerance of
+    `test_int8w_matmul_kernel_matches_twin`, bit for bit without gelu. The
+    padded weight is held once."""
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    w = _w(K, N, gen)
+    cs = torch.rand((1, N), generator=gen, device="cuda") * 1e-3
+    b = torch.randn((N,), generator=gen, device="cuda")
+    r = (None if res_dtype is None else
+         torch.randn((M, N), generator=gen, device="cuda").to(res_dtype))
+    act = "gelu" if gelu else None
+    _build.reset_launch_counts()
+    out = im.int8w_matmul(x, w, cs, b, act, r, out_dtype)
+    again = im.int8w_matmul(x, w, cs, b, act, r, out_dtype)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["int8w_matmul"] == 2
+    assert out.dtype == out_dtype and out.shape == (M, N)
+    assert torch.equal(out, again)
+    padded = K % 16 or N % 4
+    assert bool(padded) == any(k[0] == id(w) for k in im._padded_copies)
+    ref = im.int8w_matmul_plain(x, w, cs, b, act, r, out_dtype)
+    if not gelu:
+        assert torch.equal(out, ref)
+        return
+    rtol = 1e-5 if out_dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("M,K,F,N", [(100, 128, 512, 128), (37, 100, 200, 30),
+                                     (2048 + 37, 768, 3072, 768),
+                                     (40, 256, 4096, 256), (9, 24, 40, 6)])
+@pytest.mark.parametrize("res_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8w_mlp_off_alignment_and_f32_residual(gen, M, K, F, N, res_dtype,
+                                                  out_dtype):
+    """`int8w_mlp` (the fused kernel, or the chained kernels where the fused
+    one does not take the widths) and `int8w_mlp_chained` with an f32 or
+    bf16 residual (ROADMAP C42) and widths off 16 and 4 (C43, padded with
+    zeros: the inner columns past F come out gelu(0) = 0): the two equal
+    bit for bit, within 1e-3 of the plain version, as at aligned widths."""
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    w1, w2 = _w(K, F, gen), _w(F, N, gen)
+    cs1 = torch.rand((1, F), generator=gen, device="cuda") * 1e-3
+    cs2 = torch.rand((1, N), generator=gen, device="cuda") * 1e-3
+    b1 = torch.randn((F,), generator=gen, device="cuda")
+    b2 = torch.randn((N,), generator=gen, device="cuda")
+    r = torch.randn((M, N), generator=gen, device="cuda").to(res_dtype)
+    args = (x, w1, cs1, b1, w2, cs2, b2, r, out_dtype)
+    fused = im.mlp_fits(-(-K // 16) * 16, -(-F // 16) * 16, -(-N // 4) * 4)
+    _build.reset_launch_counts()
+    out = im.int8w_mlp(*args)
+    chained = im.int8w_mlp_chained(*args)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == (
+        {"int8w_mlp": 1, "int8w_mlp_chained": 1} if fused
+        else {"int8w_mlp_chained": 2})
+    assert out.dtype == out_dtype and out.shape == (M, N)
+    assert torch.equal(out, chained)
+    ref = im.int8w_mlp_plain(*args)
+    rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+    assert rel <= 1e-3, rel
 
 
 def _pools(gen, n_slots, HG, P, GD, bits, G=None):
@@ -371,7 +454,12 @@ DG = [(16, 1), (32, 4), (64, 1), (64, 2), (128, 1)] + [
         # 256; heads of 48 in groups of 8 (rows of 384), where JAX's kernel
         # runs, and of 24 in groups of 2 (8-byte reads of the pool)
         (8, 1), (24, 2), (48, 1), (48, 8), (80, 1), (96, 1), (136, 1),
-        (192, 1), (200, 1), (256, 1))]
+        (192, 1), (200, 1), (256, 1))] + [
+    # the wide instance (csrc/wide_flash.cuh): every WIDER width alone, and
+    # heads of 384 in pairs (rows of 768)
+    pytest.param(d, g, id=f"W{d}G{g}") for d, g in (
+        (264, 1), (384, 1), (384, 2), (512, 1), (768, 1), (1024, 1),
+        (2048, 1))]
 PAGES = [8, 16, 24, 32, 64, 72, 128]
 
 
@@ -521,7 +609,8 @@ def test_paged_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="empty page table"):
         pa.paged_attention(q[0], pt[0, :0], *pools, bits=4)
     # heads of 48, refused here until the kernels took every multiple of 8,
-    # now match the twins; heads wider than 256 are refused (ROADMAP C41)
+    # and heads of 264, refused until the wide instance (ROADMAP C41), match
+    # the twins, at act_bits 16 and 8
     q48 = torch.randn((1, 2, 8, 48), device="cuda")
     pools48 = _pools(gen, 2, 2, 64, 48, 4, 1)
     nt = torch.full((1, 1), 64, dtype=torch.int32, device="cuda")
@@ -539,12 +628,35 @@ def test_paged_kernels_refuse_what_they_do_not_take(gen):
         q48[0], pt[0], *pools48, bits=4, return_lse=True))
     q264 = torch.randn((1, 2, 8, 264), device="cuda")
     pools264 = _pools(gen, 2, 2, 64, 264, 4, 1)
-    for act_bits in (16, 8):
-        with pytest.raises(ValueError, match="head dim"):
-            pa.batched_paged_attention(q264, pt, nt, npg, *pools264, bits=4,
-                                       act_bits=act_bits)
-    with pytest.raises(ValueError, match="head dim"):
-        pa.paged_attention(q264[0], pt[0], *pools264, bits=4)
+    for act_bits, name, plain, tol in (
+            (16, "batched_paged_attention", pa.batched_paged_attention_plain,
+             1e-2),
+            (8, "batched_paged_attention_a8",
+             pa.batched_paged_attention_a8_plain, 5e-3)):
+        _build.reset_launch_counts()
+        out, lse = pa.batched_paged_attention(
+            q264, pt, nt, npg, *pools264, bits=4, return_lse=True,
+            act_bits=act_bits)
+        torch.cuda.synchronize()
+        assert dict(_build.launch_counts) == {name: 1, "paged_unpack": 1}
+        ref, ref_lse = plain(q264, pt, nt, npg, *pools264, bits=4,
+                             return_lse=True)
+        assert float((out - ref).norm() / ref.norm()) <= tol
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    _build.reset_launch_counts()
+    out1, lse1 = pa.paged_attention(q264[0], pt[0], *pools264, bits=4,
+                                    return_lse=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["paged_attention"] == 1
+    _close(out1, lse1, *pa.paged_attention_plain(
+        q264[0], pt[0], *pools264, bits=4, return_lse=True))
+    q12 = torch.randn((1, 2, 8, 12), device="cuda")
+    pools12 = _pools(gen, 2, 2, 64, 12, 4, 1)
+    for act_bits in (16, 8):  # JAX's XLA path: no kernel serves the pools
+        _build.reset_launch_counts()
+        pa.batched_paged_attention(q12, pt, nt, npg, *pools12, bits=4,
+                                   act_bits=act_bits)
+        assert not _build.launch_counts
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -697,8 +809,9 @@ def test_quantize_kv_card_equals_cpu(gen, bits):
 
 def test_quant_attention_refuses_what_the_kernel_does_not_take(gen):
     """Heads of 48, refused here until the kernel took every multiple of 8,
-    now match the plain version; heads wider than 256 are refused (ROADMAP
-    C41)."""
+    and heads of 264, refused until the wide instance (ROADMAP C41), match
+    the plain version at every bit width; inputs on different devices are
+    refused."""
     q = torch.randn((2, 8, 48), generator=gen, device="cuda")
     k = qa.quantize_kv(torch.randn((2, 16, 48), generator=gen, device="cuda"), 4)
     _build.reset_launch_counts()
@@ -708,10 +821,15 @@ def test_quant_attention_refuses_what_the_kernel_does_not_take(gen):
     ref = qa.attention_plain(q, k, k, tile=qa.KERNEL_KV_TILE)
     assert float((out - ref).norm() / ref.norm()) <= 2e-3
     q = torch.randn((2, 8, 264), generator=gen, device="cuda")
-    k = qa.quantize_kv(torch.randn((2, 16, 264), generator=gen,
-                                   device="cuda"), 4)
-    with pytest.raises(ValueError, match="head dim"):
-        qa.attention(q, k, k)
+    for bits in (1, 2, 4, 8):
+        k = qa.quantize_kv(torch.randn((2, 16, 264), generator=gen,
+                                       device="cuda"), bits)
+        _build.reset_launch_counts()
+        out = qa.attention(q, k, k)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["quant_attention"] == 1
+        ref = qa.attention_plain(q, k, k, tile=qa.KERNEL_KV_TILE)
+        assert float((out - ref).norm() / ref.norm()) <= 2e-3
     q = torch.randn((2, 8, 64), generator=gen, device="cuda")
     k = qa.quantize_kv(torch.randn((2, 16, 64), generator=gen, device="cuda"), 4)
     with pytest.raises(ValueError, match="different devices"):
@@ -912,13 +1030,56 @@ def test_unpack_i8_kernel_equals_plain(gen, bits, gran, group, K, N):
 
 
 def test_packed_matmul_refuses_what_the_kernel_does_not_take(gen):
+    """A packed row of 12 bytes (K = 24 at 4 bits), refused until the
+    wrapper padded the weight (ROADMAP C43), matches the plain version at
+    its tolerance; a contraction mismatch is refused."""
     from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
     w = _packed_weight(24, 8, 4, "tensor", 16, gen)   # Kp = 12
-    with pytest.raises(ValueError, match="multiple of 8"):
-        pm.matmul(torch.zeros((2, 24), device="cuda"), w)
+    x = torch.randn((2, 24), generator=gen, device="cuda")
+    _build.reset_launch_counts()
+    out = pm.matmul(x, w)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["matmul"] == 1
+    torch.testing.assert_close(out, pm.matmul_plain(x, w), rtol=2e-5,
+                               atol=2e-5)
     w = _packed_weight(128, 8, 4, "tensor", 16, gen)
     with pytest.raises(ValueError, match="contraction mismatch"):
         pm.matmul(torch.zeros((2, 64), device="cuda"), w)
+
+
+@pytest.mark.parametrize("K,N,bits,gran,group", [
+    (24, 8, 4, "tensor", 0), (24, 6, 4, "group", 8), (40, 10, 2, "group", 8),
+    (24, 8, 1, "channel", 0), (200, 30, 8, "group", 40),
+    (768, 2302, 4, "group", 128), (96, 8, 2, "group", 6)])
+@pytest.mark.parametrize("act_bits", [16, 8])
+@pytest.mark.parametrize("M", [3, 130])
+def test_packed_matmul_off_alignment_matches_plain(gen, K, N, bits, gran,
+                                                   group, act_bits, M):
+    """Packed rows off 8 bytes (16 at act_bits 8) and N off 4 (ROADMAP C43):
+    the weight is padded once (zero levels, and new groups of scale 1 where
+    K's groups need one), x's K per call; with bias and gelu. act_bits 16
+    within the tolerance of `test_packed_matmul_kernel_matches_plain` (bf16
+    out: one bf16 ulp); act_bits 8 bit for bit (one bf16 ulp with gelu)."""
+    from diffusion_llm_rs_tpu_torch.ops import packed_matmul as pm
+    w = _packed_weight(K, N, bits, gran, act_bits, gen, group or 128)
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    b = torch.randn((N,), generator=gen, device="cuda") * 0.02
+    name = "matmul_a8" if act_bits == 8 else "matmul"
+    for act in (None, "gelu"):
+        _build.reset_launch_counts()
+        out = pm.matmul(x, w, torch.bfloat16, b, act)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[name] == 1
+        assert out.shape == (M, N) and out.dtype == torch.bfloat16
+        if act_bits == 8:
+            ref = pm.a8_matmul_reference(x, w, b, act, torch.bfloat16)
+            if act is None:
+                assert torch.equal(out, ref)
+                continue
+        else:
+            ref = pm.matmul_plain(x, w, b, act, torch.bfloat16)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                                   atol=2e-5)
 
 
 def test_quantize_fp8_card_equals_cpu(gen):

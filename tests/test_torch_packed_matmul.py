@@ -295,3 +295,49 @@ def test_dequantize_tree_and_exported_leaves():
         assert np.array_equal(np.asarray(a), b.numpy())
     # the packed layout dequantizes to the same floats as the tensor it packs
     assert torch.equal(td["mw"][0], td["q"])
+
+
+@pytest.mark.parametrize("K,N,bits,gran,group", [
+    (24, 8, 4, "tensor", 0), (24, 6, 4, "group", 8), (40, 10, 2, "group", 8),
+    (24, 8, 1, "channel", 0), (200, 30, 8, "group", 40), (96, 8, 2, "group", 6)])
+@pytest.mark.parametrize("act_bits", [16, 8])
+def test_aligned_weight_is_the_weight_padded(K, N, bits, gran, group,
+                                             act_bits):
+    """ROADMAP C43: a packed weight off the kernels' alignment (N % 4, or K *
+    bits / 8 not a multiple of 8, 16 at act_bits 8) runs through
+    `_aligned`'s copy, made once: its levels are the weight's with zeros
+    past it, block-packed along the padded K (a multiple of the group),
+    its scales and zero points the weight's (1 and 0 past it). x padded with
+    zeros meets the padded rows, so act_bits 8's plain version (exact int32
+    sums) gives the weight's bits, sliced back to N; act_bits 16's sums of
+    the same products and exact zeros within 1e-6."""
+    rng = np.random.default_rng(K + N + bits)
+    w = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32)) * 0.02
+    if gran == "group":
+        qt = tq.quantize(w, bits, symmetric=True, granularity="group",
+                         group_size=group, axis=0)
+    elif gran == "channel":
+        qt = tq.quantize(w, bits, granularity="channel", axis=1)
+    else:
+        qt = tq.quantize(w, bits, granularity="tensor")
+    mw = tpm.prepare(qt, act_bits=act_bits)
+    al = tpm._aligned(mw)
+    assert tpm._aligned(mw) is al and (al.K, al.N) == tpm._alignment(mw)
+    assert al.K % al.group_size == 0 and al.N % 4 == 0
+    assert al.K * bits // 8 % (16 if act_bits == 8 else 8) == 0
+    lv = al.levels()
+    assert torch.equal(lv[:K, :N], mw.levels())
+    assert not lv[K:].any() and not lv[:, N:].any()
+    assert torch.equal(al.dequantize()[:K, :N], mw.dequantize())
+    x = torch.from_numpy(rng.normal(size=(3, K)).astype(np.float32))
+    xp = torch.nn.functional.pad(x, (0, al.K - K))
+    b = torch.from_numpy(rng.normal(size=(N,)).astype(np.float32)) * 0.02
+    bp = torch.nn.functional.pad(b, (0, al.N - N))
+    if act_bits == 8:
+        got = tpm.a8_matmul_reference(xp, al, bp, "gelu", torch.float32)
+        want = tpm.a8_matmul_reference(x, mw, b, "gelu", torch.float32)
+        assert torch.equal(got[:, :N], want)
+    else:
+        got = tpm.matmul_plain(xp, al, bp, "gelu", torch.float32)
+        want = tpm.matmul_plain(x, mw, b, "gelu", torch.float32)
+        torch.testing.assert_close(got[:, :N], want, rtol=1e-6, atol=1e-6)

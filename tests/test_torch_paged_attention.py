@@ -453,11 +453,13 @@ def test_batched_a8_twin_at_pages_of_64(bits, G):
     assert np.all(tlse[1].numpy() == tpa.NEG_INF)
 
 
-# the head widths the CUDA kernels run padded (8 to 96) or at their widest
-# (256), and the head group each batched case takes: JAX's batched kernel
-# runs where a pool row is whole 128-lane blocks (heads of 48 in groups of 8,
-# of 96 in groups of 4, of 256 alone), its fall-back elsewhere
-WIDE = [(8, 1), (24, 1), (48, 8), (80, 1), (96, 4), (256, 1)]
+# the head widths the CUDA kernels run padded (8 to 96), at their widest
+# fixed instance (256) or in their wide instance (264, 384, 768), and the
+# head group each batched case takes: JAX's batched kernel runs where a pool
+# row is whole 128-lane blocks (heads of 48 in groups of 8, of 96 in groups
+# of 4, of 256, 384 and 768 alone), its fall-back elsewhere (264)
+WIDE = [(8, 1), (24, 1), (48, 8), (80, 1), (96, 4), (256, 1), (264, 1),
+        (384, 1), (768, 1)]
 
 
 @pytest.mark.parametrize("D,G", WIDE)
@@ -496,10 +498,11 @@ def test_batched_twins_at_wide_and_padded_heads_match_jax(D, G, act_bits):
     assert np.all(tlse[1].numpy() == tpa.NEG_INF)
 
 
-@pytest.mark.parametrize("D", [8, 24, 48, 80, 96, 256])
+@pytest.mark.parametrize("D", [8, 24, 48, 80, 96, 256, 264, 384, 768])
 def test_single_twin_at_wide_and_padded_heads_matches_jax(D):
     """One sequence over three scattered 4-bit pages of 128, the last one
-    partial. JAX runs its interpreted kernel at D=256 (D % 128 == 0): within
+    partial. JAX runs its interpreted kernel at D=256, 384 and 768 (D % 128
+    == 0): within
     1e-3 relative and lse 1e-4, as at D=128; its fall-back elsewhere: within
     ROADMAP C9's 2e-2, lse 2e-2, as at heads of 16."""
     BH, Sq, P, bits = 2, 16, 128, 4

@@ -200,9 +200,11 @@ GRID = [(64, 2, 128), (64, 1, 64), (64, 2, 64), (32, 4, 8), (32, 4, 16),
     # heads the CUDA kernels run padded (scratch rows of the next instance's
     # width, zero past D) and at their widest: heads of 48 in groups of 8
     # (rows of 384 lanes, JAX's kernel shape), of 24 in pairs (8-byte reads
-    # of a pool row in the kernel), of 8, 80, 96 and 256
+    # of a pool row in the kernel), of 8, 80, 96 and 256; and past 256, where
+    # the scratch's rows are D rounded up to 64 (the wide instance's chunk):
+    # 264 (rows of 320) and 768
     (8, 1, 8), (24, 2, 72), (48, 8, 128), (80, 1, 64), (96, 1, 128),
-    (256, 1, 128)]
+    (256, 1, 128), (264, 1, 32), (768, 1, 8)]
 
 
 @pytest.mark.parametrize("D,G,P", GRID)
@@ -258,7 +260,7 @@ def _jax_deq(data, scale, zp, page_tables, bits):
 @pytest.mark.parametrize("P", [8, 32, 64, 72, 128])
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("D,G", [(64, 1), (64, 2), (32, 4), (8, 1), (24, 2),
-                                 (48, 8), (96, 1), (256, 1)])
+                                 (48, 8), (96, 1), (256, 1), (264, 1)])
 def test_unpacked_levels_match_jax_dequantization(P, bits, D, G):
     """K levels of both layouts and the int8 layout's V levels (centered,
     column-permuted), recombined as (lv - zp) * scale in f32, equal JAX's

@@ -121,12 +121,15 @@ def test_plain_matches_jax_kernel(bits, Skv):
     assert rel < 1e-4
 
 
-@pytest.mark.parametrize("D", [16, 32, 128, 8, 24, 48, 80, 96, 256])
+@pytest.mark.parametrize("D", [16, 32, 128, 8, 24, 48, 80, 96, 256, 264, 384,
+                               768])
 @pytest.mark.parametrize("bits", [8, 4, 2, 1])
 def test_plain_matches_jax_at_other_head_widths(bits, D):
     """Heads of 16 (`DiffusionConfig.tiny()`'s), 32 (the shipped anchor's)
-    and 128, and the widths the CUDA kernel runs padded (8 to 96) or at its
-    widest (256), BH=4, Sq=16, Skv=128. JAX runs its interpreted kernel where
+    and 128, the widths the CUDA kernel runs padded (8 to 96) or at its
+    widest fixed instance (256), and past it in its wide instance (264, and
+    384 and 768, the heads of width 768 at 2 and 1 heads), BH=4, Sq=16,
+    Skv=128. JAX runs its interpreted kernel where
     a packed row splits into whole 8-channel blocks (D % (8 * vpb) == 0):
     within 1e-4 relative, as at D=64. Elsewhere (D=32 at 1 bit, D=16 at 2 or
     1 bits, D=8 and 24 at 4 bits and below, ...) it takes
@@ -145,7 +148,14 @@ def test_plain_matches_jax_at_other_head_widths(bits, D):
     print(f"attention_plain vs JAX {'kernel' if kernel else 'fall-back'}, "
           f"{bits}-bit D={D}: rel {rel:.3g}")
     assert tout.dtype == torch.float32 and tuple(tout.shape) == (BH, Sq, D)
-    assert rel < (1e-4 if kernel else 2e-2)
+    # 8-bit levels lie about 128 from their zero point, so where the two
+    # f32 sums of q.lv (D products, in another order) part in the last bit
+    # and flip one bf16(p * vs), the output moves by 2^-9 p vs (lv - vz),
+    # which the f32 correction does not take back (at D = 256 one flip gives
+    # 8.8e-5); past 256 products the sums part more often: 5e-4 there
+    # (2.2e-4 and 3.6e-4 at D = 768 and 264)
+    wide8 = bits == 8 and D > 256
+    assert rel < (5e-4 if wide8 else 1e-4 if kernel else 2e-2)
 
 
 @pytest.mark.parametrize("bits", [8, 4, 2])
@@ -172,7 +182,8 @@ def test_plain_tile_of_the_cuda_kernel(bits):
     assert _rel(t64, t256) < 5e-3 and _rel(t64, jout) < 5e-3
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128, 8, 24, 48, 80, 96, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 8, 24, 48, 80, 96, 256, 264,
+                               384, 768])
 @pytest.mark.parametrize("bits", [8, 4, 2, 1])
 def test_plain_at_the_kernel_tile_matches_jax(bits, D):
     """`attention_plain` at the CUDA kernel's KV tile (64 tokens) against
