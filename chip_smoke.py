@@ -60,10 +60,16 @@ Phases (any failure makes the script exit non-zero without the final line):
                 both batched paged kernels and paged_unpack at heads_wide's
                 serving shape with 2 heads of 384 and one of 768; and
                 untimed at heads of 264 (a ragged column block, packed rows
-                of 33 bytes at 1 bit) and 2048. The kernels line gives each
-                design's wide instance as `wide_instance` (its first timed
-                row, and its launches on heads_wide's heads of 384 and
-                768).
+                of 33 bytes at 1 bit), 520 and 2048, and past the cluster
+                kernels at 2056. Dense and single-sequence paged attention
+                run heads of 264 to 2048 in the cluster kernels
+                (csrc/wide_cluster_flash.cuh; the paged rows give the splits
+                of the page chain over clusters), the clusters of each size
+                the card runs at once are logged, and any size it cannot
+                place fails the phase. The kernels line gives each design's
+                wide instance as `wide_instance` (its first timed row, its
+                design and source, and its launches on heads_wide's heads
+                of 384 and 768).
   4. sampler  - the W4A8 sampler at full width (12 layers, 768 wide, 12 heads,
                 vocab 50257; random weights from a seed, quantized in the
                 port): B=8, S=256, 32 steps, bf16 activations, timed 5 times
@@ -235,6 +241,11 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bytes/s
 EX2_PER_SM_CLOCK = 16     # ex2 (MUFU) results a Hopper SM gives a clock
 WIDE_FROM = 256           # heads wider run the attention kernels' wide instance
+# the clusters of each size (blocks) of the cluster kernels of dense and
+# single-sequence paged attention (heads of 264 to 2048,
+# csrc/wide_cluster_flash.cuh) the card runs at once, read by the kernels
+# phase
+CLUSTERS = {}
 # the card's SMs and its highest SM clock (Hz), read by the device phase
 CARD = {}
 
@@ -531,9 +542,11 @@ def kernels():
     # at S=1024, which fills the card, timed. The widths between and past
     # the instances of 16-128 (`heads_wide`): heads of 48 and 96 at the work
     # of heads of 128 (BH=48), run padded in the instances of 64 and 128,
-    # and heads of 256 at BH=24, timed. The wide instance (heads past 256):
-    # heads of 384 and 768 at the work of heads of 128 (BH=16 and 8), timed;
-    # heads of 264 (a ragged column block) and of 2048 with f32 out.
+    # and heads of 256 at BH=24, timed. The wide instance (heads past 256;
+    # the cluster kernel up to 2048): heads of 384 and 768 at the work of
+    # heads of 128 (BH=16 and 8), timed; heads of 264 (a last block of 8
+    # columns), of 520 with f32 out (a cluster of 3), of 2048 with f32 out
+    # (a cluster of 8) and of 2056 (csrc/wide_flash.cuh).
     # bf16 P: the kernel's 128-wide KV tiles rescale at other points than the
     # twin's 512-wide ones, so bf16(p) may round differently: |d| <= 1e-2 and
     # rel Frobenius <= 1e-2
@@ -544,7 +557,8 @@ def kernels():
             (128, 1024, 16, bf16, True), (48, 1024, 48, bf16, True),
             (48, 1024, 96, bf16, True), (24, 1024, 256, bf16, True),
             (16, 1024, 384, bf16, True), (8, 1024, 768, bf16, True),
-            (8, 300, 264, bf16, False), (8, 256, 2048, f32, False)):
+            (8, 300, 264, bf16, False), (4, 300, 520, f32, False),
+            (8, 256, 2048, f32, False), (2, 256, 2056, bf16, False)):
         q, k, v = (torch.randn((BH, S, Dh), generator=gen, device="cuda")
                    .to(bf16) for _ in range(3))
         out = dense_attention(q, k, v, out_dtype=dtype)
@@ -577,6 +591,7 @@ def kernels():
                if timed else ""))
         if not ok:
             bad.append(f"dense_attention {row['shape']}")
+    _cluster_occupancy(bad)
     _paged_kernels(gen, results, bad)
     _quant_attention_kernels(gen, results, bad)
     _packed_kernels(gen, results, bad)
@@ -593,6 +608,22 @@ def kernels():
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
     return results
+
+
+def _cluster_occupancy(bad):
+    """The clusters of the dense cluster kernel (csrc/wide_cluster_flash.cuh,
+    one block an SM) the card runs at once, at every cluster size from 2
+    to 8 blocks (heads of 264 to 2048); 0 would refuse the launch."""
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    fn = _build.function("dlm_dense_attention_cluster_active")
+    for D in (264, 520, 776, 1032, 1288, 1544, 1800, 2048):
+        C = -(-D // 256)
+        n = fn(D)
+        CLUSTERS[C] = n
+        log(f"  dense cluster kernel at heads of {D}: clusters of {C} "
+            f"blocks, {n} at once ({n * C} of {CARD['sms']} SMs)")
+        if n <= 0:
+            bad.append(f"clusters of {C} blocks")
 
 
 def _mlp_kernels(gen, results, bad):
@@ -810,7 +841,9 @@ def _unpack_case(pa, label, shape, args, npages, bits, G, timed, results,
 
 def _paged_kernels(gen, results, bad):
     from diffusion_llm_rs_tpu_torch.cache.paged import quantize_page
+    from diffusion_llm_rs_tpu_torch.ops import _build
     from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
+    from diffusion_llm_rs_tpu_torch.ops.attention import cluster_blocks
 
     tol = "rel Frobenius <= 1e-2, |lse| <= 1e-3"
     # quantize_page on the card equals the CPU bit for bit (true division
@@ -990,6 +1023,9 @@ def _paged_kernels(gen, results, bad):
             row = dict(shape=_paged_label(label, *case), max_abs_err=err,
                        rel_err=rel, lse_err=lse_err, tolerance=tol,
                        wide=D > WIDE_FROM)
+            if cluster_blocks(D):  # the chain's splits over clusters
+                row["splits"] = _build.function(
+                    "dlm_paged_attention_cluster_splits")(BH, Sq1, D, n1, P)
             if last == P:
                 row["ms"] = time_ms(lambda: pa.paged_attention(
                     *args, bits=bits, page_tokens=nt))
@@ -1003,6 +1039,7 @@ def _paged_kernels(gen, results, bad):
             results["paged_attention"].append(row)
             log(f"  paged_attention {row['shape']}: rel {rel:.3g} lse "
                 f"{lse_err:.3g} {'ok' if ok else 'MISMATCH'}"
+                + (f"; {row['splits']} split(s)" if "splits" in row else "")
                 + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
                    f"library {row['library_ms']:.4f}, bound "
                    f"{row['bound_ms']:.4f} ({row['bound_by']}); MUFU ex2 "
@@ -1019,12 +1056,15 @@ def _paged_kernels(gen, results, bad):
 # widths of `heads_wide`: heads of 48 at the sampler's work (BH=12),
 # heads of 96 beside heads of 128 at BH=6, heads of 256 at BH=3, and the
 # wide instance's heads of 384 and 768 at the work of heads of 128 (BH=2
-# and 1); heads of 264 at 1 bit in pages of 64 (rows of 33 bytes)
+# and 1); heads of 264 at 1 bit in pages of 64 (rows of 33 bytes, 8-byte
+# reads, a last block of 8 columns), of 2048 at 2 bits in pages of 32 (a
+# cluster of 8) and of 2056 (csrc/wide_flash.cuh)
 PAGED_CASES = ((12, 1024, 8, 4, 128, 64), (8, 64, 8, 4, 8, 16),
                (4, 1024, 8, 4, 128, 16), (12, 1024, 8, 4, 128, 48),
                (6, 1024, 8, 4, 128, 96), (6, 1024, 8, 4, 128, 128),
                (3, 1024, 8, 4, 128, 256), (2, 1024, 8, 4, 128, 384),
-               (1, 1024, 8, 4, 128, 768), (3, 200, 4, 1, 64, 264))
+               (1, 1024, 8, 4, 128, 768), (3, 200, 4, 1, 64, 264),
+               (1, 200, 4, 2, 32, 2048), (1, 200, 4, 4, 64, 2056))
 
 
 def _paged_label(label, BH, Sq, n, bits, P, D):
@@ -3873,7 +3913,8 @@ KERNELS = {
 # quant_attention and paged_attention run heads of widths between their
 # instances' from a padded source
 # the wide instance of each attention design (heads past 256), a source of
-# its own over csrc/wide_flash.cuh
+# its own over csrc/wide_flash.cuh; dense and single-sequence paged
+# attention's also over csrc/wide_cluster_flash.cuh (WIDE_DESIGNS)
 WIDE_SOURCES = {
     "dense_attention": "diffusion_llm_rs_tpu_torch/csrc/dense_attention_wide.cu",
     "quant_attention":
@@ -3884,6 +3925,19 @@ WIDE_SOURCES = {
         "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu",
     "batched_paged_attention_a8":
         "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu"}
+WIDE_DESIGNS = {
+    "dense_attention": "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh",
+    "paged_attention": "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh"}
+WIDE_DESIGN_NOTES = {
+    "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh":
+        "heads of 264-2048: a cluster of ceil(D/256) blocks a 128-query "
+        "tile, each block 256 columns, partial S summed in rank order "
+        "through distributed shared memory, S and P.V on wgmma; one "
+        "sequence's page chain split over clusters, merged in the launch; "
+        "past 2048 csrc/wide_flash.cuh",
+    "diffusion_llm_rs_tpu_torch/csrc/wide_flash.cuh":
+        "heads past 256: a block per 64 queries and 128 output columns on "
+        "mma.sync, S recomputed in each"}
 ALSO_BUILT_FROM = {
     "matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",),
     # the heads between the instances' widths, from sources of their own
@@ -4122,12 +4176,18 @@ def main() -> int:
         if name in WIDE_SOURCES or (name == "paged_unpack" and wide):
             n_wide = (runs.get("heads_wide") or {}).get("counts_wide", {}).get(
                 name, 0)
+            design = WIDE_DESIGNS.get(
+                name, "diffusion_llm_rs_tpu_torch/csrc/wide_flash.cuh")
             entries[-1]["wide_instance"] = dict(
-                source=WIDE_SOURCES.get(name, source), launches=n_wide,
+                source=WIDE_SOURCES.get(name, source), design=design,
+                design_note=WIDE_DESIGN_NOTES[design], launches=n_wide,
                 launches_path="heads_wide", shape=wide["shape"],
                 ms=wide["ms"], plain_ms=wide["plain_ms"],
                 bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
                 library_ms=wide["library_ms"])
+            if name == "dense_attention":
+                entries[-1]["wide_instance"]["clusters_at_once"] = {
+                    str(c): n for c, n in sorted(CLUSTERS.items())}
             if n_wide == 0:
                 log(f"{name}'s wide instance was not launched on heads_wide")
                 return 1

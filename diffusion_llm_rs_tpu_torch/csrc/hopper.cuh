@@ -200,6 +200,27 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Close this thread's cp.asyncs issued so far into a group; wait until at
+// most N of its groups are in flight, or all have landed.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // A bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
 // from global to shared memory, completing on `bar` like a TMA load.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -229,13 +250,19 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   return r;
 }
 
-// The address of `p` (this block's shared memory) in block `rank`.
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+
+// The shared::cluster address of the shared::cta address `saddr` in block
+// `rank`, and of `p` (this block's shared memory).
+__device__ __forceinline__ uint32_t cluster_map(uint32_t saddr, uint32_t rank) {
   uint32_t r;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(r)
-               : "r"(smem_u32(p)), "r"(rank));
+               : "r"(saddr), "r"(rank));
   return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  return cluster_map(smem_u32(p), rank);
 }
 
 // Every thread of every block of the cluster arrives, then waits.
@@ -243,6 +270,35 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The two halves of cluster_sync: arrive releases this thread's earlier
+// accesses at cluster scope, wait acquires those of every thread that
+// arrived. A thread arrives once before each wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+
+// Loads from the shared memory of any block of the cluster.
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t cluster_addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(cluster_addr));
+  return v;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t cluster_addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(cluster_addr));
+  return v;
 }
 
 // One arrival on an mbarrier of any block of the cluster, releasing this

@@ -4,17 +4,103 @@
 // With csrc/quant_flash_paged.cu (heads of 8 to 256) it replaces the TPU
 // kernel `_kernel` (diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:34,
 // behind `paged_attention`, :140), which takes D % 128 == 0 (:174; JAX's
-// XLA `_fallback` serves the other widths). The design is mode kPaged of
-// csrc/wide_flash.cuh: D a runtime argument, one instance a bit width and
-// page tile (32, 64 or 128 tokens), one page a step of the online softmax,
-// the lse written beside the output.
+// XLA `_fallback` serves the other widths). Two designs, D a runtime
+// argument in both, one instance a bit width and page tile, the lse written
+// beside the output:
+//   - dlm_paged_attention_cluster, heads of 264 to 2048: mode kPaged of
+//     csrc/wide_cluster_flash.cuh, a cluster of ceil(D / 256) blocks a
+//     128-query tile, each block 256 columns of the head (256 contiguous
+//     bytes of each packed row, read 8 at a time into registers a tile
+//     ahead and unpacked into swizzled bf16 levels), the partial S summed
+//     through distributed shared memory. It issues the S product once a KV
+//     tile a query tile: 4*BH*Sq*(n_pages*32*ceil(P/32))*256*ceil(D/256)
+//     operations for the two products (a page runs as tiles of 32 tokens,
+//     the last padded).
+//   - dlm_paged_attention_wide, heads past 2048: mode kPaged of
+//     csrc/wide_flash.cuh, a page a tile, a block per 64 queries and 128
+//     output columns on mma.sync, each recomputing S over the whole head,
+//     the packed levels read a byte an element.
 
+#include "wide_cluster_flash.cuh"
 #include "wide_flash.cuh"
 
 extern "C" {
 
-// dlm_paged_attention's arguments (csrc/quant_flash_paged.cu) for any D
-// that is a multiple of 8. A slot outside the pool traps.
+// The splits dlm_paged_attention_cluster takes for these sizes (1: the
+// chain in one piece), or a negative cudaError_t.
+int dlm_paged_attention_cluster_splits(int BH, int Sq, int D, int n_pages,
+                                       int P) {
+  const int C = wide_cluster::cluster_blocks(D);
+  if (C == 0 || BH <= 0 || Sq <= 0 || n_pages < 1 || P < 8 || P > 128)
+    return -(int)cudaErrorInvalidValue;
+  return wide_cluster::paged_splits(C, BH, Sq, n_pages, P);
+}
+
+// dlm_paged_attention's arguments (csrc/quant_flash_paged.cu) for D a
+// multiple of 8 from 264 to 2048 (the pools 16-byte aligned), then the
+// splits (dlm_paged_attention_cluster_splits) and, where more than one,
+// scratch f32 [nsplit, BH, Sq, D] and [nsplit, C, BH, Sq, 2] (C = ceil(D /
+// 256)) and int32 counters [ceil(Sq / 128), BH, C] that are zero and that
+// the kernel leaves zero. A slot outside the pool traps. Returns
+// cudaErrorInvalidClusterSize where the card cannot place the cluster.
+int dlm_paged_attention_cluster(const void* q, const void* page_table,
+                                const void* page_tokens, const void* k_data,
+                                const void* k_scale, const void* k_zp,
+                                const void* v_data, const void* v_scale,
+                                const void* v_zp, void* out, void* lse, int BH,
+                                int Sq, int D, int n_pages, int n_slots, int P,
+                                int bits, float sm_scale, void* stream,
+                                int nsplit, void* part_o, void* part_ml,
+                                void* counters) {
+  const int C = wide_cluster::cluster_blocks(D);
+  if (C == 0 || n_pages < 1 || P < 8 || P > 128 || P % 8 || nsplit < 1 ||
+      nsplit > wide_cluster::kMaxSplit ||
+      (nsplit > 1 && (!part_o || !part_ml || !counters)))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = n_pages * ((P + wide_cluster::TK - 1) / wide_cluster::TK);
+  const int per = (tiles + nsplit - 1) / nsplit;
+  if ((tiles + per - 1) / per != nsplit)  // no split may be empty
+    return (int)cudaErrorInvalidValue;
+  if (BH <= 0 || Sq <= 0) return 0;
+  CUtensorMap maps[3];
+  if (!wide_cluster::bf16_map(&maps[0], q, BH, Sq, D, wide_cluster::kBQ))
+    return (int)cudaErrorInvalidValue;
+  maps[1] = maps[2] = maps[0];  // K and V are not read by TMA
+  wide_cluster::Args a{};
+  a.out = out;
+  a.lse = static_cast<float*>(lse);
+  a.Sq = Sq;
+  a.D = D;
+  a.C = C;
+  a.sm = sm_scale;
+  a.page_table = static_cast<const int*>(page_table);
+  a.page_tokens = static_cast<const int*>(page_tokens);
+  a.k_data = static_cast<const uint8_t*>(k_data);
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.k_zp = static_cast<const float*>(k_zp);
+  a.v_data = static_cast<const uint8_t*>(v_data);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.v_zp = static_cast<const float*>(v_zp);
+  a.n_pages = n_pages;
+  a.n_slots = n_slots;
+  a.Z = BH;
+  a.P = P;
+  a.nsplit = nsplit;
+  a.part_o = static_cast<float*>(part_o);
+  a.part_ml = static_cast<float2*>(part_ml);
+  a.counters = static_cast<int*>(counters);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 1: return wide_cluster::launch<wide_cluster::kPaged, 1>(maps, a, st);
+    case 2: return wide_cluster::launch<wide_cluster::kPaged, 2>(maps, a, st);
+    case 4: return wide_cluster::launch<wide_cluster::kPaged, 4>(maps, a, st);
+    case 8: return wide_cluster::launch<wide_cluster::kPaged, 8>(maps, a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The same arguments for D a multiple of 8 past 2048 (the cluster kernel
+// serves 264 to 2048).
 int dlm_paged_attention_wide(const void* q, const void* page_table,
                              const void* page_tokens, const void* k_data,
                              const void* k_scale, const void* k_zp,
@@ -22,7 +108,8 @@ int dlm_paged_attention_wide(const void* q, const void* page_table,
                              const void* v_zp, void* out, void* lse, int BH,
                              int Sq, int D, int n_pages, int n_slots, int P,
                              int bits, float sm_scale, void* stream) {
-  if (D < 8 || D % 8 || n_pages < 1 || P < 8 || P > 128 || P % 8)
+  if (D <= wide_cluster::kMaxD || D % 8 || n_pages < 1 || P < 8 || P > 128 ||
+      P % 8)
     return (int)cudaErrorInvalidValue;
   wide_flash::Args a{};
   a.q = static_cast<const __nv_bfloat16*>(q);

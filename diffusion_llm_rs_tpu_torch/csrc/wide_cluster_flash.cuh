@@ -1,0 +1,908 @@
+// Dense and single-sequence paged attention at head widths from 264 to
+// 2048, for Hopper (sm_90a): the head split across a thread-block cluster.
+//
+// The fixed instances (csrc/dense_attention.cu, csrc/quant_flash.cuh) hold
+// a whole head row of q, K and V in shared memory and o in registers, so
+// they stop at 256; csrc/wide_flash.cuh takes any width by giving each
+// block 128 output columns and recomputing S = q.k^T over the whole head in
+// every one of them (ceil(D / 128) times the S work). Here a cluster of
+// C = ceil(D / 256) blocks (at most 8, the portable cluster) owns one tile
+// of 128 query rows, and block j of it columns [256j, 256j + 256) of the
+// head: its slice of q, of every K tile and of every V tile (zero past D),
+// so each byte of K and V is read once a query tile.
+//   - S: block j runs its partial S_j = q[:, slice j] . K[:, slice j]^T on
+//     wgmma (m64n32k16 a warpgroup, both operands in shared memory, 16
+//     k-steps over its 256 columns) and stores it to shared memory; after a
+//     cluster barrier every block adds the C partials, read through
+//     distributed shared memory, in rank order 0 .. C-1, so every block
+//     holds the same S bit for bit and runs the same softmax: m, l and p
+//     agree, and only rank 0 writes the lse. The S product is issued once
+//     per KV tile per query tile: 2 * 128 * 32 * 256 * C operations a tile,
+//     D rounded up to 256 columns.
+//   - P.V: each block multiplies P (bf16, registers) by its own 256 columns
+//     of the V tile (MN-major) in m64n256k16 wgmmas; a warpgroup's f32 o of
+//     64 x 256 lives in its registers, 128 a thread.
+//   - A block is two warpgroups of 64 query rows (256 threads, so ptxas may
+//     give each 255 registers; it allocates registers in groups of four
+//     warps, so a producer warp or warpgroup would cap every thread at
+//     168, and o spills), one block an SM. KV tiles of 32 tokens.
+//   - The schedule of tile t: S of tile t + 1 is issued first and runs
+//     under tile t's softmax; one wait then retires it and P.V of tile t - 1
+//     (ptxas serializes every wgmma of a kernel where an accumulator is read
+//     after a wait that retires only the older of two groups, or where an
+//     S product stays in flight across the loop's back edge), o is
+//     rescaled, P.V of tile t is issued, and the partial S of tile t + 1
+//     goes to the cluster while it runs. The partials are double-buffered,
+//     one cluster barrier a tile orders a buffer's reads before its next
+//     write, and with clusters of 2 and 3 blocks (heads up to 768) the loads
+//     of the next tile's partials are issued as soon as the barrier passes,
+//     a tile before they are added (a load from another block's shared
+//     memory takes several hundred clocks).
+//   - kDense: q, K and V bf16 [Z, S, D] by TMA (64-column boxes, 128-byte
+//     swizzle, zero fill past D, Sq and Skv), issued by one thread: K three
+//     tiles ahead, V two.
+//   - kPaged: q by TMA; the pool is packed along tokens ([n_slots, Z, P/vpb,
+//     D]), so block j's columns of a packed row are 256 contiguous bytes. A
+//     tile's packed rows (at most 32) are copied by cp.async, 16 bytes a
+//     thread a row (8 where D % 16 != 0 leaves the rows 8-byte aligned), two
+//     tiles ahead, and unpacked into swizzled bf16 level
+//     tiles by all threads under P.V of the tile before (K two tiles ahead
+//     of its S, V one). A
+//     page of P tokens runs as ceil(P / 32) tiles. q's channel sum, which
+//     meets K's zero point, is taken as C partial sums (each block over its
+//     columns) and exchanged once at the start, in rank order. V's scale
+//     folds into P as in csrc/quant_flash.cuh, whose logits() and
+//     weights() this kernel runs. One sequence at wide heads has few query
+//     tiles, so the chain of tiles is split over up to 8 clusters (grid z,
+//     `paged_splits`) and merged in the same launch (`merge_splits`).
+// The arithmetic is that of the plain versions (ops/attention.py:
+// dense_attention_plain, ops/paged_attention.py: paged_attention_plain):
+//   kDense  logits = (q.k) * sm; acc = acc * a + bf16(p) . v; out = acc / l
+//   kPaged  logits = raw * ka' - kb * qsum (ka' = ks * sm, kb = ka' * kz);
+//           acc = acc * a - sum(p * vs * vz) + bf16(p * vs) . lv;
+//           out = acc * (1 / l), lse = m + log(l)
+// with exp taken on the ex2 unit and sums in another order. Tokens past
+// Skv, or past a page's data, take p = 0; tokens past page_tokens[j] take
+// logits of -1e30 (weight 1 while every key a row has seen is masked, as
+// in the plain version). Query rows past Sq are not written.
+//
+// What bounds it on an H100 (PERF.md): at heads of 768, dense attention at
+// BH = 8, S = 1024 is 25.8 GFLOP, 0.026 ms of bf16 tensor work; this design
+// issues that work once (where csrc/wide_flash.cuh issued S six times over,
+// 90 GFLOP), and moves 16 KB of partial S a block a KV tile through
+// distributed shared memory for each other block of its cluster.
+
+#pragma once
+
+#include "hopper.cuh"
+#include "quant_flash.cuh"
+
+namespace wide_cluster {
+
+using namespace hopper;
+
+constexpr int kWG = 2;                     // warpgroups a block
+constexpr int kThreads = 128 * kWG;        // 256: ptxas may give each 255
+                                           // registers (o alone is 128)
+constexpr int kBQ = 64 * kWG;              // query rows a cluster
+constexpr int kCols = 256;                 // head columns a block
+constexpr int kChunks = kCols / 64;        // 64-column chunks, 128-byte swizzle
+constexpr int kSw = 128;
+constexpr int TK = 32;                     // tokens a KV tile
+constexpr int kStages = 3;
+constexpr int kS = TK / 2;                 // logits a consumer thread
+constexpr int kU = TK / 8;                 // their float4 units
+constexpr int kRaw = TK * kCols;  // bytes of a tile's packed rows, at most
+constexpr int kMaxCluster = 8;             // the portable cluster size
+constexpr int kMinD = 264, kMaxD = kCols * kMaxCluster;
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+enum Mode : int { kDense, kPaged };
+
+struct Args {
+  void* out;               // [Z, Sq, D]: f32, or bf16 where out_bf16 (kDense)
+  float* lse;              // [Z, Sq] (kPaged)
+  int out_bf16, Sq, D, C;  // C = ceil(D / 256) blocks a cluster
+  float sm;
+  int Skv;                 // kDense
+  // kPaged: one sequence's page chain over pools [n_slots, Z, P/vpb, D]
+  // and sidecars [n_slots, Z, P]
+  const int* page_table;
+  const int* page_tokens;
+  const uint8_t* k_data;
+  const float* k_scale;
+  const float* k_zp;
+  const uint8_t* v_data;
+  const float* v_scale;
+  const float* v_zp;
+  int n_pages, n_slots, Z, P;
+  // kPaged split over the page chain (nsplit > 1, grid z): each split's
+  // unnormalized o [nsplit, Z, Sq, D] and (m, l) [nsplit, C, Z, Sq], and a
+  // zeroed counter a (query tile, head, rank) that the merging block resets
+  int nsplit;
+  float* part_o;
+  float2* part_ml;
+  int* counters;
+};
+
+// Shared memory of a block: q [128][256], three stages each of K and V
+// [32][256] (bf16, 4 chunks of [rows][128 B] swizzled), two buffers of
+// partial S (f32, 128 x 32), two stages of sidecars (kPaged), q's partial
+// channel sums, the packed rows of two K and two V tiles (kPaged), and the
+// mbarriers (q; K and V full a stage).
+struct Smem {
+  static constexpr int kQ = kBQ * kCols * 2;
+  static constexpr int kTile = TK * kCols * 2;
+  static constexpr int kX = kBQ * TK * 4;
+  static constexpr int kSide = 4 * TK * 4;
+  static constexpr int kKOff = kQ;
+  static constexpr int kVOff = kKOff + kStages * kTile;
+  static constexpr int kXOff = kVOff + kStages * kTile;
+  static constexpr int kSideOff = kXOff + 2 * kX;
+  static constexpr int kQsOff = kSideOff + 2 * kSide;
+  static constexpr int kRawOff = kQsOff + kBQ * 4;  // K's and V's rows, 2 each
+  static constexpr int kBarOff = kRawOff + 4 * kRaw;
+  static constexpr int kBytes = 1024 + kBarOff + (1 + 2 * kStages) * 8;
+};
+
+// The 16-byte unit u (columns 8u .. 8u + 7) of row r of a [TK][256] bf16
+// tile.
+__device__ __forceinline__ int unit_at(int r, int u) {
+  return unit_offset<kCols * 2, TK>(r, u);
+}
+
+// kPaged: the packed rows of a page that hold tokens [h0, h0 + 32), bytes
+// [c0, c0 + ncol) of each (`base` points at byte c0 of the page's first
+// row), in chunks of CB bytes: 16 where D % 16 == 0 (the rows' alignment),
+// else 8; at most 32 rows of 256 / CB chunks. Chunk c is row c / (256 /
+// CB), bytes CB (c % (256 / CB)) onwards, so a lane always takes the same
+// bytes of its rows (those past ncol it skips). The rows are h0 % Pp
+// onwards, wrapping at Pp (token t sits in row t % Pp). Chunk c is copied
+// by cp.async to raw + CB c and read back by the thread that copied it, so
+// no barrier stands between the two.
+template <int CB>
+__device__ __forceinline__ void copy_raw(uint8_t* raw, const uint8_t* base,
+                                         int D, int Pp, int h0, int tid) {
+  constexpr int kLanes = kCols / CB, kPer = TK * kLanes / kThreads;
+  const int rows = min(TK, Pp), r0 = h0 % Pp, u = tid % kLanes;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = tid + kThreads * i, ri = c / kLanes;
+    if (ri < rows) {
+      const int r = r0 + ri;
+      const uint8_t* src = base + (size_t)(r < Pp ? r : r - Pp) * D + u * CB;
+      if constexpr (CB == 16)
+        cp_async16(raw + c * CB, src, 16);
+      else
+        cp_async8(raw + c * CB, src);
+    }
+  }
+}
+
+// The levels of the copied rows into the tile: byte (r, d) holds tokens
+// r + p * Pp in bit field p; those in [h0, h0 + 32) are stored.
+template <int BITS, int CB>
+__device__ __forceinline__ void unpack_raw(const uint8_t* raw, int Pp, int h0,
+                                           uint8_t* tile, int tid) {
+  constexpr int kVpb = 8 / BITS, kLanes = kCols / CB;
+  constexpr int kPer = TK * kLanes / kThreads;
+  using W = typename std::conditional<CB == 16, uint4, uint2>::type;
+  const int rows = min(TK, Pp), r0 = h0 % Pp, u = (tid % kLanes) * (CB / 8);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = tid + kThreads * i, ri = c / kLanes;
+    if (ri >= rows) break;
+    int r = r0 + ri;
+    r = r < Pp ? r : r - Pp;
+    const W w = *reinterpret_cast<const W*>(raw + c * CB);
+#pragma unroll
+    for (int p = 0; p < kVpb; ++p) {
+      const int tok = r + p * Pp - h0;
+      if (tok < 0 || tok >= TK) continue;
+      quant_flash::st_shared(
+          tile + unit_at(tok, u),
+          quant_flash::bf16_levels<BITS>(quant_flash::field<BITS>(w.x, p)),
+          quant_flash::bf16_levels<BITS>(quant_flash::field<BITS>(w.y, p)));
+      if constexpr (CB == 16)
+        quant_flash::st_shared(
+            tile + unit_at(tok, u + 1),
+            quant_flash::bf16_levels<BITS>(quant_flash::field<BITS>(w.z, p)),
+            quant_flash::bf16_levels<BITS>(quant_flash::field<BITS>(w.w, p)));
+    }
+  }
+}
+
+// This thread's C partial logits of a tile are kU float4 units, unit k at
+// shared::cluster address x[r] + k * kThreads * 16 in block r. fetch()
+// issues the loads of NB units, fold() adds each unit's C partials in rank
+// order: a load from another block's shared memory takes several hundred
+// clocks, so loads are issued together, and with clusters of 2 and 3 blocks
+// (heads up to 768) those of a whole tile are issued a tile early.
+template <int C, int NB>
+__device__ __forceinline__ void fetch(float4 (&v)[NB][C], const uint32_t (&x)[C],
+                                      int k0) {
+#pragma unroll
+  for (int k = 0; k < NB; ++k)
+#pragma unroll
+    for (int r = 0; r < C; ++r)
+      v[k][r] = ld_cluster_v4(x[r] + (k0 + k) * kThreads * 16);
+}
+
+template <int C, int NB>
+__device__ __forceinline__ void fold(float (&s)[kS], const float4 (&v)[NB][C],
+                                     int k0) {
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    float4 acc = v[k][0];
+#pragma unroll
+    for (int r = 1; r < C; ++r) {
+      acc.x = __fadd_rn(acc.x, v[k][r].x);
+      acc.y = __fadd_rn(acc.y, v[k][r].y);
+      acc.z = __fadd_rn(acc.z, v[k][r].z);
+      acc.w = __fadd_rn(acc.w, v[k][r].w);
+    }
+    s[4 * (k0 + k)] = acc.x;
+    s[4 * (k0 + k) + 1] = acc.y;
+    s[4 * (k0 + k) + 2] = acc.z;
+    s[4 * (k0 + k) + 3] = acc.w;
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void map_ranks(uint32_t (&x)[C], uint32_t at) {
+#pragma unroll
+  for (int r = 0; r < C; ++r) x[r] = cluster_map(at, r);
+}
+
+// The whole S of a tile, its loads B units at a time (clusters of 4 to 8).
+template <int C>
+__device__ __forceinline__ void gather(float (&s)[kS], uint32_t at) {
+  constexpr int B = C <= 4 ? 2 : 1;
+  uint32_t x[C];
+  map_ranks<C>(x, at);
+#pragma unroll
+  for (int k0 = 0; k0 < kU; k0 += B) {
+    float4 v[B][C];
+    fetch<C, B>(v, x, k0);
+    fold<C, B>(s, v, k0);
+  }
+}
+
+// kPaged over a page chain split in a.nsplit parts (grid z): this block's
+// partial (its columns of the unnormalized o, and m and l in natural units)
+// goes to the scratch; the last of the splits' blocks of this column slice
+// (an atomic count, which it resets) merges them in split order,
+//   M = max_s m_s, w_s = exp(m_s - M), out = sum_s w_s o_s / sum_s w_s l_s,
+//   lse = M + log(sum_s w_s l_s),
+// the merge of `merge_partials` (ops/paged_attention.py) in terms of (m, l):
+// where every key of every split is masked (all m_s = -1e30), lse - 1e30
+// would lose log(l_s) in f32, and the merge would weigh the splits equally
+// where the plain version weighs every key equally.
+constexpr int kMaxSplit = 8;
+
+__device__ __forceinline__ void merge_splits(const Args& a,
+                                             const float (&o)[kCols / 2],
+                                             const float (&m)[2],
+                                             const float (&l)[2], int q0,
+                                             int rows0, int z, int C, int rank,
+                                             int c0, int ncol, int q4) {
+  __shared__ int last;
+  const int split = blockIdx.z;
+  const size_t plane = (size_t)a.Z * a.Sq * a.D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rows0 + 8 * h;
+    if (row >= a.Sq) continue;
+    float* po = a.part_o + split * plane + ((size_t)z * a.Sq + row) * a.D + c0 +
+                2 * q4;
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      if (8 * j >= ncol) break;
+      *reinterpret_cast<float2*>(po + 8 * j) =
+          make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+    }
+    if (q4 == 0)
+      a.part_ml[(((size_t)split * C + rank) * a.Z + z) * a.Sq + row] =
+          make_float2(m[h], l[h]);
+  }
+  __threadfence();
+  __syncthreads();
+  int* count = a.counters + ((size_t)(blockIdx.x / C) * a.Z + z) * C + rank;
+  if (threadIdx.x == 0) {
+    last = atomicAdd(count, 1) == a.nsplit - 1;
+    if (last) *count = 0;  // ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rows0 + 8 * h;
+    if (row >= a.Sq) continue;
+    float w[kMaxSplit], ls[kMaxSplit], M = -INFINITY, wl = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplit; ++s)
+      if (s < a.nsplit) {
+        const float2 ml = __ldcg(
+            a.part_ml + (((size_t)s * C + rank) * a.Z + z) * a.Sq + row);
+        w[s] = ml.x;
+        ls[s] = ml.y;
+        M = fmaxf(M, ml.x);
+      }
+#pragma unroll
+    for (int s = 0; s < kMaxSplit; ++s)
+      if (s < a.nsplit) {
+        w[s] = expf(w[s] - M);
+        wl = __fmaf_rn(w[s], ls[s], wl);
+      }
+    const float inv = __fdiv_rn(1.f, wl);
+    const size_t at = ((size_t)z * a.Sq + row) * a.D + c0 + 2 * q4;
+    for (int j = 0; j < kCols / 8; ++j) {
+      if (8 * j >= ncol) break;
+      float y0 = 0.f, y1 = 0.f;
+#pragma unroll
+      for (int s = 0; s < kMaxSplit; ++s)
+        if (s < a.nsplit) {
+          const float2 v = __ldcg(
+              reinterpret_cast<const float2*>(a.part_o + s * plane + at + 8 * j));
+          y0 = __fmaf_rn(w[s], v.x, y0);
+          y1 = __fmaf_rn(w[s], v.y, y1);
+        }
+      *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + 8 * j) =
+          make_float2(__fmul_rn(y0, inv), __fmul_rn(y1, inv));
+    }
+    if (rank == 0 && q4 == 0) a.lse[(size_t)z * a.Sq + row] = M + logf(wl);
+  }
+}
+
+// CT: the cluster size for clusters of 2 and 3 blocks, whose S is fetched a
+// tile early; 0 for any size (4 to 8), fetched when needed.
+template <int MODE, int BITS, int CT>
+__global__ void __launch_bounds__(kThreads, 1)
+    wide_cluster_attention(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const Args a) {
+  using L = Smem;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = smem;
+  uint8_t* Ks = smem + L::kKOff;
+  uint8_t* Vs = smem + L::kVOff;
+  float* X = reinterpret_cast<float*>(smem + L::kXOff);
+  float* sides = reinterpret_cast<float*>(smem + L::kSideOff);
+  float* qpart = reinterpret_cast<float*>(smem + L::kQsOff);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
+  uint64_t* kfull = q_full + 1;
+  uint64_t* vfull = kfull + kStages;
+
+  const int C = a.C, rank = (int)cluster_rank();
+  const int q0 = (blockIdx.x / C) * kBQ, z = blockIdx.y;
+  const int c0 = rank * kCols, ncol = min(kCols, a.D - c0);
+  const int nch = (ncol + 63) / 64;  // chunks of this block's slice loaded
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) >> 5;
+  const int lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+  const int rows0 = wg * 64 + warp * 16 + g;  // and rows0 + 8, in the tile
+  // tiles a page (kPaged), and the tiles
+  const int tpp = MODE == kPaged ? (a.P + TK - 1) / TK : 1;
+  // the tiles, and this split's: [t0, t0 + T)
+  const int Tall = MODE == kDense ? (a.Skv + TK - 1) / TK : a.n_pages * tpp;
+  const int tps = (Tall + a.nsplit - 1) / a.nsplit, t0 = blockIdx.z * tps;
+  const int T = min(tps, Tall - t0);
+  const int Pp = MODE == kPaged ? a.P / (8 / BITS) : 1;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kfull + s, 1);
+      mbar_init(vfull + s, 1);
+    }
+    fence_barrier_init();
+  }
+  // zeros where no load writes: q's and (kDense) the tiles' chunks past D;
+  // (kPaged) the whole K and V tiles, whose tokens past a page's data and
+  // columns past D the loader leaves
+  {
+    uint4* qz = reinterpret_cast<uint4*>(Qs + nch * kBQ * kSw);
+    for (int i = tid; i < (kChunks - nch) * kBQ * kSw / 16; i += kThreads)
+      qz[i] = make_uint4(0, 0, 0, 0);
+    for (int s = 0; s < 2 * kStages; ++s) {
+      uint8_t* tile = Ks + s * L::kTile;  // K stages, then V stages
+      const int from = MODE == kPaged ? 0 : nch * TK * kSw;
+      uint4* p = reinterpret_cast<uint4*>(tile + from);
+      for (int i = tid; i < (L::kTile - from) / 16; i += kThreads)
+        p[i] = make_uint4(0, 0, 0, 0);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  // kDense: a K or V tile of this block's columns by TMA
+  auto load_tile = [&](const CUtensorMap* map, uint8_t* ring, uint64_t* bars,
+                       int t) {
+    const int s = t % kStages;
+    mbar_expect_tx(bars + s, nch * TK * kSw);
+    for (int c = 0; c < nch; ++c)
+      tma_load_3d(ring + s * L::kTile + c * TK * kSw, map, bars + s,
+                  c0 + 64 * c, (t0 + t) * TK, z);
+  };
+  // kPaged: the pool row of (slot, head); the slots (and the tokens of the
+  // pages) are read a tile before they are used
+  auto slot_of = [&](int t) {
+    return t < T ? a.page_table[(t0 + t) / tpp] : 0;
+  };
+  auto pool_row = [&](int slot) {
+    if (slot < 0 || slot >= a.n_slots) __trap();
+    return (size_t)slot * a.Z + z;
+  };
+  // the packed rows of K tile j at kraw(j), of V tile j at vraw(j)
+  auto kraw = [&](int j) { return smem + L::kRawOff + (j & 1) * kRaw; };
+  auto vraw = [&](int j) { return smem + L::kRawOff + (2 + (j & 1)) * kRaw; };
+  // the rows of a block's columns are 16-byte aligned where D % 16 == 0;
+  // the threads past its columns (ncol < 256) copy and unpack nothing
+  const bool cb16 = a.D % 16 == 0;
+  const bool has_cols = tid % (cb16 ? kCols / 16 : kCols / 8) <
+                        ncol / (cb16 ? 16 : 8);
+  auto raw_of = [&](uint8_t* raw, const uint8_t* data, int t, int slot) {
+    const uint8_t* base = data + pool_row(slot) * Pp * a.D + c0;
+    const int h0 = ((t0 + t) % tpp) * TK;
+    if (!has_cols) return;
+    if (cb16)
+      copy_raw<16>(raw, base, a.D, Pp, h0, tid);
+    else
+      copy_raw<8>(raw, base, a.D, Pp, h0, tid);
+  };
+  auto unpack = [&](const uint8_t* raw, int t, uint8_t* ring) {
+    const int h0 = ((t0 + t) % tpp) * TK;
+    uint8_t* tile = ring + (t % kStages) * L::kTile;
+    if (!has_cols) return;
+    if (cb16)
+      unpack_raw<BITS, 16>(raw, Pp, h0, tile, tid);
+    else
+      unpack_raw<BITS, 8>(raw, Pp, h0, tile, tid);
+  };
+  // the sidecars of tile t: ks, kz, vs, vz of token tid (tid < 32), read
+  // ahead into registers, then stored as ka' = ks * sm, kb = ka' * kz, vs,
+  // vz
+  auto side_of = [&](int t, int slot) {
+    const int h0 = ((t0 + t) % tpp) * TK;
+    const size_t pg = pool_row(slot);
+    float4 sd = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int tok = h0 + tid;
+    if (tid < TK && tok < a.P) {
+      const size_t at = pg * a.P + tok;
+      sd = make_float4(a.k_scale[at], a.k_zp[at], a.v_scale[at], a.v_zp[at]);
+    }
+    return sd;
+  };
+  auto put_side = [&](float4 sd, int t) {
+    float* d = sides + (t & 1) * 4 * TK;
+    if (tid < TK) {
+      const float ka = __fmul_rn(sd.x, a.sm);
+      d[tid] = ka;
+      d[TK + tid] = __fmul_rn(ka, sd.y);
+      d[2 * TK + tid] = sd.z;
+      d[3 * TK + tid] = sd.w;
+    }
+  };
+
+  if (tid == 0) {
+    mbar_expect_tx(q_full, nch * kBQ * kSw);
+    for (int c = 0; c < nch; ++c)
+      tma_load_3d(Qs + c * kBQ * kSw, &tq, q_full, c0 + 64 * c, q0, z);
+    if constexpr (MODE == kDense) {
+      for (int t = 0; t < kStages && t < T; ++t) load_tile(&tk, Ks, kfull, t);
+      for (int t = 0; t < kStages - 1 && t < T; ++t)
+        load_tile(&tv, Vs, vfull, t);
+    }
+  }
+  __syncwarp();
+
+  float qs[2] = {0.f, 0.f};
+  if constexpr (MODE == kPaged) {
+    for (int t = 0; t < 2 && t < T; ++t) {
+      raw_of(kraw(t), a.k_data, t, slot_of(t));
+      cp_async_wait_all();
+      unpack(kraw(t), t, Ks);
+    }
+    raw_of(vraw(0), a.v_data, 0, slot_of(0));
+    cp_async_wait_all();
+    unpack(vraw(0), 0, Vs);
+    put_side(side_of(0, slot_of(0)), 0);
+    // the rows the first tile unpacks: copies run two tiles ahead
+    if (T > 2) raw_of(kraw(2), a.k_data, 2, slot_of(2));
+    if (T > 1) raw_of(vraw(1), a.v_data, 1, slot_of(1));
+    cp_async_commit();
+    fence_proxy_async();
+    // q's channel sums over this block's columns, two threads a row, in
+    // column order; then the C partial sums in rank order
+    mbar_wait(q_full, 0);
+    {
+      const int r = tid >> 1, half = tid & 1;
+      float s = 0.f;
+      for (int c = 2 * half; c < 2 * half + 2; ++c)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              Qs + c * kBQ * kSw + r * kSw + ((u ^ (r & 7)) << 4));
+          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s += __bfloat162float(h[e].x) + __bfloat162float(h[e].y);
+        }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);  // the pair's halves
+      if (half == 0) qpart[r] = s;
+    }
+    cluster_arrive();
+    cluster_wait();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t at = smem_u32(qpart + rows0 + 8 * h);
+      qs[h] = ld_cluster_f32(cluster_map(at, 0));
+      for (int r = 1; r < C; ++r)
+        qs[h] = __fadd_rn(qs[h], ld_cluster_f32(cluster_map(at, r)));
+    }
+  } else {
+    mbar_wait(q_full, 0);
+  }
+
+  // this warpgroup's rows of q, chunk c at q_addr + c * kBQ * kSw
+  const uint32_t q_addr = smem_u32(Qs) + wg * 64 * kSw;
+  // S of tile t over this block's columns into s, 16 columns a k-step
+  auto issue_s = [&](float(&s)[kS], int t) {
+    const uint32_t k_addr = smem_u32(Ks + (t % kStages) * L::kTile);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kCols / 16; ++kk) {
+      const int chunk = kk / 4, in = (kk % 4) * 32;
+      wgmma_ss<TK>(s,
+                   gmma_desc(q_addr + chunk * kBQ * kSw + in, 16, 8 * kSw, 1),
+                   gmma_desc(k_addr + chunk * TK * kSw + in, 16, 8 * kSw, 1),
+                   kk > 0);
+    }
+    wgmma_commit();
+  };
+  // this block's partial S into buffer b, a thread's logits as kU float4
+  // units (unit k of thread i at k * 256 + i: a warp's accesses hit
+  // distinct banks)
+  const uint32_t x_addr = smem_u32(X) + tid * 16;
+  auto put = [&](const float(&s)[kS], int b) {
+    float4* xb = reinterpret_cast<float4*>(X + b * (L::kX / 4));
+#pragma unroll
+    for (int k = 0; k < kU; ++k)
+      xb[k * kThreads + tid] =
+          make_float4(s[4 * k], s[4 * k + 1], s[4 * k + 2], s[4 * k + 3]);
+  };
+  // S of the tile in buffer b: the C partials, added in rank order; with
+  // CT, loaded by prefetch(b) a tile early
+  float4 vpre[kU][CT > 0 ? CT : 1];
+  auto prefetch = [&](int b) {
+    if constexpr (CT > 0) {
+      uint32_t x[CT];
+      map_ranks<CT>(x, x_addr + b * L::kX);
+      fetch<CT, kU>(vpre, x, 0);
+    }
+  };
+  auto gather_b = [&](float(&s)[kS], int b) {
+    if constexpr (CT > 0) {
+      fold<CT, kU>(s, vpre, 0);
+    } else {
+      const uint32_t at = x_addr + b * L::kX;
+      switch (C) {
+        case 4: gather<4>(s, at); break;
+        case 5: gather<5>(s, at); break;
+        case 6: gather<6>(s, at); break;
+        case 7: gather<7>(s, at); break;
+        default: gather<8>(s, at); break;
+      }
+    }
+  };
+
+  float o[kCols / 2];
+#pragma unroll
+  for (int i = 0; i < kCols / 2; ++i) o[i] = 0.f;
+  // running max (kDense: in log2 units, logits times sm * log2(e)), sum
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  const float sl2 = a.sm * kLog2e;
+  float cur[kS], nxt[kS];
+
+  if constexpr (MODE == kDense) mbar_wait(kfull, 0);
+  issue_s(nxt, 0);
+  wgmma_wait<0>();
+  fence_regs(nxt);
+  put(nxt, 0);
+  cluster_arrive();
+  cluster_wait();  // every block's partial S of tile 0
+  prefetch(0);
+  // kPaged: the slots of tiles t + 3 (K rows copied), t + 2 (V rows) and
+  // t + 1 (sidecars), and the tokens of tile t's page
+  int slot3 = 0, slot2 = 0, slot1 = 0, tokens = 0;
+  if constexpr (MODE == kPaged) {
+    slot3 = slot_of(3);
+    slot2 = slot_of(2);
+    slot1 = slot_of(1);
+    tokens = a.page_tokens[t0 / tpp];
+  }
+
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    const bool more = t + 1 < T;
+    const int b = t & 1;
+    if (more) {  // S of the next tile runs under this one's exchange
+      if constexpr (MODE == kDense)
+        mbar_wait(kfull + (t + 1) % kStages, ((t + 1) / kStages) & 1);
+      issue_s(nxt, t + 1);
+    }
+    float4 sd_next = make_float4(0.f, 0.f, 0.f, 0.f);
+    int slot_next = 0, tokens_next = 0;
+    if constexpr (MODE == kDense) {
+      if (tid == 0 && t + kStages < T) load_tile(&tk, Ks, kfull, t + kStages);
+      __syncwarp();
+    } else {  // the packed rows of the tiles unpacked a tile later
+      if (t + 3 < T) raw_of(kraw(t + 3), a.k_data, t + 3, slot3);
+      if (t + 2 < T) raw_of(vraw(t + 2), a.v_data, t + 2, slot2);
+      cp_async_commit();
+      if (more) {
+        sd_next = side_of(t + 1, slot1);
+        tokens_next = a.page_tokens[(t0 + t + 1) / tpp];
+      }
+      slot_next = slot_of(t + 4);
+    }
+    gather_b(cur, b);
+
+    // online softmax; this thread holds rows g and g + 8 of its warp's 16,
+    // tokens 8j + 2 q4 + (e & 1) of entry 4j + e
+    float alpha[2], csum[2] = {0.f, 0.f};
+    if constexpr (MODE == kDense) {
+      const int kv0 = (t0 + t) * TK;
+      if (kv0 + TK > a.Skv) {
+#pragma unroll
+        for (int i = 0; i < kS; ++i)
+          if (kv0 + (i >> 2) * 8 + q4 * 2 + (i & 1) >= a.Skv) cur[i] = kNegInf;
+      }
+      float mx[2] = {kNegInf, kNegInf}, rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kS; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], cur[i]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m_run[h], quant_flash::quad_max(mx[h]) * sl2);
+        alpha[h] = quant_flash::ex2(m_run[h] - m_new);
+        m_run[h] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        const int h = (i >> 1) & 1;
+        cur[i] = quant_flash::ex2(fmaf(cur[i], sl2, -m_run[h]));
+        rsum[h] += cur[i];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        l_run[h] = l_run[h] * alpha[h] + quant_flash::quad_sum(rsum[h]);
+    } else {
+      const int h0 = ((t0 + t) % tpp) * TK, present = min(a.P - h0, TK);
+      const int valid = min(max(min(tokens, a.P) - h0, 0), TK);
+      const float* sd = sides + (t & 1) * 4 * TK;
+      float msc[2], rsum[2] = {0.f, 0.f};
+      if (valid < TK) {
+        quant_flash::logits<true, TK>(cur, sd, qs, q4, valid, m_run, alpha, msc);
+        quant_flash::weights<true, TK>(cur, sd, q4, valid, present, m_run, msc,
+                                       rsum, csum);
+      } else {
+        quant_flash::logits<false, TK>(cur, sd, qs, q4, valid, m_run, alpha, msc);
+        quant_flash::weights<false, TK>(cur, sd, q4, valid, present, m_run,
+                                        msc, rsum, csum);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l_run[h] = l_run[h] * alpha[h] + quant_flash::quad_sum(rsum[h]);
+        csum[h] = quant_flash::quad_sum(csum[h]);
+      }
+    }
+
+    // bf16(p) (kPaged: bf16(p * vs)) as the P.V A operand: the tokens of
+    // n-block j go to register (j & 1) * 2 + r of step j / 2
+    uint32_t pf[TK / 16][4];
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j) {
+      pf[j >> 1][(j & 1) * 2] = pack_bf16(cur[4 * j], cur[4 * j + 1]);
+      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(cur[4 * j + 2], cur[4 * j + 3]);
+    }
+
+    // P.V of tile t - 1 and S of tile t + 1 are done: o is ours, P.V of
+    // tile t goes to the tensor cores and then S of tile t + 1 to the
+    // cluster. (One wait for every product before an accumulator is read:
+    // where a wait retires only the older of two groups ptxas cannot tell
+    // which across the loop, and serializes every wgmma of the kernel.)
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(nxt);
+#pragma unroll
+    for (int i = 0; i < kCols / 2; ++i) {
+      if constexpr (MODE == kDense)
+        o[i] *= alpha[(i >> 1) & 1];
+      else
+        o[i] = __fmaf_rn(o[i], alpha[(i >> 1) & 1], -csum[(i >> 1) & 1]);
+    }
+    if constexpr (MODE == kDense)
+      mbar_wait(vfull + t % kStages, (t / kStages) & 1);
+    const uint32_t v_addr = smem_u32(Vs + (t % kStages) * L::kTile);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+      wgmma_rs<kCols, 1>(o, pf[kk],
+                         gmma_desc(v_addr + kk * 16 * kSw, TK * kSw, 8 * kSw, 1),
+                         1);
+    wgmma_commit();
+    if (more) {
+      put(nxt, b ^ 1);
+      cluster_arrive();
+    }
+    __syncthreads();  // both warpgroups' P.V of tile t - 1: its V stage free
+    if constexpr (MODE == kDense) {
+      if (tid == 0 && t + kStages - 1 < T)
+        load_tile(&tv, Vs, vfull, t + kStages - 1);
+      __syncwarp();
+    }
+    if (more) {
+      cluster_wait();  // every block's partial S of tile t + 1
+      prefetch(b ^ 1);
+    }
+
+    if constexpr (MODE == kPaged) {  // the next tiles, under P.V
+      cp_async_wait<1>();  // the rows copied a tile ago
+      if (t + 2 < T) unpack(kraw(t + 2), t + 2, Ks);
+      if (more) {
+        unpack(vraw(t + 1), t + 1, Vs);
+        put_side(sd_next, t + 1);
+      }
+      fence_proxy_async();
+      __syncthreads();  // every thread's levels before the products read them
+      slot1 = slot2;
+      slot2 = slot3;
+      slot3 = slot_next;
+      tokens = tokens_next;
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(o);
+
+  if (MODE == kPaged && a.nsplit > 1) {
+    merge_splits(a, o, m_run, l_run, q0, rows0, z, C, rank, c0, ncol, q4);
+  } else {
+  // out (this block's columns), and the lse from rank 0
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rows0 + 8 * h;
+    if (row >= a.Sq) continue;
+    const size_t at = ((size_t)z * a.Sq + row) * a.D + c0 + 2 * q4;
+    const float l = l_run[h], inv = __frcp_rn(l);
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      if (8 * j >= ncol) break;  // columns past D are not stored
+      float y0 = o[4 * j + 2 * h], y1 = o[4 * j + 2 * h + 1];
+      if constexpr (MODE == kDense) {
+        y0 = __fdiv_rn(y0, l);
+        y1 = __fdiv_rn(y1, l);
+      } else {
+        y0 = __fmul_rn(y0, inv);
+        y1 = __fmul_rn(y1, inv);
+      }
+      if (MODE == kDense && a.out_bf16)
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(a.out) + at +
+                                     8 * j) = pack_bf16(y0, y1);
+      else
+        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + 8 * j) =
+            make_float2(y0, y1);
+    }
+    if (MODE == kPaged && rank == 0 && q4 == 0)
+      a.lse[(size_t)z * a.Sq + row] = m_run[h] + logf(l);
+  }
+  }
+  // no block leaves while another may still read its partials
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The number of clusters of C blocks of an instance (one block an SM) the
+// card runs at once, or a negative cudaError_t.
+template <int MODE, int BITS, int CT>
+int active_clusters_ct(int C) {
+  auto kernel = wide_cluster_attention<MODE, BITS, CT>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::kBytes);
+  if (attr != cudaSuccess) return -(int)attr;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * 16, 1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Smem::kBytes;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+template <int MODE, int BITS>
+int active_clusters(int C) {
+  return C == 2   ? active_clusters_ct<MODE, BITS, 2>(C)
+         : C == 3 ? active_clusters_ct<MODE, BITS, 3>(C)
+                  : active_clusters_ct<MODE, BITS, 0>(C);
+}
+
+// Launch over Z heads: a cluster of a.C blocks a tile of 128 query rows.
+// Returns cudaErrorInvalidClusterSize where the card cannot place the
+// cluster; nothing falls back.
+template <int MODE, int BITS, int CT>
+int launch_ct(const CUtensorMap (&maps)[3], const Args& a, cudaStream_t stream) {
+  static int placed[kMaxCluster + 1] = {};  // active clusters by C, 0: not asked
+  if (placed[a.C] == 0) {
+    const int n = active_clusters_ct<MODE, BITS, CT>(a.C);
+    if (n < 0) return -n;
+    placed[a.C] = n > 0 ? n : -1;
+  }
+  if (placed[a.C] < 0) return (int)cudaErrorInvalidClusterSize;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = a.C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.C * ((a.Sq + kBQ - 1) / kBQ), a.Z, a.nsplit);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Smem::kBytes;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, wide_cluster_attention<MODE, BITS, CT>, maps[0], maps[1], maps[2],
+      a);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <int MODE, int BITS>
+int launch(const CUtensorMap (&maps)[3], const Args& a, cudaStream_t stream) {
+  if (a.C < 2 || a.C > kMaxCluster) return (int)cudaErrorInvalidValue;
+  return a.C == 2   ? launch_ct<MODE, BITS, 2>(maps, a, stream)
+         : a.C == 3 ? launch_ct<MODE, BITS, 3>(maps, a, stream)
+                    : launch_ct<MODE, BITS, 0>(maps, a, stream);
+}
+
+// A TMA map over a bf16 [Z, rows, D] tensor, boxes of 64 columns x `box`
+// rows, 128-byte swizzle (zero fill past D and past rows).
+inline bool bf16_map(CUtensorMap* map, const void* ptr, int Z, int rows, int D,
+                     int box) {
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)rows, (uint64_t)Z};
+  const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)rows * D * 2};
+  const uint32_t boxes[3] = {64, (uint32_t)box, 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims, strides,
+                  boxes, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The splits of a single-sequence paged call over its page chain: enough
+// clusters to fill the card (as many at once as it runs of this size), at
+// least 4 tiles of 32 tokens a split, at most kMaxSplit, and no split empty.
+inline int paged_splits(int C, int Z, int Sq, int n_pages, int P) {
+  const int clusters = ((Sq + kBQ - 1) / kBQ) * Z;
+  const int tiles = n_pages * ((P + TK - 1) / TK);
+  static int placed[kMaxCluster + 1] = {};  // clusters at once by C
+  if (placed[C] == 0) placed[C] = max(active_clusters<kPaged, 4>(C), -1);
+  const int active = placed[C];
+  int n = active > 0 ? active / clusters : 1;
+  n = max(1, min(min(n, tiles / 4), kMaxSplit));
+  const int per = (tiles + n - 1) / n;
+  return (tiles + per - 1) / per;
+}
+
+// The blocks of a cluster for heads of D, or 0 outside [kMinD, kMaxD].
+inline int cluster_blocks(int D) {
+  return D >= kMinD && D <= kMaxD && D % 8 == 0 ? (D + kCols - 1) / kCols : 0;
+}
+
+}  // namespace wide_cluster

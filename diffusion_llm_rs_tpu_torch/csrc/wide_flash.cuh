@@ -1,5 +1,6 @@
-// Attention at head widths past 256, for Hopper (sm_90a): the wide instance
-// of every attention design of the port.
+// Attention at head widths past 256, for Hopper (sm_90a): the wide
+// instance of the quantized-KV and batched paged designs, and of dense and
+// single-sequence paged attention past 2048.
 //
 // The instances of csrc/dense_attention.cu, csrc/quant_flash.cuh and
 // csrc/paged_flash.cuh hold a whole head row of q, K and V in shared memory
@@ -7,12 +8,18 @@
 // 256. The TPU kernels they replace take any multiple of 8 that VMEM holds
 // (diffusion_llm_rs_tpu/ops/pallas_attention.py:165-176, :262-269;
 // pallas_paged_attention.py:174, :757). Here the head width D is a runtime
-// argument, and neither shared memory nor registers grow with it:
+// argument, and neither shared memory nor registers grow with it. This
+// header serves modes kContig, kScratch16 and kScratch8 at every width past
+// 256, and kDense and kPaged past 2048: from 264 to 2048 dense and
+// single-sequence paged attention run the cluster design of
+// csrc/wide_cluster_flash.cuh, which issues S once.
 //   - output columns over blocks: a block owns kDV = 128 output columns of
 //     64 query rows; the grid is (query tiles, ceil(D / 128), heads). Every
 //     column block of a query tile computes the same S and the same online
 //     softmax in the same order, so their m, l and p agree bit for bit; only
-//     the first writes the lse;
+//     the first writes the lse. The S product is therefore issued
+//     ceil(D / 128) times a KV tile a query tile: 2 * 64 * TK * D *
+//     ceil(D / 128) operations, beside P.V's 2 * 64 * TK * D;
 //   - S over D in chunks: S = q.k^T accumulates over chunks of 64 head
 //     columns (bf16, or 64 int8 columns on the int8 path), each chunk of q
 //     and of the KV tile staged in shared memory; then the block's 128
@@ -49,9 +56,10 @@
 // ones (past Skv, or the page's P) are left out (p = 0).
 //
 // This is a simple design that is right, not a fast one: S is computed once
-// for each column block (ceil(D / 128) times the S work), q's chunks are
-// read again for every KV tile (from L2), and the quantized loaders read a
-// byte an element. PERF.md gives its times beside its bound.
+// for each column block, q's chunks are read again for every KV tile (from
+// L2), and the quantized loaders read a byte an element. PERF.md gives its
+// times beside its bound; the next redesigns move kScratch8, kScratch16 and
+// kContig onto the cluster design.
 
 #pragma once
 

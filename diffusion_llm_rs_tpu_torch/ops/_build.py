@@ -54,6 +54,9 @@ SIGNATURES = {
                                                 _I, _F, _P)),
     "dlm_dense_attention_wide": ("dense_attention_wide",
                                  (_P, _P, _P, _P) + (_I,) * 5 + (_F, _P)),
+    "dlm_dense_attention_cluster": ("dense_attention_wide",
+                                    (_P, _P, _P, _P) + (_I,) * 5 + (_F, _P)),
+    "dlm_dense_attention_cluster_active": ("dense_attention_wide", (_I,)),
     "dlm_paged_unpack": ("paged_unpack", (_P,) * 11 + (_I,) * 10 + (_F, _P)),
     "dlm_batched_paged_attention": ("batched_paged_attention",
                                     (_P,) * 8 + (_I,) * 6 + (_P,)),
@@ -65,6 +68,11 @@ SIGNATURES = {
                                        (_P,) * 8 + (_I,) * 6 + (_P,)),
     "dlm_paged_attention_wide": ("quant_flash_paged_wide",
                                  (_P,) * 11 + (_I,) * 7 + (_F, _P)),
+    "dlm_paged_attention_cluster": ("quant_flash_paged_wide",
+                                    (_P,) * 11 + (_I,) * 7 + (_F, _P, _I)
+                                    + (_P,) * 3),
+    "dlm_paged_attention_cluster_splits": ("quant_flash_paged_wide",
+                                           (_I,) * 5),
     "dlm_batched_paged_attention_wide": ("paged_flash_wide",
                                          (_P,) * 8 + (_I,) * 8 + (_P,)),
     "dlm_batched_paged_attention_a8_wide": ("paged_flash_wide",

@@ -25,9 +25,13 @@ loop at the same rounding points. The kernels take every head width D that is
 a multiple of 8, with no upper limit (`head_dim_fits`), as JAX's take every
 such width its VMEM holds. Up to 256 a head of D runs in the instance of the
 smallest `KERNEL_WIDTHS` entry that holds it, zero past D; past 256 it runs
-in the wide instance of its design (`csrc/wide_flash.cuh`: D a runtime
-argument, the output columns split over blocks of 128, S summed over chunks
-of 64 head columns). Where D % 8 != 0 the JAX package runs no Pallas kernel
+in the wide instance of its design (D a runtime argument, `instance`): dense
+attention from 264 to 2048 in a cluster of ceil(D / 256) blocks, each 256
+columns of the head, the partial S summed across the cluster
+(`csrc/wide_cluster_flash.cuh`, `cluster_blocks`); quantized-KV attention,
+and dense attention past 2048, in `csrc/wide_flash.cuh` (the output columns
+split over blocks of 128, S summed over chunks of 64 head columns in each).
+Where D % 8 != 0 the JAX package runs no Pallas kernel
 but XLA, and so does the port, on either device: `flash_fold` takes
 `dense_attention_einsum` (the einsum branch of JAX's `_flash_fold`),
 `attention` takes `attention_fallback` (JAX's `_attention_fallback`).
@@ -49,6 +53,9 @@ NEG_INF = -1e30
 # in the smallest that holds it, or past them in the wide instance
 KERNEL_WIDTHS = (16, 32, 64, 128, 192, 256)
 WIDE_CHUNK = 64       # head columns a chunk of the wide instance's S
+CLUSTER_COLUMNS = 256  # head columns a block of the cluster kernels owns
+CLUSTER_MAX = 8        # blocks a cluster at most (the portable size)
+CLUSTER_ROWS = 128     # query rows a cluster
 KERNEL_KV_TILE = 64   # tokens per online-softmax step of `csrc/quant_flash_contig.cu`
 KERNEL_BITS = (1, 2, 4, 8)
 
@@ -87,9 +94,9 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense flash attention: q [BH, Sq, D], k/v [BH, Skv, D] -> [BH, Sq, D].
 
     Inputs are cast to bf16, as on the TPU. CPU tensors take the plain twin;
-    CUDA tensors launch the kernel (`head_dim_fits`; past 256 its wide
-    instance; bf16 or f32 out). No gradient flows through the kernel:
-    `flash_fold` gives one."""
+    CUDA tensors launch the kernel (`head_dim_fits`; from 264 to 2048 its
+    cluster instance, past 2048 its wide instance; bf16 or f32 out). No
+    gradient flows through the kernel: `flash_fold` gives one."""
     if q.device.type == "cpu":
         return dense_attention_plain(q, k, v, sm_scale, out_dtype)
     if q.device.type != "cuda":
@@ -112,7 +119,8 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("dense_attention: q, k, v must be 16-byte aligned "
                          "(the kernel reads them by TMA)")
     out = torch.empty((BH, Sq, D), dtype=out_dtype, device=q.device)
-    wide = "_wide" if D > KERNEL_WIDTHS[-1] else ""
+    # `csrc/dense_attention.cu` holds every width up to 256
+    wide = instance(D, cluster=True) if D > KERNEL_WIDTHS[-1] else ""
     _build.check(_build.function(f"dlm_dense_attention{wide}")(
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.bfloat16), BH, Sq, Skv, D, float(sm_scale),
@@ -376,12 +384,26 @@ def kernel_width(D: int) -> int:
                 -(-D // WIDE_CHUNK) * WIDE_CHUNK)
 
 
-def instance(D: int) -> str:
+def cluster_blocks(D: int) -> int:
+    """The blocks of a cluster that serve heads of D in the cluster design
+    of dense and single-sequence paged attention
+    (`csrc/wide_cluster_flash.cuh`: each block `CLUSTER_COLUMNS` columns of
+    the head): ceil(D / 256) from 264 to 2048, where a cluster has at most
+    `CLUSTER_MAX` blocks, else 0."""
+    if not head_dim_fits(D) or not (
+            KERNEL_WIDTHS[-1] < D <= CLUSTER_COLUMNS * CLUSTER_MAX):
+        return 0
+    return -(-D // CLUSTER_COLUMNS)
+
+
+def instance(D: int, cluster: bool = False) -> str:
     """The suffix of the C entry point a head of D launches: "" at a
     `KERNEL_WIDTHS` entry, "_padded" between them (a source of its own), and
-    "_wide" past them (`csrc/wide_flash.cuh`)."""
+    past them "_cluster" where the caller's design has a cluster kernel
+    (`cluster`: dense and single-sequence paged attention) and
+    `cluster_blocks(D)` takes D, else "_wide" (`csrc/wide_flash.cuh`)."""
     if D > KERNEL_WIDTHS[-1]:
-        return "_wide"
+        return "_cluster" if cluster and cluster_blocks(D) else "_wide"
     return "" if D == kernel_width(D) else "_padded"
 
 

@@ -13,9 +13,12 @@ the heads) and raises on anything else; on a CPU tensor it runs its plain
 twin (`*_plain`), which repeats the TPU kernel's arithmetic page by page at
 the same rounding points. A head of D up to 256 runs in the kernels'
 instance of the smallest `KERNEL_WIDTHS` entry that holds it, past 256 in
-the wide instance of each design (`csrc/wide_flash.cuh`), and the batched
-path's scratch rows are `kernel_width(D)` wide (past 256, D rounded up to
-64), zero past D. Where D % 8 != 0 no kernel of either
+the wide instance of each design (`ops/attention.py: instance`): the
+single-sequence kernel from 264 to 2048 in a cluster of ceil(D / 256)
+blocks, each 256 columns of the head (`csrc/wide_cluster_flash.cuh`), past
+2048 and the batched kernels in `csrc/wide_flash.cuh`; the batched path's
+scratch rows are `kernel_width(D)` wide (past 256, D rounded up to 64), zero
+past D. Where D % 8 != 0 no kernel of either
 package serves the pools (JAX's need rows of 128 lanes) and both wrappers
 take JAX's XLA paths on either device: `paged_attention_fallback` (JAX's
 `_fallback`) and `batched_paged_attention_fallback` (`_batched_fallback`).
@@ -48,7 +51,9 @@ from typing import Sequence, Tuple
 import torch
 
 from diffusion_llm_rs_tpu_torch.ops import _build
-from diffusion_llm_rs_tpu_torch.ops.attention import (_head_dim_error,
+from diffusion_llm_rs_tpu_torch.ops.attention import (CLUSTER_ROWS,
+                                                      _head_dim_error,
+                                                      cluster_blocks,
                                                       head_dim_fits, instance,
                                                       kernel_width)
 from diffusion_llm_rs_tpu_torch.quant.core import div_const
@@ -253,14 +258,47 @@ def paged_attention(q, page_table, k_data, k_scale, k_zp, v_data, v_scale,
     pt, nt = (t.to(torch.int32).contiguous() for t in (page_table, page_tokens))
     out = torch.empty((BH, Sq, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
-    err = _build.function(f"dlm_paged_attention{instance(D)}")(
-        qb.data_ptr(), pt.data_ptr(), nt.data_ptr(),
-        *(t.data_ptr() for t in pools), out.data_ptr(), lse.data_ptr(), BH,
-        Sq, D, n_pages, n_slots, P, bits, float(sm),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    suffix = instance(D, cluster=True)
+    args = (qb.data_ptr(), pt.data_ptr(), nt.data_ptr(),
+            *(t.data_ptr() for t in pools), out.data_ptr(), lse.data_ptr(), BH,
+            Sq, D, n_pages, n_slots, P, bits, float(sm),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if suffix == "_cluster":  # the chain split over clusters, merged in-launch
+        n, *scratch = _cluster_splits(q.device, BH, Sq, D, n_pages, P)
+        args += (n, *(None if t is None else t.data_ptr() for t in scratch))
+    err = _build.function(f"dlm_paged_attention{suffix}")(*args)
     _build.check(err, name)
     _build.launch_counts[name] += 1
     return (out, lse) if return_lse else out
+
+
+# the zeroed counters of the cluster kernel's splits, by device; the kernel
+# leaves them zero (so calls that split share them one stream at a time)
+_split_counters = {}
+
+
+def _cluster_splits(device, BH, Sq, D, n_pages, P):
+    """What `dlm_paged_attention_cluster` takes past the single-sequence
+    arguments: the splits of the page chain (`csrc/wide_cluster_flash.cuh:
+    paged_splits`) and, where more than one, scratch for the splits'
+    partials and the counters by which the last block of each column slice
+    merges them (tensors: the caller holds them until the launch)."""
+    n = _build.function("dlm_paged_attention_cluster_splits")(
+        BH, Sq, D, n_pages, P)
+    if n < 0:
+        _build.check(-n, "paged_attention")
+    if n == 1:
+        return (1, None, None, None)
+    C = cluster_blocks(D)
+    part_o = torch.empty((n, BH, Sq, D), dtype=torch.float32, device=device)
+    part_ml = torch.empty((n, C, BH, Sq, 2), dtype=torch.float32,
+                          device=device)
+    need = -(-Sq // CLUSTER_ROWS) * BH * C
+    counters = _split_counters.get(device)
+    if counters is None or counters.numel() < need:
+        counters = _split_counters[device] = torch.zeros(
+            need, dtype=torch.int32, device=device)
+    return (n, part_o, part_ml, counters)
 
 
 # ----------------------------------------------------------------- batched

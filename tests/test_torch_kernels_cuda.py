@@ -26,9 +26,11 @@ pytestmark = pytest.mark.cuda
 # 128, 192 and 256 that holds it, zero past D): every new instance, at its
 # own width and padded
 WIDE = [8, 24, 48, 80, 96, 136, 192, 200, 256]
-# past 256, the wide instance of each design (csrc/wide_flash.cuh): a ragged
-# last column block (264), the heads of width 768 at 2 and 1 heads (384,
-# 768), and whole column blocks up to 16 of them (512, 1024, 2048)
+# past 256, the wide instance of each design (csrc/wide_flash.cuh; dense and
+# single-sequence paged attention: the cluster kernels of
+# csrc/wide_cluster_flash.cuh): a ragged last column block (264), the heads
+# of width 768 at 2 and 1 heads (384, 768), and whole column blocks up to 16
+# of them (512, 1024, 2048: clusters of 2, 4 and 8)
 WIDER = [264, 384, 512, 768, 1024, 2048]
 HEAD_DIMS = [16, 32, 64, 128] + [pytest.param(d, id=f"D{d}") for d in WIDE] \
     + [pytest.param(d, id=f"W{d}") for d in WIDER]
@@ -312,6 +314,55 @@ def test_dense_attention_kernel_matches_twin(gen, BH, Sq, Skv, D, out_dtype):
     assert rel <= 1e-2, rel
 
 
+# the cluster kernels of dense and single-sequence paged attention
+# (csrc/wide_cluster_flash.cuh, heads of 264 to 2048; WIDER holds 264, 384,
+# 512, 768, 1024 and 2048): a last block of 16 columns (272), a cluster of 3
+# with 8-byte reads of the pools (520), and the first width past them, on
+# csrc/wide_flash.cuh (2056)
+CLUSTER_EDGES = [272, 520, 2056]
+
+
+@pytest.mark.parametrize("Skv", [64, 999])
+@pytest.mark.parametrize("D", CLUSTER_EDGES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_dense_attention_cluster_edges_match_twin(gen, Skv, D, out_dtype):
+    """The tolerance of `test_dense_attention_kernel_matches_twin`, ragged Sq
+    and Skv."""
+    q = torch.randn((2, 100, D), generator=gen, device="cuda")
+    k, v = (torch.randn((2, Skv, D), generator=gen, device="cuda")
+            for _ in range(2))
+    assert qa.instance(D, cluster=True) == ("_wide" if D > 2048
+                                            else "_cluster")
+    _build.reset_launch_counts()
+    out = dense_attention(q, k, v, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["dense_attention"] == 1
+    assert out.dtype == out_dtype and out.shape == (2, 100, D)
+    ref = dense_attention_plain(q, k, v, out_dtype=out_dtype)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
+    rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+    assert rel <= 1e-2, rel
+
+
+def test_cluster_kernels_place_every_cluster_size(gen):
+    """The card runs clusters of every size the cluster kernels launch (2
+    to 8 blocks, one an SM), and the kernels refuse widths outside 264 to
+    2048 rather than serve them."""
+    fn = _build.function("dlm_dense_attention_cluster_active")
+    for D in (264, 520, 776, 1032, 1288, 1544, 1800, 2048):
+        assert fn(D) > 0, D
+    q = torch.randn((1, 8, 2056), device="cuda").bfloat16()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    for D in (256, 2056):
+        assert _build.function("dlm_dense_attention_cluster")(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 1, 8,
+            8, D, 1.0, stream) != 0
+    assert _build.function("dlm_dense_attention_wide")(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 1, 8, 8,
+        2048, 1.0, stream) != 0
+
+
 def test_kernels_refuse_what_they_do_not_take(gen):
     """Heads of 48, which this test refused until the kernels took every
     multiple of 8, match the twin; so do heads wider than 256 (refused
@@ -567,6 +618,61 @@ def test_paged_attention_kernel_matches_twin(gen, bits, P, D):
     ref, ref_lse = pa.paged_attention_plain(q, pt, *pools, bits=bits,
                                             page_tokens=nt, return_lse=True)
     _close(out, lse, ref, ref_lse)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("P", [32, 64, 128])
+@pytest.mark.parametrize("D", CLUSTER_EDGES)
+def test_paged_attention_cluster_edges_match_twin(gen, bits, P, D):
+    """The tolerance of `test_paged_attention_kernel_matches_twin`, with an
+    empty page, a partial one and the lse, at the cluster design's edges."""
+    BH, Sq = 2, 70
+    pools = _pools(gen, 5, BH, P, D, bits, 1)
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    pt = torch.tensor([4, 1, 2, 0], device="cuda", dtype=torch.int32)
+    nt = torch.tensor([P, 0, min(17, P - 1), P], device="cuda",
+                      dtype=torch.int32)
+    _build.reset_launch_counts()
+    out, lse = pa.paged_attention(q, pt, *pools, bits=bits, page_tokens=nt,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["paged_attention"] == 1
+    ref, ref_lse = pa.paged_attention_plain(q, pt, *pools, bits=bits,
+                                            page_tokens=nt, return_lse=True)
+    _close(out, lse, ref, ref_lse)
+
+
+@pytest.mark.parametrize("D", [384, 768])
+def test_paged_attention_cluster_splits_merge_in_launch(gen, D):
+    """One sequence at wide heads splits its page chain over clusters
+    (`csrc/wide_cluster_flash.cuh: paged_splits`) and merges the splits in
+    the same launch: one launch, the plain version's tolerance, a graph
+    replay equal to the eager call bit for bit (whichever block merges, the
+    splits add in order), and the merge counters left at zero."""
+    BH, Sq, P, bits = 1, 256, 128, 4
+    pools = _pools(gen, 10, BH, P, D, bits, 1)
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    pt = torch.tensor([3, 7, 1, 9, 0, 5, 2, 8], device="cuda",
+                      dtype=torch.int32)
+    nt = torch.tensor([P] * 7 + [70], device="cuda", dtype=torch.int32)
+    splits = _build.function("dlm_paged_attention_cluster_splits")(
+        BH, Sq, D, 8, P)
+    assert splits > 1, splits
+    _build.reset_launch_counts()
+    out, lse = pa.paged_attention(q, pt, *pools, bits=bits, page_tokens=nt,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["paged_attention"] == 1
+    _close(out, lse, *pa.paged_attention_plain(
+        q, pt, *pools, bits=bits, page_tokens=nt, return_lse=True))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out, g_lse = pa.paged_attention(q, pt, *pools, bits=bits,
+                                          page_tokens=nt, return_lse=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_out, out) and torch.equal(g_lse, lse)
+    assert not bool(pa._split_counters[q.device].any())
 
 
 @pytest.mark.parametrize("P", PAGES)
