@@ -61,15 +61,17 @@ Phases (any failure makes the script exit non-zero without the final line):
                 serving shape with 2 heads of 384 and one of 768; and
                 untimed at heads of 264 (a ragged column block, packed rows
                 of 33 bytes at 1 bit), 520 and 2048, and past the cluster
-                kernels at 2056. Dense and single-sequence paged attention
-                run heads of 264 to 2048 in the cluster kernels
-                (csrc/wide_cluster_flash.cuh; the paged rows give the splits
-                of the page chain over clusters), the clusters of each size
-                the card runs at once are logged, and any size it cannot
-                place fails the phase. The kernels line gives each design's
-                wide instance as `wide_instance` (its first timed row, its
-                design and source, and its launches on heads_wide's heads
-                of 384 and 768).
+                kernels at 2056. Dense, single-sequence paged and both
+                batched paged attention kernels run heads of 264 to 2048 in
+                the cluster kernels (csrc/wide_cluster_flash.cuh; the paged
+                rows give the splits of the page chain over clusters, the
+                batched rows the clusters of their instance the card runs at
+                once), the clusters of each size the card runs at once are
+                logged, and any size it cannot place fails the phase. The
+                kernels line gives each design's wide instance as
+                `wide_instance` (its first timed row, its design, source and
+                C entry point, and its launches on heads_wide's heads of 384
+                and 768).
   4. sampler  - the W4A8 sampler at full width (12 layers, 768 wide, 12 heads,
                 vocab 50257; random weights from a seed, quantized in the
                 port): B=8, S=256, 32 steps, bf16 activations, timed 5 times
@@ -908,6 +910,11 @@ def _paged_kernels(gen, results, bad):
                               (3, 1, 256), (2, 1, 384), (1, 1, 768))]
     cases += [("heads of 264, pages of 72, partial page + empty slot", 4, 2,
                300, 72, ([5, 0], [40, 72]), False, (2, 1, 264))]
+    # the cluster kernels' edges: a cluster of 8 (2048) in pages of 32, and
+    # past them csrc/wide_flash.cuh (2056)
+    cases += [(f"heads of {D}, pages of 32, partial page + empty slot", 4, 2,
+               100, 32, ([3, 0], [20, 32]), False, (1, 1, D))
+              for D in (2048, 2056)]
     for label, bits, B, sq, P, (npages, last), timed, (H, G, D) in cases:
         pools = _quantized_pools(gen, B * n, H, P, D, G, bits)
         q = torch.randn((B, H, sq, D), generator=gen, device="cuda").to(
@@ -931,6 +938,9 @@ def _paged_kernels(gen, results, bad):
         row = dict(shape=f"{label}: B={B} H={H} D={D} G={G} Sq={sq} P={P} "
                    f"pages={npages}", max_abs_err=err, rel_err=rel,
                    lse_err=lse_err, tolerance=tol, wide=D > WIDE_FROM)
+        if cluster_blocks(D):  # the clusters of its instance at once
+            row["clusters_at_once"] = _build.function(
+                "dlm_batched_paged_attention_cluster_active")(D, P, 0)
         # the pages read and the keys attended (timed cases: whole pages,
         # as many a slot)
         n_live = sum(npages)
@@ -950,8 +960,10 @@ def _paged_kernels(gen, results, bad):
             + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
                f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
                f"({row['bound_by']}); MUFU ex2 floor "
-               f"{mufu_floor_ms(H * sq * keys):.4f}" if "ms" in row else ""))
-        if not ok:
+               f"{mufu_floor_ms(H * sq * keys):.4f}" if "ms" in row else "")
+            + (f"; clusters of {cluster_blocks(D)}, {row['clusters_at_once']} "
+               f"at once" if "clusters_at_once" in row else ""))
+        if not ok or row.get("clusters_at_once", 1) <= 0:
             bad.append(f"batched_paged_attention {label}")
         _unpack_case(pa, label, row["shape"], args, npages, bits, G, timed,
                      results, bad)
@@ -981,6 +993,9 @@ def _paged_kernels(gen, results, bad):
             rel_to_bf16_kernel=rel16, lse_to_bf16_kernel=lse16,
             tolerance="rel Frobenius <= 5e-3, |lse| <= 1e-3; of the bf16 "
             "kernel <= 3.5e-2, |lse| <= 2e-2", wide=D > WIDE_FROM)
+        if cluster_blocks(D):
+            row8["clusters_at_once"] = _build.function(
+                "dlm_batched_paged_attention_cluster_active")(D, P, 1)
         if timed:
             row8["ms"] = time_ms(lambda: pa.batched_paged_attention(
                 *args, bits=bits, head_group=G, act_bits=8))
@@ -997,8 +1012,11 @@ def _paged_kernels(gen, results, bad):
             + (f"; {row8['ms']:.4f} ms, plain {row8['plain_ms']:.4f}, library "
                f"{row8['library_ms']:.4f}, bound {row8['bound_ms']:.4f} "
                f"({row8['bound_by']}); MUFU ex2 floor "
-               f"{mufu_floor_ms(H * sq * keys):.4f}" if "ms" in row8 else ""))
-        if not ok8:
+               f"{mufu_floor_ms(H * sq * keys):.4f}" if "ms" in row8 else "")
+            + (f"; clusters of {cluster_blocks(D)}, "
+               f"{row8['clusters_at_once']} at once"
+               if "clusters_at_once" in row8 else ""))
+        if not ok8 or row8.get("clusters_at_once", 1) <= 0:
             bad.append(f"batched_paged_attention_a8 {label}")
 
     # paged_attention (one sequence): PAGED_CASES, each timed with full
@@ -3913,8 +3931,9 @@ KERNELS = {
 # quant_attention and paged_attention run heads of widths between their
 # instances' from a padded source
 # the wide instance of each attention design (heads past 256), a source of
-# its own over csrc/wide_flash.cuh; dense and single-sequence paged
-# attention's also over csrc/wide_cluster_flash.cuh (WIDE_DESIGNS)
+# its own (with its C entry point at heads of 384 and 768) over
+# csrc/wide_flash.cuh or, from 264 to 2048, csrc/wide_cluster_flash.cuh
+# (WIDE_DESIGNS); the batched kernels' past 2048 in paged_flash_wide.cu
 WIDE_SOURCES = {
     "dense_attention": "diffusion_llm_rs_tpu_torch/csrc/dense_attention_wide.cu",
     "quant_attention":
@@ -3922,19 +3941,32 @@ WIDE_SOURCES = {
     "paged_attention":
         "diffusion_llm_rs_tpu_torch/csrc/quant_flash_paged_wide.cu",
     "batched_paged_attention":
-        "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu",
+        "diffusion_llm_rs_tpu_torch/csrc/paged_flash_cluster.cu",
     "batched_paged_attention_a8":
-        "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu"}
+        "diffusion_llm_rs_tpu_torch/csrc/paged_flash_cluster.cu"}
+WIDE_ENTRY_POINTS = {
+    "dense_attention": "dlm_dense_attention_cluster",
+    "quant_attention": "dlm_quant_attention_wide",
+    "paged_attention": "dlm_paged_attention_cluster",
+    "batched_paged_attention": "dlm_batched_paged_attention_cluster",
+    "batched_paged_attention_a8": "dlm_batched_paged_attention_a8_cluster",
+    "paged_unpack": "dlm_paged_unpack"}
 WIDE_DESIGNS = {
     "dense_attention": "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh",
-    "paged_attention": "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh"}
+    "paged_attention": "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh",
+    "batched_paged_attention":
+        "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh",
+    "batched_paged_attention_a8":
+        "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh"}
 WIDE_DESIGN_NOTES = {
     "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh":
         "heads of 264-2048: a cluster of ceil(D/256) blocks a 128-query "
         "tile, each block 256 columns, partial S summed in rank order "
         "through distributed shared memory, S and P.V on wgmma; one "
         "sequence's page chain split over clusters, merged in the launch; "
-        "past 2048 csrc/wide_flash.cuh",
+        "the batched int8 path's S in s32 partials of 64 tokens, a page's S "
+        "held for its per-page requantization, P.V in two halves; past 2048 "
+        "csrc/wide_flash.cuh",
     "diffusion_llm_rs_tpu_torch/csrc/wide_flash.cuh":
         "heads past 256: a block per 64 queries and 128 output columns on "
         "mma.sync, S recomputed in each"}
@@ -3948,9 +3980,12 @@ ALSO_BUILT_FROM = {
         "diffusion_llm_rs_tpu_torch/csrc/quant_flash_paged_padded.cu",
         WIDE_SOURCES["paged_attention"]),
     "dense_attention": (WIDE_SOURCES["dense_attention"],),
-    "batched_paged_attention": (WIDE_SOURCES["batched_paged_attention"],),
+    "batched_paged_attention": (
+        WIDE_SOURCES["batched_paged_attention"],
+        "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu"),
     "batched_paged_attention_a8": (
-        WIDE_SOURCES["batched_paged_attention_a8"],)}
+        WIDE_SOURCES["batched_paged_attention_a8"],
+        "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu")}
 
 
 # Run in a checkout (cwd), this one or an earlier commit's: the attention
@@ -3961,8 +3996,10 @@ ALSO_BUILT_FROM = {
 # head widths the parent served (PARENT_SHAPES: 16, 32, 64, 128, 192 and
 # 256, and 96 run padded in 128, at the full-width model's heads, the
 # batched kernels at serve_paged's pools), and at the wide instances' heads
-# of 384 and 768 where the checkout has them; prints one JSON line of
-# {kernel shape: ms}.
+# of 384 and 768 where the checkout has them (the batched kernels' through
+# their cluster entry points where the checkout has those, else the wide
+# ones: the same key, so the ratio is the redesign's); prints one JSON line
+# of {kernel shape: ms}.
 PARENT_SHAPES = dict(
     quant_attention=[(96, 256, 64, 4), (96, 256, 64, 8), (96, 256, 64, 2),
                      (24, 1024, 64, 4), (192, 256, 32, 4), (48, 256, 128, 4),
@@ -3995,11 +4032,13 @@ from diffusion_llm_rs_tpu_torch.ops import int8_matmul as im
 from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
 c.device()
 wide = "dense_attention_wide" in _build.SOURCES
+batched_cluster = "paged_flash_cluster" in _build.SOURCES
 _build.build(("dense_attention", "quant_flash_contig", "quant_flash_paged",
               "paged_unpack", "batched_paged_attention", "paged_attention_a8",
               "int8_gemm", "int8_mlp") + (
     ("dense_attention_wide", "quant_flash_contig_wide",
-     "quant_flash_paged_wide", "paged_flash_wide") if wide else ()))
+     "quant_flash_paged_wide", "paged_flash_wide") if wide else ()) + (
+    ("paged_flash_cluster",) if batched_cluster else ()))
 if not wide:  # a checkout without the wide instances: their rows are new
     for key in [k for k in SHAPES if k.startswith("wide_")]:
         SHAPES[key] = []
@@ -4041,7 +4080,10 @@ for B, H, G, D in SHAPES["batched"] + SHAPES["wide_batched"]:
                                      a8=a8)
         name = "batched_paged_attention" + ("_a8" if a8 else "")
         extra = (k.shape[4], 128) if D > 256 else ()  # the wide instance's
-        fn = _build.function("dlm_" + name + ("_wide" if extra else ""))
+        # past 256 the cluster kernel where the checkout has it (to 2048)
+        suffix = "" if not extra else "_cluster" if batched_cluster and \
+            D <= 2048 else "_wide"
+        fn = _build.function("dlm_" + name + suffix)
         ms[f"{name} (alone) {tag}"] = c.time_ms(lambda: _build.check(fn(
             q.data_ptr(), nt.data_ptr(), npg.data_ptr(), k.data_ptr(),
             v.data_ptr(), side.data_ptr(), out.data_ptr(), lse.data_ptr(), B,
@@ -4180,6 +4222,7 @@ def main() -> int:
                 name, "diffusion_llm_rs_tpu_torch/csrc/wide_flash.cuh")
             entries[-1]["wide_instance"] = dict(
                 source=WIDE_SOURCES.get(name, source), design=design,
+                entry_point=WIDE_ENTRY_POINTS[name],
                 design_note=WIDE_DESIGN_NOTES[design], launches=n_wide,
                 launches_path="heads_wide", shape=wide["shape"],
                 ms=wide["ms"], plain_ms=wide["plain_ms"],
@@ -4188,6 +4231,9 @@ def main() -> int:
             if name == "dense_attention":
                 entries[-1]["wide_instance"]["clusters_at_once"] = {
                     str(c): n for c, n in sorted(CLUSTERS.items())}
+            elif "clusters_at_once" in wide:
+                entries[-1]["wide_instance"]["clusters_at_once"] = wide[
+                    "clusters_at_once"]
             if n_wide == 0:
                 log(f"{name}'s wide instance was not launched on heads_wide")
                 return 1

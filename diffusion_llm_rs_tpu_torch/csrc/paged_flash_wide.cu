@@ -1,8 +1,9 @@
-// Batched paged attention at head widths past 256, bf16 and int8
+// Batched paged attention at head widths past 2048, bf16 and int8
 // activations, for Hopper (sm_90a).
 //
 // With csrc/batched_paged_attention.cu and csrc/paged_attention_a8.cu (heads
-// of 8 to 256) it replaces the TPU kernel `_batched_kernel`
+// of 8 to 256) and csrc/paged_flash_cluster.cu (264 to 2048) it replaces the
+// TPU kernel `_batched_kernel`
 // (diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:288, behind
 // `batched_paged_attention`, :686), which takes G*D % 128 == 0 (:757; its XLA
 // `_batched_fallback` serves the other widths). As at the other widths,
@@ -11,8 +12,11 @@
 // modes kScratch16 and kScratch8 of csrc/wide_flash.cuh: D a runtime
 // argument, one instance a page tile (32, 64 or 128 tokens) and path. On the
 // int8 path q is quantized once per row over the whole head, as JAX's kernel
-// does (:411-427), before S runs over the head in chunks.
+// does (:411-427), before S runs over the head in chunks. From 264 to 2048
+// the cluster design of csrc/wide_cluster_flash.cuh serves (it issues S
+// once), so these entry points refuse those widths.
 
+#include "wide_cluster_flash.cuh"
 #include "wide_flash.cuh"
 
 namespace {
@@ -21,8 +25,8 @@ int run(bool a8, const void* q, const void* page_tokens, const void* n_pages,
         const void* k, const void* v, const void* side, void* out, void* lse,
         int B, int H, int Sq, int D, int n_max, int PT, int DK, int P,
         void* stream) {
-  if (D < 8 || D % 8 || DK % 64 || DK < D || P < 8 || P > PT || P % 8 ||
-      (PT != 32 && PT != 64 && PT != 128))
+  if (D <= wide_cluster::kMaxD || D % 8 || DK % 64 || DK < D || P < 8 ||
+      P > PT || P % 8 || (PT != 32 && PT != 64 && PT != 128))
     return (int)cudaErrorInvalidValue;
   wide_flash::Args a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -49,11 +53,12 @@ int run(bool a8, const void* q, const void* page_tokens, const void* n_pages,
 
 extern "C" {
 
-// q [B, H, Sq, D] bf16 (16-byte aligned), D a multiple of 8; page_tokens
-// int32 [B, n_max]; n_pages int32 [B]; k, v, side: dlm_paged_unpack's bf16
-// scratch of pages of P tokens in tiles of PT = 32, 64 or 128, rows of DK
-// (a multiple of 64, at least D). Writes out f32 [B, H, Sq, D] and lse f32
-// [B, H, Sq]. Returns cudaErrorInvalidValue for a shape it does not take.
+// q [B, H, Sq, D] bf16 (16-byte aligned), D a multiple of 8 past 2048;
+// page_tokens int32 [B, n_max]; n_pages int32 [B]; k, v, side:
+// dlm_paged_unpack's bf16 scratch of pages of P tokens in tiles of PT = 32,
+// 64 or 128, rows of DK (a multiple of 64, at least D). Writes out f32 [B,
+// H, Sq, D] and lse f32 [B, H, Sq]. Returns cudaErrorInvalidValue for a
+// shape it does not take.
 int dlm_batched_paged_attention_wide(const void* q, const void* page_tokens,
                                      const void* n_pages, const void* k,
                                      const void* v, const void* side,

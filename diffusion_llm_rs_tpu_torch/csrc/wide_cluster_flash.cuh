@@ -1,5 +1,6 @@
-// Dense and single-sequence paged attention at head widths from 264 to
-// 2048, for Hopper (sm_90a): the head split across a thread-block cluster.
+// Dense, single-sequence paged and batched paged attention at head widths
+// from 264 to 2048, for Hopper (sm_90a): the head split across a
+// thread-block cluster.
 //
 // The fixed instances (csrc/dense_attention.cu, csrc/quant_flash.cuh) hold
 // a whole head row of q, K and V in shared memory and o in registers, so
@@ -55,12 +56,48 @@
 //     weights() this kernel runs. One sequence at wide heads has few query
 //     tiles, so the chain of tiles is split over up to 8 clusters (grid z,
 //     `paged_splits`) and merged in the same launch (`merge_splits`).
+//   - kScratch16 (batched paged attention, bf16): kDense's outline over the
+//     bf16 scratch of csrc/paged_unpack.cu (K and V [Z = B * H, n_max, PT,
+//     DK], rows of D rounded up to 64, zero past D): K and V tiles by TMA,
+//     a page of P tokens as ceil(P / 32) tiles of 32, the page's sidecar
+//     rows (ka', kb, vc) read a tile ahead; q's channel sum as in kPaged;
+//     kPaged's softmax. The grid is (C x query tiles, B * H); a slot with no
+//     page writes zeros and an lse of -1e30.
+//   - kScratch8 (its int8 path, wide_cluster_attention_a8): the int8
+//     scratch (K [Z, n_max, PT, DK], V^T [Z, n_max, DK, PT]) by TMA. q is
+//     quantized once a row over the whole head: the C partial row maxima
+//     are exchanged first (exact in any order), then each block quantizes
+//     its columns into an int8 tile and the C partial sums of qi follow
+//     (integers). S runs on s8 wgmma (m64n64k32, 8 k-steps) over sub-tiles
+//     of 64 tokens (pages of 32: one of 32); its s32 partials add exactly
+//     in any order, so every block holds the same integer S. The softmax
+//     weights are requantized per page (sw = max w / 127), so a page's
+//     whole S is held in registers before its softmax; P.V runs as two
+//     m64n128k32 products from the register A operand of wi, each s32 sum
+//     folded into o before the next: o 128 registers a thread, a page's
+//     logits 64 at PT = 128 (until wi, 16), one P.V sum 64; ptxas gives 255
+//     and spills 32-532 bytes a thread (the most at PT = 128), so the
+//     partials are loaded when they are added, never a sub-tile early.
+//     Shared memory at PT = 128: q 32 KB, three K stages of 16, two of a
+//     page's V^T slice [256][PT] of 32 and its sidecars, two partial-S
+//     buffers of 32: 214.5 KB.
+// ptxas serializes no wgmma of any instance here (no C7514 or C7515
+// "Potential Performance Loss" in the -Xptxas -v log): one wait<0> before
+// every accumulator read, and no product in flight across a loop's back
+// edge.
 // The arithmetic is that of the plain versions (ops/attention.py:
-// dense_attention_plain, ops/paged_attention.py: paged_attention_plain):
+// dense_attention_plain, ops/paged_attention.py: paged_attention_plain,
+// batched_paged_attention_unpacked_plain):
 //   kDense  logits = (q.k) * sm; acc = acc * a + bf16(p) . v; out = acc / l
 //   kPaged  logits = raw * ka' - kb * qsum (ka' = ks * sm, kb = ka' * kz);
 //           acc = acc * a - sum(p * vs * vz) + bf16(p * vs) . lv;
 //           out = acc * (1 / l), lse = m + log(l)
+//   kScratch16  logits = raw * ka' - kb * qsum; acc = acc * a - sum(p * vc)
+//           + bf16(p) . v_sc; out and lse as kPaged
+//   kScratch8  sq = amax|q| / 127 (1 where 0), qi = rint(q / sq), qsum =
+//           sum(qi) * sq; logits = (qi.k * sq) * ka' - kb' * qsum; per page
+//           w = p * vs (0 past page_tokens), sw = max w / 127 (1 where 0),
+//           acc = acc * a + (rint(w / sw) . v) * sw - sum(w * vz')
 // with exp taken on the ex2 unit and sums in another order. Tokens past
 // Skv, or past a page's data, take p = 0; tokens past page_tokens[j] take
 // logits of -1e30 (weight 1 while every key a row has seen is masked, as
@@ -74,7 +111,10 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "hopper.cuh"
+#include "paged_flash.cuh"
 #include "quant_flash.cuh"
 
 namespace wide_cluster {
@@ -98,7 +138,7 @@ constexpr int kMinD = 264, kMaxD = kCols * kMaxCluster;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-enum Mode : int { kDense, kPaged };
+enum Mode : int { kDense, kPaged, kScratch16, kScratch8 };
 
 struct Args {
   void* out;               // [Z, Sq, D]: f32, or bf16 where out_bf16 (kDense)
@@ -124,6 +164,14 @@ struct Args {
   float* part_o;
   float2* part_ml;
   int* counters;
+  // kScratch16, kScratch8: Z = B * H (slot, head) rows over the scratch of
+  // csrc/paged_unpack.cu: the slots' page counts [B] (slot_pages) and valid
+  // tokens [B, n_max] (page_tokens), pages of P tokens in tiles of PT,
+  // sidecar rows [Z, n_max, 3 or 4, PT]; kScratch8 reads q [Z, Sq, D] itself
+  const int* slot_pages;
+  const float* side;
+  const __nv_bfloat16* q;
+  int H, n_max, PT;
 };
 
 // Shared memory of a block: q [128][256], three stages each of K and V
@@ -249,23 +297,65 @@ __device__ __forceinline__ void fold(float (&s)[kS], const float4 (&v)[NB][C],
   }
 }
 
+// The same over s32 partials (kScratch8, N logits): exact, so in any
+// order.
+template <int C, int NB, int N>
+__device__ __forceinline__ void fold(int (&s)[N], const float4 (&v)[NB][C],
+                                     int k0) {
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    int4 acc = make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int r = 0; r < C; ++r) {
+      acc.x += __float_as_int(v[k][r].x);
+      acc.y += __float_as_int(v[k][r].y);
+      acc.z += __float_as_int(v[k][r].z);
+      acc.w += __float_as_int(v[k][r].w);
+    }
+    s[4 * (k0 + k)] = acc.x;
+    s[4 * (k0 + k) + 1] = acc.y;
+    s[4 * (k0 + k) + 2] = acc.z;
+    s[4 * (k0 + k) + 3] = acc.w;
+  }
+}
+
 template <int C>
 __device__ __forceinline__ void map_ranks(uint32_t (&x)[C], uint32_t at) {
 #pragma unroll
   for (int r = 0; r < C; ++r) x[r] = cluster_map(at, r);
 }
 
-// The whole S of a tile, its loads B units at a time (clusters of 4 to 8).
-template <int C>
-__device__ __forceinline__ void gather(float (&s)[kS], uint32_t at) {
+// The whole S of a tile (N logits, N / 4 units), its loads B units at a
+// time (clusters of 4 to 8; of 2 to 8 in kScratch8).
+template <int C, typename T, int N>
+__device__ __forceinline__ void gather(T (&s)[N], uint32_t at) {
   constexpr int B = C <= 4 ? 2 : 1;
   uint32_t x[C];
   map_ranks<C>(x, at);
 #pragma unroll
-  for (int k0 = 0; k0 < kU; k0 += B) {
+  for (int k0 = 0; k0 < N / 4; k0 += B) {
     float4 v[B][C];
     fetch<C, B>(v, x, k0);
     fold<C, B>(s, v, k0);
+  }
+}
+
+// A slot with no page (kScratch16, kScratch8): its rows of this block's
+// columns are 0 and, from rank 0, its lse -1e30, as in the plain version.
+__device__ __forceinline__ void empty_rows(const Args& a, int q0, int rows0,
+                                           int z, int rank, int c0, int ncol,
+                                           int q4) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rows0 + 8 * h;
+    if (row >= a.Sq) continue;
+    float* out = static_cast<float*>(a.out) + ((size_t)z * a.Sq + row) * a.D +
+                 c0 + 2 * q4;
+    for (int j = 0; j < kCols / 8; ++j) {
+      if (8 * j >= ncol) break;
+      *reinterpret_cast<float2*>(out + 8 * j) = make_float2(0.f, 0.f);
+    }
+    if (rank == 0 && q4 == 0) a.lse[(size_t)z * a.Sq + row] = kNegInf;
   }
 }
 
@@ -384,13 +474,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) >> 5;
   const int lane = tid & 31, g = lane >> 2, q4 = lane & 3;
   const int rows0 = wg * 64 + warp * 16 + g;  // and rows0 + 8, in the tile
-  // tiles a page (kPaged), and the tiles
-  const int tpp = MODE == kPaged ? (a.P + TK - 1) / TK : 1;
+  // tiles a page (kPaged, kScratch16), and the tiles
+  const int tpp = MODE != kDense ? (a.P + TK - 1) / TK : 1;
   // the tiles, and this split's: [t0, t0 + T)
-  const int Tall = MODE == kDense ? (a.Skv + TK - 1) / TK : a.n_pages * tpp;
+  const int Tall = MODE == kDense   ? (a.Skv + TK - 1) / TK
+                   : MODE == kPaged ? a.n_pages * tpp
+                                    : a.slot_pages[z / a.H] * tpp;
   const int tps = (Tall + a.nsplit - 1) / a.nsplit, t0 = blockIdx.z * tps;
   const int T = min(tps, Tall - t0);
   const int Pp = MODE == kPaged ? a.P / (8 / BITS) : 1;
+  if constexpr (MODE == kScratch16) {
+    if (T == 0) {
+      empty_rows(a, q0, rows0, z, rank, c0, ncol, q4);
+      return;
+    }
+  }
 
   if (tid == 0) {
     mbar_init(q_full, 1);
@@ -400,9 +498,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     fence_barrier_init();
   }
-  // zeros where no load writes: q's and (kDense) the tiles' chunks past D;
-  // (kPaged) the whole K and V tiles, whose tokens past a page's data and
-  // columns past D the loader leaves
+  // zeros where no load writes: q's and (kDense, kScratch16) the tiles'
+  // chunks past D; (kPaged) the whole K and V tiles, whose tokens past a
+  // page's data and columns past D the loader leaves
   {
     uint4* qz = reinterpret_cast<uint4*>(Qs + nch * kBQ * kSw);
     for (int i = tid; i < (kChunks - nch) * kBQ * kSw / 16; i += kThreads)
@@ -418,14 +516,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // kDense: a K or V tile of this block's columns by TMA
+  // kDense, kScratch16: a K or V tile of this block's columns by TMA (the
+  // scratch's tile t is tokens [32 (t % tpp), + 32) of page t / tpp)
   auto load_tile = [&](const CUtensorMap* map, uint8_t* ring, uint64_t* bars,
                        int t) {
     const int s = t % kStages;
+    const int row = MODE == kDense ? (t0 + t) * TK
+                                   : (t / tpp) * a.PT + (t % tpp) * TK;
     mbar_expect_tx(bars + s, nch * TK * kSw);
     for (int c = 0; c < nch; ++c)
       tma_load_3d(ring + s * L::kTile + c * TK * kSw, map, bars + s,
-                  c0 + 64 * c, (t0 + t) * TK, z);
+                  c0 + 64 * c, row, z);
   };
   // kPaged: the pool row of (slot, head); the slots (and the tokens of the
   // pages) are read a tile before they are used
@@ -486,12 +587,36 @@ __global__ void __launch_bounds__(kThreads, 1)
       d[3 * TK + tid] = sd.w;
     }
   };
+  // kScratch16: the scratch's sidecars of tile t (ka', kb, vc = vs * vz of
+  // token tid), staged as (ka', kb, 1, vc): logits() and weights() then
+  // give p itself for bf16(p) . v_sc and sum p * vc
+  auto scr_side = [&](int t) {
+    float4 sd = make_float4(0.f, 0.f, 1.f, 0.f);
+    if (tid < TK) {
+      const float* f = a.side + ((size_t)z * a.n_max + t / tpp) * 3 * a.PT +
+                       (t % tpp) * TK + tid;
+      sd = make_float4(f[0], f[a.PT], 1.f, f[2 * a.PT]);
+    }
+    return sd;
+  };
+  auto put_scr = [&](float4 sd, int t) {
+    float* d = sides + (t & 1) * 4 * TK;
+    if (tid < TK) {
+      d[tid] = sd.x;
+      d[TK + tid] = sd.y;
+      d[2 * TK + tid] = sd.z;
+      d[3 * TK + tid] = sd.w;
+    }
+  };
+  auto scr_tokens = [&](int t) {
+    return a.page_tokens[(size_t)(z / a.H) * a.n_max + t / tpp];
+  };
 
   if (tid == 0) {
     mbar_expect_tx(q_full, nch * kBQ * kSw);
     for (int c = 0; c < nch; ++c)
       tma_load_3d(Qs + c * kBQ * kSw, &tq, q_full, c0 + 64 * c, q0, z);
-    if constexpr (MODE == kDense) {
+    if constexpr (MODE == kDense || MODE == kScratch16) {
       for (int t = 0; t < kStages && t < T; ++t) load_tile(&tk, Ks, kfull, t);
       for (int t = 0; t < kStages - 1 && t < T; ++t)
         load_tile(&tv, Vs, vfull, t);
@@ -500,24 +625,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncwarp();
 
   float qs[2] = {0.f, 0.f};
-  if constexpr (MODE == kPaged) {
-    for (int t = 0; t < 2 && t < T; ++t) {
-      raw_of(kraw(t), a.k_data, t, slot_of(t));
-      cp_async_wait_all();
-      unpack(kraw(t), t, Ks);
-    }
-    raw_of(vraw(0), a.v_data, 0, slot_of(0));
-    cp_async_wait_all();
-    unpack(vraw(0), 0, Vs);
-    put_side(side_of(0, slot_of(0)), 0);
-    // the rows the first tile unpacks: copies run two tiles ahead
-    if (T > 2) raw_of(kraw(2), a.k_data, 2, slot_of(2));
-    if (T > 1) raw_of(vraw(1), a.v_data, 1, slot_of(1));
-    cp_async_commit();
-    fence_proxy_async();
-    // q's channel sums over this block's columns, two threads a row, in
-    // column order; then the C partial sums in rank order
-    mbar_wait(q_full, 0);
+  // q's channel sums over this block's columns, two threads a row, in
+  // column order; then the C partial sums in rank order
+  auto q_sums = [&]() {
     {
       const int r = tid >> 1, half = tid & 1;
       float s = 0.f;
@@ -543,6 +653,28 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int r = 1; r < C; ++r)
         qs[h] = __fadd_rn(qs[h], ld_cluster_f32(cluster_map(at, r)));
     }
+  };
+  if constexpr (MODE == kPaged) {
+    for (int t = 0; t < 2 && t < T; ++t) {
+      raw_of(kraw(t), a.k_data, t, slot_of(t));
+      cp_async_wait_all();
+      unpack(kraw(t), t, Ks);
+    }
+    raw_of(vraw(0), a.v_data, 0, slot_of(0));
+    cp_async_wait_all();
+    unpack(vraw(0), 0, Vs);
+    put_side(side_of(0, slot_of(0)), 0);
+    // the rows the first tile unpacks: copies run two tiles ahead
+    if (T > 2) raw_of(kraw(2), a.k_data, 2, slot_of(2));
+    if (T > 1) raw_of(vraw(1), a.v_data, 1, slot_of(1));
+    cp_async_commit();
+    fence_proxy_async();
+    mbar_wait(q_full, 0);
+    q_sums();
+  } else if constexpr (MODE == kScratch16) {
+    put_scr(scr_side(0), 0);
+    mbar_wait(q_full, 0);
+    q_sums();  // its cluster barrier also orders the sidecars' stores
   } else {
     mbar_wait(q_full, 0);
   }
@@ -607,7 +739,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float sl2 = a.sm * kLog2e;
   float cur[kS], nxt[kS];
 
-  if constexpr (MODE == kDense) mbar_wait(kfull, 0);
+  if constexpr (MODE != kPaged) mbar_wait(kfull, 0);
   issue_s(nxt, 0);
   wgmma_wait<0>();
   fence_regs(nxt);
@@ -623,6 +755,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     slot2 = slot_of(2);
     slot1 = slot_of(1);
     tokens = a.page_tokens[t0 / tpp];
+  } else if constexpr (MODE == kScratch16) {
+    tokens = scr_tokens(0);
   }
 
 #pragma unroll 1
@@ -630,15 +764,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool more = t + 1 < T;
     const int b = t & 1;
     if (more) {  // S of the next tile runs under this one's exchange
-      if constexpr (MODE == kDense)
+      if constexpr (MODE != kPaged)
         mbar_wait(kfull + (t + 1) % kStages, ((t + 1) / kStages) & 1);
       issue_s(nxt, t + 1);
     }
     float4 sd_next = make_float4(0.f, 0.f, 0.f, 0.f);
     int slot_next = 0, tokens_next = 0;
-    if constexpr (MODE == kDense) {
+    if constexpr (MODE == kDense || MODE == kScratch16) {
       if (tid == 0 && t + kStages < T) load_tile(&tk, Ks, kfull, t + kStages);
       __syncwarp();
+      if constexpr (MODE == kScratch16) {
+        if (more) {
+          sd_next = scr_side(t + 1);
+          tokens_next = scr_tokens(t + 1);
+        }
+      }
     } else {  // the packed rows of the tiles unpacked a tile later
       if (t + 3 < T) raw_of(kraw(t + 3), a.k_data, t + 3, slot3);
       if (t + 2 < T) raw_of(vraw(t + 2), a.v_data, t + 2, slot2);
@@ -725,7 +865,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       else
         o[i] = __fmaf_rn(o[i], alpha[(i >> 1) & 1], -csum[(i >> 1) & 1]);
     }
-    if constexpr (MODE == kDense)
+    if constexpr (MODE != kPaged)
       mbar_wait(vfull + t % kStages, (t / kStages) & 1);
     const uint32_t v_addr = smem_u32(Vs + (t % kStages) * L::kTile);
     wgmma_fence();
@@ -739,8 +879,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       put(nxt, b ^ 1);
       cluster_arrive();
     }
+    if constexpr (MODE == kScratch16) {
+      if (more) {
+        put_scr(sd_next, t + 1);
+        tokens = tokens_next;
+      }
+    }
     __syncthreads();  // both warpgroups' P.V of tile t - 1: its V stage free
-    if constexpr (MODE == kDense) {
+    if constexpr (MODE != kPaged) {
       if (tid == 0 && t + kStages - 1 < T)
         load_tile(&tv, Vs, vfull, t + kStages - 1);
       __syncwarp();
@@ -796,13 +942,481 @@ __global__ void __launch_bounds__(kThreads, 1)
         *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + 8 * j) =
             make_float2(y0, y1);
     }
-    if (MODE == kPaged && rank == 0 && q4 == 0)
+    if (MODE != kDense && rank == 0 && q4 == 0)
       a.lse[(size_t)z * a.Sq + row] = m_run[h] + logf(l);
   }
   }
   // no block leaves while another may still read its partials
   cluster_arrive();
   cluster_wait();
+}
+
+// ------------------------------------------------------------- kScratch8
+
+// The tokens of a sub-tile of the int8 kernel at pages of PT tokens (the
+// partial S goes to the cluster a sub-tile at a time): 64, or the page of
+// 32. Sub-tiles of 64 halve the cluster barriers of a page of 128 beside
+// sub-tiles of 32, and ran 8% faster at heads of 384 and 768.
+__host__ __device__ constexpr int a8_subtile(int PT) {
+  return PT < 64 ? PT : 64;
+}
+
+// Shared memory of the int8 kernel (PT: the scratch's page tile, U: the
+// tokens a sub-tile): q int8 [128][256] (two chunks of [128][128 B],
+// 128-byte swizzle, as TMA lays out K), three stages of a K sub-tile int8
+// [U][256] (two chunks), two stages of a page's V^T rows of this block's
+// columns [256][PT] (swizzled over rows of PT bytes) with the page's sidecar
+// rows (ka', kb', vs, vz') beside them, two buffers of partial S (s32, 128
+// x U), q's row statistics (partial amax, partial sum of qi, sq), and the
+// mbarriers (K full a stage; V^T and sidecars full a stage): 214.5 KB at
+// PT = 128.
+template <int PT, int U = a8_subtile(PT)>
+struct Smem8 {
+  static constexpr int kQ = kBQ * kCols;
+  static constexpr int kK = U * kCols;
+  static constexpr int kV = kCols * PT;
+  static constexpr int kSide = 4 * PT * 4;
+  static constexpr int kX = kBQ * U * 4;
+  static constexpr int kKOff = kQ;
+  static constexpr int kVOff = kKOff + kStages * kK;
+  static constexpr int kSideOff = kVOff + 2 * kV;
+  static constexpr int kXOff = kSideOff + 2 * kSide;
+  static constexpr int kRowOff = kXOff + 2 * kX;
+  static constexpr int kBarOff = kRowOff + 3 * kBQ * 4;
+  static constexpr int kBytes = 1024 + kBarOff + (kStages + 2) * 8;
+};
+
+// kScratch8: the int8 path over the int8 scratch, K [Z, n_max, PT, DK] and
+// V^T [Z, n_max, DK, PT] (tokens in `vt_columns` order). A page's tile of
+// PT tokens runs as NT = PT / U sub-tiles of U = a8_subtile(PT) whose S
+// this thread holds until the page's last (its softmax weights are
+// requantized per page, so the page's whole S comes first); then the
+// page's softmax, wi = rint(w / sw) into the register A operand
+// (`vt_columns` order), and P.V as two m64n128k32 products of this block's
+// 256 columns, each s32 sum folded into o before the next (o 128, wi PT / 8
+// and one sum 64 registers a thread). The C partials of a sub-tile are
+// loaded when they are added: loading them a sub-tile early, as
+// wide_cluster_attention does for clusters of 2 and 3, kept 32-48 more
+// registers live beside the page's S and ran 3-9% slower (more spills).
+template <int PT>
+__global__ void __launch_bounds__(kThreads, 1)
+    wide_cluster_attention_a8(const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const Args a) {
+  constexpr int U = a8_subtile(PT), NT = PT / U;
+  using L = Smem8<PT>;
+  constexpr int kSU = U / 2, kUU = U / 8;  // logits a thread, float4 units
+  constexpr int kVSw = swizzle_of(PT);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = smem;
+  uint8_t* Ks = smem + L::kKOff;
+  uint8_t* Vs = smem + L::kVOff;
+  float* sides = reinterpret_cast<float*>(smem + L::kSideOff);
+  float* X = reinterpret_cast<float*>(smem + L::kXOff);
+  float* qamax = reinterpret_cast<float*>(smem + L::kRowOff);
+  int* qisum = reinterpret_cast<int*>(qamax + kBQ);
+  float* qsq = qamax + 2 * kBQ;
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
+  uint64_t* vfull = kfull + kStages;
+
+  const int C = a.C, rank = (int)cluster_rank();
+  const int q0 = (blockIdx.x / C) * kBQ, z = blockIdx.y;
+  const int c0 = rank * kCols, ncol = min(kCols, a.D - c0);
+  const int nch = (ncol + 127) / 128;  // 128-byte chunks of K loaded
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) >> 5;
+  const int lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+  const int rows0 = wg * 64 + warp * 16 + g;  // and rows0 + 8, in the tile
+  const int slot = z / a.H, n_pages = a.slot_pages[slot], T = n_pages * NT;
+  if (T == 0) {
+    empty_rows(a, q0, rows0, z, rank, c0, ncol, q4);
+    return;
+  }
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(kfull + s, 1);
+    for (int s = 0; s < 2; ++s) mbar_init(vfull + s, 1);
+    fence_barrier_init();
+  }
+  if (nch < 2) {  // K's second chunk, which no load writes, stays zero
+    for (int s = 0; s < kStages; ++s) {
+      uint4* p = reinterpret_cast<uint4*>(Ks + s * L::kK + U * 128);
+      for (int i = tid; i < U * 128 / 16; i += kThreads)
+        p[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  // K sub-tile t (tokens [U (t % NT), + U) of page t / NT) and page j's
+  // V^T rows and sidecars, by TMA and a bulk copy
+  auto load_k = [&](int t) {
+    const int s = t % kStages;
+    mbar_expect_tx(kfull + s, nch * U * 128);
+    for (int c = 0; c < nch; ++c)
+      tma_load_3d(Ks + s * L::kK + c * U * 128, &tk, kfull + s, c0 + 128 * c,
+                  (t / NT) * PT + (t % NT) * U, z);
+  };
+  auto load_v = [&](int j) {
+    const int s = j & 1;
+    mbar_expect_tx(vfull + s, L::kV + L::kSide);
+    tma_load_4d(Vs + s * L::kV, &tv, vfull + s, 0, c0, j, z);
+    bulk_load(sides + s * 4 * PT,
+              a.side + ((size_t)z * a.n_max + j) * 4 * PT, L::kSide,
+              vfull + s);
+  };
+  if (tid == 0) {
+    for (int t = 0; t < kStages && t < T; ++t) load_k(t);
+    for (int j = 0; j < 2 && j < n_pages; ++j) load_v(j);
+  }
+  __syncwarp();
+
+  // q, two threads a row, 128 columns each: the row's amax over the whole
+  // head (the C partial maxima, exact in any order), sq = amax / 127 (1
+  // where 0), qi = rint(q / sq) into the q tile, and qsum = sum(qi) * sq
+  // (the C partial sums, integers); rows past Sq and columns past D are 0
+  float sq[2], qs[2];
+  {
+    const int r = tid >> 1, half = tid & 1, row = q0 + r;
+    const int d0 = c0 + 128 * half;
+    const __nv_bfloat16* qr = a.q + ((size_t)z * a.Sq + row) * a.D + d0;
+    uint4 w[16];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      w[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (row < a.Sq && d0 + 8 * i < a.D)
+        w[i] = *reinterpret_cast<const uint4*>(qr + 8 * i);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        amax = fmaxf(amax, fmaxf(fabsf(__bfloat162float(h[e].x)),
+                                 fabsf(__bfloat162float(h[e].y))));
+    }
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+    if (half == 0) qamax[r] = amax;
+    cluster_arrive();
+    cluster_wait();
+    const uint32_t at = smem_u32(qamax + r);
+    for (int k = 0; k < C; ++k)
+      amax = fmaxf(amax, ld_cluster_f32(cluster_map(at, k)));
+    const float scale = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+    int isum = 0;
+    uint8_t* qt = Qs + half * kBQ * 128 + r * 128;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const __nv_bfloat16* x16 =
+          reinterpret_cast<const __nv_bfloat16*>(&w[2 * u]);
+      int qi[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        qi[k] = (int)rintf(__fdiv_rn(__bfloat162float(x16[k]), scale));
+        isum += qi[k];
+      }
+      *reinterpret_cast<uint4*>(qt + ((u ^ (r & 7)) << 4)) = make_uint4(
+          paged_flash::pack_s8(qi[0], qi[1], qi[2], qi[3]),
+          paged_flash::pack_s8(qi[4], qi[5], qi[6], qi[7]),
+          paged_flash::pack_s8(qi[8], qi[9], qi[10], qi[11]),
+          paged_flash::pack_s8(qi[12], qi[13], qi[14], qi[15]));
+    }
+    isum += __shfl_xor_sync(0xffffffffu, isum, 1);
+    if (half == 0) {
+      qisum[r] = isum;
+      qsq[r] = scale;
+    }
+    fence_proxy_async();  // the q tile, for the S products
+    cluster_arrive();
+    cluster_wait();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t at2 = smem_u32(qisum + rows0 + 8 * h);
+      int total = 0;
+      for (int k = 0; k < C; ++k)
+        total += __float_as_int(ld_cluster_f32(cluster_map(at2, k)));
+      sq[h] = qsq[rows0 + 8 * h];
+      qs[h] = __fmul_rn((float)total, sq[h]);
+    }
+  }
+
+  // this warpgroup's rows of q, chunk c at q_addr + c * kBQ * 128
+  const uint32_t q_addr = smem_u32(Qs) + wg * 64 * 128;
+  // the partial S of sub-tile t over this block's columns, 32 columns a
+  // k-step
+  auto issue_s = [&](int (&s)[kSU], int t) {
+    const uint32_t k_addr = smem_u32(Ks + (t % kStages) * L::kK);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kCols / 32; ++kk) {
+      const int chunk = kk / 4, in = (kk % 4) * 32;
+      wgmma_s8_ss<U>(s,
+                     gmma_desc(q_addr + chunk * kBQ * 128 + in, 16, 1024, 1),
+                     gmma_desc(k_addr + chunk * U * 128 + in, 16, 1024, 1),
+                     kk > 0);
+    }
+    wgmma_commit();
+  };
+  // the partials through buffer b, as in wide_cluster_attention
+  const uint32_t x_addr = smem_u32(X) + tid * 16;
+  auto put = [&](const int (&s)[kSU], int b) {
+    int4* xb = reinterpret_cast<int4*>(X + b * (L::kX / 4));
+#pragma unroll
+    for (int k = 0; k < kUU; ++k)
+      xb[k * kThreads + tid] =
+          make_int4(s[4 * k], s[4 * k + 1], s[4 * k + 2], s[4 * k + 3]);
+  };
+  auto gather_b = [&](int (&s)[kSU], int b) {
+    const uint32_t at = x_addr + b * L::kX;
+    switch (C) {
+      case 2: gather<2>(s, at); break;
+      case 3: gather<3>(s, at); break;
+      case 4: gather<4>(s, at); break;
+      case 5: gather<5>(s, at); break;
+      case 6: gather<6>(s, at); break;
+      case 7: gather<7>(s, at); break;
+      default: gather<8>(s, at); break;
+    }
+  };
+
+  float o[kCols / 2];
+#pragma unroll
+  for (int i = 0; i < kCols / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  int cur[kSU], nxt[kSU];
+  // the page's S (sub-tile h at h * kSU; this thread's rows g and g + 8,
+  // tokens 8n + 2 q4 + (e & 1) of entry 4n + e), then its logits, then w
+  float x[NT * kSU];
+
+  // page j, once its whole S is here: the logits (raw = S * sq; raw * ka'
+  // - kb' * qsum; -1e30 past the valid tokens), the online softmax, w = p *
+  // vs (0 past the valid tokens) with sum w * vz' and the page maximum, sw
+  // = max w / 127 (1 where 0), wi = rint(w / sw); then P.V and the fold
+  // o = o * alpha + (wi . v) * sw - sum w * vz'. A masked token weighs 1
+  // while every key its row has seen is masked and it holds data (below
+  // P), as in the plain version.
+  auto page = [&](auto mask, int j, int valid) {
+    constexpr bool kMask = decltype(mask)::value;
+    const int s = j & 1;
+    mbar_wait(vfull + s, (j >> 1) & 1);
+    const float* sd = sides + s * 4 * PT;
+    float mx[2] = {m_run[0], m_run[1]}, alpha[2], msc[2];
+#pragma unroll
+    for (int n = 0; n < NT * U / 8; ++n) {
+      const int col = 8 * n + 2 * q4;
+      const float2 ka = *reinterpret_cast<const float2*>(sd + col);
+      const float2 kb = *reinterpret_cast<const float2*>(sd + PT + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float raw = __fmul_rn(x[4 * n + e], sq[r]);
+        float y = __fsub_rn(__fmul_rn(raw, (e & 1) ? ka.y : ka.x),
+                            __fmul_rn((e & 1) ? kb.y : kb.x, qs[r]));
+        if (kMask && col + (e & 1) >= valid) y = kNegInf;
+        x[4 * n + e] = y;
+        mx[r] = fmaxf(mx[r], y);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quant_flash::quad_max(mx[r]);
+      alpha[r] = quant_flash::ex2((m_run[r] - mx[r]) * kLog2e);
+      msc[r] = mx[r] * kLog2e;
+      m_run[r] = mx[r];
+    }
+    float rsum[2] = {0.f, 0.f}, csum[2] = {0.f, 0.f}, wmax[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NT * U / 8; ++n) {
+      const int col = 8 * n + 2 * q4;
+      const float2 vs = *reinterpret_cast<const float2*>(sd + 2 * PT + col);
+      const float2 vz = *reinterpret_cast<const float2*>(sd + 3 * PT + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, tok = col + (e & 1);
+        float p = quant_flash::ex2(__fmaf_rn(x[4 * n + e], kLog2e, -msc[r]));
+        float w = __fmul_rn(p, (e & 1) ? vs.y : vs.x);
+        if (kMask && tok >= valid) {
+          p = m_run[r] == kNegInf && tok < a.P ? 1.f : 0.f;
+          w = 0.f;
+        }
+        rsum[r] += p;
+        csum[r] = __fmaf_rn(w, (e & 1) ? vz.y : vz.x, csum[r]);
+        wmax[r] = fmaxf(wmax[r], w);
+        x[4 * n + e] = w;
+      }
+    }
+    float sw[2], rs[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] = l_run[r] * alpha[r] + quant_flash::quad_sum(rsum[r]);
+      wmax[r] = quant_flash::quad_max(wmax[r]);
+      sw[r] = wmax[r] > 0.f ? __fdiv_rn(wmax[r], 127.f) : 1.f;
+      rs[r] = __frcp_rn(sw[r]);
+      csum[r] = quant_flash::quad_sum(csum[r]);
+    }
+    // wi, 0..127: step kk of 32 tokens, register 0 row g's tokens of
+    // n-blocks 4kk and 4kk + 1, register 2 those of 4kk + 2 and 4kk + 3,
+    // registers 1 and 3 row g + 8's (the `vt_columns` order of V^T)
+    constexpr int kSteps = NT * U / 32;  // of 32 tokens
+    uint32_t pf[kSteps][4];
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int n0 = 4 * kk + 2 * hf;
+          int wi[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            wi[e] = paged_flash::rint_bits(paged_flash::div_by(
+                x[4 * (n0 + (e >> 1)) + 2 * r + (e & 1)], sw[r], rs[r]));
+          pf[kk][hf * 2 + r] = paged_flash::pack_s8(wi[0], wi[1], wi[2], wi[3]);
+        }
+    // P.V, 128 of this block's columns at a time, each s32 sum folded into
+    // o as it comes back (one wait for every product before it is read)
+    const uint32_t v_addr = smem_u32(Vs + s * L::kV);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      int pv[kCols / 4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk)
+        wgmma_s8<kCols / 2>(
+            pv, pf[kk],
+            gmma_desc(v_addr + half * (kCols / 2) * PT + kk * 32, 16,
+                      8 * kVSw, layout_of(kVSw)),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pv);
+#pragma unroll
+      for (int i = 0; i < kCols / 4; ++i) {
+        const int r = (i >> 1) & 1;
+        float& y = o[half * (kCols / 4) + i];
+        y = __fsub_rn(__fmaf_rn(paged_flash::i2f(pv[i]), sw[r],
+                                __fmul_rn(y, alpha[r])),
+                      csum[r]);
+      }
+    }
+  };
+
+  mbar_wait(kfull, 0);
+  issue_s(nxt, 0);
+  wgmma_wait<0>();
+  fence_regs(nxt);
+  put(nxt, 0);
+  cluster_arrive();
+  cluster_wait();  // every block's partial S of tile 0
+
+#pragma unroll 1
+  for (int j = 0; j < n_pages; ++j) {
+    const int valid = min(a.page_tokens[(size_t)slot * a.n_max + j], a.P);
+#pragma unroll
+    for (int h = 0; h < NT; ++h) {
+      const int t = j * NT + h;
+      const bool more = t + 1 < T;
+      if (more) {  // the next tile's partial S runs under this one's sum
+        mbar_wait(kfull + (t + 1) % kStages, ((t + 1) / kStages) & 1);
+        issue_s(nxt, t + 1);
+      }
+      if (tid == 0 && t + kStages < T) load_k(t + kStages);
+      __syncwarp();
+      gather_b(cur, t & 1);
+#pragma unroll
+      for (int i = 0; i < kSU; ++i) x[h * kSU + i] = __int2float_rn(cur[i]);
+      wgmma_wait<0>();
+      fence_regs(nxt);
+      if (more) {  // the next tile's partial goes to the cluster
+        put(nxt, (t + 1) & 1);
+        cluster_arrive();
+      }
+      if (h == NT - 1) {
+        if (valid < NT * U)
+          page(std::true_type{}, j, valid);
+        else
+          page(std::false_type{}, j, valid);
+      }
+      __syncthreads();  // K stage t % 3 read; at a page's end its V^T stage
+      if (h == NT - 1 && tid == 0 && j + 2 < n_pages) load_v(j + 2);
+      __syncwarp();
+      if (more) cluster_wait();  // every block's partial S of tile t + 1
+    }
+  }
+
+  // out (this block's columns), and the lse from rank 0
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rows0 + 8 * h;
+    if (row >= a.Sq) continue;
+    const float l = l_run[h], inv = __frcp_rn(l > 0.f ? l : 1.f);
+    float* out = static_cast<float*>(a.out) + ((size_t)z * a.Sq + row) * a.D +
+                 c0 + 2 * q4;
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      if (8 * j >= ncol) break;
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(__fmul_rn(o[4 * j + 2 * h], inv),
+                      __fmul_rn(o[4 * j + 2 * h + 1], inv));
+    }
+    if (rank == 0 && q4 == 0)
+      a.lse[(size_t)z * a.Sq + row] = l > 0.f ? m_run[h] + logf(l) : kNegInf;
+  }
+  cluster_arrive();
+  cluster_wait();
+}
+
+// ------------------------------------------------------------- launches
+
+// The number of clusters of C blocks of `kernel` (one block an SM, `smem`
+// bytes of shared memory, already allowed) the card runs at once, or a
+// negative cudaError_t.
+template <class... Ps>
+int occupancy(void (*kernel)(Ps...), int smem, int C) {
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * 16, 1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Whether the card places clusters of C blocks of an instance (`placed`,
+// the instance's own, asks `active` once a size): 0, or the error.
+template <class F>
+int check_placed(int (&placed)[kMaxCluster + 1], int C, F active) {
+  if (placed[C] == 0) {
+    const int n = active(C);
+    if (n < 0) return -n;
+    placed[C] = n > 0 ? n : -1;
+  }
+  return placed[C] < 0 ? (int)cudaErrorInvalidClusterSize : 0;
+}
+
+// `kernel` over a grid of clusters of C blocks (along x) on `stream`.
+template <class... Ps, class... As>
+int cluster_launch(void (*kernel)(Ps...), int smem, dim3 grid, int C,
+                   cudaStream_t stream, const As&... args) {
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // The number of clusters of C blocks of an instance (one block an SM) the
@@ -813,20 +1427,7 @@ int active_clusters_ct(int C) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::kBytes);
   if (attr != cudaSuccess) return -(int)attr;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = C;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * 16, 1);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Smem::kBytes;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  int n = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-  return err == cudaSuccess ? n : -(int)err;
+  return occupancy(kernel, Smem::kBytes, C);
 }
 
 template <int MODE, int BITS>
@@ -842,28 +1443,12 @@ int active_clusters(int C) {
 template <int MODE, int BITS, int CT>
 int launch_ct(const CUtensorMap (&maps)[3], const Args& a, cudaStream_t stream) {
   static int placed[kMaxCluster + 1] = {};  // active clusters by C, 0: not asked
-  if (placed[a.C] == 0) {
-    const int n = active_clusters_ct<MODE, BITS, CT>(a.C);
-    if (n < 0) return -n;
-    placed[a.C] = n > 0 ? n : -1;
-  }
-  if (placed[a.C] < 0) return (int)cudaErrorInvalidClusterSize;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = a.C;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.C * ((a.Sq + kBQ - 1) / kBQ), a.Z, a.nsplit);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Smem::kBytes;
-  cfg.stream = stream;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, wide_cluster_attention<MODE, BITS, CT>, maps[0], maps[1], maps[2],
-      a);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  if (const int err = check_placed(placed, a.C,
+                                   active_clusters_ct<MODE, BITS, CT>))
+    return err;
+  return cluster_launch(wide_cluster_attention<MODE, BITS, CT>, Smem::kBytes,
+                        dim3(a.C * ((a.Sq + kBQ - 1) / kBQ), a.Z, a.nsplit),
+                        a.C, stream, maps[0], maps[1], maps[2], a);
 }
 
 template <int MODE, int BITS>
@@ -872,6 +1457,30 @@ int launch(const CUtensorMap (&maps)[3], const Args& a, cudaStream_t stream) {
   return a.C == 2   ? launch_ct<MODE, BITS, 2>(maps, a, stream)
          : a.C == 3 ? launch_ct<MODE, BITS, 3>(maps, a, stream)
                     : launch_ct<MODE, BITS, 0>(maps, a, stream);
+}
+
+// kScratch8's instances: one a page tile PT of 32, 64 or 128 tokens.
+template <int PT>
+int active_clusters_a8(int C) {
+  auto kernel = wide_cluster_attention_a8<PT>;
+  constexpr int kBytes = Smem8<PT>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (attr != cudaSuccess) return -(int)attr;
+  return occupancy(kernel, kBytes, C);
+}
+
+// kScratch8 at clusters of a.C blocks (`active`: only the clusters at once)
+template <int PT>
+int launch_a8_pt(const CUtensorMap (&maps)[2], const Args& a,
+                 cudaStream_t stream, bool active) {
+  if (active) return active_clusters_a8<PT>(a.C);
+  static int placed[kMaxCluster + 1] = {};
+  if (const int err = check_placed(placed, a.C, active_clusters_a8<PT>))
+    return err;
+  return cluster_launch(wide_cluster_attention_a8<PT>, Smem8<PT>::kBytes,
+                        dim3(a.C * ((a.Sq + kBQ - 1) / kBQ), a.Z), a.C,
+                        stream, maps[0], maps[1], a);
 }
 
 // A TMA map over a bf16 [Z, rows, D] tensor, boxes of 64 columns x `box`

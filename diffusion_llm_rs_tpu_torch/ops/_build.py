@@ -37,7 +37,7 @@ SOURCES = ("int8_gemm", "int8_mlp", "dense_attention", "quant_flash_paged",
            "batched_paged_attention", "paged_attention_a8",
            "fused_qkv_attention", "dense_attention_wide",
            "quant_flash_contig_wide", "quant_flash_paged_wide",
-           "paged_flash_wide")
+           "paged_flash_wide", "paged_flash_cluster")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -77,6 +77,12 @@ SIGNATURES = {
                                          (_P,) * 8 + (_I,) * 8 + (_P,)),
     "dlm_batched_paged_attention_a8_wide": ("paged_flash_wide",
                                             (_P,) * 8 + (_I,) * 8 + (_P,)),
+    "dlm_batched_paged_attention_cluster": ("paged_flash_cluster",
+                                            (_P,) * 8 + (_I,) * 8 + (_P,)),
+    "dlm_batched_paged_attention_a8_cluster": ("paged_flash_cluster",
+                                               (_P,) * 8 + (_I,) * 8 + (_P,)),
+    "dlm_batched_paged_attention_cluster_active": ("paged_flash_cluster",
+                                                   (_I,) * 3),
     "dlm_quant_attention_wide": ("quant_flash_contig_wide",
                                  (_P,) * 8 + (_I,) * 5 + (_F, _P)),
     "dlm_quant_attention": ("quant_flash_contig",

@@ -386,7 +386,7 @@ def kernel_width(D: int) -> int:
 
 def cluster_blocks(D: int) -> int:
     """The blocks of a cluster that serve heads of D in the cluster design
-    of dense and single-sequence paged attention
+    of dense, single-sequence paged and batched paged attention
     (`csrc/wide_cluster_flash.cuh`: each block `CLUSTER_COLUMNS` columns of
     the head): ceil(D / 256) from 264 to 2048, where a cluster has at most
     `CLUSTER_MAX` blocks, else 0."""
@@ -400,8 +400,8 @@ def instance(D: int, cluster: bool = False) -> str:
     """The suffix of the C entry point a head of D launches: "" at a
     `KERNEL_WIDTHS` entry, "_padded" between them (a source of its own), and
     past them "_cluster" where the caller's design has a cluster kernel
-    (`cluster`: dense and single-sequence paged attention) and
-    `cluster_blocks(D)` takes D, else "_wide" (`csrc/wide_flash.cuh`)."""
+    (`cluster`: dense, single-sequence paged and batched paged attention)
+    and `cluster_blocks(D)` takes D, else "_wide" (`csrc/wide_flash.cuh`)."""
     if D > KERNEL_WIDTHS[-1]:
         return "_cluster" if cluster and cluster_blocks(D) else "_wide"
     return "" if D == kernel_width(D) else "_padded"

@@ -13,12 +13,12 @@ the heads) and raises on anything else; on a CPU tensor it runs its plain
 twin (`*_plain`), which repeats the TPU kernel's arithmetic page by page at
 the same rounding points. A head of D up to 256 runs in the kernels'
 instance of the smallest `KERNEL_WIDTHS` entry that holds it, past 256 in
-the wide instance of each design (`ops/attention.py: instance`): the
-single-sequence kernel from 264 to 2048 in a cluster of ceil(D / 256)
-blocks, each 256 columns of the head (`csrc/wide_cluster_flash.cuh`), past
-2048 and the batched kernels in `csrc/wide_flash.cuh`; the batched path's
-scratch rows are `kernel_width(D)` wide (past 256, D rounded up to 64), zero
-past D. Where D % 8 != 0 no kernel of either
+the wide instance of each design (`ops/attention.py: instance`): from 264
+to 2048 in a cluster of ceil(D / 256) blocks, each 256 columns of the head
+(`csrc/wide_cluster_flash.cuh`; the batched kernels' entry points in
+`csrc/paged_flash_cluster.cu`), past 2048 in `csrc/wide_flash.cuh`; the
+batched path's scratch rows are `kernel_width(D)` wide (past 256, D rounded
+up to 64), zero past D. Where D % 8 != 0 no kernel of either
 package serves the pools (JAX's need rows of 128 lanes) and both wrappers
 take JAX's XLA paths on either device: `paged_attention_fallback` (JAX's
 `_fallback`) and `batched_paged_attention_fallback` (`_batched_fallback`).
@@ -52,6 +52,7 @@ import torch
 
 from diffusion_llm_rs_tpu_torch.ops import _build
 from diffusion_llm_rs_tpu_torch.ops.attention import (CLUSTER_ROWS,
+                                                      KERNEL_WIDTHS,
                                                       _head_dim_error,
                                                       cluster_blocks,
                                                       head_dim_fits, instance,
@@ -561,6 +562,14 @@ def paged_unpack(page_tables, n_pages, k_data, k_scale, k_zp, v_data,
     return k, v, side
 
 
+def batched_instance(D: int) -> str:
+    """The suffix of the batched kernels' C entry point for heads of D: ""
+    up to 256 (the instance of the scratch's width, `paged_flash.cuh`),
+    "_cluster" from 264 to 2048 and "_wide" past (`ops/attention.py:
+    instance`)."""
+    return instance(D, cluster=True) if D > KERNEL_WIDTHS[-1] else ""
+
+
 def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
                             k_scale, k_zp, v_data, v_scale, v_zp, bits: int,
                             sm_scale=None, return_lse: bool = False,
@@ -622,11 +631,11 @@ def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
     nt, npg = (t.to(torch.int32).contiguous() for t in (page_tokens, n_pages))
     out = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    # past 256 the wide instance, which also takes the scratch's rows and
-    # the page's tokens
-    wide = instance(D) == "_wide"
-    extra = (k.shape[4], k_data.shape[2] * (8 // bits)) if wide else ()
-    err = _build.function(f"dlm_{name}{'_wide' if wide else ''}")(
+    # past 256 the cluster kernel or the wide instance, which also take the
+    # scratch's rows and the page's tokens
+    suffix = batched_instance(D)
+    extra = (k.shape[4], k_data.shape[2] * (8 // bits)) if suffix else ()
+    err = _build.function(f"dlm_{name}{suffix}")(
         qb.data_ptr(), nt.data_ptr(), npg.data_ptr(), k.data_ptr(),
         v.data_ptr(), side.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H,
         Sq, D, n_max, k.shape[3], *extra,

@@ -855,6 +855,105 @@ def test_batched_paged_attention_a8_one_bit_runs_the_bf16_kernel(gen):
         q, pt, nt, npg, *pools, bits=1, head_group=G))
 
 
+# the batched paged kernels' cluster instances (csrc/wide_cluster_flash.cuh
+# modes kScratch16 and kScratch8, heads of 264 to 2048): a last block of 8
+# and 16 columns (264, 272), clusters of 2, 3, 4 and 8 (384, 520 and 768,
+# 1024, 2048); pages of 24, 56, 72 and 128 tokens run in tiles of 32, 64 and
+# 128 (the int8 path's instances of 1, 2, 3 and 4 sub-tiles a page)
+BATCHED_CLUSTER = [264, 272, 384, 520, 768, 1024, 2048]
+
+
+def _batched_cluster_case(gen, D, P, bits, G, act_bits, H=2):
+    """Three slots of a pool of eight: three scattered pages with a partial
+    last one, no page, one page; 100 query rows (a ragged q tile). The
+    kernel against its plain version at `_close`'s bounds (int8: rel
+    Frobenius 5e-3, lse 1e-3), the empty slot 0 with an lse of -1e30."""
+    B, Sq = 3, 100
+    assert pa.batched_instance(D) == "_cluster"
+    pools = _pools(gen, 8, H // G, P, G * D, bits, G)
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
+    pt = torch.tensor([[5, 0, 3], [0, 0, 0], [7, 0, 0]], device="cuda",
+                      dtype=torch.int32)
+    nt = torch.tensor([[P, P, P // 2 + 3], [0, 0, 0], [P, 0, 0]],
+                      device="cuda", dtype=torch.int32)
+    npg = torch.tensor([3, 0, 1], device="cuda", dtype=torch.int32)
+    name = "batched_paged_attention" + (
+        "_a8" if act_bits == 8 and bits > 1 else "")
+    _build.reset_launch_counts()
+    out, lse = pa.batched_paged_attention(q, pt, nt, npg, *pools, bits=bits,
+                                          return_lse=True, head_group=G,
+                                          act_bits=act_bits)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {name: 1, "paged_unpack": 1}
+    assert torch.all(out[1] == 0) and torch.all(lse[1] == pa.NEG_INF)
+    if name.endswith("_a8"):
+        ref, ref_lse = pa.batched_paged_attention_a8_plain(
+            q, pt, nt, npg, *pools, bits=bits, return_lse=True, head_group=G)
+        rel = float((out - ref).norm() / ref.norm())
+        assert rel <= 5e-3, rel
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    else:
+        _close(out, lse, *pa.batched_paged_attention_plain(
+            q, pt, nt, npg, *pools, bits=bits, return_lse=True,
+            head_group=G))
+
+
+@pytest.mark.parametrize("act_bits,bits", [(16, 1), (16, 2), (16, 4),
+                                           (16, 8), (8, 2), (8, 4), (8, 8)])
+@pytest.mark.parametrize("P", [24, 56, 72, 128])
+@pytest.mark.parametrize("D", BATCHED_CLUSTER)
+def test_batched_paged_attention_cluster_edges_match_twin(gen, act_bits, bits,
+                                                          P, D):
+    _batched_cluster_case(gen, D, P, bits, 1, act_bits)
+
+
+@pytest.mark.parametrize("act_bits", [16, 8])
+@pytest.mark.parametrize("P", [72, 128])
+@pytest.mark.parametrize("D,G", [(264, 4), (384, 2), (520, 2)])
+def test_batched_paged_attention_cluster_head_groups(gen, act_bits, P, D, G):
+    """Heads in groups of G (pool rows of G * D lanes), four heads."""
+    _batched_cluster_case(gen, D, P, 4, G, act_bits, H=4)
+
+
+def test_batched_paged_attention_past_the_clusters_runs_wide(gen):
+    """Heads of 2056 run csrc/wide_flash.cuh, at both activation widths; the
+    cluster entry points refuse 256 and 2056 and the wide ones 2048 rather
+    than serve them; the card places the cluster instances' clusters."""
+    assert pa.batched_instance(2056) == "_wide"
+    for act_bits in (16, 8):
+        B, H, Sq, D, P = 2, 1, 40, 2056, 64
+        pools = _pools(gen, 3, H, P, D, 4, 1)
+        q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
+        pt = torch.tensor([[2, 0], [1, 0]], device="cuda", dtype=torch.int32)
+        nt = torch.tensor([[P, 9], [P, 0]], device="cuda", dtype=torch.int32)
+        npg = torch.tensor([2, 1], device="cuda", dtype=torch.int32)
+        out, lse = pa.batched_paged_attention(
+            q, pt, nt, npg, *pools, bits=4, return_lse=True,
+            act_bits=act_bits)
+        plain = (pa.batched_paged_attention_a8_plain if act_bits == 8
+                 else pa.batched_paged_attention_plain)
+        ref, ref_lse = plain(q, pt, nt, npg, *pools, bits=4, return_lse=True)
+        assert float((out - ref).norm() / ref.norm()) <= (
+            5e-3 if act_bits == 8 else 1e-2)
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+    q = torch.zeros((1, 1, 8, 2056), device="cuda").bfloat16()
+    buf = torch.zeros((1 << 16,), device="cuda")
+    one = torch.ones((1,), dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for a8 in ("", "_a8"):
+        for suffix, D in (("_cluster", 256), ("_cluster", 2056),
+                          ("_wide", 2048)):
+            assert _build.function(f"dlm_batched_paged_attention{a8}{suffix}")(
+                q.data_ptr(), one.data_ptr(), one.data_ptr(), buf.data_ptr(),
+                buf.data_ptr(), buf.data_ptr(), buf.data_ptr(), buf.data_ptr(),
+                1, 1, 8, D, 1, 64, 2112, 64, stream) != 0, (a8, suffix, D)
+    active = _build.function("dlm_batched_paged_attention_cluster_active")
+    for D in (264, 520, 776, 1032, 1288, 1544, 1800, 2048):
+        for P in (24, 56, 72, 128):
+            for a8 in (0, 1):
+                assert active(D, P, a8) > 0, (D, P, a8)
+
+
 # ------------------------------------------------ quantized-KV attention ---
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])

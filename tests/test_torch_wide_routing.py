@@ -1,16 +1,20 @@
 """Which design serves each head width, and the cluster design's arithmetic.
 
-Dense and single-sequence paged attention run heads of 264 to 2048 in the
-cluster kernels of `csrc/wide_cluster_flash.cuh` (ceil(D / 256) blocks, each
-256 columns of the head, the partial S summed in rank order), and past 2048
-in `csrc/wide_flash.cuh`; the other attention kernels keep `wide_flash.cuh`
-past 256. The routing is plain Python (`ops/attention.py: instance`,
-`cluster_blocks`), checked here without a card. The models below repeat the
-cluster kernels' schedule in torch on the CPU (tiles of 32 tokens, the S of
-each tile summed from 256-column partials in rank order, q's channel sum
-likewise, the paged chain split and merged) and hold it against the plain
-versions the card tests hold the kernels against, at those tests'
-tolerances. No JAX.
+Dense, single-sequence paged and batched paged attention run heads of 264
+to 2048 in the cluster kernels of `csrc/wide_cluster_flash.cuh` (ceil(D /
+256) blocks, each 256 columns of the head, the partial S summed in rank
+order), and past 2048 in `csrc/wide_flash.cuh`; `quant_attention` keeps
+`wide_flash.cuh` past 256. The routing is plain Python (`ops/attention.py:
+instance`, `cluster_blocks`, `ops/paged_attention.py: batched_instance`),
+checked here without a card. The models below repeat the cluster kernels'
+schedule in torch on the CPU (tiles of 32 tokens, the S of each tile summed
+from 256-column partials in rank order, q's channel sum likewise, the paged
+chain split and merged; the batched int8 path's exchanges of q's row
+maxima and integer sums, its s32 partial S in sub-tiles of 64 tokens, a
+page's sub-tiles held for the per-page requantization and P.V in two halves
+of 128 columns a block) and
+hold it against the plain versions the card tests hold the kernels against,
+at those tests' tolerances. No JAX.
 """
 
 import math
@@ -22,22 +26,31 @@ import torch
 from diffusion_llm_rs_tpu_torch.ops import attention as qa
 from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
 
-# (D, blocks of a cluster, dense and paged suffix, quant_attention suffix)
+# (D, blocks of a cluster, dense and paged suffix, quant_attention suffix,
+# batched paged suffix)
 ROUTES = [
-    (8, 0, "", "_padded"), (64, 0, "", ""), (200, 0, "", "_padded"),
-    (256, 0, "", ""), (264, 2, "_cluster", "_wide"),
-    (272, 2, "_cluster", "_wide"), (384, 2, "_cluster", "_wide"),
-    (512, 2, "_cluster", "_wide"), (520, 3, "_cluster", "_wide"),
-    (768, 3, "_cluster", "_wide"), (1024, 4, "_cluster", "_wide"),
-    (2048, 8, "_cluster", "_wide"), (2056, 0, "_wide", "_wide"),
-    (4096, 0, "_wide", "_wide")]
+    (8, 0, "", "_padded", ""), (64, 0, "", "", ""),
+    (200, 0, "", "_padded", ""), (256, 0, "", "", ""),
+    (264, 2, "_cluster", "_wide", "_cluster"),
+    (272, 2, "_cluster", "_wide", "_cluster"),
+    (384, 2, "_cluster", "_wide", "_cluster"),
+    (512, 2, "_cluster", "_wide", "_cluster"),
+    (520, 3, "_cluster", "_wide", "_cluster"),
+    (768, 3, "_cluster", "_wide", "_cluster"),
+    (1024, 4, "_cluster", "_wide", "_cluster"),
+    (2048, 8, "_cluster", "_wide", "_cluster"),
+    (2056, 0, "_wide", "_wide", "_wide"),
+    (4096, 0, "_wide", "_wide", "_wide")]
 
 
-@pytest.mark.parametrize("D,blocks,cluster,other", ROUTES)
-def test_each_head_width_reaches_its_design(D, blocks, cluster, other):
+@pytest.mark.parametrize("D,blocks,cluster,other,batched", ROUTES,
+                         ids=[f"{D}-{n}-{c}-{o}" for D, n, c, o, _ in ROUTES])
+def test_each_head_width_reaches_its_design(D, blocks, cluster, other,
+                                            batched):
     assert qa.cluster_blocks(D) == blocks
     assert qa.instance(D, cluster=True) == (cluster or other)
     assert qa.instance(D) == other
+    assert pa.batched_instance(D) == batched
 
 
 @pytest.mark.parametrize("D", [260, 2050, 12])
@@ -165,3 +178,150 @@ def test_paged_cluster_schedule_matches_the_plain_version(bits, P, D, nsplit):
             q, pt, *pools, bits=bits, page_tokens=tokens, return_lse=True)
         assert float((out - ref).norm() / ref.norm()) <= 1e-2
         torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+
+
+def _rank_max(x, cols=256):
+    """The row maxima of |x| as the cluster exchanges them: each block's
+    over its 256 columns, then the maximum of the partials."""
+    return torch.stack([x[..., c0:c0 + cols].abs().amax(-1, keepdim=True)
+                        for c0 in range(0, x.shape[-1], cols)]).amax(0)
+
+
+def _rank_sum(x, cols=256):
+    """The row sums of x as C partial sums of 256 columns, added in rank
+    order."""
+    s = None
+    for c0 in range(0, x.shape[-1], cols):
+        part = x[..., c0:c0 + cols].sum(-1, keepdim=True)
+        s = part if s is None else s + part
+    return s
+
+
+def batched_cluster_model(q, page_tokens, n_pages, k, v, side, P):
+    """kScratch16's schedule over the bf16 scratch of `paged_unpack_plain`:
+    each slot's pages as tiles of 32 tokens (the last tile of a page ends at
+    P), qsum and S from 256-column partials in rank order, -1e30 past a
+    page's valid tokens, acc * alpha + bf16(p) . v_sc - sum p * vc; a slot
+    with no page 0 with an lse of -1e30."""
+    B, H, Sq, D = q.shape
+    qb = q.to(torch.bfloat16).float()
+    qsum = _rank_sum(qb)
+    out = torch.zeros((B, H, Sq, D))
+    lse = torch.full((B, H, Sq), pa.NEG_INF)
+    for b in range(B):
+        m = torch.full((H, Sq, 1), pa.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((H, Sq, D))
+        for j in range(int(n_pages[b])):
+            for h0 in range(0, P, 32):
+                sl = slice(h0, min(P, h0 + 32))
+                ka, kb, vc = (side[b, :, j, i, None, sl] for i in range(3))
+                raw = _partials_sum(qb[b], k[b, :, j, sl, :D].float())
+                logits = raw * ka - kb * qsum[b]
+                tok = torch.arange(sl.start, sl.stop)
+                logits = torch.where(tok < int(page_tokens[b, j]), logits,
+                                     pa.NEG_INF)
+                m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+                p = torch.exp(logits - m_new)
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                pv = p.to(torch.bfloat16).float() @ v[b, :, j, sl, :D].float()
+                acc = acc * alpha + pv - (p * vc).sum(-1, keepdim=True)
+                m = m_new
+        if int(n_pages[b]):
+            out[b] = acc * (1.0 / l)
+            lse[b] = (m + torch.log(l))[..., 0]
+    return out, lse
+
+
+def batched_a8_cluster_model(q, page_tokens, n_pages, k, vt, side, P):
+    """kScratch8's schedule over the int8 scratch: q's row amax as the
+    maximum of 256-column partial maxima, qi = rint(q / sq), qsum from the
+    partial integer sums; each sub-tile's S (64 tokens, a page of 32 in
+    one) as the sum of s32 partials (any order: exact), a page's S held
+    until its last sub-tile; the page's softmax, w = p * vs (0 past the
+    valid tokens), sw = max w / 127, wi = rint(w / sw); P.V over each
+    block's 256 columns in two halves of 128, each folded into o as acc *
+    alpha + (wi . v) * sw - sum w * vz'."""
+    B, H, Sq, D = q.shape
+    qb = q.to(torch.bfloat16).float()
+    amax = _rank_max(qb)
+    sq = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    qi = torch.round(qb / sq)
+    qsum = _rank_sum(qi.double()).float() * sq
+    cols = pa.vt_columns(vt.shape[-1])[:P]
+    out = torch.zeros((B, H, Sq, D))
+    lse = torch.full((B, H, Sq), pa.NEG_INF)
+    for b in range(B):
+        m = torch.full((H, Sq, 1), pa.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((H, Sq, D))
+        for j in range(int(n_pages[b])):
+            subs = [_partials_sum(qi[b].double(),
+                                  k[b, :, j, h0:min(P, h0 + 64), :D].double())
+                    for h0 in range(0, P, 64)]
+            raw = torch.cat(subs, -1).float() * sq[b]
+            ka, kb, vs, vz = (side[b, :, j, i, None, :P] for i in range(4))
+            valid = torch.arange(P) < int(page_tokens[b, j])
+            logits = torch.where(valid, raw * ka - kb * qsum[b], pa.NEG_INF)
+            m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+            p = torch.exp(logits - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            w = torch.where(valid, p * vs, 0.0)
+            wmax = w.amax(-1, keepdim=True)
+            sw = torch.where(wmax > 0, wmax / 127.0, torch.ones_like(wmax))
+            wi = torch.round(w / sw)
+            corr = (w * vz).sum(-1, keepdim=True)
+            v_lv = vt[b, :, j][..., cols].float()             # [H, DK, P]
+            for c0 in range(0, D, 128):                       # a half
+                c1 = min(D, c0 + 128)
+                pv = wi @ v_lv[:, c0:c1].transpose(1, 2)
+                acc[..., c0:c1] = acc[..., c0:c1] * alpha + pv * sw - corr
+            m = m_new
+        if int(n_pages[b]):
+            out[b] = acc * (1.0 / l)
+            lse[b] = (m + torch.log(l))[..., 0]
+    return out, lse
+
+
+def _batched_scratch(D, P, bits, G, a8, seed):
+    """Three slots over a pool of five: two pages (the second partial), no
+    page, one page whose every token is masked; q of 40 rows, two heads (a
+    group of G), then `paged_unpack_plain`'s scratch."""
+    rng = np.random.default_rng(seed)
+    H, Sq, n_slots = 2, 40, 5
+    Pp, qmax = P // (8 // bits), (1 << bits) - 1
+    data = [torch.from_numpy(rng.integers(0, 256, (n_slots, H // G, Pp, G * D),
+                                          dtype=np.uint8)) for _ in range(2)]
+    side = [torch.from_numpy((rng.random((n_slots, H // G, G * P)) * s + o)
+                             .astype(np.float32))
+            for s, o in ((3.0 / qmax, 1.5 / qmax), (0.2 * qmax, 0.4 * qmax),
+                         (3.0 / qmax, 1.5 / qmax), (0.2 * qmax, 0.4 * qmax))]
+    pools = (data[0], side[0], side[1], data[1], side[2], side[3])
+    q = torch.from_numpy(rng.standard_normal((3, H, Sq, D), dtype=np.float32))
+    pt = torch.tensor([[4, 1], [0, 0], [2, 0]], dtype=torch.int32)
+    nt = torch.tensor([[P, min(17, P - 1)], [0, 0], [0, 0]],
+                      dtype=torch.int32)
+    npg = torch.tensor([2, 0, 1], dtype=torch.int32)
+    k, v, sd = pa.paged_unpack_plain(pt, npg, *pools, bits=bits,
+                                     head_group=G, a8=a8)
+    return q, nt, npg, k, v, sd
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("D,P,bits,G", [(264, 32, 4, 1), (384, 72, 8, 2),
+                                        (520, 72, 2, 1), (384, 32, 4, 2)])
+def test_batched_cluster_schedules_match_the_plain_version(D, P, bits, G, a8):
+    """The card tests' tolerances: bf16 rel Frobenius <= 1e-2, int8 <= 5e-3,
+    lse within 1e-3; an empty slot gives 0 and an lse of -1e30, and a page
+    whose every token is masked weighs each key 1 in both."""
+    q, nt, npg, k, v, sd = _batched_scratch(D, P, bits, G, a8,
+                                            D + P + bits + 10 * a8)
+    model = batched_a8_cluster_model if a8 else batched_cluster_model
+    out, lse = model(q, nt, npg, k, v, sd, P)
+    ref, ref_lse = pa.batched_paged_attention_unpacked_plain(
+        q, nt, npg, k, v, sd, P, return_lse=True)
+    assert torch.all(out[1] == 0) and torch.all(lse[1] == pa.NEG_INF)
+    assert float((out - ref).norm() / ref.norm()) <= (5e-3 if a8 else 1e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
