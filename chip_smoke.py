@@ -53,21 +53,25 @@ Phases (any failure makes the script exit non-zero without the final line):
                 paged kernels at heads_wide's serving shape (B=2, Sq=2048,
                 16 pages of 128, 4-bit) with 16 heads of 48 in groups of 8,
                 8 of 96, 8 of 128 and 3 of 256. The wide instances (heads
-                past 256, csrc/wide_flash.cuh), timed at the work of heads
-                of 128: dense attention at heads of 384 (BH=16) and 768
-                (BH=8), S=1024; quant_attention at 384 (BH=16) and 768
-                (BH=8), S=256; paged_attention at 384 (BH=2) and 768 (BH=1);
-                both batched paged kernels and paged_unpack at heads_wide's
-                serving shape with 2 heads of 384 and one of 768; and
-                untimed at heads of 264 (a ragged column block, packed rows
-                of 33 bytes at 1 bit), 520 and 2048, and past the cluster
-                kernels at 2056. Dense, single-sequence paged and both
-                batched paged attention kernels run heads of 264 to 2048 in
-                the cluster kernels (csrc/wide_cluster_flash.cuh; the paged
-                rows give the splits of the page chain over clusters, the
-                batched rows the clusters of their instance the card runs at
-                once), the clusters of each size the card runs at once are
-                logged, and any size it cannot place fails the phase. The
+                past 256), timed at the work of heads of 128: dense
+                attention at heads of 384 (BH=16) and 768 (BH=8), S=1024;
+                quant_attention at 384 (BH=16) and 768 (BH=8), S=256;
+                paged_attention at 384 (BH=2) and 768 (BH=1); both batched
+                paged kernels and paged_unpack at heads_wide's serving shape
+                with 2 heads of 384 and one of 768; and untimed at heads of
+                264 (a ragged column block, packed rows of 33 bytes at 1
+                bit), 520 and 2048, and past the cluster kernels at 2056.
+                Every attention kernel but fused-QKV attention runs heads of
+                264 to 2048 in the cluster kernels
+                (csrc/wide_cluster_flash.cuh; the quantized-KV rows give the
+                splits of their chain over clusters, the batched rows the
+                clusters of their instance the card runs at once), the
+                clusters of each size the card runs at once are logged, and
+                any size it cannot place fails the phase; past 2048
+                csrc/wide_flash.cuh. fused_qkv_attention at B=8, S=256 and
+                864, width 768, with 12 heads of 64, 4 of 192, 3 of 256 (its
+                wgmma design) and 2 of 384 and one of 768 (its first design).
+                The
                 kernels line gives each design's wide instance as
                 `wide_instance` (its first timed row, its design, source and
                 C entry point, and its launches on heads_wide's heads of 384
@@ -163,7 +167,8 @@ Phases (any failure makes the script exit non-zero without the final line):
                 `Engine(config, params=...).sample(use_paged=False)` over
                 the decoded W4A8 weights (f32 residuals into the W4A8
                 kernels), the paged batcher at S=2048 with bf16
-                and int8 attention, `PagedKVCache.attend`; exact launch
+                and int8 attention, `PagedKVCache.attend`, a forward with
+                `attend_fn` running fused_qkv_attention; exact launch
                 counts, token ranges, card vs CPU within heads16's bounds,
                 each replaying path against eager bit for bit)
                 and engine_check (one packed forward on the card against
@@ -214,6 +219,8 @@ Phases (any failure makes the script exit non-zero without the final line):
 
 also times the attention kernels (`quant_attention`, `dense_attention`,
 `paged_attention` at the head widths 16, 32, 64, 96, 128, 192 and 256;
+`fused_qkv_attention` at 12 heads of 64, 4 of 192, 3 of 256, 2 of 384 and
+one of 768;
 `paged_unpack` in both layouts and each batched paged kernel alone at
 serve_paged's pools, heads of 16 to 256; `PARENT_SHAPES`; the wide
 instances at heads of 384 and 768 as new rows, which a parent without them
@@ -687,18 +694,24 @@ def _mlp_kernels(gen, results, bad):
             bad.append(f"int8w_mlp M={M}")
 
 
+# fused_qkv_attention's shapes at width 768, B=8: the sampler's S=256 and
+# the largest S JAX's predicate admits at that width (864), at the model's
+# 12 heads of 64 and at 4 of 192 and 3 of 256 (the wgmma design's widest
+# instances), 2 of 384 and one of 768 (the first design's kernel)
+QKV_HEADS = (12, 4, 3, 2, 1)
+
+
 def _fused_qkv_kernels(gen, results, bad):
-    """fused_qkv_attention at the sampler's shape (B=8, S=256, 768 wide, 12
-    heads) and at the largest S JAX's predicate admits at that width (864),
-    bf16 out, against the plain version: relative Frobenius error <= 5e-3
-    (the kernel's sums and CUDA's expf can move a bf16 rounding of P, and
-    then of the output). Yardsticks: split + SDPA (library_ms), and the
-    einsum attention of `denoiser.attention` (einsum_ms)."""
+    """fused_qkv_attention at QKV_HEADS x S = 256 and 864, bf16 out, against
+    the plain version: relative Frobenius error <= 5e-3 (the kernel's sums
+    and CUDA's expf can move a bf16 rounding of P, and then of the output).
+    Yardsticks: split + SDPA (library_ms), and the einsum attention of
+    `denoiser.attention` (einsum_ms)."""
     from diffusion_llm_rs_tpu_torch.models.denoiser import attention as einsum
     from diffusion_llm_rs_tpu_torch.ops import attention as at
 
     bf16 = torch.bfloat16
-    for B, S, D, H in ((8, 256, 768, 12), (8, 864, 768, 12)):
+    for B, S, D, H in ((8, S, 768, H) for H in QKV_HEADS for S in (256, 864)):
         if not at.fused_qkv_fits((B, S, 3 * D), H) or (
                 S > 256 and at.fused_qkv_fits((B, S + 8, 3 * D), H)):
             raise AssertionError(f"JAX's predicate: S={S} at D={D}")
@@ -727,12 +740,12 @@ def _fused_qkv_kernels(gen, results, bad):
             tolerance="rel Frobenius <= 5e-3", ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, einsum_ms=einsum_ms, bound_ms=b_ms,
             bound_by=b_by))
-        log(f"  fused_qkv_attention B={B} S={S}: max_abs_err {err:.3g} rel "
-            f"{rel:.3g} {'ok' if ok else 'MISMATCH'}; {ms:.4f} ms, plain "
+        log(f"  fused_qkv_attention B={B} S={S} H={H}: max_abs_err {err:.3g} "
+            f"rel {rel:.3g} {'ok' if ok else 'MISMATCH'}; {ms:.4f} ms, plain "
             f"{plain_ms:.4f}, SDPA {lib_ms:.4f}, einsum {einsum_ms:.4f}, "
             f"bound {b_ms:.4f} ({b_by})")
         if not ok:
-            bad.append(f"fused_qkv_attention S={S}")
+            bad.append(f"fused_qkv_attention S={S} H={H}")
 
 
 def _quantized_pools(gen, n_slots, H, P, D, G, bits):
@@ -1126,7 +1139,13 @@ QA_CASES = (
     ("heads of 768, 4-bit", 8, 256, 256, 4, True, 768),
     ("heads of 264, ragged 1-bit", 6, 100, 100, 1, False, 264),
     ("heads of 768, 8-bit", 8, 256, 256, 8, False, 768),
-    ("heads of 768, ragged 2-bit", 4, 100, 130, 2, False, 768))
+    ("heads of 768, ragged 2-bit", 4, 100, 130, 2, False, 768),
+    # the cluster instance's edges: a cluster of 3 over a long chain at 1
+    # bit (packed rows of 65 bytes), one of 8, and past them the wide
+    # instance (2056)
+    ("heads of 520, long 1-bit", 4, 256, 999, 1, False, 520),
+    ("heads of 2048, 4-bit", 2, 128, 300, 4, False, 2048),
+    ("heads of 2056, ragged 4-bit", 2, 100, 130, 4, False, 2056))
 
 
 def _qa_label(label, BH, Sq, Skv, bits, D):
@@ -1135,13 +1154,19 @@ def _qa_label(label, BH, Sq, Skv, bits, D):
 
 def _quant_attention_kernels(gen, results, bad):
     """`attention` over `QuantKV` against `attention_plain` at the kernel's
-    KV tile, at the scan sampler's shapes: BH=96 (B=8 x 12 heads), Sq=Skv=256
-    at 4, 8 and 2 bits; BH=24, S=1024 (the long-sequence run) at 4 bits; and
-    a ragged Sq=Skv=100 (`Engine.sample(seq_len=100)`). Sums in another order
+    KV tile (64 tokens; the cluster instance's 32 at heads of 264-2048, and
+    its split of the chain over clusters, where the check also bounds the
+    output against the chain in one run by C19's 5e-3), at
+    the scan sampler's shapes: BH=96 (B=8 x 12 heads), Sq=Skv=256 at 4, 8
+    and 2 bits; BH=24, S=1024 (the long-sequence run) at 4 bits; and a
+    ragged Sq=Skv=100 (`Engine.sample(seq_len=100)`). Sums in another order
     and CUDA's expf, which can move a bf16 rounding of p * vs: rel Frobenius
     <= 2e-3. Library yardstick: K and V dequantized to bf16, then
-    scaled_dot_product_attention. Also quantize_kv on the card against the
-    CPU, bit for bit, with the IEEE division and with the reciprocal."""
+    scaled_dot_product_attention. The cluster rows log the splits of their
+    chain and the clusters the card runs at once. Also quantize_kv on the
+    card against the CPU, bit for bit, with the IEEE division and with the
+    reciprocal."""
+    from diffusion_llm_rs_tpu_torch.ops import _build
     from diffusion_llm_rs_tpu_torch.ops import attention as qa
 
     for bits in (1, 2, 4, 8):
@@ -1168,16 +1193,29 @@ def _quant_attention_kernels(gen, results, bad):
         v = qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen,
                                        device="cuda"), bits)
         out = qa.attention(q, k, v)
-        ref = qa.attention_plain(q, k, v, tile=qa.KERNEL_KV_TILE)
+        cluster = qa.instance(D) == "_cluster"
+        tile = qa.CLUSTER_KV_TILE if cluster else qa.KERNEL_KV_TILE
+        # the cluster instance's chain of tiles in its splits
+        n = qa.quant_cluster_splits(BH, Sq, Skv, D, bits) \
+            if cluster else 1
+        ref = qa.attention_plain(q, k, v, tile=tile, splits=n)
         err, rel, _ = _compare(out, ref, 0.0, 0.0)
         ok = rel <= 2e-3 and bool(torch.isfinite(out).all())
         row = dict(shape=_qa_label(label, BH, Sq, Skv, bits, D),
                    max_abs_err=err, rel_err=rel, tolerance=tol,
                    wide=D > WIDE_FROM)
+        if n > 1:  # against the chain in one run: within C19's 5e-3
+            one = qa.attention_plain(q, k, v, tile=tile)
+            row["rel_err_unsplit"] = _compare(out, one, 0.0, 0.0)[1]
+            ok = ok and row["rel_err_unsplit"] <= 5e-3
+        if cluster:  # the clusters at once, and the splits of the chain
+            row["clusters_at_once"] = _build.function(
+                "dlm_quant_attention_cluster_active")(D, bits)
+            row["splits"] = n
         if timed:
             row["ms"] = time_ms(lambda: qa.attention(q, k, v))
             row["plain_ms"] = time_ms(lambda: qa.attention_plain(
-                q, k, v, tile=qa.KERNEL_KV_TILE), 5)
+                q, k, v, tile=tile, splits=n), 5)
 
             def lib():
                 return torch.nn.functional.scaled_dot_product_attention(
@@ -1195,6 +1233,10 @@ def _quant_attention_kernels(gen, results, bad):
         results["quant_attention"].append(row)
         log(f"  quant_attention {label}: max_abs_err {err:.3g} rel {rel:.3g} "
             f"({tol}) {'ok' if ok else 'MISMATCH'}"
+            + (f"; {n} split(s) (against the chain in one run rel "
+               f"{row['rel_err_unsplit']:.3g}, bound 5e-3)" if n > 1 else "")
+            + (f"; {row['clusters_at_once']} clusters at once"
+               if cluster else "")
             + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library "
                f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
                f"({row['bound_by']}); MUFU ex2 floor {mufu:.4f}"
@@ -1856,20 +1898,10 @@ def profile():
                      for us, n, key in rows[:15]])
 
 
-def fused_qkv():
-    """One full-width forward of the sampler's model (B=8, S=256, t=500)
-    with `attend_fn` running fused_qkv_attention on the layer's [B, S, 3D]
-    projection: exactly one launch a layer; eps against the same forward
-    through the default einsum attention (the same math: rel <= 2e-2, the
-    sampler's bound, since bf16 rounds at other points); and the card
-    against the plain versions on the CPU from the same input (rel <=
-    2e-2)."""
-    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
-    from diffusion_llm_rs_tpu_torch.ops import _build
+def _fused_attend(H):
+    """A `denoiser_forward` `attend_fn` that runs fused_qkv_attention on the
+    layer's [B, S, 3D] projection of H heads."""
     from diffusion_llm_rs_tpu_torch.ops.attention import fused_qkv_attention
-
-    cfg, params = MODEL["cfg"], MODEL["params"]
-    H = cfg.num_attention_heads
 
     def attend(li, q, k, v, mask):
         if mask is not None:
@@ -1880,6 +1912,22 @@ def fused_qkv():
         if out is None:
             raise AssertionError(f"fused_qkv_attention refused S={S}")
         return out.reshape(B, S, H, Hd)
+    return attend
+
+
+def fused_qkv():
+    """One full-width forward of the sampler's model (B=8, S=256, t=500)
+    with `attend_fn` running fused_qkv_attention on the layer's [B, S, 3D]
+    projection: exactly one launch a layer; eps against the same forward
+    through the default einsum attention (the same math: rel <= 2e-2, the
+    sampler's bound, since bf16 rounds at other points); and the card
+    against the plain versions on the CPU from the same input (rel <=
+    2e-2)."""
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+    from diffusion_llm_rs_tpu_torch.ops import _build
+
+    cfg, params = MODEL["cfg"], MODEL["params"]
+    attend = _fused_attend(cfg.num_attention_heads)
 
     g = torch.Generator(device="cuda").manual_seed(19)
     B, S = 8, 256
@@ -2028,7 +2076,8 @@ def heads16():
 
 
 # heads of 96 and 256 (the fixed instances) and of 384 and 768 (the wide
-# instances, csrc/wide_flash.cuh) at width 768
+# instances: the cluster kernels of csrc/wide_cluster_flash.cuh, and
+# fused-QKV attention's first design) at width 768
 WIDE_HEADS = (8, 3, 2, 1)
 
 
@@ -2055,10 +2104,13 @@ def heads_wide():
         step;
       - `PagedKVCache.attend` (`cache_attend`, 1024 tokens in pages of 64
         at 8/4/2 bits): paged_attention, one a width;
+      - `denoiser_forward(attend_fn=<fused_qkv_attention>)` at B=2, S=256,
+        as phase fused_qkv runs it: fused_qkv_attention, L;
     token ids in range; card against the plain versions on the CPU within
     heads16's bounds (one forward at B=1, S=1024 through the dense kernel,
-    eps within 2e-2; `scan_check` at B=1, S=128; `_step_vs_cpu` for both
-    paged kernels; `cache_attend`'s 1e-2); and each replaying path, run
+    and the fused-QKV forward, eps within 2e-2; `scan_check` at B=1, S=128;
+    `_step_vs_cpu` for both paged kernels; `cache_attend`'s 1e-2); and each
+    replaying path, run
     again with its draws, replayed against eager bit for bit
     (`_eager_vs_replayed` over `_graph_paths` at this phase's sizes, each
     warmed by the same work before it is timed: the one-shot and the scan
@@ -2109,7 +2161,8 @@ def heads_wide():
         e_card = call("forward B=1 S=1024", lambda: dn.denoiser_forward(
             params, cfg, xb, t), {"dense_attention": L}).float().cpu()
         c0 = time.perf_counter()
-        e_cpu = dn.denoiser_forward(_to(params, "cpu"), cfg, xb.cpu(),
+        cpu_params = _to(params, "cpu")
+        e_cpu = dn.denoiser_forward(cpu_params, cfg, xb.cpu(),
                                     t.cpu()).float()
         rel = float((e_card - e_cpu).norm() / e_cpu.norm())
         log(f"  heads of {hd}: eps card vs CPU at S=1024 rel {rel:.3g} "
@@ -2118,6 +2171,29 @@ def heads_wide():
             raise AssertionError(f"heads of {hd}: the S=1024 forward "
                                  f"disagrees with the CPU")
         runs["eps_rel_err_s1024"] = rel
+
+        # fused-QKV attention through `attend_fn`, as phase fused_qkv runs
+        # it (heads of 96 in the wgmma design's instance of 128, of 256 in
+        # its instance of 256, past 256 in its first design): L launches,
+        # the card against the plain versions on the CPU within 2e-2
+        attend = _fused_attend(heads)
+        xf = torch.randn((2, 256, cfg.hidden_size), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        tf = torch.full((2,), 500, device="cuda")
+        e_card = call(
+            "fused-QKV forward B=2 S=256", lambda: dn.denoiser_forward(
+                params, cfg, xf, tf, attend_fn=attend),
+            {"fused_qkv_attention": L, "dense_attention": 0}).float().cpu()
+        e_cpu = dn.denoiser_forward(cpu_params, cfg, xf.cpu(), tf.cpu(),
+                                    attend_fn=attend).float()
+        del cpu_params
+        rel = float((e_card - e_cpu).norm() / e_cpu.norm())
+        log(f"  heads of {hd}: fused-QKV eps card vs CPU rel {rel:.3g} "
+            f"(bound 2e-2)")
+        if not rel <= 2e-2:
+            raise AssertionError(f"heads of {hd}: the fused-QKV forward "
+                                 f"disagrees with the CPU")
+        runs["eps_rel_err_fused_qkv"] = rel
 
         # the scan sampler through the engine over this model's decoded W4A8
         # weights: its f32 activations reach the W4A8 kernels with an f32
@@ -3932,8 +4008,9 @@ KERNELS = {
 # instances' from a padded source
 # the wide instance of each attention design (heads past 256), a source of
 # its own (with its C entry point at heads of 384 and 768) over
-# csrc/wide_flash.cuh or, from 264 to 2048, csrc/wide_cluster_flash.cuh
-# (WIDE_DESIGNS); the batched kernels' past 2048 in paged_flash_wide.cu
+# csrc/wide_cluster_flash.cuh from 264 to 2048 (WIDE_DESIGNS) and
+# csrc/wide_flash.cuh past; the batched kernels' past 2048 in
+# paged_flash_wide.cu
 WIDE_SOURCES = {
     "dense_attention": "diffusion_llm_rs_tpu_torch/csrc/dense_attention_wide.cu",
     "quant_attention":
@@ -3946,13 +4023,14 @@ WIDE_SOURCES = {
         "diffusion_llm_rs_tpu_torch/csrc/paged_flash_cluster.cu"}
 WIDE_ENTRY_POINTS = {
     "dense_attention": "dlm_dense_attention_cluster",
-    "quant_attention": "dlm_quant_attention_wide",
+    "quant_attention": "dlm_quant_attention_cluster",
     "paged_attention": "dlm_paged_attention_cluster",
     "batched_paged_attention": "dlm_batched_paged_attention_cluster",
     "batched_paged_attention_a8": "dlm_batched_paged_attention_a8_cluster",
     "paged_unpack": "dlm_paged_unpack"}
 WIDE_DESIGNS = {
     "dense_attention": "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh",
+    "quant_attention": "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh",
     "paged_attention": "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh",
     "batched_paged_attention":
         "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh",
@@ -3963,7 +4041,9 @@ WIDE_DESIGN_NOTES = {
         "heads of 264-2048: a cluster of ceil(D/256) blocks a 128-query "
         "tile, each block 256 columns, partial S summed in rank order "
         "through distributed shared memory, S and P.V on wgmma; one "
-        "sequence's page chain split over clusters, merged in the launch; "
+        "sequence's page chain, or the contiguous KV's chain of tiles, split "
+        "over clusters, merged in the launch; the contiguous KV's block-"
+        "packed rows copied a block's bytes at a time and unpacked by field; "
         "the batched int8 path's S in s32 partials of 64 tokens, a page's S "
         "held for its per-page requantization, P.V in two halves; past 2048 "
         "csrc/wide_flash.cuh",
@@ -3992,7 +4072,8 @@ ALSO_BUILT_FROM = {
 # kernels of the quantized-KV design (`quant_attention`, `paged_attention`),
 # `dense_attention`, and the batched paged design (`paged_unpack` in both
 # layouts, then the bf16 and the int8 attention kernel alone on that
-# scratch), built by that checkout and timed by its own chip_smoke.py at the
+# scratch) and fused-QKV attention, built by that checkout and timed by its
+# own chip_smoke.py at the
 # head widths the parent served (PARENT_SHAPES: 16, 32, 64, 128, 192 and
 # 256, and 96 run padded in 128, at the full-width model's heads, the
 # batched kernels at serve_paged's pools), and at the wide instances' heads
@@ -4023,7 +4104,14 @@ PARENT_SHAPES = dict(
     # the W4A8 kernels, whose epilogues took an f32 residual: the sampler's
     # qkv and wo (+ bf16 residual) at M = 2048, its MLP (M, K, F)
     int8w_matmul=[(2048, 768, 2304, False), (2048, 768, 768, True)],
-    int8w_mlp=[(2048, 768, 3072)])
+    int8w_mlp=[(2048, 768, 3072)],
+    # fused-QKV attention (B, S, D, H): the sampler's 12 heads of 64, and 4
+    # heads of 192 and 3 of 256 (the first design's kernel in a parent
+    # before the wgmma design took them, so the ratio is the redesign's),
+    # and past 256
+    fused_qkv=[(8, 256, 768, 12), (8, 256, 768, 4), (8, 864, 768, 4),
+               (8, 256, 768, 3), (8, 864, 768, 3), (8, 256, 768, 2),
+               (8, 256, 768, 1)])
 PARENT_CODE = """
 import json, torch, chip_smoke as c
 from diffusion_llm_rs_tpu_torch.ops import _build
@@ -4035,7 +4123,7 @@ wide = "dense_attention_wide" in _build.SOURCES
 batched_cluster = "paged_flash_cluster" in _build.SOURCES
 _build.build(("dense_attention", "quant_flash_contig", "quant_flash_paged",
               "paged_unpack", "batched_paged_attention", "paged_attention_a8",
-              "int8_gemm", "int8_mlp") + (
+              "int8_gemm", "int8_mlp", "fused_qkv_attention") + (
     ("dense_attention_wide", "quant_flash_contig_wide",
      "quant_flash_paged_wide", "paged_flash_wide") if wide else ()) + (
     ("paged_flash_cluster",) if batched_cluster else ()))
@@ -4109,6 +4197,10 @@ for M, K, F in SHAPES["int8w_mlp"]:
     r = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
     ms[f"int8w_mlp M={M} {K}->{F}->{K} +residual"] = c.time_ms(
         lambda: im.int8w_mlp(x, w1, cs1, b1, w2, cs2, b2, r, torch.bfloat16))
+for B, S, D, H in SHAPES.get("fused_qkv", []):
+    qkv = torch.randn((B, S, 3 * D), generator=gen, device="cuda").bfloat16()
+    ms[f"fused_qkv_attention B={B} S={S} D={D} H={H}"] = c.time_ms(
+        lambda: qa.fused_qkv_attention(qkv, H))
 print(json.dumps(ms))
 """
 

@@ -11,7 +11,7 @@
 // gives other numbers, so this is not a flash kernel: the TPU kernel holds
 // the whole [S, S] logit matrix in VMEM, and a block here cannot.
 //
-// Design (heads of up to 128; `fused_qkv_wgmma_kernel`): two passes over
+// Design (heads of up to 256; `fused_qkv_wgmma_kernel`): two passes over
 // the keys. Pass 1 takes each row's exact maximum and the sum of
 // exp(logit - max) online (the maximum is exact in any order; the sum
 // differs from the two-walk sum only in f32 rounding). Pass 2 recomputes the
@@ -24,19 +24,23 @@
 //     (64 rows x Hd) at head index h, H + h or 2H + h cuts out one head's
 //     q, k or v with no split or transpose in device memory. The head
 //     dimension of the map is Hd itself, so a box padded to the kernel's
-//     head width (32, 64 or 128: heads of 8, 24, 40 ...) reads zeros past
-//     Hd, as rows past S do.
+//     head width (32, 64, 128, 192 or 256: heads of 8, 24, 40 ... 136 ...
+//     200 ...) reads zeros past Hd, as rows past S do.
 //   - One warpgroup a block owns 64 query rows of one (batch row, head);
 //     its thread 0 keeps a ring of 2 stages of 64-key K (and, in pass 2, V)
 //     tiles in flight by TMA, refilling a stage once the warpgroup has
 //     multiplied it. Small blocks (20-80 KB of shared memory, 90 registers
 //     a thread at heads of 64) let up to 5 share an SM and hide one
-//     another's latencies.
+//     another's latencies. At heads of 192 and 256 a block takes 121 or 161
+//     KB and o 96 or 128 registers a thread (154 and 186 in all, no
+//     spill), one block an SM: tiles of 32 keys, two blocks an SM at 256,
+//     ran 20% slower at S = 256 and 5-11% faster or slower at S = 864 on an
+//     H100 (PERF.md).
 //   - S = Q K^T is a wgmma with both operands in shared memory (K-major, 128-
 //     or 64-byte swizzle); P lives in registers as the A operand of the P.V
 //     wgmma, whose V operand is read MN-major. Keys past S get -1e30 in the
 //     last tile only.
-// Heads wider than 128 would need more accumulator registers than a thread
+// Heads wider than 256 would need more accumulator registers than a thread
 // has; they take `wide::fused_qkv_wide_kernel`, the first design of this
 // kernel (mma.sync, three walks over the keys, any multiple of 8).
 //
@@ -62,7 +66,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int HD>  // the kernel's head width: 32, 64 or 128
+template <int HD>  // the kernel's head width: 32, 64, 128, 192 or 256
 struct Shape {
   static constexpr int kSw = HD >= 64 ? 128 : 64;  // swizzle span, bytes
   static constexpr int kEpr = kSw / 2;             // elements per chunk row
@@ -278,7 +282,7 @@ int launch(const void* qkv, void* out, int B, int S, int H, int Hd,
 
 }  // namespace
 
-// Heads wider than 128: this kernel's first design. One block per (64-query
+// Heads wider than 256: this kernel's first design. One block per (64-query
 // tile, head, batch row), 4 warps of 16 rows; three walks over the keys
 // (row maximum, row sum, P.V), each recomputing a 64-key tile's logits with
 // mma.sync m16n8k16 from tiles read in 16-byte loads, 64 head columns at a
@@ -483,10 +487,16 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace {
 
-// The kernel's head width for heads of Hd: 32, 64 or 128, or 0 for heads
-// wider than 128 (the first design's kernel).
+// The kernel's head width for heads of Hd: 32, 64, 128, 192 or 256, or 0
+// for heads wider than 256 (the first design's kernel). ops/attention.py:
+// fused_qkv_head_width is the same.
 int head_width(int Hd) {
-  return Hd <= 32 ? 32 : Hd <= 64 ? 64 : Hd <= 128 ? 128 : 0;
+  return Hd <= 32    ? 32
+         : Hd <= 64  ? 64
+         : Hd <= 128 ? 128
+         : Hd <= 192 ? 192
+         : Hd <= 256 ? 256
+                     : 0;
 }
 
 }  // namespace
@@ -509,6 +519,8 @@ int dlm_fused_qkv_attention(const void* qkv, void* out, int out_bf16, int B,
     DLM_QKV_CASE(32)
     DLM_QKV_CASE(64)
     DLM_QKV_CASE(128)
+    DLM_QKV_CASE(192)
+    DLM_QKV_CASE(256)
 #undef DLM_QKV_CASE
   }
   dim3 grid((S + wide::kBQ - 1) / wide::kBQ, H, B);

@@ -10,9 +10,10 @@
 //   - dlm_paged_attention_cluster, heads of 264 to 2048: mode kPaged of
 //     csrc/wide_cluster_flash.cuh, a cluster of ceil(D / 256) blocks a
 //     128-query tile, each block 256 columns of the head (256 contiguous
-//     bytes of each packed row, read 8 at a time into registers a tile
-//     ahead and unpacked into swizzled bf16 levels), the partial S summed
-//     through distributed shared memory. It issues the S product once a KV
+//     bytes of each packed row, copied by cp.async two tiles ahead and
+//     unpacked into swizzled bf16 levels), the partial S summed through
+//     distributed shared memory, the page chain split over clusters
+//     (`paged_splits`) and merged in the launch. It issues the S product once a KV
 //     tile a query tile: 4*BH*Sq*(n_pages*32*ceil(P/32))*256*ceil(D/256)
 //     operations for the two products (a page runs as tiles of 32 tokens,
 //     the last padded).
@@ -24,6 +25,19 @@
 #include "wide_cluster_flash.cuh"
 #include "wide_flash.cuh"
 
+namespace {
+
+// The splits of a single-sequence paged call over its page chain.
+int paged_splits(int C, int Z, int Sq, int n_pages, int P) {
+  using namespace wide_cluster;
+  static int placed[kMaxCluster + 1] = {};  // clusters at once by C
+  if (placed[C] == 0) placed[C] = max(active_clusters<kPaged, 4>(C), -1);
+  return chain_splits(placed[C], ((Sq + kBQ - 1) / kBQ) * Z,
+                      n_pages * ((P + TK - 1) / TK));
+}
+
+}  // namespace
+
 extern "C" {
 
 // The splits dlm_paged_attention_cluster takes for these sizes (1: the
@@ -33,7 +47,7 @@ int dlm_paged_attention_cluster_splits(int BH, int Sq, int D, int n_pages,
   const int C = wide_cluster::cluster_blocks(D);
   if (C == 0 || BH <= 0 || Sq <= 0 || n_pages < 1 || P < 8 || P > 128)
     return -(int)cudaErrorInvalidValue;
-  return wide_cluster::paged_splits(C, BH, Sq, n_pages, P);
+  return paged_splits(C, BH, Sq, n_pages, P);
 }
 
 // dlm_paged_attention's arguments (csrc/quant_flash_paged.cu) for D a
@@ -53,13 +67,10 @@ int dlm_paged_attention_cluster(const void* q, const void* page_table,
                                 int nsplit, void* part_o, void* part_ml,
                                 void* counters) {
   const int C = wide_cluster::cluster_blocks(D);
-  if (C == 0 || n_pages < 1 || P < 8 || P > 128 || P % 8 || nsplit < 1 ||
-      nsplit > wide_cluster::kMaxSplit ||
+  if (C == 0 || n_pages < 1 || P < 8 || P > 128 || P % 8 ||
+      !wide_cluster::splits_fit(  // no split may be empty
+          nsplit, n_pages * ((P + wide_cluster::TK - 1) / wide_cluster::TK)) ||
       (nsplit > 1 && (!part_o || !part_ml || !counters)))
-    return (int)cudaErrorInvalidValue;
-  const int tiles = n_pages * ((P + wide_cluster::TK - 1) / wide_cluster::TK);
-  const int per = (tiles + nsplit - 1) / nsplit;
-  if ((tiles + per - 1) / per != nsplit)  // no split may be empty
     return (int)cudaErrorInvalidValue;
   if (BH <= 0 || Sq <= 0) return 0;
   CUtensorMap maps[3];

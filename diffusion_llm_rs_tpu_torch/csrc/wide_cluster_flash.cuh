@@ -1,6 +1,6 @@
-// Dense, single-sequence paged and batched paged attention at head widths
-// from 264 to 2048, for Hopper (sm_90a): the head split across a
-// thread-block cluster.
+// Dense, quantized-KV (contiguous and single-sequence paged) and batched
+// paged attention at head widths from 264 to 2048, for Hopper (sm_90a): the
+// head split across a thread-block cluster.
 //
 // The fixed instances (csrc/dense_attention.cu, csrc/quant_flash.cuh) hold
 // a whole head row of q, K and V in shared memory and o in registers, so
@@ -56,6 +56,19 @@
 //     weights() this kernel runs. One sequence at wide heads has few query
 //     tiles, so the chain of tiles is split over up to 8 clusters (grid z,
 //     `paged_splits`) and merged in the same launch (`merge_splits`).
+//   - kContig (`attention`'s QuantKV, [Z, Skv, Dp] packed along D, Dp = D /
+//     vpb bytes a row): channel d is bit field d / Dp of byte d % Dp, so
+//     block j's 256 channels are the n = min(256, Dp) bytes from c0 % Dp
+//     on, wrapping at Dp (one run, or two where the block's channels span
+//     two fields). A tile's runs of its 32 rows are copied by cp.async as
+//     kPaged's rows are, CB = 16, 8 or 4 bytes a copy (CB divides Dp, the
+//     run and the pointers' alignment; plain 2- or 1-byte loads where none
+//     does, as at D = 264 and 1 bit, Dp = 33), into rows of 256 bytes, and
+//     after a barrier every thread unpacks 8 columns of 4 rows: where Dp % 8
+//     == 0 one field of 8 consecutive bytes (one 8-byte read), else each
+//     column from its own byte and field. kPaged's sidecars (read a tile
+//     ahead, token tid of 32), q's channel sum, softmax, split of the chain
+//     over clusters (`chain_splits`) and merge; no lse.
 //   - kScratch16 (batched paged attention, bf16): kDense's outline over the
 //     bf16 scratch of csrc/paged_unpack.cu (K and V [Z = B * H, n_max, PT,
 //     DK], rows of D rounded up to 64, zero past D): K and V tiles by TMA,
@@ -89,9 +102,9 @@
 // dense_attention_plain, ops/paged_attention.py: paged_attention_plain,
 // batched_paged_attention_unpacked_plain):
 //   kDense  logits = (q.k) * sm; acc = acc * a + bf16(p) . v; out = acc / l
-//   kPaged  logits = raw * ka' - kb * qsum (ka' = ks * sm, kb = ka' * kz);
-//           acc = acc * a - sum(p * vs * vz) + bf16(p * vs) . lv;
-//           out = acc * (1 / l), lse = m + log(l)
+//   kPaged, kContig  logits = raw * ka' - kb * qsum (ka' = ks * sm, kb =
+//           ka' * kz); acc = acc * a - sum(p * vs * vz) + bf16(p * vs) . lv;
+//           out = acc * (1 / l), lse = m + log(l) (kPaged)
 //   kScratch16  logits = raw * ka' - kb * qsum; acc = acc * a - sum(p * vc)
 //           + bf16(p) . v_sc; out and lse as kPaged
 //   kScratch8  sq = amax|q| / 127 (1 where 0), qi = rint(q / sq), qsum =
@@ -138,16 +151,17 @@ constexpr int kMinD = 264, kMaxD = kCols * kMaxCluster;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-enum Mode : int { kDense, kPaged, kScratch16, kScratch8 };
+enum Mode : int { kDense, kPaged, kScratch16, kScratch8, kContig };
 
 struct Args {
   void* out;               // [Z, Sq, D]: f32, or bf16 where out_bf16 (kDense)
-  float* lse;              // [Z, Sq] (kPaged)
+  float* lse;              // [Z, Sq] (kPaged, kScratch16, kScratch8)
   int out_bf16, Sq, D, C;  // C = ceil(D / 256) blocks a cluster
   float sm;
-  int Skv;                 // kDense
+  int Skv;                 // kDense, kContig
   // kPaged: one sequence's page chain over pools [n_slots, Z, P/vpb, D]
-  // and sidecars [n_slots, Z, P]
+  // and sidecars [n_slots, Z, P]; kContig: K and V [Z, Skv, D/vpb] and
+  // their sidecars [Z, Skv] (the pointers below)
   const int* page_table;
   const int* page_tokens;
   const uint8_t* k_data;
@@ -157,8 +171,9 @@ struct Args {
   const float* v_scale;
   const float* v_zp;
   int n_pages, n_slots, Z, P;
-  // kPaged split over the page chain (nsplit > 1, grid z): each split's
-  // unnormalized o [nsplit, Z, Sq, D] and (m, l) [nsplit, C, Z, Sq], and a
+  // kPaged, kContig split over the chain of tiles (nsplit > 1, grid z):
+  // each split's unnormalized o [nsplit, Z, Sq, D] and (m, l) [nsplit, C,
+  // Z, Sq], and a
   // zeroed counter a (query tile, head, rank) that the merging block resets
   int nsplit;
   float* part_o;
@@ -176,8 +191,9 @@ struct Args {
 
 // Shared memory of a block: q [128][256], three stages each of K and V
 // [32][256] (bf16, 4 chunks of [rows][128 B] swizzled), two buffers of
-// partial S (f32, 128 x 32), two stages of sidecars (kPaged), q's partial
-// channel sums, the packed rows of two K and two V tiles (kPaged), and the
+// partial S (f32, 128 x 32), two stages of sidecars (kPaged, kContig), q's
+// partial channel sums, the packed rows of two K and two V tiles (kPaged,
+// kContig), and the
 // mbarriers (q; K and V full a stage).
 struct Smem {
   static constexpr int kQ = kBQ * kCols * 2;
@@ -257,6 +273,71 @@ __device__ __forceinline__ void unpack_raw(const uint8_t* raw, int Pp, int h0,
             tile + unit_at(tok, u + 1),
             quant_flash::bf16_levels<BITS>(quant_flash::field<BITS>(w.z, p)),
             quant_flash::bf16_levels<BITS>(quant_flash::field<BITS>(w.w, p)));
+    }
+  }
+}
+
+// kContig: the bytes of `rows` packed rows of Dp bytes (`base`: the first
+// row) that hold this block's channels, n bytes from byte s on, wrapping at
+// Dp, into raw + 256 r + k (k < n: byte (s + k) % Dp of row r), in copies
+// of CB bytes (CB divides Dp, s, n and the rows' address): cp.async of 16,
+// 8 or 4 bytes, plain loads of 2 or 1.
+template <int CB>
+__device__ __forceinline__ void copy_contig(uint8_t* raw, const uint8_t* base,
+                                            int Dp, int s, int n, int rows,
+                                            int tid) {
+  const int per = n / CB, run = min(n, Dp - s);  // copies a row; bytes to Dp
+  for (int c = tid; c < rows * per; c += kThreads) {
+    const int r = c / per, k = (c % per) * CB;
+    const uint8_t* src = base + (size_t)r * Dp + (k < run ? s + k : k - run);
+    uint8_t* dst = raw + r * kCols + k;
+    if constexpr (CB == 16)
+      cp_async16(dst, src, 16);
+    else if constexpr (CB == 8)
+      cp_async8(dst, src);
+    else if constexpr (CB == 4)
+      cp_async4(dst, src, 4);
+    else if constexpr (CB == 2)
+      *reinterpret_cast<uint16_t*>(dst) =
+          *reinterpret_cast<const uint16_t*>(src);
+    else
+      *dst = *src;
+  }
+}
+
+// kContig: the levels of the copied rows into the tile. Column i < ncol of
+// this block (channel c0 + i) is bit field (c0 + i) / Dp of raw[256 r + i %
+// Dp]. A thread unpacks the 8 columns from 8u (u = tid % 32) of rows tid /
+// 32 + 8h: with RUN (Dp % 8 == 0) one field of 8 consecutive bytes, read at
+// once; else each column from its own byte and field.
+template <int BITS, bool RUN>
+__device__ __forceinline__ void unpack_contig(const uint8_t* raw, int Dp,
+                                              int c0, int ncol, uint8_t* tile,
+                                              int tid) {
+  const int u = tid % (kCols / 8), i = 8 * u;
+  if (i >= ncol) return;
+#pragma unroll
+  for (int h = 0; h < TK * kCols / 8 / kThreads; ++h) {
+    const int r = tid / (kCols / 8) + h * (kThreads / (kCols / 8));
+    const uint8_t* row = raw + r * kCols;
+    if constexpr (RUN) {
+      const int p = (c0 + i) / Dp;
+      const uint2 w = *reinterpret_cast<const uint2*>(row + i % Dp);
+      quant_flash::st_shared(
+          tile + unit_at(r, u),
+          quant_flash::bf16_levels<BITS>(quant_flash::field<BITS>(w.x, p)),
+          quant_flash::bf16_levels<BITS>(quant_flash::field<BITS>(w.y, p)));
+    } else {
+      float lv[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int ch = c0 + i + e;
+        lv[e] = (float)((row[(i + e) % Dp] >> ((ch / Dp) * BITS)) &
+                        ((1 << BITS) - 1));
+      }
+      *reinterpret_cast<uint4*>(tile + unit_at(r, u)) =
+          make_uint4(pack_bf16(lv[0], lv[1]), pack_bf16(lv[2], lv[3]),
+                     pack_bf16(lv[4], lv[5]), pack_bf16(lv[6], lv[7]));
     }
   }
 }
@@ -371,6 +452,7 @@ __device__ __forceinline__ void empty_rows(const Args& a, int q0, int rows0,
 // where the plain version weighs every key equally.
 constexpr int kMaxSplit = 8;
 
+template <bool kLse>  // whether rank 0 writes the lse (kPaged)
 __device__ __forceinline__ void merge_splits(const Args& a,
                                              const float (&o)[kCols / 2],
                                              const float (&m)[2],
@@ -442,7 +524,8 @@ __device__ __forceinline__ void merge_splits(const Args& a,
       *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + 8 * j) =
           make_float2(__fmul_rn(y0, inv), __fmul_rn(y1, inv));
     }
-    if (rank == 0 && q4 == 0) a.lse[(size_t)z * a.Sq + row] = M + logf(wl);
+    if (kLse && rank == 0 && q4 == 0)
+      a.lse[(size_t)z * a.Sq + row] = M + logf(wl);
   }
 }
 
@@ -474,12 +557,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) >> 5;
   const int lane = tid & 31, g = lane >> 2, q4 = lane & 3;
   const int rows0 = wg * 64 + warp * 16 + g;  // and rows0 + 8, in the tile
+  // K and V by TMA (kDense, kScratch16), or as packed rows by cp.async
+  constexpr bool kTma = MODE == kDense || MODE == kScratch16;
   // tiles a page (kPaged, kScratch16), and the tiles
-  const int tpp = MODE != kDense ? (a.P + TK - 1) / TK : 1;
+  const int tpp = MODE == kPaged || MODE == kScratch16 ? (a.P + TK - 1) / TK
+                                                      : 1;
   // the tiles, and this split's: [t0, t0 + T)
-  const int Tall = MODE == kDense   ? (a.Skv + TK - 1) / TK
-                   : MODE == kPaged ? a.n_pages * tpp
-                                    : a.slot_pages[z / a.H] * tpp;
+  const int Tall = MODE == kDense || MODE == kContig ? (a.Skv + TK - 1) / TK
+                   : MODE == kPaged                  ? a.n_pages * tpp
+                                     : a.slot_pages[z / a.H] * tpp;
   const int tps = (Tall + a.nsplit - 1) / a.nsplit, t0 = blockIdx.z * tps;
   const int T = min(tps, Tall - t0);
   const int Pp = MODE == kPaged ? a.P / (8 / BITS) : 1;
@@ -499,15 +585,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_barrier_init();
   }
   // zeros where no load writes: q's and (kDense, kScratch16) the tiles'
-  // chunks past D; (kPaged) the whole K and V tiles, whose tokens past a
-  // page's data and columns past D the loader leaves
+  // chunks past D; (kPaged, kContig) the whole K and V tiles, whose tokens
+  // past a page's data and columns past D the loader leaves
   {
     uint4* qz = reinterpret_cast<uint4*>(Qs + nch * kBQ * kSw);
     for (int i = tid; i < (kChunks - nch) * kBQ * kSw / 16; i += kThreads)
       qz[i] = make_uint4(0, 0, 0, 0);
     for (int s = 0; s < 2 * kStages; ++s) {
       uint8_t* tile = Ks + s * L::kTile;  // K stages, then V stages
-      const int from = MODE == kPaged ? 0 : nch * TK * kSw;
+      const int from = kTma ? nch * TK * kSw : 0;
       uint4* p = reinterpret_cast<uint4*>(tile + from);
       for (int i = tid; i < (L::kTile - from) / 16; i += kThreads)
         p[i] = make_uint4(0, 0, 0, 0);
@@ -611,12 +697,56 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto scr_tokens = [&](int t) {
     return a.page_tokens[(size_t)(z / a.H) * a.n_max + t / tpp];
   };
+  // kContig: the n = min(ncol, Dp) bytes of a packed row from byte c0 % Dp
+  // on hold this block's channels; they are copied CB bytes at once, the
+  // largest of 16, 8, 4, 2, 1 that divides Dp, n and the pointers (cp.async
+  // needs the smaller the alignment), and unpacked after a barrier
+  const int Dp = MODE == kContig ? a.D / (8 / BITS) : 1;
+  const int cn = min(ncol, Dp), cs = c0 % Dp;
+  const int cb = [&] {
+    const uintptr_t at = (uintptr_t)a.k_data | (uintptr_t)a.v_data;
+    const unsigned any =
+        (unsigned)Dp | (unsigned)cn | (unsigned)(at & 15) | 16u;
+    return (int)(any & (0u - any));  // the lowest set bit
+  }();
+  auto craw = [&](uint8_t* raw, const uint8_t* data, int t) {
+    const int tok = (t0 + t) * TK, rows = min(TK, a.Skv - tok);
+    const uint8_t* base = data + ((size_t)z * a.Skv + tok) * Dp;
+    switch (cb) {
+      case 16: copy_contig<16>(raw, base, Dp, cs, cn, rows, tid); break;
+      case 8: copy_contig<8>(raw, base, Dp, cs, cn, rows, tid); break;
+      case 4: copy_contig<4>(raw, base, Dp, cs, cn, rows, tid); break;
+      case 2: copy_contig<2>(raw, base, Dp, cs, cn, rows, tid); break;
+      default: copy_contig<1>(raw, base, Dp, cs, cn, rows, tid); break;
+    }
+  };
+  auto cunpack = [&](const uint8_t* raw, int t, uint8_t* ring) {
+    uint8_t* tile = ring + (t % kStages) * L::kTile;
+    if constexpr (BITS == 8) {
+      unpack_contig<BITS, true>(raw, Dp, c0, ncol, tile, tid);
+    } else {
+      if (Dp % 8 == 0)
+        unpack_contig<BITS, true>(raw, Dp, c0, ncol, tile, tid);
+      else
+        unpack_contig<BITS, false>(raw, Dp, c0, ncol, tile, tid);
+    }
+  };
+  // kContig: the sidecars of tile t, token tid (tid < 32; 0 past Skv)
+  auto cside_of = [&](int t) {
+    const int tok = (t0 + t) * TK + tid;
+    float4 sd = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (tid < TK && tok < a.Skv) {
+      const size_t at = (size_t)z * a.Skv + tok;
+      sd = make_float4(a.k_scale[at], a.k_zp[at], a.v_scale[at], a.v_zp[at]);
+    }
+    return sd;
+  };
 
   if (tid == 0) {
     mbar_expect_tx(q_full, nch * kBQ * kSw);
     for (int c = 0; c < nch; ++c)
       tma_load_3d(Qs + c * kBQ * kSw, &tq, q_full, c0 + 64 * c, q0, z);
-    if constexpr (MODE == kDense || MODE == kScratch16) {
+    if constexpr (kTma) {
       for (int t = 0; t < kStages && t < T; ++t) load_tile(&tk, Ks, kfull, t);
       for (int t = 0; t < kStages - 1 && t < T; ++t)
         load_tile(&tv, Vs, vfull, t);
@@ -667,6 +797,25 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the rows the first tile unpacks: copies run two tiles ahead
     if (T > 2) raw_of(kraw(2), a.k_data, 2, slot_of(2));
     if (T > 1) raw_of(vraw(1), a.v_data, 1, slot_of(1));
+    cp_async_commit();
+    fence_proxy_async();
+    mbar_wait(q_full, 0);
+    q_sums();
+  } else if constexpr (MODE == kContig) {
+    // tiles 0 and 1 of K and tile 0 of V, unpacked by every thread once all
+    // have landed; then the copies two tiles ahead
+    craw(kraw(0), a.k_data, 0);
+    if (T > 1) craw(kraw(1), a.k_data, 1);
+    craw(vraw(0), a.v_data, 0);
+    cp_async_wait_all();
+    __syncthreads();
+    cunpack(kraw(0), 0, Ks);
+    if (T > 1) cunpack(kraw(1), 1, Ks);
+    cunpack(vraw(0), 0, Vs);
+    put_side(cside_of(0), 0);
+    __syncthreads();  // the rows read before the next copies overwrite them
+    if (T > 2) craw(kraw(2), a.k_data, 2);
+    if (T > 1) craw(vraw(1), a.v_data, 1);
     cp_async_commit();
     fence_proxy_async();
     mbar_wait(q_full, 0);
@@ -739,7 +888,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float sl2 = a.sm * kLog2e;
   float cur[kS], nxt[kS];
 
-  if constexpr (MODE != kPaged) mbar_wait(kfull, 0);
+  if constexpr (kTma) mbar_wait(kfull, 0);
   issue_s(nxt, 0);
   wgmma_wait<0>();
   fence_regs(nxt);
@@ -764,13 +913,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool more = t + 1 < T;
     const int b = t & 1;
     if (more) {  // S of the next tile runs under this one's exchange
-      if constexpr (MODE != kPaged)
+      if constexpr (kTma)
         mbar_wait(kfull + (t + 1) % kStages, ((t + 1) / kStages) & 1);
       issue_s(nxt, t + 1);
     }
     float4 sd_next = make_float4(0.f, 0.f, 0.f, 0.f);
     int slot_next = 0, tokens_next = 0;
-    if constexpr (MODE == kDense || MODE == kScratch16) {
+    if constexpr (kTma) {
       if (tid == 0 && t + kStages < T) load_tile(&tk, Ks, kfull, t + kStages);
       __syncwarp();
       if constexpr (MODE == kScratch16) {
@@ -779,7 +928,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           tokens_next = scr_tokens(t + 1);
         }
       }
-    } else {  // the packed rows of the tiles unpacked a tile later
+    } else if constexpr (MODE == kPaged) {  // the packed rows of the tiles
+      // unpacked a tile later
       if (t + 3 < T) raw_of(kraw(t + 3), a.k_data, t + 3, slot3);
       if (t + 2 < T) raw_of(vraw(t + 2), a.v_data, t + 2, slot2);
       cp_async_commit();
@@ -788,6 +938,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         tokens_next = a.page_tokens[(t0 + t + 1) / tpp];
       }
       slot_next = slot_of(t + 4);
+    } else {
+      if (t + 3 < T) craw(kraw(t + 3), a.k_data, t + 3);
+      if (t + 2 < T) craw(vraw(t + 2), a.v_data, t + 2);
+      cp_async_commit();
+      if (more) sd_next = cside_of(t + 1);
     }
     gather_b(cur, b);
 
@@ -821,8 +976,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int h = 0; h < 2; ++h)
         l_run[h] = l_run[h] * alpha[h] + quant_flash::quad_sum(rsum[h]);
     } else {
-      const int h0 = ((t0 + t) % tpp) * TK, present = min(a.P - h0, TK);
-      const int valid = min(max(min(tokens, a.P) - h0, 0), TK);
+      int present, valid;
+      if constexpr (MODE == kContig) {
+        present = valid = min(a.Skv - (t0 + t) * TK, TK);
+      } else {
+        const int h0 = ((t0 + t) % tpp) * TK;
+        present = min(a.P - h0, TK);
+        valid = min(max(min(tokens, a.P) - h0, 0), TK);
+      }
       const float* sd = sides + (t & 1) * 4 * TK;
       float msc[2], rsum[2] = {0.f, 0.f};
       if (valid < TK) {
@@ -865,8 +1026,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       else
         o[i] = __fmaf_rn(o[i], alpha[(i >> 1) & 1], -csum[(i >> 1) & 1]);
     }
-    if constexpr (MODE != kPaged)
-      mbar_wait(vfull + t % kStages, (t / kStages) & 1);
+    if constexpr (kTma) mbar_wait(vfull + t % kStages, (t / kStages) & 1);
     const uint32_t v_addr = smem_u32(Vs + (t % kStages) * L::kTile);
     wgmma_fence();
 #pragma unroll
@@ -885,8 +1045,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         tokens = tokens_next;
       }
     }
+    // kContig: the rows copied a tile ago, which other threads unpack
+    if constexpr (MODE == kContig) cp_async_wait<1>();
     __syncthreads();  // both warpgroups' P.V of tile t - 1: its V stage free
-    if constexpr (MODE != kPaged) {
+    if constexpr (kTma) {
       if (tid == 0 && t + kStages - 1 < T)
         load_tile(&tv, Vs, vfull, t + kStages - 1);
       __syncwarp();
@@ -909,13 +1071,23 @@ __global__ void __launch_bounds__(kThreads, 1)
       slot2 = slot3;
       slot3 = slot_next;
       tokens = tokens_next;
+    } else if constexpr (MODE == kContig) {
+      if (t + 2 < T) cunpack(kraw(t + 2), t + 2, Ks);
+      if (more) {
+        cunpack(vraw(t + 1), t + 1, Vs);
+        put_side(sd_next, t + 1);
+      }
+      fence_proxy_async();
+      __syncthreads();  // every thread's levels before the products read
+                        // them, and its reads before the next copies
     }
   }
   wgmma_wait<0>();
   fence_regs(o);
 
-  if (MODE == kPaged && a.nsplit > 1) {
-    merge_splits(a, o, m_run, l_run, q0, rows0, z, C, rank, c0, ncol, q4);
+  if ((MODE == kPaged || MODE == kContig) && a.nsplit > 1) {
+    merge_splits<MODE == kPaged>(a, o, m_run, l_run, q0, rows0, z, C, rank,
+                                 c0, ncol, q4);
   } else {
   // out (this block's columns), and the lse from rank 0
 #pragma unroll
@@ -942,7 +1114,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + 8 * j) =
             make_float2(y0, y1);
     }
-    if (MODE != kDense && rank == 0 && q4 == 0)
+    if ((MODE == kPaged || MODE == kScratch16) && rank == 0 && q4 == 0)
       a.lse[(size_t)z * a.Sq + row] = m_run[h] + logf(l);
   }
   }
@@ -1494,19 +1666,24 @@ inline bool bf16_map(CUtensorMap* map, const void* ptr, int Z, int rows, int D,
                   boxes, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// The splits of a single-sequence paged call over its page chain: enough
-// clusters to fill the card (as many at once as it runs of this size), at
-// least 4 tiles of 32 tokens a split, at most kMaxSplit, and no split empty.
-inline int paged_splits(int C, int Z, int Sq, int n_pages, int P) {
-  const int clusters = ((Sq + kBQ - 1) / kBQ) * Z;
-  const int tiles = n_pages * ((P + TK - 1) / TK);
-  static int placed[kMaxCluster + 1] = {};  // clusters at once by C
-  if (placed[C] == 0) placed[C] = max(active_clusters<kPaged, 4>(C), -1);
-  const int active = placed[C];
+// The splits of a chain of `tiles` tiles of 32 tokens over which each of
+// `clusters` clusters runs (`active` of their size run at once): enough to
+// fill the card, at least 4 tiles a split, at most kMaxSplit, and no split
+// empty (dlm_paged_attention_cluster_splits and
+// dlm_quant_attention_cluster_splits ask it for the wrappers).
+inline int chain_splits(int active, int clusters, int tiles) {
   int n = active > 0 ? active / clusters : 1;
   n = max(1, min(min(n, tiles / 4), kMaxSplit));
   const int per = (tiles + n - 1) / n;
   return (tiles + per - 1) / per;
+}
+
+// Whether nsplit is what chain_splits can give for `tiles` (no split
+// empty).
+inline bool splits_fit(int nsplit, int tiles) {
+  if (nsplit < 1 || nsplit > kMaxSplit) return false;
+  const int per = (tiles + nsplit - 1) / nsplit;
+  return (tiles + per - 1) / per == nsplit;
 }
 
 // The blocks of a cluster for heads of D, or 0 outside [kMinD, kMaxD].

@@ -1,6 +1,6 @@
-// Attention at head widths past 256, for Hopper (sm_90a): the wide
-// instance of the quantized-KV contiguous design, and of dense,
-// single-sequence paged and batched paged attention past 2048.
+// Attention at head widths past 2048, for Hopper (sm_90a): the wide
+// instance of dense, quantized-KV (contiguous and single-sequence paged)
+// and batched paged attention.
 //
 // The instances of csrc/dense_attention.cu, csrc/quant_flash.cuh and
 // csrc/paged_flash.cuh hold a whole head row of q, K and V in shared memory
@@ -9,10 +9,9 @@
 // (diffusion_llm_rs_tpu/ops/pallas_attention.py:165-176, :262-269;
 // pallas_paged_attention.py:174, :757). Here the head width D is a runtime
 // argument, and neither shared memory nor registers grow with it. This
-// header serves mode kContig at every width past 256, and kDense, kPaged,
-// kScratch16 and kScratch8 past 2048: from 264 to 2048 dense,
-// single-sequence paged and batched paged attention run the cluster design
-// of csrc/wide_cluster_flash.cuh, which issues S once.
+// header serves its modes past 2048: from 264 to 2048 every one of them
+// runs the cluster design of csrc/wide_cluster_flash.cuh, which issues S
+// once.
 //   - output columns over blocks: a block owns kDV = 128 output columns of
 //     64 query rows; the grid is (query tiles, ceil(D / 128), heads). Every
 //     column block of a query tile computes the same S and the same online
@@ -58,9 +57,7 @@
 // This is a simple design that is right, not a fast one: S is computed once
 // for each column block, q's chunks are read again for every KV tile (from
 // L2), and the quantized loaders read a byte an element. PERF.md gives its
-// times beside its bound; the next redesign moves kContig onto the cluster
-// design, as kDense, kPaged, kScratch16 and kScratch8 were moved for heads
-// of 264 to 2048.
+// times beside its bound; past 2048 no shipped configuration reaches it.
 
 #pragma once
 

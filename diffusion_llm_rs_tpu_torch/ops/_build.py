@@ -85,6 +85,13 @@ SIGNATURES = {
                                                    (_I,) * 3),
     "dlm_quant_attention_wide": ("quant_flash_contig_wide",
                                  (_P,) * 8 + (_I,) * 5 + (_F, _P)),
+    "dlm_quant_attention_cluster": ("quant_flash_contig_wide",
+                                    (_P,) * 8 + (_I,) * 5 + (_F, _P, _I)
+                                    + (_P,) * 3),
+    "dlm_quant_attention_cluster_active": ("quant_flash_contig_wide",
+                                           (_I, _I)),
+    "dlm_quant_attention_cluster_splits": ("quant_flash_contig_wide",
+                                           (_I,) * 5),
     "dlm_quant_attention": ("quant_flash_contig",
                             (_P,) * 8 + (_I,) * 5 + (_F, _P)),
     "dlm_quant_attention_padded": ("quant_flash_contig_padded",

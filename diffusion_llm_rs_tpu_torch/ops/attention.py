@@ -17,20 +17,23 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_attention.py`:
   - `fused_qkv_attention` (TPU kernel `_qkv_kernel`): every head straight
     from the fused [B, S, 3D] projection -> [B, S, D], the full softmax row
     normalised before P is rounded to bf16. Kernel:
-    `csrc/fused_qkv_attention.cu`. Like JAX's, the denoiser does not call
-    it; a caller reaches it through `denoiser_forward(attend_fn=...)`.
+    `csrc/fused_qkv_attention.cu`: its `wgmma` design at heads of up to 256
+    (instances of 32, 64, 128, 192 and 256, `fused_qkv_head_width`), its
+    first design past 256. Like JAX's, the denoiser does not call it; a
+    caller reaches it through `denoiser_forward(attend_fn=...)`.
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version (`*_plain`), which repeats the TPU kernel's tile
 loop at the same rounding points. The kernels take every head width D that is
 a multiple of 8, with no upper limit (`head_dim_fits`), as JAX's take every
 such width its VMEM holds. Up to 256 a head of D runs in the instance of the
 smallest `KERNEL_WIDTHS` entry that holds it, zero past D; past 256 it runs
-in the wide instance of its design (D a runtime argument, `instance`): dense
-attention from 264 to 2048 in a cluster of ceil(D / 256) blocks, each 256
-columns of the head, the partial S summed across the cluster
-(`csrc/wide_cluster_flash.cuh`, `cluster_blocks`); quantized-KV attention,
-and dense attention past 2048, in `csrc/wide_flash.cuh` (the output columns
-split over blocks of 128, S summed over chunks of 64 head columns in each).
+in the wide instance of its design (D a runtime argument, `instance`): from
+264 to 2048 in a cluster of ceil(D / 256) blocks, each 256 columns of the
+head, the partial S summed across the cluster (`csrc/wide_cluster_flash.cuh`,
+`cluster_blocks`; quantized-KV attention's chain of KV tiles split over
+clusters, `quant_cluster_splits`); past 2048 in `csrc/wide_flash.cuh` (the
+output columns split over blocks of 128, S summed over chunks of 64 head
+columns in each).
 Where D % 8 != 0 the JAX package runs no Pallas kernel
 but XLA, and so does the port, on either device: `flash_fold` takes
 `dense_attention_einsum` (the einsum branch of JAX's `_flash_fold`),
@@ -56,6 +59,7 @@ WIDE_CHUNK = 64       # head columns a chunk of the wide instance's S
 CLUSTER_COLUMNS = 256  # head columns a block of the cluster kernels owns
 CLUSTER_MAX = 8        # blocks a cluster at most (the portable size)
 CLUSTER_ROWS = 128     # query rows a cluster
+CLUSTER_KV_TILE = 32   # tokens a KV tile of the cluster kernels
 KERNEL_KV_TILE = 64   # tokens per online-softmax step of `csrc/quant_flash_contig.cu`
 KERNEL_BITS = (1, 2, 4, 8)
 
@@ -120,7 +124,7 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(the kernel reads them by TMA)")
     out = torch.empty((BH, Sq, D), dtype=out_dtype, device=q.device)
     # `csrc/dense_attention.cu` holds every width up to 256
-    wide = instance(D, cluster=True) if D > KERNEL_WIDTHS[-1] else ""
+    wide = instance(D) if D > KERNEL_WIDTHS[-1] else ""
     _build.check(_build.function(f"dlm_dense_attention{wide}")(
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.bfloat16), BH, Sq, Skv, D, float(sm_scale),
@@ -259,14 +263,22 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 def attention_plain(q: torch.Tensor, k: QuantKV, v: QuantKV,
                     sm_scale: Optional[float] = None,
-                    tile: Optional[int] = None) -> torch.Tensor:
+                    tile: Optional[int] = None,
+                    splits: int = 1) -> torch.Tensor:
     """Plain version of `attention`, the TPU `_attn_kernel`'s arithmetic:
     bf16 q with its f32 channel sum qsum; logits = (q.lv_k * ks - qsum *
     (ks*kz)) * sm_scale; the V scale folds into P (bf16(p * vs) times the raw
     levels) with the zero-point as a row correction sum(p * vs * vz); out =
     acc / l, f32. `tile` is the online softmax's step in tokens: by default
     the TPU kernel's (the first of 512, 256, 128 that divides Skv), else the
-    CUDA kernel's 64; a ragged last tile is simply shorter."""
+    CUDA kernels' 64 or 32; a ragged last tile is simply shorter. `splits`
+    runs the chain of tiles as the cluster kernel splits it over clusters:
+    runs of ceil(tiles / splits) tiles, each its own online softmax, merged
+    by (m, l): M = max m_s, w_s = exp(m_s - M), out = sum w_s acc_s / sum
+    w_s l_s. bf16(p * vs) then rounds against each run's own running max, so
+    the output moves by up to about 4e-3 from the chain in one run (N(0, 1)
+    keys and values, 4 and 8 bits), as the choice of tile moves it (ROADMAP
+    C19, C44)."""
     BH, Sq, D = q.shape
     Skv = k.shape[1]
     sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
@@ -276,23 +288,38 @@ def attention_plain(q: torch.Tensor, k: QuantKV, v: QuantKV,
     qb = _bf16(q)
     qsum = qb.sum(dim=-1, keepdim=True)                       # [BH, Sq, 1]
     k_lv, v_lv = k.levels().float(), v.levels().float()
-    m = torch.full((BH, Sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((BH, Sq, D), dtype=torch.float32, device=q.device)
-    for j in range(0, Skv, tile):
-        ks, kz, vs, vz = (a[:, None, j:j + tile] for a in (
-            k.scale, k.zero_point, v.scale, v.zero_point))
-        raw = qb @ k_lv[:, j:j + tile].transpose(1, 2)        # [BH, Sq, TK]
-        logits = (raw * ks - qsum * (ks * kz)) * sm
-        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
-        p = torch.exp(logits - m_new)
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        pv = _bf16(p * vs) @ v_lv[:, j:j + tile]
-        corr = (p * vs * vz).sum(dim=-1, keepdim=True)
-        acc = acc * alpha + pv - corr
-        m = m_new
-    return acc / l
+
+    def run(j0, j1):  # the online softmax over tokens [j0, j1)
+        m = torch.full((BH, Sq, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((BH, Sq, D), dtype=torch.float32, device=q.device)
+        for j in range(j0, j1, tile):
+            e = min(j + tile, j1)
+            ks, kz, vs, vz = (a[:, None, j:e] for a in (
+                k.scale, k.zero_point, v.scale, v.zero_point))
+            raw = qb @ k_lv[:, j:e].transpose(1, 2)           # [BH, Sq, TK]
+            logits = (raw * ks - qsum * (ks * kz)) * sm
+            m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+            p = torch.exp(logits - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            pv = _bf16(p * vs) @ v_lv[:, j:e]
+            corr = (p * vs * vz).sum(dim=-1, keepdim=True)
+            acc = acc * alpha + pv - corr
+            m = m_new
+        return m, l, acc
+
+    if splits == 1:
+        m, l, acc = run(0, Skv)
+        return acc / l
+    tiles = -(-Skv // tile)
+    per = -(-tiles // splits) * tile  # tokens a run
+    parts = [run(j, min(j + per, Skv)) for j in range(0, Skv, per)]
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    w = [torch.exp(m - M) for m, _, _ in parts]
+    wl = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+    return sum(wi * acc for wi, (_, _, acc) in zip(w, parts)) / wl
 
 
 def attention_fallback(q: torch.Tensor, k: QuantKV, v: QuantKV,
@@ -317,7 +344,11 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     version, and CUDA tensors launch the kernel, which serves every Sq and
     Skv >= 1 at 1/2/4/8 bits and every head width (`head_dim_fits`; the TPU
     wrapper hands shapes off its tiling to an XLA path with other
-    roundings)."""
+    roundings): up to 256 `csrc/quant_flash_contig.cu`, from 264 to 2048
+    its cluster instance (the chain of 32-token KV tiles split over
+    `quant_cluster_splits` clusters and merged in the launch), past 2048
+    its wide
+    instance."""
     if k.bits != v.bits or k.shape != v.shape:
         raise ValueError(f"attention: K {k.shape} at {k.bits} bits, "
                          f"V {v.shape} at {v.bits} bits")
@@ -351,20 +382,66 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     qb = q.to(torch.bfloat16).contiguous()
     kd, ks, kz, vd, vs, vz = (t.contiguous() for t in (
         k.data, k.scale, k.zero_point, v.data, v.scale, v.zero_point))
-    # bytes the kernel's loader reads from a packed row at once (the wide
-    # instance reads a byte at a time)
+    # bytes the kernel's loader reads from a packed row at once (the cluster
+    # and wide instances take any alignment)
     row = 1 if D > KERNEL_WIDTHS[-1] else math.gcd(Dp, 8)
     if qb.data_ptr() % 16 or kd.data_ptr() % row or vd.data_ptr() % row:
         raise ValueError(f"attention: q must be 16-byte and the packed K/V "
                          f"{row}-byte aligned")
     out = torch.empty((BH, Sq, D), dtype=torch.float32, device=q.device)
-    _build.check(_build.function(f"dlm_quant_attention{instance(D)}")(
-        qb.data_ptr(), kd.data_ptr(), ks.data_ptr(), kz.data_ptr(),
-        vd.data_ptr(), vs.data_ptr(), vz.data_ptr(), out.data_ptr(),
-        BH, Sq, Skv, D, k.bits, float(sm),
-        torch.cuda.current_stream(q.device).cuda_stream), "quant_attention")
+    suffix = instance(D)
+    args = (qb.data_ptr(), kd.data_ptr(), ks.data_ptr(), kz.data_ptr(),
+            vd.data_ptr(), vs.data_ptr(), vz.data_ptr(), out.data_ptr(),
+            BH, Sq, Skv, D, k.bits, float(sm),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if suffix == "_cluster":  # the chain split over clusters, merged in-launch
+        n = quant_cluster_splits(BH, Sq, Skv, D, k.bits)
+        scratch = split_scratch(q.device, n, BH, Sq, D)
+        args += (n, *(None if t is None else t.data_ptr() for t in scratch))
+    _build.check(_build.function(f"dlm_quant_attention{suffix}")(*args),
+                 "quant_attention")
     _build.launch_counts["quant_attention"] += 1
     return out
+
+
+def quant_cluster_splits(BH: int, Sq: int, Skv: int, D: int,
+                         bits: int) -> int:
+    """The splits over which `attention`'s cluster instance (heads of 264 to
+    2048 on the card) runs the chain of ceil(Skv / 32) KV tiles of each of
+    its ceil(Sq / 128) x BH clusters: enough to fill the card, at least 4
+    tiles a split, at most 8, and no split empty
+    (`dlm_quant_attention_cluster_splits`)."""
+    n = _build.function("dlm_quant_attention_cluster_splits")(
+        BH, Sq, Skv, D, bits)
+    if n < 0:
+        _build.check(-n, "quant_attention")
+    return n
+
+
+# the zeroed counters of the cluster kernels' splits, by device, the last the
+# largest; the kernels leave them zero (so calls that split share them one
+# stream at a time). None is freed when a larger one is made: a CUDA graph
+# captured at a smaller shape replays with the counters it was captured with.
+_split_counters = {}
+
+
+def split_scratch(device, n: int, BH: int, Sq: int, D: int):
+    """What a cluster kernel whose chain runs in `n` splits takes beside
+    its arguments (`csrc/wide_cluster_flash.cuh: merge_splits`): where n >
+    1, scratch for the splits' partial o and (m, l) and the counters by
+    which the last block of each column slice merges them; (None, None,
+    None) where n == 1 (tensors: the caller holds them until the launch)."""
+    if n == 1:
+        return (None, None, None)
+    C = cluster_blocks(D)
+    part_o = torch.empty((n, BH, Sq, D), dtype=torch.float32, device=device)
+    part_ml = torch.empty((n, C, BH, Sq, 2), dtype=torch.float32,
+                          device=device)
+    need = -(-Sq // CLUSTER_ROWS) * BH * C
+    held = _split_counters.setdefault(device, [])
+    if not held or held[-1].numel() < need:
+        held.append(torch.zeros(need, dtype=torch.int32, device=device))
+    return (part_o, part_ml, held[-1])
 
 
 # ------------------------------- the head widths the kernels take; fused-QKV
@@ -386,7 +463,7 @@ def kernel_width(D: int) -> int:
 
 def cluster_blocks(D: int) -> int:
     """The blocks of a cluster that serve heads of D in the cluster design
-    of dense, single-sequence paged and batched paged attention
+    of every attention kernel but fused-QKV attention
     (`csrc/wide_cluster_flash.cuh`: each block `CLUSTER_COLUMNS` columns of
     the head): ceil(D / 256) from 264 to 2048, where a cluster has at most
     `CLUSTER_MAX` blocks, else 0."""
@@ -396,14 +473,14 @@ def cluster_blocks(D: int) -> int:
     return -(-D // CLUSTER_COLUMNS)
 
 
-def instance(D: int, cluster: bool = False) -> str:
+def instance(D: int) -> str:
     """The suffix of the C entry point a head of D launches: "" at a
-    `KERNEL_WIDTHS` entry, "_padded" between them (a source of its own), and
-    past them "_cluster" where the caller's design has a cluster kernel
-    (`cluster`: dense, single-sequence paged and batched paged attention)
-    and `cluster_blocks(D)` takes D, else "_wide" (`csrc/wide_flash.cuh`)."""
+    `KERNEL_WIDTHS` entry, "_padded" between them (a source of its own; the
+    quantized-KV kernels), and past them "_cluster" where `cluster_blocks(D)`
+    takes D (`csrc/wide_cluster_flash.cuh`), else "_wide"
+    (`csrc/wide_flash.cuh`)."""
     if D > KERNEL_WIDTHS[-1]:
-        return "_cluster" if cluster and cluster_blocks(D) else "_wide"
+        return "_cluster" if cluster_blocks(D) else "_wide"
     return "" if D == kernel_width(D) else "_padded"
 
 
@@ -413,6 +490,15 @@ def _head_dim_error(name: str, D: int) -> ValueError:
 
 
 FUSED_QKV_VMEM = 8 * 1024 * 1024  # the TPU kernel's whole-row budget
+FUSED_QKV_WIDTHS = (32, 64, 128, 192, 256)  # the wgmma design's instances
+
+
+def fused_qkv_head_width(Hd: int) -> int:
+    """The instance of the fused-QKV `wgmma` design that runs heads of Hd
+    (`csrc/fused_qkv_attention.cu: head_width`): the smallest of
+    `FUSED_QKV_WIDTHS` that holds it, zero past Hd; 0 past 256, where the
+    kernel's first design serves."""
+    return next((w for w in FUSED_QKV_WIDTHS if Hd <= w), 0)
 
 
 def fused_qkv_fits(qkv_shape, num_heads: int) -> bool:
@@ -455,7 +541,9 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int,
     wrapper returns None (`fused_qkv_fits`).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
-    (bf16 or f32 out), which serves every shape the predicate admits."""
+    (bf16 or f32 out), which serves every shape the predicate admits: heads
+    of up to 256 in its `wgmma` design (`fused_qkv_head_width`), wider ones
+    in its first design."""
     if qkv.ndim != 3:
         raise ValueError(f"fused_qkv_attention: qkv must be [B, S, 3D], got "
                          f"{tuple(qkv.shape)}")

@@ -51,12 +51,11 @@ from typing import Sequence, Tuple
 import torch
 
 from diffusion_llm_rs_tpu_torch.ops import _build
-from diffusion_llm_rs_tpu_torch.ops.attention import (CLUSTER_ROWS,
-                                                      KERNEL_WIDTHS,
+from diffusion_llm_rs_tpu_torch.ops.attention import (KERNEL_WIDTHS,
                                                       _head_dim_error,
-                                                      cluster_blocks,
                                                       head_dim_fits, instance,
-                                                      kernel_width)
+                                                      kernel_width,
+                                                      split_scratch)
 from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
 NEG_INF = -1e30
@@ -259,7 +258,7 @@ def paged_attention(q, page_table, k_data, k_scale, k_zp, v_data, v_scale,
     pt, nt = (t.to(torch.int32).contiguous() for t in (page_table, page_tokens))
     out = torch.empty((BH, Sq, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
-    suffix = instance(D, cluster=True)
+    suffix = instance(D)
     args = (qb.data_ptr(), pt.data_ptr(), nt.data_ptr(),
             *(t.data_ptr() for t in pools), out.data_ptr(), lse.data_ptr(), BH,
             Sq, D, n_pages, n_slots, P, bits, float(sm),
@@ -273,33 +272,15 @@ def paged_attention(q, page_table, k_data, k_scale, k_zp, v_data, v_scale,
     return (out, lse) if return_lse else out
 
 
-# the zeroed counters of the cluster kernel's splits, by device; the kernel
-# leaves them zero (so calls that split share them one stream at a time)
-_split_counters = {}
-
-
 def _cluster_splits(device, BH, Sq, D, n_pages, P):
     """What `dlm_paged_attention_cluster` takes past the single-sequence
     arguments: the splits of the page chain (`csrc/wide_cluster_flash.cuh:
-    paged_splits`) and, where more than one, scratch for the splits'
-    partials and the counters by which the last block of each column slice
-    merges them (tensors: the caller holds them until the launch)."""
+    paged_splits`) and `split_scratch` for them."""
     n = _build.function("dlm_paged_attention_cluster_splits")(
         BH, Sq, D, n_pages, P)
     if n < 0:
         _build.check(-n, "paged_attention")
-    if n == 1:
-        return (1, None, None, None)
-    C = cluster_blocks(D)
-    part_o = torch.empty((n, BH, Sq, D), dtype=torch.float32, device=device)
-    part_ml = torch.empty((n, C, BH, Sq, 2), dtype=torch.float32,
-                          device=device)
-    need = -(-Sq // CLUSTER_ROWS) * BH * C
-    counters = _split_counters.get(device)
-    if counters is None or counters.numel() < need:
-        counters = _split_counters[device] = torch.zeros(
-            need, dtype=torch.int32, device=device)
-    return (n, part_o, part_ml, counters)
+    return (n, *split_scratch(device, n, BH, Sq, D))
 
 
 # ----------------------------------------------------------------- batched
@@ -567,7 +548,7 @@ def batched_instance(D: int) -> str:
     up to 256 (the instance of the scratch's width, `paged_flash.cuh`),
     "_cluster" from 264 to 2048 and "_wide" past (`ops/attention.py:
     instance`)."""
-    return instance(D, cluster=True) if D > KERNEL_WIDTHS[-1] else ""
+    return instance(D) if D > KERNEL_WIDTHS[-1] else ""
 
 
 def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,

@@ -32,6 +32,17 @@ def test_fused_qkv_attention_matches_jax_kernel(S, D, H):
     relative Frobenius error <= 1e-5 and |d| <= 2e-5 (measured up to 3.3e-7
     and 3.7e-6, against outputs of ~0.3); bf16 out: within one bf16 ulp of
     the output, element by element."""
+    _matches_jax_kernel(S, D, H)
+
+
+@pytest.mark.parametrize("D,H", [(384, 2), (512, 2)])
+def test_fused_qkv_attention_matches_jax_kernel_at_wide_heads(D, H):
+    """Heads of 192 and 256, the widest instances of the port's `wgmma`
+    design: the tolerances above."""
+    _matches_jax_kernel(16, D, H)
+
+
+def _matches_jax_kernel(S, D, H):
     B = 2
     xb, xt = _qkv(B, S, D, seed=S + D + H)
     for jdt, tdt, rtol, atol in ((jnp.float32, torch.float32, 0.0, 2e-5),

@@ -261,10 +261,15 @@ def test_int8w_mlp_too_wide_runs_chained(gen):
 QKV_SHAPES = [(8, 256, 768, 12), (1, 864, 768, 12), (2, 200, 128, 4),
               (2, 72, 64, 8),
               # ragged S at heads of 32 and 128; heads of 128 at S = 864;
-              # heads of 24 (padded to 32) and of 256 (wider than the
-              # wgmma kernel takes)
+              # heads of 24 (padded to 32) and of 256
               (2, 328, 256, 8), (2, 136, 512, 4), (1, 864, 768, 6),
-              (2, 72, 120, 5), (1, 64, 768, 3)]
+              (2, 72, 120, 5), (1, 64, 768, 3),
+              # the wgmma design's instances of 192 and 256: heads of 136
+              # (padded to 192), of 192 at S = 864, of 200 (padded to 256),
+              # of 256 at the sampler's shape; and of 384, past them (the
+              # first design)
+              (2, 136, 544, 4), (1, 864, 768, 4), (2, 200, 800, 4),
+              (8, 256, 768, 3), (1, 64, 768, 2)]
 
 
 @pytest.mark.parametrize("B,S,D,H", QKV_SHAPES)
@@ -331,8 +336,7 @@ def test_dense_attention_cluster_edges_match_twin(gen, Skv, D, out_dtype):
     q = torch.randn((2, 100, D), generator=gen, device="cuda")
     k, v = (torch.randn((2, Skv, D), generator=gen, device="cuda")
             for _ in range(2))
-    assert qa.instance(D, cluster=True) == ("_wide" if D > 2048
-                                            else "_cluster")
+    assert qa.instance(D) == ("_wide" if D > 2048 else "_cluster")
     _build.reset_launch_counts()
     out = dense_attention(q, k, v, out_dtype=out_dtype)
     torch.cuda.synchronize()
@@ -672,7 +676,7 @@ def test_paged_attention_cluster_splits_merge_in_launch(gen, D):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(g_out, out) and torch.equal(g_lse, lse)
-    assert not bool(pa._split_counters[q.device].any())
+    assert not any(bool(t.any()) for t in qa._split_counters[q.device])
 
 
 @pytest.mark.parametrize("P", PAGES)
@@ -956,6 +960,17 @@ def test_batched_paged_attention_past_the_clusters_runs_wide(gen):
 
 # ------------------------------------------------ quantized-KV attention ---
 
+def _quant_plain(q, k, v):
+    """`attention_plain` at the KV tile of the kernel that serves these
+    heads (64 tokens; the cluster instance's 32 at heads of 264 to 2048) and
+    the cluster instance's split of the chain over clusters."""
+    BH, Sq, D = q.shape
+    if qa.instance(D) != "_cluster":
+        return qa.attention_plain(q, k, v, tile=qa.KERNEL_KV_TILE)
+    n = qa.quant_cluster_splits(BH, Sq, k.shape[1], D, k.bits)
+    return qa.attention_plain(q, k, v, tile=qa.CLUSTER_KV_TILE, splits=n)
+
+
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("Sq,Skv", [(64, 64), (256, 256), (100, 100), (10, 10),
                                     (1, 1), (70, 1000)])
@@ -976,7 +991,7 @@ def test_quant_attention_kernel_matches_plain(gen, bits, Sq, Skv, D):
     torch.cuda.synchronize()
     assert _build.launch_counts["quant_attention"] == 1
     assert out.dtype == torch.float32 and out.shape == (BH, Sq, D)
-    ref = qa.attention_plain(q, k, v, tile=qa.KERNEL_KV_TILE)
+    ref = _quant_plain(q, k, v)
     rel = float((out - ref).norm() / ref.norm())
     assert rel <= 2e-3 and bool(torch.isfinite(out).all()), rel
 
@@ -995,9 +1010,196 @@ def test_quant_attention_kernel_at_sampler_shapes(gen, bits, BH, S, D):
     out = qa.attention(q, k, v)
     torch.cuda.synchronize()
     assert _build.launch_counts["quant_attention"] == 1
-    ref = qa.attention_plain(q, k, v, tile=qa.KERNEL_KV_TILE)
+    ref = _quant_plain(q, k, v)
     rel = float((out - ref).norm() / ref.norm())
     assert rel <= 2e-3 and bool(torch.isfinite(out).all()), rel
+
+
+# quantized-KV attention's cluster instance (csrc/wide_cluster_flash.cuh mode
+# kContig, heads of 264 to 2048): a last block of 8 and of 16 columns (264,
+# 272; packed rows of 33 bytes at D = 264 and 1 bit), clusters of 3, 4 and 8
+QUANT_CLUSTER = [264, 272, 520, 1024, 2048]
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("Sq", [1, 100, 256])
+@pytest.mark.parametrize("Skv", [1, 33, 999])
+@pytest.mark.parametrize("D", QUANT_CLUSTER)
+def test_quant_attention_cluster_matches_plain(gen, bits, Sq, Skv, D):
+    """One launch of the cluster entry point, within 2e-3 relative of the
+    plain version at the kernel's tile of 32 tokens, with the chain in one
+    run and split over clusters as the kernel splits it where the card has
+    room (`quant_cluster_splits`). V is N(1, 3), where splitting the chain
+    moves the output little; at N(0, 1) values it moves it by up to about
+    4e-3 from the chain in one run, which
+    `test_quant_attention_cluster_split_at_unit_values` bounds."""
+    BH = 3
+    assert qa.instance(D) == "_cluster"
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    k = qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen, device="cuda"),
+                       bits)
+    v = qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen, device="cuda")
+                       * 3 + 1, bits)
+    _build.reset_launch_counts()
+    out = qa.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["quant_attention"] == 1
+    assert out.dtype == torch.float32 and out.shape == (BH, Sq, D)
+    n = qa.quant_cluster_splits(BH, Sq, Skv, D, bits)
+    for splits in {1, n}:
+        ref = qa.attention_plain(q, k, v, tile=qa.CLUSTER_KV_TILE,
+                                 splits=splits)
+        rel = float((out - ref).norm() / ref.norm())
+        assert rel <= 2e-3 and bool(torch.isfinite(out).all()), (splits, rel)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("BH,D", [(16, 384), (8, 768)])
+def test_quant_attention_cluster_split_at_unit_values(gen, bits, BH, D):
+    """The scan sampler's wide shapes (Sq = Skv = 256) with N(0, 1) q, K and
+    V, where the chain splits: within 2e-3 relative of the plain version
+    split as the kernel splits it, and within 5e-3 of the chain in one run
+    (a split rounds bf16(p * vs) against its own running max: 3.5e-3 to
+    3.9e-3 between the two plain schedules here, ROADMAP C44;
+    `chip_smoke.py` holds the timed rows to the same bounds)."""
+    S = 256
+    n = qa.quant_cluster_splits(BH, S, S, D, bits)
+    assert n > 1, n
+    q = torch.randn((BH, S, D), generator=gen, device="cuda")
+    k, v = (qa.quantize_kv(torch.randn((BH, S, D), generator=gen,
+                                       device="cuda"), bits)
+            for _ in range(2))
+    out = qa.attention(q, k, v)
+    for splits, bound in ((n, 2e-3), (1, 5e-3)):
+        ref = qa.attention_plain(q, k, v, tile=qa.CLUSTER_KV_TILE,
+                                 splits=splits)
+        rel = float((out - ref).norm() / ref.norm())
+        print(f"D={D} {bits}-bit, {n} splits, against {splits}: rel {rel:.3g}")
+        assert rel <= bound and bool(torch.isfinite(out).all()), (splits, rel)
+
+
+def test_quant_attention_cluster_splits_merge_in_launch(gen):
+    """At few query tiles the chain splits over clusters
+    (`quant_cluster_splits`) and merges in the same launch: a graph replay
+    equal to the eager call bit for bit, the merge counters left at zero,
+    and packed rows of 33 bytes whose pointer is off by one row (a view one
+    token into the data, contiguous at BH = 1, so byte loads run)."""
+    BH, Sq, Skv, D, bits = 1, 256, 999, 264, 1
+    n = qa.quant_cluster_splits(BH, Sq, Skv, D, bits)
+    assert n > 1, n
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    k, v = (qa.quantize_kv(torch.randn((BH, Skv + 1, D), generator=gen,
+                                       device="cuda"), bits)
+            for _ in range(2))
+    k, v = (qa.QuantKV(t.data[:, 1:], t.scale[:, 1:], t.zero_point[:, 1:],
+                       bits, D) for t in (k, v))
+    assert k.data.is_contiguous() and k.data.data_ptr() % 2 == 1
+    out = qa.attention(q, k, v)
+    ref = qa.attention_plain(q, k, v, tile=qa.CLUSTER_KV_TILE, splits=n)
+    assert float((out - ref).norm() / ref.norm()) <= 2e-3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = qa.attention(q, k, v)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_out, out)
+    assert not any(bool(t.any()) for t in qa._split_counters[q.device])
+
+
+def _offset_kv(t, offset):
+    """`t` with its packed bytes moved `offset` bytes past an aligned
+    address, still contiguous (so the wrapper launches on that pointer)."""
+    buf = torch.empty(t.data.numel() + 16, dtype=torch.uint8,
+                      device=t.data.device)
+    data = buf[offset:offset + t.data.numel()].view(t.data.shape)
+    data.copy_(t.data)
+    assert data.is_contiguous() and data.data_ptr() % 16 == offset % 16
+    return qa.QuantKV(data, t.scale, t.zero_point, t.bits, t.D)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 8, 16])
+def test_quant_attention_cluster_loads_at_every_alignment(gen, offset):
+    """Packed rows of 256 bytes (D = 512, 4 bits) whose pointers are `offset`
+    bytes past a 16-byte boundary: the loader copies 16, 8 or 4 bytes by
+    cp.async, or 2 or 1 by plain loads, as the pointers allow. One launch,
+    the plain version's tolerance, the chain split."""
+    BH, Sq, Skv, D, bits = 1, 200, 700, 512, 4
+    n = qa.quant_cluster_splits(BH, Sq, Skv, D, bits)
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    k, v = (_offset_kv(qa.quantize_kv(torch.randn(
+        (BH, Skv, D), generator=gen, device="cuda"), bits), offset)
+        for _ in range(2))
+    _build.reset_launch_counts()
+    out = qa.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["quant_attention"] == 1
+    ref = qa.attention_plain(q, k, v, tile=qa.CLUSTER_KV_TILE, splits=n)
+    rel = float((out - ref).norm() / ref.norm())
+    assert rel <= 2e-3 and bool(torch.isfinite(out).all()), (n, rel)
+
+
+def test_split_counters_outlive_the_graphs_that_use_them(gen, monkeypatch):
+    """A graph captured at a shape whose chain splits replays right after a
+    larger call that splits has needed more merge counters: the counters the
+    graph was captured with are kept beside the larger ones, so the replay
+    equals the eager call bit for bit and every counter is left at zero
+    (were they freed, memory taken since would hold the graph's counts)."""
+    D, bits, Skv = 512, 4, 1024
+    dev = torch.device("cuda", torch.cuda.current_device())
+    monkeypatch.setitem(qa._split_counters, dev, [])
+
+    def inputs(BH, Sq):
+        q = torch.randn((BH, Sq, D), generator=gen, device=dev)
+        kv = [qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen,
+                                         device=dev), bits) for _ in range(2)]
+        assert qa.quant_cluster_splits(BH, Sq, Skv, D, bits) > 1
+        return (q, *kv)
+
+    small, large = inputs(1, 128), inputs(4, 256)
+    out = qa.attention(*small)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = qa.attention(*small)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_out, out)
+    big = qa.attention(*large)  # 16 counters where the graph's hold 2
+    junk = [torch.full((2,), 7, dtype=torch.int32, device=dev)
+            for _ in range(64)]  # small blocks, as the first counters were
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_out, out)
+    assert all(bool((t == 7).all()) for t in junk)
+    assert not any(bool(t.any()) for t in qa._split_counters[dev])
+    ref = qa.attention_plain(*large, tile=qa.CLUSTER_KV_TILE,
+                             splits=qa.quant_cluster_splits(4, 256, Skv, D,
+                                                            bits))
+    assert float((big - ref).norm() / ref.norm()) <= 2e-3
+
+
+def test_quant_attention_past_the_clusters_runs_wide(gen):
+    """Heads of 2056 launch the wide instance (csrc/wide_flash.cuh), and
+    each entry point refuses the widths of the other."""
+    D = 2056
+    assert qa.instance(D) == "_wide"
+    q = torch.randn((2, 70, D), generator=gen, device="cuda")
+    k, v = (qa.quantize_kv(torch.randn((2, 130, D), generator=gen,
+                                       device="cuda"), 4) for _ in range(2))
+    _build.reset_launch_counts()
+    out = qa.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["quant_attention"] == 1
+    ref = qa.attention_plain(q, k, v, tile=qa.KERNEL_KV_TILE)
+    assert float((out - ref).norm() / ref.norm()) <= 2e-3
+    p = (q.data_ptr(), k.data.data_ptr(), k.scale.data_ptr(),
+         k.zero_point.data_ptr(), v.data.data_ptr(), v.scale.data_ptr(),
+         v.zero_point.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    assert _build.function("dlm_quant_attention_wide")(
+        *p, 2, 70, 130, 2048, 4, 1.0, stream) != 0
+    assert _build.function("dlm_quant_attention_cluster")(
+        *p, 2, 70, 130, D, 4, 1.0, stream, 1, None, None, None) != 0
+    assert _build.function("dlm_quant_attention_cluster_active")(D, 4) < 0
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
@@ -1023,7 +1225,7 @@ def test_quant_attention_refuses_what_the_kernel_does_not_take(gen):
     out = qa.attention(q, k, k)
     torch.cuda.synchronize()
     assert _build.launch_counts["quant_attention"] == 1
-    ref = qa.attention_plain(q, k, k, tile=qa.KERNEL_KV_TILE)
+    ref = _quant_plain(q, k, k)
     assert float((out - ref).norm() / ref.norm()) <= 2e-3
     q = torch.randn((2, 8, 264), generator=gen, device="cuda")
     for bits in (1, 2, 4, 8):
@@ -1033,7 +1235,7 @@ def test_quant_attention_refuses_what_the_kernel_does_not_take(gen):
         out = qa.attention(q, k, k)
         torch.cuda.synchronize()
         assert _build.launch_counts["quant_attention"] == 1
-        ref = qa.attention_plain(q, k, k, tile=qa.KERNEL_KV_TILE)
+        ref = _quant_plain(q, k, k)
         assert float((out - ref).norm() / ref.norm()) <= 2e-3
     q = torch.randn((2, 8, 64), generator=gen, device="cuda")
     k = qa.quantize_kv(torch.randn((2, 16, 64), generator=gen, device="cuda"), 4)

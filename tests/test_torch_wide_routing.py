@@ -1,20 +1,23 @@
 """Which design serves each head width, and the cluster design's arithmetic.
 
-Dense, single-sequence paged and batched paged attention run heads of 264
-to 2048 in the cluster kernels of `csrc/wide_cluster_flash.cuh` (ceil(D /
-256) blocks, each 256 columns of the head, the partial S summed in rank
-order), and past 2048 in `csrc/wide_flash.cuh`; `quant_attention` keeps
-`wide_flash.cuh` past 256. The routing is plain Python (`ops/attention.py:
-instance`, `cluster_blocks`, `ops/paged_attention.py: batched_instance`),
-checked here without a card. The models below repeat the cluster kernels'
-schedule in torch on the CPU (tiles of 32 tokens, the S of each tile summed
-from 256-column partials in rank order, q's channel sum likewise, the paged
-chain split and merged; the batched int8 path's exchanges of q's row
-maxima and integer sums, its s32 partial S in sub-tiles of 64 tokens, a
-page's sub-tiles held for the per-page requantization and P.V in two halves
-of 128 columns a block) and
-hold it against the plain versions the card tests hold the kernels against,
-at those tests' tolerances. No JAX.
+Dense, quantized-KV (contiguous and single-sequence paged) and batched
+paged attention run heads of 264 to 2048 in the cluster kernels of
+`csrc/wide_cluster_flash.cuh` (ceil(D / 256) blocks, each 256 columns of the
+head, the partial S summed in rank order), and past 2048 in
+`csrc/wide_flash.cuh`; fused-QKV attention runs heads of up to 256 in its
+`wgmma` design's instances of 32-256 and wider ones in its first design. The
+routing is plain Python (`ops/attention.py: instance`, `cluster_blocks`,
+`fused_qkv_head_width`, `ops/paged_attention.py: batched_instance`), checked
+here without a card. The models below repeat
+the cluster kernels' schedule in torch on the CPU (tiles of 32 tokens, the S
+of each tile summed from 256-column partials in rank order, q's channel sum
+likewise, the chain of tiles split and merged; the contiguous mode's levels
+unpacked from the bytes of each block-packed row that hold a block's
+channels; the batched int8 path's exchanges of q's row maxima and integer
+sums, its s32 partial S in sub-tiles of 64 tokens, a page's sub-tiles held
+for the per-page requantization and P.V in two halves of 128 columns a
+block) and hold it against the plain versions the card tests hold the
+kernels against, at those tests' tolerances. No JAX.
 """
 
 import math
@@ -26,31 +29,49 @@ import torch
 from diffusion_llm_rs_tpu_torch.ops import attention as qa
 from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
 
-# (D, blocks of a cluster, dense and paged suffix, quant_attention suffix,
+# (D, blocks of a cluster, dense suffix, quant_attention and paged suffix,
 # batched paged suffix)
 ROUTES = [
     (8, 0, "", "_padded", ""), (64, 0, "", "", ""),
     (200, 0, "", "_padded", ""), (256, 0, "", "", ""),
-    (264, 2, "_cluster", "_wide", "_cluster"),
-    (272, 2, "_cluster", "_wide", "_cluster"),
-    (384, 2, "_cluster", "_wide", "_cluster"),
-    (512, 2, "_cluster", "_wide", "_cluster"),
-    (520, 3, "_cluster", "_wide", "_cluster"),
-    (768, 3, "_cluster", "_wide", "_cluster"),
-    (1024, 4, "_cluster", "_wide", "_cluster"),
-    (2048, 8, "_cluster", "_wide", "_cluster"),
+    (264, 2, "_cluster", "_cluster", "_cluster"),
+    (272, 2, "_cluster", "_cluster", "_cluster"),
+    (384, 2, "_cluster", "_cluster", "_cluster"),
+    (512, 2, "_cluster", "_cluster", "_cluster"),
+    (520, 3, "_cluster", "_cluster", "_cluster"),
+    (768, 3, "_cluster", "_cluster", "_cluster"),
+    (1024, 4, "_cluster", "_cluster", "_cluster"),
+    (2048, 8, "_cluster", "_cluster", "_cluster"),
     (2056, 0, "_wide", "_wide", "_wide"),
     (4096, 0, "_wide", "_wide", "_wide")]
 
 
+# each case keeps the ID it was first given, when quant_attention ran
+# "_wide" past 256
 @pytest.mark.parametrize("D,blocks,cluster,other,batched", ROUTES,
-                         ids=[f"{D}-{n}-{c}-{o}" for D, n, c, o, _ in ROUTES])
+                         ids=[f"{D}-{n}-{c}-{'_wide' if D > 256 else o}"
+                              for D, n, c, o, _ in ROUTES])
 def test_each_head_width_reaches_its_design(D, blocks, cluster, other,
                                             batched):
+    """`dense_attention` launches `instance(D)` past 256 and its one
+    source below; `attention` and `paged_attention` launch `instance(D)`
+    (their padded sources between the fixed widths)."""
     assert qa.cluster_blocks(D) == blocks
-    assert qa.instance(D, cluster=True) == (cluster or other)
+    assert (qa.instance(D) if D > qa.KERNEL_WIDTHS[-1] else "") == cluster
     assert qa.instance(D) == other
     assert pa.batched_instance(D) == batched
+
+
+# (head width, the fused-QKV wgmma instance that runs it; 0: the first
+# design, past 256)
+QKV_ROUTES = [(8, 32), (24, 32), (32, 32), (40, 64), (64, 64), (72, 128),
+              (120, 128), (128, 128), (136, 192), (192, 192), (200, 256),
+              (256, 256), (264, 0), (768, 0)]
+
+
+@pytest.mark.parametrize("Hd,width", QKV_ROUTES)
+def test_fused_qkv_head_width(Hd, width):
+    assert qa.fused_qkv_head_width(Hd) == width
 
 
 @pytest.mark.parametrize("D", [260, 2050, 12])
@@ -178,6 +199,90 @@ def test_paged_cluster_schedule_matches_the_plain_version(bits, P, D, nsplit):
             q, pt, *pools, bits=bits, page_tokens=tokens, return_lse=True)
         assert float((out - ref).norm() / ref.norm()) <= 1e-2
         torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+
+
+def contig_block_levels(data, D, bits, c0):
+    """The levels kContig's block of columns [c0, c0 + 256) unpacks from a
+    block-packed [BH, S, Dp] row: the n = min(ncol, Dp) bytes from c0 % Dp
+    on, wrapping at Dp, as copied (raw[k] = byte (c0 % Dp + k) % Dp), then
+    column i = bit field (c0 + i) // Dp of raw[i % Dp]."""
+    Dp = D // (8 // bits)
+    ncol = min(256, D - c0)
+    raw = data[..., (c0 % Dp + torch.arange(min(ncol, Dp))) % Dp]
+    i = torch.arange(ncol)
+    return ((raw[..., i % Dp].to(torch.int32) >> ((c0 + i) // Dp * bits))
+            & ((1 << bits) - 1))
+
+
+def contig_cluster_model(q, k, v, sm, nsplit):
+    """kContig's schedule: each block's levels from its bytes of the packed
+    rows; KV tiles of 32 tokens, the chain of ceil(Skv / 32) tiles in runs
+    of ceil(tiles / nsplit), each its own online softmax, merged in split
+    order by (m, l); qsum and S from 256-column partials in rank order;
+    logits = raw * ka' - kb * qsum (ka' = ks * sm, kb = ka' * kz); the V
+    scale folded into P before bf16; out = acc * (1 / l)."""
+    BH, Sq, D = q.shape
+    Skv = k.shape[1]
+    qb = q.to(torch.bfloat16).float()
+    qsum = _rank_sum(qb)
+    k_lv, v_lv = (torch.cat([contig_block_levels(t.data, D, t.bits, c0)
+                             for c0 in range(0, D, 256)], -1).float()
+                  for t in (k, v))
+    tiles = list(range(0, Skv, 32))
+    per = -(-len(tiles) // nsplit)
+    parts = []
+    for t0 in range(0, len(tiles), per):
+        m = torch.full((BH, Sq, 1), qa.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((BH, Sq, D))
+        for j in tiles[t0:t0 + per]:
+            sl = slice(j, min(Skv, j + 32))
+            ks, kz, vs, vz = (a[:, None, sl] for a in (
+                k.scale, k.zero_point, v.scale, v.zero_point))
+            ka = ks * sm
+            logits = _partials_sum(qb, k_lv[:, sl]) * ka - (ka * kz) * qsum
+            m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+            p = torch.exp(logits - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            pv = (p * vs).to(torch.bfloat16).float() @ v_lv[:, sl]
+            acc = acc * alpha + pv - (p * vs * vz).sum(-1, keepdim=True)
+            m = m_new
+        parts.append((m, l, acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - M) for m, _, _ in parts]
+    wl = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+    return sum(wi * a for wi, (_, _, a) in zip(w, parts)) * (1.0 / wl)
+
+
+@pytest.mark.parametrize("nsplit", [1, 3])
+@pytest.mark.parametrize("Skv", [64, 130])
+@pytest.mark.parametrize("bits", [1, 4, 8])
+@pytest.mark.parametrize("D", [264, 520])
+def test_contig_cluster_schedule_matches_the_plain_version(D, bits, Skv,
+                                                           nsplit):
+    """Each block's unpacked levels equal `QuantKV.levels()` over its
+    columns bit for bit (at D = 264 and 1 bit the rows are 33 bytes, so
+    every block's channels span fields of one byte run that wraps); the
+    schedule is within the card test's 2e-3 of `attention_plain` at the
+    kernel's tile of 32 tokens, with the chain in one run and split as the
+    model splits it."""
+    rng = np.random.default_rng(D + bits + Skv + nsplit)
+    BH, Sq = 2, 40
+    q = torch.from_numpy(rng.standard_normal((BH, Sq, D), dtype=np.float32))
+    k, v = (qa.quantize_kv(torch.from_numpy(
+        (rng.standard_normal((BH, Skv, D)) * s + o).astype(np.float32)), bits)
+        for s, o in ((1.0, 0.0), (3.0, 1.0)))
+    for t in (k, v):
+        lv = t.levels()
+        for c0 in range(0, D, 256):
+            assert torch.equal(contig_block_levels(t.data, D, bits, c0),
+                               lv[..., c0:c0 + 256])
+    sm = 1.0 / math.sqrt(D)
+    out = contig_cluster_model(q, k, v, sm, nsplit)
+    for splits in (1, nsplit):
+        ref = qa.attention_plain(q, k, v, sm, tile=32, splits=splits)
+        assert float((out - ref).norm() / ref.norm()) <= 2e-3
 
 
 def _rank_max(x, cols=256):
