@@ -61,17 +61,25 @@ Phases (any failure makes the script exit non-zero without the final line):
                 with 2 heads of 384 and one of 768; and untimed at heads of
                 264 (a ragged column block, packed rows of 33 bytes at 1
                 bit), 520 and 2048, and past the cluster kernels at 2056.
-                Every attention kernel but fused-QKV attention runs heads of
-                264 to 2048 in the cluster kernels
-                (csrc/wide_cluster_flash.cuh; the quantized-KV rows give the
-                splits of their chain over clusters, the batched rows the
-                clusters of their instance the card runs at once), the
-                clusters of each size the card runs at once are logged, and
-                any size it cannot place fails the phase; past 2048
-                csrc/wide_flash.cuh. fused_qkv_attention at B=8, S=256 and
-                864, width 768, with 12 heads of 64, 4 of 192, 3 of 256 (its
-                wgmma design) and 2 of 384 and one of 768 (its first design).
-                The
+                Every attention kernel runs heads of 264 to 2048 in the
+                cluster kernels (csrc/wide_cluster_flash.cuh, and for
+                fused-QKV attention csrc/fused_qkv_attention_wide.cu; the
+                quantized-KV rows give the splits of their chain over
+                clusters, the batched and fused-QKV rows the clusters of
+                their instance the card runs at once), the clusters of each
+                size the card runs at once are logged, and any size it
+                cannot place fails the phase; past 2048 csrc/wide_flash.cuh (and
+                fused-QKV attention's first design). fused_qkv_attention at
+                B=8, S=256 and 864, width 768, with 12 heads of 64, 4 of
+                192, 3 of 256 (its wgmma design) and 2 of 384 and one of 768
+                (its cluster kernel). Past 2048, timed, every attention
+                mode at heads of 2056 beside the cluster kernel at 2048 on
+                the same work: dense (BH=3, S=1024), quant_attention (BH=3,
+                S=256, 4-bit), paged_attention (BH=1, Sq=1024, 3 pages of
+                128), both batched kernels and paged_unpack (B=2, Sq=2048,
+                one head, 6 pages of 128 a slot), each the work of its row
+                of 768 within 0.4%, and fused_qkv_attention (B=8, S=256,
+                one head). The
                 kernels line gives each design's wide instance as
                 `wide_instance` (its first timed row, its design, source and
                 C entry point, and its launches on heads_wide's heads of 384
@@ -220,7 +228,7 @@ Phases (any failure makes the script exit non-zero without the final line):
 also times the attention kernels (`quant_attention`, `dense_attention`,
 `paged_attention` at the head widths 16, 32, 64, 96, 128, 192 and 256;
 `fused_qkv_attention` at 12 heads of 64, 4 of 192, 3 of 256, 2 of 384 and
-one of 768;
+one of 768, the last two also at S = 864;
 `paged_unpack` in both layouts and each batched paged kernel alone at
 serve_paged's pools, heads of 16 to 256; `PARENT_SHAPES`; the wide
 instances at heads of 384 and 768 as new rows, which a parent without them
@@ -555,7 +563,9 @@ def kernels():
     # the cluster kernel up to 2048): heads of 384 and 768 at the work of
     # heads of 128 (BH=16 and 8), timed; heads of 264 (a last block of 8
     # columns), of 520 with f32 out (a cluster of 3), of 2048 with f32 out
-    # (a cluster of 8) and of 2056 (csrc/wide_flash.cuh).
+    # (a cluster of 8) and of 2056 (csrc/wide_flash.cuh). Past 2048, timed:
+    # heads of 2056 at BH=3, the work of the row of 768 (BH=8) within 0.4%,
+    # beside the cluster kernel at 2048 on the same work.
     # bf16 P: the kernel's 128-wide KV tiles rescale at other points than the
     # twin's 512-wide ones, so bf16(p) may round differently: |d| <= 1e-2 and
     # rel Frobenius <= 1e-2
@@ -567,7 +577,8 @@ def kernels():
             (48, 1024, 96, bf16, True), (24, 1024, 256, bf16, True),
             (16, 1024, 384, bf16, True), (8, 1024, 768, bf16, True),
             (8, 300, 264, bf16, False), (4, 300, 520, f32, False),
-            (8, 256, 2048, f32, False), (2, 256, 2056, bf16, False)):
+            (8, 256, 2048, f32, False), (2, 256, 2056, bf16, False),
+            (3, 1024, 2056, bf16, True), (3, 1024, 2048, bf16, True)):
         q, k, v = (torch.randn((BH, S, Dh), generator=gen, device="cuda")
                    .to(bf16) for _ in range(3))
         out = dense_attention(q, k, v, out_dtype=dtype)
@@ -583,7 +594,8 @@ def kernels():
                                                         out_dtype=dtype))
             row["plain_ms"] = time_ms(lambda: dense_attention_plain(
                 q, k, v, out_dtype=dtype), 5)
-            q4, k4, v4 = (t.view(8, BH // 8, S, Dh) for t in (q, k, v))
+            nb = 8 if BH % 8 == 0 else 1  # BH=3 past 2048: one batch row
+            q4, k4, v4 = (t.view(nb, BH // nb, S, Dh) for t in (q, k, v))
             row["library_ms"] = time_ms(lambda: torch.nn.functional
                                         .scaled_dot_product_attention(q4, k4, v4))
             out_bytes = BH * S * Dh * (2 if dtype == bf16 else 4)
@@ -697,25 +709,41 @@ def _mlp_kernels(gen, results, bad):
 # fused_qkv_attention's shapes at width 768, B=8: the sampler's S=256 and
 # the largest S JAX's predicate admits at that width (864), at the model's
 # 12 heads of 64 and at 4 of 192 and 3 of 256 (the wgmma design's widest
-# instances), 2 of 384 and one of 768 (the first design's kernel)
+# instances), 2 of 384 and one of 768 (the cluster kernel)
 QKV_HEADS = (12, 4, 3, 2, 1)
+# past 2048: one head of 2056 at B=8, S=256 (JAX's predicate admits it; a
+# head of 2056 at width 768 does not exist, so its work is 2.7x the row of
+# 768 at S=256), the first design's kernel, beside the cluster kernel at
+# 2048 on the same work
+QKV_PAST = ((8, 256, 2056, 1), (8, 256, 2048, 1))
 
 
 def _fused_qkv_kernels(gen, results, bad):
-    """fused_qkv_attention at QKV_HEADS x S = 256 and 864, bf16 out, against
-    the plain version: relative Frobenius error <= 5e-3 (the kernel's sums
-    and CUDA's expf can move a bf16 rounding of P, and then of the output).
-    Yardsticks: split + SDPA (library_ms), and the einsum attention of
-    `denoiser.attention` (einsum_ms)."""
+    """fused_qkv_attention at QKV_HEADS x S = 256 and 864, and QKV_PAST,
+    bf16 out, against the plain version: relative Frobenius error <= 5e-3
+    (the kernel's sums and CUDA's expf can move a bf16 rounding of P, and
+    then of the output). Yardsticks: split + SDPA (library_ms), and the
+    einsum attention of `denoiser.attention` (einsum_ms). The cluster
+    kernel's rows (heads of 264 to 2048) log its clusters and the clusters
+    of their size the card runs at once."""
     from diffusion_llm_rs_tpu_torch.models.denoiser import attention as einsum
+    from diffusion_llm_rs_tpu_torch.ops import _build
     from diffusion_llm_rs_tpu_torch.ops import attention as at
 
     bf16 = torch.bfloat16
-    for B, S, D, H in ((8, S, 768, H) for H in QKV_HEADS for S in (256, 864)):
+    shapes = [(8, S, 768, H) for H in QKV_HEADS for S in (256, 864)]
+    for B, S, D, H in shapes + list(QKV_PAST):
         if not at.fused_qkv_fits((B, S, 3 * D), H) or (
                 S > 256 and at.fused_qkv_fits((B, S + 8, 3 * D), H)):
             raise AssertionError(f"JAX's predicate: S={S} at D={D}")
         Hd = D // H
+        cluster = {}
+        if at.fused_qkv_instance(Hd) == "_cluster":
+            cluster = dict(
+                clusters=-(-S // 128) * B * H,
+                blocks=at.cluster_blocks(Hd),
+                clusters_at_once=_build.function(
+                    "dlm_fused_qkv_attention_cluster_active")(Hd))
         qkv = torch.randn((B, S, 3 * D), generator=gen, device="cuda").to(bf16)
         out = at.fused_qkv_attention(qkv, H)
         ref = at.fused_qkv_attention_plain(qkv, H)
@@ -739,13 +767,15 @@ def _fused_qkv_kernels(gen, results, bad):
             shape=f"B={B} S={S} D={D} H={H}", max_abs_err=err, rel_err=rel,
             tolerance="rel Frobenius <= 5e-3", ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, einsum_ms=einsum_ms, bound_ms=b_ms,
-            bound_by=b_by))
-        log(f"  fused_qkv_attention B={B} S={S} H={H}: max_abs_err {err:.3g} "
-            f"rel {rel:.3g} {'ok' if ok else 'MISMATCH'}; {ms:.4f} ms, plain "
-            f"{plain_ms:.4f}, SDPA {lib_ms:.4f}, einsum {einsum_ms:.4f}, "
-            f"bound {b_ms:.4f} ({b_by})")
-        if not ok:
-            bad.append(f"fused_qkv_attention S={S} H={H}")
+            bound_by=b_by, wide=Hd > WIDE_FROM, **cluster))
+        log(f"  fused_qkv_attention B={B} S={S} D={D} H={H}: max_abs_err "
+            f"{err:.3g} rel {rel:.3g} {'ok' if ok else 'MISMATCH'}; {ms:.4f} "
+            f"ms, plain {plain_ms:.4f}, SDPA {lib_ms:.4f}, einsum "
+            f"{einsum_ms:.4f}, bound {b_ms:.4f} ({b_by})"
+            + (f"; {cluster['clusters']} clusters of {cluster['blocks']}, "
+               f"{cluster['clusters_at_once']} at once" if cluster else ""))
+        if not ok or cluster.get("clusters_at_once", 1) <= 0:
+            bad.append(f"fused_qkv_attention S={S} D={D} H={H}")
 
 
 def _quantized_pools(gen, n_slots, H, P, D, G, bits):
@@ -928,6 +958,12 @@ def _paged_kernels(gen, results, bad):
     cases += [(f"heads of {D}, pages of 32, partial page + empty slot", 4, 2,
                100, 32, ([3, 0], [20, 32]), False, (1, 1, D))
               for D in (2048, 2056)]
+    # past 2048, timed: one head of 2056 over 6 pages of 128 a slot (one
+    # head cannot shrink, so the pages do: 6 x 2056 is the 16 x 768 of the
+    # row of 768 within 0.4%), beside the cluster kernel at 2048 on the same
+    # work
+    cases += [(f"heads of {D}, S=2048 4-bit, 6 pages a slot", 4, 2, 2048, 128,
+               ([6, 6], [128, 128]), True, (1, 1, D)) for D in (2056, 2048)]
     for label, bits, B, sq, P, (npages, last), timed, (H, G, D) in cases:
         pools = _quantized_pools(gen, B * n, H, P, D, G, bits)
         q = torch.randn((B, H, sq, D), generator=gen, device="cuda").to(
@@ -1089,13 +1125,17 @@ def _paged_kernels(gen, results, bad):
 # wide instance's heads of 384 and 768 at the work of heads of 128 (BH=2
 # and 1); heads of 264 at 1 bit in pages of 64 (rows of 33 bytes, 8-byte
 # reads, a last block of 8 columns), of 2048 at 2 bits in pages of 32 (a
-# cluster of 8) and of 2056 (csrc/wide_flash.cuh)
+# cluster of 8) and of 2056 (csrc/wide_flash.cuh); past 2048, timed: heads
+# of 2056 over 3 pages (BH cannot go below 1, so the keys shrink: 3 x 128 x
+# 2056 is the 8 x 128 x 768 of the row of 768 within 0.4%), beside the
+# cluster kernel at 2048 on the same work
 PAGED_CASES = ((12, 1024, 8, 4, 128, 64), (8, 64, 8, 4, 8, 16),
                (4, 1024, 8, 4, 128, 16), (12, 1024, 8, 4, 128, 48),
                (6, 1024, 8, 4, 128, 96), (6, 1024, 8, 4, 128, 128),
                (3, 1024, 8, 4, 128, 256), (2, 1024, 8, 4, 128, 384),
                (1, 1024, 8, 4, 128, 768), (3, 200, 4, 1, 64, 264),
-               (1, 200, 4, 2, 32, 2048), (1, 200, 4, 4, 64, 2056))
+               (1, 200, 4, 2, 32, 2048), (1, 200, 4, 4, 64, 2056),
+               (1, 1024, 3, 4, 128, 2056), (1, 1024, 3, 4, 128, 2048))
 
 
 def _paged_label(label, BH, Sq, n, bits, P, D):
@@ -1145,7 +1185,12 @@ QA_CASES = (
     # instance (2056)
     ("heads of 520, long 1-bit", 4, 256, 999, 1, False, 520),
     ("heads of 2048, 4-bit", 2, 128, 300, 4, False, 2048),
-    ("heads of 2056, ragged 4-bit", 2, 100, 130, 4, False, 2056))
+    ("heads of 2056, ragged 4-bit", 2, 100, 130, 4, False, 2056),
+    # past 2048, timed: heads of 2056 at BH=3, the work of the row of 768
+    # (BH=8) within 0.4%, beside the cluster instance at 2048 on the same
+    # work
+    ("heads of 2056 past the clusters, 4-bit", 3, 256, 256, 4, True, 2056),
+    ("heads of 2048 at that work, 4-bit", 3, 256, 256, 4, True, 2048))
 
 
 def _qa_label(label, BH, Sq, Skv, bits, D):
@@ -2076,9 +2121,27 @@ def heads16():
 
 
 # heads of 96 and 256 (the fixed instances) and of 384 and 768 (the wide
-# instances: the cluster kernels of csrc/wide_cluster_flash.cuh, and
-# fused-QKV attention's first design) at width 768
+# instances: the cluster kernels of csrc/wide_cluster_flash.cuh and
+# csrc/fused_qkv_attention_wide.cu) at width 768
 WIDE_HEADS = (8, 3, 2, 1)
+
+
+def _replays_equal(fn):
+    """Whether `fn()` captured in a CUDA graph and replayed gives the eager
+    call's output bit for bit (the capture's launches are not counted)."""
+    from diffusion_llm_rs_tpu_torch.ops import _build
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), _build.recording_launches():
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with _build.recording_launches(), torch.cuda.graph(graph):
+        replayed = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return bool(torch.equal(replayed, eager))
 
 
 def heads_wide():
@@ -2105,7 +2168,8 @@ def heads_wide():
       - `PagedKVCache.attend` (`cache_attend`, 1024 tokens in pages of 64
         at 8/4/2 bits): paged_attention, one a width;
       - `denoiser_forward(attend_fn=<fused_qkv_attention>)` at B=2, S=256,
-        as phase fused_qkv runs it: fused_qkv_attention, L;
+        as phase fused_qkv runs it: fused_qkv_attention, L; the same
+        forward replayed from a CUDA graph bit for bit the eager one;
     token ids in range; card against the plain versions on the CPU within
     heads16's bounds (one forward at B=1, S=1024 through the dense kernel,
     and the fused-QKV forward, eps within 2e-2; `scan_check` at B=1, S=128;
@@ -2174,8 +2238,11 @@ def heads_wide():
 
         # fused-QKV attention through `attend_fn`, as phase fused_qkv runs
         # it (heads of 96 in the wgmma design's instance of 128, of 256 in
-        # its instance of 256, past 256 in its first design): L launches,
-        # the card against the plain versions on the CPU within 2e-2
+        # its instance of 256, past 256 in its cluster kernel): L launches,
+        # the card against the plain versions on the CPU within 2e-2, and
+        # the forward captured in a CUDA graph and replayed bit for bit the
+        # eager one (the cluster kernel's scratch of logits stays with the
+        # graph)
         attend = _fused_attend(heads)
         xf = torch.randn((2, 256, cfg.hidden_size), generator=gen,
                          device="cuda").to(torch.bfloat16)
@@ -2194,6 +2261,11 @@ def heads_wide():
             raise AssertionError(f"heads of {hd}: the fused-QKV forward "
                                  f"disagrees with the CPU")
         runs["eps_rel_err_fused_qkv"] = rel
+        runs["fused_qkv_replayed_equal"] = _replays_equal(
+            lambda: dn.denoiser_forward(params, cfg, xf, tf, attend_fn=attend))
+        if not runs["fused_qkv_replayed_equal"]:
+            raise AssertionError(f"heads of {hd}: the replayed fused-QKV "
+                                 f"forward differs from the eager one")
 
         # the scan sampler through the engine over this model's decoded W4A8
         # weights: its f32 activations reach the W4A8 kernels with an f32
@@ -4013,6 +4085,8 @@ KERNELS = {
 # paged_flash_wide.cu
 WIDE_SOURCES = {
     "dense_attention": "diffusion_llm_rs_tpu_torch/csrc/dense_attention_wide.cu",
+    "fused_qkv_attention":
+        "diffusion_llm_rs_tpu_torch/csrc/fused_qkv_attention_wide.cu",
     "quant_attention":
         "diffusion_llm_rs_tpu_torch/csrc/quant_flash_contig_wide.cu",
     "paged_attention":
@@ -4023,6 +4097,7 @@ WIDE_SOURCES = {
         "diffusion_llm_rs_tpu_torch/csrc/paged_flash_cluster.cu"}
 WIDE_ENTRY_POINTS = {
     "dense_attention": "dlm_dense_attention_cluster",
+    "fused_qkv_attention": "dlm_fused_qkv_attention_cluster",
     "quant_attention": "dlm_quant_attention_cluster",
     "paged_attention": "dlm_paged_attention_cluster",
     "batched_paged_attention": "dlm_batched_paged_attention_cluster",
@@ -4030,6 +4105,8 @@ WIDE_ENTRY_POINTS = {
     "paged_unpack": "dlm_paged_unpack"}
 WIDE_DESIGNS = {
     "dense_attention": "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh",
+    "fused_qkv_attention":
+        "diffusion_llm_rs_tpu_torch/csrc/fused_qkv_attention_wide.cu",
     "quant_attention": "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh",
     "paged_attention": "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh",
     "batched_paged_attention":
@@ -4049,7 +4126,14 @@ WIDE_DESIGN_NOTES = {
         "csrc/wide_flash.cuh",
     "diffusion_llm_rs_tpu_torch/csrc/wide_flash.cuh":
         "heads past 256: a block per 64 queries and 128 output columns on "
-        "mma.sync, S recomputed in each"}
+        "mma.sync, S recomputed in each",
+    "diffusion_llm_rs_tpu_torch/csrc/fused_qkv_attention_wide.cu":
+        "heads of 264-2048: the two exact passes of csrc/fused_qkv_attention"
+        ".cu over csrc/wide_cluster_flash.cuh's cluster (ceil(D/256) blocks "
+        "a 128-query tile, each 256 columns, partial S summed in rank order, "
+        "S and P.V on wgmma); pass 1's S kept in f32 scratch and read back "
+        "by pass 2, which runs P.V alone; past 2048 the first design in "
+        "csrc/fused_qkv_attention.cu"}
 ALSO_BUILT_FROM = {
     "matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",),
     # the heads between the instances' widths, from sources of their own
@@ -4065,7 +4149,8 @@ ALSO_BUILT_FROM = {
         "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu"),
     "batched_paged_attention_a8": (
         WIDE_SOURCES["batched_paged_attention_a8"],
-        "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu")}
+        "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu"),
+    "fused_qkv_attention": (WIDE_SOURCES["fused_qkv_attention"],)}
 
 
 # Run in a checkout (cwd), this one or an earlier commit's: the attention
@@ -4108,10 +4193,11 @@ PARENT_SHAPES = dict(
     # fused-QKV attention (B, S, D, H): the sampler's 12 heads of 64, and 4
     # heads of 192 and 3 of 256 (the first design's kernel in a parent
     # before the wgmma design took them, so the ratio is the redesign's),
-    # and past 256
+    # and 2 heads of 384 and one of 768 at S = 256 and 864 (the first
+    # design's kernel in a parent before the cluster kernel took them)
     fused_qkv=[(8, 256, 768, 12), (8, 256, 768, 4), (8, 864, 768, 4),
                (8, 256, 768, 3), (8, 864, 768, 3), (8, 256, 768, 2),
-               (8, 256, 768, 1)])
+               (8, 256, 768, 1), (8, 864, 768, 2), (8, 864, 768, 1)])
 PARENT_CODE = """
 import json, torch, chip_smoke as c
 from diffusion_llm_rs_tpu_torch.ops import _build
@@ -4126,7 +4212,8 @@ _build.build(("dense_attention", "quant_flash_contig", "quant_flash_paged",
               "int8_gemm", "int8_mlp", "fused_qkv_attention") + (
     ("dense_attention_wide", "quant_flash_contig_wide",
      "quant_flash_paged_wide", "paged_flash_wide") if wide else ()) + (
-    ("paged_flash_cluster",) if batched_cluster else ()))
+    ("paged_flash_cluster",) if batched_cluster else ()) + tuple(
+    n for n in ("fused_qkv_attention_wide",) if n in _build.SOURCES))
 if not wide:  # a checkout without the wide instances: their rows are new
     for key in [k for k in SHAPES if k.startswith("wide_")]:
         SHAPES[key] = []

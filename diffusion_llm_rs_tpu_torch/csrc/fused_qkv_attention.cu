@@ -41,8 +41,11 @@
 //     wgmma, whose V operand is read MN-major. Keys past S get -1e30 in the
 //     last tile only.
 // Heads wider than 256 would need more accumulator registers than a thread
-// has; they take `wide::fused_qkv_wide_kernel`, the first design of this
-// kernel (mma.sync, three walks over the keys, any multiple of 8).
+// has: from 264 to 2048 they run in csrc/fused_qkv_attention_wide.cu (this
+// design's two passes over a thread-block cluster, each block 256 columns of
+// the head), and past 2048 in `wide::fused_qkv_wide_kernel`, the first
+// design of this kernel (mma.sync, three walks over the keys, any multiple
+// of 8).
 //
 // What bounds it on an H100: at the sampler's shape (B = 8, S = 256,
 // D = 768, 12 heads of 64) the function reads the 9.4 MB projection and
@@ -282,7 +285,7 @@ int launch(const void* qkv, void* out, int B, int S, int H, int Hd,
 
 }  // namespace
 
-// Heads wider than 256: this kernel's first design. One block per (64-query
+// Heads wider than 2048: this kernel's first design. One block per (64-query
 // tile, head, batch row), 4 warps of 16 rows; three walks over the keys
 // (row maximum, row sum, P.V), each recomputing a 64-key tile's logits with
 // mma.sync m16n8k16 from tiles read in 16-byte loads, 64 head columns at a
@@ -487,9 +490,11 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace {
 
+constexpr int kClusterMaxHd = 2048;  // the cluster kernel's widest heads
+
 // The kernel's head width for heads of Hd: 32, 64, 128, 192 or 256, or 0
-// for heads wider than 256 (the first design's kernel). ops/attention.py:
-// fused_qkv_head_width is the same.
+// for heads wider than 256 (past 2048 the first design's kernel).
+// ops/attention.py: fused_qkv_head_width is the same.
 int head_width(int Hd) {
   return Hd <= 32    ? 32
          : Hd <= 64  ? 64
@@ -504,12 +509,16 @@ int head_width(int Hd) {
 extern "C" {
 
 // qkv [B, S, 3 * H * Hd] bf16 (16-byte aligned) -> out [B, S, H * Hd],
-// bf16 (out_bf16 = 1) or f32. Hd % 8 == 0 (else cudaErrorInvalidValue).
+// bf16 (out_bf16 = 1) or f32. Hd % 8 == 0, and Hd <= 256 or Hd > 2048
+// (else cudaErrorInvalidValue: dlm_fused_qkv_attention_cluster serves heads
+// of 264 to 2048).
 int dlm_fused_qkv_attention(const void* qkv, void* out, int out_bf16, int B,
                             int S, int H, int Hd, float sm_scale,
                             void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (Hd <= 0 || Hd % 8 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (Hd <= 0 || Hd % 8 || H <= 0 ||
+      (head_width(Hd) == 0 && Hd <= kClusterMaxHd))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_width(Hd)) {
 #define DLM_QKV_CASE(HD_)                                                   \

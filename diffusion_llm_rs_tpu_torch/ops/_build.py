@@ -37,7 +37,8 @@ SOURCES = ("int8_gemm", "int8_mlp", "dense_attention", "quant_flash_paged",
            "batched_paged_attention", "paged_attention_a8",
            "fused_qkv_attention", "dense_attention_wide",
            "quant_flash_contig_wide", "quant_flash_paged_wide",
-           "paged_flash_wide", "paged_flash_cluster")
+           "paged_flash_wide", "paged_flash_cluster",
+           "fused_qkv_attention_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -102,6 +103,10 @@ SIGNATURES = {
     "dlm_packed_unpack_i8": ("packed_gemm", (_P,) * 5 + (_I,) * 4 + (_P,)),
     "dlm_fused_qkv_attention": ("fused_qkv_attention",
                                 (_P, _P) + (_I,) * 5 + (_F, _P)),
+    "dlm_fused_qkv_attention_cluster": ("fused_qkv_attention_wide",
+                                        (_P, _P) + (_I,) * 5 + (_F, _P, _P)),
+    "dlm_fused_qkv_attention_cluster_active": ("fused_qkv_attention_wide",
+                                               (_I,)),
 }
 
 launch_counts: collections.Counter = collections.Counter()

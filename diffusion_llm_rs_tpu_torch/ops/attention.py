@@ -19,8 +19,11 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_attention.py`:
     normalised before P is rounded to bf16. Kernel:
     `csrc/fused_qkv_attention.cu`: its `wgmma` design at heads of up to 256
     (instances of 32, 64, 128, 192 and 256, `fused_qkv_head_width`), its
-    first design past 256. Like JAX's, the denoiser does not call it; a
-    caller reaches it through `denoiser_forward(attend_fn=...)`.
+    first design past 2048; from 264 to 2048 the same two passes over a
+    cluster, the logits kept between them in an f32 scratch
+    (`csrc/fused_qkv_attention_wide.cu`, `fused_qkv_instance`).
+    Like JAX's, the denoiser does not call it; a caller reaches it through
+    `denoiser_forward(attend_fn=...)`.
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version (`*_plain`), which repeats the TPU kernel's tile
 loop at the same rounding points. The kernels take every head width D that is
@@ -463,10 +466,10 @@ def kernel_width(D: int) -> int:
 
 def cluster_blocks(D: int) -> int:
     """The blocks of a cluster that serve heads of D in the cluster design
-    of every attention kernel but fused-QKV attention
-    (`csrc/wide_cluster_flash.cuh`: each block `CLUSTER_COLUMNS` columns of
-    the head): ceil(D / 256) from 264 to 2048, where a cluster has at most
-    `CLUSTER_MAX` blocks, else 0."""
+    of every attention kernel (`csrc/wide_cluster_flash.cuh`,
+    `csrc/fused_qkv_attention_wide.cu`: each block `CLUSTER_COLUMNS`
+    columns of the head): ceil(D / 256) from 264 to 2048, where a cluster
+    has at most `CLUSTER_MAX` blocks, else 0."""
     if not head_dim_fits(D) or not (
             KERNEL_WIDTHS[-1] < D <= CLUSTER_COLUMNS * CLUSTER_MAX):
         return 0
@@ -497,8 +500,16 @@ def fused_qkv_head_width(Hd: int) -> int:
     """The instance of the fused-QKV `wgmma` design that runs heads of Hd
     (`csrc/fused_qkv_attention.cu: head_width`): the smallest of
     `FUSED_QKV_WIDTHS` that holds it, zero past Hd; 0 past 256, where the
-    kernel's first design serves."""
+    cluster kernel (264 to 2048) or the kernel's first design serves."""
     return next((w for w in FUSED_QKV_WIDTHS if Hd <= w), 0)
+
+
+def fused_qkv_instance(Hd: int) -> str:
+    """The suffix of the C entry point fused-QKV attention launches for
+    heads of Hd: "_cluster" from 264 to 2048 (`cluster_blocks`,
+    `csrc/fused_qkv_attention_wide.cu`), else "" (`csrc/fused_qkv_attention
+    .cu`: its `wgmma` instances up to 256, its first design past 2048)."""
+    return "_cluster" if cluster_blocks(Hd) else ""
 
 
 def fused_qkv_fits(qkv_shape, num_heads: int) -> bool:
@@ -542,8 +553,10 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
     (bf16 or f32 out), which serves every shape the predicate admits: heads
-    of up to 256 in its `wgmma` design (`fused_qkv_head_width`), wider ones
-    in its first design."""
+    of up to 256 in its `wgmma` design (`fused_qkv_head_width`), from 264 to
+    2048 in its cluster design (`fused_qkv_instance`; the logits of pass 1
+    kept for pass 2 in an f32 scratch of B * H * S * S), wider ones in its
+    first design."""
     if qkv.ndim != 3:
         raise ValueError(f"fused_qkv_attention: qkv must be [B, S, 3D], got "
                          f"{tuple(qkv.shape)}")
@@ -565,10 +578,15 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int,
         raise ValueError("fused_qkv_attention: qkv must be 16-byte aligned "
                          "(the kernel reads rows 16 bytes at a time)")
     out = torch.empty((B, S, D), dtype=out_dtype, device=qkv.device)
-    _build.check(_build.function("dlm_fused_qkv_attention")(
-        xb.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        B, S, num_heads, Hd, float(sm_scale),
-        torch.cuda.current_stream(qkv.device).cuda_stream),
-        "fused_qkv_attention")
+    suffix = fused_qkv_instance(Hd)
+    args = (xb.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
+            B, S, num_heads, Hd, float(sm_scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    if suffix == "_cluster":  # pass 1's logits, read back by pass 2
+        logits = torch.empty((B * num_heads, S, S), dtype=torch.float32,
+                             device=qkv.device)
+        args += (logits.data_ptr(),)
+    _build.check(_build.function(f"dlm_fused_qkv_attention{suffix}")(*args),
+                 "fused_qkv_attention")
     _build.launch_counts["fused_qkv_attention"] += 1
     return out

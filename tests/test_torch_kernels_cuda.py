@@ -267,9 +267,19 @@ QKV_SHAPES = [(8, 256, 768, 12), (1, 864, 768, 12), (2, 200, 128, 4),
               # the wgmma design's instances of 192 and 256: heads of 136
               # (padded to 192), of 192 at S = 864, of 200 (padded to 256),
               # of 256 at the sampler's shape; and of 384, past them (the
-              # first design)
+              # cluster kernel)
               (2, 136, 544, 4), (1, 864, 768, 4), (2, 200, 800, 4),
-              (8, 256, 768, 3), (1, 64, 768, 2)]
+              (8, 256, 768, 3), (1, 64, 768, 2),
+              # the cluster kernel (heads of 264 to 2048): heads of 264 (a
+              # last block of 8 columns) at S = 136; 2 of 384 and one of 768
+              # at B = 8, S = 256 and 864; 2048 (a cluster of 8) at S = 200;
+              # one cluster (B = 1, S = 104); long rows of keys (S = 1024
+              # and 1200 at heads of 264) and clusters of 2, 4 and 6
+              (2, 136, 528, 2), (8, 256, 768, 2), (1, 864, 768, 2),
+              (8, 864, 768, 2), (8, 256, 768, 1), (8, 864, 768, 1),
+              (2, 200, 2048, 1), (1, 104, 768, 1), (1, 1024, 264, 1),
+              (1, 1200, 264, 1), (2, 512, 512, 1), (1, 384, 1024, 1),
+              (1, 512, 1536, 1)]
 
 
 @pytest.mark.parametrize("B,S,D,H", QKV_SHAPES)
@@ -288,6 +298,47 @@ def test_fused_qkv_attention_kernel_matches_plain(gen, B, S, D, H, out_dtype):
     ref = qa.fused_qkv_attention_plain(qkv, H, out_dtype=out_dtype)
     rel = float((out.float() - ref.float()).norm() / ref.float().norm())
     assert rel <= (1e-3 if out_dtype == torch.float32 else 5e-3), rel
+
+
+@pytest.mark.parametrize("B,S,D,H", [(8, 256, 768, 2), (1, 104, 768, 1),
+                                     (1, 1024, 264, 1)])
+def test_fused_qkv_cluster_replays_bit_for_bit(gen, B, S, D, H):
+    """The cluster kernel (heads of 264 to 2048) in a captured CUDA graph,
+    replayed, equals the eager call bit for bit (the logits' scratch is
+    allocated in the graph's pool and lives with it)."""
+    qkv = torch.randn((B, S, 3 * D), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    assert qa.fused_qkv_instance(D // H) == "_cluster"
+    out = qa.fused_qkv_attention(qkv, H)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = qa.fused_qkv_attention(qkv, H)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_out, out)
+
+
+def test_fused_qkv_past_2048_runs_the_first_design(gen):
+    """Past 2048 (one head of 2056) fused-QKV attention still launches the
+    first design (`dlm_fused_qkv_attention`), within the plain version's
+    tolerance; that entry point refuses heads of 264 to 2048, which the
+    cluster kernel serves."""
+    B, S, D = 2, 72, 2056
+    qkv = torch.randn((B, S, 3 * D), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    assert qa.fused_qkv_instance(D) == ""
+    _build.reset_launch_counts()
+    out = qa.fused_qkv_attention(qkv, 1, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_qkv_attention"] == 1
+    ref = qa.fused_qkv_attention_plain(qkv, 1, out_dtype=torch.float32)
+    assert float((out - ref).norm() / ref.norm()) <= 1e-3
+    first = _build.function("dlm_fused_qkv_attention")
+    small = torch.zeros((1, 64, 3 * 768), device="cuda", dtype=torch.bfloat16)
+    dst = torch.empty((1, 64, 768), device="cuda")
+    for Hd in (264, 768, 2048):  # refused before anything is read
+        assert first(small.data_ptr(), dst.data_ptr(), 0, 1, 64, 1, Hd, 0.1,
+                     torch.cuda.current_stream().cuda_stream) != 0
 
 
 def test_fused_qkv_attention_returns_none_where_jax_does(gen):

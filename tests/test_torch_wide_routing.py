@@ -5,9 +5,12 @@ paged attention run heads of 264 to 2048 in the cluster kernels of
 `csrc/wide_cluster_flash.cuh` (ceil(D / 256) blocks, each 256 columns of the
 head, the partial S summed in rank order), and past 2048 in
 `csrc/wide_flash.cuh`; fused-QKV attention runs heads of up to 256 in its
-`wgmma` design's instances of 32-256 and wider ones in its first design. The
+`wgmma` design's instances of 32-256, from 264 to 2048 the same two passes
+over a cluster (`csrc/fused_qkv_attention_wide.cu`) and wider ones in its
+first design. The
 routing is plain Python (`ops/attention.py: instance`, `cluster_blocks`,
-`fused_qkv_head_width`, `ops/paged_attention.py: batched_instance`), checked
+`fused_qkv_head_width`, `fused_qkv_instance`,
+`ops/paged_attention.py: batched_instance`), checked
 here without a card. The models below repeat
 the cluster kernels' schedule in torch on the CPU (tiles of 32 tokens, the S
 of each tile summed from 256-column partials in rank order, q's channel sum
@@ -16,7 +19,8 @@ unpacked from the bytes of each block-packed row that hold a block's
 channels; the batched int8 path's exchanges of q's row maxima and integer
 sums, its s32 partial S in sub-tiles of 64 tokens, a page's sub-tiles held
 for the per-page requantization and P.V in two halves of 128 columns a
-block) and hold it against the plain versions the card tests hold the
+block; fused-QKV attention's two exact passes, the logits of the first
+kept for the second) and hold it against the plain versions the card tests hold the
 kernels against, at those tests' tolerances. No JAX.
 """
 
@@ -62,16 +66,23 @@ def test_each_head_width_reaches_its_design(D, blocks, cluster, other,
     assert pa.batched_instance(D) == batched
 
 
-# (head width, the fused-QKV wgmma instance that runs it; 0: the first
-# design, past 256)
-QKV_ROUTES = [(8, 32), (24, 32), (32, 32), (40, 64), (64, 64), (72, 128),
-              (120, 128), (128, 128), (136, 192), (192, 192), (200, 256),
-              (256, 256), (264, 0), (768, 0)]
+# (head width, the fused-QKV wgmma instance that runs it (0: past 256),
+# the suffix of the C entry point it launches: "_cluster" from 264 to 2048,
+# past it the first design's "")
+QKV_ROUTES = [(8, 32, ""), (24, 32, ""), (32, 32, ""), (40, 64, ""),
+              (64, 64, ""), (72, 128, ""), (120, 128, ""), (128, 128, ""),
+              (136, 192, ""), (192, 192, ""), (200, 256, ""), (256, 256, ""),
+              (264, 0, "_cluster"), (768, 0, "_cluster"),
+              (2048, 0, "_cluster"), (2056, 0, "")]
 
 
-@pytest.mark.parametrize("Hd,width", QKV_ROUTES)
-def test_fused_qkv_head_width(Hd, width):
+# each case keeps the ID it was first given, before the entry point was
+# part of it
+@pytest.mark.parametrize("Hd,width,route", QKV_ROUTES,
+                         ids=[f"{Hd}-{w}" for Hd, w, _ in QKV_ROUTES])
+def test_fused_qkv_head_width(Hd, width, route):
     assert qa.fused_qkv_head_width(Hd) == width
+    assert qa.fused_qkv_instance(Hd) == route
 
 
 @pytest.mark.parametrize("D", [260, 2050, 12])
@@ -430,3 +441,54 @@ def test_batched_cluster_schedules_match_the_plain_version(D, P, bits, G, a8):
     assert torch.all(out[1] == 0) and torch.all(lse[1] == pa.NEG_INF)
     assert float((out - ref).norm() / ref.norm()) <= (5e-3 if a8 else 1e-2)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+
+
+def qkv_cluster_model(qkv, H, sm, out_dtype=torch.float32):
+    """`csrc/fused_qkv_attention_wide.cu`'s schedule for each (batch row,
+    head): the keys in tiles of 32; pass 1 takes S of a tile from
+    256-column partials added in rank order, keeps it, and updates a
+    running maximum of logit * log2(e) and a running sum of 2^(that -
+    maximum) a tile; pass 2 reads the kept S and forms p = 2^(logit log2(e)
+    - (max + log2 sum)), rounded to bf16, times the V tile."""
+    B, S, threeD = qkv.shape
+    D = threeD // 3
+    Hd = D // H
+    x = qkv.to(torch.bfloat16).float()
+    q, k, v = (x[..., i * D:(i + 1) * D].reshape(B, S, H, Hd).transpose(1, 2)
+               for i in range(3))
+    sl2 = sm * math.log2(math.e)
+    m = torch.full((B, H, S, 1), qa.NEG_INF)
+    l = torch.zeros_like(m)
+    kept = []
+    for j in range(0, S, 32):  # pass 1
+        s = _partials_sum(q, k[:, :, j:j + 32])
+        kept.append(s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
+        l = l * torch.exp2(m - m_new) + torch.exp2(s * sl2 - m_new).sum(
+            -1, keepdim=True)
+        m = m_new
+    bias = m + torch.log2(l)
+    o = torch.zeros((B, H, S, Hd))
+    for j, s in zip(range(0, S, 32), kept):  # pass 2
+        p = torch.exp2(s * sl2 - bias).to(torch.bfloat16).float()
+        o = o + p @ v[:, :, j:j + 32]
+    return o.transpose(1, 2).reshape(B, S, D).to(out_dtype)
+
+
+@pytest.mark.parametrize("S", [104, 136])
+@pytest.mark.parametrize("D,H", [(528, 2), (768, 2), (768, 1)])
+def test_qkv_cluster_schedule_matches_the_plain_version(D, H, S):
+    """Heads of 264 (a last block of 8 columns), 384 and 768, S of 104 and
+    136 (a last tile of 8 keys): the card test's tolerances (rel Frobenius
+    <= 1e-3 with f32 out, 5e-3 with bf16 out), since p is rounded to bf16
+    after the same normalisation and only f32 orders differ."""
+    rng = np.random.default_rng(D + H + S)
+    qkv = torch.from_numpy(rng.standard_normal((2, S, 3 * D),
+                                               dtype=np.float32))
+    sm = 1.0 / math.sqrt(D // H)
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-3)):
+        out = qkv_cluster_model(qkv, H, sm, dtype).float()
+        ref = qa.fused_qkv_attention_plain(qkv, H, sm, dtype).float()
+        rel = float((out - ref).norm() / ref.norm())
+        print(f"D={D} H={H} S={S} {dtype}: rel {rel:.3g}")
+        assert rel <= tol
