@@ -68,8 +68,11 @@ Phases (any failure makes the script exit non-zero without the final line):
                 clusters, the batched and fused-QKV rows the clusters of
                 their instance the card runs at once), the clusters of each
                 size the card runs at once are logged, and any size it
-                cannot place fails the phase; past 2048 csrc/wide_flash.cuh (and
-                fused-QKV attention's first design). fused_qkv_attention at
+                cannot place fails the phase; past 2048 fused-QKV and
+                single-sequence paged attention run the same cluster design
+                with blocks of k slices of 256 columns (`cluster_plan`: 5
+                blocks of 2 at 2056, 6 of 3 at 4104), the other modes
+                csrc/wide_flash.cuh. fused_qkv_attention at
                 B=8, S=256 and 864, width 768, with 12 heads of 64, 4 of
                 192, 3 of 256 (its wgmma design) and 2 of 384 and one of 768
                 (its cluster kernel). Past 2048, timed, every attention
@@ -79,7 +82,9 @@ Phases (any failure makes the script exit non-zero without the final line):
                 128), both batched kernels and paged_unpack (B=2, Sq=2048,
                 one head, 6 pages of 128 a slot), each the work of its row
                 of 768 within 0.4%, and fused_qkv_attention (B=8, S=256,
-                one head). The
+                one head); and at k = 3, paged_attention and
+                fused_qkv_attention (B=8, S=240: JAX's 8 MiB admits no
+                longer row) at one head of 4104. The
                 kernels line gives each design's wide instance as
                 `wide_instance` (its first timed row, its design, source and
                 C entry point, and its launches on heads_wide's heads of 384
@@ -171,7 +176,10 @@ Phases (any failure makes the script exit non-zero without the final line):
                 themselves, run at tiny's widths with their bounds),
                 heads_wide (every attention path at full width, W4A8, with
                 8 heads of 96, 3 of 256, 2 of 384 and one of 768, the last
-                two in the wide instances: the S=1024 sampler,
+                two in the wide instances, and a 2-layer model of one head
+                of 2560 at width 2560 for the two paths of the cluster
+                design past 2048, `PagedKVCache.attend` and the fused-QKV
+                forward: the S=1024 sampler,
                 `Engine(config, params=...).sample(use_paged=False)` over
                 the decoded W4A8 weights (f32 residuals into the W4A8
                 kernels), the paged batcher at S=2048 with bf16
@@ -563,9 +571,9 @@ def kernels():
     # the cluster kernel up to 2048): heads of 384 and 768 at the work of
     # heads of 128 (BH=16 and 8), timed; heads of 264 (a last block of 8
     # columns), of 520 with f32 out (a cluster of 3), of 2048 with f32 out
-    # (a cluster of 8) and of 2056 (csrc/wide_flash.cuh). Past 2048, timed:
-    # heads of 2056 at BH=3, the work of the row of 768 (BH=8) within 0.4%,
-    # beside the cluster kernel at 2048 on the same work.
+    # (a cluster of 8) and of 2056 (still csrc/wide_flash.cuh). Past 2048,
+    # timed: heads of 2056 at BH=3, the work of the row of 768 (BH=8) within
+    # 0.4%, beside the cluster kernel at 2048 on the same work.
     # bf16 P: the kernel's 128-wide KV tiles rescale at other points than the
     # twin's 512-wide ones, so bf16(p) may round differently: |d| <= 1e-2 and
     # rel Frobenius <= 1e-2
@@ -713,9 +721,10 @@ def _mlp_kernels(gen, results, bad):
 QKV_HEADS = (12, 4, 3, 2, 1)
 # past 2048: one head of 2056 at B=8, S=256 (JAX's predicate admits it; a
 # head of 2056 at width 768 does not exist, so its work is 2.7x the row of
-# 768 at S=256), the first design's kernel, beside the cluster kernel at
-# 2048 on the same work
-QKV_PAST = ((8, 256, 2056, 1), (8, 256, 2048, 1))
+# 768 at S=256), blocks of 2 slices of 256 columns, beside the cluster
+# kernel at 2048 (a slice a block) on the same work; and one head of 4104
+# (blocks of 3 slices) at B=8, S=240, the longest row JAX's 8 MiB admits
+QKV_PAST = ((8, 256, 2056, 1), (8, 256, 2048, 1), (8, 240, 4104, 1))
 
 
 def _fused_qkv_kernels(gen, results, bad):
@@ -741,7 +750,8 @@ def _fused_qkv_kernels(gen, results, bad):
         if at.fused_qkv_instance(Hd) == "_cluster":
             cluster = dict(
                 clusters=-(-S // 128) * B * H,
-                blocks=at.cluster_blocks(Hd),
+                blocks=at.cluster_plan(Hd)[0],
+                slices_a_block=at.cluster_plan(Hd)[1],
                 clusters_at_once=_build.function(
                     "dlm_fused_qkv_attention_cluster_active")(Hd))
         qkv = torch.randn((B, S, 3 * D), generator=gen, device="cuda").to(bf16)
@@ -772,7 +782,8 @@ def _fused_qkv_kernels(gen, results, bad):
             f"{err:.3g} rel {rel:.3g} {'ok' if ok else 'MISMATCH'}; {ms:.4f} "
             f"ms, plain {plain_ms:.4f}, SDPA {lib_ms:.4f}, einsum "
             f"{einsum_ms:.4f}, bound {b_ms:.4f} ({b_by})"
-            + (f"; {cluster['clusters']} clusters of {cluster['blocks']}, "
+            + (f"; {cluster['clusters']} clusters of {cluster['blocks']} "
+               f"blocks of {cluster['slices_a_block']} slice(s), "
                f"{cluster['clusters_at_once']} at once" if cluster else ""))
         if not ok or cluster.get("clusters_at_once", 1) <= 0:
             bad.append(f"fused_qkv_attention S={S} D={D} H={H}")
@@ -888,7 +899,8 @@ def _paged_kernels(gen, results, bad):
     from diffusion_llm_rs_tpu_torch.cache.paged import quantize_page
     from diffusion_llm_rs_tpu_torch.ops import _build
     from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
-    from diffusion_llm_rs_tpu_torch.ops.attention import cluster_blocks
+    from diffusion_llm_rs_tpu_torch.ops.attention import (cluster_blocks,
+                                                          cluster_plan)
 
     tol = "rel Frobenius <= 1e-2, |lse| <= 1e-3"
     # quantize_page on the card equals the CPU bit for bit (true division
@@ -1090,7 +1102,8 @@ def _paged_kernels(gen, results, bad):
             row = dict(shape=_paged_label(label, *case), max_abs_err=err,
                        rel_err=rel, lse_err=lse_err, tolerance=tol,
                        wide=D > WIDE_FROM)
-            if cluster_blocks(D):  # the chain's splits over clusters
+            if cluster_plan(D)[0]:  # the chain's splits over clusters
+                row["blocks"], row["slices_a_block"] = cluster_plan(D)
                 row["splits"] = _build.function(
                     "dlm_paged_attention_cluster_splits")(BH, Sq1, D, n1, P)
             if last == P:
@@ -1125,17 +1138,19 @@ def _paged_kernels(gen, results, bad):
 # wide instance's heads of 384 and 768 at the work of heads of 128 (BH=2
 # and 1); heads of 264 at 1 bit in pages of 64 (rows of 33 bytes, 8-byte
 # reads, a last block of 8 columns), of 2048 at 2 bits in pages of 32 (a
-# cluster of 8) and of 2056 (csrc/wide_flash.cuh); past 2048, timed: heads
+# cluster of 8) and of 2056 (blocks of 2 slices); past 2048, timed: heads
 # of 2056 over 3 pages (BH cannot go below 1, so the keys shrink: 3 x 128 x
 # 2056 is the 8 x 128 x 768 of the row of 768 within 0.4%), beside the
-# cluster kernel at 2048 on the same work
+# cluster kernel at 2048 on the same work, and heads of 4104 (blocks of 3
+# slices) over the same pages
 PAGED_CASES = ((12, 1024, 8, 4, 128, 64), (8, 64, 8, 4, 8, 16),
                (4, 1024, 8, 4, 128, 16), (12, 1024, 8, 4, 128, 48),
                (6, 1024, 8, 4, 128, 96), (6, 1024, 8, 4, 128, 128),
                (3, 1024, 8, 4, 128, 256), (2, 1024, 8, 4, 128, 384),
                (1, 1024, 8, 4, 128, 768), (3, 200, 4, 1, 64, 264),
                (1, 200, 4, 2, 32, 2048), (1, 200, 4, 4, 64, 2056),
-               (1, 1024, 3, 4, 128, 2056), (1, 1024, 3, 4, 128, 2048))
+               (1, 1024, 3, 4, 128, 2056), (1, 1024, 3, 4, 128, 2048),
+               (1, 1024, 3, 4, 128, 4104))
 
 
 def _paged_label(label, BH, Sq, n, bits, P, D):
@@ -1436,9 +1451,10 @@ def _packed_kernels(gen, results, bad):
         bad.append("quantize_fp8")
 
 
-def full_width_model(max_seq, heads=12):
-    """12L/768d/vocab-50257 model of `heads` heads (12 of 64 by default) from
-    a seeded generator, quantized in the port: int4 symmetric g128 ->
+def full_width_model(max_seq, heads=12, hidden=768, layers=12):
+    """12L/768d/vocab-50257 model of `heads` heads (12 of 64 by default;
+    `hidden` and `layers` change the width and depth) from a seeded
+    generator, quantized in the port: int4 symmetric g128 ->
     prepare(act_bits=8) -> decode_to_int8; remaining f32 leaves (biases,
     norms, positions) in bf16."""
     from diffusion_llm_rs_tpu_torch.config import DiffusionConfig
@@ -1447,9 +1463,10 @@ def full_width_model(max_seq, heads=12):
     from diffusion_llm_rs_tpu_torch.ops.matmul import decode_to_int8
     from diffusion_llm_rs_tpu_torch.quant.core import QuantizedTensor, quantize_tree
 
-    cfg = DiffusionConfig(num_timesteps=1000, hidden_size=768, num_layers=12,
-                          num_attention_heads=heads, vocab_size=50257,
-                          max_sequence_length=max_seq, dtype="bfloat16")
+    cfg = DiffusionConfig(num_timesteps=1000, hidden_size=hidden,
+                          num_layers=layers, num_attention_heads=heads,
+                          vocab_size=50257, max_sequence_length=max_seq,
+                          dtype="bfloat16")
     params = dn.init_denoiser_params(
         torch.Generator(device="cuda").manual_seed(0), cfg)
     qparams = quantize_tree(params, 4, symmetric=True, granularity="group",
@@ -2243,29 +2260,8 @@ def heads_wide():
         # the forward captured in a CUDA graph and replayed bit for bit the
         # eager one (the cluster kernel's scratch of logits stays with the
         # graph)
-        attend = _fused_attend(heads)
-        xf = torch.randn((2, 256, cfg.hidden_size), generator=gen,
-                         device="cuda").to(torch.bfloat16)
-        tf = torch.full((2,), 500, device="cuda")
-        e_card = call(
-            "fused-QKV forward B=2 S=256", lambda: dn.denoiser_forward(
-                params, cfg, xf, tf, attend_fn=attend),
-            {"fused_qkv_attention": L, "dense_attention": 0}).float().cpu()
-        e_cpu = dn.denoiser_forward(cpu_params, cfg, xf.cpu(), tf.cpu(),
-                                    attend_fn=attend).float()
+        _wide_fused_forward(cfg, params, cpu_params, heads, gen, call, runs)
         del cpu_params
-        rel = float((e_card - e_cpu).norm() / e_cpu.norm())
-        log(f"  heads of {hd}: fused-QKV eps card vs CPU rel {rel:.3g} "
-            f"(bound 2e-2)")
-        if not rel <= 2e-2:
-            raise AssertionError(f"heads of {hd}: the fused-QKV forward "
-                                 f"disagrees with the CPU")
-        runs["eps_rel_err_fused_qkv"] = rel
-        runs["fused_qkv_replayed_equal"] = _replays_equal(
-            lambda: dn.denoiser_forward(params, cfg, xf, tf, attend_fn=attend))
-        if not runs["fused_qkv_replayed_equal"]:
-            raise AssertionError(f"heads of {hd}: the replayed fused-QKV "
-                                 f"forward differs from the eager one")
 
         # the scan sampler through the engine over this model's decoded W4A8
         # weights: its f32 activations reach the W4A8 kernels with an f32
@@ -2335,9 +2331,82 @@ def heads_wide():
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    # past 2048: one head of 2560 at width 2560 (the cluster design with
+    # blocks of 2 slices of 256 columns, clusters of 5), 2 layers (cut from
+    # 12 to keep the call's time), the two paths that run that design:
+    # `PagedKVCache.attend` (paged_attention at 8, 4 and 2 bits) and the
+    # fused-QKV forward at S = 256; its other attention paths still run
+    # csrc/wide_flash.cuh and are not run at this width
+    t0 = time.perf_counter()
+    cfg, params = full_width_model(max_seq=2048, heads=1, hidden=2560,
+                                   layers=2)
+    L = cfg.num_layers
+    log(f"  one head of 2560, {L} layers: model built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    runs = {}
+
+    def call(name, fn, want):
+        res, wall, counts = _timed_part(fn)
+        _expect(f"heads_wide 2560 {name}", counts, want)
+        log(f"  heads of 2560, {name}: {wall:.3f} s, launches {counts}")
+        runs[name] = dict(wall_s=wall, counts=counts)
+        return res
+
+    cpu_params = _to(params, "cpu")
+    _wide_fused_forward(cfg, params, cpu_params, 1, gen, call, runs)
+    del cpu_params
+    runs["cache_attend"] = cache_attend(BH=1, S=1024, D=2560, page=64,
+                                        seed=43)
+    past = {}
+    for r in runs.values():
+        for k, n in ((r.get("counts") or {}) if isinstance(r, dict)
+                     else {}).items():
+            for acc in (total, wide, past):
+                acc[k] = acc.get(k, 0) + n
+    out["heads of 2560 (2 layers)"] = runs
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     out["counts"] = total
     out["counts_wide"] = wide  # the launches at heads past 256
+    out["counts_past_2048"] = past
     return out
+
+
+def _wide_fused_forward(cfg, params, cpu_params, heads, gen, call, runs):
+    """`heads_wide`'s fused-QKV path on one model: a forward with
+    `attend_fn` running fused_qkv_attention at B=2, S=256, as phase
+    fused_qkv runs it (L launches), the card against the plain versions on
+    the CPU within 2e-2, and the forward captured in a CUDA graph and
+    replayed bit for bit the eager one (the cluster kernel's scratch of
+    logits stays with the graph)."""
+    from diffusion_llm_rs_tpu_torch.models import denoiser as dn
+
+    hd = cfg.hidden_size // heads
+    attend = _fused_attend(heads)
+    xf = torch.randn((2, 256, cfg.hidden_size), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    tf = torch.full((2,), 500, device="cuda")
+    e_card = call(
+        "fused-QKV forward B=2 S=256", lambda: dn.denoiser_forward(
+            params, cfg, xf, tf, attend_fn=attend),
+        {"fused_qkv_attention": cfg.num_layers,
+         "dense_attention": 0}).float().cpu()
+    e_cpu = dn.denoiser_forward(cpu_params, cfg, xf.cpu(), tf.cpu(),
+                                attend_fn=attend).float()
+    rel = float((e_card - e_cpu).norm() / e_cpu.norm())
+    log(f"  heads of {hd}: fused-QKV eps card vs CPU rel {rel:.3g} "
+        f"(bound 2e-2)")
+    if not rel <= 2e-2:
+        raise AssertionError(f"heads of {hd}: the fused-QKV forward "
+                             f"disagrees with the CPU")
+    runs["eps_rel_err_fused_qkv"] = rel
+    runs["fused_qkv_replayed_equal"] = _replays_equal(
+        lambda: dn.denoiser_forward(params, cfg, xf, tf, attend_fn=attend))
+    if not runs["fused_qkv_replayed_equal"]:
+        raise AssertionError(f"heads of {hd}: the replayed fused-QKV "
+                             f"forward differs from the eager one")
 
 
 def _serve_cfg(**quant):
@@ -4080,9 +4149,10 @@ KERNELS = {
 # instances' from a padded source
 # the wide instance of each attention design (heads past 256), a source of
 # its own (with its C entry point at heads of 384 and 768) over
-# csrc/wide_cluster_flash.cuh from 264 to 2048 (WIDE_DESIGNS) and
-# csrc/wide_flash.cuh past; the batched kernels' past 2048 in
-# paged_flash_wide.cu
+# csrc/wide_cluster_flash.cuh from 264 to 2048 (WIDE_DESIGNS; past 2048
+# fused-QKV and single-sequence paged attention too, blocks of several
+# slices) and csrc/wide_flash.cuh past for the others; the batched kernels'
+# past 2048 in paged_flash_wide.cu
 WIDE_SOURCES = {
     "dense_attention": "diffusion_llm_rs_tpu_torch/csrc/dense_attention_wide.cu",
     "fused_qkv_attention":
@@ -4123,7 +4193,10 @@ WIDE_DESIGN_NOTES = {
         "packed rows copied a block's bytes at a time and unpacked by field; "
         "the batched int8 path's S in s32 partials of 64 tokens, a page's S "
         "held for its per-page requantization, P.V in two halves; past 2048 "
-        "csrc/wide_flash.cuh",
+        "one sequence's paged attention in blocks of several 256-column "
+        "slices (pass 1 S and the online softmax, keeping bf16(p * vs), "
+        "alpha and csum a tile; pass 2 P.V replayed slice by slice), the "
+        "other modes csrc/wide_flash.cuh",
     "diffusion_llm_rs_tpu_torch/csrc/wide_flash.cuh":
         "heads past 256: a block per 64 queries and 128 output columns on "
         "mma.sync, S recomputed in each",
@@ -4132,8 +4205,9 @@ WIDE_DESIGN_NOTES = {
         ".cu over csrc/wide_cluster_flash.cuh's cluster (ceil(D/256) blocks "
         "a 128-query tile, each 256 columns, partial S summed in rank order, "
         "S and P.V on wgmma); pass 1's S kept in f32 scratch and read back "
-        "by pass 2, which runs P.V alone; past 2048 the first design in "
-        "csrc/fused_qkv_attention.cu"}
+        "by pass 2, which runs P.V alone; past 2048 blocks of several "
+        "256-column slices, q streamed a slice a step in pass 1, pass 2 "
+        "slice by slice"}
 ALSO_BUILT_FROM = {
     "matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",),
     # the heads between the instances' widths, from sources of their own
@@ -4197,7 +4271,15 @@ PARENT_SHAPES = dict(
     # design's kernel in a parent before the cluster kernel took them)
     fused_qkv=[(8, 256, 768, 12), (8, 256, 768, 4), (8, 864, 768, 4),
                (8, 256, 768, 3), (8, 864, 768, 3), (8, 256, 768, 2),
-               (8, 256, 768, 1), (8, 864, 768, 2), (8, 864, 768, 1)])
+               (8, 256, 768, 1), (8, 864, 768, 2), (8, 864, 768, 1),
+               # past 2048 (one head of 2056 and of 4104): the first
+               # design's kernel in a parent before the cluster design took
+               # them, so the ratio is the redesign's
+               (8, 256, 2056, 1), (8, 240, 4104, 1)],
+    # single-sequence paged attention past 2048 (BH, Sq, D, pages of 128,
+    # 4-bit): csrc/wide_flash.cuh in a parent before the cluster design
+    # took these heads
+    past_paged=[(1, 1024, 2056, 3), (1, 1024, 4104, 3)])
 PARENT_CODE = """
 import json, torch, chip_smoke as c
 from diffusion_llm_rs_tpu_torch.ops import _build
@@ -4284,6 +4366,12 @@ for M, K, F in SHAPES["int8w_mlp"]:
     r = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
     ms[f"int8w_mlp M={M} {K}->{F}->{K} +residual"] = c.time_ms(
         lambda: im.int8w_mlp(x, w1, cs1, b1, w2, cs2, b2, r, torch.bfloat16))
+for BH, Sq, D, n in SHAPES.get("past_paged", []):
+    pools = c._quantized_pools(gen, 2 * n, BH, 128, D, 1, 4)
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda").bfloat16()
+    pt = torch.randperm(2 * n, generator=gen, device="cuda")[:n].int()
+    ms[f"paged_attention BH={BH} Sq={Sq} D={D} {n} pages of 128 4-bit"] = \\
+        c.time_ms(lambda: pa.paged_attention(q, pt, *pools, bits=4))
 for B, S, D, H in SHAPES.get("fused_qkv", []):
     qkv = torch.randn((B, S, 3 * D), generator=gen, device="cuda").bfloat16()
     ms[f"fused_qkv_attention B={B} S={S} D={D} H={H}"] = c.time_ms(

@@ -147,7 +147,7 @@ int dlm_quant_attention_wide(const void* q, const void* k_data,
   a.D = D;
   a.sm = sm_scale;
   return wide_flash::launch_bits<wide_flash::kContig>(
-      a, bits, 64, static_cast<cudaStream_t>(stream));
+      a, bits, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
 // Dense, quantized-KV (contiguous and single-sequence paged) and batched
-// paged attention at head widths from 264 to 2048, for Hopper (sm_90a): the
-// head split across a thread-block cluster.
+// paged attention at head widths from 264 to 2048, and single-sequence paged
+// attention past 2048 (blocks of several 256-column slices, "k slices"
+// below), for Hopper (sm_90a): the head split across a thread-block
+// cluster.
 //
 // The fixed instances (csrc/dense_attention.cu, csrc/quant_flash.cuh) hold
 // a whole head row of q, K and V in shared memory and o in registers, so
@@ -31,7 +33,10 @@
 //     under tile t's softmax; one wait then retires it and P.V of tile t - 1
 //     (ptxas serializes every wgmma of a kernel where an accumulator is read
 //     after a wait that retires only the older of two groups, or where an
-//     S product stays in flight across the loop's back edge), o is
+//     S product stays in flight across the loop's back edge), P of tile t
+//     (packed before the wait into registers of its own) moves into the
+//     registers of P.V's A operand (only now: P.V of tile t - 1 reads them
+//     until that wait, and PTX leaves a write before it undefined), o is
 //     rescaled, P.V of tile t is issued, and the partial S of tile t + 1
 //     goes to the cluster while it runs. The partials are double-buffered,
 //     one cluster barrier a tile orders a buffer's reads before its next
@@ -87,10 +92,11 @@
 //     weights are requantized per page (sw = max w / 127), so a page's
 //     whole S is held in registers before its softmax; P.V runs as two
 //     m64n128k32 products from the register A operand of wi, each s32 sum
-//     folded into o before the next: o 128 registers a thread, a page's
-//     logits 64 at PT = 128 (until wi, 16), one P.V sum 64; ptxas gives 255
-//     and spills 32-532 bytes a thread (the most at PT = 128), so the
-//     partials are loaded when they are added, never a sub-tile early.
+//     folded into o before the next (wi is packed after the wait that
+//     retired the page before's products): o 128 registers a thread, a
+//     page's logits 64 at PT = 128 (until wi, 16), one P.V sum 64; ptxas
+//     gives 255 and spills 32-532 bytes a thread (the most at PT = 128), so
+//     the partials are loaded when they are added, never a sub-tile early.
 //     Shared memory at PT = 128: q 32 KB, three K stages of 16, two of a
 //     page's V^T slice [256][PT] of 32 and its sidecars, two partial-S
 //     buffers of 32: 214.5 KB.
@@ -214,6 +220,16 @@ struct Smem {
 // tile.
 __device__ __forceinline__ int unit_at(int r, int u) {
   return unit_offset<kCols * 2, TK>(r, u);
+}
+
+// A value that is the A operand of a wgmma, formed from `x` by an
+// instruction of its own, so that the register it lands in is written here
+// and not where x was computed or loaded (a wgmma reads its A registers
+// until its wait, and PTX leaves a write to them before it undefined).
+__device__ __forceinline__ uint32_t operand(uint32_t x) {
+  uint32_t y;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 // kPaged: the packed rows of a page that hold tokens [h0, h0 + 32), bytes
@@ -1002,13 +1018,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
-    // bf16(p) (kPaged: bf16(p * vs)) as the P.V A operand: the tokens of
-    // n-block j go to register (j & 1) * 2 + r of step j / 2
-    uint32_t pf[TK / 16][4];
+    // bf16(p) (kPaged: bf16(p * vs)), packed now into registers of their
+    // own: the tokens of n-block j go to register (j & 1) * 2 + r of step
+    // j / 2
+    uint32_t pk[TK / 16][4];
 #pragma unroll
     for (int j = 0; j < TK / 8; ++j) {
-      pf[j >> 1][(j & 1) * 2] = pack_bf16(cur[4 * j], cur[4 * j + 1]);
-      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(cur[4 * j + 2], cur[4 * j + 3]);
+      pk[j >> 1][(j & 1) * 2] = pack_bf16(cur[4 * j], cur[4 * j + 1]);
+      pk[j >> 1][(j & 1) * 2 + 1] = pack_bf16(cur[4 * j + 2], cur[4 * j + 3]);
     }
 
     // P.V of tile t - 1 and S of tile t + 1 are done: o is ours, P.V of
@@ -1019,6 +1036,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(nxt);
+    // P.V's A operand, written only now: P.V of tile t - 1 reads the same
+    // registers until the wait above
+    uint32_t pf[TK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pf[kk][r] = operand(pk[kk][r]);
 #pragma unroll
     for (int i = 0; i < kCols / 2; ++i) {
       if constexpr (MODE == kDense)
@@ -1536,6 +1560,503 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster_wait();
 }
 
+// ------------------------------------------------------------- k slices
+
+// Heads past 2048 (kPaged): n = ceil(D / 256) slices of 256 columns, k =
+// ceil(n / 8) of them a block, a cluster of C = ceil(n / k) blocks (at most
+// 8); block j owns slices [jk, jk + k), the last one fewer, or a slice of 8
+// columns. A block cannot hold o for two slices in registers, so the tile
+// loop runs twice, as csrc/fused_qkv_attention_wide.cu does:
+//   - Pass 1, S and the softmax: for each tile of 32 tokens, the block's
+//     partial S summed over its slices in one accumulator (m64n32k16, 16
+//     k-steps a slice), the C partials added in rank order as above
+//     (`gather`), then kPaged's online softmax. Each step (a tile's slice)
+//     takes q's slice by TMA and the K tile's columns unpacked from rows
+//     copied by cp.async a step earlier, in a ring of two stages of q [128]
+//     [256] and K [32][256]: q does not fit resident past one slice, so it
+//     streams from L2 once a step. What pass 2 needs to replay the online
+//     recurrence is kept in global scratch (`replay`), per thread and tile:
+//     the packed P.V A operand bf16(p * vs), and alpha and csum of its two
+//     rows; the blocks of a cluster hold the same values, so each warp's are
+//     written by block w % C.
+//   - Pass 2, slice by slice: the V tile's columns of the slice (copied and
+//     unpacked as K was, three stages), o = o * alpha - csum + P.V, and the
+//     slice's columns written (or, where the chain is split, its partial o).
+// The arithmetic and the rounding points are those of the one-pass kernel:
+// bf16(p * vs) rounds against the running max of its tile.
+struct SmemK {
+  static constexpr int kQ = kBQ * kCols * 2;
+  static constexpr int kTile = TK * kCols * 2;
+  static constexpr int kStage = kQ + kTile;
+  static constexpr int kX = kBQ * TK * 4;
+  static constexpr int kXOff = 2 * kStage;
+  static constexpr int kSideOff = kXOff + 2 * kX;
+  static constexpr int kQsOff = kSideOff + 2 * 4 * TK * 4;
+  static constexpr int kRawOff = kQsOff + kBQ * 4;
+  static constexpr int kBarOff = kRawOff + 2 * kRaw;
+  static constexpr int kBytes = 1024 + kBarOff + 2 * 8;
+};
+
+// uint4 words a thread keeps a tile for pass 2: P (two), alpha and csum
+constexpr int kReplayWords = 3;
+
+// S of the tile in buffer `at` (clusters of 5 to 8 blocks: k > 1)
+__device__ __forceinline__ void gather_slices(float (&s)[kS], uint32_t at,
+                                              int C) {
+  switch (C) {
+    case 5: gather<5>(s, at); break;
+    case 6: gather<6>(s, at); break;
+    case 7: gather<7>(s, at); break;
+    default: gather<8>(s, at); break;
+  }
+}
+
+// The columns [c0, c0 + ncol) of this split's unnormalized o to part_o.
+__device__ __forceinline__ void put_partial(const Args& a,
+                                            const float (&o)[kCols / 2],
+                                            int q0, int rows0, int z, int c0,
+                                            int ncol, int q4) {
+  const size_t plane = (size_t)a.Z * a.Sq * a.D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rows0 + 8 * h;
+    if (row >= a.Sq) continue;
+    float* po = a.part_o + blockIdx.z * plane +
+                ((size_t)z * a.Sq + row) * a.D + c0 + 2 * q4;
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      if (8 * j >= ncol) break;
+      *reinterpret_cast<float2*>(po + 8 * j) =
+          make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// merge_splits for a block of several slices: its partial o went out slice
+// by slice (put_partial); here its (m, l), the count, and where it is the
+// last of the splits, the merge of its columns [cb, cb + ncols).
+__device__ __forceinline__ void merge_slices(const Args& a, const float (&m)[2],
+                                             const float (&l)[2], int q0,
+                                             int rows0, int z, int C, int rank,
+                                             int cb, int ncols, int q4) {
+  __shared__ int last;
+  const int split = blockIdx.z;
+  const size_t plane = (size_t)a.Z * a.Sq * a.D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rows0 + 8 * h;
+    if (row < a.Sq && q4 == 0)
+      a.part_ml[(((size_t)split * C + rank) * a.Z + z) * a.Sq + row] =
+          make_float2(m[h], l[h]);
+  }
+  __threadfence();
+  __syncthreads();
+  int* count = a.counters + ((size_t)(blockIdx.x / C) * a.Z + z) * C + rank;
+  if (threadIdx.x == 0) {
+    last = atomicAdd(count, 1) == a.nsplit - 1;
+    if (last) *count = 0;  // ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rows0 + 8 * h;
+    if (row >= a.Sq) continue;
+    float w[kMaxSplit], ls[kMaxSplit], M = -INFINITY, wl = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplit; ++s)
+      if (s < a.nsplit) {
+        const float2 ml = __ldcg(
+            a.part_ml + (((size_t)s * C + rank) * a.Z + z) * a.Sq + row);
+        w[s] = ml.x;
+        ls[s] = ml.y;
+        M = fmaxf(M, ml.x);
+      }
+#pragma unroll
+    for (int s = 0; s < kMaxSplit; ++s)
+      if (s < a.nsplit) {
+        w[s] = expf(w[s] - M);
+        wl = __fmaf_rn(w[s], ls[s], wl);
+      }
+    const float inv = __fdiv_rn(1.f, wl);
+    const size_t at = ((size_t)z * a.Sq + row) * a.D + cb + 2 * q4;
+    for (int c = 0; c < ncols; c += 8) {
+      float y0 = 0.f, y1 = 0.f;
+#pragma unroll
+      for (int s = 0; s < kMaxSplit; ++s)
+        if (s < a.nsplit) {
+          const float2 v = __ldcg(
+              reinterpret_cast<const float2*>(a.part_o + s * plane + at + c));
+          y0 = __fmaf_rn(w[s], v.x, y0);
+          y1 = __fmaf_rn(w[s], v.y, y1);
+        }
+      *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + c) =
+          make_float2(__fmul_rn(y0, inv), __fmul_rn(y1, inv));
+    }
+    if (rank == 0 && q4 == 0) a.lse[(size_t)z * a.Sq + row] = M + logf(wl);
+  }
+}
+
+// kPaged at heads past 2048, k slices a block (a.q: q itself, for its
+// channel sums; `replay`: [clusters, tiles, kReplayWords, 256] uint4).
+template <int BITS>
+__global__ void __launch_bounds__(kThreads, 1)
+    wide_cluster_paged_slices(const __grid_constant__ CUtensorMap tq,
+                              const Args a, const int k, uint4* replay) {
+  using L = SmemK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* X = reinterpret_cast<float*>(smem + L::kXOff);
+  float* sides = reinterpret_cast<float*>(smem + L::kSideOff);
+  float* qpart = reinterpret_cast<float*>(smem + L::kQsOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
+
+  const int C = a.C, rank = (int)cluster_rank();
+  const int qt = blockIdx.x / C, q0 = qt * kBQ, z = blockIdx.y;
+  const int cb = rank * k * kCols;  // the block's first column
+  const int ns = min(k, (a.D + kCols - 1) / kCols - rank * k);  // its slices
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) >> 5;
+  const int lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+  const int rows0 = wg * 64 + warp * 16 + g;  // and rows0 + 8, in the tile
+  const int tpp = (a.P + TK - 1) / TK, Tall = a.n_pages * tpp;
+  const int tps = (Tall + a.nsplit - 1) / a.nsplit, t0 = blockIdx.z * tps;
+  const int T = min(tps, Tall - t0);
+  const int Pp = a.P / (8 / BITS);
+  const int N = T * ns;  // pass 1's steps: step i is tile i / ns, slice i % ns
+  const bool writes = (tid >> 5) % C == rank;  // its warp's replay rows
+  uint4* rp = replay + ((size_t)(z * (gridDim.x / C) + qt) * Tall + t0) *
+                           kReplayWords * kThreads + tid;
+
+  if (tid == 0) {
+    mbar_init(full, 1);
+    mbar_init(full + 1, 1);
+    fence_barrier_init();
+  }
+  // the ring starts at zero: the columns of K and V past a slice of fewer
+  // than 256, and the tokens past a page's data, which no unpack writes,
+  // then hold finite values (zeros, or levels of another slice) that meet
+  // q's zero columns or weights of 0
+  for (int i = tid; i < 2 * L::kStage / 16; i += kThreads)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  fence_proxy_async();
+  __syncthreads();
+
+  auto col_of = [&](int s) { return cb + s * kCols; };
+  auto ncol_of = [&](int s) { return min(kCols, a.D - col_of(s)); };
+  auto stage = [&](int i) { return smem + (i & 1) * L::kStage; };
+  auto raw = [&](int i) { return smem + L::kRawOff + (i & 1) * kRaw; };
+  // q's slice of step i by TMA, all four chunks (zero past D)
+  auto load_q = [&](int i) {
+    mbar_expect_tx(full + (i & 1), L::kQ);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load_3d(stage(i) + c * kBQ * kSw, &tq, full + (i & 1),
+                  col_of(i % ns) + 64 * c, q0, z);
+  };
+  auto slot_of = [&](int t) { return a.page_table[(t0 + t) / tpp]; };
+  auto pool_row = [&](int slot) {
+    if (slot < 0 || slot >= a.n_slots) __trap();
+    return (size_t)slot * a.Z + z;
+  };
+  // the packed rows of tile t's columns of slice s (K or V), and their
+  // levels into a [32][256] tile, as wide_cluster_attention's raw_of and
+  // unpack; a thread unpacks what it copied
+  const bool cb16 = a.D % 16 == 0;
+  auto has_cols = [&](int s) {
+    return tid % (cb16 ? kCols / 16 : kCols / 8) < ncol_of(s) / (cb16 ? 16 : 8);
+  };
+  auto copy_rows = [&](uint8_t* dst, const uint8_t* data, int t, int s,
+                       int slot) {
+    if (!has_cols(s)) return;
+    const uint8_t* base = data + pool_row(slot) * Pp * a.D + col_of(s);
+    const int h0 = ((t0 + t) % tpp) * TK;
+    if (cb16)
+      copy_raw<16>(dst, base, a.D, Pp, h0, tid);
+    else
+      copy_raw<8>(dst, base, a.D, Pp, h0, tid);
+  };
+  auto unpack_rows = [&](const uint8_t* src, int t, int s, uint8_t* tile) {
+    if (!has_cols(s)) return;
+    const int h0 = ((t0 + t) % tpp) * TK;
+    if (cb16)
+      unpack_raw<BITS, 16>(src, Pp, h0, tile, tid);
+    else
+      unpack_raw<BITS, 8>(src, Pp, h0, tile, tid);
+  };
+  // the sidecars of tile t (token tid < 32), stored as ka', kb, vs, vz
+  auto side_of = [&](int t) {
+    float4 sd = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int tok = ((t0 + t) % tpp) * TK + tid;
+    if (tid < TK && tok < a.P) {
+      const size_t at = pool_row(slot_of(t)) * a.P + tok;
+      sd = make_float4(a.k_scale[at], a.k_zp[at], a.v_scale[at], a.v_zp[at]);
+    }
+    return sd;
+  };
+  auto put_side = [&](float4 sd, int t) {
+    float* d = sides + (t & 1) * 4 * TK;
+    if (tid < TK) {
+      const float ka = __fmul_rn(sd.x, a.sm);
+      d[tid] = ka;
+      d[TK + tid] = __fmul_rn(ka, sd.y);
+      d[2 * TK + tid] = sd.z;
+      d[3 * TK + tid] = sd.w;
+    }
+  };
+
+  if (tid == 0) {
+    load_q(0);
+    if (N > 1) load_q(1);
+  }
+  __syncwarp();
+  copy_rows(raw(0), a.k_data, 0, 0, slot_of(0));
+  cp_async_wait_all();
+  unpack_rows(raw(0), 0, 0, stage(0) + L::kQ);
+  if (N > 1) copy_rows(raw(1), a.k_data, 1 / ns, 1 % ns, slot_of(1 / ns));
+  cp_async_commit();
+  put_side(side_of(0), 0);
+
+  // q's channel sums: two threads a row, each over its half of every owned
+  // slice, read from q itself; then the C partial sums in rank order
+  float qs[2];
+  {
+    const int r = tid >> 1, half = tid & 1, row = q0 + r;
+    float s = 0.f;
+    if (row < a.Sq) {
+      const __nv_bfloat16* qr = a.q + ((size_t)z * a.Sq + row) * a.D;
+      for (int sl = 0; sl < ns; ++sl)
+        for (int u = 0; u < 16; ++u) {
+          const int c = col_of(sl) + 128 * half + 8 * u;
+          if (c >= a.D) break;
+          const uint4 w = *reinterpret_cast<const uint4*>(qr + c);
+          const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s += __bfloat162float(h2[e].x) + __bfloat162float(h2[e].y);
+        }
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);  // the pair's halves
+    if (half == 0) qpart[r] = s;
+    fence_proxy_async();  // the first K tile's levels, for the S products
+    cluster_arrive();
+    cluster_wait();  // also every thread's levels and sidecars of tile 0
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t at = smem_u32(qpart + rows0 + 8 * h);
+      qs[h] = ld_cluster_f32(cluster_map(at, 0));
+      for (int j = 1; j < C; ++j)
+        qs[h] = __fadd_rn(qs[h], ld_cluster_f32(cluster_map(at, j)));
+    }
+  }
+
+  // pass 1
+  const uint32_t x_addr = smem_u32(X) + tid * 16;
+  float acc[kS], cur[kS];
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  int slot_n = N > 2 ? slot_of(2 / ns) : 0;  // the slot of step i + 2
+  int tokens = a.page_tokens[t0 / tpp];
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    const bool more = t + 1 < T;
+    float4 sd_next = make_float4(0.f, 0.f, 0.f, 0.f);
+    int tokens_next = 0;
+    if (more) {  // read now, stored after this tile's softmax
+      sd_next = side_of(t + 1);
+      tokens_next = a.page_tokens[(t0 + t + 1) / tpp];
+    }
+#pragma unroll 1
+    for (int s = 0; s < ns; ++s) {
+      const int i = t * ns + s;
+      mbar_wait(full + (i & 1), (i >> 1) & 1);
+      const uint32_t q_addr = smem_u32(stage(i)) + wg * 64 * kSw;
+      const uint32_t k_addr = smem_u32(stage(i) + L::kQ);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kCols / 16; ++kk) {
+        const int chunk = kk / 4, in = (kk % 4) * 32;
+        wgmma_ss<TK>(acc,
+                     gmma_desc(q_addr + chunk * kBQ * kSw + in, 16, 8 * kSw, 1),
+                     gmma_desc(k_addr + chunk * TK * kSw + in, 16, 8 * kSw, 1),
+                     s > 0 || kk > 0);
+      }
+      wgmma_commit();
+      // under it: step i + 1's K from the rows copied a step ago (its stage
+      // was last read by step i - 1's products, retired), then the rows of
+      // step i + 2 into the buffer step i's were unpacked from
+      cp_async_wait_all();
+      if (i + 1 < N)
+        unpack_rows(raw(i + 1), (i + 1) / ns, (i + 1) % ns,
+                    stage(i + 1) + L::kQ);
+      if (i + 2 < N) copy_rows(raw(i), a.k_data, (i + 2) / ns, (i + 2) % ns,
+                               slot_n);
+      cp_async_commit();
+      if (i + 3 < N) slot_n = slot_of((i + 3) / ns);
+      fence_proxy_async();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncthreads();  // stage i read by both warpgroups; step i + 1's K
+      if (tid == 0 && i + 2 < N) load_q(i + 2);
+      __syncwarp();
+    }
+    // the block's partial S of tile t to the cluster; S = the C partials in
+    // rank order. Buffer t & 1 was last read (tile t - 2) before every
+    // block arrived at tile t - 1's barrier.
+    {
+      float4* xb = reinterpret_cast<float4*>(X + (t & 1) * (L::kX / 4));
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        xb[u * kThreads + tid] = make_float4(acc[4 * u], acc[4 * u + 1],
+                                             acc[4 * u + 2], acc[4 * u + 3]);
+    }
+    cluster_arrive();
+    cluster_wait();
+    gather_slices(cur, x_addr + (t & 1) * L::kX, C);
+
+    // kPaged's online softmax (wide_cluster_attention's, tile for tile)
+    const int h0 = ((t0 + t) % tpp) * TK;
+    const int present = min(a.P - h0, TK);
+    const int valid = min(max(min(tokens, a.P) - h0, 0), TK);
+    const float* sd = sides + (t & 1) * 4 * TK;
+    float alpha[2], msc[2], rsum[2] = {0.f, 0.f}, csum[2] = {0.f, 0.f};
+    if (valid < TK) {
+      quant_flash::logits<true, TK>(cur, sd, qs, q4, valid, m_run, alpha, msc);
+      quant_flash::weights<true, TK>(cur, sd, q4, valid, present, m_run, msc,
+                                     rsum, csum);
+    } else {
+      quant_flash::logits<false, TK>(cur, sd, qs, q4, valid, m_run, alpha, msc);
+      quant_flash::weights<false, TK>(cur, sd, q4, valid, present, m_run, msc,
+                                      rsum, csum);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l_run[h] = l_run[h] * alpha[h] + quant_flash::quad_sum(rsum[h]);
+      csum[h] = quant_flash::quad_sum(csum[h]);
+    }
+    if (writes) {  // bf16(p * vs) as P.V's A operand, alpha and csum
+      uint32_t pf[TK / 16][4];
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j) {
+        pf[j >> 1][(j & 1) * 2] = pack_bf16(cur[4 * j], cur[4 * j + 1]);
+        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(cur[4 * j + 2], cur[4 * j + 3]);
+      }
+      uint4* r = rp + (size_t)t * kReplayWords * kThreads;
+      r[0] = make_uint4(pf[0][0], pf[0][1], pf[0][2], pf[0][3]);
+      r[kThreads] = make_uint4(pf[1][0], pf[1][1], pf[1][2], pf[1][3]);
+      r[2 * kThreads] =
+          make_uint4(__float_as_uint(alpha[0]), __float_as_uint(alpha[1]),
+                     __float_as_uint(csum[0]), __float_as_uint(csum[1]));
+    }
+    if (more) {  // sides buffer (t + 1) & 1: tile t - 1's, read before the
+                 // barriers of this tile's steps
+      put_side(sd_next, t + 1);
+      tokens = tokens_next;
+    }
+  }
+  if (a.nsplit == 1 && rank == 0 && q4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + rows0 + 8 * h;
+      if (row < a.Sq)
+        a.lse[(size_t)z * a.Sq + row] = m_run[h] + logf(l_run[h]);
+    }
+  }
+  // every block's replay rows are written (the barrier orders them at
+  // cluster scope), every product of pass 1 has retired, and no block reads
+  // another's shared memory after it
+  cluster_arrive();
+  cluster_wait();
+
+  // pass 2: step j is tile j % T of owned slice j / T; V tiles in three
+  // stages over pass 1's ring
+  const int M = ns * T;
+  auto vtile = [&](int j) { return smem + (j % 3) * L::kTile; };
+  copy_rows(raw(0), a.v_data, 0, 0, slot_of(0));
+  cp_async_wait_all();
+  unpack_rows(raw(0), 0, 0, vtile(0));
+  if (M > 1) copy_rows(raw(1), a.v_data, 1 % T, 1 / T, slot_of(1 % T));
+  cp_async_commit();
+  fence_proxy_async();
+  __syncthreads();
+  slot_n = M > 2 ? slot_of(2 % T) : 0;
+  uint4 nx[kReplayWords];  // tile t's words, read a step before they are used
+  auto read_replay = [&](int t) {
+#pragma unroll
+    for (int w = 0; w < kReplayWords; ++w)
+      nx[w] = __ldcg(rp + ((size_t)t * kReplayWords + w) * kThreads);
+  };
+  read_replay(0);
+  const float inv[2] = {__frcp_rn(l_run[0]), __frcp_rn(l_run[1])};
+  float o[kCols / 2];
+#pragma unroll 1
+  for (int s = 0; s < ns; ++s) {
+#pragma unroll
+    for (int i = 0; i < kCols / 2; ++i) o[i] = 0.f;
+#pragma unroll 1
+    for (int t = 0; t < T; ++t) {
+      const int j = s * T + t;
+      wgmma_wait<0>();  // P.V of step j - 1: o, and its A registers, ours
+      fence_regs(o);
+      const uint32_t pf[TK / 16][4] = {
+          {operand(nx[0].x), operand(nx[0].y), operand(nx[0].z),
+           operand(nx[0].w)},
+          {operand(nx[1].x), operand(nx[1].y), operand(nx[1].z),
+           operand(nx[1].w)}};
+      const float alpha[2] = {__uint_as_float(nx[2].x),
+                              __uint_as_float(nx[2].y)};
+      const float csum[2] = {__uint_as_float(nx[2].z),
+                             __uint_as_float(nx[2].w)};
+      if (j + 1 < M) read_replay((t + 1) % T);
+#pragma unroll
+      for (int i = 0; i < kCols / 2; ++i)
+        o[i] = __fmaf_rn(o[i], alpha[(i >> 1) & 1], -csum[(i >> 1) & 1]);
+      const uint32_t v_addr = smem_u32(vtile(j));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        wgmma_rs<kCols, 1>(o, pf[kk],
+                           gmma_desc(v_addr + kk * 16 * kSw, TK * kSw, 8 * kSw, 1),
+                           1);
+      wgmma_commit();
+      // under it: step j + 1's V (its stage last read by step j - 2's
+      // products, which both warpgroups retired before the last barrier),
+      // then the rows of step j + 2
+      cp_async_wait_all();
+      if (j + 1 < M)
+        unpack_rows(raw(j + 1), (j + 1) % T, (j + 1) / T, vtile(j + 1));
+      if (j + 2 < M)
+        copy_rows(raw(j), a.v_data, (j + 2) % T, (j + 2) / T, slot_n);
+      cp_async_commit();
+      if (j + 3 < M) slot_n = slot_of((j + 3) % T);
+      fence_proxy_async();
+      __syncthreads();  // every thread's levels of step j + 1
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+    const int c0 = col_of(s), ncol = ncol_of(s);
+    if (a.nsplit > 1) {
+      put_partial(a, o, q0, rows0, z, c0, ncol, q4);
+      continue;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + rows0 + 8 * h;
+      if (row >= a.Sq) continue;
+      float* out = static_cast<float*>(a.out) + ((size_t)z * a.Sq + row) * a.D +
+                   c0 + 2 * q4;
+#pragma unroll
+      for (int jj = 0; jj < kCols / 8; ++jj) {
+        if (8 * jj >= ncol) break;
+        *reinterpret_cast<float2*>(out + 8 * jj) =
+            make_float2(__fmul_rn(o[4 * jj + 2 * h], inv[h]),
+                        __fmul_rn(o[4 * jj + 2 * h + 1], inv[h]));
+      }
+    }
+  }
+  if (a.nsplit > 1)
+    merge_slices(a, m_run, l_run, q0, rows0, z, C, rank, cb,
+                 min(ns * kCols, a.D - cb), q4);
+}
+
 // ------------------------------------------------------------- launches
 
 // The number of clusters of C blocks of `kernel` (one block an SM, `smem`
@@ -1655,6 +2176,29 @@ int launch_a8_pt(const CUtensorMap (&maps)[2], const Args& a,
                         stream, maps[0], maps[1], a);
 }
 
+// kPaged at heads past 2048 (wide_cluster_paged_slices): the clusters of
+// C blocks the card runs at once, or a negative cudaError_t; and the launch
+// over clusters of a.C blocks of k slices each.
+template <int BITS>
+int active_slices(int C) {
+  auto kernel = wide_cluster_paged_slices<BITS>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SmemK::kBytes);
+  if (attr != cudaSuccess) return -(int)attr;
+  return occupancy(kernel, SmemK::kBytes, C);
+}
+
+template <int BITS>
+int launch_slices(const CUtensorMap& tq, const Args& a, int k, uint4* replay,
+                  cudaStream_t stream) {
+  static int placed[kMaxCluster + 1] = {};
+  if (const int err = check_placed(placed, a.C, active_slices<BITS>))
+    return err;
+  return cluster_launch(wide_cluster_paged_slices<BITS>, SmemK::kBytes,
+                        dim3(a.C * ((a.Sq + kBQ - 1) / kBQ), a.Z, a.nsplit),
+                        a.C, stream, tq, a, k, replay);
+}
+
 // A TMA map over a bf16 [Z, rows, D] tensor, boxes of 64 columns x `box`
 // rows, 128-byte swizzle (zero fill past D and past rows).
 inline bool bf16_map(CUtensorMap* map, const void* ptr, int Z, int rows, int D,
@@ -1689,6 +2233,18 @@ inline bool splits_fit(int nsplit, int tiles) {
 // The blocks of a cluster for heads of D, or 0 outside [kMinD, kMaxD].
 inline int cluster_blocks(int D) {
   return D >= kMinD && D <= kMaxD && D % 8 == 0 ? (D + kCols - 1) / kCols : 0;
+}
+
+// The cluster for heads of any multiple of 8 past 256: n = ceil(D / 256)
+// slices of 256 columns, *k = ceil(n / 8) of them a block, and C = ceil(n /
+// k) blocks (returned; cluster_blocks(D) with k = 1 up to 2048); 0 (and *k
+// = 0) elsewhere. ops/attention.py: cluster_plan is the same.
+inline int cluster_plan(int D, int* k) {
+  *k = 0;
+  if (D < kMinD || D % 8) return 0;
+  const int n = (D + kCols - 1) / kCols;
+  *k = (n + kMaxCluster - 1) / kMaxCluster;
+  return (n + *k - 1) / *k;
 }
 
 }  // namespace wide_cluster

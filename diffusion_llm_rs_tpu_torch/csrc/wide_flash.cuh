@@ -1,6 +1,7 @@
 // Attention at head widths past 2048, for Hopper (sm_90a): the wide
-// instance of dense, quantized-KV (contiguous and single-sequence paged)
-// and batched paged attention.
+// instance of dense, contiguous quantized-KV and batched paged attention
+// (single-sequence paged attention runs every width past 256 in
+// csrc/wide_cluster_flash.cuh).
 //
 // The instances of csrc/dense_attention.cu, csrc/quant_flash.cuh and
 // csrc/paged_flash.cuh hold a whole head row of q, K and V in shared memory
@@ -38,10 +39,8 @@
 //   kDense     q, K, V bf16: logits = (q.k) * sm; acc += bf16(p) . v;
 //              out = acc / l (bf16 or f32)
 //   kContig    QuantKV [Z, Skv, D/vpb] packed along D, sidecars [Z, Skv]:
-//   kPaged     one sequence's pages [n_slots, Z, P/vpb, D] packed along
-//              tokens, sidecars [n_slots, Z, P]: logits = (raw * ks - qsum
-//              * (ks * kz)) * sm on the levels; acc += bf16(p * vs) . lv -
-//              sum(p * vs * vz); out = acc / l (and the lse, paged)
+//              logits = (raw * ks - qsum * (ks * kz)) * sm on the levels;
+//              acc += bf16(p * vs) . lv - sum(p * vs * vz); out = acc / l
 //   kScratch16 the bf16 scratch of csrc/paged_unpack.cu: logits = raw * ka'
 //              - kb * qsum; acc += bf16(p) . v_sc - sum(p * vs * vz);
 //              out = acc * (1 / l), 0 and lse -1e30 where a slot has no page
@@ -50,7 +49,7 @@
 //              p * vs (0 past the valid tokens), sw = max w / 127, acc +=
 //              (round(w / sw) . v) * sw - sum(w * vz')
 // The KV tile is 64 tokens (kDense, kContig) or the page's tile of 32, 64 or
-// 128 tokens (one page a step). Tokens past the page's valid count get
+// 128 tokens (one page a step, kScratch*). Tokens past the page's valid count get
 // logits of -1e30, as in the plain versions; tokens past the tile's real
 // ones (past Skv, or the page's P) are left out (p = 0).
 //
@@ -74,28 +73,27 @@ constexpr int kKC = 64;         // head columns a chunk of S
 constexpr int kDV = 128;        // output columns a block
 constexpr float kNegInf = -1e30f;
 
-enum Mode : int { kDense, kContig, kPaged, kScratch16, kScratch8 };
+enum Mode : int { kDense, kContig, kScratch16, kScratch8 };
 
 struct Args {
   const __nv_bfloat16* q;  // [Z, Sq, D]
   void* out;               // [Z, Sq, D]: f32, or bf16 where out_bf16
-  float* lse;              // [Z, Sq] (kPaged, kScratch*)
+  float* lse;              // [Z, Sq] (kScratch*)
   int Z, Sq, D, out_bf16;
   float sm;
   // kDense: K and V bf16 [Z, Skv, D]; kContig: Skv tokens
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   int Skv;
-  // kContig, kPaged: packed levels and their f32 sidecars
+  // kContig: packed levels and their f32 sidecars
   const uint8_t* k_data;
   const float* k_scale;
   const float* k_zp;
   const uint8_t* v_data;
   const float* v_scale;
   const float* v_zp;
-  // kPaged: page_table and page_tokens [n_pages]; pages of P tokens.
-  // kScratch*: page_tokens [B, n_max], n_pages [B]; pages of P tokens in
-  // tiles of PT, rows of DK
+  // kScratch*: page_tokens [B, n_max], slot_pages [B]; pages of P tokens
+  // in tiles of PT, rows of DK (page_table, n_pages and n_slots unused)
   const int* page_table;
   const int* page_tokens;
   const int* slot_pages;
@@ -177,7 +175,7 @@ template <int MODE, int BITS, int TK>
 __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
   using L = Layout<MODE, TK>;
   constexpr bool kA8 = MODE == kScratch8;
-  constexpr bool kQuant = MODE == kContig || MODE == kPaged;
+  constexpr bool kQuant = MODE == kContig;
   constexpr int kNT = TK / 8;                    // n-tiles of S
   constexpr int kMask = (1 << BITS) - 1;
   __shared__ __align__(16) uint8_t smem[L::kBytes];
@@ -196,8 +194,6 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
   int n_tiles;
   if constexpr (MODE == kDense || MODE == kContig)
     n_tiles = (a.Skv + TK - 1) / TK;
-  else if constexpr (MODE == kPaged)
-    n_tiles = a.n_pages;
   else
     n_tiles = a.slot_pages[z / a.H];
 
@@ -242,7 +238,6 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
   const int Dp = kQuant ? D / (8 / BITS) : 0;    // bytes a contiguous row
-  const int Pp = kQuant ? a.P / (8 / BITS) : 0;  // rows a page (kPaged)
 
   for (int j = 0; j < n_tiles; ++j) {
     // the tile: its tokens, the valid ones, where its rows are
@@ -251,12 +246,6 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
     if constexpr (MODE == kDense || MODE == kContig) {
       tok0 = j * TK;
       n_real = n_valid = min(TK, a.Skv - tok0);
-    } else if constexpr (MODE == kPaged) {
-      const int slot = a.page_table[j];
-      if (slot < 0 || slot >= a.n_slots) __trap();
-      n_real = a.P;
-      n_valid = a.page_tokens[j];
-      base = (size_t)slot * a.Z + z;             // pool row of (slot, head)
     } else {
       n_real = a.P;
       n_valid = a.page_tokens[(size_t)(z / a.H) * a.n_max + j];
@@ -268,8 +257,7 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
       float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
       if constexpr (kQuant) {
         if (i < n_real) {
-          const size_t at = MODE == kContig ? (size_t)z * a.Skv + tok0 + i
-                                            : base * a.P + i;
+          const size_t at = (size_t)z * a.Skv + tok0 + i;
           s0 = a.k_scale[at];
           s1 = a.k_zp[at];
           s2 = a.v_scale[at];
@@ -348,18 +336,13 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
       } else {  // packed levels, a byte an element
         const int dc = tid & (kKC - 1), d = d0 + dc;
         const bool in = d < D;
-        const int byte = MODE == kContig ? (in ? d % Dp : 0) : d;
-        const int shift = MODE == kContig ? (in ? (d / Dp) * BITS : 0) : 0;
+        const int byte = in ? d % Dp : 0;
+        const int shift = in ? (d / Dp) * BITS : 0;
         for (int r = tid / kKC; r < TK; r += kThreads / kKC) {
           int lv = 0;
-          if (in && r < n_real) {
-            if constexpr (MODE == kContig)
-              lv = (a.k_data[((size_t)z * a.Skv + tok0 + r) * Dp + byte] >>
-                    shift) & kMask;
-            else
-              lv = (a.k_data[(base * Pp + r % Pp) * D + byte] >>
-                    ((r / Pp) * BITS)) & kMask;
-          }
+          if (in && r < n_real)
+            lv = (a.k_data[((size_t)z * a.Skv + tok0 + r) * Dp + byte] >>
+                  shift) & kMask;
           reinterpret_cast<__nv_bfloat16*>(s_k + r * L::kRow)[dc] =
               __int2bfloat16_rn(lv);
         }
@@ -494,19 +477,14 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
     } else {  // packed levels: a thread a column
       const int d = c0 + tid;
       const bool in = d < D;
-      const int byte = MODE == kContig ? (in ? d % Dp : 0) : d;
-      const int shift = MODE == kContig ? (in ? (d / Dp) * BITS : 0) : 0;
+      const int byte = in ? d % Dp : 0;
+      const int shift = in ? (d / Dp) * BITS : 0;
       __nv_bfloat16* row = reinterpret_cast<__nv_bfloat16*>(s_vt + tid * L::kVRow);
       for (int r = 0; r < TK; ++r) {
         int lv = 0;
-        if (in && r < n_real) {
-          if constexpr (MODE == kContig)
-            lv = (a.v_data[((size_t)z * a.Skv + tok0 + r) * Dp + byte] >> shift) &
-                 kMask;
-          else
-            lv = (a.v_data[(base * Pp + r % Pp) * D + byte] >>
-                  ((r / Pp) * BITS)) & kMask;
-        }
+        if (in && r < n_real)
+          lv = (a.v_data[((size_t)z * a.Skv + tok0 + r) * Dp + byte] >> shift) &
+               kMask;
         row[r] = __int2bfloat16_rn(lv);
       }
     }
@@ -613,27 +591,14 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The contiguous and paged quantized modes at `bits`; kPaged takes the tile
-// of PT = 32, 64 or 128 tokens.
-template <int MODE, int BITS>
-int launch_tile(const Args& a, int PT, cudaStream_t stream) {
-  if constexpr (MODE == kContig) {
-    return launch<MODE, BITS, 64>(a, stream);
-  } else {
-    if (PT == 32) return launch<MODE, BITS, 32>(a, stream);
-    if (PT == 64) return launch<MODE, BITS, 64>(a, stream);
-    if (PT == 128) return launch<MODE, BITS, 128>(a, stream);
-    return (int)cudaErrorInvalidValue;
-  }
-}
-
+// The contiguous quantized mode at `bits`, KV tiles of 64 tokens.
 template <int MODE>
-int launch_bits(const Args& a, int bits, int PT, cudaStream_t stream) {
+int launch_bits(const Args& a, int bits, cudaStream_t stream) {
   switch (bits) {
-    case 1: return launch_tile<MODE, 1>(a, PT, stream);
-    case 2: return launch_tile<MODE, 2>(a, PT, stream);
-    case 4: return launch_tile<MODE, 4>(a, PT, stream);
-    case 8: return launch_tile<MODE, 8>(a, PT, stream);
+    case 1: return launch<MODE, 1, 64>(a, stream);
+    case 2: return launch<MODE, 2, 64>(a, stream);
+    case 4: return launch<MODE, 4, 64>(a, stream);
+    case 8: return launch<MODE, 8, 64>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -67,11 +67,9 @@ SIGNATURES = {
                                    (_P,) * 11 + (_I,) * 7 + (_F, _P)),
     "dlm_batched_paged_attention_a8": ("paged_attention_a8",
                                        (_P,) * 8 + (_I,) * 6 + (_P,)),
-    "dlm_paged_attention_wide": ("quant_flash_paged_wide",
-                                 (_P,) * 11 + (_I,) * 7 + (_F, _P)),
     "dlm_paged_attention_cluster": ("quant_flash_paged_wide",
                                     (_P,) * 11 + (_I,) * 7 + (_F, _P, _I)
-                                    + (_P,) * 3),
+                                    + (_P,) * 4),
     "dlm_paged_attention_cluster_splits": ("quant_flash_paged_wide",
                                            (_I,) * 5),
     "dlm_batched_paged_attention_wide": ("paged_flash_wide",

@@ -18,10 +18,11 @@ Counterpart of `diffusion_llm_rs_tpu/ops/pallas_attention.py`:
     from the fused [B, S, 3D] projection -> [B, S, D], the full softmax row
     normalised before P is rounded to bf16. Kernel:
     `csrc/fused_qkv_attention.cu`: its `wgmma` design at heads of up to 256
-    (instances of 32, 64, 128, 192 and 256, `fused_qkv_head_width`), its
-    first design past 2048; from 264 to 2048 the same two passes over a
-    cluster, the logits kept between them in an f32 scratch
-    (`csrc/fused_qkv_attention_wide.cu`, `fused_qkv_instance`).
+    (instances of 32, 64, 128, 192 and 256, `fused_qkv_head_width`); past
+    256 the same two passes over a cluster, the logits kept between them in
+    an f32 scratch (`csrc/fused_qkv_attention_wide.cu`, `fused_qkv_instance`,
+    a block one 256-column slice of the head up to 2048 and several past
+    it, `cluster_plan`).
     Like JAX's, the denoiser does not call it; a caller reaches it through
     `denoiser_forward(attend_fn=...)`.
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
@@ -34,9 +35,11 @@ in the wide instance of its design (D a runtime argument, `instance`): from
 264 to 2048 in a cluster of ceil(D / 256) blocks, each 256 columns of the
 head, the partial S summed across the cluster (`csrc/wide_cluster_flash.cuh`,
 `cluster_blocks`; quantized-KV attention's chain of KV tiles split over
-clusters, `quant_cluster_splits`); past 2048 in `csrc/wide_flash.cuh` (the
-output columns split over blocks of 128, S summed over chunks of 64 head
-columns in each).
+clusters, `quant_cluster_splits`); past 2048 dense and quantized-KV
+attention in `csrc/wide_flash.cuh` (the output columns split over blocks of
+128, S summed over chunks of 64 head columns in each), fused-QKV and
+single-sequence paged attention in the cluster design with blocks of
+several 256-column slices (`cluster_plan`).
 Where D % 8 != 0 the JAX package runs no Pallas kernel
 but XLA, and so does the port, on either device: `flash_fold` takes
 `dense_attention_einsum` (the einsum branch of JAX's `_flash_fold`),
@@ -61,6 +64,8 @@ KERNEL_WIDTHS = (16, 32, 64, 128, 192, 256)
 WIDE_CHUNK = 64       # head columns a chunk of the wide instance's S
 CLUSTER_COLUMNS = 256  # head columns a block of the cluster kernels owns
 CLUSTER_MAX = 8        # blocks a cluster at most (the portable size)
+# heads past CLUSTER_COLUMNS * CLUSTER_MAX run blocks of several slices of
+# CLUSTER_COLUMNS columns (`cluster_plan`)
 CLUSTER_ROWS = 128     # query rows a cluster
 CLUSTER_KV_TILE = 32   # tokens a KV tile of the cluster kernels
 KERNEL_KV_TILE = 64   # tokens per online-softmax step of `csrc/quant_flash_contig.cu`
@@ -436,7 +441,7 @@ def split_scratch(device, n: int, BH: int, Sq: int, D: int):
     None) where n == 1 (tensors: the caller holds them until the launch)."""
     if n == 1:
         return (None, None, None)
-    C = cluster_blocks(D)
+    C = cluster_plan(D)[0]
     part_o = torch.empty((n, BH, Sq, D), dtype=torch.float32, device=device)
     part_ml = torch.empty((n, C, BH, Sq, 2), dtype=torch.float32,
                           device=device)
@@ -469,19 +474,38 @@ def cluster_blocks(D: int) -> int:
     of every attention kernel (`csrc/wide_cluster_flash.cuh`,
     `csrc/fused_qkv_attention_wide.cu`: each block `CLUSTER_COLUMNS`
     columns of the head): ceil(D / 256) from 264 to 2048, where a cluster
-    has at most `CLUSTER_MAX` blocks, else 0."""
+    has at most `CLUSTER_MAX` blocks, else 0. Past 2048 fused-QKV and
+    single-sequence paged attention give a block several slices
+    (`cluster_plan`)."""
     if not head_dim_fits(D) or not (
             KERNEL_WIDTHS[-1] < D <= CLUSTER_COLUMNS * CLUSTER_MAX):
         return 0
     return -(-D // CLUSTER_COLUMNS)
 
 
+def cluster_plan(D: int) -> Tuple[int, int]:
+    """The cluster that serves heads of D past 256 in the cluster design
+    (`csrc/wide_cluster_flash.cuh: cluster_plan`): (C, k), C blocks of k
+    slices of `CLUSTER_COLUMNS` columns each. The head is n = ceil(D / 256)
+    slices, k = ceil(n / 8) a block, C = ceil(n / k): (ceil(D / 256), 1)
+    from 264 to 2048 (`cluster_blocks`), (5, 2) at 2056 and 2560, (6, 3) at
+    4104, (8, 5) at 10240. Block j owns slices [jk, jk + k), the last block
+    fewer. (0, 0) where D is not a multiple of 8 past 256."""
+    if not head_dim_fits(D) or D <= KERNEL_WIDTHS[-1]:
+        return (0, 0)
+    n = -(-D // CLUSTER_COLUMNS)
+    k = -(-n // CLUSTER_MAX)
+    return (-(-n // k), k)
+
+
 def instance(D: int) -> str:
-    """The suffix of the C entry point a head of D launches: "" at a
-    `KERNEL_WIDTHS` entry, "_padded" between them (a source of its own; the
-    quantized-KV kernels), and past them "_cluster" where `cluster_blocks(D)`
-    takes D (`csrc/wide_cluster_flash.cuh`), else "_wide"
-    (`csrc/wide_flash.cuh`)."""
+    """The suffix of the C entry point a head of D launches in dense and
+    quantized-KV attention: "" at a `KERNEL_WIDTHS` entry, "_padded" between
+    them (a source of its own; the quantized-KV kernels), and past them
+    "_cluster" where `cluster_blocks(D)` takes D
+    (`csrc/wide_cluster_flash.cuh`), else "_wide" (`csrc/wide_flash.cuh`).
+    Single-sequence paged attention launches "_cluster" past 256 at every
+    width (`ops/paged_attention.py: paged_attention`)."""
     if D > KERNEL_WIDTHS[-1]:
         return "_cluster" if cluster_blocks(D) else "_wide"
     return "" if D == kernel_width(D) else "_padded"
@@ -500,16 +524,16 @@ def fused_qkv_head_width(Hd: int) -> int:
     """The instance of the fused-QKV `wgmma` design that runs heads of Hd
     (`csrc/fused_qkv_attention.cu: head_width`): the smallest of
     `FUSED_QKV_WIDTHS` that holds it, zero past Hd; 0 past 256, where the
-    cluster kernel (264 to 2048) or the kernel's first design serves."""
+    cluster kernel serves."""
     return next((w for w in FUSED_QKV_WIDTHS if Hd <= w), 0)
 
 
 def fused_qkv_instance(Hd: int) -> str:
     """The suffix of the C entry point fused-QKV attention launches for
-    heads of Hd: "_cluster" from 264 to 2048 (`cluster_blocks`,
+    heads of Hd: "_cluster" past 256 (`cluster_plan`,
     `csrc/fused_qkv_attention_wide.cu`), else "" (`csrc/fused_qkv_attention
-    .cu`: its `wgmma` instances up to 256, its first design past 2048)."""
-    return "_cluster" if cluster_blocks(Hd) else ""
+    .cu`: its `wgmma` instances up to 256)."""
+    return "_cluster" if cluster_plan(Hd)[0] else ""
 
 
 def fused_qkv_fits(qkv_shape, num_heads: int) -> bool:
@@ -553,10 +577,9 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
     (bf16 or f32 out), which serves every shape the predicate admits: heads
-    of up to 256 in its `wgmma` design (`fused_qkv_head_width`), from 264 to
-    2048 in its cluster design (`fused_qkv_instance`; the logits of pass 1
-    kept for pass 2 in an f32 scratch of B * H * S * S), wider ones in its
-    first design."""
+    of up to 256 in its `wgmma` design (`fused_qkv_head_width`), wider ones
+    in its cluster design (`fused_qkv_instance`, `cluster_plan`; the logits
+    of pass 1 kept for pass 2 in an f32 scratch of B * H * S * S)."""
     if qkv.ndim != 3:
         raise ValueError(f"fused_qkv_attention: qkv must be [B, S, 3D], got "
                          f"{tuple(qkv.shape)}")

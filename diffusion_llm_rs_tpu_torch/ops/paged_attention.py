@@ -16,7 +16,10 @@ instance of the smallest `KERNEL_WIDTHS` entry that holds it, past 256 in
 the wide instance of each design (`ops/attention.py: instance`): from 264
 to 2048 in a cluster of ceil(D / 256) blocks, each 256 columns of the head
 (`csrc/wide_cluster_flash.cuh`; the batched kernels' entry points in
-`csrc/paged_flash_cluster.cu`), past 2048 in `csrc/wide_flash.cuh`; the
+`csrc/paged_flash_cluster.cu`); past 2048 the single-sequence kernel in the
+same cluster design with blocks of several slices of 256 columns
+(`ops/attention.py: cluster_plan`), the batched kernels in
+`csrc/wide_flash.cuh`; the
 batched path's scratch rows are `kernel_width(D)` wide (past 256, D rounded
 up to 64), zero past D. Where D % 8 != 0 no kernel of either
 package serves the pools (JAX's need rows of 128 lanes) and both wrappers
@@ -51,8 +54,11 @@ from typing import Sequence, Tuple
 import torch
 
 from diffusion_llm_rs_tpu_torch.ops import _build
-from diffusion_llm_rs_tpu_torch.ops.attention import (KERNEL_WIDTHS,
+from diffusion_llm_rs_tpu_torch.ops.attention import (CLUSTER_KV_TILE,
+                                                      CLUSTER_ROWS,
+                                                      KERNEL_WIDTHS,
                                                       _head_dim_error,
+                                                      cluster_plan,
                                                       head_dim_fits, instance,
                                                       kernel_width,
                                                       split_scratch)
@@ -258,18 +264,28 @@ def paged_attention(q, page_table, k_data, k_scale, k_zp, v_data, v_scale,
     pt, nt = (t.to(torch.int32).contiguous() for t in (page_table, page_tokens))
     out = torch.empty((BH, Sq, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
-    suffix = instance(D)
+    suffix = paged_instance(D)
     args = (qb.data_ptr(), pt.data_ptr(), nt.data_ptr(),
             *(t.data_ptr() for t in pools), out.data_ptr(), lse.data_ptr(), BH,
             Sq, D, n_pages, n_slots, P, bits, float(sm),
             torch.cuda.current_stream(q.device).cuda_stream)
     if suffix == "_cluster":  # the chain split over clusters, merged in-launch
         n, *scratch = _cluster_splits(q.device, BH, Sq, D, n_pages, P)
-        args += (n, *(None if t is None else t.data_ptr() for t in scratch))
+        replay = _replay_scratch(q.device, BH, Sq, D, n_pages, P)
+        args += (n, *(None if t is None else t.data_ptr()
+                      for t in (*scratch, replay)))
     err = _build.function(f"dlm_paged_attention{suffix}")(*args)
     _build.check(err, name)
     _build.launch_counts[name] += 1
     return (out, lse) if return_lse else out
+
+
+def paged_instance(D: int) -> str:
+    """The suffix of the C entry point `paged_attention` launches for heads
+    of D: `instance(D)` up to 256, and past it "_cluster" at every width
+    (`dlm_paged_attention_cluster`: a block one 256-column slice of the head
+    up to 2048, several past it, `cluster_plan`)."""
+    return "_cluster" if D > KERNEL_WIDTHS[-1] else instance(D)
 
 
 def _cluster_splits(device, BH, Sq, D, n_pages, P):
@@ -281,6 +297,19 @@ def _cluster_splits(device, BH, Sq, D, n_pages, P):
     if n < 0:
         _build.check(-n, "paged_attention")
     return (n, *split_scratch(device, n, BH, Sq, D))
+
+
+def _replay_scratch(device, BH, Sq, D, n_pages, P):
+    """Past 2048 (`cluster_plan(D)[1] > 1`), what the cluster kernel's pass
+    1 keeps for pass 2 (`csrc/wide_cluster_flash.cuh:
+    wide_cluster_paged_slices`): per cluster, 32-token tile and thread of
+    its 256, the packed bf16(p * vs) and the rows' alpha and csum, three
+    16-byte words; None at 264 to 2048, which run in one pass."""
+    if cluster_plan(D)[1] == 1:
+        return None
+    tiles = n_pages * -(-P // CLUSTER_KV_TILE)
+    return torch.empty((BH * -(-Sq // CLUSTER_ROWS) * tiles * 3 * 256 * 16,),
+                       dtype=torch.uint8, device=device)
 
 
 # ----------------------------------------------------------------- batched

@@ -36,12 +36,12 @@ def test_fused_qkv_attention_matches_jax_kernel(S, D, H):
 
 
 @pytest.mark.parametrize("D,H", [(384, 2), (512, 2), (528, 2), (768, 2),
-                                 (768, 1), (2048, 1), (2056, 1)])
+                                 (768, 1), (2048, 1), (2056, 1), (2560, 1)])
 def test_fused_qkv_attention_matches_jax_kernel_at_wide_heads(D, H):
     """Heads of 192 and 256, the widest instances of the port's `wgmma`
     design; of 264, 384, 768 and 2048, which the card runs in its cluster
-    kernel; and of 2056, past it (the first design): the tolerances
-    above."""
+    kernel a block a 256-column slice; and of 2056 and 2560, past it, where
+    a block takes two slices: the tolerances above."""
     _matches_jax_kernel(16, D, H)
 
 

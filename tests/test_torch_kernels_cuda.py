@@ -279,7 +279,13 @@ QKV_SHAPES = [(8, 256, 768, 12), (1, 864, 768, 12), (2, 200, 128, 4),
               (8, 864, 768, 2), (8, 256, 768, 1), (8, 864, 768, 1),
               (2, 200, 2048, 1), (1, 104, 768, 1), (1, 1024, 264, 1),
               (1, 1200, 264, 1), (2, 512, 512, 1), (1, 384, 1024, 1),
-              (1, 512, 1536, 1)]
+              (1, 512, 1536, 1),
+              # past 2048, blocks of k slices of 256 columns: one head of
+              # 2056 (k = 2, a last block of 8 columns), of 2560 (k = 2), of
+              # 4104 (k = 3) and of 10240 (k = 5, clusters of 8), each at
+              # the longest S JAX's predicate admits near its row, ragged
+              (2, 72, 2056, 1), (8, 256, 2056, 1), (1, 136, 2560, 1),
+              (1, 104, 4104, 1), (2, 240, 4104, 1), (1, 96, 10240, 1)]
 
 
 @pytest.mark.parametrize("B,S,D,H", QKV_SHAPES)
@@ -301,9 +307,10 @@ def test_fused_qkv_attention_kernel_matches_plain(gen, B, S, D, H, out_dtype):
 
 
 @pytest.mark.parametrize("B,S,D,H", [(8, 256, 768, 2), (1, 104, 768, 1),
-                                     (1, 1024, 264, 1)])
+                                     (1, 1024, 264, 1), (2, 72, 2056, 1),
+                                     (1, 104, 4104, 1)])
 def test_fused_qkv_cluster_replays_bit_for_bit(gen, B, S, D, H):
-    """The cluster kernel (heads of 264 to 2048) in a captured CUDA graph,
+    """The cluster kernel (heads past 256) in a captured CUDA graph,
     replayed, equals the eager call bit for bit (the logits' scratch is
     allocated in the graph's pool and lives with it)."""
     qkv = torch.randn((B, S, 3 * D), generator=gen,
@@ -319,14 +326,16 @@ def test_fused_qkv_cluster_replays_bit_for_bit(gen, B, S, D, H):
 
 
 def test_fused_qkv_past_2048_runs_the_first_design(gen):
-    """Past 2048 (one head of 2056) fused-QKV attention still launches the
-    first design (`dlm_fused_qkv_attention`), within the plain version's
-    tolerance; that entry point refuses heads of 264 to 2048, which the
-    cluster kernel serves."""
+    """(Named when the kernel's first design served these heads; it is
+    gone.) Past 2048 (one head of 2056) fused-QKV attention launches the
+    cluster kernel (`dlm_fused_qkv_attention_cluster`, two 256-column
+    slices a block), within the plain version's tolerance; the `wgmma`
+    entry point `dlm_fused_qkv_attention` refuses every head past 256."""
     B, S, D = 2, 72, 2056
     qkv = torch.randn((B, S, 3 * D), generator=gen,
                       device="cuda").to(torch.bfloat16)
-    assert qa.fused_qkv_instance(D) == ""
+    assert qa.fused_qkv_instance(D) == "_cluster"
+    assert qa.cluster_plan(D) == (5, 2)
     _build.reset_launch_counts()
     out = qa.fused_qkv_attention(qkv, 1, out_dtype=torch.float32)
     torch.cuda.synchronize()
@@ -336,7 +345,7 @@ def test_fused_qkv_past_2048_runs_the_first_design(gen):
     first = _build.function("dlm_fused_qkv_attention")
     small = torch.zeros((1, 64, 3 * 768), device="cuda", dtype=torch.bfloat16)
     dst = torch.empty((1, 64, 768), device="cuda")
-    for Hd in (264, 768, 2048):  # refused before anything is read
+    for Hd in (264, 768, 2048, 2056, 4104):  # refused before anything is read
         assert first(small.data_ptr(), dst.data_ptr(), 0, 1, 64, 1, Hd, 0.1,
                      torch.cuda.current_stream().cuda_stream) != 0
 
@@ -728,6 +737,128 @@ def test_paged_attention_cluster_splits_merge_in_launch(gen, D):
     torch.cuda.synchronize()
     assert torch.equal(g_out, out) and torch.equal(g_lse, lse)
     assert not any(bool(t.any()) for t in qa._split_counters[q.device])
+
+
+# past 2048 the single-sequence kernel gives a block k slices of 256
+# columns (`cluster_plan`): 2056 (k = 2, a last block of 8 columns), 2560
+# (k = 2), 4104 (k = 3) and 10240 (k = 5, clusters of 8)
+PAST = [2056, 2560, 4104, 10240]
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("P", [8, 32, 72, 128])
+@pytest.mark.parametrize("D", PAST)
+def test_paged_attention_past_2048_matches_twin(gen, bits, P, D):
+    """The tolerance of `test_paged_attention_kernel_matches_twin` (rel
+    Frobenius 1e-2, lse 1e-3), with an empty page, a partial one and slots
+    in mixed order, launched through `dlm_paged_attention_cluster`."""
+    BH, Sq = 2, 70
+    pools = _pools(gen, 5, BH, P, D, bits, 1)
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    pt = torch.tensor([4, 1, 2, 0], device="cuda", dtype=torch.int32)
+    nt = torch.tensor([P, 0, min(17, P - 1), P], device="cuda",
+                      dtype=torch.int32)
+    assert pa.paged_instance(D) == "_cluster" and qa.cluster_plan(D)[1] > 1
+    _build.reset_launch_counts()
+    out, lse = pa.paged_attention(q, pt, *pools, bits=bits, page_tokens=nt,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["paged_attention"] == 1
+    ref, ref_lse = pa.paged_attention_plain(q, pt, *pools, bits=bits,
+                                            page_tokens=nt, return_lse=True)
+    _close(out, lse, ref, ref_lse)
+
+
+@pytest.mark.parametrize("D", [2056, 4104])
+def test_paged_attention_past_2048_splits_merge_in_launch(gen, D):
+    """Past 2048 one sequence's page chain splits over clusters as it does
+    at 264-2048 (`paged_splits`): one launch, the plain version's
+    tolerance, a graph replay equal to the eager call bit for bit (the
+    scratch pass 2 replays lives in the graph's pool), the counters left at
+    zero; every page masked weighs each key 1, as in the plain version."""
+    BH, Sq, P, bits = 1, 256, 128, 4
+    pools = _pools(gen, 10, BH, P, D, bits, 1)
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    pt = torch.tensor([3, 7, 1, 9, 0, 5, 2, 8], device="cuda",
+                      dtype=torch.int32)
+    nt = torch.tensor([P] * 7 + [70], device="cuda", dtype=torch.int32)
+    splits = _build.function("dlm_paged_attention_cluster_splits")(
+        BH, Sq, D, 8, P)
+    assert splits > 1, splits
+    for tokens in (nt, torch.zeros_like(nt)):
+        _build.reset_launch_counts()
+        out, lse = pa.paged_attention(q, pt, *pools, bits=bits,
+                                      page_tokens=tokens, return_lse=True)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["paged_attention"] == 1
+        _close(out, lse, *pa.paged_attention_plain(
+            q, pt, *pools, bits=bits, page_tokens=tokens, return_lse=True))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out, g_lse = pa.paged_attention(q, pt, *pools, bits=bits,
+                                          page_tokens=nt, return_lse=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    out, lse = pa.paged_attention(q, pt, *pools, bits=bits, page_tokens=nt,
+                                  return_lse=True)
+    assert torch.equal(g_out, out) and torch.equal(g_lse, lse)
+    assert not any(bool(t.any()) for t in qa._split_counters[q.device])
+
+
+def _cluster_mode_call(gen, mode, D):
+    """One call of a cluster-design mode at heads of D, as a function of no
+    arguments over inputs made once."""
+    if mode == "dense":
+        q, k, v = (torch.randn((2, 300, D), generator=gen, device="cuda")
+                   for _ in range(3))
+        return lambda: dense_attention(q, k, v, out_dtype=torch.float32)
+    if mode == "fused_qkv":
+        qkv = torch.randn((2, 136, 3 * D), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        return lambda: qa.fused_qkv_attention(qkv, 1, out_dtype=torch.float32)
+    if mode == "contig":
+        q = torch.randn((2, 200, D), generator=gen, device="cuda")
+        k, v = (qa.quantize_kv(torch.randn((2, 300, D), generator=gen,
+                                           device="cuda"), 4) for _ in "kv")
+        return lambda: qa.attention(q, k, v)
+    if mode == "paged":
+        pools = _pools(gen, 5, 1, 128, D, 4, 1)
+        q = torch.randn((1, 256, D), generator=gen, device="cuda")
+        pt = torch.tensor([4, 1, 2, 0], device="cuda", dtype=torch.int32)
+        nt = torch.tensor([128, 128, 90, 128], device="cuda",
+                          dtype=torch.int32)
+
+        def call():
+            out, lse = pa.paged_attention(q, pt, *pools, bits=4,
+                                          page_tokens=nt, return_lse=True)
+            return torch.cat((out, lse[..., None]), -1)
+        return call
+    B, H, P, n = 2, 1, 64, 3  # the batched kernels, bf16 and int8
+    pools = _pools(gen, B * n, H, P, D, 4, 1)
+    q = torch.randn((B, H, 200, D), generator=gen, device="cuda")
+    pt = torch.arange(B * n, device="cuda", dtype=torch.int32).reshape(B, n)
+    nt = torch.full((B, n), P, device="cuda", dtype=torch.int32)
+    npg = torch.tensor([n, 2], device="cuda", dtype=torch.int32)
+    act = 8 if mode == "batched_a8" else 16
+    return lambda: pa.batched_paged_attention(q, pt, nt, npg, *pools, bits=4,
+                                              act_bits=act)
+
+
+@pytest.mark.parametrize("mode,D", [
+    ("dense", 768), ("fused_qkv", 768), ("contig", 768), ("paged", 768),
+    ("batched", 768), ("batched_a8", 768), ("dense", 2048),
+    ("fused_qkv", 2056), ("paged", 2056), ("fused_qkv", 4104),
+    ("paged", 4104)])
+def test_cluster_modes_repeat_bit_for_bit(gen, mode, D):
+    """Each mode of the cluster design, and fused-QKV attention's, run 20
+    times on one input gives the same bits every time: P is formed only
+    after the wait that retires the P.V reading the registers it lands in
+    (PTX leaves a write before that wait undefined)."""
+    call = _cluster_mode_call(gen, mode, D)
+    first = call()
+    for _ in range(19):
+        assert torch.equal(call(), first)
+    assert bool(torch.isfinite(first).all())
 
 
 @pytest.mark.parametrize("P", PAGES)

@@ -530,6 +530,38 @@ def test_single_twin_at_wide_and_padded_heads_matches_jax(D):
                                    atol=2e-2)
 
 
+@pytest.mark.parametrize("D", [2056, 2560])
+def test_single_twin_past_2048_matches_jax(D):
+    """Heads past 2048, which the card runs in its cluster kernel with two
+    256-column slices a block: one sequence over two 4-bit pages of 128 (the
+    last partial), Sq = 16. JAX runs its XLA `_fallback` at 2056 and its
+    interpreted kernel at 2560 (D % 128 == 0): the tolerances of
+    `test_single_twin_at_wide_and_padded_heads_matches_jax`."""
+    BH, Sq, P, bits = 1, 16, 128, 4
+    rng = np.random.default_rng(700 + D)
+    pools = _grouped_pools(rng, BH, 3 * P, D, P, 1, bits)
+    q = rng.normal(size=(BH, Sq, D)).astype(np.float32)
+    pt = np.array([2, 0], np.int32)
+    nt = np.array([P, 45], np.int32)
+    jout, jlse = jppa.paged_attention(*_j(q, pt, *pools), bits=bits,
+                                      page_tokens=jnp.asarray(nt),
+                                      return_lse=True)
+    tout, tlse = tpa.paged_attention(*_t(q, pt, *pools), bits=bits,
+                                     page_tokens=torch.from_numpy(nt),
+                                     return_lse=True)
+    kernel = D % 128 == 0
+    rel, lse = _rel(tout, jout), _lse_err(tlse, jlse)
+    print(f"single twin vs JAX {'kernel' if kernel else 'fall-back'}, D={D}: "
+          f"rel {rel:.3g}, lse {lse:.3g}")
+    assert tout.shape == (BH, Sq, D)
+    if kernel:
+        assert rel < 1e-3 and lse < 1e-4
+    else:
+        assert rel < 2e-2
+        np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=2e-2,
+                                   atol=2e-2)
+
+
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("D,G", [(12, 1), (12, 2), (20, 1)])
 def test_fallback_ports_match_jax_where_no_kernel_runs(bits, D, G):

@@ -3,14 +3,15 @@
 Dense, quantized-KV (contiguous and single-sequence paged) and batched
 paged attention run heads of 264 to 2048 in the cluster kernels of
 `csrc/wide_cluster_flash.cuh` (ceil(D / 256) blocks, each 256 columns of the
-head, the partial S summed in rank order), and past 2048 in
-`csrc/wide_flash.cuh`; fused-QKV attention runs heads of up to 256 in its
-`wgmma` design's instances of 32-256, from 264 to 2048 the same two passes
-over a cluster (`csrc/fused_qkv_attention_wide.cu`) and wider ones in its
-first design. The
+head, the partial S summed in rank order); past 2048 single-sequence paged
+attention runs the same design with blocks of k slices of 256 columns
+(`cluster_plan`), and the other three `csrc/wide_flash.cuh`; fused-QKV
+attention runs heads of up to 256 in its `wgmma` design's instances of
+32-256, and wider ones in the same two passes over a cluster
+(`csrc/fused_qkv_attention_wide.cu`, k slices a block past 2048). The
 routing is plain Python (`ops/attention.py: instance`, `cluster_blocks`,
-`fused_qkv_head_width`, `fused_qkv_instance`,
-`ops/paged_attention.py: batched_instance`), checked
+`cluster_plan`, `fused_qkv_head_width`, `fused_qkv_instance`,
+`ops/paged_attention.py: batched_instance`, `paged_instance`), checked
 here without a card. The models below repeat
 the cluster kernels' schedule in torch on the CPU (tiles of 32 tokens, the S
 of each tile summed from 256-column partials in rank order, q's channel sum
@@ -20,8 +21,11 @@ channels; the batched int8 path's exchanges of q's row maxima and integer
 sums, its s32 partial S in sub-tiles of 64 tokens, a page's sub-tiles held
 for the per-page requantization and P.V in two halves of 128 columns a
 block; fused-QKV attention's two exact passes, the logits of the first
-kept for the second) and hold it against the plain versions the card tests hold the
-kernels against, at those tests' tolerances. No JAX.
+kept for the second; past 2048 each block's partial S summed over its k
+slices, and pass 2 slice by slice, single-sequence paged attention's
+replaying the online recurrence that pass 1 kept) and hold it against the
+plain versions the card tests hold the kernels against, at those tests'
+tolerances. No JAX.
 """
 
 import math
@@ -33,47 +37,79 @@ import torch
 from diffusion_llm_rs_tpu_torch.ops import attention as qa
 from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
 
-# (D, blocks of a cluster, dense suffix, quant_attention and paged suffix,
-# batched paged suffix)
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Small tensors on the CPU: with the suite's six test processes on one
+    machine, torch's thread pool costs each of them more than it gives."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+# (D, blocks of a cluster at k = 1, dense suffix, quant_attention suffix,
+# batched paged suffix, single-sequence paged suffix)
 ROUTES = [
-    (8, 0, "", "_padded", ""), (64, 0, "", "", ""),
-    (200, 0, "", "_padded", ""), (256, 0, "", "", ""),
-    (264, 2, "_cluster", "_cluster", "_cluster"),
-    (272, 2, "_cluster", "_cluster", "_cluster"),
-    (384, 2, "_cluster", "_cluster", "_cluster"),
-    (512, 2, "_cluster", "_cluster", "_cluster"),
-    (520, 3, "_cluster", "_cluster", "_cluster"),
-    (768, 3, "_cluster", "_cluster", "_cluster"),
-    (1024, 4, "_cluster", "_cluster", "_cluster"),
-    (2048, 8, "_cluster", "_cluster", "_cluster"),
-    (2056, 0, "_wide", "_wide", "_wide"),
-    (4096, 0, "_wide", "_wide", "_wide")]
+    (8, 0, "", "_padded", "", "_padded"), (64, 0, "", "", "", ""),
+    (200, 0, "", "_padded", "", "_padded"), (256, 0, "", "", "", ""),
+    (264, 2, "_cluster", "_cluster", "_cluster", "_cluster"),
+    (272, 2, "_cluster", "_cluster", "_cluster", "_cluster"),
+    (384, 2, "_cluster", "_cluster", "_cluster", "_cluster"),
+    (512, 2, "_cluster", "_cluster", "_cluster", "_cluster"),
+    (520, 3, "_cluster", "_cluster", "_cluster", "_cluster"),
+    (768, 3, "_cluster", "_cluster", "_cluster", "_cluster"),
+    (1024, 4, "_cluster", "_cluster", "_cluster", "_cluster"),
+    (2048, 8, "_cluster", "_cluster", "_cluster", "_cluster"),
+    (2056, 0, "_wide", "_wide", "_wide", "_cluster"),
+    (4096, 0, "_wide", "_wide", "_wide", "_cluster")]
 
 
 # each case keeps the ID it was first given, when quant_attention ran
 # "_wide" past 256
-@pytest.mark.parametrize("D,blocks,cluster,other,batched", ROUTES,
+@pytest.mark.parametrize("D,blocks,cluster,other,batched,paged", ROUTES,
                          ids=[f"{D}-{n}-{c}-{'_wide' if D > 256 else o}"
-                              for D, n, c, o, _ in ROUTES])
+                              for D, n, c, o, _, _ in ROUTES])
 def test_each_head_width_reaches_its_design(D, blocks, cluster, other,
-                                            batched):
+                                            batched, paged):
     """`dense_attention` launches `instance(D)` past 256 and its one
-    source below; `attention` and `paged_attention` launch `instance(D)`
-    (their padded sources between the fixed widths)."""
+    source below; `attention` launches `instance(D)` (its padded source
+    between the fixed widths); `paged_attention` launches
+    `paged_instance(D)`, the cluster kernel at every width past 256."""
     assert qa.cluster_blocks(D) == blocks
     assert (qa.instance(D) if D > qa.KERNEL_WIDTHS[-1] else "") == cluster
     assert qa.instance(D) == other
     assert pa.batched_instance(D) == batched
+    assert pa.paged_instance(D) == paged
+
+
+# (D, blocks of a cluster, 256-column slices a block): k = 1 from 264 to
+# 2048, then k = ceil(ceil(D / 256) / 8) and C = ceil(ceil(D / 256) / k)
+PLANS = [(8, 0, 0), (256, 0, 0), (260, 0, 0), (264, 2, 1), (768, 3, 1),
+         (2048, 8, 1), (2056, 5, 2), (2560, 5, 2), (4096, 8, 2),
+         (4104, 6, 3), (10240, 8, 5), (10248, 7, 6)]
+
+
+@pytest.mark.parametrize("D,C,k", PLANS)
+def test_cluster_plan(D, C, k):
+    """Every slice is owned: C blocks of k slices cover the ceil(D / 256)
+    slices, the last block owns at least one, and a cluster has at most 8
+    blocks."""
+    assert qa.cluster_plan(D) == (C, k)
+    if C:
+        n = -(-D // 256)
+        assert C <= qa.CLUSTER_MAX and (C - 1) * k < n <= C * k
+        assert (k == 1) == (D <= 2048)
+        assert k > 1 or C == qa.cluster_blocks(D)
 
 
 # (head width, the fused-QKV wgmma instance that runs it (0: past 256),
-# the suffix of the C entry point it launches: "_cluster" from 264 to 2048,
-# past it the first design's "")
+# the suffix of the C entry point it launches: "_cluster" past 256)
 QKV_ROUTES = [(8, 32, ""), (24, 32, ""), (32, 32, ""), (40, 64, ""),
               (64, 64, ""), (72, 128, ""), (120, 128, ""), (128, 128, ""),
               (136, 192, ""), (192, 192, ""), (200, 256, ""), (256, 256, ""),
               (264, 0, "_cluster"), (768, 0, "_cluster"),
-              (2048, 0, "_cluster"), (2056, 0, "")]
+              (2048, 0, "_cluster"), (2056, 0, "_cluster"),
+              (4104, 0, "_cluster")]
 
 
 # each case keeps the ID it was first given, before the entry point was
@@ -492,3 +528,144 @@ def test_qkv_cluster_schedule_matches_the_plain_version(D, H, S):
         rel = float((out - ref).norm() / ref.norm())
         print(f"D={D} H={H} S={S} {dtype}: rel {rel:.3g}")
         assert rel <= tol
+
+
+def qkv_slices_model(qkv, H, sm, out_dtype=torch.float32):
+    """`csrc/fused_qkv_attention_wide.cu`'s schedule past 2048
+    (`qkv_slices_kernel`): the cluster of `cluster_plan(Hd)`, C blocks of k
+    slices of 256 columns; pass 1 takes S of each tile of 32 keys from each
+    block's partial over its k slices, the partials added in rank order,
+    keeps it, and runs the maximum and sum; pass 2 runs slice by slice,
+    p = 2^(logit log2(e) - (max + log2 sum)) rounded to bf16, times the
+    slice's columns of each V tile."""
+    B, S, threeD = qkv.shape
+    D = threeD // 3
+    Hd = D // H
+    cols = 256 * qa.cluster_plan(Hd)[1]
+    x = qkv.to(torch.bfloat16).float()
+    q, k, v = (x[..., i * D:(i + 1) * D].reshape(B, S, H, Hd).transpose(1, 2)
+               for i in range(3))
+    sl2 = sm * math.log2(math.e)
+    m = torch.full((B, H, S, 1), qa.NEG_INF)
+    l = torch.zeros_like(m)
+    kept = []
+    for j in range(0, S, 32):  # pass 1
+        s = _partials_sum(q, k[:, :, j:j + 32], cols)
+        kept.append(s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
+        l = l * torch.exp2(m - m_new) + torch.exp2(s * sl2 - m_new).sum(
+            -1, keepdim=True)
+        m = m_new
+    bias = m + torch.log2(l)
+    o = torch.zeros((B, H, S, Hd))
+    for c0 in range(0, Hd, 256):  # pass 2, a slice at a time
+        for j, s in zip(range(0, S, 32), kept):
+            p = torch.exp2(s * sl2 - bias).to(torch.bfloat16).float()
+            o[..., c0:c0 + 256] += p @ v[:, :, j:j + 32, c0:c0 + 256]
+    return o.transpose(1, 2).reshape(B, S, D).to(out_dtype)
+
+
+@pytest.mark.parametrize("S", [104, 136])
+@pytest.mark.parametrize("D", [2056, 4104])
+def test_qkv_slices_schedule_matches_the_plain_version(D, S):
+    """One head of 2056 (5 blocks of 2 slices, the last a slice of 8
+    columns) and of 4104 (6 blocks of 3, the last 2), a last tile of 8 keys
+    at S = 104 and 136: the card test's tolerances, rel Frobenius <= 1e-3
+    with f32 out and 5e-3 with bf16 out."""
+    rng = np.random.default_rng(D + S)
+    qkv = torch.from_numpy(rng.standard_normal((2, S, 3 * D),
+                                               dtype=np.float32))
+    sm = 1.0 / math.sqrt(D)
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-3)):
+        out = qkv_slices_model(qkv, 1, sm, dtype).float()
+        ref = qa.fused_qkv_attention_plain(qkv, 1, sm, dtype).float()
+        rel = float((out - ref).norm() / ref.norm())
+        print(f"D={D} S={S} {dtype}: rel {rel:.3g}")
+        assert rel <= tol
+
+
+def paged_slices_model(q, pt, k_data, k_scale, k_zp, v_data, v_scale, v_zp,
+                       bits, sm, page_tokens, nsplit=1):
+    """kPaged's schedule past 2048 (`wide_cluster_paged_slices`): the cluster
+    of `cluster_plan(D)`, C blocks of k slices; a page runs as tiles of 32
+    tokens, split into `nsplit` runs. Pass 1, over a run's tiles: qsum and S
+    from each block's partial over its k slices, added in rank order; the
+    online softmax, keeping for each tile bf16(p * vs), alpha and csum =
+    sum(p * vs * vz). Pass 2 replays the recurrence slice by slice, acc =
+    acc * alpha - csum + bf16(p * vs) . lv; the runs merge by (m, l) as in
+    `paged_cluster_model`."""
+    BH, Sq, D = q.shape
+    cols = 256 * qa.cluster_plan(D)[1]
+    P = k_data.shape[2] * (8 // bits)
+    qb = q.to(torch.bfloat16).float()
+    qsum = _rank_sum(qb, cols)
+    tiles = [(j, h0) for j in range(pt.shape[0]) for h0 in range(0, P, 32)]
+    per = -(-len(tiles) // nsplit)
+    parts = []
+    for t0 in range(0, len(tiles), per):
+        m = torch.full((BH, Sq, 1), pa.NEG_INF)
+        l = torch.zeros_like(m)
+        kept = []
+        for j, h0 in tiles[t0:t0 + per]:  # pass 1
+            s = int(pt[j])
+            sl = slice(h0, min(P, h0 + 32))
+            k_lv = pa.unpack_levels(k_data[s], bits).float()[:, sl]
+            ks, kz, vs, vz = (a[s][:, None, sl]
+                              for a in (k_scale, k_zp, v_scale, v_zp))
+            raw = _partials_sum(qb, k_lv, cols)
+            logits = (raw * ks - qsum * (ks * kz)) * sm
+            tok = torch.arange(sl.start, sl.stop)
+            logits = torch.where(tok < int(page_tokens[j]), logits, pa.NEG_INF)
+            m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+            p = torch.exp(logits - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            kept.append(((p * vs).to(torch.bfloat16).float(), alpha,
+                         (p * vs * vz).sum(-1, keepdim=True),
+                         pa.unpack_levels(v_data[s], bits).float()[:, sl]))
+            m = m_new
+        acc = torch.zeros((BH, Sq, D))
+        for c0 in range(0, D, 256):  # pass 2, a slice at a time
+            a = acc[..., c0:c0 + 256]
+            for w, alpha, csum, v_lv in kept:
+                a = a * alpha - csum + w @ v_lv[..., c0:c0 + 256]
+            acc[..., c0:c0 + 256] = a
+        parts.append((m, l, acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - M) for m, _, _ in parts]
+    wl = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+    acc = sum(wi * a for wi, (_, _, a) in zip(w, parts))
+    return acc / wl, (M + torch.log(wl))[..., 0]
+
+
+@pytest.mark.parametrize("nsplit", [1, 3])
+@pytest.mark.parametrize("bits,P,D", [(4, 32, 2056), (2, 72, 4104)])
+def test_paged_slices_schedule_matches_the_plain_version(bits, P, D, nsplit):
+    """Past 2048, at k = 2 (2056: a last block of one slice of 8 columns)
+    and k = 3 (4104), the chain in one run and split in three: the card
+    tests' tolerance (rel Frobenius <= 1e-2, lse within 1e-3) over an empty
+    first page, a partial page and slots in mixed order, and a chain with
+    every page empty, where every key weighs 1."""
+    rng = np.random.default_rng(bits * 1000 + P + D + nsplit)
+    BH, Sq, n_slots = 2, 40, 5
+    Pp = P // (8 // bits)
+    qmax = (1 << bits) - 1
+    data = [torch.from_numpy(rng.integers(0, 256, (n_slots, BH, Pp, D),
+                                          dtype=np.uint8)) for _ in range(2)]
+    side = [torch.from_numpy((rng.random((n_slots, BH, P)) * s + o)
+                             .astype(np.float32))
+            for s, o in ((3.0 / qmax, 1.5 / qmax), (0.2 * qmax, 0.4 * qmax),
+                         (3.0 / qmax, 1.5 / qmax), (0.2 * qmax, 0.4 * qmax))]
+    pools = (data[0], side[0], side[1], data[1], side[2], side[3])
+    q = torch.from_numpy(rng.standard_normal((BH, Sq, D), dtype=np.float32))
+    pt = torch.tensor([4, 1, 2], dtype=torch.int32)
+    nt = torch.tensor([0, P, min(17, P - 1)], dtype=torch.int32)
+    sm = 1.0 / math.sqrt(D)
+    for tokens in (nt, torch.zeros_like(nt)):
+        out, lse = paged_slices_model(q, pt, *pools, bits, sm, tokens, nsplit)
+        ref, ref_lse = pa.paged_attention_plain(
+            q, pt, *pools, bits=bits, page_tokens=tokens, return_lse=True)
+        rel = float((out - ref).norm() / ref.norm())
+        print(f"D={D} {bits}-bit P={P} nsplit={nsplit}: rel {rel:.3g}")
+        assert rel <= 1e-2
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
