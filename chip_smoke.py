@@ -60,7 +60,7 @@ Phases (any failure makes the script exit non-zero without the final line):
                 paged kernels and paged_unpack at heads_wide's serving shape
                 with 2 heads of 384 and one of 768; and untimed at heads of
                 264 (a ragged column block, packed rows of 33 bytes at 1
-                bit), 520 and 2048, and past the cluster kernels at 2056.
+                bit), 520 and 2048, and past them at 2056.
                 Every attention kernel runs heads of 264 to 2048 in the
                 cluster kernels (csrc/wide_cluster_flash.cuh, and for
                 fused-QKV attention csrc/fused_qkv_attention_wide.cu; the
@@ -68,10 +68,11 @@ Phases (any failure makes the script exit non-zero without the final line):
                 clusters, the batched and fused-QKV rows the clusters of
                 their instance the card runs at once), the clusters of each
                 size the card runs at once are logged, and any size it
-                cannot place fails the phase; past 2048 fused-QKV and
-                single-sequence paged attention run the same cluster design
-                with blocks of k slices of 256 columns (`cluster_plan`: 5
-                blocks of 2 at 2056, 6 of 3 at 4104), the other modes
+                cannot place fails the phase; past 2048 dense, fused-QKV and
+                single-sequence paged attention and the batched int8 path
+                run the same cluster design with blocks of k slices of 256
+                columns (`cluster_plan`: 5 blocks of 2 at 2056, 6 of 3 at
+                4104), quant_attention and the batched bf16 path
                 csrc/wide_flash.cuh. fused_qkv_attention at
                 B=8, S=256 and 864, width 768, with 12 heads of 64, 4 of
                 192, 3 of 256 (its wgmma design) and 2 of 384 and one of 768
@@ -82,9 +83,10 @@ Phases (any failure makes the script exit non-zero without the final line):
                 128), both batched kernels and paged_unpack (B=2, Sq=2048,
                 one head, 6 pages of 128 a slot), each the work of its row
                 of 768 within 0.4%, and fused_qkv_attention (B=8, S=256,
-                one head); and at k = 3, paged_attention and
+                one head); and at k = 3, at one head of 4104, dense
+                attention, paged_attention, both batched kernels and
                 fused_qkv_attention (B=8, S=240: JAX's 8 MiB admits no
-                longer row) at one head of 4104. The
+                longer row), each at its shape at 2056. The
                 kernels line gives each design's wide instance as
                 `wide_instance` (its first timed row, its design, source and
                 C entry point, and its launches on heads_wide's heads of 384
@@ -177,9 +179,11 @@ Phases (any failure makes the script exit non-zero without the final line):
                 heads_wide (every attention path at full width, W4A8, with
                 8 heads of 96, 3 of 256, 2 of 384 and one of 768, the last
                 two in the wide instances, and a 2-layer model of one head
-                of 2560 at width 2560 for the two paths of the cluster
-                design past 2048, `PagedKVCache.attend` and the fused-QKV
-                forward: the S=1024 sampler,
+                of 2560 at width 2560 for the four paths of the cluster
+                design past 2048: the S=1024 sampler, the paged batcher
+                with int8 attention (each with its card-vs-CPU check and
+                replayed bit for bit), `PagedKVCache.attend` and the
+                fused-QKV forward; on the others: the S=1024 sampler,
                 `Engine(config, params=...).sample(use_paged=False)` over
                 the decoded W4A8 weights (f32 residuals into the W4A8
                 kernels), the paged batcher at S=2048 with bf16
@@ -240,7 +244,9 @@ one of 768, the last two also at S = 864;
 `paged_unpack` in both layouts and each batched paged kernel alone at
 serve_paged's pools, heads of 16 to 256; `PARENT_SHAPES`; the wide
 instances at heads of 384 and 768 as new rows, which a parent without them
-does not time) of the checkout unpacked in DIR (the
+does not time; past 2048, at heads of 2056 and 4104, fused-QKV, single-
+sequence paged and dense attention and the batched int8 kernel alone) of
+the checkout unpacked in DIR (the
 parent commit, `git archive`) and of this one, each built and timed by its
 own chip_smoke.py in a process of its own (parent, this, this, parent);
 the runs line carries them as `parent_kernels`.
@@ -571,9 +577,12 @@ def kernels():
     # the cluster kernel up to 2048): heads of 384 and 768 at the work of
     # heads of 128 (BH=16 and 8), timed; heads of 264 (a last block of 8
     # columns), of 520 with f32 out (a cluster of 3), of 2048 with f32 out
-    # (a cluster of 8) and of 2056 (still csrc/wide_flash.cuh). Past 2048,
-    # timed: heads of 2056 at BH=3, the work of the row of 768 (BH=8) within
-    # 0.4%, beside the cluster kernel at 2048 on the same work.
+    # (a cluster of 8) and of 2056 (blocks of 2 slices); the one head of
+    # 2560 of `heads_wide`'s 2-layer model at its sampler's shape (B=2,
+    # S=1024), which its sampler phase launches. Past 2048, timed:
+    # heads of 2056 at BH=3, the work of the row of 768 (BH=8) within 0.4%,
+    # beside the cluster kernel at 2048 on the same work, and heads of 4104
+    # (blocks of 3 slices) at BH=3.
     # bf16 P: the kernel's 128-wide KV tiles rescale at other points than the
     # twin's 512-wide ones, so bf16(p) may round differently: |d| <= 1e-2 and
     # rel Frobenius <= 1e-2
@@ -586,7 +595,8 @@ def kernels():
             (16, 1024, 384, bf16, True), (8, 1024, 768, bf16, True),
             (8, 300, 264, bf16, False), (4, 300, 520, f32, False),
             (8, 256, 2048, f32, False), (2, 256, 2056, bf16, False),
-            (3, 1024, 2056, bf16, True), (3, 1024, 2048, bf16, True)):
+            (2, 1024, 2560, bf16, False), (3, 1024, 2056, bf16, True),
+            (3, 1024, 2048, bf16, True), (3, 1024, 4104, bf16, True)):
         q, k, v = (torch.randn((BH, S, Dh), generator=gen, device="cuda")
                    .to(bf16) for _ in range(3))
         out = dense_attention(q, k, v, out_dtype=dtype)
@@ -642,17 +652,22 @@ def kernels():
 def _cluster_occupancy(bad):
     """The clusters of the dense cluster kernel (csrc/wide_cluster_flash.cuh,
     one block an SM) the card runs at once, at every cluster size from 2
-    to 8 blocks (heads of 264 to 2048); 0 would refuse the launch."""
+    to 8 blocks (heads of 264 to 2048), and those of its k-slice kernel
+    past 2048 (logged, not kept in CLUSTERS); 0 would refuse the launch."""
     from diffusion_llm_rs_tpu_torch.ops import _build
+    from diffusion_llm_rs_tpu_torch.ops.attention import cluster_plan
     fn = _build.function("dlm_dense_attention_cluster_active")
-    for D in (264, 520, 776, 1032, 1288, 1544, 1800, 2048):
-        C = -(-D // 256)
+    for D in (264, 520, 776, 1032, 1288, 1544, 1800, 2048, 2056, 4104,
+              10240):
+        C, k = cluster_plan(D)
         n = fn(D)
-        CLUSTERS[C] = n
+        if k == 1:
+            CLUSTERS[C] = n
         log(f"  dense cluster kernel at heads of {D}: clusters of {C} "
-            f"blocks, {n} at once ({n * C} of {CARD['sms']} SMs)")
+            f"blocks of {k} slice(s), {n} at once ({n * C} of "
+            f"{CARD['sms']} SMs)")
         if n <= 0:
-            bad.append(f"clusters of {C} blocks")
+            bad.append(f"clusters of {C} blocks of {k} slice(s)")
 
 
 def _mlp_kernels(gen, results, bad):
@@ -966,16 +981,24 @@ def _paged_kernels(gen, results, bad):
     cases += [("heads of 264, pages of 72, partial page + empty slot", 4, 2,
                300, 72, ([5, 0], [40, 72]), False, (2, 1, 264))]
     # the cluster kernels' edges: a cluster of 8 (2048) in pages of 32, and
-    # past them csrc/wide_flash.cuh (2056)
+    # past them 2056 (the bf16 path on csrc/wide_flash.cuh, the int8 path in
+    # blocks of 2 slices)
     cases += [(f"heads of {D}, pages of 32, partial page + empty slot", 4, 2,
                100, 32, ([3, 0], [20, 32]), False, (1, 1, D))
               for D in (2048, 2056)]
     # past 2048, timed: one head of 2056 over 6 pages of 128 a slot (one
     # head cannot shrink, so the pages do: 6 x 2056 is the 16 x 768 of the
     # row of 768 within 0.4%), beside the cluster kernel at 2048 on the same
-    # work
+    # work, and one head of 4104 (the int8 path in blocks of 3 slices) over
+    # the same pages
     cases += [(f"heads of {D}, S=2048 4-bit, 6 pages a slot", 4, 2, 2048, 128,
-               ([6, 6], [128, 128]), True, (1, 1, D)) for D in (2056, 2048)]
+               ([6, 6], [128, 128]), True, (1, 1, D))
+              for D in (2056, 2048, 4104)]
+    # the one head of 2560 of `heads_wide`'s 2-layer model at its paged
+    # batcher's shape (B=2, Sq=2048, 16 pages of 128 a slot), which its
+    # int8 serving phase launches
+    cases += [("heads of 2560, S=2048 4-bit, 16 pages a slot", 4, 2, 2048,
+               128, ([16, 16], [128, 128]), False, (1, 1, 2560))]
     for label, bits, B, sq, P, (npages, last), timed, (H, G, D) in cases:
         pools = _quantized_pools(gen, B * n, H, P, D, G, bits)
         q = torch.randn((B, H, sq, D), generator=gen, device="cuda").to(
@@ -1054,7 +1077,7 @@ def _paged_kernels(gen, results, bad):
             rel_to_bf16_kernel=rel16, lse_to_bf16_kernel=lse16,
             tolerance="rel Frobenius <= 5e-3, |lse| <= 1e-3; of the bf16 "
             "kernel <= 3.5e-2, |lse| <= 2e-2", wide=D > WIDE_FROM)
-        if cluster_blocks(D):
+        if cluster_plan(D)[0]:  # past 2048 too: blocks of k slices
             row8["clusters_at_once"] = _build.function(
                 "dlm_batched_paged_attention_cluster_active")(D, P, 1)
         if timed:
@@ -1074,7 +1097,7 @@ def _paged_kernels(gen, results, bad):
                f"{row8['library_ms']:.4f}, bound {row8['bound_ms']:.4f} "
                f"({row8['bound_by']}); MUFU ex2 floor "
                f"{mufu_floor_ms(H * sq * keys):.4f}" if "ms" in row8 else "")
-            + (f"; clusters of {cluster_blocks(D)}, "
+            + (f"; clusters of {cluster_plan(D)[0]}, "
                f"{row8['clusters_at_once']} at once"
                if "clusters_at_once" in row8 else ""))
         if not ok8 or row8.get("clusters_at_once", 1) <= 0:
@@ -1526,11 +1549,15 @@ REPEATS = 5  # timed 32-step sampler runs (median reported)
 
 def _expected_launches(cfg, steps, long_seq):
     """Per forward: 2 time-MLP + L qkv + L wo + 1 head int8w_matmul (27 at
-    L = 12), L fused int8w_mlp and no chained one, and L dense_attention at
-    Skv >= 1024."""
-    L = cfg.num_layers
-    out = {"int8w_matmul": (3 + 2 * L) * steps, "int8w_mlp": L * steps,
-           "int8w_mlp_chained": 0}
+    L = 12), L fused int8w_mlp and no chained one (L chained and no fused
+    one where the fused kernel does not take the widths, `mlp_fits`: past
+    width 768), and L dense_attention at Skv >= 1024."""
+    from diffusion_llm_rs_tpu_torch.ops.int8_matmul import mlp_fits
+    L, D = cfg.num_layers, cfg.hidden_size
+    fused = mlp_fits(D, cfg.mlp_ratio * D)
+    out = {"int8w_matmul": (3 + 2 * L) * steps,
+           "int8w_mlp": L * steps if fused else 0,
+           "int8w_mlp_chained": 0 if fused else L * steps}
     if long_seq:
         out["dense_attention"] = L * steps
     return out
@@ -2196,7 +2223,14 @@ def heads_wide():
     (`_eager_vs_replayed` over `_graph_paths` at this phase's sizes, each
     warmed by the same work before it is timed: the one-shot and the scan
     sampler at B=2 x 1024, 8 steps each; serve_paged and serve_paged_a8, 4
-    requests of S=2048 and 4 steps after one alike)."""
+    requests of S=2048 and 4 steps after one alike). Then a 2-layer model
+    of one head of 2560 (`full_width_model(hidden=2560, layers=2)`: blocks
+    of 2 slices of 256 columns past 2048) through the paths that run the
+    cluster design there: `sample` at B=2, S=1024 (dense_attention, L a
+    step; one forward against the CPU), the fused-QKV forward, the paged
+    batcher with `attn_act_bits=8` (batched_paged_attention_a8 and
+    paged_unpack, L a step; `_step_vs_cpu`), `cache_attend`, and the
+    sampler and the batcher replayed against eager bit for bit."""
     from diffusion_llm_rs_tpu_torch.engine import Engine
     from diffusion_llm_rs_tpu_torch.models import denoiser as dn
     from diffusion_llm_rs_tpu_torch.models.diffusion import (
@@ -2333,14 +2367,17 @@ def heads_wide():
         torch.cuda.empty_cache()
     # past 2048: one head of 2560 at width 2560 (the cluster design with
     # blocks of 2 slices of 256 columns, clusters of 5), 2 layers (cut from
-    # 12 to keep the call's time), the two paths that run that design:
-    # `PagedKVCache.attend` (paged_attention at 8, 4 and 2 bits) and the
-    # fused-QKV forward at S = 256; its other attention paths still run
+    # 12 to keep the call's time), the four paths that run that design: the
+    # S = 1024 sampler (dense_attention), the paged batcher with int8
+    # attention (batched_paged_attention_a8), `PagedKVCache.attend`
+    # (paged_attention at 8, 4 and 2 bits) and the fused-QKV forward at S =
+    # 256; quant_attention and the batched bf16 path still run
     # csrc/wide_flash.cuh and are not run at this width
     t0 = time.perf_counter()
     cfg, params = full_width_model(max_seq=2048, heads=1, hidden=2560,
                                    layers=2)
     L = cfg.num_layers
+    MODEL.update(cfg=cfg, params=params)  # `_serve_cfg`, `_step_vs_cpu`
     log(f"  one head of 2560, {L} layers: model built in "
         f"{time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -2353,18 +2390,76 @@ def heads_wide():
         runs[name] = dict(wall_s=wall, counts=counts)
         return res
 
+    # the one-shot sampler at S = 1024: dense_attention, L a step, and one
+    # forward at B=1, S=1024 against the CPU
+    schedule = DiffusionSchedule.create(cfg.num_timesteps, device="cuda")
+    _, model_fn = _sampler(cfg, params, "cuda")
+    x = call("sample B=2 S=1024", lambda: sample(
+        model_fn, schedule, (2, 1024, cfg.hidden_size), gen, num_steps=2),
+        _expected_launches(cfg, 2, long_seq=True))
+    tokens = dn.decode_tokens(params, x)
+    if not bool(torch.isfinite(x).all()) or tuple(tokens.shape) != (
+            2, 1024) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError("heads of 2560: sample is not finite or its "
+                             "token ids are out of range")
+    xb = torch.randn((1, 1024, cfg.hidden_size), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    t = torch.full((1,), 500, device="cuda")
+    e_card = call("forward B=1 S=1024", lambda: dn.denoiser_forward(
+        params, cfg, xb, t), {"dense_attention": L}).float().cpu()
     cpu_params = _to(params, "cpu")
+    e_cpu = dn.denoiser_forward(cpu_params, cfg, xb.cpu(), t.cpu()).float()
+    rel = float((e_card - e_cpu).norm() / e_cpu.norm())
+    log(f"  heads of 2560: eps card vs CPU at S=1024 rel {rel:.3g} (bound "
+        f"2e-2)")
+    if not rel <= 2e-2:
+        raise AssertionError("heads of 2560: the S=1024 forward disagrees "
+                             "with the CPU")
+    runs["eps_rel_err_s1024"] = rel
     _wide_fused_forward(cfg, params, cpu_params, 1, gen, call, runs)
     del cpu_params
+
+    # the paged batcher at S = 2048, pages of 128, 4-bit KV, int8
+    # attention: paged_unpack and batched_paged_attention_a8, L a step
+    kernel = "batched_paged_attention_a8"
+    batcher = PagedContinuousBatcher(
+        params, _serve_cfg(prefill_bits=4, decode_bits=4,
+                           progressive_precision=False),
+        num_slots=2, seq_len=2048, page_size=128, attend_mode="auto",
+        keep_embeddings=False, attn_act_bits=8, seed=41)
+    if batcher.attend_mode != "paged" or batcher.buckets != (4,):
+        raise AssertionError(f"mode {batcher.attend_mode}, buckets "
+                             f"{batcher.buckets}")
+    run = _serve("heads_wide 2560 serve S=2048 act 8", batcher,
+                 [(f"r{i}", 2048, 2) for i in range(4)])
+    _expect("heads_wide 2560 serve S=2048 act 8", run["counts"], {
+        kernel: L * run["steps"], "batched_paged_attention": 0,
+        "paged_unpack": L * run["steps"], "dense_attention": 0})
+    runs["serve S=2048 act 8"] = run
+    del batcher
+    runs["step_check act 8"] = _step_vs_cpu(8, kernel)
     runs["cache_attend"] = cache_attend(BH=1, S=1024, D=2560, page=64,
                                         seed=43)
+
+    # the sampler and the batcher again, eager and replayed, bit for bit
+    paths = _graph_paths(cfg, params, shape=(2, 1024), steps=8,
+                         serve_len=2048, serve_steps=4)
+    for name, path in (("sample", "sampler"),
+                       ("serve act 8", "serve_paged_a8")):
+        runs[f"replayed {name}"] = _eager_vs_replayed(
+            f"heads of 2560 {name}", paths[path])
     past = {}
-    for r in runs.values():
+    for name, r in runs.items():
+        if name.startswith("replayed"):
+            continue  # the same calls again
         for k, n in ((r.get("counts") or {}) if isinstance(r, dict)
                      else {}).items():
             for acc in (total, wide, past):
                 acc[k] = acc.get(k, 0) + n
     out["heads of 2560 (2 layers)"] = runs
+    MODEL.pop("cfg")
+    MODEL.pop("params")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2732,10 +2827,11 @@ def _step_vs_cpu(act_bits, kernel):
         log(f"  one step on {device}: {time.perf_counter() - t0:.1f} s")
         if device == "cuda":
             counts = dict(_build.launch_counts)
+    L = cfg.num_layers
     _expect("serve_check", counts, dict({
-        name: 12 if name == kernel else 0 for name in (
+        name: L if name == kernel else 0 for name in (
             "batched_paged_attention", "batched_paged_attention_a8")},
-        paged_unpack=12))
+        paged_unpack=L))
     sched = DiffusionSchedule.create(cfg.num_timesteps, device="cpu")
     t = 999
     base = (rec.draws[0] * torch.rsqrt(sched.alphas[t])
@@ -4150,9 +4246,9 @@ KERNELS = {
 # the wide instance of each attention design (heads past 256), a source of
 # its own (with its C entry point at heads of 384 and 768) over
 # csrc/wide_cluster_flash.cuh from 264 to 2048 (WIDE_DESIGNS; past 2048
-# fused-QKV and single-sequence paged attention too, blocks of several
-# slices) and csrc/wide_flash.cuh past for the others; the batched kernels'
-# past 2048 in paged_flash_wide.cu
+# dense, fused-QKV and single-sequence paged attention and the batched int8
+# path too, blocks of several slices) and csrc/wide_flash.cuh past for
+# quant_attention and the batched bf16 path (in paged_flash_wide.cu)
 WIDE_SOURCES = {
     "dense_attention": "diffusion_llm_rs_tpu_torch/csrc/dense_attention_wide.cu",
     "fused_qkv_attention":
@@ -4193,10 +4289,15 @@ WIDE_DESIGN_NOTES = {
         "packed rows copied a block's bytes at a time and unpacked by field; "
         "the batched int8 path's S in s32 partials of 64 tokens, a page's S "
         "held for its per-page requantization, P.V in two halves; past 2048 "
-        "one sequence's paged attention in blocks of several 256-column "
-        "slices (pass 1 S and the online softmax, keeping bf16(p * vs), "
-        "alpha and csum a tile; pass 2 P.V replayed slice by slice), the "
-        "other modes csrc/wide_flash.cuh",
+        "dense and fused-QKV attention, one sequence's paged attention and "
+        "the batched int8 path in blocks of several 256-column slices (pass "
+        "1 S, q's slice streamed from L2 a step; dense and fused-QKV "
+        "attention (one kernel, slices_attention) keep S in f32 scratch and "
+        "each row's max and sum, paged attention per tile bf16(p * vs), "
+        "alpha and csum, the int8 path per page its requantized weights, "
+        "alpha, sw and csum, q's int8 levels quantized once into a scratch; "
+        "pass 2 P.V slice by slice), quant_attention and the batched bf16 "
+        "path csrc/wide_flash.cuh",
     "diffusion_llm_rs_tpu_torch/csrc/wide_flash.cuh":
         "heads past 256: a block per 64 queries and 128 output columns on "
         "mma.sync, S recomputed in each",
@@ -4207,7 +4308,8 @@ WIDE_DESIGN_NOTES = {
         "S and P.V on wgmma); pass 1's S kept in f32 scratch and read back "
         "by pass 2, which runs P.V alone; past 2048 blocks of several "
         "256-column slices, q streamed a slice a step in pass 1, pass 2 "
-        "slice by slice"}
+        "slice by slice (csrc/wide_cluster_flash.cuh: slices_attention, "
+        "which dense attention runs there too)"}
 ALSO_BUILT_FROM = {
     "matmul_a8": ("diffusion_llm_rs_tpu_torch/csrc/int8_gemm.cu",),
     # the heads between the instances' widths, from sources of their own
@@ -4222,9 +4324,10 @@ ALSO_BUILT_FROM = {
         WIDE_SOURCES["batched_paged_attention"],
         "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu"),
     "batched_paged_attention_a8": (
-        WIDE_SOURCES["batched_paged_attention_a8"],
-        "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu"),
-    "fused_qkv_attention": (WIDE_SOURCES["fused_qkv_attention"],)}
+        WIDE_SOURCES["batched_paged_attention_a8"],),
+    "fused_qkv_attention": (
+        WIDE_SOURCES["fused_qkv_attention"],
+        "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh")}
 
 
 # Run in a checkout (cwd), this one or an earlier commit's: the attention
@@ -4279,7 +4382,13 @@ PARENT_SHAPES = dict(
     # single-sequence paged attention past 2048 (BH, Sq, D, pages of 128,
     # 4-bit): csrc/wide_flash.cuh in a parent before the cluster design
     # took these heads
-    past_paged=[(1, 1024, 2056, 3), (1, 1024, 4104, 3)])
+    past_paged=[(1, 1024, 2056, 3), (1, 1024, 4104, 3)],
+    # dense attention past 2048 (BH, S, D) and the batched int8 kernel alone
+    # past 2048 (B, H, D, pages of 128 a slot, 4-bit, Sq = 2048):
+    # csrc/wide_flash.cuh in a parent before the cluster design took these
+    # heads
+    past_dense=[(3, 1024, 2056), (3, 1024, 4104)],
+    past_a8=[(2, 1, 2056, 6), (2, 1, 4104, 6)])
 PARENT_CODE = """
 import json, torch, chip_smoke as c
 from diffusion_llm_rs_tpu_torch.ops import _build
@@ -4301,6 +4410,9 @@ if not wide:  # a checkout without the wide instances: their rows are new
         SHAPES[key] = []
 gen = torch.Generator(device="cuda").manual_seed(99)
 ms = {}
+# a checkout with the int8 batched kernel's wide entry point (past 2048),
+# whose cluster entry point takes no scratch
+a8_wide = "dlm_batched_paged_attention_a8_wide" in _build.SIGNATURES
 for BH, S, D, bits in SHAPES["quant_attention"] + SHAPES["wide_quant"]:
     q = torch.randn((BH, S, D), generator=gen, device="cuda").bfloat16()
     k, v = (qa.quantize_kv(torch.randn((BH, S, D), generator=gen,
@@ -4341,11 +4453,16 @@ for B, H, G, D in SHAPES["batched"] + SHAPES["wide_batched"]:
         suffix = "" if not extra else "_cluster" if batched_cluster and \
             D <= 2048 else "_wide"
         fn = _build.function("dlm_" + name + suffix)
+        # the int8 cluster kernel's scratch (q's levels and the replay
+        # words, read only past 2048) where the checkout's entry point
+        # takes them
+        nulls = (None, None) if a8 and suffix == "_cluster" and \
+            not a8_wide else ()
         ms[f"{name} (alone) {tag}"] = c.time_ms(lambda: _build.check(fn(
             q.data_ptr(), nt.data_ptr(), npg.data_ptr(), k.data_ptr(),
             v.data_ptr(), side.data_ptr(), out.data_ptr(), lse.data_ptr(), B,
             H, Sq, D, n, k.shape[3], *extra,
-            torch.cuda.current_stream().cuda_stream), name))
+            torch.cuda.current_stream().cuda_stream, *nulls), name))
 for M, K, N, resid in SHAPES["int8w_matmul"]:
     x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
     w = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
@@ -4376,6 +4493,35 @@ for B, S, D, H in SHAPES.get("fused_qkv", []):
     qkv = torch.randn((B, S, 3 * D), generator=gen, device="cuda").bfloat16()
     ms[f"fused_qkv_attention B={B} S={S} D={D} H={H}"] = c.time_ms(
         lambda: qa.fused_qkv_attention(qkv, H))
+for BH, S, D in SHAPES.get("past_dense", []):
+    q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda")
+               .bfloat16() for _ in "qkv")
+    ms[f"dense_attention BH={BH} S={S} D={D}"] = c.time_ms(
+        lambda: qa.dense_attention(q, k, v))
+# the int8 kernel alone past 2048: the wide entry point where the checkout
+# has it, else the cluster one with its scratch
+for B, H, D, n in SHAPES.get("past_a8", []):
+    Sq = 2048
+    pools = c._quantized_pools(gen, B * n, H, 128, D, 1, 4)
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda").bfloat16()
+    pt = torch.randperm(B * n, generator=gen, device="cuda").reshape(
+        B, n).int()
+    nt = torch.full((B, n), 128, dtype=torch.int32, device="cuda")
+    npg = torch.full((B,), n, dtype=torch.int32, device="cuda")
+    out = torch.empty((B, H, Sq, D), dtype=torch.float32, device="cuda")
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+    k, v, side = pa.paged_unpack(pt, npg, *pools, bits=4, a8=True)
+    fn = _build.function("dlm_batched_paged_attention_a8"
+                         + ("_wide" if a8_wide else "_cluster"))
+    scratch = () if a8_wide else pa._a8_slices_scratch(
+        q.device, B * H, Sq, D, k.shape[4], n, k.shape[3])
+    ms[f"batched_paged_attention_a8 (alone) B={B} H={H} D={D} Sq={Sq} {n} "
+       f"pages of 128 4-bit"] = c.time_ms(lambda: _build.check(fn(
+        q.data_ptr(), nt.data_ptr(), npg.data_ptr(), k.data_ptr(),
+        v.data_ptr(), side.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H,
+        Sq, D, n, k.shape[3], k.shape[4], 128,
+        torch.cuda.current_stream().cuda_stream,
+        *(t.data_ptr() for t in scratch)), "batched_paged_attention_a8"))
 print(json.dumps(ms))
 """
 

@@ -14,7 +14,8 @@
 // maxima): every key is seen twice.
 //
 // Design (heads of 264 to 2048, `qkv_cluster_kernel`; past 2048 blocks of
-// several 256-column slices, `qkv_slices_kernel` below). A cluster of C =
+// several 256-column slices, csrc/wide_cluster_flash.cuh: slices_attention,
+// the same two passes, which dense attention runs there too). A cluster of C =
 // ceil(Hd / 256) blocks owns 128 query rows of one (batch row, head); block
 // j owns head columns [256j, 256j + 256) (the last block of heads of 264
 // owns 8). Each block reads its slices of q, K and V
@@ -387,272 +388,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Heads past 2048: n = ceil(Hd / 256) slices of 256 columns, k = ceil(n /
-// 8) a block, a cluster of C = ceil(n / k) (wide_cluster::cluster_plan);
-// block j owns slices [jk, jk + k), the last one fewer, or a slice of 8
-// columns. Pass 1 sums the block's partial S over its slices in one
-// accumulator (16 k-steps a slice), a step (a tile's slice) at a time: q's
-// slice and the K tile's by TMA into a ring of two stages of q [128][256]
-// and K [32][256] (q does not fit resident past one slice, so it streams
-// from L2 once a step; all four chunks are loaded, zero past Hd); then the
-// exchange, the kept S and the running maximum and sum as above. Pass 2 runs
-// slice by slice, the kept S read again for each: P.V over the slice's
-// columns of the V tiles (three stages over pass 1's ring), o 128 registers
-// a thread, and the slice's columns written. The roundings are those above.
-struct SliceLayout {
-  static constexpr int kQ = kBQ * kCols * 2;
-  static constexpr int kTile = TK * kCols * 2;
-  static constexpr int kStage = kQ + kTile;
-  static constexpr int kX = kBQ * TK * 4;
-  static constexpr int kXOff = 2 * kStage;
-  static constexpr int kBarOff = kXOff + 2 * kX;
-  static constexpr int kBytes = 1024 + kBarOff + (2 + kStages) * 8;
-};
-
-__global__ void __launch_bounds__(kThreads, 1)
-    qkv_slices_kernel(const __grid_constant__ CUtensorMap tq,
-                      const __grid_constant__ CUtensorMap tkv, const Args a,
-                      const int k) {
-  using L = SliceLayout;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  float* X = reinterpret_cast<float*>(smem + L::kXOff);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
-  uint64_t* vfull = full + 2;
-
-  const int C = a.C, rank = (int)cluster_rank();
-  const int q0 = (blockIdx.x / C) * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int zh = b * a.H + h;
-  const int cb = rank * k * kCols;  // the block's first column
-  const int ns = min(k, (a.Hd + kCols - 1) / kCols - rank * k);  // its slices
-  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) >> 5;
-  const int lane = tid & 31, g = lane >> 2, q4 = lane & 3;
-  const int rows0 = wg * 64 + warp * 16 + g;  // and rows0 + 8, in the tile
-  const int T = (a.S + TK - 1) / TK;          // tiles of 32 keys
-  const int N = T * ns;  // pass 1's steps: step i is tile i / ns, slice i % ns
-  const bool writes = (tid >> 5) % C == rank;
-  float* s_rows = a.s_keep + ((size_t)zh * a.S + q0 + rows0) * a.S;
-
-  if (tid == 0) {
-    for (int s = 0; s < 2 + kStages; ++s) mbar_init(full + s, 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  auto stage = [&](int i) { return smem + (i & 1) * L::kStage; };
-  auto load_step = [&](int i) {
-    const int col = cb + (i % ns) * kCols, t = i / ns;
-    uint64_t* bar = full + (i & 1);
-    mbar_expect_tx(bar, L::kStage);
-    for (int c = 0; c < kChunks; ++c) {
-      tma_load_4d(stage(i) + c * kBQ * kSw, &tq, bar, col + 64 * c, h, q0, b);
-      tma_load_4d(stage(i) + L::kQ + c * TK * kSw, &tkv, bar, col + 64 * c,
-                  a.H + h, t * TK, b);
-    }
-  };
-  if (tid == 0) {
-    load_step(0);
-    if (N > 1) load_step(1);
-  }
-  __syncwarp();
-
-  // pass 1
-  const uint32_t x_addr = smem_u32(X) + tid * 16;
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  float acc[kS], cur[kS];
-#pragma unroll 1
-  for (int t = 0; t < T; ++t) {
-#pragma unroll 1
-    for (int s = 0; s < ns; ++s) {
-      const int i = t * ns + s;
-      mbar_wait(full + (i & 1), (i >> 1) & 1);
-      const uint32_t q_addr = smem_u32(stage(i)) + wg * 64 * kSw;
-      const uint32_t k_addr = smem_u32(stage(i) + L::kQ);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kCols / 16; ++kk) {
-        const int chunk = kk / 4, in = (kk % 4) * 32;
-        wgmma_ss<TK>(acc,
-                     gmma_desc(q_addr + chunk * kBQ * kSw + in, 16, 8 * kSw, 1),
-                     gmma_desc(k_addr + chunk * TK * kSw + in, 16, 8 * kSw, 1),
-                     s > 0 || kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      __syncthreads();  // stage i read by both warpgroups
-      if (tid == 0 && i + 2 < N) load_step(i + 2);
-      __syncwarp();
-    }
-    // the partial S to the cluster (buffer t & 1, last read at tile t - 2
-    // before every block arrived at tile t - 1's barrier), then S in rank
-    // order
-    {
-      float4* xb = reinterpret_cast<float4*>(X + (t & 1) * (L::kX / 4));
-#pragma unroll
-      for (int u = 0; u < kU; ++u)
-        xb[u * kThreads + tid] = make_float4(acc[4 * u], acc[4 * u + 1],
-                                             acc[4 * u + 2], acc[4 * u + 3]);
-    }
-    cluster_arrive();
-    cluster_wait();
-    wide_cluster::gather_slices(cur, x_addr + (t & 1) * L::kX, C);
-    const int kv0 = t * TK;
-    if (writes) {  // keys in pairs: S % 8 == 0, so both or neither < S
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-        for (int jj = 0; jj < TK / 8; ++jj) {
-          const int key = kv0 + 8 * jj + 2 * q4;
-          if (q0 + rows0 + 8 * hh < a.S && key < a.S)
-            *reinterpret_cast<float2*>(s_rows + (size_t)8 * hh * a.S + key) =
-                make_float2(cur[4 * jj + 2 * hh], cur[4 * jj + 2 * hh + 1]);
-        }
-      }
-    }
-    if (kv0 + TK > a.S) {  // keys past S (the zero rows of the box)
-#pragma unroll
-      for (int e = 0; e < kS; ++e)
-        if (kv0 + (e >> 2) * 8 + q4 * 2 + (e & 1) >= a.S) cur[e] = kNegInf;
-    }
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int e = 0; e < kS; ++e)
-      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], cur[e]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m_run[r], mx[r] * a.sl2);
-      l_run[r] *= quant_flash::ex2(m_run[r] - m_new);
-      m_run[r] = m_new;
-    }
-#pragma unroll
-    for (int e = 0; e < kS; ++e) {
-      const int r = (e >> 1) & 1;
-      l_run[r] += quant_flash::ex2(fmaf(cur[e], a.sl2, -m_run[r]));
-    }
-  }
-  float bias[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m = quant_flash::quad_max(m_run[r]);
-    bias[r] = m + log2f(quant_flash::quad_sum(
-                      l_run[r] * quant_flash::ex2(m_run[r] - m)));
-  }
-  // every block's rows of S are written, every product of pass 1 has
-  // retired (its ring is V's now), and no block reads another's shared
-  // memory after it
-  cluster_arrive();
-  cluster_wait();
-
-  // pass 2: step j is tile j % T of owned slice j / T
-  const int M = ns * T;
-  auto load_v = [&](int j) {
-    const int st = j % kStages, col = cb + (j / T) * kCols;
-    mbar_expect_tx(vfull + st, L::kTile);
-    for (int c = 0; c < kChunks; ++c)
-      tma_load_4d(smem + st * L::kTile + c * TK * kSw, &tkv, vfull + st,
-                  col + 64 * c, 2 * a.H + h, (j % T) * TK, b);
-  };
-  if (tid == 0)
-    for (int j = 0; j < kStages - 1 && j < M; ++j) load_v(j);
-  __syncwarp();
-  const float* s_read = a.s_keep + ((size_t)zh * a.S + q0 + rows0) * a.S;
-  auto load_s = [&](float(&s)[kS], int t) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-      for (int jj = 0; jj < TK / 8; ++jj) {
-        const int key = t * TK + 8 * jj + 2 * q4;
-        float2 v = make_float2(kNegInf, kNegInf);
-        if (q0 + rows0 + 8 * hh < a.S && key < a.S)
-          v = __ldcg(reinterpret_cast<const float2*>(
-              s_read + (size_t)8 * hh * a.S + key));
-        s[4 * jj + 2 * hh] = v.x;
-        s[4 * jj + 2 * hh + 1] = v.y;
-      }
-    }
-  };
-  const int D = a.H * a.Hd;
-  float o[kCols / 2];
-  float lg[kS], lg_next[kS];
-  load_s(lg_next, 0);
-#pragma unroll 1
-  for (int s = 0; s < ns; ++s) {
-#pragma unroll
-    for (int i = 0; i < kCols / 2; ++i) o[i] = 0.f;
-#pragma unroll 1
-    for (int t = 0; t < T; ++t) {
-      const int j = s * T + t;
-#pragma unroll
-      for (int e = 0; e < kS; ++e) lg[e] = lg_next[e];
-      if (j + 1 < M) load_s(lg_next, (t + 1) % T);
-      wgmma_wait<0>();  // P.V of the step before
-      fence_regs(o);
-      uint32_t pf[TK / 16][4];
-#pragma unroll
-      for (int jj = 0; jj < TK / 8; ++jj) {
-        pf[jj >> 1][(jj & 1) * 2] =
-            pack_bf16(quant_flash::ex2(fmaf(lg[4 * jj], a.sl2, -bias[0])),
-                      quant_flash::ex2(fmaf(lg[4 * jj + 1], a.sl2, -bias[0])));
-        pf[jj >> 1][(jj & 1) * 2 + 1] =
-            pack_bf16(quant_flash::ex2(fmaf(lg[4 * jj + 2], a.sl2, -bias[1])),
-                      quant_flash::ex2(fmaf(lg[4 * jj + 3], a.sl2, -bias[1])));
-      }
-      mbar_wait(vfull + j % kStages, (j / kStages) & 1);
-      const uint32_t v_addr = smem_u32(smem + (j % kStages) * L::kTile);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < TK / 16; ++kk)
-        wgmma_rs<kCols, 1>(
-            o, pf[kk], gmma_desc(v_addr + kk * 16 * kSw, TK * kSw, 8 * kSw, 1),
-            1);
-      wgmma_commit();
-      __syncthreads();  // both warpgroups' P.V of step j - 1: its V stage free
-      if (tid == 0 && j + kStages - 1 < M) load_v(j + kStages - 1);
-      __syncwarp();
-    }
-    wgmma_wait<0>();
-    fence_regs(o);
-    const int c0 = cb + s * kCols, ncol = min(kCols, a.Hd - c0);
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = q0 + rows0 + 8 * hh;
-      if (row >= a.S) continue;
-      const size_t at = ((size_t)b * a.S + row) * D + (size_t)h * a.Hd + c0 +
-                        2 * q4;
-#pragma unroll
-      for (int jj = 0; jj < kCols / 8; ++jj) {
-        if (8 * jj >= ncol) break;  // columns past Hd are not stored
-        const float y0 = o[4 * jj + 2 * hh], y1 = o[4 * jj + 2 * hh + 1];
-        if (a.out_bf16)
-          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(a.out) +
-                                       at + 8 * jj) = pack_bf16(y0, y1);
-        else
-          *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + 8 * jj) =
-              make_float2(y0, y1);
-      }
-    }
-  }
-}
-
-int active_slices(int C) {
-  auto kernel = qkv_slices_kernel;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SliceLayout::kBytes);
-  if (attr != cudaSuccess) return -(int)attr;
-  return wide_cluster::occupancy(kernel, SliceLayout::kBytes, C);
-}
-
-int launch_slices(const CUtensorMap (&maps)[2], const Args& a, int k,
-                  dim3 grid, cudaStream_t stream) {
-  static int placed[kMaxCluster + 1] = {};  // active clusters by C, 0: not asked
-  if (const int err = wide_cluster::check_placed(placed, a.C, active_slices))
-    return err;
-  return wide_cluster::cluster_launch(qkv_slices_kernel, SliceLayout::kBytes,
-                                      grid, a.C, stream, maps[0], maps[1], a,
-                                      k);
-}
-
 template <int CT>
 int active_ct(int C) {
   auto kernel = qkv_cluster_kernel<CT>;
@@ -688,7 +423,8 @@ int dlm_fused_qkv_attention_cluster_active(int Hd) {
   int k;
   const int C = wide_cluster::cluster_plan(Hd, &k);
   if (C == 0) return -(int)cudaErrorInvalidValue;
-  return k > 1 ? qkv_cluster::active_slices(C) : qkv_cluster::active(C);
+  return k > 1 ? wide_cluster::active_slices_attention<true>(C)
+               : qkv_cluster::active(C);
 }
 
 // dlm_fused_qkv_attention's arguments (csrc/fused_qkv_attention.cu) for Hd
@@ -722,6 +458,26 @@ int dlm_fused_qkv_attention_cluster(const void* qkv, void* out, int out_bf16,
       !make_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, qkv, dims,
                 strides, box_kv, CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k > 1) {  // the one map serves q, K and V
+    const CUtensorMap three[3] = {maps[0], maps[1], maps[1]};
+    wide_cluster::SliceArgs s{};
+    s.out = out;
+    s.ob = (size_t)S * H * Hd;
+    s.oh = Hd;
+    s.orow = (size_t)H * Hd;
+    s.s_keep = static_cast<float*>(s_keep);
+    s.out_bf16 = out_bf16;
+    s.Sq = S;
+    s.Skv = S;
+    s.D = Hd;
+    s.H = H;
+    s.C = C;
+    s.k = k;
+    s.ld = S;
+    s.sl2 = sm_scale * kLog2e;
+    return wide_cluster::launch_slices_attention<true>(three, s, B, st);
+  }
   Args a{};
   a.out = out;
   a.out_bf16 = out_bf16;
@@ -732,8 +488,6 @@ int dlm_fused_qkv_attention_cluster(const void* qkv, void* out, int out_bf16,
   a.sl2 = sm_scale * kLog2e;
   a.s_keep = static_cast<float*>(s_keep);
   const dim3 grid(C * ((S + kBQ - 1) / kBQ), H, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k > 1) return launch_slices(maps, a, k, grid, st);
   return C == 2   ? launch_ct<2>(maps, a, grid, st)
          : C == 3 ? launch_ct<3>(maps, a, grid, st)
                   : launch_ct<0>(maps, a, grid, st);

@@ -351,6 +351,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// The same for this thread's writes to global memory, before a barrier
+// hands them to TMA loads.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // A barrier of the `count` threads that name `id` (1..15; 0 is
 // __syncthreads').
 __device__ __forceinline__ void named_barrier(int id, int count) {

@@ -1,55 +1,21 @@
-// Batched paged attention at head widths past 2048, bf16 and int8
-// activations, for Hopper (sm_90a).
+// Batched paged attention at head widths past 2048, bf16 activations, for
+// Hopper (sm_90a).
 //
-// With csrc/batched_paged_attention.cu and csrc/paged_attention_a8.cu (heads
-// of 8 to 256) and csrc/paged_flash_cluster.cu (264 to 2048) it replaces the
-// TPU kernel `_batched_kernel`
+// With csrc/batched_paged_attention.cu (heads of 8 to 256) and
+// csrc/paged_flash_cluster.cu (264 to 2048, and the int8 path at every width
+// past 256) it replaces the bf16 path of the TPU kernel `_batched_kernel`
 // (diffusion_llm_rs_tpu/ops/pallas_paged_attention.py:288, behind
-// `batched_paged_attention`, :686), which takes G*D % 128 == 0 (:757; its XLA
-// `_batched_fallback` serves the other widths). As at the other widths,
+// `batched_paged_attention`, :686), which takes G*D % 128 == 0 (:757; its
+// XLA `_batched_fallback` serves the other widths). As at the other widths,
 // csrc/paged_unpack.cu first unpacks every live page into a scratch, here of
 // rows of DK = D rounded up to 64, zero past D; the attention over it is
-// modes kScratch16 and kScratch8 of csrc/wide_flash.cuh: D a runtime
-// argument, one instance a page tile (32, 64 or 128 tokens) and path. On the
-// int8 path q is quantized once per row over the whole head, as JAX's kernel
-// does (:411-427), before S runs over the head in chunks. From 264 to 2048
-// the cluster design of csrc/wide_cluster_flash.cuh serves (it issues S
-// once), so these entry points refuse those widths.
+// mode kScratch16 of csrc/wide_flash.cuh: D a runtime argument, one
+// instance a page tile (32, 64 or 128 tokens). From 264 to 2048 the cluster
+// design of csrc/wide_cluster_flash.cuh serves (it issues S once), so this
+// entry point refuses those widths.
 
 #include "wide_cluster_flash.cuh"
 #include "wide_flash.cuh"
-
-namespace {
-
-int run(bool a8, const void* q, const void* page_tokens, const void* n_pages,
-        const void* k, const void* v, const void* side, void* out, void* lse,
-        int B, int H, int Sq, int D, int n_max, int PT, int DK, int P,
-        void* stream) {
-  if (D <= wide_cluster::kMaxD || D % 8 || DK % 64 || DK < D || P < 8 ||
-      P > PT || P % 8 || (PT != 32 && PT != 64 && PT != 128))
-    return (int)cudaErrorInvalidValue;
-  wide_flash::Args a{};
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.page_tokens = static_cast<const int*>(page_tokens);
-  a.slot_pages = static_cast<const int*>(n_pages);
-  a.sk = k;
-  a.sv = v;
-  a.side = static_cast<const float*>(side);
-  a.out = out;
-  a.lse = static_cast<float*>(lse);
-  a.Z = B * H;
-  a.H = H;
-  a.Sq = Sq;
-  a.D = D;
-  a.n_max = n_max;
-  a.DK = DK;
-  a.P = P;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return a8 ? wide_flash::launch_scratch<wide_flash::kScratch8>(a, PT, st)
-            : wide_flash::launch_scratch<wide_flash::kScratch16>(a, PT, st);
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -65,20 +31,27 @@ int dlm_batched_paged_attention_wide(const void* q, const void* page_tokens,
                                      void* out, void* lse, int B, int H,
                                      int Sq, int D, int n_max, int PT, int DK,
                                      int P, void* stream) {
-  return run(false, q, page_tokens, n_pages, k, v, side, out, lse, B, H, Sq,
-             D, n_max, PT, DK, P, stream);
-}
-
-// The same over dlm_paged_unpack's int8 scratch (K [.., PT, DK], V^T
-// [.., DK, PT] with its columns in vt_col order).
-int dlm_batched_paged_attention_a8_wide(const void* q, const void* page_tokens,
-                                        const void* n_pages, const void* k,
-                                        const void* v, const void* side,
-                                        void* out, void* lse, int B, int H,
-                                        int Sq, int D, int n_max, int PT,
-                                        int DK, int P, void* stream) {
-  return run(true, q, page_tokens, n_pages, k, v, side, out, lse, B, H, Sq, D,
-             n_max, PT, DK, P, stream);
+  if (D <= wide_cluster::kMaxD || D % 8 || DK % 64 || DK < D || P < 8 ||
+      P > PT || P % 8 || (PT != 32 && PT != 64 && PT != 128))
+    return (int)cudaErrorInvalidValue;
+  wide_flash::Args a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.page_tokens = static_cast<const int*>(page_tokens);
+  a.slot_pages = static_cast<const int*>(n_pages);
+  a.sk = static_cast<const __nv_bfloat16*>(k);
+  a.sv = static_cast<const __nv_bfloat16*>(v);
+  a.side = static_cast<const float*>(side);
+  a.out = static_cast<float*>(out);
+  a.lse = static_cast<float*>(lse);
+  a.Z = B * H;
+  a.H = H;
+  a.Sq = Sq;
+  a.D = D;
+  a.n_max = n_max;
+  a.DK = DK;
+  a.P = P;
+  return wide_flash::launch_scratch<wide_flash::kScratch16>(
+      a, PT, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -140,7 +140,7 @@ int dlm_quant_attention_wide(const void* q, const void* k_data,
   a.v_data = static_cast<const uint8_t*>(v_data);
   a.v_scale = static_cast<const float*>(v_scale);
   a.v_zp = static_cast<const float*>(v_zp);
-  a.out = out;
+  a.out = static_cast<float*>(out);
   a.Z = BH;
   a.Sq = Sq;
   a.Skv = Skv;

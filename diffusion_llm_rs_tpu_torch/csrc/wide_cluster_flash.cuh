@@ -1,8 +1,8 @@
 // Dense, quantized-KV (contiguous and single-sequence paged) and batched
-// paged attention at head widths from 264 to 2048, and single-sequence paged
-// attention past 2048 (blocks of several 256-column slices, "k slices"
-// below), for Hopper (sm_90a): the head split across a thread-block
-// cluster.
+// paged attention at head widths from 264 to 2048, and dense, fused-QKV,
+// single-sequence paged and batched int8 paged attention past 2048 (blocks
+// of several 256-column slices, "k slices" below), for Hopper (sm_90a): the
+// head split across a thread-block cluster.
 //
 // The fixed instances (csrc/dense_attention.cu, csrc/quant_flash.cuh) hold
 // a whole head row of q, K and V in shared memory and o in registers, so
@@ -193,6 +193,7 @@ struct Args {
   const float* side;
   const __nv_bfloat16* q;
   int H, n_max, PT;
+  int DK;  // kScratch8 past 2048: the scratch's row of DK columns
 };
 
 // Shared memory of a block: q [128][256], three stages each of K and V
@@ -1566,7 +1567,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ceil(n / 8) of them a block, a cluster of C = ceil(n / k) blocks (at most
 // 8); block j owns slices [jk, jk + k), the last one fewer, or a slice of 8
 // columns. A block cannot hold o for two slices in registers, so the tile
-// loop runs twice, as csrc/fused_qkv_attention_wide.cu does:
+// loop runs twice, as slices_attention below does:
 //   - Pass 1, S and the softmax: for each tile of 32 tokens, the block's
 //     partial S summed over its slices in one accumulator (m64n32k16, 16
 //     k-steps a slice), the C partials added in rank order as above
@@ -1600,9 +1601,10 @@ struct SmemK {
 // uint4 words a thread keeps a tile for pass 2: P (two), alpha and csum
 constexpr int kReplayWords = 3;
 
-// S of the tile in buffer `at` (clusters of 5 to 8 blocks: k > 1)
-__device__ __forceinline__ void gather_slices(float (&s)[kS], uint32_t at,
-                                              int C) {
+// S of the tile in buffer `at` (clusters of 5 to 8 blocks: k > 1; f32
+// partials, or s32 ones in kScratch8)
+template <typename T, int N>
+__device__ __forceinline__ void gather_slices(T (&s)[N], uint32_t at, int C) {
   switch (C) {
     case 5: gather<5>(s, at); break;
     case 6: gather<6>(s, at); break;
@@ -2057,6 +2059,748 @@ __global__ void __launch_bounds__(kThreads, 1)
                  min(ns * kCols, a.D - cb), q4);
 }
 
+// Dense attention and fused-QKV attention at heads past 2048, k slices a
+// block (`slices_attention`): the two exact passes of csrc/fused_qkv_
+// attention_wide.cu's cluster kernel over blocks of several slices. q, K
+// and V come by TMA, all four chunks of a slice, zero past D, Sq and Skv:
+// for dense attention from three bf16 [Z, S, D] tensors (3-D maps, grid y
+// the head z), for fused-QKV attention (kQkv) from the [B, S, 3H, Hd]
+// projection (one 4-D map, head index h, H + h, 2H + h; grid y the head h,
+// grid z the batch row b).
+//   - Pass 1: each step (a tile's slice) takes q's slice and the K tile's
+//     into a ring of two stages of q [128][256] and K [32][256] (q does not
+//     fit resident past one slice, so it streams from L2 once a step); the
+//     block's partial S summed over its slices in one accumulator (16
+//     k-steps a slice), the C partials in rank order (`gather_slices`).
+//     Each row's running maximum of logit * log2(e) and sum of 2^(that -
+//     maximum) are kept, and the summed S is written to an f32 scratch
+//     `s_keep` [B * H, Sq, ld] by block w % C for warp w.
+//   - Pass 2, after a cluster barrier (which orders those writes before the
+//     reads), slice by slice: S read back a tile ahead, p = 2^(logit
+//     log2(e) - max) rounded to bf16, times the slice's columns of the V
+//     tile (three stages over pass 1's ring; o 128 registers a thread, no
+//     rescale: max is final); the slice's columns written, o / sum, in bf16
+//     or f32 as out_bf16 asks. For fused-QKV attention p is divided by the
+//     sum before it is rounded (p = 2^(logit log2(e) - (max + log2 sum)))
+//     and o is written as it is.
+// Every key is seen twice, so each p rounds against the row's final
+// maximum: the roundings of fused-QKV's TPU kernel, and of dense
+// attention's in every tile where its running maximum is already the row's.
+// The two callers are two instances (kQkv), so neither pays for the other's
+// normalisation (a runtime choice cost fused-QKV attention 4.5% at 2056,
+// PERF.md).
+struct SliceArgs {
+  void* out;  // bf16 where out_bf16, else f32
+  // element (b, h, row, column) of out at b * ob + h * oh + row * orow +
+  // column
+  size_t ob, oh, orow;
+  float* s_keep;  // [B * H, Sq, ld]: pass 1's S for pass 2
+  int out_bf16, Sq, Skv, D, H, C, k;
+  int ld;     // the scratch's row: Skv rounded up to 8 (keys in pairs)
+  float sl2;  // sm_scale * log2(e)
+};
+
+// Shared memory: the ring of two stages of q [128][256] and K [32][256]
+// (pass 2: three V stages), two buffers of partial S, the mbarriers (two
+// q+K stages, three V stages).
+struct SmemSlices {
+  static constexpr int kQ = kBQ * kCols * 2;
+  static constexpr int kTile = TK * kCols * 2;
+  static constexpr int kStage = kQ + kTile;
+  static constexpr int kX = kBQ * TK * 4;
+  static constexpr int kXOff = 2 * kStage;
+  static constexpr int kBarOff = kXOff + 2 * kX;
+  static constexpr int kBytes = 1024 + kBarOff + (2 + kStages) * 8;
+};
+
+// The 64-column box of part `part` (0 q, 1 K, 2 V) at column col and row
+// row of this block's head, into dst.
+template <bool kQkv>
+__device__ __forceinline__ void slice_box(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int part, int col,
+                                          int row, int H) {
+  if constexpr (kQkv)
+    tma_load_4d(dst, map, bar, col, part * H + (int)blockIdx.y, row,
+                (int)blockIdx.z);
+  else
+    tma_load_3d(dst, map, bar, col, row, (int)blockIdx.y);
+}
+
+template <bool kQkv>
+__global__ void __launch_bounds__(kThreads, 1)
+    slices_attention(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const SliceArgs a) {
+  using L = SmemSlices;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* X = reinterpret_cast<float*>(smem + L::kXOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
+  uint64_t* vfull = full + 2;
+
+  const int C = a.C, k = a.k, rank = (int)cluster_rank();
+  const int q0 = (blockIdx.x / C) * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int zh = b * a.H + h;
+  const int cb = rank * k * kCols;  // the block's first column
+  const int ns = min(k, (a.D + kCols - 1) / kCols - rank * k);  // its slices
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) >> 5;
+  const int lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+  const int rows0 = wg * 64 + warp * 16 + g;  // and rows0 + 8, in the tile
+  const int T = (a.Skv + TK - 1) / TK;        // tiles of 32 keys
+  const int N = T * ns;  // pass 1's steps: step i is tile i / ns, slice i % ns
+  const bool writes = (tid >> 5) % C == rank;  // its warp's rows of S
+  float* s_rows = a.s_keep + ((size_t)zh * a.Sq + q0 + rows0) * a.ld;
+
+  if (tid == 0) {
+    for (int s = 0; s < 2 + kStages; ++s) mbar_init(full + s, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  auto stage = [&](int i) { return smem + (i & 1) * L::kStage; };
+  auto load_step = [&](int i) {
+    const int col = cb + (i % ns) * kCols, t = i / ns;
+    uint64_t* bar = full + (i & 1);
+    mbar_expect_tx(bar, L::kStage);
+    for (int c = 0; c < kChunks; ++c) {
+      slice_box<kQkv>(stage(i) + c * kBQ * kSw, &tq, bar, 0, col + 64 * c,
+                       q0, a.H);
+      slice_box<kQkv>(stage(i) + L::kQ + c * TK * kSw, &tk, bar, 1,
+                       col + 64 * c, t * TK, a.H);
+    }
+  };
+  if (tid == 0) {
+    load_step(0);
+    if (N > 1) load_step(1);
+  }
+  __syncwarp();
+
+  // pass 1
+  const uint32_t x_addr = smem_u32(X) + tid * 16;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float acc[kS], cur[kS];
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+#pragma unroll 1
+    for (int s = 0; s < ns; ++s) {
+      const int i = t * ns + s;
+      mbar_wait(full + (i & 1), (i >> 1) & 1);
+      const uint32_t q_addr = smem_u32(stage(i)) + wg * 64 * kSw;
+      const uint32_t k_addr = smem_u32(stage(i) + L::kQ);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kCols / 16; ++kk) {
+        const int chunk = kk / 4, in = (kk % 4) * 32;
+        wgmma_ss<TK>(acc,
+                     gmma_desc(q_addr + chunk * kBQ * kSw + in, 16, 8 * kSw, 1),
+                     gmma_desc(k_addr + chunk * TK * kSw + in, 16, 8 * kSw, 1),
+                     s > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncthreads();  // stage i read by both warpgroups
+      if (tid == 0 && i + 2 < N) load_step(i + 2);
+      __syncwarp();
+    }
+    // the partial S to the cluster (buffer t & 1, last read at tile t - 2
+    // before every block arrived at tile t - 1's barrier), then S in rank
+    // order
+    {
+      float4* xb = reinterpret_cast<float4*>(X + (t & 1) * (L::kX / 4));
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        xb[u * kThreads + tid] = make_float4(acc[4 * u], acc[4 * u + 1],
+                                             acc[4 * u + 2], acc[4 * u + 3]);
+    }
+    cluster_arrive();
+    cluster_wait();
+    gather_slices(cur, x_addr + (t & 1) * L::kX, C);
+    const int kv0 = t * TK;
+    if (writes) {  // keys in pairs: the row of ld = Skv rounded up to 8
+                   // holds both of a pair whose first is < Skv
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+        for (int jj = 0; jj < TK / 8; ++jj) {
+          const int key = kv0 + 8 * jj + 2 * q4;
+          if (q0 + rows0 + 8 * hh < a.Sq && key < a.Skv)
+            *reinterpret_cast<float2*>(s_rows + (size_t)8 * hh * a.ld + key) =
+                make_float2(cur[4 * jj + 2 * hh], cur[4 * jj + 2 * hh + 1]);
+        }
+      }
+    }
+    if (kv0 + TK > a.Skv) {  // keys past Skv (the zero rows of the box)
+#pragma unroll
+      for (int e = 0; e < kS; ++e)
+        if (kv0 + (e >> 2) * 8 + q4 * 2 + (e & 1) >= a.Skv) cur[e] = kNegInf;
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int e = 0; e < kS; ++e)
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], cur[e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_run[r], mx[r] * a.sl2);
+      l_run[r] *= quant_flash::ex2(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int e = 0; e < kS; ++e) {
+      const int r = (e >> 1) & 1;
+      l_run[r] += quant_flash::ex2(fmaf(cur[e], a.sl2, -m_run[r]));
+    }
+  }
+  float bias[2], l[2];  // p = 2^(logit log2(e) - bias); out = o, or o / l
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m = quant_flash::quad_max(m_run[r]);
+    l[r] = quant_flash::quad_sum(l_run[r] * quant_flash::ex2(m_run[r] - m));
+    bias[r] = kQkv ? m + log2f(l[r]) : m;
+  }
+  // every block's rows of S are written, every product of pass 1 has
+  // retired (its ring is V's now), and no block reads another's shared
+  // memory after it
+  cluster_arrive();
+  cluster_wait();
+
+  // pass 2: step j is tile j % T of owned slice j / T
+  const int M = ns * T;
+  auto load_v = [&](int j) {
+    const int st = j % kStages, col = cb + (j / T) * kCols;
+    mbar_expect_tx(vfull + st, L::kTile);
+    for (int c = 0; c < kChunks; ++c)
+      slice_box<kQkv>(smem + st * L::kTile + c * TK * kSw, &tv, vfull + st,
+                       2, col + 64 * c, (j % T) * TK, a.H);
+  };
+  if (tid == 0)
+    for (int j = 0; j < kStages - 1 && j < M; ++j) load_v(j);
+  __syncwarp();
+  auto load_s = [&](float(&s)[kS], int t) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int jj = 0; jj < TK / 8; ++jj) {
+        const int key = t * TK + 8 * jj + 2 * q4;
+        float2 v = make_float2(kNegInf, kNegInf);
+        if (q0 + rows0 + 8 * hh < a.Sq && key < a.Skv)
+          v = __ldcg(reinterpret_cast<const float2*>(
+              s_rows + (size_t)8 * hh * a.ld + key));
+        s[4 * jj + 2 * hh] = v.x;
+        s[4 * jj + 2 * hh + 1] = v.y;
+      }
+    }
+  };
+  float o[kCols / 2];
+  float lg[kS], lg_next[kS];
+  load_s(lg_next, 0);
+#pragma unroll 1
+  for (int s = 0; s < ns; ++s) {
+#pragma unroll
+    for (int i = 0; i < kCols / 2; ++i) o[i] = 0.f;
+#pragma unroll 1
+    for (int t = 0; t < T; ++t) {
+      const int j = s * T + t;
+#pragma unroll
+      for (int e = 0; e < kS; ++e) lg[e] = lg_next[e];
+      if (j + 1 < M) load_s(lg_next, (t + 1) % T);
+      wgmma_wait<0>();  // P.V of the step before
+      fence_regs(o);
+      uint32_t pf[TK / 16][4];
+#pragma unroll
+      for (int jj = 0; jj < TK / 8; ++jj) {
+        pf[jj >> 1][(jj & 1) * 2] =
+            pack_bf16(quant_flash::ex2(fmaf(lg[4 * jj], a.sl2, -bias[0])),
+                      quant_flash::ex2(fmaf(lg[4 * jj + 1], a.sl2, -bias[0])));
+        pf[jj >> 1][(jj & 1) * 2 + 1] =
+            pack_bf16(quant_flash::ex2(fmaf(lg[4 * jj + 2], a.sl2, -bias[1])),
+                      quant_flash::ex2(fmaf(lg[4 * jj + 3], a.sl2, -bias[1])));
+      }
+      mbar_wait(vfull + j % kStages, (j / kStages) & 1);
+      const uint32_t v_addr = smem_u32(smem + (j % kStages) * L::kTile);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        wgmma_rs<kCols, 1>(
+            o, pf[kk], gmma_desc(v_addr + kk * 16 * kSw, TK * kSw, 8 * kSw, 1),
+            1);
+      wgmma_commit();
+      __syncthreads();  // both warpgroups' P.V of step j - 1: its V stage free
+      if (tid == 0 && j + kStages - 1 < M) load_v(j + kStages - 1);
+      __syncwarp();
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+    const int c0 = cb + s * kCols, ncol = min(kCols, a.D - c0);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + rows0 + 8 * hh;
+      if (row >= a.Sq) continue;
+      const size_t at = b * a.ob + h * a.oh + row * a.orow + c0 + 2 * q4;
+#pragma unroll
+      for (int jj = 0; jj < kCols / 8; ++jj) {
+        if (8 * jj >= ncol) break;  // columns past D are not stored
+        float y0 = o[4 * jj + 2 * hh], y1 = o[4 * jj + 2 * hh + 1];
+        if constexpr (!kQkv) {
+          y0 = __fdiv_rn(y0, l[hh]);
+          y1 = __fdiv_rn(y1, l[hh]);
+        }
+        if (a.out_bf16)
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(a.out) +
+                                       at + 8 * jj) = pack_bf16(y0, y1);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + 8 * jj) =
+              make_float2(y0, y1);
+      }
+    }
+  }
+}
+
+// kScratch8 at heads past 2048, k slices a block: the two passes again.
+// q's int8 tile of one slice is 32 KB, so k slices of it cannot stay
+// resident beside the ring: q is quantized once, after the exchange of its
+// row maxima, into a global int8 scratch `qi` [Z, Sq, DK] (each block its own
+// columns, zero past D), and a slice of it streams by TMA with each K
+// sub-tile (a `fence.proxy.async.global` and a cluster barrier stand
+// between the stores and the loads). Requantizing each streamed bf16 slice
+// of q instead would take a 64 KB stage and a division an element every step.
+//   - Pass 1: each step (a sub-tile's slice) takes q's int8 slice and the K
+//     sub-tile's [U][256] into a ring of two stages; the block's s32
+//     partial S summed over its slices in one accumulator, the C partials
+//     (exact in any order), a page's whole S held until its last sub-tile,
+//     then the page's softmax and requantization as in
+//     wide_cluster_attention_a8. Kept in `replay` per thread and page: wi
+//     (PT / 32 words, the P.V A operand in `vt_columns` order), the rows'
+//     alpha and sw, and their csum = sum(w * vz').
+//   - Pass 2, slice by slice: page j's V^T rows of the slice [256][PT] by
+//     TMA (three stages over the ring), its words staged by cp.async a page
+//     ahead in the partial-S buffers (free after pass 1), then o = o * alpha
+//     + (wi . V^T) * sw - csum as two m64n128k32 halves, each folded into o
+//     before the next.
+// An empty slot writes zeros and an lse of -1e30; a row whose every key so
+// far is masked weighs each key 1 (wide_cluster_attention_a8's rule).
+template <int PT, int U = a8_subtile(PT)>
+struct SmemK8 {
+  static constexpr int kQ = kBQ * kCols;
+  static constexpr int kK = U * kCols;
+  static constexpr int kStage = kQ + kK;
+  static constexpr int kV = kCols * PT;
+  static constexpr int kX = kBQ * U * 4;
+  static constexpr int kSide = 4 * PT * 4;
+  static constexpr int kXOff = 2 * kStage;
+  static constexpr int kSideOff = kXOff + 2 * kX;
+  static constexpr int kRowOff = kSideOff + 2 * kSide;
+  static constexpr int kBarOff = kRowOff + 3 * kBQ * 4;
+  static constexpr int kBytes = 1024 + kBarOff + (2 + kStages) * 8;
+  // uint4 words a thread keeps a page: wi, (alpha, sw) and csum
+  static constexpr int kWords = PT / 32 + 2;
+  static_assert(kStages * kV <= 2 * kStage, "V^T stages over the ring");
+  static_assert(2 * kWords * kThreads * 16 <= 2 * kX, "words over X");
+};
+
+template <int PT>
+__global__ void __launch_bounds__(kThreads, 1)
+    wide_cluster_a8_slices(const __grid_constant__ CUtensorMap tqi,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const Args a, const int k, int8_t* qi,
+                           uint4* replay) {
+  constexpr int U = a8_subtile(PT), NT = PT / U;
+  using L = SmemK8<PT>;
+  constexpr int kSU = U / 2, kUU = U / 8;  // logits a thread, int4 units
+  constexpr int kVSw = swizzle_of(PT);
+  constexpr int W = L::kWords, kSteps = PT / 32;  // P.V k-steps of 32 tokens
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  int* X = reinterpret_cast<int*>(smem + L::kXOff);
+  float* sides = reinterpret_cast<float*>(smem + L::kSideOff);
+  float* qamax = reinterpret_cast<float*>(smem + L::kRowOff);
+  int* qisum = reinterpret_cast<int*>(qamax + kBQ);
+  float* qsq = qamax + 2 * kBQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
+  uint64_t* vfull = full + 2;
+
+  const int C = a.C, rank = (int)cluster_rank();
+  const int qt = blockIdx.x / C, q0 = qt * kBQ, z = blockIdx.y;
+  const int cb = rank * k * kCols;  // the block's first column
+  const int ns = min(k, (a.D + kCols - 1) / kCols - rank * k);  // its slices
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) >> 5;
+  const int lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+  const int rows0 = wg * 64 + warp * 16 + g;  // and rows0 + 8, in the tile
+  const int slot = z / a.H, n_pages = a.slot_pages[slot], T = n_pages * NT;
+  auto col_of = [&](int s) { return cb + s * kCols; };
+  auto ncol_of = [&](int s) { return min(kCols, a.D - col_of(s)); };
+  if (T == 0) {
+    for (int s = 0; s < ns; ++s)
+      empty_rows(a, q0, rows0, z, rank, col_of(s), ncol_of(s), q4);
+    return;
+  }
+  const int N = T * ns;  // pass 1's steps: step i is sub-tile i / ns, slice
+                         // i % ns
+  const bool writes = (tid >> 5) % C == rank;  // its warp's replay rows
+  uint4* rp = replay + (size_t)(z * (gridDim.x / C) + qt) * a.n_max * W *
+                           kThreads + tid;
+
+  if (tid == 0) {
+    for (int s = 0; s < 2 + kStages; ++s) mbar_init(full + s, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // q, two threads a row, 128 columns of each owned slice each: the row's
+  // amax over the whole head (the C partial maxima, exact in any order), sq
+  // = amax / 127 (1 where 0), qi = rint(q / sq) into the scratch (columns
+  // past D 0; rows past Sq are not written and load as 0), and qsum =
+  // sum(qi) * sq (the C partial sums, integers)
+  float sq[2], qs[2];
+  {
+    const int r = tid >> 1, half = tid & 1, row = q0 + r;
+    const __nv_bfloat16* qr = a.q + ((size_t)z * a.Sq + row) * a.D;
+    float amax = 0.f;
+    if (row < a.Sq)
+      for (int s = 0; s < ns; ++s)
+        for (int u = 0; u < 16; ++u) {
+          const int c = col_of(s) + 128 * half + 8 * u;
+          if (c >= a.D) break;
+          const uint4 w = *reinterpret_cast<const uint4*>(qr + c);
+          const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            amax = fmaxf(amax, fmaxf(fabsf(__bfloat162float(h2[e].x)),
+                                     fabsf(__bfloat162float(h2[e].y))));
+        }
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+    if (half == 0) qamax[r] = amax;
+    cluster_arrive();
+    cluster_wait();
+    const uint32_t at = smem_u32(qamax + r);
+    for (int j = 0; j < C; ++j)
+      amax = fmaxf(amax, ld_cluster_f32(cluster_map(at, j)));
+    const float scale = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+    int isum = 0;
+    if (row < a.Sq) {
+      int8_t* qo = qi + ((size_t)z * a.Sq + row) * a.DK;
+      for (int s = 0; s < ns; ++s)
+        for (int u = 0; u < 8; ++u) {  // 16 columns
+          const int c = col_of(s) + 128 * half + 16 * u;
+          if (c >= a.DK) break;
+          int v[16];
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            uint4 w = make_uint4(0u, 0u, 0u, 0u);
+            if (c + 8 * e2 < a.D)
+              w = *reinterpret_cast<const uint4*>(qr + c + 8 * e2);
+            const __nv_bfloat16* x8 = reinterpret_cast<const __nv_bfloat16*>(&w);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              v[8 * e2 + e] =
+                  (int)rintf(__fdiv_rn(__bfloat162float(x8[e]), scale));
+              isum += v[8 * e2 + e];
+            }
+          }
+          *reinterpret_cast<uint4*>(qo + c) =
+              make_uint4(paged_flash::pack_s8(v[0], v[1], v[2], v[3]),
+                         paged_flash::pack_s8(v[4], v[5], v[6], v[7]),
+                         paged_flash::pack_s8(v[8], v[9], v[10], v[11]),
+                         paged_flash::pack_s8(v[12], v[13], v[14], v[15]));
+        }
+    }
+    isum += __shfl_xor_sync(0xffffffffu, isum, 1);
+    if (half == 0) {
+      qisum[r] = isum;
+      qsq[r] = scale;
+    }
+    fence_proxy_async_global();  // qi's stores, for pass 1's TMA loads
+    cluster_arrive();
+    cluster_wait();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t at2 = smem_u32(qisum + rows0 + 8 * h);
+      int total = 0;
+      for (int j = 0; j < C; ++j)
+        total += __float_as_int(ld_cluster_f32(cluster_map(at2, j)));
+      sq[h] = qsq[rows0 + 8 * h];
+      qs[h] = __fmul_rn((float)total, sq[h]);
+    }
+  }
+
+  auto stage = [&](int i) { return smem + (i & 1) * L::kStage; };
+  auto load_step = [&](int i) {
+    const int col = col_of(i % ns), t = i / ns;
+    uint64_t* bar = full + (i & 1);
+    mbar_expect_tx(bar, L::kStage);
+    for (int c = 0; c < 2; ++c) {
+      tma_load_3d(stage(i) + c * kBQ * 128, &tqi, bar, col + 128 * c, q0, z);
+      tma_load_3d(stage(i) + L::kQ + c * U * 128, &tk, bar, col + 128 * c,
+                  (t / NT) * PT + (t % NT) * U, z);
+    }
+  };
+  if (tid == 0) {
+    load_step(0);
+    if (N > 1) load_step(1);
+  }
+  __syncwarp();
+
+  // pass 1
+  const uint32_t x_addr = smem_u32(X) + tid * 16;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  int acc[kSU], cur[kSU];
+  // the page's S (sub-tile h at h * kSU; this thread's rows g and g + 8,
+  // tokens 8n + 2 q4 + (e & 1) of entry 4n + e), then its logits, then w
+  float x[NT * kSU];
+#pragma unroll 1
+  for (int j = 0; j < n_pages; ++j) {
+    const int valid = min(a.page_tokens[(size_t)slot * a.n_max + j], a.P);
+    // the page's sidecar rows (ka', kb', vs, vz'), read by its softmax after
+    // the barriers of its sub-tiles; buffer j & 1 was last read by page
+    // j - 2's, before every thread arrived at page j - 1's barriers
+    float* sd = sides + (j & 1) * 4 * PT;
+    if (tid < PT)
+      reinterpret_cast<float4*>(sd)[tid] = __ldg(
+          reinterpret_cast<const float4*>(
+              a.side + ((size_t)z * a.n_max + j) * 4 * PT) + tid);
+#pragma unroll
+    for (int h = 0; h < NT; ++h) {
+      const int t = j * NT + h;
+#pragma unroll 1
+      for (int s = 0; s < ns; ++s) {
+        const int i = t * ns + s;
+        mbar_wait(full + (i & 1), (i >> 1) & 1);
+        const uint32_t q_addr = smem_u32(stage(i)) + wg * 64 * 128;
+        const uint32_t k_addr = smem_u32(stage(i) + L::kQ);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kCols / 32; ++kk) {
+          const int chunk = kk / 4, in = (kk % 4) * 32;
+          wgmma_s8_ss<U>(acc,
+                         gmma_desc(q_addr + chunk * kBQ * 128 + in, 16, 1024, 1),
+                         gmma_desc(k_addr + chunk * U * 128 + in, 16, 1024, 1),
+                         s > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        __syncthreads();  // stage i read by both warpgroups
+        if (tid == 0 && i + 2 < N) load_step(i + 2);
+        __syncwarp();
+      }
+      // the partial S to the cluster (buffer t & 1, as in slices_attention
+      // above), S summed (exact)
+      {
+        int4* xb = reinterpret_cast<int4*>(X + (t & 1) * (L::kX / 4));
+#pragma unroll
+        for (int u = 0; u < kUU; ++u)
+          xb[u * kThreads + tid] = make_int4(acc[4 * u], acc[4 * u + 1],
+                                             acc[4 * u + 2], acc[4 * u + 3]);
+      }
+      cluster_arrive();
+      cluster_wait();
+      gather_slices(cur, x_addr + (t & 1) * L::kX, C);
+#pragma unroll
+      for (int e = 0; e < kSU; ++e) x[h * kSU + e] = __int2float_rn(cur[e]);
+    }
+
+    // the page's softmax as in wide_cluster_attention_a8: the logits (raw
+    // = S * sq; raw * ka' - kb' * qsum; -1e30 past the valid tokens), w = p
+    // * vs (0 past the valid tokens) with sum w * vz' and the page maximum,
+    // sw = max w / 127 (1 where 0), wi = rint(w / sw)
+    const bool mask = valid < PT;
+    float mx[2] = {m_run[0], m_run[1]}, alpha[2], msc[2];
+#pragma unroll
+    for (int n = 0; n < PT / 8; ++n) {
+      const int col = 8 * n + 2 * q4;
+      const float2 ka = *reinterpret_cast<const float2*>(sd + col);
+      const float2 kb = *reinterpret_cast<const float2*>(sd + PT + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float raw = __fmul_rn(x[4 * n + e], sq[r]);
+        float y = __fsub_rn(__fmul_rn(raw, (e & 1) ? ka.y : ka.x),
+                            __fmul_rn((e & 1) ? kb.y : kb.x, qs[r]));
+        if (mask && col + (e & 1) >= valid) y = kNegInf;
+        x[4 * n + e] = y;
+        mx[r] = fmaxf(mx[r], y);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quant_flash::quad_max(mx[r]);
+      alpha[r] = quant_flash::ex2((m_run[r] - mx[r]) * kLog2e);
+      msc[r] = mx[r] * kLog2e;
+      m_run[r] = mx[r];
+    }
+    float rsum[2] = {0.f, 0.f}, csum[2] = {0.f, 0.f}, wmax[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < PT / 8; ++n) {
+      const int col = 8 * n + 2 * q4;
+      const float2 vs = *reinterpret_cast<const float2*>(sd + 2 * PT + col);
+      const float2 vz = *reinterpret_cast<const float2*>(sd + 3 * PT + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, tok = col + (e & 1);
+        float p = quant_flash::ex2(__fmaf_rn(x[4 * n + e], kLog2e, -msc[r]));
+        float w = __fmul_rn(p, (e & 1) ? vs.y : vs.x);
+        if (mask && tok >= valid) {
+          p = m_run[r] == kNegInf && tok < a.P ? 1.f : 0.f;
+          w = 0.f;
+        }
+        rsum[r] += p;
+        csum[r] = __fmaf_rn(w, (e & 1) ? vz.y : vz.x, csum[r]);
+        wmax[r] = fmaxf(wmax[r], w);
+        x[4 * n + e] = w;
+      }
+    }
+    float sw[2], rs[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] = l_run[r] * alpha[r] + quant_flash::quad_sum(rsum[r]);
+      wmax[r] = quant_flash::quad_max(wmax[r]);
+      sw[r] = wmax[r] > 0.f ? __fdiv_rn(wmax[r], 127.f) : 1.f;
+      rs[r] = __frcp_rn(sw[r]);
+      csum[r] = quant_flash::quad_sum(csum[r]);
+    }
+    if (writes) {
+      // wi, 0..127: step kk of 32 tokens, register 0 row g's tokens of
+      // n-blocks 4kk and 4kk + 1, register 2 those of 4kk + 2 and 4kk + 3,
+      // registers 1 and 3 row g + 8's (the `vt_columns` order of V^T)
+      uint4* wr = rp + (size_t)j * W * kThreads;
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t pf[4];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int n0 = 4 * kk + 2 * hf;
+            int wi[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              wi[e] = paged_flash::rint_bits(paged_flash::div_by(
+                  x[4 * (n0 + (e >> 1)) + 2 * r + (e & 1)], sw[r], rs[r]));
+            pf[hf * 2 + r] = paged_flash::pack_s8(wi[0], wi[1], wi[2], wi[3]);
+          }
+        wr[kk * kThreads] = make_uint4(pf[0], pf[1], pf[2], pf[3]);
+      }
+      wr[kSteps * kThreads] =
+          make_uint4(__float_as_uint(alpha[0]), __float_as_uint(alpha[1]),
+                     __float_as_uint(sw[0]), __float_as_uint(sw[1]));
+      wr[(kSteps + 1) * kThreads] = make_uint4(
+          __float_as_uint(csum[0]), __float_as_uint(csum[1]), 0u, 0u);
+    }
+  }
+  if (rank == 0 && q4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + rows0 + 8 * h;
+      if (row < a.Sq)
+        a.lse[(size_t)z * a.Sq + row] =
+            l_run[h] > 0.f ? m_run[h] + logf(l_run[h]) : kNegInf;
+    }
+  }
+  // every block's replay rows are written (the barrier orders them at
+  // cluster scope), every product of pass 1 has retired (its ring is V^T's
+  // now), and no block reads another's shared memory after it
+  cluster_arrive();
+  cluster_wait();
+
+  // pass 2: step jj is page jj % n_pages of owned slice jj / n_pages
+  const int M = ns * n_pages;
+  auto vstage = [&](int jj) { return smem + (jj % kStages) * L::kV; };
+  auto load_v = [&](int jj) {
+    const int st = jj % kStages;
+    mbar_expect_tx(vfull + st, L::kV);
+    tma_load_4d(vstage(jj), &tv, vfull + st, 0, col_of(jj / n_pages),
+                jj % n_pages, z);
+  };
+  if (tid == 0)
+    for (int jj = 0; jj < kStages - 1 && jj < M; ++jj) load_v(jj);
+  __syncwarp();
+  // page j's words, staged by cp.async into buffer b of the partial-S
+  // buffers; each thread copies and reads back its own
+  uint4* words = reinterpret_cast<uint4*>(smem + L::kXOff);
+  auto fetch_words = [&](int j, int b) {
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+      cp_async16(words + (b * W + w) * kThreads + tid,
+                 rp + ((size_t)j * W + w) * kThreads, 16);
+    cp_async_commit();
+  };
+  fetch_words(0, 0);
+  const float inv[2] = {__frcp_rn(l_run[0] > 0.f ? l_run[0] : 1.f),
+                        __frcp_rn(l_run[1] > 0.f ? l_run[1] : 1.f)};
+  float o[kCols / 2];
+#pragma unroll 1
+  for (int s = 0; s < ns; ++s) {
+#pragma unroll
+    for (int i = 0; i < kCols / 2; ++i) o[i] = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < n_pages; ++j) {
+      const int jj = s * n_pages + j, b = jj & 1;
+      cp_async_wait_all();  // page j's words
+      const uint4* wd = words + b * W * kThreads + tid;
+      uint32_t pf[kSteps][4];
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const uint4 v = wd[kk * kThreads];
+        pf[kk][0] = v.x;
+        pf[kk][1] = v.y;
+        pf[kk][2] = v.z;
+        pf[kk][3] = v.w;
+      }
+      const uint4 st = wd[kSteps * kThreads], cs = wd[(kSteps + 1) * kThreads];
+      const float alpha[2] = {__uint_as_float(st.x), __uint_as_float(st.y)};
+      const float sw[2] = {__uint_as_float(st.z), __uint_as_float(st.w)};
+      const float csum[2] = {__uint_as_float(cs.x), __uint_as_float(cs.y)};
+      if (jj + 1 < M) fetch_words((j + 1) % n_pages, b ^ 1);
+      mbar_wait(vfull + jj % kStages, (jj / kStages) & 1);
+      const uint32_t v_addr = smem_u32(vstage(jj));
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        int pv[kCols / 4];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk)
+          wgmma_s8<kCols / 2>(
+              pv, pf[kk],
+              gmma_desc(v_addr + half * (kCols / 2) * PT + kk * 32, 16,
+                        8 * kVSw, layout_of(kVSw)),
+              kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(pv);
+#pragma unroll
+        for (int i = 0; i < kCols / 4; ++i) {
+          const int r = (i >> 1) & 1;
+          float& y = o[half * (kCols / 4) + i];
+          y = __fsub_rn(__fmaf_rn(paged_flash::i2f(pv[i]), sw[r],
+                                  __fmul_rn(y, alpha[r])),
+                        csum[r]);
+        }
+      }
+      __syncthreads();  // both warpgroups read V^T stage jj % 3 (and their
+                        // words of page j)
+      if (tid == 0 && jj + kStages - 1 < M) load_v(jj + kStages - 1);
+      __syncwarp();
+    }
+    const int c0 = col_of(s), ncol = ncol_of(s);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + rows0 + 8 * h;
+      if (row >= a.Sq) continue;
+      float* out = static_cast<float*>(a.out) +
+                   ((size_t)z * a.Sq + row) * a.D + c0 + 2 * q4;
+#pragma unroll
+      for (int jj = 0; jj < kCols / 8; ++jj) {
+        if (8 * jj >= ncol) break;
+        *reinterpret_cast<float2*>(out + 8 * jj) =
+            make_float2(__fmul_rn(o[4 * jj + 2 * h], inv[h]),
+                        __fmul_rn(o[4 * jj + 2 * h + 1], inv[h]));
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------- launches
 
 // The number of clusters of C blocks of `kernel` (one block an SM, `smem`
@@ -2197,6 +2941,52 @@ int launch_slices(const CUtensorMap& tq, const Args& a, int k, uint4* replay,
   return cluster_launch(wide_cluster_paged_slices<BITS>, SmemK::kBytes,
                         dim3(a.C * ((a.Sq + kBQ - 1) / kBQ), a.Z, a.nsplit),
                         a.C, stream, tq, a, k, replay);
+}
+
+// Dense and fused-QKV attention past 2048 (slices_attention), as above:
+// the grid is (a.C x query tiles, a.H, B).
+template <bool kQkv>
+int active_slices_attention(int C) {
+  auto kernel = slices_attention<kQkv>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SmemSlices::kBytes);
+  if (attr != cudaSuccess) return -(int)attr;
+  return occupancy(kernel, SmemSlices::kBytes, C);
+}
+
+template <bool kQkv>
+int launch_slices_attention(const CUtensorMap (&maps)[3], const SliceArgs& a,
+                            int B, cudaStream_t stream) {
+  static int placed[kMaxCluster + 1] = {};
+  if (const int err =
+          check_placed(placed, a.C, active_slices_attention<kQkv>))
+    return err;
+  return cluster_launch(slices_attention<kQkv>, SmemSlices::kBytes,
+                        dim3(a.C * ((a.Sq + kBQ - 1) / kBQ), a.H, B), a.C,
+                        stream, maps[0], maps[1], maps[2], a);
+}
+
+// kScratch8 at heads past 2048 (wide_cluster_a8_slices), one instance a page
+// tile PT, as above.
+template <int PT>
+int active_a8_slices(int C) {
+  auto kernel = wide_cluster_a8_slices<PT>;
+  constexpr int kBytes = SmemK8<PT>::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (attr != cudaSuccess) return -(int)attr;
+  return occupancy(kernel, kBytes, C);
+}
+
+template <int PT>
+int launch_a8_slices(const CUtensorMap (&maps)[3], const Args& a, int k,
+                     int8_t* qi, uint4* replay, cudaStream_t stream) {
+  static int placed[kMaxCluster + 1] = {};
+  if (const int err = check_placed(placed, a.C, active_a8_slices<PT>))
+    return err;
+  return cluster_launch(wide_cluster_a8_slices<PT>, SmemK8<PT>::kBytes,
+                        dim3(a.C * ((a.Sq + kBQ - 1) / kBQ), a.Z), a.C, stream,
+                        maps[0], maps[1], maps[2], a, k, qi, replay);
 }
 
 // A TMA map over a bf16 [Z, rows, D] tensor, boxes of 64 columns x `box`

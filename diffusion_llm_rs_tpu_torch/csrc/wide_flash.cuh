@@ -1,7 +1,8 @@
 // Attention at head widths past 2048, for Hopper (sm_90a): the wide
-// instance of dense, contiguous quantized-KV and batched paged attention
-// (single-sequence paged attention runs every width past 256 in
-// csrc/wide_cluster_flash.cuh).
+// instance of contiguous quantized-KV attention and of batched paged
+// attention with bf16 activations (dense, fused-QKV and single-sequence
+// paged attention, and the batched int8 path, run every width past 256 in
+// csrc/wide_cluster_flash.cuh and csrc/fused_qkv_attention_wide.cu).
 //
 // The instances of csrc/dense_attention.cu, csrc/quant_flash.cuh and
 // csrc/paged_flash.cuh hold a whole head row of q, K and V in shared memory
@@ -21,36 +22,25 @@
 //     ceil(D / 128) times a KV tile a query tile: 2 * 64 * TK * D *
 //     ceil(D / 128) operations, beside P.V's 2 * 64 * TK * D;
 //   - S over D in chunks: S = q.k^T accumulates over chunks of 64 head
-//     columns (bf16, or 64 int8 columns on the int8 path), each chunk of q
-//     and of the KV tile staged in shared memory; then the block's 128
-//     columns of the V tile are staged (transposed) and P.V runs from
-//     registers;
-//   - mma.sync: m16n8k16 bf16 (f32 sums), or m16n8k32 s8 (s32 sums) on the
-//     int8 path; 4 warps of 16 query rows, each thread holding its rows' S
-//     of one KV tile and 128 columns of o.
-// Per-row statistics of q that the arithmetic needs over the whole head
-// (the channel sum that meets the K zero point; the int8 path's row scale
-// and quantized sum, as JAX takes them over the head,
-// pallas_paged_attention.py:411-427) are taken once a block, before the
-// chunked S.
+//     columns, each chunk of q and of the KV tile staged in shared memory;
+//     then the block's 128 columns of the V tile are staged (transposed)
+//     and P.V runs from registers;
+//   - mma.sync m16n8k16 bf16 (f32 sums); 4 warps of 16 query rows, each
+//     thread holding its rows' S of one KV tile and 128 columns of o.
+// q's channel sum over the whole head, which meets the K zero point, is
+// taken once a block, before the chunked S.
 //
 // The modes and their arithmetic (that of the plain versions in
 // ops/attention.py and ops/paged_attention.py):
-//   kDense     q, K, V bf16: logits = (q.k) * sm; acc += bf16(p) . v;
-//              out = acc / l (bf16 or f32)
 //   kContig    QuantKV [Z, Skv, D/vpb] packed along D, sidecars [Z, Skv]:
 //              logits = (raw * ks - qsum * (ks * kz)) * sm on the levels;
 //              acc += bf16(p * vs) . lv - sum(p * vs * vz); out = acc / l
 //   kScratch16 the bf16 scratch of csrc/paged_unpack.cu: logits = raw * ka'
 //              - kb * qsum; acc += bf16(p) . v_sc - sum(p * vs * vz);
 //              out = acc * (1 / l), 0 and lse -1e30 where a slot has no page
-//   kScratch8  its int8 scratch: qi = round(q / sq) (sq = amax / 127 over the
-//              head), logits = (qi.k * sq) * ka' - kb' * qsum; per page w =
-//              p * vs (0 past the valid tokens), sw = max w / 127, acc +=
-//              (round(w / sw) . v) * sw - sum(w * vz')
-// The KV tile is 64 tokens (kDense, kContig) or the page's tile of 32, 64 or
-// 128 tokens (one page a step, kScratch*). Tokens past the page's valid count get
-// logits of -1e30, as in the plain versions; tokens past the tile's real
+// The KV tile is 64 tokens (kContig) or the page's tile of 32, 64 or 128
+// tokens (one page a step, kScratch16). Tokens past the page's valid count
+// get logits of -1e30, as in the plain versions; tokens past the tile's real
 // ones (past Skv, or the page's P) are left out (p = 0).
 //
 // This is a simple design that is right, not a fast one: S is computed once
@@ -73,18 +63,15 @@ constexpr int kKC = 64;         // head columns a chunk of S
 constexpr int kDV = 128;        // output columns a block
 constexpr float kNegInf = -1e30f;
 
-enum Mode : int { kDense, kContig, kScratch16, kScratch8 };
+enum Mode : int { kContig, kScratch16 };
 
 struct Args {
   const __nv_bfloat16* q;  // [Z, Sq, D]
-  void* out;               // [Z, Sq, D]: f32, or bf16 where out_bf16
-  float* lse;              // [Z, Sq] (kScratch*)
-  int Z, Sq, D, out_bf16;
+  float* out;              // [Z, Sq, D]
+  float* lse;              // [Z, Sq] (kScratch16)
+  int Z, Sq, D;
   float sm;
-  // kDense: K and V bf16 [Z, Skv, D]; kContig: Skv tokens
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  int Skv;
+  int Skv;                 // kContig: Skv tokens
   // kContig: packed levels and their f32 sidecars
   const uint8_t* k_data;
   const float* k_scale;
@@ -92,16 +79,14 @@ struct Args {
   const uint8_t* v_data;
   const float* v_scale;
   const float* v_zp;
-  // kScratch*: page_tokens [B, n_max], slot_pages [B]; pages of P tokens
-  // in tiles of PT, rows of DK (page_table, n_pages and n_slots unused)
-  const int* page_table;
+  // kScratch16: page_tokens [B, n_max], slot_pages [B]; pages of P tokens
+  // in tiles of PT, rows of DK
   const int* page_tokens;
   const int* slot_pages;
-  int n_pages, n_slots, P;
-  int H, n_max, DK;
-  const void* sk;          // K [B, H, n_max, PT, DK] (bf16 or int8)
-  const void* sv;          // V bf16 [.., PT, DK], or V^T int8 [.., DK, PT]
-  const float* side;       // [B, H, n_max, 3 or 4, PT]
+  int P, H, n_max, DK;
+  const __nv_bfloat16* sk;  // K [B, H, n_max, PT, DK]
+  const __nv_bfloat16* sv;  // V [.., PT, DK]
+  const float* side;        // [B, H, n_max, 3, PT]
 };
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -113,23 +98,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_s8(int b0, int b1, int b2, int b3) {
-  return (uint32_t)(b0 & 0xff) | ((uint32_t)(b1 & 0xff) << 8) |
-         ((uint32_t)(b2 & 0xff) << 16) | ((uint32_t)(b3 & 0xff) << 24);
 }
 
 __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
@@ -152,20 +123,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
 // Shared memory of one instance: the chunk buffers (q's 64 rows, then the
 // tile's TK rows, each padded so that a quad's fragment loads hit distinct
 // banks) alias the V^T tile [kDV][TK + pad], which is staged after S.
-template <int MODE, int TK>
+template <int TK>
 struct Layout {
-  static constexpr bool kA8 = MODE == kScratch8;
-  static constexpr int kRow = kA8 ? kKC + 16 : 2 * (kKC + 8);  // bytes
-  static constexpr int kVRow = kA8 ? TK + 16 : 2 * (TK + 8);   // bytes
+  static constexpr int kRow = 2 * (kKC + 8);   // bytes
+  static constexpr int kVRow = 2 * (TK + 8);   // bytes
   static constexpr int kChunk = (kBM + TK) * kRow;
   static constexpr int kV = kDV * kVRow;
   static constexpr int kBytes = kChunk > kV ? kChunk : kV;
@@ -173,14 +137,13 @@ struct Layout {
 
 template <int MODE, int BITS, int TK>
 __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
-  using L = Layout<MODE, TK>;
-  constexpr bool kA8 = MODE == kScratch8;
+  using L = Layout<TK>;
   constexpr bool kQuant = MODE == kContig;
   constexpr int kNT = TK / 8;                    // n-tiles of S
   constexpr int kMask = (1 << BITS) - 1;
   __shared__ __align__(16) uint8_t smem[L::kBytes];
   __shared__ float s_side[4][TK];
-  __shared__ float s_row[kBM][2];                // qsum, sq of each query row
+  __shared__ float s_row[kBM];                   // qsum of each query row
   uint8_t* s_q = smem;
   uint8_t* s_k = smem + kBM * L::kRow;
   uint8_t* s_vt = smem;
@@ -192,43 +155,25 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
   const __nv_bfloat16* qz = a.q + (size_t)z * Sq * D;
 
   int n_tiles;
-  if constexpr (MODE == kDense || MODE == kContig)
+  if constexpr (kQuant)
     n_tiles = (a.Skv + TK - 1) / TK;
   else
     n_tiles = a.slot_pages[z / a.H];
 
-  // q's statistics over the whole head, one warp a row
-  if constexpr (MODE != kDense) {
-    for (int i = 0; i < 16; ++i) {
-      const int r = warp * 16 + i, row = q0 + r;
-      float sum = 0.f, amax = 0.f;
-      if (row < Sq)
-        for (int d = lane; d < D; d += 32) {
-          const float x = __bfloat162float(qz[(size_t)row * D + d]);
-          sum += x;
-          amax = fmaxf(amax, fabsf(x));
-        }
-      sum = warp_sum(sum);
-      if constexpr (kA8) {
-        amax = warp_max(amax);
-        const float sq = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
-        float qs = 0.f;
-        if (row < Sq)
-          for (int d = lane; d < D; d += 32)
-            qs += rintf(__fdiv_rn(__bfloat162float(qz[(size_t)row * D + d]), sq));
-        sum = __fmul_rn(warp_sum(qs), sq);
-        if (lane == 0) s_row[r][1] = sq;
-      }
-      if (lane == 0) s_row[r][0] = sum;
-    }
-    __syncthreads();
+  // q's channel sum over the whole head, one warp a row
+  for (int i = 0; i < 16; ++i) {
+    const int r = warp * 16 + i, row = q0 + r;
+    float sum = 0.f;
+    if (row < Sq)
+      for (int d = lane; d < D; d += 32)
+        sum += __bfloat162float(qz[(size_t)row * D + d]);
+    sum = warp_sum(sum);
+    if (lane == 0) s_row[r] = sum;
   }
-  float qsum[2] = {0.f, 0.f}, sq[2] = {1.f, 1.f};
+  __syncthreads();
+  float qsum[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if constexpr (MODE != kDense) qsum[r] = s_row[warp * 16 + g + 8 * r][0];
-    if constexpr (kA8) sq[r] = s_row[warp * 16 + g + 8 * r][1];
-  }
+  for (int r = 0; r < 2; ++r) qsum[r] = s_row[warp * 16 + g + 8 * r];
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float o[kDV / 8][4];
@@ -243,7 +188,7 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
     // the tile: its tokens, the valid ones, where its rows are
     int n_real, n_valid, tok0 = 0;
     size_t base = 0;
-    if constexpr (MODE == kDense || MODE == kContig) {
+    if constexpr (kQuant) {
       tok0 = j * TK;
       n_real = n_valid = min(TK, a.Skv - tok0);
     } else {
@@ -263,13 +208,11 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
           s2 = a.v_scale[at];
           s3 = a.v_zp[at];
         }
-      } else if constexpr (MODE == kScratch16 || MODE == kScratch8) {
-        constexpr int kSide = kA8 ? 4 : 3;
-        const float* sd = a.side + base * kSide * TK;
+      } else {
+        const float* sd = a.side + base * 3 * TK;
         s0 = sd[i];
         s1 = sd[TK + i];
         s2 = sd[2 * TK + i];
-        if (kA8) s3 = sd[3 * TK + i];
       }
       s_side[0][i] = s0;
       s_side[1][i] = s1;
@@ -279,14 +222,10 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
 
     // ---- S = q . k^T over D, a chunk of 64 columns at a time
     float s[kNT][4];
-    int si[kA8 ? kNT : 1][4];
 #pragma unroll
     for (int n = 0; n < kNT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = 0.f;
-        if constexpr (kA8) si[n][e] = 0;
-      }
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
     for (int d0 = 0; d0 < D; d0 += kKC) {
       if (d0) __syncthreads();  // the last chunk is read
       // q rows [q0, q0 + 64), columns [d0, d0 + 64): 16-byte loads
@@ -295,43 +234,16 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
         uint4 v = make_uint4(0, 0, 0, 0);
         if (row < Sq && d < D)
           v = *reinterpret_cast<const uint4*>(qz + (size_t)row * D + d);
-        if constexpr (kA8) {
-          const float sqr = s_row[r][1];
-          const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&v);
-          int qi[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            qi[e] = (int)rintf(__fdiv_rn(__bfloat162float(x[e]), sqr));
-          *reinterpret_cast<uint2*>(s_q + r * L::kRow + c) =
-              make_uint2(pack_s8(qi[0], qi[1], qi[2], qi[3]),
-                         pack_s8(qi[4], qi[5], qi[6], qi[7]));
-        } else {
-          *reinterpret_cast<uint4*>(s_q + r * L::kRow + c * 2) = v;
-        }
+        *reinterpret_cast<uint4*>(s_q + r * L::kRow + c * 2) = v;
       }
       // the tile's rows, columns [d0, d0 + 64)
-      if constexpr (MODE == kDense || MODE == kScratch16) {
+      if constexpr (MODE == kScratch16) {
         for (int i = tid; i < TK * 8; i += kThreads) {
           const int r = i >> 3, c = (i & 7) * 8, d = d0 + c;
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (MODE == kDense) {
-            if (r < n_real && d < D)
-              v = *reinterpret_cast<const uint4*>(
-                  a.k + ((size_t)z * a.Skv + tok0 + r) * D + d);
-          } else {  // the scratch's rows are DK wide, a multiple of 64
-            v = *reinterpret_cast<const uint4*>(
-                static_cast<const __nv_bfloat16*>(a.sk) +
-                (base * TK + r) * a.DK + d);
-          }
+          // the scratch's rows are DK wide, a multiple of 64
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              a.sk + (base * TK + r) * a.DK + d);
           *reinterpret_cast<uint4*>(s_k + r * L::kRow + c * 2) = v;
-        }
-      } else if constexpr (kA8) {
-        for (int i = tid; i < TK * 4; i += kThreads) {
-          const int r = i >> 2, c = (i & 3) * 16;
-          *reinterpret_cast<uint4*>(s_k + r * L::kRow + c) =
-              *reinterpret_cast<const uint4*>(
-                  static_cast<const uint8_t*>(a.sk) + (base * TK + r) * a.DK +
-                  d0 + c);
         }
       } else {  // packed levels, a byte an element
         const int dc = tid & (kKC - 1), d = d0 + dc;
@@ -349,31 +261,16 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
       }
       __syncthreads();
       const uint8_t* qa = s_q + (warp * 16 + g) * L::kRow;
-      if constexpr (kA8) {
 #pragma unroll
-        for (int kk = 0; kk < kKC / 32; ++kk) {
-          const uint32_t af[4] = {
-              lds32(qa + kk * 32 + 4 * t), lds32(qa + 8 * L::kRow + kk * 32 + 4 * t),
-              lds32(qa + kk * 32 + 16 + 4 * t),
-              lds32(qa + 8 * L::kRow + kk * 32 + 16 + 4 * t)};
+      for (int kk = 0; kk < kKC / 16; ++kk) {
+        const int cb = (kk * 16 + 2 * t) * 2;
+        const uint32_t af[4] = {lds32(qa + cb), lds32(qa + 8 * L::kRow + cb),
+                                lds32(qa + cb + 16),
+                                lds32(qa + 8 * L::kRow + cb + 16)};
 #pragma unroll
-          for (int n = 0; n < kNT; ++n) {
-            const uint8_t* kb = s_k + (n * 8 + g) * L::kRow + kk * 32 + 4 * t;
-            mma_s8(si[n], af, lds32(kb), lds32(kb + 16));
-          }
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < kKC / 16; ++kk) {
-          const int cb = (kk * 16 + 2 * t) * 2;
-          const uint32_t af[4] = {lds32(qa + cb), lds32(qa + 8 * L::kRow + cb),
-                                  lds32(qa + cb + 16),
-                                  lds32(qa + 8 * L::kRow + cb + 16)};
-#pragma unroll
-          for (int n = 0; n < kNT; ++n) {
-            const uint8_t* kb = s_k + (n * 8 + g) * L::kRow + cb;
-            mma_bf16(s[n], af, lds32(kb), lds32(kb + 16));
-          }
+        for (int n = 0; n < kNT; ++n) {
+          const uint8_t* kb = s_k + (n * 8 + g) * L::kRow + cb;
+          mma_bf16(s[n], af, lds32(kb), lds32(kb + 16));
         }
       }
     }
@@ -386,16 +283,13 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
       for (int e = 0; e < 4; ++e) {
         const int col = n * 8 + 2 * t + (e & 1), r = e >> 1;
         float x;
-        if constexpr (MODE == kDense) {
-          x = __fmul_rn(s[n][e], a.sm);
-        } else if constexpr (kQuant) {
+        if constexpr (kQuant) {
           const float ks = s_side[0][col], kz = s_side[1][col];
           x = __fmul_rn(__fsub_rn(__fmul_rn(s[n][e], ks),
                                   __fmul_rn(qsum[r], __fmul_rn(ks, kz))),
                         a.sm);
         } else {
-          const float raw = kA8 ? __fmul_rn((float)si[n][e], sq[r]) : s[n][e];
-          x = __fsub_rn(__fmul_rn(raw, s_side[0][col]),
+          x = __fsub_rn(__fmul_rn(s[n][e], s_side[0][col]),
                         __fmul_rn(s_side[1][col], qsum[r]));
         }
         if (col >= n_real) x = -INFINITY;
@@ -403,8 +297,7 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
         s[n][e] = x;
         mt[r] = fmaxf(mt[r], x);
       }
-    float alpha[2], psum[2] = {0.f, 0.f}, corr[2] = {0.f, 0.f},
-          wmax[2] = {0.f, 0.f};
+    float alpha[2], psum[2] = {0.f, 0.f}, corr[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float m_new = fmaxf(m[r], quad_max(mt[r]));
@@ -422,57 +315,30 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
           const float pv = __fmul_rn(p, s_side[2][col]);
           corr[r] += __fmul_rn(pv, s_side[3][col]);
           s[n][e] = pv;                          // bf16(p * vs) meets lv
-        } else if constexpr (MODE == kScratch16) {
-          corr[r] += __fmul_rn(p, s_side[2][col]);
-          s[n][e] = p;
-        } else if constexpr (kA8) {
-          const float w = col < n_valid ? __fmul_rn(p, s_side[2][col]) : 0.f;
-          corr[r] += __fmul_rn(w, s_side[3][col]);
-          wmax[r] = fmaxf(wmax[r], w);
-          s[n][e] = w;
         } else {
+          corr[r] += __fmul_rn(p, s_side[2][col]);
           s[n][e] = p;
         }
       }
-    float sw[2] = {1.f, 1.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), quad_sum(psum[r]));
       corr[r] = quad_sum(corr[r]);
-      if constexpr (kA8) {
-        const float wm = quad_max(wmax[r]);
-        sw[r] = wm > 0.f ? __fdiv_rn(wm, 127.f) : 1.f;
-      }
     }
 
     // ---- this block's columns of the V tile, transposed: [kDV][TK]
     __syncthreads();  // every warp is done with the chunk buffers
-    if constexpr (MODE == kDense || MODE == kScratch16) {
+    if constexpr (MODE == kScratch16) {
       for (int i = tid; i < TK * (kDV / 8); i += kThreads) {
         const int r = i / (kDV / 8), c = (i % (kDV / 8)) * 8, d = c0 + c;
         uint4 v = make_uint4(0, 0, 0, 0);
-        if (MODE == kDense) {
-          if (r < n_real && d < D)
-            v = *reinterpret_cast<const uint4*>(
-                a.v + ((size_t)z * a.Skv + tok0 + r) * D + d);
-        } else if (d < a.DK) {
-          v = *reinterpret_cast<const uint4*>(
-              static_cast<const __nv_bfloat16*>(a.sv) + (base * TK + r) * a.DK +
-              d);
-        }
+        if (d < a.DK)
+          v = *reinterpret_cast<const uint4*>(a.sv + (base * TK + r) * a.DK +
+                                              d);
         const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
         for (int e = 0; e < 8; ++e)
           reinterpret_cast<__nv_bfloat16*>(s_vt + (c + e) * L::kVRow)[r] = x[e];
-      }
-    } else if constexpr (kA8) {  // V^T rows, their columns in vt_col order
-      for (int i = tid; i < kDV * (TK / 16); i += kThreads) {
-        const int dv = i / (TK / 16), c = (i % (TK / 16)) * 16, d = c0 + dv;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (d < a.DK)
-          v = *reinterpret_cast<const uint4*>(static_cast<const uint8_t*>(a.sv) +
-                                              (base * a.DK + d) * TK + c);
-        *reinterpret_cast<uint4*>(s_vt + dv * L::kVRow + c) = v;
       }
     } else {  // packed levels: a thread a column
       const int d = c0 + tid;
@@ -491,70 +357,35 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
     __syncthreads();
 
     // ---- o = o * alpha + P.V - corr, over this block's columns
-    if constexpr (kA8) {
-      // the A operand of k-step kk: the tokens of n-tiles 4kk .. 4kk + 3,
-      // in the order of the scratch's V^T columns (csrc/paged_unpack.cu)
-      uint32_t pa[TK / 32][4];
+    uint32_t pa[TK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < TK / 32; ++kk) {
-        int wi[4][4];
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < kDV / 8; ++n) {
+      if (n * 8 >= ncols) break;
+      float pv[4] = {0.f, 0.f, 0.f, 0.f};
+      const uint8_t* vb = s_vt + (n * 8 + g) * L::kVRow + 4 * t;
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            wi[i][e] = (int)rintf(__fdiv_rn(s[4 * kk + i][e], sw[e >> 1]));
-        pa[kk][0] = pack_s8(wi[0][0], wi[0][1], wi[1][0], wi[1][1]);
-        pa[kk][1] = pack_s8(wi[0][2], wi[0][3], wi[1][2], wi[1][3]);
-        pa[kk][2] = pack_s8(wi[2][0], wi[2][1], wi[3][0], wi[3][1]);
-        pa[kk][3] = pack_s8(wi[2][2], wi[2][3], wi[3][2], wi[3][3]);
-      }
+      for (int kk = 0; kk < TK / 16; ++kk)
+        mma_bf16(pv, pa[kk], lds32(vb + kk * 32), lds32(vb + kk * 32 + 16));
 #pragma unroll
-      for (int n = 0; n < kDV / 8; ++n) {
-        if (n * 8 >= ncols) break;
-        int acc[4] = {0, 0, 0, 0};
-        const uint8_t* vb = s_vt + (n * 8 + g) * L::kVRow + 4 * t;
-#pragma unroll
-        for (int kk = 0; kk < TK / 32; ++kk)
-          mma_s8(acc, pa[kk], lds32(vb + kk * 32), lds32(vb + kk * 32 + 16));
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          o[n][e] = __fsub_rn(
-              __fadd_rn(__fmul_rn(o[n][e], alpha[e >> 1]),
-                        __fmul_rn((float)acc[e], sw[e >> 1])),
-              corr[e >> 1]);
-      }
-    } else {
-      uint32_t pa[TK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < TK / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      }
-#pragma unroll
-      for (int n = 0; n < kDV / 8; ++n) {
-        if (n * 8 >= ncols) break;
-        float pv[4] = {0.f, 0.f, 0.f, 0.f};
-        const uint8_t* vb = s_vt + (n * 8 + g) * L::kVRow + 4 * t;
-#pragma unroll
-        for (int kk = 0; kk < TK / 16; ++kk)
-          mma_bf16(pv, pa[kk], lds32(vb + kk * 32), lds32(vb + kk * 32 + 16));
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          o[n][e] = __fsub_rn(
-              __fadd_rn(__fmul_rn(o[n][e], alpha[e >> 1]), pv[e]),
-              corr[e >> 1]);
-      }
+      for (int e = 0; e < 4; ++e)
+        o[n][e] = __fsub_rn(
+            __fadd_rn(__fmul_rn(o[n][e], alpha[e >> 1]), pv[e]),
+            corr[e >> 1]);
     }
   }
 
-  // ---- out, and the lse from the first column block
+  // ---- out, and (kScratch16) the lse from the first column block
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= Sq) continue;
-    const bool scratch = MODE == kScratch16 || MODE == kScratch8;
     const bool has = l[r] > 0.f;
     const float safe = has ? l[r] : 1.f;
     const float inv = __fdiv_rn(1.f, safe);
@@ -563,23 +394,17 @@ __global__ void __launch_bounds__(kThreads) wide_attention(const Args a) {
     for (int n = 0; n < kDV / 8; ++n) {
       if (n * 8 >= ncols) break;
       float y0 = o[n][2 * r], y1 = o[n][2 * r + 1];
-      if (scratch) {
-        y0 = __fmul_rn(y0, inv);
-        y1 = __fmul_rn(y1, inv);
-      } else {
+      if constexpr (kQuant) {
         y0 = __fdiv_rn(y0, l[r]);
         y1 = __fdiv_rn(y1, l[r]);
+      } else {
+        y0 = __fmul_rn(y0, inv);
+        y1 = __fmul_rn(y1, inv);
       }
-      if (MODE == kDense && a.out_bf16)
-        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(a.out) + at +
-                                     n * 8) = pack_bf16(y0, y1);
-      else
-        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + n * 8) =
-            make_float2(y0, y1);
+      *reinterpret_cast<float2*>(a.out + at + n * 8) = make_float2(y0, y1);
     }
-    if (MODE != kDense && MODE != kContig && blockIdx.y == 0 && t == 0)
-      a.lse[(size_t)z * Sq + row] =
-          scratch ? (has ? m[r] + logf(safe) : kNegInf) : m[r] + logf(l[r]);
+    if (MODE == kScratch16 && blockIdx.y == 0 && t == 0)
+      a.lse[(size_t)z * Sq + row] = has ? m[r] + logf(safe) : kNegInf;
   }
 }
 

@@ -53,10 +53,9 @@ SIGNATURES = {
     "dlm_int8_mlp_active_clusters": ("int8_mlp", (_I, _I, _I)),
     "dlm_dense_attention": ("dense_attention", (_P, _P, _P, _P, _I, _I, _I, _I,
                                                 _I, _F, _P)),
-    "dlm_dense_attention_wide": ("dense_attention_wide",
-                                 (_P, _P, _P, _P) + (_I,) * 5 + (_F, _P)),
     "dlm_dense_attention_cluster": ("dense_attention_wide",
-                                    (_P, _P, _P, _P) + (_I,) * 5 + (_F, _P)),
+                                    (_P, _P, _P, _P) + (_I,) * 5
+                                    + (_F, _P, _P)),
     "dlm_dense_attention_cluster_active": ("dense_attention_wide", (_I,)),
     "dlm_paged_unpack": ("paged_unpack", (_P,) * 11 + (_I,) * 10 + (_F, _P)),
     "dlm_batched_paged_attention": ("batched_paged_attention",
@@ -74,12 +73,11 @@ SIGNATURES = {
                                            (_I,) * 5),
     "dlm_batched_paged_attention_wide": ("paged_flash_wide",
                                          (_P,) * 8 + (_I,) * 8 + (_P,)),
-    "dlm_batched_paged_attention_a8_wide": ("paged_flash_wide",
-                                            (_P,) * 8 + (_I,) * 8 + (_P,)),
     "dlm_batched_paged_attention_cluster": ("paged_flash_cluster",
                                             (_P,) * 8 + (_I,) * 8 + (_P,)),
     "dlm_batched_paged_attention_a8_cluster": ("paged_flash_cluster",
-                                               (_P,) * 8 + (_I,) * 8 + (_P,)),
+                                               (_P,) * 8 + (_I,) * 8
+                                               + (_P,) * 3),
     "dlm_batched_paged_attention_cluster_active": ("paged_flash_cluster",
                                                    (_I,) * 3),
     "dlm_quant_attention_wide": ("quant_flash_contig_wide",

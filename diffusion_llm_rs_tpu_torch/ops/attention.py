@@ -35,11 +35,11 @@ in the wide instance of its design (D a runtime argument, `instance`): from
 264 to 2048 in a cluster of ceil(D / 256) blocks, each 256 columns of the
 head, the partial S summed across the cluster (`csrc/wide_cluster_flash.cuh`,
 `cluster_blocks`; quantized-KV attention's chain of KV tiles split over
-clusters, `quant_cluster_splits`); past 2048 dense and quantized-KV
-attention in `csrc/wide_flash.cuh` (the output columns split over blocks of
-128, S summed over chunks of 64 head columns in each), fused-QKV and
+clusters, `quant_cluster_splits`); past 2048 quantized-KV attention in
+`csrc/wide_flash.cuh` (the output columns split over blocks of 128, S
+summed over chunks of 64 head columns in each), dense, fused-QKV and
 single-sequence paged attention in the cluster design with blocks of
-several 256-column slices (`cluster_plan`).
+several 256-column slices (`cluster_plan`; `dense_instance`).
 Where D % 8 != 0 the JAX package runs no Pallas kernel
 but XLA, and so does the port, on either device: `flash_fold` takes
 `dense_attention_einsum` (the einsum branch of JAX's `_flash_fold`),
@@ -67,6 +67,9 @@ CLUSTER_MAX = 8        # blocks a cluster at most (the portable size)
 # heads past CLUSTER_COLUMNS * CLUSTER_MAX run blocks of several slices of
 # CLUSTER_COLUMNS columns (`cluster_plan`)
 CLUSTER_ROWS = 128     # query rows a cluster
+# bytes of pass 1's S that one launch of dense attention's k-slice kernel
+# keeps (at most; one head's at least)
+DENSE_SCRATCH = 256 * 2**20
 CLUSTER_KV_TILE = 32   # tokens a KV tile of the cluster kernels
 KERNEL_KV_TILE = 64   # tokens per online-softmax step of `csrc/quant_flash_contig.cu`
 KERNEL_BITS = (1, 2, 4, 8)
@@ -106,9 +109,13 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense flash attention: q [BH, Sq, D], k/v [BH, Skv, D] -> [BH, Sq, D].
 
     Inputs are cast to bf16, as on the TPU. CPU tensors take the plain twin;
-    CUDA tensors launch the kernel (`head_dim_fits`; from 264 to 2048 its
-    cluster instance, past 2048 its wide instance; bf16 or f32 out). No
-    gradient flows through the kernel: `flash_fold` gives one."""
+    CUDA tensors launch the kernel (`head_dim_fits`; past 256 its cluster
+    instance, `dense_instance`; bf16 or f32 out). Past 2048 its blocks take
+    several slices, and pass 1 keeps S for pass 2 in f32 scratch of Sq *
+    ceil(Skv / 8) * 8 * 4 bytes a head; the heads run in launches of as
+    many as keep it within `DENSE_SCRATCH` (at least one), each counted
+    (at BH = 16, S = 4096: 1 GiB in 4 launches of 4 heads). No gradient
+    flows through the kernel: `flash_fold` gives one."""
     if q.device.type == "cpu":
         return dense_attention_plain(q, k, v, sm_scale, out_dtype)
     if q.device.type != "cuda":
@@ -131,13 +138,24 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("dense_attention: q, k, v must be 16-byte aligned "
                          "(the kernel reads them by TMA)")
     out = torch.empty((BH, Sq, D), dtype=out_dtype, device=q.device)
-    # `csrc/dense_attention.cu` holds every width up to 256
-    wide = instance(D) if D > KERNEL_WIDTHS[-1] else ""
-    _build.check(_build.function(f"dlm_dense_attention{wide}")(
-        qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), BH, Sq, Skv, D, float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream), "dense_attention")
-    _build.launch_counts["dense_attention"] += 1
+    suffix = dense_instance(D)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _build.function(f"dlm_dense_attention{suffix}")
+    keep, step = None, BH
+    if cluster_plan(D)[1] > 1:  # past 2048, pass 1's S for pass 2
+        row = Sq * -(-Skv // 8) * 8
+        step = max(1, min(BH, DENSE_SCRATCH // (row * 4)))
+        keep = torch.empty((step * row,), dtype=torch.float32,
+                           device=q.device)
+    for z0 in range(0, BH, step):
+        z = min(step, BH - z0)
+        args = (qb[z0].data_ptr(), kb[z0].data_ptr(), vb[z0].data_ptr(),
+                out[z0].data_ptr(), int(out_dtype == torch.bfloat16), z, Sq,
+                Skv, D, float(sm_scale), stream)
+        if suffix == "_cluster":
+            args += (None if keep is None else keep.data_ptr(),)
+        _build.check(fn(*args), "dense_attention")
+        _build.launch_counts["dense_attention"] += 1
     return out
 
 
@@ -499,16 +517,42 @@ def cluster_plan(D: int) -> Tuple[int, int]:
 
 
 def instance(D: int) -> str:
-    """The suffix of the C entry point a head of D launches in dense and
-    quantized-KV attention: "" at a `KERNEL_WIDTHS` entry, "_padded" between
-    them (a source of its own; the quantized-KV kernels), and past them
-    "_cluster" where `cluster_blocks(D)` takes D
-    (`csrc/wide_cluster_flash.cuh`), else "_wide" (`csrc/wide_flash.cuh`).
-    Single-sequence paged attention launches "_cluster" past 256 at every
-    width (`ops/paged_attention.py: paged_attention`)."""
+    """The suffix of the C entry point a head of D launches in quantized-KV
+    attention: "" at a `KERNEL_WIDTHS` entry, "_padded" between them (a
+    source of its own), and past them "_cluster" where `cluster_blocks(D)`
+    takes D (`csrc/wide_cluster_flash.cuh`), else "_wide"
+    (`csrc/wide_flash.cuh`). Dense and single-sequence paged attention
+    launch "_cluster" past 256 at every width (`dense_instance`,
+    `ops/paged_attention.py: paged_instance`)."""
     if D > KERNEL_WIDTHS[-1]:
         return "_cluster" if cluster_blocks(D) else "_wide"
     return "" if D == kernel_width(D) else "_padded"
+
+
+def dense_instance(D: int) -> str:
+    """The suffix of the C entry point `dense_attention` launches for heads
+    of D: "" up to 256 (`csrc/dense_attention.cu` holds every width there),
+    and past it "_cluster" at every width (`dlm_dense_attention_cluster`: a
+    block one 256-column slice of the head up to 2048, several past it,
+    `cluster_plan`)."""
+    return "_cluster" if D > KERNEL_WIDTHS[-1] else ""
+
+
+def replay_scratch(device, D: int, Z: int, Sq: int, tiles: int,
+                   words: int = 3):
+    """Past 2048 (`cluster_plan(D)[1] > 1`), what a k-slice cluster kernel of
+    paged attention keeps in pass 1 for its pass 2: for each of the Z heads'
+    ceil(Sq / 128) clusters, each of its `tiles` tiles and each thread of
+    its 256, `words` 16-byte words (single-sequence paged attention:
+    bf16(p * vs), alpha and csum of a 32-key tile; the batched int8 path: a
+    page's wi, alpha, sw and csum), Z * ceil(Sq / 128) * tiles * words *
+    4096 bytes, in `torch.empty` so that a CUDA graph keeps it in its pool;
+    None at 264 to 2048, where the kernels run one pass."""
+    if cluster_plan(D)[1] == 1:
+        return None
+    clusters = Z * -(-Sq // CLUSTER_ROWS)
+    return torch.empty((clusters * tiles * words * 256 * 16,),
+                       dtype=torch.uint8, device=device)
 
 
 def _head_dim_error(name: str, D: int) -> ValueError:

@@ -16,15 +16,15 @@ instance of the smallest `KERNEL_WIDTHS` entry that holds it, past 256 in
 the wide instance of each design (`ops/attention.py: instance`): from 264
 to 2048 in a cluster of ceil(D / 256) blocks, each 256 columns of the head
 (`csrc/wide_cluster_flash.cuh`; the batched kernels' entry points in
-`csrc/paged_flash_cluster.cu`); past 2048 the single-sequence kernel in the
-same cluster design with blocks of several slices of 256 columns
-(`ops/attention.py: cluster_plan`), the batched kernels in
-`csrc/wide_flash.cuh`; the
-batched path's scratch rows are `kernel_width(D)` wide (past 256, D rounded
-up to 64), zero past D. Where D % 8 != 0 no kernel of either
-package serves the pools (JAX's need rows of 128 lanes) and both wrappers
-take JAX's XLA paths on either device: `paged_attention_fallback` (JAX's
-`_fallback`) and `batched_paged_attention_fallback` (`_batched_fallback`).
+`csrc/paged_flash_cluster.cu`); past 2048 the single-sequence kernel and the
+batched int8 path in the same cluster design with blocks of several slices
+of 256 columns (`ops/attention.py: cluster_plan`), the batched bf16 path in
+`csrc/wide_flash.cuh` (`batched_instance`); the batched path's scratch rows
+are `kernel_width(D)` wide (past 256, D rounded up to 64), zero past D.
+Where D % 8 != 0 no kernel of either package serves the pools (JAX's need
+rows of 128 lanes) and both wrappers take JAX's XLA paths on either
+device: `paged_attention_fallback` (JAX's `_fallback`) and
+`batched_paged_attention_fallback` (`_batched_fallback`).
 
 `paged_attention` launches `csrc/quant_flash_paged.cu` (the design is
 `csrc/quant_flash.cuh`, shared with `ops/attention.py: attention`: each page
@@ -55,12 +55,12 @@ import torch
 
 from diffusion_llm_rs_tpu_torch.ops import _build
 from diffusion_llm_rs_tpu_torch.ops.attention import (CLUSTER_KV_TILE,
-                                                      CLUSTER_ROWS,
                                                       KERNEL_WIDTHS,
                                                       _head_dim_error,
                                                       cluster_plan,
                                                       head_dim_fits, instance,
                                                       kernel_width,
+                                                      replay_scratch,
                                                       split_scratch)
 from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
@@ -271,7 +271,8 @@ def paged_attention(q, page_table, k_data, k_scale, k_zp, v_data, v_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if suffix == "_cluster":  # the chain split over clusters, merged in-launch
         n, *scratch = _cluster_splits(q.device, BH, Sq, D, n_pages, P)
-        replay = _replay_scratch(q.device, BH, Sq, D, n_pages, P)
+        replay = replay_scratch(q.device, D, BH, Sq,
+                                n_pages * -(-P // CLUSTER_KV_TILE))
         args += (n, *(None if t is None else t.data_ptr()
                       for t in (*scratch, replay)))
     err = _build.function(f"dlm_paged_attention{suffix}")(*args)
@@ -297,19 +298,6 @@ def _cluster_splits(device, BH, Sq, D, n_pages, P):
     if n < 0:
         _build.check(-n, "paged_attention")
     return (n, *split_scratch(device, n, BH, Sq, D))
-
-
-def _replay_scratch(device, BH, Sq, D, n_pages, P):
-    """Past 2048 (`cluster_plan(D)[1] > 1`), what the cluster kernel's pass
-    1 keeps for pass 2 (`csrc/wide_cluster_flash.cuh:
-    wide_cluster_paged_slices`): per cluster, 32-token tile and thread of
-    its 256, the packed bf16(p * vs) and the rows' alpha and csum, three
-    16-byte words; None at 264 to 2048, which run in one pass."""
-    if cluster_plan(D)[1] == 1:
-        return None
-    tiles = n_pages * -(-P // CLUSTER_KV_TILE)
-    return torch.empty((BH * -(-Sq // CLUSTER_ROWS) * tiles * 3 * 256 * 16,),
-                       dtype=torch.uint8, device=device)
 
 
 # ----------------------------------------------------------------- batched
@@ -572,12 +560,28 @@ def paged_unpack(page_tables, n_pages, k_data, k_scale, k_zp, v_data,
     return k, v, side
 
 
-def batched_instance(D: int) -> str:
-    """The suffix of the batched kernels' C entry point for heads of D: ""
-    up to 256 (the instance of the scratch's width, `paged_flash.cuh`),
-    "_cluster" from 264 to 2048 and "_wide" past (`ops/attention.py:
-    instance`)."""
-    return instance(D) if D > KERNEL_WIDTHS[-1] else ""
+def batched_instance(D: int, a8: bool) -> str:
+    """The suffix of the batched kernels' C entry point for heads of D (the
+    int8 path's where a8): "" up to 256 (the instance of the scratch's
+    width, `paged_flash.cuh`), "_cluster" from 264 to 2048, and past 2048
+    "_cluster" on the int8 path (blocks of several slices, `cluster_plan`)
+    and "_wide" on the bf16 path (`csrc/wide_flash.cuh`)."""
+    if D <= KERNEL_WIDTHS[-1]:
+        return ""
+    return "_cluster" if a8 else instance(D)
+
+
+def _a8_slices_scratch(device, Z, Sq, D, DK, n_max, PT):
+    """What `dlm_batched_paged_attention_a8_cluster` takes past the other
+    batched arguments: past 2048 (`cluster_plan(D)[1] > 1`) q's int8 levels
+    [Z, Sq, DK], which the kernel writes once and streams a slice a step,
+    and `replay_scratch` for a page's wi, alpha, sw and csum (PT / 32 + 2
+    words a thread and page of the `n_max` a slot); (None, None) at 264 to
+    2048."""
+    replay = replay_scratch(device, D, Z, Sq, n_max, PT // 32 + 2)
+    if replay is None:
+        return (None, None)
+    return (torch.empty((Z, Sq, DK), dtype=torch.int8, device=device), replay)
 
 
 def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
@@ -642,14 +646,20 @@ def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
     out = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     # past 256 the cluster kernel or the wide instance, which also take the
-    # scratch's rows and the page's tokens
-    suffix = batched_instance(D)
+    # scratch's rows and the page's tokens; the int8 cluster kernel also its
+    # scratch past 2048
+    suffix = batched_instance(D, a8)
     extra = (k.shape[4], k_data.shape[2] * (8 // bits)) if suffix else ()
+    scratch = ()  # tensors: held until the launch
+    if a8 and suffix == "_cluster":
+        scratch = _a8_slices_scratch(q.device, B * H, Sq, D, k.shape[4],
+                                     n_max, k.shape[3])
     err = _build.function(f"dlm_{name}{suffix}")(
         qb.data_ptr(), nt.data_ptr(), npg.data_ptr(), k.data_ptr(),
         v.data_ptr(), side.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H,
         Sq, D, n_max, k.shape[3], *extra,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream,
+        *(None if t is None else t.data_ptr() for t in scratch))
     _build.check(err, name)
     _build.launch_counts[name] += 1
     return (out, lse) if return_lse else out

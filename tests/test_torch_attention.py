@@ -124,6 +124,37 @@ def test_dense_attention_plain_matches_pallas_at_other_widths(D, out):
         assert rel < 2e-3
 
 
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+def test_dense_twin_past_2048_matches_jax(out):
+    """One head of 2560 (BH = 2, S = 128: inside the VMEM bound of JAX's
+    kernel, which runs interpreted), which the card runs in its cluster
+    kernel with two 256-column slices a block: the plain twin, and the
+    k-slice schedule's model (`test_torch_wide_routing.py:
+    dense_slices_model`, tiles of 32 keys, f32 out), at the tolerances of
+    `test_dense_attention_plain_matches_pallas_at_other_widths`."""
+    from test_torch_wide_routing import dense_slices_model
+
+    BH, S, D = 2, 128, 2560
+    rng = np.random.default_rng(D)
+    q, k, v = (rng.normal(size=(BH, S, D)).astype(np.float32) for _ in range(3))
+    ref = jpa.dense_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              out_dtype=getattr(jnp, out))
+    assert ref is not None
+    ref = np.asarray(ref.astype(jnp.float32))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    twin = dense_attention_plain(qt, kt, vt, out_dtype=getattr(torch, out))
+    assert twin.dtype == getattr(torch, out) and twin.shape == (BH, S, D)
+    model = dense_slices_model(qt, kt, vt, 1.0 / math.sqrt(D))
+    for name, got in (("twin", twin.float().numpy()),
+                      ("k-slice model", model.numpy())):
+        rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+        print(f"dense {name} vs interpreted Pallas, D={D} {out}: max "
+              f"{np.abs(got - ref).max():.3g}, rel {rel:.3g}")
+        np.testing.assert_allclose(got, ref, atol=ATOL)
+        if out == "float32":
+            assert rel < 2e-3
+
+
 @pytest.mark.parametrize("D", [12, 20])
 def test_flash_fold_takes_jax_einsum_branch_where_no_kernel_runs(D):
     """Heads of no multiple of 8: JAX's `dense_attention` returns None and

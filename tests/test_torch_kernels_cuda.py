@@ -382,8 +382,8 @@ def test_dense_attention_kernel_matches_twin(gen, BH, Sq, Skv, D, out_dtype):
 # the cluster kernels of dense and single-sequence paged attention
 # (csrc/wide_cluster_flash.cuh, heads of 264 to 2048; WIDER holds 264, 384,
 # 512, 768, 1024 and 2048): a last block of 16 columns (272), a cluster of 3
-# with 8-byte reads of the pools (520), and the first width past them, on
-# csrc/wide_flash.cuh (2056)
+# with 8-byte reads of the pools (520), and the first width past them, in
+# blocks of 2 slices (2056)
 CLUSTER_EDGES = [272, 520, 2056]
 
 
@@ -396,7 +396,7 @@ def test_dense_attention_cluster_edges_match_twin(gen, Skv, D, out_dtype):
     q = torch.randn((2, 100, D), generator=gen, device="cuda")
     k, v = (torch.randn((2, Skv, D), generator=gen, device="cuda")
             for _ in range(2))
-    assert qa.instance(D) == ("_wide" if D > 2048 else "_cluster")
+    assert qa.dense_instance(D) == "_cluster"
     _build.reset_launch_counts()
     out = dense_attention(q, k, v, out_dtype=out_dtype)
     torch.cuda.synchronize()
@@ -410,10 +410,13 @@ def test_dense_attention_cluster_edges_match_twin(gen, Skv, D, out_dtype):
 
 def test_cluster_kernels_place_every_cluster_size(gen):
     """The card runs clusters of every size the cluster kernels launch (2
-    to 8 blocks, one an SM), and the kernels refuse widths outside 264 to
-    2048 rather than serve them."""
+    to 8 blocks, one an SM; past 2048 the k-slice kernel's clusters of 5 to
+    8), and the dense kernel refuses heads of 256 and below, and past 2048
+    a call without the scratch its two passes share, rather than serve
+    them."""
     fn = _build.function("dlm_dense_attention_cluster_active")
-    for D in (264, 520, 776, 1032, 1288, 1544, 1800, 2048):
+    for D in (264, 520, 776, 1032, 1288, 1544, 1800, 2048, 2056, 2824, 3592,
+              4104, 10240):
         assert fn(D) > 0, D
     q = torch.randn((1, 8, 2056), device="cuda").bfloat16()
     out = torch.empty_like(q)
@@ -421,10 +424,7 @@ def test_cluster_kernels_place_every_cluster_size(gen):
     for D in (256, 2056):
         assert _build.function("dlm_dense_attention_cluster")(
             q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 1, 8,
-            8, D, 1.0, stream) != 0
-    assert _build.function("dlm_dense_attention_wide")(
-        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 1, 8, 8,
-        2048, 1.0, stream) != 0
+            8, D, 1.0, stream, 0) != 0
 
 
 def test_kernels_refuse_what_they_do_not_take(gen):
@@ -739,10 +739,67 @@ def test_paged_attention_cluster_splits_merge_in_launch(gen, D):
     assert not any(bool(t.any()) for t in qa._split_counters[q.device])
 
 
-# past 2048 the single-sequence kernel gives a block k slices of 256
-# columns (`cluster_plan`): 2056 (k = 2, a last block of 8 columns), 2560
-# (k = 2), 4104 (k = 3) and 10240 (k = 5, clusters of 8)
+# past 2048 the single-sequence kernel, dense attention and the batched
+# int8 path give a block k slices of 256 columns (`cluster_plan`): 2056 (k =
+# 2, a last block of 8 columns), 2560 (k = 2), 4104 (k = 3) and 10240 (k =
+# 5, clusters of 8)
 PAST = [2056, 2560, 4104, 10240]
+
+
+@pytest.mark.parametrize("BH,Sq,Skv", [(2, 100, 999), (1, 128, 64),
+                                       (3, 300, 130)])
+@pytest.mark.parametrize("D", PAST)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_dense_attention_past_2048_matches_twin(gen, BH, Sq, Skv, D,
+                                                out_dtype):
+    """The tolerance of `test_dense_attention_kernel_matches_twin`, ragged
+    Sq and Skv (a last tile of 7 and of 2 keys), one head, launched through
+    `dlm_dense_attention_cluster` in blocks of k slices."""
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    k, v = (torch.randn((BH, Skv, D), generator=gen, device="cuda")
+            for _ in range(2))
+    assert qa.dense_instance(D) == "_cluster" and qa.cluster_plan(D)[1] > 1
+    _build.reset_launch_counts()
+    out = dense_attention(q, k, v, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["dense_attention"] == 1
+    assert out.dtype == out_dtype and out.shape == (BH, Sq, D)
+    ref = dense_attention_plain(q, k, v, out_dtype=out_dtype)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
+    rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+    assert rel <= 1e-2, rel
+
+
+def test_dense_attention_past_2048_with_a_large_scratch(gen):
+    """BH = 16, S = 4096 at heads of 2056: pass 1's S for pass 2 would take
+    1 GiB, so the wrapper runs 4 launches of 4 heads, each keeping 256 MiB
+    (`DENSE_SCRATCH`), and the call takes no more than its output and that;
+    the kernel matches its twin at its tolerance, and a graph replay gives
+    the eager call's bits."""
+    BH, S, D = 16, 4096, 2056
+    q, k, v = (torch.randn((BH, S, D), generator=gen, device="cuda")
+               .bfloat16() for _ in range(3))
+    assert BH * S * S * 4 == 4 * qa.DENSE_SCRATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    out = dense_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["dense_attention"] == 4
+    peak = torch.cuda.max_memory_allocated() - before
+    assert peak <= out.numel() * 2 + qa.DENSE_SCRATCH + 4 * 2**20, peak
+    ref = dense_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=1e-2)
+    rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+    assert rel <= 1e-2, rel
+    del ref
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = dense_attention(q, k, v)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_out, out)
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
@@ -848,7 +905,8 @@ def _cluster_mode_call(gen, mode, D):
     ("dense", 768), ("fused_qkv", 768), ("contig", 768), ("paged", 768),
     ("batched", 768), ("batched_a8", 768), ("dense", 2048),
     ("fused_qkv", 2056), ("paged", 2056), ("fused_qkv", 4104),
-    ("paged", 4104)])
+    ("paged", 4104), ("dense", 2056), ("batched_a8", 2056), ("dense", 4104),
+    ("batched_a8", 4104)])
 def test_cluster_modes_repeat_bit_for_bit(gen, mode, D):
     """Each mode of the cluster design, and fused-QKV attention's, run 20
     times on one input gives the same bits every time: P is formed only
@@ -1055,7 +1113,7 @@ def _batched_cluster_case(gen, D, P, bits, G, act_bits, H=2):
     kernel against its plain version at `_close`'s bounds (int8: rel
     Frobenius 5e-3, lse 1e-3), the empty slot 0 with an lse of -1e30."""
     B, Sq = 3, 100
-    assert pa.batched_instance(D) == "_cluster"
+    assert pa.batched_instance(D, act_bits == 8 and bits > 1) == "_cluster"
     pools = _pools(gen, 8, H // G, P, G * D, bits, G)
     q = torch.randn((B, H, Sq, D), generator=gen, device="cuda")
     pt = torch.tensor([[5, 0, 3], [0, 0, 0], [7, 0, 0]], device="cuda",
@@ -1101,11 +1159,32 @@ def test_batched_paged_attention_cluster_head_groups(gen, act_bits, P, D, G):
     _batched_cluster_case(gen, D, P, 4, G, act_bits, H=4)
 
 
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("P", [32, 64, 72, 128])
+@pytest.mark.parametrize("D", PAST)
+def test_batched_paged_attention_a8_past_2048_matches_twin(gen, bits, P, D):
+    """The int8 path past 2048, in blocks of k slices (q's levels streamed
+    from their scratch, the pages replayed slice by slice): pages in tiles
+    of 32, 64 and 128 tokens (one or two sub-tiles; 72 leaves tokens past
+    the page's data), `_batched_cluster_case`'s slots and bounds."""
+    _batched_cluster_case(gen, D, P, bits, 1, 8)
+
+
+@pytest.mark.parametrize("P", [72, 128])
+@pytest.mark.parametrize("D,G", [(2056, 2), (2560, 4), (4104, 2)])
+def test_batched_paged_attention_a8_past_2048_head_groups(gen, P, D, G):
+    """The int8 path past 2048 with heads in groups of G, four heads."""
+    _batched_cluster_case(gen, D, P, 4, G, 8, H=4)
+
+
 def test_batched_paged_attention_past_the_clusters_runs_wide(gen):
-    """Heads of 2056 run csrc/wide_flash.cuh, at both activation widths; the
-    cluster entry points refuse 256 and 2056 and the wide ones 2048 rather
-    than serve them; the card places the cluster instances' clusters."""
-    assert pa.batched_instance(2056) == "_wide"
+    """Heads of 2056 run csrc/wide_flash.cuh with bf16 activations and the
+    cluster kernel in blocks of 2 slices with int8 ones; the cluster entry
+    points refuse 256, the bf16 one 2056 and the int8 one 2056 without its
+    scratch, and the wide one 2048, rather than serve them; the card places
+    the cluster instances' clusters, past 2048 those of the int8 path's."""
+    assert pa.batched_instance(2056, a8=False) == "_wide"
+    assert pa.batched_instance(2056, a8=True) == "_cluster"
     for act_bits in (16, 8):
         B, H, Sq, D, P = 2, 1, 40, 2056, 64
         pools = _pools(gen, 3, H, P, D, 4, 1)
@@ -1126,18 +1205,22 @@ def test_batched_paged_attention_past_the_clusters_runs_wide(gen):
     buf = torch.zeros((1 << 16,), device="cuda")
     one = torch.ones((1,), dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    for a8 in ("", "_a8"):
-        for suffix, D in (("_cluster", 256), ("_cluster", 2056),
-                          ("_wide", 2048)):
-            assert _build.function(f"dlm_batched_paged_attention{a8}{suffix}")(
-                q.data_ptr(), one.data_ptr(), one.data_ptr(), buf.data_ptr(),
-                buf.data_ptr(), buf.data_ptr(), buf.data_ptr(), buf.data_ptr(),
-                1, 1, 8, D, 1, 64, 2112, 64, stream) != 0, (a8, suffix, D)
+    for name, D, scratch in (("_cluster", 256, ()), ("_cluster", 2056, ()),
+                             ("_wide", 2048, ()), ("_a8_cluster", 256, (0, 0)),
+                             ("_a8_cluster", 2056, (0, 0))):
+        assert _build.function(f"dlm_batched_paged_attention{name}")(
+            q.data_ptr(), one.data_ptr(), one.data_ptr(), buf.data_ptr(),
+            buf.data_ptr(), buf.data_ptr(), buf.data_ptr(), buf.data_ptr(),
+            1, 1, 8, D, 1, 64, 2112, 64, stream, *scratch) != 0, (name, D)
     active = _build.function("dlm_batched_paged_attention_cluster_active")
     for D in (264, 520, 776, 1032, 1288, 1544, 1800, 2048):
         for P in (24, 56, 72, 128):
             for a8 in (0, 1):
                 assert active(D, P, a8) > 0, (D, P, a8)
+    for D in (2056, 2824, 3592, 4104, 10240):
+        for P in (24, 56, 72, 128):
+            assert active(D, P, 1) > 0, (D, P)
+            assert active(D, P, 0) < 0, (D, P)
 
 
 # ------------------------------------------------ quantized-KV attention ---

@@ -3,14 +3,16 @@
 Dense, quantized-KV (contiguous and single-sequence paged) and batched
 paged attention run heads of 264 to 2048 in the cluster kernels of
 `csrc/wide_cluster_flash.cuh` (ceil(D / 256) blocks, each 256 columns of the
-head, the partial S summed in rank order); past 2048 single-sequence paged
-attention runs the same design with blocks of k slices of 256 columns
-(`cluster_plan`), and the other three `csrc/wide_flash.cuh`; fused-QKV
+head, the partial S summed in rank order); past 2048 dense, single-sequence
+paged and batched int8 paged attention run the same design with blocks of k
+slices of 256 columns (`cluster_plan`), quantized-KV and batched bf16 paged
+attention `csrc/wide_flash.cuh`; fused-QKV
 attention runs heads of up to 256 in its `wgmma` design's instances of
 32-256, and wider ones in the same two passes over a cluster
 (`csrc/fused_qkv_attention_wide.cu`, k slices a block past 2048). The
-routing is plain Python (`ops/attention.py: instance`, `cluster_blocks`,
-`cluster_plan`, `fused_qkv_head_width`, `fused_qkv_instance`,
+routing is plain Python (`ops/attention.py: instance`, `dense_instance`,
+`cluster_blocks`, `cluster_plan`, `fused_qkv_head_width`,
+`fused_qkv_instance`,
 `ops/paged_attention.py: batched_instance`, `paged_instance`), checked
 here without a card. The models below repeat
 the cluster kernels' schedule in torch on the CPU (tiles of 32 tokens, the S
@@ -22,8 +24,9 @@ sums, its s32 partial S in sub-tiles of 64 tokens, a page's sub-tiles held
 for the per-page requantization and P.V in two halves of 128 columns a
 block; fused-QKV attention's two exact passes, the logits of the first
 kept for the second; past 2048 each block's partial S summed over its k
-slices, and pass 2 slice by slice, single-sequence paged attention's
-replaying the online recurrence that pass 1 kept) and hold it against the
+slices, and pass 2 slice by slice, dense, single-sequence paged and batched
+int8 attention replaying the online recurrence that pass 1 kept) and hold
+it against the
 plain versions the card tests hold the kernels against, at those tests'
 tolerances. No JAX.
 """
@@ -48,38 +51,44 @@ def one_thread():
     torch.set_num_threads(n)
 
 # (D, blocks of a cluster at k = 1, dense suffix, quant_attention suffix,
-# batched paged suffix, single-sequence paged suffix)
+# batched paged suffix (bf16), single-sequence paged suffix, batched paged
+# suffix (int8))
 ROUTES = [
-    (8, 0, "", "_padded", "", "_padded"), (64, 0, "", "", "", ""),
-    (200, 0, "", "_padded", "", "_padded"), (256, 0, "", "", "", ""),
-    (264, 2, "_cluster", "_cluster", "_cluster", "_cluster"),
-    (272, 2, "_cluster", "_cluster", "_cluster", "_cluster"),
-    (384, 2, "_cluster", "_cluster", "_cluster", "_cluster"),
-    (512, 2, "_cluster", "_cluster", "_cluster", "_cluster"),
-    (520, 3, "_cluster", "_cluster", "_cluster", "_cluster"),
-    (768, 3, "_cluster", "_cluster", "_cluster", "_cluster"),
-    (1024, 4, "_cluster", "_cluster", "_cluster", "_cluster"),
-    (2048, 8, "_cluster", "_cluster", "_cluster", "_cluster"),
-    (2056, 0, "_wide", "_wide", "_wide", "_cluster"),
-    (4096, 0, "_wide", "_wide", "_wide", "_cluster")]
+    (8, 0, "", "_padded", "", "_padded", ""), (64, 0, "", "", "", "", ""),
+    (200, 0, "", "_padded", "", "_padded", ""), (256, 0, "", "", "", "", ""),
+    (264, 2, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster"),
+    (272, 2, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster"),
+    (384, 2, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster"),
+    (512, 2, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster"),
+    (520, 3, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster"),
+    (768, 3, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster"),
+    (1024, 4, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster"),
+    (2048, 8, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster"),
+    (2056, 0, "_cluster", "_wide", "_wide", "_cluster", "_cluster"),
+    (4096, 0, "_cluster", "_wide", "_wide", "_cluster", "_cluster")]
 
 
 # each case keeps the ID it was first given, when quant_attention ran
-# "_wide" past 256
-@pytest.mark.parametrize("D,blocks,cluster,other,batched,paged", ROUTES,
-                         ids=[f"{D}-{n}-{c}-{'_wide' if D > 256 else o}"
-                              for D, n, c, o, _, _ in ROUTES])
-def test_each_head_width_reaches_its_design(D, blocks, cluster, other,
-                                            batched, paged):
-    """`dense_attention` launches `instance(D)` past 256 and its one
-    source below; `attention` launches `instance(D)` (its padded source
-    between the fixed widths); `paged_attention` launches
-    `paged_instance(D)`, the cluster kernel at every width past 256."""
+# "_wide" past 256 and dense attention past 2048
+@pytest.mark.parametrize("D,blocks,dense,other,batched,paged,batched_a8",
+                         ROUTES,
+                         ids=[f"{D}-{n}-{'_wide' if D > 2048 else c}-"
+                              f"{'_wide' if D > 256 else o}"
+                              for D, n, c, o, *_ in ROUTES])
+def test_each_head_width_reaches_its_design(D, blocks, dense, other,
+                                            batched, paged, batched_a8):
+    """`dense_attention` launches `dense_instance(D)`, the cluster kernel at
+    every width past 256; `attention` launches `instance(D)` (its padded
+    source between the fixed widths); `paged_attention` launches
+    `paged_instance(D)`, the cluster kernel at every width past 256; the
+    batched int8 path the cluster kernel past 256, its bf16 path
+    `csrc/wide_flash.cuh` past 2048."""
     assert qa.cluster_blocks(D) == blocks
-    assert (qa.instance(D) if D > qa.KERNEL_WIDTHS[-1] else "") == cluster
+    assert qa.dense_instance(D) == dense
     assert qa.instance(D) == other
-    assert pa.batched_instance(D) == batched
+    assert pa.batched_instance(D, a8=False) == batched
     assert pa.paged_instance(D) == paged
+    assert pa.batched_instance(D, a8=True) == batched_a8
 
 
 # (D, blocks of a cluster, 256-column slices a block): k = 1 from 264 to
@@ -531,37 +540,15 @@ def test_qkv_cluster_schedule_matches_the_plain_version(D, H, S):
 
 
 def qkv_slices_model(qkv, H, sm, out_dtype=torch.float32):
-    """`csrc/fused_qkv_attention_wide.cu`'s schedule past 2048
-    (`qkv_slices_kernel`): the cluster of `cluster_plan(Hd)`, C blocks of k
-    slices of 256 columns; pass 1 takes S of each tile of 32 keys from each
-    block's partial over its k slices, the partials added in rank order,
-    keeps it, and runs the maximum and sum; pass 2 runs slice by slice,
-    p = 2^(logit log2(e) - (max + log2 sum)) rounded to bf16, times the
-    slice's columns of each V tile."""
+    """`csrc/fused_qkv_attention_wide.cu`'s schedule past 2048: that of
+    `dense_slices_model` (the kernel they share) over each (batch row,
+    head)'s q, K and V."""
     B, S, threeD = qkv.shape
     D = threeD // 3
     Hd = D // H
-    cols = 256 * qa.cluster_plan(Hd)[1]
-    x = qkv.to(torch.bfloat16).float()
-    q, k, v = (x[..., i * D:(i + 1) * D].reshape(B, S, H, Hd).transpose(1, 2)
-               for i in range(3))
-    sl2 = sm * math.log2(math.e)
-    m = torch.full((B, H, S, 1), qa.NEG_INF)
-    l = torch.zeros_like(m)
-    kept = []
-    for j in range(0, S, 32):  # pass 1
-        s = _partials_sum(q, k[:, :, j:j + 32], cols)
-        kept.append(s)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
-        l = l * torch.exp2(m - m_new) + torch.exp2(s * sl2 - m_new).sum(
-            -1, keepdim=True)
-        m = m_new
-    bias = m + torch.log2(l)
-    o = torch.zeros((B, H, S, Hd))
-    for c0 in range(0, Hd, 256):  # pass 2, a slice at a time
-        for j, s in zip(range(0, S, 32), kept):
-            p = torch.exp2(s * sl2 - bias).to(torch.bfloat16).float()
-            o[..., c0:c0 + 256] += p @ v[:, :, j:j + 32, c0:c0 + 256]
+    q, k, v = (qkv[..., i * D:(i + 1) * D].reshape(B, S, H, Hd)
+               .transpose(1, 2) for i in range(3))
+    o = dense_slices_model(q, k, v, sm, normalised=True)
     return o.transpose(1, 2).reshape(B, S, D).to(out_dtype)
 
 
@@ -669,3 +656,136 @@ def test_paged_slices_schedule_matches_the_plain_version(bits, P, D, nsplit):
         print(f"D={D} {bits}-bit P={P} nsplit={nsplit}: rel {rel:.3g}")
         assert rel <= 1e-2
         torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+
+
+def dense_slices_model(q, k, v, sm, normalised=False):
+    """`csrc/wide_cluster_flash.cuh: slices_attention`'s schedule, which
+    dense and fused-QKV attention run past 2048: the cluster of
+    `cluster_plan(D)`, C blocks of k slices of 256 columns; pass 1 takes S
+    of each tile of 32 keys from each block's partial over its k slices,
+    the partials added in rank order, keeps it, and runs a maximum m of
+    logit * log2(e) and a sum l of 2^(that - m); pass 2 runs slice by
+    slice, p = 2^(logit log2(e) - m) rounded to bf16, times the slice's
+    columns of each V tile, and out = o / l (dense attention's TPU kernel
+    divides after P.V); where `normalised` (fused-QKV's divides before
+    rounding), p = 2^(logit log2(e) - (m + log2 l)) and out = o. q [...,
+    Sq, D], k and v [..., Skv, D]; f32 out."""
+    qf, kf, vf = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    D, Skv = q.shape[-1], k.shape[-2]
+    cols = 256 * qa.cluster_plan(D)[1]
+    sl2 = sm * math.log2(math.e)
+    m = torch.full(q.shape[:-1] + (1,), qa.NEG_INF)
+    l = torch.zeros_like(m)
+    kept = []
+    for j in range(0, Skv, 32):  # pass 1
+        s = _partials_sum(qf, kf[..., j:j + 32, :], cols)
+        kept.append(s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
+        l = l * torch.exp2(m - m_new) + torch.exp2(s * sl2 - m_new).sum(
+            -1, keepdim=True)
+        m = m_new
+    bias = m + torch.log2(l) if normalised else m
+    o = torch.zeros(q.shape)
+    for c0 in range(0, D, 256):  # pass 2, a slice at a time
+        for j, s in zip(range(0, Skv, 32), kept):
+            p = torch.exp2(s * sl2 - bias).to(torch.bfloat16).float()
+            o[..., c0:c0 + 256] += p @ vf[..., j:j + 32, c0:c0 + 256]
+    return o if normalised else o / l
+
+
+@pytest.mark.parametrize("Skv", [64, 130])
+@pytest.mark.parametrize("D", [2056, 4104])
+def test_dense_slices_schedule_matches_the_plain_version(D, Skv):
+    """Past 2048, at k = 2 (2056: a last block of one slice of 8 columns)
+    and k = 3 (4104), a last tile of 2 keys at Skv = 130: the card test's
+    tolerance (|d| <= 1e-2, rel Frobenius <= 1e-2)."""
+    rng = np.random.default_rng(D + Skv)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               for s in ((2, 70, D), (2, Skv, D), (2, Skv, D)))
+    sm = 1.0 / math.sqrt(D)
+    out = dense_slices_model(q, k, v, sm)
+    ref = qa.dense_attention_plain(q, k, v, sm, torch.float32)
+    rel = float((out - ref).norm() / ref.norm())
+    print(f"D={D} Skv={Skv}: max {float((out - ref).abs().max()):.3g}, "
+          f"rel {rel:.3g}")
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-2)
+    assert rel <= 1e-2
+
+
+def batched_a8_slices_model(q, page_tokens, n_pages, k, vt, side, P):
+    """kScratch8's schedule past 2048 (`wide_cluster_a8_slices`): the
+    cluster of `cluster_plan(D)`, C blocks of k slices; q's row amax as the
+    maximum of the blocks' partial maxima over their k slices, qi = rint(q /
+    sq) (the levels the kernel writes to its scratch and streams a slice a
+    step), qsum from the blocks' partial integer sums. Pass 1: each
+    sub-tile's S (64 tokens, a page of 32 in one) as the sum of the blocks'
+    s32 partials, a page's S held until its last sub-tile, then the page's
+    softmax and requantization as in `batched_a8_cluster_model`, keeping
+    wi, alpha, sw and csum a page. Pass 2 slice by slice, each page's two
+    halves of 128 columns folded as acc * alpha + (wi . v) * sw - csum."""
+    B, H, Sq, D = q.shape
+    cols = 256 * qa.cluster_plan(D)[1]
+    qb = q.to(torch.bfloat16).float()
+    amax = _rank_max(qb, cols)
+    sq = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    qi = torch.round(qb / sq)
+    qsum = _rank_sum(qi.double(), cols).float() * sq
+    vcols = pa.vt_columns(vt.shape[-1])[:P]
+    out = torch.zeros((B, H, Sq, D))
+    lse = torch.full((B, H, Sq), pa.NEG_INF)
+    for b in range(B):
+        m = torch.full((H, Sq, 1), pa.NEG_INF)
+        l = torch.zeros_like(m)
+        kept = []
+        for j in range(int(n_pages[b])):  # pass 1
+            subs = [_partials_sum(qi[b].double(),
+                                  k[b, :, j, h0:min(P, h0 + 64), :D].double(),
+                                  cols)
+                    for h0 in range(0, P, 64)]
+            raw = torch.cat(subs, -1).float() * sq[b]
+            ka, kb, vs, vz = (side[b, :, j, i, None, :P] for i in range(4))
+            valid = torch.arange(P) < int(page_tokens[b, j])
+            logits = torch.where(valid, raw * ka - kb * qsum[b], pa.NEG_INF)
+            m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+            p = torch.exp(logits - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            w = torch.where(valid, p * vs, 0.0)
+            wmax = w.amax(-1, keepdim=True)
+            sw = torch.where(wmax > 0, wmax / 127.0, torch.ones_like(wmax))
+            kept.append((torch.round(w / sw), alpha, sw,
+                         (w * vz).sum(-1, keepdim=True),
+                         vt[b, :, j][..., vcols].float()))
+            m = m_new
+        acc = torch.zeros((H, Sq, D))
+        for c0 in range(0, D, 256):  # pass 2, a slice at a time
+            for wi, alpha, sw, corr, v_lv in kept:
+                for h0 in range(c0, min(D, c0 + 256), 128):  # its halves
+                    h1 = min(D, h0 + 128)
+                    pv = wi @ v_lv[:, h0:h1].transpose(1, 2)
+                    acc[..., h0:h1] = acc[..., h0:h1] * alpha + pv * sw - corr
+        if int(n_pages[b]):
+            out[b] = acc * (1.0 / l)
+            lse[b] = (m + torch.log(l))[..., 0]
+    return out, lse
+
+
+@pytest.mark.parametrize("D,P,bits,G", [(2056, 72, 4, 1), (2056, 128, 8, 2),
+                                        (4104, 32, 2, 1)])
+def test_batched_a8_slices_schedule_matches_the_plain_version(D, P, bits, G):
+    """Past 2048, at k = 2 (2056: a last block of one slice of 8 columns)
+    and k = 3 (4104), pages of 72 (two sub-tiles), 128 (heads in groups of
+    2) and 32 (one): the card tests' tolerance (rel Frobenius <= 5e-3, lse
+    within 1e-3) over `_batched_scratch`'s slots, an empty slot giving 0
+    and an lse of -1e30, and a page whose every token is masked weighing
+    each key 1 in both."""
+    q, nt, npg, k, v, sd = _batched_scratch(D, P, bits, G, True,
+                                            D + P + bits + G)
+    out, lse = batched_a8_slices_model(q, nt, npg, k, v, sd, P)
+    ref, ref_lse = pa.batched_paged_attention_unpacked_plain(
+        q, nt, npg, k, v, sd, P, return_lse=True)
+    rel = float((out - ref).norm() / ref.norm())
+    print(f"D={D} P={P} {bits}-bit G={G}: rel {rel:.3g}")
+    assert torch.all(out[1] == 0) and torch.all(lse[1] == pa.NEG_INF)
+    assert rel <= 5e-3
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
