@@ -68,12 +68,10 @@ Phases (any failure makes the script exit non-zero without the final line):
                 clusters, the batched and fused-QKV rows the clusters of
                 their instance the card runs at once), the clusters of each
                 size the card runs at once are logged, and any size it
-                cannot place fails the phase; past 2048 dense, fused-QKV and
-                single-sequence paged attention and the batched int8 path
-                run the same cluster design with blocks of k slices of 256
-                columns (`cluster_plan`: 5 blocks of 2 at 2056, 6 of 3 at
-                4104), quant_attention and the batched bf16 path
-                csrc/wide_flash.cuh. fused_qkv_attention at
+                cannot place fails the phase; past 2048 every attention
+                kernel runs the same cluster design with blocks of k slices
+                of 256 columns (`cluster_plan`: 5 blocks of 2 at 2056 and
+                2560, 6 of 3 at 4104). fused_qkv_attention at
                 B=8, S=256 and 864, width 768, with 12 heads of 64, 4 of
                 192, 3 of 256 (its wgmma design) and 2 of 384 and one of 768
                 (its cluster kernel). Past 2048, timed, every attention
@@ -83,10 +81,13 @@ Phases (any failure makes the script exit non-zero without the final line):
                 128), both batched kernels and paged_unpack (B=2, Sq=2048,
                 one head, 6 pages of 128 a slot), each the work of its row
                 of 768 within 0.4%, and fused_qkv_attention (B=8, S=256,
-                one head); and at k = 3, at one head of 4104, dense
-                attention, paged_attention, both batched kernels and
-                fused_qkv_attention (B=8, S=240: JAX's 8 MiB admits no
-                longer row), each at its shape at 2056. The
+                one head); and at k = 3, at one head of 4104, every mode
+                (fused_qkv_attention at B=8, S=240: JAX's 8 MiB admits no
+                longer row), each at its shape at 2056; untimed, the one
+                head of 2560 of heads_wide's 2-layer model at its own
+                shapes: quant_attention at BH=8, Sq=Skv=256 at 8, 4 and 2
+                bits, both batched kernels at B=2, Sq=2048, 16 pages of
+                128 a slot. The
                 kernels line gives each design's wide instance as
                 `wide_instance` (its first timed row, its design, source and
                 C entry point, and its launches on heads_wide's heads of 384
@@ -179,11 +180,12 @@ Phases (any failure makes the script exit non-zero without the final line):
                 heads_wide (every attention path at full width, W4A8, with
                 8 heads of 96, 3 of 256, 2 of 384 and one of 768, the last
                 two in the wide instances, and a 2-layer model of one head
-                of 2560 at width 2560 for the four paths of the cluster
-                design past 2048: the S=1024 sampler, the paged batcher
-                with int8 attention (each with its card-vs-CPU check and
-                replayed bit for bit), `PagedKVCache.attend` and the
-                fused-QKV forward; on the others: the S=1024 sampler,
+                of 2560 at width 2560 for every path of the cluster design
+                past 2048: the S=1024 sampler, the scan sampler and the
+                paged batcher with bf16 and with int8 attention (each with
+                its card-vs-CPU check and replayed bit for bit),
+                `PagedKVCache.attend` and the fused-QKV forward; on the
+                others: the S=1024 sampler,
                 `Engine(config, params=...).sample(use_paged=False)` over
                 the decoded W4A8 weights (f32 residuals into the W4A8
                 kernels), the paged batcher at S=2048 with bf16
@@ -244,8 +246,9 @@ one of 768, the last two also at S = 864;
 `paged_unpack` in both layouts and each batched paged kernel alone at
 serve_paged's pools, heads of 16 to 256; `PARENT_SHAPES`; the wide
 instances at heads of 384 and 768 as new rows, which a parent without them
-does not time; past 2048, at heads of 2056 and 4104, fused-QKV, single-
-sequence paged and dense attention and the batched int8 kernel alone) of
+does not time; past 2048, at heads of 2056 and 4104, fused-QKV,
+quantized-KV, single-sequence paged and dense attention and each batched
+kernel alone) of
 the checkout unpacked in DIR (the
 parent commit, `git archive`) and of this one, each built and timed by its
 own chip_smoke.py in a process of its own (parent, this, this, parent);
@@ -914,8 +917,7 @@ def _paged_kernels(gen, results, bad):
     from diffusion_llm_rs_tpu_torch.cache.paged import quantize_page
     from diffusion_llm_rs_tpu_torch.ops import _build
     from diffusion_llm_rs_tpu_torch.ops import paged_attention as pa
-    from diffusion_llm_rs_tpu_torch.ops.attention import (cluster_blocks,
-                                                          cluster_plan)
+    from diffusion_llm_rs_tpu_torch.ops.attention import cluster_plan
 
     tol = "rel Frobenius <= 1e-2, |lse| <= 1e-3"
     # quantize_page on the card equals the CPU bit for bit (true division
@@ -981,22 +983,20 @@ def _paged_kernels(gen, results, bad):
     cases += [("heads of 264, pages of 72, partial page + empty slot", 4, 2,
                300, 72, ([5, 0], [40, 72]), False, (2, 1, 264))]
     # the cluster kernels' edges: a cluster of 8 (2048) in pages of 32, and
-    # past them 2056 (the bf16 path on csrc/wide_flash.cuh, the int8 path in
-    # blocks of 2 slices)
+    # past them 2056 (blocks of 2 slices)
     cases += [(f"heads of {D}, pages of 32, partial page + empty slot", 4, 2,
                100, 32, ([3, 0], [20, 32]), False, (1, 1, D))
               for D in (2048, 2056)]
     # past 2048, timed: one head of 2056 over 6 pages of 128 a slot (one
     # head cannot shrink, so the pages do: 6 x 2056 is the 16 x 768 of the
     # row of 768 within 0.4%), beside the cluster kernel at 2048 on the same
-    # work, and one head of 4104 (the int8 path in blocks of 3 slices) over
-    # the same pages
+    # work, and one head of 4104 (blocks of 3 slices) over the same pages
     cases += [(f"heads of {D}, S=2048 4-bit, 6 pages a slot", 4, 2, 2048, 128,
                ([6, 6], [128, 128]), True, (1, 1, D))
               for D in (2056, 2048, 4104)]
     # the one head of 2560 of `heads_wide`'s 2-layer model at its paged
     # batcher's shape (B=2, Sq=2048, 16 pages of 128 a slot), which its
-    # int8 serving phase launches
+    # bf16 and int8 serving phases launch
     cases += [("heads of 2560, S=2048 4-bit, 16 pages a slot", 4, 2, 2048,
                128, ([16, 16], [128, 128]), False, (1, 1, 2560))]
     for label, bits, B, sq, P, (npages, last), timed, (H, G, D) in cases:
@@ -1022,7 +1022,7 @@ def _paged_kernels(gen, results, bad):
         row = dict(shape=f"{label}: B={B} H={H} D={D} G={G} Sq={sq} P={P} "
                    f"pages={npages}", max_abs_err=err, rel_err=rel,
                    lse_err=lse_err, tolerance=tol, wide=D > WIDE_FROM)
-        if cluster_blocks(D):  # the clusters of its instance at once
+        if cluster_plan(D)[0]:  # the clusters of its instance at once
             row["clusters_at_once"] = _build.function(
                 "dlm_batched_paged_attention_cluster_active")(D, P, 0)
         # the pages read and the keys attended (timed cases: whole pages,
@@ -1045,8 +1045,9 @@ def _paged_kernels(gen, results, bad):
                f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
                f"({row['bound_by']}); MUFU ex2 floor "
                f"{mufu_floor_ms(H * sq * keys):.4f}" if "ms" in row else "")
-            + (f"; clusters of {cluster_blocks(D)}, {row['clusters_at_once']} "
-               f"at once" if "clusters_at_once" in row else ""))
+            + (f"; clusters of {cluster_plan(D)[0]}, "
+               f"{row['clusters_at_once']} at once"
+               if "clusters_at_once" in row else ""))
         if not ok or row.get("clusters_at_once", 1) <= 0:
             bad.append(f"batched_paged_attention {label}")
         _unpack_case(pa, label, row["shape"], args, npages, bits, G, timed,
@@ -1219,16 +1220,27 @@ QA_CASES = (
     ("heads of 768, 8-bit", 8, 256, 256, 8, False, 768),
     ("heads of 768, ragged 2-bit", 4, 100, 130, 2, False, 768),
     # the cluster instance's edges: a cluster of 3 over a long chain at 1
-    # bit (packed rows of 65 bytes), one of 8, and past them the wide
-    # instance (2056)
+    # bit (packed rows of 65 bytes), one of 8, and past them blocks of 2
+    # slices (2056)
     ("heads of 520, long 1-bit", 4, 256, 999, 1, False, 520),
     ("heads of 2048, 4-bit", 2, 128, 300, 4, False, 2048),
     ("heads of 2056, ragged 4-bit", 2, 100, 130, 4, False, 2056),
     # past 2048, timed: heads of 2056 at BH=3, the work of the row of 768
     # (BH=8) within 0.4%, beside the cluster instance at 2048 on the same
-    # work
+    # work, and heads of 4104 (blocks of 3 slices) at BH=3
     ("heads of 2056 past the clusters, 4-bit", 3, 256, 256, 4, True, 2056),
-    ("heads of 2048 at that work, 4-bit", 3, 256, 256, 4, True, 2048))
+    ("heads of 2048 at that work, 4-bit", 3, 256, 256, 4, True, 2048),
+    ("heads of 4104, 4-bit", 3, 256, 256, 4, True, 4104),
+    # the one head of 2560 of `heads_wide`'s 2-layer model at its scan
+    # sampler's shape (B=8, Sq=Skv=256) at the sampler's 8, 4 and 2 bits,
+    # where the chain splits: within 2e-3 of the split plain version and
+    # 5e-3 of the chain in one run (C44)
+    ("heads of 2560 at the scan sampler's shape, 8-bit", 8, 256, 256, 8,
+     False, 2560),
+    ("heads of 2560 at the scan sampler's shape, 4-bit", 8, 256, 256, 4,
+     False, 2560),
+    ("heads of 2560 at the scan sampler's shape, 2-bit", 8, 256, 256, 2,
+     False, 2560))
 
 
 def _qa_label(label, BH, Sq, Skv, bits, D):
@@ -2225,12 +2237,16 @@ def heads_wide():
     sampler at B=2 x 1024, 8 steps each; serve_paged and serve_paged_a8, 4
     requests of S=2048 and 4 steps after one alike). Then a 2-layer model
     of one head of 2560 (`full_width_model(hidden=2560, layers=2)`: blocks
-    of 2 slices of 256 columns past 2048) through the paths that run the
+    of 2 slices of 256 columns past 2048) through every path that runs the
     cluster design there: `sample` at B=2, S=1024 (dense_attention, L a
-    step; one forward against the CPU), the fused-QKV forward, the paged
-    batcher with `attn_act_bits=8` (batched_paged_attention_a8 and
-    paged_unpack, L a step; `_step_vs_cpu`), `cache_attend`, and the
-    sampler and the batcher replayed against eager bit for bit."""
+    step; one forward against the CPU), the fused-QKV forward, the scan
+    sampler (`Engine.sample(use_paged=False)` at B=8, S=256, 8 steps:
+    quant_attention, L a step after the bootstrap; `scan_check`), the paged
+    batcher with bf16 and with int8 attention (batched_paged_attention or
+    batched_paged_attention_a8, and paged_unpack, L a step; `_step_vs_cpu`
+    for each), `cache_attend`, and the
+    sampler, the scan sampler and both batchers replayed against eager bit
+    for bit."""
     from diffusion_llm_rs_tpu_torch.engine import Engine
     from diffusion_llm_rs_tpu_torch.models import denoiser as dn
     from diffusion_llm_rs_tpu_torch.models.diffusion import (
@@ -2367,12 +2383,12 @@ def heads_wide():
         torch.cuda.empty_cache()
     # past 2048: one head of 2560 at width 2560 (the cluster design with
     # blocks of 2 slices of 256 columns, clusters of 5), 2 layers (cut from
-    # 12 to keep the call's time), the four paths that run that design: the
-    # S = 1024 sampler (dense_attention), the paged batcher with int8
-    # attention (batched_paged_attention_a8), `PagedKVCache.attend`
-    # (paged_attention at 8, 4 and 2 bits) and the fused-QKV forward at S =
-    # 256; quant_attention and the batched bf16 path still run
-    # csrc/wide_flash.cuh and are not run at this width
+    # 12 to keep the call's time), every path that runs that design: the
+    # S = 1024 sampler (dense_attention), the fused-QKV forward at S = 256,
+    # the scan sampler (quant_attention at 8, 4 and 2 bits), the paged
+    # batcher with bf16 and with int8 attention (batched_paged_attention,
+    # batched_paged_attention_a8) and `PagedKVCache.attend` (paged_attention
+    # at 8, 4 and 2 bits)
     t0 = time.perf_counter()
     cfg, params = full_width_model(max_seq=2048, heads=1, hidden=2560,
                                    layers=2)
@@ -2420,32 +2436,53 @@ def heads_wide():
     _wide_fused_forward(cfg, params, cpu_params, 1, gen, call, runs)
     del cpu_params
 
-    # the paged batcher at S = 2048, pages of 128, 4-bit KV, int8
-    # attention: paged_unpack and batched_paged_attention_a8, L a step
-    kernel = "batched_paged_attention_a8"
-    batcher = PagedContinuousBatcher(
-        params, _serve_cfg(prefill_bits=4, decode_bits=4,
-                           progressive_precision=False),
-        num_slots=2, seq_len=2048, page_size=128, attend_mode="auto",
-        keep_embeddings=False, attn_act_bits=8, seed=41)
-    if batcher.attend_mode != "paged" or batcher.buckets != (4,):
-        raise AssertionError(f"mode {batcher.attend_mode}, buckets "
-                             f"{batcher.buckets}")
-    run = _serve("heads_wide 2560 serve S=2048 act 8", batcher,
-                 [(f"r{i}", 2048, 2) for i in range(4)])
-    _expect("heads_wide 2560 serve S=2048 act 8", run["counts"], {
-        kernel: L * run["steps"], "batched_paged_attention": 0,
-        "paged_unpack": L * run["steps"], "dense_attention": 0})
-    runs["serve S=2048 act 8"] = run
-    del batcher
-    runs["step_check act 8"] = _step_vs_cpu(8, kernel)
+    # the scan sampler through the engine over this model's weights:
+    # quant_attention at 8, 4 and 2 bits, L a step after the bootstrap
+    eng = Engine(config=cfg, params=params, device="cuda")
+    tokens = call("Engine.sample(use_paged=False) B=8 S=256", lambda:
+                  eng.sample(batch_size=8, seq_len=256, num_steps=8,
+                             use_paged=False, return_text=False),
+                  {**_expected_launches(cfg, 8, long_seq=False),
+                   "quant_attention": L * 7, "dense_attention": 0})
+    if tuple(tokens.shape) != (8, 256) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError("heads of 2560: Engine.sample's token ids are "
+                             "out of range")
+    del eng
+    runs["scan_check"] = scan_check(cfg, params, (1, 128), seed=79)
+
+    # the paged batcher at S = 2048, pages of 128, 4-bit KV, bf16 and int8
+    # attention: paged_unpack and batched_paged_attention(_a8), L a step
+    for act_bits, kernel in ((16, "batched_paged_attention"),
+                             (8, "batched_paged_attention_a8")):
+        name = f"serve S=2048 act {act_bits}"
+        batcher = PagedContinuousBatcher(
+            params, _serve_cfg(prefill_bits=4, decode_bits=4,
+                               progressive_precision=False),
+            num_slots=2, seq_len=2048, page_size=128, attend_mode="auto",
+            keep_embeddings=False, attn_act_bits=act_bits, seed=41)
+        if batcher.attend_mode != "paged" or batcher.buckets != (4,):
+            raise AssertionError(f"mode {batcher.attend_mode}, buckets "
+                                 f"{batcher.buckets}")
+        run = _serve(f"heads_wide 2560 {name}", batcher,
+                     [(f"r{i}", 2048, 2) for i in range(4)])
+        other = ({"batched_paged_attention", "batched_paged_attention_a8"}
+                 - {kernel}).pop()
+        _expect(f"heads_wide 2560 {name}", run["counts"], {
+            kernel: L * run["steps"], other: 0,
+            "paged_unpack": L * run["steps"], "dense_attention": 0})
+        runs[name] = run
+        del batcher
+        runs[f"step_check act {act_bits}"] = _step_vs_cpu(act_bits, kernel)
     runs["cache_attend"] = cache_attend(BH=1, S=1024, D=2560, page=64,
                                         seed=43)
 
-    # the sampler and the batcher again, eager and replayed, bit for bit
+    # the samplers and the batchers again, eager and replayed, bit for bit
     paths = _graph_paths(cfg, params, shape=(2, 1024), steps=8,
                          serve_len=2048, serve_steps=4)
     for name, path in (("sample", "sampler"),
+                       ("scan_sampler", "scan_sampler"),
+                       ("serve act 16", "serve_paged"),
                        ("serve act 8", "serve_paged_a8")):
         runs[f"replayed {name}"] = _eager_vs_replayed(
             f"heads of 2560 {name}", paths[path])
@@ -4245,10 +4282,8 @@ KERNELS = {
 # instances' from a padded source
 # the wide instance of each attention design (heads past 256), a source of
 # its own (with its C entry point at heads of 384 and 768) over
-# csrc/wide_cluster_flash.cuh from 264 to 2048 (WIDE_DESIGNS; past 2048
-# dense, fused-QKV and single-sequence paged attention and the batched int8
-# path too, blocks of several slices) and csrc/wide_flash.cuh past for
-# quant_attention and the batched bf16 path (in paged_flash_wide.cu)
+# csrc/wide_cluster_flash.cuh (WIDE_DESIGNS; past 2048 blocks of several
+# slices)
 WIDE_SOURCES = {
     "dense_attention": "diffusion_llm_rs_tpu_torch/csrc/dense_attention_wide.cu",
     "fused_qkv_attention":
@@ -4289,18 +4324,15 @@ WIDE_DESIGN_NOTES = {
         "packed rows copied a block's bytes at a time and unpacked by field; "
         "the batched int8 path's S in s32 partials of 64 tokens, a page's S "
         "held for its per-page requantization, P.V in two halves; past 2048 "
-        "dense and fused-QKV attention, one sequence's paged attention and "
-        "the batched int8 path in blocks of several 256-column slices (pass "
-        "1 S, q's slice streamed from L2 a step; dense and fused-QKV "
-        "attention (one kernel, slices_attention) keep S in f32 scratch and "
-        "each row's max and sum, paged attention per tile bf16(p * vs), "
-        "alpha and csum, the int8 path per page its requantized weights, "
-        "alpha, sw and csum, q's int8 levels quantized once into a scratch; "
-        "pass 2 P.V slice by slice), quant_attention and the batched bf16 "
-        "path csrc/wide_flash.cuh",
-    "diffusion_llm_rs_tpu_torch/csrc/wide_flash.cuh":
-        "heads past 256: a block per 64 queries and 128 output columns on "
-        "mma.sync, S recomputed in each",
+        "every mode in blocks of several 256-column slices (pass 1 S, q's "
+        "slice streamed from L2 a step; dense and fused-QKV attention (one "
+        "kernel, slices_attention) keep S in f32 scratch and each row's max "
+        "and sum; quantized-KV, one sequence's paged and the batched bf16 "
+        "attention (one kernel, wide_cluster_slices, templated on how K and "
+        "V arrive) per tile bf16(p * vs) or bf16(p), alpha and csum; the "
+        "int8 path per page its requantized weights, alpha, sw and csum, "
+        "q's int8 levels quantized once into a scratch; pass 2 P.V slice by "
+        "slice)",
     "diffusion_llm_rs_tpu_torch/csrc/fused_qkv_attention_wide.cu":
         "heads of 264-2048: the two exact passes of csrc/fused_qkv_attention"
         ".cu over csrc/wide_cluster_flash.cuh's cluster (ceil(D/256) blocks "
@@ -4320,9 +4352,7 @@ ALSO_BUILT_FROM = {
         "diffusion_llm_rs_tpu_torch/csrc/quant_flash_paged_padded.cu",
         WIDE_SOURCES["paged_attention"]),
     "dense_attention": (WIDE_SOURCES["dense_attention"],),
-    "batched_paged_attention": (
-        WIDE_SOURCES["batched_paged_attention"],
-        "diffusion_llm_rs_tpu_torch/csrc/paged_flash_wide.cu"),
+    "batched_paged_attention": (WIDE_SOURCES["batched_paged_attention"],),
     "batched_paged_attention_a8": (
         WIDE_SOURCES["batched_paged_attention_a8"],),
     "fused_qkv_attention": (
@@ -4388,7 +4418,13 @@ PARENT_SHAPES = dict(
     # csrc/wide_flash.cuh in a parent before the cluster design took these
     # heads
     past_dense=[(3, 1024, 2056), (3, 1024, 4104)],
-    past_a8=[(2, 1, 2056, 6), (2, 1, 4104, 6)])
+    past_a8=[(2, 1, 2056, 6), (2, 1, 4104, 6)],
+    # quant_attention (BH, S, D, bits) and the batched bf16 kernel alone (B,
+    # H, D, pages of 128 a slot, 4-bit, Sq = 2048) past 2048:
+    # csrc/wide_flash.cuh in a parent before the cluster design took these
+    # heads
+    past_quant=[(3, 256, 2056, 4), (3, 256, 4104, 4)],
+    past_bf16=[(2, 1, 2056, 6), (2, 1, 4104, 6)])
 PARENT_CODE = """
 import json, torch, chip_smoke as c
 from diffusion_llm_rs_tpu_torch.ops import _build
@@ -4400,19 +4436,21 @@ wide = "dense_attention_wide" in _build.SOURCES
 batched_cluster = "paged_flash_cluster" in _build.SOURCES
 _build.build(("dense_attention", "quant_flash_contig", "quant_flash_paged",
               "paged_unpack", "batched_paged_attention", "paged_attention_a8",
-              "int8_gemm", "int8_mlp", "fused_qkv_attention") + (
-    ("dense_attention_wide", "quant_flash_contig_wide",
-     "quant_flash_paged_wide", "paged_flash_wide") if wide else ()) + (
-    ("paged_flash_cluster",) if batched_cluster else ()) + tuple(
-    n for n in ("fused_qkv_attention_wide",) if n in _build.SOURCES))
+              "int8_gemm", "int8_mlp", "fused_qkv_attention") + tuple(
+    n for n in ("dense_attention_wide", "quant_flash_contig_wide",
+                "quant_flash_paged_wide", "paged_flash_wide",
+                "paged_flash_cluster", "fused_qkv_attention_wide")
+    if n in _build.SOURCES))
 if not wide:  # a checkout without the wide instances: their rows are new
     for key in [k for k in SHAPES if k.startswith("wide_")]:
         SHAPES[key] = []
 gen = torch.Generator(device="cuda").manual_seed(99)
 ms = {}
 # a checkout with the int8 batched kernel's wide entry point (past 2048),
-# whose cluster entry point takes no scratch
+# whose cluster entry point takes no scratch; and one with the bf16 batched
+# kernel's, whose cluster entry point takes no replay scratch
 a8_wide = "dlm_batched_paged_attention_a8_wide" in _build.SIGNATURES
+bf16_wide = "dlm_batched_paged_attention_wide" in _build.SIGNATURES
 for BH, S, D, bits in SHAPES["quant_attention"] + SHAPES["wide_quant"]:
     q = torch.randn((BH, S, D), generator=gen, device="cuda").bfloat16()
     k, v = (qa.quantize_kv(torch.randn((BH, S, D), generator=gen,
@@ -4453,11 +4491,11 @@ for B, H, G, D in SHAPES["batched"] + SHAPES["wide_batched"]:
         suffix = "" if not extra else "_cluster" if batched_cluster and \
             D <= 2048 else "_wide"
         fn = _build.function("dlm_" + name + suffix)
-        # the int8 cluster kernel's scratch (q's levels and the replay
-        # words, read only past 2048) where the checkout's entry point
-        # takes them
-        nulls = (None, None) if a8 and suffix == "_cluster" and \
-            not a8_wide else ()
+        # the cluster kernels' scratch (the int8 path's q levels and the
+        # replay words, read only past 2048) where the checkout's entry
+        # point takes it
+        nulls = () if suffix != "_cluster" else (None, None) if a8 and \
+            not a8_wide else (None,) if not a8 and not bf16_wide else ()
         ms[f"{name} (alone) {tag}"] = c.time_ms(lambda: _build.check(fn(
             q.data_ptr(), nt.data_ptr(), npg.data_ptr(), k.data_ptr(),
             v.data_ptr(), side.data_ptr(), out.data_ptr(), lse.data_ptr(), B,
@@ -4522,6 +4560,37 @@ for B, H, D, n in SHAPES.get("past_a8", []):
         Sq, D, n, k.shape[3], k.shape[4], 128,
         torch.cuda.current_stream().cuda_stream,
         *(t.data_ptr() for t in scratch)), "batched_paged_attention_a8"))
+# past 2048 quant_attention, and the bf16 batched kernel alone: the wide
+# entry point where the checkout has it, else the cluster one with its
+# replay scratch
+for BH, S, D, bits in SHAPES.get("past_quant", []):
+    q = torch.randn((BH, S, D), generator=gen, device="cuda").bfloat16()
+    k, v = (qa.quantize_kv(torch.randn((BH, S, D), generator=gen,
+                                       device="cuda"), bits) for _ in "kv")
+    ms[f"quant_attention BH={BH} S={S} D={D} {bits}-bit"] = c.time_ms(
+        lambda: qa.attention(q, k, v))
+for B, H, D, n in SHAPES.get("past_bf16", []):
+    Sq = 2048
+    pools = c._quantized_pools(gen, B * n, H, 128, D, 1, 4)
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda").bfloat16()
+    pt = torch.randperm(B * n, generator=gen, device="cuda").reshape(
+        B, n).int()
+    nt = torch.full((B, n), 128, dtype=torch.int32, device="cuda")
+    npg = torch.full((B,), n, dtype=torch.int32, device="cuda")
+    out = torch.empty((B, H, Sq, D), dtype=torch.float32, device="cuda")
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+    k, v, side = pa.paged_unpack(pt, npg, *pools, bits=4)
+    fn = _build.function("dlm_batched_paged_attention"
+                         + ("_wide" if bf16_wide else "_cluster"))
+    scratch = () if bf16_wide else (qa.replay_scratch(
+        q.device, D, B * H, Sq, n * 4),)
+    ms[f"batched_paged_attention (alone) B={B} H={H} D={D} Sq={Sq} {n} "
+       f"pages of 128 4-bit"] = c.time_ms(lambda: _build.check(fn(
+        q.data_ptr(), nt.data_ptr(), npg.data_ptr(), k.data_ptr(),
+        v.data_ptr(), side.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H,
+        Sq, D, n, k.shape[3], k.shape[4], 128,
+        torch.cuda.current_stream().cuda_stream,
+        *(t.data_ptr() for t in scratch)), "batched_paged_attention"))
 print(json.dumps(ms))
 """
 
@@ -4632,7 +4701,7 @@ def main() -> int:
             n_wide = (runs.get("heads_wide") or {}).get("counts_wide", {}).get(
                 name, 0)
             design = WIDE_DESIGNS.get(
-                name, "diffusion_llm_rs_tpu_torch/csrc/wide_flash.cuh")
+                name, "diffusion_llm_rs_tpu_torch/csrc/wide_cluster_flash.cuh")
             entries[-1]["wide_instance"] = dict(
                 source=WIDE_SOURCES.get(name, source), design=design,
                 entry_point=WIDE_ENTRY_POINTS[name],

@@ -1,10 +1,9 @@
-// Batched paged attention at head widths past 256 (bf16 activations: 264 to
-// 2048; int8: every multiple of 8 past 256), for Hopper (sm_90a): the head
+// Batched paged attention at head widths past 256 (bf16 and int8
+// activations, every multiple of 8 past 256), for Hopper (sm_90a): the head
 // split across a thread-block cluster.
 //
 // With csrc/batched_paged_attention.cu and csrc/paged_attention_a8.cu (heads
-// of 8 to 256) and csrc/paged_flash_wide.cu (bf16 past 2048) it replaces the
-// TPU kernel `_batched_kernel`
+// of 8 to 256) it replaces the TPU kernel `_batched_kernel`
 // (diffusion_llm_rs_tpu/ops/pallas_paged_attention.py: 288, behind
 // `batched_paged_attention`, :686; its int8 path :411-427 and :520-653).
 // csrc/paged_unpack.cu first unpacks every live page into a scratch of rows
@@ -14,12 +13,15 @@
 // columns of the head (`cluster_plan`), the partial S summed through
 // distributed shared memory, S and P.V on wgmma:
 //   - heads of 264 to 2048, k = 1, C = ceil(D / 256): one pass;
-//   - past 2048 the int8 path (wide_cluster_a8_slices), k = ceil(D / 2048)
-//     slices a block, two passes: q quantized once into an int8 scratch the
+//   - past 2048, k = ceil(D / 2048) slices a block, two passes: the bf16
+//     path (wide_cluster_slices) S and the online softmax over the tiles of
+//     32 tokens, keeping bf16(p), alpha and csum a tile in a scratch the
+//     wrapper allocates, then P.V replayed slice by slice; the int8 path
+//     (wide_cluster_a8_slices) q quantized once into an int8 scratch the
 //     wrapper allocates and streamed from it a slice a step by TMA, S in s32
-//     partials and each page's softmax and requantization, keeping wi, alpha,
-//     sw and csum a page in a second scratch; then P.V replayed slice by
-//     slice.
+//     partials and each page's softmax and requantization, keeping wi,
+//     alpha, sw and csum a page in a second scratch; then P.V replayed slice
+//     by slice.
 // The S product is issued once a tile of 32 tokens (int8: a sub-tile of 64,
 // or the page of 32) a query tile: 4*B*H*Sq*(keys in whole tiles)*256*
 // ceil(D/256) operations for the two products, at the bf16 or the int8 rate.
@@ -70,12 +72,10 @@ int launch_a8(const CUtensorMap (&maps)[3], const wide_cluster::Args& a,
 int run(bool a8, const void* q, const void* page_tokens,
         const void* n_pages, const void* k, const void* v, const void* side,
         void* out, void* lse, int B, int H, int Sq, int D, int n_max, int PT,
-        int DK, int P, void* stream, void* qi = nullptr,
-        void* replay = nullptr) {
+        int DK, int P, void* stream, void* qi, void* replay) {
   int ks;
   const int C = wide_cluster::cluster_plan(D, &ks);
-  // the bf16 path past 2048 is csrc/paged_flash_wide.cu's
-  if (C == 0 || (!a8 && ks > 1) || (ks > 1 && (!qi || !replay)) || DK % 64 ||
+  if (C == 0 || (ks > 1 && ((a8 && !qi) || !replay)) || DK % 64 ||
       DK < D || n_max < 1 || P < 8 || P % 8 || PT != tile_of(P))
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
@@ -139,29 +139,36 @@ int run(bool a8, const void* q, const void* page_tokens,
       !wide_cluster::bf16_map(&maps[2], v, B * H, n_max * PT, DK,
                               wide_cluster::TK))
     return (int)cudaErrorInvalidValue;
-  return wide_cluster::launch<wide_cluster::kScratch16, 8>(maps, a, st);
+  using wide_cluster::kScratch16;
+  if (ks > 1)
+    return wide_cluster::launch_slices<kScratch16, 8>(
+        maps, a, ks, static_cast<uint4*>(replay), st);
+  return wide_cluster::launch<kScratch16, 8>(maps, a, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dlm_batched_paged_attention_wide's arguments (csrc/paged_flash_wide.cu)
-// for D a multiple of 8 from 264 to 2048: q [B, H, Sq, D] bf16 (16-byte
-// aligned); page_tokens int32 [B, n_max]; n_pages int32 [B]; k, v, side:
+// For D a multiple of 8 past 256: q [B, H, Sq, D] bf16 (16-byte aligned);
+// page_tokens int32 [B, n_max]; n_pages int32 [B]; k, v, side:
 // dlm_paged_unpack's bf16 scratch of pages of P tokens in tiles of PT (the
 // smallest of 32, 64 and 128 that holds P), rows of DK (a multiple of 64, at
-// least D). Writes out f32 [B, H, Sq, D] and lse f32 [B, H, Sq]. Returns
-// cudaErrorInvalidValue for a shape it does not take, and
-// cudaErrorInvalidClusterSize where the card cannot place the cluster.
+// least D); past 2048 (k > 1) also scratch of [B * H, ceil(Sq / 128),
+// n_max * ceil(P / 32), 3, 256] 16-byte words for the tiles' P, alpha and
+// csum (`replay`; None at 264 to 2048). Writes out f32 [B, H, Sq, D] and
+// lse f32 [B, H, Sq]. Returns cudaErrorInvalidValue for a shape it does not
+// take, and cudaErrorInvalidClusterSize where the card cannot place the
+// cluster.
 int dlm_batched_paged_attention_cluster(const void* q, const void* page_tokens,
                                         const void* n_pages, const void* k,
                                         const void* v, const void* side,
                                         void* out, void* lse, int B, int H,
                                         int Sq, int D, int n_max, int PT,
-                                        int DK, int P, void* stream) {
+                                        int DK, int P, void* stream,
+                                        void* replay) {
   return run(false, q, page_tokens, n_pages, k, v, side, out, lse, B,
-             H, Sq, D, n_max, PT, DK, P, stream);
+             H, Sq, D, n_max, PT, DK, P, stream, nullptr, replay);
 }
 
 // The same over dlm_paged_unpack's int8 scratch (K [.., PT, DK], V^T
@@ -185,9 +192,11 @@ int dlm_batched_paged_attention_a8_cluster(
 int dlm_batched_paged_attention_cluster_active(int D, int P, int a8) {
   int ks;
   const int C = wide_cluster::cluster_plan(D, &ks);
-  if (C == 0 || (!a8 && ks > 1) || P < 8 || P % 8 || P > 128)
-    return -(int)cudaErrorInvalidValue;
-  if (!a8) return wide_cluster::active_clusters<wide_cluster::kScratch16, 8>(C);
+  if (C == 0 || P < 8 || P % 8 || P > 128) return -(int)cudaErrorInvalidValue;
+  using wide_cluster::kScratch16;
+  if (!a8)
+    return ks > 1 ? wide_cluster::active_slices<kScratch16, 8>(C)
+                  : wide_cluster::active_clusters<kScratch16, 8>(C);
   wide_cluster::Args a{};
   a.C = C;
   a.P = P;

@@ -23,9 +23,10 @@
 // past n_pages[b] are not written. A slot id outside the pool traps. Heads
 // of D (any multiple of 8) are written as rows of DK, the smallest of 16,
 // 32, 64, 128, 192 and 256 that holds D (the width of the attention
-// kernel's instance), or past 256 D rounded up to 64 (the chunk of the wide
-// instance, csrc/wide_flash.cuh), zero past D; a pool row of D bytes is
-// read 16 bytes at a time, or 8 where D % 16 != 0.
+// kernel's instance), or past 256 D rounded up to 64 (a whole number of the
+// 64-column boxes by which the cluster kernels of csrc/paged_flash_cluster.cu
+// load it), zero past D; a pool row of D bytes is read 16 bytes at a time,
+// or 8 where D % 16 != 0.
 //
 // One block of 128 threads per (page, head, slot). What bounds it: bytes. At
 // serve_paged (B = 2, H = 12, 32 pages of 128 tokens, D = 64, 4 bits) it

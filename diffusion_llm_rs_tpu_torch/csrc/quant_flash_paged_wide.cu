@@ -33,7 +33,9 @@ int paged_splits(int C, int k, int Z, int Sq, int n_pages, int P) {
   static int placed[2][kMaxCluster + 1] = {};  // clusters at once by C
   int& n = placed[k > 1][C];
   if (n == 0)
-    n = max(k > 1 ? active_slices<4>(C) : active_clusters<kPaged, 4>(C), -1);
+    n = max(k > 1 ? active_slices<kPaged, 4>(C)
+                     : active_clusters<kPaged, 4>(C),
+            -1);
   return chain_splits(n, ((Sq + kBQ - 1) / kBQ) * Z,
                       n_pages * ((P + TK - 1) / TK));
 }
@@ -110,14 +112,15 @@ int dlm_paged_attention_cluster(const void* q, const void* page_table,
   a.counters = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k > 1) {
+    using wide_cluster::kPaged;
     using wide_cluster::launch_slices;
     a.q = static_cast<const __nv_bfloat16*>(q);
     uint4* r = static_cast<uint4*>(replay);
     switch (bits) {
-      case 1: return launch_slices<1>(maps[0], a, k, r, st);
-      case 2: return launch_slices<2>(maps[0], a, k, r, st);
-      case 4: return launch_slices<4>(maps[0], a, k, r, st);
-      case 8: return launch_slices<8>(maps[0], a, k, r, st);
+      case 1: return launch_slices<kPaged, 1>(maps, a, k, r, st);
+      case 2: return launch_slices<kPaged, 2>(maps, a, k, r, st);
+      case 4: return launch_slices<kPaged, 4>(maps, a, k, r, st);
+      case 8: return launch_slices<kPaged, 8>(maps, a, k, r, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }

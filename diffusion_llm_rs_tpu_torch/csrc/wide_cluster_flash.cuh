@@ -1,18 +1,16 @@
-// Dense, quantized-KV (contiguous and single-sequence paged) and batched
-// paged attention at head widths from 264 to 2048, and dense, fused-QKV,
-// single-sequence paged and batched int8 paged attention past 2048 (blocks
-// of several 256-column slices, "k slices" below), for Hopper (sm_90a): the
-// head split across a thread-block cluster.
+// Dense, quantized-KV (contiguous and single-sequence paged), batched paged
+// (bf16 and int8) and fused-QKV attention at head widths past 256, for
+// Hopper (sm_90a): the head split across a thread-block cluster. From 264 to
+// 2048 a block owns one 256-column slice of the head; past 2048 several
+// ("k slices" below, `cluster_plan`).
 //
 // The fixed instances (csrc/dense_attention.cu, csrc/quant_flash.cuh) hold
 // a whole head row of q, K and V in shared memory and o in registers, so
-// they stop at 256; csrc/wide_flash.cuh takes any width by giving each
-// block 128 output columns and recomputing S = q.k^T over the whole head in
-// every one of them (ceil(D / 128) times the S work). Here a cluster of
-// C = ceil(D / 256) blocks (at most 8, the portable cluster) owns one tile
-// of 128 query rows, and block j of it columns [256j, 256j + 256) of the
-// head: its slice of q, of every K tile and of every V tile (zero past D),
-// so each byte of K and V is read once a query tile.
+// they stop at 256. Here a cluster of C = ceil(D / 256) blocks (at most 8,
+// the portable cluster) owns one tile of 128 query rows, and block j of it
+// columns [256j, 256j + 256) of the head: its slice of q, of every K tile
+// and of every V tile (zero past D), so each byte of K and V is read once a
+// query tile.
 //   - S: block j runs its partial S_j = q[:, slice j] . K[:, slice j]^T on
 //     wgmma (m64n32k16 a warpgroup, both operands in shared memory, 16
 //     k-steps over its 256 columns) and stores it to shared memory; after a
@@ -124,8 +122,9 @@
 //
 // What bounds it on an H100 (PERF.md): at heads of 768, dense attention at
 // BH = 8, S = 1024 is 25.8 GFLOP, 0.026 ms of bf16 tensor work; this design
-// issues that work once (where csrc/wide_flash.cuh issued S six times over,
-// 90 GFLOP), and moves 16 KB of partial S a block a KV tile through
+// issues that work once (a design that split the output columns over
+// blocks of 128 and recomputed S in each issued S six times over, 90 GFLOP),
+// and moves 16 KB of partial S a block a KV tile through
 // distributed shared memory for each other block of its cluster.
 
 #pragma once
@@ -153,7 +152,7 @@ constexpr int kS = TK / 2;                 // logits a consumer thread
 constexpr int kU = TK / 8;                 // their float4 units
 constexpr int kRaw = TK * kCols;  // bytes of a tile's packed rows, at most
 constexpr int kMaxCluster = 8;             // the portable cluster size
-constexpr int kMinD = 264, kMaxD = kCols * kMaxCluster;
+constexpr int kMinD = 264;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -1563,26 +1562,42 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------------------------- k slices
 
-// Heads past 2048 (kPaged): n = ceil(D / 256) slices of 256 columns, k =
-// ceil(n / 8) of them a block, a cluster of C = ceil(n / k) blocks (at most
-// 8); block j owns slices [jk, jk + k), the last one fewer, or a slice of 8
-// columns. A block cannot hold o for two slices in registers, so the tile
-// loop runs twice, as slices_attention below does:
+// Heads past 2048 in kPaged, kContig and kScratch16: n = ceil(D / 256)
+// slices of 256 columns, k = ceil(n / 8) of them a block, a cluster of C =
+// ceil(n / k) blocks (at most 8); block j owns slices [jk, jk + k), the last
+// one fewer, or a slice of 8 columns. A block cannot hold o for two slices
+// in registers, so the tile loop runs twice, as slices_attention below
+// does:
 //   - Pass 1, S and the softmax: for each tile of 32 tokens, the block's
 //     partial S summed over its slices in one accumulator (m64n32k16, 16
 //     k-steps a slice), the C partials added in rank order as above
 //     (`gather`), then kPaged's online softmax. Each step (a tile's slice)
-//     takes q's slice by TMA and the K tile's columns unpacked from rows
-//     copied by cp.async a step earlier, in a ring of two stages of q [128]
-//     [256] and K [32][256]: q does not fit resident past one slice, so it
-//     streams from L2 once a step. What pass 2 needs to replay the online
-//     recurrence is kept in global scratch (`replay`), per thread and tile:
-//     the packed P.V A operand bf16(p * vs), and alpha and csum of its two
-//     rows; the blocks of a cluster hold the same values, so each warp's are
-//     written by block w % C.
-//   - Pass 2, slice by slice: the V tile's columns of the slice (copied and
-//     unpacked as K was, three stages), o = o * alpha - csum + P.V, and the
+//     takes q's slice by TMA and the K tile's columns, in a ring of two
+//     stages of q [128][256] and K [32][256]: q does not fit resident past
+//     one slice, so it streams from L2 once a step. What pass 2 needs to
+//     replay the online recurrence is kept in global scratch (`replay`),
+//     per thread and tile: the packed P.V A operand bf16(p * vs) (kScratch16:
+//     bf16(p)), and alpha and csum of its two rows; the blocks of a cluster
+//     hold the same values, so each warp's are written by block w % C.
+//   - Pass 2, slice by slice: the V tile's columns of the slice (three
+//     stages over pass 1's ring), o = o * alpha - csum + P.V, and the
 //     slice's columns written (or, where the chain is split, its partial o).
+// The modes differ only in how K and V reach shared memory, and in their
+// sidecars and masks:
+//   - kPaged: the packed rows of the tile's page copied by cp.async a step
+//     ahead (the slice's 256 contiguous bytes of each) and unpacked by the
+//     thread that copied them; the chain of tiles split over clusters.
+//   - kContig: each thread reads the bytes of the block-packed rows that
+//     hold its columns of the slice straight from device memory and stores
+//     their levels into the tile a step ahead, under the step's product
+//     (load_contig_cols; a copy through shared memory by cp.async, as at k =
+//     1, made ptxas of CUDA 12.9 fail with a segmentation fault); the chain
+//     split as kPaged's; no lse.
+//   - kScratch16: the bf16 scratch by TMA with q (K) and alone (V), the
+//     page's sidecars (ka', kb, vc) staged as (ka', kb, 1, vc) so that the
+//     same softmax gives p and sum p * vc; slot and page bookkeeping as in
+//     wide_cluster_a8_slices (an empty slot writes zeros and an lse of
+//     -1e30); the chain in one piece.
 // The arithmetic and the rounding points are those of the one-pass kernel:
 // bf16(p * vs) rounds against the running max of its tile.
 struct SmemK {
@@ -1595,7 +1610,8 @@ struct SmemK {
   static constexpr int kQsOff = kSideOff + 2 * 4 * TK * 4;
   static constexpr int kRawOff = kQsOff + kBQ * 4;
   static constexpr int kBarOff = kRawOff + 2 * kRaw;
-  static constexpr int kBytes = 1024 + kBarOff + 2 * 8;
+  static constexpr int kBytes = 1024 + kBarOff + (2 + kStages) * 8;
+  static_assert(kStages * kTile <= 2 * kStage, "V stages over the ring");
 };
 
 // uint4 words a thread keeps a tile for pass 2: P (two), alpha and csum
@@ -1636,7 +1652,9 @@ __device__ __forceinline__ void put_partial(const Args& a,
 
 // merge_splits for a block of several slices: its partial o went out slice
 // by slice (put_partial); here its (m, l), the count, and where it is the
-// last of the splits, the merge of its columns [cb, cb + ncols).
+// last of the splits, the merge of its columns [cb, cb + ncols) (and from
+// rank 0 the lse, where kLse).
+template <bool kLse>
 __device__ __forceinline__ void merge_slices(const Args& a, const float (&m)[2],
                                              const float (&l)[2], int q0,
                                              int rows0, int z, int C, int rank,
@@ -1696,16 +1714,101 @@ __device__ __forceinline__ void merge_slices(const Args& a, const float (&m)[2],
       *reinterpret_cast<float2*>(static_cast<float*>(a.out) + at + c) =
           make_float2(__fmul_rn(y0, inv), __fmul_rn(y1, inv));
     }
-    if (rank == 0 && q4 == 0) a.lse[(size_t)z * a.Sq + row] = M + logf(wl);
+    if (kLse && rank == 0 && q4 == 0)
+      a.lse[(size_t)z * a.Sq + row] = M + logf(wl);
   }
 }
 
-// kPaged at heads past 2048, k slices a block (a.q: q itself, for its
-// channel sums; `replay`: [clusters, tiles, kReplayWords, 256] uint4).
+// kContig past 2048: the levels of tile rows [0, 32) of a slice of columns
+// [c0, c0 + ncol) straight from the block-packed rows of Dp >= 256 bytes in
+// device memory (`base`: the tile's first row; rows from `rows` on, past
+// Skv, as zeros). Each thread takes 8 columns i .. i + 7 of rows tid / 32 +
+// 8h (u = tid % 32, i = 8u): column i + e (channel c0 + i + e) is bit field
+// (c0 + i + e) / Dp of byte (c0 + i + e) % Dp, which moves on by one field
+// at most within the 8 (Dp >= 256), so one division finds both. The bytes
+// are read CB at a time, the largest of 8, 4, 2, 1 that divides Dp and the
+// packed pointers' alignment.
+template <int BITS, int CB>
+__device__ __forceinline__ void load_contig_units(const uint8_t* base, int Dp,
+                                                  int c0, int ncol, int rows,
+                                                  uint8_t* tile, int tid) {
+  const int u = tid % (kCols / 8), i = 8 * u;
+  if (i >= ncol) return;
+  const int s = (c0 + i) % Dp, p0 = (c0 + i) / Dp;
+  const int b = Dp - s;  // columns from i + b: field p0 + 1, from byte 0
+#pragma unroll
+  for (int h = 0; h < TK * kCols / 8 / kThreads; ++h) {
+    const int r = tid / (kCols / 8) + h * (kThreads / (kCols / 8));
+    uint32_t w[2] = {0u, 0u};
+    if (r < rows) {
+      const uint8_t* row = base + (size_t)r * Dp;
+#pragma unroll
+      for (int e = 0; e < 8; e += CB) {
+        const uint8_t* src = row + (e < b ? s + e : e - b);
+        if constexpr (CB == 8) {
+          const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+          w[0] = v.x;
+          w[1] = v.y;
+        } else if constexpr (CB == 4) {
+          w[e / 4] = __ldg(reinterpret_cast<const unsigned int*>(src));
+        } else if constexpr (CB == 2) {
+          w[e / 4] |=
+              (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(src))
+              << (8 * (e & 3));
+        } else {
+          w[e / 4] |= (uint32_t)__ldg(src) << (8 * (e & 3));
+        }
+      }
+    }
+    float lv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t byte = (w[e / 4] >> (8 * (e & 3))) & 0xffu;
+      lv[e] = (float)((byte >> ((p0 + (e >= b)) * BITS)) & ((1u << BITS) - 1));
+    }
+    *reinterpret_cast<uint4*>(tile + unit_at(r, u)) =
+        make_uint4(pack_bf16(lv[0], lv[1]), pack_bf16(lv[2], lv[3]),
+                   pack_bf16(lv[4], lv[5]), pack_bf16(lv[6], lv[7]));
+  }
+}
+
 template <int BITS>
+__device__ __forceinline__ void load_contig_cols(const uint8_t* base, int Dp,
+                                                 int c0, int ncol, int rows,
+                                                 unsigned align, uint8_t* tile,
+                                                 int tid) {
+  const unsigned any = (unsigned)Dp | align | 8u;
+  switch ((int)(any & (0u - any))) {  // the lowest set bit
+    case 8:
+      load_contig_units<BITS, 8>(base, Dp, c0, ncol, rows, tile, tid);
+      break;
+    case 4:
+      load_contig_units<BITS, 4>(base, Dp, c0, ncol, rows, tile, tid);
+      break;
+    case 2:
+      load_contig_units<BITS, 2>(base, Dp, c0, ncol, rows, tile, tid);
+      break;
+    default:
+      load_contig_units<BITS, 1>(base, Dp, c0, ncol, rows, tile, tid);
+      break;
+  }
+}
+
+// kPaged, kContig and kScratch16 at heads past 2048, k slices a block
+// (a.q: q itself, for its channel sums; `replay`: [clusters, tiles,
+// kReplayWords, 256] uint4, tiles the chain's, or n_max * ceil(P / 32) a
+// slot in kScratch16). tq: q [Z, Sq, D] by TMA; tk, tv: the bf16 scratch
+// (kScratch16; not read elsewhere).
+template <int MODE, int BITS>
 __global__ void __launch_bounds__(kThreads, 1)
-    wide_cluster_paged_slices(const __grid_constant__ CUtensorMap tq,
-                              const Args a, const int k, uint4* replay) {
+    wide_cluster_slices(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const Args a,
+                        const int k, uint4* replay) {
+  static_assert(MODE == kPaged || MODE == kContig || MODE == kScratch16,
+                "a k-slice mode");
+  constexpr bool kTma = MODE == kScratch16;  // K and V by TMA
+  constexpr bool kLse = MODE != kContig;
   using L = SmemK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -1713,6 +1816,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* sides = reinterpret_cast<float*>(smem + L::kSideOff);
   float* qpart = reinterpret_cast<float*>(smem + L::kQsOff);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
+  uint64_t* vfull = full + 2;
 
   const int C = a.C, rank = (int)cluster_rank();
   const int qt = blockIdx.x / C, q0 = qt * kBQ, z = blockIdx.y;
@@ -1721,18 +1825,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) >> 5;
   const int lane = tid & 31, g = lane >> 2, q4 = lane & 3;
   const int rows0 = wg * 64 + warp * 16 + g;  // and rows0 + 8, in the tile
-  const int tpp = (a.P + TK - 1) / TK, Tall = a.n_pages * tpp;
+  auto col_of = [&](int s) { return cb + s * kCols; };
+  auto ncol_of = [&](int s) { return min(kCols, a.D - col_of(s)); };
+  // tiles of 32 a page (kPaged, kScratch16); the chain's tiles, the replay
+  // rows' tiles, and this split's [t0, t0 + T)
+  const int tpp = MODE == kContig ? 1 : (a.P + TK - 1) / TK;
+  const int slot = MODE == kScratch16 ? z / a.H : 0;
+  const int Tall = MODE == kContig   ? (a.Skv + TK - 1) / TK
+                   : MODE == kPaged ? a.n_pages * tpp
+                                    : a.slot_pages[slot] * tpp;
+  const int stride = MODE == kScratch16 ? a.n_max * tpp : Tall;
   const int tps = (Tall + a.nsplit - 1) / a.nsplit, t0 = blockIdx.z * tps;
   const int T = min(tps, Tall - t0);
-  const int Pp = a.P / (8 / BITS);
+  if constexpr (MODE == kScratch16) {
+    if (T == 0) {  // a slot with no page
+      for (int s = 0; s < ns; ++s)
+        empty_rows(a, q0, rows0, z, rank, col_of(s), ncol_of(s), q4);
+      return;
+    }
+  }
+  const int Pp = MODE == kPaged ? a.P / (8 / BITS) : 1;
+  const int Dp = MODE == kContig ? a.D / (8 / BITS) : 1;
   const int N = T * ns;  // pass 1's steps: step i is tile i / ns, slice i % ns
   const bool writes = (tid >> 5) % C == rank;  // its warp's replay rows
-  uint4* rp = replay + ((size_t)(z * (gridDim.x / C) + qt) * Tall + t0) *
+  uint4* rp = replay + ((size_t)(z * (gridDim.x / C) + qt) * stride + t0) *
                            kReplayWords * kThreads + tid;
 
   if (tid == 0) {
-    mbar_init(full, 1);
-    mbar_init(full + 1, 1);
+    for (int s = 0; s < 2 + kStages; ++s) mbar_init(full + s, 1);
     fence_barrier_init();
   }
   // the ring starts at zero: the columns of K and V past a slice of fewer
@@ -1744,66 +1864,106 @@ __global__ void __launch_bounds__(kThreads, 1)
   fence_proxy_async();
   __syncthreads();
 
-  auto col_of = [&](int s) { return cb + s * kCols; };
-  auto ncol_of = [&](int s) { return min(kCols, a.D - col_of(s)); };
   auto stage = [&](int i) { return smem + (i & 1) * L::kStage; };
   auto raw = [&](int i) { return smem + L::kRawOff + (i & 1) * kRaw; };
-  // q's slice of step i by TMA, all four chunks (zero past D)
+  // kScratch16: the scratch row of tile t (tokens [32 (t % tpp), + 32) of
+  // page t / tpp)
+  auto scr_row = [&](int t) { return (t / tpp) * a.PT + (t % tpp) * TK; };
+  // q's slice of step i by TMA, all four chunks (zero past D); kScratch16
+  // also the K tile's columns of the slice, on the same barrier
   auto load_q = [&](int i) {
-    mbar_expect_tx(full + (i & 1), L::kQ);
-    for (int c = 0; c < kChunks; ++c)
-      tma_load_3d(stage(i) + c * kBQ * kSw, &tq, full + (i & 1),
-                  col_of(i % ns) + 64 * c, q0, z);
+    const int col = col_of(i % ns);
+    mbar_expect_tx(full + (i & 1), kTma ? L::kStage : L::kQ);
+    for (int c = 0; c < kChunks; ++c) {
+      tma_load_3d(stage(i) + c * kBQ * kSw, &tq, full + (i & 1), col + 64 * c,
+                  q0, z);
+      if constexpr (kTma)
+        tma_load_3d(stage(i) + L::kQ + c * TK * kSw, &tk, full + (i & 1),
+                    col + 64 * c, scr_row(i / ns), z);
+    }
   };
   auto slot_of = [&](int t) { return a.page_table[(t0 + t) / tpp]; };
-  auto pool_row = [&](int slot) {
-    if (slot < 0 || slot >= a.n_slots) __trap();
-    return (size_t)slot * a.Z + z;
+  auto pool_row = [&](int sl) {
+    if (sl < 0 || sl >= a.n_slots) __trap();
+    return (size_t)sl * a.Z + z;
   };
-  // the packed rows of tile t's columns of slice s (K or V), and their
-  // levels into a [32][256] tile, as wide_cluster_attention's raw_of and
-  // unpack; a thread unpacks what it copied
+  // kPaged: the packed rows of tile t's columns of slice s (K or V, from
+  // pool slot `sl`) copied by cp.async, and their levels into a [32][256]
+  // tile, as wide_cluster_attention's raw_of and unpack (a thread unpacks
+  // what it copied); kContig: the levels straight from device memory into
+  // the tile (`data`: K or V), where kPaged unpacks, and no copy
   const bool cb16 = a.D % 16 == 0;
   auto has_cols = [&](int s) {
     return tid % (cb16 ? kCols / 16 : kCols / 8) < ncol_of(s) / (cb16 ? 16 : 8);
   };
+  const unsigned align =
+      (unsigned)(((uintptr_t)a.k_data | (uintptr_t)a.v_data) & 15);
   auto copy_rows = [&](uint8_t* dst, const uint8_t* data, int t, int s,
-                       int slot) {
-    if (!has_cols(s)) return;
-    const uint8_t* base = data + pool_row(slot) * Pp * a.D + col_of(s);
-    const int h0 = ((t0 + t) % tpp) * TK;
-    if (cb16)
-      copy_raw<16>(dst, base, a.D, Pp, h0, tid);
-    else
-      copy_raw<8>(dst, base, a.D, Pp, h0, tid);
+                       int sl) {
+    if constexpr (MODE == kPaged) {
+      if (!has_cols(s)) return;
+      const uint8_t* base = data + pool_row(sl) * Pp * a.D + col_of(s);
+      const int h0 = ((t0 + t) % tpp) * TK;
+      if (cb16)
+        copy_raw<16>(dst, base, a.D, Pp, h0, tid);
+      else
+        copy_raw<8>(dst, base, a.D, Pp, h0, tid);
+    }
   };
-  auto unpack_rows = [&](const uint8_t* src, int t, int s, uint8_t* tile) {
-    if (!has_cols(s)) return;
-    const int h0 = ((t0 + t) % tpp) * TK;
-    if (cb16)
-      unpack_raw<BITS, 16>(src, Pp, h0, tile, tid);
-    else
-      unpack_raw<BITS, 8>(src, Pp, h0, tile, tid);
+  auto unpack_rows = [&](const uint8_t* src, const uint8_t* data, int t,
+                         int s, uint8_t* tile) {
+    if constexpr (MODE == kContig) {
+      const int tok = (t0 + t) * TK;
+      load_contig_cols<BITS>(data + ((size_t)z * a.Skv + tok) * Dp, Dp,
+                             col_of(s), ncol_of(s), min(TK, a.Skv - tok),
+                             align, tile, tid);
+    } else {
+      if (!has_cols(s)) return;
+      const int h0 = ((t0 + t) % tpp) * TK;
+      if (cb16)
+        unpack_raw<BITS, 16>(src, Pp, h0, tile, tid);
+      else
+        unpack_raw<BITS, 8>(src, Pp, h0, tile, tid);
+    }
   };
-  // the sidecars of tile t (token tid < 32), stored as ka', kb, vs, vz
+  // the sidecars of tile t (token tid < 32), read ahead into registers,
+  // then stored as ka' = ks * sm, kb = ka' * kz, vs, vz (kScratch16: the
+  // scratch's ka', kb, vc as ka', kb, 1, vc)
   auto side_of = [&](int t) {
-    float4 sd = make_float4(0.f, 0.f, 0.f, 0.f);
-    const int tok = ((t0 + t) % tpp) * TK + tid;
-    if (tid < TK && tok < a.P) {
-      const size_t at = pool_row(slot_of(t)) * a.P + tok;
-      sd = make_float4(a.k_scale[at], a.k_zp[at], a.v_scale[at], a.v_zp[at]);
+    float4 sd = make_float4(0.f, 0.f, kTma ? 1.f : 0.f, 0.f);
+    if (tid < TK) {
+      if constexpr (MODE == kScratch16) {
+        const float* f = a.side + ((size_t)z * a.n_max + t / tpp) * 3 * a.PT +
+                         (t % tpp) * TK + tid;
+        sd = make_float4(f[0], f[a.PT], 1.f, f[2 * a.PT]);
+      } else {
+        const int tok = MODE == kContig ? (t0 + t) * TK + tid
+                                        : ((t0 + t) % tpp) * TK + tid;
+        if (tok < (MODE == kContig ? a.Skv : a.P)) {
+          const size_t at = MODE == kContig
+                                ? (size_t)z * a.Skv + tok
+                                : pool_row(slot_of(t)) * a.P + tok;
+          sd = make_float4(a.k_scale[at], a.k_zp[at], a.v_scale[at],
+                           a.v_zp[at]);
+        }
+      }
     }
     return sd;
   };
   auto put_side = [&](float4 sd, int t) {
     float* d = sides + (t & 1) * 4 * TK;
     if (tid < TK) {
-      const float ka = __fmul_rn(sd.x, a.sm);
+      const float ka = kTma ? sd.x : __fmul_rn(sd.x, a.sm);
       d[tid] = ka;
-      d[TK + tid] = __fmul_rn(ka, sd.y);
+      d[TK + tid] = kTma ? sd.y : __fmul_rn(ka, sd.y);
       d[2 * TK + tid] = sd.z;
       d[3 * TK + tid] = sd.w;
     }
+  };
+  // the valid tokens of tile t's page (kPaged, kScratch16)
+  auto tokens_of = [&](int t) {
+    return MODE == kPaged ? a.page_tokens[(t0 + t) / tpp]
+                          : a.page_tokens[(size_t)slot * a.n_max + t / tpp];
   };
 
   if (tid == 0) {
@@ -1811,11 +1971,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (N > 1) load_q(1);
   }
   __syncwarp();
-  copy_rows(raw(0), a.k_data, 0, 0, slot_of(0));
-  cp_async_wait_all();
-  unpack_rows(raw(0), 0, 0, stage(0) + L::kQ);
-  if (N > 1) copy_rows(raw(1), a.k_data, 1 / ns, 1 % ns, slot_of(1 / ns));
-  cp_async_commit();
+  if constexpr (!kTma) {
+    copy_rows(raw(0), a.k_data, 0, 0, MODE == kPaged ? slot_of(0) : 0);
+    cp_async_wait_all();
+    unpack_rows(raw(0), a.k_data, 0, 0, stage(0) + L::kQ);
+    if (N > 1)
+      copy_rows(raw(1), a.k_data, 1 / ns, 1 % ns,
+                MODE == kPaged ? slot_of(1 / ns) : 0);
+    cp_async_commit();
+  }
   put_side(side_of(0), 0);
 
   // q's channel sums: two threads a row, each over its half of every owned
@@ -1855,8 +2019,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t x_addr = smem_u32(X) + tid * 16;
   float acc[kS], cur[kS];
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  int slot_n = N > 2 ? slot_of(2 / ns) : 0;  // the slot of step i + 2
-  int tokens = a.page_tokens[t0 / tpp];
+  // kPaged: the slot of step i + 2
+  int slot_n = MODE == kPaged && N > 2 ? slot_of(2 / ns) : 0;
+  int tokens = MODE == kContig ? 0 : tokens_of(0);
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
     const bool more = t + 1 < T;
@@ -1864,7 +2029,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     int tokens_next = 0;
     if (more) {  // read now, stored after this tile's softmax
       sd_next = side_of(t + 1);
-      tokens_next = a.page_tokens[(t0 + t + 1) / tpp];
+      if constexpr (MODE != kContig) tokens_next = tokens_of(t + 1);
     }
 #pragma unroll 1
     for (int s = 0; s < ns; ++s) {
@@ -1882,18 +2047,21 @@ __global__ void __launch_bounds__(kThreads, 1)
                      s > 0 || kk > 0);
       }
       wgmma_commit();
-      // under it: step i + 1's K from the rows copied a step ago (its stage
-      // was last read by step i - 1's products, retired), then the rows of
-      // step i + 2 into the buffer step i's were unpacked from
-      cp_async_wait_all();
-      if (i + 1 < N)
-        unpack_rows(raw(i + 1), (i + 1) / ns, (i + 1) % ns,
-                    stage(i + 1) + L::kQ);
-      if (i + 2 < N) copy_rows(raw(i), a.k_data, (i + 2) / ns, (i + 2) % ns,
-                               slot_n);
-      cp_async_commit();
-      if (i + 3 < N) slot_n = slot_of((i + 3) / ns);
-      fence_proxy_async();
+      if constexpr (!kTma) {
+        // under it: step i + 1's K from the rows copied a step ago (its
+        // stage was last read by step i - 1's products, retired), then the
+        // rows of step i + 2 into the buffer step i's were unpacked from
+        cp_async_wait_all();
+        if (i + 1 < N)
+          unpack_rows(raw(i + 1), a.k_data, (i + 1) / ns, (i + 1) % ns,
+                      stage(i + 1) + L::kQ);
+        if (i + 2 < N)
+          copy_rows(raw(i), a.k_data, (i + 2) / ns, (i + 2) % ns, slot_n);
+        cp_async_commit();
+        if constexpr (MODE == kPaged)
+          if (i + 3 < N) slot_n = slot_of((i + 3) / ns);
+        fence_proxy_async();
+      }
       wgmma_wait<0>();
       fence_regs(acc);
       __syncthreads();  // stage i read by both warpgroups; step i + 1's K
@@ -1915,9 +2083,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     gather_slices(cur, x_addr + (t & 1) * L::kX, C);
 
     // kPaged's online softmax (wide_cluster_attention's, tile for tile)
-    const int h0 = ((t0 + t) % tpp) * TK;
-    const int present = min(a.P - h0, TK);
-    const int valid = min(max(min(tokens, a.P) - h0, 0), TK);
+    int present, valid;
+    if constexpr (MODE == kContig) {
+      present = valid = min(a.Skv - (t0 + t) * TK, TK);
+    } else {
+      const int h0 = ((t0 + t) % tpp) * TK;
+      present = min(a.P - h0, TK);
+      valid = min(max(min(tokens, a.P) - h0, 0), TK);
+    }
     const float* sd = sides + (t & 1) * 4 * TK;
     float alpha[2], msc[2], rsum[2] = {0.f, 0.f}, csum[2] = {0.f, 0.f};
     if (valid < TK) {
@@ -1954,7 +2127,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       tokens = tokens_next;
     }
   }
-  if (a.nsplit == 1 && rank == 0 && q4 == 0) {
+  if (kLse && a.nsplit == 1 && rank == 0 && q4 == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = q0 + rows0 + 8 * h;
@@ -1971,15 +2144,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   // pass 2: step j is tile j % T of owned slice j / T; V tiles in three
   // stages over pass 1's ring
   const int M = ns * T;
-  auto vtile = [&](int j) { return smem + (j % 3) * L::kTile; };
-  copy_rows(raw(0), a.v_data, 0, 0, slot_of(0));
-  cp_async_wait_all();
-  unpack_rows(raw(0), 0, 0, vtile(0));
-  if (M > 1) copy_rows(raw(1), a.v_data, 1 % T, 1 / T, slot_of(1 % T));
-  cp_async_commit();
-  fence_proxy_async();
-  __syncthreads();
-  slot_n = M > 2 ? slot_of(2 % T) : 0;
+  auto vtile = [&](int j) { return smem + (j % kStages) * L::kTile; };
+  auto load_v = [&](int j) {  // kScratch16
+    const int st = j % kStages;
+    mbar_expect_tx(vfull + st, L::kTile);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load_3d(vtile(j) + c * TK * kSw, &tv, vfull + st,
+                  col_of(j / T) + 64 * c, scr_row(j % T), z);
+  };
+  if constexpr (kTma) {
+    if (tid == 0)
+      for (int j = 0; j < kStages - 1 && j < M; ++j) load_v(j);
+    __syncwarp();
+  } else {
+    copy_rows(raw(0), a.v_data, 0, 0, MODE == kPaged ? slot_of(0) : 0);
+    cp_async_wait_all();
+    unpack_rows(raw(0), a.v_data, 0, 0, vtile(0));
+    if (M > 1)
+      copy_rows(raw(1), a.v_data, 1 % T, 1 / T,
+                MODE == kPaged ? slot_of(1 % T) : 0);
+    cp_async_commit();
+    fence_proxy_async();
+    __syncthreads();
+    slot_n = MODE == kPaged && M > 2 ? slot_of(2 % T) : 0;
+  }
   uint4 nx[kReplayWords];  // tile t's words, read a step before they are used
   auto read_replay = [&](int t) {
 #pragma unroll
@@ -2011,6 +2199,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < kCols / 2; ++i)
         o[i] = __fmaf_rn(o[i], alpha[(i >> 1) & 1], -csum[(i >> 1) & 1]);
+      if constexpr (kTma) mbar_wait(vfull + j % kStages, (j / kStages) & 1);
       const uint32_t v_addr = smem_u32(vtile(j));
       wgmma_fence();
 #pragma unroll
@@ -2019,18 +2208,28 @@ __global__ void __launch_bounds__(kThreads, 1)
                            gmma_desc(v_addr + kk * 16 * kSw, TK * kSw, 8 * kSw, 1),
                            1);
       wgmma_commit();
-      // under it: step j + 1's V (its stage last read by step j - 2's
-      // products, which both warpgroups retired before the last barrier),
-      // then the rows of step j + 2
-      cp_async_wait_all();
-      if (j + 1 < M)
-        unpack_rows(raw(j + 1), (j + 1) % T, (j + 1) / T, vtile(j + 1));
-      if (j + 2 < M)
-        copy_rows(raw(j), a.v_data, (j + 2) % T, (j + 2) / T, slot_n);
-      cp_async_commit();
-      if (j + 3 < M) slot_n = slot_of((j + 3) % T);
-      fence_proxy_async();
-      __syncthreads();  // every thread's levels of step j + 1
+      if constexpr (kTma) {
+        // step j + 2's V into the stage step j - 1's products read (both
+        // warpgroups retired them before this barrier)
+        __syncthreads();
+        if (tid == 0 && j + kStages - 1 < M) load_v(j + kStages - 1);
+        __syncwarp();
+      } else {
+        // under it: step j + 1's V (its stage last read by step j - 2's
+        // products, which both warpgroups retired before the last barrier),
+        // then the rows of step j + 2
+        cp_async_wait_all();
+        if (j + 1 < M)
+          unpack_rows(raw(j + 1), a.v_data, (j + 1) % T, (j + 1) / T,
+                      vtile(j + 1));
+        if (j + 2 < M)
+          copy_rows(raw(j), a.v_data, (j + 2) % T, (j + 2) / T, slot_n);
+        cp_async_commit();
+        if constexpr (MODE == kPaged)
+          if (j + 3 < M) slot_n = slot_of((j + 3) % T);
+        fence_proxy_async();
+        __syncthreads();  // every thread's levels of step j + 1
+      }
     }
     wgmma_wait<0>();
     fence_regs(o);
@@ -2055,8 +2254,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   if (a.nsplit > 1)
-    merge_slices(a, m_run, l_run, q0, rows0, z, C, rank, cb,
-                 min(ns * kCols, a.D - cb), q4);
+    merge_slices<kLse>(a, m_run, l_run, q0, rows0, z, C, rank, cb,
+                       min(ns * kCols, a.D - cb), q4);
 }
 
 // Dense attention and fused-QKV attention at heads past 2048, k slices a
@@ -2920,27 +3119,28 @@ int launch_a8_pt(const CUtensorMap (&maps)[2], const Args& a,
                         stream, maps[0], maps[1], a);
 }
 
-// kPaged at heads past 2048 (wide_cluster_paged_slices): the clusters of
-// C blocks the card runs at once, or a negative cudaError_t; and the launch
-// over clusters of a.C blocks of k slices each.
-template <int BITS>
+// kPaged, kContig and kScratch16 at heads past 2048 (wide_cluster_slices):
+// the clusters of C blocks the card runs at once, or a negative
+// cudaError_t; and the launch over clusters of a.C blocks of k slices each
+// (maps: q, then K and V of the bf16 scratch in kScratch16).
+template <int MODE, int BITS>
 int active_slices(int C) {
-  auto kernel = wide_cluster_paged_slices<BITS>;
+  auto kernel = wide_cluster_slices<MODE, BITS>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SmemK::kBytes);
   if (attr != cudaSuccess) return -(int)attr;
   return occupancy(kernel, SmemK::kBytes, C);
 }
 
-template <int BITS>
-int launch_slices(const CUtensorMap& tq, const Args& a, int k, uint4* replay,
-                  cudaStream_t stream) {
+template <int MODE, int BITS>
+int launch_slices(const CUtensorMap (&maps)[3], const Args& a, int k,
+                  uint4* replay, cudaStream_t stream) {
   static int placed[kMaxCluster + 1] = {};
-  if (const int err = check_placed(placed, a.C, active_slices<BITS>))
+  if (const int err = check_placed(placed, a.C, active_slices<MODE, BITS>))
     return err;
-  return cluster_launch(wide_cluster_paged_slices<BITS>, SmemK::kBytes,
+  return cluster_launch(wide_cluster_slices<MODE, BITS>, SmemK::kBytes,
                         dim3(a.C * ((a.Sq + kBQ - 1) / kBQ), a.Z, a.nsplit),
-                        a.C, stream, tq, a, k, replay);
+                        a.C, stream, maps[0], maps[1], maps[2], a, k, replay);
 }
 
 // Dense and fused-QKV attention past 2048 (slices_attention), as above:
@@ -3020,15 +3220,10 @@ inline bool splits_fit(int nsplit, int tiles) {
   return (tiles + per - 1) / per == nsplit;
 }
 
-// The blocks of a cluster for heads of D, or 0 outside [kMinD, kMaxD].
-inline int cluster_blocks(int D) {
-  return D >= kMinD && D <= kMaxD && D % 8 == 0 ? (D + kCols - 1) / kCols : 0;
-}
-
 // The cluster for heads of any multiple of 8 past 256: n = ceil(D / 256)
 // slices of 256 columns, *k = ceil(n / 8) of them a block, and C = ceil(n /
-// k) blocks (returned; cluster_blocks(D) with k = 1 up to 2048); 0 (and *k
-// = 0) elsewhere. ops/attention.py: cluster_plan is the same.
+// k) blocks (returned; ceil(D / 256) with k = 1 up to 2048); 0 (and *k = 0)
+// elsewhere. ops/attention.py: cluster_plan is the same.
 inline int cluster_plan(int D, int* k) {
   *k = 0;
   if (D < kMinD || D % 8) return 0;

@@ -37,8 +37,7 @@ SOURCES = ("int8_gemm", "int8_mlp", "dense_attention", "quant_flash_paged",
            "batched_paged_attention", "paged_attention_a8",
            "fused_qkv_attention", "dense_attention_wide",
            "quant_flash_contig_wide", "quant_flash_paged_wide",
-           "paged_flash_wide", "paged_flash_cluster",
-           "fused_qkv_attention_wide")
+           "paged_flash_cluster", "fused_qkv_attention_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -71,20 +70,17 @@ SIGNATURES = {
                                     + (_P,) * 4),
     "dlm_paged_attention_cluster_splits": ("quant_flash_paged_wide",
                                            (_I,) * 5),
-    "dlm_batched_paged_attention_wide": ("paged_flash_wide",
-                                         (_P,) * 8 + (_I,) * 8 + (_P,)),
     "dlm_batched_paged_attention_cluster": ("paged_flash_cluster",
-                                            (_P,) * 8 + (_I,) * 8 + (_P,)),
+                                            (_P,) * 8 + (_I,) * 8
+                                            + (_P,) * 2),
     "dlm_batched_paged_attention_a8_cluster": ("paged_flash_cluster",
                                                (_P,) * 8 + (_I,) * 8
                                                + (_P,) * 3),
     "dlm_batched_paged_attention_cluster_active": ("paged_flash_cluster",
                                                    (_I,) * 3),
-    "dlm_quant_attention_wide": ("quant_flash_contig_wide",
-                                 (_P,) * 8 + (_I,) * 5 + (_F, _P)),
     "dlm_quant_attention_cluster": ("quant_flash_contig_wide",
                                     (_P,) * 8 + (_I,) * 5 + (_F, _P, _I)
-                                    + (_P,) * 3),
+                                    + (_P,) * 4),
     "dlm_quant_attention_cluster_active": ("quant_flash_contig_wide",
                                            (_I, _I)),
     "dlm_quant_attention_cluster_splits": ("quant_flash_contig_wide",

@@ -31,15 +31,12 @@ loop at the same rounding points. The kernels take every head width D that is
 a multiple of 8, with no upper limit (`head_dim_fits`), as JAX's take every
 such width its VMEM holds. Up to 256 a head of D runs in the instance of the
 smallest `KERNEL_WIDTHS` entry that holds it, zero past D; past 256 it runs
-in the wide instance of its design (D a runtime argument, `instance`): from
-264 to 2048 in a cluster of ceil(D / 256) blocks, each 256 columns of the
-head, the partial S summed across the cluster (`csrc/wide_cluster_flash.cuh`,
-`cluster_blocks`; quantized-KV attention's chain of KV tiles split over
-clusters, `quant_cluster_splits`); past 2048 quantized-KV attention in
-`csrc/wide_flash.cuh` (the output columns split over blocks of 128, S
-summed over chunks of 64 head columns in each), dense, fused-QKV and
-single-sequence paged attention in the cluster design with blocks of
-several 256-column slices (`cluster_plan`; `dense_instance`).
+in the cluster design (D a runtime argument, `instance`,
+`csrc/wide_cluster_flash.cuh`): from 264 to 2048 in a cluster of
+ceil(D / 256) blocks, each 256 columns of the head, the partial S summed
+across the cluster (`cluster_blocks`), past 2048 in blocks of several
+256-column slices (`cluster_plan`; `dense_instance`); quantized-KV
+attention's chain of KV tiles split over clusters (`quant_cluster_splits`).
 Where D % 8 != 0 the JAX package runs no Pallas kernel
 but XLA, and so does the port, on either device: `flash_fold` takes
 `dense_attention_einsum` (the einsum branch of JAX's `_flash_fold`),
@@ -59,9 +56,11 @@ from diffusion_llm_rs_tpu_torch.quant.core import div_const
 
 NEG_INF = -1e30
 # the head widths the attention kernels are instantiated at; a head of D runs
-# in the smallest that holds it, or past them in the wide instance
+# in the smallest that holds it, or past them in the cluster design
 KERNEL_WIDTHS = (16, 32, 64, 128, 192, 256)
-WIDE_CHUNK = 64       # head columns a chunk of the wide instance's S
+# head columns a TMA box of the cluster kernels loads from the batched paged
+# path's bf16 scratch, whose rows past 256 are D rounded up to whole boxes
+SCRATCH_BOX = 64
 CLUSTER_COLUMNS = 256  # head columns a block of the cluster kernels owns
 CLUSTER_MAX = 8        # blocks a cluster at most (the portable size)
 # heads past CLUSTER_COLUMNS * CLUSTER_MAX run blocks of several slices of
@@ -370,11 +369,11 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     version, and CUDA tensors launch the kernel, which serves every Sq and
     Skv >= 1 at 1/2/4/8 bits and every head width (`head_dim_fits`; the TPU
     wrapper hands shapes off its tiling to an XLA path with other
-    roundings): up to 256 `csrc/quant_flash_contig.cu`, from 264 to 2048
-    its cluster instance (the chain of 32-token KV tiles split over
-    `quant_cluster_splits` clusters and merged in the launch), past 2048
-    its wide
-    instance."""
+    roundings): up to 256 `csrc/quant_flash_contig.cu`, past it its
+    cluster instance (the chain of 32-token KV tiles split over
+    `quant_cluster_splits` clusters and merged in the launch; past 2048
+    blocks of several 256-column slices, pass 1 keeping for pass 2 three
+    16-byte words a thread and tile in `replay_scratch`)."""
     if k.bits != v.bits or k.shape != v.shape:
         raise ValueError(f"attention: K {k.shape} at {k.bits} bits, "
                          f"V {v.shape} at {v.bits} bits")
@@ -409,7 +408,7 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
     kd, ks, kz, vd, vs, vz = (t.contiguous() for t in (
         k.data, k.scale, k.zero_point, v.data, v.scale, v.zero_point))
     # bytes the kernel's loader reads from a packed row at once (the cluster
-    # and wide instances take any alignment)
+    # instance takes any alignment)
     row = 1 if D > KERNEL_WIDTHS[-1] else math.gcd(Dp, 8)
     if qb.data_ptr() % 16 or kd.data_ptr() % row or vd.data_ptr() % row:
         raise ValueError(f"attention: q must be 16-byte and the packed K/V "
@@ -422,7 +421,8 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
             torch.cuda.current_stream(q.device).cuda_stream)
     if suffix == "_cluster":  # the chain split over clusters, merged in-launch
         n = quant_cluster_splits(BH, Sq, Skv, D, k.bits)
-        scratch = split_scratch(q.device, n, BH, Sq, D)
+        scratch = split_scratch(q.device, n, BH, Sq, D) + (replay_scratch(
+            q.device, D, BH, Sq, -(-Skv // CLUSTER_KV_TILE)),)
         args += (n, *(None if t is None else t.data_ptr() for t in scratch))
     _build.check(_build.function(f"dlm_quant_attention{suffix}")(*args),
                  "quant_attention")
@@ -432,10 +432,10 @@ def attention(q: torch.Tensor, k: QuantKV, v: QuantKV,
 
 def quant_cluster_splits(BH: int, Sq: int, Skv: int, D: int,
                          bits: int) -> int:
-    """The splits over which `attention`'s cluster instance (heads of 264 to
-    2048 on the card) runs the chain of ceil(Skv / 32) KV tiles of each of
-    its ceil(Sq / 128) x BH clusters: enough to fill the card, at least 4
-    tiles a split, at most 8, and no split empty
+    """The splits over which `attention`'s cluster instance (heads past 256
+    on the card) runs the chain of ceil(Skv / 32) KV tiles of each of its
+    ceil(Sq / 128) x BH clusters: enough to fill the card, at least 4 tiles
+    a split, at most 8, and no split empty
     (`dlm_quant_attention_cluster_splits`)."""
     n = _build.function("dlm_quant_attention_cluster_splits")(
         BH, Sq, Skv, D, bits)
@@ -480,11 +480,12 @@ def head_dim_fits(D: int) -> bool:
 
 
 def kernel_width(D: int) -> int:
-    """The width a head of D runs at: the smallest `KERNEL_WIDTHS` entry that
-    holds it; past them, D rounded up to the wide instance's chunk of
-    `WIDE_CHUNK` columns (the rows of the batched paged path's scratch)."""
+    """The width a head of D runs at, and the rows of the batched paged
+    path's scratch: the smallest `KERNEL_WIDTHS` entry that holds it; past
+    them, D rounded up to whole `SCRATCH_BOX`es of 64 columns, the boxes by
+    which the cluster kernels load the scratch (zero past D)."""
     return next((w for w in KERNEL_WIDTHS if D <= w),
-                -(-D // WIDE_CHUNK) * WIDE_CHUNK)
+                -(-D // SCRATCH_BOX) * SCRATCH_BOX)
 
 
 def cluster_blocks(D: int) -> int:
@@ -492,9 +493,8 @@ def cluster_blocks(D: int) -> int:
     of every attention kernel (`csrc/wide_cluster_flash.cuh`,
     `csrc/fused_qkv_attention_wide.cu`: each block `CLUSTER_COLUMNS`
     columns of the head): ceil(D / 256) from 264 to 2048, where a cluster
-    has at most `CLUSTER_MAX` blocks, else 0. Past 2048 fused-QKV and
-    single-sequence paged attention give a block several slices
-    (`cluster_plan`)."""
+    has at most `CLUSTER_MAX` blocks, else 0. Past 2048 every attention
+    kernel gives a block several slices (`cluster_plan`)."""
     if not head_dim_fits(D) or not (
             KERNEL_WIDTHS[-1] < D <= CLUSTER_COLUMNS * CLUSTER_MAX):
         return 0
@@ -519,13 +519,13 @@ def cluster_plan(D: int) -> Tuple[int, int]:
 def instance(D: int) -> str:
     """The suffix of the C entry point a head of D launches in quantized-KV
     attention: "" at a `KERNEL_WIDTHS` entry, "_padded" between them (a
-    source of its own), and past them "_cluster" where `cluster_blocks(D)`
-    takes D (`csrc/wide_cluster_flash.cuh`), else "_wide"
-    (`csrc/wide_flash.cuh`). Dense and single-sequence paged attention
-    launch "_cluster" past 256 at every width (`dense_instance`,
+    source of its own), and past them "_cluster" at every multiple of 8
+    (`csrc/wide_cluster_flash.cuh`: a block one 256-column slice of the head
+    up to 2048, several past it, `cluster_plan`), as dense and
+    single-sequence paged attention launch (`dense_instance`,
     `ops/paged_attention.py: paged_instance`)."""
     if D > KERNEL_WIDTHS[-1]:
-        return "_cluster" if cluster_blocks(D) else "_wide"
+        return "_cluster"
     return "" if D == kernel_width(D) else "_padded"
 
 
@@ -541,10 +541,11 @@ def dense_instance(D: int) -> str:
 def replay_scratch(device, D: int, Z: int, Sq: int, tiles: int,
                    words: int = 3):
     """Past 2048 (`cluster_plan(D)[1] > 1`), what a k-slice cluster kernel of
-    paged attention keeps in pass 1 for its pass 2: for each of the Z heads'
-    ceil(Sq / 128) clusters, each of its `tiles` tiles and each thread of
-    its 256, `words` 16-byte words (single-sequence paged attention:
-    bf16(p * vs), alpha and csum of a 32-key tile; the batched int8 path: a
+    quantized-KV or paged attention keeps in pass 1 for its pass 2: for each
+    of the Z heads' ceil(Sq / 128) clusters, each of its `tiles` tiles and
+    each thread of its 256, `words` 16-byte words (`quant_attention`,
+    single-sequence paged attention and the batched bf16 path: bf16(p * vs)
+    or bf16(p), alpha and csum of a 32-key tile; the batched int8 path: a
     page's wi, alpha, sw and csum), Z * ceil(Sq / 128) * tiles * words *
     4096 bytes, in `torch.empty` so that a CUDA graph keeps it in its pool;
     None at 264 to 2048, where the kernels run one pass."""

@@ -13,13 +13,11 @@ the heads) and raises on anything else; on a CPU tensor it runs its plain
 twin (`*_plain`), which repeats the TPU kernel's arithmetic page by page at
 the same rounding points. A head of D up to 256 runs in the kernels'
 instance of the smallest `KERNEL_WIDTHS` entry that holds it, past 256 in
-the wide instance of each design (`ops/attention.py: instance`): from 264
-to 2048 in a cluster of ceil(D / 256) blocks, each 256 columns of the head
-(`csrc/wide_cluster_flash.cuh`; the batched kernels' entry points in
-`csrc/paged_flash_cluster.cu`); past 2048 the single-sequence kernel and the
-batched int8 path in the same cluster design with blocks of several slices
-of 256 columns (`ops/attention.py: cluster_plan`), the batched bf16 path in
-`csrc/wide_flash.cuh` (`batched_instance`); the batched path's scratch rows
+the cluster design (`csrc/wide_cluster_flash.cuh`; the batched kernels'
+entry points in `csrc/paged_flash_cluster.cu`, `paged_instance`,
+`batched_instance`): from 264 to 2048 a cluster of ceil(D / 256) blocks,
+each 256 columns of the head, past 2048 blocks of several slices of 256
+columns (`ops/attention.py: cluster_plan`); the batched path's scratch rows
 are `kernel_width(D)` wide (past 256, D rounded up to 64), zero past D.
 Where D % 8 != 0 no kernel of either package serves the pools (JAX's need
 rows of 128 lanes) and both wrappers take JAX's XLA paths on either
@@ -563,12 +561,10 @@ def paged_unpack(page_tables, n_pages, k_data, k_scale, k_zp, v_data,
 def batched_instance(D: int, a8: bool) -> str:
     """The suffix of the batched kernels' C entry point for heads of D (the
     int8 path's where a8): "" up to 256 (the instance of the scratch's
-    width, `paged_flash.cuh`), "_cluster" from 264 to 2048, and past 2048
-    "_cluster" on the int8 path (blocks of several slices, `cluster_plan`)
-    and "_wide" on the bf16 path (`csrc/wide_flash.cuh`)."""
-    if D <= KERNEL_WIDTHS[-1]:
-        return ""
-    return "_cluster" if a8 else instance(D)
+    width, `paged_flash.cuh`), and past it "_cluster" on both paths (a block
+    one 256-column slice of the head up to 2048, several past it,
+    `cluster_plan`)."""
+    return "" if D <= KERNEL_WIDTHS[-1] else "_cluster"
 
 
 def _a8_slices_scratch(device, Z, Sq, D, DK, n_max, PT):
@@ -645,15 +641,19 @@ def batched_paged_attention(q, page_tables, page_tokens, n_pages, k_data,
     nt, npg = (t.to(torch.int32).contiguous() for t in (page_tokens, n_pages))
     out = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    # past 256 the cluster kernel or the wide instance, which also take the
-    # scratch's rows and the page's tokens; the int8 cluster kernel also its
-    # scratch past 2048
+    # past 256 the cluster kernel, which also takes the scratch's rows and
+    # the page's tokens, and past 2048 scratch for its pass 2 (the int8
+    # path's also for q's levels)
     suffix = batched_instance(D, a8)
-    extra = (k.shape[4], k_data.shape[2] * (8 // bits)) if suffix else ()
+    P = k_data.shape[2] * (8 // bits)
+    extra = (k.shape[4], P) if suffix else ()
     scratch = ()  # tensors: held until the launch
-    if a8 and suffix == "_cluster":
+    if a8 and suffix:
         scratch = _a8_slices_scratch(q.device, B * H, Sq, D, k.shape[4],
                                      n_max, k.shape[3])
+    elif suffix:
+        scratch = (replay_scratch(q.device, D, B * H, Sq,
+                                  n_max * -(-P // CLUSTER_KV_TILE)),)
     err = _build.function(f"dlm_{name}{suffix}")(
         qb.data_ptr(), nt.data_ptr(), npg.data_ptr(), k.data_ptr(),
         v.data_ptr(), side.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H,

@@ -9,10 +9,21 @@ import this module and the module of `fn`: neither may import JAX, so the
 test files import it only inside their tests. `export` turns a JAX
 parameter tree into numpy leaves in `weights.from_jax_params`' form, telling
 the JAX layouts apart by their class names.
+
+A rank ends in order: its result saved, a barrier (no rank closes its
+connections while another still talks to it), the group destroyed, and the
+process ended with `os._exit`, so that nothing of the group is torn down
+again by the interpreter's exit. A rank that dies by a signal dumps its
+threads' Python stacks (`faulthandler`), and `spawn` names it and says
+whether it had saved its result. Only a run in which every rank saved its
+result and one then died tearing down (a failure to join, not a result)
+is run again, once; any other failure raises.
 """
 
 import datetime
+import faulthandler
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -20,11 +31,15 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+ATTEMPTS = 2  # runs of a spawn whose ranks all saved, one dying after
+
 
 def _entry(rank, fn, world, tmp):
+    faulthandler.enable(all_threads=True)
     os.environ["OMP_NUM_THREADS"] = "1"
     torch.set_num_threads(1)
-    payload = torch.load(os.path.join(tmp, "payload.pt"), weights_only=False)
+    payload = torch.load(os.path.join(tmp, "..", "payload.pt"),
+                         weights_only=False)
     from diffusion_llm_rs_tpu_torch.parallel.mesh import initialize_distributed
     initialize_distributed("gloo", f"file://{tmp}/rendezvous", world, rank,
                            timeout=datetime.timedelta(seconds=120))
@@ -33,22 +48,46 @@ def _entry(rank, fn, world, tmp):
         out["jax_loaded"] = any(
             m.split(".")[0] in ("jax", "diffusion_llm_rs_tpu")
             for m in sys.modules)
-        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+        path = os.path.join(tmp, f"rank{rank}.pt")
+        torch.save(out, path + ".part")
+        os.replace(path + ".part", path)
+        dist.barrier()
     finally:
         dist.destroy_process_group()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def spawn(fn, world, payload, tmp):
     """[fn's result on rank r for r in range(world)]; raises if a rank
-    raised (the others are stopped)."""
+    raised or died (the others are stopped), naming it."""
     tmp = str(tmp)
     os.makedirs(tmp, exist_ok=True)
     # through a file: a large argument would block each start until that
     # child has imported everything and read it, one child after another
     torch.save(payload, os.path.join(tmp, "payload.pt"))
-    mp.spawn(_entry, args=(fn, world, tmp), nprocs=world, join=True)
-    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)]
+    for attempt in range(ATTEMPTS):
+        run = os.path.join(tmp, f"run{attempt}")  # a fresh rendezvous
+        shutil.rmtree(run, ignore_errors=True)
+        os.makedirs(run)
+        paths = [os.path.join(run, f"rank{r}.pt") for r in range(world)]
+        try:
+            mp.spawn(_entry, args=(fn, world, run), nprocs=world, join=True)
+        except mp.ProcessExitedException as e:
+            saved = [os.path.exists(p) for p in paths]
+            why = (f"rank {e.error_index} of {world} (pid {e.error_pid}) "
+                   f"died by {e.signal_name or f'exit code {e.exit_code}'} "
+                   f"{'after' if saved[e.error_index] else 'before'} saving "
+                   f"its result; ranks with a result: "
+                   f"{[r for r in range(world) if saved[r]]}")
+            if all(saved) and attempt + 1 < ATTEMPTS:
+                print(f"spawn: {why}; every rank saved its result, so the "
+                      f"ranks failed to join: running them again",
+                      file=sys.stderr, flush=True)
+                continue
+            raise RuntimeError(f"spawn: {why}") from e
+        return [torch.load(p, weights_only=False) for p in paths]
 
 
 def export(tree):

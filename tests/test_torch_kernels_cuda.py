@@ -26,9 +26,8 @@ pytestmark = pytest.mark.cuda
 # 128, 192 and 256 that holds it, zero past D): every new instance, at its
 # own width and padded
 WIDE = [8, 24, 48, 80, 96, 136, 192, 200, 256]
-# past 256, the wide instance of each design (csrc/wide_flash.cuh; dense and
-# single-sequence paged attention: the cluster kernels of
-# csrc/wide_cluster_flash.cuh): a ragged last column block (264), the heads
+# past 256, the cluster kernels of each design (csrc/wide_cluster_flash.cuh):
+# a ragged last column block (264), the heads
 # of width 768 at 2 and 1 heads (384, 768), and whole column blocks up to 16
 # of them (512, 1024, 2048: clusters of 2, 4 and 8)
 WIDER = [264, 384, 512, 768, 1024, 2048]
@@ -570,8 +569,8 @@ DG = [(16, 1), (32, 4), (64, 1), (64, 2), (128, 1)] + [
         # runs, and of 24 in groups of 2 (8-byte reads of the pool)
         (8, 1), (24, 2), (48, 1), (48, 8), (80, 1), (96, 1), (136, 1),
         (192, 1), (200, 1), (256, 1))] + [
-    # the wide instance (csrc/wide_flash.cuh): every WIDER width alone, and
-    # heads of 384 in pairs (rows of 768)
+    # the cluster kernels (csrc/wide_cluster_flash.cuh): every WIDER width
+    # alone, and heads of 384 in pairs (rows of 768)
     pytest.param(d, g, id=f"W{d}G{g}") for d, g in (
         (264, 1), (384, 1), (384, 2), (512, 1), (768, 1), (1024, 1),
         (2048, 1))]
@@ -739,8 +738,8 @@ def test_paged_attention_cluster_splits_merge_in_launch(gen, D):
     assert not any(bool(t.any()) for t in qa._split_counters[q.device])
 
 
-# past 2048 the single-sequence kernel, dense attention and the batched
-# int8 path give a block k slices of 256 columns (`cluster_plan`): 2056 (k =
+# past 2048 every attention kernel gives a block k slices of 256 columns
+# (`cluster_plan`): 2056 (k =
 # 2, a last block of 8 columns), 2560 (k = 2), 4104 (k = 3) and 10240 (k =
 # 5, clusters of 8)
 PAST = [2056, 2560, 4104, 10240]
@@ -906,7 +905,8 @@ def _cluster_mode_call(gen, mode, D):
     ("batched", 768), ("batched_a8", 768), ("dense", 2048),
     ("fused_qkv", 2056), ("paged", 2056), ("fused_qkv", 4104),
     ("paged", 4104), ("dense", 2056), ("batched_a8", 2056), ("dense", 4104),
-    ("batched_a8", 4104)])
+    ("batched_a8", 4104), ("contig", 2056), ("batched", 2056),
+    ("contig", 4104), ("batched", 4104)])
 def test_cluster_modes_repeat_bit_for_bit(gen, mode, D):
     """Each mode of the cluster design, and fused-QKV attention's, run 20
     times on one input gives the same bits every time: P is formed only
@@ -1177,13 +1177,31 @@ def test_batched_paged_attention_a8_past_2048_head_groups(gen, P, D, G):
     _batched_cluster_case(gen, D, P, 4, G, 8, H=4)
 
 
-def test_batched_paged_attention_past_the_clusters_runs_wide(gen):
-    """Heads of 2056 run csrc/wide_flash.cuh with bf16 activations and the
-    cluster kernel in blocks of 2 slices with int8 ones; the cluster entry
-    points refuse 256, the bf16 one 2056 and the int8 one 2056 without its
-    scratch, and the wide one 2048, rather than serve them; the card places
-    the cluster instances' clusters, past 2048 those of the int8 path's."""
-    assert pa.batched_instance(2056, a8=False) == "_wide"
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("P", [24, 32, 72, 128])
+@pytest.mark.parametrize("D", PAST)
+def test_batched_paged_attention_past_2048_matches_twin(gen, bits, P, D):
+    """The bf16 path past 2048, in blocks of k slices (the tiles' bf16(p),
+    alpha and csum kept in scratch, P.V replayed slice by slice): pages of
+    24 (shorter than its tile of 32), 32, 72 (a last tile of 8 tokens) and
+    128, `_batched_cluster_case`'s slots (an empty one) and bounds."""
+    _batched_cluster_case(gen, D, P, bits, 1, 16)
+
+
+@pytest.mark.parametrize("P", [72, 128])
+@pytest.mark.parametrize("D,G", [(2056, 2), (2560, 4), (4104, 2)])
+def test_batched_paged_attention_past_2048_head_groups(gen, P, D, G):
+    """The bf16 path past 2048 with heads in groups of G, four heads."""
+    _batched_cluster_case(gen, D, P, 4, G, 16, H=4)
+
+
+def test_batched_paged_attention_past_the_clusters_runs_slices(gen):
+    """Heads of 2056 run the cluster kernels in blocks of 2 slices with
+    bf16 and with int8 activations, each replayed from a CUDA graph bit for
+    bit (its pass-2 scratch lives in the graph's pool); the cluster entry
+    points refuse 256, and 2056 without their scratch, rather than serve
+    them; the card places both paths' clusters past 2048."""
+    assert pa.batched_instance(2056, a8=False) == "_cluster"
     assert pa.batched_instance(2056, a8=True) == "_cluster"
     for act_bits in (16, 8):
         B, H, Sq, D, P = 2, 1, 40, 2056, 64
@@ -1201,34 +1219,40 @@ def test_batched_paged_attention_past_the_clusters_runs_wide(gen):
         assert float((out - ref).norm() / ref.norm()) <= (
             5e-3 if act_bits == 8 else 1e-2)
         torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            g_out, g_lse = pa.batched_paged_attention(
+                q, pt, nt, npg, *pools, bits=4, return_lse=True,
+                act_bits=act_bits)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g_out, out) and torch.equal(g_lse, lse)
     q = torch.zeros((1, 1, 8, 2056), device="cuda").bfloat16()
     buf = torch.zeros((1 << 16,), device="cuda")
     one = torch.ones((1,), dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    for name, D, scratch in (("_cluster", 256, ()), ("_cluster", 2056, ()),
-                             ("_wide", 2048, ()), ("_a8_cluster", 256, (0, 0)),
+    for name, D, scratch in (("_cluster", 256, (buf.data_ptr(),)),
+                             ("_cluster", 2056, (0,)),
+                             ("_a8_cluster", 256, (0, 0)),
                              ("_a8_cluster", 2056, (0, 0))):
         assert _build.function(f"dlm_batched_paged_attention{name}")(
             q.data_ptr(), one.data_ptr(), one.data_ptr(), buf.data_ptr(),
             buf.data_ptr(), buf.data_ptr(), buf.data_ptr(), buf.data_ptr(),
             1, 1, 8, D, 1, 64, 2112, 64, stream, *scratch) != 0, (name, D)
     active = _build.function("dlm_batched_paged_attention_cluster_active")
-    for D in (264, 520, 776, 1032, 1288, 1544, 1800, 2048):
+    for D in (264, 520, 776, 1032, 1288, 1544, 1800, 2048, 2056, 2824, 3592,
+              4104, 10240):
         for P in (24, 56, 72, 128):
             for a8 in (0, 1):
                 assert active(D, P, a8) > 0, (D, P, a8)
-    for D in (2056, 2824, 3592, 4104, 10240):
-        for P in (24, 56, 72, 128):
-            assert active(D, P, 1) > 0, (D, P)
-            assert active(D, P, 0) < 0, (D, P)
 
 
 # ------------------------------------------------ quantized-KV attention ---
 
 def _quant_plain(q, k, v):
     """`attention_plain` at the KV tile of the kernel that serves these
-    heads (64 tokens; the cluster instance's 32 at heads of 264 to 2048) and
-    the cluster instance's split of the chain over clusters."""
+    heads (64 tokens; the cluster instance's 32 past 256) and the cluster
+    instance's split of the chain over clusters."""
     BH, Sq, D = q.shape
     if qa.instance(D) != "_cluster":
         return qa.attention_plain(q, k, v, tile=qa.KERNEL_KV_TILE)
@@ -1281,8 +1305,9 @@ def test_quant_attention_kernel_at_sampler_shapes(gen, bits, BH, S, D):
 
 
 # quantized-KV attention's cluster instance (csrc/wide_cluster_flash.cuh mode
-# kContig, heads of 264 to 2048): a last block of 8 and of 16 columns (264,
-# 272; packed rows of 33 bytes at D = 264 and 1 bit), clusters of 3, 4 and 8
+# kContig): a last block of 8 and of 16 columns (264, 272; packed rows of 33
+# bytes at D = 264 and 1 bit), clusters of 3, 4 and 8, and past 2048 (`PAST`)
+# blocks of k slices
 QUANT_CLUSTER = [264, 272, 520, 1024, 2048]
 
 
@@ -1442,29 +1467,98 @@ def test_split_counters_outlive_the_graphs_that_use_them(gen, monkeypatch):
     assert float((big - ref).norm() / ref.norm()) <= 2e-3
 
 
-def test_quant_attention_past_the_clusters_runs_wide(gen):
-    """Heads of 2056 launch the wide instance (csrc/wide_flash.cuh), and
-    each entry point refuses the widths of the other."""
-    D = 2056
-    assert qa.instance(D) == "_wide"
-    q = torch.randn((2, 70, D), generator=gen, device="cuda")
-    k, v = (qa.quantize_kv(torch.randn((2, 130, D), generator=gen,
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("Sq,Skv", [(1, 33), (100, 130), (256, 999)])
+@pytest.mark.parametrize("D", PAST)
+def test_quant_attention_past_2048_matches_plain(gen, bits, Sq, Skv, D):
+    """Past 2048, blocks of k slices (the tiles' bf16(p * vs), alpha and
+    csum kept in scratch, P.V replayed slice by slice): one launch, within
+    2e-3 relative of the plain version at the kernel's tile of 32 tokens,
+    in one run and split as the kernel splits it (the chain of 2 tiles in
+    one piece, of 32 split where the card has room); packed rows of 257
+    bytes at D = 2056 and 1 bit. V is N(1, 3), as in
+    `test_quant_attention_cluster_matches_plain`."""
+    BH = 3
+    assert qa.instance(D) == "_cluster" and qa.cluster_plan(D)[1] > 1
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    k = qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen, device="cuda"),
+                       bits)
+    v = qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen, device="cuda")
+                       * 3 + 1, bits)
+    _build.reset_launch_counts()
+    out = qa.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["quant_attention"] == 1
+    assert out.dtype == torch.float32 and out.shape == (BH, Sq, D)
+    n = qa.quant_cluster_splits(BH, Sq, Skv, D, bits)
+    if Skv == 33:
+        assert n == 1
+    for splits in {1, n}:
+        ref = qa.attention_plain(q, k, v, tile=qa.CLUSTER_KV_TILE,
+                                 splits=splits)
+        rel = float((out - ref).norm() / ref.norm())
+        assert rel <= 2e-3 and bool(torch.isfinite(out).all()), (splits, rel)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quant_attention_past_2048_split_at_unit_values(gen, bits):
+    """The scan sampler's shape on `heads_wide`'s model of one head of 2560
+    (B = 8, Sq = Skv = 256), N(0, 1) q, K and V, the chain split: the
+    bounds of `test_quant_attention_cluster_split_at_unit_values` (2e-3 of
+    the split plain version, 5e-3 of the chain in one run, C44)."""
+    BH, S, D = 8, 256, 2560
+    n = qa.quant_cluster_splits(BH, S, S, D, bits)
+    q = torch.randn((BH, S, D), generator=gen, device="cuda")
+    k, v = (qa.quantize_kv(torch.randn((BH, S, D), generator=gen,
+                                       device="cuda"), bits)
+            for _ in range(2))
+    out = qa.attention(q, k, v)
+    for splits, bound in ((n, 2e-3), (1, 5e-3)):
+        ref = qa.attention_plain(q, k, v, tile=qa.CLUSTER_KV_TILE,
+                                 splits=splits)
+        rel = float((out - ref).norm() / ref.norm())
+        print(f"D={D} {bits}-bit, {n} splits, against {splits}: rel {rel:.3g}")
+        assert rel <= bound and bool(torch.isfinite(out).all()), (splits, rel)
+
+
+def test_quant_attention_past_the_clusters_runs_slices(gen):
+    """Heads of 2056 launch the cluster instance in blocks of 2 slices, its
+    chain split over clusters and merged in the launch: a graph replay
+    equal to the eager call bit for bit (its pass-2 scratch lives in the
+    graph's pool), the counters left at zero; the entry point refuses 256,
+    and 2056 without that scratch, and the card places its clusters."""
+    D, BH, Sq, Skv = 2056, 1, 128, 999
+    assert qa.instance(D) == "_cluster"
+    assert qa.quant_cluster_splits(BH, Sq, Skv, D, 4) > 1
+    q = torch.randn((BH, Sq, D), generator=gen, device="cuda")
+    k, v = (qa.quantize_kv(torch.randn((BH, Skv, D), generator=gen,
                                        device="cuda"), 4) for _ in range(2))
     _build.reset_launch_counts()
     out = qa.attention(q, k, v)
     torch.cuda.synchronize()
     assert _build.launch_counts["quant_attention"] == 1
-    ref = qa.attention_plain(q, k, v, tile=qa.KERNEL_KV_TILE)
-    assert float((out - ref).norm() / ref.norm()) <= 2e-3
+    assert float((out - _quant_plain(q, k, v)).norm()
+                 / _quant_plain(q, k, v).norm()) <= 2e-3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = qa.attention(q, k, v)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_out, out)
+    assert not any(bool(t.any()) for t in qa._split_counters[q.device])
     p = (q.data_ptr(), k.data.data_ptr(), k.scale.data_ptr(),
          k.zero_point.data_ptr(), v.data.data_ptr(), v.scale.data_ptr(),
          v.zero_point.data_ptr(), out.data_ptr())
     stream = torch.cuda.current_stream().cuda_stream
-    assert _build.function("dlm_quant_attention_wide")(
-        *p, 2, 70, 130, 2048, 4, 1.0, stream) != 0
-    assert _build.function("dlm_quant_attention_cluster")(
-        *p, 2, 70, 130, D, 4, 1.0, stream, 1, None, None, None) != 0
-    assert _build.function("dlm_quant_attention_cluster_active")(D, 4) < 0
+    fn = _build.function("dlm_quant_attention_cluster")
+    assert fn(*p, BH, Sq, Skv, 256, 4, 1.0, stream, 1, None, None, None,
+              out.data_ptr()) != 0
+    assert fn(*p, BH, Sq, Skv, D, 4, 1.0, stream, 1, None, None, None,
+              None) != 0
+    for bits in (1, 2, 4, 8):
+        for width in (2056, 2560, 4104, 10240):
+            assert _build.function("dlm_quant_attention_cluster_active")(
+                width, bits) > 0, (width, bits)
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])

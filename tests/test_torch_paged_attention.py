@@ -563,6 +563,38 @@ def test_single_twin_past_2048_matches_jax(D):
 
 
 @pytest.mark.parametrize("D", [2056, 2560])
+def test_batched_twin_past_2048_matches_jax(D):
+    """The batched bf16 path past 2048, which the card runs in its cluster
+    kernel with two 256-column slices a block: one head, slot 0 over two
+    4-bit pages of 128 (the last partial), slot 1 inactive, Sq = 16. JAX
+    runs its interpreted kernel at 2560 (G*D % 128 == 0) and its exact f32
+    `_batched_fallback` at 2056: the tolerances of
+    `test_batched_twins_at_wide_and_padded_heads_match_jax` (the kernel:
+    1e-3 and lse 1e-4; the fall-back: 2e-2, lse 2e-2)."""
+    B, H, Sq, P, bits = 2, 1, 16, 128, 4
+    rng = np.random.default_rng(900 + D)
+    pools = _grouped_pools(rng, H, 2 * P, D, P, 1, bits)
+    q = rng.normal(size=(B, H, Sq, D)).astype(np.float32)
+    jout, jlse = jppa.batched_paged_attention(
+        *_j(q, PT, NT, NPG, *pools), bits=bits, return_lse=True)
+    tout, tlse = tpa.batched_paged_attention(
+        *_t(q, PT, NT, NPG, *pools), bits=bits, return_lse=True)
+    kernel = D % 128 == 0
+    rel, lse = _rel(tout[0], jout[0]), _lse_err(tlse, jlse)
+    print(f"batched bf16 twin vs JAX {'kernel' if kernel else 'fall-back'}, "
+          f"D={D}: rel {rel:.3g}, lse {lse:.3g}")
+    assert tout.shape == (B, H, Sq, D)
+    if kernel:
+        assert rel < 1e-3 and lse < 1e-4
+    else:
+        assert rel < 2e-2
+        np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=2e-2,
+                                   atol=2e-2)
+    assert np.all(tout[1].numpy() == 0)
+    assert np.all(tlse[1].numpy() == tpa.NEG_INF)
+
+
+@pytest.mark.parametrize("D", [2056, 2560])
 def test_batched_a8_twin_past_2048_matches_jax(D):
     """The batched int8 path past 2048, which the card runs in its cluster
     kernel with two 256-column slices a block: one head, slot 0 over two

@@ -254,6 +254,60 @@ def test_plain_at_the_cluster_schedule_matches_jax(D, bits, splits):
     assert port <= 1.25 * jax_ and between < 1e-2
 
 
+@pytest.fixture
+def one_thread():
+    """Small tensors on the CPU: with the suite's six test processes on one
+    machine, torch's thread pool costs each of them more than it gives (the
+    k-slice model below took 5.6 s on eight threads beside them, 0.05 s on
+    one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("nsplit", [1, 2])
+def test_slices_schedule_matches_jax_kernel_past_2048(nsplit, one_thread):
+    """Past 2048 the card's cluster instance gives a block k slices of 256
+    channels (2 at D = 2560, `cluster_plan`) and runs two passes; its
+    schedule (`test_torch_wide_routing.contig_slices_model`: tiles of 32
+    tokens, S from each block's partial over its slices in rank order, P.V
+    replayed slice by slice, the chain in 1 or 2 runs) against JAX's
+    interpreted kernel at the 2560 model's head, BH=1, Sq = Skv = 256,
+    4 bits (JAX's VMEM estimate admits it), N(0, 1) q, K and V: C44's
+    bounds, the port within 1.25x of JAX's distance from the exact
+    attention over the same quantized K/V (f64), and within 1e-2 of JAX."""
+    from test_torch_wide_routing import contig_slices_model
+    D, bits = 2560, 4
+    if (D, bits) not in _JAX_WIDE:
+        rng = np.random.default_rng(2560)
+        BH, S = 1, 256
+        q = rng.normal(size=(BH, S, D)).astype(np.float32)
+        jk, jv = (jpa.quantize_kv(jnp.asarray(rng.normal(size=(BH, S, D))
+                                              .astype(np.float32)), bits)
+                  for _ in range(2))
+        # JAX's VMEM estimate (`attention`): its kernel, not the fall-back
+        assert 2 * S * (D // 2) + 4 * S * 4 + S * D * 10 <= 12 * 2**20
+        _JAX_WIDE[D, bits] = (q, jk, jv, np.asarray(
+            jpa.attention(jnp.asarray(q), jk, jv)))
+    q, jk, jv, jout = _JAX_WIDE[D, bits]
+    k, v = _to_torch(jk), _to_torch(jv)
+    tout = contig_slices_model(torch.from_numpy(q), k, v, 1.0 / math.sqrt(D),
+                               nsplit)
+
+    def exact(t):  # the dequantized values, f64: scale * (level - zero)
+        return ((t.levels().double() - t.zero_point.double()[..., None])
+                * t.scale.double()[..., None])
+    qb = torch.from_numpy(q).bfloat16().double()
+    ref = torch.softmax(qb @ exact(k).transpose(1, 2) / math.sqrt(D),
+                        dim=-1) @ exact(v)
+    port, jax_, between = _rel(tout, ref), _rel(jout, ref), _rel(tout, jout)
+    print(f"k-slice schedule in {nsplit} run(s), {bits}-bit D={D}: port "
+          f"{port:.3g} and JAX {jax_:.3g} from exact, {between:.3g} apart")
+    assert tuple(tout.shape) == q.shape
+    assert port <= 1.25 * jax_ and between < 1e-2
+
+
 @pytest.mark.parametrize("bits", [8, 4, 2, 1])
 def test_plain_at_the_kernel_tile_at_a_ragged_skv(bits):
     """Skv = 200, a ragged last tile of 8 tokens at the kernel's tile; JAX

@@ -3,10 +3,8 @@
 Dense, quantized-KV (contiguous and single-sequence paged) and batched
 paged attention run heads of 264 to 2048 in the cluster kernels of
 `csrc/wide_cluster_flash.cuh` (ceil(D / 256) blocks, each 256 columns of the
-head, the partial S summed in rank order); past 2048 dense, single-sequence
-paged and batched int8 paged attention run the same design with blocks of k
-slices of 256 columns (`cluster_plan`), quantized-KV and batched bf16 paged
-attention `csrc/wide_flash.cuh`; fused-QKV
+head, the partial S summed in rank order), and past 2048 the same design
+with blocks of k slices of 256 columns (`cluster_plan`); fused-QKV
 attention runs heads of up to 256 in its `wgmma` design's instances of
 32-256, and wider ones in the same two passes over a cluster
 (`csrc/fused_qkv_attention_wide.cu`, k slices a block past 2048). The
@@ -24,8 +22,9 @@ sums, its s32 partial S in sub-tiles of 64 tokens, a page's sub-tiles held
 for the per-page requantization and P.V in two halves of 128 columns a
 block; fused-QKV attention's two exact passes, the logits of the first
 kept for the second; past 2048 each block's partial S summed over its k
-slices, and pass 2 slice by slice, dense, single-sequence paged and batched
-int8 attention replaying the online recurrence that pass 1 kept) and hold
+slices, and pass 2 slice by slice, dense, quantized-KV, single-sequence
+paged and batched attention replaying the online recurrence that pass 1
+kept) and hold
 it against the
 plain versions the card tests hold the kernels against, at those tests'
 tolerances. No JAX.
@@ -64,8 +63,8 @@ ROUTES = [
     (768, 3, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster"),
     (1024, 4, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster"),
     (2048, 8, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster"),
-    (2056, 0, "_cluster", "_wide", "_wide", "_cluster", "_cluster"),
-    (4096, 0, "_cluster", "_wide", "_wide", "_cluster", "_cluster")]
+    (2056, 0, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster"),
+    (4096, 0, "_cluster", "_cluster", "_cluster", "_cluster", "_cluster")]
 
 
 # each case keeps the ID it was first given, when quant_attention ran
@@ -79,10 +78,10 @@ def test_each_head_width_reaches_its_design(D, blocks, dense, other,
                                             batched, paged, batched_a8):
     """`dense_attention` launches `dense_instance(D)`, the cluster kernel at
     every width past 256; `attention` launches `instance(D)` (its padded
-    source between the fixed widths); `paged_attention` launches
-    `paged_instance(D)`, the cluster kernel at every width past 256; the
-    batched int8 path the cluster kernel past 256, its bf16 path
-    `csrc/wide_flash.cuh` past 2048."""
+    source between the fixed widths, the cluster kernel past 256);
+    `paged_attention` launches `paged_instance(D)`, the cluster kernel at
+    every width past 256; the batched bf16 and int8 paths the cluster kernel
+    past 256."""
     assert qa.cluster_blocks(D) == blocks
     assert qa.dense_instance(D) == dense
     assert qa.instance(D) == other
@@ -341,6 +340,91 @@ def test_contig_cluster_schedule_matches_the_plain_version(D, bits, Skv,
         assert float((out - ref).norm() / ref.norm()) <= 2e-3
 
 
+def contig_slices_model(q, k, v, sm, nsplit):
+    """kContig's schedule past 2048 (`wide_cluster_slices<kContig>`): the
+    cluster of `cluster_plan(D)`, C blocks of k slices, each slice's levels
+    unpacked from its bytes of the packed rows as `contig_block_levels`
+    gives them; KV tiles of 32 tokens, the chain in runs of ceil(tiles /
+    nsplit). Pass 1, over a run's tiles: qsum and S from each block's
+    partial over its k slices, added in rank order; logits = raw * ka' - kb
+    * qsum; the online softmax, keeping for each tile bf16(p * vs), alpha
+    and csum = sum(p * vs * vz). Pass 2 replays the recurrence slice by
+    slice, acc = acc * alpha - csum + bf16(p * vs) . lv; the runs merge by
+    (m, l) in split order and out = acc * (1 / l)."""
+    BH, Sq, D = q.shape
+    Skv = k.shape[1]
+    cols = 256 * qa.cluster_plan(D)[1]
+    qb = q.to(torch.bfloat16).float()
+    qsum = _rank_sum(qb, cols)
+    k_lv, v_lv = (torch.cat([contig_block_levels(t.data, D, t.bits, c0)
+                             for c0 in range(0, D, 256)], -1).float()
+                  for t in (k, v))
+    tiles = list(range(0, Skv, 32))
+    per = -(-len(tiles) // nsplit)
+    parts = []
+    for t0 in range(0, len(tiles), per):
+        m = torch.full((BH, Sq, 1), qa.NEG_INF)
+        l = torch.zeros_like(m)
+        kept = []
+        for j in tiles[t0:t0 + per]:  # pass 1
+            sl = slice(j, min(Skv, j + 32))
+            ks, kz, vs, vz = (a[:, None, sl] for a in (
+                k.scale, k.zero_point, v.scale, v.zero_point))
+            ka = ks * sm
+            logits = _partials_sum(qb, k_lv[:, sl], cols) * ka - (ka * kz) * qsum
+            m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+            p = torch.exp(logits - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            kept.append(((p * vs).to(torch.bfloat16).float(), alpha,
+                         (p * vs * vz).sum(-1, keepdim=True), sl))
+            m = m_new
+        acc = torch.zeros((BH, Sq, D))
+        for c0 in range(0, D, 256):  # pass 2, a slice at a time
+            a = acc[..., c0:c0 + 256]
+            for w, alpha, csum, sl in kept:
+                a = a * alpha - csum + w @ v_lv[:, sl, c0:c0 + 256]
+            acc[..., c0:c0 + 256] = a
+        parts.append((m, l, acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - M) for m, _, _ in parts]
+    wl = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+    return sum(wi * a for wi, (_, _, a) in zip(w, parts)) * (1.0 / wl)
+
+
+@pytest.mark.parametrize("nsplit", [1, 3])
+@pytest.mark.parametrize("bits,Skv,D", [(4, 130, 2056), (1, 64, 2056),
+                                        (8, 64, 4104), (2, 130, 4104)])
+def test_contig_slices_schedule_matches_the_plain_version(D, bits, Skv,
+                                                          nsplit):
+    """Past 2048, at k = 2 (2056: a last block of one slice of 8 columns;
+    packed rows of 257 bytes at 1 bit, whose slices span fields of one
+    wrapping byte run) and k = 3 (4104), a last tile of 2 tokens at Skv =
+    130, the chain in one run and split in three: each slice's levels equal
+    `QuantKV.levels()` bit for bit, and the schedule is within the card
+    test's 2e-3 of `attention_plain` at the kernel's tile of 32 tokens,
+    split as the model splits it and in one run."""
+    rng = np.random.default_rng(D + bits + Skv + nsplit)
+    BH, Sq = 2, 40
+    q = torch.from_numpy(rng.standard_normal((BH, Sq, D), dtype=np.float32))
+    k, v = (qa.quantize_kv(torch.from_numpy(
+        (rng.standard_normal((BH, Skv, D)) * s + o).astype(np.float32)), bits)
+        for s, o in ((1.0, 0.0), (3.0, 1.0)))
+    for t in (k, v):
+        lv = t.levels()
+        for c0 in range(0, D, 256):
+            assert torch.equal(contig_block_levels(t.data, D, bits, c0),
+                               lv[..., c0:c0 + 256])
+    sm = 1.0 / math.sqrt(D)
+    out = contig_slices_model(q, k, v, sm, nsplit)
+    for splits in (1, nsplit):
+        ref = qa.attention_plain(q, k, v, sm, tile=32, splits=splits)
+        rel = float((out - ref).norm() / ref.norm())
+        print(f"D={D} {bits}-bit Skv={Skv} nsplit={nsplit} against "
+              f"{splits}: rel {rel:.3g}")
+        assert rel <= 2e-3
+
+
 def _rank_max(x, cols=256):
     """The row maxima of |x| as the cluster exchanges them: each block's
     over its 256 columns, then the maximum of the partials."""
@@ -485,6 +569,77 @@ def test_batched_cluster_schedules_match_the_plain_version(D, P, bits, G, a8):
         q, nt, npg, k, v, sd, P, return_lse=True)
     assert torch.all(out[1] == 0) and torch.all(lse[1] == pa.NEG_INF)
     assert float((out - ref).norm() / ref.norm()) <= (5e-3 if a8 else 1e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
+
+
+def batched_slices_model(q, page_tokens, n_pages, k, v, side, P):
+    """kScratch16's schedule past 2048 (`wide_cluster_slices<kScratch16>`):
+    the cluster of `cluster_plan(D)`, C blocks of k slices, over the bf16
+    scratch of `paged_unpack_plain`; each slot's pages as tiles of 32 tokens
+    (the last tile of a page ends at P), the chain in one piece. Pass 1:
+    qsum and S from each block's partial over its k slices, added in rank
+    order; -1e30 past a page's valid tokens; the online softmax, keeping for
+    each tile bf16(p), alpha and csum = sum(p * vc). Pass 2 slice by slice,
+    acc = acc * alpha - csum + bf16(p) . v_sc; a slot with no page 0 with
+    an lse of -1e30."""
+    B, H, Sq, D = q.shape
+    cols = 256 * qa.cluster_plan(D)[1]
+    qb = q.to(torch.bfloat16).float()
+    qsum = _rank_sum(qb, cols)
+    out = torch.zeros((B, H, Sq, D))
+    lse = torch.full((B, H, Sq), pa.NEG_INF)
+    for b in range(B):
+        m = torch.full((H, Sq, 1), pa.NEG_INF)
+        l = torch.zeros_like(m)
+        kept = []
+        for j in range(int(n_pages[b])):  # pass 1
+            for h0 in range(0, P, 32):
+                sl = slice(h0, min(P, h0 + 32))
+                ka, kb, vc = (side[b, :, j, i, None, sl] for i in range(3))
+                raw = _partials_sum(qb[b], k[b, :, j, sl, :D].float(), cols)
+                logits = raw * ka - kb * qsum[b]
+                tok = torch.arange(sl.start, sl.stop)
+                logits = torch.where(tok < int(page_tokens[b, j]), logits,
+                                     pa.NEG_INF)
+                m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+                p = torch.exp(logits - m_new)
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                kept.append((p.to(torch.bfloat16).float(), alpha,
+                             (p * vc).sum(-1, keepdim=True),
+                             v[b, :, j, sl, :D].float()))
+                m = m_new
+        acc = torch.zeros((H, Sq, D))
+        for c0 in range(0, D, 256):  # pass 2, a slice at a time
+            a = acc[..., c0:c0 + 256]
+            for w, alpha, csum, v_sc in kept:
+                a = a * alpha - csum + w @ v_sc[..., c0:c0 + 256]
+            acc[..., c0:c0 + 256] = a
+        if int(n_pages[b]):
+            out[b] = acc * (1.0 / l)
+            lse[b] = (m + torch.log(l))[..., 0]
+    return out, lse
+
+
+@pytest.mark.parametrize("D,P,bits,G", [(2056, 72, 4, 1), (2056, 24, 1, 2),
+                                        (4104, 128, 8, 1), (4104, 32, 2, 2)])
+def test_batched_slices_schedule_matches_the_plain_version(D, P, bits, G):
+    """Past 2048, at k = 2 (2056: a last block of one slice of 8 columns)
+    and k = 3 (4104), pages of 72 (a last tile of 8 tokens), 24 (shorter
+    than its tile), 128 and 32, heads alone and in groups of 2; the chain of
+    a slot runs in one piece (the batched kernels do not split it). The card
+    tests' tolerance (rel Frobenius <= 1e-2, lse within 1e-3) over
+    `_batched_scratch`'s slots: an empty slot gives 0 and an lse of -1e30,
+    and a page whose every token is masked weighs each key 1 in both."""
+    q, nt, npg, k, v, sd = _batched_scratch(D, P, bits, G, False,
+                                            D + P + bits + G)
+    out, lse = batched_slices_model(q, nt, npg, k, v, sd, P)
+    ref, ref_lse = pa.batched_paged_attention_unpacked_plain(
+        q, nt, npg, k, v, sd, P, return_lse=True)
+    rel = float((out - ref).norm() / ref.norm())
+    print(f"D={D} P={P} {bits}-bit G={G}: rel {rel:.3g}")
+    assert torch.all(out[1] == 0) and torch.all(lse[1] == pa.NEG_INF)
+    assert rel <= 1e-2
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)
 
 
